@@ -10,17 +10,21 @@ Phases, all on ``cuda:0``:
    ``pinot_tpu_torch/csrc/`` (one ``nvcc`` per source, started together).
 2. The SSB lineorder table is generated from seed 7 with bench.py's
    columns and distributions and written by the port's creator in worker
-   processes, while the GPU holds each kernel of the path against its
-   plain PyTorch version at the main path's shapes: K1 group plane sums
-   (integer planes bit-exact, float planes within rtol 1e-6) and K2 group
-   min/max (bit-exact). CUDA-event times of the kernel, of its plain
+   processes, while the GPU holds each kernel against its plain PyTorch
+   version at the main paths' shapes: K1 group plane sums through both
+   entries (integer planes bit-exact, float planes within rtol 1e-6), K2
+   group min/max (bit-exact) and K3 HLL register max at 1024, 35,840 and
+   2^20 slots (bit-exact). CUDA-event times of the kernel, of its plain
    version and of one library call computing the same function
    (``index_add_`` / ``scatter_reduce_``), beside the memory bound.
-3. The table is loaded into ``QueryEngine(device="cuda")`` and the slice's
-   six queries run: every answer is checked against a numpy oracle over
-   the generated columns, and the per-query p50 of 5 runs printed. The
-   kernels' launch counts are zeroed just before and read just after;
-   each kernel must have launched.
+3. The table is loaded into ``QueryEngine(device="cuda")`` and two paths
+   run: the six SSB scan/filter/group-by queries, then the five HLL and
+   DISTINCTCOUNT queries. Every answer is checked against a numpy oracle
+   over the generated columns (HLL estimates from registers the oracle
+   builds itself), and the per-query p50 of 5 runs printed. The launch
+   counts, per kernel and per entry, are zeroed just before each path
+   and read just after; every kernel and entry of the path must have
+   launched.
 4. A ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -78,6 +82,39 @@ QUERIES = {
         "MINMAXRANGE(lo_quantity), COUNT(*) FROM lineorder "
         "WHERE lo_discount BETWEEN 1 AND 3 GROUP BY d_year, s_nation "
         "ORDER BY d_year, s_nation LIMIT 200"),
+}
+
+Q4_HLL = ("SELECT lo_suppkey, COUNT(*), AVG(lo_quantity), "
+          "DISTINCTCOUNTHLL(lo_custkey) FROM lineorder "
+          "GROUP BY lo_suppkey ORDER BY COUNT(*) DESC, lo_suppkey LIMIT 10")
+HLL_QUERIES = {
+    # bench.py's q4 scan forms: the cached sorted projection, then a
+    # per-query sort (chunked dedup) with the projection turned off
+    "q4_scan_hll": "SET useStarTree = false; " + Q4_HLL,
+    "q4_scan_hll_cold": ("SET useStarTree = false; "
+                         "SET useSortedProjection = false; " + Q4_HLL),
+    "hll_scalar": (
+        "SELECT COUNT(*), DISTINCTCOUNTHLL(lo_custkey) FROM lineorder "
+        "WHERE lo_discount BETWEEN 1 AND 3"),
+    "hll_small_group": (
+        "SELECT d_year, c_region, DISTINCTCOUNTHLL(lo_custkey) FROM lineorder "
+        "GROUP BY d_year, c_region ORDER BY d_year, c_region LIMIT 50"),
+    "distinct_count": (
+        "SELECT d_year, DISTINCTCOUNT(lo_suppkey) FROM lineorder "
+        "WHERE lo_quantity < 10 GROUP BY d_year ORDER BY d_year"),
+}
+LOG2M = 10  # DISTINCTCOUNTHLL's default register count 2^10
+
+# kernels each path must launch, and the entries (the TPU kernels they
+# replace: pinot_tpu's Pallas rows) each path must reach
+PATHS = {
+    "ssb": (QUERIES, ("group_plane_sums", "group_minmax"),
+            ((3, "group_scatter", "plane_group_sums"),
+             (4, "group_scatter", "group_minmax"))),
+    "hll": (HLL_QUERIES, ("group_plane_sums", "hll_register_max"),
+            ((1, "groupby_mm", "group_sums"),
+             (2, "groupby_mm", "hll_registers"),
+             (5, "group_scatter", "hll_register_max"))),
 }
 
 
@@ -146,6 +183,49 @@ def write_segment(i: int, seg: dict) -> str:
 # ---------------------------------------------------------------------------
 
 
+def fmix32(keys: np.ndarray) -> np.ndarray:
+    """murmur3's 32-bit finalizer over the int32 bits of ``keys``."""
+    h = keys.astype(np.int32).view(np.uint32)
+    h = h ^ (h >> np.uint32(16))
+    h = h * np.uint32(0x85EBCA6B)
+    h = h ^ (h >> np.uint32(13))
+    h = h * np.uint32(0xC2B2AE35)
+    return h ^ (h >> np.uint32(16))
+
+
+def hll_idx_rho(h: np.ndarray, log2m: int):
+    """Register index (top bits) and rank (leading zeros of the rest + 1,
+    capped by a sentinel bit), rank exact from the float64 exponent."""
+    idx = (h >> np.uint32(32 - log2m)).astype(np.int64)
+    w = ((h.astype(np.uint64) << np.uint64(log2m)) & np.uint64(0xFFFFFFFF)) \
+        | np.uint64(1 << (log2m - 1))
+    _, e = np.frexp(w.astype(np.float64))
+    return idx, (33 - e).astype(np.int8)
+
+
+def hll_estimates(idx, rho, gid, num_groups: int, log2m: int) -> np.ndarray:
+    """(G,) HLL estimates over rows with gid >= 0: registers by rank in
+    ascending order (a later, larger rank overwrites), then the standard
+    estimate with the small- and large-range corrections."""
+    m = 1 << log2m
+    keep = gid >= 0
+    slot = gid[keep].astype(np.int64) * m + idx[keep]
+    r = rho[keep]
+    regs = np.zeros(num_groups * m, np.int8)
+    for k in range(1, 34 - log2m):
+        regs[slot[r == k]] = k
+    regs = regs.reshape(num_groups, m)
+    alpha = 0.7213 / (1 + 1.079 / m)
+    raw = alpha * m * m / np.sum(np.exp2(-regs.astype(np.float64)), axis=1)
+    zeros = np.sum(regs == 0, axis=1)
+    small = (raw <= 2.5 * m) & (zeros > 0)
+    lin = m * np.log(m / np.maximum(zeros, 1))
+    big = raw > (1 << 32) / 30.0
+    large = -float(1 << 32) * np.log(1.0 - raw / float(1 << 32))
+    est = np.where(small, lin, np.where(big, large, raw))
+    return np.round(est).astype(np.int64)
+
+
 def oracle(data: list) -> dict:
     c = {k: np.concatenate([d[k] for d in data]) for k in data[0]}
     year, region, nation = c["d_year"], c["c_region"], c["s_nation"]
@@ -194,6 +274,28 @@ def oracle(data: list) -> dict:
                            float(rmin[k]), float(rmax[k]),
                            float(qmax[k] - qmin[k]), int(cnt[k])]
                           for k in range(175) if cnt[k]], int(m.sum()))
+
+    idx, rho = hll_idx_rho(fmix32(c["lo_custkey"]), LOG2M)
+    est = hll_estimates(idx, rho, supp, 2000, LOG2M)
+    q4 = [row + [int(est[row[0]])] for row in want["q4_no_hll"][0]]
+    want["q4_scan_hll"] = want["q4_scan_hll_cold"] = (q4, len(supp))
+
+    m = (disc >= 1) & (disc <= 3)
+    est = hll_estimates(idx, rho, np.where(m, 0, -1), 1, LOG2M)
+    want["hll_scalar"] = ([[int(m.sum()), int(est[0])]], int(m.sum()))
+
+    g = (year - 1992).astype(np.int64) * 5 + region
+    cnt = np.bincount(g, minlength=35)
+    est = hll_estimates(idx, rho, g, 35, LOG2M)
+    want["hll_small_group"] = ([[1992 + k // 5, str(REGIONS[k % 5]),
+                                 int(est[k])] for k in range(35) if cnt[k]],
+                               len(supp))
+
+    m = qty < 10
+    pairs = np.unique((year[m] - 1992).astype(np.int64) * 2000 + supp[m])
+    dc = np.bincount(pairs // 2000, minlength=7)
+    want["distinct_count"] = ([[1992 + y, int(dc[y])] for y in range(7)
+                               if dc[y]], int(m.sum()))
     return want
 
 
@@ -313,6 +415,98 @@ def check_k1(n: int, dev) -> dict:
     return res
 
 
+def check_k1_single(n: int, dev) -> dict:
+    """K1 through its single-accumulator entry (ops/groupby_mm.py
+    group_sums, Pallas row 1) at the sorted HLL build's shape: G=2000
+    groups (lo_suppkey), A=3 power-of-two channels, no folded count."""
+    import torch
+    from pinot_tpu_torch.ops import groupby_mm as mm
+    from pinot_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    G, A = 2000, 3
+    gid = torch.randint(0, G + 1, (n,), generator=gen, dtype=torch.int32,
+                        device=dev)
+    end = torch.rand((n,), generator=gen, device=dev) < 0.05
+    pw = torch.exp2(torch.randint(0, 12, (n,), generator=gen,
+                                  device=dev).float())
+    lo = torch.rand((n,), generator=gen, device=dev) < 0.5
+    ch = torch.stack([end.float(), torch.where(end & lo, pw, 0.0),
+                      torch.where(end & ~lo, pw, 0.0)]).to(torch.bfloat16)
+    del end, pw, lo
+    got = mm.group_sums(gid, ch, G)
+    want = kernels.group_plane_sums_plain(gid, ch, G, False)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"K1 single-accumulator entry differs, max abs "
+                             f"err {err}")
+    ms = cuda_ms(lambda: mm.group_sums(gid, ch, G), 10)
+    plain_ms = cuda_ms(lambda: kernels.group_plane_sums_plain(
+        gid, ch, G, False), 3)
+    ch32 = ch.float()
+    lib_out = torch.zeros((A, G + 1), dtype=torch.float32, device=dev)
+    lib_ms = cuda_ms(lambda: lib_out.index_add_(1, gid, ch32), 5)
+    b, by = bound_ms(4 * n + 2 * n * A + 8 * A * G, n * A)
+    return dict(shape=f"n={n} G={G} A={A} power-of-two channels",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, library_ms=lib_ms)
+
+
+def check_k3(n: int, dev) -> list:
+    """K3 at the HLL path's register spaces: 1024 slots (scalar HLL,
+    through the small-slot entry, Pallas row 5), 35,840 = 35 x 1024
+    (d_year x c_region, the group entry, row 2) and 2^20 slots (the
+    largest slot space row 2's reference bound names, several
+    partitions). Slots include the overflow slot; ranks come from random
+    32-bit hashes, so they are geometric as in real data. Bit-exact."""
+    import torch
+    from pinot_tpu_torch.ops import group_scatter as ps
+    from pinot_tpu_torch.ops import groupby_mm as mm
+    from pinot_tpu_torch.ops import hll as hll_ops
+    from pinot_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    h = torch.randint(-2**31, 2**31, (n,), generator=gen, dtype=torch.int32,
+                      device=dev)
+    _, rho = hll_ops.hll_idx_rho(h, LOG2M)
+    del h
+    out = []
+    for nslots, entry, call in (
+            (1024, "group_scatter.hll_register_max",
+             lambda s: ps.hll_register_max(s, rho, 1024)),
+            (35 * 1024, "groupby_mm.hll_registers",
+             lambda s: mm.hll_registers(s, rho, 35, LOG2M)),
+            (1 << 20, "kernels.hll_register_max",
+             lambda s: kernels.hll_register_max(s, rho, 1 << 20))):
+        slot = torch.randint(0, nslots + 1, (n,), generator=gen,
+                             dtype=torch.int32, device=dev)
+        got = call(slot).reshape(-1)
+        want = kernels.hll_register_max_plain(slot, rho, nslots)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"K3 differs at {nslots} slots, max abs "
+                                 f"err {err}")
+        ms = cuda_ms(lambda: call(slot), 10)
+        plain_ms = cuda_ms(lambda: kernels.hll_register_max_plain(
+            slot, rho, nslots), 3)
+        s64 = slot.long()
+        lib = torch.zeros(nslots + 1, dtype=torch.int32, device=dev)
+        lib_ms = cuda_ms(lambda: lib.scatter_reduce_(0, s64, rho, "amax"), 5)
+        del s64, lib
+        b, by = bound_ms(8 * n + 4 * nslots, n)
+        out.append(dict(shape=f"n={n} slots={nslots} via {entry}",
+                        nslots=nslots,
+                        partitions=kernels.hll_partitions(nslots),
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=b, bound_by=by, library_ms=lib_ms))
+        log(f"K3 {out[-1]['shape']} ({out[-1]['partitions']} partitions): "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, scatter_reduce_ amax "
+            f"{lib_ms:.4f} ms, bound {b:.4f} ms, bit-exact")
+    return out
+
+
 def check_k2(n: int, dev) -> dict:
     """K2 at q6's shape: G=175 (7 years x 25 nations), int32 min + max;
     and the same shape over float32 with signed zeros, bit-exact."""
@@ -392,6 +586,65 @@ def profile_query(engine, name: str, sql: str, top: int = 8) -> None:
         f"(busy {dev_ms / wall_ms:.1%}); top device ms: {parts}")
 
 
+def launch_tables() -> dict:
+    """The launch counters: per kernel, and per entry of the two modules
+    whose entries stand for different TPU kernels."""
+    from pinot_tpu_torch.ops import group_scatter, groupby_mm, kernels
+
+    return {"kernels": kernels.launches, "group_scatter": group_scatter.launches,
+            "groupby_mm": groupby_mm.launches}
+
+
+def run_path(engine, path: str, want: dict, total: int, runs: int,
+             profile: bool) -> tuple:
+    """One main path: zero every launch count, run each query once
+    against the oracle and ``runs`` more times for its p50 (plus a traced
+    run with ``profile``), read the counts. Fails when an answer differs
+    or a kernel or entry of the path never launched. Returns (p50 by
+    query, kernel launches)."""
+    queries, kernel_names, entries = PATHS[path]
+    tables = launch_tables()
+    for table in tables.values():
+        for key in table:
+            table[key] = 0
+    p50 = {}
+    for name, sql in queries.items():
+        resp = engine.execute(sql)
+        if resp["exceptions"]:
+            raise AssertionError(f"{name}: {resp['exceptions']}")
+        rows_want, scanned = want[name]
+        got = resp["resultTable"]["rows"]
+        if not rows_equal(got, rows_want):
+            raise AssertionError(f"{name}: rows {got[:5]} want "
+                                 f"{rows_want[:5]}")
+        if resp["numDocsScanned"] != scanned or resp["totalDocs"] != total:
+            raise AssertionError(
+                f"{name}: numDocsScanned {resp['numDocsScanned']} / "
+                f"totalDocs {resp['totalDocs']}, want {scanned} / {total}")
+        times = []
+        for _ in range(runs):
+            t = time.perf_counter()
+            engine.execute(sql)
+            times.append((time.perf_counter() - t) * 1e3)
+        p50[name] = float(np.percentile(times, 50))
+        log(f"{name}: matches the oracle ({len(got)} rows, "
+            f"numDocsScanned {scanned}); p50 {p50[name]:.3f} ms over "
+            f"{runs} runs")
+        if profile:
+            profile_query(engine, name, sql)
+    counts = {k: dict(v) for k, v in tables.items()}
+    log(f"{path} path launches: {json.dumps(counts)}")
+    for name in kernel_names:
+        if counts["kernels"][name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"{path} path")
+    for row, module, entry in entries:
+        if counts[module][entry] <= 0:
+            raise AssertionError(f"{module}.{entry} (Pallas row {row}) never "
+                                 f"launched on the {path} path")
+    return p50, counts["kernels"]
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -459,10 +712,22 @@ def main(argv=None) -> int:
         log(f"K1 {k1['shape']}: {k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f}"
             f" ms, index_add_ {k1['library_ms']:.4f} ms, bound "
             f"{k1['bound_ms']:.4f} ms, bit-exact")
+        torch.cuda.empty_cache()
+        k1s = check_k1_single(n, dev)
+        log(f"K1 single-accumulator entry {k1s['shape']}: {k1s['ms']:.4f} ms,"
+            f" plain {k1s['plain_ms']:.4f} ms, index_add_ "
+            f"{k1s['library_ms']:.4f} ms, bound {k1s['bound_ms']:.4f} ms, "
+            f"bit-exact")
+        k1["single_accumulator"] = k1s
+        torch.cuda.empty_cache()
         k2 = check_k2(n, dev)
         log(f"K2 {k2['shape']}: {k2['ms']:.4f} ms, plain {k2['plain_ms']:.4f}"
             f" ms, scatter_reduce_ amin+amax {k2['library_ms']:.4f} ms, "
             f"bound {k2['bound_ms']:.4f} ms, bit-exact")
+        torch.cuda.empty_cache()
+        k3_sizes = check_k3(n, dev)
+        # the kernel line's main numbers: the group entry's 35 x 1024 slots
+        k3 = dict(k3_sizes[1], sizes=k3_sizes)
         torch.cuda.empty_cache()
 
         dirs = pending.get()
@@ -489,49 +754,26 @@ def main(argv=None) -> int:
         ctx.column(c)
     for c in ("lo_quantity", "lo_revenue"):
         ctx.decoded_column(c)
+    ctx.prehashed_column("lo_custkey")
     torch.cuda.synchronize()
     log(f"upload (global dictionaries + {ctx.resident_bytes} device bytes):"
         f" {time.perf_counter() - t:.2f} s")
 
-    for name in kernels.launches:
-        kernels.launches[name] = 0
-    p50 = {}
-    for name, sql in QUERIES.items():
-        resp = engine.execute(sql)
-        if resp["exceptions"]:
-            raise AssertionError(f"{name}: {resp['exceptions']}")
-        rows_want, scanned = want[name]
-        got = resp["resultTable"]["rows"]
-        if not rows_equal(got, rows_want):
-            raise AssertionError(f"{name}: rows {got[:5]} want "
-                                 f"{rows_want[:5]}")
-        if resp["numDocsScanned"] != scanned or resp["totalDocs"] != total:
-            raise AssertionError(
-                f"{name}: numDocsScanned {resp['numDocsScanned']} / "
-                f"totalDocs {resp['totalDocs']}, want {scanned} / {total}")
-        times = []
-        for _ in range(args.runs):
-            t = time.perf_counter()
-            engine.execute(sql)
-            times.append((time.perf_counter() - t) * 1e3)
-        p50[name] = float(np.percentile(times, 50))
-        log(f"{name}: matches the oracle ({len(got)} rows, "
-            f"numDocsScanned {scanned}); p50 {p50[name]:.3f} ms over "
-            f"{args.runs} runs")
-        if args.profile:
-            profile_query(engine, name, sql)
-    launches = dict(kernels.launches)
-    log(f"main-path launches: {launches}")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"kernel {name} never launched on the main "
-                                 f"path")
+    p50, launches = {}, {name: 0 for name in kernels.launches}
+    for path in PATHS:
+        path_p50, counts = run_path(engine, path, want, total, args.runs,
+                                    args.profile)
+        p50.update(path_p50)
+        for name, count in counts.items():
+            launches[name] += count
 
     entries = []
     for name, res, replaces in (
             ("group_plane_sums", k1, "pinot_tpu/ops/pallas_scatter.py:244 "
              "(and pinot_tpu/ops/groupby_mm.py:225)"),
-            ("group_minmax", k2, "pinot_tpu/ops/pallas_scatter.py:349")):
+            ("group_minmax", k2, "pinot_tpu/ops/pallas_scatter.py:349"),
+            ("hll_register_max", k3, "pinot_tpu/ops/pallas_scatter.py:455 "
+             "(and pinot_tpu/ops/groupby_mm.py:225 in rho_mode)")):
         entry = {"name": name, "route": "cuda",
                  "source": f"pinot_tpu_torch/csrc/{kernels.SOURCES[name]}",
                  "replaces": replaces, "launches": launches[name]}

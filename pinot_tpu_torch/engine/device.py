@@ -9,17 +9,27 @@ on CUDA tensors; there is no compile step to cache. Group-by runs in
 global dictionary id space (engine/params.py), so the dense (G,)
 accumulator is the ARRAY_BASED group-key regime and its merge at once.
 
-Dense COUNT/SUM/AVG route through the group plane-sum kernel K1 and
-MIN/MAX/MINMAXRANGE through the group min/max kernel K2
-(ops/group_scatter.py, ops/groupby_mm.py), with the reference's pallas-tier
-routing and minimum batch; other shapes use the torch scatters of
-ops/agg.py where the reference uses XLA's.
+Dense COUNT/SUM/AVG route through the group plane-sum kernel K1,
+MIN/MAX/MINMAXRANGE through the group min/max kernel K2 and the
+DISTINCTCOUNTHLL register builds through the register-max kernel K3
+(ops/group_scatter.py, ops/groupby_mm.py), with the reference's
+pallas-tier routing and minimum batch; other shapes use the torch
+scatters of ops/agg.py where the reference uses XLA's.
+
+DISTINCTCOUNTHLL and the DISTINCTCOUNT family run over dict columns: a
+presence vector over global ids, and HLL registers from per-doc hashes
+gathered at upload. A TERMINAL launch (``final``: nothing merges after
+it, as for ``QueryEngine.execute``) finalizes them on the card —
+popcounts and estimates instead of G x C presence or G x m registers —
+and builds large-G HLL register-free from sorted keys
+(``_hll_sorted_sums``); a non-terminal launch returns the mergeable
+presence sets and registers.
 
 This slice covers the scalar ``agg`` and dense ``groupby`` shapes. The
-sorted high-cardinality regime, block skip, DISTINCT, the distinct-count
-and HLL family, and first/last-with-time raise DeviceUnsupported and come
-with later slices. There is no fallback ladder: a device or kernel error
-propagates to the caller.
+sorted high-cardinality group-by regime, block skip, DISTINCT, HLLMERGE
+and first/last-with-time raise DeviceUnsupported and come with later
+slices. There is no fallback ladder: a device or kernel error propagates
+to the caller.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ import numpy as np
 import torch
 
 from pinot_tpu_torch import resolve_device
+from pinot_tpu_torch.common.options import bool_option
 from pinot_tpu_torch.engine import aggspec
 from pinot_tpu_torch.engine.params import (
     BatchContext,
@@ -43,24 +54,30 @@ from pinot_tpu_torch.engine.result import ExecutionStats, IntermediateResult
 from pinot_tpu_torch.ops import agg as agg_ops
 from pinot_tpu_torch.ops import group_scatter as ps
 from pinot_tpu_torch.ops import groupby_mm as mm
+from pinot_tpu_torch.ops import hll as hll_ops
 from pinot_tpu_torch.ops import masks as mask_ops
+from pinot_tpu_torch.ops import radix_groupby as radix_ops
 from pinot_tpu_torch.ops.transform import get_function
 from pinot_tpu_torch.query.context import Expression, QueryContext
 from pinot_tpu_torch.storage.segment import Encoding
 
-DEVICE_AGGS = {"count", "sum", "min", "max", "avg", "minmaxrange"}
+DEVICE_AGGS = {"count", "sum", "min", "max", "avg", "minmaxrange",
+               "distinctcount", "distinctcounthll"}
+SKETCH_AGGS = ("distinctcount", "distinctcounthll")
+# answered as DISTINCTCOUNT over a dict column, as in the reference
+DISTINCTCOUNT_ALIASES = ("distinctcountbitmap",
+                         "segmentpartitioneddistinctcount")
 
 # aggregations the reference runs on its device that this port runs in a
 # later slice
 LATER_AGGS = {
-    "distinctcount": "distinct-count", "distinctcountbitmap": "distinct-count",
-    "segmentpartitioneddistinctcount": "distinct-count",
-    "distinctcounthll": "HLL", "hllmerge": "HLL",
+    "hllmerge": "star-tree sketch merge",
     "firstwithtime": "first/last-with-time",
     "lastwithtime": "first/last-with-time",
 }
 
 MAX_DENSE_GROUPS = 1 << 22        # ARRAY_BASED regime guard (~4M groups)
+MAX_PRESENCE_CELLS = 1 << 24      # per-group distinct/HLL state guard
 
 
 def _torch_dtype(np_str: str) -> torch.dtype:
@@ -233,6 +250,96 @@ def _group_extreme(gid, v, num_groups: int, ops: tuple, min_rows: int):
         else agg_ops.group_max(gid, v, num_groups) for op in ops)
 
 
+def _hll_regs(slot, rho, num_groups: int, log2m: int, min_rows: int):
+    """(num_groups, m) int8 HLL registers: K3 through the small-slot
+    entry (ops/group_scatter.py, the reference's presence kernel) when
+    the slot space is in its regime, else through the group entry
+    (ops/groupby_mm.py hll_registers, the reference's rho-mode kernel),
+    else the torch scatter-max — all the exact max of rho, so
+    bit-identical. int8 holds every rho (<= 33 - log2m) and keeps the
+    register plane a quarter of int32's size."""
+    m = 1 << log2m
+    nslots = num_groups * m
+    if slot.numel() >= min_rows:
+        if ps.hll_supported(nslots, mm.hll_nrho(log2m)):
+            regs = ps.hll_register_max(slot, rho, nslots)
+            return regs.reshape(num_groups, m).to(torch.int8)
+        if mm.hll_supported(num_groups, log2m):
+            return mm.hll_registers(slot, rho, num_groups, log2m).to(
+                torch.int8)
+    regs = agg_ops.slot_max(slot, rho, nslots)
+    return regs.reshape(num_groups, m).to(torch.int8)
+
+
+def _hll_sums_from_sorted(sk, num_groups: int, log2m: int):
+    """(3, G) float64 scaled register sums from SORTED packed keys
+    (slot << 5 | rho): each slot's run ends at its max rho; three bf16
+    power-of-two channels over the run ends go through ONE launch of K1's
+    single-accumulator entry (ops/groupby_mm.py group_sums). See
+    ops/hll.py ``estimate_from_sums_torch`` for why the sums are exact."""
+    m = 1 << log2m
+    rho_max = 33 - log2m
+    split = rho_max // 2
+    slot_s = sk >> 5
+    e = torch.ones_like(slot_s, dtype=torch.bool)
+    e[:-1] = slot_s[1:] != slot_s[:-1]
+    valid = slot_s < num_groups * m  # masked rows pack the overflow slot
+    e &= valid
+    rho_s = (sk & 31).to(torch.float32)
+    gid_s = torch.where(valid, slot_s >> log2m, num_groups).to(torch.int32)
+    zero = torch.zeros((), dtype=torch.float32, device=sk.device)
+    ch = torch.empty((3, sk.shape[0]), dtype=torch.bfloat16, device=sk.device)
+    ch[0] = e
+    ch[1] = torch.where(e & (rho_s <= split), torch.exp2(split - rho_s), zero)
+    ch[2] = torch.where(e & (rho_s > split), torch.exp2(rho_max - rho_s),
+                        zero)
+    return mm.group_sums(gid_s, ch, num_groups)
+
+
+def _hll_sorted_sums(slot, rho, num_groups: int, log2m: int):
+    """TERMINAL-only register-free HLL build for group counts too large
+    for the register kernel's regime: chunk-local sorts of packed
+    (slot << 5 | rho) int32 keys dedupe (register, rank) pairs down to
+    per-slot maxima (ops/radix_groupby.py hll_chunked_sorted_keys), then
+    ``_hll_sums_from_sorted``. Not mergeable (one slot on two batches
+    would count twice), hence terminal-only; filterless queries skip the
+    sort through the batch's cached sorted projection
+    (BatchContext.sorted_hll_keys)."""
+    key = (slot.reshape(-1).to(torch.int32) << 5) \
+        | rho.reshape(-1).to(torch.int32)
+    sk = radix_ops.hll_chunked_sorted_keys(key, num_groups * (1 << log2m))
+    return _hll_sums_from_sorted(sk, num_groups, log2m)
+
+
+def _hll_sort_eligible(final: bool, num_groups: int, log2m: int) -> bool:
+    """The reference's gate for the sorted terminal HLL build, shared by
+    the pipeline and the executor's column resolution: terminal, past
+    the register kernel's regime, packed keys fit int32, and the three
+    sums fit K1's single accumulator."""
+    m = 1 << log2m
+    return (final and not mm.hll_supported(num_groups, log2m)
+            and num_groups * m < (1 << 26)
+            and mm.mm_supported(num_groups, 3))
+
+
+def _finalize_sketch_outs(outs: dict, agg_tpls) -> None:
+    """TERMINAL finalize on the card, in place: distinct presence →
+    int64 popcounts, HLL registers or sorted sums → int64 estimates, so
+    only answer-sized arrays are copied to the host."""
+    for i, (name, _argt, extra) in enumerate(agg_tpls):
+        k = f"a{i}"
+        if name == "distinctcount":
+            outs[f"{k}_cnt"] = outs.pop(f"{k}_pres").sum(dim=-1,
+                                                          dtype=torch.int64)
+        elif name == "distinctcounthll" and f"{k}_hs" in outs:
+            outs[f"{k}_est"] = hll_ops.estimate_from_sums_torch(
+                outs.pop(f"{k}_hs"), extra)
+        elif name == "distinctcounthll":
+            regs = outs.pop(f"{k}_regs")
+            est = hll_ops.estimate_torch(regs.reshape(-1, 1 << extra))
+            outs[f"{k}_est"] = est[0] if regs.dim() == 1 else est
+
+
 def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS):
     """template → fn(cols, n_docs, params) → outputs dict of tensors.
 
@@ -241,21 +348,45 @@ def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS):
     instead of the kernels (the reference's PALLAS_MIN_ROWS gate; the CPU
     tests pass 0 to reach the kernels' plain versions, as the reference's
     interpret mode ignores its gate)."""
-    shape, filter_tpl, group_cols, group_cards, aggs = template
+    shape, filter_tpl, group_cols, group_cards, aggs, final = template
     if shape not in ("agg", "groupby"):
         raise DeviceUnsupported(f"pipeline shape {shape}")
     num_groups = math.prod(group_cards)
 
     def pipeline(cols, n_docs, params):
-        S, L = next(iter(cols.values())).shape
+        # sorted projections (sk::) are 1-D: any other plane gives (S, L)
+        S, L = next(v for k, v in cols.items()
+                    if not k.startswith("sk::")).shape
         valid = mask_ops.valid_mask(n_docs, L)
         mask = _eval_filter(filter_tpl, cols, params, (S, L), valid.device,
                             widths) & valid
         seg_matched = mask.sum(dim=1, dtype=torch.int64)
         outs = {"doc_count": seg_matched.sum(), "seg_matched": seg_matched}
         if shape == "groupby":
-            return _groupby(cols, params, mask, outs)
-        return _scalar(cols, params, mask, outs)
+            _groupby(cols, params, mask, outs)
+        else:
+            _scalar(cols, params, mask, outs)
+        if final:
+            _finalize_sketch_outs(outs, aggs)
+        return outs
+
+    def _group_hll(k, argt, log2m, gid, mask, cols, outs):
+        m = 1 << log2m
+        sort = _hll_sort_eligible(final, num_groups, log2m)
+        sk_key = f"sk::{argt}::{log2m}"
+        if sort and filter_tpl == ("true",) and sk_key in cols:
+            # filterless: the batch's cached sorted projection already
+            # holds the packed keys, no per-query sort
+            outs[f"{k}_hs"] = _hll_sums_from_sorted(cols[sk_key], num_groups,
+                                                    log2m)
+            return
+        idx, rho = hll_ops.hll_idx_rho(cols["hh::" + argt], log2m)
+        slot = torch.where(mask, gid * m + idx, num_groups * m)
+        if sort:
+            outs[f"{k}_hs"] = _hll_sorted_sums(slot, rho, num_groups, log2m)
+        else:
+            outs[f"{k}_regs"] = _hll_regs(slot, rho, num_groups, log2m,
+                                          min_rows)
 
     def _groupby(cols, params, mask, outs):
         # columns are already global ids: the group key IS the column
@@ -266,9 +397,18 @@ def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS):
                                widths, min_rows)
         if "gcount" not in outs:
             outs["gcount"] = agg_ops.group_count(gid, num_groups)
-        for i, (name, argt, _extra) in enumerate(aggs):
+        for i, (name, argt, extra) in enumerate(aggs):
             k = f"a{i}"
             if i in done or name == "count":
+                continue
+            if name == "distinctcount":
+                sub = torch.clamp(_ids_col(cols, argt), 0, extra - 1)
+                cell = torch.where(mask, gid * extra + sub, num_groups * extra)
+                outs[f"{k}_pres"] = agg_ops.distinct_presence(
+                    cell, num_groups * extra).reshape(num_groups, extra)
+                continue
+            if name == "distinctcounthll":
+                _group_hll(k, argt, extra, gid, mask, cols, outs)
                 continue
             v = _eval_expr(argt, cols, params, widths)
             if name in ("sum", "avg"):
@@ -279,13 +419,23 @@ def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS):
             else:  # min / max
                 outs[f"{k}_{name}"], = _group_extreme(
                     gid, v, num_groups, (name,), min_rows)
-        return outs
 
     def _scalar(cols, params, mask, outs):
-        for i, (name, argt, _extra) in enumerate(aggs):
+        for i, (name, argt, extra) in enumerate(aggs):
             k = f"a{i}"
             if name == "count":
                 continue  # doc_count reused
+            if name == "distinctcount":
+                sub = torch.clamp(_ids_col(cols, argt), 0, extra - 1)
+                outs[f"{k}_pres"] = agg_ops.distinct_presence(
+                    torch.where(mask, sub, extra), extra)
+                continue
+            if name == "distinctcounthll":
+                idx, rho = hll_ops.hll_idx_rho(cols["hh::" + argt], extra)
+                slot = torch.where(mask, idx, 1 << extra)
+                outs[f"{k}_regs"] = _hll_regs(slot, rho, 1, extra,
+                                              min_rows)[0]
+                continue
             v = _eval_expr(argt, cols, params, widths)
             if name in ("sum", "avg"):
                 outs[f"{k}_sum"] = agg_ops.agg_sum(v, mask)
@@ -293,7 +443,6 @@ def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS):
                 outs[f"{k}_min"] = agg_ops.agg_min(v, mask)
             if name in ("max", "minmaxrange"):
                 outs[f"{k}_max"] = agg_ops.agg_max(v, mask)
-        return outs
 
     return pipeline
 
@@ -354,6 +503,8 @@ class DeviceExecutor:
     def _agg_template(self, i: int, a: Expression, ctx: BatchContext,
                       params, counter):
         name = a.name
+        if name in DISTINCTCOUNT_ALIASES:
+            name = "distinctcount"
         if name in LATER_AGGS:
             raise DeviceUnsupported(
                 f"{name}: the {LATER_AGGS[name]} aggregations come with a "
@@ -362,6 +513,15 @@ class DeviceExecutor:
             raise DeviceUnsupported(f"aggregation {name} not on device")
         if name == "count":
             return ("count", None, None)
+        if name in SKETCH_AGGS:
+            arg = a.args[0]
+            if not arg.is_identifier \
+                    or ctx.encoding(arg.name) != Encoding.DICT:
+                raise DeviceUnsupported(f"{name} needs a dict column on "
+                                        f"the device")
+            if name == "distinctcount":
+                return (name, arg.name, ctx.cardinality(arg.name))
+            return (name, arg.name, aggspec.make_spec(a).log2m)
         argt = build_expr(a.args[0], ctx, params, counter)
         nplanes = None
         if name in ("sum", "avg"):
@@ -374,11 +534,13 @@ class DeviceExecutor:
                     device=ctx.device)
         return (name, argt, nplanes)
 
-    def launch(self, q: QueryContext, segments) -> Launch:
+    def launch(self, q: QueryContext, segments, final: bool = False) -> Launch:
         """Template build + column upload (cached per segment set) + the
         pipeline's torch ops and kernel launches, enqueued on the current
-        stream. Raises DeviceUnsupported for shapes this slice does not
-        run on the device."""
+        stream. ``final``: the launch is terminal (nothing merges after
+        it), so distinct counts and HLL finalize on the card. Raises
+        DeviceUnsupported for shapes this slice does not run on the
+        device."""
         aggs = q.aggregations()
         if q.distinct:
             raise DeviceUnsupported("DISTINCT comes with a later slice of "
@@ -410,17 +572,47 @@ class DeviceExecutor:
                 "regime, which comes with a later slice of the port")
         agg_tpls = tuple(self._agg_template(i, a, ctx, params, counter)
                          for i, a in enumerate(aggs))
+        num_groups = math.prod(group_cards)
+        for name, _argt, extra in agg_tpls:
+            if group_cols and name in SKETCH_AGGS:
+                cells = num_groups * (extra if name == "distinctcount"
+                                      else 1 << extra)
+                if cells > MAX_PRESENCE_CELLS:
+                    raise DeviceUnsupported(
+                        f"{name} per-group state too large ({cells})")
+        final = final and any(name in SKETCH_AGGS for name, _, _ in agg_tpls)
         template = ("groupby" if group_cols else "agg", filter_tpl,
-                    tuple(group_cols), tuple(group_cards), agg_tpls)
+                    tuple(group_cols), tuple(group_cards), agg_tpls, final)
 
+        # SET useSortedProjection = false keeps the per-query sort (the
+        # cold form); by default a filterless terminal HLL group-by reads
+        # the batch's cached sorted projection
+        sorted_proj_ok = bool_option(q.options_ci(), "usesortedprojection",
+                                     None) is not False
         needed = _needed_columns(filter_tpl) | set(group_cols)
-        for _name, argt, _extra in agg_tpls:
-            if argt is not None:
+        for name, argt, extra in agg_tpls:
+            if name == "distinctcount":
+                needed.add(argt)
+            elif name == "distinctcounthll":
+                if (group_cols and filter_tpl == ("true",) and sorted_proj_ok
+                        and _hll_sort_eligible(final, num_groups, extra)):
+                    needed.add(f"sk::{argt}::{extra}")
+                else:
+                    needed.add("hh::" + argt)
+            elif argt is not None:
                 needed |= _needed_columns(argt)
         if not needed:  # COUNT(*) no filter: one column carries the shape
             needed.add(segments[0].column_names()[0])
         widths, cols = {}, {}
         for c in sorted(needed):
+            if c.startswith("sk::"):
+                _, colname, l2m = c.split("::")
+                cols[c] = ctx.sorted_hll_keys(group_cols, group_cards,
+                                              colname, int(l2m))
+                continue
+            if c.startswith("hh::"):
+                cols[c] = ctx.prehashed_column(c[4:])
+                continue
             plan = ctx.width_plan(c)
             widths[c] = plan.sig()
             if plan.offset is not None:
@@ -439,12 +631,13 @@ class DeviceExecutor:
         return self._to_intermediate(launch.q, launch.ctx, launch.template,
                                      outs)
 
-    def execute(self, q: QueryContext, segments) -> IntermediateResult:
-        return self.fetch(self.launch(q, segments))
+    def execute(self, q: QueryContext, segments,
+                final: bool = False) -> IntermediateResult:
+        return self.fetch(self.launch(q, segments, final))
 
     # ---- device outputs → canonical IntermediateResult -------------------
     def _to_intermediate(self, q, ctx: BatchContext, template, outs):
-        shape, _, group_cols, group_cards, agg_tpls = template
+        shape, _, group_cols, group_cards, agg_tpls, _final = template
         doc_count = int(outs["doc_count"])
         total_docs = int(ctx.n_docs.sum())
         entries_in_filter = 0
@@ -463,7 +656,7 @@ class DeviceExecutor:
             total_docs=total_docs,
         )
         if shape == "agg":
-            partials = [self._scalar_partial(i, t, outs)
+            partials = [self._scalar_partial(i, t, outs, ctx)
                         for i, t in enumerate(agg_tpls)]
             return IntermediateResult("aggregation", agg_partials=partials,
                                       stats=stats)
@@ -488,14 +681,14 @@ class DeviceExecutor:
         keys.reverse()
         key_values = tuple(ctx.global_dict(col).take(k)
                            for col, k in zip(group_cols, keys))
-        partials = [self._group_partial(i, t, outs, present)
+        partials = [self._group_partial(i, t, outs, ctx, present)
                     for i, t in enumerate(agg_tpls)]
         return IntermediateResult("group_by", group_keys=key_values,
                                   agg_partials=partials, stats=stats)
 
     @staticmethod
-    def _scalar_partial(i, tpl, outs):
-        name = tpl[0]
+    def _scalar_partial(i, tpl, outs, ctx):
+        name, argt, _extra = tpl
         k = f"a{i}"
 
         def one(key, dt=np.float64):
@@ -512,11 +705,22 @@ class DeviceExecutor:
             return {"min": one(f"{k}_min")}
         if name == "max":
             return {"max": one(f"{k}_max")}
-        return {"min": one(f"{k}_min"), "max": one(f"{k}_max")}
+        if name == "minmaxrange":
+            return {"min": one(f"{k}_min"), "max": one(f"{k}_max")}
+        if name == "distinctcount":
+            if f"{k}_cnt" in outs:  # terminal: popcount came from the card
+                return {"cnt": one(f"{k}_cnt", np.int64)}
+            vals = ctx.global_dict(argt).take(np.nonzero(outs[f"{k}_pres"])[0])
+            sets = np.empty(1, dtype=object)
+            sets[0] = set(np.asarray(vals).tolist())
+            return {"sets": sets}
+        if f"{k}_est" in outs:  # distinctcounthll, terminal
+            return {"est": one(f"{k}_est", np.int64)}
+        return {"regs": outs[f"{k}_regs"].reshape(1, -1)}
 
     @staticmethod
-    def _group_partial(i, tpl, outs, present):
-        name = tpl[0]
+    def _group_partial(i, tpl, outs, ctx, present):
+        name, argt, _extra = tpl
         k = f"a{i}"
 
         def sel(key, dt=np.float64):
@@ -533,4 +737,17 @@ class DeviceExecutor:
             return {"min": sel(f"{k}_min")}
         if name == "max":
             return {"max": sel(f"{k}_max")}
-        return {"min": sel(f"{k}_min"), "max": sel(f"{k}_max")}
+        if name == "minmaxrange":
+            return {"min": sel(f"{k}_min"), "max": sel(f"{k}_max")}
+        if name == "distinctcount":
+            if f"{k}_cnt" in outs:  # terminal: popcounts came from the card
+                return {"cnt": sel(f"{k}_cnt", np.int64)}
+            pres = outs[f"{k}_pres"][present]
+            gvals = np.asarray(ctx.global_dict(argt).values)
+            sets = np.empty(len(present), dtype=object)
+            for j in range(len(present)):
+                sets[j] = set(gvals[np.nonzero(pres[j])[0]].tolist())
+            return {"sets": sets}
+        if f"{k}_est" in outs:  # distinctcounthll, terminal
+            return {"est": sel(f"{k}_est", np.int64)}
+        return {"regs": outs[f"{k}_regs"][present]}

@@ -53,7 +53,9 @@ class QueryEngine:
             if not segments:
                 raise KeyError(f"table {q.table_name!r} not found")
             q = expand_star(q, segments[0].column_names())
-            merged = merge_intermediates(q, [self.device.execute(q, segments)])
+            # one device batch is the whole answer: the launch is terminal
+            merged = merge_intermediates(
+                q, [self.device.execute(q, segments, final=True)])
             result = finalize(q, merged)
         except Exception as e:  # noqa: BLE001 — exceptions are reported in-band
             return {"exceptions": [{"errorCode": 200,

@@ -17,8 +17,12 @@ Counterpart of pinot_tpu/engine/params.py, over CUDA tensors:
   template is a pure function of them. LIKE / REGEXP evaluate once per
   global dictionary entry into a (C,) boolean LUT.
 
-Zone maps, the sub-byte tier and the prehashed / sorted-HLL projections
-come with later slices of the port. Raises ``DeviceUnsupported`` for
+- **HLL planes**: per-doc value hashes gathered on the host at upload
+  (``prehashed_column``) and the cached sorted ``slot << 5 | rho``
+  projection of the filterless terminal HLL group-by
+  (``sorted_hll_keys``), both held with the batch like its columns.
+
+Zone maps and the sub-byte tier come with later slices of the port. Raises ``DeviceUnsupported`` for
 anything this slice's device path does not cover; the engine reports it
 in the response.
 """
@@ -32,6 +36,9 @@ import numpy as np
 import torch
 
 from pinot_tpu_torch.engine.host import like_to_regex
+from pinot_tpu_torch.ops import agg as agg_ops
+from pinot_tpu_torch.ops import hll as hll_ops
+from pinot_tpu_torch.ops import masks as mask_ops
 from pinot_tpu_torch.ops.transform import get_function
 from pinot_tpu_torch.query.context import (
     Expression,
@@ -113,6 +120,8 @@ class BatchContext:
         self.n_docs_dev = to_device(self.n_docs, self.device)
         self._columns: dict[str, torch.Tensor] = {}
         self._decoded: dict[str, torch.Tensor] = {}
+        self._prehashed: dict[str, torch.Tensor] = {}
+        self._sorted_hll: dict[tuple, torch.Tensor] = {}
         self._encodings: dict[str, str] = {}
         self._global_dicts: dict[str, Dictionary] = {}
         self._plans: dict[str, ColPlan] = {}
@@ -204,8 +213,9 @@ class BatchContext:
             mxs.append(int(m.max_value))
         return (min(mns), max(mxs)) if mns else None
 
-    def _upload(self, store: dict, key: str, blocks: np.ndarray):
-        store[key] = to_device(blocks, self.device)
+    def _upload(self, store: dict, key, blocks):
+        store[key] = blocks if isinstance(blocks, torch.Tensor) \
+            else to_device(blocks, self.device)
         self.resident_bytes += store[key].numel() * store[key].element_size()
         return store[key]
 
@@ -282,6 +292,45 @@ class BatchContext:
                 blocks[i, : len(fwd)] = lut[fwd]
             self._upload(self._decoded, name, blocks)
         return self._decoded[name]
+
+    def prehashed_column(self, name: str) -> torch.Tensor:
+        """(S, L) device int32 bit view of per-doc canonical value hashes
+        (ops/hll.py ``hash32_np`` of each segment's dictionary, gathered
+        through the forward index on the host at upload) for
+        DISTINCTCOUNTHLL. Padding docs hash to 0 and are masked."""
+        if name not in self._prehashed:
+            blocks = np.zeros((self.S, self.pad_to), dtype=np.uint32)
+            for i, s in enumerate(self.segments):
+                h = hll_ops.hash32_np(np.asarray(s.dictionary(name).values))
+                fwd = np.asarray(s.forward(name))
+                blocks[i, : len(fwd)] = h[fwd]
+            self._upload(self._prehashed, name, blocks.view(np.int32))
+        return self._prehashed[name]
+
+    def sorted_hll_keys(self, group_cols, group_cards, hash_col: str,
+                        log2m: int) -> torch.Tensor:
+        """(S * L,) device int32: the SORTED packed ``slot << 5 | rho``
+        keys of the filterless HLL group-by over these group columns,
+        slot = gid * m + idx, padding docs on the overflow slot G * m.
+        Built by the first query of the shape and cached with the batch,
+        as the reference's sorted projection is; later queries skip the
+        sort."""
+        key = (tuple(group_cols), tuple(group_cards), hash_col, int(log2m))
+        if key not in self._sorted_hll:
+            num_groups = 1
+            for c in group_cards:
+                num_groups *= int(c)
+            m = 1 << log2m
+            h = self.prehashed_column(hash_col)
+            valid = mask_ops.valid_mask(self.n_docs_dev, h.shape[1])
+            gid = agg_ops.group_ids_combine(
+                [self.column(c) for c in group_cols], group_cards, valid,
+                num_groups)
+            idx, rho = hll_ops.hll_idx_rho(h, log2m)
+            slot = torch.where(valid, gid * m + idx, num_groups * m)
+            k32 = (slot.reshape(-1) << 5) | rho.reshape(-1)
+            self._upload(self._sorted_hll, key, torch.sort(k32).values)
+        return self._sorted_hll[key]
 
     def int_bounds(self, name: str):
         """(min, max) over the batch from column metadata, or None."""

@@ -89,6 +89,12 @@ def group_max(gids, values, num_groups: int):
                          _extremes(values.dtype)[1])
 
 
+def slot_max(slots, values, num_slots: int):
+    """Per-slot max of non-negative ints, 0 where no row lands (the HLL
+    register scatter-max past the register kernels' regimes)."""
+    return _group_reduce(slots, values, num_slots, "amax", 0)
+
+
 def group_ids_combine(per_col_gids, cardinalities, mask, num_groups: int):
     """Combine per-column global ids into one dense group id (the
     ARRAY_BASED regime of DictionaryBasedGroupKeyGenerator: key == id by
@@ -102,3 +108,12 @@ def group_ids_combine(per_col_gids, cardinalities, mask, num_groups: int):
         gid = g if gid is None else gid * c + g
     return torch.where(mask, gid, torch.full((), num_groups, dtype=torch.int32,
                                              device=gid.device))
+
+
+def distinct_presence(gids, num_groups: int):
+    """Presence vector over global ids (DISTINCTCOUNT on a dict column):
+    1 where any doc carries the id; ids == num_groups are masked docs."""
+    flat = gids.reshape(-1).to(torch.int64)
+    out = torch.zeros(num_groups + 1, dtype=torch.int8, device=flat.device)
+    out.index_fill_(0, flat, 1)
+    return out[:num_groups]

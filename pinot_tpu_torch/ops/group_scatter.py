@@ -1,5 +1,6 @@
-"""The group-range partitioned plane sums (K1) and group min/max (K2) —
-counterpart of pinot_tpu/ops/pallas_scatter.py.
+"""The group-range partitioned plane sums (K1), group min/max (K2) and
+small HLL register builds (K3) — counterpart of
+pinot_tpu/ops/pallas_scatter.py.
 
 The reference's Pallas tier replaced XLA's serialized TPU scatters with
 purpose-built kernels; on the card the same two functions run through the
@@ -8,13 +9,19 @@ hand-written CUDA kernels of ops/kernels.py:
 - ``plane_group_sums`` → K1: exact per-group sums of bf16 plane
   channels, past the single-accumulator ceiling ``mm_supported`` sets;
 - ``group_minmax`` → K2: per-group MIN and/or MAX over int32/float32
-  values with caller-supplied empty-group fills.
+  values with caller-supplied empty-group fills;
+- ``hll_register_max`` → K3: per-slot max rho over slot spaces up to
+  ``HLL_MAX_SLOTS`` (scalar and small-group HLL).
 
-The routing predicates (``sums_supported``, ``minmax_supported``) and the
-minimum batch (``PALLAS_MIN_ROWS``) are the reference's, so the same
-queries reach the kernels; other shapes stay on the torch scatters of
-ops/agg.py, where the reference uses XLA's. The reference's fused
-block-skip and HLL register kernels come with later slices of the port.
+The routing predicates (``sums_supported``, ``minmax_supported``,
+``hll_supported``) and the minimum batch (``PALLAS_MIN_ROWS``) are the
+reference's, so the same queries reach the kernels; other shapes stay on
+the torch scatters of ops/agg.py, where the reference uses XLA's. The
+reference's fused block-skip kernel comes with a later slice of the port.
+
+``launches`` counts kernel launches per entry of this module, beside
+``kernels.launches`` per kernel: K1 and K3 each replace two TPU kernels,
+and the entry says which one a launch stands for.
 """
 
 from __future__ import annotations
@@ -31,6 +38,10 @@ PALLAS_MIN_ROWS = 1 << 17  # below this the scatter's fixed cost wins
 
 MINMAX_SPAN = 1024
 MAX_MINMAX_PARTS = 8     # → num_groups <= 8191
+
+HLL_MAX_SLOTS = 1 << 12  # past this the reference's presence kernel declines
+
+launches = {"plane_group_sums": 0, "group_minmax": 0, "hll_register_max": 0}
 
 
 def _hpad_total(num_groups: int) -> int:
@@ -59,9 +70,10 @@ def plane_group_sums(gid, channels, num_groups: int, *,
     (A, n) bf16. ``span`` overrides K1's groups per partition (tests force
     multi-partition launches on small group counts). Returns
     (A, num_groups) float64."""
-    return kernels.group_plane_sums(gid, channels, num_groups,
-                                    first_channel_ones=first_channel_ones,
-                                    span=span)
+    return kernels.count_entry(
+        launches, "plane_group_sums", "group_plane_sums",
+        kernels.group_plane_sums, gid, channels, num_groups,
+        first_channel_ones=first_channel_ones, span=span)
 
 
 _MINMAX_KERNEL_DTYPES = {
@@ -93,5 +105,29 @@ def group_minmax(gid, values, num_groups: int, ops: tuple,
     in the kernel dtype (int32 or float32)."""
     kdt = _MINMAX_KERNEL_DTYPES[_dtype_name(values.dtype)]
     v = values.reshape(-1).to(kdt).contiguous()
-    return kernels.group_minmax(gid.reshape(-1).to(torch.int32).contiguous(),
-                                v, num_groups, ops, fills)
+    return kernels.count_entry(
+        launches, "group_minmax", "group_minmax", kernels.group_minmax,
+        gid.reshape(-1).to(torch.int32).contiguous(), v, num_groups, ops,
+        fills)
+
+
+def hll_supported(nslots: int, nrho: int) -> bool:
+    """The reference's regime for its presence kernel: at most
+    ``HLL_MAX_SLOTS`` slots, split into <= MAX_PARTITIONS accumulator
+    ranges of ``nrho`` channels."""
+    if nslots > HLL_MAX_SLOTS:
+        return False
+    hp = _span_hpad(nrho)
+    return -(-_hpad_total(nslots) // hp) <= MAX_PARTITIONS
+
+
+def hll_register_max(slot, rho, nslots: int, *, span: int | None = None):
+    """(nslots,) int32 registers = per-slot max rho, through K3. slot:
+    int32 ids in [0, nslots] (nslots masks the row); rho: int32 in
+    [1, 33 - log2m] (0 on padded rows adds nothing). ``span`` overrides
+    K3's slots per partition."""
+    return kernels.count_entry(
+        launches, "hll_register_max", "hll_register_max",
+        kernels.hll_register_max,
+        slot.reshape(-1).to(torch.int32).contiguous(),
+        rho.reshape(-1).to(torch.int32).contiguous(), nslots, span=span)

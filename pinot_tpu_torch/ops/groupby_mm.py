@@ -1,5 +1,6 @@
-"""Dense COUNT/SUM/AVG group-by over bf16 plane channels: the
-single-accumulator entry of the group plane-sum kernel (K1).
+"""Dense COUNT/SUM/AVG group-by over bf16 plane channels (the
+single-accumulator entry of the group plane-sum kernel K1), and the group
+HLL register build (K3).
 
 Counterpart of pinot_tpu/ops/groupby_mm.py. There the TPU kernel turned
 the scatter into MXU work with a factored one-hot matmul; on the card the
@@ -13,6 +14,17 @@ and the channel planes:
   (|plane| <= 255 is exact in bf16; sums per <= 65536-row chunk stay
   below 2^24 and so exact in f32; the int64 recombination is exact);
 - f32 values split exactly into three bf16 planes by bit-masking.
+
+The reference's HLL build in this module (``rho_group_counts`` /
+``hll_registers``) runs the same MXU kernel in rho mode: it forms an
+(nrho, slots) matrix of per-rank counts only to reduce it at once to the
+registers. That count matrix is an artifact of the matrix unit; here
+``hll_registers`` computes the registers directly through K3, the
+register-max kernel (ops/kernels.py, csrc/hll_register_max.cu), under
+the reference's routing predicate ``hll_supported``.
+
+``launches`` counts kernel launches per entry of this module (see
+ops/group_scatter.py).
 """
 
 from __future__ import annotations
@@ -25,6 +37,8 @@ from pinot_tpu_torch.ops import kernels
 
 MAX_CHANNELS = 15       # + the count channel
 MAX_ACC_CELLS = 1 << 21  # the reference's VMEM accumulator bound: A * hpad * 128
+
+launches = {"group_sums": 0, "hll_registers": 0}
 
 
 def _plan_lo(num_groups: int, a_real: int, ones_first: bool) -> int:
@@ -60,8 +74,35 @@ def group_sums(gid, channels, num_groups: int, *,
     gid: (n,) int32 in [0, num_groups]; id == num_groups is the overflow
     slot for masked/padded rows. channels: (A, n) bf16 planes.
     Returns (A, num_groups) float64."""
-    return kernels.group_plane_sums(gid, channels, num_groups,
-                                    first_channel_ones=first_channel_ones)
+    return kernels.count_entry(
+        launches, "group_sums", "group_plane_sums", kernels.group_plane_sums,
+        gid, channels, num_groups, first_channel_ones=first_channel_ones)
+
+
+def hll_nrho(log2m: int) -> int:
+    """Max rho value: clz over (32 - log2m) value bits + 1 (sentinel caps)."""
+    return 32 - log2m + 1
+
+
+def hll_supported(num_groups: int, log2m: int) -> bool:
+    """The reference's rho-mode regime: its count matrix fits the
+    accumulator (no folded count channel) and the slot space <= 2^20."""
+    nslots = num_groups * (1 << log2m)
+    return mm_supported(nslots, hll_nrho(log2m), ones_first=False) \
+        and nslots <= (1 << 20)
+
+
+def hll_registers(slot, rho, num_groups: int, log2m: int):
+    """(num_groups, m) int32 HLL registers through K3. slot: (n,) int32 =
+    gid * m + idx, masked rows → num_groups * m; rho: (n,) int32 in
+    [1, hll_nrho(log2m)]."""
+    m = 1 << log2m
+    regs = kernels.count_entry(
+        launches, "hll_registers", "hll_register_max",
+        kernels.hll_register_max,
+        slot.reshape(-1).to(torch.int32).contiguous(),
+        rho.reshape(-1).to(torch.int32).contiguous(), num_groups * m)
+    return regs.reshape(num_groups, m)
 
 
 # ---------------------------------------------------------------------------

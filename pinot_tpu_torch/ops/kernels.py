@@ -1,9 +1,10 @@
 """The port's hand-written CUDA kernels: build, ctypes binding, wrappers,
 plain PyTorch versions and launch counts.
 
-K1 ``group_plane_sums`` (csrc/group_plane_sums.cu) and K2
-``group_minmax`` (csrc/group_minmax.cu) are compiled with ``nvcc`` for
-``sm_90a`` into one shared library each, with a plain C interface, under
+K1 ``group_plane_sums`` (csrc/group_plane_sums.cu), K2 ``group_minmax``
+(csrc/group_minmax.cu) and K3 ``hll_register_max``
+(csrc/hll_register_max.cu) are compiled with ``nvcc`` for ``sm_90a``
+into one shared library each, with a plain C interface, under
 ``pinot_tpu_torch/_build/`` at first use — one ``nvcc`` process per
 source, all started together — and bound with ``ctypes``. Nothing is
 built when the module is imported.
@@ -37,6 +38,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 SOURCES = {
     "group_plane_sums": "group_plane_sums.cu",
     "group_minmax": "group_minmax.cu",
+    "hll_register_max": "hll_register_max.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
@@ -50,6 +52,14 @@ launches = {name: 0 for name in SOURCES}
 
 _libs: dict = {}
 _lock = threading.Lock()
+
+_vp, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_ARGTYPES = {  # the C signatures at the end of each csrc/*.cu
+    "group_plane_sums": [_vp, _vp, _i64, _i32, _i32, _i32, _i32, _vp, _vp],
+    "group_minmax": [_vp, _vp, _i64, _i32, _i32, _i32, ctypes.c_int32,
+                     ctypes.c_int32, _vp, _vp, _vp],
+    "hll_register_max": [_vp, _vp, _i64, _i32, _i32, _vp, _vp],
+}
 
 
 # ---------------------------------------------------------------------------
@@ -107,12 +117,7 @@ def _lib(name: str):
                 build_all()
             lib = ctypes.CDLL(path)
             fn = getattr(lib, name)
-            vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-            if name == "group_plane_sums":
-                fn.argtypes = [vp, vp, i64, i32, i32, i32, i32, vp, vp]
-            else:
-                fn.argtypes = [vp, vp, i64, i32, i32, i32, ctypes.c_int32,
-                               ctypes.c_int32, vp, vp, vp]
+            fn.argtypes = _ARGTYPES[name]
             fn.restype = ctypes.c_int
             _libs[name] = lib
         return lib
@@ -282,3 +287,63 @@ def group_minmax(gid, values, num_groups: int, ops: tuple,
         _raise_on("group_minmax", rc)
         launches["group_minmax"] += 1
     return tuple(_from_keys(outs[op], values.dtype) for op in ops)
+
+
+def count_entry(table: dict, entry: str, kernel: str, fn, *args, **kwargs):
+    """Call ``fn`` and add to ``table[entry]`` the launches of ``kernel``
+    it made: the per-entry counts of ops/group_scatter.py and
+    ops/groupby_mm.py, which tell apart the TPU kernels one CUDA kernel
+    replaces. CPU calls launch nothing and so count nothing."""
+    before = launches[kernel]
+    out = fn(*args, **kwargs)
+    table[entry] += launches[kernel] - before
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K3: HLL register max
+# ---------------------------------------------------------------------------
+
+HLL_SPAN = SMEM_BYTES // 4   # slots per partition: int32 registers
+
+
+def hll_partitions(nslots: int, span: int | None = None) -> int:
+    span = min(span or HLL_SPAN, HLL_SPAN)
+    return max(1, -(-nslots // span))
+
+
+def hll_register_max_plain(slot, rho, nslots: int):
+    """Plain version of K3: (nslots,) int32 per-slot max of rho over rows
+    whose slot lies in [0, nslots), 0 where no row lands."""
+    s = slot.reshape(-1).to(torch.int64)
+    s = torch.where((s >= 0) & (s < nslots), s, nslots)
+    out = torch.zeros(nslots + 1, dtype=torch.int32, device=rho.device)
+    out.scatter_reduce_(0, s, rho.reshape(-1).to(torch.int32), reduce="amax",
+                        include_self=True)
+    return out[:nslots]
+
+
+def hll_register_max(slot, rho, nslots: int, span: int | None = None):
+    """K3. slot: (n,) int32, slot ``nslots`` = overflow; rho: (n,) int32
+    in [1, 33 - log2m] (0 on padding adds nothing). ``span`` overrides the
+    slots per partition (tests force several partitions). Returns
+    (nslots,) int32 registers."""
+    if slot.device.type == "cpu" and rho.device.type == "cpu":
+        return hll_register_max_plain(slot, rho, nslots)
+    _check_cuda("hll_register_max", slot, rho)
+    if slot.dtype != torch.int32 or rho.dtype != torch.int32:
+        raise TypeError("hll_register_max takes int32 slots and rho, got "
+                        f"{slot.dtype} and {rho.dtype}")
+    if slot.dim() != 1 or slot.shape != rho.shape:
+        raise ValueError(f"hll_register_max shapes: slot {tuple(slot.shape)}, "
+                         f"rho {tuple(rho.shape)}")
+    out = torch.zeros(nslots, dtype=torch.int32, device=slot.device)
+    n = slot.shape[0]
+    if n and nslots:
+        span = min(span or HLL_SPAN, HLL_SPAN)
+        rc = _lib("hll_register_max").hll_register_max(
+            slot.data_ptr(), rho.data_ptr(), n, nslots, span, out.data_ptr(),
+            _stream(slot.device))
+        _raise_on("hll_register_max", rc)
+        launches["hll_register_max"] += 1
+    return out

@@ -10,6 +10,13 @@ gate) and once at the default gate (torch scatters at this size).
 Integer cells must match bit for bit, float cells per ``_rows_close``
 (the reference's own tolerance, tests/test_pallas_scatter.py), and
 numDocsScanned / totalDocs exactly.
+
+The HLL / distinct-count set (``SKETCH_SQL``) must match bit for bit,
+estimates, counts and every response stat both engines report; at the
+kernel gate of 0 rows its registers go through K3's plain version (both
+entries) and its large-G sorted form through K1's single-accumulator
+entry. The non-terminal executor's registers and distinct sets equal the
+reference's mergeable partials.
 """
 
 import numpy as np
@@ -20,10 +27,17 @@ from pinot_tpu.common.schema import Schema
 from pinot_tpu.common.table_config import TableConfig
 from pinot_tpu.engine.device import DeviceExecutor as RefExecutor
 from pinot_tpu.engine.engine import QueryEngine as RefEngine
+from pinot_tpu.query.optimizer import optimize_query as ref_optimize
+from pinot_tpu.sql.compiler import compile_select as ref_compile
+from pinot_tpu.sql.parser import parse_sql as ref_parse
 from pinot_tpu.storage.creator import build_segment
 from pinot_tpu.storage.segment import ImmutableSegment as RefSegment
+from pinot_tpu_torch.engine.device import DeviceExecutor
 from pinot_tpu_torch.engine.engine import QueryEngine
 from pinot_tpu_torch.ops import kernels
+from pinot_tpu_torch.query.optimizer import optimize_query
+from pinot_tpu_torch.sql.compiler import compile_select
+from pinot_tpu_torch.sql.parser import parse_sql
 from pinot_tpu_torch.storage.segment import ImmutableSegment
 
 SQL = {
@@ -65,8 +79,43 @@ SQL = {
 }
 FLOAT_QUERIES = {"double_sum_avg"}
 
-HLL_SQL = ("SELECT lo_suppkey, COUNT(*), DISTINCTCOUNTHLL(lo_custkey) "
-           "FROM lineorder GROUP BY lo_suppkey LIMIT 10")
+Q4_HLL = ("SELECT lo_suppkey, COUNT(*), AVG(lo_quantity), "
+          "DISTINCTCOUNTHLL(lo_custkey) FROM lineorder "
+          "GROUP BY lo_suppkey ORDER BY COUNT(*) DESC, lo_suppkey LIMIT 10")
+SKETCH_SQL = {
+    "hll_scalar": "SELECT COUNT(*), DISTINCTCOUNTHLL(lo_custkey) FROM lineorder",
+    "hll_scalar_filtered": (
+        "SELECT COUNT(*), DISTINCTCOUNTHLL(lo_custkey) FROM lineorder "
+        "WHERE lo_discount BETWEEN 1 AND 3"),
+    "hll_log2m_8": (
+        "SELECT DISTINCTCOUNTHLL(lo_custkey, 8), DISTINCTCOUNTHLL(s_nation) "
+        "FROM lineorder WHERE lo_quantity < 25"),
+    "hll_small_group": (
+        "SELECT d_year, c_region, DISTINCTCOUNTHLL(lo_custkey) FROM lineorder "
+        "GROUP BY d_year, c_region ORDER BY d_year, c_region LIMIT 50"),
+    # G = 2000 x 1024 slots: the sorted terminal form
+    "q4_scan_hll": "SET useStarTree = false; " + Q4_HLL,
+    "q4_scan_hll_cold": ("SET useStarTree = false; "
+                         "SET useSortedProjection = false; " + Q4_HLL),
+    "hll_sorted_filtered": (
+        "SELECT lo_suppkey, DISTINCTCOUNTHLL(lo_custkey), COUNT(*) "
+        "FROM lineorder WHERE lo_discount > 2 GROUP BY lo_suppkey "
+        "ORDER BY DISTINCTCOUNTHLL(lo_custkey) DESC, lo_suppkey LIMIT 10"),
+    "distinct_count": (
+        "SELECT d_year, DISTINCTCOUNT(lo_suppkey) FROM lineorder "
+        "WHERE lo_quantity < 10 GROUP BY d_year ORDER BY d_year"),
+    "distinct_count_scalar": (
+        "SELECT DISTINCTCOUNT(s_nation), DISTINCTCOUNTBITMAP(lo_suppkey), "
+        "COUNT(*) FROM lineorder WHERE d_year = 1995"),
+    "distinct_bitmap_group": (
+        "SELECT c_region, DISTINCTCOUNTBITMAP(s_nation), "
+        "SEGMENTPARTITIONEDDISTINCTCOUNT(lo_discount) FROM lineorder "
+        "WHERE c_region <> 'ASIA' GROUP BY c_region ORDER BY c_region"),
+}
+SKETCH_STATS = ("numDocsScanned", "numEntriesScannedInFilter",
+                "numEntriesScannedPostFilter", "numSegmentsQueried",
+                "numSegmentsProcessed", "numSegmentsMatched",
+                "numGroupsLimitReached", "totalDocs")
 
 
 def _rows_close(rows_a, rows_b):
@@ -165,8 +214,61 @@ def test_port_matches_reference(port_engine, ref_responses, name):
         assert got[key] == want[key], key
 
 
+@pytest.fixture(scope="module")
+def ref_sketch_responses(ref_engine):
+    return {k: ref_engine.execute(sql) for k, sql in SKETCH_SQL.items()}
+
+
+@pytest.mark.parametrize("name", sorted(SKETCH_SQL))
+def test_sketch_queries_match_reference(port_engine, ref_sketch_responses,
+                                        name):
+    want = ref_sketch_responses[name]
+    got = port_engine.execute(SKETCH_SQL[name])
+    assert want["exceptions"] == [] and got["exceptions"] == [], got
+    assert got["resultTable"] == want["resultTable"]
+    assert got["resultTable"]["rows"]
+    for key in SKETCH_STATS:
+        assert got[key] == want[key], key
+
+
+@pytest.mark.parametrize("name", ["hll_scalar_filtered", "hll_log2m_8",
+                                  "hll_small_group", "q4_scan_hll",
+                                  "distinct_count", "distinct_bitmap_group"])
+@pytest.mark.parametrize("min_rows", [0, None], ids=["kernels", "scatter"])
+def test_non_terminal_partials_match_reference(segment_dirs, name, min_rows):
+    """Without ``final`` the executor returns the mergeable partials: HLL
+    registers (every group, as int8 like the reference's) and distinct
+    value sets, equal to the reference executor's non-terminal launch."""
+    sql = SKETCH_SQL[name]
+    ref_q = ref_optimize(ref_compile(ref_parse(sql)))
+    want = RefExecutor(mm_mode="interpret").launch(
+        ref_q, [RefSegment(d) for d in segment_dirs]).fetch()
+    ex = DeviceExecutor("cpu") if min_rows is None \
+        else DeviceExecutor("cpu", min_rows=min_rows)
+    got = ex.execute(optimize_query(compile_select(parse_sql(sql))),
+                     [ImmutableSegment(d) for d in segment_dirs])
+    assert got.shape == want.shape
+    for g, w in zip(got.group_keys or (), want.group_keys or ()):
+        np.testing.assert_array_equal(g, w)
+    assert len(got.agg_partials) == len(want.agg_partials)
+    for pg, pw in zip(got.agg_partials, want.agg_partials):
+        assert sorted(pg) == sorted(pw)
+        for key in pw:
+            if key == "sets":
+                assert list(pg[key]) == list(pw[key])
+            else:
+                assert pg[key].dtype == np.asarray(pw[key]).dtype, key
+                np.testing.assert_array_equal(pg[key], np.asarray(pw[key]))
+    assert "regs" in {k for p in got.agg_partials for k in p} \
+        or "sets" in {k for p in got.agg_partials for k in p}
+
+
 def test_hll_is_reported_in_band(port_engine):
-    resp = port_engine.execute(HLL_SQL)
+    """HLLMERGE (the star-tree sketch merge) is the HLL shape still to
+    come: it is refused in-band, as every shape the port lacks."""
+    resp = port_engine.execute(
+        "SELECT lo_suppkey, HLLMERGE(lo_custkey) FROM lineorder "
+        "GROUP BY lo_suppkey")
     assert "resultTable" not in resp
     (exc,) = resp["exceptions"]
     assert exc["message"].startswith("DeviceUnsupported")
@@ -194,3 +296,32 @@ def test_kernel_gate_routes_to_the_kernels(segment_dirs, monkeypatch):
     eng.execute(SQL["q1_scan_agg"])
     eng.execute(SQL["q6_minmax"])
     assert calls == {"group_plane_sums": 2, "group_minmax": 3}
+
+
+def test_sketch_gate_routes_to_the_kernels(segment_dirs, monkeypatch):
+    """At the gate of 0 rows scalar HLL (1024 slots) reaches K3's
+    small-slot entry, the d_year x c_region HLL (35 x 1024 slots) its
+    group entry, and the terminal G = 2000 HLL K1's single-accumulator
+    entry, each through the kernel's plain version on the CPU; at the
+    default gate only the sorted form's K1 call remains (the reference's
+    sorted build has no row gate)."""
+    from pinot_tpu_torch.ops import group_scatter, groupby_mm
+
+    calls = []
+    for mod, entry in ((group_scatter, "hll_register_max"),
+                       (groupby_mm, "hll_registers"),
+                       (groupby_mm, "group_sums")):
+        real = getattr(mod, entry)
+
+        def wrapped(*a, _real=real, _entry=entry, **k):
+            calls.append(_entry)
+            return _real(*a, **k)
+        monkeypatch.setattr(mod, entry, wrapped)
+    for min_rows, want in ((0, ["hll_register_max", "hll_registers",
+                                "group_sums"]),
+                           (None, ["group_sums"])):
+        calls.clear()
+        eng = _port_engine(segment_dirs, min_rows)
+        for name in ("hll_scalar", "hll_small_group", "q4_scan_hll"):
+            assert eng.execute(SKETCH_SQL[name])["exceptions"] == []
+        assert calls == want, min_rows
