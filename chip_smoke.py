@@ -2,29 +2,41 @@
 """Drive the PyTorch/CUDA port (pinot_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py                      # the full run: 8 x 12.5M rows
-    python3 chip_smoke.py --rows 1000000       # a quick rehearsal
+    python3 chip_smoke.py --rows 400000        # a quick rehearsal
 
 Phases, all on ``cuda:0``:
 
 1. the card's name and power limit; the kernels built from
    ``pinot_tpu_torch/csrc/`` (one ``nvcc`` per source, started together).
 2. The SSB lineorder table is generated from seed 7 with bench.py's
-   columns and distributions and written by the port's creator in worker
-   processes, while the GPU holds each kernel against its plain PyTorch
-   version at the main paths' shapes: K1 group plane sums through both
-   entries (integer planes bit-exact, float planes within rtol 1e-6), K2
-   group min/max (bit-exact) and K3 HLL register max at 1024, 35,840 and
-   2^20 slots (bit-exact). CUDA-event times of the kernel, of its plain
-   version and of one library call computing the same function
-   (``index_add_`` / ``scatter_reduce_``), beside the memory bound.
-3. The table is loaded into ``QueryEngine(device="cuda")`` and two paths
-   run: the six SSB scan/filter/group-by queries, then the five HLL and
-   DISTINCTCOUNT queries. Every answer is checked against a numpy oracle
-   over the generated columns (HLL estimates from registers the oracle
-   builds itself), and the per-query p50 of 5 runs printed. The launch
-   counts, per kernel and per entry, are zeroed just before each path
-   and read just after; every kernel and entry of the path must have
-   launched.
+   columns and distributions; it and a copy stably sorted by
+   ``lo_orderdate`` (``lineorder_by_date``: Pinot's sorted-column layout
+   for time-ordered ingestion) are written by the port's creator in
+   worker processes, while the GPU holds each kernel against its plain
+   PyTorch version at the main paths' shapes: K1 group plane sums
+   through both entries (integer planes bit-exact, float planes within
+   rtol 1e-6), K2 group min/max (bit-exact), K3 HLL register max at
+   1024, 35,840 and 2^20 slots (bit-exact) and K4 fused filter + gather
+   + aggregate at the full candidate bound (bit-exact). CUDA-event times
+   of the kernel, of its plain version and of one library call computing
+   the same function (``index_add_`` / ``scatter_reduce_``; for K4, which
+   no single call computes, the port's generic gathered form), beside
+   the memory bound.
+3. Both tables are loaded into one ``QueryEngine(device="cuda")``; K4 is
+   held against its plain version once more at the block-skip path's
+   own candidates, and three paths run: the six SSB scan/filter/group-by
+   queries, the five HLL and DISTINCTCOUNT queries, and the six
+   block-skip queries on the sorted table. Every answer is checked
+   against a numpy oracle over the generated columns (HLL estimates from
+   registers the oracle builds itself; for the block-skip path also the
+   pruned segments, pruned blocks and entries scanned, from per-segment
+   and per-block min/max, and the ``SET useBlockSkip = false`` twin's
+   answer), and the per-query p50 of 5 runs printed. The launch counts,
+   per kernel and per entry, are zeroed just before each path and read
+   just after; every kernel and entry of the path must have launched.
+   Then the cost block-skip eligibility adds to the unsorted table's
+   filtered queries (the zone verdict and one scalar read before the
+   dense form): p50 with and without ``SET useBlockSkip = false``.
 4. A ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -105,6 +117,52 @@ HLL_QUERIES = {
 }
 LOG2M = 10  # DISTINCTCOUNTHLL's default register count 2^10
 
+# the block-skip path: the same rows stably sorted by lo_orderdate
+BS_TABLE = "lineorder_by_date"
+BS_QUERIES = {
+    "bs_month_fused": (
+        "SELECT COUNT(*), SUM(lo_quantity), MIN(lo_revenue), MAX(lo_revenue) "
+        f"FROM {BS_TABLE} WHERE lo_orderdate BETWEEN 19930301 AND 19930328"),
+    "bs_q12_shape": (
+        "SELECT COUNT(*), SUM(lo_quantity), MAX(lo_revenue) "
+        f"FROM {BS_TABLE} WHERE lo_orderdate BETWEEN 19940101 AND 19940128 "
+        "AND lo_discount BETWEEN 4 AND 6 AND lo_quantity BETWEEN 26 AND 35"),
+    "bs_or_in_not": (
+        f"SELECT COUNT(*), MIN(lo_revenue) FROM {BS_TABLE} WHERE "
+        "(lo_orderdate BETWEEN 19950601 AND 19950607 "
+        "OR lo_orderdate IN (19970102, 19970215)) AND NOT lo_discount = 0"),
+    "bs_sum_revenue": (
+        f"SELECT COUNT(*), SUM(lo_revenue) FROM {BS_TABLE} "
+        "WHERE lo_orderdate BETWEEN 19930301 AND 19930328"),
+    "bs_group_month": (
+        f"SELECT lo_discount, COUNT(*), SUM(lo_quantity) FROM {BS_TABLE} "
+        "WHERE lo_orderdate BETWEEN 19960101 AND 19960228 "
+        "GROUP BY lo_discount ORDER BY lo_discount LIMIT 20"),
+    "bs_year_overflow": QUERIES["q2_range_sum"].replace(
+        "FROM lineorder", f"FROM {BS_TABLE}"),
+}
+# the same filters as interval trees for the oracle: ("range", col, lo,
+# hi) inclusive, ("in", col, values), ("and" | "or", ...), ("not", x)
+BS_FILTERS = {
+    "bs_month_fused": ("range", "lo_orderdate", 19930301, 19930328),
+    "bs_q12_shape": ("and", ("range", "lo_orderdate", 19940101, 19940128),
+                     ("range", "lo_discount", 4, 6),
+                     ("range", "lo_quantity", 26, 35)),
+    "bs_or_in_not": ("and", ("or",
+                             ("range", "lo_orderdate", 19950601, 19950607),
+                             ("in", "lo_orderdate", (19970102, 19970215))),
+                     ("not", ("in", "lo_discount", (0,)))),
+    "bs_sum_revenue": ("range", "lo_orderdate", 19930301, 19930328),
+    "bs_group_month": ("range", "lo_orderdate", 19960101, 19960228),
+    "bs_year_overflow": ("and", ("range", "lo_orderdate", 19930101, 19931231),
+                         ("range", "lo_discount", 1, 3),
+                         ("range", "lo_quantity", -2**31, 24)),
+}
+# the unsorted table's filtered queries, which are block-skip eligible and
+# overflow the candidate bound: their cost against SET useBlockSkip=false
+OVERFLOW_QUERIES = ("q2_range_sum", "q3_in_range", "q6_minmax",
+                    "hll_scalar", "distinct_count")
+
 # kernels each path must launch, and the entries (the TPU kernels they
 # replace: pinot_tpu's Pallas rows) each path must reach
 PATHS = {
@@ -115,6 +173,9 @@ PATHS = {
             ((1, "groupby_mm", "group_sums"),
              (2, "groupby_mm", "hll_registers"),
              (5, "group_scatter", "hll_register_max"))),
+    "blockskip": (BS_QUERIES, ("fused_filter_agg", "group_plane_sums"),
+                  ((6, "group_scatter", "fused_filter_agg"),
+                   (3, "group_scatter", "plane_group_sums"))),
 }
 
 
@@ -152,9 +213,20 @@ def generate(segments: int, rows: int, seed: int = 7) -> list:
     return out
 
 
-def write_segment(i: int, seg: dict) -> str:
-    """Writes segment ``s<i>`` of the table with the port's creator (run in
-    a worker process)."""
+def sort_by_date(data: list) -> list:
+    """The same rows stably sorted by lo_orderdate, cut into as many
+    segments of the same sizes."""
+    c = {k: np.concatenate([d[k] for d in data]) for k in data[0]}
+    order = np.argsort(c["lo_orderdate"], kind="stable")
+    c = {k: v[order] for k, v in c.items()}
+    cuts = np.cumsum([len(d["lo_orderdate"]) for d in data])[:-1]
+    return [dict(zip(c, parts))
+            for parts in zip(*(np.split(v, cuts) for v in c.values()))]
+
+
+def write_segment(i: int, seg: dict, table: str = "lineorder") -> str:
+    """Writes segment ``s<i>`` of ``table`` with the port's creator (run
+    in a worker process)."""
     from pinot_tpu_torch.common.datatypes import DataType
     from pinot_tpu_torch.common.schema import Schema
     from pinot_tpu_torch.common.table_config import TableConfig
@@ -172,9 +244,8 @@ def write_segment(i: int, seg: dict) -> str:
     cols = dict(seg)
     cols["c_region"] = REGIONS[cols["c_region"]]
     cols["s_nation"] = NATIONS[cols["s_nation"]]
-    out = os.path.join(DATA_DIR, f"s{i}")
-    build_segment(schema, cols, out, TableConfig(table_name="lineorder"),
-                  f"s{i}")
+    out = os.path.join(DATA_DIR, table, f"s{i}")
+    build_segment(schema, cols, out, TableConfig(table_name=table), f"s{i}")
     return out
 
 
@@ -296,6 +367,101 @@ def oracle(data: list) -> dict:
     dc = np.bincount(pairs // 2000, minlength=7)
     want["distinct_count"] = ([[1992 + y, int(dc[y])] for y in range(7)
                                if dc[y]], int(m.sum()))
+    return want
+
+
+def _rows_mask(tree, c) -> np.ndarray:
+    kind = tree[0]
+    if kind == "range":
+        v = c[tree[1]]
+        return (v >= tree[2]) & (v <= tree[3])
+    if kind == "in":
+        return np.isin(c[tree[1]], tree[2])
+    if kind == "not":
+        return ~_rows_mask(tree[1], c)
+    ms = [_rows_mask(t, c) for t in tree[1:]]
+    return np.logical_and.reduce(ms) if kind == "and" \
+        else np.logical_or.reduce(ms)
+
+
+def _may_match(tree, lo: dict, hi: dict) -> np.ndarray:
+    """May an interval [lo, hi] per column hold a matching row: AND all,
+    OR any, NOT always (the segment pruner's and the zone verdict's
+    algebra)."""
+    kind = tree[0]
+    if kind == "range":
+        return (hi[tree[1]] >= tree[2]) & (lo[tree[1]] <= tree[3])
+    if kind == "in":
+        return np.logical_or.reduce([(lo[tree[1]] <= v) & (hi[tree[1]] >= v)
+                                     for v in tree[2]])
+    if kind == "not":
+        return np.ones(next(iter(lo.values())).shape, dtype=bool)
+    ms = [_may_match(t, lo, hi) for t in tree[1:]]
+    return np.logical_and.reduce(ms) if kind == "and" \
+        else np.logical_or.reduce(ms)
+
+
+def _tree_columns(tree) -> set:
+    if tree[0] in ("range", "in"):
+        return {tree[1]}
+    return set().union(*(_tree_columns(t) for t in tree[1:]))
+
+
+def bs_oracle(data: list, pad_to: int) -> dict:
+    """The block-skip path's answers from the sorted columns, with the
+    stats the engine must report: segments pruned from per-segment
+    min/max, and blocks pruned and entries scanned from per-4096-row-block
+    min/max under the candidate bound (none pruned past it)."""
+    R, frac = 4096, 16
+    sizes = [len(d["lo_orderdate"]) for d in data]
+    c = {k: np.concatenate([d[k] for d in data]) for k in data[0]}
+    cols = ("lo_orderdate", "lo_discount", "lo_quantity")
+    seg_lo = {k: np.array([d[k].min() for d in data]) for k in cols}
+    seg_hi = {k: np.array([d[k].max() for d in data]) for k in cols}
+    starts = [np.arange(0, n, R) for n in sizes]
+    blk_lo = {k: np.concatenate([np.minimum.reduceat(d[k], st)
+                                 for d, st in zip(data, starts)]) for k in cols}
+    blk_hi = {k: np.concatenate([np.maximum.reduceat(d[k], st)
+                                 for d, st in zip(data, starts)]) for k in cols}
+    blk_seg = np.concatenate([np.full(len(st), i) for i, st in
+                              enumerate(starts)])
+    blk_rows = np.concatenate([np.minimum(R, n - st)
+                               for n, st in zip(sizes, starts)])
+    total = len(data) * (pad_to // R)
+    bound = min(total, max(1, -(-total // frac)))
+    qty, rev = c["lo_quantity"].astype(np.int64), \
+        c["lo_revenue"].astype(np.int64)
+    want = {}
+    for name, tree in BS_FILTERS.items():
+        m = _rows_mask(tree, c)
+        alive = _may_match(tree, seg_lo, seg_hi)
+        cand = _may_match(tree, blk_lo, blk_hi) & alive[blk_seg]
+        blocks_total = int(alive[blk_seg].sum())
+        if cand.sum() > bound:  # overflow: the dense form over alive rows
+            scanned, rows = blocks_total, int(blk_rows[alive[blk_seg]].sum())
+        else:
+            scanned, rows = int(cand.sum()), int(blk_rows[cand].sum())
+        stats = {"numSegmentsPrunedByServer": int((~alive).sum()),
+                 "numBlocksPruned": blocks_total - scanned,
+                 "numEntriesScannedInFilter": rows * len(_tree_columns(tree))}
+        n = int(m.sum())
+        if name == "bs_group_month":
+            d = c["lo_discount"][m]
+            cnt = np.bincount(d, minlength=11)
+            qs = np.bincount(d, weights=qty[m], minlength=11)
+            out = [[k, int(cnt[k]), float(qs[k])] for k in range(11) if cnt[k]]
+        elif name == "bs_year_overflow":
+            out = [[float(rev[m].sum())]]
+        elif name == "bs_sum_revenue":
+            out = [[n, float(rev[m].sum())]]
+        elif name == "bs_or_in_not":
+            out = [[n, float(rev[m].min())]]
+        elif name == "bs_q12_shape":
+            out = [[n, float(qty[m].sum()), float(rev[m].max())]]
+        else:
+            out = [[n, float(qty[m].sum()), float(rev[m].min()),
+                    float(rev[m].max())]]
+        want[name] = (out, n, stats)
     return want
 
 
@@ -555,6 +721,215 @@ def check_k2(n: int, dev) -> dict:
                 library_ms=lib_ms)
 
 
+def kernel_device_ms(fn, reps: int, name_part: str):
+    """Mean device time of the kernels whose name holds ``name_part`` over
+    ``reps`` calls, from torch.profiler (a kernel of a few microseconds
+    is shorter than its wrapper's host time, which CUDA events around
+    back-to-back calls would measure); None when the trace shows none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and name_part in e.key]
+    if not ev:
+        return None
+    return sum(e.self_device_time_total for e in ev) / 1e3 / reps
+
+
+def gather_branch(cand, rows_in, col_arrays, par_arrays, plan):
+    """The port's generic gathered form over K4's candidates, for its
+    time: gather every plane's candidate blocks (ops/blockskip.py), the
+    filter as torch ops (engine/device.py ``_eval_filter``) and masked
+    reductions (ops/agg.py). No single PyTorch call computes K4's
+    function, so this stands as its yardstick."""
+    import torch
+    from pinot_tpu_torch.engine.device import _eval_filter
+    from pinot_tpu_torch.ops import agg as agg_ops
+    from pinot_tpu_torch.ops import blockskip as bs
+
+    R = bs.BLOCK_ROWS
+    g = {}
+    for k, v in col_arrays.items():
+        x = bs.gather_blocks(v, cand, 1, R)
+        g[k] = x if x.is_floating_point() else x.to(torch.int32)
+    rowid = torch.arange(R, dtype=torch.int32, device=cand.device)
+    mask = _eval_filter(plan.filter_tpl, g, par_arrays,
+                        (cand.shape[0], R), cand.device) \
+        & (rowid[None, :] < rows_in[:, None])
+    reduce = {"sum": agg_ops.agg_sum, "min": agg_ops.agg_min,
+              "max": agg_ops.agg_max}
+    return [mask.sum()] + [reduce[op](g[ck], mask)
+                           for (_i, op, ck, _b, _s, _f) in plan.aggs]
+
+
+def check_k4(label: str, cand, rows_in, col_arrays, par_arrays, plan) -> dict:
+    """K4 against its plain version on one set of candidates, bit-exact;
+    kernel device time (profiler), the plain version's and the generic
+    gathered form's (CUDA events), and the bytes bound: each candidate
+    row that holds data read once per plane, candidate ids and row counts
+    read, the per-candidate partials written."""
+    import torch
+    from pinot_tpu_torch.ops import group_scatter as ps
+    from pinot_tpu_torch.ops import kernels
+
+    args = ps.lower_fused(plan, col_arrays, par_arrays)
+    got_i, got_f = kernels.fused_filter_agg(cand, rows_in, *args)
+    want_i, want_f = kernels.fused_filter_agg_plain(cand, rows_in, *args)
+    torch.cuda.synchronize()
+    err = float((got_i.long() - want_i.long()).abs().max())
+    same = torch.equal(got_i, want_i)
+    if want_f is not None:
+        err = max(err, float((got_f - want_f).abs().max()))
+        same = same and torch.equal(got_f.view(torch.int32),
+                                    want_f.view(torch.int32))
+    if not same:
+        raise AssertionError(f"K4 differs at {label}, max abs err {err}")
+    branch = gather_branch(cand, rows_in, col_arrays, par_arrays, plan)
+    if int(branch[0]) != int(got_i[:, 0].sum()):
+        raise AssertionError(f"K4 {label}: the gathered form counts "
+                             f"{int(branch[0])} rows, K4 "
+                             f"{int(got_i[:, 0].sum())}")
+
+    def call():
+        return kernels.fused_filter_agg(cand, rows_in, *args)
+
+    event_ms = cuda_ms(call, 20)
+    dev_ms = kernel_device_ms(call, 20, "fused_kernel")
+    plain_ms = cuda_ms(lambda: kernels.fused_filter_agg_plain(
+        cand, rows_in, *args), 3)
+    lib_ms = cuda_ms(lambda: gather_branch(cand, rows_in, col_arrays,
+                                           par_arrays, plan), 5)
+    cols, _lits, prog, aggs, ki, kf = args
+    rows = int(rows_in.sum())
+    B = cand.shape[0]
+    nbytes = rows * sum(c.element_size() for c in cols) + 8 * B \
+        + 4 * B * (ki + kf)
+    b, by = bound_ms(nbytes, rows * (len(prog) + len(aggs) + 1))
+    n_valid = int((rows_in > 0).sum())
+    res = dict(shape=f"{label}: B={B} candidates ({n_valid} holding "
+                     f"{rows} rows), {len(cols)} planes "
+                     f"({', '.join(str(c.dtype).replace('torch.', '') for c in cols)}), "
+                     f"{len(prog)} instructions, {len(aggs)} aggregates",
+               max_abs_err=err, ms=dev_ms if dev_ms is not None else event_ms,
+               call_ms=event_ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+               library_ms=lib_ms,
+               library_is="the port's generic gathered form (no single "
+                          "PyTorch call computes K4's function)")
+    log(f"K4 {res['shape']}: kernel {res['ms']:.4f} ms (device, profiler), "
+        f"call {event_ms:.4f} ms (CUDA events), plain {plain_ms:.4f} ms, "
+        f"gathered form {lib_ms:.4f} ms, bound {b:.4f} ms, bit-exact")
+    return res
+
+
+def check_k4_bound(n_blocks: int, dev) -> dict:
+    """K4 at the full static candidate bound B = ceil(n_blocks / 16) over
+    a batch of n_blocks zone blocks: u16 and u8 dict-id planes, an i32
+    decoded plane, a synthetic f32 plane (float MIN/MAX) and an i16 raw
+    plane (raw-space predicates); random distinct candidates, the last
+    one a partial block."""
+    import torch
+    from pinot_tpu_torch.ops import group_scatter as ps
+
+    R = ps.FUSED_BLOCK_ROWS
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    def ints(lo, hi, dtype):
+        return torch.randint(lo, hi, (n_blocks, R), generator=gen,
+                             dtype=torch.int32, device=dev).to(dtype)
+
+    cols = {"lo_orderdate": ints(0, 2352, torch.uint16),
+            "lo_discount": ints(0, 11, torch.uint8),
+            "dv::lo_revenue": ints(1000, 6_000_000, torch.int32),
+            "fv": torch.randn((n_blocks, R), generator=gen, device=dev),
+            "r16": ints(-30000, 30000, torch.int16)}
+    widths = {"lo_orderdate": ("<u2", 0, False, ""),
+              "lo_discount": ("|u1", 0, False, ""),
+              "dv::lo_revenue": ("<i4", 0, False, ""),
+              "fv": ("<f4", 0, False, ""), "r16": ("<i2", 0, False, "")}
+    ftpl = ("and", ("range_dict", "lo_orderdate", "p0", "p1"),
+            ("in_dict", "lo_discount", "p2", 4),
+            ("not", ("eq_raw", ("raw", "r16"), "p3")),
+            ("range_raw", ("raw", "r16"), "p4", "p5", True, True, True, False))
+    aggs = (("count", None, None),
+            ("sum", ("raw", "lo_discount"), (1, 1 << 20)),
+            ("minmaxrange", ("dictval", "lo_revenue"), None),
+            ("minmaxrange", ("raw", "fv"), None),
+            ("max", ("raw", "r16"), None))
+    plan = ps.plan_fused(ftpl, aggs, widths)
+
+    def lit(*v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    params = {"p0": lit(200), "p1": lit(1800), "p2": lit(1, 3, 5, 7),
+              "p3": lit(0), "p4": lit(-20000), "p5": lit(20000)}
+    if plan is None or not ps.fused_params_ok(plan, params):
+        raise AssertionError("K4 bound shape: the fused plan declined")
+    B = min(n_blocks, max(1, -(-n_blocks // 16)))
+    cand = torch.randperm(n_blocks, generator=gen, device=dev)[:B] \
+        .sort().values.to(torch.int32)
+    rows_in = torch.full((B,), R, dtype=torch.int32, device=dev)
+    rows_in[-1] = 1000
+    return check_k4("full candidate bound", cand, rows_in,
+                    {k: cols[k] for k in plan.cols}, params, plan)
+
+
+def capture_fused(engine, sql: str) -> tuple:
+    """The arguments the engine hands K4's entry for ``sql``: (cand,
+    rows_in, col_arrays, par_arrays, plan)."""
+    from pinot_tpu_torch.ops import group_scatter as ps
+
+    seen = []
+    entry = ps.fused_filter_agg
+
+    def grab(*args):
+        seen.append(args)
+        return entry(*args)
+
+    ps.fused_filter_agg = grab
+    try:
+        resp = engine.execute(sql)
+    finally:
+        ps.fused_filter_agg = entry
+    if resp["exceptions"] or len(seen) != 1:
+        raise AssertionError(f"K4 was not reached once by {sql!r}: "
+                             f"{resp['exceptions']}, {len(seen)} calls")
+    return seen[0]
+
+
+def overflow_cost(engine, runs: int) -> dict:
+    """The unsorted table's block-skip-eligible queries overflow the
+    candidate bound: p50 with block skip on (zone verdict + one scalar
+    read, then the dense form) and off, in alternating order."""
+    out = {}
+    sqls = dict(QUERIES, **HLL_QUERIES)
+    for name in OVERFLOW_QUERIES:
+        on, off = sqls[name], "SET useBlockSkip = false; " + sqls[name]
+        r_on, r_off = engine.execute(on), engine.execute(off)
+        if r_on["resultTable"] != r_off["resultTable"] \
+                or r_on["numBlocksPruned"] != 0:
+            raise AssertionError(f"{name}: block skip on and off differ")
+        times = {on: [], off: []}
+        for _ in range(runs):
+            for sql in (on, off, off, on):
+                t = time.perf_counter()
+                engine.execute(sql)
+                times[sql].append((time.perf_counter() - t) * 1e3)
+        p_on = float(np.percentile(times[on], 50))
+        p_off = float(np.percentile(times[off], 50))
+        out[name] = {"skip_eligible_p50_ms": p_on, "forced_dense_p50_ms": p_off}
+        log(f"overflow cost {name}: p50 {p_on:.3f} ms eligible, {p_off:.3f} "
+            f"ms with useBlockSkip=false ({p_on - p_off:+.3f} ms over "
+            f"{2 * runs} runs each)")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
@@ -582,8 +957,17 @@ def profile_query(engine, name: str, sql: str, top: int = 8) -> None:
     ev.sort(key=lambda e: -e.self_device_time_total)
     parts = ", ".join(f"{e.key[:48]} x{e.count} "
                       f"{e.self_device_time_total / 1e3:.3f}" for e in ev[:top])
+    # host side: the CUDA runtime calls and aten ops with the most self
+    # time, where a host-bound query's wall time goes
+    host = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU and e.self_cpu_time_total]
+    host.sort(key=lambda e: -e.self_cpu_time_total)
+    host_ms = sum(e.self_cpu_time_total for e in host) / 1e3
+    hparts = ", ".join(f"{e.key[:32]} x{e.count} "
+                       f"{e.self_cpu_time_total / 1e3:.3f}" for e in host[:6])
     log(f"profile {name}: wall {wall_ms:.3f} ms, device {dev_ms:.3f} ms "
-        f"(busy {dev_ms / wall_ms:.1%}); top device ms: {parts}")
+        f"(busy {dev_ms / wall_ms:.1%}); top device ms: {parts}; traced "
+        f"host ops {host_ms:.3f} ms, top host ms: {hparts}")
 
 
 def launch_tables() -> dict:
@@ -612,7 +996,7 @@ def run_path(engine, path: str, want: dict, total: int, runs: int,
         resp = engine.execute(sql)
         if resp["exceptions"]:
             raise AssertionError(f"{name}: {resp['exceptions']}")
-        rows_want, scanned = want[name]
+        rows_want, scanned = want[name][:2]
         got = resp["resultTable"]["rows"]
         if not rows_equal(got, rows_want):
             raise AssertionError(f"{name}: rows {got[:5]} want "
@@ -621,6 +1005,16 @@ def run_path(engine, path: str, want: dict, total: int, runs: int,
             raise AssertionError(
                 f"{name}: numDocsScanned {resp['numDocsScanned']} / "
                 f"totalDocs {resp['totalDocs']}, want {scanned} / {total}")
+        if len(want[name]) > 2:  # pruning stats, and the force-dense twin
+            for key, val in want[name][2].items():
+                if resp[key] != val:
+                    raise AssertionError(f"{name}: {key} {resp[key]}, "
+                                         f"want {val}")
+            twin = engine.execute("SET useBlockSkip = false; " + sql)
+            if twin["resultTable"] != resp["resultTable"] \
+                    or twin["numDocsScanned"] != scanned:
+                raise AssertionError(f"{name}: the useBlockSkip = false twin "
+                                     f"answers {twin['resultTable']}")
         times = []
         for _ in range(runs):
             t = time.perf_counter()
@@ -705,9 +1099,16 @@ def main(argv=None) -> int:
     pool = mp.get_context("spawn").Pool(workers)
     try:
         pending = pool.starmap_async(write_segment, enumerate(data))
+        t = time.perf_counter()
+        bs_data = sort_by_date(data)
+        log(f"sort by lo_orderdate: {time.perf_counter() - t:.2f} s")
+        pending_bs = pool.starmap_async(
+            write_segment, [(i, seg, BS_TABLE) for i, seg in
+                            enumerate(bs_data)])
 
         dev = torch.device("cuda", 0)
-        n = S * padded_len(rows, max(1024, ZONE_BLOCK_ROWS))
+        pad = padded_len(rows, max(1024, ZONE_BLOCK_ROWS))
+        n = S * pad
         k1 = check_k1(n, dev)
         log(f"K1 {k1['shape']}: {k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f}"
             f" ms, index_add_ {k1['library_ms']:.4f} ms, bound "
@@ -729,24 +1130,31 @@ def main(argv=None) -> int:
         # the kernel line's main numbers: the group entry's 35 x 1024 slots
         k3 = dict(k3_sizes[1], sizes=k3_sizes)
         torch.cuda.empty_cache()
+        k4_bound = check_k4_bound(n // ZONE_BLOCK_ROWS, dev)
+        torch.cuda.empty_cache()
 
         dirs = pending.get()
-        log(f"write segments (port creator, {workers} processes): "
-            f"{time.perf_counter() - t_write:.2f} s")
+        bs_dirs = pending_bs.get()
+        log(f"write segments (port creator, {workers} processes, both "
+            f"tables): {time.perf_counter() - t_write:.2f} s")
     finally:
         pool.terminate()
         pool.join()
 
     t = time.perf_counter()
     want = oracle(data)
+    want.update(bs_oracle(bs_data, pad))
     total = S * rows
-    del data
+    del data, bs_data
     log(f"numpy oracle: {time.perf_counter() - t:.2f} s")
 
     segs = [ImmutableSegment(d) for d in dirs]
+    bs_segs = [ImmutableSegment(d) for d in bs_dirs]
     engine = QueryEngine(device="cuda")
     for s in segs:
         engine.add_segment("lineorder", s)
+    for s in bs_segs:
+        engine.add_segment(BS_TABLE, s)
     t = time.perf_counter()
     ctx = engine.device.batch_for(segs)
     for c in ("d_year", "c_region", "s_nation", "lo_suppkey",
@@ -755,9 +1163,19 @@ def main(argv=None) -> int:
     for c in ("lo_quantity", "lo_revenue"):
         ctx.decoded_column(c)
     ctx.prehashed_column("lo_custkey")
+    bs_ctx = engine.device.batch_for(bs_segs)
+    for c in ("lo_orderdate", "lo_discount", "lo_quantity"):
+        bs_ctx.column(c)
+    for c in ("lo_quantity", "lo_revenue"):
+        bs_ctx.decoded_column(c)
     torch.cuda.synchronize()
-    log(f"upload (global dictionaries + {ctx.resident_bytes} device bytes):"
-        f" {time.perf_counter() - t:.2f} s")
+    log(f"upload (global dictionaries, zone maps + {ctx.resident_bytes} "
+        f"+ {bs_ctx.resident_bytes} device bytes): "
+        f"{time.perf_counter() - t:.2f} s")
+
+    k4 = check_k4("the block-skip path's bs_month_fused",
+                  *capture_fused(engine, BS_QUERIES["bs_month_fused"]))
+    k4["sizes"] = [dict(k4), k4_bound]
 
     p50, launches = {}, {name: 0 for name in kernels.launches}
     for path in PATHS:
@@ -766,6 +1184,7 @@ def main(argv=None) -> int:
         p50.update(path_p50)
         for name, count in counts.items():
             launches[name] += count
+    overflow = overflow_cost(engine, args.runs)
 
     entries = []
     for name, res, replaces in (
@@ -773,13 +1192,15 @@ def main(argv=None) -> int:
              "(and pinot_tpu/ops/groupby_mm.py:225)"),
             ("group_minmax", k2, "pinot_tpu/ops/pallas_scatter.py:349"),
             ("hll_register_max", k3, "pinot_tpu/ops/pallas_scatter.py:455 "
-             "(and pinot_tpu/ops/groupby_mm.py:225 in rho_mode)")):
+             "(and pinot_tpu/ops/groupby_mm.py:225 in rho_mode)"),
+            ("fused_filter_agg", k4, "pinot_tpu/ops/pallas_scatter.py:792")):
         entry = {"name": name, "route": "cuda",
                  "source": f"pinot_tpu_torch/csrc/{kernels.SOURCES[name]}",
                  "replaces": replaces, "launches": launches[name]}
         entry.update(res)
         entries.append(entry)
-    log(json.dumps({"query_p50_ms": p50, "rows": total}))
+    log(json.dumps({"query_p50_ms": p50, "rows": total,
+                    "overflow_cost": overflow}))
     log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -25,11 +25,24 @@ and builds large-G HLL register-free from sorted keys
 (``_hll_sorted_sums``); a non-terminal launch returns the mergeable
 presence sets and registers.
 
+Pruning, as in the reference. Level 1: ``SegmentPruner`` (engine/engine.py)
+proves segments empty from their metadata at launch; they stay in the
+batch, dead (the ``ps_alive`` param), and a fully pruned launch runs
+nothing on the card. Level 2: a filter with interval structure takes the
+zone-map block skip (ops/blockskip.py): per-block verdicts over the
+batch's zone maps, the candidate blocks compacted under a static bound,
+then either the generic gathered form (filter + aggregation over the
+(B, R) candidate rows) or, for scalar templates in its surface, the fused
+filter + gather + aggregate kernel K4 (ops/group_scatter.py). Where the
+reference branches on the device (``lax.cond``), the port reads the
+candidate count to the host, one scalar sync, and runs the dense form
+when it overflows the bound.
+
 This slice covers the scalar ``agg`` and dense ``groupby`` shapes. The
-sorted high-cardinality group-by regime, block skip, DISTINCT, HLLMERGE
-and first/last-with-time raise DeviceUnsupported and come with later
-slices. There is no fallback ladder: a device or kernel error propagates
-to the caller.
+sorted high-cardinality group-by regime, DISTINCT, HLLMERGE and
+first/last-with-time raise DeviceUnsupported and come with later slices.
+There is no fallback ladder: a device or kernel error propagates to the
+caller.
 """
 
 from __future__ import annotations
@@ -52,6 +65,7 @@ from pinot_tpu_torch.engine.params import (
 )
 from pinot_tpu_torch.engine.result import ExecutionStats, IntermediateResult
 from pinot_tpu_torch.ops import agg as agg_ops
+from pinot_tpu_torch.ops import blockskip as bs_ops
 from pinot_tpu_torch.ops import group_scatter as ps
 from pinot_tpu_torch.ops import groupby_mm as mm
 from pinot_tpu_torch.ops import hll as hll_ops
@@ -179,9 +193,10 @@ def _try_mm_groupby(aggs, gid, cols, params, num_groups, outs, widths,
         return set()
     plans = []  # (i, kind, nplanes, values)
     total_ch = 1  # ones channel
-    for i, (name, argt, nplanes_int) in enumerate(aggs):
+    for i, (name, argt, extra) in enumerate(aggs):
         if name not in ("sum", "avg"):
             continue
+        nplanes_int = extra[0]  # extra = (nplanes, rows per block)
         v = _eval_expr(argt, cols, params, widths)
         if not v.is_floating_point():
             if nplanes_int is None:  # unknown range → exact scatter instead
@@ -340,35 +355,176 @@ def _finalize_sketch_outs(outs: dict, agg_tpls) -> None:
             outs[f"{k}_est"] = est[0] if regs.dim() == 1 else est
 
 
-def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS):
+def _fused_params(plan, params, widths) -> dict:
+    """K4's literals: id-space params as int32; raw-space params shifted
+    into the plane's storage space (minus its "fo::" offset) and clipped
+    to the storage dtype's range ±1, in int64 before the int32 cast —
+    storage values are a strict subset, so every comparison survives."""
+    out = {}
+    for key, (ck, kindp) in plan.pred_params.items():
+        p = params[key].reshape(-1)
+        if kindp == "storage":
+            w = widths[ck]
+            p64 = p.to(torch.int64)
+            if w[2] and "fo::" + ck in params:
+                p64 = p64 - params["fo::" + ck].to(torch.int64)
+            info = np.iinfo(np.dtype(w[0]))
+            p = torch.clamp(p64, int(info.min) - 1, int(info.max) + 1)
+        out[key] = p.to(torch.int32)
+    return out
+
+
+def _fused_outs(plan, ints, flts, params, widths, outs) -> None:
+    """K4's per-candidate partials → the dense form's leaves, in place.
+    K4 aggregates STORAGE values; decode applies at answer scale —
+    Σ(v + fo) = Σv + fo·n and min(v + fo) = min(v) + fo are exact — and
+    an empty int extreme takes the wide dtype's fill, so dtypes and
+    values equal the dense form's."""
+    dc = outs["doc_count"]
+    for (i, op, ck, buf, slot, _fill) in plan.aggs:
+        key = f"a{i}_{op}"
+        w = widths[ck]
+        wide = _torch_dtype(w[3] or w[0])
+        fo = params.get("fo::" + ck) if w[2] else None
+        if op == "sum":
+            tot = ints[:, slot].to(torch.int64).sum()
+            outs[key] = tot if fo is None else tot + fo.to(torch.int64) * dc
+        elif buf == "int":
+            col = ints[:, slot]
+            red = (col.min() if op == "min" else col.max()).to(wide)
+            if fo is not None:
+                red = red + fo
+            info = torch.iinfo(wide)
+            empty = torch.full((), info.max if op == "min" else info.min,
+                               dtype=wide, device=red.device)
+            outs[key] = torch.where(dc > 0, red, empty)
+        else:
+            col = flts[:, slot]
+            outs[key] = (col.min() if op == "min" else col.max()).to(wide)
+
+
+def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS,
+                   blockskip: bool = False):
     """template → fn(cols, n_docs, params) → outputs dict of tensors.
 
     ``widths``: the batch's column width plan {cols key: ColPlan.sig()}.
     ``min_rows``: batches below this row count take the torch scatters
     instead of the kernels (the reference's PALLAS_MIN_ROWS gate; the CPU
     tests pass 0 to reach the kernels' plain versions, as the reference's
-    interpret mode ignores its gate)."""
+    interpret mode ignores its gate). ``blockskip``: the filter's zone
+    maps ride in ``cols`` (``zlo::`` / ``zhi::`` keys) and the pipeline
+    takes the block-skip forms while the candidates fit the bound.
+
+    Every form emits the same stat leaves (``_stat_outs``) and agrees
+    with the dense form exactly."""
     shape, filter_tpl, group_cols, group_cards, aggs, final = template
     if shape not in ("agg", "groupby"):
         raise DeviceUnsupported(f"pipeline shape {shape}")
     num_groups = math.prod(group_cards)
+    fused_plan = None
+    # K4 reads one zone block per candidate: a retuned ZONE_BLOCK_ROWS
+    # must decline the plan, not read a prefix of every block
+    if blockskip and shape == "agg" \
+            and bs_ops.BLOCK_ROWS == ps.FUSED_BLOCK_ROWS:
+        fused_plan = ps.plan_fused(filter_tpl, aggs, widths or {})
 
     def pipeline(cols, n_docs, params):
-        # sorted projections (sk::) are 1-D: any other plane gives (S, L)
-        S, L = next(v for k, v in cols.items()
+        # zone maps are (S, NB) and sorted projections (sk::) 1-D: any
+        # other plane gives (S, L)
+        data_cols = {k: v for k, v in cols.items()
+                     if not k.startswith((bs_ops.ZLO, bs_ops.ZHI))}
+        S, L = next(v for k, v in data_cols.items()
                     if not k.startswith("sk::")).shape
-        valid = mask_ops.valid_mask(n_docs, L)
-        mask = _eval_filter(filter_tpl, cols, params, (S, L), valid.device,
-                            widths) & valid
-        seg_matched = mask.sum(dim=1, dtype=torch.int64)
-        outs = {"doc_count": seg_matched.sum(), "seg_matched": seg_matched}
-        if shape == "groupby":
-            _groupby(cols, params, mask, outs)
-        else:
-            _scalar(cols, params, mask, outs)
-        if final:
-            _finalize_sketch_outs(outs, aggs)
-        return outs
+        dev = n_docs.device
+        alive = params.get("ps_alive")
+        alive_b = torch.ones(S, dtype=torch.bool, device=dev) \
+            if alive is None else alive.to(torch.bool)
+        nd64 = n_docs.to(torch.int64)
+        R = bs_ops.BLOCK_ROWS
+
+        def _stat_outs(seg_matched, rows_filter, blocks_total,
+                       blocks_scanned):
+            return {
+                "doc_count": seg_matched.sum(),
+                "seg_matched": seg_matched,
+                "n_alive": alive_b.sum(dtype=torch.int64),
+                "rows_filter": rows_filter,
+                "blocks_total": blocks_total,
+                "blocks_scanned": blocks_scanned,
+            }
+
+        def _aggregate(rows_cols, mask, outs):
+            if shape == "groupby":
+                _groupby(rows_cols, params, mask, outs)
+            else:
+                _scalar(rows_cols, params, mask, outs)
+            if final:
+                _finalize_sketch_outs(outs, aggs)
+            return outs
+
+        def dense(blocks_total):
+            valid = mask_ops.valid_mask(n_docs, L) & alive_b[:, None]
+            mask = _eval_filter(filter_tpl, data_cols, params, (S, L), dev,
+                                widths) & valid
+            outs = _stat_outs(
+                mask.sum(dim=1, dtype=torch.int64),
+                torch.where(alive_b, nd64, 0).sum(), blocks_total,
+                blocks_total)
+            return _aggregate(data_cols, mask, outs)
+
+        if not blockskip or L % R:
+            return dense(torch.zeros((), dtype=torch.int64, device=dev))
+
+        # ---- zone-map block skip (ops/blockskip.py) ----------------------
+        NB = L // R
+        blocks_total = torch.where(alive_b, (nd64 + R - 1) // R, 0).sum()
+        verdict = bs_ops.zone_verdict(filter_tpl, cols, params, (S, NB),
+                                      widths)
+        block_start = torch.arange(NB, dtype=torch.int64, device=dev) * R
+        verdict = verdict & (block_start[None, :] < nd64[:, None]) \
+            & alive_b[:, None]
+        flat = verdict.reshape(-1)
+        total = S * NB
+        B = min(total, max(1, -(-total // bs_ops.CAND_FRACTION)))
+        n_cand = flat.sum(dtype=torch.int64)
+        # the reference picks the form on the device (lax.cond); eager
+        # torch reads the candidate count to the host: one scalar sync
+        if int(n_cand) > B:
+            return dense(blocks_total)
+        cand, cand_valid = bs_ops.compact_candidates(flat, B)
+        seg_of = (cand // NB).long()
+        block_row0 = (cand % NB).long() * R
+        seg_slot = torch.where(cand_valid, seg_of, S)
+
+        def seg_sums(block_matched):
+            return torch.zeros(S + 1, dtype=torch.int64, device=dev) \
+                .index_add_(0, seg_slot, block_matched)[:S]
+
+        if fused_plan is not None and ps.fused_params_ok(fused_plan, params):
+            # K4 (ops/group_scatter.py): the gather buffer of the generic
+            # form never exists
+            rows_in = torch.where(
+                cand_valid, torch.clamp(nd64[seg_of] - block_row0, 0, R),
+                0).to(torch.int32)
+            ints, flts = ps.fused_filter_agg(
+                cand, rows_in,
+                {k: data_cols[k].reshape(S * NB, R) for k in fused_plan.cols},
+                _fused_params(fused_plan, params, widths), fused_plan)
+            outs = _stat_outs(seg_sums(ints[:, 0].to(torch.int64)),
+                              rows_in.sum(dtype=torch.int64), blocks_total,
+                              n_cand)
+            _fused_outs(fused_plan, ints, flts, params, widths, outs)
+            return outs
+        row_idx = block_row0[:, None] \
+            + torch.arange(R, dtype=torch.int64, device=dev)[None, :]
+        rvalid = cand_valid[:, None] & (row_idx < nd64[seg_of][:, None])
+        g_cols = {k: bs_ops.gather_blocks(v, cand, NB, R)
+                  for k, v in data_cols.items()}
+        mask = _eval_filter(filter_tpl, g_cols, params, (B, R), dev,
+                            widths) & rvalid
+        outs = _stat_outs(seg_sums(mask.sum(dim=1, dtype=torch.int64)),
+                          rvalid.sum(dtype=torch.int64), blocks_total, n_cand)
+        return _aggregate(g_cols, mask, outs)
 
     def _group_hll(k, argt, log2m, gid, mask, cols, outs):
         m = 1 << log2m
@@ -447,6 +603,20 @@ def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS):
     return pipeline
 
 
+def _neutral_outs(pipeline, cols, params, S: int) -> dict:
+    """Outputs of a FULLY pruned launch, computed on the host: the dense
+    form over one row of the batch with every segment dead gives each
+    leaf the exact fill the card's kernels give under an all-false mask;
+    ``seg_matched`` widens back to the batch's S segments."""
+    one = {k: v[:1, :1].cpu() for k, v in cols.items()
+           if not k.startswith((bs_ops.ZLO, bs_ops.ZHI))}
+    host_params = {k: v.cpu() for k, v in params.items()}
+    host_params["ps_alive"] = torch.zeros(1, dtype=torch.bool)
+    outs = pipeline(one, torch.zeros(1, dtype=torch.int32), host_params)
+    outs["seg_matched"] = torch.zeros(S, dtype=torch.int64)
+    return outs
+
+
 def _needed_columns(tpl) -> set:
     out = set()
 
@@ -489,6 +659,7 @@ class DeviceExecutor:
         self.num_groups_limit = max(1, num_groups_limit)
         self.min_rows = min_rows
         self._batches: dict = {}  # segment-dir tuple -> BatchContext (LRU)
+        self._pruner = None  # engine.SegmentPruner, made at first use
 
     def batch_for(self, segments) -> BatchContext:
         key = tuple(s.dir for s in segments)
@@ -523,16 +694,19 @@ class DeviceExecutor:
                 return (name, arg.name, ctx.cardinality(arg.name))
             return (name, arg.name, aggspec.make_spec(a).log2m)
         argt = build_expr(a.args[0], ctx, params, counter)
-        nplanes = None
-        if name in ("sum", "avg"):
-            # metadata interval arithmetic sizes the kernel's byte planes
-            bounds = expr_bounds(a.args[0], ctx)
-            if bounds is not None:
-                nplanes = mm.int_planes_needed(bounds[0], bounds[1])
-                params[f"off{i}"] = torch.tensor(
-                    math.floor(bounds[0]), dtype=torch.int64,
-                    device=ctx.device)
-        return (name, argt, nplanes)
+        if name not in ("sum", "avg"):
+            return (name, argt, None)
+        # metadata interval arithmetic sizes the kernel's byte planes and
+        # bounds the fused plan's per-block int32 partials
+        nplanes = rpb = None
+        bounds = expr_bounds(a.args[0], ctx)
+        if bounds is not None:
+            rpb = agg_ops.rows_per_block_for(max(abs(bounds[0]),
+                                                 abs(bounds[1])))
+            nplanes = mm.int_planes_needed(bounds[0], bounds[1])
+            params[f"off{i}"] = torch.tensor(
+                math.floor(bounds[0]), dtype=torch.int64, device=ctx.device)
+        return (name, argt, (nplanes, rpb))
 
     def launch(self, q: QueryContext, segments, final: bool = False) -> Launch:
         """Template build + column upload (cached per segment set) + the
@@ -540,7 +714,12 @@ class DeviceExecutor:
         stream. ``final``: the launch is terminal (nothing merges after
         it), so distinct counts and HLL finalize on the card. Raises
         DeviceUnsupported for shapes this slice does not run on the
-        device."""
+        device.
+
+        Level 1: segments the SegmentPruner proves empty stay in the
+        batch, dead (``ps_alive``); when every segment is pruned nothing
+        runs on the card. Level 2: a filter with interval structure takes
+        the block-skip forms unless ``SET useBlockSkip = false``."""
         aggs = q.aggregations()
         if q.distinct:
             raise DeviceUnsupported("DISTINCT comes with a later slice of "
@@ -584,12 +763,36 @@ class DeviceExecutor:
         template = ("groupby" if group_cols else "agg", filter_tpl,
                     tuple(group_cols), tuple(group_cards), agg_tpls, final)
 
+        opts = q.options_ci()
+        # Level-2 eligibility: the filter has interval structure the zone
+        # maps can act on, the batch is block-aligned, and the query did
+        # not opt out (SET useBlockSkip = false, the force-dense form)
+        use_bs, zone_cols = False, set()
+        if filter_tpl[0] not in ("true", "false") \
+                and bool_option(opts, "useblockskip", None) is not False \
+                and ctx.pad_to % bs_ops.BLOCK_ROWS == 0:
+            prunable, zone_cols = bs_ops.prunable_columns(filter_tpl)
+            use_bs = prunable and bool(zone_cols)
+        # Level 1: the filter tree against each segment's column stats;
+        # a per-query vector param, pruned segments stay in the batch
+        alive = np.ones(ctx.S, dtype=bool)
+        if q.filter is not None:
+            if self._pruner is None:
+                from pinot_tpu_torch.engine.engine import SegmentPruner
+
+                self._pruner = SegmentPruner()
+            for j, s in enumerate(segments):
+                alive[j] = not self._pruner.prune(q, s)
+        params["ps_alive"] = to_device(alive, ctx.device)
+
         # SET useSortedProjection = false keeps the per-query sort (the
         # cold form); by default a filterless terminal HLL group-by reads
         # the batch's cached sorted projection
-        sorted_proj_ok = bool_option(q.options_ci(), "usesortedprojection",
+        sorted_proj_ok = bool_option(opts, "usesortedprojection",
                                      None) is not False
         needed = _needed_columns(filter_tpl) | set(group_cols)
+        for zc in zone_cols if use_bs else ():
+            needed |= {bs_ops.ZLO + zc, bs_ops.ZHI + zc}
         for name, argt, extra in agg_tpls:
             if name == "distinctcount":
                 needed.add(argt)
@@ -605,6 +808,10 @@ class DeviceExecutor:
             needed.add(segments[0].column_names()[0])
         widths, cols = {}, {}
         for c in sorted(needed):
+            if c.startswith((bs_ops.ZLO, bs_ops.ZHI)):
+                lo_hi = ctx.zone_map(c[len(bs_ops.ZLO):])
+                cols[c] = lo_hi[c.startswith(bs_ops.ZHI)]
+                continue
             if c.startswith("sk::"):
                 _, colname, l2m = c.split("::")
                 cols[c] = ctx.sorted_hll_keys(group_cols, group_cards,
@@ -621,7 +828,13 @@ class DeviceExecutor:
                     ctx.device)
             cols[c] = ctx.decoded_column(c[4:]) if c.startswith("dv::") \
                 else ctx.column(c)
-        outs = build_pipeline(template, widths, self.min_rows)(
+        if not alive.any():
+            # FULLY pruned: nothing runs on the card
+            outs = _neutral_outs(build_pipeline(template, widths,
+                                                self.min_rows),
+                                 cols, params, ctx.S)
+            return Launch(q, ctx, template, outs)
+        outs = build_pipeline(template, widths, self.min_rows, use_bs)(
             cols, ctx.n_docs_dev, params)
         return Launch(q, ctx, template, outs)
 
@@ -639,10 +852,14 @@ class DeviceExecutor:
     def _to_intermediate(self, q, ctx: BatchContext, template, outs):
         shape, _, group_cols, group_cards, agg_tpls, _final = template
         doc_count = int(outs["doc_count"])
-        total_docs = int(ctx.n_docs.sum())
+        # honest under pruning, as the reference: entries count only the
+        # alive segments' rows, and only the gathered blocks' rows when a
+        # block-skip form ran; pruned segments still count in totalDocs
+        n_alive = int(outs["n_alive"])
         entries_in_filter = 0
         if q.filter is not None:
-            entries_in_filter = total_docs * len(q.filter.columns())
+            entries_in_filter = int(outs["rows_filter"]) \
+                * len(q.filter.columns())
         entries_post = sum(
             doc_count * len(aggspec.make_spec(a).args)
             for a in q.aggregations())
@@ -650,10 +867,13 @@ class DeviceExecutor:
             num_docs_scanned=doc_count,
             num_entries_scanned_in_filter=entries_in_filter,
             num_entries_scanned_post_filter=entries_post,
-            num_segments_processed=ctx.S,
+            num_segments_processed=n_alive,
             num_segments_queried=ctx.S,
             num_segments_matched=int((outs["seg_matched"] > 0).sum()),
-            total_docs=total_docs,
+            num_segments_pruned=ctx.S - n_alive,
+            num_blocks_pruned=int(outs["blocks_total"])
+            - int(outs["blocks_scanned"]),
+            total_docs=int(ctx.n_docs.sum()),
         )
         if shape == "agg":
             partials = [self._scalar_partial(i, t, outs, ctx)

@@ -22,9 +22,17 @@ Counterpart of pinot_tpu/engine/params.py, over CUDA tensors:
   projection of the filterless terminal HLL group-by
   (``sorted_hll_keys``), both held with the batch like its columns.
 
-Zone maps and the sub-byte tier come with later slices of the port. Raises ``DeviceUnsupported`` for
-anything this slice's device path does not cover; the engine reports it
-in the response.
+- **Zone maps**: every plane carries (S, NB) per-4096-row-block min/max
+  arrays at the plane's storage dtype, built alongside it — dict planes
+  in global id space (the local→global remap is monotone), raw planes in
+  frame-of-reference storage space, ``dv::`` planes through the sorted
+  dictionary's LUT — from the segment's ``<col>.zmap.npy``, recomputed
+  when the file is missing or of another granularity. The block-skip
+  verdict (ops/blockskip.py) reads them.
+
+The sub-byte tier comes with a later slice of the port. Raises
+``DeviceUnsupported`` for anything this slice's device path does not
+cover; the engine reports it in the response.
 """
 
 from __future__ import annotations
@@ -49,7 +57,11 @@ from pinot_tpu_torch.query.context import (
 )
 from pinot_tpu_torch.storage.device import RAW_DEVICE_DTYPES, padded_len
 from pinot_tpu_torch.storage.dictionary import Dictionary
-from pinot_tpu_torch.storage.segment import ZONE_BLOCK_ROWS, Encoding
+from pinot_tpu_torch.storage.segment import (
+    ZONE_BLOCK_ROWS,
+    Encoding,
+    build_zone_map,
+)
 
 
 class DeviceUnsupported(Exception):
@@ -125,6 +137,7 @@ class BatchContext:
         self._encodings: dict[str, str] = {}
         self._global_dicts: dict[str, Dictionary] = {}
         self._plans: dict[str, ColPlan] = {}
+        self._zone_maps: dict[str, tuple] = {}
         self.resident_bytes = 0
 
     # ---- column access ---------------------------------------------------
@@ -219,13 +232,15 @@ class BatchContext:
         self.resident_bytes += store[key].numel() * store[key].element_size()
         return store[key]
 
-    def host_column(self, name: str) -> np.ndarray:
-        """(S, L) host array at the column's planned width: global dict ids
-        (DICT — pad C on unsigned planes, -1 on int32) or raw values
-        (RAW — frame-of-reference storage when the plan has an offset,
-        pad 0)."""
+    def host_column(self, name: str) -> tuple:
+        """((S, L) host array at the column's planned width, (S, NB) zone
+        lo, (S, NB) zone hi): global dict ids (DICT — pad C on unsigned
+        planes, -1 on int32) or raw values (RAW — frame-of-reference
+        storage when the plan has an offset, pad 0), and their per-block
+        min/max in the same space."""
         plan = self.width_plan(name)
         sdt = np.dtype(plan.dtype)
+        zlo, zhi = self._zone_fills(sdt)
         if self.encoding(name) == Encoding.DICT:
             gdict = self.global_dict(name)
             pad = len(gdict) if sdt.kind == "u" else -1
@@ -235,21 +250,88 @@ class BatchContext:
                     gdict.values, np.asarray(s.dictionary(name).values)
                 ).astype(np.int32)
                 fwd = np.asarray(s.forward(name))
-                blocks[i, : len(fwd)] = remap[fwd]
-            return blocks
+                gids = remap[fwd]
+                blocks[i, : len(fwd)] = gids
+                zm = self._reader_zone_map(s, name, len(fwd))
+                # local->global id remap is monotone (both dictionaries
+                # are sorted), so per-block min/max ids survive it
+                z = remap[zm] if zm is not None else build_zone_map(gids)
+                zlo[i, : z.shape[1]] = z[0]
+                zhi[i, : z.shape[1]] = z[1]
+            return blocks, zlo, zhi
         off = plan.offset or 0
         blocks = np.zeros((self.S, self.pad_to), dtype=sdt)
         for i, s in enumerate(self.segments):
             fwd = np.asarray(s.forward(name))
             blocks[i, : len(fwd)] = (fwd.astype(np.int64) - off).astype(sdt) \
                 if off else fwd.astype(sdt)
-        return blocks
+            zm = self._reader_zone_map(s, name, s.n_docs)
+            if zm is not None:
+                # FOR storage space, as the plane: narrowing is monotone
+                z = (zm.astype(np.int64) - off).astype(sdt) if off \
+                    else zm.astype(sdt)
+            else:
+                z = build_zone_map(blocks[i, : s.n_docs])
+            zlo[i, : z.shape[1]] = z[0]
+            zhi[i, : z.shape[1]] = z[1]
+        return blocks, zlo, zhi
 
     def column(self, name: str) -> torch.Tensor:
-        """(S, L) device tensor of ``host_column``."""
+        """(S, L) device tensor of ``host_column``; its zone map is
+        uploaded with it."""
         if name not in self._columns:
-            self._upload(self._columns, name, self.host_column(name))
+            blocks, zlo, zhi = self.host_column(name)
+            self._upload(self._columns, name, blocks)
+            self._store_zone_map(name, zlo, zhi)
         return self._columns[name]
+
+    # ---- zone maps (the block-skip verdict's basis, ops/blockskip.py) ----
+    def _zone_fills(self, dtype):
+        """(S, NB) lo/hi arrays pre-filled with never-match sentinels (lo =
+        dtype max, hi = dtype min) so padding blocks past a segment's data
+        satisfy no interval predicate."""
+        nb = self.pad_to // ZONE_BLOCK_ROWS
+        dtype = np.dtype(dtype)
+        info = np.iinfo(dtype) if dtype.kind in ("i", "u") \
+            else np.finfo(dtype)
+        return (np.full((self.S, nb), info.max, dtype=dtype),
+                np.full((self.S, nb), info.min, dtype=dtype))
+
+    @staticmethod
+    def _reader_zone_map(seg, name: str, n: int):
+        """The segment's (2, n_blocks) zone map (``<col>.zmap.npy``), or
+        None → recompute from the column block (segments written before
+        the format carried zone maps, or at another granularity)."""
+        fn = getattr(seg, "zone_map", None)
+        if fn is None:
+            return None
+        try:
+            zm = fn(name)
+        except Exception:  # noqa: BLE001 — corrupt file: recompute instead
+            return None
+        if zm is None:
+            return None
+        zm = np.asarray(zm)
+        if zm.shape != (2, -(-n // ZONE_BLOCK_ROWS)):
+            return None  # stale granularity: recompute
+        return zm
+
+    def _store_zone_map(self, key: str, zlo, zhi) -> None:
+        pair = (to_device(zlo, self.device), to_device(zhi, self.device))
+        self.resident_bytes += sum(z.numel() * z.element_size() for z in pair)
+        self._zone_maps[key] = pair
+
+    def zone_map(self, key: str) -> tuple:
+        """((S, NB) lo, (S, NB) hi) device zone tensors for a cols key
+        (bare name → global dict ids or raw storage values; "dv::name" →
+        decoded storage values), uploading the backing plane on first
+        use."""
+        if key not in self._zone_maps:
+            if key.startswith("dv::"):
+                self.decoded_column(key[4:])
+            else:
+                self.column(key)
+        return self._zone_maps[key]
 
     def global_dict(self, name: str) -> Dictionary:
         """Sorted union of per-segment dictionary values (global id space)."""
@@ -285,12 +367,21 @@ class BatchContext:
             sdt = np.dtype(plan.dtype)
             off = plan.offset or 0
             blocks = np.zeros((self.S, self.pad_to), dtype=sdt)
+            zlo, zhi = self._zone_fills(sdt)
             for i, (s, vals) in enumerate(zip(self.segments, per_seg)):
                 fwd = np.asarray(s.forward(name))
                 lut = (vals.astype(np.int64) - off).astype(sdt) if off \
                     else vals.astype(sdt)
                 blocks[i, : len(fwd)] = lut[fwd]
+                zm = self._reader_zone_map(s, name, len(fwd))
+                # id zone → value zone through the sorted dictionary (id
+                # order == value order)
+                z = lut[zm] if zm is not None \
+                    else build_zone_map(blocks[i, : len(fwd)])
+                zlo[i, : z.shape[1]] = z[0]
+                zhi[i, : z.shape[1]] = z[1]
             self._upload(self._decoded, name, blocks)
+            self._store_zone_map("dv::" + name, zlo, zhi)
         return self._decoded[name]
 
     def prehashed_column(self, name: str) -> torch.Tensor:

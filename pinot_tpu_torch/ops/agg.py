@@ -23,6 +23,19 @@ NEG_INF = float("-inf")
 POS_INF = float("inf")
 
 
+def rows_per_block_for(max_abs_value: float):
+    """Largest power-of-two block size whose int32 block-sum cannot overflow,
+    or None when values are too large for it (the reference's bound for
+    its two-stage sums; the port keeps it for the fused block-skip plan,
+    whose per-block int32 partials cover 4096 rows)."""
+    if max_abs_value <= 0:
+        return 1 << 20
+    rpb = 1
+    while rpb * 2 * (max_abs_value + 1) < 2**31 and rpb < (1 << 20):
+        rpb *= 2
+    return rpb if rpb >= 256 else None
+
+
 def _wide(values):
     return torch.int64 if not values.is_floating_point() else torch.float64
 

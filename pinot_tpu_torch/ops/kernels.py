@@ -2,8 +2,9 @@
 plain PyTorch versions and launch counts.
 
 K1 ``group_plane_sums`` (csrc/group_plane_sums.cu), K2 ``group_minmax``
-(csrc/group_minmax.cu) and K3 ``hll_register_max``
-(csrc/hll_register_max.cu) are compiled with ``nvcc`` for ``sm_90a``
+(csrc/group_minmax.cu), K3 ``hll_register_max``
+(csrc/hll_register_max.cu) and K4 ``fused_filter_agg``
+(csrc/fused_filter_agg.cu) are compiled with ``nvcc`` for ``sm_90a``
 into one shared library each, with a plain C interface, under
 ``pinot_tpu_torch/_build/`` at first use — one ``nvcc`` process per
 source, all started together — and bound with ``ctypes``. Nothing is
@@ -31,6 +32,8 @@ import time
 import numpy as np
 import torch
 
+from pinot_tpu_torch.ops.blockskip import gather_blocks
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
@@ -39,6 +42,7 @@ SOURCES = {
     "group_plane_sums": "group_plane_sums.cu",
     "group_minmax": "group_minmax.cu",
     "hll_register_max": "hll_register_max.cu",
+    "fused_filter_agg": "fused_filter_agg.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
@@ -59,6 +63,7 @@ _ARGTYPES = {  # the C signatures at the end of each csrc/*.cu
     "group_minmax": [_vp, _vp, _i64, _i32, _i32, _i32, ctypes.c_int32,
                      ctypes.c_int32, _vp, _vp, _vp],
     "hll_register_max": [_vp, _vp, _i64, _i32, _i32, _vp, _vp],
+    "fused_filter_agg": [_vp, _vp, _i32, _i32, _vp, _vp, _vp, _vp],
 }
 
 
@@ -347,3 +352,170 @@ def hll_register_max(slot, rho, nslots: int, span: int | None = None):
         _raise_on("hll_register_max", rc)
         launches["hll_register_max"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K4: fused filter + gather + aggregate over candidate blocks
+# ---------------------------------------------------------------------------
+
+# the filter program's opcodes, range flags and aggregate ops; the same
+# numbers as csrc/fused_filter_agg.cu
+OP_TRUE, OP_FALSE, OP_AND, OP_OR, OP_NOT, OP_IN, OP_RANGE = range(7)
+RANGE_HAS_LO, RANGE_HAS_HI, RANGE_LO_INC, RANGE_HI_INC = 1, 2, 4, 8
+AGG_OPS = {"sum": 0, "min": 1, "max": 2}
+
+# the bounds of the descriptor K4 takes by value; ops/group_scatter.py
+# plans past them take the generic gather branch
+FUSED_MAX_COLS = 8
+FUSED_MAX_PROG = 32
+FUSED_MAX_STACK = 32   # the program's bit stack is one uint32
+FUSED_MAX_AGGS = 8
+FUSED_MAX_LITS = 64
+
+_FUSED_DTYPES = {torch.uint8: 0, torch.uint16: 1, torch.int8: 2,
+                 torch.int16: 3, torch.int32: 4, torch.float32: 5}
+
+
+class _Instr(ctypes.Structure):
+    _fields_ = [("op", ctypes.c_int32), ("col", ctypes.c_int32),
+                ("a", ctypes.c_int32), ("b", ctypes.c_int32),
+                ("flags", ctypes.c_int32)]
+
+
+class _Agg(ctypes.Structure):
+    _fields_ = [("op", ctypes.c_int32), ("col", ctypes.c_int32),
+                ("is_float", ctypes.c_int32), ("slot", ctypes.c_int32),
+                ("fill", ctypes.c_int32)]
+
+
+class _FusedDesc(ctypes.Structure):
+    """struct FusedDesc of csrc/fused_filter_agg.cu, field for field."""
+    _fields_ = [("cols", ctypes.c_void_p * FUSED_MAX_COLS),
+                ("dtypes", ctypes.c_int32 * FUSED_MAX_COLS),
+                ("lits", ctypes.c_void_p),
+                ("n_cols", ctypes.c_int32), ("n_prog", ctypes.c_int32),
+                ("n_aggs", ctypes.c_int32), ("n_lits", ctypes.c_int32),
+                ("ki", ctypes.c_int32), ("kf", ctypes.c_int32),
+                ("prog", _Instr * FUSED_MAX_PROG),
+                ("aggs", _Agg * FUSED_MAX_AGGS)]
+
+
+def fused_filter_agg_plain(cand, rows_in, cols, lits, prog, aggs,
+                           ki: int, kf: int):
+    """Plain version of K4, over the same lowered program: gather the
+    candidates' rows with ``index_select``, run the postfix filter as
+    torch ops, mask rows past ``rows_in``, reduce per candidate (int32
+    sums, min/max on K2's order keys). Returns (ints (B, ki) int32, flts
+    (B, kf) float32 or None)."""
+    B = cand.shape[0]
+    R = cols[0].shape[1]
+    dev = cand.device
+    # candidate rows widened to int32 (float32 stays), as K4 loads them
+    vals = []
+    for c in cols:
+        rows = gather_blocks(c, cand, 1, R)
+        vals.append(rows if rows.dtype == torch.float32
+                    else rows.to(torch.int32))
+    stack = []
+    for op, col, a, b, flags in prog:
+        if op in (OP_TRUE, OP_FALSE):
+            stack.append(torch.full((B, R), op == OP_TRUE, device=dev))
+        elif op in (OP_AND, OP_OR):
+            y, x = stack.pop(), stack.pop()
+            stack.append((x & y) if op == OP_AND else (x | y))
+        elif op == OP_NOT:
+            stack.append(~stack.pop())
+        elif op == OP_IN:
+            v = vals[col]
+            m = torch.zeros((B, R), dtype=torch.bool, device=dev)
+            for k in range(b):
+                m |= v == lits[a + k]
+            stack.append(m)
+        else:  # OP_RANGE
+            v = vals[col]
+            m = torch.ones((B, R), dtype=torch.bool, device=dev)
+            if flags & RANGE_HAS_LO:
+                m &= (v >= lits[a]) if flags & RANGE_LO_INC else (v > lits[a])
+            if flags & RANGE_HAS_HI:
+                m &= (v <= lits[b]) if flags & RANGE_HI_INC else (v < lits[b])
+            stack.append(m)
+    rowid = torch.arange(R, dtype=torch.int32, device=dev)
+    mask = stack.pop() & (rowid[None, :] < rows_in[:, None])
+    ints = torch.zeros((B, ki), dtype=torch.int32, device=dev)
+    flts = torch.zeros((B, kf), dtype=torch.float32, device=dev) \
+        if kf else None
+    ints[:, 0] = mask.sum(dim=1, dtype=torch.int32)
+    for op, col, is_float, slot, fill in aggs:
+        v = vals[col]
+        if op == AGG_OPS["sum"]:
+            ints[:, slot] = torch.where(mask, v, 0).sum(dim=1,
+                                                        dtype=torch.int32)
+            continue
+        dt = torch.float32 if is_float else torch.int32
+        keys = torch.where(mask, _order_keys(v), _fill_key(fill, dt))
+        red = keys.amin(dim=1) if op == AGG_OPS["min"] else keys.amax(dim=1)
+        if is_float:
+            flts[:, slot] = _from_keys(red, dt)
+        else:
+            ints[:, slot] = red
+    return ints, flts
+
+
+def fused_filter_agg(cand, rows_in, cols, lits, prog, aggs, ki: int,
+                     kf: int):
+    """K4. cand, rows_in: (B,) int32 candidate block ids and their valid
+    rows (0 on padding candidates); cols: (NBLK, R) planes of uint8 /
+    uint16 / int8 / int16 / int32 / float32; lits: (P,) int32 literal
+    table; prog: postfix (op, col, a, b, flags) instructions; aggs: (op,
+    col, is_float, slot, fill). Returns (ints (B, ki) int32, flts (B, kf)
+    float32 or None): matched rows in int slot 0, each aggregate in its
+    slot, zeros in unused slots."""
+    if cand.device.type == "cpu":
+        return fused_filter_agg_plain(cand, rows_in, cols, lits, prog, aggs,
+                                      ki, kf)
+    _check_cuda("fused_filter_agg", cand, rows_in, lits, *cols)
+    if cand.dtype != torch.int32 or rows_in.dtype != torch.int32 \
+            or lits.dtype != torch.int32:
+        raise TypeError("fused_filter_agg takes int32 candidates, rows and "
+                        "literals")
+    if any(c.dtype not in _FUSED_DTYPES for c in cols):
+        raise TypeError("fused_filter_agg planes: "
+                        f"{[str(c.dtype) for c in cols]}")
+    R = cols[0].shape[1] if cols else 0
+    if cand.dim() != 1 or rows_in.shape != cand.shape \
+            or any(c.dim() != 2 or c.shape[1] != R for c in cols):
+        raise ValueError("fused_filter_agg shapes: cand "
+                         f"{tuple(cand.shape)}, rows {tuple(rows_in.shape)},"
+                         f" planes {[tuple(c.shape) for c in cols]}")
+    if not cols or len(cols) > FUSED_MAX_COLS or len(prog) > FUSED_MAX_PROG \
+            or len(aggs) > FUSED_MAX_AGGS or lits.numel() > FUSED_MAX_LITS:
+        raise ValueError("fused_filter_agg program past the descriptor's "
+                         "bounds")
+    desc = _FusedDesc()
+    for j, c in enumerate(cols):
+        desc.cols[j] = c.data_ptr()
+        desc.dtypes[j] = _FUSED_DTYPES[c.dtype]
+    # an empty literal table still needs a valid pointer
+    lit_buf = lits if lits.numel() else torch.zeros(1, dtype=torch.int32,
+                                                    device=cand.device)
+    desc.lits = lit_buf.data_ptr()
+    desc.n_cols, desc.n_prog, desc.n_aggs = len(cols), len(prog), len(aggs)
+    desc.n_lits, desc.ki, desc.kf = lits.numel(), ki, kf
+    for j, ins in enumerate(prog):
+        desc.prog[j] = _Instr(*ins)
+    for j, (op, col, is_float, slot, fill) in enumerate(aggs):
+        dt = torch.float32 if is_float else torch.int32
+        fk = 0 if op == AGG_OPS["sum"] else _fill_key(fill, dt)
+        desc.aggs[j] = _Agg(op, col, int(is_float), slot, fk)
+    B = cand.shape[0]
+    ints = torch.zeros((B, ki), dtype=torch.int32, device=cand.device)
+    flts = torch.zeros((B, kf), dtype=torch.float32, device=cand.device) \
+        if kf else None
+    if B:
+        rc = _lib("fused_filter_agg").fused_filter_agg(
+            cand.data_ptr(), rows_in.data_ptr(), B, R, ctypes.addressof(desc),
+            ints.data_ptr(), flts.data_ptr() if kf else None,
+            _stream(cand.device))
+        _raise_on("fused_filter_agg", rc)
+        launches["fused_filter_agg"] += 1
+    return ints, flts
