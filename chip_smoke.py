@@ -7,21 +7,26 @@
 Phases, all on ``cuda:0``:
 
 1. the card's name and power limit; the kernels built from
-   ``pinot_tpu_torch/csrc/`` (one ``nvcc`` per source, started together).
+   ``pinot_tpu_torch/csrc/`` (one ``nvcc`` per source, started together),
+   with each kernel's registers, shared memory and spills from
+   ``-Xptxas -v``.
 2. The SSB lineorder table is generated from seed 7 with bench.py's
    columns and distributions; it and a copy stably sorted by
    ``lo_orderdate`` (``lineorder_by_date``: Pinot's sorted-column layout
    for time-ordered ingestion) are written by the port's creator in
    worker processes, while the GPU holds each kernel against its plain
-   PyTorch version at the main paths' shapes: K1 group plane sums
-   through both entries (integer planes bit-exact, float planes within
-   rtol 1e-6), K2 group min/max (bit-exact), K3 HLL register max at
-   1024, 35,840 and 2^20 slots (bit-exact) and K4 fused filter + gather
-   + aggregate at the full candidate bound (bit-exact). CUDA-event times
-   of the kernel, of its plain version and of one library call computing
-   the same function (``index_add_`` / ``scatter_reduce_``; for K4, which
-   no single call computes, the port's generic gathered form), beside
-   the memory bound.
+   PyTorch version at the main paths' shapes: K1 group plane sums from
+   the stored planes at q1's, q5's, q4_no_hll's, a wide float and the
+   sorted HLL build's shapes through both entries (integer planes
+   bit-exact, float planes within rtol 1e-6), K2 group min/max
+   (bit-exact), K3 HLL register max from the hash plane at 1024, 35,840
+   and 2^20 slots (bit-exact) and K4 fused filter + gather + aggregate
+   at the full candidate bound (bit-exact). CUDA-event times of the
+   kernel, of the torch ops it absorbed (K1's channel build, K3's hash
+   split), of its plain version and of one library call computing the
+   same function (``index_add_`` / ``scatter_reduce_``; for K4, which no
+   single call computes, the port's generic gathered form), beside the
+   memory bound.
 3. Both tables are loaded into one ``QueryEngine(device="cuda")``; K4 is
    held against its plain version once more at the block-skip path's
    own candidates, and three paths run: the six SSB scan/filter/group-by
@@ -508,124 +513,216 @@ def bound_ms(nbytes: float, ops: float) -> tuple:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def check_k1(n: int, dev) -> dict:
-    """K1 at q1's shape (G=2000, count + 3 revenue byte planes) and at a
-    wide float shape (G=6240, count + 3 f32 planes + 2 int planes)."""
+def _k1_shapes(n: int, dev) -> list:
+    """K1's main-path shapes, as (label, entry, G, sources, count, ids):
+    q1 and q5 (SUM of the stored i32 lo_revenue plane, query offset
+    1000, three byte planes, with the count), q4_no_hll (AVG of the
+    stored u8 lo_quantity plane, offset 1, one byte plane), the wide
+    float shape (G = 6240: an f32 source and an i32 source of two byte
+    planes) and the sorted HLL build's three bf16 power-of-two channels
+    through the single-accumulator entry. Ids include the overflow id
+    G."""
     import torch
     from pinot_tpu_torch.ops import group_scatter as ps
     from pinot_tpu_torch.ops import groupby_mm as mm
-    from pinot_tpu_torch.ops import kernels
+    from pinot_tpu_torch.ops.kernels import PlaneSource
 
     gen = torch.Generator(device=dev).manual_seed(11)
-    res = {}
 
-    G = 2000
-    gid = torch.randint(0, G + 1, (n,), generator=gen, dtype=torch.int32,
-                        device=dev)
+    def ids(G):
+        return torch.randint(0, G + 1, (n,), generator=gen,
+                             dtype=torch.int32, device=dev)
+
+    def off(v):
+        return torch.tensor(v, dtype=torch.int64, device=dev)
+
     rev = torch.randint(1000, 6_000_000, (n,), generator=gen,
                         dtype=torch.int32, device=dev)
-    ch = torch.stack([torch.ones(n, dtype=torch.bfloat16, device=dev)]
-                     + mm.int_planes(rev, 1000, 3))
-    del rev
-    A = ch.shape[0]
-    got = ps.plane_group_sums(gid, ch, G, first_channel_ones=True)
-    want = kernels.group_plane_sums_plain(gid, ch, G, True)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    if not torch.equal(got, want):
-        raise AssertionError(f"K1 integer planes differ, max abs err {err}")
-    ms = cuda_ms(lambda: ps.plane_group_sums(gid, ch, G,
-                                             first_channel_ones=True), 10)
-    plain_ms = cuda_ms(lambda: kernels.group_plane_sums_plain(
-        gid, ch, G, True), 3)
-    ch32 = ch.float()
-    lib_out = torch.zeros((A, G + 1), dtype=torch.float32, device=dev)
-    lib_ms = cuda_ms(lambda: lib_out.index_add_(1, gid, ch32), 5)
-    del ch32, lib_out
-    b, by = bound_ms(4 * n + 2 * n * (A - 1) + 8 * A * G, n * A)
-    res.update(shape=f"n={n} G={G} A={A} int planes", max_abs_err=err, ms=ms,
-               plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=lib_ms)
-    del gid, ch, got, want
-
-    G = 6240
-    gid = torch.randint(0, G + 1, (n,), generator=gen, dtype=torch.int32,
-                        device=dev)
+    qty = torch.randint(1, 51, (n,), generator=gen, dtype=torch.int32,
+                        device=dev).to(torch.uint8)
     fv = torch.rand((n,), generator=gen, device=dev) * 8
     iv = torch.randint(0, 65536, (n,), generator=gen, dtype=torch.int32,
                        device=dev)
-    ch = torch.stack([torch.ones(n, dtype=torch.bfloat16, device=dev)]
-                     + mm.float_planes(fv) + mm.int_planes(iv, 0, 2))
-    del fv, iv
-    got = ps.plane_group_sums(gid, ch, G, first_channel_ones=True)
-    want = kernels.group_plane_sums_plain(gid, ch, G, True)
-    torch.cuda.synchronize()
-    int_rows = [0, 4, 5]
-    if not torch.equal(got[int_rows], want[int_rows]):
-        raise AssertionError("K1 integer planes differ at G=6240")
-    rel = float(((got[1:4] - want[1:4]).abs()
-                 / want[1:4].abs().clamp_min(1e-30)).max())
-    tot_rel = float(((got[1:4].sum(0) - want[1:4].sum(0)).abs()
-                     / want[1:4].sum(0).abs().clamp_min(1e-30)).max())
-    if not (rel <= 1e-6 and tot_rel <= 1e-6):
-        raise AssertionError(f"K1 float planes off: plane rel {rel}, "
-                             f"total rel {tot_rel} (tolerance 1e-6)")
-    ms2 = cuda_ms(lambda: ps.plane_group_sums(gid, ch, G,
-                                              first_channel_ones=True), 10)
-    A2 = ch.shape[0]
-    b2, _ = bound_ms(4 * n + 2 * n * (A2 - 1) + 8 * A2 * G, n * A2)
-    log(f"K1 wide shape n={n} G={G} A={A2} (3 float planes): "
-        f"{ms2:.4f} ms, bound {b2:.4f} ms, float plane max rel err {rel:.3e}, "
-        f"recombined max rel err {tot_rel:.3e}, int planes bit-exact")
-    res.update(wide_shape=f"n={n} G={G} A={A2} float planes", wide_ms=ms2,
-               wide_bound_ms=b2, float_max_rel_err=max(rel, tot_rel))
-    return res
-
-
-def check_k1_single(n: int, dev) -> dict:
-    """K1 through its single-accumulator entry (ops/groupby_mm.py
-    group_sums, Pallas row 1) at the sorted HLL build's shape: G=2000
-    groups (lo_suppkey), A=3 power-of-two channels, no folded count."""
-    import torch
-    from pinot_tpu_torch.ops import groupby_mm as mm
-    from pinot_tpu_torch.ops import kernels
-
-    gen = torch.Generator(device=dev).manual_seed(17)
-    G, A = 2000, 3
-    gid = torch.randint(0, G + 1, (n,), generator=gen, dtype=torch.int32,
-                        device=dev)
     end = torch.rand((n,), generator=gen, device=dev) < 0.05
     pw = torch.exp2(torch.randint(0, 12, (n,), generator=gen,
                                   device=dev).float())
     lo = torch.rand((n,), generator=gen, device=dev) < 0.5
-    ch = torch.stack([end.float(), torch.where(end & lo, pw, 0.0),
-                      torch.where(end & ~lo, pw, 0.0)]).to(torch.bfloat16)
+    hll_ch = [end.to(torch.bfloat16),
+              torch.where(end & lo, pw, 0.0).to(torch.bfloat16),
+              torch.where(end & ~lo, pw, 0.0).to(torch.bfloat16)]
     del end, pw, lo
-    got = mm.group_sums(gid, ch, G)
-    want = kernels.group_plane_sums_plain(gid, ch, G, False)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    if not torch.equal(got, want):
-        raise AssertionError(f"K1 single-accumulator entry differs, max abs "
-                             f"err {err}")
-    ms = cuda_ms(lambda: mm.group_sums(gid, ch, G), 10)
-    plain_ms = cuda_ms(lambda: kernels.group_plane_sums_plain(
-        gid, ch, G, False), 3)
-    ch32 = ch.float()
-    lib_out = torch.zeros((A, G + 1), dtype=torch.float32, device=dev)
-    lib_ms = cuda_ms(lambda: lib_out.index_add_(1, gid, ch32), 5)
-    b, by = bound_ms(4 * n + 2 * n * A + 8 * A * G, n * A)
-    return dict(shape=f"n={n} G={G} A={A} power-of-two channels",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by, library_ms=lib_ms)
+    rev_src = PlaneSource(rev, "int", 3, minus=off(1000))
+    return [
+        ("q1: G=2000, i32 lo_revenue, 3 byte planes + count",
+         ps.plane_group_sums, 2000, [rev_src], True, ids(2000)),
+        ("q5: G=35, i32 lo_revenue, 3 byte planes + count",
+         ps.plane_group_sums, 35, [rev_src], True, ids(35)),
+        ("q4_no_hll: G=2000, u8 lo_quantity, 1 byte plane + count",
+         ps.plane_group_sums, 2000,
+         [PlaneSource(qty, "int", 1, minus=off(1))], True, ids(2000)),
+        ("wide: G=6240, f32 (3 float planes) + i32 (2 byte planes) + count",
+         ps.plane_group_sums, 6240,
+         [PlaneSource(fv, "float"), PlaneSource(iv, "int", 2, minus=off(0))],
+         True, ids(6240)),
+        ("sorted HLL: G=2000, 3 bf16 power-of-two channels (single "
+         "accumulator entry)", mm.group_sums, 2000,
+         [PlaneSource(c, "bf16") for c in hll_ch], False, ids(2000)),
+    ]
+
+
+def absorbed_channels(sources, count: bool):
+    """The (A, n) bf16 channel tensor the port built before K1 split the
+    values itself, by the same torch ops: decode, ``int_planes`` /
+    ``float_planes``, one copy per plane. Timed beside K1 as the passes
+    it absorbed."""
+    import torch
+    from pinot_tpu_torch.ops import kernels
+
+    n = sources[0].values.numel()
+    rows = int(count) + sum(s.nplanes for s in sources)
+    ch = torch.empty((rows, n), dtype=torch.bfloat16,
+                     device=sources[0].values.device)
+    r = 0
+    if count:
+        ch[0].fill_(1)
+        r = 1
+    for s in sources:
+        for p in kernels.source_channels(s):
+            ch[r].copy_(p)
+            r += 1
+    return ch
+
+
+def check_split_dtypes(dev, n: int = 1_000_003) -> None:
+    """Every stored dtype K1 reads (u8, u16, u32, i8, i16, i32, i64, with
+    an int32 or int64 FOR offset and a negative query offset, both ends of
+    the dtype's range) and K3 with group ids and a mask together, at a
+    row count that leaves a ragged last quad: bit-exact against the plain
+    versions. The main-path shapes above use only i32, u8, f32 and bf16."""
+    import torch
+    from pinot_tpu_torch.ops import kernels
+    from pinot_tpu_torch.ops.kernels import PlaneSource
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    G = 300
+    gid = torch.randint(-1, G + 1, (n,), generator=gen, dtype=torch.int32,
+                        device=dev)
+    for dt, fo in ((torch.uint8, -1000), (torch.uint16, 70_000),
+                   (torch.uint32, -(1 << 33)), (torch.int8, None),
+                   (torch.int16, None), (torch.int32, None),
+                   (torch.int64, None)):
+        lo, hi = (0, 255) if dt == torch.uint8 else \
+            (0, (1 << 32) - 1) if dt == torch.uint32 else \
+            (-(1 << 40), 1 << 40) if dt == torch.int64 else \
+            (torch.iinfo(dt).min, torch.iinfo(dt).max)
+        v = torch.randint(lo, hi + 1, (n,), generator=gen,
+                          dtype=torch.int64, device=dev)
+        v[:4] = torch.tensor([lo, hi, lo, hi], device=dev)
+        stored = v.to(torch.int32).view(torch.uint32) \
+            if dt == torch.uint32 else v.to(dt)
+        plus = None if fo is None else torch.tensor(
+            fo, dtype=torch.int64 if dt == torch.uint32 else torch.int32,
+            device=dev)
+        off = lo + (fo or 0) - 7
+        nplanes = max(1, (hi - lo + 7).bit_length() + 7 >> 3)
+        src = PlaneSource(stored, "int", nplanes, plus,
+                          torch.tensor(off, dtype=torch.int64, device=dev))
+        got = kernels.group_plane_sums(gid, [src], G, count=True)
+        want = kernels.group_plane_sums_plain(gid, [src], G, True)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K1 differs on a stored {dt} plane")
+    h = torch.randint(-2**31, 2**31, (n,), generator=gen, dtype=torch.int32,
+                      device=dev)
+    mask = torch.rand((n,), generator=gen, device=dev) < 0.5
+    for log2m in (4, 12, 16):
+        got = kernels.hll_register_max(h, log2m, 3, gid=gid, mask=mask)
+        want = kernels.hll_register_max_plain(h, log2m, 3, gid, mask)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K3 differs with ids and a mask at "
+                                 f"log2m {log2m}")
+    log(f"K1 on every stored dtype (u8 u16 u32 i8 i16 i32 i64, FOR and "
+        f"query offsets) and K3 with ids and a mask at log2m 4/12/16, "
+        f"n={n}: bit-exact")
+
+
+def check_k1(n: int, dev) -> dict:
+    """K1 at each main-path shape against its plain version: integer rows
+    bit-exact, float planes and their sum within rtol 1e-6; q5 once more
+    with a flush every 65,536 rows. Times: the kernel, the channel build
+    it absorbed, the plain version and one ``index_add_`` of the widened
+    values; the bound is the ids' and the stored values' bytes read once
+    and the output written once. Returns q1's numbers with every shape's
+    under ``shapes``."""
+    import torch
+    from pinot_tpu_torch.ops import kernels
+
+    shapes = []
+    for label, entry, G, sources, count, gid in _k1_shapes(n, dev):
+        got = entry(gid, sources, G, count=count)
+        want = kernels.group_plane_sums_plain(gid, sources, G, count)
+        torch.cuda.synchronize()
+        layout = kernels.plane_layout(sources, count)
+        int_rows = [a for a, (region, _r) in enumerate(layout)
+                    if region == "int" or any(s.kind == "bf16"
+                                              for s in sources)]
+        flt_rows = [a for a in range(len(layout)) if a not in int_rows]
+        err = float((got - want).abs().max())
+        if not torch.equal(got[int_rows], want[int_rows]):
+            raise AssertionError(f"K1 {label}: integer rows differ, max abs "
+                                 f"err {err}")
+        rel = 0.0
+        if flt_rows:
+            g, w = got[flt_rows], want[flt_rows]
+            rel = max(float(((g - w).abs() / w.abs().clamp_min(1e-30)).max()),
+                      float(((g.sum(0) - w.sum(0)).abs()
+                             / w.sum(0).abs().clamp_min(1e-30)).max()))
+            if not rel <= 1e-6:
+                raise AssertionError(f"K1 {label}: float planes off by "
+                                     f"{rel} relative (tolerance 1e-6)")
+        if G == 35:
+            seg = kernels.group_plane_sums(gid, sources, G, count=count,
+                                           seg_rows=65536)
+            if not torch.equal(seg, want):
+                raise AssertionError("K1 q5 with a flush every 65,536 rows "
+                                     "differs")
+        ms = cuda_ms(lambda: entry(gid, sources, G, count=count), 10)
+        absorbed_ms = cuda_ms(lambda: absorbed_channels(sources, count), 5)
+        plain_ms = cuda_ms(lambda: kernels.group_plane_sums_plain(
+            gid, sources, G, count), 3)
+        vals = ([torch.ones(n, dtype=torch.float64, device=dev)]
+                if count else []) + [
+            s.values.to(torch.float64) for s in sources]
+        V = torch.stack(vals)
+        del vals
+        lib_out = torch.zeros((V.shape[0], G + 1), dtype=torch.float64,
+                              device=dev)
+        lib_ms = cuda_ms(lambda: lib_out.index_add_(1, gid, V), 5)
+        del V, lib_out
+        A = len(layout)
+        nbytes = 4 * n + n * sum(s.values.element_size() for s in sources) \
+            + 8 * A * G
+        b, by = bound_ms(nbytes, n * A)
+        shapes.append(dict(shape=f"n={n} {label}", max_abs_err=err,
+                           float_max_rel_err=rel, ms=ms,
+                           absorbed_ms=absorbed_ms, plain_ms=plain_ms,
+                           bound_ms=b, bound_by=by, library_ms=lib_ms))
+        log(f"K1 {shapes[-1]['shape']}: {ms:.4f} ms, absorbed channel build "
+            f"{absorbed_ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ "
+            f"{lib_ms:.4f} ms, bound {b:.4f} ms; integer rows bit-exact"
+            + (f", float planes max rel err {rel:.3e}" if flt_rows else ""))
+        del got, want
+    return dict(shapes[0], shapes=shapes)
 
 
 def check_k3(n: int, dev) -> list:
-    """K3 at the HLL path's register spaces: 1024 slots (scalar HLL,
-    through the small-slot entry, Pallas row 5), 35,840 = 35 x 1024
-    (d_year x c_region, the group entry, row 2) and 2^20 slots (the
-    largest slot space row 2's reference bound names, several
-    partitions). Slots include the overflow slot; ranks come from random
-    32-bit hashes, so they are geometric as in real data. Bit-exact."""
+    """K3 from 32-bit hashes at the HLL path's register spaces: 1024 slots
+    (scalar HLL with a mask, through the small-slot entry, Pallas row 5),
+    35,840 = 35 x 1024 (d_year x c_region, the group entry, row 2) and
+    2^20 = 1024 x 1024 slots (the reference's bound for row 2, several
+    partitions; no query reaches it, PERF.md). Ids include the overflow
+    id. Bit-exact. Times: the kernel, the split it absorbed (``hll_slots``:
+    ``hll_idx_rho`` and the where), the plain version and one
+    ``scatter_reduce_`` over the split's slots and ranks."""
     import torch
     from pinot_tpu_torch.ops import group_scatter as ps
     from pinot_tpu_torch.ops import groupby_mm as mm
@@ -635,41 +732,50 @@ def check_k3(n: int, dev) -> list:
     gen = torch.Generator(device=dev).manual_seed(19)
     h = torch.randint(-2**31, 2**31, (n,), generator=gen, dtype=torch.int32,
                       device=dev)
-    _, rho = hll_ops.hll_idx_rho(h, LOG2M)
-    del h
+    mask = torch.rand((n,), generator=gen, device=dev) < 3 / 11
     out = []
-    for nslots, entry, call in (
-            (1024, "group_scatter.hll_register_max",
-             lambda s: ps.hll_register_max(s, rho, 1024)),
-            (35 * 1024, "groupby_mm.hll_registers",
-             lambda s: mm.hll_registers(s, rho, 35, LOG2M)),
-            (1 << 20, "kernels.hll_register_max",
-             lambda s: kernels.hll_register_max(s, rho, 1 << 20))):
-        slot = torch.randint(0, nslots + 1, (n,), generator=gen,
-                             dtype=torch.int32, device=dev)
-        got = call(slot).reshape(-1)
-        want = kernels.hll_register_max_plain(slot, rho, nslots)
+    for G, entry, call_gid, use_mask, call in (
+            (1, "group_scatter.hll_register_max", False, True,
+             lambda g: ps.hll_register_max(h, LOG2M, mask=mask)),
+            (35, "groupby_mm.hll_registers", True, False,
+             lambda g: mm.hll_registers(h, g, 35, LOG2M)),
+            (1024, "kernels.hll_register_max", True, False,
+             lambda g: kernels.hll_register_max(h, LOG2M, 1024, gid=g))):
+        nslots = G << LOG2M
+        gid = torch.randint(0, G + 1, (n,), generator=gen, dtype=torch.int32,
+                            device=dev) if call_gid else None
+        m = mask if use_mask else None
+        got = call(gid).reshape(-1)
+        want = kernels.hll_register_max_plain(h, LOG2M, G, gid, m)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         if not torch.equal(got, want):
             raise AssertionError(f"K3 differs at {nslots} slots, max abs "
                                  f"err {err}")
-        ms = cuda_ms(lambda: call(slot), 10)
+        ms = cuda_ms(lambda: call(gid), 10)
+        absorbed_ms = cuda_ms(lambda: hll_ops.hll_slots(h, LOG2M, G, gid, m),
+                              5)
         plain_ms = cuda_ms(lambda: kernels.hll_register_max_plain(
-            slot, rho, nslots), 3)
+            h, LOG2M, G, gid, m), 3)
+        slot, rho = hll_ops.hll_slots(h, LOG2M, G, gid, m)
         s64 = slot.long()
         lib = torch.zeros(nslots + 1, dtype=torch.int32, device=dev)
         lib_ms = cuda_ms(lambda: lib.scatter_reduce_(0, s64, rho, "amax"), 5)
-        del s64, lib
-        b, by = bound_ms(8 * n + 4 * nslots, n)
-        out.append(dict(shape=f"n={n} slots={nslots} via {entry}",
+        del slot, rho, s64, lib
+        nbytes = 4 * n + (4 * n if call_gid else 0) + (n if use_mask else 0) \
+            + 4 * nslots
+        b, by = bound_ms(nbytes, n)
+        out.append(dict(shape=f"n={n} slots={nslots} via {entry}"
+                              + (" (masked)" if use_mask else ""),
                         nslots=nslots,
                         partitions=kernels.hll_partitions(nslots),
-                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=b, bound_by=by, library_ms=lib_ms))
+                        max_abs_err=err, ms=ms, absorbed_ms=absorbed_ms,
+                        plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                        library_ms=lib_ms))
         log(f"K3 {out[-1]['shape']} ({out[-1]['partitions']} partitions): "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, scatter_reduce_ amax "
-            f"{lib_ms:.4f} ms, bound {b:.4f} ms, bit-exact")
+            f"{ms:.4f} ms, absorbed split {absorbed_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, scatter_reduce_ amax {lib_ms:.4f} ms, bound "
+            f"{b:.4f} ms, bit-exact")
     return out
 
 
@@ -1085,6 +1191,10 @@ def main(argv=None) -> int:
     kernels.build_all()
     log(f"kernel build: {time.perf_counter() - t:.2f} s "
         f"({', '.join(kernels.SOURCES.values())})")
+    for name, out in kernels.build_log.items():
+        for line in out.splitlines():
+            if any(k in line for k in ("registers", "spill", "smem")):
+                log(f"ptxas {name}: {line.strip()}")
 
     S, rows = args.segments, args.rows
     log(f"table: SSB lineorder, {S} segments x {rows} rows = {S * rows} "
@@ -1109,17 +1219,8 @@ def main(argv=None) -> int:
         dev = torch.device("cuda", 0)
         pad = padded_len(rows, max(1024, ZONE_BLOCK_ROWS))
         n = S * pad
+        check_split_dtypes(dev)
         k1 = check_k1(n, dev)
-        log(f"K1 {k1['shape']}: {k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f}"
-            f" ms, index_add_ {k1['library_ms']:.4f} ms, bound "
-            f"{k1['bound_ms']:.4f} ms, bit-exact")
-        torch.cuda.empty_cache()
-        k1s = check_k1_single(n, dev)
-        log(f"K1 single-accumulator entry {k1s['shape']}: {k1s['ms']:.4f} ms,"
-            f" plain {k1s['plain_ms']:.4f} ms, index_add_ "
-            f"{k1s['library_ms']:.4f} ms, bound {k1s['bound_ms']:.4f} ms, "
-            f"bit-exact")
-        k1["single_accumulator"] = k1s
         torch.cuda.empty_cache()
         k2 = check_k2(n, dev)
         log(f"K2 {k2['shape']}: {k2['ms']:.4f} ms, plain {k2['plain_ms']:.4f}"

@@ -69,6 +69,7 @@ from pinot_tpu_torch.ops import blockskip as bs_ops
 from pinot_tpu_torch.ops import group_scatter as ps
 from pinot_tpu_torch.ops import groupby_mm as mm
 from pinot_tpu_torch.ops import hll as hll_ops
+from pinot_tpu_torch.ops import kernels
 from pinot_tpu_torch.ops import masks as mask_ops
 from pinot_tpu_torch.ops import radix_groupby as radix_ops
 from pinot_tpu_torch.ops.transform import get_function
@@ -179,70 +180,72 @@ def _eval_filter(tpl, cols, params, shape, device, widths=None):
     raise AssertionError(f"bad filter template node {kind}")
 
 
+def _sum_operand(argt, cols, params, widths):
+    """(values, FOR offset or None) of one SUM/AVG argument for K1: a bare
+    column's plane AS STORED, with the frame-of-reference offset
+    ``_data_col`` would add (K1 adds it in registers; the offset stays on
+    the card), or an expression evaluated as torch ops."""
+    key = {"raw": argt[1], "dictval": "dv::" + argt[1]}.get(argt[0])
+    if key is not None and key in cols:
+        w = (widths or {}).get(key)
+        return cols[key], (params["fo::" + key] if w and w[3] and w[2]
+                           else None)
+    return _eval_expr(argt, cols, params, widths), None
+
+
 def _try_mm_groupby(aggs, gid, cols, params, num_groups, outs, widths,
                     min_rows: int):
     """Route COUNT/SUM/AVG through ONE K1 launch when eligible: the
     partitioned entry (ops/group_scatter.py plane_group_sums) when
     ``sums_supported``, else the single-accumulator entry
     (ops/groupby_mm.py group_sums) when ``mm_supported`` — the reference's
-    pallas-tier routing. Fills outs["gcount"] + outs[f"a{i}_sum"] and
-    returns the set of agg indexes handled; the torch scatters cover the
-    rest."""
-    n_total = gid.numel()
-    if n_total < min_rows:
+    pallas-tier routing. K1 reads each bare column's plane as stored and
+    splits it in registers: no channel tensor is built. Fills
+    outs["gcount"] + outs[f"a{i}_sum"] and returns the set of agg indexes
+    handled; the torch scatters cover the rest."""
+    if gid.numel() < min_rows:
         return set()
-    plans = []  # (i, kind, nplanes, values)
-    total_ch = 1  # ones channel
+    plans = []  # (i, PlaneSource)
+    total_ch = 1  # the count channel
     for i, (name, argt, extra) in enumerate(aggs):
         if name not in ("sum", "avg"):
             continue
         nplanes_int = extra[0]  # extra = (nplanes, rows per block)
-        v = _eval_expr(argt, cols, params, widths)
-        if not v.is_floating_point():
-            if nplanes_int is None:  # unknown range → exact scatter instead
-                continue
-            kind, nplanes = "int", nplanes_int
-        else:
-            kind, nplanes = "float", 3
-        if total_ch + nplanes > mm.MAX_CHANNELS + 1:
+        v, plus = _sum_operand(argt, cols, params, widths)
+        if v.shape != gid.shape or not v.is_contiguous():  # e.g. SUM(3)
+            v = torch.broadcast_to(v, gid.shape).contiguous()
+        if v.is_floating_point():
+            src = kernels.PlaneSource(v.to(torch.float32), "float")
+        elif nplanes_int is None:  # unknown range → exact scatter instead
             continue
-        plans.append((i, kind, nplanes, v))
-        total_ch += nplanes
+        else:
+            if v.dtype not in kernels.K1_INT_DTYPES:
+                v = v.to(torch.int64)
+            src = kernels.PlaneSource(v, "int", nplanes_int, plus,
+                                      params[f"off{i}"])
+        if total_ch + src.nplanes > mm.MAX_CHANNELS + 1:
+            continue
+        plans.append((i, src))
+        total_ch += src.nplanes
     use_ps = ps.sums_supported(num_groups, total_ch)
     if not use_ps and not mm.mm_supported(num_groups, total_ch - 1):
         return set()
     if not plans and not any(a[0] in ("count", "avg") for a in aggs):
         return set()
 
-    channels = torch.empty((total_ch, n_total), dtype=torch.bfloat16,
-                           device=gid.device)
-    channels[0].fill_(1)
-    specs = []  # (i, kind, channel rows)
-    row = 1
-    for i, kind, nplanes, v in plans:
-        flat = v.reshape(-1)
-        planes = mm.int_planes(flat, params[f"off{i}"], nplanes) \
-            if kind == "int" else mm.float_planes(flat)
-        for k, p in enumerate(planes):
-            channels[row + k].copy_(p)
-        specs.append((i, kind, range(row, row + nplanes)))
-        row += nplanes
-
-    flat_gid = gid.reshape(-1).contiguous()
-    if use_ps:
-        sums = ps.plane_group_sums(flat_gid, channels, num_groups,
-                                   first_channel_ones=True)
-    else:
-        sums = mm.group_sums(flat_gid, channels, num_groups,
-                             first_channel_ones=True)
+    entry = ps.plane_group_sums if use_ps else mm.group_sums
+    sums = entry(gid.reshape(-1), [src for _i, src in plans], num_groups,
+                 count=True)
     gcount = torch.round(sums[0]).to(torch.int64)
     outs["gcount"] = gcount
     done = set()
-    for i, kind, rows in specs:
-        planes = [sums[j] for j in rows]
+    row = 1
+    for i, src in plans:
+        planes = [sums[j] for j in range(row, row + src.nplanes)]
         outs[f"a{i}_sum"] = mm.recombine_int(planes, gcount, params[f"off{i}"]) \
-            if kind == "int" else mm.recombine_float(planes)
+            if src.kind == "int" else mm.recombine_float(planes)
         done.add(i)
+        row += src.nplanes
     return done
 
 
@@ -265,23 +268,28 @@ def _group_extreme(gid, v, num_groups: int, ops: tuple, min_rows: int):
         else agg_ops.group_max(gid, v, num_groups) for op in ops)
 
 
-def _hll_regs(slot, rho, num_groups: int, log2m: int, min_rows: int):
-    """(num_groups, m) int8 HLL registers: K3 through the small-slot
-    entry (ops/group_scatter.py, the reference's presence kernel) when
-    the slot space is in its regime, else through the group entry
-    (ops/groupby_mm.py hll_registers, the reference's rho-mode kernel),
-    else the torch scatter-max — all the exact max of rho, so
-    bit-identical. int8 holds every rho (<= 33 - log2m) and keeps the
-    register plane a quarter of int32's size."""
+def _hll_regs(h, gid, mask, num_groups: int, log2m: int, min_rows: int):
+    """(num_groups, m) int8 HLL registers from the int32 hash plane ``h``,
+    the group ids (None: one group) and the mask (None: ``gid`` carries
+    it as the overflow id): K3 through the small-slot entry
+    (ops/group_scatter.py, the reference's presence kernel) when the slot
+    space is in its regime, else through the group entry
+    (ops/groupby_mm.py hll_registers, the reference's rho-mode kernel) —
+    both split the hashes in the kernel — else the torch scatter-max over
+    ``hll_slots``; all the exact max of rho, so bit-identical. int8 holds
+    every rho (<= 33 - log2m) and keeps the register plane a quarter of
+    int32's size."""
     m = 1 << log2m
     nslots = num_groups * m
-    if slot.numel() >= min_rows:
+    if h.numel() >= min_rows:
         if ps.hll_supported(nslots, mm.hll_nrho(log2m)):
-            regs = ps.hll_register_max(slot, rho, nslots)
+            regs = ps.hll_register_max(h, log2m, num_groups=num_groups,
+                                       gid=gid, mask=mask)
             return regs.reshape(num_groups, m).to(torch.int8)
         if mm.hll_supported(num_groups, log2m):
-            return mm.hll_registers(slot, rho, num_groups, log2m).to(
-                torch.int8)
+            return mm.hll_registers(h, gid, num_groups, log2m,
+                                    mask=mask).to(torch.int8)
+    slot, rho = hll_ops.hll_slots(h, log2m, num_groups, gid, mask)
     regs = agg_ops.slot_max(slot, rho, nslots)
     return regs.reshape(num_groups, m).to(torch.int8)
 
@@ -290,8 +298,9 @@ def _hll_sums_from_sorted(sk, num_groups: int, log2m: int):
     """(3, G) float64 scaled register sums from SORTED packed keys
     (slot << 5 | rho): each slot's run ends at its max rho; three bf16
     power-of-two channels over the run ends go through ONE launch of K1's
-    single-accumulator entry (ops/groupby_mm.py group_sums). See
-    ops/hll.py ``estimate_from_sums_torch`` for why the sums are exact."""
+    single-accumulator entry (ops/groupby_mm.py group_sums), which takes
+    each as it is. See ops/hll.py ``estimate_from_sums_torch`` for why the
+    sums are exact."""
     m = 1 << log2m
     rho_max = 33 - log2m
     split = rho_max // 2
@@ -303,12 +312,13 @@ def _hll_sums_from_sorted(sk, num_groups: int, log2m: int):
     rho_s = (sk & 31).to(torch.float32)
     gid_s = torch.where(valid, slot_s >> log2m, num_groups).to(torch.int32)
     zero = torch.zeros((), dtype=torch.float32, device=sk.device)
-    ch = torch.empty((3, sk.shape[0]), dtype=torch.bfloat16, device=sk.device)
-    ch[0] = e
-    ch[1] = torch.where(e & (rho_s <= split), torch.exp2(split - rho_s), zero)
-    ch[2] = torch.where(e & (rho_s > split), torch.exp2(rho_max - rho_s),
-                        zero)
-    return mm.group_sums(gid_s, ch, num_groups)
+    chans = (e, torch.where(e & (rho_s <= split), torch.exp2(split - rho_s),
+                            zero),
+             torch.where(e & (rho_s > split), torch.exp2(rho_max - rho_s),
+                         zero))
+    return mm.group_sums(gid_s, [kernels.PlaneSource(c.to(torch.bfloat16),
+                                                     "bf16") for c in chans],
+                         num_groups)
 
 
 def _hll_sorted_sums(slot, rho, num_groups: int, log2m: int):
@@ -527,7 +537,6 @@ def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS,
         return _aggregate(g_cols, mask, outs)
 
     def _group_hll(k, argt, log2m, gid, mask, cols, outs):
-        m = 1 << log2m
         sort = _hll_sort_eligible(final, num_groups, log2m)
         sk_key = f"sk::{argt}::{log2m}"
         if sort and filter_tpl == ("true",) and sk_key in cols:
@@ -536,12 +545,13 @@ def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS,
             outs[f"{k}_hs"] = _hll_sums_from_sorted(cols[sk_key], num_groups,
                                                     log2m)
             return
-        idx, rho = hll_ops.hll_idx_rho(cols["hh::" + argt], log2m)
-        slot = torch.where(mask, gid * m + idx, num_groups * m)
+        h = cols["hh::" + argt]
         if sort:
+            slot, rho = hll_ops.hll_slots(h, log2m, num_groups, gid, mask)
             outs[f"{k}_hs"] = _hll_sorted_sums(slot, rho, num_groups, log2m)
         else:
-            outs[f"{k}_regs"] = _hll_regs(slot, rho, num_groups, log2m,
+            # gid carries the mask (masked rows hold the overflow id)
+            outs[f"{k}_regs"] = _hll_regs(h, gid, None, num_groups, log2m,
                                           min_rows)
 
     def _groupby(cols, params, mask, outs):
@@ -587,10 +597,8 @@ def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS,
                     torch.where(mask, sub, extra), extra)
                 continue
             if name == "distinctcounthll":
-                idx, rho = hll_ops.hll_idx_rho(cols["hh::" + argt], extra)
-                slot = torch.where(mask, idx, 1 << extra)
-                outs[f"{k}_regs"] = _hll_regs(slot, rho, 1, extra,
-                                              min_rows)[0]
+                outs[f"{k}_regs"] = _hll_regs(cols["hh::" + argt], None,
+                                              mask, 1, extra, min_rows)[0]
                 continue
             v = _eval_expr(argt, cols, params, widths)
             if name in ("sum", "avg"):

@@ -6,12 +6,14 @@ The reference's Pallas tier replaced XLA's serialized TPU scatters with
 purpose-built kernels; on the card the same two functions run through the
 hand-written CUDA kernels of ops/kernels.py:
 
-- ``plane_group_sums`` → K1: exact per-group sums of bf16 plane
-  channels, past the single-accumulator ceiling ``mm_supported`` sets;
+- ``plane_group_sums`` → K1: exact per-group sums of the bf16 plane
+  channels of values as stored (split in the kernel), past the
+  single-accumulator ceiling ``mm_supported`` sets;
 - ``group_minmax`` → K2: per-group MIN and/or MAX over int32/float32
   values with caller-supplied empty-group fills;
-- ``hll_register_max`` → K3: per-slot max rho over slot spaces up to
-  ``HLL_MAX_SLOTS`` (scalar and small-group HLL).
+- ``hll_register_max`` → K3: per-slot max rho, from the hash plane,
+  over slot spaces up to ``HLL_MAX_SLOTS`` (scalar and small-group
+  HLL).
 
 - ``fused_filter_agg`` → K4: the block-skip path's fused filter +
   gather + aggregate over candidate zone blocks, planned by
@@ -76,18 +78,18 @@ def sums_supported(num_groups: int, n_channels: int) -> bool:
     return -(-_hpad_total(num_groups) // hp) <= MAX_PARTITIONS
 
 
-def plane_group_sums(gid, channels, num_groups: int, *,
-                     first_channel_ones: bool = False,
+def plane_group_sums(gid, sources, num_groups: int, *, count: bool = False,
                      span: int | None = None):
-    """Dense per-group sums of bf16 plane channels through K1. gid: (n,)
-    int32 in [0, num_groups] (num_groups = overflow slot); channels:
-    (A, n) bf16. ``span`` overrides K1's groups per partition (tests force
-    multi-partition launches on small group counts). Returns
+    """Dense per-group sums through K1. gid: (n,) int32 in [0, num_groups]
+    (num_groups = overflow slot); sources: kernels.PlaneSource values as
+    stored (K1 splits them into channels in registers); ``count``: row 0
+    counts the rows. ``span`` overrides K1's groups per partition (tests
+    force multi-partition launches on small group counts). Returns
     (A, num_groups) float64."""
     return kernels.count_entry(
         launches, "plane_group_sums", "group_plane_sums",
-        kernels.group_plane_sums, gid, channels, num_groups,
-        first_channel_ones=first_channel_ones, span=span)
+        kernels.group_plane_sums, gid.reshape(-1), sources, num_groups,
+        count=count, span=span)
 
 
 _MINMAX_KERNEL_DTYPES = {
@@ -135,16 +137,17 @@ def hll_supported(nslots: int, nrho: int) -> bool:
     return -(-_hpad_total(nslots) // hp) <= MAX_PARTITIONS
 
 
-def hll_register_max(slot, rho, nslots: int, *, span: int | None = None):
-    """(nslots,) int32 registers = per-slot max rho, through K3. slot:
-    int32 ids in [0, nslots] (nslots masks the row); rho: int32 in
-    [1, 33 - log2m] (0 on padded rows adds nothing). ``span`` overrides
-    K3's slots per partition."""
+def hll_register_max(h, log2m: int, *, num_groups: int = 1, gid=None,
+                     mask=None, span: int | None = None):
+    """(num_groups << log2m,) int32 registers = per-slot max rho, through
+    K3, from the int32 hash plane ``h``; ``gid`` (int32) or None for one
+    group, ``mask`` (bool) or None for every row. ``span`` overrides K3's
+    slots per partition."""
     return kernels.count_entry(
         launches, "hll_register_max", "hll_register_max",
-        kernels.hll_register_max,
-        slot.reshape(-1).to(torch.int32).contiguous(),
-        rho.reshape(-1).to(torch.int32).contiguous(), nslots, span=span)
+        kernels.hll_register_max, h.reshape(-1), log2m, num_groups,
+        gid=None if gid is None else gid.reshape(-1),
+        mask=None if mask is None else mask.reshape(-1), span=span)
 
 
 # ---------------------------------------------------------------------------

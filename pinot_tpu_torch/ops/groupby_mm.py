@@ -8,12 +8,17 @@ same function — per-group sums of bf16 channels — runs through K1
 (ops/kernels.py, csrc/group_plane_sums.cu), which partitions the group
 range by shared memory instead. This module keeps the reference's
 routing predicate (``mm_supported``, so the same queries take this entry)
-and the channel planes:
+and the recombination of the channel planes, which K1 builds in
+registers from the values as stored (ops/kernels.py ``PlaneSource``):
 
 - integers offset by the column's lower bound split into byte planes
-  (|plane| <= 255 is exact in bf16; sums per <= 65536-row chunk stay
-  below 2^24 and so exact in f32; the int64 recombination is exact);
-- f32 values split exactly into three bf16 planes by bit-masking.
+  (``int_planes``; each plane <= 255, summed exactly in K1's int32
+  cells; the int64 recombination is exact);
+- f32 values split exactly into three bf16 planes by bit-masking
+  (``float_planes``).
+
+Both splits live in ops/kernels.py as K1's plain version and are
+re-exported here, where the reference keeps them.
 
 The reference's HLL build in this module (``rho_group_counts`` /
 ``hll_registers``) runs the same MXU kernel in rho mode: it forms an
@@ -34,6 +39,7 @@ import math
 import torch
 
 from pinot_tpu_torch.ops import kernels
+from pinot_tpu_torch.ops.kernels import float_planes, int_planes  # noqa: F401
 
 MAX_CHANNELS = 15       # + the count channel
 MAX_ACC_CELLS = 1 << 21  # the reference's VMEM accumulator bound: A * hpad * 128
@@ -67,16 +73,16 @@ def mm_supported(num_groups: int, n_channels: int,
     return (n_channels + 1) * hpad * 128 <= MAX_ACC_CELLS
 
 
-def group_sums(gid, channels, num_groups: int, *,
-               first_channel_ones: bool = False):
-    """Dense per-group sums of bf16 plane channels through K1.
+def group_sums(gid, sources, num_groups: int, *, count: bool = False):
+    """Dense per-group sums through K1's single-accumulator entry.
 
     gid: (n,) int32 in [0, num_groups]; id == num_groups is the overflow
-    slot for masked/padded rows. channels: (A, n) bf16 planes.
-    Returns (A, num_groups) float64."""
+    slot for masked/padded rows. sources: kernels.PlaneSource values as
+    stored (K1 splits them into channels in registers); ``count``: row 0
+    counts the rows. Returns (A, num_groups) float64."""
     return kernels.count_entry(
         launches, "group_sums", "group_plane_sums", kernels.group_plane_sums,
-        gid, channels, num_groups, first_channel_ones=first_channel_ones)
+        gid.reshape(-1), sources, num_groups, count=count)
 
 
 def hll_nrho(log2m: int) -> int:
@@ -92,17 +98,16 @@ def hll_supported(num_groups: int, log2m: int) -> bool:
         and nslots <= (1 << 20)
 
 
-def hll_registers(slot, rho, num_groups: int, log2m: int):
-    """(num_groups, m) int32 HLL registers through K3. slot: (n,) int32 =
-    gid * m + idx, masked rows → num_groups * m; rho: (n,) int32 in
-    [1, hll_nrho(log2m)]."""
-    m = 1 << log2m
+def hll_registers(h, gid, num_groups: int, log2m: int, *, mask=None):
+    """(num_groups, m) int32 HLL registers through K3, from the int32 hash
+    plane ``h`` and the int32 group ids (None: one group); rows with an id
+    outside [0, num_groups), or with ``mask`` unset, add nothing."""
     regs = kernels.count_entry(
         launches, "hll_registers", "hll_register_max",
-        kernels.hll_register_max,
-        slot.reshape(-1).to(torch.int32).contiguous(),
-        rho.reshape(-1).to(torch.int32).contiguous(), num_groups * m)
-    return regs.reshape(num_groups, m)
+        kernels.hll_register_max, h.reshape(-1), log2m, num_groups,
+        gid=None if gid is None else gid.reshape(-1),
+        mask=None if mask is None else mask.reshape(-1))
+    return regs.reshape(num_groups, 1 << log2m)
 
 
 # ---------------------------------------------------------------------------
@@ -121,12 +126,6 @@ def int_planes_needed(lo: float, hi: float) -> int:
     return planes
 
 
-def int_planes(values, offset, nplanes: int):
-    """values - offset split into ``nplanes`` byte planes (bf16-exact)."""
-    v = values.to(torch.int64) - offset
-    return [((v >> (8 * k)) & 0xFF).to(torch.bfloat16) for k in range(nplanes)]
-
-
 def recombine_int(plane_sums, count, offset):
     """int64 recombination: Σv = Σ_k 256^k·S_k + count·offset (exact)."""
     tot = torch.zeros(plane_sums[0].shape, dtype=torch.int64,
@@ -134,24 +133,6 @@ def recombine_int(plane_sums, count, offset):
     for k, s in enumerate(plane_sums):
         tot = tot + (s.to(torch.int64) << (8 * k))
     return tot + count.to(torch.int64) * offset
-
-
-def _bf16_hi(v):
-    """Top-16-bit truncation of f32 — exactly bf16-representable, built
-    by bit-masking so no rounding step can fold it away."""
-    return (v.view(torch.int32) & -65536).view(torch.float32)
-
-
-def float_planes(values):
-    """f32 → 3 bf16 channels summing exactly to the f32 value."""
-    v = values.to(torch.float32)
-    m0 = _bf16_hi(v)
-    r1 = v - m0
-    m1 = _bf16_hi(r1)
-    r2 = r1 - m1
-    m2 = _bf16_hi(r2)
-    return [m0.to(torch.bfloat16), m1.to(torch.bfloat16),
-            m2.to(torch.bfloat16)]
 
 
 def recombine_float(plane_sums):

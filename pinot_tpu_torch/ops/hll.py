@@ -6,9 +6,11 @@ Counterpart of pinot_tpu/ops/hll.py. Hashing: 32-bit murmur3 finalizer
 (fmix32 avalanche) over int32 keys, murmur3_32 over UTF-8 bytes for
 strings. The device path reads per-doc hashes gathered on the host at
 upload (engine/params.py ``prehashed_column``, an int32 bit view of the
-uint32 hash) and splits them here with ``hll_idx_rho``; the register
-builds themselves are the K3 kernel (ops/kernels.py) behind
-ops/group_scatter.py and ops/groupby_mm.py.
+uint32 hash). The register builds are the K3 kernel (ops/kernels.py)
+behind ops/group_scatter.py and ops/groupby_mm.py, which splits the
+hashes itself; ``hll_idx_rho`` / ``hll_slots`` split them as torch ops
+for K3's plain version, the torch scatter-max past K3's regimes and the
+sorted build.
 
 torch has no uint32 arithmetic to lean on and no count-leading-zeros, so
 the device functions do their unsigned math in int64 (masking to 32
@@ -62,6 +64,27 @@ def hll_idx_rho(h, log2m: int):
     w = ((u << log2m) & _MASK32) | (1 << (log2m - 1))
     _, e = torch.frexp(w.to(torch.float64))
     return idx, (33 - e).to(torch.int32)
+
+
+def hll_slots(h, log2m: int, num_groups: int = 1, gid=None, mask=None):
+    """(slot, rho), both int32: slot = gid·2^log2m + idx from
+    ``hll_idx_rho``, and the overflow slot num_groups·2^log2m for rows
+    whose mask is unset or whose id lies outside [0, num_groups). Without
+    ``gid`` every row is group 0; without ``mask`` every row counts. The
+    operands the register builds scatter (the K3 kernel splits the hashes
+    itself; its plain version, the torch scatter-max and the sorted build
+    take these)."""
+    idx, rho = hll_idx_rho(h, log2m)
+    keep = torch.ones_like(idx, dtype=torch.bool) if mask is None \
+        else mask.reshape(idx.shape)
+    slot = idx
+    if gid is not None:
+        g = gid.reshape(idx.shape).to(torch.int32)
+        keep = keep & (g >= 0) & (g < num_groups)
+        slot = (g << log2m) + idx
+    over = torch.full((), num_groups << log2m, dtype=torch.int32,
+                      device=idx.device)
+    return torch.where(keep, slot, over), rho
 
 
 def murmur3_32(data: bytes, seed: int = 0) -> int:

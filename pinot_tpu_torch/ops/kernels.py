@@ -22,6 +22,7 @@ the card.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 
 from pinot_tpu_torch.ops.blockskip import gather_blocks
+from pinot_tpu_torch.ops.hll import hll_slots
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(os.path.dirname(_HERE), "csrc")
@@ -45,7 +47,11 @@ SOURCES = {
     "fused_filter_agg": "fused_filter_agg.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# the compiler's output of each library this process built: with
+# -Xptxas -v, every kernel's registers, shared memory and spills
+build_log: dict = {}
 
 # dynamic shared memory a block may take (of the H100's 227 KB per block)
 SMEM_BYTES = 200 * 1024
@@ -59,10 +65,10 @@ _lock = threading.Lock()
 
 _vp, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _ARGTYPES = {  # the C signatures at the end of each csrc/*.cu
-    "group_plane_sums": [_vp, _vp, _i64, _i32, _i32, _i32, _i32, _vp, _vp],
+    "group_plane_sums": [_vp, _vp, _i64, _i32, _i32, _i64, _i32, _vp, _vp],
     "group_minmax": [_vp, _vp, _i64, _i32, _i32, _i32, ctypes.c_int32,
                      ctypes.c_int32, _vp, _vp, _vp],
-    "hll_register_max": [_vp, _vp, _i64, _i32, _i32, _vp, _vp],
+    "hll_register_max": [_vp, _vp, _vp, _i64, _i32, _i32, _i32, _vp, _vp],
     "fused_filter_agg": [_vp, _vp, _i32, _i32, _vp, _vp, _vp, _vp],
 }
 
@@ -104,8 +110,9 @@ def build_all() -> float:
     failed = []
     for name, dst, tmp, p in procs:
         out, _ = p.communicate()
+        build_log[name] = out.decode(errors="replace")
         if p.returncode != 0:
-            failed.append(f"{name}:\n{out.decode(errors='replace')}")
+            failed.append(f"{name}:\n{build_log[name]}")
         else:
             os.replace(tmp, dst)
     if failed:
@@ -151,54 +158,245 @@ def _raise_on(name: str, rc: int) -> None:
 # K1: group plane sums
 # ---------------------------------------------------------------------------
 
+# shared memory a block of K1 or K3 (one 1024-thread block per SM) may
+# take for its accumulators: K1's wide float shape (G = 6240, count + 2
+# byte planes in int32, 3 float planes in f64: 36 bytes a group) fits one
+# partition, K3 57,344 int32 registers
+PERSISTENT_SMEM_BYTES = 224 * 1024
+K1_MAX_SOURCES = 15          # the reference's MAX_CHANNELS
+K1_MAX_ROWS = 16             # output rows: count + 15 channels
+INT32_MAX = (1 << 31) - 1
 
-def plane_span(n_channels: int) -> int:
-    """Groups per partition: the partition's f32 accumulators for every
-    channel fit SMEM_BYTES."""
-    return SMEM_BYTES // (4 * n_channels)
+# stored dtypes K1 reads, by the codes of csrc/group_plane_sums.cu
+K1_INT_DTYPES = {torch.uint8: 0, torch.uint16: 1, torch.int8: 2,
+                 torch.int16: 3, torch.int32: 4, torch.int64: 5,
+                 torch.uint32: 8}
+_K1_F32, _K1_BF16 = 6, 7
+_K1_KINDS = {"int": 0, "float": 1, "bf16": 2}
 
 
-def group_plane_sums_plain(gid, channels, num_groups: int,
-                           first_channel_ones: bool = False):
-    """Plain version of K1: (A, num_groups) f64 sums of the channels over
-    rows whose id lies in [0, num_groups), exact in f64."""
+@dataclasses.dataclass(frozen=True)
+class PlaneSource:
+    """One value source of K1.
+
+    values: the plane as stored (flat or (S, R), read flat) or an
+    evaluated expression. kind "int": ``values + plus - minus`` in int64
+    split into ``nplanes`` byte planes; "float": f32 values split exactly
+    into three bf16 planes; "bf16": one bf16 channel as it is. plus: the
+    plane's frame-of-reference offset (0-d int32 / int64 tensor) or None;
+    minus: the query's offset (0-d int64 tensor) or None. Both stay on the
+    card: the kernel reads them, so no query syncs for them."""
+
+    values: torch.Tensor
+    kind: str
+    nplanes: int = 1
+    plus: torch.Tensor | None = None
+    minus: torch.Tensor | None = None
+
+    def __post_init__(self):
+        if self.kind not in _K1_KINDS:
+            raise ValueError(f"PlaneSource kind {self.kind!r}")
+        if self.kind != "int":  # float: three planes; bf16: one channel
+            object.__setattr__(self, "nplanes", 3 if self.kind == "float"
+                               else 1)
+
+
+def int_planes(values, offset, nplanes: int):
+    """values - offset split into ``nplanes`` byte planes (bf16-exact)."""
+    v = values.to(torch.int64) - offset
+    return [((v >> (8 * k)) & 0xFF).to(torch.bfloat16) for k in range(nplanes)]
+
+
+def _bf16_hi(v):
+    """Top-16-bit truncation of f32 — exactly bf16-representable, built
+    by bit-masking so no rounding step can fold it away."""
+    return (v.view(torch.int32) & -65536).view(torch.float32)
+
+
+def float_planes(values):
+    """f32 → 3 bf16 channels summing exactly to the f32 value."""
+    v = values.to(torch.float32)
+    m0 = _bf16_hi(v)
+    r1 = v - m0
+    m1 = _bf16_hi(r1)
+    r2 = r1 - m1
+    m2 = _bf16_hi(r2)
+    return [m0.to(torch.bfloat16), m1.to(torch.bfloat16),
+            m2.to(torch.bfloat16)]
+
+
+def source_channels(src: PlaneSource):
+    """The bf16 channels a source stands for, built as torch ops: the
+    composition K1 does in registers (decode as engine/device.py
+    ``_data_col`` does, then ``int_planes`` / ``float_planes``)."""
+    v = src.values.reshape(-1)
+    if src.kind == "bf16":
+        return [v.to(torch.bfloat16)]
+    if src.kind == "float":
+        return float_planes(v)
+    v = v.to(torch.int64)
+    if src.plus is not None:
+        v = v + src.plus.to(torch.int64)
+    return int_planes(v, 0 if src.minus is None else src.minus, src.nplanes)
+
+
+def plane_layout(sources, count: bool):
+    """K1's accumulator layout: per output row, (region, row in region),
+    region "int" (int32 cells: the count and byte planes) or "flt" (f64
+    cells: float planes and bf16 channels); output rows are the count,
+    then each source's planes in order."""
+    rows = [("int", 0)] if count else []
+    n_int, n_flt = len(rows), 0
+    for s in sources:
+        for _ in range(s.nplanes):
+            if s.kind == "int":
+                rows.append(("int", n_int))
+                n_int += 1
+            else:
+                rows.append(("flt", n_flt))
+                n_flt += 1
+    return rows
+
+
+def flush_rows(sources) -> int:
+    """The most rows a K1 block adds before it flushes: every int32 cell
+    gains at most 255 a row (a byte plane; the count gains 1), so
+    floor((2^31 - 1) / 255) = 8,421,504 rows keep each cell exact; a
+    multiple of 4, the rows a thread takes at a time."""
+    most = 255 if any(s.kind == "int" for s in sources) else 1
+    return (INT32_MAX // most) // 4 * 4
+
+
+def plane_span(n_int: int, n_flt: int) -> int:
+    """Groups per partition: one copy of the partition's int32 and f64
+    accumulators fits PERSISTENT_SMEM_BYTES."""
+    return PERSISTENT_SMEM_BYTES // max(1, 4 * n_int + 8 * n_flt)
+
+
+class _PlaneSource(ctypes.Structure):
+    """struct Source of csrc/group_plane_sums.cu, field for field."""
+    _fields_ = [("values", ctypes.c_void_p), ("plus", ctypes.c_void_p),
+                ("minus", ctypes.c_void_p), ("dtype", ctypes.c_int32),
+                ("kind", ctypes.c_int32), ("nplanes", ctypes.c_int32),
+                ("plus_is64", ctypes.c_int32), ("row", ctypes.c_int32),
+                ("pad", ctypes.c_int32)]
+
+
+class _PlaneSumsDesc(ctypes.Structure):
+    """struct PlaneSumsDesc of csrc/group_plane_sums.cu, field for field."""
+    _fields_ = [("src", _PlaneSource * K1_MAX_SOURCES),
+                ("int_out", ctypes.c_int32 * K1_MAX_ROWS),
+                ("flt_out", ctypes.c_int32 * K1_MAX_ROWS),
+                ("n_src", ctypes.c_int32), ("count", ctypes.c_int32),
+                ("n_int", ctypes.c_int32), ("n_flt", ctypes.c_int32)]
+
+
+def _k1_dtype(src: PlaneSource) -> int:
+    dt = src.values.dtype
+    if src.kind == "int" and dt in K1_INT_DTYPES:
+        return K1_INT_DTYPES[dt]
+    if src.kind == "float" and dt == torch.float32:
+        return _K1_F32
+    if src.kind == "bf16" and dt == torch.bfloat16:
+        return _K1_BF16
+    raise TypeError(f"group_plane_sums: a {src.kind} source of {dt}")
+
+
+def lower_plane_sums(sources, count: bool) -> _PlaneSumsDesc:
+    """The sources in K1's terms: the descriptor the kernel takes by
+    value (pointers of the sources' tensors, dtype and kind codes, first
+    accumulator row of each source in its region, and the output row of
+    every accumulator row)."""
+    if len(sources) > K1_MAX_SOURCES:
+        raise ValueError(f"group_plane_sums takes at most {K1_MAX_SOURCES} "
+                         f"sources, got {len(sources)}")
+    layout = plane_layout(sources, count)
+    if len(layout) > K1_MAX_ROWS:
+        raise ValueError(f"group_plane_sums: {len(layout)} channels past "
+                         f"{K1_MAX_ROWS}")
+    desc = _PlaneSumsDesc()
+    out_row = int(count)
+    for j, s in enumerate(sources):
+        region_row = layout[out_row][1]
+        plus = s.plus
+        if plus is not None and plus.dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"group_plane_sums: FOR offset of {plus.dtype}")
+        if s.minus is not None and s.minus.dtype != torch.int64:
+            raise TypeError(f"group_plane_sums: offset of {s.minus.dtype}")
+        desc.src[j] = _PlaneSource(
+            s.values.data_ptr(), None if plus is None else plus.data_ptr(),
+            None if s.minus is None else s.minus.data_ptr(), _k1_dtype(s),
+            _K1_KINDS[s.kind], s.nplanes,
+            int(plus is not None and plus.dtype == torch.int64), region_row,
+            0)
+        out_row += s.nplanes
+    for a, (region, r) in enumerate(layout):
+        (desc.int_out if region == "int" else desc.flt_out)[r] = a
+    desc.n_src, desc.count = len(sources), int(count)
+    desc.n_int = sum(1 for region, _ in layout if region == "int")
+    desc.n_flt = len(layout) - desc.n_int
+    return desc
+
+
+def group_plane_sums_plain(gid, sources, num_groups: int,
+                           count: bool = False):
+    """Plain version of K1: the channels built as torch ops
+    (``source_channels``), then (A, num_groups) f64 sums over rows whose
+    id lies in [0, num_groups), exact in f64."""
     g = gid.reshape(-1).to(torch.int64)
     g = torch.where((g >= 0) & (g < num_groups), g, num_groups)
-    ch = channels.to(torch.float64, copy=True)
-    if first_channel_ones:
-        ch[0] = 1.0
-    out = torch.zeros((channels.shape[0], num_groups + 1),
-                      dtype=torch.float64, device=channels.device)
-    out.index_add_(1, g, ch)
+    chans = [torch.ones(g.shape[0], dtype=torch.bfloat16,
+                        device=g.device)] if count else []
+    for s in sources:
+        chans += source_channels(s)
+    out = torch.zeros((len(chans), num_groups + 1), dtype=torch.float64,
+                      device=gid.device)
+    if chans:
+        out.index_add_(1, g, torch.stack(chans).to(torch.float64))
     return out[:, :num_groups]
 
 
-def group_plane_sums(gid, channels, num_groups: int,
-                     first_channel_ones: bool = False,
-                     span: int | None = None):
-    """K1. gid: (n,) int32, id ``num_groups`` = overflow slot; channels:
-    (A, n) bf16; ``first_channel_ones``: channels[0] is all ones and is
-    not read. ``span`` overrides the groups per partition (tests force
-    several partitions). Returns (A, num_groups) float64."""
-    if gid.device.type == "cpu" and channels.device.type == "cpu":
-        return group_plane_sums_plain(gid, channels, num_groups,
-                                      first_channel_ones)
-    _check_cuda("group_plane_sums", gid, channels)
-    if gid.dtype != torch.int32 or channels.dtype != torch.bfloat16:
-        raise TypeError("group_plane_sums takes int32 ids and bf16 channels, "
-                        f"got {gid.dtype} and {channels.dtype}")
-    if channels.dim() != 2 or gid.shape != (channels.shape[1],):
+def _aligned(t):
+    """A flat view of ``t`` whose data starts on 16 bytes (the kernels'
+    vector loads), copied only when it does not."""
+    t = t.reshape(-1)
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def group_plane_sums(gid, sources, num_groups: int, count: bool = False,
+                     span: int | None = None, seg_rows: int | None = None):
+    """K1. gid: (n,) int32, id ``num_groups`` = overflow slot; sources:
+    PlaneSource values of n rows each; ``count``: output row 0 counts the
+    rows. ``span`` overrides the groups per partition and ``seg_rows``
+    the rows a block adds between flushes (tests force several).
+    Returns (A, num_groups) float64: the count, then each source's
+    planes."""
+    offsets = [t for s in sources for t in (s.plus, s.minus) if t is not None]
+    tensors = (gid, *(s.values for s in sources), *offsets)
+    if all(t.device.type == "cpu" for t in tensors):
+        return group_plane_sums_plain(gid, sources, num_groups, count)
+    _check_cuda("group_plane_sums", *tensors)
+    if gid.dtype != torch.int32:
+        raise TypeError(f"group_plane_sums takes int32 ids, got {gid.dtype}")
+    n = gid.numel()
+    if any(s.values.numel() != n for s in sources) \
+            or any(t.numel() != 1 for t in offsets):
         raise ValueError(f"group_plane_sums shapes: gid {tuple(gid.shape)}, "
-                         f"channels {tuple(channels.shape)}")
-    A, n = channels.shape
-    out = torch.zeros((A, num_groups), dtype=torch.float64,
-                      device=channels.device)
+                         f"sources {[tuple(s.values.shape) for s in sources]}")
+    sources = [dataclasses.replace(s, values=_aligned(s.values))
+               for s in sources]
+    gid = _aligned(gid)
+    desc = lower_plane_sums(sources, count)
+    A = desc.n_int + desc.n_flt
+    out = torch.zeros((A, num_groups), dtype=torch.float64, device=gid.device)
     if n == 0 or num_groups == 0 or A == 0:
         return out
-    span = min(span or plane_span(A), plane_span(A))
+    full = plane_span(desc.n_int, desc.n_flt)
+    span = min(span or full, full)
+    seg = max(4, min(seg_rows or INT32_MAX, flush_rows(sources)) // 4 * 4)
     rc = _lib("group_plane_sums").group_plane_sums(
-        gid.data_ptr(), channels.data_ptr(), n, A, num_groups,
-        int(first_channel_ones), span, out.data_ptr(), _stream(gid.device))
+        gid.data_ptr(), ctypes.addressof(desc), n, num_groups, span, seg,
+        PERSISTENT_SMEM_BYTES, out.data_ptr(), _stream(gid.device))
     _raise_on("group_plane_sums", rc)
     launches["group_plane_sums"] += 1
     return out
@@ -309,7 +507,7 @@ def count_entry(table: dict, entry: str, kernel: str, fn, *args, **kwargs):
 # K3: HLL register max
 # ---------------------------------------------------------------------------
 
-HLL_SPAN = SMEM_BYTES // 4   # slots per partition: int32 registers
+HLL_SPAN = PERSISTENT_SMEM_BYTES // 4   # slots per partition: int32
 
 
 def hll_partitions(nslots: int, span: int | None = None) -> int:
@@ -317,38 +515,50 @@ def hll_partitions(nslots: int, span: int | None = None) -> int:
     return max(1, -(-nslots // span))
 
 
-def hll_register_max_plain(slot, rho, nslots: int):
-    """Plain version of K3: (nslots,) int32 per-slot max of rho over rows
-    whose slot lies in [0, nslots), 0 where no row lands."""
-    s = slot.reshape(-1).to(torch.int64)
-    s = torch.where((s >= 0) & (s < nslots), s, nslots)
-    out = torch.zeros(nslots + 1, dtype=torch.int32, device=rho.device)
-    out.scatter_reduce_(0, s, rho.reshape(-1).to(torch.int32), reduce="amax",
-                        include_self=True)
+def hll_register_max_plain(h, log2m: int, num_groups: int = 1, gid=None,
+                           mask=None):
+    """Plain version of K3: ``hll_slots`` (ops/hll.py: ``hll_idx_rho``,
+    then ``where``) and a scatter-max: (num_groups << log2m,) int32
+    per-slot max of rho, 0 where no row lands."""
+    nslots = num_groups << log2m
+    slot, rho = hll_slots(h, log2m, num_groups, gid, mask)
+    out = torch.zeros(nslots + 1, dtype=torch.int32, device=h.device)
+    out.scatter_reduce_(0, slot.reshape(-1).to(torch.int64), rho.reshape(-1),
+                        reduce="amax", include_self=True)
     return out[:nslots]
 
 
-def hll_register_max(slot, rho, nslots: int, span: int | None = None):
-    """K3. slot: (n,) int32, slot ``nslots`` = overflow; rho: (n,) int32
-    in [1, 33 - log2m] (0 on padding adds nothing). ``span`` overrides the
-    slots per partition (tests force several partitions). Returns
-    (nslots,) int32 registers."""
-    if slot.device.type == "cpu" and rho.device.type == "cpu":
-        return hll_register_max_plain(slot, rho, nslots)
-    _check_cuda("hll_register_max", slot, rho)
-    if slot.dtype != torch.int32 or rho.dtype != torch.int32:
-        raise TypeError("hll_register_max takes int32 slots and rho, got "
-                        f"{slot.dtype} and {rho.dtype}")
-    if slot.dim() != 1 or slot.shape != rho.shape:
-        raise ValueError(f"hll_register_max shapes: slot {tuple(slot.shape)}, "
-                         f"rho {tuple(rho.shape)}")
-    out = torch.zeros(nslots, dtype=torch.int32, device=slot.device)
-    n = slot.shape[0]
+def hll_register_max(h, log2m: int, num_groups: int = 1, gid=None, mask=None,
+                     span: int | None = None):
+    """K3. h: int32 bit view of the 32-bit hashes (``hh::`` planes, read
+    flat); gid: int32 group ids or None (one group); mask: bool or None
+    (every row). A row counts when its mask is set and its id lies in
+    [0, num_groups). ``span`` overrides the slots per partition (tests
+    force several). Returns (num_groups << log2m,) int32 registers."""
+    given = [t for t in (gid, mask) if t is not None]
+    if all(t.device.type == "cpu" for t in (h, *given)):
+        return hll_register_max_plain(h, log2m, num_groups, gid, mask)
+    _check_cuda("hll_register_max", h, *given)
+    if h.dtype != torch.int32 or (gid is not None and gid.dtype != torch.int32) \
+            or (mask is not None and mask.dtype != torch.bool):
+        raise TypeError("hll_register_max takes int32 hashes and ids and a "
+                        f"bool mask, got {[t.dtype for t in (h, *given)]}")
+    n = h.numel()
+    if any(t.numel() != n for t in given):
+        raise ValueError("hll_register_max shapes: "
+                         f"{[tuple(t.shape) for t in (h, *given)]}")
+    if not 4 <= log2m <= 16:
+        raise ValueError(f"hll_register_max: log2m {log2m} outside [4, 16]")
+    nslots = num_groups << log2m
+    out = torch.zeros(nslots, dtype=torch.int32, device=h.device)
     if n and nslots:
         span = min(span or HLL_SPAN, HLL_SPAN)
+        h, gid, mask = (None if t is None else _aligned(t)
+                        for t in (h, gid, mask))
         rc = _lib("hll_register_max").hll_register_max(
-            slot.data_ptr(), rho.data_ptr(), n, nslots, span, out.data_ptr(),
-            _stream(slot.device))
+            h.data_ptr(), None if gid is None else gid.data_ptr(),
+            None if mask is None else mask.data_ptr(), n, log2m, num_groups,
+            span, out.data_ptr(), _stream(h.device))
         _raise_on("hll_register_max", rc)
         launches["hll_register_max"] += 1
     return out

@@ -36,6 +36,7 @@ EDGE_HASHES = sorted({0, 2**31, 2**32 - 1} | {1 << k for k in range(32)}
 
 
 def _hashes(seed: int, n: int = 4000) -> np.ndarray:
+    """The edge hashes, then ``n`` random ones."""
     rng = np.random.default_rng(seed)
     h = rng.integers(0, 2**32, n, dtype=np.uint64)
     return np.concatenate([np.array(EDGE_HASHES, dtype=np.uint64), h]) \
@@ -85,8 +86,26 @@ def test_idx_rho_matches_reference(log2m, form):
 
 
 # ---------------------------------------------------------------------------
-# K3 through both entries
+# K3 through both entries: the port hands it the hashes, the reference its
+# slot and rho operands
 # ---------------------------------------------------------------------------
+
+
+def _hash_case(seed: int, n: int, G: int, log2m: int):
+    """Hashes (the edge hashes first), group ids with about 5 % on the
+    overflow id G, a mask with about 30 % of the rows unset; and the
+    reference's operands for them: slot = gid * m + idx where the row
+    counts, the overflow slot G * m where it does not, and rho."""
+    rng = np.random.default_rng(seed)
+    h = _hashes(seed, n - len(EDGE_HASHES))
+    gid = rng.integers(0, G, n).astype(np.int32)
+    gid[rng.random(n) < 0.05] = G
+    mask = rng.random(n) >= 0.3
+    idx, rho = ref_hll.hll_idx_rho(jnp.asarray(h), log2m)
+    keep = mask & (gid < G)
+    slot = np.where(keep, gid.astype(np.int64) * (1 << log2m)
+                    + np.asarray(idx), G << log2m).astype(np.int32)
+    return h.view(np.int32), gid, mask, slot, np.asarray(rho)
 
 
 @pytest.mark.parametrize("G,log2m", [(1, 4), (1, 8), (1, 10), (3, 10),
@@ -95,9 +114,10 @@ def test_small_slot_entry_matches_presence_kernel(G, log2m):
     nslots, nrho = G << log2m, mm.hll_nrho(log2m)
     assert ps.hll_supported(nslots, nrho) == ref_ps.hll_supported(
         nslots, nrho) is True
-    slot, rho = _slot_rho(G * 100 + log2m, 20000, nslots, nrho)
-    got = ps.hll_register_max(torch.from_numpy(slot), torch.from_numpy(rho),
-                              nslots)
+    h, gid, mask, slot, rho = _hash_case(G * 100 + log2m, 20000, G, log2m)
+    got = ps.hll_register_max(torch.from_numpy(h), log2m, num_groups=G,
+                              gid=torch.from_numpy(gid),
+                              mask=torch.from_numpy(mask))
     want = ref_ps.hll_register_max(jnp.asarray(slot), jnp.asarray(rho),
                                    nslots, nrho, interpret=True)
     assert got.dtype == torch.int32
@@ -107,11 +127,16 @@ def test_small_slot_entry_matches_presence_kernel(G, log2m):
 def test_small_slot_entry_forced_partitions():
     # reference: span_hpad=8 → 1024 slots per partition → 4 partitions;
     # the port's span override asks K3 for the same cut
-    nslots, nrho = 4096, 23
+    G, log2m = 4, 10
+    nslots, nrho = G << log2m, mm.hll_nrho(log2m)
     assert kernels.hll_partitions(nslots, 1024) == 4
-    slot, rho = _slot_rho(5, 30000, nslots, nrho)
-    got = ps.hll_register_max(torch.from_numpy(slot), torch.from_numpy(rho),
-                              nslots, span=1024)
+    h, gid, _mask, _slot, rho = _hash_case(5, 30000, G, log2m)
+    # no mask here: every row with an id below G counts
+    idx, _ = ref_hll.hll_idx_rho(jnp.asarray(h.view(np.uint32)), log2m)
+    slot = np.where(gid < G, gid * (1 << log2m) + np.asarray(idx),
+                    nslots).astype(np.int32)
+    got = ps.hll_register_max(torch.from_numpy(h), log2m, num_groups=G,
+                              gid=torch.from_numpy(gid), span=1024)
     want = ref_ps.hll_register_max(jnp.asarray(slot), jnp.asarray(rho),
                                    nslots, nrho, interpret=True, span_hpad=8)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
@@ -121,9 +146,9 @@ def test_small_slot_entry_forced_partitions():
 def test_group_entry_matches_rho_mode_kernel(G, log2m):
     assert mm.hll_supported(G, log2m) and ref_mm.hll_supported(G, log2m)
     m = 1 << log2m
-    slot, rho = _slot_rho(G + log2m, 20000, G * m, mm.hll_nrho(log2m))
-    got = mm.hll_registers(torch.from_numpy(slot), torch.from_numpy(rho), G,
-                           log2m)
+    h, gid, mask, slot, rho = _hash_case(G + log2m, 20000, G, log2m)
+    got = mm.hll_registers(torch.from_numpy(h), torch.from_numpy(gid), G,
+                           log2m, mask=torch.from_numpy(mask))
     want = ref_mm.hll_registers(jnp.asarray(slot), jnp.asarray(rho), G,
                                 log2m, interpret=True)
     assert tuple(got.shape) == (G, m)
@@ -146,26 +171,35 @@ def test_hll_routing_matches_reference(G):
 
 
 def test_k3_plain_version_ignores_slots_outside_range():
-    slot = torch.tensor([-1, 0, 2, 3, 1, 1, 0], dtype=torch.int32)
-    rho = torch.tensor([9, 4, 9, 9, 0, 2, 5], dtype=torch.int32)
-    np.testing.assert_array_equal(
-        kernels.hll_register_max(slot, rho, 2).numpy(), [5, 2])
+    # every hash below has a zero top nibble, so each row lands on idx 0
+    # of its group; ids outside [0, 2) and unmasked rows add nothing
+    log2m = 4
+    h = torch.tensor([0, 1 << 20, 0, 0, 1 << 20, 1 << 24, 0],
+                     dtype=torch.int32)
+    gid = torch.tensor([-1, 0, 2, 3, 1, 1, 0], dtype=torch.int32)
+    mask = torch.tensor([True, True, True, True, True, True, False])
+    regs = kernels.hll_register_max(h, log2m, 2, gid=gid, mask=mask)
+    _, rho = hll.hll_idx_rho(h, log2m)
+    want = np.zeros(2 << log2m, np.int32)
+    want[0] = rho[1]
+    want[1 << log2m] = max(int(rho[4]), int(rho[5]))
+    np.testing.assert_array_equal(regs.numpy(), want)
 
 
 def test_k3_wrapper_refuses_mixed_devices_without_launching():
     before = dict(kernels.launches)
-    slot = torch.zeros(4, dtype=torch.int32)
+    h = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError):
-        kernels.hll_register_max(slot, torch.zeros(4, dtype=torch.int32,
-                                                   device="meta"), 8)
+        kernels.hll_register_max(h, 10, 2, gid=torch.zeros(
+            4, dtype=torch.int32, device="meta"))
     assert kernels.launches == before
 
 
 def test_cpu_calls_count_no_entry_launch():
     before = (dict(ps.launches), dict(mm.launches))
-    slot, rho = _slot_rho(3, 1000, 1024, 23)
-    ps.hll_register_max(torch.from_numpy(slot), torch.from_numpy(rho), 1024)
-    mm.hll_registers(torch.from_numpy(slot), torch.from_numpy(rho), 1, 10)
+    h, gid, mask, _slot, _rho = _hash_case(3, 1000, 1, 10)
+    ps.hll_register_max(torch.from_numpy(h), 10, mask=torch.from_numpy(mask))
+    mm.hll_registers(torch.from_numpy(h), torch.from_numpy(gid), 1, 10)
     assert (ps.launches, mm.launches) == before
 
 

@@ -1,5 +1,6 @@
 """The port's kernels (K1 group plane sums, K2 group min/max) held against
-the JAX package's Pallas kernels, on the CPU.
+the JAX package's Pallas kernels, on the CPU. K1 takes the values and
+splits them into the reference's channels itself.
 
 On CPU tensors the port's wrappers run the kernels' plain PyTorch
 versions; the reference kernels run in Pallas interpret mode, as the JAX
@@ -26,16 +27,17 @@ N = 20000
 
 
 def _int_case(G, seed=7, nplanes=3):
+    """Ids (incl. the overflow id) and int64 values; the reference's
+    channel stack, and the port's source, which K1 splits itself."""
     rng = np.random.default_rng(seed)
     gid = rng.integers(0, G + 1, N).astype(np.int32)  # incl. the overflow id
     val = rng.integers(-5_000_000, 5_000_000, N).astype(np.int64)
     off = -5_000_000
     ref_ch = jnp.stack([jnp.ones(N, jnp.bfloat16)]
                        + ref_mm.int_planes(jnp.asarray(val), off, nplanes))
-    ch = torch.stack([torch.ones(N, dtype=torch.bfloat16)]
-                     + mm.int_planes(torch.from_numpy(val),
-                                     torch.tensor(off), nplanes))
-    return gid, val, off, ref_ch, ch
+    src = kernels.PlaneSource(torch.from_numpy(val), "int", nplanes,
+                              minus=torch.tensor(off))
+    return gid, val, off, ref_ch, src
 
 
 def _np(x):
@@ -47,11 +49,13 @@ def _np(x):
 
 @pytest.mark.parametrize("G", [1, 255, 300, 2000, 4096, 6240])
 def test_plane_sums_int_bit_exact(G):
-    gid, val, off, ref_ch, ch = _int_case(G)
+    gid, val, off, ref_ch, src = _int_case(G)
     # the port's byte planes are the reference's planes
-    np.testing.assert_array_equal(_np(ch), _np(ref_ch))
-    got = ps.plane_group_sums(torch.from_numpy(gid), ch, G,
-                              first_channel_ones=True).numpy()
+    np.testing.assert_array_equal(_np(torch.stack(
+        [torch.ones(N, dtype=torch.bfloat16)] + kernels.source_channels(src))),
+        _np(ref_ch))
+    got = ps.plane_group_sums(torch.from_numpy(gid), [src], G,
+                              count=True).numpy()
     want = np.asarray(ref_ps.plane_group_sums(
         jnp.asarray(gid), ref_ch, G, interpret=True, first_channel_ones=True))
     np.testing.assert_array_equal(got, want)
@@ -65,10 +69,9 @@ def test_plane_sums_int_bit_exact(G):
 
 @pytest.mark.parametrize("G", [1, 255, 2000, 6240])
 def test_single_accumulator_entry_matches_group_sums(G):
-    gid, _val, _off, ref_ch, ch = _int_case(G, seed=11, nplanes=2)
+    gid, _val, _off, ref_ch, src = _int_case(G, seed=11, nplanes=2)
     assert mm.mm_supported(G, 2) and ref_mm.mm_supported(G, 2)
-    got = mm.group_sums(torch.from_numpy(gid), ch, G,
-                        first_channel_ones=True).numpy()
+    got = mm.group_sums(torch.from_numpy(gid), [src], G, count=True).numpy()
     want = np.asarray(ref_mm.group_sums(
         jnp.asarray(gid), ref_ch, G, interpret=True, first_channel_ones=True))
     np.testing.assert_array_equal(got, want)
@@ -78,9 +81,9 @@ def test_plane_sums_forced_multi_partition():
     # reference: span_hpad=8 → 1024 groups per partition → 5 partitions;
     # the port's span override asks K1 for the same cut
     G = 5000
-    gid, _val, _off, ref_ch, ch = _int_case(G, seed=3)
-    got = ps.plane_group_sums(torch.from_numpy(gid), ch, G,
-                              first_channel_ones=True, span=1024).numpy()
+    gid, _val, _off, ref_ch, src = _int_case(G, seed=3)
+    got = ps.plane_group_sums(torch.from_numpy(gid), [src], G, count=True,
+                              span=1024).numpy()
     want = np.asarray(ref_ps.plane_group_sums(
         jnp.asarray(gid), ref_ch, G, interpret=True, first_channel_ones=True,
         span_hpad=8))
@@ -93,12 +96,10 @@ def test_plane_sums_float_planes(G):
     gid = rng.integers(0, G + 1, N).astype(np.int32)
     val = rng.uniform(1.0, 100.0, N).astype(np.float32)
     ref_planes = ref_mm.float_planes(jnp.asarray(val))
-    planes = mm.float_planes(torch.from_numpy(val))
-    for a, b in zip(planes, ref_planes):
+    src = kernels.PlaneSource(torch.from_numpy(val), "float")
+    for a, b in zip(kernels.source_channels(src), ref_planes):
         np.testing.assert_array_equal(_np(a), _np(b))
-    ch = torch.stack([torch.ones(N, dtype=torch.bfloat16)] + planes)
-    got = ps.plane_group_sums(torch.from_numpy(gid), ch, G,
-                              first_channel_ones=True)
+    got = ps.plane_group_sums(torch.from_numpy(gid), [src], G, count=True)
     want = np.asarray(ref_ps.plane_group_sums(
         jnp.asarray(gid), jnp.stack([jnp.ones(N, jnp.bfloat16)] + ref_planes),
         G, interpret=True, first_channel_ones=True))
@@ -179,9 +180,10 @@ def test_int_planes_needed_matches_reference(lo, hi):
 def test_wrappers_refuse_mixed_devices_without_launching():
     before = dict(kernels.launches)
     gid = torch.zeros(4, dtype=torch.int32)
-    ch = torch.zeros((1, 4), dtype=torch.bfloat16, device="meta")
+    src = kernels.PlaneSource(torch.zeros(4, dtype=torch.bfloat16,
+                                          device="meta"), "bf16")
     with pytest.raises(ValueError):
-        kernels.group_plane_sums(gid, ch, 2)
+        kernels.group_plane_sums(gid, [src], 2)
     with pytest.raises(ValueError):
         kernels.group_minmax(gid, torch.zeros(4, device="meta"), 2, ("min",))
     assert kernels.launches == before
@@ -189,8 +191,8 @@ def test_wrappers_refuse_mixed_devices_without_launching():
 
 def test_plain_versions_ignore_ids_outside_range():
     gid = torch.tensor([-1, 0, 2, 3, 1], dtype=torch.int32)
-    ch = torch.ones((2, 5), dtype=torch.bfloat16)
-    out = kernels.group_plane_sums(gid, ch, 2)
+    ones = kernels.PlaneSource(torch.ones(5, dtype=torch.bfloat16), "bf16")
+    out = kernels.group_plane_sums(gid, [ones, ones], 2)
     np.testing.assert_array_equal(out.numpy(), [[1, 1], [1, 1]])
     v = torch.tensor([9, 1, 9, 9, 4], dtype=torch.int32)
     mn, = kernels.group_minmax(gid, v, 2, ("min",))
