@@ -18,15 +18,16 @@ Phases, all on ``cuda:0``:
    PyTorch version at the main paths' shapes: K1 group plane sums from
    the stored planes at q1's, q5's, q4_no_hll's, a wide float and the
    sorted HLL build's shapes through both entries (integer planes
-   bit-exact, float planes within rtol 1e-6), K2 group min/max
-   (bit-exact), K3 HLL register max from the hash plane at 1024, 35,840
-   and 2^20 slots (bit-exact) and K4 fused filter + gather + aggregate
-   at the full candidate bound (bit-exact). CUDA-event times of the
-   kernel, of the torch ops it absorbed (K1's channel build, K3's hash
-   split), of its plain version and of one library call computing the
-   same function (``index_add_`` / ``scatter_reduce_``; for K4, which no
-   single call computes, the port's generic gathered form), beside the
-   memory bound.
+   bit-exact, float planes within rtol 1e-6), K2 group min/max at q6's
+   shape (an i32 and a FOR-offset u8 source, min and max each, in one
+   launch; then f32 with signed zeros; bit-exact), K3 HLL register max
+   from the hash plane at 1024, 35,840 and 2^20 slots (bit-exact) and K4
+   fused filter + gather + aggregate at the full candidate bound
+   (bit-exact). CUDA-event times of the kernel, of the torch ops it
+   absorbed (K1's channel build, K2's widening, K3's hash split), of its
+   plain version and of one library call computing the same function
+   (``index_add_`` / ``scatter_reduce_``; for K4, which no single call
+   computes, the port's generic gathered form), beside the memory bound.
 3. Both tables are loaded into one ``QueryEngine(device="cuda")``; K4 is
    held against its plain version once more at the block-skip path's
    own candidates, and three paths run: the six SSB scan/filter/group-by
@@ -36,12 +37,14 @@ Phases, all on ``cuda:0``:
    registers the oracle builds itself; for the block-skip path also the
    pruned segments, pruned blocks and entries scanned, from per-segment
    and per-block min/max, and the ``SET useBlockSkip = false`` twin's
-   answer), and the per-query p50 of 5 runs printed. The launch counts,
-   per kernel and per entry, are zeroed just before each path and read
-   just after; every kernel and entry of the path must have launched.
-   Then the cost block-skip eligibility adds to the unsorted table's
-   filtered queries (the zone verdict and one scalar read before the
-   dense form): p50 with and without ``SET useBlockSkip = false``.
+   answer), and the per-query p50 of 5 runs printed; q6 must make one
+   K2 launch an execution, and no torch op may read its stored min/max
+   planes (seen at the dispatcher). The launch counts, per kernel and
+   per entry, are zeroed just before each path and read just after;
+   every kernel and entry of the path must have launched. Then the
+   cost block-skip eligibility adds to the unsorted table's filtered
+   queries (the zone verdict and one scalar read before the dense
+   form): p50 with and without ``SET useBlockSkip = false``.
 4. A ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -182,6 +185,10 @@ PATHS = {
                   ((6, "group_scatter", "fused_filter_agg"),
                    (3, "group_scatter", "plane_group_sums"))),
 }
+
+# kernel launches that one execution of a query makes: q6's three min/max
+# aggregates share one K2 launch
+QUERY_LAUNCHES = {"q6_minmax": {"group_minmax": 1}}
 
 
 def log(msg: str) -> None:
@@ -779,52 +786,98 @@ def check_k3(n: int, dev) -> list:
     return out
 
 
+def q6_minmax_sources(n: int, dev, seed: int = 13) -> tuple:
+    """K2's main-path shape, q6: G = 175 (7 years x 25 nations, ids with
+    the overflow id), an i32 source (lo_revenue's stored plane) with MIN
+    and MAX, and a u8 source with an int32 FOR offset (lo_quantity-like,
+    decoded to int32) with MIN and MAX, as one launch takes them. Returns
+    (gid, G, sources)."""
+    import torch
+    from pinot_tpu_torch.ops.kernels import MinMaxSource
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    G = 175
+    gid = torch.randint(0, G + 1, (n,), generator=gen, dtype=torch.int32,
+                        device=dev)
+    rev = torch.randint(1000, 6_000_000, (n,), generator=gen,
+                        dtype=torch.int32, device=dev)
+    qty = torch.randint(0, 50, (n,), generator=gen, dtype=torch.int32,
+                        device=dev).to(torch.uint8)
+    fo = torch.tensor(1, dtype=torch.int32, device=dev)
+    imax, imin = 2**31 - 1, -2**31
+    return gid, G, [
+        MinMaxSource(rev, ("min", "max"), (imax, imin), dtype=torch.int32),
+        MinMaxSource(qty, ("min", "max"), (imax, imin), fo, torch.int32)]
+
+
 def check_k2(n: int, dev) -> dict:
-    """K2 at q6's shape: G=175 (7 years x 25 nations), int32 min + max;
-    and the same shape over float32 with signed zeros, bit-exact."""
+    """K2 at q6's shape (``q6_minmax_sources``) in one launch against its
+    plain version, bit-exact, also forced into three group partitions;
+    then f32 sources with signed zeros (one with MIN and MAX, one with
+    MAX alone), bit-exact. Times: the kernel,
+    the widening and FOR add it absorbed (``minmax_decode`` of the u8
+    source, as engine/device.py ``_data_col`` ran it before each launch),
+    the plain version and ``scatter_reduce_`` amin + amax over each
+    decoded source; the bound is the ids' and the stored planes' bytes
+    read once (4 + 4 + 1 a row) and the outputs written once."""
     import torch
     from pinot_tpu_torch.ops import group_scatter as ps
     from pinot_tpu_torch.ops import kernels
 
-    gen = torch.Generator(device=dev).manual_seed(13)
-    G = 175
-    gid = torch.randint(0, G + 1, (n,), generator=gen, dtype=torch.int32,
-                        device=dev)
-    v = torch.randint(1000, 6_000_000, (n,), generator=gen,
-                      dtype=torch.int32, device=dev)
-    fills = (2**31 - 1, -2**31)
-    ops = ("min", "max")
-    got = ps.group_minmax(gid, v, G, ops, fills=fills)
-    want = kernels.group_minmax_plain(gid, v, G, ops, fills)
+    gid, G, srcs = q6_minmax_sources(n, dev)
+    before = kernels.launches["group_minmax"]
+    got = ps.group_minmax_sources(gid, srcs, G)
+    if kernels.launches["group_minmax"] - before != 1:
+        raise AssertionError("K2 at q6's shape took more than one launch")
+    want = kernels.group_minmax_plain(gid, srcs, G)
     torch.cuda.synchronize()
-    err = max(float((a.long() - b.long()).abs().max())
-              for a, b in zip(got, want))
-    if not all(torch.equal(a, b) for a, b in zip(got, want)):
-        raise AssertionError(f"K2 int32 differs, max abs err {err}")
-    ms = cuda_ms(lambda: ps.group_minmax(gid, v, G, ops, fills=fills), 10)
-    plain_ms = cuda_ms(lambda: kernels.group_minmax_plain(
-        gid, v, G, ops, fills), 3)
+    pairs = [(a, b) for gs, ws in zip(got, want) for a, b in zip(gs, ws)]
+    err = max(float((a.long() - b.long()).abs().max()) for a, b in pairs)
+    if not all(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs):
+        raise AssertionError(f"K2 at q6's shape differs, max abs err {err}")
+    # the group-range partitions of a G past the shared-memory budget: 64
+    # groups a partition, three partitions
+    split = ps.group_minmax_sources(gid, srcs, G, span=64)
+    if not all(torch.equal(a, b) for gs, ws in zip(split, want)
+               for a, b in zip(gs, ws)):
+        raise AssertionError("K2 at q6's shape in three partitions differs")
+    ms = cuda_ms(lambda: ps.group_minmax_sources(gid, srcs, G), 10)
+    absorbed_ms = cuda_ms(lambda: kernels.minmax_decode(srcs[1]), 5)
+    plain_ms = cuda_ms(lambda: kernels.group_minmax_plain(gid, srcs, G), 3)
     g64 = gid.long()
-    lo = torch.full((G + 1,), fills[0], dtype=torch.int32, device=dev)
-    hi = torch.full((G + 1,), fills[1], dtype=torch.int32, device=dev)
-    lib_ms = cuda_ms(lambda: lo.scatter_reduce_(0, g64, v, "amin"), 5) \
-        + cuda_ms(lambda: hi.scatter_reduce_(0, g64, v, "amax"), 5)
-    del g64
-    b, by = bound_ms(8 * n + 4 * G * len(ops), n * len(ops))
+    decoded = [kernels.minmax_decode(s) for s in srcs]
+    outs = [torch.empty(G + 1, dtype=torch.int32, device=dev)
+            for _ in range(4)]
 
+    def library():
+        for j, v in enumerate(decoded):
+            outs[2 * j].fill_(2**31 - 1).scatter_reduce_(0, g64, v, "amin")
+            outs[2 * j + 1].fill_(-2**31).scatter_reduce_(0, g64, v, "amax")
+    lib_ms = cuda_ms(library, 5)
+    del g64, decoded
+    cells = sum(len(s.ops) for s in srcs)
+    nbytes = 4 * n + n * sum(s.values.element_size() for s in srcs) \
+        + 4 * cells * G
+    b, by = bound_ms(nbytes, n * cells)
+
+    gen = torch.Generator(device=dev).manual_seed(17)
     fv = torch.randn((n,), generator=gen, device=dev)
     fv[::1000] = -0.0
     fv[1::1000] = 0.0
-    ffills = (float("inf"), float("-inf"))
-    got = ps.group_minmax(gid, fv, G, ops, fills=ffills)
-    want = kernels.group_minmax_plain(gid, fv, G, ops, ffills)
+    fw = torch.randn((n,), generator=gen, device=dev).abs().neg()
+    fsrcs = [kernels.MinMaxSource(fv, ("min", "max"),
+                                  (float("inf"), float("-inf"))),
+             kernels.MinMaxSource(fw, ("max",), (float("-inf"),))]
+    got = ps.group_minmax_sources(gid, fsrcs, G)
+    want = kernels.group_minmax_plain(gid, fsrcs, G)
     if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
-               for a, b in zip(got, want)):
+               for gs, ws in zip(got, want) for a, b in zip(gs, ws)):
         raise AssertionError("K2 float32 differs")
-    log(f"K2 float32 shape n={n} G={G}: bit-exact with signed zeros")
-    return dict(shape=f"n={n} G={G} int32 min+max", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                library_ms=lib_ms)
+    log(f"K2 float32 sources n={n} G={G}: bit-exact with signed zeros")
+    return dict(shape=f"n={n} G={G} q6: i32 min+max, u8 + FOR min+max, "
+                      "one launch", max_abs_err=err, ms=ms,
+                absorbed_ms=absorbed_ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, library_ms=lib_ms)
 
 
 def kernel_device_ms(fn, reps: int, name_part: str):
@@ -1076,6 +1129,42 @@ def profile_query(engine, name: str, sql: str, top: int = 8) -> None:
         f"host ops {host_ms:.3f} ms, top host ms: {hparts}")
 
 
+# aten ops that only make a view or read metadata of their input
+_VIEW_OPS = ("aten::view", "aten::reshape", "aten::_reshape_alias",
+             "aten::_unsafe_view", "aten::alias", "aten::as_strided",
+             "aten::detach", "aten::expand", "aten::slice", "aten::select")
+
+
+def plane_readers(engine, sql: str, planes: dict) -> dict:
+    """The torch ops (other than views) that take one of ``planes`` (name
+    -> device tensor, as the batch holds it) as an input while ``sql``
+    runs once, by name: {plane: {op: count}}. Seen at the dispatcher, so a
+    kernel launched through ctypes reads a plane without showing here."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    storages = {p.untyped_storage().data_ptr(): name
+                for name, p in planes.items()}
+    seen = {name: {} for name in planes}
+
+    class Spy(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            op = "aten::" + func.__name__.split(".")[0]
+            if op not in _VIEW_OPS:
+                for a in torch.utils._pytree.tree_leaves((args, kwargs)):
+                    if isinstance(a, torch.Tensor):
+                        name = storages.get(a.untyped_storage().data_ptr())
+                        if name is not None:
+                            seen[name][op] = seen[name].get(op, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    with Spy():
+        resp = engine.execute(sql)
+    if resp["exceptions"]:
+        raise AssertionError(f"{sql!r}: {resp['exceptions']}")
+    return seen
+
+
 def launch_tables() -> dict:
     """The launch counters: per kernel, and per entry of the two modules
     whose entries stand for different TPU kernels."""
@@ -1099,7 +1188,13 @@ def run_path(engine, path: str, want: dict, total: int, runs: int,
             table[key] = 0
     p50 = {}
     for name, sql in queries.items():
+        before = dict(tables["kernels"])
         resp = engine.execute(sql)
+        for kname, count in QUERY_LAUNCHES.get(name, {}).items():
+            made = tables["kernels"][kname] - before[kname]
+            if made != count:
+                raise AssertionError(f"{name}: {made} launches of {kname} "
+                                     f"in one execution, want {count}")
         if resp["exceptions"]:
             raise AssertionError(f"{name}: {resp['exceptions']}")
         rows_want, scanned = want[name][:2]
@@ -1223,9 +1318,10 @@ def main(argv=None) -> int:
         k1 = check_k1(n, dev)
         torch.cuda.empty_cache()
         k2 = check_k2(n, dev)
-        log(f"K2 {k2['shape']}: {k2['ms']:.4f} ms, plain {k2['plain_ms']:.4f}"
-            f" ms, scatter_reduce_ amin+amax {k2['library_ms']:.4f} ms, "
-            f"bound {k2['bound_ms']:.4f} ms, bit-exact")
+        log(f"K2 {k2['shape']}: {k2['ms']:.4f} ms, absorbed widening "
+            f"{k2['absorbed_ms']:.4f} ms, plain {k2['plain_ms']:.4f} ms, "
+            f"scatter_reduce_ amin+amax {k2['library_ms']:.4f} ms, bound "
+            f"{k2['bound_ms']:.4f} ms, bit-exact")
         torch.cuda.empty_cache()
         k3_sizes = check_k3(n, dev)
         # the kernel line's main numbers: the group entry's 35 x 1024 slots
@@ -1285,6 +1381,17 @@ def main(argv=None) -> int:
         p50.update(path_p50)
         for name, count in counts.items():
             launches[name] += count
+    # q6's MIN / MAX / MINMAXRANGE planes reach K2 as stored: no torch op
+    # (a widening, a FOR add) reads them
+    q6_planes = {"dv::" + c: ctx.decoded_column(c)
+                 for c in ("lo_revenue", "lo_quantity")}
+    readers = plane_readers(engine, QUERIES["q6_minmax"], q6_planes)
+    if any(readers.values()):
+        raise AssertionError(f"q6: torch ops read its stored min/max planes "
+                             f"before K2: {readers}")
+    log("q6: torch ops reading its stored min/max planes: none ("
+        + ", ".join(f"{k} {str(v.dtype).replace('torch.', '')}"
+                    for k, v in q6_planes.items()) + "); K2 reads them")
     overflow = overflow_cost(engine, args.runs)
 
     entries = []

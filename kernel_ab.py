@@ -1,20 +1,29 @@
 #!/usr/bin/env python3
-"""Time the port's K1 and K3 at chip_smoke.py's main-path shapes, for an
-A/B of two trees on one card.
+"""Time the port's kernels at chip_smoke.py's main-path shapes, for an A/B
+of two trees on one card.
 
     python3 kernel_ab.py                     # this checkout's kernels
     python3 kernel_ab.py --root OTHER_TREE   # another checkout's
 
-K1 (group plane sums) and K3 (HLL register max) changed their inputs:
-before, K1 read an (A, n) bf16 channel tensor that torch ops built from
-the stored planes, and K3 read int32 slot and rank tensors that torch
-ops split from the hash plane; now both read the stored planes and split
-in registers. For a tree of the former kind this times the kernel on
-prebuilt operands and, apart, the torch ops that build them ("absorbed",
-the same ops engine/device.py ran before each launch); for the latter
-the kernel alone. Inputs come from fixed torch.Generator seeds, so both
-trees see the same rows. CUDA-event means over 20 calls after a warm-up.
-Prints the card line and one JSON object per shape, then
+K1 (group plane sums) at q1, q5, q4_no_hll, the wide float shape and the
+sorted HLL build; K3 (HLL register max) at 1024, 35,840 and 2^20 slots;
+K2 (group min/max) at q6's shape; K4 (fused filter + aggregate) at
+bs_month_fused's candidates and at the full candidate bound.
+
+K1, K2 and K3 changed their inputs over time: K1 read an (A, n) bf16
+channel tensor that torch ops built from the stored planes, K3 int32
+slot and rank tensors split from the hash plane, and K2 one int32 value
+tensor per aggregate, narrow planes widened (and FOR-decoded) by torch,
+in one launch per aggregate; now K1 and K3 read the stored planes and
+split in registers, and K2 reads every aggregate's stored plane in one
+launch. For a tree of the former kind this times the kernel on prebuilt
+operands (for K2 the three launches q6 made) and, apart, the torch ops
+that build them ("absorbed", the same ops engine/device.py ran before
+each launch); for the latter the kernel alone. K4 keeps its interface:
+its device time from torch.profiler (a few microseconds, shorter than
+its wrapper's host time). Inputs come from fixed torch.Generator seeds,
+so both trees see the same rows. CUDA-event means over 20 calls after a
+warm-up. Prints the card line and one JSON object per shape, then
 {"ok": true, ...} last. Run the trees in turns (A, B, B, A) in one call
 to compare them.
 """
@@ -27,23 +36,135 @@ import os
 import subprocess
 import sys
 
+from chip_smoke import cuda_ms, kernel_device_ms
+
 N = 8 * 12_500_992   # chip_smoke.py's 8 segments x 12,500,992 padded rows
 LOG2M = 10
 
 
-def cuda_ms(fn, reps: int = 20) -> float:
+def k2_q6(ps, kernels, n: int, dev) -> None:
+    """K2 at q6's shape: G = 175, an i32 plane with MIN and MAX, a u8
+    plane with an int32 FOR offset (decoded to int32) with MIN and MAX.
+    A tree with one source per launch runs q6's three launches (MIN, MAX
+    of the i32 values; MIN and MAX of the decoded u8) on the widened
+    values, the widening and FOR add timed apart."""
     import torch
 
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    gen = torch.Generator(device=dev).manual_seed(13)
+    G = 175
+    gid = torch.randint(0, G + 1, (n,), generator=gen, dtype=torch.int32,
+                        device=dev)
+    rev = torch.randint(1000, 6_000_000, (n,), generator=gen,
+                        dtype=torch.int32, device=dev)
+    qty = torch.randint(0, 50, (n,), generator=gen, dtype=torch.int32,
+                        device=dev).to(torch.uint8)
+    fo = torch.tensor(1, dtype=torch.int32, device=dev)
+    fills = (2**31 - 1, -2**31)
+    multi = hasattr(ps, "group_minmax_sources")
+    if multi:
+        srcs = [kernels.MinMaxSource(rev, ("min", "max"), fills,
+                                     dtype=torch.int32),
+                kernels.MinMaxSource(qty, ("min", "max"), fills, fo,
+                                     torch.int32)]
+
+        def call():
+            return ps.group_minmax_sources(gid, srcs, G)
+        build = None
+    else:
+        def build():
+            return qty.to(torch.int32) + fo
+        wide = build()
+
+        def call():
+            return (ps.group_minmax(gid, rev, G, ("min",), fills[:1]),
+                    ps.group_minmax(gid, rev, G, ("max",), fills[1:]),
+                    ps.group_minmax(gid, wide, G, ("min", "max"), fills))
+    res = {"kernel": "K2", "shape": "q6", "one_launch": multi,
+           "kernel_ms": cuda_ms(call, 20),
+           "absorbed_ms": cuda_ms(build, 5) if build else 0.0}
+    res["total_ms"] = res["kernel_ms"] + res["absorbed_ms"]
+    print(json.dumps(res), flush=True)
+
+
+def k4_shapes(ps, kernels, n: int, dev) -> None:
+    """K4 at bs_month_fused's shape (1,526 candidates, the first 291 whole
+    blocks of a month of the date-sorted table, the rest padding; a u16
+    date-id plane under one RANGE, SUM of a u8 plane, MIN and MAX of an
+    i32 plane) and at chip_smoke.py's full candidate bound (five planes,
+    an and/in/not/range program, eight aggregates)."""
+    import torch
+
+    R = ps.FUSED_BLOCK_ROWS
+    nb = n // R
+    B = min(nb, max(1, -(-nb // 16)))
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    def ints(lo, hi, dtype):
+        return torch.randint(lo, hi, (nb, R), generator=gen,
+                             dtype=torch.int32, device=dev).to(dtype)
+
+    def lit(*v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    # bs_month_fused: sorted date ids, the month [430, 458) of them
+    date = torch.sort(ints(0, 2406, torch.int32).reshape(-1)).values \
+        .reshape(nb, R).to(torch.uint16)
+    first = int((date[:, -1].to(torch.int32) < 430).sum())
+    cand = torch.zeros(B, dtype=torch.int32, device=dev)
+    rows_in = torch.zeros(B, dtype=torch.int32, device=dev)
+    nv = min(291, B, nb - first)
+    cand[:nv] = torch.arange(first, first + nv, dtype=torch.int32,
+                             device=dev)
+    rows_in[:nv] = R
+    month = (
+        {"lo_orderdate": date, "lo_quantity": ints(1, 51, torch.uint8),
+         "dv::lo_revenue": ints(1000, 6_000_000, torch.int32)},
+        {"lo_orderdate": ("<u2", 0, False, ""),
+         "lo_quantity": ("|u1", 0, False, "<i4"),
+         "dv::lo_revenue": ("<i4", 0, False, "")},
+        ("range_dict", "lo_orderdate", "p0", "p1"),
+        (("count", None, None), ("sum", ("raw", "lo_quantity"), (1, 1 << 20)),
+         ("min", ("dictval", "lo_revenue"), None),
+         ("max", ("dictval", "lo_revenue"), None)),
+        {"p0": lit(430), "p1": lit(458)}, cand, rows_in)
+    # the full bound: chip_smoke.py check_k4_bound's planes and program
+    bcand = torch.randperm(nb, generator=gen, device=dev)[:B] \
+        .sort().values.to(torch.int32)
+    brows = torch.full((B,), R, dtype=torch.int32, device=dev)
+    brows[-1] = 1000
+    bound = (
+        {"lo_orderdate": ints(0, 2352, torch.uint16),
+         "lo_discount": ints(0, 11, torch.uint8),
+         "dv::lo_revenue": ints(1000, 6_000_000, torch.int32),
+         "fv": torch.randn((nb, R), generator=gen, device=dev),
+         "r16": ints(-30000, 30000, torch.int16)},
+        {"lo_orderdate": ("<u2", 0, False, ""),
+         "lo_discount": ("|u1", 0, False, ""),
+         "dv::lo_revenue": ("<i4", 0, False, ""),
+         "fv": ("<f4", 0, False, ""), "r16": ("<i2", 0, False, "")},
+        ("and", ("range_dict", "lo_orderdate", "p0", "p1"),
+         ("in_dict", "lo_discount", "p2", 4),
+         ("not", ("eq_raw", ("raw", "r16"), "p3")),
+         ("range_raw", ("raw", "r16"), "p4", "p5", True, True, True, False)),
+        (("count", None, None),
+         ("sum", ("raw", "lo_discount"), (1, 1 << 20)),
+         ("minmaxrange", ("dictval", "lo_revenue"), None),
+         ("minmaxrange", ("raw", "fv"), None),
+         ("max", ("raw", "r16"), None)),
+        {"p0": lit(200), "p1": lit(1800), "p2": lit(1, 3, 5, 7),
+         "p3": lit(0), "p4": lit(-20000), "p5": lit(20000)}, bcand, brows)
+    for name, (cols, widths, ftpl, aggs, params, c, r) in (
+            ("bs_month_fused", month), ("full_bound", bound)):
+        plan = ps.plan_fused(ftpl, aggs, widths)
+        args = ps.lower_fused(plan, {k: cols[k] for k in plan.cols}, params)
+
+        def call():
+            return kernels.fused_filter_agg(c, r, *args)
+        res = {"kernel": "K4", "shape": name, "candidates": B,
+               "rows": int(r.sum()),
+               "kernel_ms": kernel_device_ms(call, 20, "fused_kernel"),
+               "call_ms": cuda_ms(call, 20)}
+        print(json.dumps(res), flush=True)
 
 
 def main(argv=None) -> int:
@@ -136,7 +257,7 @@ def main(argv=None) -> int:
             def call():
                 return fn(gid, ch, G, first_channel_ones=count)
         res = {"kernel": "K1", "shape": name, "split_in_kernel": split,
-               "kernel_ms": cuda_ms(call)}
+               "kernel_ms": cuda_ms(call, 20)}
         # the sorted build's bf16 channels are made the same way before
         # and after: nothing absorbed there
         res["absorbed_ms"] = cuda_ms(build, 5) \
@@ -171,10 +292,14 @@ def main(argv=None) -> int:
                     "kernels": lambda: kernels.hll_register_max(
                         slot, rho, G << LOG2M)}[entry]
         res = {"kernel": "K3", "shape": name, "split_in_kernel": split,
-               "kernel_ms": cuda_ms(call),
+               "kernel_ms": cuda_ms(call, 20),
                "absorbed_ms": cuda_ms(build, 5) if build else 0.0}
         res["total_ms"] = res["kernel_ms"] + res["absorbed_ms"]
         print(json.dumps(res), flush=True)
+    del gids, h, mask, hll_ch, fv, iv
+    torch.cuda.empty_cache()
+    k2_q6(ps, kernels, n, dev)
+    k4_shapes(ps, kernels, n, dev)
     print(json.dumps({"ok": True, "root": args.root, "card": card}))
     return 0
 

@@ -180,12 +180,22 @@ def _eval_filter(tpl, cols, params, shape, device, widths=None):
     raise AssertionError(f"bad filter template node {kind}")
 
 
+def _bare_key(argt):
+    """The cols key of an aggregate argument that is a bare column
+    (``raw`` / ``dictval``), else None (an expression or a literal)."""
+    if argt[0] == "raw":
+        return argt[1]
+    if argt[0] == "dictval":
+        return "dv::" + argt[1]
+    return None
+
+
 def _sum_operand(argt, cols, params, widths):
     """(values, FOR offset or None) of one SUM/AVG argument for K1: a bare
     column's plane AS STORED, with the frame-of-reference offset
     ``_data_col`` would add (K1 adds it in registers; the offset stays on
     the card), or an expression evaluated as torch ops."""
-    key = {"raw": argt[1], "dictval": "dv::" + argt[1]}.get(argt[0])
+    key = _bare_key(argt)
     if key is not None and key in cols:
         w = (widths or {}).get(key)
         return cols[key], (params["fo::" + key] if w and w[3] and w[2]
@@ -249,23 +259,76 @@ def _try_mm_groupby(aggs, gid, cols, params, num_groups, outs, widths,
     return done
 
 
-def _group_extreme(gid, v, num_groups: int, ops: tuple, min_rows: int):
-    """Per-group min/max: K2 (ops/group_scatter.py group_minmax) when the
-    value dtype and group count are in its regime, else the torch
-    scatter. Empty-group fills come from the ORIGINAL value dtype's
-    extremes on both paths, so results are bit-identical."""
-    if ps.minmax_supported(num_groups, v.dtype) and v.numel() >= min_rows:
-        if v.is_floating_point():
+def _minmax_operand(argt, cols, params, widths):
+    """(values, FOR offset or None, decoded dtype, source key) of one
+    MIN/MAX argument for K2: a bare column's plane AS STORED with the
+    frame-of-reference offset and wide dtype ``_data_col`` would decode it
+    to (K2 decodes in registers; the offset stays on the card), or an
+    expression evaluated as torch ops. Arguments with one source key read
+    one plane."""
+    key = _bare_key(argt)
+    if key is not None and key in cols:
+        v = cols[key]
+        w = (widths or {}).get(key)
+        if w is None or not w[3]:
+            return v, None, v.dtype, key
+        return (v, params["fo::" + key] if w[2] else None,
+                _torch_dtype(w[3]), key)
+    v = _eval_expr(argt, cols, params, widths)
+    return v, None, v.dtype, argt
+
+
+def _group_extremes(aggs, gid, cols, params, num_groups: int, outs, widths,
+                    min_rows: int) -> None:
+    """Per-group MIN / MAX / MINMAXRANGE of every aggregate: the ones in
+    K2's regime (decoded dtype and group count, ``minmax_supported``, and
+    the batch at ``min_rows``) through ONE launch of K2
+    (ops/group_scatter.py group_minmax_sources), one source per distinct
+    argument with the union of its ops; the rest through the torch
+    scatters. Empty-group fills are the decoded dtype's extremes on both
+    paths, so results are bit-identical. Fills outs[f"a{i}_{op}"]."""
+    wanted = []     # (agg index, ops, source key)
+    srcs = {}       # source key -> [values, plus, dtype, ops]
+    for i, (name, argt, _extra) in enumerate(aggs):
+        if name not in ("min", "max", "minmaxrange"):
+            continue
+        ops = ("min", "max") if name == "minmaxrange" else (name,)
+        v, plus, dt, key = _minmax_operand(argt, cols, params, widths)
+        if ps.minmax_supported(num_groups, dt) and gid.numel() >= min_rows:
+            if v.shape != gid.shape:  # e.g. MIN(3)
+                v = torch.broadcast_to(v, gid.shape).contiguous()
+            src = srcs.setdefault(key, [v, plus, dt, set()])
+            src[3].update(ops)
+            wanted.append((i, ops, key))
+            continue
+        if plus is not None or dt != v.dtype:
+            v = _data_col(cols, params, key, widths)
+        for op in ops:
+            outs[f"a{i}_{op}"] = agg_ops.group_min(gid, v, num_groups) \
+                if op == "min" else agg_ops.group_max(gid, v, num_groups)
+    if not srcs:
+        return
+    keys = list(srcs)
+    sources = []
+    for key in keys:
+        v, plus, dt, ops = srcs[key]
+        ops = tuple(op for op in ("min", "max") if op in ops)
+        if dt.is_floating_point:
             fills = tuple(agg_ops.POS_INF if op == "min" else agg_ops.NEG_INF
                           for op in ops)
         else:
-            info = torch.iinfo(v.dtype)
+            info = torch.iinfo(dt)
             fills = tuple(info.max if op == "min" else info.min for op in ops)
-        res = ps.group_minmax(gid, v, num_groups, ops, fills=fills)
-        return tuple(r.to(v.dtype) for r in res)
-    return tuple(
-        agg_ops.group_min(gid, v, num_groups) if op == "min"
-        else agg_ops.group_max(gid, v, num_groups) for op in ops)
+        sources.append(kernels.MinMaxSource(v, ops, fills, plus, dt))
+    res = {}
+    for c0 in range(0, len(sources), kernels.K2_MAX_SOURCES):
+        part = sources[c0:c0 + kernels.K2_MAX_SOURCES]
+        got = ps.group_minmax_sources(gid, part, num_groups)
+        for key, s, r in zip(keys[c0:], part, got):
+            res[key] = dict(zip(s.ops, r))
+    for i, ops, key in wanted:
+        for op in ops:
+            outs[f"a{i}_{op}"] = res[key][op]
 
 
 def _hll_regs(h, gid, mask, num_groups: int, log2m: int, min_rows: int):
@@ -576,15 +639,11 @@ def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS,
             if name == "distinctcounthll":
                 _group_hll(k, argt, extra, gid, mask, cols, outs)
                 continue
-            v = _eval_expr(argt, cols, params, widths)
             if name in ("sum", "avg"):
-                outs[f"{k}_sum"] = agg_ops.group_sum(gid, v, num_groups)
-            elif name == "minmaxrange":
-                outs[f"{k}_min"], outs[f"{k}_max"] = _group_extreme(
-                    gid, v, num_groups, ("min", "max"), min_rows)
-            else:  # min / max
-                outs[f"{k}_{name}"], = _group_extreme(
-                    gid, v, num_groups, (name,), min_rows)
+                outs[f"{k}_sum"] = agg_ops.group_sum(
+                    gid, _eval_expr(argt, cols, params, widths), num_groups)
+        _group_extremes(aggs, gid, cols, params, num_groups, outs, widths,
+                        min_rows)
 
     def _scalar(cols, params, mask, outs):
         for i, (name, argt, extra) in enumerate(aggs):

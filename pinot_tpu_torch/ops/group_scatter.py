@@ -9,8 +9,10 @@ hand-written CUDA kernels of ops/kernels.py:
 - ``plane_group_sums`` → K1: exact per-group sums of the bf16 plane
   channels of values as stored (split in the kernel), past the
   single-accumulator ceiling ``mm_supported`` sets;
-- ``group_minmax`` → K2: per-group MIN and/or MAX over int32/float32
-  values with caller-supplied empty-group fills;
+- ``group_minmax`` / ``group_minmax_sources`` → K2: per-group MIN and/or
+  MAX of up to 8 sources in one launch, each a plane as stored (decoded
+  in the kernel) or an evaluated tensor, with caller-supplied
+  empty-group fills;
 - ``hll_register_max`` → K3: per-slot max rho, from the hash plane,
   over slot spaces up to ``HLL_MAX_SLOTS`` (scalar and small-group
   HLL).
@@ -114,17 +116,30 @@ def minmax_supported(num_groups: int, dtype) -> bool:
 
 def group_minmax(gid, values, num_groups: int, ops: tuple,
                  fills: tuple | None = None):
-    """Per-group min and/or max through K2. ``ops`` ⊆ ("min", "max");
-    ``fills`` sets the empty-group value per op (callers pass the ORIGINAL
-    dtype's extremes so empty slots match the scatter path bit for bit).
-    Narrow values widen to int32; returns one (num_groups,) tensor per op
-    in the kernel dtype (int32 or float32)."""
+    """Per-group min and/or max of one value tensor through K2, the
+    reference's signature. ``ops`` ⊆ ("min", "max"); ``fills`` sets the
+    empty-group value per op (callers pass the ORIGINAL dtype's extremes
+    so empty slots match the scatter path bit for bit). K2 reads narrow
+    values as they are; returns one (num_groups,) tensor per op in the
+    kernel dtype (int32 or float32), as the reference does."""
     kdt = _MINMAX_KERNEL_DTYPES[_dtype_name(values.dtype)]
-    v = values.reshape(-1).to(kdt).contiguous()
+    return group_minmax_sources(
+        gid, [kernels.MinMaxSource(values.reshape(-1), tuple(ops), fills,
+                                   dtype=kdt)], num_groups)[0]
+
+
+def group_minmax_sources(gid, sources, num_groups: int,
+                         span: int | None = None):
+    """Every MIN / MAX / MINMAXRANGE of a query through ONE K2 launch.
+    sources: kernels.MinMaxSource, each a plane as stored with its FOR
+    offset and decoded dtype (K2 decodes in registers) or an evaluated
+    tensor. ``span`` overrides K2's groups per partition. Returns one
+    tuple per source of one (num_groups,) tensor per op in the decoded
+    dtype."""
     return kernels.count_entry(
-        launches, "group_minmax", "group_minmax", kernels.group_minmax,
-        gid.reshape(-1).to(torch.int32).contiguous(), v, num_groups, ops,
-        fills)
+        launches, "group_minmax", "group_minmax",
+        kernels.group_minmax_sources, gid.reshape(-1).to(torch.int32),
+        sources, num_groups, span=span)
 
 
 def hll_supported(nslots: int, nrho: int) -> bool:

@@ -53,9 +53,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # -Xptxas -v, every kernel's registers, shared memory and spills
 build_log: dict = {}
 
-# dynamic shared memory a block may take (of the H100's 227 KB per block)
-SMEM_BYTES = 200 * 1024
-
 # launches per kernel, counted where the wrapper launches it and nowhere
 # else (chip_smoke.py zeroes them before driving the main path)
 launches = {name: 0 for name in SOURCES}
@@ -66,8 +63,7 @@ _lock = threading.Lock()
 _vp, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _ARGTYPES = {  # the C signatures at the end of each csrc/*.cu
     "group_plane_sums": [_vp, _vp, _i64, _i32, _i32, _i64, _i32, _vp, _vp],
-    "group_minmax": [_vp, _vp, _i64, _i32, _i32, _i32, ctypes.c_int32,
-                     ctypes.c_int32, _vp, _vp, _vp],
+    "group_minmax": [_vp, _vp, _i64, _i32, _i32, _i32, _vp],
     "hll_register_max": [_vp, _vp, _vp, _i64, _i32, _i32, _i32, _vp, _vp],
     "fused_filter_agg": [_vp, _vp, _i32, _i32, _vp, _vp, _vp, _vp],
 }
@@ -406,7 +402,44 @@ def group_plane_sums(gid, sources, num_groups: int, count: bool = False,
 # K2: group min/max
 # ---------------------------------------------------------------------------
 
-MINMAX_SPAN = SMEM_BYTES // 8   # groups per partition: int32 min + max
+K2_MAX_SOURCES = 8
+K2_MAX_CELLS = 2 * K2_MAX_SOURCES
+K2_OPS = {"min": 0, "max": 1}
+
+# stored dtypes K2 reads, and the dtypes of a FOR offset it reads, by the
+# codes of csrc/group_minmax.cu
+K2_DTYPES = {torch.uint8: 0, torch.uint16: 1, torch.int8: 2, torch.int16: 3,
+             torch.int32: 4, torch.float32: 5}
+
+
+@dataclasses.dataclass(frozen=True)
+class MinMaxSource:
+    """One value source of K2.
+
+    values: the plane as stored (flat or (S, R), read flat) or an evaluated
+    expression, of a dtype in ``K2_DTYPES``; plus: the plane's
+    frame-of-reference offset (0-d tensor) or None, read by the kernel so
+    no query syncs on it; dtype: the decoded dtype (the values widened,
+    plus the offset, as engine/device.py ``_data_col`` decodes them: the
+    result's dtype and the fills' space; default the values'); ops ⊆
+    ("min", "max"); fills: per op, the empty-group value in the decoded
+    dtype (default its extremes). The offset is not added to the fill."""
+
+    values: torch.Tensor
+    ops: tuple
+    fills: tuple | None = None
+    plus: torch.Tensor | None = None
+    dtype: torch.dtype | None = None
+
+    def __post_init__(self):
+        if not self.ops or not set(self.ops) <= set(K2_OPS) \
+                or len(set(self.ops)) != len(self.ops):
+            raise ValueError(f"MinMaxSource ops {self.ops}")
+        if self.dtype is None:
+            object.__setattr__(self, "dtype", self.values.dtype)
+        if self.fills is None:
+            object.__setattr__(self, "fills",
+                               _default_fills(self.ops, self.dtype))
 
 
 def _order_keys(v):
@@ -437,59 +470,148 @@ def _default_fills(ops, dtype):
     return tuple(info.max if op == "min" else info.min for op in ops)
 
 
-def group_minmax_plain(gid, values, num_groups: int, ops: tuple,
-                       fills: tuple | None = None):
-    """Plain version of K2: per-op (num_groups,) min/max over rows whose id
-    lies in [0, num_groups), seeded with the fills, on the same order
-    keys as the kernel."""
-    fills = fills or _default_fills(ops, values.dtype)
+def minmax_decode(src: MinMaxSource):
+    """The values a source stands for, built as torch ops: the widening
+    and FOR add K2 does in registers (engine/device.py ``_data_col``)."""
+    v = src.values.reshape(-1)
+    if v.dtype != src.dtype:
+        v = v.to(src.dtype)
+    if src.plus is not None:
+        v = v + src.plus
+    return v
+
+
+def group_minmax_plain(gid, sources, num_groups: int):
+    """Plain version of K2: per source, decode (``minmax_decode``), then
+    per op a (num_groups,) ``scatter_reduce_`` over rows whose id lies in
+    [0, num_groups), seeded with the fill, on the same int32 order keys as
+    the kernel. Returns one tuple per source of one tensor per op in the
+    source's decoded dtype."""
     g = gid.reshape(-1).to(torch.int64)
     g = torch.where((g >= 0) & (g < num_groups), g, num_groups)
-    keys = _order_keys(values.reshape(-1))
     res = []
-    for op, fill in zip(ops, fills):
-        out = torch.full((num_groups + 1,), _fill_key(fill, values.dtype),
-                         dtype=torch.int32, device=values.device)
-        out.scatter_reduce_(0, g, keys, reduce="amin" if op == "min"
-                            else "amax", include_self=True)
-        res.append(_from_keys(out[:num_groups], values.dtype))
+    for s in sources:
+        v = minmax_decode(s)
+        keys = _order_keys(v).to(torch.int32)
+        outs = []
+        for op, fill in zip(s.ops, s.fills):
+            out = torch.full((num_groups + 1,), _fill_key(fill, s.dtype),
+                             dtype=torch.int32, device=v.device)
+            out.scatter_reduce_(0, g, keys, reduce="a" + op,
+                                include_self=True)
+            outs.append(_from_keys(out[:num_groups], s.dtype).to(s.dtype))
+        res.append(tuple(outs))
+    return tuple(res)
+
+
+class _MinMaxSource(ctypes.Structure):
+    """struct Source of csrc/group_minmax.cu, field for field."""
+    _fields_ = [("values", ctypes.c_void_p), ("plus", ctypes.c_void_p),
+                ("dtype", ctypes.c_int32), ("plus_dtype", ctypes.c_int32),
+                ("cell", ctypes.c_int32 * 2)]
+
+
+class _MinMaxDesc(ctypes.Structure):
+    """struct MinMaxDesc of csrc/group_minmax.cu, field for field."""
+    _fields_ = [("src", _MinMaxSource * K2_MAX_SOURCES),
+                ("out", ctypes.c_void_p * K2_MAX_CELLS),
+                ("fill", ctypes.c_int32 * K2_MAX_CELLS),
+                ("op", ctypes.c_int32 * K2_MAX_CELLS),
+                ("n_src", ctypes.c_int32), ("n_cells", ctypes.c_int32)]
+
+
+def minmax_cells(sources):
+    """K2's accumulator cells in order: (source, op) for each source's ops."""
+    return [(j, op) for j, s in enumerate(sources) for op in s.ops]
+
+
+def lower_minmax(sources, outs) -> _MinMaxDesc:
+    """The sources in K2's terms: the descriptor the kernel takes by value
+    (pointers of each source's values and FOR offset, their dtype codes,
+    each op's accumulator cell) and per cell its output pointer, fill key
+    and op. ``outs``: one (G,) int32 tensor per cell."""
+    if len(sources) > K2_MAX_SOURCES:
+        raise ValueError(f"group_minmax takes at most {K2_MAX_SOURCES} "
+                         f"sources, got {len(sources)}")
+    desc = _MinMaxDesc()
+    for c, (j, op) in enumerate(minmax_cells(sources)):
+        s = sources[j]
+        desc.src[j].cell[K2_OPS[op]] = c
+        desc.out[c] = outs[c].data_ptr()
+        desc.fill[c] = _fill_key(s.fills[s.ops.index(op)], s.dtype)
+        desc.op[c] = K2_OPS[op]
+    for j, s in enumerate(sources):
+        if s.values.dtype not in K2_DTYPES:
+            raise TypeError(f"group_minmax: values of {s.values.dtype}")
+        if s.dtype.is_floating_point != (s.values.dtype == torch.float32) \
+                or (s.dtype.is_floating_point and s.plus is not None):
+            raise TypeError(f"group_minmax: {s.values.dtype} values decoded "
+                            f"to {s.dtype}")
+        if s.plus is not None and s.plus.dtype not in K2_DTYPES:
+            raise TypeError(f"group_minmax: FOR offset of {s.plus.dtype}")
+        src = desc.src[j]
+        src.values = s.values.data_ptr()
+        src.plus = None if s.plus is None else s.plus.data_ptr()
+        src.dtype = K2_DTYPES[s.values.dtype]
+        src.plus_dtype = 0 if s.plus is None else K2_DTYPES[s.plus.dtype]
+        for op in K2_OPS:
+            if op not in s.ops:
+                src.cell[K2_OPS[op]] = -1
+    desc.n_src, desc.n_cells = len(sources), len(minmax_cells(sources))
+    return desc
+
+
+def group_minmax_sources(gid, sources, num_groups: int,
+                         span: int | None = None):
+    """K2: one launch for every source. gid: (n,) int32, id ``num_groups``
+    = overflow slot; sources: MinMaxSource values of n rows each (at most
+    ``K2_MAX_SOURCES``). ``span`` overrides the groups per partition (tests
+    force several). Returns one tuple per source of one (num_groups,)
+    tensor per op, in the source's decoded dtype."""
+    offsets = [s.plus for s in sources if s.plus is not None]
+    tensors = (gid, *(s.values for s in sources), *offsets)
+    if all(t.device.type == "cpu" for t in tensors):
+        return group_minmax_plain(gid, sources, num_groups)
+    _check_cuda("group_minmax", *tensors)
+    if gid.dtype != torch.int32:
+        raise TypeError(f"group_minmax takes int32 ids, got {gid.dtype}")
+    n = gid.numel()
+    if not sources or any(s.values.numel() != n for s in sources) \
+            or any(t.numel() != 1 for t in offsets):
+        raise ValueError(f"group_minmax shapes: gid {tuple(gid.shape)}, "
+                         f"sources {[tuple(s.values.shape) for s in sources]}")
+    sources = [dataclasses.replace(s, values=_aligned(s.values))
+               for s in sources]
+    gid = _aligned(gid)
+    cells = minmax_cells(sources)
+    keys = torch.empty((len(cells), num_groups), dtype=torch.int32,
+                       device=gid.device)
+    desc = lower_minmax(sources, list(keys))
+    if num_groups:
+        full = PERSISTENT_SMEM_BYTES // (4 * len(cells))
+        rc = _lib("group_minmax").group_minmax(
+            gid.data_ptr(), ctypes.addressof(desc), n, num_groups,
+            min(span or full, full), PERSISTENT_SMEM_BYTES,
+            _stream(gid.device))
+        _raise_on("group_minmax", rc)
+        launches["group_minmax"] += 1
+    res, c = [], 0
+    for s in sources:
+        res.append(tuple(_from_keys(keys[c + k], s.dtype).to(s.dtype)
+                         for k in range(len(s.ops))))
+        c += len(s.ops)
     return tuple(res)
 
 
 def group_minmax(gid, values, num_groups: int, ops: tuple,
                  fills: tuple | None = None):
-    """K2. gid: (n,) int32; values: (n,) int32 or float32; ``ops`` ⊆
-    ("min", "max"); ``fills``: per-op empty-group fill (default: the
-    dtype's extremes). Returns one (num_groups,) tensor per op in the
-    values' dtype."""
-    if gid.device.type == "cpu" and values.device.type == "cpu":
-        return group_minmax_plain(gid, values, num_groups, ops, fills)
-    _check_cuda("group_minmax", gid, values)
-    if gid.dtype != torch.int32 or values.dtype not in (torch.int32,
-                                                        torch.float32):
-        raise TypeError("group_minmax takes int32 ids and int32/float32 "
-                        f"values, got {gid.dtype} and {values.dtype}")
-    if values.dim() != 1 or gid.shape != values.shape:
-        raise ValueError(f"group_minmax shapes: gid {tuple(gid.shape)}, "
-                         f"values {tuple(values.shape)}")
-    if not set(ops) <= {"min", "max"} or not ops:
-        raise ValueError(f"group_minmax ops {ops}")
-    fills = fills or _default_fills(ops, values.dtype)
-    keyed = {op: _fill_key(f, values.dtype) for op, f in zip(ops, fills)}
-    outs = {op: torch.full((num_groups,), k, dtype=torch.int32,
-                           device=values.device) for op, k in keyed.items()}
-    n = values.shape[0]
-    if n and num_groups:
-        rc = _lib("group_minmax").group_minmax(
-            gid.data_ptr(), values.data_ptr(), n, num_groups, MINMAX_SPAN,
-            int(values.is_floating_point()), keyed.get("min", 0),
-            keyed.get("max", 0),
-            outs["min"].data_ptr() if "min" in outs else None,
-            outs["max"].data_ptr() if "max" in outs else None,
-            _stream(gid.device))
-        _raise_on("group_minmax", rc)
-        launches["group_minmax"] += 1
-    return tuple(_from_keys(outs[op], values.dtype) for op in ops)
+    """K2 over one source. gid: (n,) int32; values: (n,) of a dtype in
+    ``K2_DTYPES``; ``ops`` ⊆ ("min", "max"); ``fills``: per-op empty-group
+    fill (default: the dtype's extremes). Returns one (num_groups,) tensor
+    per op in the values' dtype."""
+    return group_minmax_sources(
+        gid, [MinMaxSource(values.reshape(-1), tuple(ops), fills)],
+        num_groups)[0]
 
 
 def count_entry(table: dict, entry: str, kernel: str, fn, *args, **kwargs):
@@ -578,7 +700,7 @@ AGG_OPS = {"sum": 0, "min": 1, "max": 2}
 # plans past them take the generic gather branch
 FUSED_MAX_COLS = 8
 FUSED_MAX_PROG = 32
-FUSED_MAX_STACK = 32   # the program's bit stack is one uint32
+FUSED_MAX_STACK = 32   # levels of the program's mask stack
 FUSED_MAX_AGGS = 8
 FUSED_MAX_LITS = 64
 
@@ -701,6 +823,9 @@ def fused_filter_agg(cand, rows_in, cols, lits, prog, aggs, ki: int,
             or len(aggs) > FUSED_MAX_AGGS or lits.numel() > FUSED_MAX_LITS:
         raise ValueError("fused_filter_agg program past the descriptor's "
                          "bounds")
+    # whole 16-byte granules of every plane: copy a plane that starts
+    # elsewhere (a view never does in the engine)
+    cols = [c if c.data_ptr() % 16 == 0 else c.clone() for c in cols]
     desc = _FusedDesc()
     for j, c in enumerate(cols):
         desc.cols[j] = c.data_ptr()

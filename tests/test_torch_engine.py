@@ -276,8 +276,9 @@ def test_hll_is_reported_in_band(port_engine):
 
 def test_kernel_gate_routes_to_the_kernels(segment_dirs, monkeypatch):
     """With the gate at 0 rows the group sums and min/max reach the K1/K2
-    wrappers (their plain versions on the CPU); at the default gate this
-    60k-row batch stays on the torch scatters, as in the reference."""
+    wrappers (their plain versions on the CPU), q6's three min/max
+    aggregates in one K2 call; at the default gate this 60k-row batch
+    stays on the torch scatters, as in the reference."""
     calls = {"group_plane_sums": 0, "group_minmax": 0}
 
     def spy(name):
@@ -295,7 +296,7 @@ def test_kernel_gate_routes_to_the_kernels(segment_dirs, monkeypatch):
     eng = _port_engine(segment_dirs, 0)
     eng.execute(SQL["q1_scan_agg"])
     eng.execute(SQL["q6_minmax"])
-    assert calls == {"group_plane_sums": 2, "group_minmax": 3}
+    assert calls == {"group_plane_sums": 2, "group_minmax": 1}
 
 
 def test_sketch_gate_routes_to_the_kernels(segment_dirs, monkeypatch):
