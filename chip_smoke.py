@@ -11,10 +11,14 @@ Phases, all on ``cuda:0``:
    with each kernel's registers, shared memory and spills from
    ``-Xptxas -v``.
 2. The SSB lineorder table is generated from seed 7 with bench.py's
-   columns and distributions; it and a copy stably sorted by
-   ``lo_orderdate`` (``lineorder_by_date``: Pinot's sorted-column layout
-   for time-ordered ingestion) are written by the port's creator in
-   worker processes, while the GPU holds each kernel against its plain
+   columns and distributions; it, with bench.py's two star-tree cubes
+   (d_year x c_region x s_nation: SUM(lo_revenue), COUNT(*); lo_suppkey:
+   COUNT(*), SUM(lo_quantity), DISTINCTCOUNTHLL(lo_custkey)), and a copy
+   stably sorted by ``lo_orderdate`` without cubes
+   (``lineorder_by_date``: Pinot's sorted-column layout for
+   time-ordered ingestion) are written by the port's creator in worker
+   processes (the cube build timed apart), while the GPU holds each
+   kernel against its plain
    PyTorch version at the main paths' shapes: K1 group plane sums from
    the stored planes at q1's, q5's, q4_no_hll's, a wide float and the
    sorted HLL build's shapes through both entries (integer planes
@@ -30,21 +34,32 @@ Phases, all on ``cuda:0``:
    computes, the port's generic gathered form), beside the memory bound.
 3. Both tables are loaded into one ``QueryEngine(device="cuda")``; K4 is
    held against its plain version once more at the block-skip path's
-   own candidates, and three paths run: the six SSB scan/filter/group-by
-   queries, the five HLL and DISTINCTCOUNT queries, and the six
-   block-skip queries on the sorted table. Every answer is checked
-   against a numpy oracle over the generated columns (HLL estimates from
-   registers the oracle builds itself; for the block-skip path also the
-   pruned segments, pruned blocks and entries scanned, from per-segment
-   and per-block min/max, and the ``SET useBlockSkip = false`` twin's
-   answer), and the per-query p50 of 5 runs printed; q6 must make one
+   own candidates, and four paths run: the six SSB scan/filter/group-by
+   queries, the five HLL and DISTINCTCOUNT queries, the six block-skip
+   queries on the sorted table, and the star-tree path (bench.py's
+   q4_highcard_hll and q5_startree on the cubes, a filtered cube
+   group-by, and the metadata-only COUNT/MIN/MAX). Every answer is
+   checked against a numpy oracle over the generated columns (HLL
+   estimates from registers the oracle builds itself; for the block-skip
+   path also the pruned segments, pruned blocks and entries scanned,
+   from per-segment and per-block min/max, and the ``SET useBlockSkip =
+   false`` twin's answer; for the star-tree path numDocsScanned equal to
+   the cube rows read, the float32 rounding of the DOUBLE cube sums
+   modelled, and no entry scanned by the metadata-only answer), and the
+   per-query p50 of 5 runs printed; q6 must make one
    K2 launch an execution, and no torch op may read its stored min/max
    planes (seen at the dispatcher). The launch counts, per kernel and
    per entry, are zeroed just before each path and read just after;
-   every kernel and entry of the path must have launched. Then the
-   cost block-skip eligibility adds to the unsorted table's filtered
-   queries (the zone verdict and one scalar read before the dense
-   form): p50 with and without ``SET useBlockSkip = false``.
+   every kernel and entry of the path must have launched (the cube
+   launches read too few rows to pass K1's gate: the star-tree path
+   requires none). Then bench.py's gate: q4_highcard_hll equals both q4
+   scan forms row for row. The on-device top-K trim: q1, q4_no_hll and
+   q4_scan_hll equal their ``SET useDeviceReduce = false`` twins, with
+   the bytes each form fetched; ``SET numGroupsLimit = 100`` on the
+   lo_suppkey group-by answers in-band, equal to its twin and the
+   oracle. Then the cost block-skip eligibility adds to the unsorted
+   table's filtered queries (the zone verdict and one scalar read before
+   the dense form): p50 with and without ``SET useBlockSkip = false``.
 4. A ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -90,7 +105,9 @@ QUERIES = {
         "SELECT COUNT(*), SUM(lo_revenue) FROM lineorder WHERE "
         "lo_suppkey IN (11, 234, 567, 890, 1203, 1456, 1789) "
         "AND lo_discount BETWEEN 4 AND 6"),
+    # the lo_suppkey cube would answer it: the scan form keeps its K1 check
     "q4_no_hll": (
+        "SET useStarTree = false; "
         "SELECT lo_suppkey, COUNT(*), AVG(lo_quantity) FROM lineorder "
         "GROUP BY lo_suppkey ORDER BY COUNT(*) DESC, lo_suppkey LIMIT 10"),
     "q5_scan": (
@@ -166,6 +183,32 @@ BS_FILTERS = {
                          ("range", "lo_discount", 1, 3),
                          ("range", "lo_quantity", -2**31, 24)),
 }
+# the star-tree path: bench.py's two cubes on the unsorted table and the
+# metadata-only answer
+ST_QUERIES = {
+    "q4_highcard_hll": Q4_HLL,
+    "q5_startree": (
+        "SELECT d_year, c_region, SUM(lo_revenue), COUNT(*) FROM lineorder "
+        "GROUP BY d_year, c_region ORDER BY d_year, c_region LIMIT 50"),
+    "st_filtered": (
+        "SELECT c_region, SUM(lo_revenue), COUNT(*) FROM lineorder "
+        "WHERE d_year = 1995 GROUP BY c_region ORDER BY c_region"),
+    "metadata_only": (
+        "SELECT COUNT(*), MIN(lo_revenue), MAX(lo_revenue) FROM lineorder"),
+}
+# bench.py's StarTreeIndexConfigs for lineorder (split order, pairs)
+STAR_TREES = (
+    (["d_year", "c_region", "s_nation"], ["SUM__lo_revenue", "COUNT__*"]),
+    (["lo_suppkey"], ["COUNT__*", "SUM__lo_quantity",
+                      "DISTINCTCOUNTHLL__lo_custkey"]),
+)
+# the on-device trim's twins, and the numGroupsLimit case on the
+# lo_suppkey group-by (2,000 groups, 100 kept)
+TRIM_TWINS = ("q1_scan_agg", "q4_no_hll", "q4_scan_hll")
+GROUPS_LIMIT_SQL = QUERIES["q4_no_hll"].replace(
+    "SELECT", "SET numGroupsLimit = 100; SELECT", 1)
+NO_TRIM = "SET useDeviceReduce = false; "
+
 # the unsorted table's filtered queries, which are block-skip eligible and
 # overflow the candidate bound: their cost against SET useBlockSkip=false
 OVERFLOW_QUERIES = ("q2_range_sum", "q3_in_range", "q6_minmax",
@@ -184,6 +227,9 @@ PATHS = {
     "blockskip": (BS_QUERIES, ("fused_filter_agg", "group_plane_sums"),
                   ((6, "group_scatter", "fused_filter_agg"),
                    (3, "group_scatter", "plane_group_sums"))),
+    # the cubes hold 1,000-16,000 rows: below K1's 2^17-row gate their
+    # launches take the torch scatters, as the reference's take XLA's
+    "startree": (ST_QUERIES, (), ()),
 }
 
 # kernel launches that one execution of a query makes: q6's three min/max
@@ -236,12 +282,19 @@ def sort_by_date(data: list) -> list:
             for parts in zip(*(np.split(v, cuts) for v in c.values()))]
 
 
-def write_segment(i: int, seg: dict, table: str = "lineorder") -> str:
+def write_segment(i: int, seg: dict, table: str = "lineorder",
+                  star: bool = False) -> tuple:
     """Writes segment ``s<i>`` of ``table`` with the port's creator (run
-    in a worker process)."""
+    in a worker process), with bench.py's two star-tree cubes when
+    ``star``. Returns (directory, seconds the cube build took)."""
     from pinot_tpu_torch.common.datatypes import DataType
     from pinot_tpu_torch.common.schema import Schema
-    from pinot_tpu_torch.common.table_config import TableConfig
+    from pinot_tpu_torch.common.table_config import (
+        IndexingConfig,
+        StarTreeIndexConfig,
+        TableConfig,
+    )
+    from pinot_tpu_torch.storage import startree
     from pinot_tpu_torch.storage.creator import build_segment
 
     schema = Schema.build(
@@ -257,8 +310,24 @@ def write_segment(i: int, seg: dict, table: str = "lineorder") -> str:
     cols["c_region"] = REGIONS[cols["c_region"]]
     cols["s_nation"] = NATIONS[cols["s_nation"]]
     out = os.path.join(DATA_DIR, table, f"s{i}")
-    build_segment(schema, cols, out, TableConfig(table_name=table), f"s{i}")
-    return out
+    trees = [StarTreeIndexConfig(dimensions_split_order=d,
+                                 function_column_pairs=p)
+             for d, p in STAR_TREES] if star else []
+    cfg = TableConfig(table_name=table, indexing=IndexingConfig(
+        star_tree_configs=trees))
+    cube_s = [0.0]
+    build = startree.build_star_trees
+
+    def timed(*a):  # the creator's cube step, timed apart in this worker
+        t = time.perf_counter()
+        build(*a)
+        cube_s[0] = time.perf_counter() - t
+    startree.build_star_trees = timed
+    try:
+        build_segment(schema, cols, out, cfg, f"s{i}")
+    finally:
+        startree.build_star_trees = build
+    return out, cube_s[0]
 
 
 # ---------------------------------------------------------------------------
@@ -334,6 +403,7 @@ def oracle(data: list) -> dict:
                  key=lambda k: (-cnt[k], k))[:10]
     want["q4_no_hll"] = ([[k, int(cnt[k]), float(qs[k]) / float(cnt[k])]
                           for k in top], len(supp))
+    want["q4_counts"], want["q4_qsums"] = cnt, qs
 
     g = (year - 1992).astype(np.int64) * 5 + region
     cnt = np.bincount(g, minlength=35)
@@ -380,6 +450,57 @@ def oracle(data: list) -> dict:
     want["distinct_count"] = ([[1992 + y, int(dc[y])] for y in range(7)
                                if dc[y]], int(m.sum()))
     return want
+
+
+def st_oracle(data: list, want: dict) -> dict:
+    """The star-tree path's answers and the cube rows each query reads.
+    The d_year x c_region x s_nation cube holds, per segment and present
+    combination, the exact revenue sum in a DOUBLE column, which the card
+    holds as float32 (the reference's value space for DOUBLE): the oracle
+    rounds each cube row's sum to float32 and sums those in float64 per
+    group (exact: every term is a multiple of its float32 spacing and the
+    sums stay below 2^53). Also returns, under ``q5_exact``, q5's exact
+    integer sums, which the run compares with the answer."""
+    combos = 7 * 5 * 25
+    q5_sum, q5_exact = np.zeros(35), np.zeros(35)
+    q5_cnt = np.zeros(35, np.int64)
+    f_sum, f_cnt = np.zeros(5), np.zeros(5, np.int64)
+    rows5 = rows_f = rows4 = 0
+    combo = np.arange(combos)
+    yr, grp = combo // 125, combo // 25          # year index, year x region
+    for d in data:
+        key = (d["d_year"].astype(np.int64) - 1992) * 125 \
+            + d["c_region"].astype(np.int64) * 25 + d["s_nation"]
+        cnt = np.bincount(key, minlength=combos)
+        exact = np.bincount(key, weights=d["lo_revenue"].astype(np.float64),
+                            minlength=combos)  # integers below 2^53: exact
+        dev = exact.astype(np.float32).astype(np.float64)
+        present = cnt > 0
+        rows5 += int(present.sum())
+        q5_sum += np.bincount(grp[present], weights=dev[present],
+                              minlength=35)
+        q5_exact += np.bincount(grp, weights=exact, minlength=35)
+        q5_cnt += np.bincount(grp, weights=cnt, minlength=35).astype(np.int64)
+        in95 = present & (yr == 1995 - 1992)
+        rows_f += int(in95.sum())
+        f_sum += np.bincount(grp[in95] % 5, weights=dev[in95], minlength=5)
+        f_cnt += np.bincount(grp[in95] % 5, weights=cnt[in95],
+                             minlength=5).astype(np.int64)
+        rows4 += len(np.unique(d["lo_suppkey"]))
+    total = sum(len(d["lo_revenue"]) for d in data)
+    rev_min = min(int(d["lo_revenue"].min()) for d in data)
+    rev_max = max(int(d["lo_revenue"].max()) for d in data)
+    return {
+        "q4_highcard_hll": (want["q4_scan_hll"][0], rows4),
+        "q5_startree": ([[1992 + k // 5, str(REGIONS[k % 5]), float(q5_sum[k]),
+                          int(q5_cnt[k])] for k in range(35) if q5_cnt[k]],
+                        rows5),
+        "st_filtered": ([[str(REGIONS[r]), float(f_sum[r]), int(f_cnt[r])]
+                         for r in range(5) if f_cnt[r]], rows_f),
+        "metadata_only": ([[total, float(rev_min), float(rev_max)]], total,
+                          {"numEntriesScannedPostFilter": 0}),
+        "q5_exact": [float(q5_exact[k]) for k in range(35) if q5_cnt[k]],
+    }
 
 
 def _rows_mask(tree, c) -> np.ndarray:
@@ -1206,11 +1327,12 @@ def run_path(engine, path: str, want: dict, total: int, runs: int,
             raise AssertionError(
                 f"{name}: numDocsScanned {resp['numDocsScanned']} / "
                 f"totalDocs {resp['totalDocs']}, want {scanned} / {total}")
-        if len(want[name]) > 2:  # pruning stats, and the force-dense twin
-            for key, val in want[name][2].items():
-                if resp[key] != val:
-                    raise AssertionError(f"{name}: {key} {resp[key]}, "
-                                         f"want {val}")
+        for key, val in (want[name][2] if len(want[name]) > 2
+                         else {}).items():  # pruning and scan stats
+            if resp[key] != val:
+                raise AssertionError(f"{name}: {key} {resp[key]}, "
+                                     f"want {val}")
+        if path == "blockskip":  # the force-dense twin
             twin = engine.execute("SET useBlockSkip = false; " + sql)
             if twin["resultTable"] != resp["resultTable"] \
                     or twin["numDocsScanned"] != scanned:
@@ -1238,6 +1360,60 @@ def run_path(engine, path: str, want: dict, total: int, runs: int,
             raise AssertionError(f"{module}.{entry} (Pallas row {row}) never "
                                  f"launched on the {path} path")
     return p50, counts["kernels"]
+
+
+def check_device_reduce(engine, want: dict) -> dict:
+    """The on-device trim's twins: q1, q4_no_hll and q4_scan_hll answer
+    the same rows with ``SET useDeviceReduce = false`` (the untrimmed
+    fetch), each trimmed launch fetching fewer bytes; and the
+    numGroupsLimit case (100 of 2,000 groups kept) answers in-band, equal
+    to its twin and to the oracle's first 100 gids. Returns the bytes
+    fetched per query with and without the trim."""
+    ex = engine.device
+    sqls = dict(QUERIES, **HLL_QUERIES)
+    out = {}
+    for name in TRIM_TWINS:
+        got = {}
+        for form, sql in (("trimmed", sqls[name]),
+                          ("untrimmed", NO_TRIM + sqls[name])):
+            b0, d0 = ex.fetch_bytes_total, ex.device_reduce_queries
+            resp = engine.execute(sql)
+            if resp["exceptions"]:
+                raise AssertionError(f"{name} {form}: {resp['exceptions']}")
+            trimmed = ex.device_reduce_queries - d0
+            if trimmed != (form == "trimmed"):
+                raise AssertionError(f"{name} {form}: {trimmed} trimmed "
+                                     f"fetches")
+            got[form] = (resp["resultTable"], ex.fetch_bytes_total - b0)
+        if got["trimmed"][0] != got["untrimmed"][0] \
+                or not rows_equal(got["trimmed"][0]["rows"], want[name][0]):
+            raise AssertionError(f"{name}: the useDeviceReduce = false twin "
+                                 f"answers another table")
+        if not got["trimmed"][1] < got["untrimmed"][1]:
+            raise AssertionError(f"{name}: the trimmed fetch moved "
+                                 f"{got['trimmed'][1]} bytes, untrimmed "
+                                 f"{got['untrimmed'][1]}")
+        out[name] = {"trimmed_bytes": got["trimmed"][1],
+                     "untrimmed_bytes": got["untrimmed"][1]}
+        log(f"device reduce {name}: the useDeviceReduce = false twin answers "
+            f"the same rows; fetched {got['trimmed'][1]} bytes trimmed, "
+            f"{got['untrimmed'][1]} untrimmed")
+    d0 = ex.device_reduce_queries
+    resp = engine.execute(GROUPS_LIMIT_SQL)
+    twin = engine.execute(NO_TRIM + GROUPS_LIMIT_SQL)
+    cnt = want["q4_counts"][:100]
+    rows = [[k, int(cnt[k]), want["q4_qsums"][k] / float(cnt[k])]
+            for k in sorted(range(100), key=lambda k: (-cnt[k], k))[:10]]
+    if resp["exceptions"] or resp["resultTable"] != twin["resultTable"] \
+            or not resp["numGroupsLimitReached"] \
+            or not twin["numGroupsLimitReached"] \
+            or not rows_equal(resp["resultTable"]["rows"], rows) \
+            or ex.device_reduce_queries != d0:
+        raise AssertionError(f"numGroupsLimit case: {resp}, twin {twin}")
+    log("device reduce numGroupsLimit = 100 on the lo_suppkey group-by: "
+        "in-band, numGroupsLimitReached, equal to its twin and to the "
+        "oracle's first 100 groups")
+    return out
 
 
 def card_line() -> str:
@@ -1303,7 +1479,9 @@ def main(argv=None) -> int:
     workers = min(S, os.cpu_count() or 1)
     pool = mp.get_context("spawn").Pool(workers)
     try:
-        pending = pool.starmap_async(write_segment, enumerate(data))
+        pending = pool.starmap_async(
+            write_segment, [(i, seg, "lineorder", True) for i, seg in
+                            enumerate(data)])
         t = time.perf_counter()
         bs_data = sort_by_date(data)
         log(f"sort by lo_orderdate: {time.perf_counter() - t:.2f} s")
@@ -1330,10 +1508,13 @@ def main(argv=None) -> int:
         k4_bound = check_k4_bound(n // ZONE_BLOCK_ROWS, dev)
         torch.cuda.empty_cache()
 
-        dirs = pending.get()
-        bs_dirs = pending_bs.get()
+        dirs, cube_s = zip(*pending.get())
+        bs_dirs = [d for d, _s in pending_bs.get()]
         log(f"write segments (port creator, {workers} processes, both "
-            f"tables): {time.perf_counter() - t_write:.2f} s")
+            f"tables): {time.perf_counter() - t_write:.2f} s, of which the "
+            f"two star-tree cubes of lineorder took {sum(cube_s):.2f} s "
+            f"summed over its {S} segments (at most {max(cube_s):.2f} s "
+            f"for one)")
     finally:
         pool.terminate()
         pool.join()
@@ -1341,6 +1522,7 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     want = oracle(data)
     want.update(bs_oracle(bs_data, pad))
+    want.update(st_oracle(data, want))
     total = S * rows
     del data, bs_data
     log(f"numpy oracle: {time.perf_counter() - t:.2f} s")
@@ -1381,6 +1563,20 @@ def main(argv=None) -> int:
         p50.update(path_p50)
         for name, count in counts.items():
             launches[name] += count
+    # bench.py's exactness gate: the cube-routed q4 answers exactly like
+    # both forced-scan forms
+    cube_rows = engine.execute(ST_QUERIES["q4_highcard_hll"])
+    for name in ("q4_scan_hll", "q4_scan_hll_cold"):
+        if engine.execute(HLL_QUERIES[name])["resultTable"]["rows"] \
+                != cube_rows["resultTable"]["rows"]:
+            raise AssertionError(f"q4_highcard_hll differs from {name}")
+    # the f32 DOUBLE cube column against the exact integer sums
+    q5 = engine.execute(ST_QUERIES["q5_startree"])["resultTable"]["rows"]
+    f32_diff = max(abs(r[2] - e) for r, e in zip(q5, want["q5_exact"]))
+    log(f"q4_highcard_hll equals q4_scan_hll and q4_scan_hll_cold row for "
+        f"row; q5_startree's sums (float32 cube rows) differ from the exact "
+        f"integer sums by at most {f32_diff:.1f}")
+    reduce_bytes = check_device_reduce(engine, want)
     # q6's MIN / MAX / MINMAXRANGE planes reach K2 as stored: no torch op
     # (a widening, a FOR add) reads them
     q6_planes = {"dv::" + c: ctx.decoded_column(c)
@@ -1408,7 +1604,10 @@ def main(argv=None) -> int:
         entry.update(res)
         entries.append(entry)
     log(json.dumps({"query_p50_ms": p50, "rows": total,
-                    "overflow_cost": overflow}))
+                    "overflow_cost": overflow,
+                    "device_reduce_fetch_bytes": reduce_bytes,
+                    "cube_build_s": list(cube_s),
+                    "q5_startree_max_abs_diff_from_exact": f32_diff}))
     log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {

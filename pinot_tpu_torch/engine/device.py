@@ -16,9 +16,9 @@ DISTINCTCOUNTHLL register builds through the register-max kernel K3
 pallas-tier routing and minimum batch; other shapes use the torch
 scatters of ops/agg.py where the reference uses XLA's.
 
-DISTINCTCOUNTHLL and the DISTINCTCOUNT family run over dict columns: a
-presence vector over global ids, and HLL registers from per-doc hashes
-gathered at upload. A TERMINAL launch (``final``: nothing merges after
+DISTINCTCOUNTHLL and the DISTINCTCOUNT family run over dict columns (and
+DISTINCTCOUNTHLL over raw ones): a presence vector over global ids, and
+HLL registers from per-doc hashes computed at upload. A TERMINAL launch (``final``: nothing merges after
 it, as for ``QueryEngine.execute``) finalizes them on the card —
 popcounts and estimates instead of G x C presence or G x m registers —
 and builds large-G HLL register-free from sorted keys
@@ -38,8 +38,15 @@ reference branches on the device (``lax.cond``), the port reads the
 candidate count to the host, one scalar sync, and runs the dense form
 when it overflows the bound.
 
+HLLMERGE re-merges a star-tree cube's register planes (a fixed-width
+BYTES dict column, uploaded as an (S, L, m) uint8 plane) by a
+scatter-max, as the reference leaves it to XLA. A launch that is the sole
+partial of its query (``reduce_mode``) trims a group-by to its ORDER BY's
+top rows on the card (ops/device_reduce.py), so the fetch copies those
+rows only; all leaves come to the host in one copy.
+
 This slice covers the scalar ``agg`` and dense ``groupby`` shapes. The
-sorted high-cardinality group-by regime, DISTINCT, HLLMERGE and
+sorted high-cardinality group-by regime, DISTINCT and
 first/last-with-time raise DeviceUnsupported and come with later slices.
 There is no fallback ladder: a device or kernel error propagates to the
 caller.
@@ -66,6 +73,7 @@ from pinot_tpu_torch.engine.params import (
 from pinot_tpu_torch.engine.result import ExecutionStats, IntermediateResult
 from pinot_tpu_torch.ops import agg as agg_ops
 from pinot_tpu_torch.ops import blockskip as bs_ops
+from pinot_tpu_torch.ops import device_reduce as dr_ops
 from pinot_tpu_torch.ops import group_scatter as ps
 from pinot_tpu_torch.ops import groupby_mm as mm
 from pinot_tpu_torch.ops import hll as hll_ops
@@ -77,8 +85,11 @@ from pinot_tpu_torch.query.context import Expression, QueryContext
 from pinot_tpu_torch.storage.segment import Encoding
 
 DEVICE_AGGS = {"count", "sum", "min", "max", "avg", "minmaxrange",
-               "distinctcount", "distinctcounthll"}
+               "distinctcount", "distinctcounthll", "hllmerge"}
 SKETCH_AGGS = ("distinctcount", "distinctcounthll")
+# aggregations whose state is per-group presence or registers: they
+# finalize on the card in a terminal launch
+STATE_AGGS = SKETCH_AGGS + ("hllmerge",)
 # answered as DISTINCTCOUNT over a dict column, as in the reference
 DISTINCTCOUNT_ALIASES = ("distinctcountbitmap",
                          "segmentpartitioneddistinctcount")
@@ -86,7 +97,6 @@ DISTINCTCOUNT_ALIASES = ("distinctcountbitmap",
 # aggregations the reference runs on its device that this port runs in a
 # later slice
 LATER_AGGS = {
-    "hllmerge": "star-tree sketch merge",
     "firstwithtime": "first/last-with-time",
     "lastwithtime": "first/last-with-time",
 }
@@ -422,7 +432,7 @@ def _finalize_sketch_outs(outs: dict, agg_tpls) -> None:
         elif name == "distinctcounthll" and f"{k}_hs" in outs:
             outs[f"{k}_est"] = hll_ops.estimate_from_sums_torch(
                 outs.pop(f"{k}_hs"), extra)
-        elif name == "distinctcounthll":
+        elif name in ("distinctcounthll", "hllmerge"):
             regs = outs.pop(f"{k}_regs")
             est = hll_ops.estimate_torch(regs.reshape(-1, 1 << extra))
             outs[f"{k}_est"] = est[0] if regs.dim() == 1 else est
@@ -502,12 +512,12 @@ def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS,
         fused_plan = ps.plan_fused(filter_tpl, aggs, widths or {})
 
     def pipeline(cols, n_docs, params):
-        # zone maps are (S, NB) and sorted projections (sk::) 1-D: any
-        # other plane gives (S, L)
+        # zone maps are (S, NB), sorted projections (sk::) 1-D and byte
+        # planes (bp::) (S, L, W): any plane's leading axes give (S, L)
         data_cols = {k: v for k, v in cols.items()
                      if not k.startswith((bs_ops.ZLO, bs_ops.ZHI))}
         S, L = next(v for k, v in data_cols.items()
-                    if not k.startswith("sk::")).shape
+                    if not k.startswith("sk::")).shape[:2]
         dev = n_docs.device
         alive = params.get("ps_alive")
         alive_b = torch.ones(S, dtype=torch.bool, device=dev) \
@@ -639,6 +649,18 @@ def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS,
             if name == "distinctcounthll":
                 _group_hll(k, argt, extra, gid, mask, cols, outs)
                 continue
+            if name == "hllmerge":
+                # cube rows carry whole register planes: a scatter-max of
+                # the (rows, m) planes into (G, m); rows are distinct
+                # dimension combinations, so the work is answer-sized
+                m = 1 << extra
+                planes = cols["bp::" + argt].reshape(-1, m).to(torch.int32)
+                idx = gid.reshape(-1, 1).to(torch.int64).expand(-1, m)
+                regs = torch.zeros((num_groups + 1, m), dtype=torch.int32,
+                                   device=planes.device)
+                regs.scatter_reduce_(0, idx, planes, "amax")
+                outs[f"{k}_regs"] = regs[:num_groups]
+                continue
             if name in ("sum", "avg"):
                 outs[f"{k}_sum"] = agg_ops.group_sum(
                     gid, _eval_expr(argt, cols, params, widths), num_groups)
@@ -658,6 +680,11 @@ def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS,
             if name == "distinctcounthll":
                 outs[f"{k}_regs"] = _hll_regs(cols["hh::" + argt], None,
                                               mask, 1, extra, min_rows)[0]
+                continue
+            if name == "hllmerge":
+                planes = cols["bp::" + argt].to(torch.int32)
+                outs[f"{k}_regs"] = torch.where(
+                    mask[..., None], planes, 0).amax(dim=(0, 1))
                 continue
             v = _eval_expr(argt, cols, params, widths)
             if name in ("sum", "avg"):
@@ -711,10 +738,13 @@ def _needed_columns(tpl) -> set:
 
 
 class Launch:
-    """A dispatched pipeline: its template, batch and device outputs."""
+    """A dispatched pipeline: its template, batch and device outputs.
+    When the device trim ran, ``outs`` are the trimmed leaves and
+    ``full`` the untrimmed accumulators, still on the card."""
 
-    def __init__(self, q, ctx, template, outs):
+    def __init__(self, q, ctx, template, outs, full=None):
         self.q, self.ctx, self.template, self.outs = q, ctx, template, outs
+        self.full = full
 
 
 class DeviceExecutor:
@@ -727,6 +757,13 @@ class DeviceExecutor:
         self.min_rows = min_rows
         self._batches: dict = {}  # segment-dir tuple -> BatchContext (LRU)
         self._pruner = None  # engine.SegmentPruner, made at first use
+        # the server-partial trim bound (engine/reduce.py trim_bound's
+        # min_trim_size), as in the reference
+        self.group_trim_size = 5000
+        # fetch accounting: queries whose fetch read device-trimmed
+        # leaves, and the bytes every fetch copied to the host
+        self.device_reduce_queries = 0
+        self.fetch_bytes_total = 0
 
     def batch_for(self, segments) -> BatchContext:
         key = tuple(s.dir for s in segments)
@@ -752,14 +789,30 @@ class DeviceExecutor:
         if name == "count":
             return ("count", None, None)
         if name in SKETCH_AGGS:
+            # DISTINCTCOUNT counts global dict ids; DISTINCTCOUNTHLL reads
+            # per-doc value hashes, which a raw column has as well
             arg = a.args[0]
-            if not arg.is_identifier \
-                    or ctx.encoding(arg.name) != Encoding.DICT:
+            if not arg.is_identifier or (
+                    name == "distinctcount"
+                    and ctx.encoding(arg.name) != Encoding.DICT):
                 raise DeviceUnsupported(f"{name} needs a dict column on "
                                         f"the device")
             if name == "distinctcount":
                 return (name, arg.name, ctx.cardinality(arg.name))
             return (name, arg.name, aggspec.make_spec(a).log2m)
+        if name == "hllmerge":
+            # a star-tree cube's register planes: a dict BYTES column one
+            # register plane (m bytes) wide
+            arg = a.args[0]
+            if not arg.is_identifier \
+                    or ctx.encoding(arg.name) != Encoding.DICT:
+                raise DeviceUnsupported("hllmerge needs a dict BYTES column")
+            spec = aggspec.make_spec(a)
+            width = ctx.bytes_width(arg.name)
+            if width != spec.m:
+                raise DeviceUnsupported(
+                    f"hllmerge plane width {width} != m {spec.m}")
+            return ("hllmerge", arg.name, spec.log2m)
         argt = build_expr(a.args[0], ctx, params, counter)
         if name not in ("sum", "avg"):
             return (name, argt, None)
@@ -775,7 +828,8 @@ class DeviceExecutor:
                 math.floor(bounds[0]), dtype=torch.int64, device=ctx.device)
         return (name, argt, (nplanes, rpb))
 
-    def launch(self, q: QueryContext, segments, final: bool = False) -> Launch:
+    def launch(self, q: QueryContext, segments, final: bool = False,
+               reduce_mode=None, alive=None) -> Launch:
         """Template build + column upload (cached per segment set) + the
         pipeline's torch ops and kernel launches, enqueued on the current
         stream. ``final``: the launch is terminal (nothing merges after
@@ -783,10 +837,16 @@ class DeviceExecutor:
         DeviceUnsupported for shapes this slice does not run on the
         device.
 
+        ``reduce_mode``: None, or "terminal" / "partial" when this batch
+        is the sole partial of its execution: a group-by then takes the
+        on-device trim (ops/device_reduce.py) unless ``SET
+        useDeviceReduce = false``.
+
         Level 1: segments the SegmentPruner proves empty stay in the
-        batch, dead (``ps_alive``); when every segment is pruned nothing
-        runs on the card. Level 2: a filter with interval structure takes
-        the block-skip forms unless ``SET useBlockSkip = false``."""
+        batch, dead (``ps_alive``; ``alive`` passes verdicts the caller
+        already has); when every segment is pruned nothing runs on the
+        card. Level 2: a filter with interval structure takes the
+        block-skip forms unless ``SET useBlockSkip = false``."""
         aggs = q.aggregations()
         if q.distinct:
             raise DeviceUnsupported("DISTINCT comes with a later slice of "
@@ -820,13 +880,13 @@ class DeviceExecutor:
                          for i, a in enumerate(aggs))
         num_groups = math.prod(group_cards)
         for name, _argt, extra in agg_tpls:
-            if group_cols and name in SKETCH_AGGS:
+            if group_cols and name in STATE_AGGS:
                 cells = num_groups * (extra if name == "distinctcount"
                                       else 1 << extra)
                 if cells > MAX_PRESENCE_CELLS:
                     raise DeviceUnsupported(
                         f"{name} per-group state too large ({cells})")
-        final = final and any(name in SKETCH_AGGS for name, _, _ in agg_tpls)
+        final = final and any(name in STATE_AGGS for name, _, _ in agg_tpls)
         template = ("groupby" if group_cols else "agg", filter_tpl,
                     tuple(group_cols), tuple(group_cards), agg_tpls, final)
 
@@ -842,15 +902,31 @@ class DeviceExecutor:
             use_bs = prunable and bool(zone_cols)
         # Level 1: the filter tree against each segment's column stats;
         # a per-query vector param, pruned segments stay in the batch
-        alive = np.ones(ctx.S, dtype=bool)
-        if q.filter is not None:
-            if self._pruner is None:
-                from pinot_tpu_torch.engine.engine import SegmentPruner
+        if alive is not None:
+            alive = np.asarray(alive, dtype=bool)
+        else:
+            alive = np.ones(ctx.S, dtype=bool)
+            if q.filter is not None:
+                if self._pruner is None:
+                    from pinot_tpu_torch.engine.engine import SegmentPruner
 
-                self._pruner = SegmentPruner()
-            for j, s in enumerate(segments):
-                alive[j] = not self._pruner.prune(q, s)
+                    self._pruner = SegmentPruner()
+                for j, s in enumerate(segments):
+                    alive[j] = not self._pruner.prune(q, s)
         params["ps_alive"] = to_device(alive, ctx.device)
+
+        # on-device final reduce (ops/device_reduce.py): plan the ORDER BY
+        # trim when this batch is the sole partial of its execution; the
+        # exact keep count rides as the tr_k param
+        trim = None
+        if reduce_mode is not None and group_cols:
+            trim = dr_ops.plan_trim(q, q.group_by, aggs, num_groups,
+                                    reduce_mode, self.group_trim_size)
+            if trim is not None:
+                params["tr_k"] = torch.tensor(
+                    dr_ops.trim_keep_count(q, reduce_mode,
+                                           self.group_trim_size),
+                    dtype=torch.int64, device=ctx.device)
 
         # SET useSortedProjection = false keeps the per-query sort (the
         # cold form); by default a filterless terminal HLL group-by reads
@@ -869,6 +945,8 @@ class DeviceExecutor:
                     needed.add(f"sk::{argt}::{extra}")
                 else:
                     needed.add("hh::" + argt)
+            elif name == "hllmerge":
+                needed.add("bp::" + argt)
             elif argt is not None:
                 needed |= _needed_columns(argt)
         if not needed:  # COUNT(*) no filter: one column carries the shape
@@ -887,6 +965,9 @@ class DeviceExecutor:
             if c.startswith("hh::"):
                 cols[c] = ctx.prehashed_column(c[4:])
                 continue
+            if c.startswith("bp::"):
+                cols[c] = ctx.bytes_plane_column(c[4:])
+                continue
             plan = ctx.width_plan(c)
             widths[c] = plan.sig()
             if plan.offset is not None:
@@ -900,20 +981,65 @@ class DeviceExecutor:
             outs = _neutral_outs(build_pipeline(template, widths,
                                                 self.min_rows),
                                  cols, params, ctx.S)
+        else:
+            outs = build_pipeline(template, widths, self.min_rows, use_bs)(
+                cols, ctx.n_docs_dev, params)
+        if trim is None:
             return Launch(q, ctx, template, outs)
-        outs = build_pipeline(template, widths, self.min_rows, use_bs)(
-            cols, ctx.n_docs_dev, params)
-        return Launch(q, ctx, template, outs)
+        # the trim only gathers: the full accumulators stay on the card
+        # for a fetch under numGroupsLimit pressure
+        trimmed = dr_ops.apply_trim(
+            outs, params["tr_k"].to(outs["gcount"].device), template, trim)
+        return Launch(q, ctx, template, trimmed, full=outs)
+
+    def _to_host(self, outs: dict) -> dict:
+        """Device leaves → host numpy arrays in one copy: the byte views
+        of every leaf joined on the card, one device→host copy, then split
+        on the host (one synchronization instead of one per leaf; the
+        bytes, hence the values, are unchanged)."""
+        items = [(k, v.contiguous()) for k, v in outs.items()]
+        nbytes = sum(v.numel() * v.element_size() for _, v in items)
+        self.fetch_bytes_total += nbytes
+        if not items or items[0][1].device.type == "cpu":
+            return {k: v.numpy() for k, v in items}
+        flat = torch.cat([v.reshape(-1).view(torch.uint8) for _, v in items])
+        buf = flat.cpu().numpy()
+        host, off = {}, 0
+        for k, v in items:
+            n = v.numel() * v.element_size()
+            dt = torch.empty(0, dtype=v.dtype).numpy().dtype
+            host[k] = buf[off:off + n].view(dt).reshape(tuple(v.shape))
+            off += n
+        return host
+
+    def groups_limit(self, q: QueryContext) -> int:
+        """numGroupsLimit: the engine default or the per-query SET."""
+        opts = q.options_ci()
+        if "numgroupslimit" in opts:
+            return max(1, int(opts["numgroupslimit"]))
+        return self.num_groups_limit
 
     def fetch(self, launch: Launch) -> IntermediateResult:
-        """Device outputs → host numpy → canonical IntermediateResult."""
-        outs = {k: v.cpu().numpy() for k, v in launch.outs.items()}
+        """Device outputs → host numpy → canonical IntermediateResult.
+
+        A trimmed launch copies the kept rows only. When more groups are
+        present than numGroupsLimit keeps, the ORDER-BY-trimmed rows
+        cannot reproduce the limit's gid-order drop; the reference leaves
+        its device there, the port answers in-band from the untrimmed
+        accumulators its launch kept on the card (no second launch): the
+        answer of ``SET useDeviceReduce = false``."""
+        outs = self._to_host(launch.outs)
+        if launch.full is not None:
+            if int(outs["n_present_total"]) > self.groups_limit(launch.q):
+                outs = self._to_host(launch.full)
+            else:
+                self.device_reduce_queries += 1
         return self._to_intermediate(launch.q, launch.ctx, launch.template,
                                      outs)
 
-    def execute(self, q: QueryContext, segments,
-                final: bool = False) -> IntermediateResult:
-        return self.fetch(self.launch(q, segments, final))
+    def execute(self, q: QueryContext, segments, final: bool = False,
+                reduce_mode=None) -> IntermediateResult:
+        return self.fetch(self.launch(q, segments, final, reduce_mode))
 
     # ---- device outputs → canonical IntermediateResult -------------------
     def _to_intermediate(self, q, ctx: BatchContext, template, outs):
@@ -948,18 +1074,21 @@ class DeviceExecutor:
             return IntermediateResult("aggregation", agg_partials=partials,
                                       stats=stats)
 
-        # numGroupsLimit (engine default or per-query SET override):
-        # excess groups drop in gid order, and the stats flag says so
-        opts = q.options_ci()
-        limit = self.num_groups_limit
-        if "numgroupslimit" in opts:
-            limit = max(1, int(opts["numgroupslimit"]))
-        present = np.nonzero(outs["gcount"] > 0)[0]
-        if len(present) > limit:
-            present = present[:limit]
-            stats.num_groups_limit_reached = True
+        if "trim_keys" in outs:
+            # the device trim ran (within numGroupsLimit, ``fetch``): the
+            # fetched rows are already ordered and trimmed, keys packed
+            present = np.arange(int(outs["trim_n"]))
+            rem = outs["trim_keys"][present].astype(np.int64)
+        else:
+            # numGroupsLimit (engine default or per-query SET override):
+            # excess groups drop in gid order, and the stats flag says so
+            present = np.nonzero(outs["gcount"] > 0)[0]
+            limit = self.groups_limit(q)
+            if len(present) > limit:
+                present = present[:limit]
+                stats.num_groups_limit_reached = True
+            rem = present.copy()
         # decode the combined key (the gid) → per-column global ids → values
-        rem = present.copy()
         keys = []
         for card in reversed(group_cards[1:]):
             keys.append(rem % card)

@@ -386,17 +386,57 @@ class BatchContext:
 
     def prehashed_column(self, name: str) -> torch.Tensor:
         """(S, L) device int32 bit view of per-doc canonical value hashes
-        (ops/hll.py ``hash32_np`` of each segment's dictionary, gathered
-        through the forward index on the host at upload) for
-        DISTINCTCOUNTHLL. Padding docs hash to 0 and are masked."""
+        (ops/hll.py ``hash32_np``, the hash the host register build
+        applies to the values) for DISTINCTCOUNTHLL: of each segment's
+        dictionary, gathered through the forward index, or of a raw
+        column's stored values, on the host at upload. Padding docs hash
+        to 0 and are masked."""
         if name not in self._prehashed:
+            raw = self.encoding(name) != Encoding.DICT
             blocks = np.zeros((self.S, self.pad_to), dtype=np.uint32)
             for i, s in enumerate(self.segments):
-                h = hll_ops.hash32_np(np.asarray(s.dictionary(name).values))
                 fwd = np.asarray(s.forward(name))
+                if raw:
+                    blocks[i, : len(fwd)] = hll_ops.hash32_np(fwd)
+                    continue
+                h = hll_ops.hash32_np(np.asarray(s.dictionary(name).values))
                 blocks[i, : len(fwd)] = h[fwd]
             self._upload(self._prehashed, name, blocks.view(np.int32))
         return self._prehashed[name]
+
+    def bytes_width(self, name: str) -> int:
+        """Fixed byte width of a BYTES dict column's values (0 = not a
+        fixed-width bytes column)."""
+        widths = set()
+        for s in self.segments:
+            d = s.dictionary(name)
+            if d is None:
+                return 0
+            dt = np.asarray(d.values).dtype
+            if dt.kind != "S":
+                return 0
+            widths.add(dt.itemsize)
+        return widths.pop() if len(widths) == 1 else 0
+
+    def bytes_plane_column(self, name: str) -> torch.Tensor:
+        """(S, L, W) device uint8 tensor of the raw bytes of a fixed-width
+        BYTES dict column (HLLMERGE's pre-aggregated register planes),
+        gathered per doc through each segment's dictionary on the host at
+        upload, as ``decoded_column`` is. Padding docs hold zeros."""
+        key = "bp::" + name
+        if key not in self._decoded:
+            W = self.bytes_width(name)
+            if W == 0:
+                raise DeviceUnsupported(
+                    f"column {name} is not a fixed-width BYTES dict column")
+            blocks = np.zeros((self.S, self.pad_to, W), dtype=np.uint8)
+            for i, s in enumerate(self.segments):
+                vals = np.asarray(s.dictionary(name).values)
+                planes = vals.view(np.uint8).reshape(len(vals), W)
+                fwd = np.asarray(s.forward(name))
+                blocks[i, : len(fwd)] = planes[fwd]
+            self._upload(self._decoded, key, blocks)
+        return self._decoded[key]
 
     def sorted_hll_keys(self, group_cols, group_cards, hash_col: str,
                         log2m: int) -> torch.Tensor:

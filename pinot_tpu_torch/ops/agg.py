@@ -47,6 +47,36 @@ def _extremes(dtype):
     return info.max, info.min
 
 
+# float MIN / MAX reduce signed-integer order keys of the float bits
+# (-0.0 < +0.0), as K2 and K4 do, so a group or a mask holding both zeros
+# gives the same sign on every route and in any row order
+_KEY_INTS = {torch.float32: (torch.int32, 31), torch.float64: (torch.int64, 63)}
+
+
+def _float_keys(v):
+    """Keys whose signed order is the float order of ``v``'s bits; the
+    map is its own inverse (``_from_float_keys``)."""
+    it, sh = _KEY_INTS[v.dtype]
+    b = v.view(it)
+    return b ^ ((b >> sh) & ((1 << sh) - 1))
+
+
+def _from_float_keys(k, dtype):
+    _it, sh = _KEY_INTS[dtype]
+    return (k ^ ((k >> sh) & ((1 << sh) - 1))).view(dtype)
+
+
+def _masked_extreme(values, mask, how: str):
+    fill = _extremes(values.dtype)[0 if how == "min" else 1]
+    v = torch.where(mask, values, torch.full((), fill, dtype=values.dtype,
+                                            device=values.device))
+    if values.dtype not in _KEY_INTS:
+        return v.min() if how == "min" else v.max()
+    k = _float_keys(v)
+    return _from_float_keys(k.min() if how == "min" else k.max(),
+                            values.dtype)
+
+
 # ---- scalar (non-group-by) aggregations over a mask -----------------------
 
 
@@ -57,15 +87,11 @@ def agg_sum(values, mask):
 
 
 def agg_min(values, mask):
-    big = _extremes(values.dtype)[0]
-    return torch.where(mask, values, torch.full((), big, dtype=values.dtype,
-                                                device=values.device)).min()
+    return _masked_extreme(values, mask, "min")
 
 
 def agg_max(values, mask):
-    small = _extremes(values.dtype)[1]
-    return torch.where(mask, values, torch.full((), small, dtype=values.dtype,
-                                                device=values.device)).max()
+    return _masked_extreme(values, mask, "max")
 
 
 # ---- dense group-by scatter ----------------------------------------------
@@ -88,6 +114,11 @@ def _group_reduce(gids, values, num_groups: int, how: str, init):
     flat = gids.reshape(-1).to(torch.int64)
     v = values.reshape(-1)
     out = torch.full((num_groups + 1,), init, dtype=v.dtype, device=v.device)
+    if v.dtype in _KEY_INTS:
+        keys = _float_keys(out)
+        keys.scatter_reduce_(0, flat, _float_keys(v), reduce=how,
+                             include_self=True)
+        return _from_float_keys(keys, v.dtype)[:num_groups]
     out.scatter_reduce_(0, flat, v, reduce=how, include_self=True)
     return out[:num_groups]
 

@@ -177,10 +177,11 @@ _SIGNED_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32}
 
 
 def gather_blocks(x, cand, n_blocks_per_seg: int, block_rows: int):
-    """Candidate blocks of an (S, L) column: reshape to (S * NB, R) and
-    take the candidate rows — the device analog of an index handing the
-    scan a doc-id subset."""
-    flat = x.reshape(x.shape[0] * n_blocks_per_seg, block_rows)
+    """Candidate blocks of an (S, L, ...) column: reshape to (S * NB, R,
+    ...) and take the candidate rows — the device analog of an index
+    handing the scan a doc-id subset."""
+    flat = x.reshape((x.shape[0] * n_blocks_per_seg, block_rows)
+                     + tuple(x.shape[2:]))
     signed = _SIGNED_VIEW.get(flat.dtype)
     if signed is None:
         return flat.index_select(0, cand.long())

@@ -1,0 +1,250 @@
+"""On-device final reduce: the ORDER-BY-aware group trim on the card.
+
+Counterpart of pinot_tpu/ops/device_reduce.py. A group-by's accumulators
+live on the card as (G, ...) tensors; copying all of them to the host
+only for the host to keep the top-K rows makes the copy, not the
+kernels, the cost of a top-K group-by. ``apply_trim`` runs after the
+pipeline (and after the terminal sketch finalize) and
+
+1. computes the query's ORDER BY keys from the accumulators: group-by
+   COLUMNS order by their global-dict id component (the global
+   dictionary is sorted, so id order is value order, strings included),
+   aggregations by their finalized value in float64 (the host reduce
+   compares finalized float64 partials, engine/reduce.py);
+2. orders the table by (present-first, keys..., slot). The reference does
+   it with one multi-operand ``lax.sort``; ``torch.sort`` takes one key,
+   so ``lexsort_perm`` runs one stable sort per key from the last key to
+   the first, which is the same lexicographic order, ties in slot order:
+   the host's stable lexsort bit for bit;
+3. keeps the first ``tr_k`` rows (a 0-d tensor on the card) under the
+   static power-of-two bound ``T``, fills the rest with each leaf's
+   neutral value, and emits the kept rows' packed group keys as
+   ``trim_keys``.
+
+The fetch then copies (T, ...) leaves instead of (G, ...) ones.
+
+The policy is the reference's, single-sourced through
+``reduce.trim_bound``:
+
+- ``mode="terminal"`` (nothing merges after): keep ``offset+limit``,
+  exact with or without ORDER BY;
+- ``mode="partial"`` (the sole local partial, a broker merges after):
+  keep ``max(5*(offset+limit), group_trim_size)``, ORDER BY only;
+- HAVING / gapfill / post-aggregation order expressions / DISTINCT, or
+  ``SET useDeviceReduce = false``: no trim.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from pinot_tpu_torch.common.options import bool_option
+
+INT64_SENTINEL = (1 << 63) - 1   # trimmed-away key slots
+
+# per-launch scalars and (S,) vectors every pipeline emits: passed
+# through the trim untouched (they are not group-table columns)
+STAT_KEYS = frozenset((
+    "doc_count", "seg_matched", "n_alive", "rows_filter",
+    "blocks_total", "blocks_scanned",
+))
+
+# aggregations whose finalized value the device can order by
+ORDER_AGG_FIELDS = {
+    "count": "count",
+    "sum": "sum",
+    "avg": "avg",
+    "min": "min",
+    "max": "max",
+    "minmaxrange": "range",
+}
+
+
+def next_pow2(n: int) -> int:
+    m = 1
+    while m < max(n, 1):
+        m <<= 1
+    return m
+
+
+def neutral_fill(name: str, dt):
+    """The kernels' empty/masked fill for an output leaf, by naming
+    convention: the key sentinel for trimmed keys, the dtype's extremes
+    for min / max planes, zero elsewhere."""
+    dt = np.dtype(dt)
+    if name == "trim_keys":
+        return INT64_SENTINEL
+    if name.endswith("_min"):
+        return np.iinfo(dt).max if dt.kind in "iu" else np.inf
+    if name.endswith("_max"):
+        return np.iinfo(dt).min if dt.kind in "iu" else -np.inf
+    return 0
+
+
+def trim_keep_count(q, mode: str, group_trim_size: int = 5000) -> int:
+    """How many groups the trim keeps: the exact bound (the ``tr_k``
+    param; the static bound is its power-of-two ceiling)."""
+    if mode == "terminal":
+        return q.offset + q.limit
+    from pinot_tpu_torch.engine.reduce import trim_bound
+
+    return trim_bound(q, group_trim_size)
+
+
+def plan_trim(q, group_exprs, aggs, table_len: int, mode,
+              group_trim_size: int = 5000):
+    """Host-side static analysis of a dense group-by → trim spec
+    ``(T, order_sig)`` or None.
+
+    ``group_exprs`` / ``aggs`` are the template's enumerations (the
+    order_sig indexes into them); ``table_len`` is the table the trim
+    would shrink; ``mode`` is None (not a sole partial), "partial" or
+    "terminal"."""
+    if mode not in ("terminal", "partial"):
+        return None
+    if q.distinct or q.having is not None:
+        return None
+    opts = q.options_ci()
+    if bool_option(opts, "usedevicereduce", None) is False:
+        return None
+    if opts.get("gapfillbucketms") is not None:
+        return None  # gapfill synthesizes buckets from the FULL group set
+    order = []
+    if q.order_by:
+        for ob in q.order_by:
+            e = ob.expression
+            ent = None
+            for j, g in enumerate(group_exprs):
+                if e == g:
+                    ent = ("col", j, bool(ob.ascending))
+                    break
+            if ent is None:
+                for i, a in enumerate(aggs):
+                    if e == a and a.name in ORDER_AGG_FIELDS:
+                        ent = ("agg", i, ORDER_AGG_FIELDS[a.name],
+                               bool(ob.ascending))
+                        break
+            if ent is None:
+                return None  # post-aggregation order expr: no trim
+            order.append(ent)
+    elif mode != "terminal":
+        # a server partial without ORDER BY has no trim the broker merge
+        # could survive
+        return None
+    k = trim_keep_count(q, mode, group_trim_size)
+    if k <= 0:
+        return None
+    T = next_pow2(k)
+    if T >= table_len:
+        return None  # nothing to shrink; the full table is the answer
+    return (T, tuple(order))
+
+
+_LOW63 = (1 << 63) - 1
+
+
+def order_key(v: torch.Tensor) -> torch.Tensor:
+    """An int64 tensor whose order is ``v``'s order as numpy sorts it.
+    Integers widen. Floats go through float64: -0.0 becomes +0.0 (numpy
+    orders them equal) and every NaN the positive quiet NaN (numpy sorts
+    NaN last), then the IEEE bits map to a monotone int64 (negative
+    floats flip their magnitude bits), so the sort compares integers and
+    no float comparison, on either device, decides a tie."""
+    if not v.is_floating_point():
+        return v.to(torch.int64)
+    f = v.to(torch.float64)
+    f = torch.where(f == 0, torch.zeros_like(f), f)
+    f = torch.where(torch.isnan(f), torch.full_like(f, float("nan")), f)
+    bits = f.view(torch.int64)
+    return torch.where(bits < 0, bits ^ _LOW63, bits)
+
+
+def lexsort_perm(keys) -> torch.Tensor:
+    """The permutation that orders rows by ``keys`` (primary first, each
+    a 1-D tensor ascending), ties in row order: ``np.lexsort`` of the
+    keys in reverse, as one stable ``torch.sort`` per key from the last
+    key to the first."""
+    n = keys[0].shape[0]
+    perm = torch.arange(n, dtype=torch.int64, device=keys[0].device)
+    for k in reversed(keys):
+        idx = torch.sort(order_key(k)[perm], stable=True).indices
+        perm = perm[idx]
+    return perm
+
+
+def apply_trim(outs: dict, tr_k: torch.Tensor, template, spec) -> dict:
+    """outs (full table) → outs (T-row table), on the outputs' device.
+
+    Emits
+
+    - ``trim_keys``  (T,) int64 packed group keys (the dense gid) of the
+      kept rows, INT64_SENTINEL beyond ``trim_n``;
+    - ``trim_n``     0-d int64 = min(n_present, tr_k);
+    - ``n_present_total`` 0-d int64: the untrimmed non-empty group count,
+      which the fetch holds against numGroupsLimit;
+    - every group-table leaf gathered to (T, ...) with neutral fills
+      beyond ``trim_n``; the stat leaves unchanged.
+    """
+    group_cards = template[3]
+    T, order = spec
+    gcount = outs["gcount"]
+    G = gcount.shape[0]
+    dev = gcount.device
+    present = gcount > 0
+    n_present = present.sum(dtype=torch.int64)
+    slots = torch.arange(G, dtype=torch.int64, device=dev)
+
+    def col_component(j: int):
+        stride = 1
+        for c in group_cards[j + 1:]:
+            stride *= c
+        return (slots // stride) % group_cards[j]
+
+    def f64(v):
+        return v.to(torch.float64)
+
+    # empties last, then the ORDER BY keys; ties keep slot order
+    keys = [(~present).to(torch.int64)]
+    for ent in order:
+        if ent[0] == "col":
+            _tag, j, asc = ent
+            k = col_component(j)
+        else:
+            _tag, i, field, asc = ent
+            if field == "count":
+                k = gcount.to(torch.int64)
+            elif field == "sum":
+                k = f64(outs[f"a{i}_sum"])
+            elif field == "avg":
+                k = f64(outs[f"a{i}_sum"]) / f64(gcount)
+            elif field == "min":
+                k = f64(outs[f"a{i}_min"])
+            elif field == "max":
+                k = f64(outs[f"a{i}_max"])
+            else:  # minmaxrange
+                k = f64(outs[f"a{i}_max"]) - f64(outs[f"a{i}_min"])
+        # descending: the host's negation (ints in int64, floats in f64;
+        # integer keys here are non-negative, so negation is order-exact)
+        keys.append(k if asc else -k)
+    perm = lexsort_perm(keys)[:T]
+    trim_n = torch.minimum(n_present, tr_k.to(torch.int64))
+    valid = torch.arange(T, dtype=torch.int64, device=dev) < trim_n
+
+    trimmed = {}
+    for name, v in outs.items():
+        if name in STAT_KEYS:
+            trimmed[name] = v
+            continue
+        g = v[perm]
+        fill = neutral_fill(name, torch.empty(0, dtype=g.dtype).numpy().dtype)
+        mask = valid.reshape((T,) + (1,) * (g.dim() - 1))
+        trimmed[name] = torch.where(
+            mask, g, torch.tensor(fill, dtype=g.dtype, device=dev))
+    # a dense table's packed key is its slot: the permutation itself
+    trimmed["trim_keys"] = torch.where(
+        valid, perm,
+        torch.tensor(INT64_SENTINEL, dtype=torch.int64, device=dev))
+    trimmed["trim_n"] = trim_n
+    trimmed["n_present_total"] = n_present
+    return trimmed

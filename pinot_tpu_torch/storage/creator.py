@@ -154,8 +154,10 @@ class SegmentCreator:
         # star-tree build happens after the base segment is sealed, like the
         # reference (SegmentIndexCreationDriverImpl.java:290,316)
         if idx_cfg.star_tree_configs:
-            raise NotImplementedError(
-                "star-tree indexes come with a later slice of the port")
+            from pinot_tpu_torch.storage import startree
+
+            startree.build_star_trees(ImmutableSegment(out_dir),
+                                      idx_cfg.star_tree_configs)
         return out_dir
 
     @staticmethod

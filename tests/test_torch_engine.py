@@ -264,8 +264,9 @@ def test_non_terminal_partials_match_reference(segment_dirs, name, min_rows):
 
 
 def test_hll_is_reported_in_band(port_engine):
-    """HLLMERGE (the star-tree sketch merge) is the HLL shape still to
-    come: it is refused in-band, as every shape the port lacks."""
+    """HLLMERGE (the star-tree sketch merge) reads a cube's fixed-width
+    BYTES register planes; over any other column it is refused in-band,
+    as every shape the port does not run."""
     resp = port_engine.execute(
         "SELECT lo_suppkey, HLLMERGE(lo_custkey) FROM lineorder "
         "GROUP BY lo_suppkey")

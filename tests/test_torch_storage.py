@@ -131,8 +131,7 @@ def test_index_kinds_outside_the_slice_raise(tmp_path):
             "m": np.arange(10, dtype=np.int32)}
     for indexing in (IndexingConfig(compressed_columns=["m"]),
                      IndexingConfig(json_index_columns=["s"]),
-                     IndexingConfig(text_index_columns=["s"]),
-                     IndexingConfig(star_tree_configs=[object()])):
+                     IndexingConfig(text_index_columns=["s"])):
         with pytest.raises(NotImplementedError, match="later slice"):
             build_segment(schema, cols, str(tmp_path / "x"),
                           TableConfig(table_name="t", indexing=indexing))
