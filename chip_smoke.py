@@ -34,11 +34,18 @@ Phases, all on ``cuda:0``:
    computes, the port's generic gathered form), beside the memory bound.
 3. Both tables are loaded into one ``QueryEngine(device="cuda")``; K4 is
    held against its plain version once more at the block-skip path's
-   own candidates, and four paths run: the six SSB scan/filter/group-by
+   own candidates, and five paths run: the six SSB scan/filter/group-by
    queries, the five HLL and DISTINCTCOUNT queries, the six block-skip
-   queries on the sorted table, and the star-tree path (bench.py's
+   queries on the sorted table, the star-tree path (bench.py's
    q4_highcard_hll and q5_startree on the cubes, a filtered cube
-   group-by, and the metadata-only COUNT/MIN/MAX). Every answer is
+   group-by, and the metadata-only COUNT/MIN/MAX), and the selection
+   path (selection with and without ORDER BY, ties under OFFSET, CASE
+   and ``$docId`` / ``$segmentName``; DISTINCT over dict and raw
+   columns; group keys over an expression, a raw column and
+   ``$segmentName``; DISTINCTCOUNT over a raw column; FIRST/LASTWITHTIME
+   with massive time ties), its stats the reference's host path's where
+   that path answers (index-served predicates scan nothing, entries
+   after the filter per kept row). Every answer is
    checked against a numpy oracle over the generated columns (HLL
    estimates from registers the oracle builds itself; for the block-skip
    path also the pruned segments, pruned blocks and entries scanned,
@@ -48,7 +55,8 @@ Phases, all on ``cuda:0``:
    modelled, and no entry scanned by the metadata-only answer), and the
    per-query p50 of 5 runs printed; q6 must make one
    K2 launch an execution, and no torch op may read its stored min/max
-   planes (seen at the dispatcher). The launch counts, per kernel and
+   planes (seen at the dispatcher); gb_expr and gb_segment one K1 and
+   one K2 launch an execution, distinct_dict one K1 launch. The launch counts, per kernel and
    per entry, are zeroed just before each path and read just after;
    every kernel and entry of the path must have launched (the cube
    launches read too few rows to pass K1's gate: the star-tree path
@@ -202,6 +210,48 @@ STAR_TREES = (
     (["lo_suppkey"], ["COUNT__*", "SUM__lo_quantity",
                       "DISTINCTCOUNTHLL__lo_custkey"]),
 )
+# the selection path: rows, keys and the aggregations the reference's host
+# or device runs beyond the scan (engine/rows.py), on both tables
+SEL_QUERIES = {
+    "sel_top_revenue": (
+        "SELECT lo_custkey, lo_suppkey, lo_revenue FROM lineorder "
+        "WHERE lo_discount BETWEEN 1 AND 3 AND lo_quantity < 25 "
+        "ORDER BY lo_revenue DESC, lo_custkey LIMIT 10"),
+    "sel_ties_offset": (
+        "SELECT lo_orderdate, lo_discount, lo_quantity, $docId "
+        "FROM lineorder WHERE d_year = 1994 "
+        "ORDER BY lo_discount, lo_quantity LIMIT 20 OFFSET 1000"),
+    "sel_first_rows": (
+        f"SELECT $segmentName, $docId, lo_revenue FROM {BS_TABLE} "
+        "WHERE lo_orderdate BETWEEN 19930301 AND 19930328 LIMIT 15"),
+    "sel_case_expr": (
+        "SELECT lo_suppkey, lo_quantity * lo_discount, CASE WHEN "
+        "lo_quantity > 25 THEN 'bulk' ELSE 'small' END FROM lineorder "
+        "WHERE c_region = 'ASIA' AND d_year = 1997 "
+        "ORDER BY lo_quantity * lo_discount DESC, lo_suppkey LIMIT 10"),
+    "distinct_dict": ("SELECT DISTINCT d_year, c_region FROM lineorder "
+                      "ORDER BY d_year, c_region LIMIT 100"),
+    "distinct_raw": ("SELECT DISTINCT lo_quantity FROM lineorder "
+                     "WHERE d_year = 1995 ORDER BY lo_quantity LIMIT 100"),
+    "gb_expr": (
+        "SELECT MOD(lo_custkey, 1000), COUNT(*), SUM(lo_revenue), "
+        "MIN(lo_revenue), MAX(lo_revenue) FROM lineorder "
+        "GROUP BY MOD(lo_custkey, 1000) ORDER BY SUM(lo_revenue) DESC "
+        "LIMIT 10"),
+    "gb_raw_key": (
+        "SELECT lo_quantity, COUNT(*), SUM(lo_revenue) FROM lineorder "
+        "GROUP BY lo_quantity ORDER BY lo_quantity LIMIT 100"),
+    "gb_segment": (
+        "SELECT $segmentName, COUNT(*), MAX(lo_revenue) FROM lineorder "
+        "GROUP BY $segmentName ORDER BY $segmentName"),
+    "dc_raw": (
+        "SELECT d_year, DISTINCTCOUNT(lo_revenue) FROM lineorder "
+        "WHERE lo_discount = 5 GROUP BY d_year ORDER BY d_year"),
+    "first_last": (
+        "SELECT c_region, FIRSTWITHTIME(lo_revenue, lo_orderdate, 'INT'), "
+        "LASTWITHTIME(lo_quantity, lo_orderdate, 'INT') FROM lineorder "
+        "GROUP BY c_region ORDER BY c_region"),
+}
 # the on-device trim's twins, and the numGroupsLimit case on the
 # lo_suppkey group-by (2,000 groups, 100 kept)
 TRIM_TWINS = ("q1_scan_agg", "q4_no_hll", "q4_scan_hll")
@@ -230,11 +280,21 @@ PATHS = {
     # the cubes hold 1,000-16,000 rows: below K1's 2^17-row gate their
     # launches take the torch scatters, as the reference's take XLA's
     "startree": (ST_QUERIES, (), ()),
+    # group ids factorized on the card (gb_expr, gb_segment) and DISTINCT
+    # over dict columns reach K1 and K2 as the dict group-bys do
+    "selection": (SEL_QUERIES, ("group_plane_sums", "group_minmax"),
+                  ((3, "group_scatter", "plane_group_sums"),
+                   (4, "group_scatter", "group_minmax"))),
 }
 
 # kernel launches that one execution of a query makes: q6's three min/max
 # aggregates share one K2 launch
-QUERY_LAUNCHES = {"q6_minmax": {"group_minmax": 1}}
+QUERY_LAUNCHES = {
+    "q6_minmax": {"group_minmax": 1},
+    "gb_expr": {"group_plane_sums": 1, "group_minmax": 1},
+    "gb_segment": {"group_plane_sums": 1, "group_minmax": 1},
+    "distinct_dict": {"group_plane_sums": 1},
+}
 
 
 def log(msg: str) -> None:
@@ -595,6 +655,139 @@ def bs_oracle(data: list, pad_to: int) -> dict:
             out = [[n, float(qty[m].sum()), float(rev[m].min()),
                     float(rev[m].max())]]
         want[name] = (out, n, stats)
+    return want
+
+
+def _top_rows(cols: dict, mask, keys, limit: int, offset: int = 0):
+    """Matched rows (segment, doc order) stably ordered by ``keys`` (each
+    (values, ascending)), then [offset, offset + limit): the host's
+    per-segment order and trim merged across segments, as one sort (every
+    row of the answer is in its segment's first offset + limit rows, and
+    ties keep segment then doc order either way)."""
+    idx = np.nonzero(mask)[0]
+    cols_np = [(v[idx] if asc else -v[idx].astype(np.int64))
+               for v, asc in keys]
+    order = np.lexsort(list(reversed(cols_np)))
+    return idx[order][offset:offset + limit]
+
+
+def sel_oracle(data: list, bs_data: list) -> dict:
+    """The selection path's answers and the stats the reference reports
+    for them: selection, DISTINCT over a raw column, the group keys over
+    an expression, a raw and a virtual column and DISTINCTCOUNT over a
+    raw column run on its host path, which scans each dict predicate's
+    column once per segment unless an index serves it (the sorted
+    lo_orderdate of the sorted table: none), drops pruned segments and
+    counts entries after the filter per kept row; DISTINCT over dict
+    columns and FIRST/LASTWITHTIME run on its device."""
+    c = {k: np.concatenate([d[k] for d in data]) for k in data[0]}
+    sizes = [len(d["d_year"]) for d in data]
+    n = len(c["d_year"])
+    seg = np.repeat(np.arange(len(data)), sizes)
+    doc = np.concatenate([np.arange(k) for k in sizes])
+    year, region, supp, cust = (c["d_year"], c["c_region"], c["lo_suppkey"],
+                                c["lo_custkey"])
+    od, disc, qty = c["lo_orderdate"], c["lo_discount"], c["lo_quantity"]
+    rev = c["lo_revenue"].astype(np.int64)
+    S = len(data)
+    want = {}
+
+    def stats(mask, scanned_cols: int, kept: int, per_row: int,
+              processed: int = S, pruned: int = 0) -> dict:
+        return {"numEntriesScannedInFilter": scanned_cols * n,
+                "numEntriesScannedPostFilter": kept * per_row,
+                "numSegmentsProcessed": processed,
+                "numSegmentsPrunedByServer": pruned,
+                "numSegmentsMatched": len(np.unique(seg[mask])),
+                "numGroupsLimitReached": False}
+
+    def kept(mask, k):  # rows each segment keeps, summed
+        return int(np.minimum(np.bincount(seg[mask], minlength=S), k).sum())
+
+    m = (disc >= 1) & (disc <= 3) & (qty < 25)
+    top = _top_rows(c, m, [(rev, False), (cust, True)], 10)
+    want["sel_top_revenue"] = (
+        [[int(cust[i]), int(supp[i]), int(rev[i])] for i in top],
+        int(m.sum()), stats(m, 2, kept(m, 10), 3))
+
+    m = year == 1994
+    top = _top_rows(c, m, [(disc, True), (qty, True)], 20, 1000)
+    want["sel_ties_offset"] = (
+        [[int(od[i]), int(disc[i]), int(qty[i]), int(doc[i])] for i in top],
+        int(m.sum()), stats(m, 1, kept(m, 1020), 4))
+
+    m = (region == 2) & (year == 1997)
+    prod = qty * disc
+    top = _top_rows(c, m, [(prod, False), (supp, True)], 10)
+    want["sel_case_expr"] = (
+        [[int(supp[i]), int(prod[i]), "bulk" if qty[i] > 25 else "small"]
+         for i in top], int(m.sum()), stats(m, 2, kept(m, 10), 3))
+
+    # the sorted table: lo_orderdate is sorted in every segment, so the
+    # host's sorted index serves the range; segments outside it are pruned
+    bod = [d["lo_orderdate"] for d in bs_data]
+    alive = [bool(v.max() >= 19930301 and v.min() <= 19930328) for v in bod]
+    rows, matched, kept_rows = [], 0, 0
+    for i, (v, d) in enumerate(zip(bod, bs_data)):
+        hit = np.nonzero((v >= 19930301) & (v <= 19930328))[0]
+        matched += len(hit)
+        kept_rows += min(len(hit), 15)
+        rows += [[f"s{i}", int(j), int(d["lo_revenue"][j])] for j in hit[:15]]
+    want["sel_first_rows"] = (rows[:15], matched, {
+        "numEntriesScannedInFilter": 0,
+        "numEntriesScannedPostFilter": kept_rows * 3,
+        "numSegmentsProcessed": sum(alive),
+        "numSegmentsPrunedByServer": S - sum(alive),
+        "numSegmentsMatched": sum(
+            bool(((v >= 19930301) & (v <= 19930328)).any()) for v in bod),
+        "numGroupsLimitReached": False})
+
+    pairs = np.unique((year - 1992).astype(np.int64) * 5 + region)
+    want["distinct_dict"] = (
+        [[1992 + int(k) // 5, str(REGIONS[k % 5])] for k in pairs], n,
+        stats(np.ones(n, bool), 0, 0, 0))
+
+    m = year == 1995
+    want["distinct_raw"] = ([[int(v)] for v in np.unique(qty[m])],
+                            int(m.sum()), stats(m, 1, 0, 0))
+
+    key = cust % 1000
+    cnt = np.bincount(key, minlength=1000)
+    sums = np.bincount(key, weights=rev, minlength=1000)
+    rmin = np.full(1000, np.iinfo(np.int64).max)
+    rmax = np.full(1000, np.iinfo(np.int64).min)
+    np.minimum.at(rmin, key, rev)
+    np.maximum.at(rmax, key, rev)
+    top = sorted((k for k in range(1000) if cnt[k]),
+                 key=lambda k: (-sums[k], k))[:10]
+    want["gb_expr"] = ([[k, int(cnt[k]), float(sums[k]), float(rmin[k]),
+                         float(rmax[k])] for k in top], n,
+                       stats(np.ones(n, bool), 0, n, 3))
+
+    cnt = np.bincount(qty, minlength=51)
+    sums = np.bincount(qty, weights=rev, minlength=51)
+    want["gb_raw_key"] = ([[k, int(cnt[k]), float(sums[k])]
+                           for k in range(51) if cnt[k]], n,
+                          stats(np.ones(n, bool), 0, n, 1))
+
+    want["gb_segment"] = ([[f"s{i}", len(d["lo_revenue"]),
+                            float(d["lo_revenue"].max())]
+                           for i, d in enumerate(data)], n,
+                          stats(np.ones(n, bool), 0, n, 1))
+
+    m = disc == 5
+    pairs = np.unique((year[m] - 1992).astype(np.int64) * (1 << 23) + rev[m])
+    dc = np.bincount(pairs >> 23, minlength=7)
+    want["dc_raw"] = ([[1992 + y, int(dc[y])] for y in range(7) if dc[y]],
+                      int(m.sum()), stats(m, 1, int(m.sum()), 1))
+
+    rows = []
+    for r in range(5):
+        mr = region == r
+        t0, t1 = od[mr].min(), od[mr].max()
+        rows.append([str(REGIONS[r]), int(rev[mr & (od == t0)].max()),
+                     int(qty[mr & (od == t1)].max())])
+    want["first_last"] = (rows, n, stats(np.ones(n, bool), 0, n, 4))
     return want
 
 
@@ -1523,6 +1716,7 @@ def main(argv=None) -> int:
     want = oracle(data)
     want.update(bs_oracle(bs_data, pad))
     want.update(st_oracle(data, want))
+    want.update(sel_oracle(data, bs_data))
     total = S * rows
     del data, bs_data
     log(f"numpy oracle: {time.perf_counter() - t:.2f} s")

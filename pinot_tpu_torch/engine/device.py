@@ -45,11 +45,19 @@ partial of its query (``reduce_mode``) trims a group-by to its ORDER BY's
 top rows on the card (ops/device_reduce.py), so the fetch copies those
 rows only; all leaves come to the host in one copy.
 
-This slice covers the scalar ``agg`` and dense ``groupby`` shapes. The
-sorted high-cardinality group-by regime, DISTINCT and
-first/last-with-time raise DeviceUnsupported and come with later slices.
-There is no fallback ladder: a device or kernel error propagates to the
-caller.
+FIRSTWITHTIME / LASTWITHTIME run as torch scatters (a scatter-min or
+-max of the times, then a scatter-max of the values at the winning time),
+as the reference leaves them to XLA. DISTINCT over dict columns is the
+group machinery with no aggregation: presence is the count channel (K1).
+
+``launch`` builds the reference's device template; where the reference's
+device refuses a shape and its host path answers it (selection,
+DISTINCT over other columns, group keys over expressions, raw or
+virtual columns, DISTINCTCOUNT over raw columns), the query runs in
+that path's shape, still on the card (engine/rows.py). The sorted
+high-cardinality group-by regime raises DeviceUnsupported and comes
+with a later slice. There is no fallback ladder: a device or kernel
+error propagates to the caller.
 """
 
 from __future__ import annotations
@@ -61,7 +69,7 @@ import torch
 
 from pinot_tpu_torch import resolve_device
 from pinot_tpu_torch.common.options import bool_option
-from pinot_tpu_torch.engine import aggspec
+from pinot_tpu_torch.engine import aggspec, rows
 from pinot_tpu_torch.engine.params import (
     BatchContext,
     DeviceUnsupported,
@@ -80,29 +88,32 @@ from pinot_tpu_torch.ops import hll as hll_ops
 from pinot_tpu_torch.ops import kernels
 from pinot_tpu_torch.ops import masks as mask_ops
 from pinot_tpu_torch.ops import radix_groupby as radix_ops
+from pinot_tpu_torch.ops import selection as sel_ops
 from pinot_tpu_torch.ops.transform import get_function
 from pinot_tpu_torch.query.context import Expression, QueryContext
 from pinot_tpu_torch.storage.segment import Encoding
 
 DEVICE_AGGS = {"count", "sum", "min", "max", "avg", "minmaxrange",
-               "distinctcount", "distinctcounthll", "hllmerge"}
+               "distinctcount", "distinctcounthll", "hllmerge",
+               "firstwithtime", "lastwithtime"}
+# what the reference's sorted high-cardinality regime runs
+SORTED_AGGS = ("count", "sum", "avg", "min", "max", "minmaxrange")
+WITH_TIME_AGGS = ("firstwithtime", "lastwithtime")
 SKETCH_AGGS = ("distinctcount", "distinctcounthll")
 # aggregations whose state is per-group presence or registers: they
 # finalize on the card in a terminal launch
-STATE_AGGS = SKETCH_AGGS + ("hllmerge",)
+STATE_AGGS = SKETCH_AGGS + ("hllmerge", "distinctcount_v")
 # answered as DISTINCTCOUNT over a dict column, as in the reference
 DISTINCTCOUNT_ALIASES = ("distinctcountbitmap",
                          "segmentpartitioneddistinctcount")
 
-# aggregations the reference runs on its device that this port runs in a
-# later slice
-LATER_AGGS = {
-    "firstwithtime": "first/last-with-time",
-    "lastwithtime": "first/last-with-time",
-}
-
 MAX_DENSE_GROUPS = 1 << 22        # ARRAY_BASED regime guard (~4M groups)
 MAX_PRESENCE_CELLS = 1 << 24      # per-group distinct/HLL state guard
+
+
+class PortUnsupported(DeviceUnsupported):
+    """A shape the reference's device runs that this port runs in a later
+    slice: refused in-band, never answered in another shape."""
 
 
 def _torch_dtype(np_str: str) -> torch.dtype:
@@ -158,6 +169,8 @@ def _eval_filter(tpl, cols, params, shape, device, widths=None):
         return torch.ones(shape, dtype=torch.bool, device=device)
     if kind == "false":
         return torch.zeros(shape, dtype=torch.bool, device=device)
+    if kind == "mask":  # evaluated in value space (engine/rows.py)
+        return cols["__mask__"]
     if kind in ("and", "or"):
         m = _eval_filter(tpl[1], cols, params, shape, device, widths)
         for c in tpl[2:]:
@@ -250,8 +263,9 @@ def _try_mm_groupby(aggs, gid, cols, params, num_groups, outs, widths,
     use_ps = ps.sums_supported(num_groups, total_ch)
     if not use_ps and not mm.mm_supported(num_groups, total_ch - 1):
         return set()
-    if not plans and not any(a[0] in ("count", "avg") for a in aggs):
-        return set()
+    # every group-by takes its counts here, even one that aggregates none
+    # (DISTINCT's presence is the count): few groups would contend in a
+    # histogram
 
     entry = ps.plane_group_sums if use_ps else mm.group_sums
     sums = entry(gid.reshape(-1), [src for _i, src in plans], num_groups,
@@ -436,6 +450,20 @@ def _finalize_sketch_outs(outs: dict, agg_tpls) -> None:
             regs = outs.pop(f"{k}_regs")
             est = hll_ops.estimate_torch(regs.reshape(-1, 1 << extra))
             outs[f"{k}_est"] = est[0] if regs.dim() == 1 else est
+
+
+def with_time_partial(name: str, outs: dict, k: str, present):
+    """The (time, value) leaves of FIRSTWITHTIME / LASTWITHTIME → the
+    canonical {"val", "time"} partial: an empty group keeps the time
+    sentinel and a NaN value, and -inf (no non-NaN winner) becomes NaN."""
+    t = np.asarray(outs[f"{k}_t"]).reshape(-1).astype(np.int64)
+    v = np.asarray(outs[f"{k}_v"], dtype=np.float64).reshape(-1)
+    if present is not None:
+        t, v = t[present], v[present]
+    sentinel = agg_ops.INT64_MAX if name == "firstwithtime" \
+        else agg_ops.INT64_MIN
+    return {"val": np.where((t == sentinel) | np.isneginf(v), np.nan, v),
+            "time": t}
 
 
 def _fused_params(plan, params, widths) -> dict:
@@ -661,6 +689,23 @@ def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS,
                 regs.scatter_reduce_(0, idx, planes, "amax")
                 outs[f"{k}_regs"] = regs[:num_groups]
                 continue
+            if name in WITH_TIME_AGGS:
+                outs[f"{k}_t"], outs[f"{k}_v"] = agg_ops.group_arg_time(
+                    gid, _eval_expr(argt[0], cols, params, widths),
+                    _eval_expr(argt[1], cols, params, widths), num_groups,
+                    name == "firstwithtime")
+                continue
+            if name == "distinctcount_v":
+                # a value key plane (engine/rows.py): distinct (group,
+                # value) pairs, counted per group when terminal
+                vk = cols[argt].reshape(-1)
+                if final:
+                    outs[f"{k}_cnt"] = sel_ops.distinct_pair_counts(
+                        gid.reshape(-1), vk, num_groups)
+                else:
+                    outs[f"{k}_pg"], outs[f"{k}_pv"] = sel_ops.distinct_pairs(
+                        gid.reshape(-1), vk, num_groups)
+                continue
             if name in ("sum", "avg"):
                 outs[f"{k}_sum"] = agg_ops.group_sum(
                     gid, _eval_expr(argt, cols, params, widths), num_groups)
@@ -685,6 +730,21 @@ def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS,
                 planes = cols["bp::" + argt].to(torch.int32)
                 outs[f"{k}_regs"] = torch.where(
                     mask[..., None], planes, 0).amax(dim=(0, 1))
+                continue
+            if name in WITH_TIME_AGGS:
+                outs[f"{k}_t"], outs[f"{k}_v"] = agg_ops.agg_arg_time(
+                    _eval_expr(argt[0], cols, params, widths),
+                    _eval_expr(argt[1], cols, params, widths), mask,
+                    name == "firstwithtime")
+                continue
+            if name == "distinctcount_v":
+                vk = cols[argt][mask]
+                if final:
+                    outs[f"{k}_cnt"] = torch.tensor(
+                        torch.unique(vk).numel(), dtype=torch.int64,
+                        device=vk.device)
+                else:
+                    outs[f"{k}_pv"] = torch.unique(vk)
                 continue
             v = _eval_expr(argt, cols, params, widths)
             if name in ("sum", "avg"):
@@ -730,6 +790,25 @@ def _needed_columns(tpl) -> set:
 
     walk(tpl)
     return out
+
+
+def agg_columns(tpl) -> set:
+    """The cols keys one aggregation template reads (a value-space plane
+    made for the launch, ``__``-prefixed, is not a batch column)."""
+    name, argt, _extra = tpl
+    if name == "distinctcount":
+        out = {argt}
+    elif name == "distinctcounthll":
+        out = {"hh::" + argt}
+    elif name == "hllmerge":
+        out = {"bp::" + argt}
+    elif name in WITH_TIME_AGGS:
+        out = _needed_columns(argt[0]) | _needed_columns(argt[1])
+    elif name == "distinctcount_v" or argt is None:
+        out = set()
+    else:
+        out = _needed_columns(argt)
+    return {c for c in out if not c.startswith("__")}
 
 
 # ---------------------------------------------------------------------------
@@ -780,10 +859,6 @@ class DeviceExecutor:
         name = a.name
         if name in DISTINCTCOUNT_ALIASES:
             name = "distinctcount"
-        if name in LATER_AGGS:
-            raise DeviceUnsupported(
-                f"{name}: the {LATER_AGGS[name]} aggregations come with a "
-                f"later slice of the port")
         if name not in DEVICE_AGGS:
             raise DeviceUnsupported(f"aggregation {name} not on device")
         if name == "count":
@@ -813,6 +888,13 @@ class DeviceExecutor:
                 raise DeviceUnsupported(
                     f"hllmerge plane width {width} != m {spec.m}")
             return ("hllmerge", arg.name, spec.log2m)
+        if name in WITH_TIME_AGGS:
+            # a value and a time expression; a non-numeric value column
+            # has no device form (build_expr refuses it), as in the
+            # reference
+            return (name, (build_expr(a.args[0], ctx, params, counter),
+                           build_expr(a.args[1], ctx, params, counter)),
+                    "pair")
         argt = build_expr(a.args[0], ctx, params, counter)
         if name not in ("sum", "avg"):
             return (name, argt, None)
@@ -828,57 +910,63 @@ class DeviceExecutor:
                 math.floor(bounds[0]), dtype=torch.int64, device=ctx.device)
         return (name, argt, (nplanes, rpb))
 
-    def launch(self, q: QueryContext, segments, final: bool = False,
-               reduce_mode=None, alive=None) -> Launch:
-        """Template build + column upload (cached per segment set) + the
-        pipeline's torch ops and kernel launches, enqueued on the current
-        stream. ``final``: the launch is terminal (nothing merges after
-        it), so distinct counts and HLL finalize on the card. Raises
-        DeviceUnsupported for shapes this slice does not run on the
-        device.
-
-        ``reduce_mode``: None, or "terminal" / "partial" when this batch
-        is the sole partial of its execution: a group-by then takes the
-        on-device trim (ops/device_reduce.py) unless ``SET
-        useDeviceReduce = false``.
-
-        Level 1: segments the SegmentPruner proves empty stay in the
-        batch, dead (``ps_alive``; ``alive`` passes verdicts the caller
-        already has); when every segment is pruned nothing runs on the
-        card. Level 2: a filter with interval structure takes the
-        block-skip forms unless ``SET useBlockSkip = false``."""
+    def supports(self, q: QueryContext) -> bool:
+        """Whether the reference's device runs ``q`` (the static check its
+        EXPLAIN names the backend by); the port runs every shape on the
+        card, the others in the reference host path's shape."""
         aggs = q.aggregations()
         if q.distinct:
-            raise DeviceUnsupported("DISTINCT comes with a later slice of "
-                                    "the port")
+            return not aggs and all(e.is_identifier
+                                    for e in q.select_expressions)
         if not aggs:
-            raise DeviceUnsupported("selection queries come with a later "
-                                    "slice of the port")
-        for s in segments:
-            if getattr(s, "is_mutable", False) \
-                    or getattr(s, "valid_docs_mask", None) is not None:
-                raise DeviceUnsupported("consuming/upsert segments come with "
-                                        "a later slice of the port")
-        ctx = self.batch_for(segments)
-        params: dict = {}
-        counter = [0]
+            return False
+        return all(a.name in DEVICE_AGGS or a.name in DISTINCTCOUNT_ALIASES
+                   for a in aggs)
+
+    def alive_mask(self, q: QueryContext, segments, alive=None):
+        """Level 1: per segment, not proved empty by the SegmentPruner
+        (``alive`` passes verdicts the caller already has)."""
+        if alive is not None:
+            return np.asarray(alive, dtype=bool)
+        out = np.ones(len(segments), dtype=bool)
+        if q.filter is not None:
+            if self._pruner is None:
+                from pinot_tpu_torch.engine.engine import SegmentPruner
+
+                self._pruner = SegmentPruner()
+            for j, s in enumerate(segments):
+                out[j] = not self._pruner.prune(q, s)
+        return out
+
+    def _template(self, q: QueryContext, ctx: BatchContext, params,
+                  counter, final: bool) -> tuple:
+        """The reference's device template for ``q``. Raises
+        DeviceUnsupported where the reference's device refuses the shape
+        (its host path answers it), PortUnsupported where the reference's
+        device runs it and this port does not yet."""
+        aggs = q.aggregations()
+        if not aggs and not q.distinct:
+            raise DeviceUnsupported("selection runs in the host's shape")
         filter_tpl = ("true",) if q.filter is None else build_filter(
             q.filter, ctx, params, counter)
-
         group_cols, group_cards = [], []
-        for g in q.group_by or ():
+        for g in (q.select_expressions if q.distinct else q.group_by) or ():
             if not g.is_identifier or ctx.encoding(g.name) != Encoding.DICT:
                 raise DeviceUnsupported(
                     "group-by must be dict columns on device")
             group_cols.append(g.name)
             group_cards.append(ctx.cardinality(g.name))
-        if math.prod(group_cards) > MAX_DENSE_GROUPS:
-            raise DeviceUnsupported(
+        num_groups = math.prod(group_cards)
+        if num_groups > MAX_DENSE_GROUPS:
+            if any(a.name not in SORTED_AGGS for a in aggs):
+                raise DeviceUnsupported(
+                    "aggregation outside the sorted group-by regime")
+            raise PortUnsupported(
                 "group counts past the dense regime run in the sorted "
-                "regime, which comes with a later slice of the port")
+                "regime, which comes with a later slice of the port "
+                "(ROADMAP queue 1, item f)")
         agg_tpls = tuple(self._agg_template(i, a, ctx, params, counter)
                          for i, a in enumerate(aggs))
-        num_groups = math.prod(group_cards)
         for name, _argt, extra in agg_tpls:
             if group_cols and name in STATE_AGGS:
                 cells = num_groups * (extra if name == "distinctcount"
@@ -887,70 +975,15 @@ class DeviceExecutor:
                     raise DeviceUnsupported(
                         f"{name} per-group state too large ({cells})")
         final = final and any(name in STATE_AGGS for name, _, _ in agg_tpls)
-        template = ("groupby" if group_cols else "agg", filter_tpl,
-                    tuple(group_cols), tuple(group_cards), agg_tpls, final)
+        return ("groupby" if group_cols else "agg", filter_tpl,
+                tuple(group_cols), tuple(group_cards), agg_tpls, final)
 
-        opts = q.options_ci()
-        # Level-2 eligibility: the filter has interval structure the zone
-        # maps can act on, the batch is block-aligned, and the query did
-        # not opt out (SET useBlockSkip = false, the force-dense form)
-        use_bs, zone_cols = False, set()
-        if filter_tpl[0] not in ("true", "false") \
-                and bool_option(opts, "useblockskip", None) is not False \
-                and ctx.pad_to % bs_ops.BLOCK_ROWS == 0:
-            prunable, zone_cols = bs_ops.prunable_columns(filter_tpl)
-            use_bs = prunable and bool(zone_cols)
-        # Level 1: the filter tree against each segment's column stats;
-        # a per-query vector param, pruned segments stay in the batch
-        if alive is not None:
-            alive = np.asarray(alive, dtype=bool)
-        else:
-            alive = np.ones(ctx.S, dtype=bool)
-            if q.filter is not None:
-                if self._pruner is None:
-                    from pinot_tpu_torch.engine.engine import SegmentPruner
-
-                    self._pruner = SegmentPruner()
-                for j, s in enumerate(segments):
-                    alive[j] = not self._pruner.prune(q, s)
-        params["ps_alive"] = to_device(alive, ctx.device)
-
-        # on-device final reduce (ops/device_reduce.py): plan the ORDER BY
-        # trim when this batch is the sole partial of its execution; the
-        # exact keep count rides as the tr_k param
-        trim = None
-        if reduce_mode is not None and group_cols:
-            trim = dr_ops.plan_trim(q, q.group_by, aggs, num_groups,
-                                    reduce_mode, self.group_trim_size)
-            if trim is not None:
-                params["tr_k"] = torch.tensor(
-                    dr_ops.trim_keep_count(q, reduce_mode,
-                                           self.group_trim_size),
-                    dtype=torch.int64, device=ctx.device)
-
-        # SET useSortedProjection = false keeps the per-query sort (the
-        # cold form); by default a filterless terminal HLL group-by reads
-        # the batch's cached sorted projection
-        sorted_proj_ok = bool_option(opts, "usesortedprojection",
-                                     None) is not False
-        needed = _needed_columns(filter_tpl) | set(group_cols)
-        for zc in zone_cols if use_bs else ():
-            needed |= {bs_ops.ZLO + zc, bs_ops.ZHI + zc}
-        for name, argt, extra in agg_tpls:
-            if name == "distinctcount":
-                needed.add(argt)
-            elif name == "distinctcounthll":
-                if (group_cols and filter_tpl == ("true",) and sorted_proj_ok
-                        and _hll_sort_eligible(final, num_groups, extra)):
-                    needed.add(f"sk::{argt}::{extra}")
-                else:
-                    needed.add("hh::" + argt)
-            elif name == "hllmerge":
-                needed.add("bp::" + argt)
-            elif argt is not None:
-                needed |= _needed_columns(argt)
-        if not needed:  # COUNT(*) no filter: one column carries the shape
-            needed.add(segments[0].column_names()[0])
+    @staticmethod
+    def gather_columns(ctx: BatchContext, needed, params, group_cols=(),
+                       group_cards=()) -> tuple:
+        """(widths, cols) for the cols keys ``needed``: each plane as the
+        batch holds it, its width plan's signature, and its FOR offset
+        added to ``params``."""
         widths, cols = {}, {}
         for c in sorted(needed):
             if c.startswith((bs_ops.ZLO, bs_ops.ZHI)):
@@ -976,6 +1009,98 @@ class DeviceExecutor:
                     ctx.device)
             cols[c] = ctx.decoded_column(c[4:]) if c.startswith("dv::") \
                 else ctx.column(c)
+        return widths, cols
+
+    def launch(self, q: QueryContext, segments, final: bool = False,
+               reduce_mode=None, alive=None):
+        """Template build + column upload (cached per segment set) + the
+        pipeline's torch ops and kernel launches, enqueued on the current
+        stream. ``final``: the launch is terminal (nothing merges after
+        it), so distinct counts and HLL finalize on the card. A shape the
+        reference's device refuses runs in its host path's shape on the
+        card (engine/rows.py); one this slice does not run raises
+        DeviceUnsupported.
+
+        ``reduce_mode``: None, or "terminal" / "partial" when this batch
+        is the sole partial of its execution: a group-by then takes the
+        on-device trim (ops/device_reduce.py) unless ``SET
+        useDeviceReduce = false``.
+
+        Level 1: segments the SegmentPruner proves empty stay in the
+        batch, dead (``ps_alive``; ``alive`` passes verdicts the caller
+        already has); when every segment is pruned nothing runs on the
+        card. Level 2: a filter with interval structure takes the
+        block-skip forms unless ``SET useBlockSkip = false``."""
+        if q.distinct and q.aggregations():
+            raise DeviceUnsupported("DISTINCT over aggregations")
+        for s in segments:
+            if getattr(s, "is_mutable", False) \
+                    or getattr(s, "valid_docs_mask", None) is not None:
+                raise DeviceUnsupported("consuming/upsert segments come with "
+                                        "a later slice of the port")
+        ctx = self.batch_for(segments)
+        alive = self.alive_mask(q, segments, alive)
+        params: dict = {}
+        counter = [0]
+        try:
+            template = self._template(q, ctx, params, counter, final)
+        except PortUnsupported:
+            raise
+        except DeviceUnsupported:
+            # the reference answers this shape on its host: the card runs
+            # it in that shape
+            return rows.launch(self, q, ctx, final, reduce_mode, alive)
+        _shape, filter_tpl, group_cols, group_cards, agg_tpls, final = \
+            template
+        aggs = q.aggregations()
+        num_groups = math.prod(group_cards)
+
+        opts = q.options_ci()
+        # Level-2 eligibility: the filter has interval structure the zone
+        # maps can act on, the batch is block-aligned, and the query did
+        # not opt out (SET useBlockSkip = false, the force-dense form)
+        use_bs, zone_cols = False, set()
+        if filter_tpl[0] not in ("true", "false") \
+                and bool_option(opts, "useblockskip", None) is not False \
+                and ctx.pad_to % bs_ops.BLOCK_ROWS == 0:
+            prunable, zone_cols = bs_ops.prunable_columns(filter_tpl)
+            use_bs = prunable and bool(zone_cols)
+        # Level 1: a per-query vector param, pruned segments stay in the
+        # batch
+        params["ps_alive"] = to_device(alive, ctx.device)
+
+        # on-device final reduce (ops/device_reduce.py): plan the ORDER BY
+        # trim when this batch is the sole partial of its execution; the
+        # exact keep count rides as the tr_k param
+        trim = None
+        if reduce_mode is not None and group_cols:
+            trim = dr_ops.plan_trim(q, q.group_by, aggs, num_groups,
+                                    reduce_mode, self.group_trim_size)
+            if trim is not None:
+                params["tr_k"] = torch.tensor(
+                    dr_ops.trim_keep_count(q, reduce_mode,
+                                           self.group_trim_size),
+                    dtype=torch.int64, device=ctx.device)
+
+        # SET useSortedProjection = false keeps the per-query sort (the
+        # cold form); by default a filterless terminal HLL group-by reads
+        # the batch's cached sorted projection
+        sorted_proj_ok = bool_option(opts, "usesortedprojection",
+                                     None) is not False
+        needed = _needed_columns(filter_tpl) | set(group_cols)
+        for zc in zone_cols if use_bs else ():
+            needed |= {bs_ops.ZLO + zc, bs_ops.ZHI + zc}
+        for name, argt, extra in agg_tpls:
+            if (name == "distinctcounthll" and group_cols
+                    and filter_tpl == ("true",) and sorted_proj_ok
+                    and _hll_sort_eligible(final, num_groups, extra)):
+                needed.add(f"sk::{argt}::{extra}")
+            else:
+                needed |= agg_columns((name, argt, extra))
+        if not needed:  # COUNT(*) no filter: one column carries the shape
+            needed.add(segments[0].column_names()[0])
+        widths, cols = self.gather_columns(ctx, needed, params, group_cols,
+                                           group_cards)
         if not alive.any():
             # FULLY pruned: nothing runs on the card
             outs = _neutral_outs(build_pipeline(template, widths,
@@ -1028,6 +1153,8 @@ class DeviceExecutor:
         its device there, the port answers in-band from the untrimmed
         accumulators its launch kept on the card (no second launch): the
         answer of ``SET useDeviceReduce = false``."""
+        if not isinstance(launch, Launch):  # the host path's shape
+            return launch.fetch(self)
         outs = self._to_host(launch.outs)
         if launch.full is not None:
             if int(outs["n_present_total"]) > self.groups_limit(launch.q):
@@ -1097,6 +1224,9 @@ class DeviceExecutor:
         keys.reverse()
         key_values = tuple(ctx.global_dict(col).take(k)
                            for col, k in zip(group_cols, keys))
+        if q.distinct:
+            return IntermediateResult("distinct", group_keys=key_values,
+                                      stats=stats)
         partials = [self._group_partial(i, t, outs, ctx, present)
                     for i, t in enumerate(agg_tpls)]
         return IntermediateResult("group_by", group_keys=key_values,
@@ -1123,6 +1253,8 @@ class DeviceExecutor:
             return {"max": one(f"{k}_max")}
         if name == "minmaxrange":
             return {"min": one(f"{k}_min"), "max": one(f"{k}_max")}
+        if name in WITH_TIME_AGGS:
+            return with_time_partial(name, outs, k, None)
         if name == "distinctcount":
             if f"{k}_cnt" in outs:  # terminal: popcount came from the card
                 return {"cnt": one(f"{k}_cnt", np.int64)}
@@ -1155,6 +1287,8 @@ class DeviceExecutor:
             return {"max": sel(f"{k}_max")}
         if name == "minmaxrange":
             return {"min": sel(f"{k}_min"), "max": sel(f"{k}_max")}
+        if name in WITH_TIME_AGGS:
+            return with_time_partial(name, outs, k, present)
         if name == "distinctcount":
             if f"{k}_cnt" in outs:  # terminal: popcounts came from the card
                 return {"cnt": sel(f"{k}_cnt", np.int64)}

@@ -20,7 +20,8 @@ unless ``SET useDeviceReduce = false``, and a terminal one finalizes its
 sketches on the card. There is no host scan: a query shape the port
 does not run on the device comes back as an in-band
 ``DeviceUnsupported`` exception in the response, as every other error
-does. Multi-stage queries and EXPLAIN come with later slices.
+does. Multi-stage queries and EXPLAIN ANALYZE come with later slices;
+EXPLAIN PLAN renders the plan (engine/explain.py).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import time
 from pinot_tpu_torch.common.pruning import interval_may_match, \
     provably_absent
 from pinot_tpu_torch.engine.device import DeviceExecutor
+from pinot_tpu_torch.engine.explain import explain_plan
 from pinot_tpu_torch.engine.params import DeviceUnsupported
 from pinot_tpu_torch.engine.reduce import finalize, merge_intermediates
 from pinot_tpu_torch.engine.result import IntermediateResult
@@ -98,14 +100,21 @@ class QueryEngine:
     """SQL in, response out, over in-process tables on one device.
 
     ``device``: None → the CUDA card (raises when there is none); pass
-    ``"cpu"`` to run the kernels' plain versions (the tests)."""
+    ``"cpu"`` to run the kernels' plain versions (the tests).
+    ``host_name``: the server instance name ``$hostName`` reads on the
+    segments added here (None: the machine's host name)."""
 
-    def __init__(self, device=None, num_groups_limit: int = 100_000):
+    def __init__(self, device=None, num_groups_limit: int = 100_000,
+                 host_name: str | None = None):
         self.device = DeviceExecutor(device, num_groups_limit=num_groups_limit)
         self.pruner = SegmentPruner()
         self.tables: dict[str, list] = {}
+        self.host_name = host_name
 
     def add_segment(self, table: str, seg: ImmutableSegment) -> None:
+        if self.host_name is not None \
+                and getattr(seg, "host_name", None) is None:
+            seg.host_name = self.host_name
         self.tables.setdefault(table, []).append(seg)
 
     def execute(self, sql: str) -> dict:
@@ -117,8 +126,11 @@ class QueryEngine:
                     "multi-stage queries come with a later slice of the port")
             q = optimize_query(compile_select(stmt))
             if q.explain:
-                raise DeviceUnsupported(
-                    "EXPLAIN comes with a later slice of the port")
+                if q.analyze:
+                    raise DeviceUnsupported(
+                        "EXPLAIN ANALYZE comes with a later slice of the "
+                        "port (ROADMAP queue 1, item i)")
+                return explain_plan(self, q)
             segments = self.tables.get(q.table_name)
             if not segments:
                 raise KeyError(f"table {q.table_name!r} not found")

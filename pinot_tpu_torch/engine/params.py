@@ -384,6 +384,21 @@ class BatchContext:
             self._store_zone_map("dv::" + name, zlo, zhi)
         return self._decoded[name]
 
+    def exact_column(self, name: str) -> torch.Tensor:
+        """(S, L) device tensor of a raw column's values at their STORED
+        dtype (a raw DOUBLE as float64, where ``column`` holds float32),
+        uploaded at first use: selection, ORDER BY, DISTINCT and group
+        keys read the values the host path reads (engine/values.py)."""
+        key = "x64::" + name
+        if key not in self._decoded:
+            dt = np.asarray(self.segments[0].forward(name)).dtype
+            blocks = np.zeros((self.S, self.pad_to), dtype=dt)
+            for i, s in enumerate(self.segments):
+                fwd = np.asarray(s.forward(name))
+                blocks[i, : len(fwd)] = fwd
+            self._upload(self._decoded, key, blocks)
+        return self._decoded[key]
+
     def prehashed_column(self, name: str) -> torch.Tensor:
         """(S, L) device int32 bit view of per-doc canonical value hashes
         (ops/hll.py ``hash32_np``, the hash the host register build
@@ -482,7 +497,7 @@ class BatchContext:
 # filter template + params
 # ---------------------------------------------------------------------------
 
-_DEVICE_PRED_TYPES = {
+DEVICE_PRED_TYPES = {
     PredicateType.EQ,
     PredicateType.NOT_EQ,
     PredicateType.IN,
@@ -527,7 +542,7 @@ def _slot(params: dict, counter: list, arr, device) -> str:
 
 def build_predicate(p: Predicate, ctx: BatchContext, params: dict,
                     counter: list):
-    if p.type not in _DEVICE_PRED_TYPES:
+    if p.type not in DEVICE_PRED_TYPES:
         raise DeviceUnsupported(f"predicate {p.type} not device-supported")
     lhs = p.lhs
     if lhs.is_identifier:

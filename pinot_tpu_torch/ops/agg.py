@@ -139,6 +139,60 @@ def slot_max(slots, values, num_slots: int):
     return _group_reduce(slots, values, num_slots, "amax", 0)
 
 
+def _arg_time_operands(values, times):
+    return times.to(torch.int64), values.to(torch.float64)
+
+
+INT64_MAX = (1 << 63) - 1
+INT64_MIN = -(1 << 63)
+
+
+def agg_arg_time(values, times, mask, is_first: bool):
+    """FIRSTWITHTIME / LASTWITHTIME over a mask: (best time, best value),
+    the min (first) or max (last) time over matched rows and the largest
+    non-NaN value among the rows at that time (-inf when there is none;
+    the host conversion turns it into NaN), as the JAX package's device
+    computes them: values ride as float64, times as int64."""
+    t, v = _arg_time_operands(values, times)
+    fill = INT64_MAX if is_first else INT64_MIN
+    tm = torch.where(mask, t, torch.full((), fill, dtype=torch.int64,
+                                         device=t.device))
+    tb = tm.min() if is_first else tm.max()
+    win = mask & (t == tb) & ~torch.isnan(v)
+    vb = torch.where(win, v, torch.full((), NEG_INF, dtype=torch.float64,
+                                        device=v.device)).max()
+    return tb, vb
+
+
+def _spread_reduce(flat, v, num_slots: int, how: str, init):
+    """(num_slots,) min or max of ``v`` per slot. Row i reduces into copy
+    i % B of the table, then the B copies reduce: with few slots, one
+    table would take every row's atomic on a handful of addresses."""
+    n = v.numel()
+    B = max(1, min(1024, (1 << 24) // num_slots, n))
+    slot = (torch.arange(n, device=v.device) % B) * num_slots + flat
+    part = torch.full((B * num_slots,), init, dtype=v.dtype, device=v.device)
+    part.scatter_reduce_(0, slot, v, how, include_self=True)
+    part = part.view(B, num_slots)
+    return part.amin(0) if how == "amin" else part.amax(0)
+
+
+def group_arg_time(gids, values, times, num_groups: int, is_first: bool):
+    """Dense-group FIRSTWITHTIME / LASTWITHTIME: per group the extremal
+    time (a scatter-min or -max), then the largest non-NaN value among the
+    rows carrying their group's winning time (a scatter-max; -inf when
+    there is none). Masked rows carry the overflow id."""
+    flat = gids.reshape(-1).to(torch.int64)
+    t, v = _arg_time_operands(values.reshape(-1), times.reshape(-1))
+    fill = INT64_MAX if is_first else INT64_MIN
+    tb = _spread_reduce(flat, t, num_groups + 1,
+                        "amin" if is_first else "amax", fill)
+    win = (t == tb[flat]) & ~torch.isnan(v)
+    vb = _spread_reduce(flat, torch.where(win, v, NEG_INF), num_groups + 1,
+                        "amax", NEG_INF)
+    return tb[:num_groups], vb[:num_groups]
+
+
 def group_ids_combine(per_col_gids, cardinalities, mask, num_groups: int):
     """Combine per-column global ids into one dense group id (the
     ARRAY_BASED regime of DictionaryBasedGroupKeyGenerator: key == id by

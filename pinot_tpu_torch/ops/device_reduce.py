@@ -209,7 +209,9 @@ def apply_trim(outs: dict, tr_k: torch.Tensor, template, spec) -> dict:
     for ent in order:
         if ent[0] == "col":
             _tag, j, asc = ent
-            k = col_component(j)
+            # a factorized table (engine/rows.py) carries each group's
+            # key order as a leaf; a dense one decodes it from the slot
+            k = outs[f"gk{j}"] if f"gk{j}" in outs else col_component(j)
         else:
             _tag, i, field, asc = ent
             if field == "count":
