@@ -34,7 +34,9 @@ Phases, all on ``cuda:0``:
    computes, the port's generic gathered form), beside the memory bound.
 3. Both tables are loaded into one ``QueryEngine(device="cuda")``; K4 is
    held against its plain version once more at the block-skip path's
-   own candidates, and five paths run: the six SSB scan/filter/group-by
+   own candidates, K1 and K2 at the selection path's own inputs
+   (gb_expr's and gb_segment's factorized group-id planes and value
+   planes, captured at the kernels' entries), and five paths run: the six SSB scan/filter/group-by
    queries, the five HLL and DISTINCTCOUNT queries, the six block-skip
    queries on the sorted table, the star-tree path (bench.py's
    q4_highcard_hll and q5_startree on the cubes, a filtered cube
@@ -909,7 +911,7 @@ def absorbed_channels(sources, count: bool):
         r = 1
     for s in sources:
         for p in kernels.source_channels(s):
-            ch[r].copy_(p)
+            ch[r].copy_(p.reshape(-1))
             r += 1
     return ch
 
@@ -966,72 +968,77 @@ def check_split_dtypes(dev, n: int = 1_000_003) -> None:
         f"n={n}: bit-exact")
 
 
-def check_k1(n: int, dev) -> dict:
-    """K1 at each main-path shape against its plain version: integer rows
-    bit-exact, float planes and their sum within rtol 1e-6; q5 once more
-    with a flush every 65,536 rows. Times: the kernel, the channel build
-    it absorbed, the plain version and one ``index_add_`` of the widened
-    values; the bound is the ids' and the stored values' bytes read once
-    and the output written once. Returns q1's numbers with every shape's
-    under ``shapes``."""
+def k1_shape(label: str, entry, G: int, sources, count: bool, gid) -> dict:
+    """K1 at one shape against its plain version: integer rows bit-exact,
+    float planes and their sum within rtol 1e-6. Times: the kernel, the
+    channel build it absorbed, the plain version and one ``index_add_`` of
+    the widened values; the bound is the ids' and the stored values'
+    bytes read once and the output written once."""
     import torch
     from pinot_tpu_torch.ops import kernels
 
-    shapes = []
-    for label, entry, G, sources, count, gid in _k1_shapes(n, dev):
-        got = entry(gid, sources, G, count=count)
-        want = kernels.group_plane_sums_plain(gid, sources, G, count)
-        torch.cuda.synchronize()
-        layout = kernels.plane_layout(sources, count)
-        int_rows = [a for a, (region, _r) in enumerate(layout)
-                    if region == "int" or any(s.kind == "bf16"
-                                              for s in sources)]
-        flt_rows = [a for a in range(len(layout)) if a not in int_rows]
-        err = float((got - want).abs().max())
-        if not torch.equal(got[int_rows], want[int_rows]):
-            raise AssertionError(f"K1 {label}: integer rows differ, max abs "
-                                 f"err {err}")
-        rel = 0.0
-        if flt_rows:
-            g, w = got[flt_rows], want[flt_rows]
-            rel = max(float(((g - w).abs() / w.abs().clamp_min(1e-30)).max()),
-                      float(((g.sum(0) - w.sum(0)).abs()
-                             / w.sum(0).abs().clamp_min(1e-30)).max()))
-            if not rel <= 1e-6:
-                raise AssertionError(f"K1 {label}: float planes off by "
-                                     f"{rel} relative (tolerance 1e-6)")
-        if G == 35:
-            seg = kernels.group_plane_sums(gid, sources, G, count=count,
-                                           seg_rows=65536)
-            if not torch.equal(seg, want):
-                raise AssertionError("K1 q5 with a flush every 65,536 rows "
-                                     "differs")
-        ms = cuda_ms(lambda: entry(gid, sources, G, count=count), 10)
-        absorbed_ms = cuda_ms(lambda: absorbed_channels(sources, count), 5)
-        plain_ms = cuda_ms(lambda: kernels.group_plane_sums_plain(
-            gid, sources, G, count), 3)
-        vals = ([torch.ones(n, dtype=torch.float64, device=dev)]
-                if count else []) + [
-            s.values.to(torch.float64) for s in sources]
-        V = torch.stack(vals)
-        del vals
-        lib_out = torch.zeros((V.shape[0], G + 1), dtype=torch.float64,
-                              device=dev)
-        lib_ms = cuda_ms(lambda: lib_out.index_add_(1, gid, V), 5)
-        del V, lib_out
-        A = len(layout)
-        nbytes = 4 * n + n * sum(s.values.element_size() for s in sources) \
-            + 8 * A * G
-        b, by = bound_ms(nbytes, n * A)
-        shapes.append(dict(shape=f"n={n} {label}", max_abs_err=err,
-                           float_max_rel_err=rel, ms=ms,
-                           absorbed_ms=absorbed_ms, plain_ms=plain_ms,
-                           bound_ms=b, bound_by=by, library_ms=lib_ms))
-        log(f"K1 {shapes[-1]['shape']}: {ms:.4f} ms, absorbed channel build "
-            f"{absorbed_ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ "
-            f"{lib_ms:.4f} ms, bound {b:.4f} ms; integer rows bit-exact"
-            + (f", float planes max rel err {rel:.3e}" if flt_rows else ""))
-        del got, want
+    n, dev = gid.numel(), gid.device
+    got = entry(gid, sources, G, count=count)
+    want = kernels.group_plane_sums_plain(gid, sources, G, count)
+    torch.cuda.synchronize()
+    layout = kernels.plane_layout(sources, count)
+    int_rows = [a for a, (region, _r) in enumerate(layout)
+                if region == "int" or any(s.kind == "bf16" for s in sources)]
+    flt_rows = [a for a in range(len(layout)) if a not in int_rows]
+    err = float((got - want).abs().max())
+    if not torch.equal(got[int_rows], want[int_rows]):
+        raise AssertionError(f"K1 {label}: integer rows differ, max abs "
+                             f"err {err}")
+    rel = 0.0
+    if flt_rows:
+        g, w = got[flt_rows], want[flt_rows]
+        rel = max(float(((g - w).abs() / w.abs().clamp_min(1e-30)).max()),
+                  float(((g.sum(0) - w.sum(0)).abs()
+                         / w.sum(0).abs().clamp_min(1e-30)).max()))
+        if not rel <= 1e-6:
+            raise AssertionError(f"K1 {label}: float planes off by "
+                                 f"{rel} relative (tolerance 1e-6)")
+    if G == 35:
+        seg = kernels.group_plane_sums(gid, sources, G, count=count,
+                                       seg_rows=65536)
+        if not torch.equal(seg, want):
+            raise AssertionError("K1 q5 with a flush every 65,536 rows "
+                                 "differs")
+    del got, want
+    ms = cuda_ms(lambda: entry(gid, sources, G, count=count), 10)
+    absorbed_ms = cuda_ms(lambda: absorbed_channels(sources, count), 5) \
+        if sources else 0.0
+    plain_ms = cuda_ms(lambda: kernels.group_plane_sums_plain(
+        gid, sources, G, count), 3)
+    vals = ([torch.ones(n, dtype=torch.float64, device=dev)]
+            if count else []) + [s.values.reshape(-1).to(torch.float64)
+                                 for s in sources]
+    V = torch.stack(vals)
+    del vals
+    lib_out = torch.zeros((V.shape[0], G + 1), dtype=torch.float64,
+                          device=dev)
+    g64 = gid.reshape(-1).long()
+    lib_ms = cuda_ms(lambda: lib_out.index_add_(1, g64, V), 5)
+    del V, lib_out, g64
+    A = len(layout)
+    nbytes = gid.element_size() * n \
+        + n * sum(s.values.element_size() for s in sources) + 8 * A * G
+    b, by = bound_ms(nbytes, n * A)
+    out = dict(shape=f"n={n} {label}", max_abs_err=err,
+               float_max_rel_err=rel, ms=ms, absorbed_ms=absorbed_ms,
+               plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=lib_ms)
+    log(f"K1 {out['shape']}: {ms:.4f} ms, absorbed channel build "
+        f"{absorbed_ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ "
+        f"{lib_ms:.4f} ms, bound {b:.4f} ms; integer rows bit-exact"
+        + (f", float planes max rel err {rel:.3e}" if flt_rows else ""))
+    return out
+
+
+def check_k1(n: int, dev) -> dict:
+    """K1 at each synthetic main-path shape (``_k1_shapes``) through
+    ``k1_shape``, q5 once more with a flush every 65,536 rows. Returns
+    q1's numbers with every shape's under ``shapes``."""
+    shapes = [k1_shape(*shape) for shape in _k1_shapes(n, dev)]
     return dict(shapes[0], shapes=shapes)
 
 
@@ -1124,55 +1131,79 @@ def q6_minmax_sources(n: int, dev, seed: int = 13) -> tuple:
         MinMaxSource(qty, ("min", "max"), (imax, imin), fo, torch.int32)]
 
 
+def k2_shape(label: str, gid, srcs, G: int) -> dict:
+    """K2 at one shape, in one launch, against its plain version,
+    bit-exact. Times: the kernel, the widening and FOR add it absorbed
+    (``minmax_decode`` of each source it decodes, as engine/device.py
+    ``_data_col`` ran it before each launch), the plain version and one
+    ``scatter_reduce_`` a source and op over the decoded values; the bound
+    is the ids' and the stored planes' bytes read once and the outputs
+    written once."""
+    import torch
+    from pinot_tpu_torch.ops import group_scatter as ps
+    from pinot_tpu_torch.ops import kernels
+
+    n, dev = gid.numel(), gid.device
+    before = kernels.launches["group_minmax"]
+    got = ps.group_minmax_sources(gid, srcs, G)
+    if kernels.launches["group_minmax"] - before != 1:
+        raise AssertionError(f"K2 at {label} took more than one launch")
+    want = kernels.group_minmax_plain(gid, srcs, G)
+    torch.cuda.synchronize()
+    pairs = [(a, b) for gs, ws in zip(got, want) for a, b in zip(gs, ws)]
+    err = max(float((a.double() - b.double()).abs().max()) for a, b in pairs)
+    if not all(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs):
+        raise AssertionError(f"K2 at {label} differs, max abs err {err}")
+    del got, want, pairs
+    ms = cuda_ms(lambda: ps.group_minmax_sources(gid, srcs, G), 10)
+    widened = [s for s in srcs
+               if s.plus is not None or s.dtype != s.values.dtype]
+    absorbed_ms = cuda_ms(lambda: [kernels.minmax_decode(s)
+                                   for s in widened], 5) if widened else 0.0
+    plain_ms = cuda_ms(lambda: kernels.group_minmax_plain(gid, srcs, G), 3)
+    g64 = gid.reshape(-1).long()
+    decoded = [kernels.minmax_decode(s) for s in srcs]
+    outs = [torch.empty(G + 1, dtype=s.dtype, device=dev) for s in srcs]
+
+    def library():
+        for v, s, o in zip(decoded, srcs, outs):
+            for op, fill in zip(s.ops, s.fills):
+                o.fill_(fill).scatter_reduce_(0, g64, v, "a" + op)
+    lib_ms = cuda_ms(library, 5)
+    del g64, decoded, outs
+    cells = sum(len(s.ops) for s in srcs)
+    nbytes = gid.element_size() * n \
+        + n * sum(s.values.element_size() for s in srcs) + 4 * cells * G
+    b, by = bound_ms(nbytes, n * cells)
+    out = dict(shape=f"n={n} G={G} {label}", max_abs_err=err, ms=ms,
+               absorbed_ms=absorbed_ms, plain_ms=plain_ms, bound_ms=b,
+               bound_by=by, library_ms=lib_ms)
+    log(f"K2 {out['shape']}: {ms:.4f} ms, absorbed widening "
+        f"{absorbed_ms:.4f} ms, plain {plain_ms:.4f} ms, scatter_reduce_ "
+        f"{lib_ms:.4f} ms, bound {b:.4f} ms, bit-exact")
+    return out
+
+
 def check_k2(n: int, dev) -> dict:
-    """K2 at q6's shape (``q6_minmax_sources``) in one launch against its
-    plain version, bit-exact, also forced into three group partitions;
-    then f32 sources with signed zeros (one with MIN and MAX, one with
-    MAX alone), bit-exact. Times: the kernel,
-    the widening and FOR add it absorbed (``minmax_decode`` of the u8
-    source, as engine/device.py ``_data_col`` ran it before each launch),
-    the plain version and ``scatter_reduce_`` amin + amax over each
-    decoded source; the bound is the ids' and the stored planes' bytes
-    read once (4 + 4 + 1 a row) and the outputs written once."""
+    """K2 at q6's shape (``q6_minmax_sources``) through ``k2_shape``, then
+    forced into three group partitions, then f32 sources with signed
+    zeros (one with MIN and MAX, one with MAX alone): bit-exact. Returns
+    q6's numbers with the shape's under ``shapes``."""
     import torch
     from pinot_tpu_torch.ops import group_scatter as ps
     from pinot_tpu_torch.ops import kernels
 
     gid, G, srcs = q6_minmax_sources(n, dev)
-    before = kernels.launches["group_minmax"]
-    got = ps.group_minmax_sources(gid, srcs, G)
-    if kernels.launches["group_minmax"] - before != 1:
-        raise AssertionError("K2 at q6's shape took more than one launch")
-    want = kernels.group_minmax_plain(gid, srcs, G)
-    torch.cuda.synchronize()
-    pairs = [(a, b) for gs, ws in zip(got, want) for a, b in zip(gs, ws)]
-    err = max(float((a.long() - b.long()).abs().max()) for a, b in pairs)
-    if not all(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs):
-        raise AssertionError(f"K2 at q6's shape differs, max abs err {err}")
+    q6 = k2_shape("q6: i32 min+max, u8 + FOR min+max, one launch", gid,
+                  srcs, G)
     # the group-range partitions of a G past the shared-memory budget: 64
     # groups a partition, three partitions
     split = ps.group_minmax_sources(gid, srcs, G, span=64)
+    want = kernels.group_minmax_plain(gid, srcs, G)
     if not all(torch.equal(a, b) for gs, ws in zip(split, want)
                for a, b in zip(gs, ws)):
         raise AssertionError("K2 at q6's shape in three partitions differs")
-    ms = cuda_ms(lambda: ps.group_minmax_sources(gid, srcs, G), 10)
-    absorbed_ms = cuda_ms(lambda: kernels.minmax_decode(srcs[1]), 5)
-    plain_ms = cuda_ms(lambda: kernels.group_minmax_plain(gid, srcs, G), 3)
-    g64 = gid.long()
-    decoded = [kernels.minmax_decode(s) for s in srcs]
-    outs = [torch.empty(G + 1, dtype=torch.int32, device=dev)
-            for _ in range(4)]
-
-    def library():
-        for j, v in enumerate(decoded):
-            outs[2 * j].fill_(2**31 - 1).scatter_reduce_(0, g64, v, "amin")
-            outs[2 * j + 1].fill_(-2**31).scatter_reduce_(0, g64, v, "amax")
-    lib_ms = cuda_ms(library, 5)
-    del g64, decoded
-    cells = sum(len(s.ops) for s in srcs)
-    nbytes = 4 * n + n * sum(s.values.element_size() for s in srcs) \
-        + 4 * cells * G
-    b, by = bound_ms(nbytes, n * cells)
+    del split, want
 
     gen = torch.Generator(device=dev).manual_seed(17)
     fv = torch.randn((n,), generator=gen, device=dev)
@@ -1188,10 +1219,55 @@ def check_k2(n: int, dev) -> dict:
                for gs, ws in zip(got, want) for a, b in zip(gs, ws)):
         raise AssertionError("K2 float32 differs")
     log(f"K2 float32 sources n={n} G={G}: bit-exact with signed zeros")
-    return dict(shape=f"n={n} G={G} q6: i32 min+max, u8 + FOR min+max, "
-                      "one launch", max_abs_err=err, ms=ms,
-                absorbed_ms=absorbed_ms, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by, library_ms=lib_ms)
+    return dict(q6, shapes=[q6])
+
+
+def capture_calls(engine, sql: str, module, entry: str) -> list:
+    """The arguments the engine hands ``module.entry`` for ``sql``, one
+    (args, kwargs) a call."""
+    seen, real = [], getattr(module, entry)
+
+    def grab(*args, **kwargs):
+        seen.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    setattr(module, entry, grab)
+    try:
+        resp = engine.execute(sql)
+    finally:
+        setattr(module, entry, real)
+    if resp["exceptions"] or not seen:
+        raise AssertionError(f"{module.__name__}.{entry} was not reached by "
+                             f"{sql!r}: {resp['exceptions']}")
+    return seen
+
+
+def check_path_group_ids(engine, k1: dict, k2: dict) -> None:
+    """K1 and K2 at the selection path's own inputs: the group-id plane
+    the card factorized for gb_expr (G = 1000) and gb_segment (G = 8, one
+    id a segment: the most contended regime) and the value planes the
+    pipeline hands them, captured at their entries, each held against
+    its plain version (``k1_shape``, ``k2_shape``). Adds the shapes to
+    ``k1`` and ``k2``."""
+    from pinot_tpu_torch.ops import group_scatter as ps
+
+    for name in ("gb_expr", "gb_segment"):
+        sql = SEL_QUERIES[name]
+        for (gid, sources, G), kw in capture_calls(engine, sql, ps,
+                                                   "plane_group_sums"):
+            k1["shapes"].append(k1_shape(
+                f"{name}: G={G}, factorized int32 group ids, "
+                + "".join(f"{s.values.dtype} {s.nplanes} plane(s) + "
+                          for s in sources).replace("torch.", "")
+                + "count", ps.plane_group_sums, G, sources,
+                kw.get("count", True), gid))
+        for (gid, srcs, G), _kw in capture_calls(engine, sql, ps,
+                                                 "group_minmax_sources"):
+            k2["shapes"].append(k2_shape(
+                f"{name}: factorized int32 group ids, "
+                + ", ".join(f"{s.values.dtype} {'+'.join(s.ops)}"
+                            for s in srcs).replace("torch.", ""),
+                gid, srcs, G))
 
 
 def kernel_device_ms(fn, reps: int, name_part: str):
@@ -1219,11 +1295,11 @@ def kernel_device_ms(fn, reps: int, name_part: str):
 def gather_branch(cand, rows_in, col_arrays, par_arrays, plan):
     """The port's generic gathered form over K4's candidates, for its
     time: gather every plane's candidate blocks (ops/blockskip.py), the
-    filter as torch ops (engine/device.py ``_eval_filter``) and masked
+    filter as torch ops (engine/device.py ``eval_filter``) and masked
     reductions (ops/agg.py). No single PyTorch call computes K4's
     function, so this stands as its yardstick."""
     import torch
-    from pinot_tpu_torch.engine.device import _eval_filter
+    from pinot_tpu_torch.engine.device import eval_filter
     from pinot_tpu_torch.ops import agg as agg_ops
     from pinot_tpu_torch.ops import blockskip as bs
 
@@ -1233,7 +1309,7 @@ def gather_branch(cand, rows_in, col_arrays, par_arrays, plan):
         x = bs.gather_blocks(v, cand, 1, R)
         g[k] = x if x.is_floating_point() else x.to(torch.int32)
     rowid = torch.arange(R, dtype=torch.int32, device=cand.device)
-    mask = _eval_filter(plan.filter_tpl, g, par_arrays,
+    mask = eval_filter(plan.filter_tpl, g, par_arrays,
                         (cand.shape[0], R), cand.device) \
         & (rowid[None, :] < rows_in[:, None])
     reduce = {"sum": agg_ops.agg_sum, "min": agg_ops.agg_min,
@@ -1689,10 +1765,6 @@ def main(argv=None) -> int:
         k1 = check_k1(n, dev)
         torch.cuda.empty_cache()
         k2 = check_k2(n, dev)
-        log(f"K2 {k2['shape']}: {k2['ms']:.4f} ms, absorbed widening "
-            f"{k2['absorbed_ms']:.4f} ms, plain {k2['plain_ms']:.4f} ms, "
-            f"scatter_reduce_ amin+amax {k2['library_ms']:.4f} ms, bound "
-            f"{k2['bound_ms']:.4f} ms, bit-exact")
         torch.cuda.empty_cache()
         k3_sizes = check_k3(n, dev)
         # the kernel line's main numbers: the group entry's 35 x 1024 slots
@@ -1749,6 +1821,8 @@ def main(argv=None) -> int:
     k4 = check_k4("the block-skip path's bs_month_fused",
                   *capture_fused(engine, BS_QUERIES["bs_month_fused"]))
     k4["sizes"] = [dict(k4), k4_bound]
+    check_path_group_ids(engine, k1, k2)
+    torch.cuda.empty_cache()
 
     p50, launches = {}, {name: 0 for name in kernels.launches}
     for path in PATHS:

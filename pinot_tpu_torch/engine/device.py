@@ -50,11 +50,11 @@ FIRSTWITHTIME / LASTWITHTIME run as torch scatters (a scatter-min or
 as the reference leaves them to XLA. DISTINCT over dict columns is the
 group machinery with no aggregation: presence is the count channel (K1).
 
-``launch`` builds the reference's device template; where the reference's
-device refuses a shape and its host path answers it (selection,
-DISTINCT over other columns, group keys over expressions, raw or
-virtual columns, DISTINCTCOUNT over raw columns), the query runs in
-that path's shape, still on the card (engine/rows.py). The sorted
+``launch`` decides the shape first (``host_shape``): the reference's
+device template, or, where the reference's device refuses a shape and
+its host path answers it (selection, DISTINCT over other columns, group
+keys over expressions, raw or virtual columns, DISTINCTCOUNT over raw
+columns), that path's shape, still on the card (engine/rows.py). The sorted
 high-cardinality group-by regime raises DeviceUnsupported and comes
 with a later slice. There is no fallback ladder: a device or kernel
 error propagates to the caller.
@@ -76,6 +76,9 @@ from pinot_tpu_torch.engine.params import (
     build_expr,
     build_filter,
     expr_bounds,
+    expr_on_device,
+    filter_on_device,
+    stored_column,
     to_device,
 )
 from pinot_tpu_torch.engine.result import ExecutionStats, IntermediateResult
@@ -109,11 +112,6 @@ DISTINCTCOUNT_ALIASES = ("distinctcountbitmap",
 
 MAX_DENSE_GROUPS = 1 << 22        # ARRAY_BASED regime guard (~4M groups)
 MAX_PRESENCE_CELLS = 1 << 24      # per-group distinct/HLL state guard
-
-
-class PortUnsupported(DeviceUnsupported):
-    """A shape the reference's device runs that this port runs in a later
-    slice: refused in-band, never answered in another shape."""
 
 
 def _torch_dtype(np_str: str) -> torch.dtype:
@@ -152,6 +150,8 @@ def _eval_expr(tpl, cols, params, widths=None):
         return params[tpl[1]]
     if kind == "raw":
         return _data_col(cols, params, tpl[1], widths)
+    if kind == "val":  # computed in value space (engine/values.py)
+        return params[tpl[1]]
     if kind == "dictval":
         # decoded on the host at upload (BatchContext.decoded_column)
         return _data_col(cols, params, "dv::" + tpl[1], widths)
@@ -163,22 +163,22 @@ def _eval_expr(tpl, cols, params, widths=None):
     return fn.torch_fn(*args)
 
 
-def _eval_filter(tpl, cols, params, shape, device, widths=None):
+def eval_filter(tpl, cols, params, shape, device, widths=None):
     kind = tpl[0]
     if kind == "true":
         return torch.ones(shape, dtype=torch.bool, device=device)
     if kind == "false":
         return torch.zeros(shape, dtype=torch.bool, device=device)
-    if kind == "mask":  # evaluated in value space (engine/rows.py)
-        return cols["__mask__"]
+    if kind == "mask":  # computed in value space (engine/rows.py)
+        return params[tpl[1]]
     if kind in ("and", "or"):
-        m = _eval_filter(tpl[1], cols, params, shape, device, widths)
+        m = eval_filter(tpl[1], cols, params, shape, device, widths)
         for c in tpl[2:]:
-            mc = _eval_filter(c, cols, params, shape, device, widths)
+            mc = eval_filter(c, cols, params, shape, device, widths)
             m = (m & mc) if kind == "and" else (m | mc)
         return m
     if kind == "not":
-        return ~_eval_filter(tpl[1], cols, params, shape, device, widths)
+        return ~eval_filter(tpl[1], cols, params, shape, device, widths)
     if kind == "eq_dict":
         return mask_ops.eq_dict(_ids_col(cols, tpl[1]), params[tpl[2]])
     if kind == "in_dict":
@@ -455,13 +455,21 @@ def _finalize_sketch_outs(outs: dict, agg_tpls) -> None:
 def with_time_partial(name: str, outs: dict, k: str, present):
     """The (time, value) leaves of FIRSTWITHTIME / LASTWITHTIME → the
     canonical {"val", "time"} partial: an empty group keeps the time
-    sentinel and a NaN value, and -inf (no non-NaN winner) becomes NaN."""
+    sentinel and a NaN value, and -inf (no non-NaN winner) becomes NaN.
+    Exact integer values (the host path's shape) become the host's
+    object array of Python ints, None where a group is empty."""
     t = np.asarray(outs[f"{k}_t"]).reshape(-1).astype(np.int64)
-    v = np.asarray(outs[f"{k}_v"], dtype=np.float64).reshape(-1)
+    v = np.asarray(outs[f"{k}_v"]).reshape(-1)
     if present is not None:
         t, v = t[present], v[present]
     sentinel = agg_ops.INT64_MAX if name == "firstwithtime" \
         else agg_ops.INT64_MIN
+    if v.dtype.kind in "iu":
+        val = np.empty(len(v), dtype=object)
+        val[:] = [None if tt == sentinel else int(x)
+                  for tt, x in zip(t.tolist(), v.tolist())]
+        return {"val": val, "time": t}
+    v = v.astype(np.float64)
     return {"val": np.where((t == sentinel) | np.isneginf(v), np.nan, v),
             "time": t}
 
@@ -575,8 +583,8 @@ def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS,
 
         def dense(blocks_total):
             valid = mask_ops.valid_mask(n_docs, L) & alive_b[:, None]
-            mask = _eval_filter(filter_tpl, data_cols, params, (S, L), dev,
-                                widths) & valid
+            mask = eval_filter(filter_tpl, data_cols, params, (S, L), dev,
+                               widths) & valid
             outs = _stat_outs(
                 mask.sum(dim=1, dtype=torch.int64),
                 torch.where(alive_b, nd64, 0).sum(), blocks_total,
@@ -631,8 +639,8 @@ def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS,
         rvalid = cand_valid[:, None] & (row_idx < nd64[seg_of][:, None])
         g_cols = {k: bs_ops.gather_blocks(v, cand, NB, R)
                   for k, v in data_cols.items()}
-        mask = _eval_filter(filter_tpl, g_cols, params, (B, R), dev,
-                            widths) & rvalid
+        mask = eval_filter(filter_tpl, g_cols, params, (B, R), dev,
+                           widths) & rvalid
         outs = _stat_outs(seg_sums(mask.sum(dim=1, dtype=torch.int64)),
                           rvalid.sum(dtype=torch.int64), blocks_total, n_cand)
         return _aggregate(g_cols, mask, outs)
@@ -693,7 +701,7 @@ def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS,
                 outs[f"{k}_t"], outs[f"{k}_v"] = agg_ops.group_arg_time(
                     gid, _eval_expr(argt[0], cols, params, widths),
                     _eval_expr(argt[1], cols, params, widths), num_groups,
-                    name == "firstwithtime")
+                    name == "firstwithtime", extra == "exact")
                 continue
             if name == "distinctcount_v":
                 # a value key plane (engine/rows.py): distinct (group,
@@ -735,7 +743,7 @@ def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS,
                 outs[f"{k}_t"], outs[f"{k}_v"] = agg_ops.agg_arg_time(
                     _eval_expr(argt[0], cols, params, widths),
                     _eval_expr(argt[1], cols, params, widths), mask,
-                    name == "firstwithtime")
+                    name == "firstwithtime", extra == "exact")
                 continue
             if name == "distinctcount_v":
                 vk = cols[argt][mask]
@@ -771,7 +779,7 @@ def _neutral_outs(pipeline, cols, params, S: int) -> dict:
     return outs
 
 
-def _needed_columns(tpl) -> set:
+def needed_columns(tpl) -> set:
     out = set()
 
     def walk(t):
@@ -803,11 +811,11 @@ def agg_columns(tpl) -> set:
     elif name == "hllmerge":
         out = {"bp::" + argt}
     elif name in WITH_TIME_AGGS:
-        out = _needed_columns(argt[0]) | _needed_columns(argt[1])
+        out = needed_columns(argt[0]) | needed_columns(argt[1])
     elif name == "distinctcount_v" or argt is None:
         out = set()
     else:
-        out = _needed_columns(argt)
+        out = needed_columns(argt)
     return {c for c in out if not c.startswith("__")}
 
 
@@ -819,11 +827,30 @@ def agg_columns(tpl) -> set:
 class Launch:
     """A dispatched pipeline: its template, batch and device outputs.
     When the device trim ran, ``outs`` are the trimmed leaves and
-    ``full`` the untrimmed accumulators, still on the card."""
+    ``full`` the untrimmed accumulators, still on the card. A launch in
+    the host path's shape (engine/rows.py ``RowsLaunch``) has the same
+    ``fetch``."""
 
     def __init__(self, q, ctx, template, outs, full=None):
         self.q, self.ctx, self.template, self.outs = q, ctx, template, outs
         self.full = full
+
+    def fetch(self, ex: "DeviceExecutor") -> IntermediateResult:
+        """Device outputs → host numpy → canonical IntermediateResult.
+
+        A trimmed launch copies the kept rows only. When more groups are
+        present than numGroupsLimit keeps, the ORDER-BY-trimmed rows
+        cannot reproduce the limit's gid-order drop; the reference leaves
+        its device there, the port answers in-band from the untrimmed
+        accumulators this launch kept on the card (no second launch): the
+        answer of ``SET useDeviceReduce = false``."""
+        outs = ex._to_host(self.outs)
+        if self.full is not None:
+            if int(outs["n_present_total"]) > ex.groups_limit(self.q):
+                outs = ex._to_host(self.full)
+            else:
+                ex.device_reduce_queries += 1
+        return ex._to_intermediate(self.q, self.ctx, self.template, outs)
 
 
 class DeviceExecutor:
@@ -923,6 +950,62 @@ class DeviceExecutor:
         return all(a.name in DEVICE_AGGS or a.name in DISTINCTCOUNT_ALIASES
                    for a in aggs)
 
+    def host_shape(self, q: QueryContext, ctx: BatchContext) -> bool:
+        """Whether the reference's device refuses ``q``, so that its host
+        path answers it: the shape ``launch`` runs ``q`` in, decided before
+        anything is built. The device takes aggregations or DISTINCT over
+        dict-column keys, a filter and aggregation arguments with a device
+        form (engine/params.py ``filter_on_device``, ``expr_on_device``),
+        aggregations it has a form for, and per-group state within its
+        guards."""
+        aggs = q.aggregations()
+        if not aggs and not q.distinct:
+            return True  # selection
+        keys = q.select_expressions if q.distinct else q.group_by or ()
+        if not all(k.is_identifier and stored_column(k.name, ctx)
+                   and ctx.encoding(k.name) == Encoding.DICT for k in keys):
+            return True
+        if q.filter is not None and not filter_on_device(q.filter, ctx):
+            return True
+        if not all(self._agg_on_device(a, ctx) for a in aggs):
+            return True
+        num_groups = math.prod(ctx.cardinality(k.name) for k in keys)
+        if num_groups > MAX_DENSE_GROUPS:
+            # past the dense regime only the sorted regime's aggregations
+            # stay on the device
+            return any(a.name not in SORTED_AGGS for a in aggs)
+        return bool(keys) and any(
+            num_groups * self._state_cells(a, ctx) > MAX_PRESENCE_CELLS
+            for a in aggs)
+
+    @staticmethod
+    def _agg_on_device(a: Expression, ctx: BatchContext) -> bool:
+        """Whether ``_agg_template`` has a device form for ``a``."""
+        name = "distinctcount" if a.name in DISTINCTCOUNT_ALIASES else a.name
+        if name not in DEVICE_AGGS:
+            return False
+        if name == "count":
+            return True
+        arg = a.args[0]
+        if name in SKETCH_AGGS or name == "hllmerge":
+            # DISTINCTCOUNTHLL reads per-doc hashes, which a raw column
+            # has as well
+            return arg.is_identifier and stored_column(arg.name, ctx) and (
+                name == "distinctcounthll"
+                or ctx.encoding(arg.name) == Encoding.DICT)
+        if name in WITH_TIME_AGGS:
+            return expr_on_device(arg, ctx) and expr_on_device(a.args[1], ctx)
+        return expr_on_device(arg, ctx)
+
+    @staticmethod
+    def _state_cells(a: Expression, ctx: BatchContext) -> int:
+        """Per-group state cells of a presence or register aggregation."""
+        if a.name in ("distinctcount",) + DISTINCTCOUNT_ALIASES:
+            return ctx.cardinality(a.args[0].name)
+        if a.name in ("distinctcounthll", "hllmerge"):
+            return 1 << aggspec.make_spec(a).log2m
+        return 0
+
     def alive_mask(self, q: QueryContext, segments, alive=None):
         """Level 1: per segment, not proved empty by the SegmentPruner
         (``alive`` passes verdicts the caller already has)."""
@@ -940,40 +1023,24 @@ class DeviceExecutor:
 
     def _template(self, q: QueryContext, ctx: BatchContext, params,
                   counter, final: bool) -> tuple:
-        """The reference's device template for ``q``. Raises
-        DeviceUnsupported where the reference's device refuses the shape
-        (its host path answers it), PortUnsupported where the reference's
-        device runs it and this port does not yet."""
+        """The reference's device template for ``q``, a shape
+        ``host_shape`` leaves on the device. Raises DeviceUnsupported for
+        the sorted high-cardinality regime, which the reference's device
+        runs and this port runs in a later slice."""
         aggs = q.aggregations()
-        if not aggs and not q.distinct:
-            raise DeviceUnsupported("selection runs in the host's shape")
         filter_tpl = ("true",) if q.filter is None else build_filter(
             q.filter, ctx, params, counter)
-        group_cols, group_cards = [], []
-        for g in (q.select_expressions if q.distinct else q.group_by) or ():
-            if not g.is_identifier or ctx.encoding(g.name) != Encoding.DICT:
-                raise DeviceUnsupported(
-                    "group-by must be dict columns on device")
-            group_cols.append(g.name)
-            group_cards.append(ctx.cardinality(g.name))
-        num_groups = math.prod(group_cards)
-        if num_groups > MAX_DENSE_GROUPS:
-            if any(a.name not in SORTED_AGGS for a in aggs):
-                raise DeviceUnsupported(
-                    "aggregation outside the sorted group-by regime")
-            raise PortUnsupported(
+        group_cols = [g.name for g in
+                      (q.select_expressions if q.distinct else q.group_by)
+                      or ()]
+        group_cards = [ctx.cardinality(c) for c in group_cols]
+        if math.prod(group_cards) > MAX_DENSE_GROUPS:
+            raise DeviceUnsupported(
                 "group counts past the dense regime run in the sorted "
                 "regime, which comes with a later slice of the port "
                 "(ROADMAP queue 1, item f)")
         agg_tpls = tuple(self._agg_template(i, a, ctx, params, counter)
                          for i, a in enumerate(aggs))
-        for name, _argt, extra in agg_tpls:
-            if group_cols and name in STATE_AGGS:
-                cells = num_groups * (extra if name == "distinctcount"
-                                      else 1 << extra)
-                if cells > MAX_PRESENCE_CELLS:
-                    raise DeviceUnsupported(
-                        f"{name} per-group state too large ({cells})")
         final = final and any(name in STATE_AGGS for name, _, _ in agg_tpls)
         return ("groupby" if group_cols else "agg", filter_tpl,
                 tuple(group_cols), tuple(group_cards), agg_tpls, final)
@@ -1040,16 +1107,13 @@ class DeviceExecutor:
                                         "a later slice of the port")
         ctx = self.batch_for(segments)
         alive = self.alive_mask(q, segments, alive)
-        params: dict = {}
-        counter = [0]
-        try:
-            template = self._template(q, ctx, params, counter, final)
-        except PortUnsupported:
-            raise
-        except DeviceUnsupported:
+        if self.host_shape(q, ctx):
             # the reference answers this shape on its host: the card runs
             # it in that shape
             return rows.launch(self, q, ctx, final, reduce_mode, alive)
+        params: dict = {}
+        counter = [0]
+        template = self._template(q, ctx, params, counter, final)
         _shape, filter_tpl, group_cols, group_cards, agg_tpls, final = \
             template
         aggs = q.aggregations()
@@ -1087,7 +1151,7 @@ class DeviceExecutor:
         # the batch's cached sorted projection
         sorted_proj_ok = bool_option(opts, "usesortedprojection",
                                      None) is not False
-        needed = _needed_columns(filter_tpl) | set(group_cols)
+        needed = needed_columns(filter_tpl) | set(group_cols)
         for zc in zone_cols if use_bs else ():
             needed |= {bs_ops.ZLO + zc, bs_ops.ZHI + zc}
         for name, argt, extra in agg_tpls:
@@ -1144,25 +1208,9 @@ class DeviceExecutor:
             return max(1, int(opts["numgroupslimit"]))
         return self.num_groups_limit
 
-    def fetch(self, launch: Launch) -> IntermediateResult:
-        """Device outputs → host numpy → canonical IntermediateResult.
-
-        A trimmed launch copies the kept rows only. When more groups are
-        present than numGroupsLimit keeps, the ORDER-BY-trimmed rows
-        cannot reproduce the limit's gid-order drop; the reference leaves
-        its device there, the port answers in-band from the untrimmed
-        accumulators its launch kept on the card (no second launch): the
-        answer of ``SET useDeviceReduce = false``."""
-        if not isinstance(launch, Launch):  # the host path's shape
-            return launch.fetch(self)
-        outs = self._to_host(launch.outs)
-        if launch.full is not None:
-            if int(outs["n_present_total"]) > self.groups_limit(launch.q):
-                outs = self._to_host(launch.full)
-            else:
-                self.device_reduce_queries += 1
-        return self._to_intermediate(launch.q, launch.ctx, launch.template,
-                                     outs)
+    def fetch(self, launch) -> IntermediateResult:
+        """A launch's outputs, fetched: ``Launch.fetch``."""
+        return launch.fetch(self)
 
     def execute(self, q: QueryContext, segments, final: bool = False,
                 reduce_mode=None) -> IntermediateResult:

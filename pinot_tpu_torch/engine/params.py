@@ -508,31 +508,77 @@ DEVICE_PRED_TYPES = {
 }
 
 
-def build_filter(f: FilterNode, ctx: BatchContext, params: dict, counter: list):
+def stored_column(name: str, ctx: BatchContext) -> bool:
+    """A column every segment of the batch stores (not a virtual one)."""
+    return not name.startswith("$") and all(
+        name in s.metadata.columns for s in ctx.segments)
+
+
+def expr_on_device(e: Expression, ctx: BatchContext) -> bool:
+    """Whether ``build_expr`` has a device form for ``e``: numeric
+    literals, stored columns (a dict column of numbers), and functions
+    with a device form over them."""
+    if e.is_literal:
+        return not (isinstance(e.value, str) or e.value is None)
+    if e.is_identifier:
+        if not stored_column(e.name, ctx):
+            return False
+        return ctx.encoding(e.name) == Encoding.RAW or np.asarray(
+            ctx.global_dict(e.name).values).dtype.kind in _NUMERIC_KINDS
+    if not get_function(e.name).device_capable:
+        return False
+    args = e.args[:1] if e.name == "cast" else e.args
+    return all(expr_on_device(a, ctx) for a in args)
+
+
+def filter_on_device(f: FilterNode, ctx: BatchContext) -> bool:
+    """Whether ``build_filter`` has a device form for every predicate of
+    ``f``: a dict column's predicate, or a numeric comparison of an
+    expression with a device form."""
+    if f.type is not FilterNodeType.PREDICATE:
+        return all(filter_on_device(c, ctx) for c in f.children or ())
+    p = f.predicate
+    if p.type not in DEVICE_PRED_TYPES:
+        return False
+    lhs = p.lhs
+    if lhs.is_identifier and stored_column(lhs.name, ctx) \
+            and ctx.encoding(lhs.name) == Encoding.DICT:
+        return True
+    if p.type in (PredicateType.LIKE, PredicateType.REGEXP_LIKE) \
+            or not expr_on_device(lhs, ctx):
+        return False
+    lits = [p.value] if p.type in (PredicateType.EQ, PredicateType.NOT_EQ) \
+        else list(p.values) if p.type in (PredicateType.IN,
+                                          PredicateType.NOT_IN) \
+        else [0 if x is None else x for x in (p.lower, p.upper)]
+    return np.asarray(lits).dtype.kind in "biuf"
+
+
+def build_filter(f: FilterNode, ctx: BatchContext, params: dict, counter: list,
+                 values=None):
     """FilterNode → template (a nested hashable tuple); ``params`` maps
     slot names to device tensors (global id space has no per-segment
-    params)."""
+    params). ``values``: the host path's shape (engine/values.py
+    ``ValueEvaluator``), whose leaves compare the host's values."""
     t = f.type
     if t is FilterNodeType.CONSTANT_TRUE:
         return ("true",)
     if t is FilterNodeType.CONSTANT_FALSE:
         return ("false",)
-    if t is FilterNodeType.AND:
-        return ("and",) + tuple(build_filter(c, ctx, params, counter)
-                                for c in f.children)
-    if t is FilterNodeType.OR:
-        return ("or",) + tuple(build_filter(c, ctx, params, counter)
-                               for c in f.children)
-    if t is FilterNodeType.NOT:
-        return ("not", build_filter(f.children[0], ctx, params, counter))
-    return build_predicate(f.predicate, ctx, params, counter)
+    if t in (FilterNodeType.AND, FilterNodeType.OR, FilterNodeType.NOT):
+        kids = tuple(build_filter(c, ctx, params, counter, values)
+                     for c in f.children)
+        return (t.value.lower(),) + kids
+    return build_predicate(f.predicate, ctx, params, counter, values)
 
 
-def _slot(params: dict, counter: list, arr, device) -> str:
+def _slot(params: dict, counter: list, arr, device, dtype=None) -> str:
+    """A literal as a device tensor: in ``dtype``, or floats as f32, the
+    device columns' dtype."""
     key = f"pr{counter[0]}"
     counter[0] += 1
-    a = np.asarray(arr)
-    if a.dtype == np.float64:
+    a = np.asarray(arr, dtype=dtype)
+    if a.dtype == np.float64 and dtype is None:
         a = a.astype(np.float32)  # device columns are f32
     if a.dtype.kind not in "biuf":
         raise DeviceUnsupported(f"{a.dtype} literal in a device predicate")
@@ -540,17 +586,30 @@ def _slot(params: dict, counter: list, arr, device) -> str:
     return key
 
 
+def plane_slot(params: dict, counter: list, plane: torch.Tensor) -> tuple:
+    """A value plane the launch computed, as an expression template."""
+    key = f"pr{counter[0]}"
+    counter[0] += 1
+    params[key] = plane
+    return ("val", key)
+
+
 def build_predicate(p: Predicate, ctx: BatchContext, params: dict,
-                    counter: list):
+                    counter: list, values=None):
+    if values is not None:
+        # the host path's shape: value-space leaves where its values are
+        # not a dict column's
+        leaf = values.predicate_leaf(p, params, counter)
+        if leaf is not None:
+            return leaf
     if p.type not in DEVICE_PRED_TYPES:
         raise DeviceUnsupported(f"predicate {p.type} not device-supported")
     lhs = p.lhs
-    if lhs.is_identifier:
-        if ctx.encoding(lhs.name) == Encoding.DICT:
-            return _dict_predicate(p, ctx, params, counter)
-        return _raw_predicate(p, lhs, ctx, params, counter)
-    # expression lhs: evaluate on device, compare in raw space
-    return _raw_predicate(p, lhs, ctx, params, counter)
+    if lhs.is_identifier and ctx.encoding(lhs.name) == Encoding.DICT:
+        return _dict_predicate(p, ctx, params, counter)
+    # raw column or expression lhs: evaluate on device, compare in raw space
+    return raw_predicate(p, build_expr(lhs, ctx, params, counter), params,
+                         counter, ctx.device)
 
 
 def _dict_predicate(p: Predicate, ctx: BatchContext, params: dict,
@@ -590,26 +649,26 @@ def _dict_predicate(p: Predicate, ctx: BatchContext, params: dict,
     return ("lut_dict", col, key)
 
 
-def _raw_predicate(p: Predicate, lhs: Expression, ctx: BatchContext,
-                   params: dict, counter: list):
-    expr_tpl = build_expr(lhs, ctx, params, counter)
-    dev = ctx.device
+def raw_predicate(p: Predicate, expr_tpl, params: dict, counter: list,
+                  dev, dtype=None):
+    """A comparison of the values ``expr_tpl`` evaluates to with the
+    predicate's literals, given as ``dtype`` (default: ``_slot``'s)."""
     t = p.type
     if t in (PredicateType.LIKE, PredicateType.REGEXP_LIKE):
         raise DeviceUnsupported("regex over raw (non-dict) column")
     if t in (PredicateType.EQ, PredicateType.NOT_EQ):
-        key = _slot(params, counter, np.asarray(p.value), dev)
+        key = _slot(params, counter, p.value, dev, dtype)
         tpl = ("eq_raw", expr_tpl, key)
         return ("not", tpl) if t is PredicateType.NOT_EQ else tpl
     if t in (PredicateType.IN, PredicateType.NOT_IN):
-        key = _slot(params, counter, np.asarray(list(p.values)), dev)
+        key = _slot(params, counter, list(p.values), dev, dtype)
         tpl = ("in_raw", expr_tpl, key, len(p.values))
         return ("not", tpl) if t is PredicateType.NOT_IN else tpl
     # RANGE
-    klo = _slot(params, counter,
-                np.asarray(0 if p.lower is None else p.lower), dev)
-    khi = _slot(params, counter,
-                np.asarray(0 if p.upper is None else p.upper), dev)
+    klo = _slot(params, counter, 0 if p.lower is None else p.lower, dev,
+                dtype)
+    khi = _slot(params, counter, 0 if p.upper is None else p.upper, dev,
+                dtype)
     return (
         "range_raw",
         expr_tpl,

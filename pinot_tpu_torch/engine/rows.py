@@ -7,8 +7,9 @@ aggregations its device has no form for, here DISTINCTCOUNT over raw
 columns. The port has no host scan. It runs these shapes on the card,
 with the values, rows and response stats of that host path:
 
-- the filter mask in value space (engine/values.py), dense over the
-  (S, L) batch; the block-skip forms never change these stats;
+- the filter mask through the device's filter template, its non-dict
+  leaves over the host path's values (engine/values.py), dense over the
+  (S, L) batch;
 - selection: each segment's first ``limit + offset`` matched rows, in doc
   order or in the stable order of its ORDER BY keys (ops/selection.py),
   then the select expressions and ORDER BY values gathered for those
@@ -35,7 +36,11 @@ import numpy as np
 import torch
 
 from pinot_tpu_torch.engine import aggspec
-from pinot_tpu_torch.engine.params import DeviceUnsupported, to_device
+from pinot_tpu_torch.engine.params import (
+    build_filter,
+    expr_on_device,
+    to_device,
+)
 from pinot_tpu_torch.engine.result import ExecutionStats, IntermediateResult
 from pinot_tpu_torch.engine.values import (
     Rows,
@@ -97,13 +102,28 @@ class _Scan:
 
 
 def _scan(q: QueryContext, ctx, alive) -> _Scan:
+    """The filter through the device's template (engine/params.py
+    ``build_filter``), its non-dict leaves over the host path's values,
+    evaluated dense over the batch."""
+    from pinot_tpu_torch.engine.device import (
+        DeviceExecutor,
+        eval_filter,
+        needed_columns,
+    )
+
     ev = ValueEvaluator(ctx)
     all_pruned = not alive.any()
     f = FilterNode.FALSE if all_pruned else q.filter
-    full = Rows(ctx.S, ctx.pad_to, ctx.device)
+    params, counter = {}, [0]
+    tpl = ("true",) if f is None else build_filter(f, ctx, params, counter,
+                                                   ev)
+    widths, cols = DeviceExecutor.gather_columns(ctx, needed_columns(tpl),
+                                                 params)
     valid = mask_ops.valid_mask(ctx.n_docs_dev, ctx.pad_to) \
         & to_device(alive, ctx.device)[:, None]
-    mask = ev.mask(f, full) & valid
+    mask = torch.broadcast_to(eval_filter(
+        tpl, cols, params, valid.shape, ctx.device, widths), valid.shape) \
+        & valid
     entries = 0
     if q.filter is not None and not all_pruned:
         entries = sum(filter_entries(q.filter, s)
@@ -218,9 +238,9 @@ def _agg_plan(ex, q, ctx, ev, aggs, full, params, counter, cols):
         name = a.name
         dec = None
         if name in _PLAIN_AGGS:
-            try:
+            if name == "count" or expr_on_device(a.args[0], ctx):
                 tpl = ex._agg_template(i, a, ctx, params, counter)
-            except DeviceUnsupported:
+            else:
                 # e.g. SUM($docId): the value, computed on the card
                 key = f"__x{i}"
                 cols[key] = torch.broadcast_to(
@@ -230,7 +250,7 @@ def _agg_plan(ex, q, ctx, ev, aggs, full, params, counter, cols):
         elif name in _DISTINCT_ALIASES:
             v = ev.eval(a.args[0], full)
             key = f"__k{i}"
-            cols[key] = ev.key(v, shape)
+            cols[key] = ev.set_key(v, shape)
             tpl, dec = ("distinctcount_v", key, None), v
         elif name in ("firstwithtime", "lastwithtime"):
             v = ev.eval(a.args[0], full)
@@ -241,7 +261,10 @@ def _agg_plan(ex, q, ctx, ev, aggs, full, params, counter, cols):
                 raise later(f"{name.upper()} over a virtual column value")
             cols[f"__v{i}"] = torch.broadcast_to(v.t, shape)
             cols[f"__t{i}"] = torch.broadcast_to(t.t, shape)
-            tpl = (name, (("raw", f"__v{i}"), ("raw", f"__t{i}")), "pair")
+            # integer values ride exactly, as the host path carries them
+            exact = v.kind == "num" and v.dtype.kind in "biu"
+            tpl = (name, (("raw", f"__v{i}"), ("raw", f"__t{i}")),
+                   "exact" if exact else "pair")
             dec = v if v.kind == "dict" else None
         elif name in ("distinctcounthll", "hllmerge"):
             if not a.args[0].is_identifier \
@@ -317,8 +340,8 @@ def _aggregate(ex, q, ctx, final, reduce_mode, alive, aggs) -> RowsLaunch:
     outs0 = {"hx_matched": scan.mask.sum(dim=1, dtype=torch.int64)}
 
     if not q.group_by:
-        cols["__mask__"] = scan.mask
-        template = ("agg", ("mask",), (), (), tpls, final)
+        params["__mask__"] = scan.mask
+        template = ("agg", ("mask", "__mask__"), (), (), tpls, final)
         outs = build_pipeline(template, widths, ex.min_rows)(
             cols, ctx.n_docs_dev, params)
         outs.update(outs0)
@@ -360,8 +383,9 @@ def _aggregate(ex, q, ctx, final, reduce_mode, alive, aggs) -> RowsLaunch:
     agg_mask = agg_mask.reshape(S, L)
     cols["__gid__"] = torch.where(agg_mask, gid.reshape(S, L), G) \
         .to(torch.int32)
-    cols["__mask__"] = agg_mask
-    template = ("groupby", ("mask",), ("__gid__",), (G,), tpls, final)
+    params["__mask__"] = agg_mask
+    template = ("groupby", ("mask", "__mask__"), ("__gid__",), (G,), tpls,
+                final)
     outs = build_pipeline(template, widths, ex.min_rows)(
         cols, ctx.n_docs_dev, params)
     for j, k in enumerate(gkeys):
@@ -375,7 +399,9 @@ def _aggregate(ex, q, ctx, final, reduce_mode, alive, aggs) -> RowsLaunch:
         tr_k = torch.tensor(dr_ops.trim_keep_count(q, reduce_mode,
                                                    ex.group_trim_size),
                             dtype=torch.int64, device=dev)
-        outs = dr_ops.apply_trim(outs, tr_k, template, trim)
+        outs = dr_ops.apply_trim(
+            outs, tr_k, template, trim,
+            [ev.key_orders(v, k) for v, k in zip(kvals, gkeys)])
     outs.update(outs0)
     outs["hx_kept"] = agg_mask.sum(dtype=torch.int64)
 

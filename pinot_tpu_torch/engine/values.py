@@ -12,9 +12,10 @@ values, its engine/host.py). The port runs those shapes on the card
 - expression dtypes as numpy promotes them, found by running the numpy
   function once over one-row probes (literals as the 0-d arrays the host
   evaluates), then computing each node in that dtype;
-- predicates with the host's coercions: dict and virtual-column
-  predicates through a LUT the host predicate fills over the global
-  dictionary or the segment names, raw ones compared in numpy's dtype;
+- the filter leaves of the host path's shape (``predicate_leaf``, for
+  engine/params.py ``build_filter``): the segment names' predicates as a
+  mask the host predicate fills, other non-dict ones as their values
+  compared in numpy's dtype;
 - the virtual columns ``$docId`` (row inside its segment), ``$segmentName``
   and ``$hostName``;
 - the host's numEntriesScannedInFilter per segment (``filter_entries``):
@@ -39,6 +40,8 @@ from pinot_tpu_torch.engine.host import like_to_regex
 from pinot_tpu_torch.engine.params import (
     DEVICE_PRED_TYPES,
     DeviceUnsupported,
+    plane_slot,
+    raw_predicate,
     to_device,
 )
 from pinot_tpu_torch.ops.device_reduce import order_key
@@ -54,6 +57,7 @@ from pinot_tpu_torch.storage.segment import Encoding
 INVERTED_MAX_IDS = 64  # the host's doc-list bound (engine/host.py there)
 VIRTUAL = ("$docId", "$segmentName", "$hostName")
 _LOW63 = (1 << 63) - 1
+_NAN_KEY = 0x7FF8 << 48   # order_key of NaN: above every number's key
 _SIGNED_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32,
                 torch.uint64: torch.int64}
 
@@ -403,6 +407,17 @@ class ValueEvaluator:
             k = torch.broadcast_to(k, shape)
         return k
 
+    def set_key(self, v: Val, shape) -> torch.Tensor:
+        """``key`` as the host's Python sets tell values apart (its
+        DISTINCTCOUNT): NaN equals nothing, not even itself, so each NaN
+        row keys by its flat position above every number's key."""
+        k = self.key(v, shape)
+        if v.kind == "num" and v.t.is_floating_point():
+            nan = torch.broadcast_to(torch.isnan(v.t), shape)
+            pos = torch.arange(nan.numel(), device=self.device).reshape(shape)
+            k = torch.where(nan, _NAN_KEY + pos, k)
+        return k
+
     def card(self, v: Val):
         """The size of the range ``key`` maps ``v`` into, where it is
         known without reading the rows (dictionary ids, segment and
@@ -425,6 +440,13 @@ class ValueEvaluator:
         if v.kind == "num" and v.t.is_floating_point():
             return order_key(-v.t.to(torch.float64))
         return -self.key(v)
+
+    def key_orders(self, v: Val, k: torch.Tensor) -> tuple:
+        """(ascending, descending) ORDER BY keys of ``key`` values ``k``
+        of ``v``, the descending one as ``sort_key`` makes it."""
+        if v.kind == "num" and v.dtype.kind == "f":
+            return k, order_key(-from_order_key(k, np.dtype(np.float64)))
+        return k, -k
 
     def decode(self, v: Val, host: np.ndarray) -> np.ndarray:
         """Host values of a fetched ``Val.t``."""
@@ -451,83 +473,52 @@ class ValueEvaluator:
             return self.host_names[np.zeros(len(k), dtype=np.int64)]
         return np.unique(v.meta)[k]
 
-    # ---- filters ---------------------------------------------------------
-    def mask(self, f, rows: Rows) -> torch.Tensor:
-        shape = rows.seg().shape
-        if f is None or f.type is FilterNodeType.CONSTANT_TRUE:
-            return torch.ones(shape, dtype=torch.bool, device=self.device)
-        if f.type is FilterNodeType.CONSTANT_FALSE:
-            return torch.zeros(shape, dtype=torch.bool, device=self.device)
-        if f.type in (FilterNodeType.AND, FilterNodeType.OR):
-            m = self.mask(f.children[0], rows)
-            for c in f.children[1:]:
-                mc = self.mask(c, rows)
-                m = (m & mc) if f.type is FilterNodeType.AND else (m | mc)
-            return m
-        if f.type is FilterNodeType.NOT:
-            return ~self.mask(f.children[0], rows)
-        return torch.broadcast_to(self._predicate(f.predicate, rows), shape)
-
-    def _predicate(self, p: Predicate, rows: Rows) -> torch.Tensor:
+    # ---- filters: the host path's leaves of build_filter -----------------
+    def predicate_leaf(self, p: Predicate, params: dict, counter: list):
+        """The filter template leaf (engine/params.py ``build_filter``) of
+        ``p`` over the host path's values, or None for a dict column's
+        predicate, which the template builds as the device does. The
+        segment names' predicates become a mask; any other lhs its values
+        at the host's dtype, compared with the literals in the dtype numpy
+        compares them in."""
         if p.type not in DEVICE_PRED_TYPES:
             raise later(f"the predicate {p.type.value}")
         lhs = p.lhs
+        full = Rows(self.S, self.L, self.device)
         if lhs.is_identifier and lhs.name in ("$segmentName", "$hostName"):
             names = self.seg_names if lhs.name == "$segmentName" \
                 else self.host_names
             lut = to_device(predicate_over_values(p, names), self.device)
-            return lut[rows.seg()]
+            return ("mask", plane_slot(params, counter, lut[full.seg()])[1])
         if lhs.is_identifier and not lhs.name.startswith("$"):
             self._check_column(lhs.name)
             if self.ctx.encoding(lhs.name) == Encoding.DICT:
-                vals = np.asarray(self.ctx.global_dict(lhs.name).values)
-                lut = to_device(predicate_over_values(p, vals), self.device)
-                ids = rows.take(self.ctx.column(lhs.name)).to(torch.int64)
-                return lut[torch.clamp(ids, 0, max(len(vals) - 1, 0))] \
-                    if len(vals) else torch.zeros_like(ids, dtype=torch.bool)
-        v = self.eval(lhs, rows)
+                return None
+        v = self.eval(lhs, full)
         if v.kind != "num":
             raise later(f"the predicate {p} over string values")
         if p.type in (PredicateType.LIKE, PredicateType.REGEXP_LIKE):
             raise later(f"the predicate {p} over numeric values")
         arr = self.probe(lhs)
-
-        def cmp(value):
-            if isinstance(value, str):
-                raise later(f"the predicate {p}: a string literal against "
-                            f"numbers")
-            if arr.dtype.kind in "iub" and isinstance(value, (int, bool)):
-                return v.t.to(torch.int64), torch.tensor(
-                    int(value), device=self.device)
-            ct = _torch_dtype(np.result_type(arr, value))
-            return v.t.to(ct), torch.tensor(value, dtype=ct,
-                                             device=self.device)
-
-        t = p.type
-        if t in (PredicateType.EQ, PredicateType.NOT_EQ):
-            a, b = cmp(p.value)
-            m = a == b
-            return ~m if t is PredicateType.NOT_EQ else m
-        if t in (PredicateType.IN, PredicateType.NOT_IN):
+        if p.type in (PredicateType.IN, PredicateType.NOT_IN):
             lits = np.asarray(list(p.values))
             if lits.dtype.kind not in "biuf":
                 raise later(f"the predicate {p}: string literals against "
                             f"numbers")
-            ct = _torch_dtype(np.result_type(arr.dtype, lits.dtype))
-            a = v.t.to(ct)
-            m = torch.zeros_like(a, dtype=torch.bool)
-            for x in to_device(lits.astype(np.result_type(
-                    arr.dtype, lits.dtype)), self.device):
-                m |= a == x
-            return ~m if t is PredicateType.NOT_IN else m
-        m = torch.ones_like(v.t, dtype=torch.bool)
-        if p.lower is not None:
-            a, lo = cmp(p.lower)
-            m &= (a >= lo) if p.lower_inclusive else (a > lo)
-        if p.upper is not None:
-            a, hi = cmp(p.upper)
-            m &= (a <= hi) if p.upper_inclusive else (a < hi)
-        return m
+            dt = np.result_type(arr.dtype, lits.dtype)
+        else:
+            lits = [p.value] if p.type in (PredicateType.EQ,
+                                           PredicateType.NOT_EQ) \
+                else [x for x in (p.lower, p.upper) if x is not None]
+            if any(isinstance(x, str) for x in lits):
+                raise later(f"the predicate {p}: a string literal against "
+                            f"numbers")
+            dt = np.dtype(np.int64) if arr.dtype.kind in "iub" and all(
+                isinstance(x, (int, bool)) for x in lits) \
+                else np.result_type(arr, *lits)
+        plane = torch.broadcast_to(v.t.to(_torch_dtype(dt)), full.seg().shape)
+        return raw_predicate(p, plane_slot(params, counter, plane), params,
+                             counter, self.device, dt)
 
 
 # ---------------------------------------------------------------------------

@@ -139,27 +139,41 @@ def slot_max(slots, values, num_slots: int):
     return _group_reduce(slots, values, num_slots, "amax", 0)
 
 
-def _arg_time_operands(values, times):
-    return times.to(torch.int64), values.to(torch.float64)
-
-
 INT64_MAX = (1 << 63) - 1
 INT64_MIN = -(1 << 63)
 
 
-def agg_arg_time(values, times, mask, is_first: bool):
+def _arg_time_operands(values, times, exact: bool):
+    """(int64 times, values): float64 values, as the JAX package's device
+    carries them, or int64 where ``exact`` (integer values, as its host
+    path carries them: a LONG past 2^53 keeps its bits)."""
+    return times.to(torch.int64), \
+        values.to(torch.int64 if exact else torch.float64)
+
+
+def _no_winner(v: torch.Tensor):
+    """The value a group with no candidate takes: -inf, or INT64_MIN."""
+    return NEG_INF if v.is_floating_point() else INT64_MIN
+
+
+def _candidates(v: torch.Tensor, at_best: torch.Tensor) -> torch.Tensor:
+    """Rows whose value competes: at the winning time, and not NaN."""
+    return at_best & ~torch.isnan(v) if v.is_floating_point() else at_best
+
+
+def agg_arg_time(values, times, mask, is_first: bool, exact: bool = False):
     """FIRSTWITHTIME / LASTWITHTIME over a mask: (best time, best value),
     the min (first) or max (last) time over matched rows and the largest
     non-NaN value among the rows at that time (-inf when there is none;
-    the host conversion turns it into NaN), as the JAX package's device
-    computes them: values ride as float64, times as int64."""
-    t, v = _arg_time_operands(values, times)
+    the host conversion turns it into NaN). Times ride as int64, values
+    as ``_arg_time_operands`` carries them."""
+    t, v = _arg_time_operands(values, times, exact)
     fill = INT64_MAX if is_first else INT64_MIN
     tm = torch.where(mask, t, torch.full((), fill, dtype=torch.int64,
                                          device=t.device))
     tb = tm.min() if is_first else tm.max()
-    win = mask & (t == tb) & ~torch.isnan(v)
-    vb = torch.where(win, v, torch.full((), NEG_INF, dtype=torch.float64,
+    win = _candidates(v, mask & (t == tb))
+    vb = torch.where(win, v, torch.full((), _no_winner(v), dtype=v.dtype,
                                         device=v.device)).max()
     return tb, vb
 
@@ -177,19 +191,21 @@ def _spread_reduce(flat, v, num_slots: int, how: str, init):
     return part.amin(0) if how == "amin" else part.amax(0)
 
 
-def group_arg_time(gids, values, times, num_groups: int, is_first: bool):
+def group_arg_time(gids, values, times, num_groups: int, is_first: bool,
+                   exact: bool = False):
     """Dense-group FIRSTWITHTIME / LASTWITHTIME: per group the extremal
     time (a scatter-min or -max), then the largest non-NaN value among the
-    rows carrying their group's winning time (a scatter-max; -inf when
-    there is none). Masked rows carry the overflow id."""
+    rows carrying their group's winning time (a scatter-max; -inf, or
+    INT64_MIN when ``exact``, where there is none). Masked rows carry the
+    overflow id."""
     flat = gids.reshape(-1).to(torch.int64)
-    t, v = _arg_time_operands(values.reshape(-1), times.reshape(-1))
+    t, v = _arg_time_operands(values.reshape(-1), times.reshape(-1), exact)
     fill = INT64_MAX if is_first else INT64_MIN
     tb = _spread_reduce(flat, t, num_groups + 1,
                         "amin" if is_first else "amax", fill)
-    win = (t == tb[flat]) & ~torch.isnan(v)
-    vb = _spread_reduce(flat, torch.where(win, v, NEG_INF), num_groups + 1,
-                        "amax", NEG_INF)
+    win = _candidates(v, t == tb[flat])
+    vb = _spread_reduce(flat, torch.where(win, v, _no_winner(v)),
+                        num_groups + 1, "amax", _no_winner(v))
     return tb[:num_groups], vb[:num_groups]
 
 

@@ -114,7 +114,7 @@ def _zones(cols, params, colkey, widths=None):
 
 def zone_verdict(tpl, cols, params, shape, widths=None):
     """(S, NB) bool: True where the block MAY hold a matching row. Mirrors
-    engine/device.py's ``_eval_filter`` node set in interval semantics;
+    engine/device.py's ``eval_filter`` node set in interval semantics;
     any node without interval structure gives all-True (it never prunes a
     block the dense mask would match)."""
     kind = tpl[0]

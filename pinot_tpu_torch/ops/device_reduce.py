@@ -173,8 +173,13 @@ def lexsort_perm(keys) -> torch.Tensor:
     return perm
 
 
-def apply_trim(outs: dict, tr_k: torch.Tensor, template, spec) -> dict:
+def apply_trim(outs: dict, tr_k: torch.Tensor, template, spec,
+               col_keys=None) -> dict:
     """outs (full table) → outs (T-row table), on the outputs' device.
+
+    ``col_keys``: per group key, its (ascending, descending) (G,) int64
+    order keys, for a factorized table (engine/rows.py) whose slot does
+    not encode its keys; a dense table decodes them from the slot.
 
     Emits
 
@@ -209,9 +214,10 @@ def apply_trim(outs: dict, tr_k: torch.Tensor, template, spec) -> dict:
     for ent in order:
         if ent[0] == "col":
             _tag, j, asc = ent
-            # a factorized table (engine/rows.py) carries each group's
-            # key order as a leaf; a dense one decodes it from the slot
-            k = outs[f"gk{j}"] if f"gk{j}" in outs else col_component(j)
+            if col_keys is not None:
+                keys.append(col_keys[j][0 if asc else 1])
+                continue
+            k = col_component(j)
         else:
             _tag, i, field, asc = ent
             if field == "count":
@@ -227,7 +233,7 @@ def apply_trim(outs: dict, tr_k: torch.Tensor, template, spec) -> dict:
             else:  # minmaxrange
                 k = f64(outs[f"a{i}_max"]) - f64(outs[f"a{i}_min"])
         # descending: the host's negation (ints in int64, floats in f64;
-        # integer keys here are non-negative, so negation is order-exact)
+        # slot components are non-negative, so negation is order-exact)
         keys.append(k if asc else -k)
     perm = lexsort_perm(keys)[:T]
     trim_n = torch.minimum(n_present, tr_k.to(torch.int64))

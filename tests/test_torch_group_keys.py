@@ -99,6 +99,9 @@ SQL = {
         "FROM t WHERE city <> 'c1' GROUP BY grp ORDER BY grp LIMIT 40"),
     "dc_raw_scalar": ("SELECT DISTINCTCOUNT(qty), DISTINCTCOUNTBITMAP(price), "
                       "COUNT(*) FROM t WHERE grp > 20"),
+    "dc_raw_nan": ("SELECT grp, DISTINCTCOUNT(score), COUNT(*) FROM t "
+                   "WHERE qty < 20 GROUP BY grp ORDER BY grp LIMIT 40"),
+    "dc_nan_scalar": "SELECT DISTINCTCOUNT(score), COUNT(*) FROM t",
     "dc_expression_key": (
         "SELECT qty % 4, SEGMENTPARTITIONEDDISTINCTCOUNT(big) FROM t "
         "GROUP BY qty % 4 ORDER BY 1"),
@@ -133,6 +136,10 @@ SQL = {
     "gb_wide_key": (
         "SELECT big % 1000000007, COUNT(*) FROM t "
         "GROUP BY big % 1000000007 ORDER BY COUNT(*) DESC, 1 LIMIT 5"),
+    "gb_double_desc_nan": ("SELECT score, COUNT(*) FROM t GROUP BY score "
+                           "ORDER BY score DESC LIMIT 5"),
+    "gb_double_asc_nan": ("SELECT score, COUNT(*) FROM t GROUP BY score "
+                          "ORDER BY score LIMIT 5"),
     "gb_float_key": ("SELECT qty / 3, COUNT(*) FROM t GROUP BY qty / 3 "
                      "ORDER BY 1 LIMIT 5"),
     "gb_cast_key": ("SELECT CAST(price AS INT), COUNT(*) FROM t "
@@ -249,6 +256,21 @@ def test_double_key_sees_below_float32_spacing(port_engine, ref_responses):
     assert rows == ref_responses["gb_double_key"]["resultTable"]["rows"]
 
 
+@pytest.mark.parametrize("name", ["gb_double_desc_nan", "gb_double_asc_nan",
+                                  "gb_expression_trim"])
+def test_trim_matches_untrimmed(port_engine, ref_responses, name):
+    """The on-device ORDER BY trim of a factorized table keeps the groups
+    the untrimmed table gives (``SET useDeviceReduce = false``): a NaN
+    float key sorts last in both directions, as the host orders it."""
+    trimmed = port_engine.execute(SQL[name])
+    plain = port_engine.execute("SET useDeviceReduce = false; " + SQL[name])
+    rows = trimmed["resultTable"]["rows"]
+    assert str(rows) == str(plain["resultTable"]["rows"])
+    assert str(rows) == str(ref_responses[name]["resultTable"]["rows"])
+    assert len(rows) == 5 and all(not np.isnan(r[0]) for r in rows)
+    assert port_engine.device.device_reduce_queries > 0
+
+
 def test_group_ids_reach_the_kernels(segment_dirs, monkeypatch):
     """At the gate of 0 the factorized group id feeds K1 (counts, sums)
     and K2 (MIN / MAX) as the dict group keys do; DISTINCT over dict
@@ -279,11 +301,18 @@ def test_group_ids_reach_the_kernels(segment_dirs, monkeypatch):
     "GROUP BY grp",
     "SELECT qty % 5, DISTINCTCOUNT(price) FROM t GROUP BY qty % 5",
     "SELECT DISTINCTCOUNT(big) FROM t WHERE grp = 4",
+    "SELECT grp, DISTINCTCOUNT(score) FROM t WHERE qty < 9 GROUP BY grp",
 ])
 def test_non_terminal_distinct_sets_match_reference(segment_dirs,
                                                     ref_engine, sql):
     """Without ``terminal`` the partial is the mergeable value sets, equal
-    to the reference host path's merged sets."""
+    to the reference host path's merged sets: the same numbers, and as
+    many NaN members, each NaN row one (NaN equals no NaN)."""
+
+    def members(values):
+        nums = {x for x in values if not (isinstance(x, float) and x != x)}
+        return nums, len(values) - len(nums)
+
     port = _port(segment_dirs)
     got = port.execute_segments(compile_query(sql), port.tables["t"])
     want = ref_engine.execute_segments(
@@ -294,7 +323,9 @@ def test_non_terminal_distinct_sets_match_reference(segment_dirs,
             if "sets" in pw]
     assert sets
     for pg, pw in sets:
-        assert list(pg["sets"]) == list(pw["sets"])
+        assert len(pg["sets"]) == len(pw["sets"])
+        for a, b in zip(pg["sets"], pw["sets"]):
+            assert members(a) == members(b)
     assert got.stats.num_docs_scanned == want.stats.num_docs_scanned
 
 
@@ -317,7 +348,7 @@ def firstlast_dirs(tmp_path_factory):
         "v": rng.integers(-50, 50, 5000).astype(np.int64),
         "ts": rng.integers(0, 40, 5000).astype(np.int64),
     })
-    out = {"t": [], "n": [], "s": []}
+    out = {"t": [], "n": [], "s": [], "big": []}
     for i in range(3):
         part = df.iloc[i * 1700: (i + 1) * 1700]
         d = os.path.join(str(tmp), f"s{i}")
@@ -344,6 +375,20 @@ def firstlast_dirs(tmp_path_factory):
         "ts": np.array([5, 9, 2, 7, 7], dtype=np.int64)}, d,
         segment_name="w0")
     out["s"].append(d)
+    # LONG values past 2^53, which float64 cannot hold
+    schema_b = Schema.build(
+        name="big", dimensions=[("k", DataType.STRING)],
+        metrics=[("v", DataType.LONG), ("ts", DataType.LONG)])
+    base = (1 << 53) + 1
+    big = pd.DataFrame({
+        "k": ["a", "a", "a", "b", "b"],
+        "v": np.array([base, base + 2, 7, -base - 4, 11], dtype=np.int64),
+        "ts": np.array([5, 9, 1, 3, 2], dtype=np.int64)})
+    for i in range(2):
+        d = os.path.join(str(tmp), f"b{i}")
+        build_segment(schema_b, {c: big.iloc[i::2][c].to_numpy()
+                                 for c in big}, d, segment_name=f"b{i}")
+        out["big"].append(d)
     return out
 
 
@@ -361,6 +406,14 @@ FIRSTLAST_SQL = [
     ("s", "SELECT k, LASTWITHTIME(who, ts, 'STRING') FROM s GROUP BY k "
           "ORDER BY k"),
     ("s", "SELECT FIRSTWITHTIME(who, ts, 'STRING') FROM s"),
+    # the host path's shape carries LONG values exactly
+    ("big", "SELECT $segmentName, LASTWITHTIME(v, ts, 'LONG'), "
+            "FIRSTWITHTIME(v, ts, 'LONG') FROM big GROUP BY $segmentName "
+            "ORDER BY 1"),
+    ("big", "SELECT LASTWITHTIME(v, ts, 'LONG'), FIRSTWITHTIME(v, ts, "
+            "'LONG') FROM big WHERE $docId < 2"),
+    ("big", "SELECT k, LASTWITHTIME(v, ts, 'LONG') FROM big "
+            "GROUP BY k ORDER BY k"),
 ]
 
 
