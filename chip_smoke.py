@@ -36,7 +36,15 @@ Phases, all on ``cuda:0``:
    held against its plain version once more at the block-skip path's
    own candidates, K1 and K2 at the selection path's own inputs
    (gb_expr's and gb_segment's factorized group-id planes and value
-   planes, captured at the kernels' entries), and five paths run: the six SSB scan/filter/group-by
+   planes, captured at the kernels' entries); K5, the port-only ordered
+   cluster sum of the t-digest build, at pct_scalar's, pct_raw_month's
+   and pct_tdigest_supp's sorted values and cluster offsets (long
+   clusters and 816,000 short ones), captured at its entry, bit for bit against its plain version (the CPU's sequential
+   cumsum), beside ``torch.segment_reduce`` (a parallel sum, a
+   yardstick), with each digest query's cluster sizes equal to
+   ``compress``'s own loop (run in the write pool) on every (segment,
+   group) run; K1 at sumprec_year's and sumprec_cust's byte planes and
+   K3 at rawhll_year's hash plane, captured the same way. Six paths run: the six SSB scan/filter/group-by
    queries, the five HLL and DISTINCTCOUNT queries, the six block-skip
    queries on the sorted table, the star-tree path (bench.py's
    q4_highcard_hll and q5_startree on the cubes, a filtered cube
@@ -47,18 +55,31 @@ Phases, all on ``cuda:0``:
    ``$segmentName``; DISTINCTCOUNT over a raw column; FIRST/LASTWITHTIME
    with massive time ties), its stats the reference's host path's where
    that path answers (index-served predicates scan nothing, entries
-   after the filter per kept row). Every answer is
+   after the filter per kept row), and the sketch path (PERCENTILE,
+   PERCENTILETDIGEST by d_year and by lo_suppkey (2,000 groups) and
+   PERCENTILERAWTDIGEST over a month; DISTINCTCOUNTTHETASKETCH by
+   c_region and its set form; SUMPRECISION by d_year and by lo_custkey
+   (100,000 groups); MODE; DISTINCTCOUNTRAWHLL; DISTINCTCOUNTSMARTHLL
+   under and past its threshold), in the reference host path's shape
+   with its stats. Every answer is
    checked against a numpy oracle over the generated columns (HLL
    estimates from registers the oracle builds itself; for the block-skip
    path also the pruned segments, pruned blocks and entries scanned,
    from per-segment and per-block min/max, and the ``SET useBlockSkip =
    false`` twin's answer; for the star-tree path numDocsScanned equal to
    the cube rows read, the float32 rounding of the DOUBLE cube sums
-   modelled, and no entry scanned by the metadata-only answer), and the
-   per-query p50 of 5 runs printed; q6 must make one
+   modelled, and no entry scanned by the metadata-only answer; for the
+   sketch path the percentiles within rank 1.5/delta of the exact order
+   statistic, PERCENTILERAWTDIGEST's string equal to a numpy fold of
+   per-segment ``add_values`` digests, the theta sketches equal to the
+   oracle's own per-segment sketches merged, exact integer sums, MODE
+   from counts, raw HLL and past-threshold SMARTHLL from the oracle's
+   registers, exact SMARTHLL sets), and the per-query p50 of 5 runs printed; q6 must make one
    K2 launch an execution, and no torch op may read its stored min/max
    planes (seen at the dispatcher); gb_expr and gb_segment one K1 and
-   one K2 launch an execution, distinct_dict one K1 launch. The launch counts, per kernel and
+   one K2 launch an execution, distinct_dict one K1 launch, each digest
+   query one K5 launch, each SUMPRECISION query one K1 launch and each
+   register query of the sketch path one K3 launch. The launch counts, per kernel and
    per entry, are zeroed just before each path and read just after;
    every kernel and entry of the path must have launched (the cube
    launches read too few rows to pass K1's gate: the star-tree path
@@ -256,6 +277,54 @@ SEL_QUERIES = {
 }
 # the on-device trim's twins, and the numGroupsLimit case on the
 # lo_suppkey group-by (2,000 groups, 100 kept)
+# the digest and sketch path (engine/sketches.py): the reference answers
+# these on its host; the port on the card in that path's shape
+SK_MONTH = "lo_orderdate BETWEEN 19930301 AND 19930328"
+SK_QUERIES = {
+    "pct_scalar": "SELECT PERCENTILE(lo_revenue, 50) FROM lineorder",
+    "pct_tdigest_year": (
+        "SELECT d_year, PERCENTILETDIGEST(lo_revenue, 90) FROM lineorder "
+        "GROUP BY d_year ORDER BY d_year"),
+    "pct_raw_month": ("SELECT PERCENTILERAWTDIGEST(lo_revenue, 50) FROM "
+                      f"lineorder WHERE {SK_MONTH}"),
+    "theta_region": (
+        "SELECT c_region, DISTINCTCOUNTTHETASKETCH(lo_custkey) FROM "
+        "lineorder GROUP BY c_region ORDER BY c_region"),
+    "theta_set": (
+        "SELECT DISTINCTCOUNTTHETASKETCH(lo_custkey, 'nominalEntries=16384', "
+        "'d_year = 1994', 'c_region = ''ASIA''', 'SET_INTERSECT($1, $2)') "
+        "FROM lineorder"),
+    "sumprec_year": (
+        "SELECT d_year, SUMPRECISION(lo_revenue) FROM lineorder "
+        "GROUP BY d_year ORDER BY d_year"),
+    "mode_region": (
+        "SELECT c_region, MODE(lo_discount) FROM lineorder "
+        "GROUP BY c_region ORDER BY c_region"),
+    "rawhll_year": (
+        "SELECT d_year, DISTINCTCOUNTRAWHLL(lo_custkey) FROM lineorder "
+        "GROUP BY d_year ORDER BY d_year"),
+    "smarthll_region": (
+        "SELECT c_region, DISTINCTCOUNTSMARTHLL(lo_suppkey) FROM lineorder "
+        "GROUP BY c_region ORDER BY c_region"),
+    # high-cardinality group-bys: 2,000 and 100,000 groups, 16,000 and
+    # 800,000 (segment, group) runs for the host's schedule and fold
+    "pct_tdigest_supp": (
+        "SELECT lo_suppkey, PERCENTILETDIGEST(lo_revenue, 90) FROM lineorder "
+        "GROUP BY lo_suppkey ORDER BY lo_suppkey LIMIT 20"),
+    "sumprec_cust": (
+        "SELECT lo_custkey, SUMPRECISION(lo_revenue) FROM lineorder "
+        "GROUP BY lo_custkey ORDER BY lo_custkey LIMIT 20"),
+    # each (segment, region) holds all 2,000 suppliers: past the threshold
+    # every one becomes K3 registers
+    "smarthll_low": (
+        "SELECT c_region, DISTINCTCOUNTSMARTHLL(lo_suppkey, 1000) FROM "
+        "lineorder GROUP BY c_region ORDER BY c_region"),
+}
+# (compression, percentile) of the digest queries
+SK_DIGESTS = {"pct_scalar": (200.0, 50), "pct_tdigest_year": (100.0, 90),
+              "pct_raw_month": (100.0, 50), "pct_tdigest_supp": (100.0, 90)}
+SK_SUPP_ROWS = 20     # pct_tdigest_supp's and sumprec_cust's LIMIT
+
 TRIM_TWINS = ("q1_scan_agg", "q4_no_hll", "q4_scan_hll")
 GROUPS_LIMIT_SQL = QUERIES["q4_no_hll"].replace(
     "SELECT", "SET numGroupsLimit = 100; SELECT", 1)
@@ -287,6 +356,13 @@ PATHS = {
     "selection": (SEL_QUERIES, ("group_plane_sums", "group_minmax"),
                   ((3, "group_scatter", "plane_group_sums"),
                    (4, "group_scatter", "group_minmax"))),
+    # t-digests through K5, SUMPRECISION's byte planes through K1, the
+    # raw HLL registers of d_year's 7 x 1024 slots and smarthll_low's
+    # past-threshold runs through K3's group entry
+    "sketch": (SK_QUERIES, ("cluster_sums", "group_plane_sums",
+                            "hll_register_max"),
+               ((3, "group_scatter", "plane_group_sums"),
+                (2, "groupby_mm", "hll_registers"))),
 }
 
 # kernel launches that one execution of a query makes: q6's three min/max
@@ -296,6 +372,15 @@ QUERY_LAUNCHES = {
     "gb_expr": {"group_plane_sums": 1, "group_minmax": 1},
     "gb_segment": {"group_plane_sums": 1, "group_minmax": 1},
     "distinct_dict": {"group_plane_sums": 1},
+    "pct_scalar": {"cluster_sums": 1},
+    "pct_tdigest_year": {"cluster_sums": 1},
+    "pct_raw_month": {"cluster_sums": 1},
+    "pct_tdigest_supp": {"cluster_sums": 1},
+    # the pipeline's group count, then SUMPRECISION's byte planes
+    "sumprec_year": {"group_plane_sums": 2},
+    "sumprec_cust": {"group_plane_sums": 2},
+    "rawhll_year": {"hll_register_max": 1},
+    "smarthll_low": {"hll_register_max": 1},
 }
 
 
@@ -791,6 +876,315 @@ def sel_oracle(data: list, bs_data: list) -> dict:
                      int(qty[mr & (od == t1)].max())])
     want["first_last"] = (rows, n, stats(np.ones(n, bool), 0, n, 4))
     return want
+
+
+def host_stats(seg, mask, n: int, S: int, scanned_cols: int, post: int):
+    """The host path's stats of a query over the unsorted table: a dict
+    predicate is a full scan there (no sorted or inverted index), no
+    segment is pruned, entries after the filter per kept row."""
+    return {"numEntriesScannedInFilter": scanned_cols * n,
+            "numEntriesScannedPostFilter": post,
+            "numSegmentsProcessed": S, "numSegmentsPrunedByServer": 0,
+            "numSegmentsMatched": len(np.unique(seg[mask])),
+            "numGroupsLimitReached": False}
+
+
+def compress_weights(n: int, delta: float) -> list:
+    """The cluster sizes of ops/quantile_digest.py ``compress`` over ``n``
+    unit-weight values: its loop value by value, its float64 test and its
+    ``_k`` / ``_k_inv`` (the port's copy of the module)."""
+    from pinot_tpu_torch.ops.quantile_digest import _k, _k_inv
+
+    total, cum, acc, out = float(n), 0.0, 1.0, []
+    q_limit = float(_k_inv(_k(np.float64(0.0), delta) + 1.0, delta))
+    for _ in range(1, n):
+        if (cum + acc + 1.0) / total <= q_limit:
+            acc += 1.0
+        else:
+            out.append(acc)
+            cum += acc
+            q_limit = float(_k_inv(_k(np.float64(cum / total), delta) + 1.0,
+                                   delta))
+            acc = 1.0
+    out.append(acc)
+    return out
+
+
+def _rank_checker(name: str, groups: list, p: float, delta: float):
+    """A rows check for an approximate percentile: each row's value (the
+    last column) must lie within rank 1.5 / delta of p in its group's
+    values (``groups``: (key or None, values) in row order)."""
+    def check(got):
+        if len(got) != len(groups):
+            raise AssertionError(f"{name}: {len(got)} rows, want "
+                                 f"{len(groups)}")
+        worst = 0.0
+        for row, (key, vals) in zip(got, groups):
+            if key is not None and row[0] != key:
+                raise AssertionError(f"{name}: key {row[0]}, want {key}")
+            est, n = row[-1], len(vals)
+            lo = np.count_nonzero(vals < est) / n
+            hi = np.count_nonzero(vals <= est) / n
+            off = 0.0 if lo <= p <= hi else min(abs(lo - p), abs(hi - p))
+            worst = max(worst, off)
+            if off > 1.5 / delta:
+                exact = np.partition(vals, int(p * (n - 1)))[int(p * (n - 1))]
+                raise AssertionError(
+                    f"{name}: {est} sits {off:.5f} of rank from p = {p} "
+                    f"(exact order statistic {exact}; bound {1.5 / delta})")
+        log(f"{name}: every value within rank {worst:.6f} of p = {p} "
+            f"(bound 1.5/delta = {1.5 / delta:.4f})")
+    return check
+
+
+def sk_runs(data: list) -> dict:
+    """Per digest query, the row count of each (segment, group) run with
+    rows, segment-major, groups ascending: the counts the card's cluster
+    schedule is made from."""
+    S = len(data)
+    years = np.unique(np.concatenate([d["d_year"] for d in data]))
+    month = [(d["lo_orderdate"] >= 19930301) & (d["lo_orderdate"] <= 19930328)
+             for d in data]
+    supp = [np.bincount(d["lo_suppkey"], minlength=2000) for d in data]
+    return {
+        "pct_scalar": [len(d["d_year"]) for d in data],
+        "pct_tdigest_year": [int((data[i]["d_year"] == y).sum())
+                             for i in range(S) for y in years],
+        "pct_raw_month": [int(m.sum()) for m in month if m.any()],
+        "pct_tdigest_supp": [int(k) for cnt in supp for k in cnt if k],
+    }
+
+
+def sk_oracle(data: list) -> dict:
+    """The digest and sketch path's answers and stats, from the generated
+    columns with the port's numpy copies of the reference's digest and
+    theta modules: per segment (and group) the state the reference's
+    host builds, folded in segment order as its merge does."""
+    import base64
+    import json
+
+    from pinot_tpu_torch.ops import quantile_digest as qd
+    from pinot_tpu_torch.ops import theta
+
+    c = {k: np.concatenate([d[k] for d in data]) for k in data[0]}
+    sizes = [len(d["d_year"]) for d in data]
+    S, n = len(data), len(c["d_year"])
+    seg = np.repeat(np.arange(S), sizes)
+    year, region, cust = c["d_year"], c["c_region"], c["lo_custkey"]
+    rev, disc, od = c["lo_revenue"], c["lo_discount"], c["lo_orderdate"]
+    every = np.ones(n, bool)
+    want = {}
+
+    def stats(mask=every, cols=0, args=1):
+        return host_stats(seg, mask, n, S, cols, int(mask.sum()) * args)
+
+    delta, p = SK_DIGESTS["pct_scalar"]
+    want["pct_scalar"] = (_rank_checker("pct_scalar", [(None, rev)],
+                                        p / 100, delta), n, stats())
+    delta, p = SK_DIGESTS["pct_tdigest_year"]
+    years = np.unique(year)
+    want["pct_tdigest_year"] = (_rank_checker(
+        "pct_tdigest_year", [(int(y), rev[year == y]) for y in years],
+        p / 100, delta), n, stats())
+
+    # the month's digest, state for state: add_values per segment, then
+    # the reference's fold (the first copied, the rest merged)
+    delta, _p = SK_DIGESTS["pct_raw_month"]
+    m = (od >= 19930301) & (od <= 19930328)
+    means, weights = [], []
+    for i in range(S):
+        vals = rev[(seg == i) & m]
+        if not len(vals):
+            continue
+        mi, wi = qd.add_values([], [], vals, delta)
+        if not means:
+            means, weights = mi.tolist(), wi.tolist()
+        else:
+            mm_, ww = qd.merge(means, weights, mi, wi, delta)
+            means, weights = mm_.tolist(), ww.tolist()
+    blob = json.dumps({"means": means, "weights": weights,
+                       "compression": delta})
+    want["pct_raw_month"] = (
+        [[base64.b64encode(blob.encode("utf-8")).decode("ascii")]],
+        int(m.sum()), stats(m, 1))
+
+    # theta: each segment's sketch of the distinct values (duplicates do
+    # not change a build), folded with theta.merge
+    k = theta.DEFAULT_NOMINAL
+    present = np.zeros((S * 5, 100_000), bool)
+    present[seg * 5 + region, cust] = True
+
+    def sketch(rows_of_segment) -> tuple:
+        th, h = int(theta.MAX_HASH), np.zeros(0, np.int64)
+        for i in range(S):
+            vals = np.nonzero(rows_of_segment(i))[0].astype(np.int32)
+            if len(vals):
+                ti, hi = theta.build(vals, k)
+                th, h = theta.merge(th, h, ti, hi, k)
+        return th, h
+
+    rows = []
+    for r in range(5):
+        th, h = sketch(lambda i: present[i * 5 + r])
+        rows.append([str(REGIONS[r]), round(theta.estimate(th, h))])
+    want["theta_region"] = (rows, n, stats())
+    filt = []
+    for fm in (year == 1994, region == 2):
+        pres = np.zeros((S, 100_000), bool)
+        pres[seg[fm], cust[fm]] = True
+        filt.append(sketch(lambda i: pres[i]))
+    th, h = theta.intersect(*filt[0], *filt[1])
+    want["theta_set"] = ([[round(theta.estimate(th, h))]], n, stats(args=3))
+
+    want["sumprec_year"] = ([[int(y), str(int(rev[year == y].astype(
+        np.int64).sum()))] for y in years], n, stats())
+    rows = []
+    for r in range(5):
+        cnt = np.bincount(disc[region == r], minlength=11)
+        rows.append([str(REGIONS[r]), float(np.argmax(cnt))])
+    want["mode_region"] = (rows, n, stats())
+    idx, rho = hll_idx_rho(fmix32(cust), LOG2M)
+    slot = np.searchsorted(years, year) * (1 << LOG2M) + idx
+    regs = np.zeros(len(years) << LOG2M, np.int8)
+    for r in range(1, 34 - LOG2M):   # a later, larger rank overwrites
+        regs[slot[rho == r]] = r
+    rows = [[int(y), base64.b64encode(regs.reshape(len(years), -1)[j]
+                                      .tobytes()).decode("ascii")]
+            for j, y in enumerate(years)]
+    want["rawhll_year"] = (rows, n, stats())
+    supp = c["lo_suppkey"]
+    want["smarthll_region"] = ([[str(REGIONS[r]),
+                                 len(np.unique(supp[region == r]))]
+                                for r in range(5)], n, stats())
+
+    # the high-cardinality group-bys: their first SK_SUPP_ROWS keys
+    def first_keys(key):
+        keys = np.flatnonzero(np.bincount(key))[:SK_SUPP_ROWS]
+        rows = key <= keys[-1]
+        return keys, key[rows], rev[rows]
+
+    keys, k_of, r_of = first_keys(supp)
+    delta, p = SK_DIGESTS["pct_tdigest_supp"]
+    want["pct_tdigest_supp"] = (_rank_checker(
+        "pct_tdigest_supp", [(int(k), r_of[k_of == k]) for k in keys],
+        p / 100, delta), n, stats())
+    keys, k_of, r_of = first_keys(cust)
+    sums = np.zeros(keys[-1] + 1, np.int64)
+    np.add.at(sums, k_of, r_of.astype(np.int64))
+    want["sumprec_cust"] = ([[int(k), str(int(sums[k]))] for k in keys],
+                            n, stats())
+    # past the threshold in every (segment, region): the registers of
+    # each region's values (an int64 below 2^31 hashes as its int32)
+    idx, rho = hll_idx_rho(fmix32(supp), LOG2M)
+    est = hll_estimates(idx, rho, region, 5, LOG2M)
+    want["smarthll_low"] = ([[str(REGIONS[r]), int(est[r])]
+                             for r in range(5)], n, stats())
+    return want
+
+
+def check_digest_schedules(engine, runs: dict, weights: dict) -> dict:
+    """K5's inputs at the digest queries, captured at its entry: the
+    cluster sizes the card used (the offsets' steps) equal ``compress``'s
+    on each run's count (``runs``, ``sk_runs``; ``weights``: (count,
+    delta) -> ``compress_weights``), run by run. Returns the captured
+    (values, offsets) by query."""
+    from pinot_tpu_torch.ops import kernels
+
+    out = {}
+    for name in SK_DIGESTS:
+        (args, _kw), = capture_calls(engine, SK_QUERIES[name], kernels,
+                                     "cluster_sums")
+        values, offsets = args
+        got = np.diff(offsets.cpu().numpy())
+        delta = SK_DIGESTS[name][0]
+        sched = [w for n in runs[name] for w in weights[(n, delta)]]
+        if got.tolist() != sched:
+            raise AssertionError(f"{name}: the card's clusters differ from "
+                                 f"compress's schedule")
+        log(f"{name}: {len(got)} clusters over {values.numel()} values, "
+            f"sizes equal compress's on each of {len(runs[name])} runs; "
+            f"largest {int(got.max())}")
+        out[name] = (values, offsets)
+    return out
+
+
+def check_k5(label: str, values, offsets) -> dict:
+    """K5 against its plain version (the CPU's sequential cumsum) at one
+    captured input, bit for bit. Times: the kernel (CUDA events), the
+    plain version (host clock, copies included) and
+    ``torch.segment_reduce`` over the same clusters, the nearest library
+    call (a parallel reduction: not the same sums, a yardstick)."""
+    import torch
+    from pinot_tpu_torch.ops import kernels
+
+    got = kernels.cluster_sums(values, offsets)
+    t = time.perf_counter()
+    want = kernels.cluster_sums_plain(values, offsets)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    same = torch.equal(got.view(torch.int64), want.view(torch.int64))
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if not same:
+        raise AssertionError(f"K5 {label}: differs from its plain version, "
+                             f"max abs err {err}")
+    ms = cuda_ms(lambda: kernels.cluster_sums(values, offsets), 10)
+    lengths = torch.diff(offsets)
+    lib_ms = cuda_ms(lambda: torch.segment_reduce(values, "sum",
+                                                  lengths=lengths), 5)
+    n, C = values.numel(), offsets.numel() - 1
+    b, by = bound_ms(8 * n + 8 * (C + 1) + 8 * C, n)
+    out = dict(shape=f"n={n} clusters={C} largest="
+                     f"{int(lengths.max())} {label}",
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+               bound_by=by, library_ms=lib_ms)
+    log(f"K5 {out['shape']}: {ms:.4f} ms, plain (CPU) {plain_ms:.2f} ms, "
+        f"segment_reduce {lib_ms:.4f} ms, bound {b:.4f} ms; bit-exact")
+    return out
+
+
+def check_sketch_kernels(engine, k1: dict, k3: dict) -> None:
+    """K1 at sumprec_year's and sumprec_cust's byte-plane inputs and K3 at
+    rawhll_year's hash plane and group ids, captured at their entries and
+    held against their plain versions. Adds the shapes to ``k1`` and
+    ``k3``."""
+    import torch
+    from pinot_tpu_torch.ops import group_scatter as ps
+    from pinot_tpu_torch.ops import groupby_mm as mm
+    from pinot_tpu_torch.ops import kernels
+
+    for name in ("sumprec_year", "sumprec_cust"):
+        # the pipeline's group count is the other call
+        (gid, sources, G), kw = next(
+            c for c in capture_calls(engine, SK_QUERIES[name], ps,
+                                     "plane_group_sums") if c[0][1])
+        k1["shapes"].append(k1_shape(
+            f"{name}: SUMPRECISION's "
+            + "".join(f"{s.values.dtype} {s.nplanes} plane(s) + "
+                      for s in sources).replace("torch.", "")
+            + f"count, G={G}", ps.plane_group_sums, G, sources,
+            kw.get("count", True), gid))
+    (args, kw), = capture_calls(engine, SK_QUERIES["rawhll_year"], mm,
+                                "hll_registers")
+    h, gid, G, log2m = args
+    mask = kw.get("mask")
+    got = mm.hll_registers(h, gid, G, log2m, mask=mask).reshape(-1)
+    want = kernels.hll_register_max_plain(h, log2m, G, gid, mask)
+    torch.cuda.synchronize()
+    err = float((got.to(torch.int32) - want).abs().max())
+    if not torch.equal(got.to(torch.int32), want):
+        raise AssertionError(f"K3 at rawhll_year's input differs, max abs "
+                             f"err {err}")
+    ms = cuda_ms(lambda: mm.hll_registers(h, gid, G, log2m, mask=mask), 10)
+    plain_ms = cuda_ms(lambda: kernels.hll_register_max_plain(
+        h, log2m, G, gid, mask), 3)
+    n, nslots = h.numel(), G << log2m
+    b, by = bound_ms(8 * n + 4 * nslots, n)
+    k3["sizes"].append(dict(
+        shape=f"n={n} slots={nslots} via groupby_mm.hll_registers "
+              "(rawhll_year's captured input)", nslots=nslots,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by))
+    log(f"K3 at rawhll_year's input ({nslots} slots): {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b:.4f} ms, bit-exact")
 
 
 def rows_equal(got, want) -> bool:
@@ -1589,7 +1983,9 @@ def run_path(engine, path: str, want: dict, total: int, runs: int,
             raise AssertionError(f"{name}: {resp['exceptions']}")
         rows_want, scanned = want[name][:2]
         got = resp["resultTable"]["rows"]
-        if not rows_equal(got, rows_want):
+        if callable(rows_want):   # an approximate answer's own check
+            rows_want(got)
+        elif not rows_equal(got, rows_want):
             raise AssertionError(f"{name}: rows {got[:5]} want "
                                  f"{rows_want[:5]}")
         if resp["numDocsScanned"] != scanned or resp["totalDocs"] != total:
@@ -1757,6 +2153,12 @@ def main(argv=None) -> int:
         pending_bs = pool.starmap_async(
             write_segment, [(i, seg, BS_TABLE) for i, seg in
                             enumerate(bs_data)])
+        # compress's own loop over each digest run's count, value by
+        # value: the schedules the card's clusters are held to
+        runs = sk_runs(data)
+        pairs = sorted({(n, SK_DIGESTS[q][0]) for q, ns in runs.items()
+                        for n in ns})
+        pending_w = pool.starmap_async(compress_weights, pairs)
 
         dev = torch.device("cuda", 0)
         pad = padded_len(rows, max(1024, ZONE_BLOCK_ROWS))
@@ -1775,6 +2177,7 @@ def main(argv=None) -> int:
 
         dirs, cube_s = zip(*pending.get())
         bs_dirs = [d for d, _s in pending_bs.get()]
+        weights = dict(zip(pairs, pending_w.get()))
         log(f"write segments (port creator, {workers} processes, both "
             f"tables): {time.perf_counter() - t_write:.2f} s, of which the "
             f"two star-tree cubes of lineorder took {sum(cube_s):.2f} s "
@@ -1789,6 +2192,7 @@ def main(argv=None) -> int:
     want.update(bs_oracle(bs_data, pad))
     want.update(st_oracle(data, want))
     want.update(sel_oracle(data, bs_data))
+    want.update(sk_oracle(data))
     total = S * rows
     del data, bs_data
     log(f"numpy oracle: {time.perf_counter() - t:.2f} s")
@@ -1822,6 +2226,14 @@ def main(argv=None) -> int:
                   *capture_fused(engine, BS_QUERIES["bs_month_fused"]))
     k4["sizes"] = [dict(k4), k4_bound]
     check_path_group_ids(engine, k1, k2)
+    torch.cuda.empty_cache()
+    digest_inputs = check_digest_schedules(engine, runs, weights)
+    k5_sizes = [check_k5(name, *digest_inputs[name])
+                for name in ("pct_scalar", "pct_raw_month",
+                             "pct_tdigest_supp")]
+    k5 = dict(k5_sizes[0], sizes=k5_sizes)
+    del digest_inputs
+    check_sketch_kernels(engine, k1, k3)
     torch.cuda.empty_cache()
 
     p50, launches = {}, {name: 0 for name in kernels.launches}
@@ -1865,7 +2277,10 @@ def main(argv=None) -> int:
             ("group_minmax", k2, "pinot_tpu/ops/pallas_scatter.py:349"),
             ("hll_register_max", k3, "pinot_tpu/ops/pallas_scatter.py:455 "
              "(and pinot_tpu/ops/groupby_mm.py:225 in rho_mode)"),
-            ("fused_filter_agg", k4, "pinot_tpu/ops/pallas_scatter.py:792")):
+            ("fused_filter_agg", k4, "pinot_tpu/ops/pallas_scatter.py:792"),
+            ("cluster_sums", k5, "none: port-only (the reference sums each "
+             "cluster on its host, pinot_tpu/ops/quantile_digest.py:34 "
+             "compress)")):
         entry = {"name": name, "route": "cuda",
                  "source": f"pinot_tpu_torch/csrc/{kernels.SOURCES[name]}",
                  "replaces": replaces, "launches": launches[name]}

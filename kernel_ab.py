@@ -8,7 +8,9 @@ of two trees on one card.
 K1 (group plane sums) at q1, q5, q4_no_hll, the wide float shape and the
 sorted HLL build; K3 (HLL register max) at 1024, 35,840 and 2^20 slots;
 K2 (group min/max) at q6's shape; K4 (fused filter + aggregate) at
-bs_month_fused's candidates and at the full candidate bound.
+bs_month_fused's candidates and at the full candidate bound; K5 (ordered
+cluster sums) at the digest queries' run shapes, with a checksum of its
+output bits so two trees' sums can be compared.
 
 K1, K2 and K3 changed their inputs over time: K1 read an (A, n) bf16
 channel tensor that torch ops built from the stored planes, K3 int32
@@ -167,11 +169,41 @@ def k4_shapes(ps, kernels, n: int, dev) -> None:
         print(json.dumps(res), flush=True)
 
 
+def k5_shapes(kernels, dev) -> None:
+    """K5 at chip_smoke.py's digest runs: pct_scalar's 8 runs of 12.5M
+    values (delta 200), pct_raw_month's 8 of ~149,000 (delta 100) and
+    pct_tdigest_supp's 16,000 of 6,250 (delta 100); the clusters are
+    ``digest.schedule``'s, the values random (K5's time does not depend
+    on them)."""
+    import numpy as np
+    import torch
+    from pinot_tpu_torch.ops import digest
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    for name, runs, n_run, delta in (("pct_scalar", 8, 12_500_000, 200.0),
+                                     ("pct_raw_month", 8, 148_750, 100.0),
+                                     ("pct_tdigest_supp", 16_000, 6_250,
+                                      100.0)):
+        sizes = np.tile(np.asarray(digest.schedule(n_run, delta)), runs)
+        off = torch.from_numpy(np.concatenate([[0], np.cumsum(sizes)])).to(dev)
+        v = torch.randint(1000, 6_000_000, (runs * n_run,), generator=gen,
+                          device=dev).to(torch.float64)
+        out = kernels.cluster_sums(v, off)
+        res = {"kernel": "K5", "shape": name, "clusters": len(sizes),
+               "largest": int(sizes.max()),
+               "bits_sum": int(out.view(torch.int64).sum()),
+               "kernel_ms": cuda_ms(lambda: kernels.cluster_sums(v, off), 20)}
+        print(json.dumps(res), flush=True)
+        del v, off, out
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
         __file__)), help="checkout whose pinot_tpu_torch is timed")
     ap.add_argument("--rows", type=int, default=N)
+    ap.add_argument("--k5-only", action="store_true", help="time K5 alone")
     args = ap.parse_args(argv)
     import torch
 
@@ -193,6 +225,10 @@ def main(argv=None) -> int:
     split = hasattr(kernels, "PlaneSource")  # the kernels split in registers
     dev = torch.device("cuda", 0)
     n = args.rows
+    if args.k5_only:
+        k5_shapes(kernels, dev)
+        print(json.dumps({"ok": True, "root": args.root, "card": card}))
+        return 0
     gen = torch.Generator(device=dev).manual_seed(11)
 
     def ints(lo, hi):
@@ -300,6 +336,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     k2_q6(ps, kernels, n, dev)
     k4_shapes(ps, kernels, n, dev)
+    if hasattr(kernels, "cluster_sums"):
+        k5_shapes(kernels, dev)
     print(json.dumps({"ok": True, "root": args.root, "card": card}))
     return 0
 

@@ -552,8 +552,10 @@ def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS,
         # planes (bp::) (S, L, W): any plane's leading axes give (S, L)
         data_cols = {k: v for k, v in cols.items()
                      if not k.startswith((bs_ops.ZLO, bs_ops.ZHI))}
-        S, L = next(v for k, v in data_cols.items()
-                    if not k.startswith("sk::")).shape[:2]
+        planes = [v for k, v in data_cols.items() if not k.startswith("sk::")]
+        if filter_tpl[0] == "mask":   # engine/rows.py's value-space filter
+            planes.append(params[filter_tpl[1]])
+        S, L = planes[0].shape[:2]
         dev = n_docs.device
         alive = params.get("ps_alive")
         alive_b = torch.ones(S, dtype=torch.bool, device=dev) \

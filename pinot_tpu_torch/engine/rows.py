@@ -3,9 +3,10 @@
 The JAX package's device refuses some shapes and its host path answers
 them (its engine/host.py): selection, DISTINCT over anything but dict
 columns, group-bys over expressions, raw or virtual columns, and
-aggregations its device has no form for, here DISTINCTCOUNT over raw
-columns. The port has no host scan. It runs these shapes on the card,
-with the values, rows and response stats of that host path:
+aggregations its device has no form for: DISTINCTCOUNT over raw
+columns, and the digests and sketches (engine/sketches.py). The port
+has no host scan. It runs these shapes on the card, with the values,
+rows and response stats of that host path:
 
 - the filter mask through the device's filter template, its non-dict
   leaves over the host path's values (engine/values.py), dense over the
@@ -19,7 +20,9 @@ with the values, rows and response stats of that host path:
   per row, numGroupsLimit applied per segment in doc order as the host
   applies it, then the dense pipeline of engine/device.py over that id
   (its K1 / K2 kernels at their gates), DISTINCTCOUNT as distinct
-  (group, value) pairs and FIRST/LASTWITHTIME over the exact values;
+  (group, value) pairs and FIRST/LASTWITHTIME over the exact values,
+  the digests and sketches beside it (engine/sketches.py), each from the
+  rows keyed by segment and group;
 - stats as the host counts them: entries scanned in the filter by index
   choice, entries after it per kept row, pruned segments dropped (when
   all are pruned, the first runs under a FALSE filter).
@@ -35,7 +38,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from pinot_tpu_torch.engine import aggspec
+from pinot_tpu_torch.engine import aggspec, sketches
 from pinot_tpu_torch.engine.params import (
     build_filter,
     expr_on_device,
@@ -101,29 +104,35 @@ class _Scan:
         )
 
 
-def _scan(q: QueryContext, ctx, alive) -> _Scan:
-    """The filter through the device's template (engine/params.py
+def filter_plane(f, ctx, ev: ValueEvaluator) -> torch.Tensor:
+    """A filter tree through the device's template (engine/params.py
     ``build_filter``), its non-dict leaves over the host path's values,
-    evaluated dense over the batch."""
+    evaluated dense over the (S, L) batch (padding rows not masked)."""
     from pinot_tpu_torch.engine.device import (
         DeviceExecutor,
         eval_filter,
         needed_columns,
     )
 
-    ev = ValueEvaluator(ctx)
-    all_pruned = not alive.any()
-    f = FilterNode.FALSE if all_pruned else q.filter
     params, counter = {}, [0]
     tpl = ("true",) if f is None else build_filter(f, ctx, params, counter,
                                                    ev)
     widths, cols = DeviceExecutor.gather_columns(ctx, needed_columns(tpl),
                                                  params)
+    shape = (ctx.S, ctx.pad_to)
+    return torch.broadcast_to(
+        eval_filter(tpl, cols, params, shape, ctx.device, widths), shape)
+
+
+def _scan(q: QueryContext, ctx, alive) -> _Scan:
+    """The filter over the batch (``filter_plane``), dead segments and
+    padding rows masked."""
+    ev = ValueEvaluator(ctx)
+    all_pruned = not alive.any()
+    f = FilterNode.FALSE if all_pruned else q.filter
     valid = mask_ops.valid_mask(ctx.n_docs_dev, ctx.pad_to) \
         & to_device(alive, ctx.device)[:, None]
-    mask = torch.broadcast_to(eval_filter(
-        tpl, cols, params, valid.shape, ctx.device, widths), valid.shape) \
-        & valid
+    mask = filter_plane(f, ctx, ev) & valid
     entries = 0
     if q.filter is not None and not all_pruned:
         entries = sum(filter_entries(q.filter, s)
@@ -228,14 +237,21 @@ def _distinct(q: QueryContext, ctx, alive) -> RowsLaunch:
 
 
 def _agg_plan(ex, q, ctx, ev, aggs, full, params, counter, cols):
-    """Each aggregation's pipeline template: the device template where it
+    """The pipeline's templates: the device template where an aggregation
     has one (the kernels read the stored planes), else value-space planes
-    the card computes (``__x`` / ``__k`` / ``__v`` / ``__t`` cols). Also
-    returns per aggregation the decode a partial needs, if any."""
-    tpls, decodes = [], []
+    the card computes (``__x`` / ``__k`` / ``__v`` / ``__t`` cols); per
+    template the decode a partial needs, if any; and per aggregation its
+    slot: the index ``i`` of its template (leaves ``a{i}_...``), or its
+    sketch (engine/sketches.py), which runs beside the pipeline."""
+    tpls, decodes, slots = [], [], []
     shape = (ctx.S, ctx.pad_to)
-    for i, a in enumerate(aggs):
+    for a in aggs:
         name = a.name
+        if name in sketches.NAMES:
+            slots.append(sketches.plan(len(slots), a, ev,
+                                       lambda f: filter_plane(f, ctx, ev)))
+            continue
+        i = len(tpls)
         dec = None
         if name in _PLAIN_AGGS:
             if name == "count" or expr_on_device(a.args[0], ctx):
@@ -266,16 +282,19 @@ def _agg_plan(ex, q, ctx, ev, aggs, full, params, counter, cols):
             tpl = (name, (("raw", f"__v{i}"), ("raw", f"__t{i}")),
                    "exact" if exact else "pair")
             dec = v if v.kind == "dict" else None
-        elif name in ("distinctcounthll", "hllmerge"):
+        elif name in ("distinctcounthll", "hllmerge", "fasthll"):
             if not a.args[0].is_identifier \
                     or a.args[0].name.startswith("$"):
                 raise later(f"{name.upper()} over an expression")
+            if name == "fasthll":   # the reference's alias
+                a = dataclasses.replace(a, name="distinctcounthll")
             tpl = ex._agg_template(i, a, ctx, params, counter)
         else:
             raise later(f"the aggregation {name.upper()}")
+        slots.append(i)
         tpls.append(tpl)
         decodes.append(dec)
-    return tuple(tpls), decodes
+    return tuple(tpls), decodes, slots
 
 
 def _partial(i, tpl, host, ctx, present, dec, ev):
@@ -315,6 +334,13 @@ def _partial(i, tpl, host, ctx, present, dec, ev):
     return part
 
 
+def _partials(slots, tpls, decodes, host, ctx, present, ev) -> list:
+    """Each aggregation's partial, in the query's order."""
+    return [_partial(s, tpls[s], host, ctx, present, decodes[s], ev)
+            if isinstance(s, int) else s.partial(host, present)
+            for s in slots]
+
+
 def _post_entries(aggs, kept: int) -> int:
     return sum(kept * len(aggspec.make_spec(a).args) for a in aggs)
 
@@ -330,9 +356,10 @@ def _aggregate(ex, q, ctx, final, reduce_mode, alive, aggs) -> RowsLaunch:
     ev, S, L, dev = scan.ev, ctx.S, ctx.pad_to, ctx.device
     full = Rows(S, L, dev)
     params, counter, cols = {}, [0], {}
-    tpls, decodes = _agg_plan(ex, q, ctx, ev, aggs, full, params, counter,
-                              cols)
+    tpls, decodes, slots = _agg_plan(ex, q, ctx, ev, aggs, full, params,
+                                     counter, cols)
     final = final and any(t[0] in STATE_AGGS for t in tpls)
+    sketch = [s for s in slots if not isinstance(s, int)]
     widths, base = ex.gather_columns(
         ctx, set().union(*(agg_columns(t) for t in tpls)), params)
     cols.update(base)
@@ -344,11 +371,12 @@ def _aggregate(ex, q, ctx, final, reduce_mode, alive, aggs) -> RowsLaunch:
         template = ("agg", ("mask", "__mask__"), (), (), tpls, final)
         outs = build_pipeline(template, widths, ex.min_rows)(
             cols, ctx.n_docs_dev, params)
+        for sk in sketch:
+            outs.update(sk.launch(sketches.Batch(ev, scan.mask, None, 1)))
         outs.update(outs0)
 
         def finish_scalar(host, _ex):
-            partials = [_partial(i, t, host, ctx, None, d, ev)
-                        for i, (t, d) in enumerate(zip(tpls, decodes))]
+            partials = _partials(slots, tpls, decodes, host, ctx, None, ev)
             n = int(host["hx_matched"].sum())
             return IntermediateResult(
                 "aggregation", agg_partials=partials,
@@ -390,7 +418,12 @@ def _aggregate(ex, q, ctx, final, reduce_mode, alive, aggs) -> RowsLaunch:
         cols, ctx.n_docs_dev, params)
     for j, k in enumerate(gkeys):
         outs[f"gk{j}"] = k
-    pairs = any(f"a{i}_pg" in outs for i in range(len(tpls)))
+    for sk in sketch:
+        outs.update(sk.launch(sketches.Batch(
+            ev, agg_mask, cols["__gid__"].reshape(-1), G)))
+    # list-, dict- and set-valued partials have no order key to trim by
+    pairs = bool(sketch) or any(f"a{i}_pg" in outs
+                                for i in range(len(tpls)))
     trim = None
     if reduce_mode is not None and not pairs:
         trim = dr_ops.plan_trim(q, q.group_by, aggs, G, reduce_mode,
@@ -413,8 +446,7 @@ def _aggregate(ex, q, ctx, final, reduce_mode, alive, aggs) -> RowsLaunch:
             present = np.nonzero(host["gcount"] > 0)[0]
         key_values = tuple(ev.decode_key(v, host[f"gk{j}"][present])
                            for j, v in enumerate(kvals))
-        partials = [_partial(i, t, host, ctx, present, d, ev)
-                    for i, (t, d) in enumerate(zip(tpls, decodes))]
+        partials = _partials(slots, tpls, decodes, host, ctx, present, ev)
         return IntermediateResult(
             "group_by", group_keys=key_values, agg_partials=partials,
             stats=scan.stats(host, _post_entries(aggs, int(host["hx_kept"])),

@@ -86,7 +86,8 @@ def _has_null_predicate(f) -> bool:
 
 
 # cube-side merges the JAX package runs on its host: no device form in
-# the port yet, so ``fit`` declines them and the query scans on the card
+# the port yet (ROADMAP item e2b), so ``fit`` declines them and the query
+# scans on the card
 HOST_MERGES = frozenset(("tdigestmerge", "bitmapmerge", "sumprecisionmerge"))
 
 

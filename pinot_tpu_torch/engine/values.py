@@ -23,7 +23,7 @@ values, its engine/host.py). The port runs those shapes on the card
   predicate.
 
 A shape without a form here raises ``DeviceUnsupported`` naming ROADMAP
-queue 1 item e2, the next slice of the single-stage surface.
+queue 1, where the rest of the single-stage surface is listed.
 """
 
 from __future__ import annotations
@@ -65,8 +65,7 @@ _SIGNED_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32,
 def later(what: str):
     """The in-band refusal of a shape this slice does not run."""
     return DeviceUnsupported(
-        f"{what} comes with a later slice of the port (ROADMAP queue 1, "
-        f"item e2)")
+        f"{what} comes with a later slice of the port (ROADMAP queue 1)")
 
 
 def host_name_of(seg) -> str:

@@ -3,8 +3,9 @@ plain PyTorch versions and launch counts.
 
 K1 ``group_plane_sums`` (csrc/group_plane_sums.cu), K2 ``group_minmax``
 (csrc/group_minmax.cu), K3 ``hll_register_max``
-(csrc/hll_register_max.cu) and K4 ``fused_filter_agg``
-(csrc/fused_filter_agg.cu) are compiled with ``nvcc`` for ``sm_90a``
+(csrc/hll_register_max.cu), K4 ``fused_filter_agg``
+(csrc/fused_filter_agg.cu) and the port-only K5 ``cluster_sums``
+(csrc/cluster_sums.cu, the t-digest build's ordered sums) are compiled with ``nvcc`` for ``sm_90a``
 into one shared library each, with a plain C interface, under
 ``pinot_tpu_torch/_build/`` at first use — one ``nvcc`` process per
 source, all started together — and bound with ``ctypes``. Nothing is
@@ -45,6 +46,7 @@ SOURCES = {
     "group_minmax": "group_minmax.cu",
     "hll_register_max": "hll_register_max.cu",
     "fused_filter_agg": "fused_filter_agg.cu",
+    "cluster_sums": "cluster_sums.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -66,6 +68,7 @@ _ARGTYPES = {  # the C signatures at the end of each csrc/*.cu
     "group_minmax": [_vp, _vp, _i64, _i32, _i32, _i32, _vp],
     "hll_register_max": [_vp, _vp, _vp, _i64, _i32, _i32, _i32, _vp, _vp],
     "fused_filter_agg": [_vp, _vp, _i32, _i32, _vp, _vp, _vp, _vp],
+    "cluster_sums": [_vp, _vp, _i64, _vp, _vp],
 }
 
 
@@ -854,3 +857,57 @@ def fused_filter_agg(cand, rows_in, cols, lits, prog, aggs, ki: int,
         _raise_on("fused_filter_agg", rc)
         launches["fused_filter_agg"] += 1
     return ints, flts
+
+
+# ---------------------------------------------------------------------------
+# K5: ordered cluster sums (the t-digest build, port-only)
+# ---------------------------------------------------------------------------
+
+
+def cluster_sums_plain(values, offsets):
+    """Plain version of K5, on the CPU whatever the inputs' device: per
+    cluster, ``torch.cumsum`` over its values, which the CPU runs as one
+    sequential float64 loop from 0.0. 0.0 + v[s] is v[s] but for v[s] =
+    -0.0, and the difference lasts only while every value added is a
+    zero, so a cluster of -0.0 values alone sums to -0.0, as the
+    sequential sum from v[s] does. Returns (C,) float64 on the inputs'
+    device."""
+    v = values.reshape(-1).to("cpu", torch.float64)
+    off = offsets.reshape(-1).to("cpu").tolist()
+    out = torch.empty(max(len(off) - 1, 0), dtype=torch.float64)
+    for c in range(len(off) - 1):
+        run = v[off[c]:off[c + 1]]
+        if run.numel() == 0:
+            out[c] = 0.0
+            continue
+        tot = torch.cumsum(run, 0)[-1]
+        if bool(((run == 0) & torch.signbit(run)).all()):
+            tot = torch.tensor(-0.0, dtype=torch.float64)
+        out[c] = tot
+    return out.to(values.device)
+
+
+def cluster_sums(values, offsets):
+    """K5. values: (n,) float64, sorted within each cluster as the caller
+    wants them summed; offsets: (C + 1,) int64, non-decreasing, in [0, n],
+    each cluster non-empty (ops/digest.py builds them on the host).
+    Returns (C,) float64: each cluster's values added in index order from
+    its first value, one ``__dadd_rn`` at a time."""
+    if values.device.type == "cpu" and offsets.device.type == "cpu":
+        return cluster_sums_plain(values, offsets)
+    _check_cuda("cluster_sums", values, offsets)
+    if values.dtype != torch.float64 or offsets.dtype != torch.int64:
+        raise TypeError("cluster_sums takes float64 values and int64 "
+                        f"offsets, got {values.dtype}, {offsets.dtype}")
+    if values.dim() != 1 or offsets.dim() != 1 or offsets.numel() < 1:
+        raise ValueError(f"cluster_sums shapes: values {tuple(values.shape)},"
+                         f" offsets {tuple(offsets.shape)}")
+    C = offsets.numel() - 1
+    out = torch.empty(C, dtype=torch.float64, device=values.device)
+    if C:
+        rc = _lib("cluster_sums").cluster_sums(
+            values.data_ptr(), offsets.data_ptr(), C, out.data_ptr(),
+            _stream(values.device))
+        _raise_on("cluster_sums", rc)
+        launches["cluster_sums"] += 1
+    return out

@@ -49,6 +49,8 @@ QUERIES = [
     "SELECT DISTINCT qty FROM t WHERE grp = 3",
     "SELECT grp, DISTINCTCOUNT(qty) FROM t GROUP BY grp",
     "SELECT PERCENTILE(qty, 50) FROM t",
+    "SELECT city, PERCENTILETDIGEST(qty, 90) FROM t WHERE grp > 2 "
+    "GROUP BY city ORDER BY city",
     "SELECT city, FIRSTWITHTIME(qty, ts, 'INT') FROM t GROUP BY city",
     "SELECT qty FROM t WHERE city = 'nowhere'",
     "SELECT qty FROM t WHERE ts > 1500",

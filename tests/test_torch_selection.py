@@ -12,8 +12,8 @@ equal: integers, strings, order and stats bit for bit, floats per
 ``_rows_close`` (rtol 1e-5).
 
 The SQL of tests/test_queries.py replays through the port behind that
-file's own fixture: 39 of its 40 tests pass; ``test_percentile`` is
-refused in-band, naming the next slice (ROADMAP item e2).
+file's own fixture: all 40 of its tests pass (``test_percentile`` since
+the digest and sketch slice, engine/sketches.py).
 """
 
 import inspect
@@ -262,9 +262,6 @@ def test_ordered_rows_is_the_hosts_per_segment_lexsort(seed):
 # tests/test_queries.py through the port, behind its own fixture
 # ---------------------------------------------------------------------------
 
-LEFT_FOR_E2 = {"TestAggregation::test_percentile"}
-
-
 def _query_tests() -> list:
     out = []
     for cname, cls in inspect.getmembers(test_queries, inspect.isclass):
@@ -301,17 +298,12 @@ def _run(setup, name):
 
 @pytest.mark.parametrize("name", _query_tests())
 def test_queries_sql_through_the_port(queries_setup, name):
-    if name in LEFT_FOR_E2:
-        engine, _con = queries_setup
-        resp = engine.execute("SELECT PERCENTILE(runs, 50) FROM baseballStats")
-        (exc,) = resp["exceptions"]
-        assert exc["message"].startswith("DeviceUnsupported")
-        assert "e2" in exc["message"]
-        return
     _run(queries_setup, name)
 
 
 def test_queries_sql_passes_39_of_40(queries_setup):
+    """Named when one test was left for the next slice: now all 40
+    pass."""
     names = _query_tests()
     failed = set()
     for name in names:
@@ -320,4 +312,4 @@ def test_queries_sql_passes_39_of_40(queries_setup):
         except Exception:  # noqa: BLE001 — a failing test, by its name
             failed.add(name)
     assert len(names) == 40
-    assert failed == LEFT_FOR_E2
+    assert failed == set()
