@@ -27,12 +27,19 @@ Phases, all on ``cuda:0``:
    launch; then f32 with signed zeros; bit-exact), K3 HLL register max
    from the hash plane at 1024, 35,840 and 2^20 slots (bit-exact) and K4
    fused filter + gather + aggregate at the full candidate bound
-   (bit-exact). CUDA-event times of the kernel, of the torch ops it
-   absorbed (K1's channel build, K2's widening, K3's hash split), of its
-   plain version and of one library call computing the same function
-   (``index_add_`` / ``scatter_reduce_``; for K4, which no single call
-   computes, the port's generic gathered form), beside the memory bound.
-3. Both tables are loaded into one ``QueryEngine(device="cuda")``; K4 is
+   (bit-exact), and K1 through ops/radix_groupby.py's
+   ``bucket_histogram`` over 100M packed keys (bit-exact against
+   ``torch.bincount``). CUDA-event times of the kernel, of the torch ops
+   it absorbed (K1's channel build, K2's widening, K3's hash split), of
+   its plain version and of one library call computing the same function
+   (``index_add_`` / ``scatter_reduce_`` / ``bincount``; for K4, which no
+   single call computes, the port's generic gathered form), beside the
+   memory bound.
+3. The three tables are loaded into one ``QueryEngine(device="cuda")``
+   (the third, ``lineorder_pairs``, is two of the unsorted segments with
+   a d_year x c_region cube of t-digest, bitmap and decimal pairs, and
+   the write pool also builds the overflow oracle's per-segment
+   partials); K4 is
    held against its plain version once more at the block-skip path's
    own candidates, K1 and K2 at the selection path's own inputs
    (gb_expr's and gb_segment's factorized group-id planes and value
@@ -44,7 +51,9 @@ Phases, all on ``cuda:0``:
    yardstick), with each digest query's cluster sizes equal to
    ``compress``'s own loop (run in the write pool) on every (segment,
    group) run; K1 at sumprec_year's and sumprec_cust's byte planes and
-   K3 at rawhll_year's hash plane, captured the same way. Six paths run: the six SSB scan/filter/group-by
+   K3 at rawhll_year's hash plane, captured the same way, and K1 at
+   hc_overflow's kept groups in the host path's shape and at
+   st_sumprec_region's byte planes over cube rows. Seven paths run: the six SSB scan/filter/group-by
    queries, the five HLL and DISTINCTCOUNT queries, the six block-skip
    queries on the sorted table, the star-tree path (bench.py's
    q4_highcard_hll and q5_startree on the cubes, a filtered cube
@@ -61,7 +70,12 @@ Phases, all on ``cuda:0``:
    c_region and its set form; SUMPRECISION by d_year and by lo_custkey
    (100,000 groups); MODE; DISTINCTCOUNTRAWHLL; DISTINCTCOUNTSMARTHLL
    under and past its threshold), in the reference host path's shape
-   with its stats. Every answer is
+   with its stats, and the highcard path (``HC_QUERIES``: the
+   lo_suppkey x lo_orderdate group-by past 2^22 keys in the sorted
+   regime, trimmed, untrimmed and under a key-order numGroupsLimit; the
+   lo_custkey x lo_suppkey group-by past the table's cap, run again in
+   the host path's shape; the star-tree's digest, bitmap and decimal
+   pairs on ``lineorder_pairs``, with cube rows scanned). Every answer is
    checked against a numpy oracle over the generated columns (HLL
    estimates from registers the oracle builds itself; for the block-skip
    path also the pruned segments, pruned blocks and entries scanned,
@@ -87,8 +101,10 @@ Phases, all on ``cuda:0``:
    scan forms row for row. The on-device top-K trim: q1, q4_no_hll and
    q4_scan_hll equal their ``SET useDeviceReduce = false`` twins, with
    the bytes each form fetched; ``SET numGroupsLimit = 100`` on the
-   lo_suppkey group-by answers in-band, equal to its twin and the
-   oracle. Then the cost block-skip eligibility adds to the unsorted
+   lo_suppkey group-by answers in-band: by default run again in the host
+   path's shape (each segment's first 100 groups in doc order), its
+   untrimmed twin the first 100 group ids, each equal to its oracle.
+   Then the cost block-skip eligibility adds to the unsorted
    table's filtered queries (the zone verdict and one scalar read before
    the dense form): p50 with and without ``SET useBlockSkip = false``.
 4. A ``{"kernels": [...]}`` line, the card line, and as the last line
@@ -330,6 +346,65 @@ GROUPS_LIMIT_SQL = QUERIES["q4_no_hll"].replace(
     "SELECT", "SET numGroupsLimit = 100; SELECT", 1)
 NO_TRIM = "SET useDeviceReduce = false; "
 
+# the high-cardinality path: dict group-bys past the dense regime's 2^22
+# groups (lo_suppkey x lo_orderdate: 2,000 x 2,352 = 4,704,000 keys) in
+# the sorted regime, a key-order numGroupsLimit truncation, and the
+# table's overflow (lo_custkey x lo_suppkey, ~78.7M pairs past K =
+# 100,000), which runs again in the host path's shape; then the
+# star-tree's digest, bitmap and decimal pairs over a table of two of the
+# unsorted segments, whose cube-side merges run in that shape too
+HC_DAYS = "lo_orderdate BETWEEN 19930101 AND 19930128"
+HC_SUPP_DAY = ("SELECT lo_suppkey, lo_orderdate, COUNT(*), SUM(lo_revenue), "
+               "MINMAXRANGE(lo_quantity), AVG(lo_discount) FROM lineorder "
+               f"WHERE {HC_DAYS} GROUP BY lo_suppkey, lo_orderdate")
+HC_TOP = " ORDER BY SUM(lo_revenue) DESC, lo_suppkey, lo_orderdate LIMIT 100"
+HC_KEYORDER_LIMIT, HC_KEYORDER_ROWS = 1000, 50
+HC_OVERFLOW_ROWS = 10
+HC_K = 100_000   # the engine's numGroupsLimit: the sorted table's cap K
+PAIRS_TABLE = "lineorder_pairs"
+PAIRS_SEGMENTS = 2
+HC_QUERIES = {
+    "hc_supp_day": HC_SUPP_DAY + HC_TOP,
+    "hc_supp_day_untrimmed": NO_TRIM + HC_SUPP_DAY + HC_TOP,
+    "hc_limit_keyorder": (
+        f"{NO_TRIM}SET numGroupsLimit = {HC_KEYORDER_LIMIT}; {HC_SUPP_DAY} "
+        f"LIMIT {HC_KEYORDER_ROWS}"),
+    "hc_overflow": (
+        "SELECT lo_custkey, lo_suppkey, COUNT(*), SUM(lo_revenue) FROM "
+        "lineorder GROUP BY lo_custkey, lo_suppkey ORDER BY SUM(lo_revenue) "
+        f"DESC, lo_custkey, lo_suppkey LIMIT {HC_OVERFLOW_ROWS}"),
+    "st_tdigest_year": (
+        "SELECT d_year, PERCENTILETDIGEST(lo_revenue, 90), "
+        f"PERCENTILEEST(lo_revenue, 75) FROM {PAIRS_TABLE} GROUP BY d_year "
+        "ORDER BY d_year"),
+    "st_bitmap_region": (
+        f"SELECT c_region, DISTINCTCOUNTBITMAP(lo_discount), COUNT(*) FROM "
+        f"{PAIRS_TABLE} WHERE d_year != 1995 GROUP BY c_region "
+        "ORDER BY c_region"),
+    "st_sumprec_region": (
+        f"SELECT c_region, SUMPRECISION(lo_revenue), COUNT(*) FROM "
+        f"{PAIRS_TABLE} GROUP BY c_region ORDER BY c_region"),
+}
+# the pairs table's tree; (percentile, compression) of its digest queries
+PAIR_TREES = (
+    (["d_year", "c_region"], ["COUNT__*", "PERCENTILETDIGEST__lo_revenue",
+                              "PERCENTILEEST__lo_revenue",
+                              "DISTINCTCOUNTBITMAP__lo_discount",
+                              "SUMPRECISION__lo_revenue"]),
+)
+ST_DIGESTS = ((90, 100.0), (75, 200.0))
+# the exact pairs, whose cube answer must equal the scan's
+# (tests/test_startree.py's bitmap and decimal pair tests)
+CUBE_SCAN_TWINS = ("st_bitmap_region", "st_sumprec_region")
+# per execution: sorted-regime tables built, host-path-shape re-runs
+QUERY_ROUTES = {
+    "hc_supp_day": (1, 0), "hc_supp_day_untrimmed": (1, 0),
+    "hc_limit_keyorder": (1, 0), "hc_overflow": (1, 1),
+    "st_tdigest_year": (0, 0), "st_bitmap_region": (0, 0),
+    "st_sumprec_region": (0, 0),
+}
+SORTED_BUILDS = [0]   # chunked_group_aggregate calls (count_sorted_builds)
+
 # the unsorted table's filtered queries, which are block-skip eligible and
 # overflow the candidate bound: their cost against SET useBlockSkip=false
 OVERFLOW_QUERIES = ("q2_range_sum", "q3_in_range", "q6_minmax",
@@ -363,6 +438,11 @@ PATHS = {
                             "hll_register_max"),
                ((3, "group_scatter", "plane_group_sums"),
                 (2, "groupby_mm", "hll_registers"))),
+    # the sorted regime is torch ops (XLA code in the reference); the
+    # overflow's host-path shape sums its kept groups and the cube's
+    # decimal pair its byte planes through K1
+    "highcard": (HC_QUERIES, ("group_plane_sums",),
+                 ((3, "group_scatter", "plane_group_sums"),)),
 }
 
 # kernel launches that one execution of a query makes: q6's three min/max
@@ -381,6 +461,13 @@ QUERY_LAUNCHES = {
     "sumprec_cust": {"group_plane_sums": 2},
     "rawhll_year": {"hll_register_max": 1},
     "smarthll_low": {"hll_register_max": 1},
+    # the sorted regime launches no kernel: its MINMAXRANGE is no K2 call
+    "hc_supp_day": {"group_plane_sums": 0, "group_minmax": 0},
+    "hc_supp_day_untrimmed": {"group_plane_sums": 0, "group_minmax": 0},
+    "hc_limit_keyorder": {"group_plane_sums": 0, "group_minmax": 0},
+    # the host path's shape over the kept groups: COUNT and SUM in one K1
+    "hc_overflow": {"group_plane_sums": 1},
+    "st_sumprec_region": {"group_plane_sums": 1},
 }
 
 
@@ -432,8 +519,9 @@ def sort_by_date(data: list) -> list:
 def write_segment(i: int, seg: dict, table: str = "lineorder",
                   star: bool = False) -> tuple:
     """Writes segment ``s<i>`` of ``table`` with the port's creator (run
-    in a worker process), with bench.py's two star-tree cubes when
-    ``star``. Returns (directory, seconds the cube build took)."""
+    in a worker process), with the table's star-tree cubes when ``star``
+    (bench.py's two for lineorder, ``PAIR_TREES`` for the pairs table).
+    Returns (directory, seconds the cube build took)."""
     from pinot_tpu_torch.common.datatypes import DataType
     from pinot_tpu_torch.common.schema import Schema
     from pinot_tpu_torch.common.table_config import (
@@ -459,7 +547,8 @@ def write_segment(i: int, seg: dict, table: str = "lineorder",
     out = os.path.join(DATA_DIR, table, f"s{i}")
     trees = [StarTreeIndexConfig(dimensions_split_order=d,
                                  function_column_pairs=p)
-             for d, p in STAR_TREES] if star else []
+             for d, p in (PAIR_TREES if table == PAIRS_TABLE
+                          else STAR_TREES)] if star else []
     cfg = TableConfig(table_name=table, indexing=IndexingConfig(
         star_tree_configs=trees))
     cube_s = [0.0]
@@ -551,6 +640,19 @@ def oracle(data: list) -> dict:
     want["q4_no_hll"] = ([[k, int(cnt[k]), float(qs[k]) / float(cnt[k])]
                           for k in top], len(supp))
     want["q4_counts"], want["q4_qsums"] = cnt, qs
+    # SET numGroupsLimit = 100 on q4_no_hll as the reference's host path
+    # answers it: per segment, the 100 keys met first in doc order keep
+    # their rows; then the reduce
+    kc, kq = np.zeros(2000, np.int64), np.zeros(2000, np.int64)
+    for d in data:
+        u, first = np.unique(d["lo_suppkey"], return_index=True)
+        kept = np.isin(d["lo_suppkey"], u[np.argsort(first)[:100]])
+        kc += np.bincount(d["lo_suppkey"][kept], minlength=2000)
+        kq += np.bincount(d["lo_suppkey"][kept], minlength=2000,
+                          weights=d["lo_quantity"][kept]).astype(np.int64)
+    top = sorted(np.flatnonzero(kc).tolist(), key=lambda k: (-kc[k], k))[:10]
+    want["q4_groups_limit_host"] = [[k, int(kc[k]), kq[k] / float(kc[k])]
+                                    for k in top]
 
     g = (year - 1992).astype(np.int64) * 5 + region
     cnt = np.bincount(g, minlength=35)
@@ -648,6 +750,118 @@ def st_oracle(data: list, want: dict) -> dict:
                           {"numEntriesScannedPostFilter": 0}),
         "q5_exact": [float(q5_exact[k]) for k in range(35) if q5_cnt[k]],
     }
+
+
+def hc_overflow_part(cust, supp, rev, limit: int = HC_K) -> tuple:
+    """hc_overflow's partial of one segment as the reference's host path
+    builds it (engine/host.py ``_group_by``): numGroupsLimit keeps the
+    ``limit`` (lo_custkey, lo_suppkey) pairs met first in doc order, then
+    (pair keys, counts, revenue sums, kept rows, whether the limit cut)
+    over their rows. Runs in a worker process."""
+    pair = cust.astype(np.int64) * 2000 + supp
+    u, first, inv = np.unique(pair, return_index=True, return_inverse=True)
+    keep = np.zeros(len(u), bool)
+    keep[np.argsort(first, kind="stable")[:limit]] = True
+    kept = keep[inv]
+    ku, kinv = np.unique(pair[kept], return_inverse=True)
+    return (ku, np.bincount(kinv), np.bincount(
+        kinv, weights=rev[kept].astype(np.float64)).astype(np.int64),
+        int(kept.sum()), len(u) > limit)
+
+
+def hc_oracle(data: list, overflow_parts: list) -> dict:
+    """The high-cardinality path's answers and stats: the sorted regime's
+    groups over the filter (exact sums, counts, ranges, averages), the
+    key-order truncation (the first ``HC_KEYORDER_LIMIT`` keys, lo_suppkey
+    major), the overflow from ``hc_overflow_part``'s per-segment partials
+    merged, and the pairs table's cube answers over its two segments,
+    numDocsScanned counting cube rows."""
+    import decimal  # noqa: F401  (SUMPRECISION renders exact integers)
+
+    c = {k: np.concatenate([d[k] for d in data]) for k in
+         ("lo_suppkey", "lo_orderdate", "lo_revenue", "lo_quantity",
+          "lo_discount")}
+    S, n = len(data), len(c["lo_suppkey"])
+    seg = np.repeat(np.arange(S), [len(d["d_year"]) for d in data])
+    od = c["lo_orderdate"]
+    m = (od >= 19930101) & (od <= 19930128)
+    m_rows = int(m.sum())
+    key = c["lo_suppkey"][m].astype(np.int64) * 100_000_000 + od[m]
+    u, inv = np.unique(key, return_inverse=True)
+    cnt = np.bincount(inv)
+    rsum = np.bincount(inv, weights=c["lo_revenue"][m].astype(np.float64))
+    dsum = np.bincount(inv, weights=c["lo_discount"][m].astype(np.float64))
+    qmin = np.full(len(u), 1 << 30)
+    qmax = np.zeros(len(u), np.int64)
+    np.minimum.at(qmin, inv, c["lo_quantity"][m])
+    np.maximum.at(qmax, inv, c["lo_quantity"][m])
+
+    def row(j):
+        return [int(u[j] // 100_000_000), int(u[j] % 100_000_000),
+                int(cnt[j]), float(rsum[j]), float(qmax[j] - qmin[j]),
+                dsum[j] / float(cnt[j])]
+
+    stats = {"numEntriesScannedInFilter": n,
+             "numEntriesScannedPostFilter": 3 * m_rows,
+             "numGroupsLimitReached": False, "numBlocksPruned": 0}
+    top = sorted(range(len(u)), key=lambda j: (-rsum[j], u[j]))[:100]
+    want = {"hc_supp_day": ([row(j) for j in top], m_rows, stats),
+            "hc_supp_day_untrimmed": ([row(j) for j in top], m_rows, stats),
+            "hc_limit_keyorder": (
+                [row(j) for j in range(HC_KEYORDER_ROWS)], m_rows,
+                dict(stats, numGroupsLimitReached=True))}
+    log(f"hc oracle: {len(u)} (lo_suppkey, lo_orderdate) groups over "
+        f"{m_rows} rows")
+
+    keys = np.concatenate([p[0] for p in overflow_parts])
+    ou, oinv = np.unique(keys, return_inverse=True)
+    ocnt = np.bincount(oinv, weights=np.concatenate(
+        [p[1] for p in overflow_parts])).astype(np.int64)
+    osum = np.bincount(oinv, weights=np.concatenate(
+        [p[2] for p in overflow_parts]).astype(np.float64))
+    kept = sum(p[3] for p in overflow_parts)
+    top = np.lexsort((ou, -osum))[:HC_OVERFLOW_ROWS]
+    want["hc_overflow"] = (
+        [[int(ou[j] // 2000), int(ou[j] % 2000), int(ocnt[j]),
+          float(osum[j])] for j in top], n,
+        dict(host_stats(seg, np.ones(n, bool), n, S, 0, kept),
+             numGroupsLimitReached=any(p[4] for p in overflow_parts),
+             numBlocksPruned=0))
+
+    # the pairs table: its first PAIRS_SEGMENTS segments
+    pd_ = data[:PAIRS_SEGMENTS]
+    p = {k: np.concatenate([d[k] for d in pd_]) for k in
+         ("d_year", "c_region", "lo_revenue", "lo_discount")}
+    total = len(p["d_year"])
+    combos = [len(np.unique(d["d_year"].astype(np.int64) * 8
+                            + d["c_region"])) for d in pd_]
+    combos_95 = [len(np.unique((d["d_year"].astype(np.int64) * 8
+                                + d["c_region"])[d["d_year"] != 1995]))
+                 for d in pd_]
+    years = np.unique(p["d_year"])
+    checks = [_rank_checker(f"st_tdigest_year p{pp}",
+                            [(int(y), p["lo_revenue"][p["d_year"] == y])
+                             for y in years], pp / 100, delta)
+              for pp, delta in ST_DIGESTS]
+
+    def digests(got):
+        for j, check in enumerate(checks):
+            check([[r[0], r[1 + j]] for r in got])
+
+    cube = {"totalDocs": total}
+    want["st_tdigest_year"] = (digests, sum(combos), cube)
+    not95 = p["d_year"] != 1995
+    want["st_bitmap_region"] = (
+        [[str(REGIONS[r]),
+          len(np.unique(p["lo_discount"][not95 & (p["c_region"] == r)])),
+          int((not95 & (p["c_region"] == r)).sum())] for r in range(5)],
+        sum(combos_95), dict(cube, scan_docs=int(not95.sum())))
+    want["st_sumprec_region"] = (
+        [[str(REGIONS[r]), str(int(p["lo_revenue"][p["c_region"] == r]
+                                   .astype(np.int64).sum())),
+          int((p["c_region"] == r).sum())] for r in range(5)],
+        sum(combos), dict(cube, scan_docs=total))
+    return want
 
 
 def _rows_mask(tree, c) -> np.ndarray:
@@ -1150,6 +1364,7 @@ def check_sketch_kernels(engine, k1: dict, k3: dict) -> None:
     import torch
     from pinot_tpu_torch.ops import group_scatter as ps
     from pinot_tpu_torch.ops import groupby_mm as mm
+    from pinot_tpu_torch.ops import hll as hll_ops
     from pinot_tpu_torch.ops import kernels
 
     for name in ("sumprec_year", "sumprec_cust"):
@@ -1157,12 +1372,10 @@ def check_sketch_kernels(engine, k1: dict, k3: dict) -> None:
         (gid, sources, G), kw = next(
             c for c in capture_calls(engine, SK_QUERIES[name], ps,
                                      "plane_group_sums") if c[0][1])
+        count = kw.get("count", True)
         k1["shapes"].append(k1_shape(
-            f"{name}: SUMPRECISION's "
-            + "".join(f"{s.values.dtype} {s.nplanes} plane(s) + "
-                      for s in sources).replace("torch.", "")
-            + f"count, G={G}", ps.plane_group_sums, G, sources,
-            kw.get("count", True), gid))
+            f"{name}: SUMPRECISION's {planes_label(sources, count)}, G={G}",
+            ps.plane_group_sums, G, sources, count, gid))
     (args, kw), = capture_calls(engine, SK_QUERIES["rawhll_year"], mm,
                                 "hll_registers")
     h, gid, G, log2m = args
@@ -1178,13 +1391,41 @@ def check_sketch_kernels(engine, k1: dict, k3: dict) -> None:
     plain_ms = cuda_ms(lambda: kernels.hll_register_max_plain(
         h, log2m, G, gid, mask), 3)
     n, nslots = h.numel(), G << log2m
+    slot, rho = hll_ops.hll_slots(h, log2m, G, gid, mask)
+    s64 = slot.long()
+    lib = torch.zeros(nslots + 1, dtype=torch.int32, device=h.device)
+    lib_ms = cuda_ms(lambda: lib.scatter_reduce_(0, s64, rho, "amax"), 5)
+    del slot, rho, s64, lib
     b, by = bound_ms(8 * n + 4 * nslots, n)
     k3["sizes"].append(dict(
         shape=f"n={n} slots={nslots} via groupby_mm.hll_registers "
               "(rawhll_year's captured input)", nslots=nslots,
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by))
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+        library_ms=lib_ms))
     log(f"K3 at rawhll_year's input ({nslots} slots): {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {b:.4f} ms, bit-exact")
+        f"{plain_ms:.4f} ms, scatter_reduce_ amax {lib_ms:.4f} ms, bound "
+        f"{b:.4f} ms, bit-exact")
+
+
+def check_highcard_kernels(engine, k1: dict) -> None:
+    """K1 at the highcard path's own inputs, captured at its entry and
+    held against its plain version (``k1_shape``): hc_overflow's group ids
+    in the host path's shape (the kept groups of every segment,
+    re-factorized: several hundred thousand, K1's group-range partitions)
+    with COUNT and SUM in one call, and st_sumprec_region's decimal byte
+    planes over the cube rows. Adds the shapes to ``k1``."""
+    from pinot_tpu_torch.ops import group_scatter as ps
+
+    for name, what in (("hc_overflow", "the host path's shape over the "
+                        "kept groups"),
+                       ("st_sumprec_region", "SUMPRECISIONMERGE's byte "
+                        "planes over cube rows")):
+        for (gid, sources, G), kw in capture_calls(
+                engine, HC_QUERIES[name], ps, "plane_group_sums"):
+            count = kw.get("count", True)
+            k1["shapes"].append(k1_shape(
+                f"{name}: {what}, G={G}, {planes_label(sources, count)}",
+                ps.plane_group_sums, G, sources, count, gid))
 
 
 def rows_equal(got, want) -> bool:
@@ -1436,6 +1677,64 @@ def check_k1(n: int, dev) -> dict:
     return dict(shapes[0], shapes=shapes)
 
 
+def check_bucket_histogram(n: int, dev) -> dict:
+    """K1 through ops/radix_groupby.py ``bucket_histogram`` (the radix
+    histogram, Pallas row 1's count channel in the reference) over ``n``
+    packed int32 keys of hc_supp_day's key space (4,704,000 keys), half of
+    them masked to the sentinel, into 256 partitions: bit for bit against
+    ``torch.bincount`` of the same buckets and K1's plain version. Times:
+    the call, the plain version and ``torch.bincount``."""
+    import torch
+    from pinot_tpu_torch.ops import kernels
+    from pinot_tpu_torch.ops import radix_groupby as radix
+
+    keyspace, nb = 2000 * 2352, 256
+    gen = torch.Generator(device=dev).manual_seed(37)
+    key = torch.randint(0, keyspace, (n,), generator=gen, dtype=torch.int32,
+                        device=dev)
+    key = torch.where(torch.rand((n,), generator=gen, device=dev) < 0.5,
+                      key, radix.INT32_SENTINEL)
+    shift = radix.bucket_shift(keyspace, nb)
+    bucket = torch.where(key == radix.INT32_SENTINEL, nb, key >> shift)
+    got = radix.bucket_histogram(key, keyspace, nb)
+    want = torch.bincount(bucket.long(), minlength=nb + 1)[:nb]
+    plain = kernels.group_plane_sums_plain(bucket, [], nb, True)[0]
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.equal(got, want) or not torch.equal(
+            torch.round(plain).to(torch.int64), want):
+        raise AssertionError(f"bucket_histogram differs from bincount, max "
+                             f"abs err {err}")
+    ms = cuda_ms(lambda: radix.bucket_histogram(key, keyspace, nb), 10)
+    plain_ms = cuda_ms(lambda: kernels.group_plane_sums_plain(
+        bucket, [], nb, True), 3)
+    b64 = bucket.long()
+    lib_ms = cuda_ms(lambda: torch.bincount(b64, minlength=nb + 1), 10)
+    b, by = bound_ms(4 * n + 8 * nb, n)
+    out = dict(shape=f"n={n} bucket_histogram: int32 keys of 4,704,000, "
+                     f"half masked, {nb} partitions (count channel only)",
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+               bound_by=by, library_ms=lib_ms)
+    log(f"K1 {out['shape']}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bincount {lib_ms:.4f} ms, bound {b:.4f} ms; bit-exact")
+    return out
+
+
+def count_sorted_builds() -> None:
+    """Counts the sorted regime's table builds in ``SORTED_BUILDS``: the
+    executor reaches ops/radix_groupby.py's ``chunked_group_aggregate``
+    through the module, so a wrapper there sees every call."""
+    from pinot_tpu_torch.ops import radix_groupby as radix
+
+    real = radix.chunked_group_aggregate
+
+    def counted(*args, **kwargs):
+        SORTED_BUILDS[0] += 1
+        return real(*args, **kwargs)
+
+    radix.chunked_group_aggregate = counted
+
+
 def check_k3(n: int, dev) -> list:
     """K3 from 32-bit hashes at the HLL path's register spaces: 1024 slots
     (scalar HLL with a mask, through the small-slot entry, Pallas row 5),
@@ -1636,6 +1935,13 @@ def capture_calls(engine, sql: str, module, entry: str) -> list:
     return seen
 
 
+def planes_label(sources, count: bool) -> str:
+    """K1's channels at a captured input, as a shape's label names them."""
+    return " + ".join(
+        [f"{s.values.dtype} {s.nplanes} plane(s)".replace("torch.", "")
+         for s in sources] + (["count"] if count else []))
+
+
 def check_path_group_ids(engine, k1: dict, k2: dict) -> None:
     """K1 and K2 at the selection path's own inputs: the group-id plane
     the card factorized for gb_expr (G = 1000) and gb_segment (G = 8, one
@@ -1649,12 +1955,11 @@ def check_path_group_ids(engine, k1: dict, k2: dict) -> None:
         sql = SEL_QUERIES[name]
         for (gid, sources, G), kw in capture_calls(engine, sql, ps,
                                                    "plane_group_sums"):
+            count = kw.get("count", True)
             k1["shapes"].append(k1_shape(
                 f"{name}: G={G}, factorized int32 group ids, "
-                + "".join(f"{s.values.dtype} {s.nplanes} plane(s) + "
-                          for s in sources).replace("torch.", "")
-                + "count", ps.plane_group_sums, G, sources,
-                kw.get("count", True), gid))
+                + planes_label(sources, count), ps.plane_group_sums, G,
+                sources, count, gid))
         for (gid, srcs, G), _kw in capture_calls(engine, sql, ps,
                                                  "group_minmax_sources"):
             k2["shapes"].append(k2_shape(
@@ -1973,30 +2278,49 @@ def run_path(engine, path: str, want: dict, total: int, runs: int,
     p50 = {}
     for name, sql in queries.items():
         before = dict(tables["kernels"])
+        routes = (SORTED_BUILDS[0], engine.device.host_shape_reruns)
         resp = engine.execute(sql)
         for kname, count in QUERY_LAUNCHES.get(name, {}).items():
             made = tables["kernels"][kname] - before[kname]
             if made != count:
                 raise AssertionError(f"{name}: {made} launches of {kname} "
                                      f"in one execution, want {count}")
+        if name in QUERY_ROUTES:
+            made = (SORTED_BUILDS[0] - routes[0],
+                    engine.device.host_shape_reruns - routes[1])
+            if made != QUERY_ROUTES[name]:
+                raise AssertionError(
+                    f"{name}: {made[0]} sorted-regime tables and {made[1]} "
+                    f"host-path-shape runs in one execution, want "
+                    f"{QUERY_ROUTES[name]}")
         if resp["exceptions"]:
             raise AssertionError(f"{name}: {resp['exceptions']}")
         rows_want, scanned = want[name][:2]
+        extra = dict(want[name][2]) if len(want[name]) > 2 else {}
+        scan_docs = extra.pop("scan_docs", None)
+        want_total = extra.pop("totalDocs", total)
         got = resp["resultTable"]["rows"]
         if callable(rows_want):   # an approximate answer's own check
             rows_want(got)
         elif not rows_equal(got, rows_want):
             raise AssertionError(f"{name}: rows {got[:5]} want "
                                  f"{rows_want[:5]}")
-        if resp["numDocsScanned"] != scanned or resp["totalDocs"] != total:
+        if resp["numDocsScanned"] != scanned \
+                or resp["totalDocs"] != want_total:
             raise AssertionError(
                 f"{name}: numDocsScanned {resp['numDocsScanned']} / "
-                f"totalDocs {resp['totalDocs']}, want {scanned} / {total}")
-        for key, val in (want[name][2] if len(want[name]) > 2
-                         else {}).items():  # pruning and scan stats
+                f"totalDocs {resp['totalDocs']}, want {scanned} / "
+                f"{want_total}")
+        for key, val in extra.items():  # pruning and scan stats
             if resp[key] != val:
                 raise AssertionError(f"{name}: {key} {resp[key]}, "
                                      f"want {val}")
+        if name in CUBE_SCAN_TWINS:   # an exact pair: cube == scan
+            twin = engine.execute("SET useStarTree = false; " + sql)
+            if twin["resultTable"] != resp["resultTable"] \
+                    or twin["numDocsScanned"] != scan_docs:
+                raise AssertionError(f"{name}: the useStarTree = false twin "
+                                     f"answers {twin}")
         if path == "blockskip":  # the force-dense twin
             twin = engine.execute("SET useBlockSkip = false; " + sql)
             if twin["resultTable"] != resp["resultTable"] \
@@ -2031,9 +2355,11 @@ def check_device_reduce(engine, want: dict) -> dict:
     """The on-device trim's twins: q1, q4_no_hll and q4_scan_hll answer
     the same rows with ``SET useDeviceReduce = false`` (the untrimmed
     fetch), each trimmed launch fetching fewer bytes; and the
-    numGroupsLimit case (100 of 2,000 groups kept) answers in-band, equal
-    to its twin and to the oracle's first 100 gids. Returns the bytes
-    fetched per query with and without the trim."""
+    numGroupsLimit case (100 of 2,000 groups kept): by default in the
+    host path's shape, as the reference's host keeps them (each
+    segment's first 100 in doc order), untrimmed the first 100 gids, as
+    the reference's device does. Returns the bytes fetched per query with
+    and without the trim."""
     ex = engine.device
     sqls = dict(QUERIES, **HLL_QUERIES)
     out = {}
@@ -2063,21 +2389,29 @@ def check_device_reduce(engine, want: dict) -> dict:
         log(f"device reduce {name}: the useDeviceReduce = false twin answers "
             f"the same rows; fetched {got['trimmed'][1]} bytes trimmed, "
             f"{got['untrimmed'][1]} untrimmed")
-    d0 = ex.device_reduce_queries
+    # numGroupsLimit = 100 of 2,000 groups: the trimmed launch gives way
+    # to the host path's shape (per segment, the first 100 groups in doc
+    # order), as the reference leaves its device; untrimmed, the first
+    # 100 gids, as the reference's device keeps them
+    r0 = ex.host_shape_reruns
     resp = engine.execute(GROUPS_LIMIT_SQL)
+    reran = ex.host_shape_reruns - r0
     twin = engine.execute(NO_TRIM + GROUPS_LIMIT_SQL)
     cnt = want["q4_counts"][:100]
     rows = [[k, int(cnt[k]), want["q4_qsums"][k] / float(cnt[k])]
             for k in sorted(range(100), key=lambda k: (-cnt[k], k))[:10]]
-    if resp["exceptions"] or resp["resultTable"] != twin["resultTable"] \
+    if resp["exceptions"] or twin["exceptions"] \
             or not resp["numGroupsLimitReached"] \
             or not twin["numGroupsLimitReached"] \
-            or not rows_equal(resp["resultTable"]["rows"], rows) \
-            or ex.device_reduce_queries != d0:
+            or not rows_equal(resp["resultTable"]["rows"],
+                              want["q4_groups_limit_host"]) \
+            or not rows_equal(twin["resultTable"]["rows"], rows) \
+            or reran != 1 or ex.host_shape_reruns != r0 + 1:
         raise AssertionError(f"numGroupsLimit case: {resp}, twin {twin}")
     log("device reduce numGroupsLimit = 100 on the lo_suppkey group-by: "
-        "in-band, numGroupsLimitReached, equal to its twin and to the "
-        "oracle's first 100 groups")
+        "numGroupsLimitReached; the default answer ran again in the host "
+        "path's shape and equals the oracle's per-segment doc-order keep, "
+        "the useDeviceReduce = false twin the first 100 groups")
     return out
 
 
@@ -2153,6 +2487,12 @@ def main(argv=None) -> int:
         pending_bs = pool.starmap_async(
             write_segment, [(i, seg, BS_TABLE) for i, seg in
                             enumerate(bs_data)])
+        pending_pairs = pool.starmap_async(
+            write_segment, [(i, data[i], PAIRS_TABLE, True)
+                            for i in range(min(S, PAIRS_SEGMENTS))])
+        pending_hc = pool.starmap_async(
+            hc_overflow_part, [(d["lo_custkey"], d["lo_suppkey"],
+                                d["lo_revenue"]) for d in data])
         # compress's own loop over each digest run's count, value by
         # value: the schedules the card's clusters are held to
         runs = sk_runs(data)
@@ -2165,6 +2505,7 @@ def main(argv=None) -> int:
         n = S * pad
         check_split_dtypes(dev)
         k1 = check_k1(n, dev)
+        k1["shapes"].append(check_bucket_histogram(n, dev))
         torch.cuda.empty_cache()
         k2 = check_k2(n, dev)
         torch.cuda.empty_cache()
@@ -2177,12 +2518,16 @@ def main(argv=None) -> int:
 
         dirs, cube_s = zip(*pending.get())
         bs_dirs = [d for d, _s in pending_bs.get()]
+        pair_dirs, pair_s = zip(*pending_pairs.get())
         weights = dict(zip(pairs, pending_w.get()))
-        log(f"write segments (port creator, {workers} processes, both "
+        hc_parts = pending_hc.get()
+        log(f"write segments (port creator, {workers} processes, three "
             f"tables): {time.perf_counter() - t_write:.2f} s, of which the "
             f"two star-tree cubes of lineorder took {sum(cube_s):.2f} s "
             f"summed over its {S} segments (at most {max(cube_s):.2f} s "
-            f"for one)")
+            f"for one), the digest, bitmap and decimal cube of "
+            f"{PAIRS_TABLE} {sum(pair_s):.2f} s over its "
+            f"{len(pair_s)} segments")
     finally:
         pool.terminate()
         pool.join()
@@ -2193,6 +2538,7 @@ def main(argv=None) -> int:
     want.update(st_oracle(data, want))
     want.update(sel_oracle(data, bs_data))
     want.update(sk_oracle(data))
+    want.update(hc_oracle(data, hc_parts))
     total = S * rows
     del data, bs_data
     log(f"numpy oracle: {time.perf_counter() - t:.2f} s")
@@ -2204,6 +2550,8 @@ def main(argv=None) -> int:
         engine.add_segment("lineorder", s)
     for s in bs_segs:
         engine.add_segment(BS_TABLE, s)
+    for d in pair_dirs:
+        engine.add_segment(PAIRS_TABLE, ImmutableSegment(d))
     t = time.perf_counter()
     ctx = engine.device.batch_for(segs)
     for c in ("d_year", "c_region", "s_nation", "lo_suppkey",
@@ -2234,8 +2582,10 @@ def main(argv=None) -> int:
     k5 = dict(k5_sizes[0], sizes=k5_sizes)
     del digest_inputs
     check_sketch_kernels(engine, k1, k3)
+    check_highcard_kernels(engine, k1)
     torch.cuda.empty_cache()
 
+    count_sorted_builds()
     p50, launches = {}, {name: 0 for name in kernels.launches}
     for path in PATHS:
         path_p50, counts = run_path(engine, path, want, total, args.runs,

@@ -16,9 +16,9 @@ DISTINCTCOUNTHLL register builds through the register-max kernel K3
 pallas-tier routing and minimum batch; other shapes use the torch
 scatters of ops/agg.py where the reference uses XLA's.
 
-DISTINCTCOUNTHLL and the DISTINCTCOUNT family run over dict columns (and
-DISTINCTCOUNTHLL over raw ones): a presence vector over global ids, and
-HLL registers from per-doc hashes computed at upload. A TERMINAL launch (``final``: nothing merges after
+DISTINCTCOUNTHLL and the DISTINCTCOUNT family run over dict columns: a
+presence vector over global ids, and HLL registers from per-doc hashes
+computed at upload. A TERMINAL launch (``final``: nothing merges after
 it, as for ``QueryEngine.execute``) finalizes them on the card —
 popcounts and estimates instead of G x C presence or G x m registers —
 and builds large-G HLL register-free from sorted keys
@@ -50,14 +50,26 @@ FIRSTWITHTIME / LASTWITHTIME run as torch scatters (a scatter-min or
 as the reference leaves them to XLA. DISTINCT over dict columns is the
 group machinery with no aggregation: presence is the count channel (K1).
 
+A dict group-by whose key space passes ``MAX_DENSE_GROUPS`` takes the
+reference's sorted high-cardinality regime (``groupby_sorted``) when
+every aggregation is in ``SORTED_AGGS``: packed keys, chunked sorts and
+run-end partials (ops/radix_groupby.py) into a keyed (K,) table, K =
+min(numGroupsLimit, ``MAX_SORTED_GROUPS``), which the device trim
+orders like a dense one.
+
 ``launch`` decides the shape first (``host_shape``): the reference's
 device template, or, where the reference's device refuses a shape and
 its host path answers it (selection, DISTINCT over other columns, group
-keys over expressions, raw or virtual columns, DISTINCTCOUNT over raw
-columns), that path's shape, still on the card (engine/rows.py). The sorted
-high-cardinality group-by regime raises DeviceUnsupported and comes
-with a later slice. There is no fallback ladder: a device or kernel
-error propagates to the caller.
+keys over expressions, raw or virtual columns, DISTINCTCOUNT and
+DISTINCTCOUNTHLL over raw columns, the sketches and the star-tree's
+merge aggregations), that path's shape, still on the card
+(engine/rows.py). Where the reference leaves its device at fetch time,
+the fetch does too, on a count the launch made: a sorted table holding
+more groups than K, or a trimmed table more present groups than
+numGroupsLimit keeps; the query then runs again in the host path's
+shape on the card, whose per-segment numGroupsLimit the reference's
+host applies. There is no fallback ladder: a device or kernel error
+propagates to the caller.
 """
 
 from __future__ import annotations
@@ -111,6 +123,9 @@ DISTINCTCOUNT_ALIASES = ("distinctcountbitmap",
                          "segmentpartitioneddistinctcount")
 
 MAX_DENSE_GROUPS = 1 << 22        # ARRAY_BASED regime guard (~4M groups)
+# the sorted regime's group-table cap (K = min(numGroupsLimit, this));
+# a table that overflows K answers in the host path's shape
+MAX_SORTED_GROUPS = 1 << 17
 MAX_PRESENCE_CELLS = 1 << 24      # per-group distinct/HLL state guard
 
 
@@ -536,8 +551,9 @@ def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS,
 
     Every form emits the same stat leaves (``_stat_outs``) and agrees
     with the dense form exactly."""
-    shape, filter_tpl, group_cols, group_cards, aggs, final = template
-    if shape not in ("agg", "groupby"):
+    shape, filter_tpl, group_cols, group_cards, aggs, sorted_k, final = \
+        template
+    if shape not in ("agg", "groupby", "groupby_sorted"):
         raise DeviceUnsupported(f"pipeline shape {shape}")
     num_groups = math.prod(group_cards)
     fused_plan = None
@@ -575,7 +591,9 @@ def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS,
             }
 
         def _aggregate(rows_cols, mask, outs):
-            if shape == "groupby":
+            if shape == "groupby_sorted":
+                _sorted(rows_cols, params, mask, outs)
+            elif shape == "groupby":
                 _groupby(rows_cols, params, mask, outs)
             else:
                 _scalar(rows_cols, params, mask, outs)
@@ -664,6 +682,54 @@ def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS,
             # gid carries the mask (masked rows hold the overflow id)
             outs[f"{k}_regs"] = _hll_regs(h, gid, None, num_groups, log2m,
                                           min_rows)
+
+    def _sorted(cols, params, mask, outs):
+        """The radix-partitioned high-cardinality regime (the MAP_BASED
+        analog of DictionaryBasedGroupKeyGenerator): dense accumulators
+        would not fit past MAX_DENSE_GROUPS, so the packed key rides
+        ops/radix_groupby.py's chunked sorts into a keyed (K,) table,
+        each distinct argument carried through the level-1 sort once.
+        Empty slots hold each reduction's neutral fill, so tables from
+        several devices merge exactly (``merge_tables``); the table is
+        (K,) on every form, so it needs no padding (the reference's
+        ``_pad_table``)."""
+        per_col = [_ids_col(cols, c) for c in group_cols]
+        key = radix_ops.pack_keys(per_col, group_cards, mask)
+        payloads, pname_of = {}, {}
+        sums, mins, maxs = set(), set(), set()
+        for name, argt, _extra in aggs:
+            if name == "count":
+                continue
+            if argt not in pname_of:
+                v = torch.broadcast_to(
+                    _eval_expr(argt, cols, params, widths), mask.shape)
+                # integer arguments accumulate exactly in int64, floats
+                # in float64 (widened after the sort gathers the rows)
+                pname = f"p{len(payloads)}"
+                pname_of[argt] = pname
+                payloads[pname] = (v.reshape(-1), "float"
+                                   if v.is_floating_point() else "int")
+            pname = pname_of[argt]
+            if name in ("sum", "avg"):
+                sums.add(pname)
+            if name in ("min", "minmaxrange"):
+                mins.add(pname)
+            if name in ("max", "minmaxrange"):
+                maxs.add(pname)
+        tbl = radix_ops.chunked_group_aggregate(
+            key.reshape(-1), payloads, sums, mins, maxs, sorted_k)
+        outs["n_groups_total"] = tbl["n_groups_total"]
+        outs["skeys"] = tbl["skeys"]
+        outs["gcount"] = tbl["gcount"]
+        for i, (name, argt, _extra) in enumerate(aggs):
+            if name == "count":
+                continue
+            pname = pname_of[argt]
+            for op, wanted in (("sum", ("sum", "avg")),
+                               ("min", ("min", "minmaxrange")),
+                               ("max", ("max", "minmaxrange"))):
+                if name in wanted:
+                    outs[f"a{i}_{op}"] = tbl[f"{op}::{pname}"]
 
     def _groupby(cols, params, mask, outs):
         # columns are already global ids: the group key IS the column
@@ -827,31 +893,37 @@ def agg_columns(tpl) -> set:
 
 
 class Launch:
-    """A dispatched pipeline: its template, batch and device outputs.
-    When the device trim ran, ``outs`` are the trimmed leaves and
-    ``full`` the untrimmed accumulators, still on the card. A launch in
-    the host path's shape (engine/rows.py ``RowsLaunch``) has the same
-    ``fetch``."""
+    """A dispatched pipeline: its template, batch and device outputs
+    (the trimmed leaves when the device trim ran), and what running it
+    again in the host path's shape takes. A launch in the host path's
+    shape (engine/rows.py ``RowsLaunch``) has the same ``fetch``."""
 
-    def __init__(self, q, ctx, template, outs, full=None):
+    def __init__(self, q, ctx, template, outs, final, reduce_mode, alive):
         self.q, self.ctx, self.template, self.outs = q, ctx, template, outs
-        self.full = full
+        self.final, self.reduce_mode, self.alive = final, reduce_mode, alive
 
     def fetch(self, ex: "DeviceExecutor") -> IntermediateResult:
         """Device outputs → host numpy → canonical IntermediateResult.
 
-        A trimmed launch copies the kept rows only. When more groups are
-        present than numGroupsLimit keeps, the ORDER-BY-trimmed rows
-        cannot reproduce the limit's gid-order drop; the reference leaves
-        its device there, the port answers in-band from the untrimmed
-        accumulators this launch kept on the card (no second launch): the
-        answer of ``SET useDeviceReduce = false``."""
+        Where the reference leaves its device at fetch time, so does
+        this fetch, on the counts the launch made (one copy brings them
+        with the table): a sorted table holding more groups than its cap
+        K, or a trimmed table more present groups than numGroupsLimit
+        keeps, whose limit the ORDER-BY-trimmed rows cannot reproduce.
+        The query then runs again in the host path's shape, on the card
+        (engine/rows.py), which applies numGroupsLimit per segment in doc
+        order as the reference's host does."""
         outs = ex._to_host(self.outs)
-        if self.full is not None:
-            if int(outs["n_present_total"]) > ex.groups_limit(self.q):
-                outs = ex._to_host(self.full)
-            else:
-                ex.device_reduce_queries += 1
+        shape, sorted_k = self.template[0], self.template[5]
+        if (shape == "groupby_sorted"
+                and int(outs["n_groups_total"]) > sorted_k) \
+                or ("n_present_total" in outs and int(
+                    outs["n_present_total"]) > ex.groups_limit(self.q)):
+            ex.host_shape_reruns += 1
+            return rows.launch(ex, self.q, self.ctx, self.final,
+                               self.reduce_mode, self.alive).fetch(ex)
+        if "trim_keys" in outs:
+            ex.device_reduce_queries += 1
         return ex._to_intermediate(self.q, self.ctx, self.template, outs)
 
 
@@ -872,6 +944,9 @@ class DeviceExecutor:
         # leaves, and the bytes every fetch copied to the host
         self.device_reduce_queries = 0
         self.fetch_bytes_total = 0
+        # fetches that ran the query again in the host path's shape (a
+        # sorted table past its cap, numGroupsLimit under a trim)
+        self.host_shape_reruns = 0
 
     def batch_for(self, segments) -> BatchContext:
         key = tuple(s.dir for s in segments)
@@ -894,11 +969,10 @@ class DeviceExecutor:
             return ("count", None, None)
         if name in SKETCH_AGGS:
             # DISTINCTCOUNT counts global dict ids; DISTINCTCOUNTHLL reads
-            # per-doc value hashes, which a raw column has as well
+            # the per-doc hashes of a dict column's values
             arg = a.args[0]
-            if not arg.is_identifier or (
-                    name == "distinctcount"
-                    and ctx.encoding(arg.name) != Encoding.DICT):
+            if not arg.is_identifier \
+                    or ctx.encoding(arg.name) != Encoding.DICT:
                 raise DeviceUnsupported(f"{name} needs a dict column on "
                                         f"the device")
             if name == "distinctcount":
@@ -974,8 +1048,9 @@ class DeviceExecutor:
         num_groups = math.prod(ctx.cardinality(k.name) for k in keys)
         if num_groups > MAX_DENSE_GROUPS:
             # past the dense regime only the sorted regime's aggregations
-            # stay on the device
-            return any(a.name not in SORTED_AGGS for a in aggs)
+            # stay on the device, over a key that fits int64
+            return num_groups >= (1 << 62) \
+                or any(a.name not in SORTED_AGGS for a in aggs)
         return bool(keys) and any(
             num_groups * self._state_cells(a, ctx) > MAX_PRESENCE_CELLS
             for a in aggs)
@@ -990,11 +1065,8 @@ class DeviceExecutor:
             return True
         arg = a.args[0]
         if name in SKETCH_AGGS or name == "hllmerge":
-            # DISTINCTCOUNTHLL reads per-doc hashes, which a raw column
-            # has as well
-            return arg.is_identifier and stored_column(arg.name, ctx) and (
-                name == "distinctcounthll"
-                or ctx.encoding(arg.name) == Encoding.DICT)
+            return arg.is_identifier and stored_column(arg.name, ctx) \
+                and ctx.encoding(arg.name) == Encoding.DICT
         if name in WITH_TIME_AGGS:
             return expr_on_device(arg, ctx) and expr_on_device(a.args[1], ctx)
         return expr_on_device(arg, ctx)
@@ -1026,9 +1098,9 @@ class DeviceExecutor:
     def _template(self, q: QueryContext, ctx: BatchContext, params,
                   counter, final: bool) -> tuple:
         """The reference's device template for ``q``, a shape
-        ``host_shape`` leaves on the device. Raises DeviceUnsupported for
-        the sorted high-cardinality regime, which the reference's device
-        runs and this port runs in a later slice."""
+        ``host_shape`` leaves on the device: past ``MAX_DENSE_GROUPS`` the
+        sorted regime, with its table cap K (``sorted_k``) in the
+        template."""
         aggs = q.aggregations()
         filter_tpl = ("true",) if q.filter is None else build_filter(
             q.filter, ctx, params, counter)
@@ -1036,16 +1108,17 @@ class DeviceExecutor:
                       (q.select_expressions if q.distinct else q.group_by)
                       or ()]
         group_cards = [ctx.cardinality(c) for c in group_cols]
-        if math.prod(group_cards) > MAX_DENSE_GROUPS:
-            raise DeviceUnsupported(
-                "group counts past the dense regime run in the sorted "
-                "regime, which comes with a later slice of the port "
-                "(ROADMAP queue 1, item f)")
+        shape = "groupby" if group_cols else "agg"
+        if group_cols and math.prod(group_cards) > MAX_DENSE_GROUPS:
+            # host_shape left only SORTED_AGGS here
+            shape = "groupby_sorted"
+        sorted_k = min(self.num_groups_limit, MAX_SORTED_GROUPS) \
+            if shape == "groupby_sorted" else 0
         agg_tpls = tuple(self._agg_template(i, a, ctx, params, counter)
                          for i, a in enumerate(aggs))
         final = final and any(name in STATE_AGGS for name, _, _ in agg_tpls)
-        return ("groupby" if group_cols else "agg", filter_tpl,
-                tuple(group_cols), tuple(group_cards), agg_tpls, final)
+        return (shape, filter_tpl, tuple(group_cols), tuple(group_cards),
+                agg_tpls, sorted_k, final)
 
     @staticmethod
     def gather_columns(ctx: BatchContext, needed, params, group_cols=(),
@@ -1088,7 +1161,8 @@ class DeviceExecutor:
         it), so distinct counts and HLL finalize on the card. A shape the
         reference's device refuses runs in its host path's shape on the
         card (engine/rows.py); one this slice does not run raises
-        DeviceUnsupported.
+        DeviceUnsupported. The fetch may run the query again in the host
+        path's shape (``Launch.fetch``).
 
         ``reduce_mode``: None, or "terminal" / "partial" when this batch
         is the sole partial of its execution: a group-by then takes the
@@ -1116,8 +1190,8 @@ class DeviceExecutor:
         params: dict = {}
         counter = [0]
         template = self._template(q, ctx, params, counter, final)
-        _shape, filter_tpl, group_cols, group_cards, agg_tpls, final = \
-            template
+        shape, filter_tpl, group_cols, group_cards, agg_tpls, sorted_k, \
+            final_tpl = template
         aggs = q.aggregations()
         num_groups = math.prod(group_cards)
 
@@ -1140,8 +1214,10 @@ class DeviceExecutor:
         # exact keep count rides as the tr_k param
         trim = None
         if reduce_mode is not None and group_cols:
-            trim = dr_ops.plan_trim(q, q.group_by, aggs, num_groups,
-                                    reduce_mode, self.group_trim_size)
+            trim = dr_ops.plan_trim(
+                q, q.group_by, aggs,
+                sorted_k if shape == "groupby_sorted" else num_groups,
+                reduce_mode, self.group_trim_size)
             if trim is not None:
                 params["tr_k"] = torch.tensor(
                     dr_ops.trim_keep_count(q, reduce_mode,
@@ -1159,7 +1235,7 @@ class DeviceExecutor:
         for name, argt, extra in agg_tpls:
             if (name == "distinctcounthll" and group_cols
                     and filter_tpl == ("true",) and sorted_proj_ok
-                    and _hll_sort_eligible(final, num_groups, extra)):
+                    and _hll_sort_eligible(final_tpl, num_groups, extra)):
                 needed.add(f"sk::{argt}::{extra}")
             else:
                 needed |= agg_columns((name, argt, extra))
@@ -1175,13 +1251,11 @@ class DeviceExecutor:
         else:
             outs = build_pipeline(template, widths, self.min_rows, use_bs)(
                 cols, ctx.n_docs_dev, params)
-        if trim is None:
-            return Launch(q, ctx, template, outs)
-        # the trim only gathers: the full accumulators stay on the card
-        # for a fetch under numGroupsLimit pressure
-        trimmed = dr_ops.apply_trim(
-            outs, params["tr_k"].to(outs["gcount"].device), template, trim)
-        return Launch(q, ctx, template, trimmed, full=outs)
+        if trim is not None:
+            outs = dr_ops.apply_trim(
+                outs, params["tr_k"].to(outs["gcount"].device), template,
+                trim)
+        return Launch(q, ctx, template, outs, final, reduce_mode, alive)
 
     def _to_host(self, outs: dict) -> dict:
         """Device leaves → host numpy arrays in one copy: the byte views
@@ -1220,7 +1294,7 @@ class DeviceExecutor:
 
     # ---- device outputs → canonical IntermediateResult -------------------
     def _to_intermediate(self, q, ctx: BatchContext, template, outs):
-        shape, _, group_cols, group_cards, agg_tpls, _final = template
+        shape, _, group_cols, group_cards, agg_tpls, _k, _final = template
         doc_count = int(outs["doc_count"])
         # honest under pruning, as the reference: entries count only the
         # alive segments' rows, and only the gathered blocks' rows when a
@@ -1258,14 +1332,17 @@ class DeviceExecutor:
             rem = outs["trim_keys"][present].astype(np.int64)
         else:
             # numGroupsLimit (engine default or per-query SET override):
-            # excess groups drop in gid order, and the stats flag says so
+            # excess groups drop in key order (the dense gid, the sorted
+            # table's slots), and the stats flag says so
             present = np.nonzero(outs["gcount"] > 0)[0]
             limit = self.groups_limit(q)
             if len(present) > limit:
                 present = present[:limit]
                 stats.num_groups_limit_reached = True
-            rem = present.copy()
-        # decode the combined key (the gid) → per-column global ids → values
+            rem = outs["skeys"][present].astype(np.int64) \
+                if shape == "groupby_sorted" else present.copy()
+        # decode the combined key (dense: the gid itself; sorted: the key
+        # recorded per table slot) → per-column global ids → values
         keys = []
         for card in reversed(group_cards[1:]):
             keys.append(rem % card)

@@ -17,10 +17,11 @@ counted as pruned); the device skips zone-map blocks inside the rest
 (Level 2, ops/blockskip.py). When the device batch is the sole partial
 of the query it runs the on-device top-K trim (ops/device_reduce.py)
 unless ``SET useDeviceReduce = false``, and a terminal one finalizes its
-sketches on the card. There is no host scan: a query shape the port
-does not run on the device comes back as an in-band
-``DeviceUnsupported`` exception in the response, as every other error
-does. Multi-stage queries and EXPLAIN ANALYZE come with later slices;
+sketches on the card. There is no host scan: the shapes the reference
+answers on its host, at launch or after its fetch, run in that path's
+shape on the card (engine/rows.py), and a query shape the port does not
+run comes back as an in-band ``DeviceUnsupported`` exception in the
+response, as every other error does. Multi-stage queries and EXPLAIN ANALYZE come with later slices;
 EXPLAIN PLAN renders the plan (engine/explain.py).
 """
 

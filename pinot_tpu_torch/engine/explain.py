@@ -25,8 +25,6 @@ from pinot_tpu_torch.query.context import FilterNode, FilterNodeType, \
 
 BACKEND_DEVICE = "DEVICE(torch/cuda)"
 BACKEND_HOST_SHAPE = "DEVICE(torch/cuda, host-path shape)"
-# the reference's sorted-regime table bound, which its trim line reads
-MAX_SORTED_GROUPS = 1 << 17
 
 
 def _width_lines(q: QueryContext, segs, out: list) -> None:
@@ -84,8 +82,12 @@ def _rows_response(lines: list) -> dict:
 def _trim_line(engine, q: QueryContext, segs) -> str | None:
     """The DEVICE_REDUCE line, when the on-device trim would engage: its
     static bound below the group table's length (cardinalities from a
-    throwaway context; a group key without one renders no line)."""
-    from pinot_tpu_torch.engine.device import MAX_DENSE_GROUPS
+    throwaway context; a group key without one renders no line): the
+    dense group count, or the sorted regime's cap K."""
+    from pinot_tpu_torch.engine.device import (
+        MAX_DENSE_GROUPS,
+        MAX_SORTED_GROUPS,
+    )
     from pinot_tpu_torch.engine.params import BatchContext
     from pinot_tpu_torch.ops.device_reduce import plan_trim, trim_keep_count
 

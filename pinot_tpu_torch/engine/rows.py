@@ -18,7 +18,9 @@ rows and response stats of that host path:
 - DISTINCT: the distinct key tuples of the matched rows, in key order;
 - group-by: a factorize on the card (``torch.unique``) into one group id
   per row, numGroupsLimit applied per segment in doc order as the host
-  applies it, then the dense pipeline of engine/device.py over that id
+  applies it (the kept rows then factorized again, as the host does, so
+  a table of 78M groups cut to S x limit sizes the pipeline by the
+  latter), then the dense pipeline of engine/device.py over that id
   (its K1 / K2 kernels at their gates), DISTINCTCOUNT as distinct
   (group, value) pairs and FIRST/LASTWITHTIME over the exact values,
   the digests and sketches beside it (engine/sketches.py), each from the
@@ -26,6 +28,11 @@ rows and response stats of that host path:
 - stats as the host counts them: entries scanned in the filter by index
   choice, entries after it per kept row, pruned segments dropped (when
   all are pruned, the first runs under a FALSE filter).
+
+Besides the shapes ``DeviceExecutor.host_shape`` sends here, a device
+launch's fetch runs a query again here where the reference re-runs it on
+its host (engine/device.py ``Launch.fetch``): a sorted-regime table past
+its cap, or numGroupsLimit pressure on a trimmed table.
 
 Only answer-sized tensors come to the host, in one copy: the kept rows,
 the group keys and accumulators, the per-segment counts.
@@ -56,6 +63,7 @@ from pinot_tpu_torch.ops import device_reduce as dr_ops
 from pinot_tpu_torch.ops import masks as mask_ops
 from pinot_tpu_torch.ops import selection as sel_ops
 from pinot_tpu_torch.query.context import FilterNode, QueryContext
+from pinot_tpu_torch.storage.segment import Encoding
 
 # aggregations the pipeline runs over device templates (engine/device.py)
 _PLAIN_AGGS = ("count", "sum", "avg", "min", "max", "minmaxrange")
@@ -199,15 +207,21 @@ def _selection(q: QueryContext, ctx, alive) -> RowsLaunch:
 # ---------------------------------------------------------------------------
 
 
+def _key_columns(ev, exprs, scan: _Scan, ctx) -> tuple:
+    """(vals, keys, cards) of the key expressions over the whole batch:
+    each one's values, its int64 keys and their known range, if any."""
+    full = Rows(ctx.S, ctx.pad_to, ctx.device)
+    vals = [ev.eval(e, full) for e in exprs]
+    keys = [ev.key(v, scan.mask.shape).reshape(-1) for v in vals]
+    return vals, keys, [ev.card(v) for v in vals]
+
+
 def _group_ids(ev, exprs, scan: _Scan, ctx) -> tuple:
     """(vals, gid, G, group_keys) of the key expressions over the whole
     batch (ops/selection.py factorize, its ranges and ranks taken over
     the matched rows)."""
-    full = Rows(ctx.S, ctx.pad_to, ctx.device)
-    vals = [ev.eval(e, full) for e in exprs]
-    keys = [ev.key(v, scan.mask.shape).reshape(-1) for v in vals]
-    gid, G, gkeys = sel_ops.factorize(keys, scan.mask.reshape(-1),
-                                      [ev.card(v) for v in vals])
+    vals, keys, cards = _key_columns(ev, exprs, scan, ctx)
+    gid, G, gkeys = sel_ops.factorize(keys, scan.mask.reshape(-1), cards)
     return vals, gid, G, gkeys
 
 
@@ -286,6 +300,13 @@ def _agg_plan(ex, q, ctx, ev, aggs, full, params, counter, cols):
             if not a.args[0].is_identifier \
                     or a.args[0].name.startswith("$"):
                 raise later(f"{name.upper()} over an expression")
+            ev.column_dtype(a.args[0].name)
+            if name != "hllmerge" \
+                    and ctx.encoding(a.args[0].name) != Encoding.DICT:
+                # the reference's device reads dict columns only: a raw
+                # column's registers take the sketch's K3 form
+                slots.append(sketches.plan(len(slots), a, ev, None))
+                continue
             if name == "fasthll":   # the reference's alias
                 a = dataclasses.replace(a, name="distinctcounthll")
             tpl = ex._agg_template(i, a, ctx, params, counter)
@@ -368,7 +389,7 @@ def _aggregate(ex, q, ctx, final, reduce_mode, alive, aggs) -> RowsLaunch:
 
     if not q.group_by:
         params["__mask__"] = scan.mask
-        template = ("agg", ("mask", "__mask__"), (), (), tpls, final)
+        template = ("agg", ("mask", "__mask__"), (), (), tpls, 0, final)
         outs = build_pipeline(template, widths, ex.min_rows)(
             cols, ctx.n_docs_dev, params)
         for sk in sketch:
@@ -397,8 +418,9 @@ def _aggregate(ex, q, ctx, final, reduce_mode, alive, aggs) -> RowsLaunch:
 
         return RowsLaunch(outs0, finish_empty)
 
-    kvals, gid, G, gkeys = _group_ids(ev, q.group_by, scan, ctx)
+    kvals, keys, cards = _key_columns(ev, q.group_by, scan, ctx)
     agg_mask = scan.mask.reshape(-1)
+    gid, G, gkeys = sel_ops.factorize(keys, agg_mask, cards)
     limit = ex.groups_limit(q)
     keep = None
     if G > limit:
@@ -408,12 +430,16 @@ def _aggregate(ex, q, ctx, final, reduce_mode, alive, aggs) -> RowsLaunch:
     if keep is not None:
         agg_mask = agg_mask.clone()
         agg_mask[idx[~keep]] = False
+        # at most S * limit groups keep rows: number those alone, as the
+        # host factorizes its kept rows again, so the pipeline's tables
+        # are sized by what was kept, not by every group met
+        gid, G, gkeys = sel_ops.factorize(keys, agg_mask, cards)
     agg_mask = agg_mask.reshape(S, L)
     cols["__gid__"] = torch.where(agg_mask, gid.reshape(S, L), G) \
         .to(torch.int32)
     params["__mask__"] = agg_mask
     template = ("groupby", ("mask", "__mask__"), ("__gid__",), (G,), tpls,
-                final)
+                0, final)
     outs = build_pipeline(template, widths, ex.min_rows)(
         cols, ctx.n_docs_dev, params)
     for j, k in enumerate(gkeys):

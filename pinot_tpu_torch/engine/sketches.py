@@ -36,8 +36,19 @@ numGroupsLimit) keyed by run, ``segment * G + group``
   its sign, every NaN row is its own key); a DISTINCTCOUNTSMARTHLL run
   past its threshold becomes K3 registers over its values' hashes at the
   dtype numpy gives the set's values (int64, float64 or strings);
-- DISTINCTCOUNTRAWHLL: K3 registers over the batch's stored hash plane
-  (register max is order-free).
+- DISTINCTCOUNTRAWHLL, and DISTINCTCOUNTHLL over a raw column (the
+  reference's device reads dict columns only): K3 registers over the
+  batch's stored hash plane (register max is order-free);
+- the star-tree's merges over a cube's serialized states
+  (engine/startree_exec.py): SUMPRECISIONMERGE parses each dictionary
+  entry's decimal string once and sums the rows' integers through K1's
+  byte planes as SUMPRECISION does; BITMAPMERGE builds the (group,
+  dictionary id) pairs present on the card and unions each present
+  entry's value set, parsed once; TDIGESTMERGE orders the matched cube
+  rows by (segment, group) on the card, keeping row order, and folds
+  their digests with the port's copy of the reference's
+  ``TDigestMergeSpec``, per group in row order, then over segments in
+  segment order, so every digest is bit-equal.
 
 The JAX package's device has no form for any of these, so none of its
 gates (PALLAS_MIN_ROWS, the accumulator regimes) applies: on the card
@@ -54,6 +65,7 @@ from pinot_tpu_torch.engine import aggspec
 from pinot_tpu_torch.engine.params import DeviceUnsupported, to_device
 from pinot_tpu_torch.engine.values import (
     Rows,
+    Val,
     ValueEvaluator,
     _torch_dtype,
     later,
@@ -70,9 +82,10 @@ PERCENTILES = ("percentile", "percentileest", "percentiletdigest",
                "percentilesmarttdigest", "percentilerawest",
                "percentilerawtdigest")
 THETAS = ("distinctcountthetasketch", "distinctcountrawthetasketch")
-NAMES = PERCENTILES + THETAS + ("sumprecision", "mode", "idset",
-                                "distinctcountrawhll",
-                                "distinctcountsmarthll")
+CUBE_MERGES = ("tdigestmerge", "bitmapmerge", "sumprecisionmerge")
+NAMES = PERCENTILES + THETAS + CUBE_MERGES + (
+    "sumprecision", "mode", "idset", "distinctcountrawhll",
+    "distinctcountsmarthll")
 
 _INT63 = 1 << 63
 
@@ -118,8 +131,14 @@ def plan(i: int, a, ev: ValueEvaluator, filter_plane):
         return _Theta(i, spec, ev, filter_plane)
     if name == "sumprecision":
         return _SumPrecision(i, spec, ev)
-    if name == "distinctcountrawhll":
+    if name in ("distinctcountrawhll", "distinctcounthll", "fasthll"):
         return _RawHLL(i, spec, ev)
+    if name == "sumprecisionmerge":
+        return _SumPrecisionMerge(i, spec, ev)
+    if name == "bitmapmerge":
+        return _BitmapMerge(i, spec, ev)
+    if name == "tdigestmerge":
+        return _TDigestMerge(i, spec, ev)
     return _ValueSet(i, spec, ev)
 
 
@@ -364,6 +383,108 @@ class _SumPrecision(_Sketch):
         out = aggspec._obj_array(len(cols), int)
         out[:] = tot.tolist()
         return {"psum": out}
+
+
+class _SumPrecisionMerge(_SumPrecision):
+    """SUMPRECISIONMERGE: each cube row's decimal string as an exact
+    integer, looked up per row from its dictionary entry, parsed once;
+    then SUMPRECISION's byte planes."""
+
+    def __init__(self, i, spec, ev):
+        _Sketch.__init__(self, i, spec, ev)
+        ids = _state_ids(spec, ev)
+        table = []
+        for blob in np.asarray(
+                ev.ctx.global_dict(ids.meta).values).tolist():
+            x = aggspec.SumPrecisionMergeSpec._parse(blob)
+            if not isinstance(x, int):
+                raise DeviceUnsupported(
+                    "SUMPRECISION over non-integer FLOAT/DOUBLE values comes "
+                    "with a later slice of the port (ROADMAP queue 1, item "
+                    "e2b)")
+            if not -_INT63 <= x < _INT63:
+                raise DeviceUnsupported(
+                    f"a SUMPRECISION cube partial past int64 ({x})")
+            table.append(x)
+        vals = to_device(np.asarray(table, dtype=np.int64).reshape(-1),
+                         ev.device)
+        # padding rows hold ids out of range: clamped, they are masked
+        self.v = Val(vals[torch.clamp(ids.t.to(torch.int64), 0,
+                                      max(len(table) - 1, 0))], "num",
+                     np.dtype(np.int64))
+        self.layout = []
+
+
+def _state_ids(spec, ev: ValueEvaluator) -> Val:
+    """The global dictionary ids of a cube's state column (a BYTES dict
+    column, one serialized state per cube row)."""
+    v = ev.eval(spec.args[0], Rows(ev.S, ev.L, ev.device))
+    if v.kind != "dict":
+        raise ValueError(f"{spec.name.upper()} reads a BYTES state column, "
+                         f"got {spec.args[0]}")
+    return v
+
+
+class _BitmapMerge(_Sketch):
+    """BITMAPMERGE: the (group, dictionary id) pairs present, built on the
+    card; each present entry's value set parsed once and unioned per
+    group (set union is order-free, so the batch folds at once)."""
+
+    def __init__(self, i, spec, ev):
+        super().__init__(i, spec, ev)
+        self.ids = _state_ids(spec, ev)
+        self.D = max(len(ev.ctx.global_dict(self.ids.meta)), 1)
+
+    def launch(self, b):
+        idx = torch.nonzero(b.mask).reshape(-1)
+        ids = b.flat(self.ids.t).reshape(-1)[idx].to(torch.int64)
+        g = torch.zeros_like(ids) if b.gid is None \
+            else b.gid.reshape(-1)[idx].to(torch.int64)
+        return {f"{self.k}_pairs": torch.unique(g * self.D + ids)}
+
+    def partial(self, host, present):
+        pairs = np.asarray(host[f"{self.k}_pairs"])
+        g, ids = pairs // self.D, pairs % self.D
+        gvals = np.asarray(self.ev.ctx.global_dict(self.ids.meta).values)
+        parsed = {int(d): aggspec.set_from_bytes(gvals[d])
+                  for d in np.unique(ids).tolist()}
+        groups = np.zeros(1, dtype=np.int64) if present is None else present
+        pos = {int(x): j for j, x in enumerate(np.asarray(groups).tolist())}
+        sets = aggspec._obj_array(len(groups), set)
+        for gg, d in zip(g.tolist(), ids.tolist()):
+            sets[pos[gg]] |= parsed[d]
+        return {"sets": sets}
+
+
+class _TDigestMerge(_Sketch):
+    """TDIGESTMERGE: the matched cube rows ordered by (segment, group) on
+    the card, row order kept; on the host each segment's digests fold by
+    the reference's ``TDigestMergeSpec.host_groups`` (per group in row
+    order), then the segments by ``_fold``."""
+
+    def __init__(self, i, spec, ev):
+        super().__init__(i, spec, ev)
+        self.ids = _state_ids(spec, ev)
+        self.G = 1
+
+    def launch(self, b):
+        self.G = b.G
+        idx = torch.nonzero(b.mask).reshape(-1)
+        rk = b.run_key(idx)
+        order = torch.sort(rk, stable=True).indices
+        ids = b.flat(self.ids.t).reshape(-1)[idx]
+        return {f"{self.k}_rk": rk[order], f"{self.k}_id": ids[order]}
+
+    def partial(self, host, present):
+        rk = np.asarray(host[f"{self.k}_rk"])
+        ids = np.asarray(host[f"{self.k}_id"]).astype(np.int64)
+        gvals = np.asarray(self.ev.ctx.global_dict(self.ids.meta).values)
+        parts = []
+        for sl in _segment_parts(rk, self.G):
+            groups, local = np.unique(rk[sl] % self.G, return_inverse=True)
+            parts.append((groups, self.spec.host_groups(
+                [gvals[ids[sl]]], local, len(groups))))
+        return _fold(self.spec, self.G, present, parts)
 
 
 # ---------------------------------------------------------------------------

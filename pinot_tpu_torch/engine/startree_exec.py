@@ -12,12 +12,10 @@ with a rewritten query — sum(x) → sum(sum__x), count(*) →
 sum(count__star), DISTINCTCOUNTHLL(x) → HLLMERGE(distinctcounthll__x) —
 which runs on the card like any query, then converts the partials back to
 the original aggregations' canonical layout, so the merge and the reduce
-cannot tell the difference.
-
-One difference from the JAX package: ``fit`` declines a query whose
-cube-side merge has no device form in the port yet (TDIGESTMERGE,
-BITMAPMERGE, SUMPRECISIONMERGE; the JAX package runs them on its host),
-so such a query takes the scan on the card, with the same rows.
+cannot tell the difference. The merges the JAX package's device has no
+form for (TDIGESTMERGE, BITMAPMERGE, SUMPRECISIONMERGE over the cube's
+serialized states) run in its host path's shape on the card
+(engine/sketches.py), so ``fit`` decides as the reference's does.
 """
 
 from __future__ import annotations
@@ -85,24 +83,9 @@ def _has_null_predicate(f) -> bool:
     return any(_has_null_predicate(c) for c in f.children or ())
 
 
-# cube-side merges the JAX package runs on its host: no device form in
-# the port yet (ROADMAP item e2b), so ``fit`` declines them and the query
-# scans on the card
-HOST_MERGES = frozenset(("tdigestmerge", "bitmapmerge", "sumprecisionmerge"))
-
-
 def fit(q: QueryContext, meta: dict) -> Optional[list]:
     """StarTreeUtils.isFitForStarTree analog. Returns the per-agg rewrite
-    mapping, or None (also when a merge of the mapping is in
-    ``HOST_MERGES``)."""
-    mapping = _fit_mapping(q, meta)
-    if mapping is None or any(fn in HOST_MERGES for entries in mapping
-                              for fn, _col, _role in entries):
-        return None
-    return mapping
-
-
-def _fit_mapping(q: QueryContext, meta: dict) -> Optional[list]:
+    mapping, or None."""
     if q.distinct or not q.aggregations():
         return None
     if dict(q.options).get("useStarTree") is False:

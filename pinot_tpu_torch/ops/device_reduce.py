@@ -47,7 +47,7 @@ INT64_SENTINEL = (1 << 63) - 1   # trimmed-away key slots
 # through the trim untouched (they are not group-table columns)
 STAT_KEYS = frozenset((
     "doc_count", "seg_matched", "n_alive", "rows_filter",
-    "blocks_total", "blocks_scanned",
+    "blocks_total", "blocks_scanned", "n_groups_total",
 ))
 
 # aggregations whose finalized value the device can order by
@@ -70,10 +70,10 @@ def next_pow2(n: int) -> int:
 
 def neutral_fill(name: str, dt):
     """The kernels' empty/masked fill for an output leaf, by naming
-    convention: the key sentinel for trimmed keys, the dtype's extremes
-    for min / max planes, zero elsewhere."""
+    convention: the key sentinel for sorted tables' and trimmed keys, the
+    dtype's extremes for min / max planes, zero elsewhere."""
     dt = np.dtype(dt)
-    if name == "trim_keys":
+    if name in ("skeys", "trim_keys"):
         return INT64_SENTINEL
     if name.endswith("_min"):
         return np.iinfo(dt).max if dt.kind in "iu" else np.inf
@@ -94,13 +94,13 @@ def trim_keep_count(q, mode: str, group_trim_size: int = 5000) -> int:
 
 def plan_trim(q, group_exprs, aggs, table_len: int, mode,
               group_trim_size: int = 5000):
-    """Host-side static analysis of a dense group-by → trim spec
-    ``(T, order_sig)`` or None.
+    """Host-side static analysis of a group-by → trim spec ``(T,
+    order_sig)`` or None.
 
     ``group_exprs`` / ``aggs`` are the template's enumerations (the
     order_sig indexes into them); ``table_len`` is the table the trim
-    would shrink; ``mode`` is None (not a sole partial), "partial" or
-    "terminal"."""
+    would shrink (the dense group count, or the sorted regime's cap K);
+    ``mode`` is None (not a sole partial), "partial" or "terminal"."""
     if mode not in ("terminal", "partial"):
         return None
     if q.distinct or q.having is not None:
@@ -179,12 +179,15 @@ def apply_trim(outs: dict, tr_k: torch.Tensor, template, spec,
 
     ``col_keys``: per group key, its (ascending, descending) (G,) int64
     order keys, for a factorized table (engine/rows.py) whose slot does
-    not encode its keys; a dense table decodes them from the slot.
+    not encode its keys; a dense table decodes them from the slot, a
+    sorted regime's keyed (K,) table from its ``skeys`` (ascending, so
+    slot order is key order, empties last).
 
     Emits
 
-    - ``trim_keys``  (T,) int64 packed group keys (the dense gid) of the
-      kept rows, INT64_SENTINEL beyond ``trim_n``;
+    - ``trim_keys``  (T,) int64 packed group keys (the dense gid, or the
+      sorted table's key) of the kept rows, INT64_SENTINEL beyond
+      ``trim_n``; a keyed table's ``skeys`` leaf gives way to it;
     - ``trim_n``     0-d int64 = min(n_present, tr_k);
     - ``n_present_total`` 0-d int64: the untrimmed non-empty group count,
       which the fetch holds against numGroupsLimit;
@@ -199,12 +202,13 @@ def apply_trim(outs: dict, tr_k: torch.Tensor, template, spec,
     present = gcount > 0
     n_present = present.sum(dtype=torch.int64)
     slots = torch.arange(G, dtype=torch.int64, device=dev)
+    keys64 = outs["skeys"] if "skeys" in outs else slots
 
     def col_component(j: int):
         stride = 1
         for c in group_cards[j + 1:]:
             stride *= c
-        return (slots // stride) % group_cards[j]
+        return (keys64 // stride) % group_cards[j]
 
     def f64(v):
         return v.to(torch.float64)
@@ -244,6 +248,8 @@ def apply_trim(outs: dict, tr_k: torch.Tensor, template, spec,
         if name in STAT_KEYS:
             trimmed[name] = v
             continue
+        if name == "skeys":
+            continue  # replaced by trim_keys
         g = v[perm]
         fill = neutral_fill(name, torch.empty(0, dtype=g.dtype).numpy().dtype)
         mask = valid.reshape((T,) + (1,) * (g.dim() - 1))
@@ -251,7 +257,7 @@ def apply_trim(outs: dict, tr_k: torch.Tensor, template, spec,
             mask, g, torch.tensor(fill, dtype=g.dtype, device=dev))
     # a dense table's packed key is its slot: the permutation itself
     trimmed["trim_keys"] = torch.where(
-        valid, perm,
+        valid, keys64[perm],
         torch.tensor(INT64_SENTINEL, dtype=torch.int64, device=dev))
     trimmed["trim_n"] = trim_n
     trimmed["n_present_total"] = n_present

@@ -261,6 +261,37 @@ def test_blockskip_parity(bs_engines, sql):
     _check_parity(ref, port, sql, exact=not any(f in sql for f in FLOAT_SQL))
 
 
+# DISTINCTCOUNTHLL over the raw column ts: the reference's device reads
+# dict columns only, so its host path answers, with that path's stats
+# (no block skip; a sorted column's predicate scans no entry)
+RAW_HLL_QUERIES = [
+    "SELECT DISTINCTCOUNTHLL(ts) FROM t WHERE ts BETWEEN 5000 AND 5999",
+    "SELECT COUNT(*), DISTINCTCOUNTHLL(ts), FASTHLL(ts) FROM t "
+    "WHERE ts < 3000",
+    "SELECT k, DISTINCTCOUNTHLL(ts) FROM t WHERE k IN ('k0001', 'k0009') "
+    "GROUP BY k ORDER BY k",
+    "SELECT tag, DISTINCTCOUNTHLL(ts), SUM(m) FROM t WHERE k = 'k0002' "
+    "GROUP BY tag ORDER BY tag",
+    "SELECT DISTINCTCOUNTHLL(ts, 8), DISTINCTCOUNTHLL(tag) FROM t "
+    "WHERE ts BETWEEN 100 AND 200 OR ts > 59000",
+]
+
+
+@pytest.mark.parametrize("sql", RAW_HLL_QUERIES)
+def test_raw_hll_takes_the_host_path_shape(bs_engines, route, sql):
+    """Rows bit for bit and every response stat the reference's host path
+    reports, its block-skip forms and index choices included; the port
+    answers in that path's shape, so no block-skip form runs."""
+    ref, port = bs_engines
+    got, want = port.execute(sql), ref.execute(sql)
+    assert got["exceptions"] == [] and want["exceptions"] == [], got
+    assert got["resultTable"] == want["resultTable"]
+    for key in STATS + ("numEntriesScannedPostFilter",):
+        assert got[key] == want[key], (key, got[key], want[key])
+    assert got["numBlocksPruned"] == 0
+    assert route == []
+
+
 @pytest.mark.parametrize("sql", list(FUSED_QUERIES))
 def test_fused_parity(fused_engines, route, sql):
     ref, port = fused_engines

@@ -9,9 +9,10 @@ untrimmed answer (``SET useDeviceReduce = false``) and the reference's,
 row for row; the trim must run where the reference's runs and not where
 it does not (HAVING, post-aggregation order expressions); the partial
 mode keeps ``trim_bound``'s rows. The numGroupsLimit case pins the port
-against the reference where the two agree (``useDeviceReduce = false``)
-and keeps the default answer in-band. ``lexsort_perm`` equals
-``np.lexsort`` on seeded keys, signed zeros and NaN included.
+against the reference under ``useDeviceReduce = false`` and by default,
+where the trimmed launch gives way to the host path's shape as the
+reference's leaves its device. ``lexsort_perm`` equals ``np.lexsort`` on
+seeded keys, signed zeros and NaN included.
 """
 
 import numpy as np
@@ -160,9 +161,10 @@ def test_num_groups_limit_stays_in_band(limit_case, order):
     gids, as the reference's device path does: rows and
     numGroupsLimitReached equal. By default the reference's trimmed
     table leaves its device and its host keeps the groups each segment
-    meets first in doc order (a named divergence, ROADMAP queue 3); the
-    port answers in-band from the untrimmed accumulators of the same
-    launch, equal to its own ``useDeviceReduce = false`` answer."""
+    meets first in doc order; the port's fetch reads the same count and
+    runs the query again in the host path's shape on the card: rows,
+    numGroupsLimitReached and every response stat equal the
+    reference's."""
     port, ref = limit_case
     sql = f"SET numGroupsLimit = 100; SELECT k, COUNT(*) FROM t GROUP BY k {order}"
     off_port, off_ref = port.execute(OFF + sql), ref.execute(OFF + sql)
@@ -170,16 +172,27 @@ def test_num_groups_limit_stays_in_band(limit_case, order):
     assert off_port["resultTable"] == off_ref["resultTable"]
     assert off_port["numGroupsLimitReached"] is True
     assert off_ref["numGroupsLimitReached"] is True
-    before = port.device.device_reduce_queries
-    got = port.execute(sql)
-    assert got["exceptions"] == []
-    assert got["resultTable"] == off_port["resultTable"]
+    reruns = port.device.host_shape_reruns
+    got, want = port.execute(sql), ref.execute(sql)
+    assert got["exceptions"] == [] and want["exceptions"] == []
+    assert got["resultTable"] == want["resultTable"]
+    for key in LIMIT_STATS:
+        assert got[key] == want[key], key
     assert got["numGroupsLimitReached"] is True
-    assert port.device.device_reduce_queries == before
-    # and within the limit the default trims
+    assert port.device.host_shape_reruns == reruns + 1
+    # and within the limit the default trims, with no second run
+    before = port.device.device_reduce_queries
     ok = f"SET numGroupsLimit = 5000; SELECT k, COUNT(*) FROM t GROUP BY k {order}"
     assert rows_of(port, ok) == rows_of(ref, ok)
     assert port.device.device_reduce_queries == before + 1
+    assert port.device.host_shape_reruns == reruns + 1
+
+
+LIMIT_STATS = ("numDocsScanned", "numEntriesScannedInFilter",
+               "numEntriesScannedPostFilter", "numSegmentsQueried",
+               "numSegmentsProcessed", "numSegmentsMatched",
+               "numSegmentsPrunedByServer", "numBlocksPruned",
+               "numGroupsLimitReached", "totalDocs")
 
 
 @pytest.fixture(scope="module")

@@ -70,17 +70,23 @@ STATS = ("numDocsScanned", "numEntriesScannedInFilter",
          "numSegmentsProcessed", "numSegmentsMatched",
          "numSegmentsPrunedByServer", "numGroupsLimitReached", "totalDocs")
 
-# the pairs whose cube-side merge the port declines (engine/startree_exec.py
-# HOST_MERGES): the scan answers them on the card, in the host path's shape
-DECLINED = [
+# tests/test_startree.py's pairs whose cube-side merge the reference runs
+# on its host (TDIGESTMERGE, BITMAPMERGE, SUMPRECISIONMERGE): the port
+# runs them in the host path's shape on the card (engine/sketches.py)
+MERGES = [
     "SELECT d_year, PERCENTILETDIGEST(revenue, 90) FROM ssb "
     "GROUP BY d_year ORDER BY d_year",
+    # compression 400 fits no pair: the scan, on both
     "SELECT PERCENTILETDIGEST(revenue, 50, 400) FROM ssb",
     "SELECT d_year, PERCENTILEEST(revenue, 75) FROM ssb "
+    "GROUP BY d_year ORDER BY d_year",
+    "SELECT d_year, PERCENTILE(revenue, 75) FROM ssb "
     "GROUP BY d_year ORDER BY d_year",
     "SELECT d_region, SUMPRECISION(revenue) FROM ssb "
     "GROUP BY d_region ORDER BY d_region",
     "SELECT d_year, DISTINCTCOUNTBITMAP(quantity) FROM ssb "
+    "WHERE d_region != 'AFRICA' GROUP BY d_year ORDER BY d_year",
+    "SELECT d_year, DISTINCTCOUNT(quantity) FROM ssb "
     "WHERE d_region != 'AFRICA' GROUP BY d_year ORDER BY d_year",
 ]
 
@@ -299,40 +305,38 @@ def test_cubes_load_in_both_packages(dirs, i):
             assert view[2][c] == first[2][c], (key, c)
 
 
-# (percentile, compression) of DECLINED's digest queries
-DIGESTS = {DECLINED[0]: (90, 100), DECLINED[1]: (50, 400),
-           DECLINED[2]: (75, 200)}
+# (percentile, compression) of MERGES' digest queries
+DIGESTS = {MERGES[0]: (90, 100), MERGES[1]: (50, 400),
+           MERGES[2]: (75, 200), MERGES[3]: (75, 200)}
 
 
-@pytest.mark.parametrize("sql", DECLINED)
-def test_declined_merges_take_the_scan(engines, dirs, sql):
-    """Pairs whose cube-side merge has no device form in the port are not
-    substituted: the query takes the scan on the card, exactly as without
-    the tree, and numDocsScanned counts the base rows. The distinct
-    count and the exact sum answer with the reference's cube rows; a
-    digest answers with the reference's scan digest bit for bit, which
-    differs from the cube's digest within the digest's rank error
-    (1.5 / compression, ops/quantile_digest.py)."""
-    got = engines["port"].execute(sql)
-    plain = engines["port_plain"].execute(sql)
-    want = engines["ref"].execute(sql)
-    scan = engines["ref"].execute("SET useStarTree = false; " + sql)
+@pytest.mark.parametrize("sql", MERGES)
+def test_merge_pairs_match_reference(engines, dirs, sql):
+    """The digest, exact distinct and exact sum pairs answer from the
+    cube as the reference's do: rows bit for bit (the cube's digests
+    folded in the reference's order) and every response stat,
+    numDocsScanned counting cube rows; the compression mismatch scans on
+    both. Each digest answer also lies within rank 1.5 / compression of
+    the exact order statistic (ops/quantile_digest.py)."""
+    got, want = engines["port"].execute(sql), engines["ref"].execute(sql)
     assert got["exceptions"] == [] and want["exceptions"] == [], got
-    assert plain["resultTable"] == got["resultTable"]
-    assert got["numDocsScanned"] == plain["numDocsScanned"] \
-        == scan["numDocsScanned"]
+    assert got["resultTable"] == want["resultTable"]
+    for key in STATS:
+        assert got[key] == want[key], key
+    scan = engines["port_plain"].execute(sql)["numDocsScanned"]
+    cube = sql != MERGES[1]
+    assert (got["numDocsScanned"] < scan / 3) == cube
     if sql not in DIGESTS:
-        assert got["resultTable"] == want["resultTable"]
+        assert got["resultTable"] == engines["port_plain"].execute(
+            sql)["resultTable"]
         return
-    assert got["resultTable"] == scan["resultTable"]
     p, delta = DIGESTS[sql]
     cols = dirs["cols"]
-    for g, c in zip(got["resultTable"]["rows"], want["resultTable"]["rows"]):
-        vals = np.sort(cols["revenue"] if len(g) == 1
-                       else cols["revenue"][cols["d_year"] == g[0]])
-        for est in (g[-1], c[-1]):
-            rank = np.searchsorted(vals, est) / len(vals)
-            assert abs(rank - p / 100) <= 1.5 / delta, (g, c, rank)
+    for row in got["resultTable"]["rows"]:
+        vals = np.sort(cols["revenue"] if len(row) == 1
+                       else cols["revenue"][cols["d_year"] == row[0]])
+        rank = np.searchsorted(vals, row[-1]) / len(vals)
+        assert abs(rank - p / 100) <= 1.5 / delta, (row, rank)
 
 
 @pytest.fixture(scope="module")
@@ -366,19 +370,49 @@ def dict_pair_dirs(tmp_path_factory):
     return out
 
 
-@pytest.mark.parametrize("fn", ["DISTINCTCOUNTBITMAP", "DISTINCTCOUNT"])
-def test_declined_bitmap_merge_answers_with_the_scans_rows(dict_pair_dirs, fn):
-    """The named divergence: the reference merges the cube's value sets
-    on its host, the port declines the pair and scans on the card. Rows
-    are equal; numDocsScanned counts the base rows instead of the cube's."""
-    sql = (f"SELECT d_year, {fn}(k), COUNT(*) FROM ssb "
+@pytest.mark.parametrize("agg", ["DISTINCTCOUNTBITMAP(k)", "DISTINCTCOUNT(k)",
+                                 "SUMPRECISION(v)"])
+def test_dict_pair_merges_match_reference(dict_pair_dirs, agg):
+    """Over a dict column's pairs, filtered: the reference merges the
+    cube's value sets and decimal sums on its host, the port in that
+    path's shape on the card. Rows, stats and cube-row numDocsScanned
+    equal, and the scan answers the same rows."""
+    sql = (f"SELECT d_year, {agg}, COUNT(*) FROM ssb "
            "WHERE d_region != 'ASIA' GROUP BY d_year ORDER BY d_year")
     got, want = _port(dict_pair_dirs).execute(sql), _ref(dict_pair_dirs).execute(sql)
     assert got["exceptions"] == [] and want["exceptions"] == [], got
     assert got["resultTable"] == want["resultTable"]
-    assert want["numDocsScanned"] < 8000 / 3
-    scan = _ref(dict_pair_dirs).execute("SET useStarTree = false; " + sql)
-    assert got["numDocsScanned"] == scan["numDocsScanned"]
+    for key in STATS:
+        assert got[key] == want[key], key
+    assert got["numDocsScanned"] < 8000 / 3
+    scan = _port(dict_pair_dirs).execute("SET useStarTree = false; " + sql)
+    assert scan["resultTable"] == got["resultTable"]
+
+
+def test_sumprecision_pair_over_fractions_refused_in_band(tmp_path):
+    """A cube whose SUMPRECISION states hold fractions (a DOUBLE column):
+    its merge needs the non-integer form, which the port refuses in-band
+    naming the roadmap item; the scan (SET useStarTree = false) answers
+    it as SUMPRECISION over the same non-integer values does."""
+    rng = np.random.default_rng(9)
+    n = 4000
+    cols = {"d_year": rng.integers(1992, 1995, n).astype(np.int32),
+            "f": np.round(rng.uniform(0, 10, n), 2)}
+    schema = RefSchema.build(name="ssb",
+                             dimensions=[("d_year", RefDataType.INT)],
+                             metrics=[("f", RefDataType.DOUBLE)])
+    cfg = RefTableConfig(table_name="ssb", indexing=RefIndexing(
+        star_tree_configs=[RefStarTree(
+            dimensions_split_order=["d_year"],
+            function_column_pairs=["COUNT__*", "SUMPRECISION__f"])]))
+    ref_build_segment(schema, cols, str(tmp_path / "s0"), cfg, "s0")
+    sql = "SELECT d_year, SUMPRECISION(f) FROM ssb GROUP BY d_year"
+    got = _port([str(tmp_path / "s0")]).execute(sql)
+    assert "e2b" in got["exceptions"][0]["message"], got
+    assert _ref([str(tmp_path / "s0")]).execute(sql)["exceptions"] == []
+    scan = _port([str(tmp_path / "s0")]).execute(
+        "SET useStarTree = false; " + sql)
+    assert "e2b" in scan["exceptions"][0]["message"], scan
 
 
 def test_cube_launches_reach_the_kernel_wrappers(dirs, engines, monkeypatch):
