@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (pinot_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py                      # the full run: 8 x 12.5M rows
-    python3 chip_smoke.py --rows 400000        # a quick rehearsal
+    python3 chip_smoke.py --rows 400000 --event-rows 100000  # a rehearsal
 
 Phases, all on ``cuda:0``:
 
@@ -35,11 +35,12 @@ Phases, all on ``cuda:0``:
    (``index_add_`` / ``scatter_reduce_`` / ``bincount``; for K4, which no
    single call computes, the port's generic gathered form), beside the
    memory bound.
-3. The three tables are loaded into one ``QueryEngine(device="cuda")``
+3. The five tables are loaded into one ``QueryEngine(device="cuda")``
    (the third, ``lineorder_pairs``, is two of the unsorted segments with
    a d_year x c_region cube of t-digest, bitmap and decimal pairs, and
    the write pool also builds the overflow oracle's per-segment
-   partials); K4 is
+   partials; the fourth and fifth are the mv and index paths' tables,
+   below); K4 is
    held against its plain version once more at the block-skip path's
    own candidates, K1 and K2 at the selection path's own inputs
    (gb_expr's and gb_segment's factorized group-id planes and value
@@ -53,7 +54,7 @@ Phases, all on ``cuda:0``:
    group) run; K1 at sumprec_year's and sumprec_cust's byte planes and
    K3 at rawhll_year's hash plane, captured the same way, and K1 at
    hc_overflow's kept groups in the host path's shape and at
-   st_sumprec_region's byte planes over cube rows. Seven paths run: the six SSB scan/filter/group-by
+   st_sumprec_region's byte planes over cube rows. Nine paths run: the six SSB scan/filter/group-by
    queries, the five HLL and DISTINCTCOUNT queries, the six block-skip
    queries on the sorted table, the star-tree path (bench.py's
    q4_highcard_hll and q5_startree on the cubes, a filtered cube
@@ -75,7 +76,22 @@ Phases, all on ``cuda:0``:
    regime, trimmed, untrimmed and under a key-order numGroupsLimit; the
    lo_custkey x lo_suppkey group-by past the table's cap, run again in
    the host path's shape; the star-tree's digest, bitmap and decimal
-   pairs on ``lineorder_pairs``, with cube rows scanned). Every answer is
+   pairs on ``lineorder_pairs``, with cube rows scanned), the mv path
+   (``MV_QUERIES`` over ``lineorder_mv``: two of the unsorted segments'
+   rows with two MV columns after airlineStats' MV dimensions,
+   ``lo_tags``, a dict STRING column of 0-8 entries a row drawn Zipf-like
+   from 1,000 tags, and ``lo_codes``, a raw INT column of 1-24 entries a
+   row; an ``mv_any`` filter in the reference device's shape under K1
+   and K2; group-bys on ``lo_tags`` alone and with d_year, one row per
+   entry; COUNTMV / SUMMV / AVGMV / MINMV / MAXMV over lo_codes' entries
+   (K1, K2); DISTINCTCOUNTMV and DISTINCTCOUNTHLLMV (K3);
+   PERCENTILETDIGESTMV (K5); a selection of each row's tags under a raw
+   MV filter) and the index path (``IDX_QUERIES`` over ``events``, four
+   segments shaped after the githubEvents quickstart: JSON_MATCH on a
+   nested key and on an array wildcard, TEXT_MATCH on a term and a
+   phrase, ST_DISTANCE within 200 km, REGEXP_LIKE on the FST-indexed
+   repository name; each as a COUNT and as a group-by SUM (K1), and each
+   again over the column's unindexed twin). Every answer is
    checked against a numpy oracle over the generated columns (HLL
    estimates from registers the oracle builds itself; for the block-skip
    path also the pruned segments, pruned blocks and entries scanned,
@@ -88,12 +104,22 @@ Phases, all on ``cuda:0``:
    per-segment ``add_values`` digests, the theta sketches equal to the
    oracle's own per-segment sketches merged, exact integer sums, MODE
    from counts, raw HLL and past-threshold SMARTHLL from the oracle's
-   registers, exact SMARTHLL sets), and the per-query p50 of 5 runs printed; q6 must make one
+   registers, exact SMARTHLL sets; for the mv path the flat entries and
+   offsets the generator drew, the reference device's stats for the
+   ``mv_any`` filters and its host path's for the rest; for the index
+   path the generator's structured fields behind each JSON string, the
+   message's words, haversine in numpy, ``re`` over the repository names,
+   with the index's stats: nothing scanned by the JSON and text indexes,
+   the grid's candidate docs by the geo index, every row by a twin), and
+   the per-query p50 of 5 runs printed; q6 must make one
    K2 launch an execution, and no torch op may read its stored min/max
    planes (seen at the dispatcher); gb_expr and gb_segment one K1 and
    one K2 launch an execution, distinct_dict one K1 launch, each digest
    query one K5 launch, each SUMPRECISION query one K1 launch and each
-   register query of the sketch path one K3 launch. The launch counts, per kernel and
+   register query of the sketch path one K3 launch, and each mv and
+   index query the launches ``QUERY_LAUNCHES`` names. K1, K2, K3 and K5
+   are held against their plain versions at the mv path's captured
+   inputs too (``check_mv_kernels``). The launch counts, per kernel and
    per entry, are zeroed just before each path and read just after;
    every kernel and entry of the path must have launched (the cube
    launches read too few rows to pass K1's gate: the star-tree path
@@ -121,6 +147,7 @@ import argparse
 import json
 import multiprocessing as mp
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -864,6 +891,567 @@ def hc_oracle(data: list, overflow_parts: list) -> dict:
     return want
 
 
+# ---------------------------------------------------------------------------
+# multi-value columns (the mv path) and the index-backed filters (the index
+# path)
+# ---------------------------------------------------------------------------
+
+MV_TABLE = "lineorder_mv"
+# two of the eight segments: four (625M lo_codes entries) put the kernel
+# checks' plain versions past the card's memory and the run past its time
+MV_SEGMENTS = 2
+TAGS = np.array([f"tag{k:03d}" for k in range(1000)])
+MV_QUERIES = {
+    # the reference device's shape: mv_any over the (S, L, K) id block
+    "mv_tag_year": (
+        f"SELECT d_year, COUNT(*), SUM(lo_revenue) FROM {MV_TABLE} "
+        "WHERE lo_tags = 'tag007' GROUP BY d_year ORDER BY d_year"),
+    "mv_in_ne_max": (
+        f"SELECT c_region, COUNT(*), MAX(lo_quantity) FROM {MV_TABLE} "
+        "WHERE lo_tags IN ('tag001', 'tag002') AND lo_tags <> 'tag000' "
+        "GROUP BY c_region ORDER BY c_region"),
+    # the host path's shape: one row per entry of each matched doc
+    "mv_group_tags": (
+        f"SELECT lo_tags, COUNT(*) FROM {MV_TABLE} GROUP BY lo_tags "
+        "ORDER BY COUNT(*) DESC, lo_tags LIMIT 20"),
+    "mv_group_tags_year": (
+        f"SELECT lo_tags, d_year, COUNT(*), SUM(lo_quantity) FROM {MV_TABLE} "
+        "WHERE lo_discount = 3 GROUP BY lo_tags, d_year "
+        "ORDER BY SUM(lo_quantity) DESC, lo_tags, d_year LIMIT 20"),
+    # the *MV aggregations over lo_codes' entries (raw, up to 24 a doc)
+    "mv_codes_year": (
+        "SELECT d_year, COUNTMV(lo_codes), SUMMV(lo_codes), AVGMV(lo_codes), "
+        f"MINMV(lo_codes), MAXMV(lo_codes) FROM {MV_TABLE} GROUP BY d_year "
+        "ORDER BY d_year"),
+    "mv_distinct_region": (
+        "SELECT c_region, DISTINCTCOUNTMV(lo_tags), "
+        f"DISTINCTCOUNTHLLMV(lo_tags) FROM {MV_TABLE} GROUP BY c_region "
+        "ORDER BY c_region"),
+    "mv_pct_codes": (
+        f"SELECT d_year, PERCENTILETDIGESTMV(lo_codes, 99) FROM {MV_TABLE} "
+        "GROUP BY d_year ORDER BY d_year"),
+    "mv_sel_codes": (
+        f"SELECT lo_revenue, lo_custkey, lo_tags FROM {MV_TABLE} "
+        "WHERE lo_codes = 4242 ORDER BY lo_revenue DESC, lo_custkey LIMIT 10"),
+}
+MV_PCT = 0.99
+MV_DELTA = 100.0   # PERCENTILETDIGEST's default compression
+
+EV_TABLE = "events"
+EV_SEGMENTS = 4
+EV_TYPES = np.array(["CreateEvent", "ForkEvent", "IssuesEvent",
+                     "PullRequestEvent", "PushEvent", "WatchEvent"])
+EV_REPOS = np.array([f"{('apache', 'torvalds', 'octo', 'kube')[k % 4]}"
+                     f"/project-{k}" for k in range(20_000)])
+EV_WORDS = np.array(["fix", "merge", "pull", "request", "update", "readme",
+                     "bug", "add", "test", "docs", "refactor", "release"]
+                    + [f"w{k:04d}" for k in range(1988)])
+EV_POOLS = (5_000, 20_000, 50_000)   # distinct payloads, messages, places
+EV_POINT = (2.35, 48.85)
+EV_RADIUS = 200_000
+# each index column and its unindexed twin (the same values)
+EV_FILTERS = {
+    "json_nested": "JSON_MATCH({payload}, "
+                   "'\"$.repo.name\" = ''apache/project-0''')",
+    "json_array": "JSON_MATCH({payload}, "
+                  "'\"$.commits[*].author\" = ''user0007''')",
+    "text_term": "TEXT_MATCH({message}, 'fix')",
+    "text_phrase": "TEXT_MATCH({message}, '\"merge pull\"')",
+    "geo_within": (f"ST_DISTANCE({{location}}, ST_POINT({EV_POINT[0]}, "
+                   f"{EV_POINT[1]})) < {EV_RADIUS}"),
+    "regexp_repo": "REGEXP_LIKE({repo}, '^apache/project-[0-9]*2$')",
+}
+EV_COLS = ("payload", "message", "location", "repo")
+IDX_QUERIES = {}
+for _name, _f in EV_FILTERS.items():
+    for _twin in ("", "_plain"):
+        _where = _f.format(**{c: c + _twin for c in EV_COLS})
+        IDX_QUERIES[f"{_name}_count{_twin}"] = \
+            f"SELECT COUNT(*) FROM {EV_TABLE} WHERE {_where}"
+        IDX_QUERIES[f"{_name}_sum{_twin}"] = (
+            f"SELECT etype, COUNT(*), SUM(size) FROM {EV_TABLE} WHERE {_where} "
+            "GROUP BY etype ORDER BY etype")
+
+
+def mv_generate(data: list, seed: int = 17) -> list:
+    """The mv path's two MV columns for the first ``MV_SEGMENTS`` SSB
+    segments, shaped after airlineStats' MV dimensions: ``lo_tags``, 0-8
+    entries a row (mean 4) drawn Zipf-like (p ~ 1 / k^1.1) from 1,000
+    strings, and ``lo_codes``, raw INT, 1-24 entries a row from 0-9,999.
+    Each as (flat values, offsets)."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, 1001) ** 1.1
+    p /= p.sum()
+    out = []
+    for d in data[:MV_SEGMENTS]:
+        n = len(d["d_year"])
+        t_len = rng.integers(0, 9, n)
+        c_len = rng.integers(1, 25, n)
+        out.append({
+            "lo_tags": (rng.choice(1000, size=int(t_len.sum()), p=p)
+                        .astype(np.int16), _offsets(t_len)),
+            "lo_codes": (rng.integers(0, 10_000, int(c_len.sum()))
+                         .astype(np.int32), _offsets(c_len)),
+        })
+    return out
+
+
+def _offsets(lens) -> np.ndarray:
+    off = np.zeros(len(lens) + 1, dtype=np.int64)
+    np.cumsum(lens, out=off[1:])
+    return off
+
+
+def _rows_of(flat, off) -> list:
+    """Per-row arrays of an MV column: the creator's per-row MV input."""
+    return np.split(flat, off[1:-1])
+
+
+def write_mv_segment(i: int, seg: dict, mv: dict) -> str:
+    """Segment ``s<i>`` of ``MV_TABLE``: the SSB columns of ``seg`` and the
+    MV columns of ``mv``, ``lo_codes`` without a dictionary, written by
+    the port's creator (run in a worker process)."""
+    from pinot_tpu_torch.common.datatypes import DataType
+    from pinot_tpu_torch.common.schema import Schema
+    from pinot_tpu_torch.common.table_config import IndexingConfig, \
+        TableConfig
+    from pinot_tpu_torch.storage.creator import build_segment
+
+    schema = Schema.build(
+        name=MV_TABLE,
+        dimensions=[("d_year", DataType.INT), ("c_region", DataType.STRING),
+                    ("lo_custkey", DataType.INT),
+                    ("lo_discount", DataType.INT)],
+        multi_value_dimensions=[("lo_tags", DataType.STRING),
+                                ("lo_codes", DataType.INT)],
+        metrics=[("lo_quantity", DataType.INT), ("lo_revenue", DataType.INT)])
+    cols = {k: seg[k] for k in ("d_year", "lo_custkey", "lo_discount",
+                                "lo_quantity", "lo_revenue")}
+    cols["c_region"] = REGIONS[seg["c_region"]]
+    tag_ids, tag_off = mv["lo_tags"]
+    cols["lo_tags"] = _rows_of(TAGS[tag_ids], tag_off)
+    cols["lo_codes"] = _rows_of(*mv["lo_codes"])
+    out = os.path.join(DATA_DIR, MV_TABLE, f"s{i}")
+    build_segment(schema, cols, out, TableConfig(
+        table_name=MV_TABLE,
+        indexing=IndexingConfig(no_dictionary_columns=["lo_codes"])),
+        f"s{i}")
+    return out
+
+
+def murmur3_32(data: bytes) -> int:
+    """murmur3's 32-bit hash (seed 0) of ``data``: the hash the register
+    build applies to a string's UTF-8 bytes before ``fmix32``."""
+    c1, c2, h = 0xCC9E2D51, 0x1B873593, 0
+    n = len(data) & ~3
+
+    def mix(k):
+        k = (k * c1) & 0xFFFFFFFF
+        k = ((k << 15) | (k >> 17)) & 0xFFFFFFFF
+        return (k * c2) & 0xFFFFFFFF
+
+    for i in range(0, n, 4):
+        h ^= mix(int.from_bytes(data[i:i + 4], "little"))
+        h = ((h << 13) | (h >> 19)) & 0xFFFFFFFF
+        h = (h * 5 + 0xE6546B64) & 0xFFFFFFFF
+    tail = data[n:]
+    if tail:
+        h ^= mix(int.from_bytes(tail, "little"))
+    h ^= len(data)
+    return int(fmix32(np.asarray([h], dtype=np.uint32).view(np.int32))[0])
+
+
+def _tag_hash() -> np.ndarray:
+    """(1000,) uint32 register hash of each tag string."""
+    return fmix32(np.asarray([murmur3_32(t.encode()) for t in TAGS],
+                             dtype=np.uint32).view(np.int32))
+
+
+def mv_oracle(data: list, mv: list) -> dict:
+    """The mv path's answers and stats: the reference device's for the two
+    ``mv_any`` filters (every row of the filter's column scanned, entries
+    after it per matched row), its host path's for the rest (an MV
+    predicate reads every entry of its column, a dict SV predicate every
+    row; after the filter, per expanded row for the single-value
+    aggregations and per entry for each *MV aggregation)."""
+    data = data[:MV_SEGMENTS]
+    S = len(data)
+    c = {k: np.concatenate([d[k] for d in data]) for k in data[0]}
+    sizes = [len(d["d_year"]) for d in data]
+    n = len(c["d_year"])
+    seg = np.repeat(np.arange(S), sizes)
+    year = (c["d_year"] - 1992).astype(np.int64)
+    region = c["c_region"].astype(np.int64)
+    rev, qty = c["lo_revenue"].astype(np.int64), c["lo_quantity"]
+
+    def flat(col):
+        """(values, doc of each entry) over the table, segment-major."""
+        vals = np.concatenate([m[col][0] for m in mv])
+        lens = np.concatenate([np.diff(m[col][1]) for m in mv])
+        return vals, np.repeat(np.arange(n, dtype=np.int32), lens), lens
+
+    tags, tdoc, tlen = flat("lo_tags")
+    codes, cdoc, clen = flat("lo_codes")
+    tags = tags.astype(np.int64)
+    want = {}
+
+    def any_tag(pred):
+        hit = np.zeros(n, bool)
+        hit[tdoc[pred(tags)]] = True
+        return hit
+
+    def matched_segments(m):
+        return int(len(np.unique(seg[m])))
+
+    m = any_tag(lambda t: t == 7)
+    cnt = np.bincount(year[m], minlength=7)
+    rs = np.bincount(year[m], weights=rev[m], minlength=7)
+    want["mv_tag_year"] = (
+        [[1992 + y, int(cnt[y]), float(rs[y])] for y in range(7) if cnt[y]],
+        int(m.sum()), {"numEntriesScannedInFilter": n,
+                       "numEntriesScannedPostFilter": int(m.sum()),
+                       "numSegmentsMatched": matched_segments(m)})
+
+    m = any_tag(lambda t: (t == 1) | (t == 2)) & any_tag(lambda t: t != 0)
+    cnt = np.bincount(region[m], minlength=5)
+    qh = np.bincount(region[m] * 64 + qty[m], minlength=5 * 64).reshape(5, 64)
+    qmax = np.asarray([np.flatnonzero(h)[-1] if h.any() else -1 for h in qh])
+    want["mv_in_ne_max"] = (
+        [[str(REGIONS[r]), int(cnt[r]), float(qmax[r])] for r in range(5)
+         if cnt[r]], int(m.sum()),
+        {"numEntriesScannedInFilter": n,
+         "numEntriesScannedPostFilter": int(m.sum()),
+         "numSegmentsMatched": matched_segments(m)})
+
+    cnt = np.bincount(tags, minlength=1000)
+    top = sorted(np.flatnonzero(cnt).tolist(), key=lambda k: (-cnt[k], k))
+    want["mv_group_tags"] = (
+        [[str(TAGS[k]), int(cnt[k])] for k in top[:20]], n,
+        {"numEntriesScannedInFilter": 0, "numEntriesScannedPostFilter": 0,
+         "numGroupsLimitReached": False})
+
+    m = c["lo_discount"] == 3
+    sel = m[tdoc]
+    g = tags[sel] * 7 + year[tdoc[sel]]
+    cnt = np.bincount(g, minlength=7000)
+    qs = np.bincount(g, weights=qty[tdoc[sel]].astype(np.int64),
+                     minlength=7000)
+    top = sorted(np.flatnonzero(cnt).tolist(), key=lambda k: (-qs[k], k))
+    want["mv_group_tags_year"] = (
+        [[str(TAGS[k // 7]), 1992 + k % 7, int(cnt[k]), float(qs[k])]
+         for k in top[:20]], int(m.sum()),
+        {"numEntriesScannedInFilter": n,
+         "numEntriesScannedPostFilter": int(sel.sum()),
+         "numSegmentsMatched": matched_segments(m)})
+
+    cy = year[cdoc]
+    hist = np.bincount(cy * 10_000 + codes, minlength=70_000) \
+        .reshape(7, 10_000)
+    cnt = hist.sum(axis=1)
+    cs = hist @ np.arange(10_000, dtype=np.int64)
+    cmin = [np.flatnonzero(h)[0] if h.any() else 0 for h in hist]
+    cmax = [np.flatnonzero(h)[-1] if h.any() else 0 for h in hist]
+    ycnt = np.bincount(year, minlength=7)
+    want["mv_codes_year"] = (
+        [[1992 + y, int(cnt[y]), float(cs[y]), float(cs[y]) / float(cnt[y]),
+          float(cmin[y]), float(cmax[y])] for y in range(7) if ycnt[y]], n,
+        {"numEntriesScannedInFilter": 0,
+         "numEntriesScannedPostFilter": 5 * len(codes)})
+
+    # a register takes the largest rank of its tags: the (region, tag)
+    # pairs present decide every estimate
+    present = np.flatnonzero(np.bincount(region[tdoc] * 1000 + tags,
+                                         minlength=5000))
+    dc = np.bincount(present // 1000, minlength=5)
+    idx, rho = hll_idx_rho(_tag_hash()[present % 1000], LOG2M)
+    est = hll_estimates(idx, rho, present // 1000, 5, LOG2M)
+    want["mv_distinct_region"] = (
+        [[str(REGIONS[r]), int(dc[r]), int(est[r])] for r in range(5)
+         if np.any(region == r)], n,
+        {"numEntriesScannedInFilter": 0,
+         "numEntriesScannedPostFilter": 2 * len(tags)})
+
+    want["mv_pct_codes"] = (_hist_rank_checker(
+        "mv_pct_codes", [(1992 + y, hist[y]) for y in range(7) if ycnt[y]],
+        MV_PCT, MV_DELTA), n,
+        {"numEntriesScannedInFilter": 0,
+         "numEntriesScannedPostFilter": len(codes)})
+
+    m = np.zeros(n, bool)
+    m[cdoc[codes == 4242]] = True
+    idx_m = _top_rows(c, m, [(rev, False), (c["lo_custkey"], True)], 10)
+    toff = np.concatenate([[0], np.cumsum(tlen)])
+    kept = sum(min(10, int(m[seg == s].sum())) for s in range(S))
+    want["mv_sel_codes"] = (
+        [[int(rev[i]), int(c["lo_custkey"][i]),
+          TAGS[tags[toff[i]:toff[i + 1]]].tolist()] for i in idx_m],
+        int(m.sum()),
+        {"numEntriesScannedInFilter": len(codes),
+         "numEntriesScannedPostFilter": 3 * kept,
+         "numSegmentsMatched": matched_segments(m)})
+    return want
+
+
+def _hist_rank_checker(name: str, groups: list, p: float, delta: float):
+    """``_rank_checker`` over integer values given as histograms (value ->
+    count): each row's value must lie within rank 1.5 / delta of p."""
+    def check(got):
+        if len(got) != len(groups):
+            raise AssertionError(f"{name}: {len(got)} rows, want "
+                                 f"{len(groups)}")
+        worst = 0.0
+        for row, (key, hist) in zip(got, groups):
+            if row[0] != key:
+                raise AssertionError(f"{name}: key {row[0]}, want {key}")
+            est, total = row[-1], hist.sum()
+            cum = np.concatenate([[0], np.cumsum(hist)])
+            below = cum[min(max(int(np.ceil(est)), 0), len(hist))]
+            upto = cum[min(max(int(np.floor(est)) + 1, 0), len(hist))]
+            lo, hi = below / total, upto / total
+            off = 0.0 if lo <= p <= hi else min(abs(lo - p), abs(hi - p))
+            worst = max(worst, off)
+            if off > 1.5 / delta:
+                raise AssertionError(f"{name}: {est} sits {off:.5f} of rank "
+                                     f"from p = {p} (bound {1.5 / delta})")
+        log(f"{name}: every value within rank {worst:.6f} of p = {p} "
+            f"(bound 1.5/delta = {1.5 / delta:.4f})")
+    return check
+
+
+def ev_generate(segments: int, rows: int, seed: int = 23) -> list:
+    """The index path's ``events`` table, shaped after the githubEvents
+    quickstart: each row draws a payload (type, repo.name, actor.login,
+    commits[].author; ``EV_POOLS[0]`` distinct documents), a commit
+    message (3-9 words of a 2,000-word vocabulary; ``EV_POOLS[1]``
+    distinct), a place (``EV_POOLS[2]`` distinct WKT points over Europe)
+    and a repository name (20,000 distinct), plus ``etype`` (the
+    payload's type) and ``size``. Kept as pool indexes, the structured
+    fields the oracle reads; ``ev_columns`` renders the strings."""
+    rng = np.random.default_rng(seed)
+    n_pay, n_msg, n_loc = EV_POOLS
+    w = np.ones(len(EV_WORDS))
+    w[:12] = 40.0       # the common commit words
+    w /= w.sum()
+    pools = {
+        "type": rng.integers(0, len(EV_TYPES), n_pay),
+        "prepo": rng.integers(0, 200, n_pay),
+        "actor": rng.integers(0, 5_000, n_pay),
+        "commits": [rng.integers(0, 100, rng.integers(0, 4)).tolist()
+                    for _ in range(n_pay)],
+        "words": [rng.choice(len(EV_WORDS), size=rng.integers(3, 10), p=w)
+                  for _ in range(n_msg)],
+        "lon": rng.integers(-10_000_000, 30_000_000, n_loc) / 1e6,
+        "lat": rng.integers(35_000_000, 60_000_000, n_loc) / 1e6,
+    }
+    segs = []
+    for _ in range(segments):
+        pay = rng.integers(0, n_pay, rows)
+        segs.append({"pay": pay, "msg": rng.integers(0, n_msg, rows),
+                     "loc": rng.integers(0, n_loc, rows),
+                     "repo": rng.integers(0, len(EV_REPOS), rows),
+                     "size": rng.integers(1, 1_000, rows).astype(np.int32)})
+    return [pools, segs]
+
+
+def ev_strings(pools: dict) -> tuple:
+    """(payload JSON, message, WKT point) strings of each pool entry."""
+    payloads = np.asarray([json.dumps({
+        "type": str(EV_TYPES[t]), "repo": {"name": str(EV_REPOS[r])},
+        "actor": {"login": f"user{a:04d}"},
+        "commits": [{"author": f"user{x:04d}", "sha": f"{j:05x}{i}"}
+                    for i, x in enumerate(cm)]})
+        for j, (t, r, a, cm) in enumerate(zip(
+            pools["type"], pools["prepo"], pools["actor"],
+            pools["commits"]))])
+    messages = np.asarray([" ".join(EV_WORDS[ws]) for ws in pools["words"]])
+    points = np.asarray([f"POINT ({x:.6f} {y:.6f})"
+                         for x, y in zip(pools["lon"], pools["lat"])])
+    return payloads, messages, points
+
+
+def write_ev_segment(i: int, pools: dict, seg: dict) -> str:
+    """Segment ``s<i>`` of ``EV_TABLE`` with the JSON, text, geo and FST
+    indexes on ``payload``, ``message``, ``location`` and ``repo``, and
+    each one's unindexed twin (``<col>_plain``), written by the port's
+    creator (run in a worker process)."""
+    from pinot_tpu_torch.common.datatypes import DataType
+    from pinot_tpu_torch.common.schema import Schema
+    from pinot_tpu_torch.common.table_config import IndexingConfig, \
+        TableConfig
+    from pinot_tpu_torch.storage.creator import build_segment
+
+    payloads, messages, points = ev_strings(pools)
+    cols = {"payload": payloads[seg["pay"]], "message": messages[seg["msg"]],
+            "location": points[seg["loc"]], "repo": EV_REPOS[seg["repo"]],
+            "etype": EV_TYPES[pools["type"][seg["pay"]]],
+            "size": seg["size"]}
+    for c in EV_COLS:
+        cols[c + "_plain"] = cols[c]
+    schema = Schema.build(
+        name=EV_TABLE,
+        dimensions=[("payload", DataType.JSON),
+                    ("payload_plain", DataType.JSON)]
+        + [(c + t, DataType.STRING) for c in EV_COLS[1:] for t in ("",
+                                                                "_plain")]
+        + [("etype", DataType.STRING)],
+        metrics=[("size", DataType.INT)])
+    out = os.path.join(DATA_DIR, EV_TABLE, f"s{i}")
+    build_segment(schema, cols, out, TableConfig(
+        table_name=EV_TABLE, indexing=IndexingConfig(
+            json_index_columns=["payload"], text_index_columns=["message"],
+            h3_index_columns=["location"], fst_index_columns=["repo"])),
+        f"s{i}")
+    return out
+
+
+def haversine(lon, lat, lon0: float, lat0: float) -> np.ndarray:
+    """Great-circle metres on the WGS84 mean sphere."""
+    p1, p0 = np.radians(lat), np.radians(lat0)
+    a = np.sin((p0 - p1) / 2) ** 2 + np.cos(p1) * np.cos(p0) \
+        * np.sin((np.radians(lon0) - np.radians(lon)) / 2) ** 2
+    return 2 * 6_371_008.8 * np.arcsin(np.sqrt(np.clip(a, 0, 1)))
+
+
+def idx_oracle(ev: list) -> dict:
+    """The index path's answers from the generator's fields (not a parse
+    of the strings): the payload's repo and commit authors, the message's
+    words, the place's coordinates (haversine), the repository name
+    (Python's ``re``). Stats: the host path's for JSON_MATCH, TEXT_MATCH
+    and ST_DISTANCE (an indexed segment scans nothing, or the grid's
+    candidate docs, which ``idx_geo_stats`` fills in once the segments
+    are written; the twin every row), the reference device's for
+    REGEXP_LIKE (its dict column's every row, with the FST index or
+    not)."""
+    pools, segs = ev
+    pay = np.concatenate([s["pay"] for s in segs])
+    n = len(pay)
+    seg = np.repeat(np.arange(len(segs)), [len(s["pay"]) for s in segs])
+    size = np.concatenate([s["size"] for s in segs]).astype(np.int64)
+    etype = pools["type"][pay]
+    words = pools["words"]
+    fix = np.asarray([0 in ws for ws in words])
+    merge_pull = np.asarray([any(a == 1 and b == 2 for a, b in
+                                 zip(ws[:-1], ws[1:])) for ws in words])
+    repo_pat = re.compile(r"^apache/project-[0-9]*2$")
+    repo_ok = np.fromiter((bool(repo_pat.search(r)) for r in EV_REPOS),
+                          dtype=bool, count=len(EV_REPOS))
+    near = haversine(pools["lon"], pools["lat"], *EV_POINT) < EV_RADIUS
+    masks = {
+        "json_nested": (pools["prepo"] == 0)[pay],
+        "json_array": np.asarray([7 in cm for cm in pools["commits"]])[pay],
+        "text_term": fix[np.concatenate([s["msg"] for s in segs])],
+        "text_phrase": merge_pull[np.concatenate([s["msg"] for s in segs])],
+        "geo_within": near[np.concatenate([s["loc"] for s in segs])],
+        "regexp_repo": repo_ok[np.concatenate([s["repo"] for s in segs])],
+    }
+    want = {}
+    for name, m in masks.items():
+        k = int(m.sum())
+        cnt = np.bincount(etype[m], minlength=len(EV_TYPES))
+        ss = np.bincount(etype[m], weights=size[m], minlength=len(EV_TYPES))
+        for twin in ("", "_plain"):
+            if name == "regexp_repo":
+                scanned = n     # the device shape: every row of the column
+            elif twin:
+                scanned = n     # no index: every doc scanned
+            elif name == "geo_within":
+                scanned = None  # idx_geo_stats
+            else:
+                scanned = 0     # the JSON or text index serves it
+            stats = {"numEntriesScannedInFilter": scanned,
+                     "numSegmentsMatched": int(len(np.unique(seg[m])))}
+            want[f"{name}_count{twin}"] = (
+                [[k]], k, dict(stats, numEntriesScannedPostFilter=0))
+            want[f"{name}_sum{twin}"] = (
+                [[str(EV_TYPES[t]), int(cnt[t]), float(ss[t])]
+                 for t in range(len(EV_TYPES)) if cnt[t]], k,
+                dict(stats, numEntriesScannedPostFilter=k))
+    return want
+
+
+def idx_geo_stats(want: dict, counts: list) -> None:
+    """The geo-indexed queries' numEntriesScannedInFilter: the grid's
+    candidate docs, summed over the segments (``geo_candidate_counts``)."""
+    for q in ("geo_within_count", "geo_within_sum"):
+        want[q][2]["numEntriesScannedInFilter"] = int(sum(counts))
+
+
+def geo_candidate_counts(dirs: list) -> list:
+    """Per segment, the docs the geo grid offers for ``geo_within``'s
+    circle: what the host path scans (read from each segment's index
+    file through the storage layer's reader)."""
+    from pinot_tpu_torch.storage.segment import ImmutableSegment
+
+    out = []
+    for d in dirs:
+        s = ImmutableSegment(d)
+        cand = np.asarray(s.geo_index("location").candidate_docs(
+            EV_POINT[0], EV_POINT[1], float(EV_RADIUS)))
+        out.append(int((cand < s.n_docs).sum()))
+    return out
+
+
+def check_mv_kernels(engine, k1: dict, k2: dict, k3: dict,
+                     k5_sizes: list) -> None:
+    """K1, K2, K3 and K5 at the mv path's own inputs, captured at their
+    entries and held against their plain versions: mv_group_tags' group
+    ids over one row per tag entry (K1's count), mv_codes_year's over
+    lo_codes' entries (K1's count and sums, K2's MIN and MAX),
+    mv_distinct_region's entry hashes (K3) and mv_pct_codes' sorted
+    entries and cluster offsets (K5). Adds the shapes to the dicts."""
+    from pinot_tpu_torch.ops import group_scatter as ps
+    from pinot_tpu_torch.ops import groupby_mm as mm
+    from pinot_tpu_torch.ops import kernels
+
+    for name, what in (("mv_group_tags", "one row per lo_tags entry"),
+                       ("mv_codes_year", "lo_codes' entries")):
+        for (gid, sources, G), kw in capture_calls(
+                engine, MV_QUERIES[name], ps, "plane_group_sums"):
+            count = kw.get("count", True)
+            if name == "mv_codes_year" and not sources:
+                continue    # the rows' own count: K1 at the table's shape
+            k1["shapes"].append(k1_shape(
+                f"{name}: {what}, G={G}, {planes_label(sources, count)}",
+                ps.plane_group_sums, G, sources, count, gid))
+    for (gid, srcs, G), _kw in capture_calls(
+            engine, MV_QUERIES["mv_codes_year"], ps, "group_minmax_sources"):
+        k2["shapes"].append(k2_shape(
+            "mv_codes_year: lo_codes' entries, "
+            + ", ".join(f"{s.values.dtype} {'+'.join(s.ops)}"
+                        for s in srcs).replace("torch.", ""), gid, srcs, G))
+    k3["sizes"].append(k3_captured(
+        engine, MV_QUERIES["mv_distinct_region"], "mv_distinct_region's "
+        "lo_tags entry hashes", mm))
+    (args, _kw), = capture_calls(engine, MV_QUERIES["mv_pct_codes"], kernels,
+                                 "cluster_sums")
+    k5_sizes.append(check_k5("mv_pct_codes (lo_codes' entries)", *args))
+
+
+# the mv path: K1 counts and sums (the device shape, the expanded rows,
+# the entries), K2 the MIN / MAX over rows and entries, K3 the MV HLL's
+# registers, K5 the MV t-digest; the index path: K1 under each filter
+PATHS["mv"] = (MV_QUERIES, ("group_plane_sums", "group_minmax",
+                            "hll_register_max", "cluster_sums"),
+               ((3, "group_scatter", "plane_group_sums"),
+                (4, "group_scatter", "group_minmax"),
+                (2, "groupby_mm", "hll_registers")))
+PATHS["index"] = (IDX_QUERIES, ("group_plane_sums",),
+                  ((3, "group_scatter", "plane_group_sums"),))
+QUERY_LAUNCHES.update({
+    "mv_tag_year": {"group_plane_sums": 1},
+    "mv_in_ne_max": {"group_plane_sums": 1, "group_minmax": 1},
+    "mv_group_tags": {"group_plane_sums": 1},
+    "mv_group_tags_year": {"group_plane_sums": 1},
+    # the rows' count, then the entries' count and sums in one launch
+    "mv_codes_year": {"group_plane_sums": 2, "group_minmax": 1},
+    "mv_distinct_region": {"group_plane_sums": 2, "hll_register_max": 1},
+    "mv_pct_codes": {"group_plane_sums": 2, "cluster_sums": 1},
+    "mv_sel_codes": {"group_plane_sums": 0},
+})
+QUERY_LAUNCHES.update({name: {"group_plane_sums": int("_sum" in name)}
+                       for name in IDX_QUERIES})
+
+
 def _rows_mask(tree, c) -> np.ndarray:
     kind = tree[0]
     if kind == "range":
@@ -1361,11 +1949,8 @@ def check_sketch_kernels(engine, k1: dict, k3: dict) -> None:
     rawhll_year's hash plane and group ids, captured at their entries and
     held against their plain versions. Adds the shapes to ``k1`` and
     ``k3``."""
-    import torch
     from pinot_tpu_torch.ops import group_scatter as ps
     from pinot_tpu_torch.ops import groupby_mm as mm
-    from pinot_tpu_torch.ops import hll as hll_ops
-    from pinot_tpu_torch.ops import kernels
 
     for name in ("sumprec_year", "sumprec_cust"):
         # the pipeline's group count is the other call
@@ -1376,8 +1961,19 @@ def check_sketch_kernels(engine, k1: dict, k3: dict) -> None:
         k1["shapes"].append(k1_shape(
             f"{name}: SUMPRECISION's {planes_label(sources, count)}, G={G}",
             ps.plane_group_sums, G, sources, count, gid))
-    (args, kw), = capture_calls(engine, SK_QUERIES["rawhll_year"], mm,
-                                "hll_registers")
+    k3["sizes"].append(k3_captured(engine, SK_QUERIES["rawhll_year"],
+                                   "rawhll_year's captured input", mm))
+
+
+def k3_captured(engine, sql: str, label: str, mm) -> dict:
+    """K3 through ``groupby_mm.hll_registers`` at the hash plane and group
+    ids ``sql`` hands it, captured at the entry and held against its
+    plain version, bit for bit."""
+    import torch
+    from pinot_tpu_torch.ops import hll as hll_ops
+    from pinot_tpu_torch.ops import kernels
+
+    (args, kw), = capture_calls(engine, sql, mm, "hll_registers")
     h, gid, G, log2m = args
     mask = kw.get("mask")
     got = mm.hll_registers(h, gid, G, log2m, mask=mask).reshape(-1)
@@ -1385,8 +1981,7 @@ def check_sketch_kernels(engine, k1: dict, k3: dict) -> None:
     torch.cuda.synchronize()
     err = float((got.to(torch.int32) - want).abs().max())
     if not torch.equal(got.to(torch.int32), want):
-        raise AssertionError(f"K3 at rawhll_year's input differs, max abs "
-                             f"err {err}")
+        raise AssertionError(f"K3 at {label} differs, max abs err {err}")
     ms = cuda_ms(lambda: mm.hll_registers(h, gid, G, log2m, mask=mask), 10)
     plain_ms = cuda_ms(lambda: kernels.hll_register_max_plain(
         h, log2m, G, gid, mask), 3)
@@ -1397,14 +1992,13 @@ def check_sketch_kernels(engine, k1: dict, k3: dict) -> None:
     lib_ms = cuda_ms(lambda: lib.scatter_reduce_(0, s64, rho, "amax"), 5)
     del slot, rho, s64, lib
     b, by = bound_ms(8 * n + 4 * nslots, n)
-    k3["sizes"].append(dict(
-        shape=f"n={n} slots={nslots} via groupby_mm.hll_registers "
-              "(rawhll_year's captured input)", nslots=nslots,
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
-        library_ms=lib_ms))
-    log(f"K3 at rawhll_year's input ({nslots} slots): {ms:.4f} ms, plain "
+    log(f"K3 at {label} ({nslots} slots): {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, scatter_reduce_ amax {lib_ms:.4f} ms, bound "
         f"{b:.4f} ms, bit-exact")
+    return dict(shape=f"n={n} slots={nslots} via groupby_mm.hll_registers "
+                      f"({label})", nslots=nslots, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                library_ms=lib_ms)
 
 
 def check_highcard_kernels(engine, k1: dict) -> None:
@@ -1438,7 +2032,7 @@ def rows_equal(got, want) -> bool:
         if len(rg) != len(rw):
             return False
         for x, y in zip(rg, rw):
-            if isinstance(y, str):
+            if isinstance(y, (str, list)):   # an MV column's row: a list
                 if x != y:
                     return False
             elif abs(float(x) - float(y)) > 1e-12 * max(1.0, abs(float(y))):
@@ -1603,6 +2197,15 @@ def check_split_dtypes(dev, n: int = 1_000_003) -> None:
         f"n={n}: bit-exact")
 
 
+def _distinct_bytes(planes) -> int:
+    """Bytes of the value planes read once each: two sources over one
+    plane (SUMMV and AVGMV of one column) read it once."""
+    seen = {}
+    for v in planes:
+        seen[(v.data_ptr(), v.numel())] = v.numel() * v.element_size()
+    return sum(seen.values())
+
+
 def k1_shape(label: str, entry, G: int, sources, count: bool, gid) -> dict:
     """K1 at one shape against its plain version: integer rows bit-exact,
     float planes and their sum within rtol 1e-6. Times: the kernel, the
@@ -1656,8 +2259,8 @@ def k1_shape(label: str, entry, G: int, sources, count: bool, gid) -> dict:
     lib_ms = cuda_ms(lambda: lib_out.index_add_(1, g64, V), 5)
     del V, lib_out, g64
     A = len(layout)
-    nbytes = gid.element_size() * n \
-        + n * sum(s.values.element_size() for s in sources) + 8 * A * G
+    nbytes = gid.element_size() * n + _distinct_bytes(
+        s.values for s in sources) + 8 * A * G
     b, by = bound_ms(nbytes, n * A)
     out = dict(shape=f"n={n} {label}", max_abs_err=err,
                float_max_rel_err=rel, ms=ms, absorbed_ms=absorbed_ms,
@@ -1865,8 +2468,8 @@ def k2_shape(label: str, gid, srcs, G: int) -> dict:
     lib_ms = cuda_ms(library, 5)
     del g64, decoded, outs
     cells = sum(len(s.ops) for s in srcs)
-    nbytes = gid.element_size() * n \
-        + n * sum(s.values.element_size() for s in srcs) + 4 * cells * G
+    nbytes = gid.element_size() * n + _distinct_bytes(
+        s.values for s in srcs) + 4 * cells * G
     b, by = bound_ms(nbytes, n * cells)
     out = dict(shape=f"n={n} G={G} {label}", max_abs_err=err, ms=ms,
                absorbed_ms=absorbed_ms, plain_ms=plain_ms, bound_ms=b,
@@ -2428,6 +3031,8 @@ def main(argv=None) -> int:
     ap.add_argument("--segments", type=int, default=8)
     ap.add_argument("--rows", type=int, default=12_500_000,
                     help="rows per segment")
+    ap.add_argument("--event-rows", type=int, default=1_000_000,
+                    help="rows per segment of the index path's table")
     ap.add_argument("--runs", type=int, default=5,
                     help="timed runs per query")
     ap.add_argument("--profile", action="store_true",
@@ -2471,13 +3076,23 @@ def main(argv=None) -> int:
         f"rows, seed 7")
     t = time.perf_counter()
     data = generate(S, rows)
-    log(f"generate: {time.perf_counter() - t:.2f} s")
+    mv = mv_generate(data)
+    ev = ev_generate(EV_SEGMENTS, args.event_rows)
+    log(f"generate: {time.perf_counter() - t:.2f} s (with {MV_TABLE}'s MV "
+        f"columns over {len(mv)} segments and {EV_TABLE}: {EV_SEGMENTS} x "
+        f"{args.event_rows} rows)")
     shutil.rmtree(DATA_DIR, ignore_errors=True)
     os.makedirs(DATA_DIR)
     t_write = time.perf_counter()
     workers = min(S, os.cpu_count() or 1)
     pool = mp.get_context("spawn").Pool(workers)
     try:
+        # the longest writes first
+        pending_mv = pool.starmap_async(
+            write_mv_segment, [(i, data[i], m) for i, m in enumerate(mv)])
+        pending_ev = pool.starmap_async(
+            write_ev_segment, [(i, ev[0], seg) for i, seg in
+                               enumerate(ev[1])])
         pending = pool.starmap_async(
             write_segment, [(i, seg, "lineorder", True) for i, seg in
                             enumerate(data)])
@@ -2516,12 +3131,25 @@ def main(argv=None) -> int:
         k4_bound = check_k4_bound(n // ZONE_BLOCK_ROWS, dev)
         torch.cuda.empty_cache()
 
+        # the oracle runs here, beside the writes
+        t = time.perf_counter()
+        want = oracle(data)
+        want.update(bs_oracle(bs_data, pad))
+        want.update(st_oracle(data, want))
+        want.update(sel_oracle(data, bs_data))
+        want.update(sk_oracle(data))
+        want.update(mv_oracle(data, mv))
+        want.update(idx_oracle(ev))
+        oracle_s = time.perf_counter() - t
+
         dirs, cube_s = zip(*pending.get())
         bs_dirs = [d for d, _s in pending_bs.get()]
         pair_dirs, pair_s = zip(*pending_pairs.get())
         weights = dict(zip(pairs, pending_w.get()))
         hc_parts = pending_hc.get()
-        log(f"write segments (port creator, {workers} processes, three "
+        mv_dirs = pending_mv.get()
+        ev_dirs = pending_ev.get()
+        log(f"write segments (port creator, {workers} processes, five "
             f"tables): {time.perf_counter() - t_write:.2f} s, of which the "
             f"two star-tree cubes of lineorder took {sum(cube_s):.2f} s "
             f"summed over its {S} segments (at most {max(cube_s):.2f} s "
@@ -2533,15 +3161,14 @@ def main(argv=None) -> int:
         pool.join()
 
     t = time.perf_counter()
-    want = oracle(data)
-    want.update(bs_oracle(bs_data, pad))
-    want.update(st_oracle(data, want))
-    want.update(sel_oracle(data, bs_data))
-    want.update(sk_oracle(data))
     want.update(hc_oracle(data, hc_parts))
+    idx_geo_stats(want, geo_candidate_counts(ev_dirs))
     total = S * rows
-    del data, bs_data
-    log(f"numpy oracle: {time.perf_counter() - t:.2f} s")
+    path_rows = {"mv": sum(len(d["d_year"]) for d in data[:MV_SEGMENTS]),
+                 "index": EV_SEGMENTS * args.event_rows}
+    del data, bs_data, mv, ev
+    log(f"numpy oracle: {oracle_s:.2f} s beside the writes, "
+        f"{time.perf_counter() - t:.2f} s after them")
 
     segs = [ImmutableSegment(d) for d in dirs]
     bs_segs = [ImmutableSegment(d) for d in bs_dirs]
@@ -2552,6 +3179,10 @@ def main(argv=None) -> int:
         engine.add_segment(BS_TABLE, s)
     for d in pair_dirs:
         engine.add_segment(PAIRS_TABLE, ImmutableSegment(d))
+    for d in mv_dirs:
+        engine.add_segment(MV_TABLE, ImmutableSegment(d))
+    for d in ev_dirs:
+        engine.add_segment(EV_TABLE, ImmutableSegment(d))
     t = time.perf_counter()
     ctx = engine.device.batch_for(segs)
     for c in ("d_year", "c_region", "s_nation", "lo_suppkey",
@@ -2584,11 +3215,14 @@ def main(argv=None) -> int:
     check_sketch_kernels(engine, k1, k3)
     check_highcard_kernels(engine, k1)
     torch.cuda.empty_cache()
+    check_mv_kernels(engine, k1, k2, k3, k5_sizes)
+    torch.cuda.empty_cache()
 
     count_sorted_builds()
     p50, launches = {}, {name: 0 for name in kernels.launches}
     for path in PATHS:
-        path_p50, counts = run_path(engine, path, want, total, args.runs,
+        path_p50, counts = run_path(engine, path, want,
+                                    path_rows.get(path, total), args.runs,
                                     args.profile)
         p50.update(path_p50)
         for name, count in counts.items():

@@ -194,6 +194,12 @@ def eval_filter(tpl, cols, params, shape, device, widths=None):
         return m
     if kind == "not":
         return ~eval_filter(tpl[1], cols, params, shape, device, widths)
+    if kind == "mv_any":
+        # per-entry mask over the (S, L, K) id block, the -1 padding masked
+        # out, reduced match-any over K
+        ids = cols[tpl[1]]
+        m = eval_filter(tpl[2], cols, params, ids.shape, device, widths)
+        return (m & (ids >= 0)).any(dim=-1)
     if kind == "eq_dict":
         return mask_ops.eq_dict(_ids_col(cols, tpl[1]), params[tpl[2]])
     if kind == "in_dict":
@@ -859,7 +865,8 @@ def needed_columns(tpl) -> set:
         if t[0] == "dictval":
             out.add("dv::" + t[1])
             return
-        if t[0] in ("eq_dict", "in_dict", "range_dict", "lut_dict"):
+        if t[0] in ("eq_dict", "in_dict", "range_dict", "lut_dict",
+                    "mv_any"):
             out.add(t[1])
         for x in t[1:]:
             walk(x)
@@ -1039,8 +1046,9 @@ class DeviceExecutor:
             return True  # selection
         keys = q.select_expressions if q.distinct else q.group_by or ()
         if not all(k.is_identifier and stored_column(k.name, ctx)
-                   and ctx.encoding(k.name) == Encoding.DICT for k in keys):
-            return True
+                   and ctx.device_encoding(k.name) == Encoding.DICT
+                   for k in keys):
+            return True  # incl. an MV key: the host expands its entries
         if q.filter is not None and not filter_on_device(q.filter, ctx):
             return True
         if not all(self._agg_on_device(a, ctx) for a in aggs):
@@ -1066,7 +1074,7 @@ class DeviceExecutor:
         arg = a.args[0]
         if name in SKETCH_AGGS or name == "hllmerge":
             return arg.is_identifier and stored_column(arg.name, ctx) \
-                and ctx.encoding(arg.name) == Encoding.DICT
+                and ctx.device_encoding(arg.name) == Encoding.DICT
         if name in WITH_TIME_AGGS:
             return expr_on_device(arg, ctx) and expr_on_device(a.args[1], ctx)
         return expr_on_device(arg, ctx)
@@ -1143,6 +1151,9 @@ class DeviceExecutor:
             if c.startswith("bp::"):
                 cols[c] = ctx.bytes_plane_column(c[4:])
                 continue
+            if c.startswith("mv::"):
+                cols[c] = ctx.mv_column(c[4:])
+                continue
             plan = ctx.width_plan(c)
             widths[c] = plan.sig()
             if plan.offset is not None:
@@ -1180,7 +1191,8 @@ class DeviceExecutor:
             if getattr(s, "is_mutable", False) \
                     or getattr(s, "valid_docs_mask", None) is not None:
                 raise DeviceUnsupported("consuming/upsert segments come with "
-                                        "a later slice of the port")
+                                        "a later slice of the port (ROADMAP "
+                                        "queue 1, item j)")
         ctx = self.batch_for(segments)
         alive = self.alive_mask(q, segments, alive)
         if self.host_shape(q, ctx):

@@ -124,7 +124,8 @@ class QueryEngine:
             stmt = parse_sql(sql)
             if is_multistage(stmt):
                 raise DeviceUnsupported(
-                    "multi-stage queries come with a later slice of the port")
+                    "multi-stage queries come with a later slice of the port "
+                    "(ROADMAP queue 1, item l)")
             q = optimize_query(compile_select(stmt))
             if q.explain:
                 if q.analyze:

@@ -22,6 +22,13 @@ Counterpart of pinot_tpu/engine/params.py, over CUDA tensors:
   projection of the filterless terminal HLL group-by
   (``sorted_hll_keys``), both held with the batch like its columns.
 
+- **Multi-value columns**: ``mv_column`` is the reference device's
+  (S, L, K) block of global dict ids, -1-padded, K <= ``MAX_MV_K``, over
+  which an ``mv_any`` predicate matches any entry; ``mv_entries`` holds
+  every entry of a column (dict ids or raw values) as an (S, E) plane
+  with each entry's doc, for the host path's shape (engine/values.py,
+  engine/rows.py), a schema-evolved column with none.
+
 - **Zone maps**: every plane carries (S, NB) per-4096-row-block min/max
   arrays at the plane's storage dtype, built alongside it — dict planes
   in global id space (the local→global remap is monotone), raw planes in
@@ -66,6 +73,26 @@ from pinot_tpu_torch.storage.segment import (
 
 class DeviceUnsupported(Exception):
     """Query shape this slice of the port does not run on the device."""
+
+
+@dataclasses.dataclass
+class MVPlanes:
+    """Every entry of a multi-value column over a batch, on the card:
+    ``vals`` (S, E) the entries of each segment in doc order (global dict
+    ids as int32 for a dict column, else the stored values; padding 0),
+    ``doc`` (S, E) int32 each entry's doc in its segment (-1 on padding),
+    ``lens`` / ``start`` (S, L) int32 each doc's entry count and first
+    entry in its segment's row of ``vals``; ``kind`` "dict" or "num",
+    ``dtype`` the host path's dtype of the values, ``total`` (S,) the
+    entries of each segment (host ints)."""
+
+    vals: torch.Tensor
+    doc: torch.Tensor
+    lens: torch.Tensor
+    start: torch.Tensor
+    kind: str
+    dtype: np.dtype
+    total: np.ndarray
 
 
 _NUMERIC_KINDS = ("i", "u", "f")
@@ -118,6 +145,8 @@ def to_device(a: np.ndarray, device) -> torch.Tensor:
 class BatchContext:
     """Host+device state for one batch of sealed segments."""
 
+    MAX_MV_K = 16  # (S, L, K) id blocks cost K x an SV column of HBM
+
     def __init__(self, segments: list, device, pad_multiple: int = 1024):
         self.segments = list(segments)
         self.device = torch.device(device)
@@ -138,6 +167,9 @@ class BatchContext:
         self._global_dicts: dict[str, Dictionary] = {}
         self._plans: dict[str, ColPlan] = {}
         self._zone_maps: dict[str, tuple] = {}
+        self._mv_columns: dict[str, torch.Tensor] = {}
+        self._mv_entries: dict[str, MVPlanes] = {}
+        self._derived: dict = {}
         self.resident_bytes = 0
 
     # ---- column access ---------------------------------------------------
@@ -159,11 +191,140 @@ class BatchContext:
             if any(m.encoding != enc for m in metas):
                 raise DeviceUnsupported(f"mixed encodings for {name}")
             if any(not m.single_value for m in metas):
-                raise DeviceUnsupported(
-                    f"multi-value column {name}: multi-value columns come "
-                    f"with a later slice of the port")
+                raise DeviceUnsupported(f"multi-value column {name}")
             self._encodings[name] = enc
         return self._encodings[name]
+
+    def device_encoding(self, name: str):
+        """``encoding`` where the reference's device has one (a column
+        every segment stores single-value, in one encoding), else None."""
+        metas = [s.column_metadata(name) for s in self.segments
+                 if name in s.metadata.columns]
+        encs = {m.encoding for m in metas}
+        if len(metas) < self.S or len(encs) != 1 \
+                or any(not m.single_value for m in metas):
+            return None
+        return encs.pop()
+
+    # ---- multi-value columns ---------------------------------------------
+    def is_mv(self, name: str) -> bool:
+        """Whether every segment stores ``name`` multi-value (the
+        reference's check: a segment without the column refuses)."""
+        for s in self.segments:
+            if name not in s.metadata.columns:
+                raise DeviceUnsupported(f"column {name} missing from {s.name}")
+            if s.column_metadata(name).single_value:
+                return False
+        return True
+
+    def mv_on_device(self, name: str) -> bool:
+        """Whether ``mv_column`` has the reference device's form of
+        ``name``: multi-value and dict-encoded in every segment, with 1 to
+        ``MAX_MV_K`` entries a doc at most."""
+        metas = []
+        for s in self.segments:
+            if name not in s.metadata.columns:
+                return False
+            m = s.column_metadata(name)
+            if m.single_value or m.encoding != Encoding.DICT:
+                return False
+            metas.append(m)
+        return 0 < max(m.max_mv_entries for m in metas) <= self.MAX_MV_K
+
+    def mv_column(self, name: str) -> torch.Tensor:
+        """(S, L, K) device int32 GLOBAL dict ids of an MV column, entries
+        padded with -1 (K = the batch's most entries a doc): the device
+        form of getDictIdMV, over which predicates evaluate per entry and
+        reduce match-any over K (``mv_any``)."""
+        if name not in self._mv_columns:
+            if not self.mv_on_device(name):
+                raise DeviceUnsupported(
+                    f"MV column {name}: raw, or 0 or more than "
+                    f"{self.MAX_MV_K} entries a doc")
+            K = max(s.column_metadata(name).max_mv_entries
+                    for s in self.segments)
+            gdict = self.global_dict(name)
+            blocks = np.full((self.S, self.pad_to, K), -1, dtype=np.int32)
+            for i, s in enumerate(self.segments):
+                remap = np.searchsorted(
+                    gdict.values, np.asarray(s.dictionary(name).values)
+                ).astype(np.int32)
+                fwd = np.asarray(s.forward(name))
+                off = np.asarray(s.mv_offsets(name))
+                lens = np.diff(off)
+                doc = np.repeat(np.arange(len(lens), dtype=np.int64), lens)
+                rank = np.arange(len(fwd), dtype=np.int64) \
+                    - np.repeat(off[:-1], lens)
+                blocks[i, doc, rank] = remap[fwd]
+            self._upload(self._mv_columns, name, blocks)
+        return self._mv_columns[name]
+
+    def mv_entries(self, name: str, evolved_dtype=None) -> MVPlanes:
+        """Every entry of an MV column (``MVPlanes``), for the host path's
+        shape: a dict column's entries as global ids, a raw one's as its
+        stored values. A segment without the column (schema-evolved,
+        ``evolved_dtype`` its values' dtype) has no entries."""
+        if name not in self._mv_entries:
+            have = [name in s.metadata.columns for s in self.segments]
+            metas = [s.column_metadata(name)
+                     for s, h in zip(self.segments, have) if h]
+            if any(m.single_value for m in metas):
+                raise DeviceUnsupported(
+                    f"column {name} is single-value in some segments")
+            encs = {m.encoding for m in metas}
+            if len(encs) > 1:
+                raise DeviceUnsupported(f"mixed encodings for {name}")
+            is_dict = encs == {Encoding.DICT}
+            gdict = self.global_dict(name) if is_dict else None
+            per_seg, offs = [], []
+            for s, h in zip(self.segments, have):
+                if not h:
+                    per_seg.append(None)
+                    offs.append(np.zeros(s.n_docs + 1, dtype=np.int64))
+                    continue
+                off = np.asarray(s.mv_offsets(name)).astype(np.int64)
+                fwd = np.asarray(s.forward(name))[: off[-1]]
+                if is_dict:
+                    remap = np.searchsorted(
+                        gdict.values, np.asarray(s.dictionary(name).values)
+                    ).astype(np.int32)
+                    fwd = remap[fwd]
+                per_seg.append(fwd)
+                offs.append(off)
+            if is_dict:
+                vdt, host_dt = np.dtype(np.int32), np.asarray(
+                    gdict.values).dtype
+            else:
+                present = [v for v in per_seg if v is not None]
+                host_dt = present[0].dtype if present \
+                    else np.dtype(evolved_dtype)
+                if host_dt.kind not in _NUMERIC_KINDS:
+                    raise DeviceUnsupported(
+                        f"raw MV column {name} of {host_dt} values")
+                vdt = host_dt
+            total = np.asarray([o[-1] for o in offs], dtype=np.int64)
+            E = max(int(total.max()), 1)
+            vals = np.zeros((self.S, E), dtype=vdt)
+            doc = np.full((self.S, E), -1, dtype=np.int32)
+            lens = np.zeros((self.S, self.pad_to), dtype=np.int32)
+            start = np.zeros((self.S, self.pad_to), dtype=np.int32)
+            for i, (v, off) in enumerate(zip(per_seg, offs)):
+                n = len(off) - 1
+                ln = np.diff(off)
+                lens[i, :n] = ln
+                start[i, :n] = off[:-1]
+                if v is not None and len(v):
+                    vals[i, : len(v)] = v
+                    doc[i, : len(v)] = np.repeat(
+                        np.arange(n, dtype=np.int32), ln)
+            planes = {}
+            for key, arr in (("v", vals), ("d", doc), ("n", lens),
+                             ("s", start)):
+                self._upload(planes, key, arr)
+            self._mv_entries[name] = MVPlanes(
+                planes["v"], planes["d"], planes["n"], planes["s"],
+                "dict" if is_dict else "num", host_dt, total)
+        return self._mv_entries[name]
 
     # ---- width planning (ColPlan) ---------------------------------------
     def width_plan(self, key: str) -> ColPlan:
@@ -334,14 +495,20 @@ class BatchContext:
         return self._zone_maps[key]
 
     def global_dict(self, name: str) -> Dictionary:
-        """Sorted union of per-segment dictionary values (global id space)."""
+        """Sorted union of per-segment dictionary values (global id space;
+        a schema-evolved multi-value column's segments without it hold no
+        value)."""
         if name not in self._global_dicts:
             vals = []
             for s in self.segments:
+                if name not in s.metadata.columns:
+                    continue
                 d = s.dictionary(name)
                 if d is None:
                     raise DeviceUnsupported(f"column {name} lacks a dictionary")
                 vals.append(np.asarray(d.values))
+            if not vals:
+                raise DeviceUnsupported(f"unknown column {name}")
             self._global_dicts[name] = Dictionary(
                 np.unique(np.concatenate(vals)))
         return self._global_dicts[name]
@@ -478,6 +645,17 @@ class BatchContext:
             self._upload(self._sorted_hll, key, torch.sort(k32).values)
         return self._sorted_hll[key]
 
+    def derived(self, key, build):
+        """Device tensors derived on the host from the batch's
+        dictionaries (``build()``: a tensor or a tuple of them), built at
+        first use and held with the batch."""
+        if key not in self._derived:
+            out = build()
+            self._derived[key] = out
+            for t in out if isinstance(out, tuple) else (out,):
+                self.resident_bytes += t.numel() * t.element_size()
+        return self._derived[key]
+
     def int_bounds(self, name: str):
         """(min, max) over the batch from column metadata, or None."""
         mns, mxs = [], []
@@ -523,7 +701,8 @@ def expr_on_device(e: Expression, ctx: BatchContext) -> bool:
     if e.is_identifier:
         if not stored_column(e.name, ctx):
             return False
-        return ctx.encoding(e.name) == Encoding.RAW or np.asarray(
+        enc = ctx.device_encoding(e.name)
+        return enc == Encoding.RAW or enc == Encoding.DICT and np.asarray(
             ctx.global_dict(e.name).values).dtype.kind in _NUMERIC_KINDS
     if not get_function(e.name).device_capable:
         return False
@@ -533,17 +712,19 @@ def expr_on_device(e: Expression, ctx: BatchContext) -> bool:
 
 def filter_on_device(f: FilterNode, ctx: BatchContext) -> bool:
     """Whether ``build_filter`` has a device form for every predicate of
-    ``f``: a dict column's predicate, or a numeric comparison of an
-    expression with a device form."""
+    ``f``: a dict column's predicate, an MV column's in ``mv_column``'s
+    form, or a numeric comparison of an expression with a device form."""
     if f.type is not FilterNodeType.PREDICATE:
         return all(filter_on_device(c, ctx) for c in f.children or ())
     p = f.predicate
     if p.type not in DEVICE_PRED_TYPES:
         return False
     lhs = p.lhs
-    if lhs.is_identifier and stored_column(lhs.name, ctx) \
-            and ctx.encoding(lhs.name) == Encoding.DICT:
-        return True
+    if lhs.is_identifier and stored_column(lhs.name, ctx):
+        if ctx.is_mv(lhs.name):
+            return ctx.mv_on_device(lhs.name)
+        if ctx.device_encoding(lhs.name) == Encoding.DICT:
+            return True
     if p.type in (PredicateType.LIKE, PredicateType.REGEXP_LIKE) \
             or not expr_on_device(lhs, ctx):
         return False
@@ -605,6 +786,14 @@ def build_predicate(p: Predicate, ctx: BatchContext, params: dict,
     if p.type not in DEVICE_PRED_TYPES:
         raise DeviceUnsupported(f"predicate {p.type} not device-supported")
     lhs = p.lhs
+    if lhs.is_identifier and ctx.is_mv(lhs.name):
+        # match-any over the (S, L, K) id block: the inner template is the
+        # dict predicate evaluated per entry; mv_any reduces over K with
+        # the -1 padding masked out (NOT_EQ's "not" stays per entry: ANY
+        # entry differs from the value)
+        ctx.mv_column(lhs.name)  # refuses raw columns and K past the cap
+        key = "mv::" + lhs.name
+        return ("mv_any", key, _dict_predicate(p, ctx, params, counter, key))
     if lhs.is_identifier and ctx.encoding(lhs.name) == Encoding.DICT:
         return _dict_predicate(p, ctx, params, counter)
     # raw column or expression lhs: evaluate on device, compare in raw space
@@ -613,9 +802,9 @@ def build_predicate(p: Predicate, ctx: BatchContext, params: dict,
 
 
 def _dict_predicate(p: Predicate, ctx: BatchContext, params: dict,
-                    counter: list):
-    col = p.lhs.name
-    gdict = ctx.global_dict(col)
+                    counter: list, col_key: str | None = None):
+    col = col_key or p.lhs.name
+    gdict = ctx.global_dict(p.lhs.name)
     dev = ctx.device
     t = p.type
     if t in (PredicateType.EQ, PredicateType.NOT_EQ):
@@ -639,14 +828,46 @@ def _dict_predicate(p: Predicate, ctx: BatchContext, params: dict,
         khi = _slot(params, counter, np.int32(hi), dev)
         return ("range_dict", col, klo, khi)
     # LIKE / REGEXP_LIKE: evaluate once per global dictionary entry → LUT
-    pat = like_to_regex(p.value) if t is PredicateType.LIKE else p.value
-    rx = re.compile(pat)
-    match = rx.match if t is PredicateType.LIKE else rx.search
-    vals = np.asarray(gdict.values).astype(str)
-    lut = np.fromiter((bool(match(s)) for s in vals), dtype=bool,
-                      count=len(vals))
-    key = _slot(params, counter, lut, dev)
+    key = _slot(params, counter, regex_lut(p, ctx), dev)
     return ("lut_dict", col, key)
+
+
+def _regex_match(p: Predicate, values) -> np.ndarray:
+    pat = like_to_regex(p.value) if p.type is PredicateType.LIKE else p.value
+    rx = re.compile(pat)
+    match = rx.match if p.type is PredicateType.LIKE else rx.search
+    vals = np.asarray(values).astype(str)
+    return np.fromiter((bool(match(s)) for s in vals), dtype=bool,
+                       count=len(vals))
+
+
+def regex_lut(p: Predicate, ctx: BatchContext) -> np.ndarray:
+    """(C,) bool: LIKE / REGEXP_LIKE of a dict column over its global
+    dictionary. Where every segment has the trigram (FST-role) index, its
+    candidates narrow each segment's dictionary and the pattern runs on
+    them alone (engine/host.py ``_regex_indexed_lut`` there); a value of
+    the union no segment offers as a candidate cannot match. The LUT is
+    the same either way."""
+    col = p.lhs.name
+    gvals = np.asarray(ctx.global_dict(col).values)
+    idxs = []
+    for s in ctx.segments:
+        try:
+            idxs.append(s.fst_index(col))
+        except Exception:  # noqa: BLE001 — absent/corrupt index: scan
+            idxs.append(None)
+    if any(i is None for i in idxs):
+        return _regex_match(p, gvals)
+    pat = p.value if p.type is not PredicateType.LIKE \
+        else like_to_regex(p.value)
+    lut = np.zeros(len(gvals), dtype=bool)
+    for s, idx in zip(ctx.segments, idxs):
+        local = np.asarray(s.dictionary(col).values)
+        cand = idx.candidates(pat, len(local))
+        sub = local if cand is None else local[cand]
+        if len(sub):
+            lut[np.searchsorted(gvals, sub)] |= _regex_match(p, sub)
+    return lut
 
 
 def raw_predicate(p: Predicate, expr_tpl, params: dict, counter: list,

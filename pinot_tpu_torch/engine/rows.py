@@ -25,9 +25,18 @@ rows and response stats of that host path:
   (group, value) pairs and FIRST/LASTWITHTIME over the exact values,
   the digests and sketches beside it (engine/sketches.py), each from the
   rows keyed by segment and group;
+- multi-value columns as the host expands them: a selection returns each
+  row's entries; a group-by key on an MV column takes one row per entry
+  of each matched doc (Cartesian across MV keys), those rows laid out
+  like a batch, (S, Lx), so the factorize, numGroupsLimit and the
+  pipeline run over them unchanged (``_space``); an ``*MV`` aggregation
+  runs its single-value form over the entries of the rows it takes
+  (COUNTMV as COUNT, DISTINCTCOUNTHLLMV as the raw sketch), each
+  column's entries a space of their own with the group id of their row;
 - stats as the host counts them: entries scanned in the filter by index
-  choice, entries after it per kept row, pruned segments dropped (when
-  all are pruned, the first runs under a FALSE filter).
+  choice, entries after it per kept row (per entry for an MV
+  aggregation), pruned segments dropped (when all are pruned, the first
+  runs under a FALSE filter).
 
 Besides the shapes ``DeviceExecutor.host_shape`` sends here, a device
 launch's fetch runs a query again here where the reference re-runs it on
@@ -54,6 +63,8 @@ from pinot_tpu_torch.engine.params import (
 from pinot_tpu_torch.engine.result import ExecutionStats, IntermediateResult
 from pinot_tpu_torch.engine.values import (
     Rows,
+    SpaceEvaluator,
+    Val,
     ValueEvaluator,
     filter_entries,
     later,
@@ -183,18 +194,32 @@ def _selection(q: QueryContext, ctx, alive) -> RowsLaunch:
         idx = sel_ops.ordered_rows(idx_m, keys, L, S, k)
     r = Rows(S, L, ctx.device, idx)
     exprs = list(q.select_expressions) + [ob.expression for ob in q.order_by]
-    vals = [ev.eval(e, r) for e in exprs]
-    outs = {"hx_matched": scan.mask.sum(dim=1, dtype=torch.int64)}
-    for j, v in enumerate(vals):
-        outs[f"v{j}"] = torch.broadcast_to(v.t, idx.shape).contiguous()
+    outs = {"hx_matched": scan.mask.sum(dim=1, dtype=torch.int64),
+            "hx_rows": idx}
+    vals = []
+    for j, e in enumerate(exprs):
+        if e.is_identifier and ev.is_mv(e.name):
+            if j >= len(q.select_expressions):
+                raise later(f"ORDER BY the multi-value column {e.name!r}")
+            v, outs[f"v{j}"], outs[f"n{j}"] = _mv_rows(ev, e.name, idx, L)
+        else:
+            v = ev.eval(e, r)
+            outs[f"v{j}"] = torch.broadcast_to(v.t, idx.shape).contiguous()
+        vals.append(v)
     n_sel = len(q.select_expressions)
 
     def finish(host, _ex):
-        n = len(host["v0"]) if vals else 0
+        n = len(host["hx_rows"])
         rows = {}
         for j, v in enumerate(vals):
             key = j if j < n_sel else f"__ob{j - n_sel}"
-            rows[key] = ev.decode(v, host[f"v{j}"])
+            if f"n{j}" in host:
+                flat = ev.decode(v, host[f"v{j}"])
+                rows[key] = np.empty(n, dtype=object)
+                rows[key][:] = np.split(flat, np.cumsum(host[f"n{j}"])[:-1]) \
+                    if n else []
+            else:
+                rows[key] = ev.decode(v, host[f"v{j}"])
         # ORDER BY values ride along for the reduce's merge re-sort
         return IntermediateResult("selection", rows=rows,
                                   stats=scan.stats(host, n * n_sel))
@@ -202,17 +227,35 @@ def _selection(q: QueryContext, ctx, alive) -> RowsLaunch:
     return RowsLaunch(outs, finish)
 
 
+def _mv_rows(ev, name: str, idx: torch.Tensor, L: int) -> tuple:
+    """(Val, flat entries, entry counts) of an MV column at the flat rows
+    ``idx``: each row's entries in order, one after another."""
+    v, _doc = ev.mv_values(name)
+    mp = ev.mv(name)
+    if mp is None:
+        n = torch.zeros_like(idx, dtype=torch.int64)
+        return v, v.t.reshape(-1)[:0], n
+    E = mp.vals.shape[1]
+    n = mp.lens.reshape(-1)[idx].to(torch.int64)
+    first = torch.cumsum(n, 0) - n
+    row = torch.repeat_interleave(torch.arange(idx.numel(),
+                                               device=idx.device), n)
+    rank = torch.arange(row.numel(), device=idx.device) - first[row]
+    pos = (idx[row] // L) * E + mp.start.reshape(-1)[idx[row]] + rank
+    return v, v.t.reshape(-1)[pos], n
+
+
 # ---------------------------------------------------------------------------
 # DISTINCT
 # ---------------------------------------------------------------------------
 
 
-def _key_columns(ev, exprs, scan: _Scan, ctx) -> tuple:
-    """(vals, keys, cards) of the key expressions over the whole batch:
-    each one's values, its int64 keys and their known range, if any."""
-    full = Rows(ctx.S, ctx.pad_to, ctx.device)
+def _key_columns(ev, exprs, mask, full: Rows) -> tuple:
+    """(vals, keys, cards) of the key expressions over all rows ``full``
+    (the batch, or an MV group-by's rows): each one's values, its int64
+    keys and their known range, if any."""
     vals = [ev.eval(e, full) for e in exprs]
-    keys = [ev.key(v, scan.mask.shape).reshape(-1) for v in vals]
+    keys = [ev.key(v, mask.shape).reshape(-1) for v in vals]
     return vals, keys, [ev.card(v) for v in vals]
 
 
@@ -220,7 +263,8 @@ def _group_ids(ev, exprs, scan: _Scan, ctx) -> tuple:
     """(vals, gid, G, group_keys) of the key expressions over the whole
     batch (ops/selection.py factorize, its ranges and ranks taken over
     the matched rows)."""
-    vals, keys, cards = _key_columns(ev, exprs, scan, ctx)
+    vals, keys, cards = _key_columns(ev, exprs, scan.mask,
+                                     Rows(ctx.S, ctx.pad_to, ctx.device))
     gid, G, gkeys = sel_ops.factorize(keys, scan.mask.reshape(-1), cards)
     return vals, gid, G, gkeys
 
@@ -228,6 +272,9 @@ def _group_ids(ev, exprs, scan: _Scan, ctx) -> tuple:
 def _distinct(q: QueryContext, ctx, alive) -> RowsLaunch:
     scan = _scan(q, ctx, alive)
     ev = scan.ev
+    for e in q.select_expressions:
+        if e.is_identifier and ev.is_mv(e.name):
+            raise later(f"DISTINCT over the multi-value column {e.name!r}")
     vals, gid, G, gkeys = _group_ids(ev, q.select_expressions, scan, ctx)
     mflat = scan.mask.reshape(-1)
     present = agg_ops.distinct_presence(
@@ -250,20 +297,21 @@ def _distinct(q: QueryContext, ctx, alive) -> RowsLaunch:
 # ---------------------------------------------------------------------------
 
 
-def _agg_plan(ex, q, ctx, ev, aggs, full, params, counter, cols):
+def _agg_plan(ex, q, ctx, ev, aggs, full, params, counter, cols, filters):
     """The pipeline's templates: the device template where an aggregation
     has one (the kernels read the stored planes), else value-space planes
     the card computes (``__x`` / ``__k`` / ``__v`` / ``__t`` cols); per
     template the decode a partial needs, if any; and per aggregation its
     slot: the index ``i`` of its template (leaves ``a{i}_...``), or its
-    sketch (engine/sketches.py), which runs beside the pipeline."""
+    sketch (engine/sketches.py), which runs beside the pipeline.
+    ``filters(FilterNode) -> (S, L) bool`` compiles the theta set form's
+    filters over these rows."""
     tpls, decodes, slots = [], [], []
     shape = (ctx.S, ctx.pad_to)
     for a in aggs:
         name = a.name
         if name in sketches.NAMES:
-            slots.append(sketches.plan(len(slots), a, ev,
-                                       lambda f: filter_plane(f, ctx, ev)))
+            slots.append(sketches.plan(len(slots), a, ev, filters))
             continue
         i = len(tpls)
         dec = None
@@ -271,12 +319,19 @@ def _agg_plan(ex, q, ctx, ev, aggs, full, params, counter, cols):
             if name == "count" or expr_on_device(a.args[0], ctx):
                 tpl = ex._agg_template(i, a, ctx, params, counter)
             else:
-                # e.g. SUM($docId): the value, computed on the card
+                # e.g. SUM($docId), or an MV column's entries: the value,
+                # computed on the card
                 key = f"__x{i}"
-                cols[key] = torch.broadcast_to(
-                    ev.eval(a.args[0], full).t, shape)
-                tpl = (name, ("raw", key),
-                       (None, None) if name in ("sum", "avg") else None)
+                v = ev.eval(a.args[0], full)
+                if v.kind != "num":
+                    # the host path's numeric reduction of strings fails
+                    raise ValueError(f"{name.upper()} requires a numeric "
+                                     f"argument, got {a.args[0]}")
+                cols[key] = torch.broadcast_to(v.t, shape)
+                extra = None
+                if name in ("sum", "avg"):
+                    extra = _sum_extra(i, a.args[0], v, ev, params)
+                tpl = (name, ("raw", key), extra)
         elif name in _DISTINCT_ALIASES:
             v = ev.eval(a.args[0], full)
             key = f"__k{i}"
@@ -301,8 +356,9 @@ def _agg_plan(ex, q, ctx, ev, aggs, full, params, counter, cols):
                     or a.args[0].name.startswith("$"):
                 raise later(f"{name.upper()} over an expression")
             ev.column_dtype(a.args[0].name)
-            if name != "hllmerge" \
-                    and ctx.encoding(a.args[0].name) != Encoding.DICT:
+            if name != "hllmerge" and (
+                    ev.is_mv(a.args[0].name)
+                    or ctx.encoding(a.args[0].name) != Encoding.DICT):
                 # the reference's device reads dict columns only: a raw
                 # column's registers take the sketch's K3 form
                 slots.append(sketches.plan(len(slots), a, ev, None))
@@ -316,6 +372,41 @@ def _agg_plan(ex, q, ctx, ev, aggs, full, params, counter, cols):
         tpls.append(tpl)
         decodes.append(dec)
     return tuple(tpls), decodes, slots
+
+
+def _sum_extra(i: int, arg, v: Val, ev, params: dict) -> tuple:
+    """K1's (byte planes, rows per block) of an integer SUM / AVG over
+    an MV column's entries, from the values' known range (the global
+    dictionary's ends, or the column metadata's bounds), its low end the
+    ``off{i}`` param; (None, None) where no range is known (the exact
+    torch scatter sums it)."""
+    import math
+
+    from pinot_tpu_torch.ops import agg as agg_ops
+    from pinot_tpu_torch.ops import groupby_mm as mm
+
+    if not (arg.is_identifier and ev.is_mv(arg.name)) \
+            or v.kind != "num" or v.dtype.kind not in "iub":
+        return (None, None)
+    mp = ev.mv(arg.name)
+    if mp is None:
+        bounds = (0, 0)
+    elif mp.kind == "dict":
+        gv = np.asarray(ev.ctx.global_dict(arg.name).values)
+        bounds = (int(gv[0]), int(gv[-1])) if len(gv) else (0, 0)
+    else:
+        metas = [s.column_metadata(arg.name) for s in ev.ctx.segments
+                 if arg.name in s.metadata.columns]
+        if any(not isinstance(m.min_value, (int, np.integer))
+               or not isinstance(m.max_value, (int, np.integer))
+               for m in metas):
+            return (None, None)
+        bounds = (min(int(m.min_value) for m in metas),
+                  max(int(m.max_value) for m in metas))
+    params[f"off{i}"] = torch.tensor(math.floor(bounds[0]),
+                                     dtype=torch.int64, device=ev.device)
+    return (mm.int_planes_needed(bounds[0], bounds[1]),
+            agg_ops.rows_per_block_for(max(abs(bounds[0]), abs(bounds[1]))))
 
 
 def _partial(i, tpl, host, ctx, present, dec, ev):
@@ -366,66 +457,246 @@ def _post_entries(aggs, kept: int) -> int:
     return sum(kept * len(aggspec.make_spec(a).args) for a in aggs)
 
 
-def _aggregate(ex, q, ctx, final, reduce_mode, alive, aggs) -> RowsLaunch:
+@dataclasses.dataclass
+class _Space:
+    """Rows aggregations run over, laid out like a batch: the batch
+    itself, or its docs repeated per MV entry (``ev`` a
+    ``SpaceEvaluator``). ``mask`` (S, Lx) the rows taken, ``n`` (S,)
+    int32 the rows of each segment (a prefix of its row), ``src`` (S*Lx,)
+    the batch position of each row's doc (None: the batch)."""
+
+    ev: ValueEvaluator
+    mask: torch.Tensor
+    n: torch.Tensor
+    src: torch.Tensor | None = None
+    up: torch.Tensor | None = None   # (S*Lx,) each row's row in its parent
+
+
+def _batch_space(scan: _Scan, ctx) -> _Space:
+    return _Space(scan.ev, scan.mask, ctx.n_docs_dev)
+
+
+def _entry_rows(ev, name: str, parent: _Space):
+    """(Val, flat entry positions or None, Lx, base doc of each row, rows
+    taken, rows per segment): one row per entry of MV column ``name`` of
+    each row ``parent`` takes, in row then entry order. Over the batch
+    itself the rows are the column's entries plane, masked."""
+    S, L, dev = ev.S, ev.L, ev.device
+    v, doc = ev.mv_values(name)
+    if parent.src is None:
+        E = v.t.shape[1]
+        valid = doc >= 0
+        src = (torch.arange(S, device=dev)[:, None] * L
+               + torch.clamp(doc, min=0).to(torch.int64)).reshape(-1)
+        mask = parent.mask.reshape(-1)[src].reshape(S, E) & valid
+        return v, None, E, src, mask, valid.sum(dim=1).to(torch.int32)
+    mp = ev.mv(name)
+    Lp = parent.mask.shape[1]
+    lens = torch.zeros_like(parent.src) if mp is None \
+        else mp.lens.reshape(-1)[parent.src].to(torch.int64)
+    counts = torch.where(parent.mask.reshape(-1), lens, 0).reshape(S, Lp)
+    rsrc, rank, per, Lx = sel_ops.expand(counts)
+    src = parent.src[rsrc]
+    if mp is None:
+        pos = torch.zeros_like(src)
+    else:
+        pos = (src // L) * mp.vals.shape[1] \
+            + mp.start.reshape(-1)[src].to(torch.int64) + rank
+    v = dataclasses.replace(v, t=v.t.reshape(-1)[pos].reshape(S, Lx))
+    mask = torch.arange(Lx, device=dev)[None, :] < per[:, None]
+    return v, (rsrc, pos), Lx, src, mask, per.to(torch.int32)
+
+
+def _key_space(scan: _Scan, ctx, keys) -> _Space:
+    """The rows an MV group-by takes: one per entry of each MV key of
+    every matched doc, Cartesian across MV keys in doc, then key order
+    (engine/host.py ``_expand_mv_groups``)."""
+    ev = scan.ev
+    space = _batch_space(scan, ctx)
+    vals: dict = {}
+    for g in keys:
+        if not (g.is_identifier and ev.is_mv(g.name)) or g.name in vals:
+            continue
+        v, how, Lx, src, mask, n = _entry_rows(ev, g.name, space)
+        if how is not None:     # earlier keys' values follow their rows
+            rsrc = how[0]
+            vals = {k: dataclasses.replace(
+                x, t=x.t.reshape(-1)[rsrc].reshape(ev.S, Lx))
+                for k, x in vals.items()}
+        vals[g.name] = v
+        space = _Space(SpaceEvaluator(ev, Lx, src, vals), mask, n, src)
+    return space
+
+
+def _entry_space(ev, name: str, parent: _Space, hashes: bool) -> _Space:
+    """The entries of MV column ``name`` in the rows ``parent`` takes:
+    the space an ``*MV`` aggregation runs its single-value form over,
+    with the MV column's entry hashes where an HLL needs them."""
+    v, how, Lx, src, mask, n = _entry_rows(ev, name, parent)
+    h = {}
+    if hashes:
+        hp = ev.mv_hashes(name)
+        h[name] = hp if how is None \
+            else hp.reshape(-1)[how[1]].reshape(ev.S, Lx)
+    return _Space(SpaceEvaluator(ev, Lx, src, {name: v}, h), mask, n, src,
+                  src if how is None else how[0])
+
+
+def _mv_groups(aggs) -> list:
+    """The query's aggregations by the rows they run over: (None, [(query
+    index, aggregation)]) for the rows themselves, then per MV column
+    (name, [(query index, its single-value form)]) for its entries."""
+    groups: dict = {None: []}
+    for qi, a in enumerate(aggs):
+        spec = aggspec.make_spec(a)
+        if not spec.mv:
+            groups[None].append((qi, a))
+            continue
+        arg = a.args[0]
+        if not arg.is_identifier:
+            raise NotImplementedError("MV aggregations take a bare MV column")
+        groups.setdefault(arg.name, []).append(
+            (qi, dataclasses.replace(a, name=a.name[:-2])))
+    return list(groups.items())
+
+
+def _run_aggs(ex, q, ctx, space: _Space, pairs_in, gid, G: int, final,
+              alive) -> tuple:
+    """The pipeline (engine/device.py) and the sketches over ``space``
+    for the aggregations ``pairs_in``: (device leaves, the decode state
+    ``_space_partials`` reads)."""
     from pinot_tpu_torch.engine.device import (
         STATE_AGGS,
         agg_columns,
         build_pipeline,
     )
 
-    scan = _scan(q, ctx, alive)
-    ev, S, L, dev = scan.ev, ctx.S, ctx.pad_to, ctx.device
-    full = Rows(S, L, dev)
+    ev = space.ev
+    S, Ls, dev = ctx.S, space.mask.shape[1], ctx.device
+    aggs = [a for _qi, a in pairs_in]
     params, counter, cols = {}, [0], {}
-    tpls, decodes, slots = _agg_plan(ex, q, ctx, ev, aggs, full, params,
-                                     counter, cols)
+    gathered = isinstance(ev, SpaceEvaluator)
+
+    def filters(f):
+        plane = filter_plane(f, ctx, ev.base if gathered else ev)
+        return ev.gather(plane) if gathered else plane
+
+    tpls, decodes, slots = _agg_plan(ex, q, ev.ctx, ev, aggs,
+                                     Rows(S, Ls, dev), params, counter, cols,
+                                     filters)
     final = final and any(t[0] in STATE_AGGS for t in tpls)
-    sketch = [s for s in slots if not isinstance(s, int)]
     widths, base = ex.gather_columns(
         ctx, set().union(*(agg_columns(t) for t in tpls)), params)
-    cols.update(base)
+    cols.update({k: ev.gather(v) for k, v in base.items()} if gathered
+                else base)
     params["ps_alive"] = to_device(alive, dev)
+    params["__mask__"] = space.mask
+    if gid is None:
+        template = ("agg", ("mask", "__mask__"), (), (), tpls, 0, final)
+        ids = None
+    else:
+        cols["__gid__"] = torch.where(space.mask, gid.reshape(S, Ls), G) \
+            .to(torch.int32)
+        template = ("groupby", ("mask", "__mask__"), ("__gid__",), (G,),
+                    tpls, 0, final)
+        ids = cols["__gid__"].reshape(-1)
+    outs = build_pipeline(template, widths, ex.min_rows)(cols, space.n,
+                                                         params)
+    for sk in slots:
+        if not isinstance(sk, int):
+            outs.update(sk.launch(sketches.Batch(ev, space.mask, ids,
+                                                 1 if gid is None else G)))
+    outs["hx_rows"] = space.mask.sum(dtype=torch.int64)
+    return outs, (pairs_in, tpls, decodes, slots, ev, template)
+
+
+def _space_partials(state, host, present) -> list:
+    """(query index, partial) of each aggregation of one space."""
+    pairs_in, tpls, decodes, slots, ev, _t = state
+    parts = _partials(slots, tpls, decodes, host, ev.ctx, present, ev)
+    return [(qi, part) for (qi, _a), part in zip(pairs_in, parts)]
+
+
+def _aggregate(ex, q, ctx, final, reduce_mode, alive, aggs) -> RowsLaunch:
+    scan = _scan(q, ctx, alive)
+    ev, S = scan.ev, ctx.S
     outs0 = {"hx_matched": scan.mask.sum(dim=1, dtype=torch.int64)}
+    groups = _mv_groups(aggs)
+    has_mv_key = any(g.is_identifier and ev.is_mv(g.name)
+                     for g in q.group_by or ())
+    rows_space = _key_space(scan, ctx, q.group_by) if has_mv_key \
+        else _batch_space(scan, ctx)
+
+    def run_all(space, gid, G) -> tuple:
+        outs, states = {}, []
+        for j, (name, pairs_in) in enumerate(groups):
+            if name is None:
+                sp = space
+            else:
+                hashes = any(a.name in ("distinctcounthll",
+                                        "distinctcountrawhll")
+                             for _qi, a in pairs_in)
+                sp = _entry_space(ev, name, space, hashes)
+            g = gid if name is None or gid is None \
+                else gid.reshape(-1)[sp.up]
+            o, st = _run_aggs(ex, q, ctx, sp, pairs_in, g, G, final, alive)
+            outs.update({f"g{j}:{k}": v for k, v in o.items()})
+            states.append(st)
+        return outs, states
+
+    def post(host) -> int:
+        n = 0
+        for j, (name, pairs_in) in enumerate(groups):
+            rows = int(host[f"g{j}:hx_rows"])
+            n += rows * len(pairs_in) if name is not None else \
+                _post_entries([a for _qi, a in pairs_in], rows)
+        return n
+
+    def assemble(host, states, present) -> list:
+        out = [None] * len(aggs)
+        for j, st in enumerate(states):
+            hv = {k[len(f"g{j}:"):]: v for k, v in host.items()
+                  if k.startswith(f"g{j}:")}
+            for qi, part in _space_partials(st, hv, present):
+                out[qi] = part
+        return out
 
     if not q.group_by:
-        params["__mask__"] = scan.mask
-        template = ("agg", ("mask", "__mask__"), (), (), tpls, 0, final)
-        outs = build_pipeline(template, widths, ex.min_rows)(
-            cols, ctx.n_docs_dev, params)
-        for sk in sketch:
-            outs.update(sk.launch(sketches.Batch(ev, scan.mask, None, 1)))
+        outs, states = run_all(rows_space, None, 1)
         outs.update(outs0)
 
         def finish_scalar(host, _ex):
-            partials = _partials(slots, tpls, decodes, host, ctx, None, ev)
-            n = int(host["hx_matched"].sum())
             return IntermediateResult(
-                "aggregation", agg_partials=partials,
-                stats=scan.stats(host, _post_entries(aggs, n)))
+                "aggregation", agg_partials=assemble(host, states, None),
+                stats=scan.stats(host, post(host)))
 
         return RowsLaunch(outs, finish_scalar)
 
-    if not bool(scan.mask.any()):
+    xev = rows_space.ev
+    full = Rows(S, rows_space.mask.shape[1], ctx.device)
+    if not bool(rows_space.mask.any()):
         def finish_empty(host, _ex):
             specs = [aggspec.make_spec(a) for a in aggs]
             return IntermediateResult(
                 "group_by",
-                group_keys=tuple(ev.decode(ev.eval(g, full),
-                                           np.zeros(0, dtype=np.int64))
+                group_keys=tuple(xev.decode(xev.eval(g, full),
+                                            np.zeros(0, dtype=np.int64))
                                  for g in q.group_by),
                 agg_partials=[s.empty(0) for s in specs],
                 stats=scan.stats(host, 0))
 
         return RowsLaunch(outs0, finish_empty)
 
-    kvals, keys, cards = _key_columns(ev, q.group_by, scan, ctx)
-    agg_mask = scan.mask.reshape(-1)
+    kvals, keys, cards = _key_columns(xev, q.group_by, rows_space.mask,
+                                      full)
+    agg_mask = rows_space.mask.reshape(-1)
     gid, G, gkeys = sel_ops.factorize(keys, agg_mask, cards)
     limit = ex.groups_limit(q)
+    Lx = rows_space.mask.shape[1]
     keep = None
     if G > limit:
-        idx = _matched_rows(scan)
-        keep = sel_ops.limit_groups(idx // L, gid[idx], G, S, limit)
+        idx = torch.nonzero(agg_mask).reshape(-1)
+        keep = sel_ops.limit_groups(idx // Lx, gid[idx], G, S, limit)
     limit_reached = keep is not None
     if keep is not None:
         agg_mask = agg_mask.clone()
@@ -434,22 +705,15 @@ def _aggregate(ex, q, ctx, final, reduce_mode, alive, aggs) -> RowsLaunch:
         # host factorizes its kept rows again, so the pipeline's tables
         # are sized by what was kept, not by every group met
         gid, G, gkeys = sel_ops.factorize(keys, agg_mask, cards)
-    agg_mask = agg_mask.reshape(S, L)
-    cols["__gid__"] = torch.where(agg_mask, gid.reshape(S, L), G) \
-        .to(torch.int32)
-    params["__mask__"] = agg_mask
-    template = ("groupby", ("mask", "__mask__"), ("__gid__",), (G,), tpls,
-                0, final)
-    outs = build_pipeline(template, widths, ex.min_rows)(
-        cols, ctx.n_docs_dev, params)
+    kept = dataclasses.replace(rows_space, mask=agg_mask.reshape(S, Lx))
+    outs, states = run_all(kept, gid, G)
     for j, k in enumerate(gkeys):
         outs[f"gk{j}"] = k
-    for sk in sketch:
-        outs.update(sk.launch(sketches.Batch(
-            ev, agg_mask, cols["__gid__"].reshape(-1), G)))
-    # list-, dict- and set-valued partials have no order key to trim by
-    pairs = bool(sketch) or any(f"a{i}_pg" in outs
-                                for i in range(len(tpls)))
+    # list-, dict- and set-valued partials, and those over MV entries,
+    # have no order key to trim by
+    pairs = len(groups) > 1 or any(
+        not isinstance(sl, int) for sl in states[0][3]) or any(
+        f"g0:a{i}_pg" in outs for i in range(len(states[0][1])))
     trim = None
     if reduce_mode is not None and not pairs:
         trim = dr_ops.plan_trim(q, q.group_by, aggs, G, reduce_mode,
@@ -457,26 +721,30 @@ def _aggregate(ex, q, ctx, final, reduce_mode, alive, aggs) -> RowsLaunch:
     if trim is not None:
         tr_k = torch.tensor(dr_ops.trim_keep_count(q, reduce_mode,
                                                    ex.group_trim_size),
-                            dtype=torch.int64, device=dev)
-        outs = dr_ops.apply_trim(
-            outs, tr_k, template, trim,
-            [ev.key_orders(v, k) for v, k in zip(kvals, gkeys)])
+                            dtype=torch.int64, device=ctx.device)
+        rows_kept = outs.pop("g0:hx_rows")
+        inner = {k[3:]: v for k, v in outs.items() if k.startswith("g0:")}
+        inner.update({k: v for k, v in outs.items() if k.startswith("gk")})
+        inner = dr_ops.apply_trim(
+            inner, tr_k, states[0][5], trim,
+            [xev.key_orders(v, k) for v, k in zip(kvals, gkeys)])
+        outs = {(k if k.startswith(("gk", "trim_")) else f"g0:{k}"): v
+                for k, v in inner.items()}
+        outs["g0:hx_rows"] = rows_kept
     outs.update(outs0)
-    outs["hx_kept"] = agg_mask.sum(dtype=torch.int64)
 
     def finish_groups(host, ex_):
         if "trim_keys" in host:
             present = np.arange(int(host["trim_n"]))
             ex_.device_reduce_queries += 1
         else:
-            present = np.nonzero(host["gcount"] > 0)[0]
-        key_values = tuple(ev.decode_key(v, host[f"gk{j}"][present])
+            present = np.nonzero(host["g0:gcount"] > 0)[0]
+        key_values = tuple(xev.decode_key(v, host[f"gk{j}"][present])
                            for j, v in enumerate(kvals))
-        partials = _partials(slots, tpls, decodes, host, ctx, present, ev)
         return IntermediateResult(
-            "group_by", group_keys=key_values, agg_partials=partials,
-            stats=scan.stats(host, _post_entries(aggs, int(host["hx_kept"])),
-                             limit_reached))
+            "group_by", group_keys=key_values,
+            agg_partials=assemble(host, states, present),
+            stats=scan.stats(host, post(host), limit_reached))
 
     return RowsLaunch(outs, finish_groups)
 

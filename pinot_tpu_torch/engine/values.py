@@ -20,10 +20,23 @@ values, its engine/host.py). The port runs those shapes on the card
   and ``$hostName``;
 - the host's numEntriesScannedInFilter per segment (``filter_entries``):
   index-served predicates scan nothing, a scan reads every doc once per
-  predicate.
+  predicate, a multi-value column's predicate every entry, a geo index
+  its candidates;
+- multi-value columns (``mv_match``): a predicate per entry over the
+  column's entries plane (engine/params.py ``mv_entries``), any entry a
+  match for its doc, a schema-evolved column with no entry matching
+  none; ``SpaceEvaluator`` evaluates over the rows an MV group-by or an
+  MV aggregation expands the docs into (engine/rows.py);
+- the index-backed filters: JSON_MATCH and TEXT_MATCH through each
+  segment's index (a doc set) or over the global dictionary's distinct
+  strings (a LUT), ST_DISTANCE through the geo grid's candidates with
+  the haversine check on the card (ops/geo.py), and the functions the
+  card has no form for over one dict column, each distinct value
+  computed once on the host, as a LUT over its ids.
 
-A shape without a form here raises ``DeviceUnsupported`` naming ROADMAP
-queue 1, where the rest of the single-stage surface is listed.
+A shape without a form here raises ``DeviceUnsupported`` naming its
+ROADMAP queue 1 item, where the rest of the single-stage surface is
+listed.
 """
 
 from __future__ import annotations
@@ -44,6 +57,8 @@ from pinot_tpu_torch.engine.params import (
     raw_predicate,
     to_device,
 )
+from pinot_tpu_torch.ops import geo as geo_ops
+from pinot_tpu_torch.ops import sketch_build as sb
 from pinot_tpu_torch.ops.device_reduce import order_key
 from pinot_tpu_torch.ops.transform import _CAST_NP, get_function
 from pinot_tpu_torch.query.context import (
@@ -60,12 +75,43 @@ _LOW63 = (1 << 63) - 1
 _NAN_KEY = 0x7FF8 << 48   # order_key of NaN: above every number's key
 _SIGNED_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32,
                 torch.uint64: torch.int64}
+_NULL_PREDS = (PredicateType.IS_NULL, PredicateType.IS_NOT_NULL)
 
 
 def later(what: str):
-    """The in-band refusal of a shape this slice does not run."""
+    """The in-band refusal of a host-path value form the card lacks: ROADMAP
+    queue 1, item e3."""
     return DeviceUnsupported(
-        f"{what} comes with a later slice of the port (ROADMAP queue 1)")
+        f"{what} comes with a later slice of the port (ROADMAP queue 1, "
+        f"item e3)")
+
+
+def evolved_spec(seg, name: str):
+    """The table schema's FieldSpec of a column the segment predates
+    (schema evolution), or None."""
+    if name in seg.metadata.columns:
+        return None
+    schema = getattr(seg, "table_schema", None)
+    return None if schema is None else getattr(schema, "fields", {}).get(name)
+
+
+def np_eval(e: Expression, env: dict):
+    """The host path's numpy value of ``e``: identifiers from ``env``
+    (e.g. a column's distinct values), functions through their numpy
+    form."""
+    if e.is_literal:
+        return np.asarray(e.value)
+    if e.is_identifier:
+        return env[e.name]
+    fn = get_function(e.name)
+    if e.name == "cast":
+        return fn.np_fn(np_eval(e.args[0], env), e.args[1].value)
+    return fn.np_fn(*[np_eval(a, env) for a in e.args])
+
+
+def _constant(e: Expression) -> bool:
+    return e.is_literal or (e.is_function
+                            and all(_constant(a) for a in e.args))
 
 
 def host_name_of(seg) -> str:
@@ -165,6 +211,10 @@ _COMPARE = {
     "greater_than_or_equal": torch.ge, "less_than": torch.lt,
     "less_than_or_equal": torch.le,
 }
+# the functions ``eval`` computes as torch ops; an expression using any
+# other over one dict column is computed per distinct value (``_lut``)
+_TORCH_FUNCS = set(_ARITH) | set(_UNARY) | set(_ROUND) | set(_COMPARE) \
+    | {"divide", "mod", "and", "or", "not", "cast", "case"}
 
 
 class ValueEvaluator:
@@ -182,13 +232,118 @@ class ValueEvaluator:
         self.host_names = np.asarray([host_name_of(s) for s in ctx.segments])
         self._gvals: dict = {}
         self._probes: dict = {}
+        self._luts: dict = {}
 
     # ---- columns -------------------------------------------------------
     def _check_column(self, name: str) -> None:
+        if self.is_mv(name):
+            raise later(f"the multi-value column {name!r} in an expression")
         for s in self.ctx.segments:
             if name not in s.metadata.columns:
                 raise later(f"column {name!r}, absent from segment {s.name}")
         self.ctx.encoding(name)  # single-value, one encoding
+
+    # ---- multi-value columns ---------------------------------------------
+    def is_mv(self, name: str) -> bool:
+        """Whether a segment stores ``name`` multi-value, or predates it
+        and the table schema makes it multi-value."""
+        for s in self.ctx.segments:
+            if name in s.metadata.columns:
+                if not s.column_metadata(name).single_value:
+                    return True
+            else:
+                spec = evolved_spec(s, name)
+                if spec is not None and not spec.single_value:
+                    return True
+        return False
+
+    def _evolved_dtype(self, name: str):
+        """The values' dtype of a column some segment predates, else None."""
+        for s in self.ctx.segments:
+            spec = evolved_spec(s, name)
+            if spec is not None:
+                return np.dtype(spec.data_type.np_dtype)
+        return None
+
+    def mv(self, name: str):
+        """The column's entries (engine/params.py ``MVPlanes``), or None
+        where every segment predates it: no entry anywhere."""
+        if not any(name in s.metadata.columns for s in self.ctx.segments):
+            if self._evolved_dtype(name) is None:
+                raise KeyError(f"column {name!r} not found")
+            return None
+        return self.ctx.mv_entries(name, self._evolved_dtype(name))
+
+    def mv_values(self, name: str) -> Val:
+        """The entries of an MV column as a (S, E) ``Val`` (dict columns
+        as global ids), with the (S, E) int32 doc of each entry (-1 on
+        padding)."""
+        mp = self.mv(name)
+        if mp is None:
+            dt = self._evolved_dtype(name)
+            doc = torch.full((self.S, 1), -1, dtype=torch.int32,
+                             device=self.device)
+            if dt.kind in "USO":
+                return Val(torch.zeros_like(doc), "case", dt,
+                           np.asarray([""], dtype=dt)), doc
+            return Val(torch.zeros((self.S, 1), dtype=_torch_dtype(dt),
+                                   device=self.device), "num", dt), doc
+        if mp.kind == "dict":
+            if mp.dtype.kind in "USO":
+                return Val(mp.vals, "dict", mp.dtype, name), mp.doc
+            gv = self._dict_values(name)
+            ids = torch.clamp(mp.vals.to(torch.int64), 0, gv.shape[0] - 1)
+            return Val(gv[ids], "num", mp.dtype), mp.doc
+        return Val(mp.vals, "num", mp.dtype), mp.doc
+
+    def mv_hashes(self, name: str) -> torch.Tensor:
+        """(S, E) int32 bit view of each entry's canonical value hash (the
+        hash the host's register build applies to the values)."""
+        from pinot_tpu_torch.ops import hll as hll_ops
+
+        mp = self.mv(name)
+        if mp is None:
+            return torch.zeros((self.S, 1), dtype=torch.int32,
+                               device=self.device)
+        if mp.kind == "dict":
+            h = hll_ops.hash32_np(np.asarray(
+                self.ctx.global_dict(name).values)).view(np.int32)
+            hd = to_device(h, self.device)
+            return hd[torch.clamp(mp.vals.to(torch.int64), 0,
+                                  max(hd.shape[0] - 1, 0))]
+        return sb.hash32_values(mp.vals, mp.dtype).to(torch.int32)
+
+    def mv_match(self, p: Predicate) -> torch.Tensor:
+        """(S, L) bool: docs with an entry matching ``p`` (engine/host.py
+        ``_mv_predicate_mask``: NOT_EQ and NOT IN ask whether an entry
+        differs)."""
+        from pinot_tpu_torch.engine.device import eval_filter
+
+        name = p.lhs.name
+        hit = torch.zeros(self.S * self.L, dtype=torch.bool,
+                          device=self.device)
+        mp = self.mv(name)
+        if mp is None or not mp.total.any():
+            return hit.reshape(self.S, self.L)
+        if mp.kind == "dict":
+            lut = to_device(predicate_over_values(
+                p, np.asarray(self.ctx.global_dict(name).values)),
+                self.device)
+            ent = lut[torch.clamp(mp.vals.to(torch.int64), 0,
+                                  max(lut.shape[0] - 1, 0))]
+        else:
+            if p.type in (PredicateType.LIKE, PredicateType.REGEXP_LIKE):
+                raise later(f"the predicate {p} over numeric values")
+            params, counter = {}, [0]
+            tpl = raw_predicate(
+                p, plane_slot(params, counter, mp.vals), params, counter,
+                self.device, self._literal_dtype(p, mp.dtype))
+            ent = eval_filter(tpl, {}, params, mp.vals.shape, self.device)
+        ent = ent & (mp.doc >= 0)
+        pos = torch.nonzero(ent)
+        hit[pos[:, 0] * self.L + mp.doc[pos[:, 0], pos[:, 1]].to(
+            torch.int64)] = True
+        return hit.reshape(self.S, self.L)
 
     def column_dtype(self, name: str) -> np.dtype:
         """The dtype the host path's values of a column have."""
@@ -244,6 +399,8 @@ class ValueEvaluator:
                 dt = self.column_dtype(e.name)
                 out = np.asarray(["x"]) if dt.kind in "USO" \
                     else np.ones(1, dtype=dt)
+        elif self._lut_column(e) is not None:
+            out = self._lut(e)[:1]
         else:
             fn = get_function(e.name)
             try:
@@ -283,6 +440,14 @@ class ValueEvaluator:
         if e.name in _COMPARE and any(
                 a.is_literal and isinstance(a.value, str) for a in e.args):
             return self._string_compare(e, rows)
+        col = self._lut_column(e)
+        if col is not None:
+            lut = self._lut(e)
+            ids = torch.clamp(rows.take(self.ctx.column(col)).to(torch.int64),
+                              0, max(len(lut) - 1, 0))
+            if lut.dtype.kind in "biuf":
+                return Val(to_device(lut, self.device)[ids], "num", lut.dtype)
+            return Val(ids, "case", lut.dtype, lut)
         out_dt = self.probe(e).dtype
         args = [self.eval(a, rows) for a in e.args
                 if not (e.name == "cast" and a is e.args[1])]
@@ -339,6 +504,44 @@ class ValueEvaluator:
                 x = torch.trunc(x.to(torch.float64))
             return Val(x.to(tdt), "num", out_dt)
         raise later(f"the function {name.upper()}")
+
+    def _lut_column(self, e: Expression):
+        """The dict column ``e`` is computed over as a LUT (``_lut``): a
+        function with no torch form here, over one stored single-value
+        dict column and literals; else None."""
+        if not e.is_function:
+            return None
+        names, funcs = set(), set()
+
+        def walk(x):
+            if x.is_identifier:
+                names.add(x.name)
+            elif x.is_function:
+                funcs.add(x.name)
+                for a in x.args:
+                    walk(a)
+
+        walk(e)
+        if len(names) != 1 or funcs <= _TORCH_FUNCS or "lookup" in funcs:
+            return None
+        name = names.pop()
+        if name.startswith("$") or self.is_mv(name) or not all(
+                name in s.metadata.columns for s in self.ctx.segments) \
+                or self.ctx.device_encoding(name) != Encoding.DICT:
+            return None
+        return name
+
+    def _lut(self, e: Expression) -> np.ndarray:
+        """(C,) the host path's values of ``e`` over its column's global
+        dictionary: each distinct value computed once, in numpy."""
+        if e not in self._luts:
+            col = self._lut_column(e)
+            gv = np.asarray(self.ctx.global_dict(col).values)
+            out = np.asarray(np_eval(e, {col: gv}))
+            if out.ndim == 0:
+                out = np.broadcast_to(out, gv.shape).copy()
+            self._luts[e] = out
+        return self._luts[e]
 
     def _string_compare(self, e: Expression, rows: Rows) -> Val:
         """A comparison of a string column with a string literal: the
@@ -473,17 +676,28 @@ class ValueEvaluator:
         return np.unique(v.meta)[k]
 
     # ---- filters: the host path's leaves of build_filter -----------------
-    def predicate_leaf(self, p: Predicate, params: dict, counter: list):
+    def predicate_leaf(self, p: Predicate, params: dict, counter: list,
+                       generic: bool = False):
         """The filter template leaf (engine/params.py ``build_filter``) of
         ``p`` over the host path's values, or None for a dict column's
         predicate, which the template builds as the device does. The
+        index-backed filters, multi-value columns' predicates and the
         segment names' predicates become a mask; any other lhs its values
         at the host's dtype, compared with the literals in the dtype numpy
-        compares them in."""
-        if p.type not in DEVICE_PRED_TYPES:
-            raise later(f"the predicate {p.type.value}")
+        compares them in. ``generic``: no index (a geo predicate's
+        segments without a grid)."""
         lhs = p.lhs
         full = Rows(self.S, self.L, self.device)
+        mask = None if generic else self._index_mask(p)
+        if mask is None and lhs.is_identifier and self.is_mv(lhs.name) \
+                and p.type not in _NULL_PREDS:
+            if p.type not in DEVICE_PRED_TYPES:
+                raise later(f"the predicate {p.type.value}")
+            mask = self.mv_match(p)
+        if mask is not None:
+            return ("mask", plane_slot(params, counter, mask)[1])
+        if p.type not in DEVICE_PRED_TYPES:
+            raise later(f"the predicate {p.type.value}")
         if lhs.is_identifier and lhs.name in ("$segmentName", "$hostName"):
             names = self.seg_names if lhs.name == "$segmentName" \
                 else self.host_names
@@ -498,26 +712,146 @@ class ValueEvaluator:
             raise later(f"the predicate {p} over string values")
         if p.type in (PredicateType.LIKE, PredicateType.REGEXP_LIKE):
             raise later(f"the predicate {p} over numeric values")
-        arr = self.probe(lhs)
+        dt = self._literal_dtype(p, self.probe(lhs).dtype)
+        plane = torch.broadcast_to(v.t.to(_torch_dtype(dt)), full.seg().shape)
+        return raw_predicate(p, plane_slot(params, counter, plane), params,
+                             counter, self.device, dt)
+
+    @staticmethod
+    def _literal_dtype(p: Predicate, vdt: np.dtype) -> np.dtype:
+        """The dtype numpy compares values of ``vdt`` with the
+        predicate's literals in."""
+        arr = np.ones(1, dtype=vdt)
         if p.type in (PredicateType.IN, PredicateType.NOT_IN):
             lits = np.asarray(list(p.values))
             if lits.dtype.kind not in "biuf":
                 raise later(f"the predicate {p}: string literals against "
                             f"numbers")
-            dt = np.result_type(arr.dtype, lits.dtype)
-        else:
-            lits = [p.value] if p.type in (PredicateType.EQ,
-                                           PredicateType.NOT_EQ) \
-                else [x for x in (p.lower, p.upper) if x is not None]
-            if any(isinstance(x, str) for x in lits):
-                raise later(f"the predicate {p}: a string literal against "
-                            f"numbers")
-            dt = np.dtype(np.int64) if arr.dtype.kind in "iub" and all(
-                isinstance(x, (int, bool)) for x in lits) \
-                else np.result_type(arr, *lits)
-        plane = torch.broadcast_to(v.t.to(_torch_dtype(dt)), full.seg().shape)
-        return raw_predicate(p, plane_slot(params, counter, plane), params,
-                             counter, self.device, dt)
+            return np.result_type(arr.dtype, lits.dtype)
+        lits = [p.value] if p.type in (PredicateType.EQ,
+                                       PredicateType.NOT_EQ) \
+            else [x for x in (p.lower, p.upper) if x is not None]
+        if any(isinstance(x, str) for x in lits):
+            raise later(f"the predicate {p}: a string literal against "
+                        f"numbers")
+        return np.dtype(np.int64) if arr.dtype.kind in "iub" and all(
+            isinstance(x, (int, bool)) for x in lits) \
+            else np.result_type(arr, *lits)
+
+    # ---- the index-backed filters ----------------------------------------
+    def _index_mask(self, p: Predicate):
+        """(S, L) bool of a JSON_MATCH, TEXT_MATCH or geo-indexed
+        ST_DISTANCE predicate, or None for any other."""
+        if p.type is PredicateType.JSON_MATCH:
+            from pinot_tpu_torch.storage import jsonindex
+
+            col = self._match_column(p, "JSON_MATCH")
+            f = jsonindex.parse_match_expression(p.value)
+            return self._doc_set_or_lut(
+                col, lambda s: s.json_index(col),
+                lambda idx, n: idx.match(f, n),
+                lambda vals: jsonindex.match_scan(vals, f, len(vals)))
+        if p.type is PredicateType.TEXT_MATCH:
+            from pinot_tpu_torch.storage import textindex
+
+            col = self._match_column(p, "TEXT_MATCH")
+            return self._doc_set_or_lut(
+                col, lambda s: s.text_index(col),
+                lambda idx, n: idx.match(p.value, n),
+                lambda vals: textindex.ScanTextIndex(vals).match(
+                    p.value, len(vals)))
+        if p.type is PredicateType.RANGE and p.upper is not None:
+            return self._geo_mask(p)
+        return None
+
+    def _match_column(self, p: Predicate, what: str) -> str:
+        if not p.lhs.is_identifier:
+            raise ValueError(f"{what} takes a column as its first arg")
+        self._check_column(p.lhs.name)
+        if self.ctx.encoding(p.lhs.name) != Encoding.DICT:
+            raise later(f"{what} over a raw column")
+        return p.lhs.name
+
+    def _doc_set_or_lut(self, col: str, index_of, match_docs, match_values):
+        """Each segment with its index gives a doc set (``match_docs``),
+        scattered into the mask; the others share one LUT over the
+        global dictionary's distinct values (``match_values``, the host
+        path's scan of them), gathered by id."""
+        S, L = self.S, self.L
+        flat, scan = [], np.zeros(S, dtype=bool)
+        for i, s in enumerate(self.ctx.segments):
+            idx = index_of(s)
+            if idx is None:
+                scan[i] = True
+                continue
+            docs = np.nonzero(np.asarray(match_docs(idx, s.n_docs))
+                              [: s.n_docs])[0]
+            flat.append(docs.astype(np.int64) + i * L)
+        mask = torch.zeros(S * L, dtype=torch.bool, device=self.device)
+        if flat:
+            mask[to_device(np.concatenate(flat), self.device)] = True
+        mask = mask.reshape(S, L)
+        if scan.any():
+            gv = np.asarray(self.ctx.global_dict(col).values)
+            lut = to_device(np.asarray(match_values(gv), dtype=bool),
+                            self.device)
+            if lut.numel():
+                ids = torch.clamp(self.ctx.column(col).to(torch.int64), 0,
+                                  lut.shape[0] - 1)
+                mask = mask | (lut[ids]
+                               & to_device(scan, self.device)[:, None])
+        return mask
+
+    def _geo_mask(self, p: Predicate):
+        """ST_DISTANCE(col, point) against a range, through each
+        segment's geo grid: its candidate docs from the host's cell
+        lookup, their points (each distinct value parsed once) checked
+        by haversine on the card. A segment the grid cannot answer takes
+        the generic evaluation (``eval``). None where no segment has a
+        grid for the shape."""
+        cands = [geo_candidates(s, p) for s in self.ctx.segments]
+        hits = [c for c in cands if c is not None]
+        if not hits:
+            return None
+        col, qlon, qlat = hits[0][1], hits[0][2], hits[0][3]
+        S, L = self.S, self.L
+        flat = np.concatenate(
+            [c[0].astype(np.int64) + i * L for i, c in enumerate(cands)
+             if c is not None])
+        mask = torch.zeros(S * L, dtype=torch.bool, device=self.device)
+        if len(flat):
+            lon, lat = self._points(col)
+            pos = to_device(flat, self.device)
+            ids = Rows(S, L, self.device, pos).take(
+                self.ctx.column(col)).to(torch.int64)
+            d = geo_ops.haversine_torch(lon[ids], lat[ids], qlon, qlat)
+            radius = float(p.upper)
+            ok = (d <= radius) if p.upper_inclusive else (d < radius)
+            if p.lower is not None:
+                lo = float(p.lower)
+                ok &= (d >= lo) if p.lower_inclusive else (d > lo)
+            mask[pos[ok]] = True
+        mask = mask.reshape(S, L)
+        rest = np.asarray([c is None for c in cands])
+        if rest.any():
+            from pinot_tpu_torch.engine.device import eval_filter
+
+            params, counter = {}, [0]
+            tpl = self.predicate_leaf(p, params, counter, generic=True)
+            gen = eval_filter(tpl, {}, params, (S, L), self.device)
+            mask = torch.where(to_device(rest, self.device)[:, None], gen,
+                               mask)
+        return mask
+
+    def _points(self, col: str) -> tuple:
+        """(C,) float64 lon / lat of a point column's global dictionary,
+        on the card: each distinct WKT string parsed once a batch."""
+        def build():
+            lon, lat = geo_ops.parse_points(
+                np.asarray(self.ctx.global_dict(col).values))
+            return to_device(lon, self.device), to_device(lat, self.device)
+
+        return self.ctx.derived(("points", col), build)
 
 
 # ---------------------------------------------------------------------------
@@ -591,10 +925,59 @@ def filter_operator_for(seg, p: Predicate) -> str:
     return "FULL_SCAN"
 
 
+def geo_candidates(seg, p: Predicate):
+    """(candidate docs, column, query lon, query lat) of an
+    ``ST_DISTANCE(col, constant point)`` range on a segment with a geo
+    grid that can bound it (engine/host.py ``_geo_distance_mask``), else
+    None: the predicate then takes the generic evaluation."""
+    e = p.lhs
+    if p.type is not PredicateType.RANGE or p.upper is None \
+            or not (e.is_function and e.name == "st_distance"
+                    and len(e.args) == 2):
+        return None
+    col_arg = qpt_arg = None
+    for a, b in ((e.args[0], e.args[1]), (e.args[1], e.args[0])):
+        if a.is_identifier and _constant(b):
+            col_arg, qpt_arg = a, b
+            break
+    if col_arg is None or col_arg.name not in seg.metadata.columns:
+        return None
+    try:
+        idx = seg.geo_index(col_arg.name)
+    except Exception:  # noqa: BLE001 — absent/corrupt index: scan
+        idx = None
+    if idx is None:
+        return None
+    qlon, qlat = geo_ops.parse_points(np_eval(qpt_arg, {}))
+    if len(qlon) != 1 or not np.isfinite(qlon[0]):
+        return None
+    cand = idx.candidate_docs(float(qlon[0]), float(qlat[0]),
+                              float(p.upper))
+    if cand is None:
+        return None   # antimeridian / pole box: no superset promised
+    cand = np.asarray(cand)
+    return cand[cand < seg.n_docs], col_arg.name, float(qlon[0]), \
+        float(qlat[0])
+
+
 def _predicate_entries(seg, p: Predicate, n: int) -> int:
     """Entries the host reads to evaluate one predicate on one segment."""
     lhs = p.lhs
     cols = seg.metadata.columns
+    if p.type is PredicateType.JSON_MATCH:
+        return 0 if getattr(seg.column_metadata(lhs.name),
+                            "has_json_index", False) else n
+    if p.type is PredicateType.TEXT_MATCH:
+        return 0 if getattr(seg.column_metadata(lhs.name),
+                            "has_text_index", False) else n
+    geo = geo_candidates(seg, p)
+    if geo is not None:
+        return len(geo[0])
+    if lhs.is_identifier and lhs.name not in cols \
+            and p.type not in _NULL_PREDS:
+        spec = evolved_spec(seg, lhs.name)
+        if spec is not None and not spec.single_value:
+            return 0   # no entries: match-any matches none
     if lhs.is_identifier and lhs.name in cols \
             and p.type in (PredicateType.EQ, PredicateType.IN) \
             and getattr(seg.column_metadata(lhs.name), "has_bloom", False):
@@ -603,6 +986,8 @@ def _predicate_entries(seg, p: Predicate, n: int) -> int:
             return 0  # the bloom check proves the segment empty
     if lhs.is_identifier and lhs.name in cols:
         meta = seg.column_metadata(lhs.name)
+        if not meta.single_value and p.type not in _NULL_PREDS:
+            return int(np.asarray(seg.mv_offsets(lhs.name))[-1])
         if meta.encoding == Encoding.DICT:
             op = filter_operator_for(seg, p)
             ids = np.nonzero(predicate_over_values(
@@ -631,3 +1016,68 @@ def filter_entries(f, seg) -> int:
     if f.type is FilterNodeType.PREDICATE:
         return _predicate_entries(seg, f.predicate, seg.n_docs)
     return sum(filter_entries(c, seg) for c in f.children)
+
+
+# ---------------------------------------------------------------------------
+# rows an MV group-by or aggregation expands the docs into
+# ---------------------------------------------------------------------------
+
+
+class SpaceEvaluator(ValueEvaluator):
+    """``ValueEvaluator`` over a space of rows that repeat the batch's
+    docs, laid out (S, Lx) with each segment's rows first (engine/rows.py):
+    ``src`` (S*Lx,) the flat doc position each row reads; ``mv_vals``
+    the MV columns whose value differs per row (an entry), as (S, Lx)
+    ``Val``s, with their entry hashes in ``mv_hash``. Any other
+    expression is the base evaluator's over the batch, gathered by
+    ``src``."""
+
+    def __init__(self, base: ValueEvaluator, Lx: int, src: torch.Tensor,
+                 mv_vals: dict, mv_hash: dict | None = None):
+        self.__dict__.update(base.__dict__)
+        self.base, self.L, self.src = base, Lx, src
+        self.mv_vals, self.mv_hash = dict(mv_vals), dict(mv_hash or {})
+        self.ctx = _SpaceContext(base.ctx, self)
+
+    def gather(self, plane: torch.Tensor) -> torch.Tensor:
+        """A base (S, L, ...) plane at this space's rows: (S, Lx, ...)."""
+        b = self.base
+        plane = torch.broadcast_to(plane, (b.S, b.L) + plane.shape[2:])
+        return Rows(b.S, b.L, b.device, self.src).take(plane) \
+            .reshape((self.S, self.L) + plane.shape[2:])
+
+    def eval(self, e: Expression, rows: Rows) -> Val:
+        if rows.idx is not None:
+            raise AssertionError("a space's values are taken whole")
+        if e.is_identifier and e.name in self.mv_vals:
+            return self.mv_vals[e.name]
+        b = self.base
+        v = b.eval(e, Rows(b.S, b.L, b.device))
+        if v.t.dim() == 0:
+            return v
+        return dataclasses.replace(v, t=self.gather(v.t))
+
+    def is_mv(self, name: str) -> bool:
+        return name in self.mv_vals or self.base.is_mv(name)
+
+    def column_dtype(self, name: str) -> np.dtype:
+        if name in self.mv_vals:
+            return self.mv_vals[name].dtype
+        return self.base.column_dtype(name)
+
+
+class _SpaceContext:
+    """The batch as a ``SpaceEvaluator``'s space sees it: (S, Lx) planes,
+    hash planes at its rows; anything else is the batch's."""
+
+    def __init__(self, ctx, space: SpaceEvaluator):
+        self._ctx, self._space = ctx, space
+        self.pad_to = space.L
+
+    def prehashed_column(self, name: str) -> torch.Tensor:
+        if name in self._space.mv_hash:
+            return self._space.mv_hash[name]
+        return self._space.gather(self._ctx.prehashed_column(name))
+
+    def __getattr__(self, name):
+        return getattr(self._ctx, name)

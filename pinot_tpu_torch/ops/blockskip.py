@@ -86,7 +86,7 @@ def prunable_columns(tpl) -> tuple[bool, set]:
         if ck is None:
             return False, set()
         return True, {ck}
-    # true / not / lut_dict: conservative "may match"
+    # true / not / lut_dict / mv_any: conservative "may match"
     return False, set()
 
 
@@ -134,7 +134,7 @@ def zone_verdict(tpl, cols, params, shape, widths=None):
         lo, hi = _zones(cols, params, tpl[1], widths)
     elif kind in ("eq_raw", "in_raw", "range_raw"):
         lo, hi = _zones(cols, params, expr_colkey(tpl[1]) or "", widths)
-    else:  # not / lut_dict / anything new: conservative
+    else:  # not / lut_dict / mv_any / anything new: conservative
         return ones
     if lo is None:
         return ones

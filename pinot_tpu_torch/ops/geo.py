@@ -9,13 +9,18 @@ numpy haversine math — SURVEY §7 keeps geo host-side permanently.
 
 Coordinates are (longitude, latitude) in degrees, like the reference's
 geography type; distances are meters on the WGS84 mean sphere.
+
+``haversine_torch`` is ``haversine_m`` as torch ops, for the candidate
+rows a geo index hands the card (engine/values.py).
 """
 
 from __future__ import annotations
 
+import math
 import re
 
 import numpy as np
+import torch
 
 EARTH_RADIUS_M = 6_371_008.8
 
@@ -75,6 +80,20 @@ def haversine_m(lon1, lat1, lon2, lat2) -> np.ndarray:
     dl = np.radians(lon2) - np.radians(lon1)
     a = np.sin(dp / 2) ** 2 + np.cos(p1) * np.cos(p2) * np.sin(dl / 2) ** 2
     return 2 * EARTH_RADIUS_M * np.arcsin(np.sqrt(np.clip(a, 0, 1)))
+
+
+def haversine_torch(lon1: torch.Tensor, lat1: torch.Tensor, lon2: float,
+                    lat2: float) -> torch.Tensor:
+    """``haversine_m`` in float64 torch ops, from (N,) points to one:
+    the same operations in the same order."""
+    rad = math.pi / 180.0
+    p1 = lat1.to(torch.float64) * rad
+    p2 = lat2 * rad
+    dp = p2 - p1
+    dl = lon2 * rad - lon1.to(torch.float64) * rad
+    a = torch.sin(dp / 2) ** 2 \
+        + torch.cos(p1) * math.cos(p2) * torch.sin(dl / 2) ** 2
+    return 2 * EARTH_RADIUS_M * torch.asin(torch.sqrt(torch.clamp(a, 0, 1)))
 
 
 def st_distance(a, b) -> np.ndarray:

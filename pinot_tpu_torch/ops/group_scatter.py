@@ -250,7 +250,7 @@ def _plan_filter(tpl, widths, cols, pred_params) -> bool:
         if has_hi:
             pred_params[khi] = (ck, "storage")
         return True
-    return False  # lut_dict / anything new
+    return False  # lut_dict / mv_any / anything new
 
 
 def _fused_program(tpl, out: list) -> list:

@@ -16,7 +16,9 @@ once, each kept per segment where the host's answer depends on it:
   group's keys;
 - ``limit_groups``: numGroupsLimit as the host applies it, per segment:
   the first ``limit`` groups met in doc order keep their rows;
-- ``distinct_pair_counts``: per-group distinct counts of a value key.
+- ``distinct_pair_counts``: per-group distinct counts of a value key;
+- ``expand``: rows repeated by a count each (a multi-value column's
+  entries), laid out again as an (S, Lx) batch.
 
 Row positions are flat, ``segment * L + doc``, ascending: the order the
 host meets rows in.
@@ -185,3 +187,29 @@ def distinct_pairs(gid: torch.Tensor, vkey: torch.Tensor,
     new = torch.ones_like(g, dtype=torch.bool)
     new[1:] = (g[1:] != g[:-1]) | (v[1:] != v[:-1])
     return g[new], v[new]
+
+
+def expand(counts: torch.Tensor) -> tuple:
+    """Each row of the (S, L) int64 ``counts`` repeated ``counts`` times,
+    in row order, each segment's rows a prefix of its row of an (S, Lx)
+    layout: (src (S*Lx,) the flat row each repeats, rank (S*Lx,) its
+    repetition, per (S,) the rows of each segment, Lx). Padding
+    positions hold row 0, repetition 0."""
+    S, L = counts.shape
+    dev = counts.device
+    c = counts.reshape(-1)
+    per = counts.sum(dim=1)
+    host = per.cpu()
+    Lx = max(int(host.max()), 1) if S else 1
+    total = int(host.sum())
+    src = torch.repeat_interleave(torch.arange(S * L, device=dev), c,
+                                  output_size=total)
+    k = torch.arange(total, device=dev)
+    rank = k - (torch.cumsum(c, 0) - c)[src]
+    seg = src // L
+    pos = seg * Lx + (k - (torch.cumsum(per, 0) - per)[seg])
+    out_src = torch.zeros(S * Lx, dtype=torch.int64, device=dev)
+    out_rank = torch.zeros(S * Lx, dtype=torch.int64, device=dev)
+    out_src[pos] = src
+    out_rank[pos] = rank
+    return out_src, out_rank, per, Lx

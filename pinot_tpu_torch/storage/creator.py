@@ -107,7 +107,12 @@ class SegmentCreator:
             if not spec.single_value:
                 # multi-value: flatten + offsets
                 lens = np.fromiter((len(r) for r in raw_in), dtype=np.int64, count=len(raw_in))
-                flat = [v for row in raw_in for v in row]
+                if len(raw_in) and all(isinstance(r, np.ndarray)
+                                       for r in raw_in):
+                    # rows as arrays: one concatenation, the same values
+                    flat = np.concatenate(raw_in)
+                else:
+                    flat = [v for row in raw_in for v in row]
                 raw = _np_column(flat, spec.data_type)
                 mv_off = np.zeros(len(raw_in) + 1, dtype=np.int64)
                 np.cumsum(lens, out=mv_off[1:])
@@ -216,7 +221,7 @@ class SegmentCreator:
                     and spec.single_value:
                 raise NotImplementedError(
                     "compressed raw forward indexes come with a later slice "
-                    "of the port")
+                    "of the port (ROADMAP queue 1, item g2)")
             else:
                 np.save(p(f"{name}.fwd.npy"), raw, allow_pickle=False)
                 compression = None
@@ -267,8 +272,9 @@ class SegmentCreator:
                 raise ValueError(
                     f"json index requires a single-value STRING/JSON column, "
                     f"got {name}")
-            raise NotImplementedError(
-                "json indexes come with a later slice of the port")
+            from pinot_tpu_torch.storage.jsonindex import build_json_index
+
+            build_json_index(raw, p(f"{name}.jsonidx"))
             has_json_index = True
 
         has_text_index = False
@@ -277,8 +283,9 @@ class SegmentCreator:
                 raise ValueError(
                     f"text index requires a single-value STRING column, "
                     f"got {name}")
-            raise NotImplementedError(
-                "text indexes come with a later slice of the port")
+            from pinot_tpu_torch.storage.textindex import build_text_index
+
+            build_text_index(raw, p(f"{name}.textidx"))
             has_text_index = True
 
         has_fst_index = False
@@ -286,8 +293,9 @@ class SegmentCreator:
             if encoding != Encoding.DICT or dict_values is None:
                 raise ValueError(
                     f"fst index requires a dictionary column, got {name}")
-            raise NotImplementedError(
-                "fst indexes come with a later slice of the port")
+            from pinot_tpu_torch.storage.fstindex import TrigramIndex
+
+            TrigramIndex.build(dict_values).save(out_dir, name)
             has_fst_index = True
 
         has_h3_index = False
@@ -296,8 +304,9 @@ class SegmentCreator:
                 raise ValueError(
                     f"geo (h3-role) index requires a single-value STRING "
                     f"POINT column, got {name}")
-            raise NotImplementedError(
-                "geo indexes come with a later slice of the port")
+            from pinot_tpu_torch.storage.geoindex import GeoGridIndex
+
+            GeoGridIndex.build(raw).save(out_dir, name)
             has_h3_index = True
 
         # Range acceleration: DICT columns get it for free — the sorted

@@ -177,6 +177,8 @@ class ImmutableSegment:
             self.metadata = SegmentMetadata.from_json(json.load(f))
         self._dict_cache: dict[str, Optional[Dictionary]] = {}
         self._fwd_cache: dict[str, np.ndarray] = {}
+        self._json_cache: dict = {}
+        self._text_cache: dict = {}
 
     # ---- identity -------------------------------------------------------
     @property
@@ -222,7 +224,7 @@ class ImmutableSegment:
             if meta.compression is not None:
                 raise NotImplementedError(
                     "compressed raw forward indexes come with a later slice "
-                    "of the port")
+                    "of the port (ROADMAP queue 1, item g2)")
             elif meta.packed_bits is not None:
                 self._note_plane(f"{col}.fwdpacked.bin")
                 buf = np.fromfile(self._path(f"{col}.fwdpacked.bin"),
@@ -293,25 +295,56 @@ class ImmutableSegment:
         return docs, vals
 
     def json_index(self, col: str):
-        return self._later_slice("json", col, "has_json_index")
+        """JSON index reader (ImmutableJsonIndexReader analog), or None."""
+        if col not in self._json_cache:
+            if not self.column_metadata(col).has_json_index:
+                self._json_cache[col] = None
+            else:
+                from pinot_tpu_torch.storage.jsonindex import JsonIndexReader
+
+                self._json_cache[col] = JsonIndexReader(
+                    self._path(f"{col}.jsonidx.npz"))
+        return self._json_cache[col]
 
     def text_index(self, col: str):
-        return self._later_slice("text", col, "has_text_index")
+        """Text index reader (LuceneTextIndexReader analog), or None."""
+        if col not in self._text_cache:
+            if not self.column_metadata(col).has_text_index:
+                self._text_cache[col] = None
+            else:
+                from pinot_tpu_torch.storage.textindex import TextIndexReader
+
+                self._text_cache[col] = TextIndexReader(
+                    self._path(f"{col}.textidx.npz"))
+        return self._text_cache[col]
 
     def fst_index(self, col: str):
-        return self._later_slice("fst", col, "has_fst_index")
+        """Trigram regex-acceleration index (LuceneFSTIndexReader role), or
+        None."""
+        if not hasattr(self, "_fst_cache"):
+            self._fst_cache = {}
+        if col not in self._fst_cache:
+            if not getattr(self.column_metadata(col), "has_fst_index", False):
+                self._fst_cache[col] = None
+            else:
+                from pinot_tpu_torch.storage.fstindex import TrigramIndex
+
+                self._fst_cache[col] = TrigramIndex.load(self.dir, col)
+        return self._fst_cache[col]
 
     def geo_index(self, col: str):
-        return self._later_slice("geo", col, "has_h3_index")
+        """Grid-cell geospatial index (ImmutableH3IndexReader role), or
+        None."""
+        if not hasattr(self, "_geo_cache"):
+            self._geo_cache = {}
+        if col not in self._geo_cache:
+            if not getattr(self.column_metadata(col), "has_h3_index", False):
+                self._geo_cache[col] = None
+            else:
+                from pinot_tpu_torch.storage.geoindex import GeoGridIndex
 
-    def _later_slice(self, kind: str, col: str, flag: str):
-        """None for a column without the index; the index readers
-        themselves (json, text, fst, geo) come with a later slice of the
-        port."""
-        if not getattr(self.column_metadata(col), flag, False):
-            return None
-        raise NotImplementedError(
-            f"{kind} index readers come with a later slice of the port")
+                self._geo_cache[col] = GeoGridIndex.load(self.dir, col)
+        return self._geo_cache[col]
 
     def null_vector(self, col: str) -> Optional[np.ndarray]:
         """Per-doc null bitmap, or None when the column has no nulls
