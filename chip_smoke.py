@@ -35,7 +35,7 @@ Phases, all on ``cuda:0``:
    (``index_add_`` / ``scatter_reduce_`` / ``bincount``; for K4, which no
    single call computes, the port's generic gathered form), beside the
    memory bound.
-3. The five tables are loaded into one ``QueryEngine(device="cuda")``
+3. The six tables are loaded into one ``QueryEngine(device="cuda")``
    (the third, ``lineorder_pairs``, is two of the unsorted segments with
    a d_year x c_region cube of t-digest, bitmap and decimal pairs, and
    the write pool also builds the overflow oracle's per-segment
@@ -91,7 +91,17 @@ Phases, all on ``cuda:0``:
    nested key and on an array wildcard, TEXT_MATCH on a term and a
    phrase, ST_DISTANCE within 200 km, REGEXP_LIKE on the FST-indexed
    repository name; each as a COUNT and as a group-by SUM (K1), and each
-   again over the column's unindexed twin). Every answer is
+   again over the column's unindexed twin) and the values path
+   (``VAL_QUERIES``: ``lineorder_v2``, the 8 lineorder segments loaded
+   again behind a schema that adds SSB's LO_SHIPMODE, LO_TAX and an order
+   timestamp, plus a new segment s8 with them, 5 % null: group-bys over
+   the evolved key and metric (K1, K2), EQ on the defaults, IS NULL and
+   IS NOT NULL, TIMECONVERT and DATETIMECONVERT to a date string over the
+   raw timestamp, CAST to STRING over lineorder's raw lo_quantity; and
+   over ``lineorder_mv`` ARRAYLENGTH, the per-doc ARRAYSUM / MIN / MAX /
+   AVERAGE of lo_codes (K1, K2), VALUEIN's lists and an ARRAYLENGTH
+   filter; K1 and K2 held at its captured inputs,
+   ``check_values_kernels``). Every answer is
    checked against a numpy oracle over the generated columns (HLL
    estimates from registers the oracle builds itself; for the block-skip
    path also the pruned segments, pruned blocks and entries scanned,
@@ -110,7 +120,10 @@ Phases, all on ``cuda:0``:
    path the generator's structured fields behind each JSON string, the
    message's words, haversine in numpy, ``re`` over the repository names,
    with the index's stats: nothing scanned by the JSON and text indexes,
-   the grid's candidate docs by the geo index, every row by a twin), and
+   the grid's candidate docs by the geo index, every row by a twin; for
+   the values path the old segments' defaults, the null vectors the
+   writer drew, Long.MIN's 106751991168 DAYS and '-292275055-05-17', and
+   the per-doc reductions and VALUEIN lists from the MV offsets), and
    the per-query p50 of 5 runs printed; q6 must make one
    K2 launch an execution, and no torch op may read its stored min/max
    planes (seen at the dispatcher); gb_expr and gb_segment one K1 and
@@ -1450,6 +1463,367 @@ QUERY_LAUNCHES.update({
 })
 QUERY_LAUNCHES.update({name: {"group_plane_sums": int("_sum" in name)}
                        for name in IDX_QUERIES})
+
+
+# ---------------------------------------------------------------------------
+# the values path: schema evolution, IS NULL, literal-parameter functions
+# over raw columns, the MV array functions
+# ---------------------------------------------------------------------------
+
+V2_TABLE = "lineorder_v2"
+V2_SEED = 29
+# SSB's LO_SHIPMODE values and LO_TAX range
+SHIPMODES = np.array(["AIR", "FOB", "MAIL", "RAIL", "REG AIR", "SHIP",
+                      "TRUCK"])
+V2_NULLS = 0.05
+LONG_MIN = -(1 << 63)
+DAY_MS = 86_400_000
+TC_DAYS = "TIMECONVERT(lo_orderts, 'MILLISECONDS', 'DAYS')"
+DTC_SDF = ("DATETIMECONVERT(lo_orderts, '1:MILLISECONDS:EPOCH', "
+           "'1:DAYS:SIMPLE_DATE_FORMAT:yyyy-MM-dd', '1:DAYS')")
+CAST_Q = "CAST(lo_quantity AS STRING)"
+ALEN = "ARRAYLENGTH(lo_tags)"
+VALUEIN = "VALUEIN(lo_tags, 'tag001', 'tag002', 'tag003')"
+VAL_QUERIES = {
+    # lineorder_v2: 8 segments that predate the three columns and s8
+    "ev_shipmode": (f"SELECT lo_shipmode, COUNT(*), SUM(lo_revenue) FROM "
+                    f"{V2_TABLE} GROUP BY lo_shipmode ORDER BY lo_shipmode"),
+    "ev_tax_year": (f"SELECT d_year, SUM(lo_tax), MAX(lo_tax) FROM {V2_TABLE} "
+                    "GROUP BY d_year ORDER BY d_year"),
+    "ev_eq_default": (f"SELECT COUNT(*) FROM {V2_TABLE} WHERE lo_shipmode = "
+                      "'null' AND lo_tax = 0"),
+    "null_shipmode": (f"SELECT COUNT(*) FROM {V2_TABLE} WHERE lo_shipmode "
+                      "IS NULL"),
+    "notnull_tax_region": (
+        f"SELECT c_region, COUNT(*), SUM(lo_tax) FROM {V2_TABLE} WHERE "
+        "lo_tax IS NOT NULL GROUP BY c_region ORDER BY c_region"),
+    "tc_days": (f"SELECT {TC_DAYS}, COUNT(*) FROM {V2_TABLE} GROUP BY "
+                f"{TC_DAYS} ORDER BY COUNT(*) DESC, {TC_DAYS} LIMIT 10"),
+    "dtc_sdf": (f"SELECT {DTC_SDF}, SUM(lo_revenue) FROM {V2_TABLE} GROUP BY "
+                f"{DTC_SDF} ORDER BY {DTC_SDF} LIMIT 10"),
+    "cast_quantity": (f"SELECT {CAST_Q}, COUNT(*) FROM lineorder GROUP BY "
+                      f"{CAST_Q} ORDER BY {CAST_Q} LIMIT 100"),
+    # lineorder_mv
+    "mv_len_tags": (f"SELECT {ALEN}, COUNT(*) FROM {MV_TABLE} GROUP BY "
+                    f"{ALEN} ORDER BY {ALEN}"),
+    "mv_arr_codes_year": (
+        "SELECT d_year, SUM(ARRAYSUM(lo_codes)), MIN(ARRAYMIN(lo_codes)), "
+        "MAX(ARRAYMAX(lo_codes)), AVG(ARRAYAVERAGE(lo_codes)) FROM "
+        f"{MV_TABLE} GROUP BY d_year ORDER BY d_year"),
+    "mv_valuein": (f"SELECT {VALUEIN}, COUNT(*) FROM {MV_TABLE} GROUP BY "
+                   f"{VALUEIN} ORDER BY {VALUEIN} LIMIT 20"),
+    "mv_len_filter": (f"SELECT COUNT(*), SUM(lo_revenue) FROM {MV_TABLE} "
+                      f"WHERE {ALEN} >= 6"),
+}
+
+
+def v2_schema():
+    """``lineorder``'s schema with SSB's LO_SHIPMODE (a STRING dimension),
+    LO_TAX (an INT metric) and an order timestamp in epoch millis (a LONG
+    dimension) added after its first segments were sealed."""
+    from pinot_tpu_torch.common.datatypes import DataType
+    from pinot_tpu_torch.common.schema import Schema
+
+    return Schema.build(
+        name=V2_TABLE,
+        dimensions=[
+            ("d_year", DataType.INT), ("c_region", DataType.STRING),
+            ("s_nation", DataType.STRING), ("lo_suppkey", DataType.INT),
+            ("lo_custkey", DataType.INT), ("lo_orderdate", DataType.INT),
+            ("lo_discount", DataType.INT), ("lo_shipmode", DataType.STRING),
+            ("lo_orderts", DataType.LONG)],
+        metrics=[("lo_quantity", DataType.INT), ("lo_revenue", DataType.INT),
+                 ("lo_tax", DataType.INT)])
+
+
+def epoch_days(orderdate: np.ndarray) -> np.ndarray:
+    """Days since 1970-01-01 of YYYYMMDD dates (1992-1998, day <= 28)."""
+    ym = np.arange(1992 * 12, 1999 * 12)
+    first = (np.array([f"{m // 12:04d}-{m % 12 + 1:02d}-01" for m in ym],
+                      dtype="datetime64[D]").astype(np.int64))
+    y, md = orderdate // 10000, orderdate % 10000
+    return first[(y * 12 + md // 100 - 1) - 1992 * 12] + md % 100 - 1
+
+
+def v2_generate(rows: int, seed: int = V2_SEED) -> dict:
+    """The new segment s8 of ``V2_TABLE``: ``generate``'s columns from its
+    own seed, and the three new ones, each about 5 % null: lo_shipmode
+    (index into ``SHIPMODES``), lo_tax 0-8, lo_orderts (lo_orderdate's
+    midnight in epoch millis plus a time of day); ``*_null`` the masks."""
+    seg = generate(1, rows, seed)[0]
+    rng = np.random.default_rng(seed + 1)
+    seg["lo_shipmode"] = rng.integers(0, 7, rows).astype(np.int8)
+    seg["lo_tax"] = rng.integers(0, 9, rows).astype(np.int32)
+    seg["lo_orderts"] = epoch_days(seg["lo_orderdate"]) * DAY_MS \
+        + rng.integers(0, DAY_MS, rows)
+    for c in ("lo_shipmode", "lo_tax", "lo_orderts"):
+        seg[c + "_null"] = rng.random(rows) < V2_NULLS
+    return seg
+
+
+def write_v2_segment(i: int, seg: dict) -> str:
+    """Segment ``s<i>`` of ``V2_TABLE`` with the v2 schema, the defaults in
+    the null rows ('null', 0, Long.MIN) and the null vectors given,
+    lo_orderts raw, and bench.py's two star-tree cubes (run in a worker
+    process)."""
+    from pinot_tpu_torch.common.table_config import (
+        IndexingConfig,
+        StarTreeIndexConfig,
+        TableConfig,
+    )
+    from pinot_tpu_torch.storage.creator import build_segment
+
+    cols = {k: v for k, v in seg.items() if not k.endswith("_null")}
+    cols["c_region"] = REGIONS[cols["c_region"]]
+    cols["s_nation"] = NATIONS[cols["s_nation"]]
+    ship = SHIPMODES[cols["lo_shipmode"]].astype("<U7")
+    ship[seg["lo_shipmode_null"]] = "null"
+    cols["lo_shipmode"] = ship
+    cols["lo_tax"] = np.where(seg["lo_tax_null"], 0, cols["lo_tax"]) \
+        .astype(np.int32)
+    cols["lo_orderts"] = np.where(seg["lo_orderts_null"], LONG_MIN,
+                                  cols["lo_orderts"]).astype(np.int64)
+    out = os.path.join(DATA_DIR, V2_TABLE, f"s{i}")
+    trees = [StarTreeIndexConfig(dimensions_split_order=d,
+                                 function_column_pairs=p)
+             for d, p in STAR_TREES]
+    build_segment(v2_schema(), cols, out, TableConfig(
+        table_name=V2_TABLE, indexing=IndexingConfig(
+            star_tree_configs=trees, no_dictionary_columns=["lo_orderts"])),
+        f"s{i}", null_masks={c: seg[c + "_null"] for c in
+                             ("lo_shipmode", "lo_tax", "lo_orderts")})
+    return out
+
+
+def _close_checker(name: str, want: list, rel: float):
+    """A rows check for a float column the card and numpy sum in other
+    orders: integers and strings exactly, floats within ``rel``."""
+    def check(got):
+        if len(got) != len(want) or any(len(a) != len(b)
+                                        for a, b in zip(got, want)):
+            raise AssertionError(f"{name}: rows {got[:3]} want {want[:3]}")
+        for a, b in zip(got, want):
+            for x, y in zip(a, b):
+                if isinstance(y, (str, list)) and x != y or not isinstance(
+                        y, (str, list)) and abs(float(x) - float(y)) > \
+                        rel * max(1.0, abs(float(y))):
+                    raise AssertionError(f"{name}: row {a} want {b}")
+    return check
+
+
+def val_oracle(data: list, v2: dict, mv: list) -> dict:
+    """The values path's answers and the reference host path's stats: the
+    old segments read lo_shipmode as 'null', lo_tax as 0 and lo_orderts as
+    Long.MIN; IS NULL reads the null vectors (all of an old segment) and
+    scans nothing; a predicate on a column an old segment predates scans
+    every doc; entries after the filter per kept row and argument
+    (COUNT(*) has none)."""
+    old = {k: np.concatenate([d[k] for d in data]) for k in
+           ("d_year", "c_region", "lo_revenue", "lo_quantity")}
+    n_old, n8 = len(old["d_year"]), len(v2["d_year"])
+    total = n_old + n8
+    S = len(data) + 1
+    rev_old = int(old["lo_revenue"].astype(np.int64).sum())
+    rev8 = v2["lo_revenue"].astype(np.int64)
+    ship_null, tax_null, ts_null = (v2[c + "_null"] for c in
+                                    ("lo_shipmode", "lo_tax", "lo_orderts"))
+    ship = np.where(ship_null, 7, v2["lo_shipmode"]).astype(np.int64)
+    tax = np.where(tax_null, 0, v2["lo_tax"]).astype(np.int64)
+    want = {}
+    base = {"numSegmentsProcessed": S, "numSegmentsPrunedByServer": 0}
+
+    # 'null' sorts after the upper-case modes
+    cnt = np.bincount(ship, minlength=8)
+    rs = np.bincount(ship, weights=rev8, minlength=8)
+    names = list(SHIPMODES) + ["null"]
+    cnt[7] += n_old
+    rows = [[names[k], int(cnt[k]), float(rs[k] + (rev_old if k == 7 else 0))]
+            for k in range(8) if cnt[k]]
+    want["ev_shipmode"] = (rows, total, dict(
+        base, numEntriesScannedInFilter=0,
+        numEntriesScannedPostFilter=total))
+
+    y8 = (v2["d_year"] - 1992).astype(np.int64)
+    ts = np.bincount(y8, weights=tax, minlength=7)
+    tmax = [int(tax[y8 == y].max()) if np.any(y8 == y) else 0
+            for y in range(7)]
+    years = np.union1d(np.unique(old["d_year"]), np.unique(v2["d_year"]))
+    want["ev_tax_year"] = (
+        [[int(y), float(ts[y - 1992]), float(max(tmax[y - 1992], 0))]
+         for y in years], total, dict(
+            base, numEntriesScannedInFilter=0,
+            numEntriesScannedPostFilter=2 * total))
+
+    m8 = ship_null & (tax == 0)
+    hits = n_old + int(m8.sum())
+    want["ev_eq_default"] = ([[hits]], hits, dict(
+        base, numEntriesScannedInFilter=2 * total,
+        numEntriesScannedPostFilter=0, numSegmentsMatched=S))
+
+    hits = n_old + int(ship_null.sum())
+    want["null_shipmode"] = ([[hits]], hits, dict(
+        base, numEntriesScannedInFilter=0,
+        numEntriesScannedPostFilter=0, numSegmentsMatched=S))
+
+    keep = ~tax_null
+    r8 = v2["c_region"].astype(np.int64)
+    cnt = np.bincount(r8[keep], minlength=5)
+    tsum = np.bincount(r8[keep], weights=tax[keep], minlength=5)
+    want["notnull_tax_region"] = (
+        [[str(REGIONS[r]), int(cnt[r]), float(tsum[r])] for r in range(5)
+         if cnt[r]], int(keep.sum()), dict(
+            base, numEntriesScannedInFilter=0,
+            numEntriesScannedPostFilter=int(keep.sum()),
+            numSegmentsMatched=1))
+
+    # Long.MIN ms -> DAYS as sign(v) * (|v| // d), |Long.MIN| wrapping
+    day = np.where(ts_null, -1, v2["lo_orderts"] // DAY_MS)
+    days, dcnt = np.unique(day[~ts_null], return_counts=True)
+    groups = [(106751991168, n_old + int(ts_null.sum()))] + list(
+        zip(days.tolist(), dcnt.tolist()))
+    top = sorted(groups, key=lambda kv: (-kv[1], kv[0]))[:10]
+    want["tc_days"] = ([[int(k), int(c)] for k, c in top], total, dict(
+        base, numEntriesScannedInFilter=0, numEntriesScannedPostFilter=0))
+
+    # the same Long.MIN, bucketed, formats as '-292275055-05-17'
+    drev = np.bincount(np.searchsorted(days, day[~ts_null]),
+                       weights=rev8[~ts_null], minlength=len(days))
+    dates = (days.astype("datetime64[D]")).astype(str)
+    first = [["-292275055-05-17",
+              float(rev_old + int(rev8[ts_null].sum()))]]
+    want["dtc_sdf"] = (first + [[str(d), float(r)] for d, r in
+                                zip(dates[:9], drev[:9])], total, dict(
+        base, numEntriesScannedInFilter=0,
+        numEntriesScannedPostFilter=total))
+
+    # string order: '1' < '10' < ... < '19' < '2' < '20'
+    q = old["lo_quantity"]
+    qc = np.bincount(q, minlength=51)
+    keys = sorted(str(v) for v in range(51) if qc[v])
+    want["cast_quantity"] = ([[k, int(qc[int(k)])] for k in keys], n_old,
+                             dict(numEntriesScannedInFilter=0,
+                                  numEntriesScannedPostFilter=0,
+                                  numSegmentsProcessed=len(data),
+                                  totalDocs=n_old))
+    want.update(val_mv_oracle(data, mv))
+    return want
+
+
+def val_mv_oracle(data: list, mv: list) -> dict:
+    """The values path's answers over ``lineorder_mv``: ARRAYLENGTH of
+    lo_tags (0-8 entries, so some docs are empty), the per-doc
+    reductions of lo_codes (1-24 entries: never empty, so ARRAYSUM stays
+    an integer) and VALUEIN's per-doc lists of three tags in first-seen
+    order."""
+    data = data[:MV_SEGMENTS]
+    n = sum(len(d["d_year"]) for d in data)
+    S = len(data)
+    year = np.concatenate([d["d_year"] for d in data]).astype(np.int64) \
+        - 1992
+    rev = np.concatenate([d["lo_revenue"] for d in data]).astype(np.int64)
+    tlen = np.concatenate([np.diff(m["lo_tags"][1]) for m in mv])
+    clen = np.concatenate([np.diff(m["lo_codes"][1]) for m in mv])
+    codes = np.concatenate([m["lo_codes"][0] for m in mv]).astype(np.int64)
+    tags = np.concatenate([m["lo_tags"][0] for m in mv]).astype(np.int64)
+    base = {"numSegmentsProcessed": S, "numSegmentsPrunedByServer": 0,
+            "totalDocs": n}
+    want = {}
+    lc = np.bincount(tlen, minlength=9)
+    want["mv_len_tags"] = ([[k, int(lc[k])] for k in range(9) if lc[k]], n,
+                           dict(base, numEntriesScannedInFilter=0,
+                                numEntriesScannedPostFilter=0))
+
+    start = np.concatenate([[0], np.cumsum(clen)[:-1]])
+    dsum = np.add.reduceat(codes, start)
+    dmin = np.minimum.reduceat(codes, start)
+    dmax = np.maximum.reduceat(codes, start)
+    davg = dsum / clen
+    rows = []
+    for y in range(7):
+        m = year == y
+        if m.any():
+            rows.append([1992 + y, float(dsum[m].sum()), float(dmin[m].min()),
+                         float(dmax[m].max()), float(davg[m].mean())])
+    want["mv_arr_codes_year"] = (
+        _close_checker("mv_arr_codes_year", rows, 1e-9), n,
+        dict(base, numEntriesScannedInFilter=0,
+             numEntriesScannedPostFilter=4 * n))
+
+    # each doc's first position of tag001..tag003 (the ids 1..3)
+    tdoc = np.repeat(np.arange(n), tlen)
+    tstart = np.concatenate([[0], np.cumsum(tlen)[:-1]])
+    rank = np.arange(len(tags)) - tstart[tdoc]
+    first = np.full((n, 3), 99, dtype=np.int64)
+    for j in range(3):
+        hit = tags == j + 1
+        np.minimum.at(first[:, j], tdoc[hit], rank[hit])
+    order = np.argsort(first, axis=1, kind="stable")
+    present = np.take_along_axis(first, order, axis=1) < 99
+    # the list as base-4 digits (tag00k -> k), first entry first
+    code = np.zeros(n, dtype=np.int64)
+    for i in range(3):
+        code += np.where(present[:, i], order[:, i] + 1, 0) * 4 ** (2 - i)
+    ucode, ucnt = np.unique(code, return_counts=True)
+
+    def as_list(c):
+        out = []
+        for i in range(3):
+            d = c // 4 ** (2 - i) % 4
+            if d == 0:
+                break
+            out.append(f"tag{d:03d}")
+        return out
+    want["mv_valuein"] = ([[as_list(c), int(k)] for c, k in
+                           zip(ucode.tolist(), ucnt.tolist())], n,
+                          dict(base, numEntriesScannedInFilter=0,
+                               numEntriesScannedPostFilter=0))
+
+    m = tlen >= 6
+    want["mv_len_filter"] = ([[int(m.sum()), float(rev[m].sum())]],
+                             int(m.sum()),
+                             dict(base, numEntriesScannedInFilter=n,
+                                  numEntriesScannedPostFilter=int(m.sum())))
+    return want
+
+
+def check_values_kernels(engine, k1: dict, k2: dict) -> None:
+    """K1 and K2 at the values path's own inputs, captured at their entries
+    and held against their plain versions: the group ids over an evolved
+    key (ev_shipmode: 100M rows on the 'null' default, s8's nulls with
+    them), over d_year with an evolved metric (ev_tax_year's SUM and MAX
+    of lo_tax), and over an ARRAYLENGTH and a VALUEIN key and by d_year
+    over lo_codes' per-doc reductions on lineorder_mv."""
+    from pinot_tpu_torch.ops import group_scatter as ps
+
+    for name, what in (("ev_shipmode", "evolved key lo_shipmode"),
+                       ("ev_tax_year", "d_year, evolved metric lo_tax"),
+                       ("mv_len_tags", "ARRAYLENGTH(lo_tags) key"),
+                       ("mv_valuein", "VALUEIN(lo_tags, ...) list key"),
+                       ("mv_arr_codes_year", "d_year, lo_codes' reductions")):
+        for (gid, sources, G), kw in capture_calls(
+                engine, VAL_QUERIES[name], ps, "plane_group_sums"):
+            count = kw.get("count", True)
+            k1["shapes"].append(k1_shape(
+                f"{name}: {what}, G={G}, {planes_label(sources, count)}",
+                ps.plane_group_sums, G, sources, count, gid))
+    for name in ("ev_tax_year", "mv_arr_codes_year"):
+        for (gid, srcs, G), _kw in capture_calls(
+                engine, VAL_QUERIES[name], ps, "group_minmax_sources"):
+            k2["shapes"].append(k2_shape(
+                f"{name}: " + ", ".join(
+                    f"{s.values.dtype} {'+'.join(s.ops)}"
+                    for s in srcs).replace("torch.", ""), gid, srcs, G))
+
+
+PATHS["values"] = (VAL_QUERIES, ("group_plane_sums", "group_minmax"),
+                   ((3, "group_scatter", "plane_group_sums"),
+                    (4, "group_scatter", "group_minmax")))
+# a group-by's count and sums in one K1 launch, its MIN and MAX in one K2;
+# the scalar COUNT(*)s count their mask on the card
+QUERY_LAUNCHES.update({
+    name: {"group_plane_sums": int("GROUP BY" in sql),
+           "group_minmax": int("MAX(" in sql)}
+    for name, sql in VAL_QUERIES.items()})
 
 
 def _rows_mask(tree, c) -> np.ndarray:
@@ -3078,9 +3452,11 @@ def main(argv=None) -> int:
     data = generate(S, rows)
     mv = mv_generate(data)
     ev = ev_generate(EV_SEGMENTS, args.event_rows)
+    v2 = v2_generate(rows)
     log(f"generate: {time.perf_counter() - t:.2f} s (with {MV_TABLE}'s MV "
-        f"columns over {len(mv)} segments and {EV_TABLE}: {EV_SEGMENTS} x "
-        f"{args.event_rows} rows)")
+        f"columns over {len(mv)} segments, {EV_TABLE}: {EV_SEGMENTS} x "
+        f"{args.event_rows} rows and {V2_TABLE}'s new segment s{S}: "
+        f"{rows} rows, seed {V2_SEED})")
     shutil.rmtree(DATA_DIR, ignore_errors=True)
     os.makedirs(DATA_DIR)
     t_write = time.perf_counter()
@@ -3093,6 +3469,7 @@ def main(argv=None) -> int:
         pending_ev = pool.starmap_async(
             write_ev_segment, [(i, ev[0], seg) for i, seg in
                                enumerate(ev[1])])
+        pending_v2 = pool.apply_async(write_v2_segment, (S, v2))
         pending = pool.starmap_async(
             write_segment, [(i, seg, "lineorder", True) for i, seg in
                             enumerate(data)])
@@ -3140,6 +3517,7 @@ def main(argv=None) -> int:
         want.update(sk_oracle(data))
         want.update(mv_oracle(data, mv))
         want.update(idx_oracle(ev))
+        want.update(val_oracle(data, v2, mv))
         oracle_s = time.perf_counter() - t
 
         dirs, cube_s = zip(*pending.get())
@@ -3149,7 +3527,8 @@ def main(argv=None) -> int:
         hc_parts = pending_hc.get()
         mv_dirs = pending_mv.get()
         ev_dirs = pending_ev.get()
-        log(f"write segments (port creator, {workers} processes, five "
+        v2_dir = pending_v2.get()
+        log(f"write segments (port creator, {workers} processes, six "
             f"tables): {time.perf_counter() - t_write:.2f} s, of which the "
             f"two star-tree cubes of lineorder took {sum(cube_s):.2f} s "
             f"summed over its {S} segments (at most {max(cube_s):.2f} s "
@@ -3165,8 +3544,9 @@ def main(argv=None) -> int:
     idx_geo_stats(want, geo_candidate_counts(ev_dirs))
     total = S * rows
     path_rows = {"mv": sum(len(d["d_year"]) for d in data[:MV_SEGMENTS]),
-                 "index": EV_SEGMENTS * args.event_rows}
-    del data, bs_data, mv, ev
+                 "index": EV_SEGMENTS * args.event_rows,
+                 "values": total + len(v2["d_year"])}
+    del data, bs_data, mv, ev, v2
     log(f"numpy oracle: {oracle_s:.2f} s beside the writes, "
         f"{time.perf_counter() - t:.2f} s after them")
 
@@ -3183,6 +3563,12 @@ def main(argv=None) -> int:
         engine.add_segment(MV_TABLE, ImmutableSegment(d))
     for d in ev_dirs:
         engine.add_segment(EV_TABLE, ImmutableSegment(d))
+    # the lineorder segments a second time, as their own segment objects
+    # behind the v2 schema, and s8
+    v2_segs = [ImmutableSegment(d) for d in list(dirs) + [v2_dir]]
+    for seg in v2_segs:
+        seg.table_schema = v2_schema()
+        engine.add_segment(V2_TABLE, seg)
     t = time.perf_counter()
     ctx = engine.device.batch_for(segs)
     for c in ("d_year", "c_region", "s_nation", "lo_suppkey",
@@ -3217,6 +3603,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     check_mv_kernels(engine, k1, k2, k3, k5_sizes)
     torch.cuda.empty_cache()
+    check_values_kernels(engine, k1, k2)
+    torch.cuda.empty_cache()
 
     count_sorted_builds()
     p50, launches = {}, {name: 0 for name in kernels.launches}
@@ -3227,6 +3615,13 @@ def main(argv=None) -> int:
         p50.update(path_p50)
         for name, count in counts.items():
             launches[name] += count
+    # the values path's second load of lineorder's planes, beside the
+    # first: the bytes each batch holds on the card
+    v2_bytes = engine.device.batch_for(v2_segs).resident_bytes
+    log(f"{V2_TABLE} holds {v2_bytes} device bytes over {len(v2_segs)} "
+        f"segments ({path_rows['values']} rows), beside "
+        f"lineorder's {ctx.resident_bytes} over {S} (the same {total} rows "
+        f"loaded once more as {V2_TABLE}'s first {S} segments)")
     # bench.py's exactness gate: the cube-routed q4 answers exactly like
     # both forced-scan forms
     cube_rows = engine.execute(ST_QUERIES["q4_highcard_hll"])

@@ -1012,7 +1012,8 @@ class DeviceExecutor:
         # bounds the fused plan's per-block int32 partials
         nplanes = rpb = None
         bounds = expr_bounds(a.args[0], ctx)
-        if bounds is not None:
+        # a NaN in the column makes its metadata bounds NaN: no byte planes
+        if bounds is not None and all(map(math.isfinite, bounds)):
             rpb = agg_ops.rows_per_block_for(max(abs(bounds[0]),
                                                  abs(bounds[1])))
             nplanes = mm.int_planes_needed(bounds[0], bounds[1])

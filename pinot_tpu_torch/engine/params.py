@@ -75,6 +75,15 @@ class DeviceUnsupported(Exception):
     """Query shape this slice of the port does not run on the device."""
 
 
+def evolved_spec(seg, name: str):
+    """The table schema's FieldSpec of a column the segment predates
+    (schema evolution), or None."""
+    if name in seg.metadata.columns:
+        return None
+    schema = getattr(seg, "table_schema", None)
+    return None if schema is None else getattr(schema, "fields", {}).get(name)
+
+
 @dataclasses.dataclass
 class MVPlanes:
     """Every entry of a multi-value column over a batch, on the card:
@@ -84,7 +93,8 @@ class MVPlanes:
     ``lens`` / ``start`` (S, L) int32 each doc's entry count and first
     entry in its segment's row of ``vals``; ``kind`` "dict" or "num",
     ``dtype`` the host path's dtype of the values, ``total`` (S,) the
-    entries of each segment (host ints)."""
+    entries of each segment (host ints), ``empty`` (S,) whether a doc of
+    the segment has no entry (host bools)."""
 
     vals: torch.Tensor
     doc: torch.Tensor
@@ -93,6 +103,7 @@ class MVPlanes:
     kind: str
     dtype: np.dtype
     total: np.ndarray
+    empty: np.ndarray
 
 
 _NUMERIC_KINDS = ("i", "u", "f")
@@ -169,6 +180,7 @@ class BatchContext:
         self._zone_maps: dict[str, tuple] = {}
         self._mv_columns: dict[str, torch.Tensor] = {}
         self._mv_entries: dict[str, MVPlanes] = {}
+        self._evolved: dict[str, list] = {}
         self._derived: dict = {}
         self.resident_bytes = 0
 
@@ -180,13 +192,18 @@ class BatchContext:
         raise DeviceUnsupported(f"unknown column {name}")
 
     def encoding(self, name: str) -> str:
+        """The batch's encoding of a column: the one every segment that
+        stores it has; a single-value column the other segments predate
+        (``evolved``) reads as theirs, or as a dict column of its default
+        where no segment stores it."""
         if name not in self._encodings:
-            metas = []
-            for s in self.segments:
-                if name not in s.metadata.columns:
-                    raise DeviceUnsupported(
-                        f"column {name} missing from {s.name}")
-                metas.append(s.column_metadata(name))
+            metas = [s.column_metadata(name) for s in self.segments
+                     if name in s.metadata.columns]
+            if len(metas) < self.S:
+                self.evolved(name)
+            if not metas:
+                self._encodings[name] = Encoding.DICT
+                return Encoding.DICT
             enc = metas[0].encoding
             if any(m.encoding != enc for m in metas):
                 raise DeviceUnsupported(f"mixed encodings for {name}")
@@ -194,6 +211,52 @@ class BatchContext:
                 raise DeviceUnsupported(f"multi-value column {name}")
             self._encodings[name] = enc
         return self._encodings[name]
+
+    def evolved(self, name: str) -> list:
+        """Per segment, the default a single-value column reads as in a
+        segment that predates it (the table schema's
+        ``FieldSpec.null_value()``, as a 0-d array), None where the
+        segment stores it. An unknown column raises, as in the
+        reference."""
+        if name not in self._evolved:
+            out = []
+            for s in self.segments:
+                if name in s.metadata.columns:
+                    out.append(None)
+                    continue
+                spec = evolved_spec(s, name)
+                if spec is None:
+                    raise KeyError(f"column {name!r} not found")
+                if not spec.single_value:
+                    raise DeviceUnsupported(
+                        f"column {name} is multi-value in some segments")
+                out.append(np.asarray(spec.null_value()))
+            self._evolved[name] = out
+        return self._evolved[name]
+
+    def _forward(self, s, i: int, name: str) -> np.ndarray:
+        """Segment ``i``'s forward index of ``name``: its default where the
+        segment predates the column (id 0 of ``_dictionary``'s one-value
+        dictionary for a dict column, else the value)."""
+        if name in s.metadata.columns:
+            return np.asarray(s.forward(name))
+        if self.encoding(name) == Encoding.DICT:
+            return np.zeros(s.n_docs, dtype=np.int32)
+        return np.full(s.n_docs, self.evolved(name)[i],
+                       dtype=self.raw_dtype(name))
+
+    def _dictionary(self, s, i: int, name: str):
+        if name in s.metadata.columns:
+            return s.dictionary(name)
+        return Dictionary(self.evolved(name)[i].reshape(1))
+
+    def raw_dtype(self, name: str) -> np.dtype:
+        """The stored dtype of a raw column's values (its default, where a
+        segment predates it, fits: planes keep this dtype)."""
+        for s in self.segments:
+            if name in s.metadata.columns:
+                return np.asarray(s.forward(name)).dtype
+        raise DeviceUnsupported(f"unknown column {name}")
 
     def device_encoding(self, name: str):
         """``encoding`` where the reference's device has one (a column
@@ -212,8 +275,13 @@ class BatchContext:
         reference's check: a segment without the column refuses)."""
         for s in self.segments:
             if name not in s.metadata.columns:
-                raise DeviceUnsupported(f"column {name} missing from {s.name}")
-            if s.column_metadata(name).single_value:
+                spec = evolved_spec(s, name)
+                if spec is None:
+                    raise DeviceUnsupported(
+                        f"column {name} missing from {s.name}")
+                if spec.single_value:
+                    return False
+            elif s.column_metadata(name).single_value:
                 return False
         return True
 
@@ -303,6 +371,8 @@ class BatchContext:
                         f"raw MV column {name} of {host_dt} values")
                 vdt = host_dt
             total = np.asarray([o[-1] for o in offs], dtype=np.int64)
+            empty = np.asarray([len(o) == 1 or bool((np.diff(o) == 0).any())
+                                for o in offs])
             E = max(int(total.max()), 1)
             vals = np.zeros((self.S, E), dtype=vdt)
             doc = np.full((self.S, E), -1, dtype=np.int32)
@@ -323,7 +393,7 @@ class BatchContext:
                 self._upload(planes, key, arr)
             self._mv_entries[name] = MVPlanes(
                 planes["v"], planes["d"], planes["n"], planes["s"],
-                "dict" if is_dict else "num", host_dt, total)
+                "dict" if is_dict else "num", host_dt, total, empty)
         return self._mv_entries[name]
 
     # ---- width planning (ColPlan) ---------------------------------------
@@ -353,7 +423,7 @@ class BatchContext:
         base = np.dtype(RAW_DEVICE_DTYPES[self.column_meta(name).data_type])
         if base.kind == "f":
             return ColPlan(base.str)
-        b = self._exact_int_bounds(name)
+        b = self.exact_int_bounds(name)
         if b is None:
             return ColPlan(base.str)
         return _int_for_plan(b[0], b[1], base)
@@ -361,8 +431,8 @@ class BatchContext:
     def _plan_decoded(self, name: str) -> ColPlan:
         if self.encoding(name) != Encoding.DICT:
             return self.width_plan(name)  # dv:: of RAW aliases raw
-        per_seg = [np.asarray(s.dictionary(name).values)
-                   for s in self.segments]
+        per_seg = [np.asarray(self._dictionary(s, i, name).values)
+                   for i, s in enumerate(self.segments)]
         if any(v.dtype.kind == "f" for v in per_seg):
             return ColPlan(np.dtype(np.float32).str)
         base = np.dtype(np.int64) if any(v.dtype.itemsize == 8
@@ -375,16 +445,21 @@ class BatchContext:
         hi = max(int(v[-1]) for v in per_seg if len(v))
         return _int_for_plan(lo, hi, base)
 
-    def _exact_int_bounds(self, name: str):
+    def exact_int_bounds(self, name: str):
         """(min, max) as exact python ints from segment metadata, or None."""
         mns, mxs = [], []
-        for s in self.segments:
-            m = s.column_metadata(name)
-            if not isinstance(m.min_value, (int, np.integer)) \
-                    or not isinstance(m.max_value, (int, np.integer)):
+        for i, s in enumerate(self.segments):
+            if name not in s.metadata.columns:   # evolved: its default
+                d = self.evolved(name)[i].item()
+                lo = hi = d
+            else:
+                m = s.column_metadata(name)
+                lo, hi = m.min_value, m.max_value
+            if not isinstance(lo, (int, np.integer)) \
+                    or not isinstance(hi, (int, np.integer)):
                 return None
-            mns.append(int(m.min_value))
-            mxs.append(int(m.max_value))
+            mns.append(int(lo))
+            mxs.append(int(hi))
         return (min(mns), max(mxs)) if mns else None
 
     def _upload(self, store: dict, key, blocks):
@@ -408,9 +483,10 @@ class BatchContext:
             blocks = np.full((self.S, self.pad_to), pad, dtype=sdt)
             for i, s in enumerate(self.segments):
                 remap = np.searchsorted(
-                    gdict.values, np.asarray(s.dictionary(name).values)
+                    gdict.values,
+                    np.asarray(self._dictionary(s, i, name).values)
                 ).astype(np.int32)
-                fwd = np.asarray(s.forward(name))
+                fwd = self._forward(s, i, name)
                 gids = remap[fwd]
                 blocks[i, : len(fwd)] = gids
                 zm = self._reader_zone_map(s, name, len(fwd))
@@ -423,7 +499,7 @@ class BatchContext:
         off = plan.offset or 0
         blocks = np.zeros((self.S, self.pad_to), dtype=sdt)
         for i, s in enumerate(self.segments):
-            fwd = np.asarray(s.forward(name))
+            fwd = self._forward(s, i, name)
             blocks[i, : len(fwd)] = (fwd.astype(np.int64) - off).astype(sdt) \
                 if off else fwd.astype(sdt)
             zm = self._reader_zone_map(s, name, s.n_docs)
@@ -464,7 +540,7 @@ class BatchContext:
         None → recompute from the column block (segments written before
         the format carried zone maps, or at another granularity)."""
         fn = getattr(seg, "zone_map", None)
-        if fn is None:
+        if fn is None or name not in seg.metadata.columns:
             return None
         try:
             zm = fn(name)
@@ -497,11 +573,14 @@ class BatchContext:
     def global_dict(self, name: str) -> Dictionary:
         """Sorted union of per-segment dictionary values (global id space;
         a schema-evolved multi-value column's segments without it hold no
-        value)."""
+        value, a single-value one's its default)."""
         if name not in self._global_dicts:
             vals = []
-            for s in self.segments:
+            for i, s in enumerate(self.segments):
                 if name not in s.metadata.columns:
+                    spec = evolved_spec(s, name)
+                    if spec is not None and spec.single_value:
+                        vals.append(self.evolved(name)[i].reshape(1))
                     continue
                 d = s.dictionary(name)
                 if d is None:
@@ -524,8 +603,8 @@ class BatchContext:
             return self.column(name)
         if name not in self._decoded:
             per_seg = []
-            for s in self.segments:
-                vals = np.asarray(s.dictionary(name).values)
+            for i, s in enumerate(self.segments):
+                vals = np.asarray(self._dictionary(s, i, name).values)
                 if vals.dtype.kind not in _NUMERIC_KINDS:
                     raise DeviceUnsupported(
                         f"non-numeric dict column {name} in expression")
@@ -536,7 +615,7 @@ class BatchContext:
             blocks = np.zeros((self.S, self.pad_to), dtype=sdt)
             zlo, zhi = self._zone_fills(sdt)
             for i, (s, vals) in enumerate(zip(self.segments, per_seg)):
-                fwd = np.asarray(s.forward(name))
+                fwd = self._forward(s, i, name)
                 lut = (vals.astype(np.int64) - off).astype(sdt) if off \
                     else vals.astype(sdt)
                 blocks[i, : len(fwd)] = lut[fwd]
@@ -558,10 +637,10 @@ class BatchContext:
         keys read the values the host path reads (engine/values.py)."""
         key = "x64::" + name
         if key not in self._decoded:
-            dt = np.asarray(self.segments[0].forward(name)).dtype
-            blocks = np.zeros((self.S, self.pad_to), dtype=dt)
+            blocks = np.zeros((self.S, self.pad_to),
+                              dtype=self.raw_dtype(name))
             for i, s in enumerate(self.segments):
-                fwd = np.asarray(s.forward(name))
+                fwd = self._forward(s, i, name)
                 blocks[i, : len(fwd)] = fwd
             self._upload(self._decoded, key, blocks)
         return self._decoded[key]
@@ -577,11 +656,12 @@ class BatchContext:
             raw = self.encoding(name) != Encoding.DICT
             blocks = np.zeros((self.S, self.pad_to), dtype=np.uint32)
             for i, s in enumerate(self.segments):
-                fwd = np.asarray(s.forward(name))
+                fwd = self._forward(s, i, name)
                 if raw:
                     blocks[i, : len(fwd)] = hll_ops.hash32_np(fwd)
                     continue
-                h = hll_ops.hash32_np(np.asarray(s.dictionary(name).values))
+                h = hll_ops.hash32_np(
+                    np.asarray(self._dictionary(s, i, name).values))
                 blocks[i, : len(fwd)] = h[fwd]
             self._upload(self._prehashed, name, blocks.view(np.int32))
         return self._prehashed[name]
@@ -645,6 +725,29 @@ class BatchContext:
             self._upload(self._sorted_hll, key, torch.sort(k32).values)
         return self._sorted_hll[key]
 
+    def null_plane(self, name: str) -> torch.Tensor:
+        """(S, L) device bool: the docs where ``name`` is null, as the
+        host path reads them (engine/host.py there): each segment's null
+        vector (``ImmutableSegment.null_vector``; a column without one is
+        never null), every doc of a segment that predates the column
+        (schema-evolved); an unknown column raises. Uploaded once a
+        batch."""
+        key = "nv::" + name
+        if key not in self._decoded:
+            blocks = np.zeros((self.S, self.pad_to), dtype=bool)
+            for i, s in enumerate(self.segments):
+                if name not in s.metadata.columns:
+                    if evolved_spec(s, name) is None:
+                        raise KeyError(f"column {name!r} not found")
+                    blocks[i, : s.n_docs] = True
+                    continue
+                nv = s.null_vector(name)
+                if nv is not None:
+                    nv = np.asarray(nv)[: s.n_docs]
+                    blocks[i, : len(nv)] = nv
+            self._upload(self._decoded, key, blocks)
+        return self._decoded[key]
+
     def derived(self, key, build):
         """Device tensors derived on the host from the batch's
         dictionaries (``build()``: a tensor or a tuple of them), built at
@@ -659,7 +762,12 @@ class BatchContext:
     def int_bounds(self, name: str):
         """(min, max) over the batch from column metadata, or None."""
         mns, mxs = [], []
-        for s in self.segments:
+        for i, s in enumerate(self.segments):
+            if name not in s.metadata.columns:   # evolved: its default
+                d = self.evolved(name)[i].item()
+                mns.append(d)
+                mxs.append(d)
+                continue
             m = s.column_metadata(name)
             if m.min_value is None or m.max_value is None:
                 return None

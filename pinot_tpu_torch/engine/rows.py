@@ -67,6 +67,7 @@ from pinot_tpu_torch.engine.values import (
     Val,
     ValueEvaluator,
     filter_entries,
+    host_fails,
     later,
 )
 from pinot_tpu_torch.ops import agg as agg_ops
@@ -104,6 +105,7 @@ class _Scan:
     all_pruned: bool
     n_alive: int
     entries_in_filter: int
+    alive: np.ndarray           # (S,) the segments the host path runs
 
     def stats(self, host: dict, post: int, limit_reached=False):
         ctx = self.ev.ctx
@@ -156,7 +158,10 @@ def _scan(q: QueryContext, ctx, alive) -> _Scan:
     if q.filter is not None and not all_pruned:
         entries = sum(filter_entries(q.filter, s)
                       for s, a in zip(ctx.segments, alive) if a)
-    return _Scan(ev, mask, all_pruned, int(alive.sum()), entries)
+    ran = np.asarray(alive, dtype=bool).copy()
+    if all_pruned:
+        ran[:1] = True   # the first runs under a FALSE filter
+    return _Scan(ev, mask, all_pruned, int(alive.sum()), entries, ran)
 
 
 def launch(ex, q: QueryContext, ctx, final: bool, reduce_mode,
@@ -200,7 +205,8 @@ def _selection(q: QueryContext, ctx, alive) -> RowsLaunch:
     for j, e in enumerate(exprs):
         if e.is_identifier and ev.is_mv(e.name):
             if j >= len(q.select_expressions):
-                raise later(f"ORDER BY the multi-value column {e.name!r}")
+                raise host_fails(f"ORDER BY the multi-value column "
+                                 f"{e.name!r}")
             v, outs[f"v{j}"], outs[f"n{j}"] = _mv_rows(ev, e.name, idx, L)
         else:
             v = ev.eval(e, r)
@@ -214,12 +220,12 @@ def _selection(q: QueryContext, ctx, alive) -> RowsLaunch:
         for j, v in enumerate(vals):
             key = j if j < n_sel else f"__ob{j - n_sel}"
             if f"n{j}" in host:
-                flat = ev.decode(v, host[f"v{j}"])
+                flat = ev.decode(v, host[f"v{j}"], scan.alive)
                 rows[key] = np.empty(n, dtype=object)
                 rows[key][:] = np.split(flat, np.cumsum(host[f"n{j}"])[:-1]) \
                     if n else []
             else:
-                rows[key] = ev.decode(v, host[f"v{j}"])
+                rows[key] = ev.decode(v, host[f"v{j}"], scan.alive)
         # ORDER BY values ride along for the reduce's merge re-sort
         return IntermediateResult("selection", rows=rows,
                                   stats=scan.stats(host, n * n_sel))
@@ -274,7 +280,8 @@ def _distinct(q: QueryContext, ctx, alive) -> RowsLaunch:
     ev = scan.ev
     for e in q.select_expressions:
         if e.is_identifier and ev.is_mv(e.name):
-            raise later(f"DISTINCT over the multi-value column {e.name!r}")
+            raise host_fails(f"DISTINCT over the multi-value column "
+                             f"{e.name!r}")
     vals, gid, G, gkeys = _group_ids(ev, q.select_expressions, scan, ctx)
     mflat = scan.mask.reshape(-1)
     present = agg_ops.distinct_presence(
@@ -284,7 +291,7 @@ def _distinct(q: QueryContext, ctx, alive) -> RowsLaunch:
         outs[f"k{j}"] = k[present]
 
     def finish(host, _ex):
-        keys_h = tuple(ev.decode_key(v, host[f"k{j}"])
+        keys_h = tuple(ev.decode_key(v, host[f"k{j}"], scan.alive)
                        for j, v in enumerate(vals))
         return IntermediateResult("distinct", group_keys=keys_h,
                                   stats=scan.stats(host, 0))
@@ -322,7 +329,7 @@ def _agg_plan(ex, q, ctx, ev, aggs, full, params, counter, cols, filters):
                 # e.g. SUM($docId), or an MV column's entries: the value,
                 # computed on the card
                 key = f"__x{i}"
-                v = ev.eval(a.args[0], full)
+                v = ev.operand(a.args[0], full)
                 if v.kind != "num":
                     # the host path's numeric reduction of strings fails
                     raise ValueError(f"{name.upper()} requires a numeric "
@@ -331,6 +338,11 @@ def _agg_plan(ex, q, ctx, ev, aggs, full, params, counter, cols, filters):
                 extra = None
                 if name in ("sum", "avg"):
                     extra = _sum_extra(i, a.args[0], v, ev, params)
+                    if extra is None:
+                        # an int64 sum that could wrap: the reference's
+                        # host sums in float64
+                        cols[key] = cols[key].to(torch.float64)
+                        extra = (None, None)
                 tpl = (name, ("raw", key), extra)
         elif name in _DISTINCT_ALIASES:
             v = ev.eval(a.args[0], full)
@@ -376,33 +388,42 @@ def _agg_plan(ex, q, ctx, ev, aggs, full, params, counter, cols, filters):
 
 def _sum_extra(i: int, arg, v: Val, ev, params: dict) -> tuple:
     """K1's (byte planes, rows per block) of an integer SUM / AVG over
-    an MV column's entries, from the values' known range (the global
-    dictionary's ends, or the column metadata's bounds), its low end the
-    ``off{i}`` param; (None, None) where no range is known (the exact
-    torch scatter sums it)."""
+    an MV column's entries or a column some segment predates, from the
+    values' known range (the global dictionary's ends, or the column
+    metadata's bounds with the defaults), its low end the ``off{i}``
+    param; (None, None) where no range is known (the exact torch scatter
+    sums it); None where the range says an int64 sum over the batch
+    could wrap (Long.MIN defaults): the caller sums in float64."""
     import math
 
     from pinot_tpu_torch.ops import agg as agg_ops
     from pinot_tpu_torch.ops import groupby_mm as mm
 
-    if not (arg.is_identifier and ev.is_mv(arg.name)) \
+    if not arg.is_identifier or arg.name.startswith("$") \
             or v.kind != "num" or v.dtype.kind not in "iub":
         return (None, None)
-    mp = ev.mv(arg.name)
-    if mp is None:
-        bounds = (0, 0)
-    elif mp.kind == "dict":
-        gv = np.asarray(ev.ctx.global_dict(arg.name).values)
-        bounds = (int(gv[0]), int(gv[-1])) if len(gv) else (0, 0)
-    else:
-        metas = [s.column_metadata(arg.name) for s in ev.ctx.segments
-                 if arg.name in s.metadata.columns]
-        if any(not isinstance(m.min_value, (int, np.integer))
-               or not isinstance(m.max_value, (int, np.integer))
-               for m in metas):
+    if not ev.is_mv(arg.name):
+        bounds = ev.ctx.exact_int_bounds(arg.name)
+        if bounds is None:
             return (None, None)
-        bounds = (min(int(m.min_value) for m in metas),
-                  max(int(m.max_value) for m in metas))
+    else:
+        mp = ev.mv(arg.name)
+        if mp is None:
+            bounds = (0, 0)
+        elif mp.kind == "dict":
+            gv = np.asarray(ev.ctx.global_dict(arg.name).values)
+            bounds = (int(gv[0]), int(gv[-1])) if len(gv) else (0, 0)
+        else:
+            metas = [s.column_metadata(arg.name) for s in ev.ctx.segments
+                     if arg.name in s.metadata.columns]
+            if any(not isinstance(m.min_value, (int, np.integer))
+                   or not isinstance(m.max_value, (int, np.integer))
+                   for m in metas):
+                return (None, None)
+            bounds = (min(int(m.min_value) for m in metas),
+                      max(int(m.max_value) for m in metas))
+    if max(abs(bounds[0]), abs(bounds[1])) * ev.S * ev.L >= 1 << 63:
+        return None
     params[f"off{i}"] = torch.tensor(math.floor(bounds[0]),
                                      dtype=torch.int64, device=ev.device)
     return (mm.int_planes_needed(bounds[0], bounds[1]),
@@ -739,7 +760,9 @@ def _aggregate(ex, q, ctx, final, reduce_mode, alive, aggs) -> RowsLaunch:
             ex_.device_reduce_queries += 1
         else:
             present = np.nonzero(host["g0:gcount"] > 0)[0]
-        key_values = tuple(xev.decode_key(v, host[f"gk{j}"][present])
+        # the reference merges the segments that answered a group
+        segs = host["hx_matched"] > 0
+        key_values = tuple(xev.decode_key(v, host[f"gk{j}"][present], segs)
                            for j, v in enumerate(kvals))
         return IntermediateResult(
             "group_by", group_keys=key_values,

@@ -32,11 +32,21 @@ values, its engine/host.py). The port runs those shapes on the card
   strings (a LUT), ST_DISTANCE through the geo grid's candidates with
   the haversine check on the card (ops/geo.py), and the functions the
   card has no form for over one dict column, each distinct value
-  computed once on the host, as a LUT over its ids.
+  computed once on the host, as a LUT over its ids;
+- schema-evolved columns as their default (engine/params.py
+  ``BatchContext.evolved``), IS NULL / IS NOT NULL from the null planes;
+- the functions whose string literals are parameters: TIMECONVERT and
+  DATETIMECONVERT as int64 torch ops, ROUND with a scale, and a string
+  result (a date format, CAST to STRING) computed on the host once per
+  distinct value, carried as ids;
+- the array functions over MV columns (ARRAYLENGTH, the per-doc
+  reductions, VALUEIN, MAPVALUE) over the entry planes, with the dtype
+  the reference's numpy gives each segment (``Mixed``).
 
 A shape without a form here raises ``DeviceUnsupported`` naming its
-ROADMAP queue 1 item, where the rest of the single-stage surface is
-listed.
+ROADMAP queue 1 item (``later``), where the rest of the single-stage
+surface is listed, or saying that the reference's host fails on it too
+(``host_fails``).
 """
 
 from __future__ import annotations
@@ -53,12 +63,14 @@ from pinot_tpu_torch.engine.host import like_to_regex
 from pinot_tpu_torch.engine.params import (
     DEVICE_PRED_TYPES,
     DeviceUnsupported,
+    evolved_spec,
     plane_slot,
     raw_predicate,
     to_device,
 )
 from pinot_tpu_torch.ops import geo as geo_ops
 from pinot_tpu_torch.ops import sketch_build as sb
+from pinot_tpu_torch.ops import transform as tf
 from pinot_tpu_torch.ops.device_reduce import order_key
 from pinot_tpu_torch.ops.transform import _CAST_NP, get_function
 from pinot_tpu_torch.query.context import (
@@ -80,19 +92,60 @@ _NULL_PREDS = (PredicateType.IS_NULL, PredicateType.IS_NOT_NULL)
 
 def later(what: str):
     """The in-band refusal of a host-path value form the card lacks: ROADMAP
-    queue 1, item e3."""
+    queue 1, item e3e, the function and aggregation tail."""
     return DeviceUnsupported(
         f"{what} comes with a later slice of the port (ROADMAP queue 1, "
-        f"item e3)")
+        f"item e3e)")
 
 
-def evolved_spec(seg, name: str):
-    """The table schema's FieldSpec of a column the segment predates
-    (schema evolution), or None."""
-    if name in seg.metadata.columns:
-        return None
-    schema = getattr(seg, "table_schema", None)
-    return None if schema is None else getattr(schema, "fields", {}).get(name)
+def host_fails(what: str, err: Exception | None = None):
+    """The in-band refusal of a shape the reference's host path itself
+    fails on: there is no answer to hold the port to (ROADMAP queue 3)."""
+    why = f" ({type(err).__name__}: {err})" if err is not None else ""
+    return DeviceUnsupported(
+        f"{what}: the reference's host path fails on it too{why}, so the "
+        f"port refuses it (ROADMAP queue 3)")
+
+
+@dataclasses.dataclass(frozen=True)
+class Mixed:
+    """The dtype of a value whose host path dtype differs per segment (the
+    MV reductions' empty-row fill, MAPVALUE's miss): ``base`` in a segment
+    without the fill, float64 / int64 (the ``Val``'s) where ``filled``;
+    the reference's reduce concatenates the segments' arrays, so any
+    filled segment among those merged promotes the whole answer."""
+
+    base: np.dtype
+    filled: np.ndarray
+
+
+@dataclasses.dataclass(frozen=True)
+class ListMeta:
+    """VALUEIN's per-doc lists, coded as one int64 a doc: the kept
+    entries' ranks among the sorted wanted ``values`` (1-based) as base
+    ``k + 1`` digits, first entry most significant, zero-padded to ``k``
+    digits, so that code order is the lists' order."""
+
+    values: tuple
+    k: int
+
+    def decode(self, codes: np.ndarray) -> np.ndarray:
+        out = np.empty(len(codes), dtype=object)
+        base = self.k + 1
+        uniq, inv = np.unique(np.asarray(codes, dtype=np.int64),
+                              return_inverse=True)
+        lists = []
+        for c in uniq.tolist():
+            kept = []
+            for i in range(self.k):
+                d = (c // base ** (self.k - 1 - i)) % base
+                if d == 0:
+                    break
+                kept.append(self.values[d - 1])
+            lists.append(kept)
+        for j, i in enumerate(inv.reshape(-1).tolist()):
+            out[j] = list(lists[i])   # a fresh list per row, as the host's
+        return out
 
 
 def np_eval(e: Expression, env: dict):
@@ -184,9 +237,7 @@ def _torch_dtype(dt: np.dtype) -> torch.dtype:
 
 
 def _probe_literal(v):
-    if v is None:
-        raise later("a NULL literal in an expression")
-    return np.asarray(v)
+    return np.asarray(v)   # NULL: the host's 0-d object array
 
 
 # numpy ufunc-style functions computed in their result dtype, after every
@@ -211,10 +262,34 @@ _COMPARE = {
     "greater_than_or_equal": torch.ge, "less_than": torch.lt,
     "less_than_or_equal": torch.le,
 }
+# the array functions over MV columns (ops/transform.py's numpy forms)
+_MV_FUNCS = {"arraylength", "cardinality", "arraysum", "arrayaverage",
+             "arraymin", "arraymax", "valuein", "mapvalue"}
+# the time conversions, whose string literals are parameters
+_TIME_FUNCS = {"timeconvert", "datetimeconvert"}
 # the functions ``eval`` computes as torch ops; an expression using any
 # other over one dict column is computed per distinct value (``_lut``)
 _TORCH_FUNCS = set(_ARITH) | set(_UNARY) | set(_ROUND) | set(_COMPARE) \
-    | {"divide", "mod", "and", "or", "not", "cast", "case"}
+    | {"divide", "mod", "and", "or", "not", "cast", "case"} | _MV_FUNCS
+
+
+def _div_trunc(v: torch.Tensor, d: int) -> torch.Tensor:
+    """ops/transform.py ``_div_trunc`` over int64: ``sign(v) * (|v| //
+    d)``, with |Long.MIN| wrapping to Long.MIN as numpy's does (so
+    Long.MIN ms is 106751991168 DAYS, not the truncated quotient)."""
+    if d == 0:
+        return torch.zeros_like(v)   # numpy's int // 0
+    return torch.sign(v) * torch.div(torch.abs(v), d, rounding_mode="floor")
+
+
+def _to_millis(v: torch.Tensor, unit: str) -> torch.Tensor:
+    f = tf._unit_ms(unit)
+    return v * int(f) if f >= 1 else _div_trunc(v, int(round(1 / f)))
+
+
+def _from_millis(ms: torch.Tensor, unit: str) -> torch.Tensor:
+    f = tf._unit_ms(unit)
+    return _div_trunc(ms, int(f)) if f >= 1 else ms * int(round(1 / f))
 
 
 class ValueEvaluator:
@@ -233,15 +308,17 @@ class ValueEvaluator:
         self._gvals: dict = {}
         self._probes: dict = {}
         self._luts: dict = {}
+        self._mvfuncs: dict = {}
 
     # ---- columns -------------------------------------------------------
     def _check_column(self, name: str) -> None:
+        """A single-value column in one encoding (a schema-evolved one's
+        missing segments read as its default, engine/params.py
+        ``BatchContext.evolved``); an unknown column raises KeyError."""
         if self.is_mv(name):
-            raise later(f"the multi-value column {name!r} in an expression")
-        for s in self.ctx.segments:
-            if name not in s.metadata.columns:
-                raise later(f"column {name!r}, absent from segment {s.name}")
-        self.ctx.encoding(name)  # single-value, one encoding
+            raise host_fails(f"the multi-value column {name!r} read as a "
+                             f"single value")
+        self.ctx.encoding(name)
 
     # ---- multi-value columns ---------------------------------------------
     def is_mv(self, name: str) -> bool:
@@ -346,11 +423,14 @@ class ValueEvaluator:
         return hit.reshape(self.S, self.L)
 
     def column_dtype(self, name: str) -> np.dtype:
-        """The dtype the host path's values of a column have."""
+        """The dtype the host path's values of a column have: numpy's
+        promotion of the stored values' and, where a segment predates the
+        column, its default's (``np.full(n, null_value())`` there)."""
         self._check_column(name)
         if self.ctx.encoding(name) == Encoding.DICT:
             return np.asarray(self.ctx.global_dict(name).values).dtype
-        return np.asarray(self.ctx.segments[0].forward(name)).dtype
+        defaults = [d.dtype for d in self.ctx.evolved(name) if d is not None]
+        return np.result_type(self.ctx.raw_dtype(name), *defaults)
 
     def _dict_values(self, name: str) -> torch.Tensor:
         if name not in self._gvals:
@@ -374,11 +454,27 @@ class ValueEvaluator:
         if dt.kind == "f" and np.dtype(plan.dtype) != dt:
             # raw DOUBLE: the aggregation plane is float32, the host's
             # values are float64
-            return Val(rows.take(ctx.exact_column(name)), "num", dt)
+            return Val(rows.take(ctx.exact_column(name)).to(
+                _torch_dtype(dt)), "num", dt)
         v = rows.take(ctx.column(name)).to(_torch_dtype(dt))
         if plan.offset is not None:
             v = v + plan.offset
         return Val(v, "num", dt)
+
+    def operand(self, e: Expression, rows: Rows) -> Val:
+        """``eval`` for an aggregation's operand: a raw integer column that
+        a segment predates keeps its stored dtype. Numpy's promotion by
+        the default (int32 by 0 to int64) changes no value an aggregation
+        reads, and K1 and K2 read the narrow plane."""
+        if e.is_identifier and not e.name.startswith("$") \
+                and not self.is_mv(e.name) \
+                and self.ctx.encoding(e.name) == Encoding.RAW \
+                and any(d is not None for d in self.ctx.evolved(e.name)):
+            sdt = self.ctx.raw_dtype(e.name)
+            if sdt.kind in "iu":
+                v = self._column(e.name, rows)
+                return Val(v.t.to(_torch_dtype(sdt)), "num", sdt)
+        return self.eval(e, rows)
 
     # ---- numpy result dtypes ---------------------------------------------
     def probe(self, e: Expression) -> np.ndarray:
@@ -401,6 +497,11 @@ class ValueEvaluator:
                     else np.ones(1, dtype=dt)
         elif self._lut_column(e) is not None:
             out = self._lut(e)[:1]
+        elif e.name in _MV_FUNCS:
+            v = self._mv_function(e)
+            out = v.meta[:1] if v.kind == "case" \
+                else np.empty(1, dtype=object) if v.kind == "list" \
+                else np.ones(1, dtype=v.dtype)
         else:
             fn = get_function(e.name)
             try:
@@ -410,7 +511,7 @@ class ValueEvaluator:
                     else:
                         out = fn.np_fn(*[self.probe(a) for a in e.args])
             except (TypeError, ValueError) as err:
-                raise later(f"{e}: {err}") from err
+                raise host_fails(str(e), err) from err
             out = np.asarray(out)
         self._probes[e] = out
         return out
@@ -420,7 +521,11 @@ class ValueEvaluator:
         if e.is_literal:
             a = _probe_literal(e.value)
             if a.dtype.kind not in "biuf":
-                raise later(f"the string literal {e.value!r} in an expression")
+                # a string or NULL literal: its value on the host, as the
+                # one branch of a "case"
+                return Val(torch.zeros((), dtype=torch.int64,
+                                       device=self.device), "case", a.dtype,
+                           a.reshape(1))
             return Val(torch.tensor(a, device=self.device), "num", a.dtype)
         if e.is_identifier:
             name = e.name
@@ -437,6 +542,9 @@ class ValueEvaluator:
             return self._column(name, rows)
         if e.name == "case":
             return self._case(e, rows)
+        if e.name in _MV_FUNCS:
+            v = self._mv_function(e)
+            return dataclasses.replace(v, t=rows.take(v.t))
         if e.name in _COMPARE and any(
                 a.is_literal and isinstance(a.value, str) for a in e.args):
             return self._string_compare(e, rows)
@@ -448,7 +556,12 @@ class ValueEvaluator:
             if lut.dtype.kind in "biuf":
                 return Val(to_device(lut, self.device)[ids], "num", lut.dtype)
             return Val(ids, "case", lut.dtype, lut)
+        if e.name in _TIME_FUNCS:
+            return self._time_function(e, rows)
         out_dt = self.probe(e).dtype
+        if e.name == "cast" and out_dt.kind in "USO":
+            return self._per_value(e, self.eval(e.args[0], rows),
+                                   lambda x: tf._np_cast(x, e.args[1].value))
         args = [self.eval(a, rows) for a in e.args
                 if not (e.name == "cast" and a is e.args[1])]
         for a in args:
@@ -476,9 +589,9 @@ class ValueEvaluator:
         if name in _UNARY:
             return Val(_UNARY[name](t[0].to(tdt)), "num", out_dt)
         if name in _ROUND:
-            if len(t) > 1:
-                raise later("ROUND with a scale")
             x = t[0].to(tdt)
+            if len(t) > 1:
+                return Val(self._round_scale(e, x, out_dt), "num", out_dt)
             return Val(_ROUND[name](x) if out_dt.kind == "f" else x, "num",
                        out_dt)
         if name in _COMPARE:
@@ -497,7 +610,7 @@ class ValueEvaluator:
         if name == "cast":
             target = str(e.args[1].value).upper()
             np_t = _CAST_NP.get(target)
-            if np_t is None or np_t is np.str_:
+            if np_t is None:
                 raise later(f"CAST to {target}")
             x = t[0]
             if np.dtype(np_t).kind in "iu" and x.is_floating_point():
@@ -525,11 +638,13 @@ class ValueEvaluator:
         if len(names) != 1 or funcs <= _TORCH_FUNCS or "lookup" in funcs:
             return None
         name = names.pop()
-        if name.startswith("$") or self.is_mv(name) or not all(
-                name in s.metadata.columns for s in self.ctx.segments) \
-                or self.ctx.device_encoding(name) != Encoding.DICT:
+        if name.startswith("$") or self.is_mv(name):
             return None
-        return name
+        try:   # a schema-evolved column's default is in its dictionary
+            enc = self.ctx.encoding(name)
+        except (KeyError, DeviceUnsupported):
+            return None
+        return name if enc == Encoding.DICT else None
 
     def _lut(self, e: Expression) -> np.ndarray:
         """(C,) the host path's values of ``e`` over its column's global
@@ -553,8 +668,11 @@ class ValueEvaluator:
             values = np.asarray(self.ctx.global_dict(v.meta).values)
         elif v.kind in ("seg", "host"):
             values = self.seg_names if v.kind == "seg" else self.host_names
+        elif v.kind == "case":
+            values = np.asarray(v.meta)
         else:
-            raise later(f"{e}: a string literal against numbers")
+            # numpy has no comparison of numbers with a string
+            raise host_fails(f"{e}: a string literal against numbers")
         fn = get_function(e.name).np_fn
         lut = fn(values, lit.value) if col is e.args[0] \
             else fn(lit.value, values)
@@ -590,12 +708,314 @@ class ValueEvaluator:
             out = torch.where(cm[j].t, vv[j].t.to(tdt), out)
         return Val(torch.broadcast_to(out, rows.seg().shape), "num", out_dt)
 
+
+    # ---- functions whose string literals are parameters ------------------
+    def _per_value(self, e: Expression, v: Val, fn) -> Val:
+        """A number -> string function: the values factorized on the card
+        (by their bits, so -0.0 and each NaN stay apart), ``fn`` (the
+        numpy form) run once per distinct value on the host, carried as a
+        "case" ``Val`` (ids into the strings)."""
+        if v.kind != "num":
+            raise later(f"{e}: a string operand in an expression")
+        x = v.t
+        if x.is_floating_point():
+            x = x.view({8: torch.int64, 4: torch.int32,
+                        2: torch.int16}[x.element_size()])
+        elif x.dtype == torch.bool:
+            x = x.to(torch.int8)
+        uniq, inv = torch.unique(x, return_inverse=True)
+        u = uniq.cpu().numpy()
+        if v.t.is_floating_point():
+            u = u.view(v.dtype)
+        out = np.asarray(fn(u.astype(v.dtype, copy=False)))
+        return Val(inv, "case", out.dtype, out)
+
+    def _round_scale(self, e: Expression, x: torch.Tensor,
+                     out_dt: np.dtype) -> torch.Tensor:
+        """``np.round(x, d)``: floats as numpy rounds them (x * 10^d, then
+        to even, then / 10^d; 10^-d the other way round), integers left
+        alone for d >= 0 and rounded through float64 for d < 0."""
+        if not e.args[1].is_literal:
+            raise later(f"{e}: ROUND with a scale that is not a literal")
+        d = int(np.asarray(e.args[1].value))
+        if out_dt.kind == "f":
+            return torch.round(x, decimals=d)
+        if d >= 0:
+            return x
+        f = float(10 ** -d)
+        return (torch.round(x.to(torch.float64) / f) * f).to(x.dtype)
+
+    def _time_function(self, e: Expression, rows: Rows) -> Val:
+        """TIMECONVERT and DATETIMECONVERT over any numeric values, the
+        format and unit literals folded into int64 torch ops with the
+        reference's arithmetic (ops/transform.py: Java's truncating
+        division, as numpy computes it); a SIMPLE_DATE_FORMAT output
+        formatted on the host once per distinct bucketed millisecond."""
+        if not all(a.is_literal for a in e.args[1:]):
+            raise later(f"{e}: a format that is not a literal")
+        lits = [str(a.value) for a in e.args[1:]]
+        v = self.eval(e.args[0], rows)
+        if v.kind != "num":
+            raise later(f"{e} over strings that are not one dict column")
+        x = v.t.to(torch.int64)
+        if e.name == "timeconvert":
+            return Val(_from_millis(_to_millis(x, lits[0]), lits[1]), "num",
+                       np.dtype(np.int64))
+        inf, outf = tf._DateTimeFormat(lits[0]), tf._DateTimeFormat(lits[1])
+        if inf.fmt != "EPOCH":
+            raise later(f"{e}: a {inf.fmt} input over numbers")
+        gsize, gunit = lits[2].split(":", 1)
+        g = int(np.int64(int(gsize) * tf._unit_ms(gunit)))
+        ms = _to_millis(x * inf.size, inf.unit)
+        bucketed = _div_trunc(ms, g) * g
+        if outf.fmt == "EPOCH":
+            return Val(_div_trunc(_from_millis(bucketed, outf.unit),
+                                  outf.size), "num", np.dtype(np.int64))
+        return self._per_value(e, Val(bucketed, "num", np.dtype(np.int64)),
+                               outf.from_millis)
+
+    # ---- the array functions over MV columns -----------------------------
+    def _mv_arg(self, e: Expression, a: Expression) -> str:
+        if not (a.is_identifier and self.is_mv(a.name)):
+            raise later(f"{e} over {a}, not a multi-value column")
+        return a.name
+
+    def _entry_docs(self, doc: torch.Tensor):
+        """(valid entries (S, E) bool, each entry's flat doc (S, E) int64
+        ``segment * L + doc``, padding on the dump slot ``S * L``)."""
+        valid = doc >= 0
+        seg = torch.arange(doc.shape[0], device=self.device)[:, None]
+        return valid, torch.where(valid, seg * self.L + doc.to(torch.int64),
+                                  self.S * self.L)
+
+    def _mv_function(self, e: Expression) -> Val:
+        """ARRAYLENGTH / CARDINALITY, ARRAYSUM / ARRAYAVERAGE / ARRAYMIN /
+        ARRAYMAX, VALUEIN and MAPVALUE (ops/transform.py ``_array_reduce``
+        and the rest there) over an MV column's entries
+        (engine/params.py ``mv_entries``), as (S, L) planes of the whole
+        batch, computed once a batch."""
+        if e in self._mvfuncs:
+            return self._mvfuncs[e]
+        name = e.name
+        if name in ("arraylength", "cardinality"):
+            a = e.args[0]
+            if a.is_function and a.name == "valuein":
+                out = Val(self._valuein(a)[1], "num", np.dtype(np.int64))
+            elif a.is_identifier and self.is_mv(a.name):
+                mp = self.mv(a.name)
+                lens = torch.zeros((self.S, self.L), dtype=torch.int64,
+                                   device=self.device) if mp is None \
+                    else mp.lens.to(torch.int64)
+                out = Val(lens, "num", np.dtype(np.int64))
+            else:   # a single value is a one-entry array
+                self.eval(a, Rows(self.S, self.L, self.device))
+                out = Val(torch.ones((self.S, self.L), dtype=torch.int64,
+                                     device=self.device), "num",
+                          np.dtype(np.int64))
+        elif name == "valuein":
+            code, _n, meta = self._valuein(e)
+            out = Val(code, "list", np.dtype(object), meta)
+        elif name == "mapvalue":
+            out = self._mapvalue(e)
+        else:
+            out = self._array_reduce(e)
+        self._mvfuncs[e] = out
+        return out
+
+    def _array_reduce(self, e: Expression) -> Val:
+        """The per-doc reduction of an MV column's entries. Its dtype is
+        numpy's per segment: the reduction's (np.sum of ints: int64) where
+        every doc has an entry, float64 where one has none (the fill 0.0,
+        +-inf, NaN), as ``Mixed``."""
+        col = self._mv_arg(e, e.args[0])
+        v, doc = self.mv_values(col)
+        if v.kind != "num" or v.dtype.kind not in "biuf":
+            raise host_fails(f"{e}: a numeric reduction of strings")
+        mp = self.mv(col)
+        filled = np.ones(self.S, dtype=bool) if mp is None else mp.empty
+        name = e.name
+        if name == "arraysum":
+            base = np.sum(np.ones(1, dtype=v.dtype)).dtype
+        elif name == "arrayaverage":
+            base = np.mean(np.ones(1, dtype=v.dtype)).dtype
+        else:
+            base = v.dtype
+        dt = np.dtype(np.float64) if filled.any() else base
+        _valid, flat = self._entry_docs(doc)
+        # every entry scatters, padding onto the dump slot S * L
+        idx, x = flat.reshape(-1), v.t.reshape(-1)
+        n = self.S * self.L
+        f64 = torch.float64
+        if name in ("arraysum", "arrayaverage"):
+            acc = f64 if base.kind == "f" or name == "arrayaverage" \
+                else torch.int64
+            out = torch.zeros(n + 1, dtype=acc, device=self.device) \
+                .index_add_(0, idx, x.to(acc))[:n]
+            if name == "arrayaverage":
+                cnt = torch.zeros((self.S, self.L), device=self.device) \
+                    if mp is None else mp.lens
+                out = out / cnt.reshape(-1).to(f64)   # 0 / 0: NaN, the fill
+        else:
+            fill = float("inf") if name == "arraymin" else float("-inf")
+            red = "amin" if name == "arraymin" else "amax"
+            out = torch.full((n + 1,), fill, dtype=f64, device=self.device) \
+                .scatter_reduce_(0, idx, x.to(f64), red,
+                                 include_self=True)[:n]
+        out = out.reshape(self.S, self.L).to(_torch_dtype(dt))
+        meta = Mixed(base, filled.copy()) if dt != base else None
+        return Val(out, "num", dt, meta)
+
+    def _valuein(self, e: Expression) -> tuple:
+        """VALUEIN(col, v1, ...): per doc, the entries among the literals,
+        deduplicated in first-seen order (ops/transform.py ``_valuein``),
+        as (ListMeta code (S, L) int64, kept entries (S, L) int64,
+        ListMeta)."""
+        col = self._mv_arg(e, e.args[0])
+        if not all(a.is_literal for a in e.args[1:]):
+            raise later(f"{e}: values that are not literals")
+        want = {np.asarray(a.value).item() for a in e.args[1:]}
+        try:
+            order = sorted(want)
+        except TypeError as err:
+            raise later(f"{e}: literals of mixed types") from err
+        k = len(order)
+        if (k + 1) ** k >= 1 << 63:
+            raise later(f"{e}: more than 15 values")
+        v, doc = self.mv_values(col)
+        S, L, dev = self.S, self.L, self.device
+        if v.kind == "dict":
+            gv = np.asarray(self.ctx.global_dict(col).values)
+            rank = {w: j for j, w in enumerate(order)}
+            lut = np.asarray([rank.get(x, -1) for x in gv.tolist()],
+                             dtype=np.int64)
+            values = []
+            for w in order:   # the column's own values, as the rows hold
+                hit = [x for x in gv.tolist() if x == w]
+                values.append(hit[0] if hit else w)
+            widx = to_device(lut, dev)[torch.clamp(v.t.to(torch.int64), 0,
+                                                   max(len(lut) - 1, 0))] \
+                if len(lut) else torch.full_like(v.t, -1, dtype=torch.int64)
+        elif v.kind == "num":
+            widx = torch.full(v.t.shape, -1, dtype=torch.int64, device=dev)
+            values = []
+            for j, w in enumerate(order):
+                values.append(np.asarray(w).astype(v.dtype).item()
+                              if isinstance(w, (int, float, bool)) else w)
+                if isinstance(w, (int, float, bool)):
+                    widx = torch.where(v.t == w, j, widx)
+        else:
+            raise later(f"{e} over a {v.kind} column")
+        valid, flat = self._entry_docs(doc)
+        hit = (widx >= 0) & valid
+        E = v.t.shape[1]
+        # each entry's doc's first entry, as a flat position into (S * E)
+        mp = self.mv(col)
+        first = torch.zeros((S, E), dtype=torch.int64, device=dev)
+        if mp is not None:
+            first = (torch.arange(S, device=dev)[:, None] * E
+                     + mp.start.reshape(-1)[torch.clamp(flat, max=S * L - 1)]
+                     .to(torch.int64))
+
+        def in_doc(x):
+            """Inclusive count of ``x`` from its doc's first entry."""
+            cs = torch.cumsum(x.reshape(-1).to(torch.int64), 0)
+            before = torch.where(first.reshape(-1) > 0,
+                                 cs[torch.clamp(first.reshape(-1) - 1,
+                                                min=0)], 0)
+            return (cs - before).reshape(S, E)
+
+        kept = torch.zeros_like(hit)
+        for j in range(k):
+            hj = hit & (widx == j)
+            kept |= hj & (in_doc(hj) == 1)
+        rank = torch.clamp(in_doc(kept) - 1, 0, max(k - 1, 0))
+        powt = torch.tensor([(k + 1) ** (k - 1 - i) for i in range(k)] or [0],
+                            dtype=torch.int64, device=dev)
+        digit = torch.where(kept, (widx + 1) * powt[rank], 0).reshape(-1)
+        n = S * L
+        idx = flat.reshape(-1)
+        code = torch.zeros(n + 1, dtype=torch.int64, device=dev) \
+            .index_add_(0, idx, digit)[:n]
+        count = torch.zeros(n + 1, dtype=torch.int64, device=dev) \
+            .index_add_(0, idx, kept.reshape(-1).to(torch.int64))[:n]
+        return code.reshape(S, L), count.reshape(S, L), \
+            ListMeta(tuple(values), k)
+
+    def _mapvalue(self, e: Expression) -> Val:
+        """MAPVALUE(keys, 'k', values): per doc, the value at the first
+        entry of ``keys`` equal to the key, or the values column's type
+        default ('' or 0) on a miss (ops/transform.py ``_mapvalue``); a
+        numeric answer is numpy's per segment, as ``Mixed``: the values'
+        dtype where every doc hits, promoted by the 0 where one misses."""
+        kcol = self._mv_arg(e, e.args[0])
+        vcol = self._mv_arg(e, e.args[2])
+        if not e.args[1].is_literal:
+            raise later(f"{e}: a key that is not a literal")
+        key = np.asarray(e.args[1].value).item()
+        kv, kdoc = self.mv_values(kcol)
+        vv, _vdoc = self.mv_values(vcol)
+        S, L, dev = self.S, self.L, self.device
+        if kv.kind == "dict":
+            gv = np.asarray(self.ctx.global_dict(kcol).values)
+            lut = to_device(np.asarray([x == key for x in gv.tolist()],
+                                       dtype=bool), dev)
+            hit = lut[torch.clamp(kv.t.to(torch.int64), 0,
+                                  max(len(gv) - 1, 0))] if len(gv) \
+                else torch.zeros_like(kv.t, dtype=torch.bool)
+        elif isinstance(key, (int, float, bool)):
+            hit = kv.t == key
+        else:   # numpy: numbers never equal a string
+            hit = torch.zeros_like(kv.t, dtype=torch.bool)
+        valid, flat = self._entry_docs(kdoc)
+        hit &= valid
+        kmp, vmp = self.mv(kcol), self.mv(vcol)
+        big = torch.iinfo(torch.int64).max
+        first = torch.full((S * L + 1,), big, dtype=torch.int64, device=dev)
+        if kmp is not None:
+            E = kv.t.shape[1]
+            pos = torch.arange(E, device=dev)[None, :].expand(S, E)
+            rank = pos - kmp.start.reshape(-1)[
+                torch.clamp(flat, max=S * L - 1)].to(torch.int64)
+            first.scatter_reduce_(0, flat.reshape(-1),
+                                  torch.where(hit, rank, big).reshape(-1),
+                                  "amin")
+        first = first[: S * L]
+        if vmp is None:
+            has = torch.zeros(S * L, dtype=torch.bool, device=dev)
+            at = torch.zeros(S * L, dtype=torch.int64, device=dev)
+        else:
+            has = first < vmp.lens.reshape(-1).to(torch.int64)
+            Ev = vv.t.shape[1]
+            seg = torch.arange(S, device=dev).repeat_interleave(L)
+            at = torch.clamp(seg * Ev + vmp.start.reshape(-1).to(torch.int64)
+                             + torch.where(has, first, 0), max=S * Ev - 1)
+        got = vv.t.reshape(-1)[at]
+        if vv.kind == "dict":
+            gv = np.asarray(self.ctx.global_dict(vcol).values)
+            strs = np.concatenate([gv, np.asarray([""], dtype=gv.dtype)])
+            ids = torch.where(has, got.to(torch.int64), len(gv))
+            return Val(ids.reshape(S, L), "case", strs.dtype, strs)
+        if vv.kind != "num":
+            raise later(f"{e} over a {vv.kind} column")
+        base = vv.dtype
+        valid_doc = torch.arange(L, device=dev)[None, :] \
+            < self.ctx.n_docs_dev[:, None].to(torch.int64)
+        miss = ((~has.reshape(S, L)) & valid_doc).any(dim=1).cpu().numpy()
+        dt = np.result_type(base, np.asarray([0]).dtype) if miss.any() \
+            else base
+        out = torch.where(has, got, torch.zeros_like(got)) \
+            .to(_torch_dtype(dt)).reshape(S, L)
+        return Val(out, "num", dt, Mixed(base, miss) if dt != base else None)
+
     # ---- keys: equality and order ----------------------------------------
     def key(self, v: Val, shape=None) -> torch.Tensor:
         """int64 keys whose equality and order are the host's over the
-        values: numbers by value (``order_key``), strings by rank."""
+        values: numbers by value (``order_key``), strings by rank, VALUEIN's
+        lists by their code."""
         if v.kind == "num":
             k = order_key(v.t)
+        elif v.kind == "list":
+            k = v.t.to(torch.int64)
         elif v.kind == "dict":
             k = v.t.to(torch.int64)  # the global dictionary is sorted
         elif v.kind == "seg":
@@ -650,10 +1070,24 @@ class ValueEvaluator:
             return k, order_key(-from_order_key(k, np.dtype(np.float64)))
         return k, -k
 
-    def decode(self, v: Val, host: np.ndarray) -> np.ndarray:
-        """Host values of a fetched ``Val.t``."""
+    @staticmethod
+    def _merged_dtype(v: Val, segs) -> np.dtype:
+        """The dtype of ``v``'s values once the reference's reduce has
+        concatenated the segments ``segs`` (None: all) of a ``Mixed``
+        value."""
+        if isinstance(v.meta, Mixed) and segs is not None \
+                and not (v.meta.filled & np.asarray(segs, dtype=bool)).any():
+            return v.meta.base
+        return v.dtype
+
+    def decode(self, v: Val, host: np.ndarray, segs=None) -> np.ndarray:
+        """Host values of a fetched ``Val.t`` (``segs``: the segments
+        whose answers the reference merges, for a ``Mixed`` dtype)."""
         if v.kind == "num":
-            return np.asarray(host).astype(v.dtype, copy=False)
+            return np.asarray(host).astype(self._merged_dtype(v, segs),
+                                           copy=False)
+        if v.kind == "list":
+            return v.meta.decode(np.asarray(host).reshape(-1))
         if v.kind == "dict":
             return self.ctx.global_dict(v.meta).take(np.asarray(host))
         if v.kind == "seg":
@@ -662,11 +1096,15 @@ class ValueEvaluator:
             return self.host_names[np.zeros(len(host), dtype=np.int64)]
         return np.asarray(v.meta)[np.asarray(host)]
 
-    def decode_key(self, v: Val, host_keys: np.ndarray) -> np.ndarray:
+    def decode_key(self, v: Val, host_keys: np.ndarray,
+                   segs=None) -> np.ndarray:
         """Host values of fetched ``key`` values."""
         k = np.asarray(host_keys, dtype=np.int64)
         if v.kind == "num":
-            return from_order_key(torch.from_numpy(k), v.dtype).numpy()
+            return from_order_key(torch.from_numpy(k), v.dtype).numpy() \
+                .astype(self._merged_dtype(v, segs), copy=False)
+        if v.kind == "list":
+            return v.meta.decode(k)
         if v.kind == "dict":
             return self.ctx.global_dict(v.meta).take(k)
         if v.kind == "seg":
@@ -688,6 +1126,8 @@ class ValueEvaluator:
         segments without a grid)."""
         lhs = p.lhs
         full = Rows(self.S, self.L, self.device)
+        if p.type in _NULL_PREDS:
+            return ("mask", plane_slot(params, counter, self.null_mask(p))[1])
         mask = None if generic else self._index_mask(p)
         if mask is None and lhs.is_identifier and self.is_mv(lhs.name) \
                 and p.type not in _NULL_PREDS:
@@ -708,6 +1148,13 @@ class ValueEvaluator:
             if self.ctx.encoding(lhs.name) == Encoding.DICT:
                 return None
         v = self.eval(lhs, full)
+        if v.kind == "case":
+            # strings the card carries as ids: the predicate over each
+            # distinct string, gathered by id
+            lut = to_device(predicate_over_values(p, np.asarray(v.meta)),
+                            self.device)
+            mask = torch.broadcast_to(lut[v.t], full.seg().shape)
+            return ("mask", plane_slot(params, counter, mask)[1])
         if v.kind != "num":
             raise later(f"the predicate {p} over string values")
         if p.type in (PredicateType.LIKE, PredicateType.REGEXP_LIKE):
@@ -716,6 +1163,20 @@ class ValueEvaluator:
         plane = torch.broadcast_to(v.t.to(_torch_dtype(dt)), full.seg().shape)
         return raw_predicate(p, plane_slot(params, counter, plane), params,
                              counter, self.device, dt)
+
+    def null_mask(self, p: Predicate) -> torch.Tensor:
+        """(S, L) bool of IS NULL / IS NOT NULL (engine/host.py there): a
+        column's null vectors (engine/params.py ``null_plane``), a
+        schema-evolved column null in every doc of a segment that predates
+        it; an unknown (or virtual) column raises; any other expression is
+        never null."""
+        lhs = p.lhs
+        if lhs.is_identifier:
+            nulls = self.ctx.null_plane(lhs.name)
+        else:
+            nulls = torch.zeros((self.S, self.L), dtype=torch.bool,
+                                device=self.device)
+        return nulls if p.type is PredicateType.IS_NULL else ~nulls
 
     @staticmethod
     def _literal_dtype(p: Predicate, vdt: np.dtype) -> np.dtype:
@@ -964,6 +1425,8 @@ def _predicate_entries(seg, p: Predicate, n: int) -> int:
     """Entries the host reads to evaluate one predicate on one segment."""
     lhs = p.lhs
     cols = seg.metadata.columns
+    if p.type in _NULL_PREDS:
+        return 0   # the null vector: read before the host counts a scan
     if p.type is PredicateType.JSON_MATCH:
         return 0 if getattr(seg.column_metadata(lhs.name),
                             "has_json_index", False) else n

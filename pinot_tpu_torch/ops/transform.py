@@ -520,10 +520,7 @@ class _DateTimeFormat:
         if self.fmt == "EPOCH":
             return _div_trunc(_from_millis(millis, self.unit),
                               np.int64(self.size))
-        import pandas as pd
-
         ms = np.asarray(millis, dtype=np.int64)
-        dt = pd.to_datetime(ms, unit="ms")
         fmt = self.strftime
         # U-dtype (not object): string results flow into group keys and the
         # DataTable wire codec, which round-trips numpy string arrays but
@@ -531,13 +528,73 @@ class _DateTimeFormat:
         if "%f" in fmt:
             # SDF's SSS is 3-digit millis; strftime %f would emit 6-digit
             # micros — format around a sentinel and splice the millis in
+            if (ms == np.iinfo(np.int64).min).any():
+                # pandas formats NaT as NaN, which has no str.replace
+                raise AttributeError(
+                    "'float' object has no attribute 'replace'")
             sent = "\x00"
-            base = np.asarray(dt.strftime(fmt.replace("%f", sent)))
+            base = _strftime_millis(ms, fmt.replace("%f", sent))
             frac = np.char.zfill((ms % 1000).astype(str), 3)
             return np.asarray(
                 [s.replace(sent, f) for s, f in zip(base, frac)],
                 dtype=np.str_)
-        return np.asarray(dt.strftime(fmt), dtype=np.str_)
+        return format_millis(ms, fmt)
+
+
+# the formats pandas writes itself, for any year; it hands any other to
+# datetime.strftime, which takes the years 1 to 9999 alone
+_ISO_FORMATS = {"%Y-%m-%d": False, "%Y-%m-%d %H:%M:%S": True}
+
+
+def format_millis(millis, fmt: str) -> np.ndarray:
+    """``_strftime_millis`` as a numpy string array."""
+    return np.asarray(_strftime_millis(millis, fmt), dtype=np.str_)
+
+
+def _strftime_millis(millis, fmt: str) -> list:
+    """``pd.to_datetime(millis, unit="ms").strftime(fmt)`` as the JAX
+    package's ``from_millis`` calls it, without pandas: the proleptic
+    Gregorian calendar fields in integer arithmetic (any int64 but NaT,
+    which formats as 'nan'); the ISO forms pandas writes itself
+    with the year unpadded and signed ('-292275055-05-17'); any other
+    format through ``datetime.strftime``, refused outside its years as
+    pandas refuses it."""
+    import datetime
+
+    ms = np.asarray(millis, dtype=np.int64).reshape(-1)
+    days = ms // 86_400_000
+    tod = ms - days * 86_400_000
+    # the civil date of a day count (H. Hinnant's days_from_civil inverse),
+    # in int64 for every day an int64 of millis reaches
+    z = days + 719_468
+    era = z // 146_097
+    doe = z - era * 146_097
+    yoe = (doe - doe // 1460 + doe // 36_524 - doe // 146_096) // 365
+    doy = doe - (365 * yoe + yoe // 4 - yoe // 100)
+    mp = (5 * doy + 2) // 153
+    ds = doy - (153 * mp + 2) // 5 + 1
+    ms_ = np.where(mp < 10, mp + 3, mp - 9)
+    ys = yoe + era * 400 + (ms_ <= 2)
+    out = []
+    for i in range(len(ms)):
+        if ms[i] == np.iinfo(np.int64).min:
+            out.append("nan")
+            continue
+        y, mo, d, ti = int(ys[i]), int(ms_[i]), int(ds[i]), int(tod[i])
+        h, mi, s = ti // 3_600_000, ti // 60_000 % 60, ti // 1000 % 60
+        if fmt in _ISO_FORMATS:
+            text = f"{y}-{mo:02d}-{d:02d}"
+            if _ISO_FORMATS[fmt]:
+                text += f" {h:02d}:{mi:02d}:{s:02d}"
+        elif not 1 <= y <= 9999:
+            raise NotImplementedError(
+                "strftime not yet supported on Timestamps which are outside "
+                "the range of Python's standard library")
+        else:
+            text = datetime.datetime(y, mo, d, h, mi, s,
+                                     ti % 1000 * 1000).strftime(fmt)
+        out.append(text)
+    return out
 
 
 def _datetimeconvert(values, in_fmt, out_fmt, granularity):
