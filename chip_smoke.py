@@ -35,7 +35,7 @@ Phases, all on ``cuda:0``:
    (``index_add_`` / ``scatter_reduce_`` / ``bincount``; for K4, which no
    single call computes, the port's generic gathered form), beside the
    memory bound.
-3. The six tables are loaded into one ``QueryEngine(device="cuda")``
+3. The seven tables are loaded into one ``QueryEngine(device="cuda")``
    (the third, ``lineorder_pairs``, is two of the unsorted segments with
    a d_year x c_region cube of t-digest, bitmap and decimal pairs, and
    the write pool also builds the overflow oracle's per-segment
@@ -101,7 +101,22 @@ Phases, all on ``cuda:0``:
    over ``lineorder_mv`` ARRAYLENGTH, the per-doc ARRAYSUM / MIN / MAX /
    AVERAGE of lo_codes (K1, K2), VALUEIN's lists and an ARRAYLENGTH
    filter; K1 and K2 held at its captured inputs,
-   ``check_values_kernels``). Every answer is
+   ``check_values_kernels``) and the tail path (``TAIL_QUERIES`` over
+   ``trips``: two segments of ``--rows`` rows after the NYC TLC
+   yellow-taxi trip record's columns, sorted by pickup time, the raw
+   columns compressed (the time and the fare zlib, the tip zstd where the
+   build has it, the pickup coordinates lz4, the distance not): exact
+   SUMPRECISION over the fares and over fare + tip (K1, K2), GEOTOH3
+   cells (K1), ST_CONTAINS in a Manhattan polygon, STUNION over a
+   20-second window, ROUNDDECIMAL and a CASE of string and numeric
+   results as keys, LIKE over a number, DISTINCTCOUNTHLL over
+   ``pickup_ts / 60000`` (K3), LASTWITHTIME over 'yyyyMMdd' STRING
+   times, a group-by over the decoded columns (K1, K2), a one-hour time
+   range by block skip on the compressed sorted time and a day's fused
+   filter (K4); ``trips`` loaded twice more, wide and under
+   ``PINOT_TPU_SUBBYTE=1``, where ``SUBBYTE_TWINS`` answer the same and
+   the sub-byte load holds fewer bytes; K1, K2, K3 and K4 held at its
+   captured inputs, ``check_tail_kernels``). Every answer is
    checked against a numpy oracle over the generated columns (HLL
    estimates from registers the oracle builds itself; for the block-skip
    path also the pruned segments, pruned blocks and entries scanned,
@@ -123,8 +138,11 @@ Phases, all on ``cuda:0``:
    the grid's candidate docs by the geo index, every row by a twin; for
    the values path the old segments' defaults, the null vectors the
    writer drew, Long.MIN's 106751991168 DAYS and '-292275055-05-17', and
-   the per-doc reductions and VALUEIN lists from the MV offsets), and
-   the per-query p50 of 5 runs printed; q6 must make one
+   the per-doc reductions and VALUEIN lists from the MV offsets; for
+   the tail path Python's decimal sums over the oracle's counts per
+   distinct value, the grid formula, the even-odd ray cast and the
+   murmur finalizer in numpy, and each range's block stats from
+   per-block min/max), and the per-query p50 of 5 runs printed; q6 must make one
    K2 launch an execution, and no torch op may read its stored min/max
    planes (seen at the dispatcher); gb_expr and gb_segment one K1 and
    one K2 launch an execution, distinct_dict one K1 launch, each digest
@@ -1826,6 +1844,464 @@ QUERY_LAUNCHES.update({
     for name, sql in VAL_QUERIES.items()})
 
 
+# ---------------------------------------------------------------------------
+# the tail path: the function and aggregation tail, exact SUMPRECISION
+# over fractions, compressed raw forward indexes and the sub-byte tier,
+# over the NYC TLC yellow-taxi trip record's columns
+# ---------------------------------------------------------------------------
+
+TRIPS_TABLE = "trips"
+TRIPS_SEGMENTS = 2
+TRIPS_SEED = 31
+MONTH_MS = 1_577_836_800_000   # 2020-01-01T00:00:00Z
+TRIP_DAYS = 31
+# the five boroughs' box, and a Manhattan polygon inside it
+BOROUGHS = ((-74.26, -73.70), (40.49, 40.92))
+MANHATTAN = ("POLYGON ((-74.0200 40.7000, -73.9700 40.7100, -73.9280 40.7950, "
+             "-73.9100 40.8720, -73.9350 40.8820, -74.0120 40.7580, "
+             "-74.0200 40.7000))")
+# the grid's resolution 14 has H3 resolution 7's cell area (~5 km^2)
+GEO_RES = 14
+HOUR = (MONTH_MS + 14 * DAY_MS + 10 * 3_600_000,
+        MONTH_MS + 14 * DAY_MS + 11 * 3_600_000 - 1)
+STUNION_WINDOW = (MONTH_MS + 20 * DAY_MS, MONTH_MS + 20 * DAY_MS + 20_000)
+FUSED_DAY = "20200115"
+TRIP_RAW = ("pickup_ts", "fare_amount", "tip_amount", "pickup_longitude",
+            "pickup_latitude", "trip_distance")
+GEO_KEY = f"GEOTOH3(pickup_longitude, pickup_latitude, {GEO_RES})"
+ROUND_KEY = "ROUNDDECIMAL(fare_amount, 0)"
+CASE_KEY = ("CASE WHEN passenger_count > 4 THEN 'group' ELSE passenger_count "
+            "END")
+POINT = "ST_POINT(pickup_longitude, pickup_latitude)"
+TAIL_QUERIES = {
+    "tail_sumprec_pay": (
+        f"SELECT payment_type, SUMPRECISION(fare_amount) FROM {TRIPS_TABLE} "
+        "GROUP BY payment_type ORDER BY payment_type"),
+    "tail_sumprec_expr": (f"SELECT SUMPRECISION(fare_amount + tip_amount) "
+                          f"FROM {TRIPS_TABLE}"),
+    "tail_geo_cell": (
+        f"SELECT {GEO_KEY}, COUNT(*), SUM(fare_amount) FROM {TRIPS_TABLE} "
+        f"GROUP BY {GEO_KEY} ORDER BY COUNT(*) DESC, {GEO_KEY} LIMIT 10"),
+    "tail_st_contains": (
+        f"SELECT payment_type, COUNT(*) FROM {TRIPS_TABLE} WHERE ST_CONTAINS("
+        f"ST_GEOGFROMTEXT('{MANHATTAN}'), {POINT}) = 1 GROUP BY payment_type "
+        "ORDER BY payment_type"),
+    "tail_stunion": (
+        f"SELECT STUNION({POINT}) FROM {TRIPS_TABLE} WHERE pickup_ts "
+        f"BETWEEN {STUNION_WINDOW[0]} AND {STUNION_WINDOW[1]}"),
+    "tail_round_fare": (
+        f"SELECT {ROUND_KEY}, COUNT(*) FROM {TRIPS_TABLE} GROUP BY "
+        f"{ROUND_KEY} ORDER BY {ROUND_KEY} LIMIT 20"),
+    "tail_case_mixed": (
+        f"SELECT {CASE_KEY}, COUNT(*) FROM {TRIPS_TABLE} GROUP BY {CASE_KEY} "
+        f"ORDER BY {CASE_KEY}"),
+    "tail_like_num": (f"SELECT COUNT(*) FROM {TRIPS_TABLE} WHERE "
+                      "passenger_count LIKE '1%'"),
+    "tail_hll_minutes": (
+        f"SELECT payment_type, DISTINCTCOUNTHLL(pickup_ts / 60000) FROM "
+        f"{TRIPS_TABLE} GROUP BY payment_type ORDER BY payment_type"),
+    "tail_last_day": (
+        f"SELECT vendor_id, LASTWITHTIME(fare_amount, pickup_day, 'DOUBLE') "
+        f"FROM {TRIPS_TABLE} GROUP BY vendor_id ORDER BY vendor_id"),
+    "tail_decoded": (
+        "SELECT passenger_count, COUNT(*), SUM(fare_amount), MIN(tip_amount), "
+        f"MAX(trip_distance) FROM {TRIPS_TABLE} GROUP BY passenger_count "
+        "ORDER BY passenger_count"),
+    "tail_ts_range": (f"SELECT COUNT(*), SUM(fare_amount) FROM {TRIPS_TABLE} "
+                      f"WHERE pickup_ts BETWEEN {HOUR[0]} AND {HOUR[1]}"),
+    # K4's surface: an integer SUM (a float sum's order would show), a
+    # float MAX, over a sorted dict column's blocks
+    "tail_day_fused": (f"SELECT COUNT(*), SUM(passenger_count), "
+                       f"MAX(tip_amount) FROM {TRIPS_TABLE} WHERE "
+                       f"pickup_day = '{FUSED_DAY}'"),
+}
+# answered again by the sub-byte load (PINOT_TPU_SUBBYTE=1)
+SUBBYTE_TWINS = ("tail_decoded", "tail_like_num", "tail_case_mixed")
+
+
+def trips_generate(segments: int, rows: int, seed: int = TRIPS_SEED) -> list:
+    """The trip records of January 2020, ``rows`` a segment, each segment
+    sorted by pickup time as time-ordered ingestion writes it: fares in
+    50-cent steps from $2.50, tips in whole cents (none for 40 %),
+    pickups over the five boroughs' box at six decimals, distances at two,
+    and the dict dimensions (``pickup_day`` the index of the day)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(segments):
+        n = rows
+        ts = np.sort(MONTH_MS + rng.integers(0, TRIP_DAYS * DAY_MS, n))
+        tip = rng.integers(0, 2000, n)
+        tip[rng.random(n) < 0.4] = 0
+        out.append({
+            "pickup_ts": ts.astype(np.int64),
+            "pickup_day": ((ts - MONTH_MS) // DAY_MS).astype(np.int8),
+            "vendor_id": rng.integers(1, 3, n).astype(np.int32),
+            "store_and_fwd_flag": (rng.random(n) < 0.01).astype(np.int8),
+            "payment_type": rng.choice(np.arange(1, 5, dtype=np.int32), n,
+                                       p=[0.62, 0.34, 0.025, 0.015]),
+            "passenger_count": rng.choice(np.arange(1, 7, dtype=np.int32), n,
+                                          p=[0.7, 0.14, 0.05, 0.03, 0.05,
+                                             0.03]),
+            "fare_amount": 2.5 + 0.5 * rng.integers(0, 200, n),
+            "tip_amount": tip / 100.0,
+            "pickup_longitude": np.round(rng.uniform(*BOROUGHS[0], n), 6),
+            "pickup_latitude": np.round(rng.uniform(*BOROUGHS[1], n), 6),
+            "trip_distance": np.round(rng.gamma(2.0, 1.5, n), 2),
+        })
+    return out
+
+
+def trips_schema():
+    from pinot_tpu_torch.common.datatypes import DataType
+    from pinot_tpu_torch.common.schema import Schema
+
+    D = DataType
+    return Schema.build(
+        name=TRIPS_TABLE,
+        dimensions=[("vendor_id", D.INT), ("store_and_fwd_flag", D.STRING),
+                    ("payment_type", D.INT), ("passenger_count", D.INT),
+                    ("pickup_day", D.STRING), ("pickup_ts", D.LONG),
+                    ("pickup_longitude", D.DOUBLE),
+                    ("pickup_latitude", D.DOUBLE)],
+        metrics=[("fare_amount", D.DOUBLE), ("tip_amount", D.DOUBLE),
+                 ("trip_distance", D.DOUBLE)])
+
+
+def trip_codecs(available: dict) -> dict:
+    """The raw columns' codecs: zlib for the time and the fare, zstd for
+    the tip where the build has zstd, lz4 for the pickup coordinates; the
+    distance stays uncompressed."""
+    out = {"pickup_ts": "zlib", "fare_amount": "zlib",
+           "pickup_longitude": "lz4", "pickup_latitude": "lz4"}
+    if available.get("zstd"):
+        out["tip_amount"] = "zstd"
+    return out
+
+
+def write_trips_segment(i: int, seg: dict, codecs: dict) -> str:
+    """Segment ``s<i>`` of ``TRIPS_TABLE`` through the port's creator, its
+    raw columns compressed per ``codecs`` (run in a worker process)."""
+    from pinot_tpu_torch.common.table_config import IndexingConfig, \
+        TableConfig
+    from pinot_tpu_torch.storage.creator import build_segment
+
+    days = np.array([f"202001{d + 1:02d}" for d in range(TRIP_DAYS)])
+    cols = dict(seg)
+    cols["pickup_day"] = days[seg["pickup_day"]]
+    cols["store_and_fwd_flag"] = np.array(["N", "Y"])[
+        seg["store_and_fwd_flag"]]
+    out = os.path.join(DATA_DIR, TRIPS_TABLE, f"s{i}")
+    build_segment(trips_schema(), cols, out, TableConfig(
+        table_name=TRIPS_TABLE, indexing=IndexingConfig(
+            no_dictionary_columns=list(TRIP_RAW),
+            compression_codec=dict(codecs))), f"s{i}")
+    return out
+
+
+def grid_cells(lon: np.ndarray, lat: np.ndarray, res: int) -> np.ndarray:
+    """GEOTOH3's grid cell ids (the reference's ops/geo.py formula, in
+    numpy): floor(lat / 360 * 2^res) and floor(lon / 360 * 2^res) packed
+    under the resolution."""
+    deg = 360.0 / (1 << res)
+    ci = np.floor(lat / deg).astype(np.int64)
+    cj = np.floor(lon / deg).astype(np.int64)
+    return (np.int64(res) << 54) | ((ci & 0x3FFFFFF) << 27) | (cj & 0x7FFFFFF)
+
+
+def in_ring(ring: list, lon: np.ndarray, lat: np.ndarray) -> np.ndarray:
+    """The even-odd ray cast ST_CONTAINS answers with, in float64."""
+    inside = np.zeros(len(lon), dtype=bool)
+    x0, y0 = ring[-1]
+    for x1, y1 in ring:
+        crosses = (y1 > lat) != (y0 > lat)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            xint = (x0 - x1) * (lat - y1) / (y0 - y1) + x1
+        inside ^= crosses & (lon < xint)
+        x0, y0 = x1, y1
+    return inside
+
+
+def _ring(wkt: str) -> list:
+    body = wkt[wkt.index("((") + 2: wkt.index("))")]
+    return [tuple(float(v) for v in p.split()) for p in body.split(",")]
+
+
+def _exact_sum(values: np.ndarray, counts: np.ndarray):
+    """SUMPRECISION's sum of ``values`` each ``counts`` times: an int
+    where every value is integral, else the exact Decimal of their reprs
+    (its exponent the least of theirs)."""
+    import decimal
+
+    with decimal.localcontext() as ctx:
+        ctx.prec = 200
+        tot = 0
+        for v, k in zip(values.tolist(), counts.tolist()):
+            tot += int(v) * k if float(v).is_integer() \
+                else decimal.Decimal(repr(v)) * k
+    return tot
+
+
+def _block_stats(cols: list, sizes: list, lo_hi, pad_to: int,
+                 n_cols: int = 1) -> dict:
+    """The block-skip stats of one interval over sorted values: blocks of
+    4096 rows whose [min, max] meets [lo, hi] are candidates, none pruned
+    past the bound (1/16 of the batch's blocks)."""
+    R, frac = 4096, 16
+    starts = [np.arange(0, n, R) for n in sizes]
+    blo = np.concatenate([np.minimum.reduceat(c, st)
+                          for c, st in zip(cols, starts)])
+    bhi = np.concatenate([np.maximum.reduceat(c, st)
+                          for c, st in zip(cols, starts)])
+    rows = np.concatenate([np.minimum(R, n - st)
+                           for n, st in zip(sizes, starts)])
+    cand = (bhi >= lo_hi[0]) & (blo <= lo_hi[1])
+    total = len(cols) * (pad_to // R)
+    bound = min(total, max(1, -(-total // frac)))
+    if cand.sum() > bound:
+        scanned, n = len(rows), int(rows.sum())
+    else:
+        scanned, n = int(cand.sum()), int(rows[cand].sum())
+    return {"numSegmentsPrunedByServer": 0, "numBlocksPruned":
+            len(rows) - scanned, "numEntriesScannedInFilter": n * n_cols}
+
+
+def tail_oracle(trips: list, pad_to: int) -> dict:
+    """The tail path's answers from the generated columns, with the stats
+    of the reference's host path where it answers (every doc scanned by a
+    predicate it evaluates over values, entries after the filter per
+    kept row and argument) and of its device's block skip."""
+    c = {k: np.concatenate([d[k] for d in trips]) for k in trips[0]}
+    sizes = [len(d["pickup_ts"]) for d in trips]
+    total = sum(sizes)
+    S = len(trips)
+    pay = c["payment_type"].astype(np.int64)
+    pc = c["passenger_count"].astype(np.int64)
+    fare, tip = c["fare_amount"], c["tip_amount"]
+    fare_k = np.rint((fare - 2.5) * 2).astype(np.int64)   # 50-cent steps
+    host = {"numSegmentsProcessed": S, "numSegmentsPrunedByServer": 0,
+            "numEntriesScannedInFilter": 0}
+    want = {}
+
+    rows = []
+    for p in range(1, 5):
+        k = np.bincount(fare_k[pay == p], minlength=200)
+        keep = k > 0
+        rows.append([p, str(_exact_sum(2.5 + 0.5 * np.flatnonzero(keep),
+                                       k[keep]))])
+    want["tail_sumprec_pay"] = (rows, total, dict(
+        host, numEntriesScannedPostFilter=total))
+
+    both = fare + tip
+    u, k = np.unique(both, return_counts=True)
+    want["tail_sumprec_expr"] = ([[str(_exact_sum(u, k))]], total, dict(
+        host, numEntriesScannedPostFilter=total))
+
+    lon, lat = c["pickup_longitude"], c["pickup_latitude"]
+    cells = grid_cells(lon, lat, GEO_RES)
+    u, inv, cnt = np.unique(cells, return_inverse=True, return_counts=True)
+    fs = np.bincount(inv, weights=fare)
+    top = sorted(range(len(u)), key=lambda j: (-cnt[j], u[j]))[:10]
+    want["tail_geo_cell"] = (
+        _close_checker("tail_geo_cell", [[int(u[j]), int(cnt[j]),
+                                          float(fs[j])] for j in top], 1e-9),
+        total, dict(host, numEntriesScannedPostFilter=total))
+
+    m = in_ring(_ring(MANHATTAN), lon, lat)
+    cnt = np.bincount(pay[m], minlength=5)
+    want["tail_st_contains"] = (
+        [[p, int(cnt[p])] for p in range(1, 5) if cnt[p]], int(m.sum()),
+        dict(host, numEntriesScannedInFilter=total,
+             numEntriesScannedPostFilter=0))
+
+    ts = c["pickup_ts"]
+    m = (ts >= STUNION_WINDOW[0]) & (ts <= STUNION_WINDOW[1])
+    pts = sorted({f"POINT ({x:.10g} {y:.10g})"
+                  for x, y in zip(lon[m].tolist(), lat[m].tolist())})
+    body = ", ".join(p[len("POINT ("):-1] for p in pts)
+    want["tail_stunion"] = ([[f"MULTIPOINT ({body})"]], int(m.sum()), dict(
+        host, numEntriesScannedInFilter=total,
+        numEntriesScannedPostFilter=int(m.sum())))
+
+    r = np.sign(fare) * np.floor(np.abs(fare) * 1.0 + 0.5) / 1.0
+    u, cnt = np.unique(r, return_counts=True)
+    want["tail_round_fare"] = ([[float(a), int(b)] for a, b in
+                                zip(u[:20], cnt[:20])], total,
+                               dict(host, numEntriesScannedPostFilter=0))
+
+    cnt = np.bincount(pc, minlength=7)
+    rows = [[str(p), int(cnt[p])] for p in range(1, 5) if cnt[p]] \
+        + [["group", int(cnt[5] + cnt[6])]]
+    want["tail_case_mixed"] = (rows, total, dict(
+        host, numEntriesScannedPostFilter=0))
+
+    # the reference's device answers a dict column's LIKE
+    hits = int((pc == 1).sum())
+    want["tail_like_num"] = ([[hits]], hits)
+
+    minute = (ts / 60000).view(np.uint64)
+    h = fmix32(((minute >> np.uint64(32)) ^ (minute & np.uint64(0xFFFFFFFF)))
+               .astype(np.uint32).view(np.int32))
+    idx, rho = hll_idx_rho(h, LOG2M)
+    est = hll_estimates(idx, rho, pay, 5, LOG2M)
+    want["tail_hll_minutes"] = (
+        [[p, int(est[p])] for p in range(1, 5)], total,
+        dict(host, numEntriesScannedPostFilter=total))
+
+    day = c["pickup_day"].astype(np.int64)
+    vendor = c["vendor_id"].astype(np.int64)
+    rows = []
+    for v in (1, 2):
+        mv = vendor == v
+        last = day[mv].max()
+        rows.append([v, float(fare[mv & (day == last)].max())])
+    want["tail_last_day"] = (rows, total, dict(
+        host, numEntriesScannedPostFilter=2 * total))
+
+    f32 = fare.astype(np.float32).astype(np.float64)
+    rows = []
+    for p in range(1, 7):
+        mp = pc == p
+        rows.append([p, int(mp.sum()), float(f32[mp].sum()),
+                     float(np.float32(tip[mp].min())),
+                     float(np.float32(c["trip_distance"][mp].max()))])
+    want["tail_decoded"] = (_close_checker("tail_decoded", rows, 1e-9),
+                            total)
+
+    m = (ts >= HOUR[0]) & (ts <= HOUR[1])
+    want["tail_ts_range"] = (
+        _close_checker("tail_ts_range", [[int(m.sum()),
+                                          float(f32[m].sum())]], 1e-9),
+        int(m.sum()), _block_stats([d["pickup_ts"] for d in trips], sizes,
+                                   HOUR, pad_to))
+
+    target = int(FUSED_DAY[-2:]) - 1
+    m = day == target
+    want["tail_day_fused"] = (
+        [[int(m.sum()), float(pc[m].sum()), float(np.float32(tip[m].max()))]],
+        int(m.sum()), _block_stats([d["pickup_day"].astype(np.int64)
+                                    for d in trips], sizes,
+                                   (target, target), pad_to))
+    return want
+
+
+def check_tail_kernels(engine, sub_engine, k1: dict, k2: dict, k3: dict,
+                       k4: dict) -> None:
+    """K1, K2, K3 and K4 at the tail path's own inputs, captured at their
+    entries and held against their plain versions: SUMPRECISION's scaled
+    integers and their magnitudes at the batch's least exponent (K1) and
+    its exponent plane (K2), the GEOTOH3 group ids (K1), the hashes of
+    ``pickup_ts / 60000`` (K3), the sub-byte load's unpacked ids under
+    tail_decoded (K1, K2) and tail_day_fused's candidates (K4)."""
+    from pinot_tpu_torch.ops import group_scatter as ps
+    from pinot_tpu_torch.ops import groupby_mm as mm
+
+    for eng, name, what in (
+            (engine, "tail_sumprec_pay", "SUMPRECISION's scaled integers"),
+            (engine, "tail_geo_cell", "GEOTOH3 ids"),
+            (sub_engine, "tail_decoded", "the sub-byte load's ids")):
+        for (gid, sources, G), kw in capture_calls(
+                eng, TAIL_QUERIES[name], ps, "plane_group_sums"):
+            count = kw.get("count", True)
+            k1["shapes"].append(k1_shape(
+                f"{name}: {what}, G={G}, {planes_label(sources, count)}",
+                ps.plane_group_sums, G, sources, count, gid))
+    for eng, name in ((engine, "tail_sumprec_pay"),
+                      (sub_engine, "tail_decoded")):
+        for (gid, srcs, G), _kw in capture_calls(
+                eng, TAIL_QUERIES[name], ps, "group_minmax_sources"):
+            k2["shapes"].append(k2_shape(
+                f"{name}: " + ", ".join(
+                    f"{s.values.dtype} {'+'.join(s.ops)}"
+                    for s in srcs).replace("torch.", ""), gid, srcs, G))
+    k3["sizes"].append(k3_captured(engine, TAIL_QUERIES["tail_hll_minutes"],
+                                   "tail_hll_minutes' expression hashes",
+                                   mm))
+    k4["sizes"].append(check_k4("the tail path's tail_day_fused",
+                                *capture_fused(
+                                    engine, TAIL_QUERIES["tail_day_fused"])))
+
+
+def subbyte_twins(dirs: list, want: dict, total: int, engine_cls) -> tuple:
+    """``trips`` loaded twice more, wide and under ``PINOT_TPU_SUBBYTE=1``
+    (read when the batch is built): ``SUBBYTE_TWINS`` answer the same rows
+    and stats on both, as the oracle says, and the sub-byte load holds
+    fewer bytes. Returns (sub-byte engine, its resident bytes, the wide
+    load's)."""
+    from pinot_tpu_torch.storage.segment import ImmutableSegment
+
+    loads = []
+    for flag in ("", "1"):
+        eng = engine_cls(device="cuda")
+        segs = [ImmutableSegment(d) for d in dirs]
+        for s in segs:
+            eng.add_segment(TRIPS_TABLE, s)
+        os.environ["PINOT_TPU_SUBBYTE"] = flag
+        try:
+            ctx = eng.device.batch_for(segs)
+        finally:
+            os.environ.pop("PINOT_TPU_SUBBYTE", None)
+        loads.append((eng, ctx))
+    (wide, wctx), (sub, sctx) = loads
+    bits = {c: sctx.width_plan(c).bits for c in
+            ("vendor_id", "store_and_fwd_flag", "payment_type",
+             "passenger_count", "pickup_day")}
+    for name in SUBBYTE_TWINS:
+        a, b = wide.execute(TAIL_QUERIES[name]), sub.execute(
+            TAIL_QUERIES[name])
+        if a["exceptions"] or b["exceptions"]:
+            raise AssertionError(f"{name}: {a['exceptions']} "
+                                 f"{b['exceptions']}")
+        for key in ("resultTable", "numDocsScanned", "totalDocs",
+                    "numEntriesScannedInFilter",
+                    "numEntriesScannedPostFilter"):
+            if a[key] != b[key]:
+                raise AssertionError(f"{name}: the sub-byte load's {key} "
+                                     f"{b[key]} differs from {a[key]}")
+        rows_want = want[name][0]
+        got = b["resultTable"]["rows"]
+        if callable(rows_want):
+            rows_want(got)
+        elif not rows_equal(got, rows_want):
+            raise AssertionError(f"{name}: sub-byte rows {got} want "
+                                 f"{rows_want}")
+    if not sctx.resident_bytes < wctx.resident_bytes:
+        raise AssertionError(f"the sub-byte load holds {sctx.resident_bytes}"
+                             f" bytes, the wide load {wctx.resident_bytes}")
+    log(f"{TRIPS_TABLE} sub-byte load (PINOT_TPU_SUBBYTE=1; bits {bits}): "
+        f"{', '.join(SUBBYTE_TWINS)} equal the wide load's rows and stats; "
+        f"resident bytes {sctx.resident_bytes} sub-byte, "
+        f"{wctx.resident_bytes} wide ({total} rows; narrow_saved_bytes "
+        f"{sctx.narrow_saved_bytes} and {wctx.narrow_saved_bytes})")
+    return sub, sctx.resident_bytes, wctx.resident_bytes
+
+
+PATHS["tail"] = (TAIL_QUERIES, ("group_plane_sums", "group_minmax",
+                                "hll_register_max", "fused_filter_agg"),
+                 ((3, "group_scatter", "plane_group_sums"),
+                  (4, "group_scatter", "group_minmax"),
+                  (2, "groupby_mm", "hll_registers"),
+                  (6, "group_scatter", "fused_filter_agg")))
+# SUMPRECISION over fractions: K1 over the scaled integers and their
+# magnitudes (one 62-bit limb each here) and K2 over the exponents, and a
+# group-by's count in one more K1 launch; every host-shaped group-by's
+# pipeline one K1 launch; the expression's registers one K3 launch; the
+# scalar queries with a filter on a dict column or a block-skip range
+# count on the card without a kernel (a float SUM stays off K4), but
+# tail_day_fused, in K4's surface
+_TAIL_K1 = {"tail_sumprec_pay": 3, "tail_sumprec_expr": 2,
+            "tail_geo_cell": 1, "tail_st_contains": 1, "tail_round_fare": 1,
+            "tail_case_mixed": 1, "tail_hll_minutes": 1, "tail_last_day": 1,
+            "tail_decoded": 1}
+QUERY_LAUNCHES.update({
+    name: {"group_plane_sums": _TAIL_K1.get(name, 0),
+           "group_minmax": int(name in ("tail_sumprec_pay",
+                                        "tail_sumprec_expr",
+                                        "tail_decoded")),
+           "hll_register_max": int(name == "tail_hll_minutes"),
+           "fused_filter_agg": int(name == "tail_day_fused")}
+    for name in TAIL_QUERIES})
+
+
 def _rows_mask(tree, c) -> np.ndarray:
     kind = tree[0]
     if kind == "range":
@@ -3453,10 +3929,25 @@ def main(argv=None) -> int:
     mv = mv_generate(data)
     ev = ev_generate(EV_SEGMENTS, args.event_rows)
     v2 = v2_generate(rows)
+    trips = trips_generate(TRIPS_SEGMENTS, rows)
     log(f"generate: {time.perf_counter() - t:.2f} s (with {MV_TABLE}'s MV "
         f"columns over {len(mv)} segments, {EV_TABLE}: {EV_SEGMENTS} x "
-        f"{args.event_rows} rows and {V2_TABLE}'s new segment s{S}: "
-        f"{rows} rows, seed {V2_SEED})")
+        f"{args.event_rows} rows, {V2_TABLE}'s new segment s{S}: "
+        f"{rows} rows, seed {V2_SEED}, and {TRIPS_TABLE}: {TRIPS_SEGMENTS} x "
+        f"{rows} rows, seed {TRIPS_SEED})")
+    from pinot_tpu_torch import native
+
+    t = time.perf_counter()
+    available = native.available_codecs()
+    if not (available["zlib"] and available["lz4"]):
+        raise AssertionError(f"zlib and lz4 have a Python codec at least: "
+                             f"{available}")
+    codecs = trip_codecs(available)
+    log(f"codecs: {available} (library {native.library_path()}, built in "
+        f"{time.perf_counter() - t:.2f} s); {TRIPS_TABLE}'s raw columns: "
+        f"{codecs}, trip_distance uncompressed"
+        + ("" if "tip_amount" in codecs else
+           "; no zstd in this build: tip_amount uncompressed"))
     shutil.rmtree(DATA_DIR, ignore_errors=True)
     os.makedirs(DATA_DIR)
     t_write = time.perf_counter()
@@ -3464,6 +3955,9 @@ def main(argv=None) -> int:
     pool = mp.get_context("spawn").Pool(workers)
     try:
         # the longest writes first
+        pending_trips = pool.starmap_async(
+            write_trips_segment, [(i, seg, codecs) for i, seg in
+                                  enumerate(trips)])
         pending_mv = pool.starmap_async(
             write_mv_segment, [(i, data[i], m) for i, m in enumerate(mv)])
         pending_ev = pool.starmap_async(
@@ -3518,6 +4012,7 @@ def main(argv=None) -> int:
         want.update(mv_oracle(data, mv))
         want.update(idx_oracle(ev))
         want.update(val_oracle(data, v2, mv))
+        want.update(tail_oracle(trips, pad))
         oracle_s = time.perf_counter() - t
 
         dirs, cube_s = zip(*pending.get())
@@ -3528,7 +4023,8 @@ def main(argv=None) -> int:
         mv_dirs = pending_mv.get()
         ev_dirs = pending_ev.get()
         v2_dir = pending_v2.get()
-        log(f"write segments (port creator, {workers} processes, six "
+        trips_dirs = pending_trips.get()
+        log(f"write segments (port creator, {workers} processes, seven "
             f"tables): {time.perf_counter() - t_write:.2f} s, of which the "
             f"two star-tree cubes of lineorder took {sum(cube_s):.2f} s "
             f"summed over its {S} segments (at most {max(cube_s):.2f} s "
@@ -3545,8 +4041,9 @@ def main(argv=None) -> int:
     total = S * rows
     path_rows = {"mv": sum(len(d["d_year"]) for d in data[:MV_SEGMENTS]),
                  "index": EV_SEGMENTS * args.event_rows,
-                 "values": total + len(v2["d_year"])}
-    del data, bs_data, mv, ev, v2
+                 "values": total + len(v2["d_year"]),
+                 "tail": TRIPS_SEGMENTS * rows}
+    del data, bs_data, mv, ev, v2, trips
     log(f"numpy oracle: {oracle_s:.2f} s beside the writes, "
         f"{time.perf_counter() - t:.2f} s after them")
 
@@ -3569,6 +4066,8 @@ def main(argv=None) -> int:
     for seg in v2_segs:
         seg.table_schema = v2_schema()
         engine.add_segment(V2_TABLE, seg)
+    for d in trips_dirs:
+        engine.add_segment(TRIPS_TABLE, ImmutableSegment(d))
     t = time.perf_counter()
     ctx = engine.device.batch_for(segs)
     for c in ("d_year", "c_region", "s_nation", "lo_suppkey",
@@ -3604,6 +4103,11 @@ def main(argv=None) -> int:
     check_mv_kernels(engine, k1, k2, k3, k5_sizes)
     torch.cuda.empty_cache()
     check_values_kernels(engine, k1, k2)
+    torch.cuda.empty_cache()
+    sub_engine, sub_bytes, wide_bytes = subbyte_twins(
+        trips_dirs, want, path_rows["tail"], QueryEngine)
+    check_tail_kernels(engine, sub_engine, k1, k2, k3, k4)
+    del sub_engine
     torch.cuda.empty_cache()
 
     count_sorted_builds()
@@ -3666,6 +4170,9 @@ def main(argv=None) -> int:
         entry.update(res)
         entries.append(entry)
     log(json.dumps({"query_p50_ms": p50, "rows": total,
+                    "trips_rows": path_rows["tail"],
+                    "trips_resident_bytes": {"subbyte": sub_bytes,
+                                             "wide": wide_bytes},
                     "overflow_cost": overflow,
                     "device_reduce_fetch_bytes": reduce_bytes,
                     "cube_build_s": list(cube_s),

@@ -779,9 +779,10 @@ def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS,
                 continue
             if name == "distinctcount_v":
                 # a value key plane (engine/rows.py): distinct (group,
-                # value) pairs, counted per group when terminal
+                # value) pairs, counted per group when terminal (but for
+                # STUNION, whose answer is the set)
                 vk = cols[argt].reshape(-1)
-                if final:
+                if final and extra != "sets":
                     outs[f"{k}_cnt"] = sel_ops.distinct_pair_counts(
                         gid.reshape(-1), vk, num_groups)
                 else:
@@ -821,7 +822,7 @@ def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS,
                 continue
             if name == "distinctcount_v":
                 vk = cols[argt][mask]
-                if final:
+                if final and extra != "sets":
                     outs[f"{k}_cnt"] = torch.tensor(
                         torch.unique(vk).numel(), dtype=torch.int64,
                         device=vk.device)

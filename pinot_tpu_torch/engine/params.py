@@ -37,14 +37,23 @@ Counterpart of pinot_tpu/engine/params.py, over CUDA tensors:
   when the file is missing or of another granularity. The block-skip
   verdict (ops/blockskip.py) reads them.
 
-The sub-byte tier comes with a later slice of the port. Raises
-``DeviceUnsupported`` for anything this slice's device path does not
+- **The sub-byte tier** (opt-in, ``PINOT_TPU_SUBBYTE=1``, read when a
+  batch is built): dict id planes of C <= 3 pack 2-bit, C <= 15 4-bit ids
+  into uint8 bytes on the card (``resident_bytes`` counts the packed
+  plane); ``column`` unpacks them by torch ops (ops/masks.py
+  ``unpack_subbyte``) each time a kernel or an expression reads them, and
+  the fused K4 form refuses a packed plane, as the reference's does.
+  ``narrow_saved_bytes`` counts what the width plans saved against the
+  wide layout (int32 ids, the base raw dtype, and their zone maps).
+
+Raises ``DeviceUnsupported`` for anything the device path does not
 cover; the engine reports it in the response.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import re
 
 import numpy as np
@@ -114,7 +123,7 @@ class ColPlan:
     """Device storage plan for one column plane."""
 
     dtype: str          # numpy dtype .str of the STORED plane
-    bits: int = 0       # sub-byte pack width; always 0 in this slice
+    bits: int = 0       # sub-byte pack width (2 | 4); 0 = byte-aligned
     offset: int | None = None  # frame-of-reference offset (raw value space)
     wide: str = ""      # decode target dtype ("" = none needed)
 
@@ -147,6 +156,15 @@ def _int_for_plan(lo: int, hi: int, base: np.dtype) -> ColPlan:
             return ColPlan(np.dtype(np.uint32).str, offset=int(lo),
                            wide=base.str)
     return ColPlan(base.str)
+
+
+def _pack_subbyte_np(blocks: np.ndarray, bits: int) -> np.ndarray:
+    """(S, L) small ids -> (S, L * bits // 8) uint8, little-endian within
+    each byte (the host-side inverse of ops/masks.py ``unpack_subbyte``)."""
+    f = 8 // bits
+    v = blocks.reshape(blocks.shape[0], -1, f).astype(np.uint16)
+    shifts = np.arange(f, dtype=np.uint16) * bits
+    return (v << shifts).sum(axis=-1, dtype=np.uint16).astype(np.uint8)
 
 
 def to_device(a: np.ndarray, device) -> torch.Tensor:
@@ -183,6 +201,10 @@ class BatchContext:
         self._evolved: dict[str, list] = {}
         self._derived: dict = {}
         self.resident_bytes = 0
+        self.narrow_saved_bytes = 0
+        # sampled once: a cached batch's plans never shift mid-life
+        self._subbyte = os.environ.get("PINOT_TPU_SUBBYTE", "") \
+            not in ("", "0")
 
     # ---- column access ---------------------------------------------------
     def column_meta(self, name: str):
@@ -413,6 +435,11 @@ class BatchContext:
 
     def _plan_dict(self, name: str) -> ColPlan:
         C = len(self.global_dict(name))
+        # sub-byte tiers reserve the pad sentinel C inside the bit width
+        if self._subbyte and C <= 3:
+            return ColPlan(np.dtype(np.uint8).str, bits=2)
+        if self._subbyte and C <= 15:
+            return ColPlan(np.dtype(np.uint8).str, bits=4)
         if C <= 255:  # ids 0..C-1, pad C: C == 255 still fits uint8
             return ColPlan(np.dtype(np.uint8).str)
         if C <= 65535:
@@ -515,12 +542,37 @@ class BatchContext:
 
     def column(self, name: str) -> torch.Tensor:
         """(S, L) device tensor of ``host_column``; its zone map is
-        uploaded with it."""
+        uploaded with it. A sub-byte plan's plane is held packed and
+        unpacked here, by torch ops, at every read."""
+        plane = self.packed_column(name)
+        plan = self.width_plan(name)
+        if plan.bits:
+            return mask_ops.unpack_subbyte(plane, plan.bits)
+        return plane
+
+    def packed_column(self, name: str) -> torch.Tensor:
+        """The plane ``column`` reads, as the card holds it: a sub-byte
+        plan's (S, L * bits // 8) packed bytes, else the plane itself."""
         if name not in self._columns:
             blocks, zlo, zhi = self.host_column(name)
+            plan = self.width_plan(name)
+            if plan.bits:
+                blocks = _pack_subbyte_np(blocks, plan.bits)
             self._upload(self._columns, name, blocks)
             self._store_zone_map(name, zlo, zhi)
+            wide = 4 if self.encoding(name) == Encoding.DICT else np.dtype(
+                RAW_DEVICE_DTYPES[self.column_meta(name).data_type]).itemsize
+            self._note_saved(wide, self._columns[name],
+                             *self._zone_maps[name])
         return self._columns[name]
+
+    def _note_saved(self, wide_item: int, *planes) -> None:
+        """Bytes the width plan saved against the wide layout of a plane
+        and its two zone planes (``wide_item`` bytes a value)."""
+        nb = self.pad_to // ZONE_BLOCK_ROWS
+        wide = wide_item * self.S * (self.pad_to + 2 * nb)
+        actual = sum(t.numel() * t.element_size() for t in planes)
+        self.narrow_saved_bytes += max(wide - actual, 0)
 
     # ---- zone maps (the block-skip verdict's basis, ops/blockskip.py) ----
     def _zone_fills(self, dtype):
@@ -628,6 +680,9 @@ class BatchContext:
                 zhi[i, : z.shape[1]] = z[1]
             self._upload(self._decoded, name, blocks)
             self._store_zone_map("dv::" + name, zlo, zhi)
+            wide = 8 if any(v.dtype.itemsize == 8 for v in per_seg) else 4
+            self._note_saved(wide, self._decoded[name],
+                             *self._zone_maps["dv::" + name])
         return self._decoded[name]
 
     def exact_column(self, name: str) -> torch.Tensor:

@@ -68,7 +68,6 @@ from pinot_tpu_torch.engine.values import (
     ValueEvaluator,
     filter_entries,
     host_fails,
-    later,
 )
 from pinot_tpu_torch.ops import agg as agg_ops
 from pinot_tpu_torch.ops import device_reduce as dr_ops
@@ -209,7 +208,7 @@ def _selection(q: QueryContext, ctx, alive) -> RowsLaunch:
                                  f"{e.name!r}")
             v, outs[f"v{j}"], outs[f"n{j}"] = _mv_rows(ev, e.name, idx, L)
         else:
-            v = ev.eval(e, r)
+            v = ev.materialize(ev.eval(e, r))
             outs[f"v{j}"] = torch.broadcast_to(v.t, idx.shape).contiguous()
         vals.append(v)
     n_sel = len(q.select_expressions)
@@ -304,7 +303,8 @@ def _distinct(q: QueryContext, ctx, alive) -> RowsLaunch:
 # ---------------------------------------------------------------------------
 
 
-def _agg_plan(ex, q, ctx, ev, aggs, full, params, counter, cols, filters):
+def _agg_plan(ex, q, ctx, ev, aggs, full, params, counter, cols, filters,
+              mask=None):
     """The pipeline's templates: the device template where an aggregation
     has one (the kernels read the stored planes), else value-space planes
     the card computes (``__x`` / ``__k`` / ``__v`` / ``__t`` cols); per
@@ -344,33 +344,42 @@ def _agg_plan(ex, q, ctx, ev, aggs, full, params, counter, cols, filters):
                         cols[key] = cols[key].to(torch.float64)
                         extra = (None, None)
                 tpl = (name, ("raw", key), extra)
-        elif name in _DISTINCT_ALIASES:
+        elif name in _DISTINCT_ALIASES or name == "stunion":
             v = ev.eval(a.args[0], full)
             key = f"__k{i}"
             cols[key] = ev.set_key(v, shape)
-            tpl, dec = ("distinctcount_v", key, None), v
+            # STUNION's answer is the set of its values' texts
+            tpl = ("distinctcount_v", key,
+                   "sets" if name == "stunion" else None)
+            dec = v
         elif name in ("firstwithtime", "lastwithtime"):
-            v = ev.eval(a.args[0], full)
+            # a point orders by its text
+            v = ev.materialize(ev.eval(a.args[0], full))
             t = ev.eval(a.args[1], full)
             if t.kind != "num":
-                raise later(f"{name.upper()} over a non-numeric time")
-            if v.kind not in ("num", "dict"):
-                raise later(f"{name.upper()} over a virtual column value")
-            cols[f"__v{i}"] = torch.broadcast_to(v.t, shape)
+                t = _parsed_times(ev, t, a, mask)
+            cols[f"__v{i}"] = torch.broadcast_to(
+                v.t if v.kind == "num" else ev.key(v), shape)
             cols[f"__t{i}"] = torch.broadcast_to(t.t, shape)
             # integer values ride exactly, as the host path carries them
             exact = v.kind == "num" and v.dtype.kind in "biu"
             tpl = (name, (("raw", f"__v{i}"), ("raw", f"__t{i}")),
                    "exact" if exact else "pair")
-            dec = v if v.kind == "dict" else None
+            # values other than numbers ride as their order keys (string
+            # order: ties go to the largest value, as for strings)
+            dec = v if v.kind != "num" else None
         elif name in ("distinctcounthll", "hllmerge", "fasthll"):
-            if not a.args[0].is_identifier \
-                    or a.args[0].name.startswith("$"):
-                raise later(f"{name.upper()} over an expression")
-            ev.column_dtype(a.args[0].name)
+            arg = a.args[0]
             if name != "hllmerge" and (
-                    ev.is_mv(a.args[0].name)
-                    or ctx.encoding(a.args[0].name) != Encoding.DICT):
+                    not arg.is_identifier or arg.name.startswith("$")):
+                # an expression: its values hashed as the host hashes
+                # their dtype, into K3's registers
+                slots.append(sketches.plan(len(slots), a, ev, None))
+                continue
+            ev.column_dtype(arg.name)
+            if name != "hllmerge" and (
+                    ev.is_mv(arg.name)
+                    or ctx.encoding(arg.name) != Encoding.DICT):
                 # the reference's device reads dict columns only: a raw
                 # column's registers take the sketch's K3 form
                 slots.append(sketches.plan(len(slots), a, ev, None))
@@ -379,7 +388,7 @@ def _agg_plan(ex, q, ctx, ev, aggs, full, params, counter, cols, filters):
                 a = dataclasses.replace(a, name="distinctcounthll")
             tpl = ex._agg_template(i, a, ctx, params, counter)
         else:
-            raise later(f"the aggregation {name.upper()}")
+            raise KeyError(f"unsupported aggregation function: {name}")
         slots.append(i)
         tpls.append(tpl)
         decodes.append(dec)
@@ -458,13 +467,39 @@ def _partial(i, tpl, host, ctx, present, dec, ev):
     else:
         part = DeviceExecutor._group_partial(i, tpl, host, ctx, present)
     if dec is not None and "val" in part:
-        # string values rode as global dictionary ids
-        ids, out = part["val"], np.empty(len(part["val"]), dtype=object)
-        gdict = ctx.global_dict(dec.meta)
-        for j, x in enumerate(ids.tolist()):
-            out[j] = None if np.isnan(x) else gdict.get(int(x)).item()
+        # values other than numbers rode as their order keys
+        keys = np.asarray(part["val"], dtype=np.float64)
+        hit = ~np.isnan(keys)
+        text = ev.decode_key(dec, keys[hit].astype(np.int64))
+        out = np.empty(len(keys), dtype=object)
+        out[hit] = [x.item() if isinstance(x, np.generic) else x
+                    for x in text]
         part["val"] = out
     return part
+
+
+def _parsed_times(ev, t: Val, a, mask) -> Val:
+    """FIRST/LASTWITHTIME's times given as strings: each distinct value
+    parsed once, as the host path reads its times (``np.asarray(...,
+    dtype=np.int64)``), an int64 LUT gathered per row. A value that does
+    not parse, among the rows the aggregation takes, fails the host path
+    too: refused, quoting its error."""
+    inv, (vals,) = ev.distinct([t], Rows(ev.S, ev.L, ev.device))
+    parsed = np.zeros(len(vals), dtype=np.int64)
+    errs = {}
+    for j in range(len(vals)):
+        try:
+            parsed[j] = np.asarray(vals[j: j + 1], dtype=np.int64)[0]
+        except (ValueError, TypeError, OverflowError) as err:
+            errs[j] = err
+    if errs:
+        bad = torch.isin(inv, to_device(np.asarray(list(errs)), ev.device))
+        if mask is not None:
+            bad &= torch.broadcast_to(mask, bad.shape)
+        if bool(bad.any()):
+            raise host_fails(f"{a.name.upper()} over the times {a.args[1]}",
+                             errs[int(inv[bad][0])])
+    return Val(to_device(parsed, ev.device)[inv], "num", np.dtype(np.int64))
 
 
 def _partials(slots, tpls, decodes, host, ctx, present, ev) -> list:
@@ -604,7 +639,7 @@ def _run_aggs(ex, q, ctx, space: _Space, pairs_in, gid, G: int, final,
 
     tpls, decodes, slots = _agg_plan(ex, q, ev.ctx, ev, aggs,
                                      Rows(S, Ls, dev), params, counter, cols,
-                                     filters)
+                                     filters, space.mask)
     final = final and any(t[0] in STATE_AGGS for t in tpls)
     widths, base = ex.gather_columns(
         ctx, set().union(*(agg_columns(t) for t in tpls)), params)

@@ -68,7 +68,7 @@ from pinot_tpu_torch.engine.values import (
     Val,
     ValueEvaluator,
     _torch_dtype,
-    later,
+    host_fails,
 )
 from pinot_tpu_torch.ops import digest
 from pinot_tpu_torch.ops import group_scatter as ps
@@ -253,13 +253,11 @@ class _Percentile(_Sketch):
 
 def _hash32(v, ev: ValueEvaluator, arg, b: Batch) -> torch.Tensor:
     """The 32-bit canonical hash of each row's value, int64 (S*L,)."""
-    if v.kind == "num":
-        return b.flat(sb.hash32_values(v.t, v.dtype))
     if v.kind == "dict" and arg.is_identifier:
         # the strings' murmur hashes, gathered at upload
         plane = b.ctx.prehashed_column(arg.name)
         return plane.reshape(-1).to(torch.int64) & 0xFFFFFFFF
-    raise later(f"a sketch over {arg}")
+    return b.flat(ev.hash32(v))
 
 
 class _Theta(_Sketch):
@@ -314,15 +312,106 @@ class _Theta(_Sketch):
 
 
 # ---------------------------------------------------------------------------
-# SUMPRECISION over integers: K1's byte planes
+# SUMPRECISION: K1's byte planes, exact decimals by one scale
 # ---------------------------------------------------------------------------
 
 
+def _int_sums(b: Batch, x: torch.Tensor, m: torch.Tensor):
+    """(K1's (1 + planes, G) sums of the int64 values ``x`` over the rows
+    ``m`` with the count in row 0, their layout: (offset, nplanes, shift)
+    per source). The values after a frame-of-reference offset, split into
+    byte planes; a span of 2^63 or more goes in as two 32-bit halves."""
+    ids, G = b.kernel_ids()
+    big = torch.iinfo(torch.int64)
+    lo_hi = torch.stack([torch.where(m, x.to(torch.int64), big.max).min(),
+                         torch.where(m, x.to(torch.int64), big.min).max()])
+    lo, hi = (int(z) for z in lo_hi.cpu().tolist())
+    if lo > hi:            # no row: every sum is 0
+        lo = hi = 0
+    if hi - lo < _INT63:
+        parts = [(x, lo, mm.int_planes_needed(lo, hi), 0)]
+    else:   # the span wraps int64: two 32-bit halves
+        x64 = x.to(torch.int64)
+        parts = [(x64 >> 32, -(1 << 31), 4, 32),
+                 (x64 & 0xFFFFFFFF, 0, 4, 0)]
+    sources = []
+    for vals, off, nplanes, _shift in parts:
+        if vals.dtype not in kernels.K1_INT_DTYPES:
+            vals = vals.to(torch.int64)
+        sources.append(kernels.PlaneSource(
+            vals.contiguous(), "int", nplanes, None,
+            torch.tensor(off, dtype=torch.int64, device=b.dev)))
+    layout = [(off, nplanes, shift) for _v, off, nplanes, shift in parts]
+    # K1 partitions any group count over its grid
+    return ps.plane_group_sums(ids, sources, G, count=True), layout
+
+
+def _recombine(sums: np.ndarray, cols, layout) -> list:
+    """Python ints of ``_int_sums``' planes at the groups ``cols``."""
+    # every plane sum is an exact integer below 2^53: int64, then Python
+    # ints (object arrays) for the weighted recombination
+    planes = np.rint(sums[:, cols]).astype(np.int64).astype(object)
+    count = planes[0]
+    tot = np.zeros(len(count), dtype=object)
+    row = 1
+    for off, nplanes, shift in layout:
+        part = count * off
+        for p in range(nplanes):
+            part = part + (planes[row + p] << (8 * p))
+        tot = tot + (part << shift)
+        row += nplanes
+    return [int(x) for x in tot.tolist()]
+
+
+_FINITE, _NAN, _PINF, _NINF = 0, 1, 2, 3
+_DEC_DIGITS = 28     # the default decimal context's precision
+_LIMB_BITS = 62      # a scaled summand's limbs, each one K1 source
+_MAX_LIMBS = 4
+
+
+def _decimal_terms(table: list) -> tuple:
+    """Per distinct exact summand (the reference's Python int or
+    Decimal): (kind, coefficient, exponent), the exponent of an int 0,
+    of a Decimal at most 0 (its sum with the int start has it)."""
+    import decimal
+
+    kinds, coefs, exps = [], [], []
+    for x in table:
+        if isinstance(x, decimal.Decimal) and not x.is_finite():
+            kinds.append(_NAN if x.is_nan() else
+                         _NINF if x.is_signed() else _PINF)
+            coefs.append(0)
+            exps.append(0)
+            continue
+        kinds.append(_FINITE)
+        if isinstance(x, decimal.Decimal):
+            sign, digits, e = x.as_tuple()
+            c = int("".join(map(str, digits)) or "0")
+            coefs.append(-c if sign else c)
+            exps.append(int(e))
+        else:
+            coefs.append(int(x))
+            exps.append(0)
+    return kinds, coefs, exps
+
+
 class _SumPrecision(_Sketch):
+    """SUMPRECISION. Integers (and integral floats): K1's byte planes,
+    order-free, the batch summed at once. Fractions, as the reference
+    adds them (``Decimal(repr(v))`` one at a time into an int 0 under the
+    28-digit context): each distinct value's exact decimal found once on
+    the host, scaled by the batch's least exponent E to an int64 V; K1
+    sums V and |V| per group, K2 takes each group's least exponent e_g.
+    While a group's sum of |v| has at most 28 digits at e_g, no addition
+    rounds in any order: its answer is the exact sum at e_g (an int where
+    the group holds no fraction). NaN and the infinities follow Decimal:
+    NaN absorbs, +inf meeting -inf before any NaN fails the reference."""
+
     def __init__(self, i, spec, ev):
         super().__init__(i, spec, ev)
         self.v = _numeric(spec, ev, "SUMPRECISION")
         self.layout: list = []     # (offset, nplanes, shift) per source
+        self.dec = None            # the decimal route's state
 
     def launch(self, b):
         x = b.flat(self.v.t)
@@ -332,87 +421,194 @@ class _SumPrecision(_Sketch):
             exact = torch.isfinite(xm) & (xm == torch.trunc(xm)) \
                 & (xm.abs() < float(_INT63))
             if not bool(exact.all()):
-                raise DeviceUnsupported(
-                    "SUMPRECISION over non-integer FLOAT/DOUBLE values comes "
-                    "with a later slice of the port (ROADMAP queue 1, item "
-                    "e2b)")
+                return self._fractions(b, x.to(torch.float64))
             x = xm.to(torch.int64)
         elif x.dtype == torch.bool:
             x = x.to(torch.int64)
-        ids, G = b.kernel_ids()
-        big = torch.iinfo(torch.int64)
-        lo_hi = torch.stack([torch.where(m, x.to(torch.int64), big.max).min(),
-                             torch.where(m, x.to(torch.int64), big.min).max()])
-        lo, hi = (int(z) for z in lo_hi.cpu().tolist())
-        if lo > hi:            # no row: every sum is 0
-            lo = hi = 0
-        if hi - lo < _INT63:
-            parts = [(x, lo, mm.int_planes_needed(lo, hi), 0)]
-        else:   # the span wraps int64: two 32-bit halves
-            x64 = x.to(torch.int64)
-            parts = [(x64 >> 32, -(1 << 31), 4, 32),
-                     (x64 & 0xFFFFFFFF, 0, 4, 0)]
-        sources = []
-        for vals, off, nplanes, _shift in parts:
-            if vals.dtype not in kernels.K1_INT_DTYPES:
-                vals = vals.to(torch.int64)
-            sources.append(kernels.PlaneSource(
-                vals.contiguous(), "int", nplanes, None,
-                torch.tensor(off, dtype=torch.int64, device=b.dev)))
-        self.layout = [(off, nplanes, shift)
-                       for _v, off, nplanes, shift in parts]
-        # K1 partitions any group count over its grid
-        sums = ps.plane_group_sums(ids, sources, G, count=True)
+        sums, self.layout = _int_sums(b, x, m)
         return {f"{self.k}_planes": sums}
 
+    def _fractions(self, b, x):
+        from pinot_tpu_torch.ops.geo import float_bits
+
+        idx = torch.nonzero(b.mask).reshape(-1)
+        uniq, inv = torch.unique(float_bits(x[idx]), return_inverse=True)
+        vals = uniq.cpu().numpy().view(np.float64).tolist()
+        return self._decimal_launch(b, idx, inv, [
+            aggspec.SumPrecisionSpec._exact(v) for v in vals])
+
+    def _decimal_launch(self, b, idx, inv, table) -> dict:
+        """The summands of the rows ``idx``: ``table[inv]``."""
+        kinds, coefs, exps = _decimal_terms(table)
+        E = min([min(e, 0) for e in exps] or [0])
+        scaled = [c * 10 ** (e - E) for c, e in zip(coefs, exps)]
+        # V in signed 62-bit limbs: V = sum_j limb_j << 62 j, each limb
+        # with V's sign, so |V| = sum_j |limb_j| << 62 j
+        bits = max([abs(v).bit_length() for v in scaled] or [0])
+        n_limbs = max(1, -(-bits // _LIMB_BITS))
+        if n_limbs > _MAX_LIMBS:
+            raise DeviceUnsupported(
+                "SUMPRECISION: a summand at the batch's least exponent "
+                f"10^{E} is past 2^{_LIMB_BITS * _MAX_LIMBS}, which the "
+                "port does not sum (ROADMAP queue 3)")
+        dev, n = b.dev, b.S * b.L
+        inv = inv.to(torch.int64)
+        mask62 = (1 << _LIMB_BITS) - 1
+        outs, layouts = {}, []
+        for j in range(n_limbs):
+            limb = [(-1 if v < 0 else 1) * ((abs(v) >> (_LIMB_BITS * j))
+                                            & mask62) for v in scaled]
+            V = torch.zeros(n, dtype=torch.int64, device=dev)
+            V[idx] = to_device(np.asarray(limb, dtype=np.int64), dev)[inv]
+            outs[f"{self.k}_planes{j}"], lay_v = _int_sums(b, V, b.mask)
+            outs[f"{self.k}_abs{j}"], lay_a = _int_sums(b, V.abs(), b.mask)
+            layouts.append((lay_v, lay_a))
+        X = torch.zeros(n, dtype=torch.int32, device=dev)
+        X[idx] = to_device(np.asarray([min(e, 0) for e in exps],
+                                      dtype=np.int32), dev)[inv]
+        ids, G = b.kernel_ids()
+        if ps.minmax_supported(G, torch.int32):
+            (emin,), = ps.group_minmax_sources(ids, [kernels.MinMaxSource(
+                X, ("min",), (0,))], G)
+        else:   # past K2's group bound: the torch scatter
+            emin = torch.zeros(G + 1, dtype=torch.int32, device=dev) \
+                .scatter_reduce_(0, ids.to(torch.int64), X, "amin")[:G]
+        outs[f"{self.k}_emin"] = emin
+        special = to_device(np.asarray(kinds, dtype=np.int64), dev)[inv]
+        sp = torch.nonzero(special != _FINITE).reshape(-1)
+        if sp.numel():
+            # per (run, kind) the first row: where each NaN / infinity
+            # enters the reference's additions
+            key = b.run_key(idx[sp]) * 4 + special[sp]
+            first, kinv = torch.unique(key, return_inverse=True)
+            pos = torch.full((first.numel(),), n, dtype=torch.int64,
+                             device=dev).scatter_reduce_(
+                0, kinv, idx[sp], "amin")
+            outs[f"{self.k}_spk"], outs[f"{self.k}_spp"] = first, pos
+        self.dec = (E, layouts, b.G)
+        return outs
+
     def partial(self, host, present):
-        sums = np.asarray(host[f"{self.k}_planes"])
         cols = [0] if present is None else present
-        # every plane sum is an exact integer below 2^53: int64, then
-        # Python ints (object arrays) for the weighted recombination
-        planes = np.rint(sums[:, cols]).astype(np.int64).astype(object)
-        count = planes[0]
-        tot = np.zeros(len(count), dtype=object)
-        row = 1
-        for off, nplanes, shift in self.layout:
-            part = count * off
-            for p in range(nplanes):
-                part = part + (planes[row + p] << (8 * p))
-            tot = tot + (part << shift)
-            row += nplanes
+        if self.dec is None:
+            tot = _recombine(np.asarray(host[f"{self.k}_planes"]), cols,
+                             self.layout)
+        else:
+            tot = self._decimals(host, cols)
         out = aggspec._obj_array(len(cols), int)
-        out[:] = tot.tolist()
+        out[:] = tot
         return {"psum": out}
+
+    def _decimals(self, host, cols) -> list:
+        import decimal
+
+        E, layouts, G = self.dec
+        tot = [0] * len(cols)
+        mag = [0] * len(cols)
+        for j, (lay_v, lay_a) in enumerate(layouts):
+            t = _recombine(np.asarray(host[f"{self.k}_planes{j}"]), cols,
+                           lay_v)
+            a = _recombine(np.asarray(host[f"{self.k}_abs{j}"]), cols, lay_a)
+            tot = [x + (y << (_LIMB_BITS * j)) for x, y in zip(tot, t)]
+            mag = [x + (y << (_LIMB_BITS * j)) for x, y in zip(mag, a)]
+        emin = np.asarray(host[f"{self.k}_emin"]).reshape(-1)[cols]
+        states = self._special_states(host, G)
+        out = []
+        for j, g in enumerate(np.asarray(cols).tolist()):
+            st = states.get(int(g))
+            if st is not None:
+                out.append(decimal.Decimal(st))
+                continue
+            eg = int(emin[j])
+            if mag[j] >= 10 ** (_DEC_DIGITS + eg - E):
+                raise DeviceUnsupported(
+                    "SUMPRECISION: a group's sum needs more than 28 digits "
+                    "at its exponent, where the reference's answer depends "
+                    "on the order of its additions (ROADMAP queue 3)")
+            if eg == 0:
+                out.append(tot[j] // 10 ** (-E))
+                continue
+            c = abs(tot[j]) // 10 ** (eg - E)
+            out.append(decimal.Decimal(
+                (1 if tot[j] < 0 else 0, tuple(int(d) for d in str(c)), eg)))
+        return out
+
+    def _special_states(self, host, G: int) -> dict:
+        """group -> "NaN" / "Infinity" / "-Infinity", the Decimal a group
+        holding a NaN or an infinity ends at: per segment in row order,
+        then over segments in order, as the reference adds and merges."""
+        if f"{self.k}_spk" not in host:
+            return {}
+        keys = np.asarray(host[f"{self.k}_spk"]).tolist()
+        pos = np.asarray(host[f"{self.k}_spp"]).tolist()
+        first: dict = {}
+        for k, p in zip(keys, pos):
+            run, kind = divmod(int(k), 4)
+            first.setdefault(run, {})[kind] = int(p)
+        per_group: dict = {}
+        for run in sorted(first):
+            seg, g = divmod(run, G)
+            fp = first[run]
+            nan, pinf, ninf = (fp.get(x) for x in (_NAN, _PINF, _NINF))
+            if pinf is not None and ninf is not None \
+                    and (nan is None or nan > max(pinf, ninf)):
+                raise _inf_clash()
+            st = "NaN" if nan is not None else \
+                "Infinity" if pinf is not None else "-Infinity"
+            acc = per_group.get(g)
+            if acc is not None and acc != st and "NaN" not in (acc, st):
+                raise _inf_clash()
+            per_group[g] = "NaN" if "NaN" in (acc, st) else st
+        return per_group
+
+
+def _inf_clash():
+    import decimal
+
+    from pinot_tpu_torch.engine.values import host_fails
+
+    try:
+        decimal.Decimal("Infinity") + decimal.Decimal("-Infinity")
+    except decimal.InvalidOperation as err:
+        return host_fails("SUMPRECISION adding +inf and -inf", err)
+    raise AssertionError("Decimal adds +inf and -inf")
 
 
 class _SumPrecisionMerge(_SumPrecision):
-    """SUMPRECISIONMERGE: each cube row's decimal string as an exact
-    integer, looked up per row from its dictionary entry, parsed once;
-    then SUMPRECISION's byte planes."""
+    """SUMPRECISIONMERGE: each cube row's decimal string, parsed once per
+    dictionary entry the matched rows hold; integers through
+    SUMPRECISION's byte planes, fractions through its decimal route."""
 
     def __init__(self, i, spec, ev):
         _Sketch.__init__(self, i, spec, ev)
-        ids = _state_ids(spec, ev)
-        table = []
-        for blob in np.asarray(
-                ev.ctx.global_dict(ids.meta).values).tolist():
-            x = aggspec.SumPrecisionMergeSpec._parse(blob)
-            if not isinstance(x, int):
-                raise DeviceUnsupported(
-                    "SUMPRECISION over non-integer FLOAT/DOUBLE values comes "
-                    "with a later slice of the port (ROADMAP queue 1, item "
-                    "e2b)")
-            if not -_INT63 <= x < _INT63:
-                raise DeviceUnsupported(
-                    f"a SUMPRECISION cube partial past int64 ({x})")
-            table.append(x)
-        vals = to_device(np.asarray(table, dtype=np.int64).reshape(-1),
-                         ev.device)
-        # padding rows hold ids out of range: clamped, they are masked
-        self.v = Val(vals[torch.clamp(ids.t.to(torch.int64), 0,
-                                      max(len(table) - 1, 0))], "num",
-                     np.dtype(np.int64))
+        self.ids = _state_ids(spec, ev)
         self.layout = []
+        self.dec = None
+
+    def launch(self, b):
+        from pinot_tpu_torch.engine.values import host_fails
+
+        idx = torch.nonzero(b.mask).reshape(-1)
+        used, inv = torch.unique(b.flat(self.ids.t)[idx].to(torch.int64),
+                                 return_inverse=True)
+        blobs = self.ev.ctx.global_dict(self.ids.meta).take(
+            used.cpu().numpy())
+        table = []
+        for blob in np.asarray(blobs).tolist():
+            try:
+                table.append(aggspec.SumPrecisionMergeSpec._parse(blob))
+            except Exception as err:  # noqa: BLE001 — the host's failure
+                raise host_fails(f"SUMPRECISIONMERGE of {blob!r}",
+                                 err) from err
+        if all(isinstance(x, int) and -_INT63 <= x < _INT63
+               for x in table):
+            vals = to_device(np.asarray(table or [0], dtype=np.int64),
+                             b.dev)
+            x = torch.zeros(b.S * b.L, dtype=torch.int64, device=b.dev)
+            x[idx] = vals[inv]
+            sums, self.layout = _int_sums(b, x, b.mask)
+            return {f"{self.k}_planes": sums}
+        return self._decimal_launch(b, idx, inv, table)
 
 
 def _state_ids(spec, ev: ValueEvaluator) -> Val:
@@ -493,15 +689,23 @@ class _TDigestMerge(_Sketch):
 
 
 class _RawHLL(_Sketch):
+    """K3 registers over a column's stored hash plane, or over an
+    expression's values hashed as the host hashes their dtype."""
+
     def __init__(self, i, spec, ev):
         super().__init__(i, spec, ev)
         arg = spec.args[0]
+        self.v = None
         if not arg.is_identifier or arg.name.startswith("$"):
-            raise later(f"{spec.name.upper()} over an expression")
-        ev.column_dtype(arg.name)
+            self.v = ev.eval(arg, Rows(ev.S, ev.L, ev.device))
+        else:
+            ev.column_dtype(arg.name)
 
     def launch(self, b):
-        h = b.ctx.prehashed_column(self.spec.args[0].name).reshape(-1)
+        if self.v is None:
+            h = b.ctx.prehashed_column(self.spec.args[0].name).reshape(-1)
+        else:
+            h = b.flat(self.ev.hash32(self.v)).to(torch.int32)
         if b.gid is None:
             regs = _registers(h, None, b.mask, 1, self.spec.log2m)
         else:
@@ -522,7 +726,8 @@ class _RawHLL(_Sketch):
 class _ValueSet(_Sketch):
     def __init__(self, i, spec, ev):
         super().__init__(i, spec, ev)
-        self.v = ev.eval(spec.args[0], Rows(ev.S, ev.L, ev.device))
+        self.v = ev.materialize(ev.eval(spec.args[0],
+                                        Rows(ev.S, ev.L, ev.device)))
         name = spec.name
         if name == "mode" and (self.v.kind != "num"
                                or self.v.dtype.kind not in "iuf"):
@@ -530,8 +735,9 @@ class _ValueSet(_Sketch):
                 "MODE requires a numeric column (reference "
                 "ModeAggregationFunction supports INT/LONG/FLOAT/DOUBLE "
                 "only)")
-        if self.v.kind not in ("num", "dict"):
-            raise later(f"{name.upper()} over {spec.args[0]}")
+        if self.v.kind == "list":
+            raise host_fails(f"{name.upper()} over {spec.args[0]}",
+                             TypeError("unhashable type: 'list'"))
         self.smart = name == "distinctcountsmarthll"
         self.G = 1
 
@@ -542,7 +748,9 @@ class _ValueSet(_Sketch):
         # key, each NaN row apart, strings by global dictionary id
         vkey = self.ev.set_key(self.v, (b.S, b.L)).reshape(-1)
         rk, counts, first = sb.value_runs(b.run_key(idx), vkey[idx], idx)
-        rep = b.flat(self.v.t)[first]
+        # numbers come back as values, anything else as its key
+        rep = b.flat(self.v.t)[first] if self.v.kind == "num" \
+            else vkey[first]
         outs = {f"{self.k}_rk": rk, f"{self.k}_cnt": counts,
                 f"{self.k}_first": first, f"{self.k}_rep": rep}
         if self.smart:
@@ -562,9 +770,8 @@ class _ValueSet(_Sketch):
         take = over[inv]
         if not bool(take.any()):
             return {f"{self.k}_over": over_runs}
-        if self.v.kind == "dict":
-            h = b.ctx.prehashed_column(self.spec.args[0].name) \
-                .reshape(-1)[first[take]]
+        if self.v.kind != "num":
+            h = b.flat(self.ev.hash32(self.v))[first[take]].to(torch.int32)
         else:
             wide = {"f": np.float64, "b": np.bool_}.get(self.v.dtype.kind,
                                                         np.int64)
@@ -576,6 +783,8 @@ class _ValueSet(_Sketch):
 
     def _values(self, host) -> list:
         rep = np.asarray(host[f"{self.k}_rep"])
+        if self.v.kind != "num":
+            return self.ev.decode_key(self.v, rep).tolist()
         return self.ev.decode(self.v, rep).tolist()
 
     def partial(self, host, present):

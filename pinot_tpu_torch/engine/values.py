@@ -41,12 +41,20 @@ values, its engine/host.py). The port runs those shapes on the card
   distinct value, carried as ids;
 - the array functions over MV columns (ARRAYLENGTH, the per-doc
   reductions, VALUEIN, MAPVALUE) over the entry planes, with the dtype
-  the reference's numpy gives each segment (``Mixed``).
+  the reference's numpy gives each segment (``Mixed``);
+- the function tail: ATAN2, ROUNDDECIMAL / TRUNCATE, GEOTOH3, and
+  ST_POINT over two numeric values (a "point" ``Val``: the coordinates
+  its WKT text carries, ops/geo.py ``sig10_torch``) with ST_CONTAINS /
+  ST_WITHIN against a literal polygon, ST_EQUALS, ST_DISTANCE and
+  ST_GEOMETRYTYPE over it, all float64 / int64 torch ops;
+- any other function, and a function over strings or mixed kinds (a
+  CASE of string and numeric results, INIDSET, LIKE over numbers): its
+  numpy form run on the host once per distinct tuple of its operands'
+  values, factorized on the card (``_per_tuple``), the result gathered
+  back as numbers or carried as ids into its strings.
 
-A shape without a form here raises ``DeviceUnsupported`` naming its
-ROADMAP queue 1 item (``later``), where the rest of the single-stage
-surface is listed, or saying that the reference's host fails on it too
-(``host_fails``).
+A shape the reference's host path fails on raises ``DeviceUnsupported``
+saying so (``host_fails``).
 """
 
 from __future__ import annotations
@@ -69,6 +77,7 @@ from pinot_tpu_torch.engine.params import (
     to_device,
 )
 from pinot_tpu_torch.ops import geo as geo_ops
+from pinot_tpu_torch.ops import selection as sel_ops
 from pinot_tpu_torch.ops import sketch_build as sb
 from pinot_tpu_torch.ops import transform as tf
 from pinot_tpu_torch.ops.device_reduce import order_key
@@ -88,14 +97,6 @@ _NAN_KEY = 0x7FF8 << 48   # order_key of NaN: above every number's key
 _SIGNED_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32,
                 torch.uint64: torch.int64}
 _NULL_PREDS = (PredicateType.IS_NULL, PredicateType.IS_NOT_NULL)
-
-
-def later(what: str):
-    """The in-band refusal of a host-path value form the card lacks: ROADMAP
-    queue 1, item e3e, the function and aggregation tail."""
-    return DeviceUnsupported(
-        f"{what} comes with a later slice of the port (ROADMAP queue 1, "
-        f"item e3e)")
 
 
 def host_fails(what: str, err: Exception | None = None):
@@ -124,10 +125,13 @@ class ListMeta:
     """VALUEIN's per-doc lists, coded as one int64 a doc: the kept
     entries' ranks among the sorted wanted ``values`` (1-based) as base
     ``k + 1`` digits, first entry most significant, zero-padded to ``k``
-    digits, so that code order is the lists' order."""
+    digits, so that code order is the lists' order. Past 15 values the
+    code is a row of ``table``, the (U, k) digit rows in order."""
 
     values: tuple
     k: int
+    table: np.ndarray | None = dataclasses.field(default=None,
+                                                 compare=False)
 
     def decode(self, codes: np.ndarray) -> np.ndarray:
         out = np.empty(len(codes), dtype=object)
@@ -138,7 +142,8 @@ class ListMeta:
         for c in uniq.tolist():
             kept = []
             for i in range(self.k):
-                d = (c // base ** (self.k - 1 - i)) % base
+                d = int(self.table[c, i]) if self.table is not None \
+                    else (c // base ** (self.k - 1 - i)) % base
                 if d == 0:
                     break
                 kept.append(self.values[d - 1])
@@ -146,6 +151,18 @@ class ListMeta:
         for j, i in enumerate(inv.reshape(-1).tolist()):
             out[j] = list(lists[i])   # a fresh list per row, as the host's
         return out
+
+
+def _factorize_tuples(keys: list, valid) -> tuple:
+    """((N,) int64 id of each row's key tuple, (U, K) int64 the distinct
+    tuples present among the ``valid`` rows (None: all), in key order):
+    ops/selection.py ``factorize`` numbering only what is present, by
+    one-dimensional uniques; a row outside ``valid`` gets some id in
+    range."""
+    mask = torch.ones_like(keys[0], dtype=torch.bool) if valid is None \
+        else valid
+    gid, _G, cols = sel_ops.factorize(keys, mask, None, dense_limit=1)
+    return gid, torch.stack(cols, 1)
 
 
 def np_eval(e: Expression, env: dict):
@@ -209,11 +226,24 @@ class Rows:
 
 
 @dataclasses.dataclass
+class PointMeta:
+    """A "point" ``Val``'s latitudes (its ``t`` holds the longitudes),
+    and its factorization once ``key`` has made it: the distinct
+    (lon, lat) bit pairs, (U, 2) int64 on the card."""
+
+    lat: torch.Tensor
+    uniq: torch.Tensor | None = None
+    keys: torch.Tensor | None = None
+
+
+@dataclasses.dataclass
 class Val:
     """An evaluated expression. ``kind``: "num" (values at the host
     dtype), "dict" (global ids of the string dict column ``meta``), "seg"
-    (segment index, ``$segmentName``), "host" (``$hostName``: zeros) or
-    "case" (branch index into the string literals ``meta``)."""
+    (segment index, ``$segmentName``), "host" (``$hostName``: zeros),
+    "case" (ids into the strings ``meta``), "list" (VALUEIN's codes) or
+    "point" (ST_POINT of numbers: longitudes, ``meta`` a ``PointMeta``;
+    its text is ``ops/geo.py format_points`` of them)."""
 
     t: torch.Tensor
     kind: str
@@ -271,6 +301,11 @@ _TIME_FUNCS = {"timeconvert", "datetimeconvert"}
 # other over one dict column is computed per distinct value (``_lut``)
 _TORCH_FUNCS = set(_ARITH) | set(_UNARY) | set(_ROUND) | set(_COMPARE) \
     | {"divide", "mod", "and", "or", "not", "cast", "case"} | _MV_FUNCS
+# the function tail's torch forms over numbers and points
+# (``_tail_function``); over anything else, numpy per distinct value
+_TAIL_FUNCS = {"atan2", "rounddecimal", "round_decimal", "truncate",
+               "geotoh3", "gridcell", "st_point", "st_contains",
+               "st_within", "st_equals", "st_distance", "st_geometrytype"}
 
 
 def _div_trunc(v: torch.Tensor, d: int) -> torch.Tensor:
@@ -408,9 +443,14 @@ class ValueEvaluator:
                 self.device)
             ent = lut[torch.clamp(mp.vals.to(torch.int64), 0,
                                   max(lut.shape[0] - 1, 0))]
+        elif p.type in (PredicateType.LIKE, PredicateType.REGEXP_LIKE) \
+                or self._string_literal(p):
+            # numbers by their text: each distinct entry matched once
+            ev = Val(mp.vals, "num", mp.dtype)
+            ent = self.distinct_lut(
+                ev, Rows(*mp.vals.shape, self.device),
+                lambda x: predicate_over_values(p, x), mp.doc >= 0)
         else:
-            if p.type in (PredicateType.LIKE, PredicateType.REGEXP_LIKE):
-                raise later(f"the predicate {p} over numeric values")
             params, counter = {}, [0]
             tpl = raw_predicate(
                 p, plane_slot(params, counter, mp.vals), params, counter,
@@ -449,7 +489,11 @@ class ValueEvaluator:
             return Val(gv[torch.clamp(ids.to(torch.int64), 0,
                                       gv.shape[0] - 1)], "num", dt)
         if dt.kind not in "iuf":
-            raise later(f"raw column {name!r} of {dt} values")
+            # raw strings or bytes: ids into their distinct values,
+            # factorized on the host once a batch
+            ids, uniq = ctx.derived(("raw_values", name),
+                                    lambda: self._raw_ids(name))
+            return Val(rows.take(ids), "case", uniq.dtype, uniq)
         plan = ctx.width_plan(name)
         if dt.kind == "f" and np.dtype(plan.dtype) != dt:
             # raw DOUBLE: the aggregation plane is float32, the host's
@@ -460,6 +504,21 @@ class ValueEvaluator:
         if plan.offset is not None:
             v = v + plan.offset
         return Val(v, "num", dt)
+
+    def _raw_ids(self, name: str) -> tuple:
+        """((S, L) int64 ids on the card, their sorted distinct values) of
+        a raw column of strings or bytes."""
+        ctx = self.ctx
+        per = [np.asarray(ctx._forward(s, i, name))
+               for i, s in enumerate(ctx.segments)]
+        uniq, inv = np.unique(np.concatenate(per) if per else
+                              np.zeros(0, dtype=object), return_inverse=True)
+        blocks = np.zeros((self.S, self.L), dtype=np.int64)
+        at = 0
+        for i, v in enumerate(per):
+            blocks[i, : len(v)] = inv[at: at + len(v)]
+            at += len(v)
+        return to_device(blocks, self.device), uniq
 
     def operand(self, e: Expression, rows: Rows) -> Val:
         """``eval`` for an aggregation's operand: a raw integer column that
@@ -497,7 +556,7 @@ class ValueEvaluator:
                     else np.ones(1, dtype=dt)
         elif self._lut_column(e) is not None:
             out = self._lut(e)[:1]
-        elif e.name in _MV_FUNCS:
+        elif e.name in _MV_FUNCS and self._mv_form(e):
             v = self._mv_function(e)
             out = v.meta[:1] if v.kind == "case" \
                 else np.empty(1, dtype=object) if v.kind == "list" \
@@ -543,6 +602,8 @@ class ValueEvaluator:
         if e.name == "case":
             return self._case(e, rows)
         if e.name in _MV_FUNCS:
+            if not self._mv_form(e):
+                return self._per_tuple(e, rows)
             v = self._mv_function(e)
             return dataclasses.replace(v, t=rows.take(v.t))
         if e.name in _COMPARE and any(
@@ -558,15 +619,27 @@ class ValueEvaluator:
             return Val(ids, "case", lut.dtype, lut)
         if e.name in _TIME_FUNCS:
             return self._time_function(e, rows)
+        if e.name in _TAIL_FUNCS:
+            v = self._tail_function(e, rows)
+            return self._per_tuple(e, rows) if v is None else v
+        if e.name not in _TORCH_FUNCS:
+            return self._per_tuple(e, rows)
         out_dt = self.probe(e).dtype
         if e.name == "cast" and out_dt.kind in "USO":
-            return self._per_value(e, self.eval(e.args[0], rows),
-                                   lambda x: tf._np_cast(x, e.args[1].value))
+            v = self.eval(e.args[0], rows)
+            if v.kind != "num":
+                return self._per_tuple(e, rows)
+            return self._per_value(e, v,
+                                   lambda x: tf._np_cast(x, e.args[1].value),
+                                   rows)
         args = [self.eval(a, rows) for a in e.args
                 if not (e.name == "cast" and a is e.args[1])]
-        for a in args:
-            if a.kind != "num":
-                raise later(f"{e}: a string operand in an expression")
+        if any(a.kind != "num" for a in args) or (
+                e.name == "cast"
+                and str(e.args[1].value).upper() not in _CAST_NP):
+            # strings among the operands: numpy's answer (or failure) per
+            # distinct tuple of values
+            return self._per_tuple(e, rows)
         t = [a.t for a in args]
         tdt = _torch_dtype(out_dt) if out_dt.kind in "biuf" else None
         name = e.name
@@ -591,6 +664,8 @@ class ValueEvaluator:
         if name in _ROUND:
             x = t[0].to(tdt)
             if len(t) > 1:
+                if not e.args[1].is_literal:
+                    return self._per_tuple(e, rows)
                 return Val(self._round_scale(e, x, out_dt), "num", out_dt)
             return Val(_ROUND[name](x) if out_dt.kind == "f" else x, "num",
                        out_dt)
@@ -607,16 +682,225 @@ class ValueEvaluator:
             return Val(m, "num", out_dt)
         if name == "not":
             return Val(~t[0].to(torch.bool), "num", out_dt)
-        if name == "cast":
-            target = str(e.args[1].value).upper()
-            np_t = _CAST_NP.get(target)
-            if np_t is None:
-                raise later(f"CAST to {target}")
-            x = t[0]
-            if np.dtype(np_t).kind in "iu" and x.is_floating_point():
-                x = torch.trunc(x.to(torch.float64))
-            return Val(x.to(tdt), "num", out_dt)
-        raise later(f"the function {name.upper()}")
+        # cast to a number
+        x = t[0]
+        if np.dtype(_CAST_NP[str(e.args[1].value).upper()]).kind in "iu" \
+                and x.is_floating_point():
+            x = torch.trunc(x.to(torch.float64))
+        return Val(x.to(tdt), "num", out_dt)
+
+    # ---- the function tail: torch forms over numbers and points ----------
+    def _tail_function(self, e: Expression, rows: Rows):
+        """ATAN2, ROUNDDECIMAL / TRUNCATE, GEOTOH3 and the ST_ functions as
+        torch ops where their operands are numbers (or points) and their
+        parameters literals; None where they are not (``_per_tuple`` then
+        runs numpy's form per distinct value)."""
+        name = e.name
+        consts = [_constant(a) for a in e.args]
+        vals = [None if c else self.eval(a, rows)
+                for a, c in zip(e.args, consts)]
+        lits = []
+        for a, c in zip(e.args, consts):
+            if not c:
+                lits.append(None)
+                continue
+            try:
+                lits.append(np.asarray(np_eval(a, {})))
+            except Exception as err:  # noqa: BLE001 — the host fails too
+                raise host_fails(str(a), err) from err
+
+        def num(j):
+            return vals[j] is not None and vals[j].kind == "num" \
+                and vals[j].dtype.kind in "biuf"
+
+        def point(j):
+            """A point operand's (lon, lat) as ``parse_points`` reads
+            them; None for anything but a point or one WKT point
+            literal."""
+            if vals[j] is not None and vals[j].kind == "point":
+                return geo_ops.geometric(vals[j].t, vals[j].meta.lat)
+            if lits[j] is not None and lits[j].size == 1 \
+                    and geo_ops._POINT_RE.fullmatch(
+                        str(lits[j].reshape(-1)[0])):
+                lon, lat = geo_ops.parse_points(lits[j])
+                return float(lon[0]), float(lat[0])
+            return None
+
+        f64 = torch.float64
+        if name == "st_point" and num(0) and num(1):
+            lon = geo_ops.sig10_torch(vals[0].t.to(f64))
+            lat = geo_ops.sig10_torch(vals[1].t.to(f64))
+            lon, lat = torch.broadcast_tensors(lon, lat)
+            return Val(lon, "point", self.probe(e).dtype, PointMeta(lat))
+        if any(v is not None and v.kind not in ("num", "point")
+               for v in vals):
+            return None
+        if name == "atan2" and num(0) and num(1):
+            out_dt = self.probe(e).dtype
+            tdt = _torch_dtype(out_dt)
+            return Val(torch.atan2(vals[0].t.to(tdt), vals[1].t.to(tdt)),
+                       "num", out_dt)
+        if name in ("rounddecimal", "round_decimal", "truncate") and num(0) \
+                and (len(e.args) == 1 or lits[1] is not None):
+            v = vals[0].t.to(f64)
+            trunc = name == "truncate"
+            if len(e.args) == 1:
+                out = torch.sign(v) * torch.floor(v.abs()) if trunc \
+                    else torch.floor(v + 0.5)      # Math.round
+            else:
+                s = 10.0 ** int(lits[1].item())
+                out = torch.sign(v) * torch.floor(
+                    v.abs() * s + (0.0 if trunc else 0.5)) / s
+            return Val(out, "num", np.dtype(np.float64))
+        if name in ("geotoh3", "gridcell"):
+            j = len(e.args) - 1
+            res = int(lits[j].item()) if lits[j] is not None \
+                and lits[j].dtype.kind in "biu" and lits[j].ndim == 0 \
+                else vals[j].t if num(j) else None
+            if res is None:
+                return None
+            if len(e.args) == 3 and num(0) and num(1):
+                lon, lat = torch.broadcast_tensors(vals[0].t.to(f64),
+                                                   vals[1].t.to(f64))
+            elif len(e.args) == 2 and vals[0] is not None \
+                    and vals[0].kind == "point":
+                lon, lat = point(0)
+            else:
+                return None
+            return Val(geo_ops.grid_cell_torch(lon, lat, res), "num",
+                       np.dtype(np.int64))
+        if name in ("st_contains", "st_within"):
+            pj, qj = (0, 1) if name == "st_contains" else (1, 0)
+            if lits[pj] is None or lits[pj].size != 1 or vals[qj] is None \
+                    or vals[qj].kind != "point":
+                return None
+            ring = geo_ops.parse_polygon(str(lits[pj].reshape(-1)[0]))
+            lon, lat = point(qj)
+            return Val(geo_ops.points_in_ring_torch(ring, lon, lat), "num",
+                       np.dtype(bool))
+        if name == "st_geometrytype" and vals[0] is not None:
+            shape = vals[0].t.shape
+            return Val(torch.zeros(shape, dtype=torch.int64,
+                                   device=self.device), "case",
+                       np.dtype(object), np.asarray(["Point"], dtype=object))
+        if name == "st_equals" and all(
+                v is None or v.kind == "point" for v in vals) \
+                and any(v is not None for v in vals):
+            pa, pb = point(0), point(1)
+            if pa is None or pb is None:
+                return None
+            ka, kb = self._point_bits(vals[0], lits[0]), \
+                self._point_bits(vals[1], lits[1])
+            same_text = (ka[0] == kb[0]) & (ka[1] == kb[1])
+
+            def t(x):   # a literal's float64 coordinate, or a plane
+                return torch.as_tensor(x, dtype=f64, device=self.device)
+
+            la, lb = t(pa[0]), t(pb[0])
+            both = ~torch.isnan(la) & ~torch.isnan(lb)
+            coords = (la == lb) & (t(pa[1]) == t(pb[1]))
+            return Val(torch.where(both, coords, same_text), "num",
+                       np.dtype(bool))
+        if name == "st_distance":
+            pa, pb = point(0), point(1)
+            if pa is None or pb is None:
+                return None
+            return Val(geo_ops.haversine_torch(pa[0], pa[1], pb[0], pb[1]),
+                       "num", np.dtype(np.float64))
+        return None
+
+    def _point_bits(self, v, lit) -> tuple:
+        """(lon, lat) int64 bits of a point's coordinates at their text's
+        value (a literal WKT point parsed once)."""
+        if v is not None:
+            return geo_ops.float_bits(v.t), geo_ops.float_bits(v.meta.lat)
+        m = geo_ops._POINT_RE.fullmatch(str(np.asarray(lit).reshape(-1)[0]))
+        xy = (float(m.group(1)), float(m.group(2)))
+        return tuple(geo_ops.float_bits(torch.tensor(c, dtype=torch.float64,
+                                                     device=self.device))
+                     for c in xy)
+
+    # ---- any function: numpy per distinct tuple of operand values --------
+    def _valid_rows(self, rows: Rows) -> torch.Tensor:
+        """Flat bool of the rows that are real docs (not padding)."""
+        if rows.idx is not None:
+            return torch.ones(rows.idx.shape, dtype=torch.bool,
+                              device=self.device).reshape(-1)
+        return (rows.doc() < self.ctx.n_docs_dev.to(torch.int64)[
+            rows.seg()]).reshape(-1)
+
+    def _tuple_keys(self, v: Val) -> list:
+        """int64 planes whose equality is the identity of ``v``'s values
+        (floats by their bits: -0.0 and 0.0 apart, one NaN)."""
+        if v.kind == "point":
+            return [geo_ops.float_bits(v.t), geo_ops.float_bits(v.meta.lat)]
+        if v.kind == "num":
+            x = v.t
+            if x.is_floating_point():
+                if x.dtype == torch.float64:
+                    return [geo_ops.float_bits(x)]
+                return [torch.where(torch.isnan(x), -1, x.view(
+                    {4: torch.int32, 2: torch.int16}[x.element_size()])
+                    .to(torch.int64))]
+            return [x.to(torch.int64)]
+        if v.kind == "host":
+            return [torch.zeros_like(v.t, dtype=torch.int64)]
+        return [v.t.to(torch.int64)]
+
+    def host_values(self, v: Val, keys: list) -> np.ndarray:
+        """The host path's values of ``v`` at fetched ``_tuple_keys``."""
+        if v.kind == "point":
+            lon = keys[0].astype(np.int64).view(np.float64)
+            lat = keys[1].astype(np.int64).view(np.float64)
+            return geo_ops.format_points(lon, lat)
+        k = np.asarray(keys[0], dtype=np.int64)
+        if v.kind == "num":
+            if v.dtype.kind == "f":
+                nan = k == -1 if v.dtype.itemsize < 8 else None
+                w = {8: np.int64, 4: np.int32, 2: np.int16}[v.dtype.itemsize]
+                out = k.astype(w).view(v.dtype).copy()
+                if nan is not None:
+                    out[nan] = np.nan
+                return out
+            return k.astype(v.dtype)
+        return self.decode(v, k)
+
+    def _per_tuple(self, e: Expression, rows: Rows) -> Val:
+        """``e``'s numpy form over each distinct tuple of its operands'
+        values: the tuples factorized on the card over the real rows,
+        their values decoded on the host, the function run once over them
+        (a failure is the host path's), and its result gathered back by
+        tuple id: numbers as a "num" ``Val``, anything else as ids into
+        the values (a "case")."""
+        fn = get_function(e.name)
+        args = e.args[:1] if e.name == "cast" else e.args
+        vals, lits = [], []
+        for a in args:
+            if _constant(a):
+                try:
+                    lits.append(np.asarray(np_eval(a, {})))
+                except Exception as err:  # noqa: BLE001
+                    raise host_fails(str(a), err) from err
+                vals.append(None)
+            else:
+                vals.append(self.eval(a, rows))
+                lits.append(None)
+        inv, hosts = self.distinct([v for v in vals if v is not None], rows)
+        hosts = iter(hosts)
+        ops = [lit if v is None else next(hosts) for v, lit in zip(vals, lits)]
+        n_uniq = int(inv.max()) + 1 if inv.numel() else 1
+        try:
+            with np.errstate(all="ignore"):
+                out = fn.np_fn(ops[0], e.args[1].value) \
+                    if e.name == "cast" else fn.np_fn(*ops)
+        except Exception as err:  # noqa: BLE001 — the host path's failure
+            raise host_fails(str(e), err) from err
+        out = np.asarray(out)
+        if out.ndim == 0 or out.shape[0] < n_uniq:
+            out = np.broadcast_to(out.reshape(-1)[:1], (n_uniq,)).copy()
+        if out.dtype.kind in "biuf":
+            return Val(to_device(out, self.device)[inv], "num", out.dtype)
+        return Val(inv, "case", out.dtype, out)
 
     def _lut_column(self, e: Expression):
         """The dict column ``e`` is computed over as a LUT (``_lut``): a
@@ -686,9 +970,11 @@ class ValueEvaluator:
         vals = list(e.args[1:-1:2]) + [e.args[-1]]
         strs = [v.is_literal and isinstance(v.value, str) for v in vals]
         cm = [self.eval(c, rows) for c in conds]
-        for c in cm:
-            if c.kind != "num" or c.dtype.kind != "b":
-                raise later(f"{e}: a CASE condition that is not boolean")
+        if any(c.kind != "num" or c.dtype.kind != "b" for c in cm) \
+                or (any(strs) and not all(strs)):
+            # a condition that is not boolean, or string and numeric
+            # results: numpy's np.select per distinct tuple
+            return self._per_tuple(e, rows)
         if all(strs):
             # string results: the branch index on the card, the literal on
             # the host
@@ -698,11 +984,11 @@ class ValueEvaluator:
             for j in reversed(range(len(conds))):
                 out = torch.where(cm[j].t, j, out)
             return Val(out, "case", lits.dtype, lits)
-        if any(strs):
-            raise later(f"{e}: a CASE mixing string and numeric results")
+        vv = [self.eval(v, rows) for v in vals]
+        if any(v.kind != "num" for v in vv):
+            return self._per_tuple(e, rows)
         out_dt = self.probe(e).dtype
         tdt = _torch_dtype(out_dt)
-        vv = [self.eval(v, rows) for v in vals]
         out = vv[-1].t.to(tdt)
         for j in reversed(range(len(conds))):
             out = torch.where(cm[j].t, vv[j].t.to(tdt), out)
@@ -710,24 +996,13 @@ class ValueEvaluator:
 
 
     # ---- functions whose string literals are parameters ------------------
-    def _per_value(self, e: Expression, v: Val, fn) -> Val:
+    def _per_value(self, e: Expression, v: Val, fn, rows: Rows) -> Val:
         """A number -> string function: the values factorized on the card
-        (by their bits, so -0.0 and each NaN stay apart), ``fn`` (the
-        numpy form) run once per distinct value on the host, carried as a
+        (by their bits, so -0.0 and 0.0 stay apart), ``fn`` (the numpy
+        form) run once per distinct value on the host, carried as a
         "case" ``Val`` (ids into the strings)."""
-        if v.kind != "num":
-            raise later(f"{e}: a string operand in an expression")
-        x = v.t
-        if x.is_floating_point():
-            x = x.view({8: torch.int64, 4: torch.int32,
-                        2: torch.int16}[x.element_size()])
-        elif x.dtype == torch.bool:
-            x = x.to(torch.int8)
-        uniq, inv = torch.unique(x, return_inverse=True)
-        u = uniq.cpu().numpy()
-        if v.t.is_floating_point():
-            u = u.view(v.dtype)
-        out = np.asarray(fn(u.astype(v.dtype, copy=False)))
+        inv, (u,) = self.distinct([v], rows)
+        out = np.asarray(fn(u))
         return Val(inv, "case", out.dtype, out)
 
     def _round_scale(self, e: Expression, x: torch.Tensor,
@@ -735,8 +1010,6 @@ class ValueEvaluator:
         """``np.round(x, d)``: floats as numpy rounds them (x * 10^d, then
         to even, then / 10^d; 10^-d the other way round), integers left
         alone for d >= 0 and rounded through float64 for d < 0."""
-        if not e.args[1].is_literal:
-            raise later(f"{e}: ROUND with a scale that is not a literal")
         d = int(np.asarray(e.args[1].value))
         if out_dt.kind == "f":
             return torch.round(x, decimals=d)
@@ -752,18 +1025,18 @@ class ValueEvaluator:
         division, as numpy computes it); a SIMPLE_DATE_FORMAT output
         formatted on the host once per distinct bucketed millisecond."""
         if not all(a.is_literal for a in e.args[1:]):
-            raise later(f"{e}: a format that is not a literal")
+            return self._per_tuple(e, rows)
         lits = [str(a.value) for a in e.args[1:]]
         v = self.eval(e.args[0], rows)
         if v.kind != "num":
-            raise later(f"{e} over strings that are not one dict column")
+            return self._per_tuple(e, rows)
         x = v.t.to(torch.int64)
         if e.name == "timeconvert":
             return Val(_from_millis(_to_millis(x, lits[0]), lits[1]), "num",
                        np.dtype(np.int64))
         inf, outf = tf._DateTimeFormat(lits[0]), tf._DateTimeFormat(lits[1])
         if inf.fmt != "EPOCH":
-            raise later(f"{e}: a {inf.fmt} input over numbers")
+            return self._per_tuple(e, rows)
         gsize, gunit = lits[2].split(":", 1)
         g = int(np.int64(int(gsize) * tf._unit_ms(gunit)))
         ms = _to_millis(x * inf.size, inf.unit)
@@ -772,13 +1045,30 @@ class ValueEvaluator:
             return Val(_div_trunc(_from_millis(bucketed, outf.unit),
                                   outf.size), "num", np.dtype(np.int64))
         return self._per_value(e, Val(bucketed, "num", np.dtype(np.int64)),
-                               outf.from_millis)
+                               outf.from_millis, rows)
 
     # ---- the array functions over MV columns -----------------------------
     def _mv_arg(self, e: Expression, a: Expression) -> str:
-        if not (a.is_identifier and self.is_mv(a.name)):
-            raise later(f"{e} over {a}, not a multi-value column")
+        assert a.is_identifier and self.is_mv(a.name), (e, a)
         return a.name
+
+    def _mv_form(self, e: Expression) -> bool:
+        """Whether ``_mv_function`` has the form of ``e``: its columns
+        multi-value ones, its keys and values literals. Any other (an
+        array function over a single value, a column where a literal
+        goes) is numpy's per distinct value (``_per_tuple``)."""
+        def mv(a):
+            return a.is_identifier and not a.name.startswith("$") \
+                and self.is_mv(a.name)
+
+        a = e.args
+        if e.name in ("arraylength", "cardinality"):
+            return True
+        if e.name == "valuein":
+            return mv(a[0]) and all(x.is_literal for x in a[1:])
+        if e.name == "mapvalue":
+            return len(a) == 3 and mv(a[0]) and mv(a[2]) and a[1].is_literal
+        return len(a) == 1 and mv(a[0])
 
     def _entry_docs(self, doc: torch.Tensor):
         """(valid entries (S, E) bool, each entry's flat doc (S, E) int64
@@ -871,16 +1161,10 @@ class ValueEvaluator:
         as (ListMeta code (S, L) int64, kept entries (S, L) int64,
         ListMeta)."""
         col = self._mv_arg(e, e.args[0])
-        if not all(a.is_literal for a in e.args[1:]):
-            raise later(f"{e}: values that are not literals")
         want = {np.asarray(a.value).item() for a in e.args[1:]}
-        try:
-            order = sorted(want)
-        except TypeError as err:
-            raise later(f"{e}: literals of mixed types") from err
+        # numbers before strings: a column's entries meet one kind only
+        order = sorted(want, key=lambda w: (isinstance(w, str), w))
         k = len(order)
-        if (k + 1) ** k >= 1 << 63:
-            raise later(f"{e}: more than 15 values")
         v, doc = self.mv_values(col)
         S, L, dev = self.S, self.L, self.device
         if v.kind == "dict":
@@ -903,8 +1187,9 @@ class ValueEvaluator:
                               if isinstance(w, (int, float, bool)) else w)
                 if isinstance(w, (int, float, bool)):
                     widx = torch.where(v.t == w, j, widx)
-        else:
-            raise later(f"{e} over a {v.kind} column")
+        else:   # a column no segment stores: no entry
+            widx = torch.full(v.t.shape, -1, dtype=torch.int64, device=dev)
+            values = list(order)
         valid, flat = self._entry_docs(doc)
         hit = (widx >= 0) & valid
         E = v.t.shape[1]
@@ -929,15 +1214,26 @@ class ValueEvaluator:
             hj = hit & (widx == j)
             kept |= hj & (in_doc(hj) == 1)
         rank = torch.clamp(in_doc(kept) - 1, 0, max(k - 1, 0))
+        n = S * L
+        idx = flat.reshape(-1)
+        count = torch.zeros(n + 1, dtype=torch.int64, device=dev) \
+            .index_add_(0, idx, kept.reshape(-1).to(torch.int64))[:n]
+        if (k + 1) ** k >= 1 << 63:
+            # past one int64's digits: each doc's digit row, numbered in
+            # row order (which is the lists' order) by a unique
+            pos = (idx * k + rank.reshape(-1))[kept.reshape(-1)]
+            mat = torch.zeros((n + 1) * k, dtype=torch.uint8, device=dev)
+            mat[pos] = (widx.reshape(-1)[kept.reshape(-1)] + 1).to(
+                torch.uint8)
+            table, code = torch.unique(mat.reshape(n + 1, k)[:n], dim=0,
+                                       return_inverse=True)
+            return code.reshape(S, L), count.reshape(S, L), \
+                ListMeta(tuple(values), k, table.cpu().numpy())
         powt = torch.tensor([(k + 1) ** (k - 1 - i) for i in range(k)] or [0],
                             dtype=torch.int64, device=dev)
         digit = torch.where(kept, (widx + 1) * powt[rank], 0).reshape(-1)
-        n = S * L
-        idx = flat.reshape(-1)
         code = torch.zeros(n + 1, dtype=torch.int64, device=dev) \
             .index_add_(0, idx, digit)[:n]
-        count = torch.zeros(n + 1, dtype=torch.int64, device=dev) \
-            .index_add_(0, idx, kept.reshape(-1).to(torch.int64))[:n]
         return code.reshape(S, L), count.reshape(S, L), \
             ListMeta(tuple(values), k)
 
@@ -949,8 +1245,6 @@ class ValueEvaluator:
         dtype where every doc hits, promoted by the 0 where one misses."""
         kcol = self._mv_arg(e, e.args[0])
         vcol = self._mv_arg(e, e.args[2])
-        if not e.args[1].is_literal:
-            raise later(f"{e}: a key that is not a literal")
         key = np.asarray(e.args[1].value).item()
         kv, kdoc = self.mv_values(kcol)
         vv, _vdoc = self.mv_values(vcol)
@@ -996,7 +1290,10 @@ class ValueEvaluator:
             ids = torch.where(has, got.to(torch.int64), len(gv))
             return Val(ids.reshape(S, L), "case", strs.dtype, strs)
         if vv.kind != "num":
-            raise later(f"{e} over a {vv.kind} column")
+            # no segment stores the values column: no entry anywhere, so
+            # the reference's default is 0
+            zero = torch.zeros((S, L), dtype=torch.int64, device=dev)
+            return Val(zero, "num", np.dtype(np.int64))
         base = vv.dtype
         valid_doc = torch.arange(L, device=dev)[None, :] \
             < self.ctx.n_docs_dev[:, None].to(torch.int64)
@@ -1007,6 +1304,31 @@ class ValueEvaluator:
             .to(_torch_dtype(dt)).reshape(S, L)
         return Val(out, "num", dt, Mixed(base, miss) if dt != base else None)
 
+    def hash32(self, v: Val) -> torch.Tensor:
+        """int64 in [0, 2^32): the canonical hash the host applies to the
+        values (ops/hll.py ``hash32_np``): numbers by their dtype, strings
+        by their murmur hash, computed once per distinct string."""
+        from pinot_tpu_torch.ops import hll as hll_ops
+
+        if v.kind == "num":
+            return sb.hash32_values(v.t, v.dtype)
+        v = self.materialize(v)
+        if v.kind == "dict":
+            values = np.asarray(self.ctx.global_dict(v.meta).values)
+        elif v.kind == "case":
+            values = np.asarray(v.meta)
+        elif v.kind in ("seg", "host"):
+            values = self.seg_names if v.kind == "seg" else self.host_names
+        else:
+            raise host_fails(f"a hash of {v.kind} values",
+                             TypeError("unhashable type: 'list'"))
+        h = to_device(hll_ops.hash32_np(values).astype(np.int64)
+                      if len(values) else np.zeros(1, dtype=np.int64),
+                      self.device)
+        idx = torch.zeros_like(v.t, dtype=torch.int64) if v.kind == "host" \
+            else torch.clamp(v.t.to(torch.int64), 0, h.shape[0] - 1)
+        return h[idx]
+
     # ---- keys: equality and order ----------------------------------------
     def key(self, v: Val, shape=None) -> torch.Tensor:
         """int64 keys whose equality and order are the host's over the
@@ -1014,6 +1336,8 @@ class ValueEvaluator:
         lists by their code."""
         if v.kind == "num":
             k = order_key(v.t)
+        elif v.kind == "point":
+            k = self._point_keys(v)
         elif v.kind == "list":
             k = v.t.to(torch.int64)
         elif v.kind == "dict":
@@ -1028,6 +1352,35 @@ class ValueEvaluator:
         if shape is not None:
             k = torch.broadcast_to(k, shape)
         return k
+
+    @staticmethod
+    def _point_keys(v: Val) -> torch.Tensor:
+        """A point's int64 keys: its (lon, lat) bit pairs factorized on the
+        card (equal keys, equal text)."""
+        m = v.meta
+        if m.keys is None:
+            inv, uniq = _factorize_tuples(
+                [geo_ops.float_bits(v.t).reshape(-1),
+                 geo_ops.float_bits(m.lat).reshape(-1)], None)
+            m.uniq, m.keys = uniq, inv.reshape(v.t.shape)
+        return m.keys
+
+    def _point_text(self, v: Val, k: np.ndarray) -> np.ndarray:
+        """The WKT text of a point's values at fetched keys ``k``."""
+        self._point_keys(v)
+        pairs = v.meta.uniq[to_device(np.asarray(k, dtype=np.int64),
+                                      self.device)].cpu().numpy()
+        return geo_ops.format_points(pairs[:, 0].view(np.float64),
+                                     pairs[:, 1].view(np.float64))
+
+    def materialize(self, v: Val) -> Val:
+        """``v`` with values the host decodes from its ``t`` alone: a
+        point as ids into its distinct texts (formatted once each)."""
+        if v.kind != "point":
+            return v
+        keys = self._point_keys(v)
+        text = self._point_text(v, np.arange(v.meta.uniq.shape[0]))
+        return Val(keys, "case", text.dtype, text)
 
     def set_key(self, v: Val, shape) -> torch.Tensor:
         """``key`` as the host's Python sets tell values apart (its
@@ -1057,6 +1410,8 @@ class ValueEvaluator:
     def sort_key(self, v: Val, ascending: bool) -> torch.Tensor:
         """The host's ORDER BY key (``_order_indices``): descending negates
         the value (floats in float64, so NaN stays last)."""
+        if v.kind == "point":   # ordered by its text
+            v = self.materialize(v)
         if ascending:
             return self.key(v)
         if v.kind == "num" and v.t.is_floating_point():
@@ -1088,6 +1443,8 @@ class ValueEvaluator:
                                            copy=False)
         if v.kind == "list":
             return v.meta.decode(np.asarray(host).reshape(-1))
+        if v.kind == "point":
+            raise AssertionError("a point decodes from its keys")
         if v.kind == "dict":
             return self.ctx.global_dict(v.meta).take(np.asarray(host))
         if v.kind == "seg":
@@ -1105,6 +1462,8 @@ class ValueEvaluator:
                 .astype(self._merged_dtype(v, segs), copy=False)
         if v.kind == "list":
             return v.meta.decode(k)
+        if v.kind == "point":
+            return self._point_text(v, k)
         if v.kind == "dict":
             return self.ctx.global_dict(v.meta).take(k)
         if v.kind == "seg":
@@ -1131,13 +1490,9 @@ class ValueEvaluator:
         mask = None if generic else self._index_mask(p)
         if mask is None and lhs.is_identifier and self.is_mv(lhs.name) \
                 and p.type not in _NULL_PREDS:
-            if p.type not in DEVICE_PRED_TYPES:
-                raise later(f"the predicate {p.type.value}")
             mask = self.mv_match(p)
         if mask is not None:
             return ("mask", plane_slot(params, counter, mask)[1])
-        if p.type not in DEVICE_PRED_TYPES:
-            raise later(f"the predicate {p.type.value}")
         if lhs.is_identifier and lhs.name in ("$segmentName", "$hostName"):
             names = self.seg_names if lhs.name == "$segmentName" \
                 else self.host_names
@@ -1155,10 +1510,15 @@ class ValueEvaluator:
                             self.device)
             mask = torch.broadcast_to(lut[v.t], full.seg().shape)
             return ("mask", plane_slot(params, counter, mask)[1])
-        if v.kind != "num":
-            raise later(f"the predicate {p} over string values")
-        if p.type in (PredicateType.LIKE, PredicateType.REGEXP_LIKE):
-            raise later(f"the predicate {p} over numeric values")
+        if v.kind != "num" or p.type in (
+                PredicateType.LIKE, PredicateType.REGEXP_LIKE) \
+                or self._string_literal(p):
+            # numpy's predicate over each distinct value (numbers by their
+            # text for LIKE; a string literal never equals a number)
+            mask = torch.broadcast_to(self.distinct_lut(
+                v, full, lambda x: predicate_over_values(p, x)),
+                full.seg().shape)
+            return ("mask", plane_slot(params, counter, mask)[1])
         dt = self._literal_dtype(p, self.probe(lhs).dtype)
         plane = torch.broadcast_to(v.t.to(_torch_dtype(dt)), full.seg().shape)
         return raw_predicate(p, plane_slot(params, counter, plane), params,
@@ -1179,22 +1539,67 @@ class ValueEvaluator:
         return nulls if p.type is PredicateType.IS_NULL else ~nulls
 
     @staticmethod
+    def _string_literal(p: Predicate) -> bool:
+        """Whether a literal of ``p`` is a string (or its IN list is one
+        numpy makes strings)."""
+        if p.type in (PredicateType.IN, PredicateType.NOT_IN):
+            return np.asarray(list(p.values)).dtype.kind not in "biuf"
+        lits = [p.value] if p.type in (PredicateType.EQ,
+                                       PredicateType.NOT_EQ) \
+            else [x for x in (p.lower, p.upper) if x is not None]
+        return any(isinstance(x, str) for x in lits)
+
+    def distinct(self, vals: list, rows: Rows, valid=None) -> tuple:
+        """(id of each row's tuple of values, shaped as the rows; per
+        ``Val`` its values at each id on the host): the tuples of
+        ``vals`` over the real rows (``valid``, default: ``rows``' docs)
+        numbered on the card, each decoded once (a row outside ``valid``
+        gets some id in range). No ``Val``: one id, 0."""
+        shape = torch.broadcast_shapes(rows.seg().shape,
+                                       *[v.t.shape for v in vals])
+        if not vals:
+            return torch.zeros(shape, dtype=torch.int64,
+                               device=self.device), []
+        if valid is None:
+            valid = self._valid_rows(rows).reshape(rows.seg().shape)
+        valid = torch.broadcast_to(valid, shape).reshape(-1)
+        widths = [len(self._tuple_keys(v)) for v in vals]
+        keys = [torch.broadcast_to(k, shape).reshape(-1)
+                for v in vals for k in self._tuple_keys(v)]
+        inv, uniq = _factorize_tuples(keys, valid)
+        host = uniq.cpu().numpy()
+        out, col = [], 0
+        for v, w in zip(vals, widths):
+            out.append(self.host_values(v, [host[:, col + j]
+                                            for j in range(w)]))
+            col += w
+        return inv.reshape(shape), out
+
+    def distinct_lut(self, v: Val, rows: Rows, fn,
+                     valid=None) -> torch.Tensor:
+        """``fn`` (numpy values -> one value each) over each distinct value
+        of ``v`` (``distinct``), gathered back per row: the host path's
+        function of the values, run once per distinct value. A failure of
+        ``fn`` is the host path's."""
+        inv, (vals,) = self.distinct([v], rows, valid)
+        try:
+            with np.errstate(all="ignore"):
+                out = np.asarray(fn(vals)).reshape(-1)
+        except Exception as err:  # noqa: BLE001 — the host path's failure
+            raise host_fails(f"{fn} over {v.dtype} values", err) from err
+        return to_device(out, self.device)[inv]
+
+    @staticmethod
     def _literal_dtype(p: Predicate, vdt: np.dtype) -> np.dtype:
         """The dtype numpy compares values of ``vdt`` with the
-        predicate's literals in."""
+        predicate's (numeric) literals in."""
         arr = np.ones(1, dtype=vdt)
         if p.type in (PredicateType.IN, PredicateType.NOT_IN):
             lits = np.asarray(list(p.values))
-            if lits.dtype.kind not in "biuf":
-                raise later(f"the predicate {p}: string literals against "
-                            f"numbers")
             return np.result_type(arr.dtype, lits.dtype)
         lits = [p.value] if p.type in (PredicateType.EQ,
                                        PredicateType.NOT_EQ) \
             else [x for x in (p.lower, p.upper) if x is not None]
-        if any(isinstance(x, str) for x in lits):
-            raise later(f"the predicate {p}: a string literal against "
-                        f"numbers")
         return np.dtype(np.int64) if arr.dtype.kind in "iub" and all(
             isinstance(x, (int, bool)) for x in lits) \
             else np.result_type(arr, *lits)
@@ -1208,6 +1613,9 @@ class ValueEvaluator:
 
             col = self._match_column(p, "JSON_MATCH")
             f = jsonindex.parse_match_expression(p.value)
+            if self.ctx.encoding(col) != Encoding.DICT:
+                return self._raw_scan(col, lambda vals: jsonindex.match_scan(
+                    vals, f, len(vals)))
             return self._doc_set_or_lut(
                 col, lambda s: s.json_index(col),
                 lambda idx, n: idx.match(f, n),
@@ -1216,6 +1624,10 @@ class ValueEvaluator:
             from pinot_tpu_torch.storage import textindex
 
             col = self._match_column(p, "TEXT_MATCH")
+            if self.ctx.encoding(col) != Encoding.DICT:
+                return self._raw_scan(col, lambda vals: textindex
+                                      .ScanTextIndex(vals).match(
+                                          p.value, len(vals)))
             return self._doc_set_or_lut(
                 col, lambda s: s.text_index(col),
                 lambda idx, n: idx.match(p.value, n),
@@ -1229,9 +1641,16 @@ class ValueEvaluator:
         if not p.lhs.is_identifier:
             raise ValueError(f"{what} takes a column as its first arg")
         self._check_column(p.lhs.name)
-        if self.ctx.encoding(p.lhs.name) != Encoding.DICT:
-            raise later(f"{what} over a raw column")
         return p.lhs.name
+
+    def _raw_scan(self, col: str, match_values) -> torch.Tensor:
+        """A match over a raw column: the host path's scan of its values,
+        run once per distinct value (no raw column has an index)."""
+        full = Rows(self.S, self.L, self.device)
+        return torch.broadcast_to(self.distinct_lut(
+            self.eval(Expression.identifier(col), full), full,
+            lambda vals: np.asarray(match_values(vals), dtype=bool)),
+            (self.S, self.L))
 
     def _doc_set_or_lut(self, col: str, index_of, match_docs, match_values):
         """Each segment with its index gives a doc set (``match_docs``),
@@ -1352,7 +1771,7 @@ def predicate_over_values(p: Predicate, v: np.ndarray) -> np.ndarray:
         search = rx.search if t is not PredicateType.LIKE else rx.match
         return np.fromiter((bool(search(s)) for s in v.astype(str)),
                            dtype=bool, count=len(v))
-    raise later(f"the predicate {t.value}")
+    raise host_fails(f"the predicate {t.value} on the host path")
 
 
 def filter_operator_for(seg, p: Predicate) -> str:
@@ -1518,6 +1937,9 @@ class SpaceEvaluator(ValueEvaluator):
         v = b.eval(e, Rows(b.S, b.L, b.device))
         if v.t.dim() == 0:
             return v
+        if v.kind == "point":
+            return dataclasses.replace(v, t=self.gather(v.t), meta=PointMeta(
+                self.gather(v.meta.lat)))
         return dataclasses.replace(v, t=self.gather(v.t))
 
     def is_mv(self, name: str) -> bool:

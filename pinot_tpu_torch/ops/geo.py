@@ -11,7 +11,9 @@ Coordinates are (longitude, latitude) in degrees, like the reference's
 geography type; distances are meters on the WGS84 mean sphere.
 
 ``haversine_torch`` is ``haversine_m`` as torch ops, for the candidate
-rows a geo index hands the card (engine/values.py).
+rows a geo index hands the card (engine/values.py); the rest of the torch
+forms (the ``.10g`` coordinates of ``st_point``, the even-odd ring test,
+``grid_cell``) follow the numpy functions they mirror.
 """
 
 from __future__ import annotations
@@ -82,17 +84,21 @@ def haversine_m(lon1, lat1, lon2, lat2) -> np.ndarray:
     return 2 * EARTH_RADIUS_M * np.arcsin(np.sqrt(np.clip(a, 0, 1)))
 
 
-def haversine_torch(lon1: torch.Tensor, lat1: torch.Tensor, lon2: float,
-                    lat2: float) -> torch.Tensor:
-    """``haversine_m`` in float64 torch ops, from (N,) points to one:
-    the same operations in the same order."""
+def haversine_torch(lon1, lat1, lon2, lat2) -> torch.Tensor:
+    """``haversine_m`` in float64 torch ops over tensors or floats,
+    broadcast: the same operations in the same order."""
+    ref = next(x for x in (lon1, lat1, lon2, lat2)
+               if isinstance(x, torch.Tensor))
+
+    def t(x):
+        return torch.as_tensor(x, dtype=torch.float64, device=ref.device)
+
     rad = math.pi / 180.0
-    p1 = lat1.to(torch.float64) * rad
-    p2 = lat2 * rad
+    p1, p2 = t(lat1) * rad, t(lat2) * rad
     dp = p2 - p1
-    dl = lon2 * rad - lon1.to(torch.float64) * rad
-    a = torch.sin(dp / 2) ** 2 \
-        + torch.cos(p1) * math.cos(p2) * torch.sin(dl / 2) ** 2
+    dl = t(lon2) * rad - t(lon1) * rad
+    a = torch.sin(dp / 2) ** 2 + torch.cos(p1) * torch.cos(p2) \
+        * torch.sin(dl / 2) ** 2
     return 2 * EARTH_RADIUS_M * torch.asin(torch.sqrt(torch.clamp(a, 0, 1)))
 
 
@@ -264,3 +270,123 @@ def grid_cell(lon, lat, resolution) -> np.ndarray:
     cell = (res.astype(np.int64) << 54) | ((ci & 0x3FFFFFF) << 27) \
         | (cj & 0x7FFFFFF)
     return np.where(np.isnan(lon) | np.isnan(lat), np.int64(-1), cell)
+
+
+# ---------------------------------------------------------------------------
+# the same functions as torch ops over float64 coordinates, on the card
+# ---------------------------------------------------------------------------
+
+# 10^k for k in 0..22: every one is exact in float64
+_POW10 = [float(10 ** k) for k in range(23)]
+_TIE_BAND = 1e-5   # |frac - 0.5| below this: the product may have rounded
+_NAN_BITS = 0x7FF8 << 48
+
+
+def sig10_torch(x: torch.Tensor) -> torch.Tensor:
+    """``float(f"{x:.10g}")`` of float64 ``x``: the value ``st_point``'s
+    text carries and ``parse_points`` reads back (non-finite values kept,
+    NaN as one NaN). The decimal rounding is x * 10^k rounded to even
+    with 10^k exact, then divided back (a correctly rounded division of
+    exact values: the nearest double, as the parse gives); values whose
+    scaled product lies near a tie, or outside 1e-13 .. 1e31, are
+    formatted on the host, once per distinct value."""
+    x = x.to(torch.float64)
+    a = x.abs()
+    fin = torch.isfinite(x) & (a > 0)
+    e = torch.floor(torch.log10(torch.where(fin, a, 1.0)))
+    k = (9 - e).to(torch.int64)
+    ok = fin & (k >= -22) & (k <= 22)
+    kc = torch.clamp(k, -22, 22)
+    pw = torch.tensor(_POW10, dtype=torch.float64, device=x.device)[
+        kc.abs()]
+    up = kc >= 0
+    p = torch.where(up, a * pw, a / pw)
+    n = torch.round(p)
+    # the decade log10 named, and no tie the product may have crossed
+    ok &= (p >= 1e9) & (p < 1e10) & ((p - torch.floor(p) - 0.5).abs()
+                                     > _TIE_BAND)
+    r = torch.where(up, n / pw, n * pw)
+    r = torch.where(x < 0, -r, r)
+    out = torch.where(ok, r, x)
+    out = torch.where(torch.isnan(x), float("nan"), out)   # one NaN
+    rest = fin & ~ok
+    if bool(rest.any()):
+        pos = torch.nonzero(rest.reshape(-1)).reshape(-1)
+        vals = x.reshape(-1)[pos]
+        uniq, inv = torch.unique(vals, return_inverse=True)
+        host = np.asarray([float(f"{v:.10g}") for v in
+                           uniq.cpu().numpy().tolist()], dtype=np.float64)
+        out = out.reshape(-1).clone()
+        out[pos] = torch.from_numpy(host).to(x.device)[inv]
+        out = out.reshape(x.shape)
+    return out
+
+
+def float_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 bits of float64 values, every NaN as one NaN's bits (the
+    identity of a value's ``.10g`` text)."""
+    bits = x.to(torch.float64).view(torch.int64)
+    return torch.where(torch.isnan(x), _NAN_BITS, bits)
+
+
+def format_points(lon: np.ndarray, lat: np.ndarray) -> np.ndarray:
+    """``st_point``'s WKT text of float64 coordinates."""
+    return np.asarray([f"POINT ({x:.10g} {y:.10g})"
+                       for x, y in zip(np.asarray(lon, dtype=np.float64),
+                                       np.asarray(lat, dtype=np.float64))])
+
+
+def geometric(lon: torch.Tensor, lat: torch.Tensor) -> tuple:
+    """The (lon, lat) ``parse_points`` reads from ``st_point``'s text of
+    (lon, lat) values already at their ``.10g`` value: both NaN where
+    either is not finite (its text is no number the pattern reads)."""
+    bad = ~(torch.isfinite(lon) & torch.isfinite(lat))
+    return (torch.where(bad, float("nan"), lon),
+            torch.where(bad, float("nan"), lat))
+
+
+def points_in_ring_torch(ring: np.ndarray, lon: torch.Tensor,
+                         lat: torch.Tensor) -> torch.Tensor:
+    """``_points_in_ring`` as float64 torch ops, the same operations in
+    the same order (so the same roundings: the ring's edges included),
+    and ``st_contains``'s NaN rule."""
+    inside = torch.zeros(lon.shape, dtype=torch.bool, device=lon.device)
+    x0, y0 = (float(c) for c in ring[-1])
+    for x1, y1 in ring.tolist():
+        crosses = (lat < y1) != (lat < y0)   # (y1 > lat) != (y0 > lat)
+        xint = (lat - y1) * (x0 - x1) / (y0 - y1) + x1 \
+            if y0 != y1 else torch.full_like(lat, float("nan"))
+        inside ^= crosses & (lon < xint)
+        x0, y0 = x1, y1
+    return inside & ~torch.isnan(lon)
+
+
+_I64_MIN = -(1 << 63)
+
+
+def _floor_int64(x: torch.Tensor) -> torch.Tensor:
+    """``np.floor(x).astype(np.int64)``: values past int64 (and NaN, inf)
+    become Long.MIN, as numpy's cast gives them on x86."""
+    f = torch.floor(x)
+    ok = (f >= -9.223372036854775808e18) & (f < 9.223372036854775808e18)
+    return torch.where(ok, torch.where(ok, f, 0.0).to(torch.int64), _I64_MIN)
+
+
+def grid_cell_torch(lon: torch.Tensor, lat: torch.Tensor,
+                    resolution) -> torch.Tensor:
+    """``grid_cell`` as int64 torch ops over float64 coordinates
+    (``resolution`` an int or an integer tensor)."""
+    lon, lat = lon.to(torch.float64), lat.to(torch.float64)
+    if isinstance(resolution, torch.Tensor):
+        res = torch.clamp(resolution.to(torch.int64), 0, 27)
+        res_deg = 360.0 / (torch.ones_like(res) << res).to(torch.float64)
+    else:
+        res = min(max(int(resolution), 0), 27)
+        res_deg = 360.0 / float(1 << res)
+    ci = _floor_int64(lat / res_deg)
+    cj = _floor_int64(lon / res_deg)
+    head = res << 54 if isinstance(res, torch.Tensor) \
+        else torch.tensor(res << 54, dtype=torch.int64, device=lon.device)
+    cell = head | ((ci & 0x3FFFFFF) << 27) | (cj & 0x7FFFFFF)
+    return torch.where(torch.isnan(lon) | torch.isnan(lat), -1, cell)
+

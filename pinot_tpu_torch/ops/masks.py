@@ -22,6 +22,17 @@ def _same(a, b):
     return a.to(dt), b.to(dt)
 
 
+def unpack_subbyte(packed, bits: int):
+    """(..., Lp) uint8 sub-byte plane -> (..., Lp * 8 // bits) uint8 dict
+    ids, by shifts and masks (FixedBitSVForwardIndexReader's bit
+    extraction): id j lives in byte j // f at bit (j % f) * bits, f = 8 //
+    bits, little-endian within the byte, as engine/params.py packs it."""
+    f = 8 // bits
+    shifts = torch.arange(f, dtype=torch.uint8, device=packed.device) * bits
+    sub = (packed[..., None] >> shifts) & ((1 << bits) - 1)
+    return sub.reshape(packed.shape[:-1] + (packed.shape[-1] * f,))
+
+
 def valid_mask(n_docs, padded_len: int):
     """(S, L) mask of real (non-padding) docs; ``n_docs`` is (S,) int32."""
     iota = torch.arange(padded_len, dtype=torch.int32, device=n_docs.device)

@@ -219,9 +219,13 @@ class SegmentCreator:
             codec_map = getattr(idx_cfg, "compression_codec", {}) or {}
             if (name in idx_cfg.compressed_columns or name in codec_map) \
                     and spec.single_value:
-                raise NotImplementedError(
-                    "compressed raw forward indexes come with a later slice "
-                    "of the port (ROADMAP queue 1, item g2)")
+                from pinot_tpu_torch import native
+
+                codec = codec_map.get(name, "zlib")
+                blob, offs = native.compress_chunks(raw, codec=codec)
+                blob.tofile(p(f"{name}.fwdz.bin"))
+                np.save(p(f"{name}.fwdz.off.npy"), offs, allow_pickle=False)
+                compression = codec
             else:
                 np.save(p(f"{name}.fwd.npy"), raw, allow_pickle=False)
                 compression = None

@@ -222,9 +222,19 @@ class ImmutableSegment:
         if col not in self._fwd_cache:
             meta = self.column_metadata(col)
             if meta.compression is not None:
-                raise NotImplementedError(
-                    "compressed raw forward indexes come with a later slice "
-                    "of the port (ROADMAP queue 1, item g2)")
+                from pinot_tpu_torch import native
+
+                self._note_plane(f"{col}.fwdz.bin")
+                blob = np.fromfile(self._path(f"{col}.fwdz.bin"),
+                                   dtype=np.uint8)
+                offs = np.load(self._path(f"{col}.fwdz.off.npy"),
+                               allow_pickle=False)
+                n = (self.n_docs if meta.single_value
+                     else meta.total_number_of_entries)
+                dtype = np.dtype(meta.data_type.np_dtype)
+                raw = native.decompress_chunks(blob, offs, n * dtype.itemsize,
+                                               codec=meta.compression)
+                self._fwd_cache[col] = raw.view(dtype)
             elif meta.packed_bits is not None:
                 self._note_plane(f"{col}.fwdpacked.bin")
                 buf = np.fromfile(self._path(f"{col}.fwdpacked.bin"),

@@ -125,16 +125,17 @@ def test_bitpack_matches_reference_codec(bits):
 
 
 def test_index_kinds_outside_the_slice_raise(tmp_path):
-    """Compressed raw forward indexes still wait for ROADMAP item g2; the
-    JSON and text indexes are built since the index slice."""
+    """Every index kind is built now: compressed raw forward indexes
+    since ROADMAP item g2 (they read back as written), the JSON and text
+    indexes since the index slice."""
     schema = Schema.build(name="t", dimensions=[("s", DataType.STRING)],
                           metrics=[("m", DataType.INT)])
     cols = {"s": np.array([f"v{i}" for i in range(10)]),
             "m": np.arange(10, dtype=np.int32)}
-    with pytest.raises(NotImplementedError, match="later slice.*item g2"):
-        build_segment(schema, cols, str(tmp_path / "x"), TableConfig(
-            table_name="t",
-            indexing=IndexingConfig(compressed_columns=["m"])))
+    seg = build_segment(schema, cols, str(tmp_path / "x"), TableConfig(
+        table_name="t", indexing=IndexingConfig(compressed_columns=["m"])))
+    assert seg.column_metadata("m").compression == "zlib"
+    np.testing.assert_array_equal(np.asarray(seg.forward("m")), cols["m"])
     for i, indexing in enumerate((IndexingConfig(json_index_columns=["s"]),
                                   IndexingConfig(text_index_columns=["s"]))):
         seg = build_segment(schema, cols, str(tmp_path / f"y{i}"),
