@@ -47,8 +47,8 @@ Phases, all on ``cuda:0``:
    planes, captured at the kernels' entries); K5, the port-only ordered
    cluster sum of the t-digest build, at pct_scalar's, pct_raw_month's
    and pct_tdigest_supp's sorted values and cluster offsets (long
-   clusters and 816,000 short ones), captured at its entry, bit for bit against its plain version (the CPU's sequential
-   cumsum), beside ``torch.segment_reduce`` (a parallel sum, a
+   clusters and 816,000 short ones), captured at its entry, bit for bit
+   against its plain version (the CPU's sequential cumsum), beside ``torch.segment_reduce`` (a parallel sum, a
    yardstick), with each digest query's cluster sizes equal to
    ``compress``'s own loop (run in the write pool) on every (segment,
    group) run; K1 at sumprec_year's and sumprec_cust's byte planes and
@@ -164,7 +164,44 @@ Phases, all on ``cuda:0``:
    Then the cost block-skip eligibility adds to the unsorted
    table's filtered queries (the zone verdict and one scalar read before
    the dense form): p50 with and without ``SET useBlockSkip = false``.
-4. A ``{"kernels": [...]}`` line, the card line, and as the last line
+   The twelfth path, ``serving``, over lineorder and lineorder_by_date
+   (the eleven paths run with the device partials cache off, so their
+   repeats run the kernels): four cohorts (``SERVE_COHORTS``), each
+   member first alone with the coalescer off, then all released together
+   through a forced 50 ms window that closes when the last member has
+   joined, then 9 more timed passes of each: q1's shape with 8 lo_quantity literals
+   (K1's member-axis entry), q6's and hll_scalar's over 4 lo_discount
+   ranges (K1 and K2; K3), and bs_month_fused over 4 months plus one
+   range past the candidate bound (K4's member-axis entry for the skip
+   sub-cohort, the dense sub-cohort's torch ops for the other). Every
+   member must equal its solo answer, stats included, and the oracle;
+   with the launch counts zeroed before and read after, each cohort must
+   launch each member-axis entry it reaches exactly once and no solo
+   entry; the first release must be one cohort that every member joined
+   (``cohorts_launched`` +1, ``queries_coalesced`` + M - 1), and the
+   walls are the p50 of the timed passes;
+   each member-axis entry is held bit for bit against its plain version
+   at the cohort's captured inputs, with CUDA-event times of the entry,
+   of M solo launches of the same members and of the plain version,
+   beside the bound and one library call over member-offset ids.
+   ``serve_partials``: q1 run 6 times a round, three rounds, the cache
+   emptied before each: the first run misses, the rest hit with
+   ``partialsCacheHit``, the same rows and no kernel launched.
+   ``serve_deadline``: an expired Deadline raises QueryTimeout before the
+   fetch waits, leaving no pin. ``serve_trace``: a traced
+   ``execute_segments_async`` of q1 fetched on another thread records
+   gather, dispatch, device_fetch, kernel, link and merge.
+   ``serve_analyze``: EXPLAIN ANALYZE of q1 and bs_month_fused, its
+   ``analyzedResponse`` equal to the plain answer, every KERNEL line
+   with GB/s and the percentage of the probed peak. The memory probe
+   (a 512 MiB copy, best of 5) printed beside the card, within 1.05 x
+   ``HBM_BYTES_PER_S``, no record above 105 % of it. Printed and not
+   gated: the synchronizing calls one launch of each serving query
+   makes (``torch.cuda.set_sync_debug_mode("warn")``), and q1-shaped
+   queries with distinct literals, 320 for each of 1, 2, 4 and 8 threads
+   with the coalescer on and off (queries per second, p50).
+4. A ``{"kernels": [...]}`` line (K1-K5 and the four member-axis
+   entries), the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result line, without a CUDA card, outside a
@@ -175,6 +212,7 @@ JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import multiprocessing as mp
 import os
@@ -529,6 +567,75 @@ QUERY_LAUNCHES = {
 }
 
 
+# the serving path: cohorts of one template with different literals,
+# released together through a forced coalescer window
+SERVE_K1 = ("SET useStarTree = false; "
+            "SELECT lo_suppkey, COUNT(*), SUM(lo_revenue) FROM lineorder "
+            "WHERE lo_quantity > {lit} GROUP BY lo_suppkey "
+            "ORDER BY SUM(lo_revenue) DESC, lo_suppkey LIMIT 10")
+SERVE_K1_LITS = (1, 7, 13, 19, 25, 31, 37, 43)
+SERVE_DISCOUNTS = (0, 2, 4, 6)   # lo_discount BETWEEN a AND a + 2
+SERVE_K4_RANGES = ((19930301, 19930328), (19940401, 19940428),
+                   (19950501, 19950528), (19960601, 19960628),
+                   # past the candidate bound: the dense sub-cohort
+                   (19930101, 19961231))
+SERVE_K4_FILTERS = {f"serve_k4_{lo}": ("range", "lo_orderdate", lo, hi)
+                    for lo, hi in SERVE_K4_RANGES}
+
+
+def _serve_sql(template: str, old: str, new: str) -> str:
+    if old not in template:
+        raise ValueError(f"{old!r} not in {template!r}")
+    return template.replace(old, new)
+
+
+# cohort -> (member queries, member-axis entries each launch of it makes)
+SERVE_COHORTS = {
+    "serve_cohort_k1": (
+        {f"serve_k1_{lit}": SERVE_K1.format(lit=lit) for lit in SERVE_K1_LITS},
+        {"group_plane_sums_members": 1}),
+    # q6's COUNT(*) through K1, its MIN / MAX / MINMAXRANGE through K2
+    "serve_cohort_k2": (
+        {f"serve_k2_{a}": _serve_sql(QUERIES["q6_minmax"], "BETWEEN 1 AND 3",
+                                     f"BETWEEN {a} AND {a + 2}")
+         for a in SERVE_DISCOUNTS},
+        {"group_plane_sums_members": 1, "group_minmax_members": 1}),
+    "serve_cohort_k3": (
+        {f"serve_k3_{a}": _serve_sql(HLL_QUERIES["hll_scalar"],
+                                     "BETWEEN 1 AND 3",
+                                     f"BETWEEN {a} AND {a + 2}")
+         for a in SERVE_DISCOUNTS},
+        {"hll_register_max_members": 1}),
+    # four months by K4's member-axis entry, one range past the bound in
+    # the dense sub-cohort (scalar torch ops, no kernel)
+    "serve_cohort_k4": (
+        {f"serve_k4_{lo}": _serve_sql(BS_QUERIES["bs_month_fused"],
+                                      "BETWEEN 19930301 AND 19930328",
+                                      f"BETWEEN {lo} AND {hi}")
+         for lo, hi in SERVE_K4_RANGES},
+        {"fused_filter_agg_members": 1}),
+}
+# the member-axis entries: (kernel, the solo entry, the TPU kernel rows)
+SERVE_ENTRIES = {
+    "group_plane_sums_members": (
+        "group_plane_sums", "pinot_tpu/ops/pallas_scatter.py:244 (and "
+        "pinot_tpu/ops/groupby_mm.py:225) under jax.vmap"),
+    "group_minmax_members": (
+        "group_minmax", "pinot_tpu/ops/pallas_scatter.py:349 under jax.vmap"),
+    "hll_register_max_members": (
+        "hll_register_max", "pinot_tpu/ops/pallas_scatter.py:455 (and "
+        "pinot_tpu/ops/groupby_mm.py:225 in rho_mode) under jax.vmap"),
+    "fused_filter_agg_members": (
+        "fused_filter_agg", "pinot_tpu/ops/pallas_scatter.py:792 under "
+        "jax.vmap"),
+}
+SERVE_REPEATS = 6      # serve_partials: one miss, then hits
+SERVE_RELEASES = 9     # serve_cohort: timed releases (and solo passes)
+SERVE_SWEEP_THREADS = (1, 2, 4, 8)
+SERVE_SWEEP_QUERIES = 320  # per thread count and coalescer setting
+PROBE_MAX_OF_PEAK = 1.05   # the probe against HBM_BYTES_PER_S
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -758,6 +865,47 @@ def oracle(data: list) -> dict:
                                if dc[y]], int(m.sum()))
     return want
 
+
+def serve_oracle(data: list) -> dict:
+    """The serving path's K1, K2 and K3 cohort members from the columns
+    (the K4 members' come with ``bs_oracle``): per lo_quantity literal the
+    top ten suppliers by revenue, per lo_discount range q6's extremes and
+    hll_scalar's count and estimate."""
+    c = {k: np.concatenate([d[k] for d in data]) for k in
+         ("d_year", "s_nation", "lo_suppkey", "lo_discount", "lo_quantity",
+          "lo_revenue", "lo_custkey")}
+    supp, disc, qty = c["lo_suppkey"], c["lo_discount"], c["lo_quantity"]
+    rev = c["lo_revenue"].astype(np.int64)
+    want = {}
+    for lit in SERVE_K1_LITS:
+        m = qty > lit
+        cnt = np.bincount(supp[m], minlength=2000)
+        s = np.bincount(supp[m], weights=rev[m], minlength=2000)
+        top = sorted(np.flatnonzero(cnt).tolist(),
+                     key=lambda k: (-s[k], k))[:10]
+        want[f"serve_k1_{lit}"] = ([[k, int(cnt[k]), float(s[k])]
+                                    for k in top], int(m.sum()))
+    idx, rho = hll_idx_rho(fmix32(c["lo_custkey"]), LOG2M)
+    for a in SERVE_DISCOUNTS:
+        m = (disc >= a) & (disc <= a + 2)
+        g = (c["d_year"][m] - 1992).astype(np.int64) * 25 + c["s_nation"][m]
+        r, q = rev[m], qty[m].astype(np.int64)
+        cnt = np.bincount(g, minlength=175)
+        ext = {}
+        for key, v in (("r", r), ("q", q)):
+            lo = np.full(175, np.iinfo(np.int64).max)
+            hi = np.full(175, np.iinfo(np.int64).min)
+            np.minimum.at(lo, g, v)
+            np.maximum.at(hi, g, v)
+            ext[key] = (lo, hi)
+        want[f"serve_k2_{a}"] = (
+            [[1992 + k // 25, str(NATIONS[k % 25]), float(ext["r"][0][k]),
+              float(ext["r"][1][k]), float(ext["q"][1][k] - ext["q"][0][k]),
+              int(cnt[k])] for k in range(175) if cnt[k]], int(m.sum()))
+        est = hll_estimates(idx, rho, np.where(m, 0, -1), 1, LOG2M)
+        want[f"serve_k3_{a}"] = ([[int(m.sum()), int(est[0])]],
+                                 int(m.sum()))
+    return want
 
 def st_oracle(data: list, want: dict) -> dict:
     """The star-tree path's answers and the cube rows each query reads.
@@ -2232,6 +2380,9 @@ def subbyte_twins(dirs: list, want: dict, total: int, engine_cls) -> tuple:
     loads = []
     for flag in ("", "1"):
         eng = engine_cls(device="cuda")
+        # check_tail_kernels captures the sub-byte engine's kernel inputs
+        # from queries run here: no repeat may be a partials-cache hit
+        eng.device.partials_cache_enabled = False
         segs = [ImmutableSegment(d) for d in dirs]
         for s in segs:
             eng.add_segment(TRIPS_TABLE, s)
@@ -2364,7 +2515,7 @@ def bs_oracle(data: list, pad_to: int) -> dict:
     qty, rev = c["lo_quantity"].astype(np.int64), \
         c["lo_revenue"].astype(np.int64)
     want = {}
-    for name, tree in BS_FILTERS.items():
+    for name, tree in {**BS_FILTERS, **SERVE_K4_FILTERS}.items():
         m = _rows_mask(tree, c)
         alive = _may_match(tree, seg_lo, seg_hi)
         cand = _may_match(tree, blk_lo, blk_hi) & alive[blk_seg]
@@ -3746,28 +3897,11 @@ def run_path(engine, path: str, want: dict, total: int, runs: int,
                     f"{name}: {made[0]} sorted-regime tables and {made[1]} "
                     f"host-path-shape runs in one execution, want "
                     f"{QUERY_ROUTES[name]}")
-        if resp["exceptions"]:
-            raise AssertionError(f"{name}: {resp['exceptions']}")
-        rows_want, scanned = want[name][:2]
-        extra = dict(want[name][2]) if len(want[name]) > 2 else {}
-        scan_docs = extra.pop("scan_docs", None)
-        want_total = extra.pop("totalDocs", total)
+        check_answer(name, resp, want, total)
+        scanned = want[name][1]
+        scan_docs = (want[name][2] if len(want[name]) > 2 else {}).get(
+            "scan_docs")
         got = resp["resultTable"]["rows"]
-        if callable(rows_want):   # an approximate answer's own check
-            rows_want(got)
-        elif not rows_equal(got, rows_want):
-            raise AssertionError(f"{name}: rows {got[:5]} want "
-                                 f"{rows_want[:5]}")
-        if resp["numDocsScanned"] != scanned \
-                or resp["totalDocs"] != want_total:
-            raise AssertionError(
-                f"{name}: numDocsScanned {resp['numDocsScanned']} / "
-                f"totalDocs {resp['totalDocs']}, want {scanned} / "
-                f"{want_total}")
-        for key, val in extra.items():  # pruning and scan stats
-            if resp[key] != val:
-                raise AssertionError(f"{name}: {key} {resp[key]}, "
-                                     f"want {val}")
         if name in CUBE_SCAN_TWINS:   # an exact pair: cube == scan
             twin = engine.execute("SET useStarTree = false; " + sql)
             if twin["resultTable"] != resp["resultTable"] \
@@ -3866,6 +4000,638 @@ def check_device_reduce(engine, want: dict) -> dict:
         "path's shape and equals the oracle's per-segment doc-order keep, "
         "the useDeviceReduce = false twin the first 100 groups")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the serving path: cohorts, the partials cache, deadlines, traces, ANALYZE
+# ---------------------------------------------------------------------------
+
+
+def compile_query(engine, sql: str):
+    """``sql`` compiled as ``QueryEngine.execute`` compiles it."""
+    from pinot_tpu_torch.query.optimizer import optimize_query
+    from pinot_tpu_torch.query.rewrite import expand_star
+    from pinot_tpu_torch.sql.compiler import compile_select
+    from pinot_tpu_torch.sql.parser import parse_sql
+
+    q = optimize_query(compile_select(parse_sql(sql)))
+    return expand_star(q, engine.tables[q.table_name][0].column_names())
+
+
+def canonical(resp: dict) -> dict:
+    """A response without its timing, cache and roofline fields: what a
+    coalesced member must share with its solo run."""
+    return {k: v for k, v in resp.items()
+            if k not in ("timeUsedMs", "partialsCacheHit", "deviceBytesMoved",
+                         "deviceKernelMs", "deviceLinkMs", "roofline")}
+
+
+def check_answer(name: str, resp: dict, want: dict, total: int) -> None:
+    """One response against the oracle ``want[name]`` = (rows or their
+    own check, numDocsScanned[, extra stats]): rows, numDocsScanned,
+    totalDocs (``total`` unless the extra stats name it) and the pruning
+    and scan stats the oracle names (``scan_docs`` is a cube query's
+    scan twin's, not checked here)."""
+    if resp["exceptions"]:
+        raise AssertionError(f"{name}: {resp['exceptions']}")
+    rows_want, scanned = want[name][:2]
+    extra = dict(want[name][2]) if len(want[name]) > 2 else {}
+    extra.pop("scan_docs", None)
+    want_total = extra.pop("totalDocs", total)
+    got = resp["resultTable"]["rows"]
+    if callable(rows_want):   # an approximate answer's own check
+        rows_want(got)
+    elif not rows_equal(got, rows_want):
+        raise AssertionError(f"{name}: rows {got[:5]} want {rows_want[:5]}")
+    if resp["numDocsScanned"] != scanned or resp["totalDocs"] != want_total:
+        raise AssertionError(f"{name}: numDocsScanned {resp['numDocsScanned']}"
+                             f" / totalDocs {resp['totalDocs']}, want "
+                             f"{scanned} / {want_total}")
+    for key, val in extra.items():
+        if resp[key] != val:
+            raise AssertionError(f"{name}: {key} {resp[key]}, want {val}")
+
+
+class capture_members:
+    """Records every call of the member-axis wrappers (ops/kernels.py
+    ``*_members``) while it is entered: {entry: [(args, kwargs)]}."""
+
+    def __init__(self):
+        self.calls = {name: [] for name in SERVE_ENTRIES}
+        self._saved = {}
+
+    def __enter__(self):
+        from pinot_tpu_torch.ops import kernels
+
+        for name in SERVE_ENTRIES:
+            real = self._saved[name] = getattr(kernels, name)
+
+            def spy(*args, _real=real, _name=name, **kwargs):
+                self.calls[_name].append((args, kwargs))
+                return _real(*args, **kwargs)
+
+            setattr(kernels, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        from pinot_tpu_torch.ops import kernels
+
+        for name, real in self._saved.items():
+            setattr(kernels, name, real)
+        return False
+
+
+def _same_outputs(got, want, float_rows=()) -> tuple:
+    """(bit-equal, max abs err) of two kernel outputs (nested tuples of
+    tensors); ``float_rows`` of a K1 output are held to rtol 1e-6."""
+    import torch
+
+    if isinstance(got, (tuple, list)):
+        pairs = [(g, w) for g, w in zip(got, want)
+                 if g is not None or w is not None]
+        res = [_same_outputs(g, w) for g, w in pairs]
+        return all(r[0] for r in res), max((r[1] for r in res), default=0.0)
+    err = float((got.double() - want.double()).abs().max()) \
+        if got.numel() else 0.0
+    if float_rows:
+        ints = [a for a in range(got.shape[1]) if a not in float_rows]
+        same = torch.equal(got[:, ints], want[:, ints]) and torch.allclose(
+            got[:, list(float_rows)], want[:, list(float_rows)], rtol=1e-6,
+            atol=0.0)
+        return same, err
+    if got.is_floating_point():
+        return torch.equal(got.view(torch.int32), want.view(torch.int32)), err
+    return torch.equal(got, want), err
+
+
+def check_member_entry(name: str, args, kwargs) -> dict:
+    """One member-axis entry at a cohort's captured inputs: against its
+    plain version (integer rows bit for bit; K1's float planes rtol 1e-6),
+    with CUDA-event times of the entry, of M solo launches over the same
+    members and of the plain version, one PyTorch call of the same
+    function over member-offset ids where there is one, and the bound:
+    the members' own operands read once each, the shared planes once, the
+    outputs written once."""
+    import torch
+    from pinot_tpu_torch.ops import kernels
+
+    entry = getattr(kernels, name)
+    plain = getattr(kernels, name + "_plain")
+    got = entry(*args, **kwargs)
+    want = plain(*args, **{k: v for k, v in kwargs.items() if k != "span"})
+    torch.cuda.synchronize()
+    float_rows = ()
+    if name == "group_plane_sums_members":
+        gid, sources, G = args
+        count = kwargs.get("count", False)
+        layout = kernels.plane_layout(sources, count)
+        float_rows = tuple(a for a, (region, _r) in enumerate(layout)
+                           if region == "flt" and not any(
+                               s.kind == "bf16" for s in sources))
+    same, err = _same_outputs(got, want, float_rows)
+    if not same:
+        raise AssertionError(f"{name} differs from its plain version at the "
+                             f"cohort's inputs, max abs err {err}")
+    del got, want
+    ms = cuda_ms(lambda: entry(*args, **kwargs), 10)
+    plain_ms = cuda_ms(lambda: plain(*args, **{
+        k: v for k, v in kwargs.items() if k != "span"}), 2)
+    lib_ms = None
+    if name == "group_plane_sums_members":
+        gid, sources, G = args
+        M, n = gid.shape[0], gid[0].numel()
+
+        def solo():
+            for m in range(M):
+                kernels.group_plane_sums(
+                    gid[m], [kernels.PlaneSource(
+                        kernels._member_slice(s.values, m, M, n), s.kind,
+                        s.nplanes, s.plus, kernels._member_scalar(s.minus, m))
+                        for s in sources], G, count=count)
+        ids = (gid.reshape(M, -1).long() + torch.arange(
+            M, device=gid.device)[:, None] * (G + 1)).reshape(-1)
+        vals = ([torch.ones(M * n, dtype=torch.float64, device=gid.device)]
+                if count else []) + [
+            torch.broadcast_to(s.values.reshape(-1, n).to(torch.float64),
+                               (M, n)).reshape(-1) for s in sources]
+        V = torch.stack(vals)
+        del vals
+        lib_out = torch.zeros((V.shape[0], M * (G + 1)), dtype=torch.float64,
+                              device=gid.device)
+        lib_ms = cuda_ms(lambda: lib_out.index_add_(1, ids, V), 3)
+        del V, lib_out, ids
+        A = len(layout)
+        nbytes = 4 * M * n + sum(s.values.numel() * s.values.element_size()
+                                 for s in sources) + 8 * M * A * G
+        ops = M * n * A
+        shape = f"M={M} n={n} G={G} A={A}"
+    elif name == "group_minmax_members":
+        gid, sources, G = args
+        M, n = gid.shape[0], gid[0].numel()
+
+        def solo():
+            for m in range(M):
+                kernels.group_minmax_sources(gid[m].reshape(-1), [
+                    dataclasses.replace(s, values=kernels._member_slice(
+                        s.values, m, M, n)) for s in sources], G)
+        ids = (gid.reshape(M, -1).long() + torch.arange(
+            M, device=gid.device)[:, None] * (G + 1)).reshape(-1)
+        decoded = [torch.broadcast_to(kernels.minmax_decode(s).reshape(-1, n),
+                                      (M, n)).reshape(-1) for s in sources]
+        outs = [torch.empty(M * (G + 1), dtype=s.dtype, device=gid.device)
+                for s in sources]
+
+        def library():
+            for v, s, o in zip(decoded, sources, outs):
+                for op, fill in zip(s.ops, s.fills):
+                    o.fill_(fill).scatter_reduce_(0, ids, v, "a" + op)
+        lib_ms = cuda_ms(library, 3)
+        del decoded, outs, ids
+        cells = sum(len(s.ops) for s in sources)
+        nbytes = 4 * M * n + sum(s.values.numel() * s.values.element_size()
+                                 for s in sources) + 4 * M * cells * G
+        ops = M * n * cells
+        shape = f"M={M} n={n} G={G} cells={cells}"
+    elif name == "hll_register_max_members":
+        h, log2m, M = args[:3]
+        G = kwargs.get("num_groups", args[3] if len(args) > 3 else 1)
+        gid, mask = kwargs.get("gid"), kwargs.get("mask")
+        by = gid if gid is not None else mask
+        n = by.numel() // M
+
+        def solo():
+            for m in range(M):
+                kernels.hll_register_max(
+                    kernels._member_slice(h, m, M, n), log2m, G,
+                    gid=None if gid is None
+                    else kernels._member_slice(gid, m, M, n),
+                    mask=None if mask is None
+                    else kernels._member_slice(mask, m, M, n))
+        from pinot_tpu_torch.ops.hll import hll_slots
+
+        slot, rho = hll_slots(torch.broadcast_to(h.reshape(-1, n), (M, n)),
+                              log2m, G, gid, mask)
+        nslots = G << log2m
+        ids = (slot.long() + torch.arange(M, device=h.device)[:, None]
+               * (nslots + 1)).reshape(-1)
+        rho = rho.reshape(-1)
+        lib_out = torch.zeros(M * (nslots + 1), dtype=torch.int32,
+                              device=h.device)
+        lib_ms = cuda_ms(lambda: lib_out.scatter_reduce_(0, ids, rho, "amax"),
+                         3)
+        del slot, rho, ids, lib_out
+        nbytes = h.numel() * 4 + sum(t.numel() * t.element_size()
+                                     for t in (gid, mask) if t is not None) \
+            + 4 * M * nslots
+        ops = M * n
+        shape = f"M={M} n={n} slots={nslots}"
+    else:   # fused_filter_agg_members
+        cand, rows_in, cols, lits, prog, aggs, ki, kf = args
+        M, B = cand.shape
+
+        def solo():
+            for m in range(M):
+                kernels.fused_filter_agg(cand[m], rows_in[m], cols, lits[m],
+                                         prog, aggs, ki, kf)
+        rows = int(rows_in.sum())
+        nbytes = rows * sum(c.element_size() for c in cols) + 8 * M * B \
+            + 4 * M * B * (ki + kf) + lits.numel() * 4
+        ops = rows * (len(prog) + len(aggs) + 1)
+        shape = f"M={M} B={B} rows={rows} planes={len(cols)}"
+    solo_ms = cuda_ms(solo, 3)
+    b, by = bound_ms(nbytes, ops)
+    out = dict(shape=shape, max_abs_err=err, ms=ms, solo_ms=solo_ms,
+               plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=lib_ms)
+    if lib_ms is None:
+        out["library_is"] = "none: no single PyTorch call computes K4's " \
+                            "function"
+    log(f"{name} at the cohort's inputs ({shape}): {ms:.4f} ms, {solo_ms:.4f} "
+        f"ms for the same members as solo launches, plain {plain_ms:.4f} ms, "
+        f"library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, bound "
+        f"{b:.4f} ms ({by}); bit-exact" + (", float planes within rtol 1e-6"
+                                           if float_rows else ""))
+    return out
+
+
+def serve_cohort(engine, cohort: str, want: dict, total: int,
+                 on_card: bool) -> tuple:
+    """One cohort: each member solo with the coalescer off, then all
+    released together through a forced window that closes when the last
+    member has joined (``max_cohort``), then SERVE_RELEASES more passes of
+    each, timed: the solo members one after another, and the release.
+    Every member must equal its solo answer (stats included) and the
+    oracle on every release. The first release must be ONE cohort that
+    every member joined, and on the card it must launch each member-axis
+    entry it reaches exactly once (the counts zeroed before and read
+    after); each entry is held against its plain version at the captured
+    inputs. The p50 of the walls and of the leader's ``deviceKernelMs``
+    (the CUDA-event span of the cohort's launch) are printed. Returns
+    (summary, entry records)."""
+    import threading
+
+    queries, expected = SERVE_COHORTS[cohort]
+    ex = engine.device
+    co = ex.coalescer
+    names = list(queries)
+    co.enabled = False
+    # the members' first runs upload what they read: the passes after
+    # them are timed
+    solo = {name: engine.execute(sql) for name, sql in queries.items()}
+    solo_walls = []
+    for _ in range(SERVE_RELEASES):
+        t = time.perf_counter()
+        for sql in queries.values():
+            engine.execute(sql)
+        solo_walls.append((time.perf_counter() - t) * 1e3)
+    co.enabled = True
+    for name, resp in solo.items():
+        check_answer(name, resp, want, total)
+
+    def release() -> tuple:
+        """Every member at once through a forced window: (answers, wall
+        ms)."""
+        got, errors = {}, []
+        barrier = threading.Barrier(len(names))
+
+        def member(name):
+            try:
+                barrier.wait()
+                got[name] = engine.execute(queries[name])
+            except BaseException as e:  # noqa: BLE001 — raised after join
+                errors.append(e)
+
+        cap = co.max_cohort
+        co.force, co.window_s, co.max_cohort = True, 0.05, len(names)
+        try:
+            threads = [threading.Thread(target=member, args=(n,))
+                       for n in names]
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            co.force, co.window_s, co.max_cohort = False, 0.003, cap
+        if errors:
+            raise errors[0]
+        for name in names:
+            if canonical(got[name]) != canonical(solo[name]):
+                raise AssertionError(f"{name}: the coalesced answer differs "
+                                     f"from its solo run: {got[name]} vs "
+                                     f"{solo[name]}")
+            check_answer(name, got[name], want, total)
+        kernel = max(r["deviceKernelMs"] for r in got.values())
+        return got, wall, kernel
+
+    tables = launch_tables()
+    for table in tables.values():
+        for key in table:
+            table[key] = 0
+    c0 = (co.cohorts_launched, co.queries_coalesced)
+    with capture_members() as cap:
+        release()
+    counts = {k: dict(v) for k, v in tables.items()}
+    launched = co.cohorts_launched - c0[0]
+    joined = co.queries_coalesced - c0[1]
+    # one cohort, every member in it: a member that ran apart (say the
+    # range past the candidate bound, whose dense form launches no
+    # kernel) would leave the launch counts as they are
+    if (launched, joined) != (1, len(names) - 1):
+        raise AssertionError(f"{cohort}: cohorts_launched +{launched}, "
+                             f"queries_coalesced +{joined}, want +1 and "
+                             f"+{len(names) - 1}")
+    walls, kernel_walls = [], []
+    for _ in range(SERVE_RELEASES):
+        _got, wall, kernel = release()
+        walls.append(wall)
+        kernel_walls.append(kernel)
+    cohort_ms = float(np.percentile(walls, 50))
+    kernel_ms = float(np.percentile(kernel_walls, 50))
+    solo_ms = float(np.percentile(solo_walls, 50))
+    records = {}
+    if on_card:
+        for entry in SERVE_ENTRIES:
+            made = counts["kernels"][entry]
+            if made != expected.get(entry, 0):
+                raise AssertionError(f"{cohort}: {made} launches of {entry}, "
+                                     f"want {expected.get(entry, 0)}")
+        solo_made = {k: counts["kernels"][SERVE_ENTRIES[k][0]]
+                     for k in expected}
+        if any(solo_made.values()):
+            raise AssertionError(f"{cohort}: solo launches beside the "
+                                 f"cohort's: {solo_made}")
+        for entry, calls in cap.calls.items():
+            for args, kwargs in calls:
+                records[entry] = check_member_entry(entry, args, kwargs)
+    cap.calls.clear()
+    summary = {"members": len(names), "cohorts_launched": launched,
+               "queries_coalesced": joined, "releases": SERVE_RELEASES,
+               "cohort_wall_p50_ms": cohort_ms,
+               "cohort_kernel_p50_ms": kernel_ms,
+               "solo_walls_p50_ms": solo_ms,
+               "launches": {k: v for k, v in counts["kernels"].items() if v}}
+    log(f"{cohort}: {len(names)} members equal their solo answers and the "
+        f"oracle on {1 + SERVE_RELEASES} releases; the first one cohort "
+        f"launch, {joined} members joined, launches {summary['launches']}; "
+        f"over {SERVE_RELEASES} releases cohort wall p50 {cohort_ms:.3f} ms "
+        f"(its launch's device span p50 {kernel_ms:.3f}), against p50 "
+        f"{solo_ms:.3f} ms for the members one after another")
+    return summary, records
+
+
+def serve_partials(engine, want: dict, total: int, on_card: bool) -> dict:
+    """q1 run SERVE_REPEATS times, three rounds, the cache emptied before
+    each: the first run misses, the rest hit (partialsCacheHit, the same
+    rows, no kernel launched). Returns the miss's and the hit's p50."""
+    from pinot_tpu_torch.ops import kernels
+
+    ex = engine.device
+    sql = QUERIES["q1_scan_agg"]
+    ex.partials_cache_enabled = True
+    miss, hit = [], []
+    try:
+        for _round in range(3):
+            ex.invalidate_partials("")
+            h0, m0 = ex.partials_hits, ex.partials_misses
+            for i in range(SERVE_REPEATS):
+                before = sum(kernels.launches.values())
+                t = time.perf_counter()
+                resp = engine.execute(sql)
+                ms = (time.perf_counter() - t) * 1e3
+                made = sum(kernels.launches.values()) - before
+                check_answer("q1_scan_agg", resp, want, total)
+                if resp["partialsCacheHit"] != (i > 0):
+                    raise AssertionError(f"serve_partials run {i}: "
+                                         f"partialsCacheHit "
+                                         f"{resp['partialsCacheHit']}")
+                if on_card and (made == 0) != (i > 0):
+                    raise AssertionError(f"serve_partials run {i}: {made} "
+                                         f"kernel launches")
+                (hit if i else miss).append(ms)
+            if (ex.partials_hits - h0, ex.partials_misses - m0) \
+                    != (SERVE_REPEATS - 1, 1):
+                raise AssertionError("serve_partials: hits / misses "
+                                     f"{ex.partials_hits - h0} / "
+                                     f"{ex.partials_misses - m0}")
+    finally:
+        ex.partials_cache_enabled = False
+    out = {"miss_p50_ms": float(np.percentile(miss, 50)),
+           "hit_p50_ms": float(np.percentile(hit, 50)),
+           "misses": len(miss), "hits": len(hit)}
+    log(f"serve_partials: q1 misses once and hits {SERVE_REPEATS - 1} times "
+        f"a round (3 rounds): miss p50 {out['miss_p50_ms']:.3f} ms, hit p50 "
+        f"{out['hit_p50_ms']:.3f} ms, no kernel launched on a hit")
+    return out
+
+
+def serve_deadline(engine) -> None:
+    """An already expired Deadline: the fetch raises QueryTimeout before
+    it waits, and the batch pin is released."""
+    from pinot_tpu_torch.common.deadline import Deadline, QueryTimeout
+
+    ex = engine.device
+    q = compile_query(engine, QUERIES["q1_scan_agg"])
+    fetch = engine.execute_segments_async(q, engine.tables["lineorder"],
+                                          terminal=True,
+                                          deadline=Deadline(0.0))
+    try:
+        fetch()
+    except QueryTimeout:
+        pass
+    else:
+        raise AssertionError("serve_deadline: an expired deadline fetched")
+    if ex.inflight != 0 or ex._inflight_launches:
+        raise AssertionError(f"serve_deadline: inflight {ex.inflight}, pins "
+                             f"{ex._inflight_launches}")
+    log("serve_deadline: an expired Deadline raised QueryTimeout before the "
+        "fetch's wait; inflight 0, no batch pinned")
+
+
+def serve_trace(engine) -> None:
+    """A traced execute_segments_async of q1 fetched on another thread
+    records the six phases."""
+    import threading
+
+    from pinot_tpu_torch.common.trace import Tracer
+
+    q = compile_query(engine, QUERIES["q1_scan_agg"])
+    tracer = Tracer("serve")
+    fetch = engine.execute_segments_async(q, engine.tables["lineorder"],
+                                          terminal=True, tracer=tracer)
+    box = []
+    th = threading.Thread(target=lambda: box.append(fetch()))
+    th.start()
+    th.join(120)
+    if not box:
+        raise AssertionError("serve_trace: the fetch thread returned nothing")
+    spans = tracer.to_json()
+    phases = {s["phase"] for s in spans}
+    for need in ("gather", "dispatch", "device_fetch", "kernel", "link",
+                 "merge"):
+        if not any(p == need or p.endswith("." + need) for p in phases):
+            raise AssertionError(f"serve_trace: no {need} span in {phases}")
+    log("serve_trace: " + ", ".join(f"{s['phase']} {s['durationMs']} ms"
+                                    for s in spans))
+
+
+def serve_analyze(engine, on_card: bool) -> list:
+    """EXPLAIN ANALYZE of q1 and bs_month_fused: analyzedResponse equals
+    the plain answer, and each KERNEL line carries GB/s and the percentage
+    of the probed peak. Returns the roofline records."""
+    records = []
+    for name, sql in (("q1_scan_agg", QUERIES["q1_scan_agg"]),
+                      ("bs_month_fused", BS_QUERIES["bs_month_fused"])):
+        plain = engine.execute(sql)
+        resp = engine.execute(sql.replace("SELECT", "EXPLAIN ANALYZE SELECT",
+                                          1))
+        if resp["exceptions"]:
+            raise AssertionError(f"serve_analyze {name}: {resp['exceptions']}")
+        lines = [r[0] for r in resp["resultTable"]["rows"]]
+        analyzed = resp["analyzedResponse"]
+        if analyzed["resultTable"] != plain["resultTable"]:
+            raise AssertionError(f"serve_analyze {name}: analyzedResponse "
+                                 f"differs from the plain answer")
+        kernel_lines = [ln for ln in lines if ln.strip().startswith("KERNEL(")]
+        recs = analyzed.get("roofline") or []
+        if not kernel_lines or len(kernel_lines) != len(recs):
+            raise AssertionError(f"serve_analyze {name}: KERNEL lines "
+                                 f"{kernel_lines}, records {recs}")
+        if on_card and not all("gbps" in r and "pctOfPeak" in r
+                               and "% of HBM peak" in ln
+                               for r, ln in zip(recs, kernel_lines)):
+            raise AssertionError(f"serve_analyze {name}: {kernel_lines}")
+        records.extend(recs)
+        for ln in lines:
+            log(f"serve_analyze {name}: {ln}")
+    return records
+
+
+def serve_probe(card: str, records: list) -> float:
+    """The memory probe's GB/s beside the card, within PROBE_MAX_OF_PEAK
+    of HBM_BYTES_PER_S; no record above 105 % of it."""
+    from pinot_tpu_torch.ops import roofline
+
+    peak = roofline.hbm_peak_gbps()
+    limit = PROBE_MAX_OF_PEAK * HBM_BYTES_PER_S / 1e9
+    if not 0 < peak <= limit:
+        raise AssertionError(f"probe: {peak} GB/s, want (0, {limit}]")
+    worst = max((r.get("pctOfPeak") or 0.0 for r in records), default=0.0)
+    if worst > 100 * PROBE_MAX_OF_PEAK:
+        raise AssertionError(f"probe: a record at {worst} % of the peak")
+    log(f"probe: {peak:.3f} GB/s ({roofline.PROBE_BYTES >> 20} MiB a side, "
+        f"best of 5 CUDA-event copies) on {card}; highest pctOfPeak of "
+        f"{len(records)} records {worst}")
+    return peak
+
+
+def serve_syncs(engine) -> dict:
+    """The synchronizations one launch of each serving query makes, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+    import warnings
+
+    import torch
+
+    ex = engine.device
+    out = {}
+    sqls = {"q1_scan_agg": QUERIES["q1_scan_agg"]}
+    for queries, _e in SERVE_COHORTS.values():
+        name, sql = next(iter(queries.items()))
+        sqls[name] = sql
+    for name, sql in sqls.items():
+        q = compile_query(engine, sql)
+        segs = engine.tables[q.table_name]
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                handle = ex.launch(q, segs, final=True,
+                                   reduce_mode="terminal")
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        ex.fetch(handle)
+        out[name] = sum(1 for w in seen if "synchroniz" in str(w.message))
+    log(f"serve_syncs (synchronizing calls in one launch): {out}")
+    return out
+
+
+def serve_sweep(engine) -> dict:
+    """Printed, not gated: q1-shaped queries with distinct literals from 1,
+    2, 4 and 8 threads, with the coalescer on and off: queries per second
+    and p50."""
+    import threading
+
+    ex = engine.device
+    co = ex.coalescer
+    out = {}
+    for coalesce in (True, False):
+        co.enabled = coalesce
+        for T in SERVE_SWEEP_THREADS:
+            lat, errors = [], []
+            per = max(1, SERVE_SWEEP_QUERIES // T)
+
+            def worker(k):
+                try:
+                    for j in range(per):
+                        lit = 1 + (k * per + j) % 48
+                        t = time.perf_counter()
+                        r = engine.execute(SERVE_K1.format(lit=lit))
+                        lat.append((time.perf_counter() - t) * 1e3)
+                        if r["exceptions"]:
+                            errors.append(r["exceptions"])
+                except BaseException as e:  # noqa: BLE001
+                    errors.append(e)
+
+            c0 = co.cohorts_launched
+            threads = [threading.Thread(target=worker, args=(k,))
+                       for k in range(T)]
+            t = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            wall = time.perf_counter() - t
+            if errors:
+                raise AssertionError(f"serve_sweep: {errors[0]}")
+            key = f"{'on' if coalesce else 'off'}_{T}"
+            out[key] = {"qps": len(lat) / wall,
+                        "p50_ms": float(np.percentile(lat, 50)),
+                        "cohorts": co.cohorts_launched - c0}
+            log(f"serve_sweep coalescer {'on' if coalesce else 'off'}, {T} "
+                f"threads: {out[key]['qps']:.3f} queries/s, p50 "
+                f"{out[key]['p50_ms']:.3f} ms, {out[key]['cohorts']} cohorts")
+    co.enabled = True
+    return out
+
+
+def run_serving(engine, want: dict, totals: dict, card: str) -> tuple:
+    """The serving path (see the module docstring): the four cohorts,
+    serve_partials, serve_deadline, serve_trace, serve_analyze, the probe,
+    the synchronizations and the sweep. Returns (summary, the member-axis
+    entries' records, their launches on the path)."""
+    on_card = engine.device.device.type == "cuda"
+    engine.device.partials_cache_enabled = False
+    summary, records = {}, {}
+    launches = {name: 0 for name in SERVE_ENTRIES}
+    for cohort in SERVE_COHORTS:
+        table = BS_TABLE if cohort == "serve_cohort_k4" else "lineorder"
+        s, recs = serve_cohort(engine, cohort, want, totals[table], on_card)
+        summary[cohort] = s
+        for name, rec in recs.items():
+            records.setdefault(name, dict(rec, cohort=cohort))
+        for name in launches:
+            launches[name] += s["launches"].get(name, 0)
+    summary["serve_partials"] = serve_partials(engine, want,
+                                               totals["lineorder"], on_card)
+    serve_deadline(engine)
+    serve_trace(engine)
+    roofs = serve_analyze(engine, on_card)
+    if on_card:
+        summary["probe_gbps"] = serve_probe(card, roofs)
+        summary["syncs"] = serve_syncs(engine)
+    summary["sweep"] = serve_sweep(engine)
+    log(f"serving path: {json.dumps(summary)}")
+    return summary, records, launches
 
 
 def card_line() -> str:
@@ -4013,6 +4779,7 @@ def main(argv=None) -> int:
         want.update(idx_oracle(ev))
         want.update(val_oracle(data, v2, mv))
         want.update(tail_oracle(trips, pad))
+        want.update(serve_oracle(data))
         oracle_s = time.perf_counter() - t
 
         dirs, cube_s = zip(*pending.get())
@@ -4050,6 +4817,9 @@ def main(argv=None) -> int:
     segs = [ImmutableSegment(d) for d in dirs]
     bs_segs = [ImmutableSegment(d) for d in bs_dirs]
     engine = QueryEngine(device="cuda")
+    # the paths time repeated executions: the partials cache would serve
+    # them (the serving path turns it on for serve_partials)
+    engine.device.partials_cache_enabled = False
     for s in segs:
         engine.add_segment("lineorder", s)
     for s in bs_segs:
@@ -4152,6 +4922,10 @@ def main(argv=None) -> int:
         + ", ".join(f"{k} {str(v.dtype).replace('torch.', '')}"
                     for k, v in q6_planes.items()) + "); K2 reads them")
     overflow = overflow_cost(engine, args.runs)
+    t = time.perf_counter()
+    serving, member_records, member_launches = run_serving(
+        engine, want, {"lineorder": total, BS_TABLE: total}, card)
+    log(f"serving path: {time.perf_counter() - t:.2f} s")
 
     entries = []
     for name, res, replaces in (
@@ -4169,7 +4943,16 @@ def main(argv=None) -> int:
                  "replaces": replaces, "launches": launches[name]}
         entry.update(res)
         entries.append(entry)
+    for name, (solo, replaces) in SERVE_ENTRIES.items():
+        if name not in member_records:
+            raise AssertionError(f"{name} was never held at a cohort's inputs")
+        entry = {"name": name, "route": "cuda",
+                 "source": f"pinot_tpu_torch/csrc/{kernels.SOURCES[solo]}",
+                 "replaces": replaces, "launches": member_launches[name]}
+        entry.update(member_records[name])
+        entries.append(entry)
     log(json.dumps({"query_p50_ms": p50, "rows": total,
+                    "serving": serving,
                     "trips_rows": path_rows["tail"],
                     "trips_resident_bytes": {"subbyte": sub_bytes,
                                              "wide": wide_bytes},

@@ -51,6 +51,13 @@
 // order keys (floats by compare-and-swap on the keys of their bits), so
 // the result is bit-identical to the plain version (-0.0 < +0.0; a
 // positive NaN wins MAX and loses MIN).
+//
+// The member-axis entry (`fused_filter_agg_members`) runs M queries of one
+// template at once, the cohort of coalesced launches: grid y is the
+// member. The planes and the program are shared; member m has its own
+// candidates and rows (cand / rows_in + m * B), its own literal table
+// (lits + m * lit_mstride) and its own (B, k) outputs. A member's warps do
+// exactly what the solo entry's warps do, so M = 1 is the solo entry.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -153,6 +160,9 @@ __device__ __forceinline__ int32_t combine(int op, int32_t x, int32_t y) {
 __global__ void fused_kernel_seed(int B, FusedDesc d,
                                   int32_t* __restrict__ out_i,
                                   float* __restrict__ out_f) {
+  const int64_t m = blockIdx.y;  // the member (0 on the solo entry)
+  out_i += m * B * d.ki;
+  if (out_f != nullptr) out_f += m * B * d.kf;
   for (int b = blockIdx.x * blockDim.x + threadIdx.x; b < B;
        b += gridDim.x * blockDim.x) {
     out_i[static_cast<int64_t>(b) * d.ki] = 0;
@@ -187,8 +197,8 @@ __device__ __forceinline__ void float_extreme(float* out, int op,
 __global__ void __launch_bounds__(kThreads)
 fused_kernel(const int32_t* __restrict__ cand,
              const int32_t* __restrict__ rows_in, int B, int R, int depth,
-             int row_bytes, FusedDesc d, int32_t* __restrict__ out_i,
-             float* __restrict__ out_f) {
+             int row_bytes, FusedDesc d, int64_t lit_mstride,
+             int32_t* __restrict__ out_i, float* __restrict__ out_f) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Instr s_prog[kMaxProg];
   __shared__ Agg s_aggs[kMaxAggs];
@@ -201,6 +211,12 @@ fused_kernel(const int32_t* __restrict__ cand,
   // to shared memory with constant indexes only, so the parameter block
   // is never spilled to local memory
   const int t = threadIdx.x;
+  const int64_t m = blockIdx.y;  // the member (0 on the solo entry)
+  cand += m * B;
+  rows_in += m * B;
+  out_i += m * B * d.ki;
+  if (out_f != nullptr) out_f += m * B * d.kf;
+  const int32_t* lits = d.lits + m * lit_mstride;
 #pragma unroll
   for (int i = 0; i < kMaxProg; ++i)
     if (t == i) s_prog[i] = d.prog[i];
@@ -217,7 +233,7 @@ fused_kernel(const int32_t* __restrict__ cand,
       if (i < d.n_cols) off += elem_size(d.dtypes[i]);
     }
   }
-  for (int i = t; i < d.n_lits; i += kThreads) s_lits[i] = d.lits[i];
+  for (int i = t; i < d.n_lits; i += kThreads) s_lits[i] = lits[i];
   __syncthreads();
 
   const int lane = t & 31, warp = t >> 5;
@@ -370,14 +386,12 @@ fused_kernel(const int32_t* __restrict__ cand,
 
 }  // namespace
 
-// cand, rows_in (B,) int32 on the card; R rows per block (a multiple of
-// 1024); desc a host pointer to the descriptor, copied into the launch by
-// value; out_i (B, ki) int32 and out_f (B, kf) float32 (null when
-// kf == 0), zeroed by the caller. Every plane must start on 16 bytes.
-// Returns the first CUDA error.
-extern "C" int fused_filter_agg(const void* cand, const void* rows_in, int B,
-                                int R, const void* desc, void* out_i,
-                                void* out_f, void* stream) {
+namespace {
+
+// M members of B candidates each (see the entries below)
+int launch_fused(const void* cand, const void* rows_in, int B, int M, int R,
+                 const void* desc, int64_t lit_mstride, void* out_i,
+                 void* out_f, void* stream) {
   const FusedDesc d = *static_cast<const FusedDesc*>(desc);
   if (R % kChunk != 0 || d.n_cols > kMaxCols || d.n_prog > kMaxProg ||
       d.n_aggs > kMaxAggs || d.n_lits > kMaxLits)
@@ -393,8 +407,10 @@ extern "C" int fused_filter_agg(const void* cand, const void* rows_in, int B,
   const size_t smem = static_cast<size_t>(kWarps) *
                       (static_cast<size_t>(kChunk) * row_bytes + 128 * depth);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B == 0) return static_cast<int>(cudaSuccess);
-  fused_kernel_seed<<<(B + 255) / 256, 256, 0, st>>>(
+  if (B == 0 || M == 0) return static_cast<int>(cudaSuccess);
+  const dim3 seed_grid(static_cast<unsigned>((B + 255) / 256),
+                       static_cast<unsigned>(M));
+  fused_kernel_seed<<<seed_grid, 256, 0, st>>>(
       B, d, static_cast<int32_t*>(out_i), static_cast<float*>(out_f));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -412,10 +428,39 @@ extern "C" int fused_filter_agg(const void* cand, const void* rows_in, int B,
   if (occ < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int64_t items = static_cast<int64_t>(B) * (R / kChunk);
   int64_t blocks = (items + kWarps - 1) / kWarps;
-  if (blocks > static_cast<int64_t>(sms) * occ) blocks = sms * occ;
-  fused_kernel<<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(
+  // the persistent grid's blocks, shared out among the members
+  int64_t cap = static_cast<int64_t>(sms) * occ / M;
+  if (cap < 1) cap = 1;
+  if (blocks > cap) blocks = cap;
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(M));
+  fused_kernel<<<grid, kThreads, smem, st>>>(
       static_cast<const int32_t*>(cand), static_cast<const int32_t*>(rows_in),
-      B, R, depth, row_bytes, d, static_cast<int32_t*>(out_i),
+      B, R, depth, row_bytes, d, lit_mstride, static_cast<int32_t*>(out_i),
       static_cast<float*>(out_f));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// cand, rows_in (B,) int32 on the card; R rows per block (a multiple of
+// 1024); desc a host pointer to the descriptor, copied into the launch by
+// value; out_i (B, ki) int32 and out_f (B, kf) float32 (null when
+// kf == 0), zeroed by the caller. Every plane must start on 16 bytes.
+// Returns the first CUDA error.
+extern "C" int fused_filter_agg(const void* cand, const void* rows_in, int B,
+                                int R, const void* desc, void* out_i,
+                                void* out_f, void* stream) {
+  return launch_fused(cand, rows_in, B, 1, R, desc, 0, out_i, out_f, stream);
+}
+
+// The member-axis entry: cand, rows_in (M, B) int32; the descriptor's
+// literal table holds member m's literals at lits + m * lit_mstride;
+// out_i (M, B, ki) int32 and out_f (M, B, kf) float32 (null when kf == 0),
+// zeroed by the caller.
+extern "C" int fused_filter_agg_members(const void* cand, const void* rows_in,
+                                        int B, int M, int R, const void* desc,
+                                        int64_t lit_mstride, void* out_i,
+                                        void* out_f, void* stream) {
+  return launch_fused(cand, rows_in, B, M, R, desc, lit_mstride, out_i, out_f,
+                      stream);
 }

@@ -35,6 +35,14 @@
 // k = b ^ ((b >> 31) & 0x7fffffff) of their bits: -NaN < -inf < ... < -0.0
 // < +0.0 < ... < +inf < +NaN. Min and max are exact and order-free, so the
 // result is bit-identical to the plain version, which uses the same keys.
+//
+// The member-axis entry (`group_minmax_members`) runs M queries of one
+// template at once, the cohort of coalesced launches: grid z is the
+// member. Member m reads its own group ids (gid + m * gid_mstride),
+// writes every cell's output at out + m * out_mstride, and reads a source
+// shared by every member (vstride 0) or its own (vstride > 0, a gathered
+// block-skip plane; the strides come in a second descriptor,
+// MemberStrides). M = 1 is the solo entry.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,6 +68,12 @@ struct Source {
   int32_t cell[2];    // accumulator cell of min / max, -1 when not asked
 };
 
+// how each source's values step per member on the member-axis entry (all
+// zero on the solo entry): member m's start m * vstride elements on
+struct MemberStrides {
+  int64_t vstride[kMaxSources];
+};
+
 struct MinMaxDesc {
   Source src[kMaxSources];
   int32_t* out[kMaxCells];   // (G,) int32 keys per cell
@@ -70,6 +84,11 @@ struct MinMaxDesc {
 
 __device__ __forceinline__ int32_t order_key(int32_t b) {
   return b ^ ((b >> 31) & 0x7fffffff);
+}
+
+__device__ __forceinline__ int dtype_bytes(int dtype) {
+  return dtype == U8 || dtype == I8 ? 1 : dtype == U16 || dtype == I16 ? 2
+                                                                      : 4;
 }
 
 __device__ __forceinline__ int32_t read_offset(const void* p, int dtype) {
@@ -157,7 +176,7 @@ __device__ __forceinline__ void load16(const void* p, int dtype, int64_t r,
   }
 }
 
-__global__ void minmax_kernel_seed(MinMaxDesc d, int G) {
+__global__ void minmax_kernel_seed(MinMaxDesc d, int G, int64_t out_mstride) {
   const int c = blockIdx.y;
   if (c >= d.n_cells) return;
   int32_t* out = nullptr;
@@ -168,6 +187,7 @@ __global__ void minmax_kernel_seed(MinMaxDesc d, int G) {
       out = d.out[i];
       fill = d.fill[i];
     }
+  out += static_cast<int64_t>(blockIdx.z) * out_mstride;
   for (int g = blockIdx.x * blockDim.x + threadIdx.x; g < G;
        g += gridDim.x * blockDim.x)
     out[g] = fill;
@@ -175,7 +195,8 @@ __global__ void minmax_kernel_seed(MinMaxDesc d, int G) {
 
 __global__ void __launch_bounds__(kThreads)
 minmax_kernel(const int32_t* __restrict__ gid, MinMaxDesc d, int64_t n,
-              int G, int span, int copies, int64_t rows_per_block) {
+              int G, int span, int copies, int64_t rows_per_block,
+              MemberStrides ms, int64_t gid_mstride, int64_t out_mstride) {
   extern __shared__ int32_t acc[];  // [copies][n_cells][width]
   __shared__ Source s_src[kMaxSources];
   __shared__ int32_t s_plus[kMaxSources];
@@ -187,17 +208,22 @@ minmax_kernel(const int32_t* __restrict__ gid, MinMaxDesc d, int64_t n,
   // to shared memory with constant indexes only, so the parameter block
   // is never spilled to local memory
   const int t = threadIdx.x;
+  const int64_t m = blockIdx.z;  // the member (0 on the solo entry)
+  gid += m * gid_mstride;
 #pragma unroll
   for (int i = 0; i < kMaxSources; ++i)
     if (t == i) {
-      const Source s = d.src[i];
+      Source s = d.src[i];
+      if (i < d.n_src)
+        s.values = static_cast<const char*>(s.values) +
+                   m * ms.vstride[i] * dtype_bytes(s.dtype);
       s_src[i] = s;
       s_plus[i] = i < d.n_src ? read_offset(s.plus, s.plus_dtype) : 0;
     }
 #pragma unroll
   for (int i = 0; i < kMaxCells; ++i)
     if (t == kMaxSources + i) {
-      s_out[i] = d.out[i];
+      s_out[i] = d.out[i] == nullptr ? nullptr : d.out[i] + m * out_mstride;
       s_fill[i] = d.fill[i];
       s_op[i] = d.op[i];
     }
@@ -277,18 +303,19 @@ minmax_kernel(const int32_t* __restrict__ gid, MinMaxDesc d, int64_t n,
 
 }  // namespace
 
-// gid (n,) int32; desc: a MinMaxDesc in host memory, passed to the kernels
-// by value; every output (G,) int32, written by the seed kernel. span:
-// groups per partition (one copy of its accumulators fits `smem_budget`
-// bytes). Every value pointer must be 16-byte aligned. Returns the first
-// CUDA error.
-extern "C" int group_minmax(const void* gid, const void* desc, int64_t n,
-                            int G, int span, int smem_budget, void* stream) {
+namespace {
+
+// M members of n rows each; member m reads gid + m * gid_mstride and
+// writes each cell at out + m * out_mstride (see the entries below)
+int launch_minmax(const void* gid, const void* desc, const MemberStrides& ms,
+                  int64_t n, int M, int64_t gid_mstride, int G, int span,
+                  int smem_budget, int64_t out_mstride, void* stream) {
   const MinMaxDesc& d = *static_cast<const MinMaxDesc*>(desc);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 seed_grid(static_cast<unsigned>((G + 255) / 256),
-                       static_cast<unsigned>(d.n_cells));
-  minmax_kernel_seed<<<seed_grid, 256, 0, st>>>(d, G);
+                       static_cast<unsigned>(d.n_cells),
+                       static_cast<unsigned>(M));
+  minmax_kernel_seed<<<seed_grid, 256, 0, st>>>(d, G, out_mstride);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n == 0) return static_cast<int>(err);
 
@@ -320,9 +347,38 @@ extern "C" int group_minmax(const void* gid, const void* desc, int64_t n,
   // whole 16-row tiles per block, so every vector load is aligned
   const int64_t rows_per_block = ((tiles + blocks - 1) / blocks) * kRows;
   blocks = (n + rows_per_block - 1) / rows_per_block;
-  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(parts));
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(parts),
+                  static_cast<unsigned>(M));
   minmax_kernel<<<grid, kThreads, smem, st>>>(
       static_cast<const int32_t*>(gid), d, n, G, span, copies,
-      rows_per_block);
+      rows_per_block, ms, gid_mstride, out_mstride);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// gid (n,) int32; desc: a MinMaxDesc in host memory, passed to the kernels
+// by value; every output (G,) int32, written by the seed kernel. span:
+// groups per partition (one copy of its accumulators fits `smem_budget`
+// bytes). Every value pointer must be 16-byte aligned. Returns the first
+// CUDA error.
+extern "C" int group_minmax(const void* gid, const void* desc, int64_t n,
+                            int G, int span, int smem_budget, void* stream) {
+  const MemberStrides solo = {};
+  return launch_minmax(gid, desc, solo, n, 1, 0, G, span, smem_budget, 0,
+                       stream);
+}
+
+// The member-axis entry: gid (M, n) int32, member m's ids at
+// gid + m * gid_mstride; each cell's output is (M, ...) with member m's
+// (G,) keys at out[c] + m * out_mstride; strides: a MemberStrides in host
+// memory. Every member's value pointer must be 16-byte aligned.
+extern "C" int group_minmax_members(const void* gid, const void* desc,
+                                    const void* strides, int64_t n, int M,
+                                    int64_t gid_mstride, int G, int span,
+                                    int smem_budget, int64_t out_mstride,
+                                    void* stream) {
+  return launch_minmax(gid, desc, *static_cast<const MemberStrides*>(strides),
+                       n, M, gid_mstride, G, span, smem_budget, out_mstride,
+                       stream);
 }

@@ -69,6 +69,14 @@ struct Source {
   int32_t pad;
 };
 
+// how each source steps per member on the member-axis entry (all zero on
+// the solo entry): values of member m start m * vstride elements on, its
+// query offset at minus[m * minus_mstride]
+struct MemberStrides {
+  int64_t vstride[kMaxSources];
+  int32_t minus_mstride[kMaxSources];
+};
+
 struct PlaneSumsDesc {
   Source src[kMaxSources];
   int32_t int_out[kMaxRows];  // output row of each int32 accumulator row
@@ -145,6 +153,15 @@ __device__ __forceinline__ void load_ints(const Source& s, int64_t r,
   }
 }
 
+__device__ __forceinline__ int dtype_bytes(int dtype) {
+  switch (dtype) {
+    case U8: case I8: return 1;
+    case U16: case I16: case BF16: return 2;
+    case I64: return 8;
+    default: return 4;
+  }
+}
+
 __device__ __forceinline__ float bf16_bits(uint16_t b) {
   return __uint_as_float(static_cast<uint32_t>(b) << 16);
 }
@@ -181,7 +198,9 @@ __device__ __forceinline__ float hi16(float x) {
 __global__ void __launch_bounds__(kThreads)
 plane_sums_kernel(const int32_t* __restrict__ gid, PlaneSumsDesc d,
                   int64_t n, int G, int span, int copies, int64_t seg_rows,
-                  int64_t rows_per_block, double* __restrict__ out) {
+                  int64_t rows_per_block, MemberStrides ms,
+                  int64_t gid_mstride, int64_t out_mstride,
+                  double* __restrict__ out) {
   extern __shared__ double smem[];
   __shared__ Source s_src[kMaxSources];
   __shared__ int64_t s_bias[kMaxSources];
@@ -192,18 +211,23 @@ plane_sums_kernel(const int32_t* __restrict__ gid, PlaneSumsDesc d,
   // to shared memory with constant indexes only, so the parameter block
   // is never spilled to local memory
   const int t = threadIdx.x;
+  const int64_t m = blockIdx.z;  // the member (0 on the solo entry)
+  gid += m * gid_mstride;
+  out += m * out_mstride;
 #pragma unroll
   for (int i = 0; i < kMaxSources; ++i) {
     if (t == i) {
-      const Source s = d.src[i];
-      s_src[i] = s;
+      Source s = d.src[i];
       int64_t b = 0;
       if (i < d.n_src) {
+        s.values = static_cast<const char*>(s.values) +
+                   m * ms.vstride[i] * dtype_bytes(s.dtype);
         if (s.plus != nullptr)
           b += s.plus_is64 ? *static_cast<const int64_t*>(s.plus)
                            : *static_cast<const int32_t*>(s.plus);
-        if (s.minus != nullptr) b -= *s.minus;
+        if (s.minus != nullptr) b -= s.minus[m * ms.minus_mstride[i]];
       }
+      s_src[i] = s;
       s_bias[i] = b;
     }
   }
@@ -325,14 +349,15 @@ plane_sums_kernel(const int32_t* __restrict__ gid, PlaneSumsDesc d,
 
 }  // namespace
 
-// gid (n,) int32; desc: a PlaneSumsDesc in host memory, passed to the
-// kernel by value; out (A, G) f64 zero-filled by the caller. span: groups
-// per partition (its accumulators fit `smem_budget` bytes); seg_rows: the
-// most rows a block adds before it flushes (a multiple of 4). Every value
-// pointer must be 16-byte aligned. Returns the first CUDA error.
-extern "C" int group_plane_sums(const void* gid, const void* desc, int64_t n,
-                                int G, int span, int64_t seg_rows,
-                                int smem_budget, void* out, void* stream) {
+namespace {
+
+// M members of n rows each; member m reads gid + m * gid_mstride and
+// writes out + m * out_mstride (see the entries below)
+int launch_plane_sums(const void* gid, const void* desc,
+                      const MemberStrides& ms, int64_t n, int M,
+                      int64_t gid_mstride, int G, int span, int64_t seg_rows,
+                      int smem_budget, void* out, int64_t out_mstride,
+                      void* stream) {
   const PlaneSumsDesc& d = *static_cast<const PlaneSumsDesc*>(desc);
   const int width = span < G ? span : G;
   const size_t copy_bytes =
@@ -363,10 +388,45 @@ extern "C" int group_plane_sums(const void* gid, const void* desc, int64_t n,
   // whole quads per block, so every vector load is aligned
   const int64_t rows_per_block = ((quads + blocks - 1) / blocks) * 4;
   blocks = (n + rows_per_block - 1) / rows_per_block;
-  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(parts));
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(parts),
+                  static_cast<unsigned>(M));
   plane_sums_kernel<<<grid, kThreads, smem,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(gid), d, n, G, span, copies, seg_rows,
-      rows_per_block, static_cast<double*>(out));
+      rows_per_block, ms, gid_mstride, out_mstride,
+      static_cast<double*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// gid (n,) int32; desc: a PlaneSumsDesc in host memory, passed to the
+// kernel by value; out (A, G) f64 zero-filled by the caller. span: groups
+// per partition (its accumulators fit `smem_budget` bytes); seg_rows: the
+// most rows a block adds before it flushes (a multiple of 4). Every value
+// pointer must be 16-byte aligned. Returns the first CUDA error.
+extern "C" int group_plane_sums(const void* gid, const void* desc, int64_t n,
+                                int G, int span, int64_t seg_rows,
+                                int smem_budget, void* out, void* stream) {
+  const MemberStrides solo = {};
+  return launch_plane_sums(gid, desc, solo, n, 1, 0, G, span, seg_rows,
+                           smem_budget, out, 0, stream);
+}
+
+// The member-axis entry: gid (M, n) int32, member m's ids at
+// gid + m * gid_mstride; out (M, A, G) f64 zero-filled by the caller;
+// strides: a MemberStrides in host memory, how each source's values and
+// query offset step per member. Every member's value pointer must be
+// 16-byte aligned.
+extern "C" int group_plane_sums_members(const void* gid, const void* desc,
+                                        const void* strides, int64_t n, int M,
+                                        int64_t gid_mstride, int G, int span,
+                                        int64_t seg_rows, int smem_budget,
+                                        void* out, void* stream) {
+  const PlaneSumsDesc& d = *static_cast<const PlaneSumsDesc*>(desc);
+  const int64_t A = d.n_int + d.n_flt;
+  return launch_plane_sums(gid, desc,
+                           *static_cast<const MemberStrides*>(strides), n, M,
+                           gid_mstride, G, span, seg_rows, smem_budget, out,
+                           A * G, stream);
 }

@@ -40,6 +40,12 @@
 // times the slots per partition, but a byte has no atomic max: the
 // compare-and-swap loop that would stand in for it serializes the lanes
 // that raise a register.
+//
+// The member-axis entry (`hll_register_max_members`) runs M queries of one
+// template at once, the cohort of coalesced launches: grid z is the
+// member. Member m reads hash + m * hash_mstride (0: the stored plane all
+// members share), its own group ids and mask at their member strides, and
+// writes its own (G << log2m,) registers. M = 1 is the solo entry.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,9 +58,16 @@ constexpr int kBlocksPerSM = 1;
 __global__ void __launch_bounds__(kThreads)
 hll_kernel(const uint32_t* __restrict__ hash, const int32_t* __restrict__ gid,
            const uint8_t* __restrict__ mask, int64_t n, int log2m, int G,
-           int span, int64_t rows_per_block, int32_t* __restrict__ out) {
+           int span, int64_t rows_per_block, int64_t hash_mstride,
+           int64_t gid_mstride, int64_t mask_mstride,
+           int32_t* __restrict__ out) {
   extern __shared__ int32_t reg[];  // this partition's registers
   const int64_t nslots = static_cast<int64_t>(G) << log2m;
+  const int64_t m = blockIdx.z;  // the member (0 on the solo entry)
+  hash += m * hash_mstride;
+  if (gid != nullptr) gid += m * gid_mstride;
+  if (mask != nullptr) mask += m * mask_mstride;
+  out += m * nslots;
   const int p0 = blockIdx.y * span;
   const int width = static_cast<int>(min(static_cast<int64_t>(span),
                                          nslots - p0));
@@ -112,13 +125,13 @@ hll_kernel(const uint32_t* __restrict__ hash, const int32_t* __restrict__ gid,
 
 }  // namespace
 
-// hash (n,) uint32 bits; gid (n,) int32 or null; mask (n,) bool bytes or
-// null; out (G << log2m,) int32, zeroed by the caller; span: slots per
-// partition (4 * span bytes of shared memory). Every pointer must be
-// 16-byte aligned. Returns the first CUDA error.
-extern "C" int hll_register_max(const void* hash, const void* gid,
-                                const void* mask, int64_t n, int log2m, int G,
-                                int span, void* out, void* stream) {
+namespace {
+
+// M members of n rows each (see the entries below)
+int launch_hll(const void* hash, const void* gid, const void* mask, int64_t n,
+               int M, int64_t hash_mstride, int64_t gid_mstride,
+               int64_t mask_mstride, int log2m, int G, int span, void* out,
+               void* stream) {
   const int64_t nslots = static_cast<int64_t>(G) << log2m;
   const int width = span < nslots ? span : static_cast<int>(nslots);
   const size_t smem = static_cast<size_t>(width) * sizeof(int32_t);
@@ -144,10 +157,39 @@ extern "C" int hll_register_max(const void* hash, const void* gid,
   // whole quads per block, so every vector load is aligned
   const int64_t rows_per_block = ((quads + blocks - 1) / blocks) * 4;
   blocks = (n + rows_per_block - 1) / rows_per_block;
-  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(parts));
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(parts),
+                  static_cast<unsigned>(M));
   hll_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(hash), static_cast<const int32_t*>(gid),
       static_cast<const uint8_t*>(mask), n, log2m, G, span, rows_per_block,
-      static_cast<int32_t*>(out));
+      hash_mstride, gid_mstride, mask_mstride, static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// hash (n,) uint32 bits; gid (n,) int32 or null; mask (n,) bool bytes or
+// null; out (G << log2m,) int32, zeroed by the caller; span: slots per
+// partition (4 * span bytes of shared memory). Every pointer must be
+// 16-byte aligned. Returns the first CUDA error.
+extern "C" int hll_register_max(const void* hash, const void* gid,
+                                const void* mask, int64_t n, int log2m, int G,
+                                int span, void* out, void* stream) {
+  return launch_hll(hash, gid, mask, n, 1, 0, 0, 0, log2m, G, span, out,
+                    stream);
+}
+
+// The member-axis entry: member m's hashes, ids and mask at their member
+// strides (elements; 0 shares one plane among the members), its registers
+// at out + m * (G << log2m); out (M, G << log2m) int32 zeroed by the caller.
+// Every member's pointers must be 16-byte aligned.
+extern "C" int hll_register_max_members(const void* hash, const void* gid,
+                                        const void* mask, int64_t n, int M,
+                                        int64_t hash_mstride,
+                                        int64_t gid_mstride,
+                                        int64_t mask_mstride, int log2m,
+                                        int G, int span, void* out,
+                                        void* stream) {
+  return launch_hll(hash, gid, mask, n, M, hash_mstride, gid_mstride,
+                    mask_mstride, log2m, G, span, out, stream);
 }

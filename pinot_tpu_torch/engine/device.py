@@ -70,18 +70,39 @@ numGroupsLimit keeps; the query then runs again in the host path's
 shape on the card, whose per-segment numGroupsLimit the reference's
 host applies. There is no fallback ladder: a device or kernel error
 propagates to the caller.
+
+``launch`` returns an ``InflightLaunch`` (engine/inflight.py): the
+pipeline's ops and kernels and ONE copy of the packed leaves into pinned
+host memory are enqueued on the current stream, and the handle's
+``fetch`` waits on CUDA events, first for the launch's last kernel, then
+for the copy. The executor's RLock guards the batch LRU, the pins a
+launch holds on its batch until its fetch or release, the counters and
+the caches. Under pressure, launches of one cohort key run as one
+launch per kernel (``LaunchCoalescer``, engine/cohort.py). A repeat of a
+solo launch copies its cached packed buffer again and runs nothing (the
+device partials cache). Each launch in the reference's device shape
+carries a roofline flight: its modeled bytes over its kernel time
+against the probed memory peak (ops/roofline.py).
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
+import os
+import threading
+import time
+import weakref
 
 import numpy as np
 import torch
 
 from pinot_tpu_torch import resolve_device
+from pinot_tpu_torch.common.metrics import get_metrics
 from pinot_tpu_torch.common.options import bool_option
-from pinot_tpu_torch.engine import aggspec, rows
+from pinot_tpu_torch.common.trace import span
+from pinot_tpu_torch.engine import aggspec, cohort, rows
+from pinot_tpu_torch.engine.inflight import InflightLaunch, LaunchCoalescer
 from pinot_tpu_torch.engine.params import (
     BatchContext,
     DeviceUnsupported,
@@ -247,8 +268,35 @@ def _sum_operand(argt, cols, params, widths):
     return _eval_expr(argt, cols, params, widths), None
 
 
+def _kernel_operand(v, gid, members: bool):
+    """A value operand as K1 / K2 take it, contiguous: at the rows' shape
+    (``gid``'s), e.g. SUM(3) broadcast; in a cohort the plane every
+    member shares (``gid.shape[1:]``) or each member's own rows
+    (``gid.shape``)."""
+    if members and tuple(v.shape) == tuple(gid.shape) and v.is_contiguous():
+        return v
+    rows = gid.shape[1:] if members else gid.shape
+    if tuple(v.shape) != tuple(rows) or not v.is_contiguous():
+        v = torch.broadcast_to(v, rows).contiguous()
+    return v
+
+
+def members_scatter(fn, ids, num_slots: int, *values):
+    """One of ops/agg.py's scatters, ``fn(ids, *values, num_slots)``, for
+    a cohort: member m's (M, ...) ids land in its own ``num_slots + 1``
+    slots (its overflow slot last) of one table, after member m - 1's;
+    values shared by the members broadcast to the ids' shape. Returns
+    (M, num_slots)."""
+    M = ids.shape[0]
+    width = num_slots + 1
+    off = torch.arange(M, dtype=torch.int64, device=ids.device) * width
+    flat = ids.reshape(M, -1).to(torch.int64) + off[:, None]
+    vals = [torch.broadcast_to(v, ids.shape).reshape(M, -1) for v in values]
+    return fn(flat, *vals, M * width).reshape(M, width)[:, :num_slots]
+
+
 def _try_mm_groupby(aggs, gid, cols, params, num_groups, outs, widths,
-                    min_rows: int):
+                    min_rows: int, members: bool = False):
     """Route COUNT/SUM/AVG through ONE K1 launch when eligible: the
     partitioned entry (ops/group_scatter.py plane_group_sums) when
     ``sums_supported``, else the single-accumulator entry
@@ -256,8 +304,13 @@ def _try_mm_groupby(aggs, gid, cols, params, num_groups, outs, widths,
     pallas-tier routing. K1 reads each bare column's plane as stored and
     splits it in registers: no channel tensor is built. Fills
     outs["gcount"] + outs[f"a{i}_sum"] and returns the set of agg indexes
-    handled; the torch scatters cover the rest."""
-    if gid.numel() < min_rows:
+    handled; the torch scatters cover the rest.
+
+    ``members``: a cohort's launch (engine/cohort.py): ``gid`` is (M,
+    ...), each member's own ids, ``params`` hold each member's offsets
+    on a leading axis, K1 runs ONCE for the M members through its
+    member-axis entry, and the outputs gain the leading axis."""
+    if (gid[0].numel() if members else gid.numel()) < min_rows:
         return set()
     plans = []  # (i, PlaneSource)
     total_ch = 1  # the count channel
@@ -266,8 +319,7 @@ def _try_mm_groupby(aggs, gid, cols, params, num_groups, outs, widths,
             continue
         nplanes_int = extra[0]  # extra = (nplanes, rows per block)
         v, plus = _sum_operand(argt, cols, params, widths)
-        if v.shape != gid.shape or not v.is_contiguous():  # e.g. SUM(3)
-            v = torch.broadcast_to(v, gid.shape).contiguous()
+        v = _kernel_operand(v, gid, members)
         if v.is_floating_point():
             src = kernels.PlaneSource(v.to(torch.float32), "float")
         elif nplanes_int is None:  # unknown range → exact scatter instead
@@ -288,17 +340,28 @@ def _try_mm_groupby(aggs, gid, cols, params, num_groups, outs, widths,
     # (DISTINCT's presence is the count): few groups would contend in a
     # histogram
 
-    entry = ps.plane_group_sums if use_ps else mm.group_sums
-    sums = entry(gid.reshape(-1), [src for _i, src in plans], num_groups,
-                 count=True)
-    gcount = torch.round(sums[0]).to(torch.int64)
+    srcs = [src for _i, src in plans]
+    if members:
+        entry = ps.plane_group_sums_members if use_ps \
+            else mm.group_sums_members
+        sums = entry(gid.reshape(gid.shape[0], -1), srcs, num_groups,
+                     count=True)
+    else:
+        entry = ps.plane_group_sums if use_ps else mm.group_sums
+        sums = entry(gid.reshape(-1), srcs, num_groups, count=True)
+    # (A, G), or (M, A, G) for a cohort: the channels are the middle axis
+    gcount = torch.round(sums[..., 0, :]).to(torch.int64)
     outs["gcount"] = gcount
     done = set()
     row = 1
     for i, src in plans:
-        planes = [sums[j] for j in range(row, row + src.nplanes)]
-        outs[f"a{i}_sum"] = mm.recombine_int(planes, gcount, params[f"off{i}"]) \
-            if src.kind == "int" else mm.recombine_float(planes)
+        planes = [sums[..., j, :] for j in range(row, row + src.nplanes)]
+        if src.kind == "int":
+            off = params[f"off{i}"]
+            outs[f"a{i}_sum"] = mm.recombine_int(
+                planes, gcount, off[:, None] if members else off)
+        else:
+            outs[f"a{i}_sum"] = mm.recombine_float(planes)
         done.add(i)
         row += src.nplanes
     return done
@@ -324,14 +387,17 @@ def _minmax_operand(argt, cols, params, widths):
 
 
 def _group_extremes(aggs, gid, cols, params, num_groups: int, outs, widths,
-                    min_rows: int) -> None:
+                    min_rows: int, members: bool = False) -> None:
     """Per-group MIN / MAX / MINMAXRANGE of every aggregate: the ones in
     K2's regime (decoded dtype and group count, ``minmax_supported``, and
     the batch at ``min_rows``) through ONE launch of K2
     (ops/group_scatter.py group_minmax_sources), one source per distinct
     argument with the union of its ops; the rest through the torch
     scatters. Empty-group fills are the decoded dtype's extremes on both
-    paths, so results are bit-identical. Fills outs[f"a{i}_{op}"]."""
+    paths, so results are bit-identical. Fills outs[f"a{i}_{op}"].
+    ``members``: a cohort's launch, as ``_try_mm_groupby`` takes it: one
+    launch of K2's member-axis entry for the M members."""
+    rows = gid[0].numel() if members else gid.numel()
     wanted = []     # (agg index, ops, source key)
     srcs = {}       # source key -> [values, plus, dtype, ops]
     for i, (name, argt, _extra) in enumerate(aggs):
@@ -339,18 +405,18 @@ def _group_extremes(aggs, gid, cols, params, num_groups: int, outs, widths,
             continue
         ops = ("min", "max") if name == "minmaxrange" else (name,)
         v, plus, dt, key = _minmax_operand(argt, cols, params, widths)
-        if ps.minmax_supported(num_groups, dt) and gid.numel() >= min_rows:
-            if v.shape != gid.shape:  # e.g. MIN(3)
-                v = torch.broadcast_to(v, gid.shape).contiguous()
-            src = srcs.setdefault(key, [v, plus, dt, set()])
+        if ps.minmax_supported(num_groups, dt) and rows >= min_rows:
+            src = srcs.setdefault(key, [_kernel_operand(v, gid, members),
+                                        plus, dt, set()])
             src[3].update(ops)
             wanted.append((i, ops, key))
             continue
         if plus is not None or dt != v.dtype:
             v = _data_col(cols, params, key, widths)
         for op in ops:
-            outs[f"a{i}_{op}"] = agg_ops.group_min(gid, v, num_groups) \
-                if op == "min" else agg_ops.group_max(gid, v, num_groups)
+            fn = agg_ops.group_min if op == "min" else agg_ops.group_max
+            outs[f"a{i}_{op}"] = members_scatter(fn, gid, num_groups, v) \
+                if members else fn(gid, v, num_groups)
     if not srcs:
         return
     keys = list(srcs)
@@ -366,9 +432,10 @@ def _group_extremes(aggs, gid, cols, params, num_groups: int, outs, widths,
             fills = tuple(info.max if op == "min" else info.min for op in ops)
         sources.append(kernels.MinMaxSource(v, ops, fills, plus, dt))
     res = {}
+    entry = ps.group_minmax_members if members else ps.group_minmax_sources
     for c0 in range(0, len(sources), kernels.K2_MAX_SOURCES):
         part = sources[c0:c0 + kernels.K2_MAX_SOURCES]
-        got = ps.group_minmax_sources(gid, part, num_groups)
+        got = entry(gid, part, num_groups)
         for key, s, r in zip(keys[c0:], part, got):
             res[key] = dict(zip(s.ops, r))
     for i, ops, key in wanted:
@@ -376,7 +443,8 @@ def _group_extremes(aggs, gid, cols, params, num_groups: int, outs, widths,
             outs[f"a{i}_{op}"] = res[key][op]
 
 
-def _hll_regs(h, gid, mask, num_groups: int, log2m: int, min_rows: int):
+def _hll_regs(h, gid, mask, num_groups: int, log2m: int, min_rows: int,
+              members: int = 0):
     """(num_groups, m) int8 HLL registers from the int32 hash plane ``h``,
     the group ids (None: one group) and the mask (None: ``gid`` carries
     it as the overflow id): K3 through the small-slot entry
@@ -386,20 +454,39 @@ def _hll_regs(h, gid, mask, num_groups: int, log2m: int, min_rows: int):
     both split the hashes in the kernel — else the torch scatter-max over
     ``hll_slots``; all the exact max of rho, so bit-identical. int8 holds
     every rho (<= 33 - log2m) and keeps the register plane a quarter of
-    int32's size."""
+    int32's size.
+
+    ``members``: a cohort of that many queries: gid and mask are each
+    member's own (M, ...), ``h`` the stored plane every member shares or
+    each member's gathered rows (M, ...); one launch for all, registers
+    (M, num_groups, m)."""
     m = 1 << log2m
     nslots = num_groups * m
-    if h.numel() >= min_rows:
+    lead = (members,) if members else ()
+    by = gid if gid is not None else mask   # each member's rows
+    if (by[0].numel() if members else h.numel()) >= min_rows:
+        if members:
+            hk = h.reshape(-1) if h.dim() < by.dim() \
+                else h.reshape(members, -1)
+            gk = None if gid is None else gid.reshape(members, -1)
+            mk = None if mask is None else mask.reshape(members, -1)
         if ps.hll_supported(nslots, mm.hll_nrho(log2m)):
-            regs = ps.hll_register_max(h, log2m, num_groups=num_groups,
-                                       gid=gid, mask=mask)
-            return regs.reshape(num_groups, m).to(torch.int8)
+            regs = ps.hll_register_max_members(
+                hk, log2m, members, num_groups=num_groups, gid=gk,
+                mask=mk) if members else ps.hll_register_max(
+                h, log2m, num_groups=num_groups, gid=gid, mask=mask)
+            return regs.reshape(lead + (num_groups, m)).to(torch.int8)
         if mm.hll_supported(num_groups, log2m):
-            return mm.hll_registers(h, gid, num_groups, log2m,
-                                    mask=mask).to(torch.int8)
+            regs = mm.hll_registers_members(
+                hk, gk, members, num_groups, log2m, mask=mk) if members \
+                else mm.hll_registers(h, gid, num_groups, log2m, mask=mask)
+            return regs.to(torch.int8)
+    if members:
+        h = torch.broadcast_to(h, by.shape)
     slot, rho = hll_ops.hll_slots(h, log2m, num_groups, gid, mask)
-    regs = agg_ops.slot_max(slot, rho, nslots)
-    return regs.reshape(num_groups, m).to(torch.int8)
+    regs = members_scatter(agg_ops.slot_max, slot, nslots, rho) \
+        if members else agg_ops.slot_max(slot, rho, nslots)
+    return regs.reshape(lead + (num_groups, m)).to(torch.int8)
 
 
 def _hll_sums_from_sorted(sk, num_groups: int, log2m: int):
@@ -543,6 +630,18 @@ def _fused_outs(plan, ints, flts, params, widths, outs) -> None:
             outs[key] = (col.min() if op == "min" else col.max()).to(wide)
 
 
+def plan_fused(template, widths, blockskip: bool):
+    """K4's plan for a template's block-skip form, or None where the
+    generic gather form runs: scalar templates only, and K4 reads one
+    zone block per candidate, so a retuned ZONE_BLOCK_ROWS must decline
+    the plan, not read a prefix of every block."""
+    shape, filter_tpl, _g, _c, aggs, _k, _final = template
+    if blockskip and shape == "agg" \
+            and bs_ops.BLOCK_ROWS == ps.FUSED_BLOCK_ROWS:
+        return ps.plan_fused(filter_tpl, aggs, widths or {})
+    return None
+
+
 def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS,
                    blockskip: bool = False):
     """template → fn(cols, n_docs, params) → outputs dict of tensors.
@@ -562,12 +661,7 @@ def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS,
     if shape not in ("agg", "groupby", "groupby_sorted"):
         raise DeviceUnsupported(f"pipeline shape {shape}")
     num_groups = math.prod(group_cards)
-    fused_plan = None
-    # K4 reads one zone block per candidate: a retuned ZONE_BLOCK_ROWS
-    # must decline the plan, not read a prefix of every block
-    if blockskip and shape == "agg" \
-            and bs_ops.BLOCK_ROWS == ps.FUSED_BLOCK_ROWS:
-        fused_plan = ps.plan_fused(filter_tpl, aggs, widths or {})
+    fused_plan = plan_fused(template, widths, blockskip)
 
     def pipeline(cols, n_docs, params):
         # zone maps are (S, NB), sorted projections (sk::) 1-D and byte
@@ -629,8 +723,7 @@ def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS,
         verdict = verdict & (block_start[None, :] < nd64[:, None]) \
             & alive_b[:, None]
         flat = verdict.reshape(-1)
-        total = S * NB
-        B = min(total, max(1, -(-total // bs_ops.CAND_FRACTION)))
+        B = bs_ops.cand_bound(S * NB)
         n_cand = flat.sum(dtype=torch.int64)
         # the reference picks the form on the device (lax.cond); eager
         # torch reads the candidate count to the host: one scalar sync
@@ -900,39 +993,137 @@ def agg_columns(tpl) -> set:
 # ---------------------------------------------------------------------------
 
 
-class Launch:
-    """A dispatched pipeline: its template, batch and device outputs
-    (the trimmed leaves when the device trim ran), and what running it
-    again in the host path's shape takes. A launch in the host path's
-    shape (engine/rows.py ``RowsLaunch``) has the same ``fetch``."""
+class HostShapeRerun(Exception):
+    """Raised by a fetch where the reference leaves its device at fetch
+    time, on a count the launch made: a sorted table holding more groups
+    than its cap K, or a trimmed table more present groups than
+    numGroupsLimit keeps. ``rerun()`` runs the query again in the host
+    path's shape on the card (engine/rows.py), which applies
+    numGroupsLimit per segment in doc order as the reference's host does;
+    the engine runs it through the caller's ``fallback_gate``."""
 
-    def __init__(self, q, ctx, template, outs, final, reduce_mode, alive):
-        self.q, self.ctx, self.template, self.outs = q, ctx, template, outs
-        self.final, self.reduce_mode, self.alive = final, reduce_mode, alive
+    def __init__(self, rerun):
+        super().__init__("fetch-time re-run in the host path's shape")
+        self.rerun = rerun
 
-    def fetch(self, ex: "DeviceExecutor") -> IntermediateResult:
-        """Device outputs → host numpy → canonical IntermediateResult.
 
-        Where the reference leaves its device at fetch time, so does
-        this fetch, on the counts the launch made (one copy brings them
-        with the table): a sorted table holding more groups than its cap
-        K, or a trimmed table more present groups than numGroupsLimit
-        keeps, whose limit the ORDER-BY-trimmed rows cannot reproduce.
-        The query then runs again in the host path's shape, on the card
-        (engine/rows.py), which applies numGroupsLimit per segment in doc
-        order as the reference's host does."""
-        outs = ex._to_host(self.outs)
-        shape, sorted_k = self.template[0], self.template[5]
-        if (shape == "groupby_sorted"
-                and int(outs["n_groups_total"]) > sorted_k) \
-                or ("n_present_total" in outs and int(
-                    outs["n_present_total"]) > ex.groups_limit(self.q)):
-            ex.host_shape_reruns += 1
-            return rows.launch(ex, self.q, self.ctx, self.final,
-                               self.reduce_mode, self.alive).fetch(ex)
-        if "trim_keys" in outs:
-            ex.device_reduce_queries += 1
-        return ex._to_intermediate(self.q, self.ctx, self.template, outs)
+def _np_dtype(dt: torch.dtype):
+    return torch.empty(0, dtype=dt).numpy().dtype
+
+
+class _Transfer:
+    """One launch's outputs on their way to the host: the leaves of every
+    member packed into ONE device buffer (byte views joined on the card),
+    ONE copy of it enqueued into pinned host memory, and the events that
+    time the kernels and the copy. On the CPU the pack is the copy and
+    the times are the host clock's."""
+
+    def __init__(self, outs_list, k_events=None, kernel_s: float = 0.0,
+                 packed=None):
+        t0 = time.perf_counter()
+        if packed is None:
+            packed = _pack(outs_list)
+        self.dev, self.layouts = packed
+        self.k_events = k_events
+        self.kernel_s = kernel_s
+        self.nbytes = int(self.dev.numel())
+        if self.dev.device.type == "cuda":
+            self.host = torch.empty(self.nbytes, dtype=torch.uint8,
+                                    pin_memory=True)
+            self.c_events = (torch.cuda.Event(enable_timing=True),
+                             torch.cuda.Event(enable_timing=True))
+            self.c_events[0].record()
+            self.host.copy_(self.dev, non_blocking=True)
+            self.c_events[1].record()
+            self.link_s = None
+        else:
+            self.host = self.dev.clone()
+            self.c_events = None
+            self.link_s = time.perf_counter() - t0
+
+    def wait_kernel(self):
+        if self.k_events is not None:
+            self.k_events[1].synchronize()
+
+    def wait_link(self):
+        if self.c_events is not None:
+            self.c_events[1].synchronize()
+
+    def times_ms(self) -> tuple:
+        """(kernel ms, link ms), after ``wait_link``: CUDA-event time from
+        the launch's first kernel to its last, and of the copy."""
+        kernel = self.k_events[0].elapsed_time(self.k_events[1]) \
+            if self.k_events is not None else self.kernel_s * 1e3
+        link = self.c_events[0].elapsed_time(self.c_events[1]) \
+            if self.c_events is not None else self.link_s * 1e3
+        return kernel, link
+
+    def unpack(self) -> list:
+        """Every member's leaves as numpy views of the one host copy."""
+        buf = self.host.numpy()
+        out = []
+        for lay in self.layouts:
+            host = {}
+            for k, dt, shp, off, n in lay:
+                host[k] = buf[off:off + n].view(dt).reshape(shp)
+            out.append(host)
+        return out
+
+
+def _pack(outs_list) -> tuple:
+    """(one flat uint8 device buffer, per member [(leaf, numpy dtype,
+    shape, byte offset, bytes)]) of the members' leaves."""
+    flat, layouts, off = [], [], 0
+    dev = None
+    for outs in outs_list:
+        lay = []
+        for k, v in outs.items():
+            v = v.contiguous()
+            dev = v.device
+            n = v.numel() * v.element_size()
+            lay.append((k, _np_dtype(v.dtype), tuple(v.shape), off, n))
+            flat.append(v.reshape(-1).view(torch.uint8))
+            off += n
+        layouts.append(lay)
+    buf = torch.cat(flat) if flat else torch.zeros(
+        0, dtype=torch.uint8, device=dev or "cpu")
+    return buf, layouts
+
+
+class _KernelClock:
+    """Times a launch's device work: CUDA events around it on the card
+    (device time from its first kernel to its last), the host clock on
+    the CPU, where the work is done when the ops return."""
+
+    def __init__(self, device):
+        self.cuda = device.type == "cuda"
+        self.events = None
+        self.seconds = 0.0
+
+    def __enter__(self):
+        if self.cuda:
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            self.events[0].record()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.cuda:
+            self.events[1].record()
+        self.seconds = time.perf_counter() - self._t0
+        return False
+
+
+_EXECUTORS: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def invalidate_cached_partials(match: str) -> None:
+    """Drop every executor's cached partials whose batch holds a segment
+    dir matching ``match``: the seam consuming segments, upserts and
+    seals invalidate through."""
+    for ex in list(_EXECUTORS):
+        ex.invalidate_partials(match)
 
 
 class DeviceExecutor:
@@ -948,23 +1139,301 @@ class DeviceExecutor:
         # the server-partial trim bound (engine/reduce.py trim_bound's
         # min_trim_size), as in the reference
         self.group_trim_size = 5000
+        # server query threads launch and fetch concurrently: one lock
+        # guards the caches, the pins and the counters
+        self._lock = threading.RLock()
+        self._inflight_launches: dict = {}  # batch key -> in-flight count
+        self.inflight = 0            # launches between dispatch and fetch
+        self.coalescer = LaunchCoalescer()
         # fetch accounting: queries whose fetch read device-trimmed
-        # leaves, and the bytes every fetch copied to the host
+        # leaves, and what every fetch copied to the host
         self.device_reduce_queries = 0
         self.fetch_bytes_total = 0
+        self.fetch_leaves_total = 0
+        self.last_get_wait_s = None
         # fetches that ran the query again in the host path's shape (a
         # sorted table past its cap, numGroupsLimit under a trim)
         self.host_shape_reruns = 0
+        self.batch_hits = 0
+        self.batch_misses = 0
+        self.batch_evictions = 0
+        # the device partials cache: a repeat execution (same template,
+        # batch and forms, same literal values and ps_alive verdicts)
+        # copies the cached packed output buffer again and runs nothing
+        # on the card. Entries drop with their batch and through
+        # ``invalidate_partials``.
+        self.partials_cache_enabled = os.environ.get(
+            "PINOT_TPU_PARTIALS_CACHE", "1") not in ("", "0")
+        self.MAX_CACHED_PARTIALS = int(os.environ.get(
+            "PINOT_TPU_PARTIALS_CACHE_ENTRIES", 256))
+        self.MAX_PARTIALS_BYTES = int(os.environ.get(
+            "PINOT_TPU_PARTIALS_CACHE_BYTES", 128 << 20))
+        self.PARTIALS_ENTRY_MAX_BYTES = 4 << 20  # don't pin huge tables
+        self._partials: dict = {}  # key -> (packed buffer, layouts, bytes)
+        self.partials_bytes = 0
+        self.partials_hits = 0
+        self.partials_misses = 0
+        self.partials_evictions = 0     # capacity pressure
+        self.partials_invalidations = 0  # batch evictions, invalidations
+        # per-pipeline-label roofline aggregates (``roofline_stats``)
+        self._roofline: dict = {}
+        self.metrics = get_metrics("server")
+        _EXECUTORS.add(self)
 
-    def batch_for(self, segments) -> BatchContext:
-        key = tuple(s.dir for s in segments)
-        ctx = self._batches.pop(key, None)
-        if ctx is None:
-            ctx = BatchContext(segments, self.device)
-        self._batches[key] = ctx
-        while len(self._batches) > self.MAX_CACHED_BATCHES:
-            self._batches.pop(next(iter(self._batches)))
+    @staticmethod
+    def _batch_key(segments):
+        return tuple(s.dir for s in segments)
+
+    def batch_for(self, segments, retain: bool = False) -> BatchContext:
+        """The LRU-cached BatchContext of this segment set. ``retain``
+        takes the in-flight pin with the cache insert, under one lock
+        hold."""
+        key = self._batch_key(segments)
+        with self._lock:
+            ctx = self._batches.pop(key, None)
+            if ctx is None:
+                ctx = BatchContext(segments, self.device)
+                self.batch_misses += 1
+            else:
+                self.batch_hits += 1
+            self._batches[key] = ctx
+            if retain:
+                self._retain_launch(key)
+            self._evict(keep=key)
         return ctx
+
+    def _evict(self, keep=None) -> None:
+        """LRU eviction past MAX_CACHED_BATCHES. A batch an in-flight
+        launch reads is pinned: it stays until the pin drops, and its
+        cached partials go with it when it goes."""
+        with self._lock:
+            while len(self._batches) > self.MAX_CACHED_BATCHES:
+                lru = next((k for k in self._batches
+                            if k != keep and k not in self._inflight_launches),
+                           None)
+                if lru is None:
+                    return  # every other batch is pinned
+                self._batches.pop(lru)
+                self.batch_evictions += 1
+                self._drop_partials_for_batch(lru)
+
+    def _retain_launch(self, key) -> None:
+        with self._lock:
+            self._inflight_launches[key] = \
+                self._inflight_launches.get(key, 0) + 1
+            self.inflight += 1
+
+    def _release_launch(self, key) -> None:
+        with self._lock:
+            n = self._inflight_launches.get(key, 0) - 1
+            if n > 0:
+                self._inflight_launches[key] = n
+            else:
+                self._inflight_launches.pop(key, None)
+            self.inflight -= 1
+            self._evict(keep=key)
+
+    # ---- device partials cache -------------------------------------------
+    def _partials_get(self, key):
+        with self._lock:
+            ent = self._partials.pop(key, None)
+            if ent is None:
+                self.partials_misses += 1
+                return None
+            self._partials[key] = ent  # LRU touch
+            self.partials_hits += 1
+            return ent[0], ent[1]
+
+    def _partials_put(self, key, packed) -> None:
+        """Cache a solo launch's packed output buffer (the same device
+        tensor its fetch copies; nothing writes it again). Entries past
+        PARTIALS_ENTRY_MAX_BYTES are skipped."""
+        buf, layouts = packed
+        nbytes = int(buf.numel())
+        if nbytes > self.PARTIALS_ENTRY_MAX_BYTES:
+            return
+        with self._lock:
+            if key in self._partials:
+                return
+            self._partials[key] = (buf, layouts, nbytes)
+            self.partials_bytes += nbytes
+            while self._partials and (
+                    len(self._partials) > self.MAX_CACHED_PARTIALS
+                    or self.partials_bytes > self.MAX_PARTIALS_BYTES):
+                self._partials_drop_locked(next(iter(self._partials)))
+
+    def _partials_drop_locked(self, key, invalidation: bool = False) -> None:
+        ent = self._partials.pop(key, None)
+        if ent is not None:
+            self.partials_bytes -= ent[2]
+            if invalidation:
+                self.partials_invalidations += 1
+            else:
+                self.partials_evictions += 1
+
+    def _drop_partials_for_batch(self, batch_key) -> None:
+        """Caller holds the lock: drop the entries of an evicted batch."""
+        for k in [k for k in self._partials if k[1] == batch_key]:
+            self._partials_drop_locked(k, invalidation=True)
+
+    def invalidate_partials(self, match: str) -> None:
+        """Drop entries whose batch holds a segment dir matching ``match``
+        (a substring)."""
+        with self._lock:
+            for k in [k for k in self._partials
+                      if any(match in d for d in k[1])]:
+                self._partials_drop_locked(k, invalidation=True)
+
+    def hbm_stats(self) -> dict:
+        """Batch-LRU, partials-cache and roofline snapshot."""
+        with self._lock:
+            snap = {
+                "batch_hits": self.batch_hits,
+                "batch_misses": self.batch_misses,
+                "batch_evictions": self.batch_evictions,
+                "partials_cache_entries": len(self._partials),
+                "partials_cache_bytes": self.partials_bytes,
+                "partials_cache_hits": self.partials_hits,
+                "partials_cache_misses": self.partials_misses,
+                "partials_cache_evictions": self.partials_evictions,
+                "partials_cache_invalidations": self.partials_invalidations,
+                "device_reduce_queries": self.device_reduce_queries,
+                "inflight": self.inflight,
+            }
+            batches = list(self._batches.values())
+        snap["cached_batches"] = len(batches)
+        snap["resident_bytes"] = sum(b.resident_bytes for b in batches)
+        snap["roofline"] = self.roofline_stats()
+        return snap
+
+    # ---- roofline flights ------------------------------------------------
+    @staticmethod
+    def _pipeline_label(template, blockskip: bool, trim, kernels_used: bool,
+                        fused: bool = False) -> str:
+        """The per-pipeline label the roofline aggregates key on: the
+        template shape and the forms. ``+cuda`` marks a launch whose
+        pipeline reaches the port's kernels, where the reference marks its
+        Pallas tier ``+pallas``."""
+        label = template[0]
+        if blockskip:
+            label += "+bskip"
+        if fused:
+            label += "+fused"
+        if kernels_used:
+            label += "+cuda"
+        if trim is not None:
+            label += "+trim"
+        return label
+
+    @staticmethod
+    def _new_flight(label: str, fused: bool = False) -> dict:
+        return {"label": label, "cache_hit": False, "fused": fused,
+                "data_bytes": 0, "zone_bytes": 0, "record": None}
+
+    def _note_flight(self, flight: dict, outs: dict, fetched_bytes: int,
+                     kernel_ms: float, link_ms: float) -> None:
+        """Fold one resolved flight into the roofline accounting, the
+        reference's bytes-moved model: the column planes at their stored
+        widths, data scaled by the block-skip gather ratio, the gather
+        buffer's round trip (the fused K4 form does not pay it) and the
+        fetched bytes, over the kernel time, against the probed peak.
+        Cache hits count apart and are not rated."""
+        from pinot_tpu_torch.ops import roofline as rl
+
+        cache_hit = bool(flight.get("cache_hit"))
+        ratio = 1.0
+        bt, bs = outs.get("blocks_total"), outs.get("blocks_scanned")
+        if bt is not None and bs is not None:
+            total_b = float(np.sum(np.asarray(bt)))
+            if total_b > 0:
+                ratio = min(1.0, float(np.sum(np.asarray(bs))) / total_b)
+        gather_bytes = 0
+        if ratio < 1.0 and not flight.get("fused"):
+            gather_bytes = int(2 * flight["data_bytes"] * ratio)
+        bytes_moved = 0 if cache_hit else int(
+            flight["zone_bytes"] + flight["data_bytes"] * ratio
+            + gather_bytes + fetched_bytes)
+        rec = {"kernel": flight["label"], "bytesMoved": bytes_moved,
+               "bytesFetched": int(fetched_bytes),
+               "kernelMs": round(kernel_ms, 3), "linkMs": round(link_ms, 3),
+               "cacheHit": cache_hit}
+        if gather_bytes:
+            rec["gatherBytes"] = gather_bytes
+        gbps = None
+        if not cache_hit and kernel_ms > 1e-6:
+            gbps = bytes_moved / (kernel_ms / 1e3) / 1e9
+            rec["gbps"] = round(gbps, 3)
+            peak = rl.hbm_peak_gbps(self.device)
+            pct = rl.pct_of_peak(gbps, peak)
+            if pct is not None:
+                rec["peakGbps"] = round(peak, 1)
+                rec["pctOfPeak"] = pct
+        flight["record"] = rec
+        with self._lock:
+            agg = self._roofline.setdefault(
+                flight["label"], {"queries": 0, "cache_hits": 0,
+                                  "bytes_moved": 0, "kernel_ms": 0.0,
+                                  "link_ms": 0.0})
+            agg["queries"] += 1
+            agg["link_ms"] += link_ms
+            if cache_hit:
+                agg["cache_hits"] += 1
+            else:
+                agg["bytes_moved"] += bytes_moved
+                agg["kernel_ms"] += kernel_ms
+        if gbps is not None:
+            self.metrics.observe("deviceKernelGbps", gbps)
+
+    def roofline_stats(self) -> dict:
+        """Per-label roofline snapshot against the probed peak (None until
+        a flight probed it: reading stats never runs the probe)."""
+        from pinot_tpu_torch.ops import roofline as rl
+
+        with self._lock:
+            aggs = {k: dict(v) for k, v in self._roofline.items()}
+        peak = rl.peak_if_probed()
+        out = {}
+        for label, agg in aggs.items():
+            entry = dict(agg)
+            entry["kernel_ms"] = round(entry["kernel_ms"], 3)
+            entry["link_ms"] = round(entry["link_ms"], 3)
+            if agg["kernel_ms"] > 0:
+                gbps = agg["bytes_moved"] / (agg["kernel_ms"] / 1e3) / 1e9
+                entry["gbps"] = round(gbps, 3)
+                pct = rl.pct_of_peak(gbps, peak)
+                if pct is not None:
+                    entry["pct_of_peak"] = pct
+            out[label] = entry
+        return {"peak_gbps": round(peak, 1) if peak else None,
+                "kernels": out}
+
+    def _make_resolve(self, tr: _Transfer, tracer=None, flight=None):
+        """The fetch-phase closure shared by solo and cohort launches: the
+        blocking wait split into a kernel wait (on the event after the
+        launch's last kernel) and a link wait (on the copy), recorded as
+        the spans ``kernel`` and ``link``; then the accounting and each
+        member's leaves as views of the one host copy. Returns the list
+        of member leaves (one entry for a solo launch)."""
+        def resolve():
+            t0 = time.perf_counter()
+            with span("kernel", tracer):
+                tr.wait_kernel()
+            with span("link", tracer):
+                tr.wait_link()
+            wait = time.perf_counter() - t0
+            kernel_ms, link_ms = tr.times_ms()
+            outs = tr.unpack()
+            with self._lock:
+                self.last_get_wait_s = wait
+                self.fetch_bytes_total += tr.nbytes
+                self.fetch_leaves_total += 1
+            self.metrics.time_ms("deviceFetchMs", wait * 1e3)
+            if flight is not None:
+                self._note_flight(flight, outs[0], tr.nbytes, kernel_ms,
+                                  link_ms)
+            return outs
+
+        return resolve
 
     def _agg_template(self, i: int, a: Expression, ctx: BatchContext,
                       params, counter):
@@ -1167,15 +1636,23 @@ class DeviceExecutor:
         return widths, cols
 
     def launch(self, q: QueryContext, segments, final: bool = False,
-               reduce_mode=None, alive=None):
-        """Template build + column upload (cached per segment set) + the
-        pipeline's torch ops and kernel launches, enqueued on the current
-        stream. ``final``: the launch is terminal (nothing merges after
-        it), so distinct counts and HLL finalize on the card. A shape the
+               reduce_mode=None, alive=None, tracer=None) -> InflightLaunch:
+        """LAUNCH phase: template build, column upload (cached per segment
+        set), the pipeline's torch ops and kernel launches and ONE copy of
+        the packed outputs to pinned host memory, all enqueued on the
+        current stream. Returns an ``InflightLaunch`` whose ``fetch()``
+        waits for the copy. Under pressure (another launch in flight, or
+        ``coalescer.force``), launches of one cohort key coalesce into one
+        launch per kernel (engine/cohort.py). A repeat of a cached launch
+        copies its cached outputs again and runs nothing (the partials
+        cache; ``SET usePartialsCache = false`` bypasses it).
+
+        ``final``: the launch is terminal (nothing merges after it), so
+        distinct counts and HLL finalize on the card. A shape the
         reference's device refuses runs in its host path's shape on the
-        card (engine/rows.py); one this slice does not run raises
-        DeviceUnsupported. The fetch may run the query again in the host
-        path's shape (``Launch.fetch``).
+        card (engine/rows.py); one this port does not run raises
+        DeviceUnsupported. The fetch may ask for a run in the host path's
+        shape (``HostShapeRerun``).
 
         ``reduce_mode``: None, or "terminal" / "partial" when this batch
         is the sole partial of its execution: a group-by then takes the
@@ -1186,7 +1663,13 @@ class DeviceExecutor:
         batch, dead (``ps_alive``; ``alive`` passes verdicts the caller
         already has); when every segment is pruned nothing runs on the
         card. Level 2: a filter with interval structure takes the
-        block-skip forms unless ``SET useBlockSkip = false``."""
+        block-skip forms unless ``SET useBlockSkip = false``.
+
+        ``tracer``: the query's explicit Tracer; the launch records
+        ``gather`` and ``dispatch``, the resolve ``kernel`` and ``link``.
+        The batch stays pinned from here until the handle is fetched or
+        released."""
+        t_launch = time.perf_counter()
         if q.distinct and q.aggregations():
             raise DeviceUnsupported("DISTINCT over aggregations")
         for s in segments:
@@ -1195,21 +1678,45 @@ class DeviceExecutor:
                 raise DeviceUnsupported("consuming/upsert segments come with "
                                         "a later slice of the port (ROADMAP "
                                         "queue 1, item j)")
-        ctx = self.batch_for(segments)
+        batch_key = self._batch_key(segments)
+        ctx = self.batch_for(segments, retain=True)
+        try:
+            handle = self._launch_pinned(q, ctx, batch_key, segments, final,
+                                         reduce_mode, alive, tracer)
+        except BaseException:
+            self._release_launch(batch_key)
+            raise
+        handle.tracer = tracer
+        self.metrics.time_ms("deviceLaunchMs",
+                             (time.perf_counter() - t_launch) * 1e3)
+        return handle
+
+    def _launch_pinned(self, q, ctx, batch_key, segments, final, reduce_mode,
+                       alive, tracer) -> InflightLaunch:
         alive = self.alive_mask(q, segments, alive)
         if self.host_shape(q, ctx):
             # the reference answers this shape on its host: the card runs
-            # it in that shape
-            return rows.launch(self, q, ctx, final, reduce_mode, alive)
-        params: dict = {}
+            # it in that shape, solo and uncached, as the reference's host
+            # path neither coalesces nor caches
+            with span("dispatch", tracer):
+                with _KernelClock(ctx.device) as clock:
+                    rl = rows.launch(self, q, ctx, final, reduce_mode, alive)
+                tr = _Transfer([rl.outs], clock.events, clock.seconds)
+            return InflightLaunch(
+                self, batch_key, self._first(self._make_resolve(tr, tracer)),
+                lambda host: rl.finish(host, self))
+        opts = q.options_ci()
+        cacheable = self.partials_cache_enabled and bool_option(
+            opts, "usepartialscache", None) is not False
+        params: dict = {"__hostsig__": []} if cacheable else {}
         counter = [0]
         template = self._template(q, ctx, params, counter, final)
+        host_sigs = params.pop("__hostsig__", None)
         shape, filter_tpl, group_cols, group_cards, agg_tpls, sorted_k, \
             final_tpl = template
         aggs = q.aggregations()
         num_groups = math.prod(group_cards)
 
-        opts = q.options_ci()
         # Level-2 eligibility: the filter has interval structure the zone
         # maps can act on, the batch is block-aligned, and the query did
         # not opt out (SET useBlockSkip = false, the force-dense form)
@@ -1226,17 +1733,17 @@ class DeviceExecutor:
         # on-device final reduce (ops/device_reduce.py): plan the ORDER BY
         # trim when this batch is the sole partial of its execution; the
         # exact keep count rides as the tr_k param
-        trim = None
+        trim, tr_k = None, None
         if reduce_mode is not None and group_cols:
             trim = dr_ops.plan_trim(
                 q, q.group_by, aggs,
                 sorted_k if shape == "groupby_sorted" else num_groups,
                 reduce_mode, self.group_trim_size)
             if trim is not None:
-                params["tr_k"] = torch.tensor(
-                    dr_ops.trim_keep_count(q, reduce_mode,
-                                           self.group_trim_size),
-                    dtype=torch.int64, device=ctx.device)
+                tr_k = dr_ops.trim_keep_count(q, reduce_mode,
+                                              self.group_trim_size)
+                params["tr_k"] = torch.tensor(tr_k, dtype=torch.int64,
+                                              device=ctx.device)
 
         # SET useSortedProjection = false keeps the per-query sort (the
         # cold form); by default a filterless terminal HLL group-by reads
@@ -1255,41 +1762,168 @@ class DeviceExecutor:
                 needed |= agg_columns((name, argt, extra))
         if not needed:  # COUNT(*) no filter: one column carries the shape
             needed.add(segments[0].column_names()[0])
-        widths, cols = self.gather_columns(ctx, needed, params, group_cols,
-                                           group_cards)
+
+        def finish(host):
+            return self._finish(q, ctx, template, host, final, reduce_mode,
+                                alive)
+
         if not alive.any():
             # FULLY pruned: nothing runs on the card
+            widths, cols = self.gather_columns(ctx, needed, params,
+                                               group_cols, group_cards)
             outs = _neutral_outs(build_pipeline(template, widths,
                                                 self.min_rows),
                                  cols, params, ctx.S)
-        else:
-            outs = build_pipeline(template, widths, self.min_rows, use_bs)(
-                cols, ctx.n_docs_dev, params)
+            if trim is not None:
+                outs = dr_ops.apply_trim(outs, params["tr_k"].cpu(),
+                                         template, trim)
+            tr = _Transfer([outs])
+            return InflightLaunch(self, batch_key,
+                                  self._first(self._make_resolve(tr)),
+                                  finish)
+
+        # the partials cache: the key digests the literals' host bytes,
+        # taken before upload, and the ps_alive verdicts, so no launch
+        # reads a device param back to hash it
+        cache_key = None
+        if cacheable and host_sigs is not None \
+                and all(sig[3] is not None for sig in host_sigs):
+            h = hashlib.blake2b(digest_size=16)
+            for key, dt, shp, b in sorted(host_sigs, key=lambda e: e[0]):
+                h.update(repr((key, dt, shp)).encode())
+                h.update(b)
+            h.update(b"ps_alive" + alive.tobytes())
+            h.update(b"tr_k" + repr(tr_k).encode())
+            cache_key = (template, batch_key, use_bs, trim, self.min_rows,
+                         h.digest())
+            hit = self._partials_get(cache_key)
+            if hit is not None:
+                flight = self._new_flight(self._pipeline_label(
+                    template, use_bs, trim, self._uses_kernels(template,
+                                                               ctx)))
+                flight["cache_hit"] = True
+                tr = _Transfer(None, packed=hit)
+                handle = InflightLaunch(
+                    self, batch_key,
+                    self._first(self._make_resolve(tr, tracer, flight)),
+                    finish)
+                handle.cache_hit = True
+                handle.flight = flight
+                return handle
+
+        with span("gather", tracer):
+            widths, cols = self.gather_columns(ctx, needed, params,
+                                               group_cols, group_cards)
+        plan = plan_fused(template, widths, use_bs)
+        fused = plan is not None and ps.fused_params_ok(plan, params)
+        flight = self._new_flight(self._pipeline_label(
+            template, use_bs, trim, self._uses_kernels(template, ctx),
+            fused), fused=fused)
+        for ck, cv in cols.items():
+            nb = cv.numel() * cv.element_size()
+            flight["zone_bytes" if ck.startswith((bs_ops.ZLO, bs_ops.ZHI))
+                   else "data_bytes"] += nb
+
+        with span("dispatch", tracer):
+            co = self.coalescer
+            if cohort.cohort_supported(template) \
+                    and co.should_window(self.inflight):
+                resolve = self._join_cohort(template, batch_key, widths,
+                                            use_bs, trim, cols, ctx, params,
+                                            tracer, flight)
+                handle = InflightLaunch(self, batch_key, resolve, finish)
+                handle.flight = flight
+                return handle
+            with _KernelClock(ctx.device) as clock:
+                outs = self._run_solo(template, widths, use_bs, trim, cols,
+                                      ctx, params)
+            tr = _Transfer([outs], clock.events, clock.seconds)
+        if cache_key is not None:
+            # cohort members never insert: their buffer is the cohort's
+            self._partials_put(cache_key, (tr.dev, tr.layouts))
+        handle = InflightLaunch(
+            self, batch_key,
+            self._first(self._make_resolve(tr, tracer, flight)), finish)
+        handle.flight = flight
+        return handle
+
+    @staticmethod
+    def _first(resolve):
+        """A solo resolve: the one member's leaves."""
+        def one():
+            return resolve()[0]
+
+        return one
+
+    def _uses_kernels(self, template, ctx) -> bool:
+        """Whether the pipeline's batch is large enough for the kernels
+        (the ``min_rows`` gate; the label's ``+cuda``)."""
+        return ctx.S * ctx.pad_to >= self.min_rows
+
+    def _run_solo(self, template, widths, use_bs, trim, cols, ctx, params):
+        outs = build_pipeline(template, widths, self.min_rows, use_bs)(
+            cols, ctx.n_docs_dev, params)
         if trim is not None:
             outs = dr_ops.apply_trim(
                 outs, params["tr_k"].to(outs["gcount"].device), template,
                 trim)
-        return Launch(q, ctx, template, outs, final, reduce_mode, alive)
+        return outs
 
-    def _to_host(self, outs: dict) -> dict:
-        """Device leaves → host numpy arrays in one copy: the byte views
-        of every leaf joined on the card, one device→host copy, then split
-        on the host (one synchronization instead of one per leaf; the
-        bytes, hence the values, are unchanged)."""
-        items = [(k, v.contiguous()) for k, v in outs.items()]
-        nbytes = sum(v.numel() * v.element_size() for _, v in items)
-        self.fetch_bytes_total += nbytes
-        if not items or items[0][1].device.type == "cpu":
-            return {k: v.numpy() for k, v in items}
-        flat = torch.cat([v.reshape(-1).view(torch.uint8) for _, v in items])
-        buf = flat.cpu().numpy()
-        host, off = {}, 0
-        for k, v in items:
-            n = v.numel() * v.element_size()
-            dt = torch.empty(0, dtype=v.dtype).numpy().dtype
-            host[k] = buf[off:off + n].view(dt).reshape(tuple(v.shape))
-            off += n
-        return host
+    def _join_cohort(self, template, batch_key, widths, use_bs, trim, cols,
+                     ctx, params, tracer, flight):
+        """Join (or lead) the cohort of this launch's key: the same
+        template over the same batch in the same forms, the same columns
+        and the same parameter shapes and dtypes. The leader runs ONE
+        member-axis launch for all (engine/cohort.py); its kernel is
+        attributed to its own trace and flight, once."""
+        sig = tuple(sorted((k, tuple(v.shape), str(v.dtype))
+                           for k, v in params.items()))
+        ckey = (template, batch_key, use_bs, trim, self.min_rows,
+                tuple(sorted(cols)), sig)
+
+        def launch_fn(members):
+            with _KernelClock(ctx.device) as clock:
+                if len(members) == 1:
+                    outs_list = [self._run_solo(template, widths, use_bs,
+                                                trim, cols, ctx, members[0])]
+                else:
+                    outs_list = cohort.run(template, widths, self.min_rows,
+                                           use_bs, cols, ctx.n_docs_dev,
+                                           members, trim)
+            tr = _Transfer(outs_list, clock.events, clock.seconds)
+            return self._make_resolve(tr, tracer, flight)
+
+        c, idx = self.coalescer.join(ckey, params, launch_fn)
+
+        def resolve():
+            return c.resolve_member(idx)
+
+        resolve.abandon = c.note_abandoned
+        return resolve
+
+    def _finish(self, q, ctx, template, host, final, reduce_mode, alive):
+        """Host leaves → IntermediateResult, or ``HostShapeRerun`` where
+        the reference leaves its device at fetch time (a sorted table
+        past K, a trimmed table past numGroupsLimit)."""
+        shape, sorted_k = template[0], template[5]
+        if (shape == "groupby_sorted"
+                and int(host["n_groups_total"]) > sorted_k) \
+                or ("n_present_total" in host and int(
+                    host["n_present_total"]) > self.groups_limit(q)):
+            raise HostShapeRerun(lambda: self._rerun(q, ctx, final,
+                                                     reduce_mode, alive))
+        if "trim_keys" in host:
+            with self._lock:
+                self.device_reduce_queries += 1
+        return self._to_intermediate(q, ctx, template, host)
+
+    def _rerun(self, q, ctx, final, reduce_mode, alive):
+        """The fetch-time run in the host path's shape, fetched at once."""
+        with self._lock:
+            self.host_shape_reruns += 1
+        rl = rows.launch(self, q, ctx, final, reduce_mode, alive)
+        tr = _Transfer([rl.outs])
+        return rl.finish(self._make_resolve(tr)()[0], self)
 
     def groups_limit(self, q: QueryContext) -> int:
         """numGroupsLimit: the engine default or the per-query SET."""
@@ -1298,9 +1932,14 @@ class DeviceExecutor:
             return max(1, int(opts["numgroupslimit"]))
         return self.num_groups_limit
 
-    def fetch(self, launch) -> IntermediateResult:
-        """A launch's outputs, fetched: ``Launch.fetch``."""
-        return launch.fetch(self)
+    def fetch(self, handle) -> IntermediateResult:
+        """A handle's result, with a fetch-time run in the host path's
+        shape done in place (the engine runs that through its caller's
+        ``fallback_gate`` instead)."""
+        try:
+            return handle.fetch()
+        except HostShapeRerun as r:
+            return r.rerun()
 
     def execute(self, q: QueryContext, segments, final: bool = False,
                 reduce_mode=None) -> IntermediateResult:

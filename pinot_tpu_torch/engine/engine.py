@@ -21,8 +21,19 @@ sketches on the card. There is no host scan: the shapes the reference
 answers on its host, at launch or after its fetch, run in that path's
 shape on the card (engine/rows.py), and a query shape the port does not
 run comes back as an in-band ``DeviceUnsupported`` exception in the
-response, as every other error does. Multi-stage queries and EXPLAIN ANALYZE come with later slices;
-EXPLAIN PLAN renders the plan (engine/explain.py).
+response, as every other error does.
+
+``execute_segments_async`` is the launch phase: everything up to the
+device launch (engine/device.py ``DeviceExecutor.launch``, which returns
+an ``InflightLaunch`` handle), then a zero-argument fetch closure that
+waits for the device, merges and returns the partial. It carries the
+query's ``Deadline`` (checked before each blocking fetch and each
+fetch-time re-run) and ``Tracer`` (the phases ``gather``, ``dispatch``,
+``device_fetch``, ``kernel``, ``link`` and ``merge``) by reference, and
+releases every still-pinned handle when anything between launch and
+fetch raises. EXPLAIN PLAN renders the plan and EXPLAIN ANALYZE runs the
+query traced and renders its actuals (engine/explain.py); multi-stage
+queries come with a later slice.
 """
 
 from __future__ import annotations
@@ -32,8 +43,9 @@ import time
 
 from pinot_tpu_torch.common.pruning import interval_may_match, \
     provably_absent
-from pinot_tpu_torch.engine.device import DeviceExecutor
-from pinot_tpu_torch.engine.explain import explain_plan
+from pinot_tpu_torch.common.trace import Tracer, span
+from pinot_tpu_torch.engine.device import DeviceExecutor, HostShapeRerun
+from pinot_tpu_torch.engine.explain import annotate_analyze, explain_plan
 from pinot_tpu_torch.engine.params import DeviceUnsupported
 from pinot_tpu_torch.engine.reduce import finalize, merge_intermediates
 from pinot_tpu_torch.engine.result import IntermediateResult
@@ -129,19 +141,18 @@ class QueryEngine:
             q = optimize_query(compile_select(stmt))
             if q.explain:
                 if q.analyze:
-                    raise DeviceUnsupported(
-                        "EXPLAIN ANALYZE comes with a later slice of the "
-                        "port (ROADMAP queue 1, item i)")
+                    return self._explain_analyze(q, t0)
                 return explain_plan(self, q)
-            segments = self.tables.get(q.table_name)
-            if not segments:
-                raise KeyError(f"table {q.table_name!r} not found")
-            q = expand_star(q, segments[0].column_names())
-            merged = self.execute_segments(q, segments, terminal=True)
-            result = finalize(q, merged)
+            result, merged = self._execute_merged(q)
         except Exception as e:  # noqa: BLE001 — exceptions are reported in-band
             return {"exceptions": [{"errorCode": 200,
                                     "message": f"{type(e).__name__}: {e}"}]}
+        return self._stats_response(result, merged, t0)
+
+    @staticmethod
+    def _stats_response(result, merged, t0: float) -> dict:
+        """The response of a finalized result and its merged partial (the
+        one execute and EXPLAIN ANALYZE share)."""
         stats = merged.stats
         resp = result.to_json()
         resp.update({
@@ -156,23 +167,73 @@ class QueryEngine:
             "numSegmentsPrunedByServer": stats.num_segments_pruned,
             "numBlocksPruned": stats.num_blocks_pruned,
             "numGroupsLimitReached": stats.num_groups_limit_reached,
+            "partialsCacheHit": stats.partials_cache_hit,
             "totalDocs": stats.total_docs,
+            # roofline accounting: modeled bytes, kernel and link time
+            "deviceBytesMoved": stats.device_bytes_moved,
+            "deviceKernelMs": round(stats.device_kernel_ms, 3),
+            "deviceLinkMs": round(stats.device_link_ms, 3),
             "timeUsedMs": round((time.time() - t0) * 1000, 3),
         })
+        if getattr(merged, "roofline", None):
+            resp["roofline"] = merged.roofline
         return resp
+
+    def execute_query(self, q: QueryContext, tracer=None):
+        """(finalized ResultTable, merged stats) of a compiled query."""
+        result, merged = self._execute_merged(q, tracer=tracer)
+        return result, merged.stats
+
+    def _execute_merged(self, q: QueryContext, tracer=None):
+        """(finalized ResultTable, merged IntermediateResult): the inner
+        execute path, which keeps the merged partial's stats, trace and
+        roofline records for callers that render more than rows."""
+        segments = self.tables.get(q.table_name)
+        if not segments:
+            raise KeyError(f"table {q.table_name!r} not found")
+        q = expand_star(q, segments[0].column_names())
+        merged = self.execute_segments_async(q, segments, terminal=True,
+                                             tracer=tracer)()
+        return finalize(q, merged), merged
 
     def execute_segments(self, q: QueryContext, segments,
                          terminal: bool = False,
                          trim_ok: bool = True) -> IntermediateResult:
         """Partial execution over an explicit segment list → the merged,
         unfinalized IntermediateResult (what a server ships to a broker).
+        ``execute_segments_async(...)()``."""
+        return self.execute_segments_async(q, segments, terminal,
+                                           trim_ok=trim_ok)()
+
+    def execute_segments_async(self, q: QueryContext, segments,
+                               terminal: bool = False, fallback_gate=None,
+                               deadline=None, tracer=None,
+                               trim_ok: bool = True):
+        """LAUNCH phase of ``execute_segments`` → a zero-argument fetch
+        closure returning the merged, unfinalized IntermediateResult.
 
         Per segment: the metadata-only answer, else a fitting star-tree
         (pruned cube segments drop, counted as pruned), else the device
-        batch. ``terminal``: nothing merges after this result, so a sole
-        partial may finalize sketches on the card. ``trim_ok = False``
-        turns the on-device trim off for callers whose finalize runs
-        under another QueryContext (the star-tree substitution)."""
+        batch, launched here and fetched in the closure. ``terminal``:
+        nothing merges after this result, so a sole partial may finalize
+        sketches on the card. ``trim_ok = False`` turns the on-device trim
+        off for callers whose finalize runs under another QueryContext
+        (the star-tree substitution).
+
+        ``deadline`` (common/deadline.py): checked before the blocking
+        fetch and before a fetch-time re-run; an expired budget raises
+        QueryTimeout and releases the pinned handle. ``tracer``
+        (common/trace.py): carried by reference into the handle and the
+        closure, so spans recorded on another thread land on this query's
+        trace. ``fallback_gate`` (callable(fn) → fn()): wraps a fetch-time
+        run in the host path's shape (a sorted table past its cap,
+        numGroupsLimit under a trim), so a server can put it back under
+        its admission control. A cold-tier placeholder (``is_cold``) is
+        refused: the tiers come with the cluster tier."""
+        if any(getattr(s, "is_cold", False) for s in segments):
+            raise DeviceUnsupported(
+                "cold-tier segments come with a later slice of the port "
+                "(ROADMAP queue 1, item m)")
         results, executed, remaining, alive = [], [], [], []
         st_groups: dict = {}
         pruned = 0
@@ -213,6 +274,7 @@ class QueryEngine:
             results.append(execute_star_tree_group(
                 self, q, grp["meta"], grp["sts"], grp["docs"],
                 terminal=st_terminal))
+        handle = None
         if remaining:
             # the device batch is the sole partial when nothing else
             # answered: only then may it finalize on the card or trim
@@ -220,15 +282,54 @@ class QueryEngine:
             reduce_mode = None
             if trim_ok and sole:
                 reduce_mode = "terminal" if terminal else "partial"
-            results.append(self.device.fetch(self.device.launch(
+            handle = self.device.launch(
                 launch_q, remaining, final=terminal and sole,
-                reduce_mode=reduce_mode, alive=alive)))
-        merged = merge_intermediates(q, results)
-        merged.stats.num_segments_pruned += pruned
-        merged.stats.num_segments_queried = len(segments)
-        # pruned segments still count toward totalDocs (reference
-        # semantics)
-        ran = {id(s) for s in executed}
-        merged.stats.total_docs += sum(s.n_docs for s in segments
-                                       if id(s) not in ran)
-        return merged
+                reduce_mode=reduce_mode, alive=alive, tracer=tracer)
+            handle.deadline = deadline
+
+        def fetch():
+            res = list(results)
+            if handle is not None:
+                try:
+                    try:
+                        res.append(handle.fetch())
+                    except HostShapeRerun as r:
+                        if deadline is not None:
+                            deadline.check("host-path shape re-run")
+                        res.append(r.rerun() if fallback_gate is None
+                                   else fallback_gate(r.rerun))
+                finally:
+                    handle.release()  # a no-op once fetched
+            with span("merge", tracer):
+                merged = merge_intermediates(q, res)
+            # the per-flight roofline records, across partials
+            roofs = [rec for r in res if getattr(r, "roofline", None)
+                     for rec in r.roofline]
+            if roofs:
+                merged.roofline = roofs
+            merged.stats.num_segments_pruned += pruned
+            merged.stats.num_segments_queried = len(segments)
+            # pruned segments still count toward totalDocs (reference
+            # semantics)
+            ran = {id(s) for s in executed}
+            merged.stats.total_docs += sum(s.n_docs for s in segments
+                                           if id(s) not in ran)
+            return merged
+
+        return fetch
+
+    def _explain_analyze(self, q: QueryContext, t0: float) -> dict:
+        """EXPLAIN ANALYZE: run the query for real, traced and with the
+        partials cache bypassed (a hit would skip the kernel ANALYZE
+        measures), then render the plan annotated with the actuals. The
+        executed response rides along as ``analyzedResponse``."""
+        q_run = dataclasses.replace(
+            q, explain=False, analyze=False,
+            options=q.options + (("usePartialsCache", False),))
+        tracer = Tracer("analyze")
+        result, merged = self._execute_merged(q_run, tracer=tracer)
+        resp = self._stats_response(result, merged, t0)
+        resp["traceInfo"] = {"server": tracer.to_json()}
+        out = annotate_analyze(explain_plan(self, q), resp)
+        out["analyzedResponse"] = resp
+        return out

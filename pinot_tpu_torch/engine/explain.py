@@ -1,16 +1,21 @@
-"""EXPLAIN PLAN FOR: the logical plan as rows.
+"""EXPLAIN PLAN FOR and EXPLAIN ANALYZE: the logical plan as rows.
 
 Counterpart of pinot_tpu/engine/explain.py's ``explain_plan`` (the
 reference's ServerQueryExecutorV1Impl.processExplainPlanQueries renders
 the operator tree): the engine's shape dispatch, the filter tree with
 the index each predicate takes on a representative segment, the
 projected columns and, for the shapes the reference's device runs, the
-on-device trim. Every line equals the JAX package's but the backend
-label, which names what runs the query here: the card, in the
-reference's device shape or in its host path's shape (engine/rows.py).
-The port has no device partials cache, so no CACHED_PARTIALS line
-renders (the reference's line with the cache off); EXPLAIN ANALYZE and
-multi-stage plans come with later slices.
+on-device trim and the device partials cache's ``CACHED_PARTIALS`` line.
+Every line equals the JAX package's but the backend label, which names
+what runs the query here: the card, in the reference's device shape or
+in its host path's shape (engine/rows.py).
+
+``annotate_analyze`` renders EXPLAIN ANALYZE: the plan annotated with the
+executed response's actuals, then the ANALYZE subtree (rows, segments,
+the phase waterfall, one KERNEL line per roofline flight, the cache
+state), as the reference's. A flight's label names the port's kernels
+``+cuda`` where the reference names its Pallas tier ``+pallas``.
+Multi-stage plans come with a later slice.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import os
 
 import numpy as np
 
+from pinot_tpu_torch.common.options import bool_option
 from pinot_tpu_torch.engine.values import filter_operator_for
 from pinot_tpu_torch.query.context import FilterNode, FilterNodeType, \
     QueryContext
@@ -108,6 +114,89 @@ def _trim_line(engine, q: QueryContext, segs) -> str | None:
     return f"    DEVICE_REDUCE(trim={trim_keep_count(q, 'terminal')})"
 
 
+# the waterfall's phase buckets, by a span name's last dotted segment
+# (pinot_tpu/tools/querylog.py's, for the spans this engine records)
+_PHASE_LAST_SEGMENTS = {"gather": "gather", "kernel": "kernel",
+                        "link": "link", "merge": "reduce"}
+
+
+def phase_breakdown(trace_info: dict) -> dict:
+    """Per-phase ms of a response's traceInfo, summed across its spans."""
+    out: dict = {}
+    for spans in (trace_info or {}).values():
+        for s in spans or ():
+            bucket = _PHASE_LAST_SEGMENTS.get(s["phase"].rsplit(".", 1)[-1])
+            if bucket is not None:
+                out[bucket] = out.get(bucket, 0.0) + s["durationMs"]
+    return out
+
+
+def _kernel_line(rec: dict) -> str:
+    """One roofline flight → its KERNEL line: achieved GB/s against the
+    probed peak, modeled bytes, kernel and link time."""
+    label = rec.get("kernel", "kernel")
+    if rec.get("cacheHit"):
+        return f"    KERNEL({label}: CACHED_PARTIALS, linkMs={rec.get('linkMs')})"
+    gbps = rec.get("gbps")
+    pct = rec.get("pctOfPeak")
+    if gbps is None:
+        perf = "n/a"
+    elif pct is not None:
+        perf = (f"{gbps} GB/s ({pct}% of HBM peak {rec.get('peakGbps')} "
+                f"GB/s)")
+    else:
+        perf = f"{gbps} GB/s"
+    return (f"    KERNEL({label}: {perf}, bytes={rec.get('bytesMoved')}, "
+            f"kernelMs={rec.get('kernelMs')}, linkMs={rec.get('linkMs')})")
+
+
+def annotate_analyze(plan: dict, resp: dict) -> dict:
+    """EXPLAIN ANALYZE rendering: the plan's rows annotated with the
+    executed response's actuals (rows in / out on the reduce and the
+    combine, matched rows and blocks pruned on the root filter), then an
+    ANALYZE subtree with the segment counters, the phase waterfall, one
+    KERNEL line per roofline flight and the cache state."""
+    lines = [r[0] for r in plan["resultTable"]["rows"]]
+    nrows = len(((resp.get("resultTable") or {}).get("rows")) or [])
+    docs = resp.get("numDocsScanned")
+    filter_done = False
+    out = []
+    for ln in lines:
+        s = ln.strip()
+        if s.startswith("BROKER_REDUCE"):
+            ln += f" (actual: rows={nrows}, timeMs={resp.get('timeUsedMs')})"
+        elif s.startswith("COMBINE_"):
+            ln += f" (actual: in={docs} rows, out={nrows} rows)"
+        elif (s.startswith("FILTER_") and not filter_done
+              and not s.startswith("FILTER_MATCH_ENTIRE")
+              and docs is not None):
+            filter_done = True  # the ROOT filter node only
+            ln += (f" (actual: matched={docs} rows, "
+                   f"blocksPruned={resp.get('numBlocksPruned', 0)})")
+        out.append(ln)
+    out.append("  ANALYZE")
+    out.append(f"    ROWS(scanned={docs}, returned={nrows}, "
+               f"totalDocs={resp.get('totalDocs')})")
+    out.append(
+        "    SEGMENTS("
+        f"queried={resp.get('numSegmentsQueried')}, "
+        f"processed={resp.get('numSegmentsProcessed')}, "
+        f"matched={resp.get('numSegmentsMatched')}, "
+        f"prunedByServer={resp.get('numSegmentsPrunedByServer')}, "
+        f"prunedByBroker={resp.get('numSegmentsPrunedByBroker', 0)}, "
+        f"blocksPruned={resp.get('numBlocksPruned')})")
+    phases = phase_breakdown(resp.get("traceInfo") or {})
+    if phases:
+        out.append("    PHASE(" + ", ".join(
+            f"{k}={v:.2f}ms" for k, v in sorted(phases.items())) + ")")
+    for rec in resp.get("roofline") or ():
+        out.append(_kernel_line(rec))
+    out.append(
+        f"    CACHE(partialsCacheHit={bool(resp.get('partialsCacheHit'))}, "
+        f"resultCacheHit={bool(resp.get('resultCacheHit'))})")
+    return _rows_response(out)
+
+
 def explain_plan(engine, q: QueryContext) -> dict:
     aggs = q.aggregations()
     if q.distinct:
@@ -148,6 +237,11 @@ def explain_plan(engine, q: QueryContext) -> dict:
         line = _trim_line(engine, q, segs)
         if line is not None:
             lines.append(line)
+    dev = engine.device
+    if device_shape and dev.partials_cache_enabled \
+            and bool_option(q.options_ci(), "usepartialscache",
+                            None) is not False:
+        lines.append(f"    CACHED_PARTIALS(entries={len(dev._partials)})")
     if device_shape and segs \
             and os.environ.get("PINOT_TPU_WIDTH_AUDIT", "") not in ("", "0"):
         _width_lines(q, segs, lines)

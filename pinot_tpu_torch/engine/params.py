@@ -926,6 +926,12 @@ def _slot(params: dict, counter: list, arr, device, dtype=None) -> str:
         a = a.astype(np.float32)  # device columns are f32
     if a.dtype.kind not in "biuf":
         raise DeviceUnsupported(f"{a.dtype} literal in a device predicate")
+    sig = params.get("__hostsig__")
+    if sig is not None:
+        # the literal's host bytes, taken before upload, for the
+        # executor's partials-cache key (engine/device.py): hashing the
+        # device tensor would read it back
+        sig.append((key, a.dtype.str, a.shape, a.tobytes()))
     params[key] = to_device(a, device)
     return key
 
@@ -934,6 +940,10 @@ def plane_slot(params: dict, counter: list, plane: torch.Tensor) -> tuple:
     """A value plane the launch computed, as an expression template."""
     key = f"pr{counter[0]}"
     counter[0] += 1
+    sig = params.get("__hostsig__")
+    if sig is not None:
+        # a plane the launch computed has no host bytes: uncacheable
+        sig.append((key, None, None, None))
     params[key] = plane
     return ("val", key)
 

@@ -83,15 +83,13 @@ _DISTINCT_ALIASES = ("distinctcount", "distinctcountbitmap",
 
 
 class RowsLaunch:
-    """A dispatched host-shaped query: its device leaves, copied to the
-    host in one copy at fetch, and the step that turns them into the
-    canonical IntermediateResult."""
+    """A dispatched host-shaped query: its device leaves, which the
+    executor's handle copies to the host in one copy
+    (engine/device.py ``DeviceExecutor.launch``), and the step that turns
+    them into the canonical IntermediateResult: ``finish(host, ex)``."""
 
     def __init__(self, outs: dict, finish):
         self.outs, self.finish = outs, finish
-
-    def fetch(self, ex) -> IntermediateResult:
-        return self.finish(ex._to_host(self.outs), ex)
 
 
 @dataclasses.dataclass

@@ -158,15 +158,22 @@ def zone_verdict(tpl, cols, params, shape, widths=None):
     return v
 
 
+def cand_bound(total_blocks: int) -> int:
+    """The static candidate bound B = ceil(total_blocks / CAND_FRACTION),
+    at least 1 and at most every block."""
+    return min(total_blocks, max(1, -(-total_blocks // CAND_FRACTION)))
+
+
 def compact_candidates(flat_verdict, bound: int):
     """The True positions of a flat (total_blocks,) verdict, ascending, in
     a static bound: (candidate ids (bound,) int32, valid (bound,) bool).
     Padding candidates point at block 0 with valid=False; the caller
-    masks their rows out."""
-    total = flat_verdict.shape[0]
+    masks their rows out. A cohort's (M, total_blocks) verdicts compact
+    per member: (M, bound) each."""
+    total = flat_verdict.shape[-1]
     iota = torch.arange(total, dtype=torch.int32, device=flat_verdict.device)
     keyed = torch.where(flat_verdict, iota, torch.full_like(iota, total))
-    cand = torch.sort(keyed).values[:bound]
+    cand = torch.sort(keyed, dim=-1).values[..., :bound]
     valid = cand < total
     return torch.where(valid, cand, torch.zeros_like(cand)), valid
 

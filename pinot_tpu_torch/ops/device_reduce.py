@@ -194,15 +194,34 @@ def apply_trim(outs: dict, tr_k: torch.Tensor, template, spec,
     - every group-table leaf gathered to (T, ...) with neutral fills
       beyond ``trim_n``; the stat leaves unchanged.
     """
+    return _trim(outs, tr_k, template, spec, col_keys)
+
+
+def apply_trim_members(outs: dict, tr_k: torch.Tensor, template,
+                       spec) -> dict:
+    """``apply_trim`` for a cohort (engine/cohort.py): every group-table
+    leaf carries a leading member axis, (M, G, ...), and ``tr_k`` is (M,).
+    The M tables are laid end to end and sorted once with the member as
+    the primary key, so each member's rows keep the order, the ties and
+    the leaves its own ``apply_trim`` gives; outputs (M, T, ...)."""
+    return _trim(outs, tr_k, template, spec, members=outs["gcount"].shape[0])
+
+
+def _trim(outs: dict, tr_k, template, spec, col_keys=None, members=None):
     group_cards = template[3]
     T, order = spec
+    M = members or 1
+    lead = 1 if members else 0
     gcount = outs["gcount"]
-    G = gcount.shape[0]
+    G = gcount.shape[lead]
     dev = gcount.device
-    present = gcount > 0
-    n_present = present.sum(dtype=torch.int64)
-    slots = torch.arange(G, dtype=torch.int64, device=dev)
-    keys64 = outs["skeys"] if "skeys" in outs else slots
+    table = {k: v if k in STAT_KEYS
+             else v.reshape((M * G,) + tuple(v.shape[lead + 1:]))
+             for k, v in outs.items()}
+    gflat = table["gcount"]
+    present = gflat > 0
+    slots = torch.arange(G, dtype=torch.int64, device=dev).repeat(M)
+    keys64 = table["skeys"] if "skeys" in table else slots
 
     def col_component(j: int):
         stride = 1
@@ -215,6 +234,9 @@ def apply_trim(outs: dict, tr_k: torch.Tensor, template, spec,
 
     # empties last, then the ORDER BY keys; ties keep slot order
     keys = [(~present).to(torch.int64)]
+    if members:  # each member's rows apart, members in order
+        keys.insert(0, torch.arange(M, dtype=torch.int64,
+                                    device=dev).repeat_interleave(G))
     for ent in order:
         if ent[0] == "col":
             _tag, j, asc = ent
@@ -225,26 +247,28 @@ def apply_trim(outs: dict, tr_k: torch.Tensor, template, spec,
         else:
             _tag, i, field, asc = ent
             if field == "count":
-                k = gcount.to(torch.int64)
+                k = gflat.to(torch.int64)
             elif field == "sum":
-                k = f64(outs[f"a{i}_sum"])
+                k = f64(table[f"a{i}_sum"])
             elif field == "avg":
-                k = f64(outs[f"a{i}_sum"]) / f64(gcount)
+                k = f64(table[f"a{i}_sum"]) / f64(gflat)
             elif field == "min":
-                k = f64(outs[f"a{i}_min"])
+                k = f64(table[f"a{i}_min"])
             elif field == "max":
-                k = f64(outs[f"a{i}_max"])
+                k = f64(table[f"a{i}_max"])
             else:  # minmaxrange
-                k = f64(outs[f"a{i}_max"]) - f64(outs[f"a{i}_min"])
+                k = f64(table[f"a{i}_max"]) - f64(table[f"a{i}_min"])
         # descending: the host's negation (ints in int64, floats in f64;
         # slot components are non-negative, so negation is order-exact)
         keys.append(k if asc else -k)
-    perm = lexsort_perm(keys)[:T]
-    trim_n = torch.minimum(n_present, tr_k.to(torch.int64))
-    valid = torch.arange(T, dtype=torch.int64, device=dev) < trim_n
+    perm = lexsort_perm(keys).reshape(M, G)[:, :T]
+    n_present = present.reshape(M, G).sum(dim=1, dtype=torch.int64)
+    trim_n = torch.minimum(n_present, tr_k.reshape(-1).to(torch.int64))
+    valid = torch.arange(T, dtype=torch.int64, device=dev)[None, :] \
+        < trim_n[:, None]
 
     trimmed = {}
-    for name, v in outs.items():
+    for name, v in table.items():
         if name in STAT_KEYS:
             trimmed[name] = v
             continue
@@ -252,13 +276,14 @@ def apply_trim(outs: dict, tr_k: torch.Tensor, template, spec,
             continue  # replaced by trim_keys
         g = v[perm]
         fill = neutral_fill(name, torch.empty(0, dtype=g.dtype).numpy().dtype)
-        mask = valid.reshape((T,) + (1,) * (g.dim() - 1))
-        trimmed[name] = torch.where(
-            mask, g, torch.tensor(fill, dtype=g.dtype, device=dev))
+        mask = valid.reshape((M, T) + (1,) * (g.dim() - 2))
+        g = torch.where(mask, g, torch.tensor(fill, dtype=g.dtype, device=dev))
+        trimmed[name] = g if members else g[0]
     # a dense table's packed key is its slot: the permutation itself
-    trimmed["trim_keys"] = torch.where(
+    trim_keys = torch.where(
         valid, keys64[perm],
         torch.tensor(INT64_SENTINEL, dtype=torch.int64, device=dev))
-    trimmed["trim_n"] = trim_n
-    trimmed["n_present_total"] = n_present
+    trimmed["trim_keys"] = trim_keys if members else trim_keys[0]
+    trimmed["trim_n"] = trim_n if members else trim_n[0]
+    trimmed["n_present_total"] = n_present if members else n_present[0]
     return trimmed

@@ -30,7 +30,10 @@ reference uses XLA's.
 
 ``launches`` counts kernel launches per entry of this module, beside
 ``kernels.launches`` per kernel: K1 and K3 each replace two TPU kernels,
-and the entry says which one a launch stands for.
+and the entry says which one a launch stands for. Each entry has a
+``*_members`` twin over a leading member axis, one launch for a cohort of
+coalesced queries (engine/cohort.py), where the reference runs the same
+``pallas_call`` under ``jax.vmap``.
 """
 
 from __future__ import annotations
@@ -59,7 +62,9 @@ FUSED_BLOCK_ROWS = 4096  # rows per candidate block; the fused plan is only
 FUSED_MAX_IN = 8         # IN-list bound per predicate
 
 launches = {"plane_group_sums": 0, "group_minmax": 0, "hll_register_max": 0,
-            "fused_filter_agg": 0}
+            "fused_filter_agg": 0, "plane_group_sums_members": 0,
+            "group_minmax_members": 0, "hll_register_max_members": 0,
+            "fused_filter_agg_members": 0}
 
 
 def _hpad_total(num_groups: int) -> int:
@@ -92,6 +97,17 @@ def plane_group_sums(gid, sources, num_groups: int, *, count: bool = False,
         launches, "plane_group_sums", "group_plane_sums",
         kernels.group_plane_sums, gid.reshape(-1), sources, num_groups,
         count=count, span=span)
+
+
+def plane_group_sums_members(gid, sources, num_groups: int, *,
+                             count: bool = False, span: int | None = None):
+    """``plane_group_sums`` for a cohort: gid (M, n) int32, each member's
+    own ids; sources as ``kernels.group_plane_sums_members`` takes them.
+    Returns (M, A, num_groups) float64."""
+    return kernels.count_entry(
+        launches, "plane_group_sums_members", "group_plane_sums_members",
+        kernels.group_plane_sums_members, gid.reshape(gid.shape[0], -1),
+        sources, num_groups, count=count, span=span)
 
 
 _MINMAX_KERNEL_DTYPES = {
@@ -142,6 +158,16 @@ def group_minmax_sources(gid, sources, num_groups: int,
         sources, num_groups, span=span)
 
 
+def group_minmax_members(gid, sources, num_groups: int):
+    """``group_minmax_sources`` for a cohort: gid (M, n), each member's own
+    ids. Returns one tuple per source of one (M, num_groups) tensor per
+    op."""
+    return kernels.count_entry(
+        launches, "group_minmax_members", "group_minmax_members",
+        kernels.group_minmax_members,
+        gid.reshape(gid.shape[0], -1).to(torch.int32), sources, num_groups)
+
+
 def hll_supported(nslots: int, nrho: int) -> bool:
     """The reference's regime for its presence kernel: at most
     ``HLL_MAX_SLOTS`` slots, split into <= MAX_PARTITIONS accumulator
@@ -163,6 +189,17 @@ def hll_register_max(h, log2m: int, *, num_groups: int = 1, gid=None,
         kernels.hll_register_max, h.reshape(-1), log2m, num_groups,
         gid=None if gid is None else gid.reshape(-1),
         mask=None if mask is None else mask.reshape(-1), span=span)
+
+
+def hll_register_max_members(h, log2m: int, members: int, *,
+                             num_groups: int = 1, gid=None, mask=None):
+    """``hll_register_max`` for a cohort of ``members`` queries: h shared
+    or (M, n), gid / mask each member's own (M, n) or None. Returns (M,
+    num_groups << log2m) int32 registers."""
+    return kernels.count_entry(
+        launches, "hll_register_max_members", "hll_register_max_members",
+        kernels.hll_register_max_members, h, log2m, members, num_groups,
+        gid=gid, mask=mask)
 
 
 # ---------------------------------------------------------------------------
@@ -426,3 +463,23 @@ def fused_filter_agg(cand, rows_in_block, col_arrays: dict,
         launches, "fused_filter_agg", "fused_filter_agg",
         kernels.fused_filter_agg, cand.to(torch.int32).contiguous(),
         rows_in_block.to(torch.int32).contiguous(), *args)
+
+
+def fused_filter_agg_members(cand, rows_in_block, col_arrays: dict,
+                             param_arrays: dict, plan: FusedPlan):
+    """``fused_filter_agg`` for a cohort: ONE K4 launch for M members.
+    cand, rows_in_block: (M, B) each member's candidates; param_arrays:
+    {key: (M, K) or (M,) int32} each member's literals in storage space.
+    Returns (ints (M, B, ki) int32, flts (M, B, kf) float32 or None)."""
+    M = cand.shape[0]
+    first = {k: v[0] for k, v in param_arrays.items()}
+    cols, _lits, prog, aggs, ki, kf = lower_fused(plan, col_arrays, first)
+    pkeys = sorted(param_arrays)
+    lits = torch.cat([param_arrays[k].reshape(M, -1).to(torch.int32)
+                      for k in pkeys], dim=1) if pkeys \
+        else torch.zeros((M, 0), dtype=torch.int32, device=cand.device)
+    return kernels.count_entry(
+        launches, "fused_filter_agg_members", "fused_filter_agg_members",
+        kernels.fused_filter_agg_members, cand.to(torch.int32).contiguous(),
+        rows_in_block.to(torch.int32).contiguous(), cols, lits.contiguous(),
+        prog, aggs, ki, kf)

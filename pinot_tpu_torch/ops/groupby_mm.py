@@ -29,7 +29,8 @@ register-max kernel (ops/kernels.py, csrc/hll_register_max.cu), under
 the reference's routing predicate ``hll_supported``.
 
 ``launches`` counts kernel launches per entry of this module (see
-ops/group_scatter.py).
+ops/group_scatter.py), the ``*_members`` entries those of a cohort of
+coalesced queries (engine/cohort.py).
 """
 
 from __future__ import annotations
@@ -44,7 +45,8 @@ from pinot_tpu_torch.ops.kernels import float_planes, int_planes  # noqa: F401
 MAX_CHANNELS = 15       # + the count channel
 MAX_ACC_CELLS = 1 << 21  # the reference's VMEM accumulator bound: A * hpad * 128
 
-launches = {"group_sums": 0, "hll_registers": 0}
+launches = {"group_sums": 0, "hll_registers": 0, "group_sums_members": 0,
+            "hll_registers_members": 0}
 
 
 def _plan_lo(num_groups: int, a_real: int, ones_first: bool) -> int:
@@ -85,6 +87,17 @@ def group_sums(gid, sources, num_groups: int, *, count: bool = False):
         gid.reshape(-1), sources, num_groups, count=count)
 
 
+def group_sums_members(gid, sources, num_groups: int, *,
+                       count: bool = False):
+    """``group_sums`` for a cohort: gid (M, n) int32, each member's own
+    ids; sources as ``kernels.group_plane_sums_members`` takes them.
+    Returns (M, A, num_groups) float64."""
+    return kernels.count_entry(
+        launches, "group_sums_members", "group_plane_sums_members",
+        kernels.group_plane_sums_members, gid.reshape(gid.shape[0], -1),
+        sources, num_groups, count=count)
+
+
 def hll_nrho(log2m: int) -> int:
     """Max rho value: clz over (32 - log2m) value bits + 1 (sentinel caps)."""
     return 32 - log2m + 1
@@ -108,6 +121,18 @@ def hll_registers(h, gid, num_groups: int, log2m: int, *, mask=None):
         gid=None if gid is None else gid.reshape(-1),
         mask=None if mask is None else mask.reshape(-1))
     return regs.reshape(num_groups, 1 << log2m)
+
+
+def hll_registers_members(h, gid, members: int, num_groups: int,
+                          log2m: int, *, mask=None):
+    """``hll_registers`` for a cohort of ``members`` queries: h shared or
+    (M, n), gid / mask each member's own (M, n) or None. Returns (M,
+    num_groups, m) int32."""
+    regs = kernels.count_entry(
+        launches, "hll_registers_members", "hll_register_max_members",
+        kernels.hll_register_max_members, h, log2m, members, num_groups,
+        gid=gid, mask=mask)
+    return regs.reshape(members, num_groups, 1 << log2m)
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,11 @@ into one shared library each, with a plain C interface, under
 source, all started together — and bound with ``ctypes``. Nothing is
 built when the module is imported.
 
+K1-K4 each have a second entry over a leading member axis
+(``*_members``): M queries of one template at once, the cohort of
+coalesced launches (engine/cohort.py), one launch for all of them. Its
+plain version is the solo plain version once per member.
+
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with torch, launches on the current CUDA stream, raises when the
 launch reports an error, and adds one to ``launches[name]``. A wrapper
@@ -25,6 +30,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -55,9 +61,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # -Xptxas -v, every kernel's registers, shared memory and spills
 build_log: dict = {}
 
-# launches per kernel, counted where the wrapper launches it and nowhere
-# else (chip_smoke.py zeroes them before driving the main path)
-launches = {name: 0 for name in SOURCES}
+# the member-axis entries, by the library (source) that holds each
+MEMBER_ENTRIES = {
+    "group_plane_sums_members": "group_plane_sums",
+    "group_minmax_members": "group_minmax",
+    "hll_register_max_members": "hll_register_max",
+    "fused_filter_agg_members": "fused_filter_agg",
+}
+
+# launches per kernel entry, counted where the wrapper launches it and
+# nowhere else (chip_smoke.py zeroes them before driving the main path)
+launches = {name: 0 for name in (*SOURCES, *MEMBER_ENTRIES)}
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -69,6 +83,14 @@ _ARGTYPES = {  # the C signatures at the end of each csrc/*.cu
     "hll_register_max": [_vp, _vp, _vp, _i64, _i32, _i32, _i32, _vp, _vp],
     "fused_filter_agg": [_vp, _vp, _i32, _i32, _vp, _vp, _vp, _vp],
     "cluster_sums": [_vp, _vp, _i64, _vp, _vp],
+    "group_plane_sums_members": [_vp, _vp, _vp, _i64, _i32, _i64, _i32, _i32,
+                                 _i64, _i32, _vp, _vp],
+    "group_minmax_members": [_vp, _vp, _vp, _i64, _i32, _i64, _i32, _i32,
+                             _i32, _i64, _vp],
+    "hll_register_max_members": [_vp, _vp, _vp, _i64, _i32, _i64, _i64, _i64,
+                                 _i32, _i32, _i32, _vp, _vp],
+    "fused_filter_agg_members": [_vp, _vp, _i32, _i32, _i32, _vp, _i64, _vp,
+                                 _vp, _vp],
 }
 
 
@@ -120,17 +142,22 @@ def build_all() -> float:
 
 
 def _lib(name: str):
+    """The library of ``name`` (a source, or a member-axis entry of one),
+    built and loaded at first use, its entry points typed."""
+    src = MEMBER_ENTRIES.get(name, name)
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(src)
         if lib is None:
-            path = _lib_path(name)
+            path = _lib_path(src)
             if not os.path.exists(path):
                 build_all()
             lib = ctypes.CDLL(path)
-            fn = getattr(lib, name)
-            fn.argtypes = _ARGTYPES[name]
-            fn.restype = ctypes.c_int
-            _libs[name] = lib
+            for fname in (src, *(e for e, s in MEMBER_ENTRIES.items()
+                                 if s == src)):
+                fn = getattr(lib, fname)
+                fn.argtypes = _ARGTYPES[fname]
+                fn.restype = ctypes.c_int
+            _libs[src] = lib
         return lib
 
 
@@ -288,6 +315,13 @@ class _PlaneSumsDesc(ctypes.Structure):
                 ("flt_out", ctypes.c_int32 * K1_MAX_ROWS),
                 ("n_src", ctypes.c_int32), ("count", ctypes.c_int32),
                 ("n_int", ctypes.c_int32), ("n_flt", ctypes.c_int32)]
+
+
+class _PlaneStrides(ctypes.Structure):
+    """struct MemberStrides of csrc/group_plane_sums.cu: per source, the
+    member stride of its values (elements) and of its query offset."""
+    _fields_ = [("vstride", ctypes.c_int64 * K1_MAX_SOURCES),
+                ("minus_mstride", ctypes.c_int32 * K1_MAX_SOURCES)]
 
 
 def _k1_dtype(src: PlaneSource) -> int:
@@ -521,6 +555,12 @@ class _MinMaxDesc(ctypes.Structure):
                 ("fill", ctypes.c_int32 * K2_MAX_CELLS),
                 ("op", ctypes.c_int32 * K2_MAX_CELLS),
                 ("n_src", ctypes.c_int32), ("n_cells", ctypes.c_int32)]
+
+
+class _MinMaxStrides(ctypes.Structure):
+    """struct MemberStrides of csrc/group_minmax.cu: per source, the member
+    stride of its values (elements)."""
+    _fields_ = [("vstride", ctypes.c_int64 * K2_MAX_SOURCES)]
 
 
 def minmax_cells(sources):
@@ -856,6 +896,324 @@ def fused_filter_agg(cand, rows_in, cols, lits, prog, aggs, ki: int,
             _stream(cand.device))
         _raise_on("fused_filter_agg", rc)
         launches["fused_filter_agg"] += 1
+    return ints, flts
+
+
+# ---------------------------------------------------------------------------
+# member-axis entries of K1-K4: one launch for a cohort of M queries
+# ---------------------------------------------------------------------------
+
+
+def _member_view(t, M: int, n: int, name: str):
+    """(flat view, member stride in elements) of a member-axis operand:
+    ``n`` elements shared by every member (stride 0) or ``M * n``, member
+    m's at m * n."""
+    if t.numel() == n:
+        return t.reshape(-1), 0
+    if t.numel() == M * n:
+        return t.reshape(-1), n
+    raise ValueError(f"{name}: an operand of {tuple(t.shape)} for {M} "
+                     f"members of {n} rows")
+
+
+def _member_slice(t, m: int, M: int, n: int):
+    """Member ``m``'s (n,) rows of a member-axis operand (shared or not)."""
+    flat = t.reshape(-1)
+    return flat if flat.numel() == n else flat[m * n:(m + 1) * n]
+
+
+def _member_scalar(t, m: int):
+    """Member ``m``'s 0-d value of a shared (1 element) or per-member (M,)
+    offset tensor."""
+    if t is None:
+        return None
+    flat = t.reshape(-1)
+    return flat[0] if flat.numel() == 1 else flat[m]
+
+
+def _member_aligned(t, stride: int):
+    """``_aligned`` for a member-axis operand: every member's rows must
+    start on 16 bytes too."""
+    if t.data_ptr() % 16 == 0 and (stride * t.element_size()) % 16 == 0:
+        return t, stride
+    if stride == 0:
+        return t.clone(), 0
+    # pad each member's rows to a 16-byte multiple
+    M = t.numel() // stride
+    per = 16 // math.gcd(16, t.element_size())
+    padded = -(-stride // per) * per
+    out = torch.zeros((M, padded), dtype=t.dtype, device=t.device)
+    out[:, :stride] = t.reshape(M, stride)
+    return out.reshape(-1), padded
+
+
+def group_plane_sums_members_plain(gid, sources, num_groups: int,
+                                   count: bool = False):
+    """Plain version of K1's member-axis entry: the solo plain version
+    once per member. Returns (M, A, num_groups) float64."""
+    M = gid.shape[0]
+    n = gid[0].numel() if M else 0
+    return torch.stack([group_plane_sums_plain(
+        gid[m].reshape(-1),
+        [dataclasses.replace(s, values=_member_slice(s.values, m, M, n),
+                             minus=_member_scalar(s.minus, m))
+         for s in sources], num_groups, count) for m in range(M)])
+
+
+def group_plane_sums_members(gid, sources, num_groups: int,
+                             count: bool = False, span: int | None = None,
+                             seg_rows: int | None = None):
+    """K1 over a leading member axis. gid: (M, n) int32, each member's own
+    ids; sources: PlaneSource whose values are n elements shared by every
+    member (a stored plane) or M * n (each member's own, member-major),
+    whose ``plus`` is one 0-d offset and whose ``minus`` is 0-d (shared)
+    or (M,) int64 (each member's). Returns (M, A, num_groups) float64,
+    member m's rows those of the solo entry over its operands."""
+    offsets = [t for s in sources for t in (s.plus, s.minus) if t is not None]
+    tensors = (gid, *(s.values for s in sources), *offsets)
+    if all(t.device.type == "cpu" for t in tensors):
+        return group_plane_sums_members_plain(gid, sources, num_groups, count)
+    _check_cuda("group_plane_sums_members", *tensors)
+    if gid.dtype != torch.int32 or gid.dim() < 1:
+        raise TypeError("group_plane_sums_members takes (M, n) int32 ids, "
+                        f"got {gid.dtype} {tuple(gid.shape)}")
+    M = gid.shape[0]
+    n = gid[0].numel() if M else 0
+    g, gstride = _member_aligned(gid.reshape(-1), n)
+    srcs, vstrides, mstrides = [], [], []
+    for s in sources:
+        v, vs = _member_view(s.values, M, n, "group_plane_sums_members")
+        v, vs = _member_aligned(v, vs)
+        if s.plus is not None and s.plus.numel() != 1:
+            raise ValueError("group_plane_sums_members: one FOR offset")
+        ms = 0
+        if s.minus is not None:
+            if s.minus.numel() not in (1, M):
+                raise ValueError("group_plane_sums_members: offsets of "
+                                 f"{tuple(s.minus.shape)} for {M} members")
+            ms = int(s.minus.numel() == M and M > 1)
+        srcs.append(dataclasses.replace(
+            s, values=v, minus=None if s.minus is None
+            else s.minus.reshape(-1).contiguous()))
+        vstrides.append(vs)
+        mstrides.append(ms)
+    desc = lower_plane_sums(srcs, count)
+    strides = _PlaneStrides()
+    for j, (vs, ms) in enumerate(zip(vstrides, mstrides)):
+        strides.vstride[j] = vs
+        strides.minus_mstride[j] = ms
+    A = desc.n_int + desc.n_flt
+    out = torch.zeros((M, A, num_groups), dtype=torch.float64,
+                      device=gid.device)
+    if M == 0 or n == 0 or num_groups == 0 or A == 0:
+        return out
+    full = plane_span(desc.n_int, desc.n_flt)
+    span = min(span or full, full)
+    seg = max(4, min(seg_rows or INT32_MAX, flush_rows(srcs)) // 4 * 4)
+    rc = _lib("group_plane_sums_members").group_plane_sums_members(
+        g.data_ptr(), ctypes.addressof(desc), ctypes.addressof(strides), n, M,
+        gstride, num_groups, span, seg, PERSISTENT_SMEM_BYTES, out.data_ptr(),
+        _stream(gid.device))
+    _raise_on("group_plane_sums_members", rc)
+    launches["group_plane_sums_members"] += 1
+    return out
+
+
+def group_minmax_members_plain(gid, sources, num_groups: int):
+    """Plain version of K2's member-axis entry: the solo plain version
+    once per member. Returns one tuple per source of one (M, num_groups)
+    tensor per op."""
+    M = gid.shape[0]
+    n = gid[0].numel() if M else 0
+    per = [group_minmax_plain(
+        gid[m].reshape(-1),
+        [dataclasses.replace(s, values=_member_slice(s.values, m, M, n))
+         for s in sources], num_groups) for m in range(M)]
+    return tuple(tuple(torch.stack([per[m][j][k] for m in range(M)])
+                       for k in range(len(s.ops)))
+                 for j, s in enumerate(sources))
+
+
+def group_minmax_members(gid, sources, num_groups: int,
+                         span: int | None = None):
+    """K2 over a leading member axis: gid (M, n) int32, each member's own
+    ids; sources: MinMaxSource whose values are n elements shared by every
+    member or M * n (each member's own). Returns one tuple per source of
+    one (M, num_groups) tensor per op."""
+    offsets = [s.plus for s in sources if s.plus is not None]
+    tensors = (gid, *(s.values for s in sources), *offsets)
+    if all(t.device.type == "cpu" for t in tensors):
+        return group_minmax_members_plain(gid, sources, num_groups)
+    _check_cuda("group_minmax_members", *tensors)
+    if gid.dtype != torch.int32 or gid.dim() < 1:
+        raise TypeError("group_minmax_members takes (M, n) int32 ids, got "
+                        f"{gid.dtype} {tuple(gid.shape)}")
+    if not sources or any(t.numel() != 1 for t in offsets):
+        raise ValueError("group_minmax_members: sources and 0-d offsets")
+    M = gid.shape[0]
+    n = gid[0].numel() if M else 0
+    g, gstride = _member_aligned(gid.reshape(-1), n)
+    srcs, vstrides = [], []
+    for s in sources:
+        v, vs = _member_view(s.values, M, n, "group_minmax_members")
+        v, vs = _member_aligned(v, vs)
+        srcs.append(dataclasses.replace(s, values=v))
+        vstrides.append(vs)
+    cells = minmax_cells(srcs)
+    keys = torch.empty((M, len(cells), num_groups), dtype=torch.int32,
+                       device=gid.device)
+    if M:
+        desc = lower_minmax(srcs, list(keys[0]))
+        strides = _MinMaxStrides()
+        for j, vs in enumerate(vstrides):
+            strides.vstride[j] = vs
+        if num_groups:
+            full = PERSISTENT_SMEM_BYTES // (4 * len(cells))
+            rc = _lib("group_minmax_members").group_minmax_members(
+                g.data_ptr(), ctypes.addressof(desc),
+                ctypes.addressof(strides), n, M, gstride, num_groups,
+                min(span or full, full), PERSISTENT_SMEM_BYTES,
+                len(cells) * num_groups, _stream(gid.device))
+            _raise_on("group_minmax_members", rc)
+            launches["group_minmax_members"] += 1
+    res, c = [], 0
+    for s in srcs:
+        res.append(tuple(_from_keys(keys[:, c + k], s.dtype).to(s.dtype)
+                         for k in range(len(s.ops))))
+        c += len(s.ops)
+    return tuple(res)
+
+
+def hll_register_max_members_plain(h, log2m: int, members: int,
+                                   num_groups: int = 1, gid=None, mask=None):
+    """Plain version of K3's member-axis entry: the solo plain version
+    once per member. Returns (M, num_groups << log2m) int32."""
+    M = members
+    # gid and mask are each member's own: they give the rows per member,
+    # as in the kernel's wrapper
+    given = [t for t in (gid, mask) if t is not None]
+    n = (given[0].numel() if given else h.numel()) // max(M, 1)
+    return torch.stack([hll_register_max_plain(
+        _member_slice(h, m, M, n), log2m, num_groups,
+        None if gid is None else _member_slice(gid, m, M, n),
+        None if mask is None else _member_slice(mask, m, M, n))
+        for m in range(M)])
+
+
+def hll_register_max_members(h, log2m: int, members: int, num_groups: int = 1,
+                             gid=None, mask=None, span: int | None = None):
+    """K3 over a leading member axis: each of h (int32 hash bits), gid
+    (int32) and mask (bool) is n elements shared by every member or
+    (members, n), each member's own; gid and mask, when given, are each
+    member's own (members, n), and may be None as on the solo entry.
+    Returns (members, num_groups << log2m) int32 registers."""
+    M = members
+    given = [t for t in (gid, mask) if t is not None]
+    if all(t.device.type == "cpu" for t in (h, *given)):
+        return hll_register_max_members_plain(h, log2m, M, num_groups, gid,
+                                              mask)
+    _check_cuda("hll_register_max_members", h, *given)
+    if h.dtype != torch.int32 \
+            or (gid is not None and gid.dtype != torch.int32) \
+            or (mask is not None and mask.dtype != torch.bool):
+        raise TypeError("hll_register_max_members takes int32 hashes and ids "
+                        f"and a bool mask, got {[t.dtype for t in (h, *given)]}")
+    if not 4 <= log2m <= 16:
+        raise ValueError(f"hll_register_max_members: log2m {log2m} outside "
+                         "[4, 16]")
+    # gid and mask are each member's own: they give the rows per member
+    n = (given[0].numel() if given else h.numel()) // max(M, 1)
+    views = []
+    for t in (h, gid, mask):
+        if t is None:
+            views.append((None, 0))
+            continue
+        v, st = _member_view(t, M, n, "hll_register_max_members")
+        views.append(_member_aligned(v, st))
+    (hv, hs), (gv, gs), (mv, ms) = views
+    nslots = num_groups << log2m
+    out = torch.zeros((M, nslots), dtype=torch.int32, device=h.device)
+    if M and n and nslots:
+        span = min(span or HLL_SPAN, HLL_SPAN)
+        rc = _lib("hll_register_max_members").hll_register_max_members(
+            hv.data_ptr(), None if gv is None else gv.data_ptr(),
+            None if mv is None else mv.data_ptr(), n, M, hs, gs, ms, log2m,
+            num_groups, span, out.data_ptr(), _stream(h.device))
+        _raise_on("hll_register_max_members", rc)
+        launches["hll_register_max_members"] += 1
+    return out
+
+
+def fused_filter_agg_members_plain(cand, rows_in, cols, lits, prog, aggs,
+                                   ki: int, kf: int):
+    """Plain version of K4's member-axis entry: the solo plain version
+    once per member. Returns (ints (M, B, ki), flts (M, B, kf) or None)."""
+    per = [fused_filter_agg_plain(cand[m], rows_in[m], cols, lits[m], prog,
+                                  aggs, ki, kf) for m in range(cand.shape[0])]
+    ints = torch.stack([p[0] for p in per]) if per else \
+        torch.zeros((0, cand.shape[1], ki), dtype=torch.int32,
+                    device=cand.device)
+    flts = torch.stack([p[1] for p in per]) if kf and per else None
+    return ints, flts
+
+
+def fused_filter_agg_members(cand, rows_in, cols, lits, prog, aggs, ki: int,
+                             kf: int):
+    """K4 over a leading member axis: cand, rows_in (M, B) int32, each
+    member's candidates; lits (M, P) int32, each member's literal table;
+    the planes and the program shared. Returns (ints (M, B, ki) int32,
+    flts (M, B, kf) float32 or None)."""
+    if cand.device.type == "cpu":
+        return fused_filter_agg_members_plain(cand, rows_in, cols, lits, prog,
+                                              aggs, ki, kf)
+    _check_cuda("fused_filter_agg_members", cand, rows_in, lits, *cols)
+    if cand.dtype != torch.int32 or rows_in.dtype != torch.int32 \
+            or lits.dtype != torch.int32:
+        raise TypeError("fused_filter_agg_members takes int32 candidates, "
+                        "rows and literals")
+    if any(c.dtype not in _FUSED_DTYPES for c in cols):
+        raise TypeError("fused_filter_agg_members planes: "
+                        f"{[str(c.dtype) for c in cols]}")
+    R = cols[0].shape[1] if cols else 0
+    if cand.dim() != 2 or rows_in.shape != cand.shape or lits.dim() != 2 \
+            or lits.shape[0] != cand.shape[0] \
+            or any(c.dim() != 2 or c.shape[1] != R for c in cols):
+        raise ValueError("fused_filter_agg_members shapes: cand "
+                         f"{tuple(cand.shape)}, rows {tuple(rows_in.shape)}, "
+                         f"lits {tuple(lits.shape)}, planes "
+                         f"{[tuple(c.shape) for c in cols]}")
+    if not cols or len(cols) > FUSED_MAX_COLS or len(prog) > FUSED_MAX_PROG \
+            or len(aggs) > FUSED_MAX_AGGS or lits.shape[1] > FUSED_MAX_LITS:
+        raise ValueError("fused_filter_agg_members program past the "
+                         "descriptor's bounds")
+    cols = [c if c.data_ptr() % 16 == 0 else c.clone() for c in cols]
+    M, B = cand.shape
+    P = lits.shape[1]
+    desc = _FusedDesc()
+    for j, c in enumerate(cols):
+        desc.cols[j] = c.data_ptr()
+        desc.dtypes[j] = _FUSED_DTYPES[c.dtype]
+    lit_buf = lits if lits.numel() else torch.zeros(1, dtype=torch.int32,
+                                                    device=cand.device)
+    desc.lits = lit_buf.data_ptr()
+    desc.n_cols, desc.n_prog, desc.n_aggs = len(cols), len(prog), len(aggs)
+    desc.n_lits, desc.ki, desc.kf = P, ki, kf
+    for j, ins in enumerate(prog):
+        desc.prog[j] = _Instr(*ins)
+    for j, (op, col, is_float, slot, fill) in enumerate(aggs):
+        dt = torch.float32 if is_float else torch.int32
+        fk = 0 if op == AGG_OPS["sum"] else _fill_key(fill, dt)
+        desc.aggs[j] = _Agg(op, col, int(is_float), slot, fk)
+    ints = torch.zeros((M, B, ki), dtype=torch.int32, device=cand.device)
+    flts = torch.zeros((M, B, kf), dtype=torch.float32, device=cand.device) \
+        if kf else None
+    if M and B:
+        rc = _lib("fused_filter_agg_members").fused_filter_agg_members(
+            cand.data_ptr(), rows_in.data_ptr(), B, M, R,
+            ctypes.addressof(desc), P, ints.data_ptr(),
+            flts.data_ptr() if kf else None, _stream(cand.device))
+        _raise_on("fused_filter_agg_members", rc)
+        launches["fused_filter_agg_members"] += 1
     return ints, flts
 
 

@@ -50,7 +50,7 @@ def in_dict(ids, id_vector):
     ids, vec = _same(ids, id_vector)
     m = ids == vec[0]
     for k in range(1, vec.shape[0]):
-        m |= ids == vec[k]
+        m = m | (ids == vec[k])
     return m
 
 
@@ -78,19 +78,20 @@ def in_raw(values, literals):
     v, lit = _same(values, literals)
     m = v == lit[0]
     for k in range(1, lit.shape[0]):
-        m |= v == lit[k]
+        m = m | (v == lit[k])
     return m
 
 
 def range_raw(values, lower, upper, lower_inclusive: bool,
               upper_inclusive: bool, has_lower: bool, has_upper: bool):
     """Static inclusivity/boundedness (part of the template); bounds are
-    0-d tensors."""
+    0-d tensors. Out-of-place, so a cohort's stacked bounds
+    (engine/cohort.py, under ``torch.func.vmap``) broadcast the mask."""
     m = torch.ones(values.shape, dtype=torch.bool, device=values.device)
     if has_lower:
         v, lo = _same(values, lower)
-        m &= (v >= lo) if lower_inclusive else (v > lo)
+        m = m & ((v >= lo) if lower_inclusive else (v > lo))
     if has_upper:
         v, hi = _same(values, upper)
-        m &= (v <= hi) if upper_inclusive else (v < hi)
+        m = m & ((v <= hi) if upper_inclusive else (v < hi))
     return m

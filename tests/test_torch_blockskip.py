@@ -194,6 +194,9 @@ def _engines(dirs):
     ref = RefEngine(device_executor=RefExecutor(mm_mode="interpret"))
     port = QueryEngine(device="cpu")
     port.device.min_rows = 0
+    # the route spies watch a repeat's launch: it must not be served from
+    # the device partials cache
+    port.device.partials_cache_enabled = False
     for d in dirs:
         ref.add_segment("t", RefSegment(d))
         port.add_segment("t", ImmutableSegment(d))

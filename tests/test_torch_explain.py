@@ -5,9 +5,10 @@ inverted index, raw metrics) go into both engines. Every EXPLAIN row
 must equal the reference's but the backend label, which names what runs
 the query in the port: the card, in the reference's device shape
 (``DEVICE(torch/cuda)``) where the reference's device runs it, else in
-its host path's shape. The reference's device partials cache is off for
-the comparison: the port has none (ROADMAP queue 3). ``supports`` equals
-the reference's static check; EXPLAIN ANALYZE is refused in-band.
+its host path's shape. Both engines' device partials caches are off for
+the comparison, so neither renders a CACHED_PARTIALS line. ``supports``
+equals the reference's static check; EXPLAIN ANALYZE of a multi-stage
+query is refused in-band.
 """
 
 import numpy as np
@@ -91,6 +92,7 @@ def engines(segment_dirs):
     ref = RefEngine(device_executor=RefExecutor(mm_mode="interpret"))
     ref.device.partials_cache_enabled = False
     port = QueryEngine(device="cpu")
+    port.device.partials_cache_enabled = False
     for d in segment_dirs:
         ref.add_segment("t", RefSegment(d))
         port.add_segment("t", ImmutableSegment(d))
@@ -143,11 +145,15 @@ def test_supports_is_the_references_check(engines, sql):
 
 
 def test_explain_analyze_is_refused_in_band(engines):
+    """EXPLAIN ANALYZE of a multi-stage query is refused in-band: the
+    multi-stage engine comes with a later slice (single-stage ANALYZE is
+    tests/test_torch_xray.py's)."""
     _ref, port = engines
-    resp = port.execute("EXPLAIN ANALYZE SELECT COUNT(*) FROM t")
+    resp = port.execute("EXPLAIN ANALYZE SELECT a.qty FROM t a JOIN t b "
+                        "ON a.grp = b.grp")
     (exc,) = resp["exceptions"]
     assert exc["message"].startswith("DeviceUnsupported")
-    assert "item i" in exc["message"]
+    assert "item l" in exc["message"]
 
 
 def test_explain_plan_mentions_the_filter_operator(engines):

@@ -176,9 +176,11 @@ def table_dirs(tmp_path_factory):
 
 def _engines(dirs, table):
     ref = RefEngine(device_executor=RefExecutor(mm_mode="interpret"))
-    # the port has no device partials cache (ROADMAP queue 3)
+    # both engines' partials caches off: EXPLAIN renders no CACHED_PARTIALS
+    # line, whose entry count would depend on the queries run before
     ref.device.partials_cache_enabled = False
     port = QueryEngine(device="cpu")
+    port.device.partials_cache_enabled = False
     port.device.min_rows = 0
     for d in dirs:
         ref.add_segment(table, RefSegment(d))

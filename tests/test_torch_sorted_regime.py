@@ -273,6 +273,7 @@ def test_explain_renders_the_reference_rows(at_6000):
     included, but the backend label (ROADMAP queue 3)."""
     port, ref = at_6000
     ref.device.partials_cache_enabled = False
+    port.device.partials_cache_enabled = False
     for sql in (SQL, "SELECT u, i, COUNT(*) FROM bc WHERE u < 10 "
                      "GROUP BY u, i LIMIT 10",
                 "SELECT u, i, DISTINCTCOUNTHLL(v) FROM bc GROUP BY u, i "
