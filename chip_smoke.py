@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (pinot_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py                      # the full run: 8 x 12.5M rows
-    python3 chip_smoke.py --rows 400000 --event-rows 100000  # a rehearsal
+    python3 chip_smoke.py --rows 400000 --event-rows 100000 \
+        --rt-rows 300000 --rt-more 50000 --up-rows 100000  # a rehearsal
 
 Phases, all on ``cuda:0``:
 
@@ -164,6 +165,39 @@ Phases, all on ``cuda:0``:
    Then the cost block-skip eligibility adds to the unsorted
    table's filtered queries (the zone verdict and one scalar read before
    the dense form): p50 with and without ``SET useBlockSkip = false``.
+   The thirteenth path, ``realtime`` (run before ``serving``; its
+   queries ``RT_QUERIES``), at Pinot's documented realtime defaults on
+   one server: ``lineorder_rt`` is lineorder's 8 sealed segments (the
+   same objects, so the same device batch) and one consuming segment of
+   ``--rt-rows`` (5,000,000, ``realtime.segment.flush.threshold.rows``)
+   rows from the generator under seed 71, sorted by lo_orderdate as a
+   stream delivers them, every 997th without lo_discount (its null
+   default), indexed through ``consume_stream_batches`` in 8,192-row
+   fetches, one ``index_batch`` and a chunklet promotion each
+   (``ChunkletConfig``'s defaults: 65,536-row chunklets, 262,144 frozen
+   rows before the split applies): 76 chunklets and a 19,264-row tail,
+   rows a second printed. ``lineorder_up`` is a FULL-upsert table on
+   ``lo_orderkey`` (1,000,000 keys drawn with repeats), comparison column
+   lo_orderdate, behind the port's ``RealtimeTableDataManager``: two
+   committed segments of ``--up-rows`` rows named in its checkpoint
+   (written in the pool; the restart path replays their keys and
+   publishes them, masks and all), then the consuming segment fed as JSON
+   from the in-memory stream, a row at a time through the primary-key
+   CAS. K1-K4 are held against their plain versions at the path's
+   captured inputs (``check_realtime_kernels``: the sealed batch, the
+   chunklet batch and the masked segments in the host path's shape).
+   The path's queries (q1, q2, a month in K4's fused form, q4's HLL forms,
+   q6, COUNT(*), IS NULL, a selection ORDER BY; q1's and q6's shapes and
+   COUNT(*) on lineorder_up) must equal a numpy oracle over all the rows
+   (latest-wins for the upsert table), stats included. Then each query's
+   launches by part (sealed batch, chunklet batch, tail, masked sealed,
+   dirty chunklet, a consuming segment run whole) with a traced run's
+   device time and busy share; the tail alone in the host path's shape;
+   ``--rt-more`` (500,000) more rows indexed by a writer thread while q1
+   and COUNT(*) / SUM run 20 times each, every answer equal to the
+   oracle at one published count between the counts read before and
+   after it; and an update wave of 10 % of lineorder_up's keys, after
+   which its answers follow the new masks.
    The twelfth path, ``serving``, over lineorder and lineorder_by_date
    (the eleven paths run with the device partials cache off, so their
    repeats run the kernels): four cohorts (``SERVE_COHORTS``), each
@@ -581,6 +615,11 @@ SERVE_K4_RANGES = ((19930301, 19930328), (19940401, 19940428),
                    (19930101, 19961231))
 SERVE_K4_FILTERS = {f"serve_k4_{lo}": ("range", "lo_orderdate", lo, hi)
                     for lo, hi in SERVE_K4_RANGES}
+
+
+def table_segs(eng, name: str) -> list:
+    """The segments a port engine's table holds, in the order added."""
+    return list(eng.tables[name].segments.values())
 
 
 def _serve_sql(template: str, old: str, new: str) -> str:
@@ -2970,13 +3009,18 @@ def k3_captured(engine, sql: str, label: str, mm) -> dict:
     """K3 through ``groupby_mm.hll_registers`` at the hash plane and group
     ids ``sql`` hands it, captured at the entry and held against its
     plain version, bit for bit."""
+    (args, kw), = capture_calls(engine, sql, mm, "hll_registers")
+    h, gid, G, log2m = args
+    return k3_held(h, gid, G, log2m, kw.get("mask"), label, mm)
+
+
+def k3_held(h, gid, G: int, log2m: int, mask, label: str, mm) -> dict:
+    """K3 at one captured input of ``groupby_mm.hll_registers`` against
+    its plain version, bit for bit, with its times and bound."""
     import torch
     from pinot_tpu_torch.ops import hll as hll_ops
     from pinot_tpu_torch.ops import kernels
 
-    (args, kw), = capture_calls(engine, sql, mm, "hll_registers")
-    h, gid, G, log2m = args
-    mask = kw.get("mask")
     got = mm.hll_registers(h, gid, G, log2m, mask=mask).reshape(-1)
     want = kernels.hll_register_max_plain(h, log2m, G, gid, mask)
     torch.cuda.synchronize()
@@ -3787,7 +3831,7 @@ def overflow_cost(engine, runs: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def profile_query(engine, name: str, sql: str, top: int = 8) -> None:
+def profile_query(engine, name: str, sql: str, top: int = 8) -> tuple:
     """One traced run: wall time, the summed device time of its kernels
     (their share of the wall time is the device's busy share, kernels not
     overlapping on one stream) and the operations that took most of it."""
@@ -3820,6 +3864,7 @@ def profile_query(engine, name: str, sql: str, top: int = 8) -> None:
     log(f"profile {name}: wall {wall_ms:.3f} ms, device {dev_ms:.3f} ms "
         f"(busy {dev_ms / wall_ms:.1%}); top device ms: {parts}; traced "
         f"host ops {host_ms:.3f} ms, top host ms: {hparts}")
+    return wall_ms, dev_ms
 
 
 # aten ops that only make a view or read metadata of their input
@@ -4003,6 +4048,639 @@ def check_device_reduce(engine, want: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the realtime path: a consuming segment beside lineorder's sealed ones
+# (lineorder_rt) and a FULL-upsert table (lineorder_up), at Pinot's
+# documented realtime defaults on one server
+# ---------------------------------------------------------------------------
+
+RT_TABLE = "lineorder_rt"
+RT_SEED = 71
+RT_ROWS = 5_000_000     # realtime.segment.flush.threshold.rows (Pinot default)
+RT_MORE = 500_000       # indexed while queries run
+RT_FETCH = 8192         # consume_stream_batches' max_rows
+RT_CHUNKLET = 65_536    # ChunkletConfig's defaults: rows a chunklet and
+RT_DEVICE_MIN = 262_144  # the frozen rows the chunklet path needs
+RT_NULL_EVERY = 997     # every 997th consuming row arrives without lo_discount
+RT_WHILE_RUNS = 20
+UP_TABLE = "lineorder_up"
+UP_SEED = 73
+UP_ROWS = 1_000_000     # each of 2 sealed segments, and the consuming one
+UP_KEYS = 1_000_000     # lo_orderkey drawn from these, with repeats
+UP_FLIP = 0.10          # the share of present keys a later wave updates
+UP_NEWER = 19990101     # the wave's lo_orderdate: past every drawn date
+LO_COLS = ("d_year", "c_region", "s_nation", "lo_suppkey", "lo_custkey",
+           "lo_orderdate", "lo_discount", "lo_quantity", "lo_revenue")
+
+_RT_Q1 = ("SET useStarTree = false; "
+          "SELECT lo_suppkey, SUM(lo_revenue) FROM {t} "
+          "GROUP BY lo_suppkey ORDER BY SUM(lo_revenue) DESC, lo_suppkey "
+          "LIMIT 10")
+_RT_Q6 = ("SELECT d_year, s_nation, MIN(lo_revenue), MAX(lo_revenue), "
+          "MINMAXRANGE(lo_quantity), COUNT(*) FROM {t} "
+          "WHERE lo_discount BETWEEN 1 AND 3 GROUP BY d_year, s_nation "
+          "ORDER BY d_year, s_nation LIMIT 200")
+RT_QUERIES = {
+    "rt_q1": _RT_Q1.format(t=RT_TABLE),
+    # a year of lo_orderdate: the time-sorted chunklets skip blocks (its
+    # SUM of lo_revenue could pass a block's int32 partial: the gathered
+    # form), and a month in K4's fused form
+    "rt_q2": QUERIES["q2_range_sum"].replace("lineorder", RT_TABLE),
+    "rt_month_fused": BS_QUERIES["bs_month_fused"].replace(BS_TABLE,
+                                                           RT_TABLE),
+    "rt_q4_hll": "SET useStarTree = false; " + Q4_HLL.replace(
+        "lineorder", RT_TABLE),
+    "rt_hll_scalar": HLL_QUERIES["hll_scalar"].replace("lineorder",
+                                                       RT_TABLE),
+    "rt_q6": _RT_Q6.format(t=RT_TABLE),
+    "rt_count": f"SELECT COUNT(*) FROM {RT_TABLE}",
+    "rt_null": (f"SELECT COUNT(*), SUM(lo_quantity) FROM {RT_TABLE} "
+                "WHERE lo_discount IS NULL"),
+    "rt_select": (
+        f"SELECT lo_revenue, lo_custkey, lo_suppkey, lo_orderdate FROM "
+        f"{RT_TABLE} WHERE lo_discount = 10 ORDER BY lo_revenue DESC, "
+        "lo_custkey, lo_suppkey, lo_orderdate LIMIT 10"),
+    "up_q1": _RT_Q1.format(t=UP_TABLE),
+    "up_q6": _RT_Q6.format(t=UP_TABLE),
+    "up_count": f"SELECT COUNT(*) FROM {UP_TABLE}",
+}
+# the scan form: lineorder's d_year x c_region x s_nation cube would
+# answer the sealed rows' SUM from its float32 rows
+RT_COUNT_SUM = ("SET useStarTree = false; "
+                f"SELECT COUNT(*), SUM(lo_revenue) FROM {RT_TABLE}")
+# the sealed batch and the chunklet batch reach K1-K4 as lineorder's batch
+# does; the masked sealed segments' host-path shape sums on K1 and takes
+# its MIN / MAX on K2
+PATHS["realtime"] = (RT_QUERIES, ("group_plane_sums", "group_minmax",
+                                  "hll_register_max", "fused_filter_agg"),
+                     ((3, "group_scatter", "plane_group_sums"),
+                      (4, "group_scatter", "group_minmax"),
+                      (2, "groupby_mm", "hll_registers"),
+                      (5, "group_scatter", "hll_register_max"),
+                      (6, "group_scatter", "fused_filter_agg")))
+
+
+def rt_generate(rows: int, seed: int = RT_SEED) -> dict:
+    """The consuming rows: lineorder's generator under its own seed,
+    stably sorted by lo_orderdate (a stream delivers them in time order),
+    every ``RT_NULL_EVERY``-th row without lo_discount."""
+    (d,) = generate(1, rows, seed)
+    order = np.argsort(d["lo_orderdate"], kind="stable")
+    d = {k: v[order] for k, v in d.items()}
+    d["null_discount"] = np.arange(rows) % RT_NULL_EVERY == 0
+    return d
+
+
+def up_generate(rows: int, seed: int = UP_SEED) -> dict:
+    """lineorder_up's rows in arrival order: 3 x ``rows`` (two sealed
+    segments, then the consuming one), ``lo_orderkey`` drawn from
+    ``UP_KEYS`` keys with repeats, and the update wave: ``UP_FLIP`` of
+    the keys present, each with a new row dated ``UP_NEWER``."""
+    (d,) = generate(1, 3 * rows, seed)
+    rng = np.random.default_rng(seed + 1)
+    d["lo_orderkey"] = rng.integers(0, UP_KEYS, 3 * rows).astype(np.int32)
+    keys = np.unique(d["lo_orderkey"])
+    flip = np.sort(rng.choice(keys, int(len(keys) * UP_FLIP),
+                              replace=False)).astype(np.int32)
+    (w,) = generate(1, len(flip), seed + 2)
+    w["lo_orderkey"] = flip
+    w["lo_orderdate"] = np.full(len(flip), UP_NEWER, dtype=np.int32)
+    return {"rows": d, "wave": w}
+
+
+def lo_schema(table: str, orderkey: bool = False):
+    from pinot_tpu_torch.common.datatypes import DataType
+    from pinot_tpu_torch.common.schema import Schema
+
+    dims = [("d_year", DataType.INT), ("c_region", DataType.STRING),
+            ("s_nation", DataType.STRING), ("lo_suppkey", DataType.INT),
+            ("lo_custkey", DataType.INT), ("lo_orderdate", DataType.INT),
+            ("lo_discount", DataType.INT)]
+    return Schema.build(
+        name=table, dimensions=dims + ([("lo_orderkey", DataType.INT)]
+                                       if orderkey else []),
+        metrics=[("lo_quantity", DataType.INT), ("lo_revenue", DataType.INT)],
+        primary_key_columns=["lo_orderkey"] if orderkey else [])
+
+
+def stored_columns(d: dict, lo: int, hi: int) -> dict:
+    """Rows [lo, hi) of generated columns as the table stores them."""
+    out = {k: d[k][lo:hi] for k in LO_COLS + ("lo_orderkey",) if k in d}
+    out["c_region"] = REGIONS[out["c_region"]]
+    out["s_nation"] = NATIONS[out["s_nation"]]
+    return out
+
+
+def records(d: dict, lo: int, hi: int) -> list:
+    """Rows [lo, hi) as the decoded records a stream delivers: one dict a
+    row, lo_discount absent where the generator nulled it."""
+    cols = {k: v.tolist() for k, v in stored_columns(d, lo, hi).items()}
+    rows = [dict(zip(cols, vals)) for vals in zip(*cols.values())]
+    if "null_discount" in d:
+        for i in np.flatnonzero(d["null_discount"][lo:hi]):
+            del rows[i]["lo_discount"]
+    return rows
+
+
+def write_up_segment(i: int, up: dict, rows: int) -> str:
+    """lineorder_up's committed segment ``i`` (rows [i * rows, (i + 1) *
+    rows) of the stream), written by the port's creator into the realtime
+    manager's data directory under its LLC name."""
+    from pinot_tpu_torch.common.table_config import TableConfig
+    from pinot_tpu_torch.realtime.manager import llc_segment_name
+    from pinot_tpu_torch.storage.creator import build_segment
+
+    name = llc_segment_name(UP_TABLE, 0, i, str(i * rows))
+    out = os.path.join(DATA_DIR, UP_TABLE, name)
+    build_segment(lo_schema(UP_TABLE, True),
+                  stored_columns(up["rows"], i * rows, (i + 1) * rows), out,
+                  TableConfig(table_name=UP_TABLE), name)
+    return out
+
+
+def _lo_columns(data: list, extra: dict, n: int) -> dict:
+    """lineorder's columns with the first ``n`` consuming rows after them,
+    lo_discount at its null default where the consuming row had none."""
+    null = lo_schema(RT_TABLE).field("lo_discount").null_value()
+    c = {}
+    for k in LO_COLS:
+        tail = extra[k][:n]
+        if k == "lo_discount":
+            tail = np.where(extra["null_discount"][:n], null, tail)
+        c[k] = np.concatenate([d[k] for d in data]
+                              + [tail.astype(data[0][k].dtype)])
+    return c
+
+
+def _q1_rows(sums) -> list:
+    """q1's rows from the per-lo_suppkey revenue sums."""
+    top = sorted(range(2000), key=lambda k: (-sums[k], k))[:10]
+    return [[k, float(sums[k])] for k in top]
+
+
+def _supp_sums(supp, rev) -> np.ndarray:
+    return np.bincount(supp, weights=rev.astype(np.float64), minlength=2000)
+
+
+def _q6_rows(c: dict, m) -> list:
+    year, nation = c["d_year"][m], c["s_nation"][m]
+    g = (year - 1992).astype(np.int64) * 25 + nation
+    r, q = c["lo_revenue"][m].astype(np.int64), c["lo_quantity"][m]
+    cnt = np.bincount(g, minlength=175)
+    rmin = np.full(175, np.iinfo(np.int64).max)
+    rmax = np.full(175, np.iinfo(np.int64).min)
+    qmin, qmax = rmin.copy(), rmax.copy()
+    np.minimum.at(rmin, g, r)
+    np.maximum.at(rmax, g, r)
+    np.minimum.at(qmin, g, q.astype(np.int64))
+    np.maximum.at(qmax, g, q.astype(np.int64))
+    return [[1992 + k // 25, str(NATIONS[k % 25]), float(rmin[k]),
+             float(rmax[k]), float(qmax[k] - qmin[k]), int(cnt[k])]
+            for k in range(175) if cnt[k]]
+
+
+def rt_oracle(data: list, rt: dict, n: int) -> dict:
+    """lineorder_rt's answers over lineorder's rows and the first ``n``
+    consuming rows, each (rows, numDocsScanned, {"totalDocs": ...}), and
+    the base the while-ingesting checks add the later rows to."""
+    c = _lo_columns(data, rt, n)
+    total = len(c["d_year"])
+    extra = {"totalDocs": total}
+    supp, od, disc = c["lo_suppkey"], c["lo_orderdate"], c["lo_discount"]
+    qty, rev = c["lo_quantity"], c["lo_revenue"].astype(np.int64)
+    want = {}
+    sums = _supp_sums(supp, rev)
+    want["rt_q1"] = (_q1_rows(sums), total, extra)
+    m = (od >= 19930101) & (od <= 19931231) & (disc >= 1) & (disc <= 3) \
+        & (qty < 25)
+    want["rt_q2"] = ([[float(rev[m].sum())]], int(m.sum()), extra)
+    m = (od >= 19930301) & (od <= 19930328)
+    want["rt_month_fused"] = ([[int(m.sum()), float(qty[m].sum()),
+                                float(rev[m].min()), float(rev[m].max())]],
+                              int(m.sum()), extra)
+    cnt = np.bincount(supp, minlength=2000)
+    qs = np.bincount(supp, weights=qty.astype(np.int64), minlength=2000)
+    idx, rho = hll_idx_rho(fmix32(c["lo_custkey"]), LOG2M)
+    est = hll_estimates(idx, rho, supp, 2000, LOG2M)
+    top = sorted((k for k in range(2000) if cnt[k]),
+                 key=lambda k: (-cnt[k], k))[:10]
+    want["rt_q4_hll"] = ([[k, int(cnt[k]), float(qs[k]) / float(cnt[k]),
+                           int(est[k])] for k in top], total, extra)
+    m = (disc >= 1) & (disc <= 3)
+    est = hll_estimates(idx, rho, np.where(m, 0, -1), 1, LOG2M)
+    want["rt_hll_scalar"] = ([[int(m.sum()), int(est[0])]], int(m.sum()),
+                             extra)
+    want["rt_q6"] = (_q6_rows(c, m), int(m.sum()), extra)
+    want["rt_count"] = ([[total]], total, extra)
+    nulls = np.zeros(total, bool)
+    nulls[total - n:] = rt["null_discount"][:n]
+    want["rt_null"] = ([[int(nulls.sum()), float(qty[nulls].sum())]],
+                       int(nulls.sum()), extra)
+    m = disc == 10
+    keys = (c["lo_orderdate"][m], c["lo_suppkey"][m], c["lo_custkey"][m],
+            -rev[m])
+    order = np.lexsort(keys)[:10]
+    want["rt_select"] = ([[float(rev[m][i]), int(c["lo_custkey"][m][i]),
+                           int(supp[m][i]), int(od[m][i])] for i in order],
+                         int(m.sum()), extra)
+    want["rt_base"] = {"supp_sums": sums, "docs": total,
+                       "revenue": int(rev.sum())}
+    return want
+
+
+def up_valid(key: np.ndarray, od: np.ndarray) -> np.ndarray:
+    """The docs an upsert keeps: per key, the greatest lo_orderdate, a tie
+    to the later arrival (the CAS rule)."""
+    n = len(key)
+    order = np.lexsort((np.arange(n), od, key))
+    last = np.ones(n, dtype=bool)
+    last[:-1] = key[order][1:] != key[order][:-1]
+    valid = np.zeros(n, dtype=bool)
+    valid[order[last]] = True
+    return valid
+
+
+def up_oracle(up: dict, wave: bool, suffix: str = "") -> dict:
+    """lineorder_up's answers over its valid docs, before the update wave
+    or after it (``wave``)."""
+    d = up["rows"]
+    if wave:
+        d = {k: np.concatenate([d[k], up["wave"][k]]) for k in d}
+    valid = up_valid(d["lo_orderkey"], d["lo_orderdate"])
+    total = len(valid)
+    c = {k: d[k][valid] for k in LO_COLS}
+    extra = {"totalDocs": total}
+    want = {}
+    want["up_q1" + suffix] = (_q1_rows(_supp_sums(c["lo_suppkey"],
+                                                  c["lo_revenue"])),
+                              int(valid.sum()), extra)
+    m = (c["lo_discount"] >= 1) & (c["lo_discount"] <= 3)
+    want["up_q6" + suffix] = (_q6_rows(c, m), int(m.sum()), extra)
+    want["up_count" + suffix] = ([[int(valid.sum())]], int(valid.sum()),
+                                 extra)
+    return want
+
+
+class RowStream:
+    """A stream partition of decoded records: the fetch that
+    ``consume_stream_batches`` reads (the memory stream's
+    ``fetch_payload_batch``), its JSON decode left out."""
+
+    def __init__(self, rows: list):
+        self.rows = rows
+
+    def fetch_payload_batch(self, start, max_count: int):
+        from pinot_tpu_torch.stream.spi import StreamPartitionMsgOffset
+
+        got = self.rows[start.value:start.value + max_count]
+        return got, StreamPartitionMsgOffset(start.value + len(got))
+
+
+def rt_consume(seg, stream: RowStream, offset, upto: int):
+    """Index the stream into ``seg`` through ``consume_stream_batches``
+    (``RT_FETCH`` rows a fetch, one ``index_batch`` and a promotion
+    after each) until ``upto``; returns the next offset."""
+    from pinot_tpu_torch.realtime.chunklet import consume_stream_batches
+
+    while offset.value < upto:
+        _n, offset, got = consume_stream_batches(
+            seg, stream, None, offset, batch_decoder=lambda p: p,
+            max_rows=min(RT_FETCH, upto - offset.value))
+        if not got:
+            raise AssertionError(f"the stream ended at {offset.value}")
+    return offset
+
+
+def rt_segment(rt: dict, rows: int) -> tuple:
+    """lineorder_rt's consuming segment with its first ``rows`` rows
+    indexed: (segment, stream, next offset, seconds building the records,
+    seconds indexing)."""
+    from pinot_tpu_torch.common.table_config import (
+        ChunkletConfig,
+        StreamConfig,
+        TableConfig,
+        TableType,
+    )
+    from pinot_tpu_torch.realtime.manager import llc_segment_name
+    from pinot_tpu_torch.storage.mutable import MutableSegment
+    from pinot_tpu_torch.stream.spi import StreamPartitionMsgOffset
+
+    t = time.perf_counter()
+    stream = RowStream(records(rt, 0, len(rt["d_year"])))
+    build_s = time.perf_counter() - t
+    cfg = TableConfig(
+        table_name=RT_TABLE, table_type=TableType.REALTIME,
+        stream=StreamConfig(stream_type="memory", topic=RT_TABLE,
+                            segment_flush_threshold_rows=RT_ROWS),
+        chunklets=ChunkletConfig(enabled=True, rows_per_chunklet=RT_CHUNKLET,
+                                 device_min_rows=RT_DEVICE_MIN))
+    seg = MutableSegment(lo_schema(RT_TABLE),
+                         llc_segment_name(RT_TABLE, 0, 0, "0"), cfg)
+    t = time.perf_counter()
+    offset = rt_consume(seg, stream, StreamPartitionMsgOffset(0), rows)
+    return seg, stream, offset, build_s, time.perf_counter() - t
+
+
+def up_manager(engine, up: dict, rows: int) -> tuple:
+    """lineorder_up behind the port's RealtimeTableDataManager: the two
+    committed segments named in its checkpoint (the restart path replays
+    their keys through the upsert manager, in commit order, and publishes
+    them), then the consuming segment fed from the in-memory stream as
+    JSON, a row at a time through the primary-key CAS. Returns (manager,
+    topic, seconds to consume ``rows`` rows)."""
+    from pinot_tpu_torch.common.table_config import (
+        ChunkletConfig,
+        StreamConfig,
+        TableConfig,
+        TableType,
+        UpsertConfig,
+    )
+    from pinot_tpu_torch.realtime.manager import (
+        RealtimeTableDataManager,
+        llc_segment_name,
+    )
+    from pinot_tpu_torch.stream.memory_stream import TopicRegistry
+
+    data_dir = os.path.join(DATA_DIR, UP_TABLE)
+    names = {str(i): llc_segment_name(UP_TABLE, 0, i, str(i * rows))
+             for i in range(2)}
+    with open(os.path.join(data_dir, "checkpoints.json"), "w") as f:
+        json.dump({f"{UP_TABLE}/0": {"segment": names["1"],
+                                     "offset": str(2 * rows), "sequence": 1,
+                                     "names": names}}, f)
+    TopicRegistry.delete(UP_TABLE)
+    topic = TopicRegistry.create(UP_TABLE, 1)
+    for _ in range(2 * rows):  # the committed segments' offsets
+        topic.publish(b"")
+    for r in records(up["rows"], 2 * rows, 3 * rows):
+        topic.publish(json.dumps(r).encode())
+    cfg = TableConfig(
+        table_name=UP_TABLE, table_type=TableType.REALTIME,
+        upsert=UpsertConfig(mode="FULL", comparison_column="lo_orderdate"),
+        stream=StreamConfig(stream_type="memory", topic=UP_TABLE,
+                            segment_flush_threshold_rows=RT_ROWS),
+        chunklets=ChunkletConfig(enabled=True, rows_per_chunklet=RT_CHUNKLET,
+                                 device_min_rows=RT_DEVICE_MIN))
+    mgr = RealtimeTableDataManager(lo_schema(UP_TABLE, True), cfg,
+                                   engine.table(UP_TABLE), data_dir)
+    t = time.perf_counter()
+    mgr.start()
+    up_wait(mgr, topic)
+    return mgr, topic, time.perf_counter() - t
+
+
+def up_wait(mgr, topic, timeout: float = 600.0) -> None:
+    pm = mgr.partition_managers[0]
+    t0 = time.time()
+    while pm._offset.value < topic.log_size(0):
+        if pm.state == pm.ERROR or time.time() - t0 > timeout:
+            raise AssertionError(f"{UP_TABLE}'s consume loop stopped at "
+                                 f"{pm._offset.value} ({pm.state})")
+        time.sleep(0.05)
+    if pm.index_errors:
+        raise AssertionError(f"{UP_TABLE}: {pm.index_errors} bad rows")
+
+
+def part_kind(segs) -> str:
+    """Which part of a query a launch runs: the sealed batch, the
+    chunklet batch, or a host-path-shape part."""
+    s = segs[0]
+    d = str(getattr(s, "dir", ""))
+    if d.startswith("<chunklet:"):
+        return "chunklets" if getattr(s, "valid_docs_mask", None) is None \
+            else "dirty chunklet"
+    if d.startswith("<mutable-tail:"):
+        return "tail"
+    if getattr(s, "is_mutable", False):
+        return "consuming, whole"
+    if getattr(s, "valid_docs_mask", None) is not None:
+        return "masked sealed"
+    return "sealed"
+
+
+class count_parts:
+    """While entered, the kernel launches each part of a query makes
+    (``part_kind``), by kernel, and the parts' launch calls."""
+
+    def __init__(self, engine):
+        self.dev, self.parts = engine.device, {}
+
+    def __enter__(self):
+        from pinot_tpu_torch.ops import kernels
+
+        dev = self.dev
+
+        def wrap(real, one):
+            def spy(q, segs, *a, **kw):
+                kind = part_kind([segs] if one else segs)
+                before = dict(kernels.launches)
+                try:
+                    return real(q, segs, *a, **kw)
+                finally:
+                    rec = self.parts.setdefault(kind, {"calls": 0})
+                    rec["calls"] += 1
+                    for k, v in kernels.launches.items():
+                        if v != before[k]:
+                            rec[k] = rec.get(k, 0) + v - before[k]
+            return spy
+
+        dev.launch = wrap(type(dev).launch.__get__(dev), False)
+        dev.launch_host_part = wrap(type(dev).launch_host_part.__get__(dev),
+                                    True)
+        return self
+
+    def __exit__(self, *exc):
+        del self.dev.launch, self.dev.launch_host_part
+        return False
+
+
+def rt_parts(engine, names, on_card: bool) -> dict:
+    """Per query: one run's launches by part and by kernel, and on the
+    card a traced run's device time and busy share (``profile_query``)."""
+    out = {}
+    for name in names:
+        sql = RT_QUERIES[name]
+        with count_parts(engine) as cp:
+            resp = engine.execute(sql)
+        if resp["exceptions"]:
+            raise AssertionError(f"{name}: {resp['exceptions']}")
+        out[name] = {"parts": cp.parts}
+        if on_card:
+            wall, dev_ms = profile_query(engine, name, sql)
+            out[name].update(device_ms=dev_ms, busy=dev_ms / wall)
+        log(f"{name}: launches by part {json.dumps(cp.parts)}")
+    return out
+
+
+def rt_tail_ms(engine, seg, runs: int) -> dict:
+    """The consuming segment's tail alone in the host path's shape under
+    rt_q1: launch and fetch, p50 of ``runs`` (host clock, the fetch
+    waits for the card)."""
+    from pinot_tpu_torch.realtime.chunklet import split_for_query
+
+    split = split_for_query(seg)
+    if split is None or not split[1]:
+        raise AssertionError("lineorder_rt's consuming segment did not split")
+    tail = split[1][-1]
+    q = compile_query(engine, RT_QUERIES["rt_q1"])
+    times = []
+    for _ in range(runs + 1):
+        t = time.perf_counter()
+        engine.device.launch_host_part(q, tail).fetch()
+        times.append((time.perf_counter() - t) * 1e3)
+    p50 = float(np.percentile(times[1:], 50))
+    log(f"lineorder_rt's tail ({tail.n_docs} rows) in the host path's shape "
+        f"under rt_q1: p50 {p50:.3f} ms over {runs} runs; "
+        f"{len(split[0])} clean chunklets of {RT_CHUNKLET} rows on the "
+        f"device beside it")
+    return {"rows": tail.n_docs, "p50_ms": p50, "chunklets": len(split[0])}
+
+
+def rt_while_ingesting(engine, seg, stream, offset, base: dict,
+                       more: dict) -> dict:
+    """A writer thread indexes the stream's next rows (``RT_FETCH`` a
+    fetch, promoting as it goes) while rt_q1 and COUNT(*) / SUM run
+    ``RT_WHILE_RUNS`` times each: every answer must equal the oracle at
+    one published count between the counts read before and after it
+    (published counts: the start plus whole fetches, or the end)."""
+    import threading
+
+    end = len(stream.rows)
+    start_docs = seg.n_docs
+    supp = more["lo_suppkey"][start_docs:end]
+    rev = more["lo_revenue"][start_docs:end].astype(np.int64)
+    csum = np.concatenate([[0], np.cumsum(rev)])
+    sealed_docs = base["docs"] - start_docs
+    errors, done = [], threading.Event()
+
+    def writer():
+        try:
+            rt_consume(seg, stream, offset, end)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+        finally:
+            done.set()
+
+    def published(lo: int, hi: int) -> list:
+        return [c for c in range(lo, hi + 1)
+                if (c - start_docs) % RT_FETCH == 0 or c == end]
+
+    times = {"rt_q1": [], "rt_count_sum": []}
+    t = threading.Thread(target=writer)
+    t.start()
+    try:
+        for _ in range(RT_WHILE_RUNS):
+            for name, sql in (("rt_q1", RT_QUERIES["rt_q1"]),
+                              ("rt_count_sum", RT_COUNT_SUM)):
+                lo = seg.n_docs
+                t0 = time.perf_counter()
+                resp = engine.execute(sql)
+                times[name].append((time.perf_counter() - t0) * 1e3)
+                hi = seg.n_docs
+                if resp["exceptions"]:
+                    raise AssertionError(f"{name}: {resp['exceptions']}")
+                got = resp["resultTable"]["rows"]
+                ok = []
+                for c in published(lo, hi):
+                    k = c - start_docs
+                    if name == "rt_count_sum":
+                        want = [[sealed_docs + c,
+                                 float(base["revenue"] + csum[k])]]
+                    else:
+                        want = _q1_rows(base["supp_sums"]
+                                        + _supp_sums(supp[:k], rev[:k]))
+                    if rows_equal(got, want) \
+                            and resp["numDocsScanned"] == sealed_docs + c:
+                        ok.append(c)
+                if not ok:
+                    raise AssertionError(
+                        f"{name} while ingesting: {got} matches no published "
+                        f"count in [{lo}, {hi}]")
+    finally:
+        t.join()
+    if errors:
+        raise AssertionError(f"the writer failed: {errors}")
+    if seg.n_docs != end:
+        raise AssertionError(f"{seg.n_docs} docs after the writer, want {end}")
+    out = {name: float(np.percentile(v, 50)) for name, v in times.items()}
+    log(f"while indexing {end - start_docs} more rows: rt_q1 and "
+        f"COUNT(*) / SUM each equal the oracle at a published count "
+        f"({RT_WHILE_RUNS} runs each); p50 {json.dumps(out)} ms")
+    return out
+
+
+def check_realtime_kernels(engine, k1: dict, k2: dict, k3: dict,
+                           k4: dict, up_rows: int) -> None:
+    """K1, K2, K3 and K4 at the realtime path's own inputs, captured at
+    their entries and held against their plain versions: rt_q1's and
+    up_q1's group sums (the sealed batch, the chunklet batch, the masked
+    sealed segments in the host path's shape), rt_q6's and up_q6's
+    min/max sources, rt_q4_hll's registers and rt_month_fused's
+    candidates over the chunklets. lineorder_up's segments reach the
+    kernels only at ``up_rows`` past K1's gate (a rehearsal's do not)."""
+    from pinot_tpu_torch.ops import group_scatter as ps
+    from pinot_tpu_torch.ops import groupby_mm as mm
+
+    up = ("up_q1", "up_q6") if up_rows >= engine.device.min_rows else ()
+    for name in ("rt_q1",) + up[:1]:
+        for (gid, sources, G), kw in capture_calls(
+                engine, RT_QUERIES[name], ps, "plane_group_sums"):
+            count = kw.get("count", True)
+            k1["shapes"].append(k1_shape(
+                f"{name}: n={gid.numel()}, G={G}, "
+                f"{planes_label(sources, count)}",
+                ps.plane_group_sums, G, sources, count, gid))
+    for name in ("rt_q6",) + up[1:]:
+        for (gid, srcs, G), _kw in capture_calls(
+                engine, RT_QUERIES[name], ps, "group_minmax_sources"):
+            k2["shapes"].append(k2_shape(
+                f"{name}: n={gid.numel()}, " + ", ".join(
+                    f"{s.values.dtype} {'+'.join(s.ops)}"
+                    for s in srcs).replace("torch.", ""), gid, srcs, G))
+    for (h, gid, G, log2m), kw in capture_calls(
+            engine, RT_QUERIES["rt_q4_hll"], mm, "hll_registers"):
+        k3["sizes"].append(k3_held(h, gid, G, log2m, kw.get("mask"),
+                                   f"rt_q4_hll, n={h.numel()}", mm))
+    for args, _kw in capture_calls(engine, RT_QUERIES["rt_month_fused"], ps,
+                                   "fused_filter_agg"):
+        k4["sizes"].append(check_k4(
+            f"the realtime path's rt_month_fused, {args[0].numel()} "
+            "candidates", *args))
+
+
+def run_realtime(engine, seg, stream, offset, more: dict, want: dict,
+                 mgr, topic, up: dict, runs: int, on_card: bool) -> dict:
+    """The realtime path's measurements past ``run_path``: launches by
+    part with device time and busy share, the tail's host-shape launch,
+    the answers while indexing, then lineorder_up's update wave: its
+    queries must follow the new masks."""
+    from pinot_tpu_torch.common import freshness
+
+    out = {"parts": rt_parts(engine, RT_QUERIES, on_card)}
+    out["tail"] = rt_tail_ms(engine, seg, runs)
+    epoch = freshness.epoch(RT_TABLE)
+    out["while_ingesting_p50_ms"] = rt_while_ingesting(
+        engine, seg, stream, offset, want["rt_base"], more)
+    if freshness.epoch(RT_TABLE) <= epoch:
+        raise AssertionError("indexing did not move lineorder_rt's epoch")
+    for r in records(up["wave"], 0, len(up["wave"]["lo_orderkey"])):
+        topic.publish(json.dumps(r).encode())
+    t = time.perf_counter()
+    up_wait(mgr, topic)
+    wave_s = time.perf_counter() - t
+    after = up_oracle(up, True)
+    total = after["up_count"][2]["totalDocs"]
+    for name in ("up_q1", "up_q6", "up_count"):
+        resp = engine.execute(RT_QUERIES[name])
+        check_answer(name, resp, after, total)
+    log(f"{UP_TABLE}: after the update wave ({len(up['wave']['lo_orderkey'])}"
+        f" keys, indexed in {wave_s:.2f} s) up_q1, up_q6 and up_count "
+        f"follow the new masks ({after['up_count'][1]} valid docs of "
+        f"{total})")
+    out["wave_s"] = wave_s
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the serving path: cohorts, the partials cache, deadlines, traces, ANALYZE
 # ---------------------------------------------------------------------------
 
@@ -4015,7 +4693,7 @@ def compile_query(engine, sql: str):
     from pinot_tpu_torch.sql.parser import parse_sql
 
     q = optimize_query(compile_select(parse_sql(sql)))
-    return expand_star(q, engine.tables[q.table_name][0].column_names())
+    return expand_star(q, table_segs(engine, q.table_name)[0].column_names())
 
 
 def canonical(resp: dict) -> dict:
@@ -4432,7 +5110,7 @@ def serve_deadline(engine) -> None:
 
     ex = engine.device
     q = compile_query(engine, QUERIES["q1_scan_agg"])
-    fetch = engine.execute_segments_async(q, engine.tables["lineorder"],
+    fetch = engine.execute_segments_async(q, table_segs(engine, "lineorder"),
                                           terminal=True,
                                           deadline=Deadline(0.0))
     try:
@@ -4457,7 +5135,7 @@ def serve_trace(engine) -> None:
 
     q = compile_query(engine, QUERIES["q1_scan_agg"])
     tracer = Tracer("serve")
-    fetch = engine.execute_segments_async(q, engine.tables["lineorder"],
+    fetch = engine.execute_segments_async(q, table_segs(engine, "lineorder"),
                                           terminal=True, tracer=tracer)
     box = []
     th = threading.Thread(target=lambda: box.append(fetch()))
@@ -4540,7 +5218,7 @@ def serve_syncs(engine) -> dict:
         sqls[name] = sql
     for name, sql in sqls.items():
         q = compile_query(engine, sql)
-        segs = engine.tables[q.table_name]
+        segs = table_segs(engine, q.table_name)
         with warnings.catch_warnings(record=True) as seen:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
@@ -4651,6 +5329,12 @@ def main(argv=None) -> int:
                     help="rows per segment of the index path's table")
     ap.add_argument("--runs", type=int, default=5,
                     help="timed runs per query")
+    ap.add_argument("--rt-rows", type=int, default=RT_ROWS,
+                    help="rows of lineorder_rt's consuming segment")
+    ap.add_argument("--rt-more", type=int, default=RT_MORE,
+                    help="rows lineorder_rt indexes while queries run")
+    ap.add_argument("--up-rows", type=int, default=UP_ROWS,
+                    help="rows of each of lineorder_up's three segments")
     ap.add_argument("--profile", action="store_true",
                     help="after the timed runs, trace one more run of each "
                          "query with torch.profiler and print its device "
@@ -4696,11 +5380,15 @@ def main(argv=None) -> int:
     ev = ev_generate(EV_SEGMENTS, args.event_rows)
     v2 = v2_generate(rows)
     trips = trips_generate(TRIPS_SEGMENTS, rows)
+    rt = rt_generate(args.rt_rows + args.rt_more)
+    up = up_generate(args.up_rows)
     log(f"generate: {time.perf_counter() - t:.2f} s (with {MV_TABLE}'s MV "
         f"columns over {len(mv)} segments, {EV_TABLE}: {EV_SEGMENTS} x "
         f"{args.event_rows} rows, {V2_TABLE}'s new segment s{S}: "
-        f"{rows} rows, seed {V2_SEED}, and {TRIPS_TABLE}: {TRIPS_SEGMENTS} x "
-        f"{rows} rows, seed {TRIPS_SEED})")
+        f"{rows} rows, seed {V2_SEED}, {TRIPS_TABLE}: {TRIPS_SEGMENTS} x "
+        f"{rows} rows, seed {TRIPS_SEED}, {RT_TABLE}'s consuming rows: "
+        f"{args.rt_rows} + {args.rt_more}, seed {RT_SEED}, and {UP_TABLE}: "
+        f"3 x {args.up_rows} rows over {UP_KEYS} keys, seed {UP_SEED})")
     from pinot_tpu_torch import native
 
     t = time.perf_counter()
@@ -4730,6 +5418,8 @@ def main(argv=None) -> int:
             write_ev_segment, [(i, ev[0], seg) for i, seg in
                                enumerate(ev[1])])
         pending_v2 = pool.apply_async(write_v2_segment, (S, v2))
+        pending_up = pool.starmap_async(
+            write_up_segment, [(i, up, args.up_rows) for i in range(2)])
         pending = pool.starmap_async(
             write_segment, [(i, seg, "lineorder", True) for i, seg in
                             enumerate(data)])
@@ -4780,6 +5470,8 @@ def main(argv=None) -> int:
         want.update(val_oracle(data, v2, mv))
         want.update(tail_oracle(trips, pad))
         want.update(serve_oracle(data))
+        want.update(rt_oracle(data, rt, args.rt_rows))
+        want.update(up_oracle(up, False))
         oracle_s = time.perf_counter() - t
 
         dirs, cube_s = zip(*pending.get())
@@ -4791,6 +5483,7 @@ def main(argv=None) -> int:
         ev_dirs = pending_ev.get()
         v2_dir = pending_v2.get()
         trips_dirs = pending_trips.get()
+        pending_up.get()
         log(f"write segments (port creator, {workers} processes, seven "
             f"tables): {time.perf_counter() - t_write:.2f} s, of which the "
             f"two star-tree cubes of lineorder took {sum(cube_s):.2f} s "
@@ -4809,7 +5502,8 @@ def main(argv=None) -> int:
     path_rows = {"mv": sum(len(d["d_year"]) for d in data[:MV_SEGMENTS]),
                  "index": EV_SEGMENTS * args.event_rows,
                  "values": total + len(v2["d_year"]),
-                 "tail": TRIPS_SEGMENTS * rows}
+                 "tail": TRIPS_SEGMENTS * rows,
+                 "realtime": total + args.rt_rows}
     del data, bs_data, mv, ev, v2, trips
     log(f"numpy oracle: {oracle_s:.2f} s beside the writes, "
         f"{time.perf_counter() - t:.2f} s after them")
@@ -4838,6 +5532,33 @@ def main(argv=None) -> int:
         engine.add_segment(V2_TABLE, seg)
     for d in trips_dirs:
         engine.add_segment(TRIPS_TABLE, ImmutableSegment(d))
+    # lineorder_rt: lineorder's sealed segments (the same objects, so the
+    # same device batch) and the consuming segment the stream fills
+    for s in segs:
+        engine.add_segment(RT_TABLE, s)
+    rt_seg, rt_stream, rt_offset, rt_build_s, rt_index_s = rt_segment(
+        rt, args.rt_rows)
+    engine.add_segment(RT_TABLE, rt_seg)
+    ci = rt_seg.chunklet_index
+    rt_index = {"rows": rt_seg.n_docs, "seconds": rt_index_s,
+                "rows_per_s": rt_seg.n_docs / rt_index_s,
+                "records_s": rt_build_s, "chunklets": len(ci.chunklets),
+                "tail_rows": rt_seg.n_docs - ci.frozen_docs}
+    log(f"{RT_TABLE}: {rt_seg.n_docs} consuming rows indexed in "
+        f"{rt_index_s:.2f} s ({rt_index['rows_per_s']:.0f} rows/s: "
+        f"{RT_FETCH}-row fetches through consume_stream_batches, one "
+        f"index_batch and a promotion each; the records built in "
+        f"{rt_build_s:.2f} s before), {len(ci.chunklets)} chunklets of "
+        f"{RT_CHUNKLET} rows and a {rt_index['tail_rows']}-row tail")
+    up_mgr, up_topic, up_s = up_manager(engine, up, args.up_rows)
+    up_docs = sum(s.n_docs for s in table_segs(engine, UP_TABLE))
+    masked = sum(int((~s.valid_docs_mask).sum())
+                 for s in table_segs(engine, UP_TABLE)
+                 if getattr(s, "valid_docs_mask", None) is not None)
+    log(f"{UP_TABLE}: 2 committed segments replayed and {args.up_rows} rows "
+        f"consumed a row at a time in {up_s:.2f} s "
+        f"({args.up_rows / up_s:.0f} rows/s); {up_docs} docs, {masked} of "
+        f"the sealed ones masked")
     t = time.perf_counter()
     ctx = engine.device.batch_for(segs)
     for c in ("d_year", "c_region", "s_nation", "lo_suppkey",
@@ -4878,6 +5599,8 @@ def main(argv=None) -> int:
         trips_dirs, want, path_rows["tail"], QueryEngine)
     check_tail_kernels(engine, sub_engine, k1, k2, k3, k4)
     del sub_engine
+    torch.cuda.empty_cache()
+    check_realtime_kernels(engine, k1, k2, k3, k4, args.up_rows)
     torch.cuda.empty_cache()
 
     count_sorted_builds()
@@ -4923,6 +5646,13 @@ def main(argv=None) -> int:
                     for k, v in q6_planes.items()) + "); K2 reads them")
     overflow = overflow_cost(engine, args.runs)
     t = time.perf_counter()
+    realtime = run_realtime(engine, rt_seg, rt_stream, rt_offset, rt, want,
+                            up_mgr, up_topic, up, args.runs, True)
+    up_mgr.stop(commit_remaining=False)
+    realtime["index"] = rt_index
+    realtime["upsert_rows_per_s"] = args.up_rows / up_s
+    log(f"realtime path extras: {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
     serving, member_records, member_launches = run_serving(
         engine, want, {"lineorder": total, BS_TABLE: total}, card)
     log(f"serving path: {time.perf_counter() - t:.2f} s")
@@ -4953,6 +5683,7 @@ def main(argv=None) -> int:
         entries.append(entry)
     log(json.dumps({"query_p50_ms": p50, "rows": total,
                     "serving": serving,
+                    "realtime": realtime,
                     "trips_rows": path_rows["tail"],
                     "trips_resident_bytes": {"subbyte": sub_bytes,
                                              "wide": wide_bytes},

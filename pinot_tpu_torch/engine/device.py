@@ -83,6 +83,18 @@ solo launch copies its cached packed buffer again and runs nothing (the
 device partials cache). Each launch in the reference's device shape
 carries a roofline flight: its modeled bytes over its kernel time
 against the probed memory peak (ops/roofline.py).
+
+A batch takes segments the reference's device takes
+(``segment_device_eligible``): sealed, without an upsert valid-docs
+mask; a consuming segment's clean chunklets form a batch of their own.
+The parts the reference answers on its host (a consuming segment's tail
+or the whole segment, an upsert-dirtied chunklet, an upsert-masked
+sealed segment) launch alone through ``launch_host_part``, in the host
+path's shape with a valid-docs plane snapshot at launch; a part without
+a directory builds a context that neither enters the batch LRU nor
+caches partials. Promotion, an upsert that dirties a chunklet and a
+seal drop the cached partials of the batches they retire
+(``invalidate_cached_partials``, reached from realtime/chunklet.py).
 """
 
 from __future__ import annotations
@@ -115,6 +127,7 @@ from pinot_tpu_torch.engine.params import (
     to_device,
 )
 from pinot_tpu_torch.engine.result import ExecutionStats, IntermediateResult
+from pinot_tpu_torch.engine.snapshot import SnapshotSegment
 from pinot_tpu_torch.ops import agg as agg_ops
 from pinot_tpu_torch.ops import blockskip as bs_ops
 from pinot_tpu_torch.ops import device_reduce as dr_ops
@@ -127,7 +140,7 @@ from pinot_tpu_torch.ops import radix_groupby as radix_ops
 from pinot_tpu_torch.ops import selection as sel_ops
 from pinot_tpu_torch.ops.transform import get_function
 from pinot_tpu_torch.query.context import Expression, QueryContext
-from pinot_tpu_torch.storage.segment import Encoding
+from pinot_tpu_torch.storage.segment import Encoding, ImmutableSegment
 
 DEVICE_AGGS = {"count", "sum", "min", "max", "avg", "minmaxrange",
                "distinctcount", "distinctcounthll", "hllmerge",
@@ -148,6 +161,33 @@ MAX_DENSE_GROUPS = 1 << 22        # ARRAY_BASED regime guard (~4M groups)
 # a table that overflows K answers in the host path's shape
 MAX_SORTED_GROUPS = 1 << 17
 MAX_PRESENCE_CELLS = 1 << 24      # per-group distinct/HLL state guard
+
+
+def segment_device_eligible(seg) -> bool:
+    """Whether a segment rides a device batch (a copy of the reference's
+    rule): sealed, without an upsert valid-docs mask, in the hot tier. A
+    consuming segment re-enters through its chunklets
+    (realtime/chunklet.py), which pass while clean; an upsert
+    invalidation inside one gives it a mask, and it fails. The others run
+    in the host path's shape (``DeviceExecutor.launch_host_part``)."""
+    return not getattr(seg, "is_mutable", False) and \
+        getattr(seg, "valid_docs_mask", None) is None and \
+        (getattr(seg, "tier", None) or "hot") == "hot"
+
+
+def valid_docs_snapshot(seg, n: int):
+    """A copy of a segment's upsert valid-docs over its first ``n`` docs,
+    or None when it has none: a sealed segment's or a dirty chunklet's
+    ``valid_docs_mask``, a consuming segment's or a tail's
+    ``valid_docs(n)``. Copied, as the reference's host copies it before
+    it evaluates the filter: the writer flips it meanwhile."""
+    vd = getattr(seg, "valid_docs_mask", None)
+    if vd is not None:
+        return np.asarray(vd)[:n].copy()
+    if hasattr(seg, "valid_docs"):
+        m = seg.valid_docs(n)
+        return None if m is None else np.asarray(m)[:n].copy()
+    return None
 
 
 def _torch_dtype(np_str: str) -> torch.dtype:
@@ -1635,8 +1675,15 @@ class DeviceExecutor:
                 else ctx.column(c)
         return widths, cols
 
+    def refuses(self, q: QueryContext, segments) -> bool:
+        """Whether the reference's device refuses ``q`` over this batch at
+        launch (``host_shape`` over its context), so that its engine runs
+        the whole scan on its host."""
+        return self.host_shape(q, self.batch_for(segments))
+
     def launch(self, q: QueryContext, segments, final: bool = False,
-               reduce_mode=None, alive=None, tracer=None) -> InflightLaunch:
+               reduce_mode=None, alive=None, tracer=None,
+               host: bool = False) -> InflightLaunch:
         """LAUNCH phase: template build, column upload (cached per segment
         set), the pipeline's torch ops and kernel launches and ONE copy of
         the packed outputs to pinned host memory, all enqueued on the
@@ -1668,21 +1715,24 @@ class DeviceExecutor:
         ``tracer``: the query's explicit Tracer; the launch records
         ``gather`` and ``dispatch``, the resolve ``kernel`` and ``link``.
         The batch stays pinned from here until the handle is fetched or
-        released."""
+        released. ``host``: run in the host path's shape whatever the
+        shape (the engine's whole-scan run where the reference's device
+        refuses another batch of the query). A consuming or upsert-masked
+        segment launches alone (``launch_host_part``)."""
         t_launch = time.perf_counter()
         if q.distinct and q.aggregations():
             raise DeviceUnsupported("DISTINCT over aggregations")
-        for s in segments:
-            if getattr(s, "is_mutable", False) \
-                    or getattr(s, "valid_docs_mask", None) is not None:
-                raise DeviceUnsupported("consuming/upsert segments come with "
-                                        "a later slice of the port (ROADMAP "
-                                        "queue 1, item j)")
+        if not all(segment_device_eligible(s) for s in segments):
+            if len(segments) == 1:
+                return self.launch_host_part(q, segments[0], tracer=tracer)
+            raise DeviceUnsupported(
+                "a consuming or upsert-masked segment launches alone, in the "
+                "host path's shape (the engine splits it from the batch)")
         batch_key = self._batch_key(segments)
         ctx = self.batch_for(segments, retain=True)
         try:
             handle = self._launch_pinned(q, ctx, batch_key, segments, final,
-                                         reduce_mode, alive, tracer)
+                                         reduce_mode, alive, tracer, host)
         except BaseException:
             self._release_launch(batch_key)
             raise
@@ -1691,10 +1741,62 @@ class DeviceExecutor:
                              (time.perf_counter() - t_launch) * 1e3)
         return handle
 
+    def launch_host_part(self, q: QueryContext, part,
+                         tracer=None) -> InflightLaunch:
+        """Launch ``q`` over one part the reference answers on its host (a
+        consuming segment, its unfrozen tail, an upsert-dirtied chunklet,
+        an upsert-masked sealed segment) in that path's shape on the card
+        (engine/rows.py), with its valid-docs plane ANDed into the rows
+        the filter matched and the host path's stats.
+
+        A sealed segment's planes come from the batch LRU (its directory
+        is stable); its mask is not part of them, since the writer flips
+        it: the launch snapshots it and uploads it with its parameters. A
+        part without a directory builds a context of its own, which
+        neither enters the LRU nor caches partials: a tail's key would
+        change with every query, and a dirty chunklet's mask with every
+        upsert. A consuming segment or a tail reads through a
+        ``SnapshotSegment`` of the docs it publishes now. The partial is
+        mergeable (the reference's host never finalizes)."""
+        t_launch = time.perf_counter()
+        if isinstance(part, ImmutableSegment):
+            key = self._batch_key([part])
+            ctx = self.batch_for([part], retain=True)
+        else:
+            view = SnapshotSegment(part) \
+                if getattr(part, "is_mutable", False) else part
+            key = ("host-part", view.dir)
+            ctx = BatchContext([view], self.device)
+            self._retain_launch(key)
+        try:
+            n = int(ctx.n_docs[0])
+            vd = valid_docs_snapshot(part, n)
+            valid = None
+            if vd is not None:
+                plane = np.zeros((1, ctx.pad_to), dtype=bool)
+                plane[0, :n] = vd
+                valid = to_device(plane, ctx.device)
+            alive = np.ones(1, dtype=bool)
+            with span("dispatch", tracer):
+                with _KernelClock(ctx.device) as clock:
+                    rl = rows.launch(self, q, ctx, False, None, alive,
+                                     valid=valid)
+                tr = _Transfer([rl.outs], clock.events, clock.seconds)
+            handle = InflightLaunch(
+                self, key, self._first(self._make_resolve(tr, tracer)),
+                lambda host: rl.finish(host, self))
+        except BaseException:
+            self._release_launch(key)
+            raise
+        handle.tracer = tracer
+        self.metrics.time_ms("deviceLaunchMs",
+                             (time.perf_counter() - t_launch) * 1e3)
+        return handle
+
     def _launch_pinned(self, q, ctx, batch_key, segments, final, reduce_mode,
-                       alive, tracer) -> InflightLaunch:
+                       alive, tracer, host=False) -> InflightLaunch:
         alive = self.alive_mask(q, segments, alive)
-        if self.host_shape(q, ctx):
+        if host or self.host_shape(q, ctx):
             # the reference answers this shape on its host: the card runs
             # it in that shape, solo and uncached, as the reference's host
             # path neither coalesces nor caches

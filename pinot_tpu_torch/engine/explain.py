@@ -209,7 +209,8 @@ def explain_plan(engine, q: QueryContext) -> dict:
         shape = "SELECT_ORDERBY" if q.order_by else "SELECT"
     device_shape = engine.device.supports(q)
     backend = BACKEND_DEVICE if device_shape else BACKEND_HOST_SHAPE
-    segs = list(engine.tables.get(q.table_name) or ())
+    tdm = engine.tables.get(q.table_name)
+    segs = list(tdm.segments.values()) if tdm is not None else []
 
     lines = [f"BROKER_REDUCE(limit:{q.limit})",
              f"  COMBINE_{shape} [{backend}]",

@@ -36,7 +36,11 @@ rows and response stats of that host path:
 - stats as the host counts them: entries scanned in the filter by index
   choice, entries after it per kept row (per entry for an MV
   aggregation), pruned segments dropped (when all are pruned, the first
-  runs under a FALSE filter).
+  runs under a FALSE filter);
+- an upsert valid-docs plane (``launch(..., valid=...)``, the launch's
+  snapshot of a part's mask) ANDed into the filter's rows before any
+  aggregation, selection or DISTINCT reads them; the docs it masks still
+  count in totalDocs, as the host counts them.
 
 Besides the shapes ``DeviceExecutor.host_shape`` sends here, a device
 launch's fetch runs a query again here where the reference re-runs it on
@@ -142,14 +146,19 @@ def filter_plane(f, ctx, ev: ValueEvaluator) -> torch.Tensor:
         eval_filter(tpl, cols, params, shape, ctx.device, widths), shape)
 
 
-def _scan(q: QueryContext, ctx, alive) -> _Scan:
+def _scan(q: QueryContext, ctx, alive, valid_docs=None) -> _Scan:
     """The filter over the batch (``filter_plane``), dead segments and
-    padding rows masked."""
+    padding rows masked, and the upsert valid-docs plane ANDed in
+    (``valid_docs``, (S, L) bool, or None): the host path ANDs it into the
+    filter's rows before anything reads them, and counts the filter's
+    entries over every doc."""
     ev = ValueEvaluator(ctx)
     all_pruned = not alive.any()
     f = FilterNode.FALSE if all_pruned else q.filter
     valid = mask_ops.valid_mask(ctx.n_docs_dev, ctx.pad_to) \
         & to_device(alive, ctx.device)[:, None]
+    if valid_docs is not None:
+        valid = valid & valid_docs
     mask = filter_plane(f, ctx, ev) & valid
     entries = 0
     if q.filter is not None and not all_pruned:
@@ -162,14 +171,15 @@ def _scan(q: QueryContext, ctx, alive) -> _Scan:
 
 
 def launch(ex, q: QueryContext, ctx, final: bool, reduce_mode,
-           alive) -> RowsLaunch:
-    """Dispatch ``q`` in its host-path shape over the batch ``ctx``."""
+           alive, valid=None) -> RowsLaunch:
+    """Dispatch ``q`` in its host-path shape over the batch ``ctx``;
+    ``valid``: the (S, L) upsert valid-docs plane, or None."""
     aggs = q.aggregations()
     if q.distinct:
-        return _distinct(q, ctx, alive)
+        return _distinct(q, ctx, alive, valid)
     if not aggs:
-        return _selection(q, ctx, alive)
-    return _aggregate(ex, q, ctx, final, reduce_mode, alive, aggs)
+        return _selection(q, ctx, alive, valid)
+    return _aggregate(ex, q, ctx, final, reduce_mode, alive, aggs, valid)
 
 
 def _matched_rows(scan: _Scan) -> torch.Tensor:
@@ -181,8 +191,8 @@ def _matched_rows(scan: _Scan) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _selection(q: QueryContext, ctx, alive) -> RowsLaunch:
-    scan = _scan(q, ctx, alive)
+def _selection(q: QueryContext, ctx, alive, valid=None) -> RowsLaunch:
+    scan = _scan(q, ctx, alive, valid)
     ev, S, L = scan.ev, ctx.S, ctx.pad_to
     k = q.limit + q.offset
     if not q.order_by:
@@ -272,8 +282,8 @@ def _group_ids(ev, exprs, scan: _Scan, ctx) -> tuple:
     return vals, gid, G, gkeys
 
 
-def _distinct(q: QueryContext, ctx, alive) -> RowsLaunch:
-    scan = _scan(q, ctx, alive)
+def _distinct(q: QueryContext, ctx, alive, valid=None) -> RowsLaunch:
+    scan = _scan(q, ctx, alive, valid)
     ev = scan.ev
     for e in q.select_expressions:
         if e.is_identifier and ev.is_mv(e.name):
@@ -671,8 +681,9 @@ def _space_partials(state, host, present) -> list:
     return [(qi, part) for (qi, _a), part in zip(pairs_in, parts)]
 
 
-def _aggregate(ex, q, ctx, final, reduce_mode, alive, aggs) -> RowsLaunch:
-    scan = _scan(q, ctx, alive)
+def _aggregate(ex, q, ctx, final, reduce_mode, alive, aggs,
+               valid=None) -> RowsLaunch:
+    scan = _scan(q, ctx, alive, valid)
     ev, S = scan.ev, ctx.S
     outs0 = {"hx_matched": scan.mask.sum(dim=1, dtype=torch.int64)}
     groups = _mv_groups(aggs)

@@ -37,6 +37,11 @@ STRIP = ("timeUsedMs", "partialsCacheHit", "deviceBytesMoved",
          "deviceKernelMs", "deviceLinkMs", "roofline", "advisorDecisions")
 
 
+def table_segs(eng, name: str) -> list:
+    """The segments a port engine's table holds, in the order added."""
+    return list(eng.tables[name].segments.values())
+
+
 def canonical(resp: dict) -> dict:
     return {k: v for k, v in resp.items() if k not in STRIP}
 
@@ -135,7 +140,7 @@ def ref(dirs):
 
 def compile_q(eng, sql):
     q = optimize_query(compile_select(parse_sql(sql)))
-    return expand_star(q, eng.tables[q.table_name][0].column_names())
+    return expand_star(q, table_segs(eng, q.table_name)[0].column_names())
 
 
 MIXED_QUERIES = [
@@ -197,13 +202,13 @@ def test_inflight_launch_pins_its_batch(dirs):
     dev = eng.device
     dev.MAX_CACHED_BATCHES = 1
     q = compile_q(eng, MIXED_QUERIES[1])
-    segs = eng.tables["t"]
+    segs = table_segs(eng, "t")
     handle = dev.launch(q, segs)
     key = dev._batch_key(segs)
     assert dev.inflight == 1 and dev._inflight_launches == {key: 1}
     # another batch cannot evict the pinned one
     other = dev.fetch(dev.launch(compile_q(eng, MIXED_QUERIES[7]),
-                                 eng.tables["hc"]))
+                                 table_segs(eng, "hc")))
     assert other.stats.num_docs_scanned > 0
     assert key in dev._batches
     result = handle.fetch()
@@ -220,7 +225,7 @@ def test_failure_between_launch_and_fetch_releases_the_pin(dirs,
     eng = make_port(dirs)
     dev = eng.device
     q = compile_q(eng, MIXED_QUERIES[1])
-    handle = dev.launch(q, eng.tables["t"])
+    handle = dev.launch(q, table_segs(eng, "t"))
     assert dev.inflight == 1
     handle.release()  # the caller failed before its fetch
     assert dev.inflight == 0 and not dev._inflight_launches
@@ -258,7 +263,7 @@ def test_fetch_time_rerun_goes_through_the_gate(dirs):
         return fn()
 
     reruns = eng.device.host_shape_reruns
-    merged = eng.execute_segments_async(q, eng.tables["t"], terminal=True,
+    merged = eng.execute_segments_async(q, table_segs(eng, "t"), terminal=True,
                                         fallback_gate=gate)()
     assert gated == [1]
     assert eng.device.host_shape_reruns == reruns + 1
@@ -277,14 +282,14 @@ def test_expired_deadline_raises_before_the_fetch(dirs, monkeypatch):
     monkeypatch.setattr(device_mod._Transfer, "wait_link",
                         lambda self: waits.append(1) or real(self))
     q = compile_q(eng, MIXED_QUERIES[1])
-    fetch = eng.execute_segments_async(q, eng.tables["t"], terminal=True,
+    fetch = eng.execute_segments_async(q, table_segs(eng, "t"), terminal=True,
                                        deadline=Deadline(0.0))
     assert dev.inflight == 1
     with pytest.raises(QueryTimeout):
         fetch()
     assert waits == []
     assert dev.inflight == 0 and not dev._inflight_launches
-    merged = eng.execute_segments_async(q, eng.tables["t"], terminal=True,
+    merged = eng.execute_segments_async(q, table_segs(eng, "t"), terminal=True,
                                         deadline=Deadline(60.0))()
     assert merged.stats.num_docs_scanned == 4000 and waits == [1]
 
@@ -300,7 +305,7 @@ def test_traced_async_query_fetched_on_another_thread(dirs):
     eng.device.partials_cache_enabled = False
     q = compile_q(eng, "SELECT dim2, SUM(ivalue) FROM t GROUP BY dim2")
     tracer = Tracer("test-trace-1")
-    fetch = eng.execute_segments_async(q, eng.tables["t"], tracer=tracer)
+    fetch = eng.execute_segments_async(q, table_segs(eng, "t"), tracer=tracer)
     box = []
     th = threading.Thread(target=lambda: box.append(fetch()))
     th.start()
@@ -327,7 +332,7 @@ def test_cohort_members_each_get_fetch_spans(dirs):
 
     def worker(i):
         barrier.wait()
-        eng.execute_segments_async(qs[i], eng.tables["t"],
+        eng.execute_segments_async(qs[i], table_segs(eng, "t"),
                                    tracer=tracers[i])()
 
     co.force, co.window_s = True, 0.05
@@ -352,14 +357,15 @@ def test_cold_tier_segment_is_refused_in_band(dirs):
     from pinot_tpu_torch.engine.params import DeviceUnsupported
 
     eng = make_port(dirs)
-    segs = list(eng.tables["t"])
+    segs = table_segs(eng, "t")
     cold = ImmutableSegment(dirs["t"][0])
     cold.is_cold = True
     q = compile_q(eng, MIXED_QUERIES[1])
     with pytest.raises(DeviceUnsupported, match="item m"):
         eng.execute_segments_async(q, segs[1:] + [cold])
     assert eng.device.inflight == 0
-    eng.tables["t"] = segs[1:] + [cold]
+    eng.tables["t"].remove_segment(segs[0].name)
+    eng.tables["t"].add_segment(cold)  # the table: segs[1:] + [cold]
     r = eng.execute(MIXED_QUERIES[1])
     (exc,) = r["exceptions"]
     assert exc["message"].startswith("DeviceUnsupported") \

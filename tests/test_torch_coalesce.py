@@ -50,6 +50,11 @@ MEMBERS = [1, 3, 8]
 N = 4096
 
 
+def table_segs(eng, name: str) -> list:
+    """The segments a port engine's table holds, in the order added."""
+    return list(eng.tables[name].segments.values())
+
+
 def _reference(fn, *stacked):
     """``fn`` (a reference Pallas entry in interpret mode) per member:
     M solo calls up to 3 members, else one call under ``jax.vmap``.
@@ -582,7 +587,7 @@ def test_all_abandoned_cohort_signals_fetch_done(engines):
     co = dev.coalescer
     q = optimize_query(compile_select(parse_sql(
         "SELECT dim2, COUNT(*) FROM t GROUP BY dim2")))
-    segs = port.tables["t"]
+    segs = table_segs(port, "t")
     q = expand_star(q, segs[0].column_names())
     co.force = True
     try:

@@ -68,6 +68,11 @@ UNTRIMMED_QUERIES = [
 ]
 
 
+def table_segs(eng, name: str) -> list:
+    """The segments a port engine's table holds, in the order added."""
+    return list(eng.tables[name].segments.values())
+
+
 def _write(base, name, schema, cols, nseg):
     n = len(next(iter(cols.values())))
     out = []
@@ -263,7 +268,7 @@ def test_server_partial_mode_keep_bound(wide):
            "ORDER BY SUM(v) DESC, a, b LIMIT 8")
     port, ref = _engines(wide, "hc")
     q = optimize_query(compile_query(sql))
-    merged = port.execute_segments(q, port.tables["hc"], terminal=False)
+    merged = port.execute_segments(q, table_segs(port, "hc"), terminal=False)
     assert port.device.device_reduce_queries == 1
     assert len(merged.group_keys[0]) == 5000
     got = finalize(q, trim_group_by(q, merged)).rows
@@ -277,7 +282,7 @@ def test_server_partial_mode_keep_bound(wide):
         tdm.release(acq)
     assert got == want
     untrimmed = port.execute_segments(
-        optimize_query(compile_query(OFF + sql)), port.tables["hc"],
+        optimize_query(compile_query(OFF + sql)), table_segs(port, "hc"),
         terminal=False)
     assert len(untrimmed.group_keys[0]) > 5000
     # the kept groups are the top 5,000 of the untrimmed partial

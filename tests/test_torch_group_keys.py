@@ -153,6 +153,11 @@ K1_QUERIES = ("distinct_dict", "distinct_dict_two", "gb_segment",
               "gb_expression_trim")
 
 
+def table_segs(eng, name: str) -> list:
+    """The segments a port engine's table holds, in the order added."""
+    return list(eng.tables[name].segments.values())
+
+
 def _rows_close(rows_a, rows_b):
     if len(rows_a) != len(rows_b):
         return False
@@ -314,9 +319,9 @@ def test_non_terminal_distinct_sets_match_reference(segment_dirs,
         return nums, len(values) - len(nums)
 
     port = _port(segment_dirs)
-    got = port.execute_segments(compile_query(sql), port.tables["t"])
+    got = port.execute_segments(compile_query(sql), table_segs(port, "t"))
     want = ref_engine.execute_segments(
-        ref_compile(sql), list(ref_engine.tables["t"].segments.values()))
+        ref_compile(sql), table_segs(ref_engine, "t"))
     for g, w in zip(got.group_keys or (), want.group_keys or ()):
         np.testing.assert_array_equal(g, w)
     sets = [(pg, pw) for pg, pw in zip(got.agg_partials, want.agg_partials)

@@ -49,6 +49,11 @@ MV_AGGS = ("countmv", "summv", "minmv", "maxmv", "avgmv", "minmaxrangemv",
            "percentilerawtdigestmv")
 
 
+def table_segs(eng, name: str) -> list:
+    """The segments a port engine's table holds, in the order added."""
+    return list(eng.tables[name].segments.values())
+
+
 def _agg_sql(name: str, col: str) -> str:
     arg = f"{col}, 90" if name.startswith("percentile") else col
     return f"{name.upper()}({arg})"
@@ -295,7 +300,7 @@ def test_mv_selection_round_trips_the_datatable(segment_dirs):
     path's, and survive the wire (engine/datatable.py)."""
     eng = _port(segment_dirs)
     q = compile_query("SELECT tags, codes, amount FROM ev LIMIT 7")
-    res = eng.device.execute(q, eng.tables["ev"])
+    res = eng.device.execute(q, table_segs(eng, "ev"))
     back = datatable.decode(datatable.encode(res))
     assert len(res.rows[0]) == 3 * 7
     for j in (0, 1):

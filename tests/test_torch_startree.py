@@ -91,6 +91,11 @@ MERGES = [
 ]
 
 
+def table_segs(eng, name: str) -> list:
+    """The segments a port engine's table holds, in the order added."""
+    return list(eng.tables[name].segments.values())
+
+
 def _columns(n=20_000, seed=31):
     rng = np.random.default_rng(seed)
     return {
@@ -465,7 +470,7 @@ def test_non_terminal_cube_partials_match_reference(dirs, sql):
 
     port, ref = _port(dirs["ref_star"]), _ref(dirs["ref_star"])
     got = port.execute_segments(optimize_query(compile_query(sql)),
-                                port.tables["ssb"], terminal=False)
+                                table_segs(port, "ssb"), terminal=False)
     tdm = ref.tables["ssb"]
     acq = tdm.acquire()
     try:
