@@ -198,6 +198,27 @@ Phases, all on ``cuda:0``:
    oracle at one published count between the counts read before and
    after it; and an update wave of 10 % of lineorder_up's keys, after
    which its answers follow the new masks.
+   The fourteenth path, ``multistage`` (after ``realtime``; its queries
+   ``MS_QUERIES``), joins SSB's star schema on the card: ``customer``
+   (100,000 rows), ``supplier`` (2,000) and ``dates`` (2,557, 1992-1998)
+   with SSB's column names and 1-based keys at ``generate``'s key spaces
+   (so lo_custkey 0 and lo_suppkey 0 miss), nation = key % 25 and region
+   = nation // 5, written by the port's creator as dimension tables
+   (seed 41). The reference refuses a stage-1 leaf past 4,000,000 rows,
+   so each lineorder leaf is a month or a quarter. Star joins grouped by
+   nation and region (stage 2's COUNT and integer SUM / AVG on K1), SSB
+   Q3.1's shape over a quarter (four leaves, three BROADCAST joins), a
+   LEFT JOIN with its misses, a selection, RANK and a running SUM over
+   2,000 partitions, a window over a join, LOOKUP grouped over all 100M
+   rows (the host path's shape, K1 and K2) and its month twin equal to
+   the LEFT JOIN row for row, a join over ``lineorder_rt``'s consuming
+   segment; each against a numpy oracle (dense key arrays, lexsort), its
+   leaves' and joined rows with it; a year-wide leaf refused in-band;
+   EXPLAIN and EXPLAIN ANALYZE of the Q3.1 shape with each leaf's actual
+   rows; per query the leaf, join, window and stage-2 span ms and a
+   traced run's device time and busy share. K1 is held against its
+   plain version at stage 2's captured inputs and K1 and K2 at the LOOKUP
+   group-by's (``check_multistage_kernels``).
    The twelfth path, ``serving``, over lineorder and lineorder_by_date
    (the eleven paths run with the device partials cache off, so their
    repeats run the kernels): four cohorts (``SERVE_COHORTS``), each
@@ -4681,6 +4702,498 @@ def run_realtime(engine, seg, stream, offset, more: dict, want: dict,
 
 
 # ---------------------------------------------------------------------------
+# the multistage path: SSB's star schema joined on the card
+# ---------------------------------------------------------------------------
+
+MS_SEED = 41
+CUSTOMERS = 100_000     # c_custkey 1..100,000: lo_custkey 0 misses
+SUPPLIERS = 2_000       # s_suppkey 1..2,000: lo_suppkey 0 misses
+MKT_SEGMENTS = np.array(["AUTOMOBILE", "BUILDING", "FURNITURE", "HOUSEHOLD",
+                         "MACHINERY"])
+MONTH_NAMES = np.array(["January", "February", "March", "April", "May",
+                        "June", "July", "August", "September", "October",
+                        "November", "December"])
+DAY_NAMES = np.array(["Monday", "Tuesday", "Wednesday", "Thursday",
+                      "Friday", "Saturday", "Sunday"])
+# the reference refuses a stage-1 leaf past 4,000,000 rows: a month
+# (~1.19M rows) or a quarter (~3.57M) of lineorder, never a year (~14.3M)
+MS_MONTH = "lo.lo_orderdate BETWEEN 19930301 AND 19930328"
+MS_QUARTER = "lo.lo_orderdate BETWEEN 19930101 AND 19930328"
+MS_YEAR = "lo.lo_orderdate BETWEEN 19930101 AND 19931231"
+_MS_CS = ("lineorder lo JOIN customer c ON lo.lo_custkey = c.c_custkey "
+          "JOIN supplier s ON lo.lo_suppkey = s.s_suppkey")
+_MS_LOOKUP = "LOOKUP('customer', 'c_nation', 'c_custkey', lo_custkey)"
+_MS_ROWNUM = ("ROW_NUMBER() OVER (PARTITION BY c.c_region ORDER BY "
+              "lo.lo_revenue DESC, lo.lo_orderdate, lo.lo_custkey, "
+              "lo.lo_suppkey)")
+MS_QUERIES = {
+    # stage 2 on K1: COUNT, SUM and AVG of two integer columns, 125 groups
+    "ms_nation_region": (
+        f"SELECT c.c_nation, s.s_region, COUNT(*), SUM(lo.lo_revenue), "
+        f"AVG(lo.lo_quantity) FROM {_MS_CS} WHERE {MS_MONTH} "
+        f"GROUP BY c.c_nation, s.s_region ORDER BY SUM(lo.lo_revenue) DESC, "
+        f"c.c_nation, s.s_region LIMIT 200"),
+    # SSB Q3.1's shape over a quarter: four leaves, three BROADCAST joins
+    "ms_q31": (
+        f"SELECT c.c_nation, s.s_nation, d.d_year, SUM(lo.lo_revenue) "
+        f"FROM {_MS_CS} JOIN dates d ON lo.lo_orderdate = d.d_datekey "
+        f"WHERE c.c_region = 'ASIA' AND s.s_region = 'ASIA' AND "
+        f"{MS_QUARTER} GROUP BY c.c_nation, s.s_nation, d.d_year "
+        f"ORDER BY d.d_year, SUM(lo.lo_revenue) DESC, c.c_nation, "
+        f"s.s_nation LIMIT 100"),
+    "ms_left_supp": (
+        f"SELECT s.s_nation, COUNT(*), SUM(lo.lo_revenue) FROM lineorder lo "
+        f"LEFT JOIN supplier s ON lo.lo_suppkey = s.s_suppkey "
+        f"WHERE {MS_MONTH} GROUP BY s.s_nation ORDER BY s.s_nation "
+        f"LIMIT 30"),
+    "ms_select": (
+        f"SELECT lo.lo_orderdate, lo.lo_custkey, c.c_name, c.c_city, "
+        f"lo.lo_revenue FROM lineorder lo JOIN customer c "
+        f"ON lo.lo_custkey = c.c_custkey WHERE {MS_MONTH} "
+        f"ORDER BY lo.lo_revenue DESC, lo.lo_orderdate, lo.lo_custkey, "
+        f"lo.lo_suppkey LIMIT 100"),
+    "ms_window": (
+        f"SELECT lo_suppkey, lo_orderdate, lo_revenue, RANK() OVER "
+        f"(PARTITION BY lo_suppkey ORDER BY lo_revenue DESC), "
+        f"SUM(lo_revenue) OVER (PARTITION BY lo_suppkey ORDER BY "
+        f"lo_orderdate) FROM lineorder WHERE "
+        f"{MS_MONTH.replace('lo.', '')} ORDER BY lo_revenue DESC, "
+        f"lo_suppkey, lo_orderdate LIMIT 100"),
+    "ms_window_join": (
+        f"SELECT c.c_region, lo.lo_revenue, lo.lo_orderdate, "
+        f"lo.lo_custkey, COUNT(*) OVER (PARTITION BY c.c_region), "
+        f"{_MS_ROWNUM} FROM lineorder lo JOIN customer c "
+        f"ON lo.lo_custkey = c.c_custkey WHERE {MS_MONTH} "
+        f"ORDER BY {_MS_ROWNUM}, c.c_region LIMIT 100"),
+    # single-stage LOOKUP over all 100M rows: the host path's shape
+    "ms_lookup": (
+        f"SELECT {_MS_LOOKUP}, COUNT(*), SUM(lo_revenue), MAX(lo_revenue) "
+        f"FROM lineorder GROUP BY {_MS_LOOKUP} ORDER BY {_MS_LOOKUP} "
+        f"LIMIT 100"),
+    # the twins: over one month the LOOKUP equals the LEFT JOIN
+    "ms_lookup_month": (
+        f"SELECT {_MS_LOOKUP}, COUNT(*), SUM(lo_revenue), MAX(lo_revenue) "
+        f"FROM lineorder WHERE {MS_MONTH.replace('lo.', '')} "
+        f"GROUP BY {_MS_LOOKUP} ORDER BY {_MS_LOOKUP} LIMIT 100"),
+    "ms_left_cust": (
+        f"SELECT c.c_nation, COUNT(*), SUM(lo.lo_revenue), "
+        f"MAX(lo.lo_revenue) FROM lineorder lo LEFT JOIN customer c "
+        f"ON lo.lo_custkey = c.c_custkey WHERE {MS_MONTH} "
+        f"GROUP BY c.c_nation ORDER BY c.c_nation LIMIT 100"),
+    # sealed segments, the consuming segment's chunklets and tail
+    "ms_consuming": (
+        f"SELECT s.s_region, COUNT(*), SUM(lo.lo_revenue) FROM {RT_TABLE} lo "
+        f"JOIN supplier s ON lo.lo_suppkey = s.s_suppkey WHERE {MS_MONTH} "
+        f"GROUP BY s.s_region ORDER BY s.s_region"),
+}
+MS_TWINS = (("ms_lookup_month", "ms_left_cust"),)
+MS_REFUSED = (f"SELECT COUNT(*) FROM lineorder lo JOIN dates d "
+              f"ON lo.lo_orderdate = d.d_datekey WHERE {MS_YEAR}")
+PATHS["multistage"] = (MS_QUERIES, ("group_plane_sums", "group_minmax"),
+                       ((3, "group_scatter", "plane_group_sums"),
+                        (4, "group_scatter", "group_minmax")))
+
+
+def ms_dims(seed: int = MS_SEED) -> dict:
+    """SSB's customer, supplier and date dimensions (O'Neil et al., Star
+    Schema Benchmark rev. 3: their column names and 1-based keys) at the
+    key spaces of ``generate``: nation = key % 25, region = nation // 5,
+    so every joined count is an exact fraction; cities and market
+    segments drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    ck = np.arange(1, CUSTOMERS + 1, dtype=np.int32)
+    cn = ck % 25
+    customer = {
+        "c_custkey": ck,
+        "c_name": np.char.add("Customer#", np.char.zfill(ck.astype(str), 9)),
+        "c_city": np.char.add(NATIONS[cn],
+                              rng.integers(0, 10, CUSTOMERS).astype(str)),
+        "c_nation": NATIONS[cn],
+        "c_region": REGIONS[cn // 5],
+        "c_mktsegment": MKT_SEGMENTS[rng.integers(0, 5, CUSTOMERS)],
+    }
+    sk = np.arange(1, SUPPLIERS + 1, dtype=np.int32)
+    sn = sk % 25
+    supplier = {
+        "s_suppkey": sk,
+        "s_city": np.char.add(NATIONS[sn],
+                              rng.integers(0, 10, SUPPLIERS).astype(str)),
+        "s_nation": NATIONS[sn],
+        "s_region": REGIONS[sn // 5],
+    }
+    days = np.arange(np.datetime64("1992-01-01"), np.datetime64("1999-01-01"))
+    year = days.astype("datetime64[Y]").astype(np.int64) + 1970
+    month = days.astype("datetime64[M]").astype(np.int64) % 12 + 1
+    day = (days - days.astype("datetime64[M]")).astype(np.int64) + 1
+    doy = (days - days.astype("datetime64[Y]")).astype(np.int64)
+    dates = {
+        "d_datekey": (year * 10000 + month * 100 + day).astype(np.int32),
+        "d_year": year.astype(np.int32),
+        "d_month": MONTH_NAMES[month - 1],
+        "d_yearmonthnum": (year * 100 + month).astype(np.int32),
+        "d_weeknuminyear": (doy // 7 + 1).astype(np.int32),
+        # 1970-01-01 was a Thursday
+        "d_dayofweek": DAY_NAMES[(days.astype(np.int64) + 3) % 7],
+    }
+    return {"customer": customer, "supplier": supplier, "dates": dates}
+
+
+def write_ms_dim(name: str, cols: dict) -> str:
+    """A dimension table's one segment, written with the port's creator:
+    its first column the primary key, ``is_dim_table`` set."""
+    from pinot_tpu_torch.common.datatypes import DataType
+    from pinot_tpu_torch.common.schema import Schema
+    from pinot_tpu_torch.common.table_config import TableConfig
+    from pinot_tpu_torch.storage.creator import build_segment
+
+    dims = [(k, DataType.INT if v.dtype.kind == "i" else DataType.STRING)
+            for k, v in cols.items()]
+    schema = Schema.build(name=name, dimensions=dims,
+                          primary_key_columns=[dims[0][0]])
+    out = os.path.join(DATA_DIR, name, "d0")
+    build_segment(schema, cols, out,
+                  TableConfig(table_name=name, is_dim_table=True), f"{name}0")
+    return out
+
+
+def _ms_stats(leaves: dict, totals: dict, joined: int) -> dict:
+    """A multi-stage answer's stats: each leaf's matched rows, their sum
+    scanned, every leaf table's docs in totalDocs, the joined rows."""
+    return {"totalDocs": sum(totals[a] for a in leaves),
+            "numJoinedRows": int(joined), "leafRows": dict(leaves)}
+
+
+def ms_oracle(data: list, dims: dict, rt: dict, rt_rows: int) -> dict:
+    """The multistage path's answers from the generated columns: dense
+    key -> attribute arrays gathered by key (-1 where the key has no
+    dimension row), ``np.lexsort`` for the orders and the windows."""
+    c = {k: np.concatenate([d[k] for d in data])
+         for k in ("lo_custkey", "lo_suppkey", "lo_orderdate", "lo_revenue",
+                   "lo_quantity")}
+    cust, supp, od = c["lo_custkey"], c["lo_suppkey"], c["lo_orderdate"]
+    rev, qty = c["lo_revenue"].astype(np.int64), c["lo_quantity"]
+    n_lo = len(cust)
+    cu, su, da = dims["customer"], dims["supplier"], dims["dates"]
+    sizes = {"customer": len(cu["c_custkey"]), "supplier": len(su["s_suppkey"]),
+             "dates": len(da["d_datekey"])}
+
+    def dense(keys, values, size):
+        out = np.full(size, -1, dtype=np.int64)
+        out[keys] = values
+        return out
+
+    c_nat = dense(cu["c_custkey"], np.searchsorted(NATIONS, cu["c_nation"]),
+                  CUSTOMERS + 1)
+    c_reg = dense(cu["c_custkey"], np.searchsorted(REGIONS, cu["c_region"]),
+                  CUSTOMERS + 1)
+    s_nat = dense(su["s_suppkey"], np.searchsorted(NATIONS, su["s_nation"]),
+                  SUPPLIERS + 1)
+    s_reg = dense(su["s_suppkey"], np.searchsorted(REGIONS, su["s_region"]),
+                  SUPPLIERS + 1)
+    month = (od >= 19930301) & (od <= 19930328)
+    quarter = (od >= 19930101) & (od <= 19930328)
+    n_month, n_quarter = int(month.sum()), int(quarter.sum())
+    tot = {"lo": n_lo, "c": sizes["customer"], "s": sizes["supplier"],
+           "d": sizes["dates"], "lineorder": n_lo}
+    want = {}
+
+    # ms_nation_region
+    cn, sr = c_nat[cust[month]], s_reg[supp[month]]
+    keep = (cn >= 0) & (sr >= 0)
+    g = cn[keep] * 5 + sr[keep]
+    cnt = np.bincount(g, minlength=125)
+    rs = np.bincount(g, weights=rev[month][keep].astype(np.float64),
+                     minlength=125)
+    qs = np.bincount(g, weights=qty[month][keep].astype(np.float64),
+                     minlength=125)
+    ks = sorted((k for k in range(125) if cnt[k]),
+                key=lambda k: (-rs[k], NATIONS[k // 5], REGIONS[k % 5]))
+    leaves = {"lo": n_month, "c": tot["c"], "s": tot["s"]}
+    want["ms_nation_region"] = (
+        [[str(NATIONS[k // 5]), str(REGIONS[k % 5]), int(cnt[k]),
+          float(rs[k]), float(qs[k]) / float(cnt[k])] for k in ks],
+        sum(leaves.values()), _ms_stats(leaves, tot, keep.sum()))
+
+    # ms_q31: ASIA customers and suppliers over the quarter
+    asia = int(np.searchsorted(REGIONS, "ASIA"))
+    m = quarter & (c_reg[cust] == asia) & (s_reg[supp] == asia)
+    year = od[m] // 10000
+    g = (c_nat[cust[m]] * 25 + s_nat[supp[m]]) * 7 + (year - 1992)
+    cnt = np.bincount(g, minlength=25 * 25 * 7)
+    rs = np.bincount(g, weights=rev[m].astype(np.float64),
+                     minlength=25 * 25 * 7)
+    ks = sorted((k for k in range(len(cnt)) if cnt[k]),
+                key=lambda k: (k % 7, -rs[k], NATIONS[k // 175],
+                               NATIONS[k // 7 % 25]))[:100]
+    leaves = {"lo": n_quarter, "c": int((c_reg[1:] == asia).sum()),
+              "s": int((s_reg[1:] == asia).sum()), "d": tot["d"]}
+    want["ms_q31"] = (
+        [[str(NATIONS[k // 175]), str(NATIONS[k // 7 % 25]), 1992 + k % 7,
+          float(rs[k])] for k in ks],
+        sum(leaves.values()), _ms_stats(leaves, tot, m.sum()))
+
+    # ms_left_supp: the misses group under ""
+    sn = s_nat[supp[month]]
+    cnt = np.bincount(sn + 1, minlength=26)
+    rs = np.bincount(sn + 1, weights=rev[month].astype(np.float64),
+                     minlength=26)
+    names = [""] + [str(x) for x in NATIONS]
+    leaves = {"lo": n_month, "s": tot["s"]}
+    want["ms_left_supp"] = (
+        [[names[k], int(cnt[k]), float(rs[k])] for k in range(26) if cnt[k]],
+        sum(leaves.values()), _ms_stats(leaves, tot, n_month))
+
+    # ms_select: the top 100 joined rows, no tie among them
+    m = month & (c_nat[cust] >= 0)
+    keys = (supp[m], cust[m], od[m], -rev[m])
+    order = np.lexsort(keys)[:101]
+    tops = list(zip(*(k[order].tolist() for k in keys)))
+    if len(set(tops[:100])) < 100 or tops[99] == tops[100]:
+        raise AssertionError("ms_select's top 100 rows tie")
+    _s, ck, d, r = (k[order[:100]] for k in keys)
+    at = np.searchsorted(cu["c_custkey"], ck)
+    leaves = {"lo": n_month, "c": tot["c"]}
+    want["ms_select"] = (
+        [[int(a), int(b), str(nm), str(ct), int(-x)] for a, b, nm, ct, x in
+         zip(d, ck, np.asarray(cu["c_name"])[at], np.asarray(cu["c_city"])[at],
+             r)],
+        sum(leaves.values()), _ms_stats(leaves, tot, m.sum()))
+
+    # ms_window: RANK by revenue and a running SUM by date per supplier
+    sp, r, d = supp[month], rev[month], od[month]
+    n = len(sp)
+    pos = np.arange(n)
+    rank = np.empty(n, dtype=np.int64)
+    o = np.lexsort((pos, -r, sp))
+    ps_, rs_ = sp[o], r[o]
+    start = np.r_[True, ps_[1:] != ps_[:-1]]
+    peer = start | np.r_[True, rs_[1:] != rs_[:-1]]
+    first = np.maximum.accumulate(np.where(start, pos, 0))
+    rank[o] = np.maximum.accumulate(np.where(peer, pos, 0)) - first + 1
+    run = np.empty(n, dtype=np.int64)
+    o = np.lexsort((pos, d, sp))
+    ps_, ds_ = sp[o], d[o]
+    start = np.r_[True, ps_[1:] != ps_[:-1]]
+    cs = np.cumsum(r[o])
+    base = (cs - r[o])[np.maximum.accumulate(np.where(start, pos, 0))]
+    csum = cs - base
+    end = np.r_[(ps_[1:] != ps_[:-1]) | (ds_[1:] != ds_[:-1]), True]
+    last = np.minimum.accumulate(np.where(end, pos, n)[::-1])[::-1]
+    run[o] = csum[last]
+    top = np.lexsort((d, sp, -r))[:100]
+    want["ms_window"] = (
+        [[int(sp[i]), int(d[i]), int(r[i]), int(rank[i]), float(run[i])]
+         for i in top], n_month,
+        _ms_stats({"lineorder": n_month}, tot, n_month))
+
+    # ms_window_join: the region's row count and its row number
+    m = month & (c_nat[cust] >= 0)
+    reg = c_reg[cust[m]]
+    rr, dd, cc, ss = rev[m], od[m], cust[m], supp[m]
+    k = len(reg)
+    o = np.lexsort((np.arange(k), ss, cc, dd, -rr, reg))
+    rg = reg[o]
+    start = np.r_[True, rg[1:] != rg[:-1]]
+    rn = np.empty(k, dtype=np.int64)
+    rn[o] = np.arange(k) - np.maximum.accumulate(
+        np.where(start, np.arange(k), 0)) + 1
+    per = np.bincount(reg, minlength=5)
+    top = sorted(np.nonzero(rn <= 20)[0], key=lambda i: (rn[i],
+                                                         REGIONS[reg[i]]))
+    leaves = {"lo": n_month, "c": tot["c"]}
+    want["ms_window_join"] = (
+        [[str(REGIONS[reg[i]]), int(rr[i]), int(dd[i]), int(cc[i]),
+          int(per[reg[i]]), int(rn[i])] for i in top[:100]],
+        sum(leaves.values()), _ms_stats(leaves, tot, k))
+
+    # LOOKUP's group-by and its twins
+    def nation_groups(mask):
+        cn = c_nat[cust[mask]]
+        gg = cn + 1
+        cnt = np.bincount(gg, minlength=26)
+        rs = np.bincount(gg, weights=rev[mask].astype(np.float64),
+                         minlength=26)
+        mx = np.full(26, -1, dtype=np.int64)
+        np.maximum.at(mx, gg, rev[mask])
+        return [[names[k], int(cnt[k]), float(rs[k]), float(mx[k])]
+                for k in range(26) if cnt[k]]
+
+    every = np.ones(n_lo, dtype=bool)
+    want["ms_lookup"] = (nation_groups(every), n_lo, {"totalDocs": n_lo})
+    want["ms_lookup_month"] = (nation_groups(month), n_month,
+                               {"totalDocs": n_lo})
+    leaves = {"lo": n_month, "c": tot["c"]}
+    want["ms_left_cust"] = (nation_groups(month), sum(leaves.values()),
+                            _ms_stats(leaves, tot, n_month))
+
+    # ms_consuming: lineorder's rows, then the consuming segment's first
+    # rt_rows
+    tail = (rt["lo_orderdate"][:rt_rows] >= 19930301) \
+        & (rt["lo_orderdate"][:rt_rows] <= 19930328)
+    sp2 = np.concatenate([supp[month], rt["lo_suppkey"][:rt_rows][tail]])
+    rev2 = np.concatenate([rev[month], rt["lo_revenue"][:rt_rows][tail]])
+    sr = s_reg[sp2]
+    keep = sr >= 0
+    cnt = np.bincount(sr[keep], minlength=5)
+    rs = np.bincount(sr[keep], weights=rev2[keep].astype(np.float64),
+                     minlength=5)
+    leaves = {"lo": len(sp2), "s": tot["s"]}
+    totals = dict(tot, lo=n_lo + rt_rows)
+    want["ms_consuming"] = (
+        [[str(REGIONS[k]), int(cnt[k]), float(rs[k])] for k in range(5)
+         if cnt[k]], sum(leaves.values()), _ms_stats(leaves, totals,
+                                                     keep.sum()))
+    want["ms_explain"] = {"quarter": n_quarter, "year_rows": int(
+        ((od >= 19930101) & (od <= 19931231)).sum())}
+    return want
+
+
+def ms_launches(want: dict, gate: int) -> dict:
+    """The kernel launches one execution of each multistage query makes:
+    stage 2's COUNT and integer sums one K1 launch when the joined rows
+    reach K1's ``gate`` (none under it, nor for a selection or a window);
+    LOOKUP's group-by, in the host path's shape over the batch, one K1
+    and one K2 launch."""
+    out = {}
+    for name, sql in MS_QUERIES.items():
+        if "LOOKUP" in sql:
+            out[name] = {"group_plane_sums": 1, "group_minmax": 1}
+            continue
+        joined = want[name][2]["numJoinedRows"]
+        out[name] = {"group_plane_sums": int("GROUP BY" in sql
+                                             and joined >= gate),
+                     "group_minmax": 0}
+    return out
+
+
+def check_multistage_kernels(engine, k1: dict, k2: dict) -> None:
+    """K1 at stage 2's own inputs (ms_nation_region's and ms_q31's group
+    ids over the joined rows, their integer planes), and K1 and K2 at the
+    LOOKUP group-by's (ms_lookup, the host path's shape over 100M rows),
+    captured at their entries and held against their plain versions."""
+    from pinot_tpu_torch.ops import group_scatter as ps
+
+    for name in ("ms_nation_region", "ms_q31", "ms_lookup"):
+        if not QUERY_LAUNCHES[name]["group_plane_sums"]:
+            log(f"{name}: its joined rows are below K1's gate at this size "
+                f"(a rehearsal): K1 not captured")
+            continue
+        for (gid, sources, G), kw in capture_calls(
+                engine, MS_QUERIES[name], ps, "plane_group_sums"):
+            count = kw.get("count", True)
+            k1["shapes"].append(k1_shape(
+                f"{name}: n={gid.numel()}, G={G}, "
+                f"{planes_label(sources, count)}",
+                ps.plane_group_sums, G, sources, count, gid))
+    for (gid, srcs, G), _kw in capture_calls(
+            engine, MS_QUERIES["ms_lookup"], ps, "group_minmax_sources"):
+        k2["shapes"].append(k2_shape(
+            f"ms_lookup: n={gid.numel()}, " + ", ".join(
+                f"{s.values.dtype} {'+'.join(s.ops)}"
+                for s in srcs).replace("torch.", ""), gid, srcs, G))
+
+
+def _ms_spans(engine, sql: str) -> dict:
+    """One EXPLAIN ANALYZE run's span ms: the leaves (``host_scan``), the
+    join, the windows and the aggregation under ``stage2``."""
+    resp = engine.execute("EXPLAIN ANALYZE " + sql)
+    if resp["exceptions"]:
+        raise AssertionError(f"EXPLAIN ANALYZE {sql!r}: {resp['exceptions']}")
+    out = {"leaf": 0.0, "join": 0.0, "window": 0.0, "stage2": 0.0,
+           "aggregate": 0.0}
+    for s in resp["analyzedResponse"]["traceInfo"]["server"]:
+        key = {"host_scan": "leaf", "stage2": "stage2",
+               "stage2.join": "join", "stage2.window": "window",
+               "stage2.aggregate": "aggregate"}.get(s["phase"])
+        if key is not None:
+            out[key] += s["durationMs"]
+    return out
+
+
+def ms_explain(engine, want: dict) -> dict:
+    """EXPLAIN and EXPLAIN ANALYZE of ms_q31: the stage lines, BROADCAST
+    for the three dimension builds, a local boundary, and each leaf's
+    actual rows equal to the oracle's."""
+    sql = MS_QUERIES["ms_q31"]
+    lines = [r[0] for r in engine.execute(
+        "EXPLAIN PLAN FOR " + sql)["resultTable"]["rows"]]
+    stats = want["ms_q31"][2]
+    need = ["  STAGE_2_AGGREGATE_GROUPBY_ORDERBY(", "[DEVICE(torch/cuda)]",
+            "  STAGE_BOUNDARY(exchange:BROADCAST [local])",
+            "  JOIN_INNER(strategy=BROADCAST, build=c=customer dim, "
+            "probe=lo=lineorder)",
+            "  JOIN_INNER(strategy=BROADCAST, build=s=supplier dim, ",
+            "  JOIN_INNER(strategy=BROADCAST, build=d=dates dim, ",
+            "  SCAN(lo=lineorder [probe])", "  SCAN(c=customer "
+            "[build/broadcast])", "FILTER_PREDICATE(c_region = 'ASIA')"]
+    text = "\n".join(lines)
+    missing = [s for s in need if s not in text]
+    if missing:
+        raise AssertionError(f"ms_q31's EXPLAIN lacks {missing}: {lines}")
+    resp = engine.execute("EXPLAIN ANALYZE " + sql)
+    alines = [r[0] for r in resp["resultTable"]["rows"]]
+    for alias, table in (("lo", "lineorder"), ("c", "customer"),
+                         ("s", "supplier"), ("d", "dates")):
+        n = stats["leafRows"][alias]
+        if not any(ln.startswith(f"  SCAN({alias}={table} ")
+                   and ln.endswith(f"(actual: out={n} rows)")
+                   for ln in alines):
+            raise AssertionError(f"ms_q31's EXPLAIN ANALYZE: SCAN({alias}) "
+                                 f"is not {n} rows: {alines}")
+    joined = stats["numJoinedRows"]
+    if sum(ln.endswith(f"(actual: out={joined} rows)") for ln in alines
+           if ln.strip().startswith("JOIN_")) != 3:
+        raise AssertionError(f"ms_q31's EXPLAIN ANALYZE joins: {alines}")
+    if resp["analyzedResponse"]["resultTable"]["rows"] \
+            != engine.execute(sql)["resultTable"]["rows"]:
+        raise AssertionError("ms_q31's analyzed rows differ")
+    log(f"ms_explain: ms_q31's plan ({len(lines)} lines) and its ANALYZE "
+        f"actuals match: leaves {stats['leafRows']}, {joined} joined rows")
+    return {"plan_lines": len(lines),
+            "phase": [ln.strip() for ln in alines if "PHASE(" in ln]}
+
+
+def run_multistage(engine, want: dict, on_card: bool) -> dict:
+    """The multistage path's measurements past ``run_path``: the LOOKUP ==
+    LEFT JOIN twins, the stage-1 cap's refusal of a year-wide leaf, EXPLAIN
+    and EXPLAIN ANALYZE of ms_q31, and per query the span breakdown
+    (leaves, join, windows, aggregation) and, on the card, a traced run's
+    device time and busy share."""
+    out = {}
+    for a, b in MS_TWINS:
+        ra, rb = (engine.execute(MS_QUERIES[x])["resultTable"]["rows"]
+                  for x in (a, b))
+        if ra != rb:
+            raise AssertionError(f"{a} differs from {b}: {ra[:3]} / {rb[:3]}")
+    log(f"{', '.join(f'{a} == {b}' for a, b in MS_TWINS)}, row for row")
+    from pinot_tpu_torch.query2 import runner
+
+    year = want["ms_explain"]["year_rows"]
+    resp = engine.execute(MS_REFUSED)
+    msg = resp["exceptions"][0]["message"] if resp["exceptions"] else ""
+    if year > runner.MAX_STAGE1_ROWS:
+        if f"exceeds {runner.MAX_STAGE1_ROWS} rows" not in msg:
+            raise AssertionError(f"a year-wide leaf ({year} rows) was not "
+                                 f"refused: {resp}")
+        log(f"a year-wide leaf ({year} rows) is refused in-band: {msg}")
+    elif msg or resp["resultTable"]["rows"] != [[year]]:
+        raise AssertionError(f"a year-wide leaf of {year} rows, under the "
+                             f"stage-1 cap, answers {resp}")
+    out["explain"] = ms_explain(engine, want)
+    for name, sql in MS_QUERIES.items():
+        rec = {}
+        if " JOIN " in sql or " OVER " in sql:
+            rec["spans_ms"] = _ms_spans(engine, sql)
+        if on_card:
+            rec["wall_ms"], rec["device_ms"] = profile_query(engine, name,
+                                                             sql)
+            rec["busy"] = rec["device_ms"] / rec["wall_ms"]
+        out[name] = rec
+        log(f"{name}: " + json.dumps(rec))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the serving path: cohorts, the partials cache, deadlines, traces, ANALYZE
 # ---------------------------------------------------------------------------
 
@@ -5354,6 +5867,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     from pinot_tpu_torch.engine.engine import QueryEngine
     from pinot_tpu_torch.ops import kernels
+    from pinot_tpu_torch.ops.group_scatter import PALLAS_MIN_ROWS
     from pinot_tpu_torch.storage.device import padded_len
     from pinot_tpu_torch.storage.segment import ZONE_BLOCK_ROWS, \
         ImmutableSegment
@@ -5382,13 +5896,17 @@ def main(argv=None) -> int:
     trips = trips_generate(TRIPS_SEGMENTS, rows)
     rt = rt_generate(args.rt_rows + args.rt_more)
     up = up_generate(args.up_rows)
+    dims = ms_dims()
     log(f"generate: {time.perf_counter() - t:.2f} s (with {MV_TABLE}'s MV "
         f"columns over {len(mv)} segments, {EV_TABLE}: {EV_SEGMENTS} x "
         f"{args.event_rows} rows, {V2_TABLE}'s new segment s{S}: "
         f"{rows} rows, seed {V2_SEED}, {TRIPS_TABLE}: {TRIPS_SEGMENTS} x "
         f"{rows} rows, seed {TRIPS_SEED}, {RT_TABLE}'s consuming rows: "
-        f"{args.rt_rows} + {args.rt_more}, seed {RT_SEED}, and {UP_TABLE}: "
-        f"3 x {args.up_rows} rows over {UP_KEYS} keys, seed {UP_SEED})")
+        f"{args.rt_rows} + {args.rt_more}, seed {RT_SEED}, {UP_TABLE}: "
+        f"3 x {args.up_rows} rows over {UP_KEYS} keys, seed {UP_SEED}, and "
+        f"SSB's dimensions, seed {MS_SEED}: "
+        + ", ".join(f"{k} {len(next(iter(v.values())))} rows"
+                    for k, v in dims.items()) + ")")
     from pinot_tpu_torch import native
 
     t = time.perf_counter()
@@ -5420,6 +5938,7 @@ def main(argv=None) -> int:
         pending_v2 = pool.apply_async(write_v2_segment, (S, v2))
         pending_up = pool.starmap_async(
             write_up_segment, [(i, up, args.up_rows) for i in range(2)])
+        pending_dims = pool.starmap_async(write_ms_dim, list(dims.items()))
         pending = pool.starmap_async(
             write_segment, [(i, seg, "lineorder", True) for i, seg in
                             enumerate(data)])
@@ -5472,6 +5991,8 @@ def main(argv=None) -> int:
         want.update(serve_oracle(data))
         want.update(rt_oracle(data, rt, args.rt_rows))
         want.update(up_oracle(up, False))
+        want.update(ms_oracle(data, dims, rt, args.rt_rows))
+        QUERY_LAUNCHES.update(ms_launches(want, PALLAS_MIN_ROWS))
         oracle_s = time.perf_counter() - t
 
         dirs, cube_s = zip(*pending.get())
@@ -5484,6 +6005,7 @@ def main(argv=None) -> int:
         v2_dir = pending_v2.get()
         trips_dirs = pending_trips.get()
         pending_up.get()
+        dim_dirs = dict(zip(dims, pending_dims.get()))
         log(f"write segments (port creator, {workers} processes, seven "
             f"tables): {time.perf_counter() - t_write:.2f} s, of which the "
             f"two star-tree cubes of lineorder took {sum(cube_s):.2f} s "
@@ -5504,7 +6026,7 @@ def main(argv=None) -> int:
                  "values": total + len(v2["d_year"]),
                  "tail": TRIPS_SEGMENTS * rows,
                  "realtime": total + args.rt_rows}
-    del data, bs_data, mv, ev, v2, trips
+    del data, bs_data, mv, ev, v2, trips, dims
     log(f"numpy oracle: {oracle_s:.2f} s beside the writes, "
         f"{time.perf_counter() - t:.2f} s after them")
 
@@ -5550,6 +6072,10 @@ def main(argv=None) -> int:
         f"index_batch and a promotion each; the records built in "
         f"{rt_build_s:.2f} s before), {len(ci.chunklets)} chunklets of "
         f"{RT_CHUNKLET} rows and a {rt_index['tail_rows']}-row tail")
+    # SSB's dimension tables, beside lineorder and lineorder_rt
+    for name, d in dim_dirs.items():
+        engine.add_segment(name, ImmutableSegment(d))
+        engine.table(name).is_dim_table = True
     up_mgr, up_topic, up_s = up_manager(engine, up, args.up_rows)
     up_docs = sum(s.n_docs for s in table_segs(engine, UP_TABLE))
     masked = sum(int((~s.valid_docs_mask).sum())
@@ -5602,6 +6128,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     check_realtime_kernels(engine, k1, k2, k3, k4, args.up_rows)
     torch.cuda.empty_cache()
+    check_multistage_kernels(engine, k1, k2)
+    torch.cuda.empty_cache()
 
     count_sorted_builds()
     p50, launches = {}, {name: 0 for name in kernels.launches}
@@ -5646,6 +6174,9 @@ def main(argv=None) -> int:
                     for k, v in q6_planes.items()) + "); K2 reads them")
     overflow = overflow_cost(engine, args.runs)
     t = time.perf_counter()
+    multistage = run_multistage(engine, want, True)
+    log(f"multistage path extras: {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
     realtime = run_realtime(engine, rt_seg, rt_stream, rt_offset, rt, want,
                             up_mgr, up_topic, up, args.runs, True)
     up_mgr.stop(commit_remaining=False)
@@ -5684,6 +6215,7 @@ def main(argv=None) -> int:
     log(json.dumps({"query_p50_ms": p50, "rows": total,
                     "serving": serving,
                     "realtime": realtime,
+                    "multistage": multistage,
                     "trips_rows": path_rows["tail"],
                     "trips_resident_bytes": {"subbyte": sub_bytes,
                                              "wide": wide_bytes},

@@ -1218,6 +1218,9 @@ class DeviceExecutor:
         # per-pipeline-label roofline aggregates (``roofline_stats``)
         self._roofline: dict = {}
         self.metrics = get_metrics("server")
+        # LOOKUP's dimension tables: (table, value column, pk column) ->
+        # (pk -> value map, miss default); the engine sets its own
+        self.lookup_resolver = None
         _EXECUTORS.add(self)
 
     @staticmethod
@@ -1236,6 +1239,7 @@ class DeviceExecutor:
                 self.batch_misses += 1
             else:
                 self.batch_hits += 1
+            ctx.lookup_resolver = self.lookup_resolver
             self._batches[key] = ctx
             if retain:
                 self._retain_launch(key)
@@ -1759,23 +1763,9 @@ class DeviceExecutor:
         ``SnapshotSegment`` of the docs it publishes now. The partial is
         mergeable (the reference's host never finalizes)."""
         t_launch = time.perf_counter()
-        if isinstance(part, ImmutableSegment):
-            key = self._batch_key([part])
-            ctx = self.batch_for([part], retain=True)
-        else:
-            view = SnapshotSegment(part) \
-                if getattr(part, "is_mutable", False) else part
-            key = ("host-part", view.dir)
-            ctx = BatchContext([view], self.device)
-            self._retain_launch(key)
+        ctx, key = self.part_context(part)
         try:
-            n = int(ctx.n_docs[0])
-            vd = valid_docs_snapshot(part, n)
-            valid = None
-            if vd is not None:
-                plane = np.zeros((1, ctx.pad_to), dtype=bool)
-                plane[0, :n] = vd
-                valid = to_device(plane, ctx.device)
+            valid = self.part_valid_plane(part, ctx)
             alive = np.ones(1, dtype=bool)
             with span("dispatch", tracer):
                 with _KernelClock(ctx.device) as clock:
@@ -1792,6 +1782,35 @@ class DeviceExecutor:
         self.metrics.time_ms("deviceLaunchMs",
                              (time.perf_counter() - t_launch) * 1e3)
         return handle
+
+    def part_context(self, part) -> tuple:
+        """(BatchContext, pin key) of one part the reference reads on its
+        host, pinned until ``_release_launch(key)``: a sealed segment's
+        from the batch LRU, any other's of its own (a consuming segment
+        or a tail through a ``SnapshotSegment`` of the docs it publishes
+        now), outside the LRU."""
+        if isinstance(part, ImmutableSegment):
+            return self.batch_for([part], retain=True), \
+                self._batch_key([part])
+        view = SnapshotSegment(part) \
+            if getattr(part, "is_mutable", False) else part
+        key = ("host-part", view.dir)
+        ctx = BatchContext([view], self.device)
+        ctx.lookup_resolver = self.lookup_resolver
+        self._retain_launch(key)
+        return ctx, key
+
+    @staticmethod
+    def part_valid_plane(part, ctx):
+        """The (1, L) bool upsert valid-docs plane of a part's context
+        ``ctx`` (a snapshot of its mask now), or None when it has none."""
+        n = int(ctx.n_docs[0])
+        vd = valid_docs_snapshot(part, n)
+        if vd is None:
+            return None
+        plane = np.zeros((1, ctx.pad_to), dtype=bool)
+        plane[0, :n] = vd
+        return to_device(plane, ctx.device)
 
     def _launch_pinned(self, q, ctx, batch_key, segments, final, reduce_mode,
                        alive, tracer, host=False) -> InflightLaunch:

@@ -38,8 +38,9 @@ fetch-time re-run) and ``Tracer`` (the phases ``gather``, ``dispatch``,
 ``device_fetch``, ``kernel``, ``link`` and ``merge``) by reference, and
 releases every still-pinned handle when anything between launch and
 fetch raises. EXPLAIN PLAN renders the plan and EXPLAIN ANALYZE runs the
-query traced and renders its actuals (engine/explain.py); multi-stage
-queries come with a later slice.
+query traced and renders its actuals (engine/explain.py). Join and window
+queries run through the multi-stage engine (query2/runner.py), and
+``LOOKUP`` reads a dimension table through ``dim_table_lookup``.
 """
 
 from __future__ import annotations
@@ -143,7 +144,10 @@ class TableDataManager:
         self._lock = threading.Lock()
         self.on_unload = None  # callback(segment) after the last ref drops
         self.host_name = host_name  # stamps $hostName on hosted segments
-        self.generation = 0  # bumped on add / remove
+        self.generation = 0  # bumped on add / remove; LOOKUP's cache key
+        # None = unknown (an embedded engine allows LOOKUP on any local
+        # table); a server sets True / False from the table's config
+        self.is_dim_table = None
 
     def add_segment(self, seg) -> None:
         if self.host_name is not None \
@@ -225,6 +229,8 @@ class QueryEngine:
         self.pruner = SegmentPruner()
         self.tables: dict[str, TableDataManager] = {}
         self.host_name = host_name
+        self._dim_cache: dict = {}  # (table, pk, value) -> (generation, map)
+        self.device.lookup_resolver = self.dim_table_lookup
 
     def table(self, name: str) -> TableDataManager:
         if name not in self.tables:
@@ -240,9 +246,9 @@ class QueryEngine:
         try:
             stmt = parse_sql(sql)
             if is_multistage(stmt):
-                raise DeviceUnsupported(
-                    "multi-stage queries come with a later slice of the port "
-                    "(ROADMAP queue 1, item l)")
+                from pinot_tpu_torch.query2.runner import execute_multistage
+
+                return execute_multistage(self, stmt, t0)
             q = optimize_query(compile_select(stmt))
             if q.explain:
                 if q.analyze:
@@ -522,6 +528,46 @@ class QueryEngine:
             if s is not None:
                 plan.append(("part", s))
         return plan, dropped
+
+    def dim_table_lookup(self, dim_table: str, value_col: str, pk_col: str):
+        """(pk value → value_col value, miss default) over every hosted
+        segment of a dimension table (a copy of the reference's, the
+        DimensionTableDataManager analog), cached until the table's
+        segment set changes. The miss default is the value column's TYPE
+        default, so an empty table keeps numeric semantics."""
+        tdm = self.tables.get(dim_table) \
+            or self.tables.get(f"{dim_table}_OFFLINE")
+        if tdm is None:
+            raise KeyError(f"dimension table {dim_table!r} not hosted here")
+        if getattr(tdm, "is_dim_table", None) is False:
+            # a regular table's segments spread across servers: a local pk
+            # map would be silently incomplete
+            raise ValueError(f"LOOKUP target {dim_table!r} is not a "
+                             f"dimension table (is_dim_table=false)")
+        key = (tdm.name, pk_col, value_col)
+        cached = self._dim_cache.get(key)
+        if cached is not None and cached[0] == tdm.generation:
+            return cached[1], cached[2]
+        import numpy as np
+
+        gen = tdm.generation
+        mapping: dict = {}
+        segs = tdm.acquire()
+        try:
+            if not segs:
+                raise KeyError(f"dimension table {dim_table!r} has no "
+                               f"segments loaded here")
+            dt = segs[0].column_metadata(value_col).data_type
+            default = "" if dt.is_string_like else dt.np_dtype.type(0).item()
+            for seg in segs:
+                pks = np.asarray(seg.values(pk_col))
+                vals = np.asarray(seg.values(value_col))
+                for k, v in zip(pks.tolist(), vals.tolist()):
+                    mapping[k] = v
+        finally:
+            tdm.release(segs)
+        self._dim_cache[key] = (gen, mapping, default)
+        return mapping, default
 
     def _explain_analyze(self, q: QueryContext, t0: float) -> dict:
         """EXPLAIN ANALYZE: run the query for real, traced and with the

@@ -15,7 +15,12 @@ executed response's actuals, then the ANALYZE subtree (rows, segments,
 the phase waterfall, one KERNEL line per roofline flight, the cache
 state), as the reference's. A flight's label names the port's kernels
 ``+cuda`` where the reference names its Pallas tier ``+pallas``.
-Multi-stage plans come with a later slice.
+
+``explain_multistage`` renders a two-stage (join / window) plan as the
+reference's does: the stage boundary, each join's strategy with its build
+and probe sides, the window specs and each table's stage-1 scan with its
+pushed-down filter. The backend label names the card, and the boundary's
+exchange is ``[local]``: there is no mesh until the mesh slice.
 """
 
 from __future__ import annotations
@@ -117,7 +122,9 @@ def _trim_line(engine, q: QueryContext, segs) -> str | None:
 # the waterfall's phase buckets, by a span name's last dotted segment
 # (pinot_tpu/tools/querylog.py's, for the spans this engine records)
 _PHASE_LAST_SEGMENTS = {"gather": "gather", "kernel": "kernel",
-                        "link": "link", "merge": "reduce"}
+                        "link": "link", "host_scan": "host_scan",
+                        "merge": "reduce"}
+_PHASE_FULL_NAMES = {"stage2": "stage2"}   # the multi-stage engine's
 
 
 def phase_breakdown(trace_info: dict) -> dict:
@@ -125,7 +132,9 @@ def phase_breakdown(trace_info: dict) -> dict:
     out: dict = {}
     for spans in (trace_info or {}).values():
         for s in spans or ():
-            bucket = _PHASE_LAST_SEGMENTS.get(s["phase"].rsplit(".", 1)[-1])
+            name = s["phase"]
+            bucket = _PHASE_FULL_NAMES.get(name) \
+                or _PHASE_LAST_SEGMENTS.get(name.rsplit(".", 1)[-1])
             if bucket is not None:
                 out[bucket] = out.get(bucket, 0.0) + s["durationMs"]
     return out
@@ -159,14 +168,28 @@ def annotate_analyze(plan: dict, resp: dict) -> dict:
     lines = [r[0] for r in plan["resultTable"]["rows"]]
     nrows = len(((resp.get("resultTable") or {}).get("rows")) or [])
     docs = resp.get("numDocsScanned")
-    filter_done = False
+    leaf_rows = resp.get("leafRows") or {}
+    # a multi-stage plan carries a filter per table: the total
+    # numDocsScanned belongs to none of them
+    filter_done = bool(leaf_rows) or resp.get("numJoinedRows") is not None
     out = []
     for ln in lines:
         s = ln.strip()
         if s.startswith("BROKER_REDUCE"):
             ln += f" (actual: rows={nrows}, timeMs={resp.get('timeUsedMs')})"
+        elif s.startswith("STAGE_2_"):
+            # stage 2 reads the joined rows, not the leaves' docs
+            n_in = resp.get("numJoinedRows")
+            ln += (f" (actual: in={docs if n_in is None else n_in} rows, "
+                   f"out={nrows} rows)")
         elif s.startswith("COMBINE_"):
             ln += f" (actual: in={docs} rows, out={nrows} rows)"
+        elif s.startswith("JOIN_") and resp.get("numJoinedRows") is not None:
+            ln += f" (actual: out={resp['numJoinedRows']} rows)"
+        elif s.startswith("SCAN("):
+            alias = s[len("SCAN("):].split("=", 1)[0]
+            if alias in leaf_rows:
+                ln += f" (actual: out={leaf_rows[alias]} rows)"
         elif (s.startswith("FILTER_") and not filter_done
               and not s.startswith("FILTER_MATCH_ENTIRE")
               and docs is not None):
@@ -195,6 +218,66 @@ def annotate_analyze(plan: dict, resp: dict) -> dict:
         f"    CACHE(partialsCacheHit={bool(resp.get('partialsCacheHit'))}, "
         f"resultCacheHit={bool(resp.get('resultCacheHit'))})")
     return _rows_response(out)
+
+
+def explain_multistage(engine, plan) -> dict:
+    """EXPLAIN of a two-stage (join / window) plan: the reference's lines,
+    the card as the backend and a local stage boundary."""
+    from pinot_tpu_torch.query2.logical import to_sql
+    from pinot_tpu_torch.sql.compiler import _to_filter
+
+    q = plan.stage2
+    aggs = q.aggregations()
+    if q.distinct:
+        shape = "DISTINCT"
+    elif aggs and q.group_by:
+        shape = "AGGREGATE_GROUPBY_ORDERBY"
+    elif aggs:
+        shape = "AGGREGATE"
+    elif plan.windows:
+        shape = "SELECT_WINDOW"
+    else:
+        shape = "SELECT_ORDERBY" if q.order_by else "SELECT"
+    lines = [f"BROKER_REDUCE(limit:{q.limit})",
+             f"  STAGE_2_{shape}"
+             f"({', '.join(str(e) for e in q.select_expressions)})"
+             f" [{BACKEND_DEVICE}]"]
+    if q.group_by:
+        lines.append(
+            f"    GROUP_BY({', '.join(str(g) for g in q.group_by)})")
+    if q.having is not None:
+        lines.append(f"    HAVING({q.having})")
+    for w in plan.windows:
+        lines.append(f"    WINDOW({w.describe()})")
+    if plan.post_filter is not None:
+        lines.append(f"    POST_JOIN_FILTER({to_sql(plan.post_filter)})")
+    if plan.joins:
+        lines.append(f"  STAGE_BOUNDARY(exchange:{plan.strategy} [local])")
+    else:
+        lines.append("  STAGE_BOUNDARY(exchange:SORT [window])")
+    probe_desc = f"{plan.probe.alias}={plan.probe.table}"
+    for j in plan.joins:
+        dim = " dim" if j.build.is_dim else ""
+        lines.append(
+            f"  JOIN_{j.kind}(strategy={plan.strategy}, "
+            f"build={j.build.alias}={j.build.table}{dim}, "
+            f"probe={probe_desc})")
+        keys = ", ".join(f"{lk} = {rk}"
+                         for lk, rk in zip(j.left_keys, j.right_keys))
+        lines.append(f"      KEYS({keys})")
+        if j.residual is not None:
+            lines.append(f"      RESIDUAL({to_sql(j.residual)})")
+    for src in plan.sources:
+        role = "probe" if src is plan.probe else \
+            ("build/broadcast" if plan.strategy == "BROADCAST"
+             else "build/shuffle")
+        lines.append(f"  SCAN({src.alias}={src.table} [{role}])")
+        push = plan.pushdown.get(src.alias)
+        if push is not None:
+            _filter_lines(_to_filter(push), 2, lines)
+        else:
+            lines.append("    FILTER_MATCH_ENTIRE_SEGMENT")
+    return _rows_response(lines)
 
 
 def explain_plan(engine, q: QueryContext) -> dict:

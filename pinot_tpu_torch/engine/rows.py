@@ -60,12 +60,14 @@ import torch
 
 from pinot_tpu_torch.engine import aggspec, sketches
 from pinot_tpu_torch.engine.params import (
+    DeviceUnsupported,
     build_filter,
     expr_on_device,
     to_device,
 )
 from pinot_tpu_torch.engine.result import ExecutionStats, IntermediateResult
 from pinot_tpu_torch.engine.values import (
+    Mixed,
     Rows,
     SpaceEvaluator,
     Val,
@@ -152,17 +154,22 @@ def _scan(q: QueryContext, ctx, alive, valid_docs=None) -> _Scan:
     (``valid_docs``, (S, L) bool, or None): the host path ANDs it into the
     filter's rows before anything reads them, and counts the filter's
     entries over every doc."""
+    return _scan_filter(q.filter, ctx, alive, valid_docs)
+
+
+def _scan_filter(filt, ctx, alive, valid_docs=None) -> _Scan:
+    """``_scan`` of the filter tree ``filt`` (None: every row)."""
     ev = ValueEvaluator(ctx)
     all_pruned = not alive.any()
-    f = FilterNode.FALSE if all_pruned else q.filter
+    f = FilterNode.FALSE if all_pruned else filt
     valid = mask_ops.valid_mask(ctx.n_docs_dev, ctx.pad_to) \
         & to_device(alive, ctx.device)[:, None]
     if valid_docs is not None:
         valid = valid & valid_docs
     mask = filter_plane(f, ctx, ev) & valid
     entries = 0
-    if q.filter is not None and not all_pruned:
-        entries = sum(filter_entries(q.filter, s)
+    if filt is not None and not all_pruned:
+        entries = sum(filter_entries(filt, s)
                       for s, a in zip(ctx.segments, alive) if a)
     ran = np.asarray(alive, dtype=bool).copy()
     if all_pruned:
@@ -815,3 +822,102 @@ def _aggregate(ex, q, ctx, final, reduce_mode, alive, aggs,
 
     return RowsLaunch(outs, finish_groups)
 
+
+
+# ---------------------------------------------------------------------------
+# the multi-stage engine's leaf scans
+# ---------------------------------------------------------------------------
+
+
+def _leaf_runs(segments) -> list:
+    """The segments in order, as runs: consecutive sealed ones a device
+    batch, any other alone."""
+    from pinot_tpu_torch.engine.device import segment_device_eligible
+
+    runs, run = [], []
+    for s in segments:
+        if segment_device_eligible(s):
+            run.append(s)
+            continue
+        if run:
+            runs.append(run)
+            run = []
+        runs.append([s])
+    return runs + ([run] if run else [])
+
+
+def _leaf_col(ev, v: Val):
+    """A gathered column ``Val`` as a query2 ``Col``."""
+    from pinot_tpu_torch.query2.columns import Col, of_strings
+
+    if v.kind == "num" and not isinstance(v.meta, Mixed):
+        return Col(v.t.reshape(-1), v.dtype)
+    if v.kind == "dict":   # the global dictionary is sorted and distinct
+        values = np.asarray(ev.ctx.global_dict(v.meta).values)
+        return Col(v.t.reshape(-1).to(torch.int64), values.dtype, values)
+    if v.kind == "case":
+        return of_strings(v.t.reshape(-1), np.asarray(v.meta))
+    raise DeviceUnsupported(f"a {v.kind} column in a multi-stage leaf scan")
+
+
+def leaf_rows(ex, segments, filt, need: tuple, stats, max_rows: int,
+              table: str) -> dict:
+    """The matched rows of one table's ``segments`` → {column: query2
+    ``Col``}, the multi-stage engine's stage 1 (the reference scans it on
+    its host, pinot_tpu/query2/runner.py ``scan_local_rows``), on the card
+    in its shape: the filter tree ``filt`` (None: every row) through the
+    device's filter template (``filter_plane``), the columns ``need`` of
+    the matched rows gathered through engine/values.py, rows in segment
+    order and docs ascending within each. Sealed segments run as device
+    batches, each run of consecutive ones one batch; a consuming segment,
+    a tail or an upsert-masked segment runs alone, through a snapshot of
+    the docs it publishes now and with its valid-docs plane
+    (``DeviceExecutor.part_context``). ``stats`` (ExecutionStats) gains
+    the reference host evaluator's counts: per segment queried, processed
+    and matched, the filter's entries by index choice, ``len(need)``
+    entries per matched row after it, every doc in totalDocs. Past
+    ``max_rows`` matched rows the scan is refused, as the reference
+    refuses it."""
+    from pinot_tpu_torch.engine.device import segment_device_eligible
+    from pinot_tpu_torch.query.context import Expression
+    from pinot_tpu_torch.query2.columns import concat
+    from pinot_tpu_torch.sql.parser import SqlAnalysisError
+
+    parts: dict = {c: [] for c in need}
+    total = 0
+    for run in _leaf_runs(segments):
+        if not segment_device_eligible(run[0]):
+            ctx, key = ex.part_context(run[0])
+            valid = ex.part_valid_plane(run[0], ctx)
+        else:
+            ctx, key, valid = ex.batch_for(run, retain=True), \
+                ex._batch_key(run), None
+        try:
+            scan = _scan_filter(filt, ctx, np.ones(ctx.S, dtype=bool), valid)
+            matched = scan.mask.sum(dim=1).cpu().numpy()
+            stats.num_entries_scanned_in_filter += scan.entries_in_filter
+            for j in range(ctx.S):
+                m = int(matched[j])
+                stats.num_segments_queried += 1
+                stats.num_segments_processed += 1
+                stats.num_docs_scanned += m
+                stats.num_entries_scanned_post_filter += m * len(need)
+                stats.total_docs += int(ctx.n_docs[j])
+                stats.num_segments_matched += int(m > 0)
+                total += m
+                if total > max_rows:
+                    raise SqlAnalysisError(
+                        f"stage-1 row set for table {table!r} exceeds "
+                        f"{max_rows} rows; add a more selective filter "
+                        f"(PINOT_TPU_MAX_JOIN_ROWS overrides)")
+            rows = Rows(ctx.S, ctx.pad_to, ctx.device, _matched_rows(scan))
+            for c in need:
+                if scan.ev.is_mv(c):
+                    raise DeviceUnsupported(
+                        f"the multi-value column {c!r} in a multi-stage "
+                        f"query")
+                parts[c].append(_leaf_col(
+                    scan.ev, scan.ev.eval(Expression.identifier(c), rows)))
+        finally:
+            ex._release_launch(key)
+    return {c: concat(parts[c], ex.device) for c in need}

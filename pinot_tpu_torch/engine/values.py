@@ -47,6 +47,10 @@ values, its engine/host.py). The port runs those shapes on the card
   its WKT text carries, ops/geo.py ``sig10_torch``) with ST_CONTAINS /
   ST_WITHIN against a literal polygon, ST_EQUALS, ST_DISTANCE and
   ST_GEOMETRYTYPE over it, all float64 / int64 torch ops;
+- LOOKUP over a dimension table (``_lookup``): the key's distinct
+  values factorized on the card, each resolved once through the
+  engine's pk map on the host (a miss takes the value column's type
+  default), the values gathered back by key id;
 - any other function, and a function over strings or mixed kinds (a
   CASE of string and numeric results, INIDSET, LIKE over numbers): its
   numpy form run on the host once per distinct tuple of its operands'
@@ -308,6 +312,51 @@ _TAIL_FUNCS = {"atan2", "rounddecimal", "round_decimal", "truncate",
                "st_within", "st_equals", "st_distance", "st_geometrytype"}
 
 
+def numeric_op(e: Expression, t: list, out_dt: np.dtype,
+               cmp_dt=None) -> torch.Tensor:
+    """The torch form of ``e`` over number operands ``t`` (its arguments'
+    tensors, a CAST's first only): arithmetic, division and modulo as
+    numpy computes them, the unary functions, comparisons (in numpy's
+    promoted dtype ``cmp_dt`` of the operands), boolean logic and a cast
+    to a number, each in numpy's result dtype ``out_dt``."""
+    tdt = _torch_dtype(out_dt) if out_dt.kind in "biuf" else None
+    name = e.name
+    if name in _ARITH:
+        return _ARITH[name](*[x.to(tdt) for x in t])
+    if name == "divide":
+        f = [x.to(torch.float64) for x in t]
+        return (f[0] / f[1]).to(tdt)
+    if name == "mod":
+        a, b = (x.to(tdt) for x in t)
+        if out_dt.kind == "f":
+            # numpy: fmod, then moved to the divisor's sign
+            r = torch.fmod(a, b)
+            fix = (r != 0) & ((r < 0) != (b < 0))
+            return torch.where(fix, r + b, r)
+        zero = b == 0
+        r = torch.remainder(a, torch.where(zero, torch.ones_like(b), b))
+        return torch.where(zero, torch.zeros_like(r), r)
+    if name in _UNARY:
+        return _UNARY[name](t[0].to(tdt))
+    if name in _COMPARE:
+        ct = _torch_dtype(cmp_dt)
+        return _COMPARE[name](t[0].to(ct), t[1].to(ct))
+    if name in ("and", "or"):
+        m = t[0].to(torch.bool)
+        for x in t[1:]:
+            m = (m & x.to(torch.bool)) if name == "and" \
+                else (m | x.to(torch.bool))
+        return m
+    if name == "not":
+        return ~t[0].to(torch.bool)
+    # cast to a number
+    x = t[0]
+    if np.dtype(_CAST_NP[str(e.args[1].value).upper()]).kind in "iu" \
+            and x.is_floating_point():
+        x = torch.trunc(x.to(torch.float64))
+    return x.to(tdt)
+
+
 def _div_trunc(v: torch.Tensor, d: int) -> torch.Tensor:
     """ops/transform.py ``_div_trunc`` over int64: ``sign(v) * (|v| //
     d)``, with |Long.MIN| wrapping to Long.MIN as numpy's does (so
@@ -554,6 +603,8 @@ class ValueEvaluator:
                 dt = self.column_dtype(e.name)
                 out = np.asarray(["x"]) if dt.kind in "USO" \
                     else np.ones(1, dtype=dt)
+        elif e.name == "lookup":
+            out = np.asarray([self._dim_table(e)[1]])
         elif self._lut_column(e) is not None:
             out = self._lut(e)[:1]
         elif e.name in _MV_FUNCS and self._mv_form(e):
@@ -601,6 +652,8 @@ class ValueEvaluator:
             return self._column(name, rows)
         if e.name == "case":
             return self._case(e, rows)
+        if e.name == "lookup":
+            return self._lookup(e, rows)
         if e.name in _MV_FUNCS:
             if not self._mv_form(e):
                 return self._per_tuple(e, rows)
@@ -641,53 +694,17 @@ class ValueEvaluator:
             # distinct tuple of values
             return self._per_tuple(e, rows)
         t = [a.t for a in args]
-        tdt = _torch_dtype(out_dt) if out_dt.kind in "biuf" else None
-        name = e.name
-        if name in _ARITH:
-            return Val(_ARITH[name](*[x.to(tdt) for x in t]), "num", out_dt)
-        if name == "divide":
-            f = [x.to(torch.float64) for x in t]
-            return Val((f[0] / f[1]).to(tdt), "num", out_dt)
-        if name == "mod":
-            a, b = (x.to(tdt) for x in t)
-            if out_dt.kind == "f":
-                # numpy: fmod, then moved to the divisor's sign
-                r = torch.fmod(a, b)
-                fix = (r != 0) & ((r < 0) != (b < 0))
-                return Val(torch.where(fix, r + b, r), "num", out_dt)
-            zero = b == 0
-            r = torch.remainder(a, torch.where(zero, torch.ones_like(b), b))
-            return Val(torch.where(zero, torch.zeros_like(r), r), "num",
-                       out_dt)
-        if name in _UNARY:
-            return Val(_UNARY[name](t[0].to(tdt)), "num", out_dt)
-        if name in _ROUND:
-            x = t[0].to(tdt)
+        if e.name in _ROUND:
+            x = t[0].to(_torch_dtype(out_dt))
             if len(t) > 1:
                 if not e.args[1].is_literal:
                     return self._per_tuple(e, rows)
                 return Val(self._round_scale(e, x, out_dt), "num", out_dt)
-            return Val(_ROUND[name](x) if out_dt.kind == "f" else x, "num",
+            return Val(_ROUND[e.name](x) if out_dt.kind == "f" else x, "num",
                        out_dt)
-        if name in _COMPARE:
-            cdt = np.result_type(*[self.probe(a) for a in e.args])
-            ct = _torch_dtype(cdt)
-            return Val(_COMPARE[name](t[0].to(ct), t[1].to(ct)), "num",
-                       out_dt)
-        if name in ("and", "or"):
-            m = t[0].to(torch.bool)
-            for x in t[1:]:
-                m = (m & x.to(torch.bool)) if name == "and" \
-                    else (m | x.to(torch.bool))
-            return Val(m, "num", out_dt)
-        if name == "not":
-            return Val(~t[0].to(torch.bool), "num", out_dt)
-        # cast to a number
-        x = t[0]
-        if np.dtype(_CAST_NP[str(e.args[1].value).upper()]).kind in "iu" \
-                and x.is_floating_point():
-            x = torch.trunc(x.to(torch.float64))
-        return Val(x.to(tdt), "num", out_dt)
+        cmp_dt = np.result_type(*[self.probe(a) for a in e.args]) \
+            if e.name in _COMPARE else None
+        return Val(numeric_op(e, t, out_dt, cmp_dt), "num", out_dt)
 
     # ---- the function tail: torch forms over numbers and points ----------
     def _tail_function(self, e: Expression, rows: Rows):
@@ -898,6 +915,48 @@ class ValueEvaluator:
         out = np.asarray(out)
         if out.ndim == 0 or out.shape[0] < n_uniq:
             out = np.broadcast_to(out.reshape(-1)[:1], (n_uniq,)).copy()
+        if out.dtype.kind in "biuf":
+            return Val(to_device(out, self.device)[inv], "num", out.dtype)
+        return Val(inv, "case", out.dtype, out)
+
+    def _dim_table(self, e: Expression) -> tuple:
+        """LOOKUP's (pk -> value map, miss default): the engine's
+        dimension table (``QueryEngine.dim_table_lookup``)."""
+        if len(e.args) != 4:
+            raise ValueError(
+                "LOOKUP takes (dimTable, valueColumn, pkColumn, keyExpr)")
+        resolver = getattr(self.ctx, "lookup_resolver", None)
+        if resolver is None:
+            raise ValueError("LOOKUP needs an engine with dimension tables")
+        names = []
+        for a in e.args[:3]:
+            if not (a.is_literal and isinstance(a.value, str)):
+                raise ValueError(
+                    "LOOKUP's first three args are string literals")
+            names.append(a.value)
+        return resolver(*names)
+
+    def _lookup(self, e: Expression, rows: Rows) -> Val:
+        """LOOKUP('dimTable', 'valueCol', 'pkCol', key): the key's values
+        factorized on the card (``distinct``), each distinct key resolved
+        once through the dimension table's map on the host (a miss takes
+        the value column's type default), the values gathered back by
+        key id: numbers as numbers, strings as ids into their values. A
+        literal key gives a scalar."""
+        mapping, default = self._dim_table(e)
+        key = e.args[3]
+        if _constant(key):
+            k = np.asarray(np_eval(key, {}))
+            a = np.asarray(mapping.get(k.item(), default))
+            if a.dtype.kind in "biuf":
+                return Val(torch.tensor(a, device=self.device), "num",
+                           a.dtype)
+            return Val(torch.zeros((), dtype=torch.int64,
+                                   device=self.device), "case", a.dtype,
+                       a.reshape(1))
+        inv, (keys,) = self.distinct([self.eval(key, rows)], rows)
+        out = np.asarray([mapping.get(k, default) for k in keys.tolist()]
+                         or [default])
         if out.dtype.kind in "biuf":
             return Val(to_device(out, self.device)[inv], "num", out.dtype)
         return Val(inv, "case", out.dtype, out)

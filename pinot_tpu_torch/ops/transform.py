@@ -349,8 +349,8 @@ _reg("st_geomfromwkb", lambda b: _geo("st_geom_from_wkb")(b), min_args=1)
 _reg("st_geogfromwkb", lambda b: _geo("st_geom_from_wkb")(b), min_args=1)
 
 
-# ---- lookup join (host-only; evaluated by SegmentEvaluator._lookup with
-# engine dim-table state — the np_fn here is never called directly) ---------
+# ---- lookup join: evaluated by engine/values.py ``_lookup`` over the
+# engine's dimension tables; the np_fn here is never called directly ------
 
 def _lookup_stub(*a):
     raise ValueError("LOOKUP needs an engine with dimension tables")

@@ -1,0 +1,135 @@
+"""The multi-stage engine's columns: one tensor a column on the card.
+
+The reference carries its stage-1 row sets and joined rows as numpy
+arrays on its host (pinot_tpu/query2/runner.py). Here a column is a
+``Col``: numbers as a tensor at the host path's numpy dtype, strings as
+int64 codes into their sorted distinct values, held on the host once per
+distinct value. Code order is value order (numpy orders strings by code
+point, as ``np.unique`` sorts them), so a string column's keys, ranks and
+equality are its codes. Columns of different dictionaries meet in one
+dictionary (``unify``) before they are compared or concatenated.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from pinot_tpu_torch.engine.params import to_device
+from pinot_tpu_torch.ops.device_reduce import order_key
+
+_STRING_KINDS = ("U", "S", "O")
+
+
+@dataclasses.dataclass
+class Col:
+    """``t``: (n,) values at ``dtype``, or int64 codes into ``strings``
+    (sorted, distinct) for a string column; a 0-d ``t`` is a literal,
+    broadcast where it is used."""
+
+    t: torch.Tensor
+    dtype: np.dtype
+    strings: np.ndarray | None = None
+
+    @property
+    def is_str(self) -> bool:
+        return self.strings is not None
+
+    def take(self, idx: torch.Tensor) -> "Col":
+        t = self.t if self.t.dim() == 0 else self.t[idx]
+        return Col(t, self.dtype, self.strings)
+
+    def rows(self, n: int) -> "Col":
+        """This column over ``n`` rows (a literal broadcast)."""
+        if self.t.dim() == 0:
+            return Col(self.t.expand(n).contiguous(), self.dtype,
+                       self.strings)
+        return self
+
+    def key(self) -> torch.Tensor:
+        """int64 keys whose equality and order are numpy's over the
+        values (floats: -0.0 equals 0.0, one NaN, last)."""
+        return self.t.to(torch.int64) if self.is_str else order_key(self.t)
+
+    def host(self) -> np.ndarray:
+        """The values on the host, at their numpy dtype."""
+        a = self.t.cpu().numpy()
+        if self.is_str:
+            return self.strings[a.astype(np.int64)] if a.size \
+                else np.zeros(a.shape, dtype=self.strings.dtype)
+        return a.astype(self.dtype, copy=False)
+
+    @property
+    def nbytes(self) -> int:
+        return self.t.numel() * self.t.element_size()
+
+
+def literal(value, device) -> Col:
+    a = np.asarray(value)
+    if a.dtype.kind in "biuf":
+        return Col(torch.tensor(a, device=device), a.dtype)
+    return Col(torch.zeros((), dtype=torch.int64, device=device), a.dtype,
+               a.reshape(1))
+
+
+def of_strings(codes: torch.Tensor, values: np.ndarray) -> Col:
+    """A string column of ids ``codes`` into ``values`` (any order, with
+    repeats): recoded into the sorted distinct values."""
+    values = np.asarray(values)
+    u, inv = np.unique(values, return_inverse=True)
+    lut = to_device(inv.reshape(-1).astype(np.int64), codes.device)
+    t = lut[codes.to(torch.int64)] if len(values) \
+        else codes.to(torch.int64)
+    return Col(t, u.dtype, u)
+
+
+def recode(c: Col, strings: np.ndarray) -> Col:
+    """String column ``c`` over the superset dictionary ``strings``."""
+    if c.strings is strings or (len(c.strings) == len(strings)
+                                and np.array_equal(c.strings, strings)):
+        return Col(c.t, strings.dtype, strings)
+    lut = to_device(np.searchsorted(strings, c.strings).astype(np.int64),
+                    c.t.device)
+    t = lut[c.t] if len(c.strings) else c.t
+    return Col(t, strings.dtype, strings)
+
+
+def unify(cols: list) -> list:
+    """String columns over one dictionary, number columns at numpy's
+    promoted dtype (``np.concatenate``'s). A mix of the two raises."""
+    strs = [c.is_str for c in cols]
+    if any(strs) and not all(strs):
+        raise TypeError("string and numeric values in one column")
+    if all(strs):
+        u = np.unique(np.concatenate([c.strings for c in cols]))
+        return [recode(c, u) for c in cols]
+    dt = np.result_type(*[c.dtype for c in cols])
+    tdt = torch.from_numpy(np.zeros(0, dtype=dt)).dtype
+    return [Col(c.t.to(tdt), dt) for c in cols]
+
+
+def concat(cols: list, device) -> Col:
+    """The rows of ``cols`` one after another."""
+    if not cols:
+        return Col(torch.zeros(0, dtype=torch.float64, device=device),
+                   np.dtype(np.float64))
+    cols = unify(cols)
+    return Col(torch.cat([c.t.reshape(-1) for c in cols]), cols[0].dtype,
+               cols[0].strings)
+
+
+def with_default(c: Col) -> tuple:
+    """(``c`` over a dictionary holding "", the fill a LEFT join's misses
+    take): the column TYPE's default, "" or 0, as a 0-d tensor."""
+    if not c.is_str:
+        return c, torch.zeros((), dtype=c.t.dtype, device=c.t.device)
+    if c.strings.dtype.kind == "O":
+        empty = np.asarray([""], dtype=object)
+    else:
+        empty = np.zeros(1, dtype=c.strings.dtype)
+    u = np.unique(np.concatenate([c.strings, empty]))
+    c = recode(c, u)
+    code = int(np.searchsorted(u, empty[0]))
+    return c, torch.tensor(code, dtype=torch.int64, device=c.t.device)

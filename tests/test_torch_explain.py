@@ -145,15 +145,27 @@ def test_supports_is_the_references_check(engines, sql):
 
 
 def test_explain_analyze_is_refused_in_band(engines):
-    """EXPLAIN ANALYZE of a multi-stage query is refused in-band: the
-    multi-stage engine comes with a later slice (single-stage ANALYZE is
-    tests/test_torch_xray.py's)."""
-    _ref, port = engines
-    resp = port.execute("EXPLAIN ANALYZE SELECT a.qty FROM t a JOIN t b "
-                        "ON a.grp = b.grp")
-    (exc,) = resp["exceptions"]
-    assert exc["message"].startswith("DeviceUnsupported")
-    assert "item l" in exc["message"]
+    """EXPLAIN ANALYZE of a multi-stage query, refused in-band before the
+    multi-stage engine came, now runs through it (single-stage ANALYZE is
+    tests/test_torch_xray.py's): its analyzed answer is the reference's,
+    and so are its annotated lines but for the backend label, the times
+    and the KERNEL lines."""
+    ref, port = engines
+    sql = "EXPLAIN ANALYZE SELECT a.qty FROM t a JOIN t b ON a.grp = b.grp"
+    got = port.execute(sql)
+    want = ref.execute("SET useAdvisor=false; " + sql)
+    assert got["exceptions"] == []
+    assert got["analyzedResponse"]["resultTable"] == \
+        want["analyzedResponse"]["resultTable"]
+
+    def lines(resp):
+        return [ln.replace("DEVICE(jax/xla)", "DEVICE(torch/cuda)")
+                .split(" (actual: rows=")[0] for ln in _lines(resp)
+                if not ln.strip().startswith(("PHASE(", "KERNEL("))]
+
+    assert lines(got) == lines(want)
+    assert any(ln.startswith("  SCAN(a=t [probe]) (actual: out=")
+               for ln in _lines(got))
 
 
 def test_explain_plan_mentions_the_filter_operator(engines):
