@@ -49,8 +49,16 @@ Phases, all on ``cuda:0``:
    cluster sum of the t-digest build, at pct_scalar's, pct_raw_month's
    and pct_tdigest_supp's sorted values and cluster offsets (long
    clusters and 816,000 short ones), captured at its entry, bit for bit
-   against its plain version (the CPU's sequential cumsum), beside ``torch.segment_reduce`` (a parallel sum, a
-   yardstick), with each digest query's cluster sizes equal to
+   against its plain version (the CPU's sequential cumsum), every
+   cluster in the exact integer regime (``kernels.cluster_regimes``
+   against ``cluster_regimes_plain``), beside ``torch.segment_reduce``
+   (a parallel sum: the same sums where every cluster is exact), the
+   bytes bound and the chain bound (the longest chained cluster times
+   one DADD, ``kernels.dadd_chain_ns``); again at pct_scalar's values +
+   0.5 (the chain regime alone) and at ``k5_adversarial``'s inputs
+   (fractions, sums of |v| about 2^52 and 2^53, values past 2^53, one
+   fraction in an integral cluster, +-inf, -0.0; each case's regime
+   counts asserted), with each digest query's cluster sizes equal to
    ``compress``'s own loop (run in the write pool) on every (segment,
    group) run; K1 at sumprec_year's and sumprec_cust's byte planes and
    K3 at rawhll_year's hash plane, captured the same way, and K1 at
@@ -256,7 +264,9 @@ Phases, all on ``cuda:0``:
    queries with distinct literals, 320 for each of 1, 2, 4 and 8 threads
    with the coalescer on and off (queries per second, p50).
 4. A ``{"kernels": [...]}`` line (K1-K5 and the four member-axis
-   entries), the card line, and as the last line
+   entries; K5's with the clusters each regime summed over the paths,
+   none chained on the sketch and mv paths' integer columns), the card
+   line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result line, without a CUDA card, outside a
@@ -284,6 +294,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA_DIR = os.path.join(ROOT, "_smoke_data")
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
+BATCH_CACHE_BYTES = 48 << 30  # cached batches' device bytes, of 80 GB
 FP32_OPS_PER_S = 67e12      # H100 SXM 32-bit rate outside the tensor cores
 
 REGIONS = np.array(["AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDEAST"])
@@ -1631,7 +1642,7 @@ def geo_candidate_counts(dirs: list) -> list:
 
 
 def check_mv_kernels(engine, k1: dict, k2: dict, k3: dict,
-                     k5_sizes: list) -> None:
+                     k5_sizes: list, chain_ns: float) -> None:
     """K1, K2, K3 and K5 at the mv path's own inputs, captured at their
     entries and held against their plain versions: mv_group_tags' group
     ids over one row per tag entry (K1's count), mv_codes_year's over
@@ -1663,7 +1674,8 @@ def check_mv_kernels(engine, k1: dict, k2: dict, k3: dict,
         "lo_tags entry hashes", mm))
     (args, _kw), = capture_calls(engine, MV_QUERIES["mv_pct_codes"], kernels,
                                  "cluster_sums")
-    k5_sizes.append(check_k5("mv_pct_codes (lo_codes' entries)", *args))
+    k5_sizes.append(check_k5("mv_pct_codes (lo_codes' entries)", *args,
+                             chain_ns))
 
 
 # the mv path: K1 counts and sums (the device shape, the expanded rows,
@@ -2971,25 +2983,60 @@ def check_digest_schedules(engine, runs: dict, weights: dict) -> dict:
     return out
 
 
-def check_k5(label: str, values, offsets) -> dict:
-    """K5 against its plain version (the CPU's sequential cumsum) at one
-    captured input, bit for bit. Times: the kernel (CUDA events), the
-    plain version (host clock, copies included) and
-    ``torch.segment_reduce`` over the same clusters, the nearest library
-    call (a parallel reduction: not the same sums, a yardstick)."""
+def k5_same(got, want) -> bool:
+    """K5's output against its plain version: the same bits, or NaN in
+    both (+inf plus -inf: the card's DADD and the CPU's give NaNs of
+    other payloads)."""
+    import torch
+
+    same = got.view(torch.int64) == want.view(torch.int64)
+    return bool((same | (torch.isnan(got) & torch.isnan(want))).all())
+
+
+def k5_regimes(values, offsets) -> tuple:
+    """One K5 call on the card: (its output, the clusters each regime
+    summed in it, those its plain choice of regime expects, the length of
+    the longest cluster that choice chains)."""
     import torch
     from pinot_tpu_torch.ops import kernels
 
+    kernels.reset_cluster_regimes()
     got = kernels.cluster_sums(values, offsets)
+    regimes = kernels.cluster_regimes()
+    choice = kernels.cluster_regimes_plain(values, offsets)
+    plain = torch.bincount(choice, minlength=len(kernels.K5_REGIMES))
+    chained = torch.diff(offsets.cpu())[choice != 0]
+    longest = int(chained.max()) if chained.numel() else 0
+    return got, regimes, dict(zip(kernels.K5_REGIMES, plain.tolist())), \
+        longest
+
+
+def check_k5(label: str, values, offsets, chain_ns: float,
+             exact: bool = True) -> dict:
+    """K5 against its plain version (the CPU's sequential cumsum) at one
+    input, bit for bit, each cluster in the regime its plain choice
+    names (every cluster exact at an integer column's, ``exact``). Times:
+    the kernel (CUDA events), the plain version (host clock, copies
+    included) and ``torch.segment_reduce`` over the same clusters, the
+    nearest library call (a parallel reduction: the same sums where every
+    cluster is exact, a yardstick elsewhere). Bounds: the bytes once, and
+    the chain's: its longest cluster times one DADD (``chain_ns``)."""
+    import torch
+    from pinot_tpu_torch.ops import kernels
+
+    got, regimes, plain, longest = k5_regimes(values, offsets)
     t = time.perf_counter()
     want = kernels.cluster_sums_plain(values, offsets)
     plain_ms = (time.perf_counter() - t) * 1e3
     torch.cuda.synchronize()
-    same = torch.equal(got.view(torch.int64), want.view(torch.int64))
-    err = float((got - want).abs().max()) if got.numel() else 0.0
-    if not same:
+    err = float((got - want).abs().nan_to_num().max()) if got.numel() \
+        else 0.0
+    if not k5_same(got, want):
         raise AssertionError(f"K5 {label}: differs from its plain version, "
                              f"max abs err {err}")
+    if regimes != plain or (exact and regimes["exact"] != got.numel()):
+        raise AssertionError(f"K5 {label}: regimes {regimes}, its plain "
+                             f"choice {plain}")
     ms = cuda_ms(lambda: kernels.cluster_sums(values, offsets), 10)
     lengths = torch.diff(offsets)
     lib_ms = cuda_ms(lambda: torch.segment_reduce(values, "sum",
@@ -2999,10 +3046,106 @@ def check_k5(label: str, values, offsets) -> dict:
     out = dict(shape=f"n={n} clusters={C} largest="
                      f"{int(lengths.max())} {label}",
                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
-               bound_by=by, library_ms=lib_ms)
+               bound_by=by, library_ms=lib_ms, regimes=regimes,
+               chain_bound_ms=longest * chain_ns * 1e-6)
     log(f"K5 {out['shape']}: {ms:.4f} ms, plain (CPU) {plain_ms:.2f} ms, "
-        f"segment_reduce {lib_ms:.4f} ms, bound {b:.4f} ms; bit-exact")
+        f"segment_reduce {lib_ms:.4f} ms, bound {b:.4f} ms, chain bound "
+        f"{out['chain_bound_ms']:.4f} ms (longest chain {longest}); "
+        f"regimes {regimes}; bit-exact")
     return out
+
+
+def k5_adversarial(seed: int = 61) -> list:
+    """K5's adversarial inputs, made with numpy from ``seed``: (label,
+    values, offsets, start, the clusters each regime should sum), the
+    values to be laid ``start`` doubles past a 16-byte boundary. About a
+    million values over ~1,100 clusters, so the plain version stays
+    quick."""
+    rng = np.random.default_rng(seed)
+    big = float(2 ** 44)
+
+    def odd(k, lo=0):   # k odd integers past ``lo``
+        return lo + 2.0 * rng.integers(0, 1 << 20, k) + 1.0
+
+    def ints(k, hi):
+        return rng.integers(-hi, hi, k).astype(np.float64)
+
+    def frac(k):
+        return np.sort(rng.normal(0.0, 1000.0, k))
+
+    lane = [frac(int(rng.integers(1, 257))) for _ in range(40)]
+    cases = [
+        ("a 150,000-value cluster of fractions and 40 short ones",
+         [frac(150_000)] + lane, 0, (0, 40, 1)),
+        ("the same, 8 bytes past a 16-byte boundary",
+         [frac(150_000)] + lane, 1, (0, 40, 1)),
+        ("1,000 clusters of 300 fractions (past the chain grid)",
+         [frac(300) for _ in range(1000)], 0, (0, 0, 1000)),
+        ("integers, sum of |v| just above 2^53",
+         [odd(520, big), odd(250, float(int(2.06 * big)))], 0, (0, 1, 1)),
+        ("integers, sum of |v| just below 2^53 (past 2^52: the chain)",
+         [odd(500, big)], 0, (0, 0, 1)),
+        ("integers, sum of |v| just below 2^52, one over 25 tiles",
+         [odd(250, big), ints(200_000, 22_000_000_000)], 0, (2, 0, 0)),
+        ("integral values past 2^53",
+         [np.concatenate([2.0 ** 60 + 256.0 * rng.integers(0, 99, 150),
+                          ints(150, 1000)]),
+          np.full(100, 2.0 ** 54)], 0, (0, 1, 1)),
+        ("one fraction in a 100,000-value integral cluster",
+         [np.concatenate([ints(50_000, 1_000_000), [0.5],
+                          ints(49_999, 1_000_000)]),
+          ints(100_000, 1_000_000)], 0, (1, 0, 1)),
+        ("+inf, -inf and both",
+         [np.append(ints(100, 50), np.inf), np.append(ints(100, 50), -np.inf),
+          np.array([np.inf, 1.0, -np.inf]),
+          np.append(ints(5000, 50), np.inf)], 0, (0, 3, 1)),
+        ("-0.0 only, and mixed +-0.0",
+         [np.array([-0.0]), np.full(200, -0.0), np.full(20_000, -0.0),
+          np.array([0.0, -0.0]), np.array([-0.0, 0.0]),
+          np.concatenate([np.full(10, -0.0), [0.0], np.full(10, -0.0)]),
+          np.array([-0.0, 3.0, -3.0])], 0, (7, 0, 0)),
+    ]
+    out = []
+    for label, clusters, start, expect in cases:
+        sizes = [len(c) for c in clusters]
+        out.append((label, np.concatenate(clusters).astype(np.float64),
+                    np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64),
+                    start, expect))
+    return out
+
+
+def check_k5_adversarial(chain_ns: float) -> dict:
+    """K5 at ``k5_adversarial``'s inputs on the card: bit for bit against
+    its plain version, each case's clusters in the regimes it names (and
+    its plain choice of regime agreeing). Returns the cases' records."""
+    import torch
+    from pinot_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda", 0)
+    cases = []
+    for label, vals, off, start, expect in k5_adversarial():
+        buf = torch.empty(vals.size + 2, dtype=torch.float64, device=dev)
+        head = (16 - buf.data_ptr() % 16) % 16 // 8 + start
+        values = buf[head:head + vals.size]
+        values.copy_(torch.from_numpy(vals))
+        offsets = torch.from_numpy(off).to(dev)
+        want_regimes = dict(zip(kernels.K5_REGIMES, expect))
+        got, regimes, plain, longest = k5_regimes(values, offsets)
+        want = kernels.cluster_sums_plain(values, offsets)
+        if not k5_same(got, want):
+            raise AssertionError(f"K5 {label}: differs from its plain "
+                                 f"version")
+        if regimes != want_regimes or plain != want_regimes:
+            raise AssertionError(f"K5 {label}: regimes {regimes}, plain "
+                                 f"choice {plain}, want {want_regimes}")
+        ms = cuda_ms(lambda: kernels.cluster_sums(values, offsets), 5)
+        cases.append({"case": label, "n": int(vals.size),
+                      "clusters": int(off.size - 1), "regimes": regimes,
+                      "ms": ms, "chain_bound_ms": longest * chain_ns * 1e-6})
+        log(f"K5 adversarial, {label}: n={vals.size}, "
+            f"{off.size - 1} clusters, regimes {regimes}, {ms:.4f} ms; "
+            f"bit-exact")
+    return {"cases": cases}
 
 
 def check_sketch_kernels(engine, k1: dict, k3: dict) -> None:
@@ -3924,6 +4067,13 @@ def plane_readers(engine, sql: str, planes: dict) -> dict:
     return seen
 
 
+# the paths whose K5 inputs are integer columns (lo_revenue, lo_codes):
+# every cluster must take the exact regime; the clusters each regime
+# summed over the main paths, for the kernels line
+K5_INTEGER_PATHS = ("sketch", "mv")
+K5_PATH_REGIMES: dict = {}
+
+
 def launch_tables() -> dict:
     """The launch counters: per kernel, and per entry of the two modules
     whose entries stand for different TPU kernels."""
@@ -3940,11 +4090,14 @@ def run_path(engine, path: str, want: dict, total: int, runs: int,
     run with ``profile``), read the counts. Fails when an answer differs
     or a kernel or entry of the path never launched. Returns (p50 by
     query, kernel launches)."""
+    from pinot_tpu_torch.ops import kernels
+
     queries, kernel_names, entries = PATHS[path]
     tables = launch_tables()
     for table in tables.values():
         for key in table:
             table[key] = 0
+    kernels.reset_cluster_regimes()
     p50 = {}
     for name, sql in queries.items():
         before = dict(tables["kernels"])
@@ -3993,6 +4146,15 @@ def run_path(engine, path: str, want: dict, total: int, runs: int,
             profile_query(engine, name, sql)
     counts = {k: dict(v) for k, v in tables.items()}
     log(f"{path} path launches: {json.dumps(counts)}")
+    if counts["kernels"]["cluster_sums"]:
+        regimes = kernels.cluster_regimes()
+        log(f"{path} path: K5's clusters by regime {json.dumps(regimes)}")
+        for name, n in regimes.items():
+            K5_PATH_REGIMES[name] = K5_PATH_REGIMES.get(name, 0) + n
+        if path in K5_INTEGER_PATHS and regimes["exact"] != sum(
+                regimes.values()):
+            raise AssertionError(f"K5 chained clusters of the {path} path's "
+                                 f"integer columns: {regimes}")
     for name in kernel_names:
         if counts["kernels"][name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
@@ -5865,6 +6027,10 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    # the batch LRU's byte budget (the reference's 6 GiB default sized for
+    # a TPU's memory): the paths' tables fit the card's 80 GB at once, so
+    # a path that mixes tables does not re-upload 100M-row batches
+    os.environ.setdefault("PINOT_TPU_BATCH_CACHE_BYTES", str(BATCH_CACHE_BYTES))
     from pinot_tpu_torch.engine.engine import QueryEngine
     from pinot_tpu_torch.ops import kernels
     from pinot_tpu_torch.ops.group_scatter import PALLAS_MIN_ROWS
@@ -6109,15 +6275,22 @@ def main(argv=None) -> int:
     check_path_group_ids(engine, k1, k2)
     torch.cuda.empty_cache()
     digest_inputs = check_digest_schedules(engine, runs, weights)
-    k5_sizes = [check_k5(name, *digest_inputs[name])
+    dadd = kernels.dadd_chain_ns(torch.device("cuda", 0))
+    log(f"DADD latency: {dadd['ns']:.4f} ns, {dadd['cycles']:.2f} cycles an "
+        f"addition (one thread, {dadd['adds']} dependent additions)")
+    k5_sizes = [check_k5(name, *digest_inputs[name], dadd["ns"])
                 for name in ("pct_scalar", "pct_raw_month",
                              "pct_tdigest_supp")]
-    k5 = dict(k5_sizes[0], sizes=k5_sizes)
-    del digest_inputs
+    values, offsets = digest_inputs["pct_scalar"]
+    k5_sizes.append(check_k5("pct_scalar's values + 0.5 (the chain regime)",
+                             values + 0.5, offsets, dadd["ns"], exact=False))
+    k5 = dict(k5_sizes[0], sizes=k5_sizes, dadd=dadd,
+              adversarial=check_k5_adversarial(dadd["ns"])["cases"])
+    del digest_inputs, values, offsets
     check_sketch_kernels(engine, k1, k3)
     check_highcard_kernels(engine, k1)
     torch.cuda.empty_cache()
-    check_mv_kernels(engine, k1, k2, k3, k5_sizes)
+    check_mv_kernels(engine, k1, k2, k3, k5_sizes, dadd["ns"])
     torch.cuda.empty_cache()
     check_values_kernels(engine, k1, k2)
     torch.cuda.empty_cache()
@@ -6187,6 +6360,11 @@ def main(argv=None) -> int:
     serving, member_records, member_launches = run_serving(
         engine, want, {"lineorder": total, BS_TABLE: total}, card)
     log(f"serving path: {time.perf_counter() - t:.2f} s")
+    hbm = engine.device.hbm_stats()
+    log(f"batch LRU: {hbm['cached_batches']} batches, {hbm['resident_bytes']} "
+        f"resident bytes of a {hbm['max_cached_bytes']}-byte budget; "
+        f"{hbm['batch_hits']} hits, {hbm['batch_misses']} misses, "
+        f"{hbm['batch_evictions']} evictions")
 
     entries = []
     for name, res, replaces in (
@@ -6203,6 +6381,8 @@ def main(argv=None) -> int:
                  "source": f"pinot_tpu_torch/csrc/{kernels.SOURCES[name]}",
                  "replaces": replaces, "launches": launches[name]}
         entry.update(res)
+        if name == "cluster_sums":
+            entry["path_regimes"] = dict(K5_PATH_REGIMES)
         entries.append(entry)
     for name, (solo, replaces) in SERVE_ENTRIES.items():
         if name not in member_records:

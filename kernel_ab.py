@@ -9,8 +9,11 @@ K1 (group plane sums) at q1, q5, q4_no_hll, the wide float shape and the
 sorted HLL build; K3 (HLL register max) at 1024, 35,840 and 2^20 slots;
 K2 (group min/max) at q6's shape; K4 (fused filter + aggregate) at
 bs_month_fused's candidates and at the full candidate bound; K5 (ordered
-cluster sums) at the digest queries' run shapes, with a checksum of its
-output bits so two trees' sums can be compared.
+cluster sums) at the digest queries' run shapes over integer values and
+over the same values plus 0.5, with a checksum of its output bits so two
+trees' sums can be compared, the clusters each of its regimes summed and
+the one-thread DADD latency that bounds its chain regime
+(``--k5-only``: K5 alone).
 
 K1, K2 and K3 changed their inputs over time: K1 read an (A, n) bf16
 channel tensor that torch ops built from the stored planes, K3 int32
@@ -169,12 +172,13 @@ def k4_shapes(ps, kernels, n: int, dev) -> None:
         print(json.dumps(res), flush=True)
 
 
-def k5_shapes(kernels, dev) -> None:
-    """K5 at chip_smoke.py's digest runs: pct_scalar's 8 runs of 12.5M
-    values (delta 200), pct_raw_month's 8 of ~149,000 (delta 100) and
-    pct_tdigest_supp's 16,000 of 6,250 (delta 100); the clusters are
-    ``digest.schedule``'s, the values random (K5's time does not depend
-    on them)."""
+def k5_inputs(dev):
+    """K5's inputs at chip_smoke.py's digest runs, as (name, values,
+    offsets): pct_scalar's 8 runs of 12.5M values (delta 200),
+    pct_raw_month's 8 of 148,750 (delta 100) and pct_tdigest_supp's
+    16,000 of 6,250 (delta 100); the clusters are ``digest.schedule``'s,
+    the values random integers as lo_revenue's, then the same values plus
+    0.5 (no cluster proves exact: the chain regime alone)."""
     import numpy as np
     import torch
     from pinot_tpu_torch.ops import digest
@@ -188,14 +192,80 @@ def k5_shapes(kernels, dev) -> None:
         off = torch.from_numpy(np.concatenate([[0], np.cumsum(sizes)])).to(dev)
         v = torch.randint(1000, 6_000_000, (runs * n_run,), generator=gen,
                           device=dev).to(torch.float64)
-        out = kernels.cluster_sums(v, off)
-        res = {"kernel": "K5", "shape": name, "clusters": len(sizes),
-               "largest": int(sizes.max()),
-               "bits_sum": int(out.view(torch.int64).sum()),
-               "kernel_ms": cuda_ms(lambda: kernels.cluster_sums(v, off), 20)}
-        print(json.dumps(res), flush=True)
-        del v, off, out
+        yield name, v, off
+        yield name + "+0.5", v + 0.5, off
+        del v
         torch.cuda.empty_cache()
+
+
+def device_us_by_kernel(call, reps: int) -> dict:
+    """Device microseconds a call by kernel name (torch.profiler's
+    device time over ``reps`` calls), and the host's microseconds a call
+    to enqueue them (no synchronisation between calls)."""
+    import re
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        call()
+    enqueue_us = (time.perf_counter() - t) / reps * 1e6
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0) or 0
+        m = re.search(r"(\w+)\(", e.key)
+        if us and m:
+            out[m.group(1)] = out.get(m.group(1), 0.0) + us / reps
+    return {"device_us": out, "enqueue_us": enqueue_us}
+
+
+def k5_shapes(kernels, dev) -> None:
+    """K5 at ``k5_inputs``' shapes, with a checksum of its output bits so
+    two trees' sums can be compared, ``torch.segment_reduce``'s time on
+    the same clusters, and, for a tree with K5's regimes, the clusters
+    each regime summed; first the one-thread DADD micro (ns an addition),
+    and with it each shape's chain bound: its longest chain-regime
+    cluster times that; and each launch's device time by the profiler,
+    beside the host's time to enqueue a call."""
+    import torch
+
+    ns = None
+    if hasattr(kernels, "dadd_chain_ns"):
+        micro = kernels.dadd_chain_ns(dev)
+        ns = micro["ns"]
+        print(json.dumps({"kernel": "DADD", "shape": "one thread, dependent",
+                          **micro}), flush=True)
+    for name, v, off in k5_inputs(dev):
+        sizes = torch.diff(off)
+        res = {"kernel": "K5", "shape": name, "clusters": sizes.numel(),
+               "largest": int(sizes.max())}
+        if hasattr(kernels, "cluster_regimes"):
+            kernels.reset_cluster_regimes()
+        out = kernels.cluster_sums(v, off)
+        res["bits_sum"] = int(out.view(torch.int64).sum())
+        if hasattr(kernels, "cluster_regimes"):
+            res["regimes"] = kernels.cluster_regimes()
+            chain = kernels.cluster_regimes_plain(v, off) != 0
+            res["chain_largest"] = int(sizes.cpu()[chain].max()) \
+                if bool(chain.any()) else 0
+            if ns is not None:
+                res["chain_bound_ms"] = res["chain_largest"] * ns * 1e-6
+        res["kernel_ms"] = cuda_ms(lambda: kernels.cluster_sums(v, off), 20)
+        res["segment_reduce_ms"] = cuda_ms(
+            lambda: torch.segment_reduce(v, "sum", lengths=sizes), 20)
+        res.update(device_us_by_kernel(
+            lambda: kernels.cluster_sums(v, off), 10))
+        print(json.dumps(res), flush=True)
+        del out
 
 
 def main(argv=None) -> int:

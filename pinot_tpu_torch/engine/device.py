@@ -1168,6 +1168,10 @@ def invalidate_cached_partials(match: str) -> None:
 
 class DeviceExecutor:
     MAX_CACHED_BATCHES = 4  # LRU cap: a batch holds its columns on the card
+    # and a cap on their resident bytes: planes are built lazily, so the
+    # byte check runs again as each in-flight launch drains
+    MAX_CACHED_BYTES = int(os.environ.get("PINOT_TPU_BATCH_CACHE_BYTES",
+                                          6 << 30))
 
     def __init__(self, device=None, num_groups_limit: int = 100_000,
                  min_rows: int = ps.PALLAS_MIN_ROWS):
@@ -1247,11 +1251,16 @@ class DeviceExecutor:
         return ctx
 
     def _evict(self, keep=None) -> None:
-        """LRU eviction past MAX_CACHED_BATCHES. A batch an in-flight
-        launch reads is pinned: it stays until the pin drops, and its
-        cached partials go with it when it goes."""
+        """LRU eviction past MAX_CACHED_BATCHES, or past MAX_CACHED_BYTES
+        of resident planes while more than one batch is held. A batch an
+        in-flight launch reads is pinned: it stays until the pin drops,
+        and its cached partials go with it when it goes. The batches'
+        byte counts are read without their locks."""
         with self._lock:
-            while len(self._batches) > self.MAX_CACHED_BATCHES:
+            while len(self._batches) > self.MAX_CACHED_BATCHES or (
+                    len(self._batches) > 1
+                    and sum(b.resident_bytes for b in self._batches.values())
+                    > self.MAX_CACHED_BYTES):
                 lru = next((k for k in self._batches
                             if k != keep and k not in self._inflight_launches),
                            None)
@@ -1347,6 +1356,7 @@ class DeviceExecutor:
             batches = list(self._batches.values())
         snap["cached_batches"] = len(batches)
         snap["resident_bytes"] = sum(b.resident_bytes for b in batches)
+        snap["max_cached_bytes"] = self.MAX_CACHED_BYTES
         snap["roofline"] = self.roofline_stats()
         return snap
 

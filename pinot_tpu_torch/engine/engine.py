@@ -277,6 +277,8 @@ class QueryEngine:
             "numSegmentsMatched": stats.num_segments_matched,
             "numSegmentsPrunedByServer": stats.num_segments_pruned,
             "numBlocksPruned": stats.num_blocks_pruned,
+            # cold-tier segments that answered as in-flight partials
+            "numSegmentsCold": stats.num_segments_cold,
             "numGroupsLimitReached": stats.num_groups_limit_reached,
             "partialsCacheHit": stats.partials_cache_hit,
             "totalDocs": stats.total_docs,

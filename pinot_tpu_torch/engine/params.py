@@ -53,8 +53,10 @@ cover; the engine reports it in the response.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import re
+import threading
 
 import numpy as np
 import torch
@@ -171,6 +173,18 @@ def to_device(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
+def _locked(build):
+    """Run a lazy builder of a ``BatchContext`` under the batch's lock.
+    Concurrent queries share one cached batch (the executor's LRU), so two
+    first readers must never build, upload and count a plane twice; an
+    RLock, as builders call one another."""
+    @functools.wraps(build)
+    def locked(self, *args, **kwargs):
+        with self._lock:
+            return build(self, *args, **kwargs)
+    return locked
+
+
 class BatchContext:
     """Host+device state for one batch of sealed segments."""
 
@@ -200,6 +214,9 @@ class BatchContext:
         self._mv_entries: dict[str, MVPlanes] = {}
         self._evolved: dict[str, list] = {}
         self._derived: dict = {}
+        # the builders below run under this lock; resident_bytes grows
+        # under it and is read without it (the executor's LRU sums it)
+        self._lock = threading.RLock()
         self.resident_bytes = 0
         self.narrow_saved_bytes = 0
         # sampled once: a cached batch's plans never shift mid-life
@@ -213,6 +230,7 @@ class BatchContext:
                 return s.column_metadata(name)
         raise DeviceUnsupported(f"unknown column {name}")
 
+    @_locked
     def encoding(self, name: str) -> str:
         """The batch's encoding of a column: the one every segment that
         stores it has; a single-value column the other segments predate
@@ -234,6 +252,7 @@ class BatchContext:
             self._encodings[name] = enc
         return self._encodings[name]
 
+    @_locked
     def evolved(self, name: str) -> list:
         """Per segment, the default a single-value column reads as in a
         segment that predates it (the table schema's
@@ -321,6 +340,7 @@ class BatchContext:
             metas.append(m)
         return 0 < max(m.max_mv_entries for m in metas) <= self.MAX_MV_K
 
+    @_locked
     def mv_column(self, name: str) -> torch.Tensor:
         """(S, L, K) device int32 GLOBAL dict ids of an MV column, entries
         padded with -1 (K = the batch's most entries a doc): the device
@@ -349,6 +369,7 @@ class BatchContext:
             self._upload(self._mv_columns, name, blocks)
         return self._mv_columns[name]
 
+    @_locked
     def mv_entries(self, name: str, evolved_dtype=None) -> MVPlanes:
         """Every entry of an MV column (``MVPlanes``), for the host path's
         shape: a dict column's entries as global ids, a raw one's as its
@@ -419,6 +440,7 @@ class BatchContext:
         return self._mv_entries[name]
 
     # ---- width planning (ColPlan) ---------------------------------------
+    @_locked
     def width_plan(self, key: str) -> ColPlan:
         """Device storage plan for a cols key (bare column name or
         "dv::name")."""
@@ -550,6 +572,7 @@ class BatchContext:
             return mask_ops.unpack_subbyte(plane, plan.bits)
         return plane
 
+    @_locked
     def packed_column(self, name: str) -> torch.Tensor:
         """The plane ``column`` reads, as the card holds it: a sub-byte
         plan's (S, L * bits // 8) packed bytes, else the plane itself."""
@@ -610,6 +633,7 @@ class BatchContext:
         self.resident_bytes += sum(z.numel() * z.element_size() for z in pair)
         self._zone_maps[key] = pair
 
+    @_locked
     def zone_map(self, key: str) -> tuple:
         """((S, NB) lo, (S, NB) hi) device zone tensors for a cols key
         (bare name → global dict ids or raw storage values; "dv::name" →
@@ -622,6 +646,7 @@ class BatchContext:
                 self.column(key)
         return self._zone_maps[key]
 
+    @_locked
     def global_dict(self, name: str) -> Dictionary:
         """Sorted union of per-segment dictionary values (global id space;
         a schema-evolved multi-value column's segments without it hold no
@@ -647,6 +672,7 @@ class BatchContext:
     def cardinality(self, name: str) -> int:
         return len(self.global_dict(name))
 
+    @_locked
     def decoded_column(self, name: str) -> torch.Tensor:
         """(S, L) device tensor of DECODED numeric values for a dict column,
         gathered through the dictionary on the host at upload (the device
@@ -685,6 +711,7 @@ class BatchContext:
                              *self._zone_maps["dv::" + name])
         return self._decoded[name]
 
+    @_locked
     def exact_column(self, name: str) -> torch.Tensor:
         """(S, L) device tensor of a raw column's values at their STORED
         dtype (a raw DOUBLE as float64, where ``column`` holds float32),
@@ -700,6 +727,7 @@ class BatchContext:
             self._upload(self._decoded, key, blocks)
         return self._decoded[key]
 
+    @_locked
     def prehashed_column(self, name: str) -> torch.Tensor:
         """(S, L) device int32 bit view of per-doc canonical value hashes
         (ops/hll.py ``hash32_np``, the hash the host register build
@@ -735,6 +763,7 @@ class BatchContext:
             widths.add(dt.itemsize)
         return widths.pop() if len(widths) == 1 else 0
 
+    @_locked
     def bytes_plane_column(self, name: str) -> torch.Tensor:
         """(S, L, W) device uint8 tensor of the raw bytes of a fixed-width
         BYTES dict column (HLLMERGE's pre-aggregated register planes),
@@ -755,6 +784,7 @@ class BatchContext:
             self._upload(self._decoded, key, blocks)
         return self._decoded[key]
 
+    @_locked
     def sorted_hll_keys(self, group_cols, group_cards, hash_col: str,
                         log2m: int) -> torch.Tensor:
         """(S * L,) device int32: the SORTED packed ``slot << 5 | rho``
@@ -780,6 +810,7 @@ class BatchContext:
             self._upload(self._sorted_hll, key, torch.sort(k32).values)
         return self._sorted_hll[key]
 
+    @_locked
     def null_plane(self, name: str) -> torch.Tensor:
         """(S, L) device bool: the docs where ``name`` is null, as the
         host path reads them (engine/host.py there): each segment's null
@@ -803,6 +834,7 @@ class BatchContext:
             self._upload(self._decoded, key, blocks)
         return self._decoded[key]
 
+    @_locked
     def derived(self, key, build):
         """Device tensors derived on the host from the batch's
         dictionaries (``build()``: a tensor or a tuple of them), built at

@@ -73,6 +73,11 @@ MEMBER_ENTRIES = {
 # nowhere else (chip_smoke.py zeroes them before driving the main path)
 launches = {name: 0 for name in (*SOURCES, *MEMBER_ENTRIES)}
 
+# every C entry beside a library's own, by its library: the member-axis
+# entries, K5's scratch size and the DADD latency micro (kernel_ab.py)
+ENTRY_LIBS = {**MEMBER_ENTRIES, "cluster_sums_scratch": "cluster_sums",
+              "dadd_chain": "cluster_sums"}
+
 _libs: dict = {}
 _lock = threading.Lock()
 
@@ -82,7 +87,9 @@ _ARGTYPES = {  # the C signatures at the end of each csrc/*.cu
     "group_minmax": [_vp, _vp, _i64, _i32, _i32, _i32, _vp],
     "hll_register_max": [_vp, _vp, _vp, _i64, _i32, _i32, _i32, _vp, _vp],
     "fused_filter_agg": [_vp, _vp, _i32, _i32, _vp, _vp, _vp, _vp],
-    "cluster_sums": [_vp, _vp, _i64, _vp, _vp],
+    "cluster_sums": [_vp, _i64, _vp, _i64, _vp, _vp, _vp, _vp],
+    "cluster_sums_scratch": [_i64, _i64],
+    "dadd_chain": [_vp, _i64, _vp, _vp],
     "group_plane_sums_members": [_vp, _vp, _vp, _i64, _i32, _i64, _i32, _i32,
                                  _i64, _i32, _vp, _vp],
     "group_minmax_members": [_vp, _vp, _vp, _i64, _i32, _i64, _i32, _i32,
@@ -92,6 +99,7 @@ _ARGTYPES = {  # the C signatures at the end of each csrc/*.cu
     "fused_filter_agg_members": [_vp, _vp, _i32, _i32, _i32, _vp, _i64, _vp,
                                  _vp, _vp],
 }
+_RESTYPES = {"cluster_sums_scratch": ctypes.c_int64}  # else a cudaError_t
 
 
 # ---------------------------------------------------------------------------
@@ -144,7 +152,7 @@ def build_all() -> float:
 def _lib(name: str):
     """The library of ``name`` (a source, or a member-axis entry of one),
     built and loaded at first use, its entry points typed."""
-    src = MEMBER_ENTRIES.get(name, name)
+    src = ENTRY_LIBS.get(name, name)
     with _lock:
         lib = _libs.get(src)
         if lib is None:
@@ -152,11 +160,11 @@ def _lib(name: str):
             if not os.path.exists(path):
                 build_all()
             lib = ctypes.CDLL(path)
-            for fname in (src, *(e for e, s in MEMBER_ENTRIES.items()
+            for fname in (src, *(e for e, s in ENTRY_LIBS.items()
                                  if s == src)):
                 fn = getattr(lib, fname)
                 fn.argtypes = _ARGTYPES[fname]
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(fname, ctypes.c_int)
             _libs[src] = lib
         return lib
 
@@ -1222,6 +1230,63 @@ def fused_filter_agg_members(cand, rows_in, cols, lits, prog, aggs, ki: int,
 # ---------------------------------------------------------------------------
 
 
+# the regimes K5 sums a cluster in (csrc/cluster_sums.cu): exact
+# integers, a lane's chain (at most K5_SHORT values), a block's TMA-fed
+# chain; their clusters are counted on the card, per device
+K5_REGIMES = ("exact", "lane_chain", "block_chain")
+K5_SHORT = 256
+K5_MAX_ABS = 2.0 ** 53       # an exact value's magnitude, at most
+K5_MAX_SUM_ABS = 2.0 ** 52   # an exact cluster's float64 sum of |v|
+_k5_regimes: dict = {}
+
+
+def _k5_regime_counts(device) -> torch.Tensor:
+    t = _k5_regimes.get(device)
+    if t is None:
+        with _lock:
+            t = _k5_regimes.setdefault(device, torch.zeros(
+                len(K5_REGIMES), dtype=torch.int64, device=device))
+    return t
+
+
+def cluster_regimes() -> dict:
+    """The clusters K5 summed in each regime on the card since the last
+    ``reset_cluster_regimes``, over every device (one sync a device)."""
+    out = dict.fromkeys(K5_REGIMES, 0)
+    for t in list(_k5_regimes.values()):
+        for name, n in zip(K5_REGIMES, t.tolist()):
+            out[name] += n
+    return out
+
+
+def reset_cluster_regimes() -> None:
+    for t in list(_k5_regimes.values()):
+        t.zero_()
+
+
+def cluster_regimes_plain(values, offsets):
+    """Plain version of K5's choice of regime, on the CPU: (C,) int64, 0
+    where the exact integer regime sums the cluster (every value an
+    integer of magnitude at most 2^53 and the float64 sum of |v| at most
+    2^52, or an empty cluster), 1 where a lane chains it (at most
+    ``K5_SHORT`` values), 2 where a block does. The float sum's order
+    differs from the card's, which matters only within a few ulps of
+    2^52."""
+    v = values.reshape(-1).to("cpu", torch.float64)
+    off = offsets.reshape(-1).to("cpu", torch.int64)
+    C = off.numel() - 1
+    lengths = torch.diff(off)
+    seg = torch.repeat_interleave(torch.arange(C), lengths.clamp(min=0))
+    vals = v[int(off[0]):int(off[0]) + seg.numel()] if C else v[:0]
+    ok = (vals.abs() <= K5_MAX_ABS) & (vals == vals.trunc())
+    bad = torch.zeros(C, dtype=torch.int64).index_add_(
+        0, seg, (~ok).to(torch.int64))
+    asum = torch.zeros(C, dtype=torch.float64).index_add_(0, seg,
+                                                          vals.abs())
+    exact = (lengths <= 0) | ((bad == 0) & (asum <= K5_MAX_SUM_ABS))
+    return torch.where(exact, 0, torch.where(lengths <= K5_SHORT, 1, 2))
+
+
 def cluster_sums_plain(values, offsets):
     """Plain version of K5, on the CPU whatever the inputs' device: per
     cluster, ``torch.cumsum`` over its values, which the CPU runs as one
@@ -1247,25 +1312,57 @@ def cluster_sums_plain(values, offsets):
 
 def cluster_sums(values, offsets):
     """K5. values: (n,) float64, sorted within each cluster as the caller
-    wants them summed; offsets: (C + 1,) int64, non-decreasing, in [0, n],
-    each cluster non-empty (ops/digest.py builds them on the host).
-    Returns (C,) float64: each cluster's values added in index order from
-    its first value, one ``__dadd_rn`` at a time."""
+    wants them summed; offsets: (C + 1,) int64, non-decreasing, in [0, n]
+    (ops/digest.py builds them on the host). Returns (C,) float64: each
+    cluster's values added in index order from its first value, one
+    ``__dadd_rn`` at a time (an empty cluster 0.0). On the card each
+    cluster takes the regime it proves (``K5_REGIMES``), counted in
+    ``cluster_regimes``."""
     if values.device.type == "cpu" and offsets.device.type == "cpu":
         return cluster_sums_plain(values, offsets)
     _check_cuda("cluster_sums", values, offsets)
     if values.dtype != torch.float64 or offsets.dtype != torch.int64:
         raise TypeError("cluster_sums takes float64 values and int64 "
                         f"offsets, got {values.dtype}, {offsets.dtype}")
-    if values.dim() != 1 or offsets.dim() != 1 or offsets.numel() < 1:
+    if values.dim() != 1 or offsets.dim() != 1 or offsets.numel() < 1 \
+            or offsets.numel() > INT32_MAX:
         raise ValueError(f"cluster_sums shapes: values {tuple(values.shape)},"
                          f" offsets {tuple(offsets.shape)}")
-    C = offsets.numel() - 1
-    out = torch.empty(C, dtype=torch.float64, device=values.device)
-    if C:
-        rc = _lib("cluster_sums").cluster_sums(
-            values.data_ptr(), offsets.data_ptr(), C, out.data_ptr(),
-            _stream(values.device))
-        _raise_on("cluster_sums", rc)
-        launches["cluster_sums"] += 1
+    n, C = values.numel(), offsets.numel() - 1
+    if not C:
+        return torch.empty(0, dtype=torch.float64, device=values.device)
+    lib = _lib("cluster_sums")
+    # one allocation: the output, then the kernel's scratch
+    buf = torch.empty(8 * C + lib.cluster_sums_scratch(n, C),
+                      dtype=torch.uint8, device=values.device)
+    out = buf[:8 * C].view(torch.float64)
+    rc = lib.cluster_sums(
+        values.data_ptr(), n, offsets.data_ptr(), C, buf.data_ptr(),
+        buf.data_ptr() + 8 * C, _k5_regime_counts(values.device).data_ptr(),
+        _stream(values.device))
+    _raise_on("cluster_sums", rc)
+    launches["cluster_sums"] += 1
     return out
+
+
+def dadd_chain_ns(device, n: int = 1 << 24) -> dict:
+    """One DADD's latency on the card: one thread adds n (a multiple of 8)
+    dependent float64 values (csrc/cluster_sums.cu ``dadd_chain``), timed
+    with CUDA events; and the cycles an addition by ``clock64``. The
+    chain regime's bound is its longest cluster times ``ns``."""
+    x = torch.tensor([1.0, 0.5, -0.25], dtype=torch.float64, device=device)
+    out = torch.empty(2, dtype=torch.float64, device=device)
+
+    def run():
+        _raise_on("dadd_chain", _lib("dadd_chain").dadd_chain(
+            x.data_ptr(), n, out.data_ptr(), _stream(device)))
+    run()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    return {"adds": n, "ms": ms, "ns": ms * 1e6 / n,
+            "cycles": float(out[1])}
