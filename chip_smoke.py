@@ -263,12 +263,28 @@ Phases, all on ``cuda:0``:
    makes (``torch.cuda.set_sync_debug_mode("warn")``), and q1-shaped
    queries with distinct literals, 320 for each of 1, 2, 4 and 8 threads
    with the coalescer on and off (queries per second, p50).
+   The multistage path also runs stage 2's other aggregations over a
+   month's joined rows (two digests by c_nation, K5 held bit for bit at
+   their captured inputs with each group's ``compress`` schedule and its
+   regime counts; theta and MODE, SUMPRECISION (K1), raw HLL (K3) and
+   FIRSTWITHTIME by s_region), an MV column selected through a join and
+   a number against a string literal after the join. The mesh path runs
+   last: a second engine over the same segment objects whose executor
+   shards the segment axis over ``[cuda:0] * 4`` (and any further card,
+   ``mesh_devices``), SSB q1-q6, a block-skip, a sorted-regime and two
+   HLL queries, rt_q1, a BROADCAST and a SHUFFLE star join and a cohort
+   of four, each held to the single device's answer from the same run;
+   each shard's K1-K4 launches are counted (``count_shards``) and every
+   shard must launch each; per query the p50 on the mesh and on one
+   device and the combine's ms.
 4. A ``{"kernels": [...]}`` line (K1-K5 and the four member-axis
    entries; K5's with the clusters each regime summed over the paths,
-   none chained on the sketch and mv paths' integer columns), the card
-   line, and as the last line
+   none chained on the sketch, mv and multistage paths' integer columns;
+   K1-K4's launches by mesh shard), the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
+``--paths a,b`` runs those paths alone (``ALL_PATHS``; default every
+one), writing and loading only the tables they read (``PATH_TABLES``).
 Exits non-zero, printing no result line, without a CUDA card, outside a
 checkout of the repository, or when any phase fails. Imports nothing of
 JAX or of the JAX package.
@@ -2785,10 +2801,12 @@ def compress_weights(n: int, delta: float) -> list:
     return out
 
 
-def _rank_checker(name: str, groups: list, p: float, delta: float):
+def _rank_checker(name: str, groups: list, p: float, delta: float,
+                  col: int = -1):
     """A rows check for an approximate percentile: each row's value (the
-    last column) must lie within rank 1.5 / delta of p in its group's
-    values (``groups``: (key or None, values) in row order)."""
+    column ``col``, the last by default) must lie within rank 1.5 / delta
+    of p in its group's values (``groups``: (key or None, values) in row
+    order)."""
     def check(got):
         if len(got) != len(groups):
             raise AssertionError(f"{name}: {len(got)} rows, want "
@@ -2797,7 +2815,7 @@ def _rank_checker(name: str, groups: list, p: float, delta: float):
         for row, (key, vals) in zip(got, groups):
             if key is not None and row[0] != key:
                 raise AssertionError(f"{name}: key {row[0]}, want {key}")
-            est, n = row[-1], len(vals)
+            est, n = row[col], len(vals)
             lo = np.count_nonzero(vals < est) / n
             hi = np.count_nonzero(vals <= est) / n
             off = 0.0 if lo <= p <= hi else min(abs(lo - p), abs(hi - p))
@@ -4070,7 +4088,7 @@ def plane_readers(engine, sql: str, planes: dict) -> dict:
 # the paths whose K5 inputs are integer columns (lo_revenue, lo_codes):
 # every cluster must take the exact regime; the clusters each regime
 # summed over the main paths, for the kernels line
-K5_INTEGER_PATHS = ("sketch", "mv")
+K5_INTEGER_PATHS = ("sketch", "mv", "multistage")
 K5_PATH_REGIMES: dict = {}
 
 
@@ -4948,12 +4966,50 @@ MS_QUERIES = {
         f"JOIN supplier s ON lo.lo_suppkey = s.s_suppkey WHERE {MS_MONTH} "
         f"GROUP BY s.s_region ORDER BY s.s_region"),
 }
+# stage 2's other aggregations over a month's joined rows (ROADMAP l2):
+# the digests through K5 (their first joined-row inputs), SUMPRECISION's
+# byte planes through K1, the raw HLL registers through K3's group entry
+_MS_CM = ("lineorder lo JOIN customer c ON lo.lo_custkey = c.c_custkey "
+          f"WHERE {MS_MONTH}")
+_MS_SM = ("lineorder lo JOIN supplier s ON lo.lo_suppkey = s.s_suppkey "
+          f"WHERE {MS_MONTH}")
+# (p, compression) of ms_pct_nation's digests: PERCENTILETDIGEST's and
+# PERCENTILE's defaults
+MS_PCT = ((0.5, 100.0), (0.5, 200.0))
+MS_QUERIES.update({
+    "ms_pct_nation": (
+        f"SELECT c.c_nation, PERCENTILETDIGEST(lo.lo_revenue, 50), "
+        f"PERCENTILE(lo.lo_revenue, 50) FROM {_MS_CM} "
+        f"GROUP BY c.c_nation ORDER BY c.c_nation LIMIT 30"),
+    "ms_theta_mode": (
+        f"SELECT s.s_region, DISTINCTCOUNTTHETASKETCH(lo.lo_custkey), "
+        f"MODE(lo.lo_quantity) FROM {_MS_SM} GROUP BY s.s_region "
+        f"ORDER BY s.s_region"),
+    "ms_sumprec_hll_first": (
+        f"SELECT s.s_region, SUMPRECISION(lo.lo_revenue), "
+        f"DISTINCTCOUNTRAWHLL(lo.lo_custkey), FIRSTWITHTIME(lo.lo_revenue, "
+        f"lo.lo_orderdate, 'INT') FROM {_MS_SM} GROUP BY s.s_region "
+        f"ORDER BY s.s_region"),
+    # an MV column through the join, filtered in its leaf
+    "ms_mv_select": (
+        f"SELECT lo.lo_revenue, lo.lo_custkey, lo.lo_tags, c.c_nation "
+        f"FROM {MV_TABLE} lo JOIN customer c ON lo.lo_custkey = c.c_custkey "
+        f"WHERE lo.lo_codes = 4242 ORDER BY lo.lo_revenue DESC, "
+        f"lo.lo_custkey LIMIT 10"),
+    # a number against a string literal, after the join: numpy's answer
+    # (no row equals 'abc')
+    "ms_number_string": (
+        f"SELECT COUNT(*), SUM(lo.lo_revenue) FROM {_MS_SM} AND "
+        f"(lo.lo_quantity = 'abc' OR s.s_region = 'ASIA')"),
+})
 MS_TWINS = (("ms_lookup_month", "ms_left_cust"),)
 MS_REFUSED = (f"SELECT COUNT(*) FROM lineorder lo JOIN dates d "
               f"ON lo.lo_orderdate = d.d_datekey WHERE {MS_YEAR}")
-PATHS["multistage"] = (MS_QUERIES, ("group_plane_sums", "group_minmax"),
+PATHS["multistage"] = (MS_QUERIES, ("group_plane_sums", "group_minmax",
+                                    "hll_register_max", "cluster_sums"),
                        ((3, "group_scatter", "plane_group_sums"),
-                        (4, "group_scatter", "group_minmax")))
+                        (4, "group_scatter", "group_minmax"),
+                        (2, "groupby_mm", "hll_registers")))
 
 
 def ms_dims(seed: int = MS_SEED) -> dict:
@@ -5025,10 +5081,15 @@ def _ms_stats(leaves: dict, totals: dict, joined: int) -> dict:
             "numJoinedRows": int(joined), "leafRows": dict(leaves)}
 
 
-def ms_oracle(data: list, dims: dict, rt: dict, rt_rows: int) -> dict:
+def ms_oracle(data: list, dims: dict, rt: dict, rt_rows: int,
+              mv: list) -> dict:
     """The multistage path's answers from the generated columns: dense
     key -> attribute arrays gathered by key (-1 where the key has no
-    dimension row), ``np.lexsort`` for the orders and the windows."""
+    dimension row), ``np.lexsort`` for the orders and the windows; the
+    digests held within rank 1.5/delta, theta with the port's numpy copy
+    of the reference's module over each group's joined rows at once (the
+    reference's stage 2 builds one state from all of them), the raw HLL's
+    registers by the host's hash; ``mv`` the MV table's columns."""
     c = {k: np.concatenate([d[k] for d in data])
          for k in ("lo_custkey", "lo_suppkey", "lo_orderdate", "lo_revenue",
                    "lo_quantity")}
@@ -5207,7 +5268,125 @@ def ms_oracle(data: list, dims: dict, rt: dict, rt_rows: int) -> dict:
                                                      keep.sum()))
     want["ms_explain"] = {"quarter": n_quarter, "year_rows": int(
         ((od >= 19930101) & (od <= 19931231)).sum())}
+    want.update(ms_l2_oracle(c, c_nat, s_reg, month, n_month, tot, data, mv,
+                             dims))
     return want
+
+
+def ms_runs(data: list) -> list:
+    """ms_pct_nation's digest runs: per nation (ascending) the month's
+    joined rows, one run each (stage 2's rows are one segment)."""
+    cust = np.concatenate([d["lo_custkey"] for d in data])
+    od = np.concatenate([d["lo_orderdate"] for d in data])
+    m = (od >= 19930301) & (od <= 19930328) & (cust >= 1)
+    cnt = np.bincount(cust[m] % 25, minlength=25)
+    return [int(x) for x in cnt if x]
+
+
+def ms_l2_oracle(c: dict, c_nat, s_reg, month, n_month: int, tot: dict,
+                 data: list, mv: list, dims: dict) -> dict:
+    """The l2 queries' answers: stage 2's digests, sketches and the time
+    pair over a month's joined rows, the MV selection through a join and
+    the number-against-string OR."""
+    import base64
+
+    from pinot_tpu_torch.ops import theta
+
+    cust, supp, od = c["lo_custkey"], c["lo_suppkey"], c["lo_orderdate"]
+    rev, qty = c["lo_revenue"].astype(np.int64), c["lo_quantity"]
+    want = {}
+    mc = month & (c_nat[cust] >= 0)
+    nat = c_nat[cust[mc]]
+    leaves = {"lo": n_month, "c": tot["c"]}
+    groups = [(str(NATIONS[k]), rev[mc][nat == k].astype(np.float64))
+              for k in range(25) if (nat == k).any()]
+    checks = [_rank_checker("ms_pct_nation", groups, p, delta, col=j + 1)
+              for j, (p, delta) in enumerate(MS_PCT)]
+
+    def pct_rows(got):
+        for chk in checks:
+            chk(got)
+
+    want["ms_pct_nation"] = (pct_rows, sum(leaves.values()),
+                             _ms_stats(leaves, tot, mc.sum()))
+
+    ms = month & (s_reg[supp] >= 0)
+    reg = s_reg[supp[ms]]
+    leaves = {"lo": n_month, "s": tot["s"]}
+    k = theta.DEFAULT_NOMINAL
+    rows = []
+    for r in range(5):
+        vals = np.unique(cust[ms][reg == r]).astype(np.int32)
+        th, h = theta.build(vals, k)
+        cnt = np.bincount(qty[ms][reg == r], minlength=51)
+        rows.append([str(REGIONS[r]), round(theta.estimate(th, h)),
+                     float(np.argmax(cnt))])
+    want["ms_theta_mode"] = (rows, sum(leaves.values()),
+                             _ms_stats(leaves, tot, ms.sum()))
+
+    idx, rho = hll_idx_rho(fmix32(cust[ms]), LOG2M)
+    slot = reg * (1 << LOG2M) + idx
+    regs = np.zeros(5 << LOG2M, np.int8)
+    for r in range(1, 34 - LOG2M):   # a later, larger rank overwrites
+        regs[slot[rho == r]] = r
+    rows = []
+    for r in range(5):
+        sel = reg == r
+        first = od[ms][sel].min()
+        best = rev[ms][sel][od[ms][sel] == first].max()
+        rows.append([str(REGIONS[r]), str(int(rev[ms][sel].sum())),
+                     base64.b64encode(regs.reshape(5, -1)[r].tobytes())
+                     .decode("ascii"), int(best)])
+    want["ms_sumprec_hll_first"] = (rows, sum(leaves.values()),
+                                    _ms_stats(leaves, tot, ms.sum()))
+
+    asia = int(np.searchsorted(REGIONS, "ASIA"))
+    hit = ms & (s_reg[supp] == asia)
+    want["ms_number_string"] = (
+        [[int(hit.sum()), float(rev[hit].sum())]], sum(leaves.values()),
+        _ms_stats(leaves, tot, hit.sum()))
+
+    # the MV table: its two segments' rows with code 4242, joined to
+    # their customer, the top 10 by revenue
+    mvd = data[:MV_SEGMENTS]
+    mrev = np.concatenate([d["lo_revenue"] for d in mvd]).astype(np.int64)
+    mcust = np.concatenate([d["lo_custkey"] for d in mvd])
+    n_mv = len(mrev)
+    tags = np.concatenate([m["lo_tags"][0] for m in mv]).astype(np.int64)
+    tlen = np.concatenate([np.diff(m["lo_tags"][1]) for m in mv])
+    codes = np.concatenate([m["lo_codes"][0] for m in mv])
+    clen = np.concatenate([np.diff(m["lo_codes"][1]) for m in mv])
+    hit = np.zeros(n_mv, bool)
+    hit[np.repeat(np.arange(n_mv), clen)[codes == 4242]] = True
+    joined = hit & (c_nat[mcust] >= 0)
+    idx = np.lexsort((mcust, -mrev))
+    idx = idx[joined[idx]][:11]
+    top = [(int(mrev[i]), int(mcust[i])) for i in idx]
+    if len(set(top)) < len(top) or (len(top) == 11 and top[9] == top[10]):
+        raise AssertionError("ms_mv_select's top 10 rows tie")
+    toff = np.concatenate([[0], np.cumsum(tlen)])
+    cu = dims["customer"]
+    at = np.searchsorted(cu["c_custkey"], mcust[idx[:10]])
+    leaves = {"lo": int(hit.sum()), "c": tot["c"]}
+    totals = dict(tot, lo=n_mv)
+    want["ms_mv_select"] = (
+        [[int(mrev[i]), int(mcust[i]), TAGS[tags[toff[i]:toff[i + 1]]]
+          .tolist(), str(nm)]
+         for i, nm in zip(idx[:10], np.asarray(cu["c_nation"])[at])],
+        sum(leaves.values()), _ms_stats(leaves, totals, joined.sum()))
+    return want
+
+
+# the l2 queries' launches: the two digests a K5 launch each, SUMPRECISION's
+# byte planes one K1 launch and the raw HLL one K3 launch at any size (the
+# sketches have no gate), the rest none
+MS_L2_LAUNCHES = {
+    "ms_pct_nation": {"cluster_sums": 2, "group_plane_sums": 0},
+    "ms_theta_mode": {"group_plane_sums": 0, "cluster_sums": 0},
+    "ms_sumprec_hll_first": {"group_plane_sums": 1, "hll_register_max": 1},
+    "ms_mv_select": {"group_plane_sums": 0},
+    "ms_number_string": {"group_plane_sums": 0},
+}
 
 
 def ms_launches(want: dict, gate: int) -> dict:
@@ -5221,6 +5400,9 @@ def ms_launches(want: dict, gate: int) -> dict:
         if "LOOKUP" in sql:
             out[name] = {"group_plane_sums": 1, "group_minmax": 1}
             continue
+        if name in MS_L2_LAUNCHES:
+            out[name] = dict(MS_L2_LAUNCHES[name])
+            continue
         joined = want[name][2]["numJoinedRows"]
         out[name] = {"group_plane_sums": int("GROUP BY" in sql
                                              and joined >= gate),
@@ -5228,12 +5410,46 @@ def ms_launches(want: dict, gate: int) -> dict:
     return out
 
 
-def check_multistage_kernels(engine, k1: dict, k2: dict) -> None:
+def check_multistage_kernels(engine, k1: dict, k2: dict, k3: dict,
+                             k5_sizes: list, chain_ns: float,
+                             runs: list, weights: dict) -> None:
     """K1 at stage 2's own inputs (ms_nation_region's and ms_q31's group
-    ids over the joined rows, their integer planes), and K1 and K2 at the
-    LOOKUP group-by's (ms_lookup, the host path's shape over 100M rows),
-    captured at their entries and held against their plain versions."""
+    ids over the joined rows, their integer planes; ms_sumprec_hll_first's
+    SUMPRECISION byte planes), K1 and K2 at the LOOKUP group-by's
+    (ms_lookup, the host path's shape over 100M rows), K3 at
+    ms_sumprec_hll_first's joined-row hashes and K5 at ms_pct_nation's
+    two digests over the joined rows (the cluster sizes each group's
+    ``compress`` gives, ``runs`` the groups' row counts, ``weights`` the
+    schedules), captured at their entries and held against their plain
+    versions, K5 with its regime counts."""
     from pinot_tpu_torch.ops import group_scatter as ps
+    from pinot_tpu_torch.ops import groupby_mm as mm
+    from pinot_tpu_torch.ops import kernels
+
+    calls = capture_calls(engine, MS_QUERIES["ms_pct_nation"], kernels,
+                          "cluster_sums")
+    if len(calls) != len(MS_PCT):
+        raise AssertionError(f"ms_pct_nation: {len(calls)} K5 calls")
+    for (args, _kw), (_p, delta) in zip(calls, MS_PCT):
+        values, offsets = args
+        got = np.diff(offsets.cpu().numpy())
+        if got.tolist() != [w for n in runs for w in weights[(n, delta)]]:
+            raise AssertionError(f"ms_pct_nation (delta {delta}): the "
+                                 f"card's clusters differ from compress's")
+        k5_sizes.append(check_k5(
+            f"ms_pct_nation's joined rows (delta {delta:g}, {len(runs)} "
+            f"groups)", values, offsets, chain_ns))
+    sql = MS_QUERIES["ms_sumprec_hll_first"]
+    for (gid, sources, G), kw in capture_calls(engine, sql, ps,
+                                               "plane_group_sums"):
+        count = kw.get("count", True)
+        k1["shapes"].append(k1_shape(
+            f"ms_sumprec_hll_first: SUMPRECISION over joined rows, n="
+            f"{gid.numel()}, G={G}, {planes_label(sources, count)}",
+            ps.plane_group_sums, G, sources, count, gid))
+    k3["sizes"].append(k3_captured(
+        engine, sql, "ms_sumprec_hll_first's joined-row lo_custkey hashes",
+        mm))
 
     for name in ("ms_nation_region", "ms_q31", "ms_lookup"):
         if not QUERY_LAUNCHES[name]["group_plane_sums"]:
@@ -5353,6 +5569,285 @@ def run_multistage(engine, want: dict, on_card: bool) -> dict:
         out[name] = rec
         log(f"{name}: " + json.dumps(rec))
     return out
+
+
+# ---------------------------------------------------------------------------
+# the mesh path: the segment axis sharded over a mesh (ROADMAP item k)
+# ---------------------------------------------------------------------------
+
+MESH_REPEAT = 4      # shards on cuda:0 (one card standing in for four)
+MESH_QUERIES = {
+    **{f"mesh_{k}": v for k, v in QUERIES.items()},
+    "mesh_bs_month_fused": BS_QUERIES["bs_month_fused"],
+    "mesh_hc_supp_day": HC_QUERIES["hc_supp_day"],
+    # K3's group entry, then its small-slot entry under a mask
+    "mesh_hll_small_group": HLL_QUERIES["hll_small_group"],
+    "mesh_hll_scalar": HLL_QUERIES["hll_scalar"],
+    "mesh_rt_q1": RT_QUERIES["rt_q1"],
+    "mesh_ms_broadcast": ("SET joinStrategy = 'broadcast'; "
+                          + MS_QUERIES["ms_nation_region"]),
+    "mesh_ms_shuffle": ("SET joinStrategy = 'shuffle'; "
+                        + MS_QUERIES["ms_nation_region"]),
+}
+# the cohort: four of the serving path's K1 members
+MESH_COHORT = {f"mesh_serve_k1_{lit}": SERVE_K1.format(lit=lit)
+               for lit in SERVE_K1_LITS[:4]}
+# each shard runs the solo pipeline: K1-K4 under every one
+PATHS["mesh"] = (MESH_QUERIES, ("group_plane_sums", "group_minmax",
+                                "hll_register_max", "fused_filter_agg"),
+                 ((3, "group_scatter", "plane_group_sums"),
+                  (4, "group_scatter", "group_minmax"),
+                  (2, "groupby_mm", "hll_registers"),
+                  (5, "group_scatter", "hll_register_max"),
+                  (6, "group_scatter", "fused_filter_agg")))
+MESH_SHARD_KERNELS = ("group_plane_sums", "group_minmax",
+                      "hll_register_max", "fused_filter_agg")
+# the launches of each shard (its place in the mesh) on the mesh path
+MESH_SHARD_LAUNCHES: list = []
+
+# every path, in the order a run takes them (``--paths`` selects some);
+# the serving path and the mesh path run after the others
+ALL_PATHS = [p for p in PATHS if p != "mesh"] + ["serving", "mesh"]
+# the tables each path reads beyond lineorder, which every run writes
+PATH_TABLES = {
+    "ssb": set(), "hll": set(), "startree": set(), "sketch": set(),
+    "blockskip": {"bs"}, "selection": {"bs"}, "highcard": {"pairs"},
+    "mv": {"mv"}, "index": {"events"}, "values": {"v2", "mv"},
+    "tail": {"trips"}, "realtime": {"rt", "up"},
+    "multistage": {"rt", "dims", "mv"}, "serving": {"bs"},
+    "mesh": {"bs", "rt", "dims"},
+}
+
+
+def mesh_devices() -> list:
+    """The mesh the path runs on: cuda:0 MESH_REPEAT times, then every
+    further visible card once."""
+    import torch
+
+    return [torch.device("cuda", 0)] * MESH_REPEAT + [
+        torch.device("cuda", i) for i in range(1, torch.cuda.device_count())]
+
+
+class count_shards:
+    """While entered, attributes each kernel launch a mesh launch makes to
+    the shard that made it (its place among the shards the launch runs:
+    engine/device.py runs them in mesh order), into
+    ``MESH_SHARD_LAUNCHES``."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def __enter__(self):
+        from pinot_tpu_torch.engine import cohort as cohort_mod
+        from pinot_tpu_torch.engine import device as device_mod
+        from pinot_tpu_torch.ops import kernels
+
+        self.mods = (device_mod, cohort_mod)
+        self.real = (device_mod.build_pipeline, cohort_mod.run,
+                     device_mod.DeviceExecutor._run_mesh)
+        MESH_SHARD_LAUNCHES[:] = [{k: 0 for k in MESH_SHARD_KERNELS}
+                                  for _ in range(self.n)]
+        pos = [0]
+        real_build, real_run, real_mesh = self.real
+
+        active = [False]
+
+        def attribute(fn, *a, **kw):
+            if not active[0]:
+                return fn(*a, **kw)
+            before = dict(kernels.launches)
+            out = fn(*a, **kw)
+            shard = MESH_SHARD_LAUNCHES[pos[0] % self.n]
+            for k in MESH_SHARD_KERNELS:
+                shard[k] += kernels.launches[k] - before[k]
+            pos[0] += 1
+            return out
+
+        def build(*a, **kw):
+            pipe = real_build(*a, **kw)
+            return lambda *x, **y: attribute(pipe, *x, **y)
+
+        def run_mesh(ex, *a, **kw):
+            pos[0], active[0] = 0, True
+            try:
+                return real_mesh(ex, *a, **kw)
+            finally:
+                active[0] = False
+
+        device_mod.build_pipeline = build
+        cohort_mod.run = lambda *a, **kw: attribute(real_run, *a, **kw)
+        device_mod.DeviceExecutor._run_mesh = run_mesh
+        return self
+
+    def __exit__(self, *exc):
+        device_mod, cohort_mod = self.mods
+        (device_mod.build_pipeline, cohort_mod.run,
+         device_mod.DeviceExecutor._run_mesh) = self.real
+        return False
+
+
+def mesh_want(engine) -> dict:
+    """The single-device engine's answers to the mesh path's queries, run
+    now, as the oracle entries the mesh engine is held to: rows, docs
+    scanned, totalDocs and the join's stats."""
+    want = {}
+    for name, sql in {**MESH_QUERIES, **MESH_COHORT}.items():
+        resp = engine.execute(sql)
+        if resp["exceptions"]:
+            raise AssertionError(f"{name} on one device: "
+                                 f"{resp['exceptions']}")
+        extra = {"totalDocs": resp["totalDocs"]}
+        for key in ("numJoinedRows", "leafRows", "numSegmentsMatched"):
+            if key in resp:
+                extra[key] = resp[key]
+        want[name] = (resp["resultTable"]["rows"], resp["numDocsScanned"],
+                      extra)
+    return want
+
+
+def mesh_engine_for(engine, mesh):
+    """A second engine over the single one's segment objects, its executor
+    on ``mesh``: lineorder, the sorted copy, lineorder_rt (its consuming
+    segment too) and SSB's dimensions."""
+    from pinot_tpu_torch.engine.device import DeviceExecutor
+    from pinot_tpu_torch.engine.engine import QueryEngine
+
+    eng = QueryEngine(device_executor=DeviceExecutor(mesh=mesh))
+    eng.device.partials_cache_enabled = False
+    for table in ("lineorder", BS_TABLE, RT_TABLE, "customer", "supplier",
+                  "dates"):
+        for seg in table_segs(engine, table):
+            eng.add_segment(table, seg)
+        if engine.table(table).is_dim_table:
+            eng.table(table).is_dim_table = True
+    return eng
+
+
+def mesh_cohort(mesh_eng, want: dict, on_card: bool = True) -> dict:
+    """MESH_COHORT released together through a forced window on the mesh
+    engine: one member-axis launch per shard (K1's member entry under each
+    shard), then a combine, a trim and a fetch per member; each member
+    equal to the single device's answer."""
+    import threading
+
+    from pinot_tpu_torch.ops import kernels
+
+    co = mesh_eng.device.coalescer
+    names = list(MESH_COHORT)
+    got, errors = {}, []
+    barrier = threading.Barrier(len(names))
+
+    def member(name):
+        try:
+            barrier.wait()
+            got[name] = mesh_eng.execute(MESH_COHORT[name])
+        except BaseException as e:  # noqa: BLE001 — raised after join
+            errors.append(e)
+
+    before = dict(kernels.launches)
+    c0 = (co.cohorts_launched, co.queries_coalesced)
+    cap = co.max_cohort
+    co.force, co.window_s, co.max_cohort = True, 0.05, len(names)
+    try:
+        threads = [threading.Thread(target=member, args=(n,)) for n in names]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        co.force, co.window_s, co.max_cohort = False, 0.003, cap
+    if errors:
+        raise errors[0]
+    for name in names:
+        check_answer(name, got[name], want, 0)
+    launched = co.cohorts_launched - c0[0]
+    joined = co.queries_coalesced - c0[1]
+    member_launches = kernels.launches["group_plane_sums_members"] \
+        - before["group_plane_sums_members"]
+    if (launched, joined) != (1, len(names) - 1) or (
+            on_card and member_launches <= 0):
+        raise AssertionError(f"mesh cohort: cohorts_launched +{launched}, "
+                             f"queries_coalesced +{joined} (want +1 and "
+                             f"+{len(names) - 1}), {member_launches} "
+                             f"member-axis K1 launches")
+    log(f"mesh cohort: {len(names)} members in one cohort, "
+        f"{member_launches} member-axis K1 launches (one a shard), "
+        f"{wall:.3f} ms; every member equals the single device's answer")
+    return {"members": len(names), "wall_ms": wall,
+            "member_k1_launches": member_launches}
+
+
+def combine_ms(mesh_eng, sql: str) -> float:
+    """One more execution on the mesh, its combine timed: the summed
+    wall of parallel/mesh.py ``combine_outs`` (the shards' accumulators
+    copied to the first device and reduced), the card synchronized around
+    each call."""
+    import torch
+    from pinot_tpu_torch.parallel import mesh as mesh_ops
+
+    real, spent = mesh_ops.combine_outs, [0.0]
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        spent[0] += (time.perf_counter() - t) * 1e3
+        return out
+
+    mesh_ops.combine_outs = timed
+    try:
+        mesh_eng.execute(sql)
+    finally:
+        mesh_ops.combine_outs = real
+    return spent[0]
+
+
+def run_mesh(engine, runs: int, profile: bool) -> tuple:
+    """The mesh path: a mesh engine over the single engine's segments, each
+    query held to the single device's answer from this run (integers
+    exact, floats within ``rows_equal``), the kernels' launches counted
+    per shard (each shard must launch each kernel the path needs), the
+    cohort, and per query the p50 on the mesh and on one device and the
+    combine's ms. Returns (summary, kernel launches)."""
+    from pinot_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh(mesh_devices())
+    t = time.perf_counter()
+    want = mesh_want(engine)
+    mesh_eng = mesh_engine_for(engine, mesh)
+    log(f"mesh path: {mesh}, single-device answers in "
+        f"{time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    with count_shards(mesh.size):
+        p50, launches = run_path(mesh_eng, "mesh", want, 0, runs, profile)
+        cohort = mesh_cohort(mesh_eng, want)
+    for d, shard in enumerate(MESH_SHARD_LAUNCHES):
+        if any(shard[k] <= 0 for k in MESH_SHARD_KERNELS):
+            raise AssertionError(f"mesh shard {d} never launched every "
+                                 f"kernel of the path: {shard}")
+    log(f"mesh path: launches per shard {json.dumps(MESH_SHARD_LAUNCHES)}; "
+        f"{time.perf_counter() - t:.2f} s")
+    per_query = {}
+    for name, sql in MESH_QUERIES.items():
+        times = []
+        for _ in range(runs):
+            t = time.perf_counter()
+            engine.execute(sql)
+            times.append((time.perf_counter() - t) * 1e3)
+        single = float(np.percentile(times, 50))
+        rec = {"mesh_p50_ms": p50[name], "single_p50_ms": single,
+               "combine_ms": combine_ms(mesh_eng, sql)}
+        per_query[name] = rec
+        log(f"{name}: mesh p50 {p50[name]:.3f} ms, one device "
+            f"{single:.3f} ms, combine {rec['combine_ms']:.3f} ms")
+    hbm = mesh_eng.device.hbm_stats()
+    summary = {"mesh": list(mesh.key), "queries": per_query,
+               "cohort": cohort, "shard_launches": MESH_SHARD_LAUNCHES,
+               "resident_bytes": hbm["resident_bytes"]}
+    return summary, launches
 
 
 # ---------------------------------------------------------------------------
@@ -6014,7 +6509,15 @@ def main(argv=None) -> int:
                     help="after the timed runs, trace one more run of each "
                          "query with torch.profiler and print its device "
                          "time by operation")
+    ap.add_argument("--paths", default=",".join(ALL_PATHS),
+                    help="comma-separated paths to run (default: every "
+                         "one): " + ", ".join(ALL_PATHS))
     args = ap.parse_args(argv)
+    sel = [p for p in args.paths.split(",") if p]
+    unknown = sorted(set(sel) - set(ALL_PATHS))
+    if unknown or not sel:
+        ap.error(f"unknown paths {unknown}; the paths: {ALL_PATHS}")
+    need = set().union(*(PATH_TABLES[p] for p in sel))
 
     if not os.path.isdir(os.path.join(ROOT, "pinot_tpu_torch", "csrc")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -6052,17 +6555,19 @@ def main(argv=None) -> int:
                 log(f"ptxas {name}: {line.strip()}")
 
     S, rows = args.segments, args.rows
+    log(f"paths: {', '.join(sel)} (tables: {', '.join(sorted(need))})")
     log(f"table: SSB lineorder, {S} segments x {rows} rows = {S * rows} "
         f"rows, seed 7")
     t = time.perf_counter()
     data = generate(S, rows)
-    mv = mv_generate(data)
-    ev = ev_generate(EV_SEGMENTS, args.event_rows)
-    v2 = v2_generate(rows)
-    trips = trips_generate(TRIPS_SEGMENTS, rows)
-    rt = rt_generate(args.rt_rows + args.rt_more)
-    up = up_generate(args.up_rows)
-    dims = ms_dims()
+    mv = mv_generate(data) if "mv" in need else []
+    ev = ev_generate(EV_SEGMENTS, args.event_rows) if "events" in need \
+        else ({}, [])
+    v2 = v2_generate(rows) if "v2" in need else {"d_year": []}
+    trips = trips_generate(TRIPS_SEGMENTS, rows) if "trips" in need else []
+    rt = rt_generate(args.rt_rows + args.rt_more) if "rt" in need else None
+    up = up_generate(args.up_rows) if "up" in need else None
+    dims = ms_dims() if "dims" in need else {}
     log(f"generate: {time.perf_counter() - t:.2f} s (with {MV_TABLE}'s MV "
         f"columns over {len(mv)} segments, {EV_TABLE}: {EV_SEGMENTS} x "
         f"{args.event_rows} rows, {V2_TABLE}'s new segment s{S}: "
@@ -6092,7 +6597,8 @@ def main(argv=None) -> int:
     workers = min(S, os.cpu_count() or 1)
     pool = mp.get_context("spawn").Pool(workers)
     try:
-        # the longest writes first
+        # the longest writes first; a table no selected path reads is
+        # neither written nor loaded
         pending_trips = pool.starmap_async(
             write_trips_segment, [(i, seg, codecs) for i, seg in
                                   enumerate(trips)])
@@ -6101,30 +6607,37 @@ def main(argv=None) -> int:
         pending_ev = pool.starmap_async(
             write_ev_segment, [(i, ev[0], seg) for i, seg in
                                enumerate(ev[1])])
-        pending_v2 = pool.apply_async(write_v2_segment, (S, v2))
+        pending_v2 = pool.apply_async(write_v2_segment, (S, v2)) \
+            if "v2" in need else None
         pending_up = pool.starmap_async(
-            write_up_segment, [(i, up, args.up_rows) for i in range(2)])
+            write_up_segment, [(i, up, args.up_rows)
+                               for i in range(2 if up is not None else 0)])
         pending_dims = pool.starmap_async(write_ms_dim, list(dims.items()))
         pending = pool.starmap_async(
             write_segment, [(i, seg, "lineorder", True) for i, seg in
                             enumerate(data)])
         t = time.perf_counter()
-        bs_data = sort_by_date(data)
+        bs_data = sort_by_date(data) if "bs" in need else []
         log(f"sort by lo_orderdate: {time.perf_counter() - t:.2f} s")
         pending_bs = pool.starmap_async(
             write_segment, [(i, seg, BS_TABLE) for i, seg in
                             enumerate(bs_data)])
         pending_pairs = pool.starmap_async(
             write_segment, [(i, data[i], PAIRS_TABLE, True)
-                            for i in range(min(S, PAIRS_SEGMENTS))])
+                            for i in range(min(S, PAIRS_SEGMENTS)
+                                           if "pairs" in need else 0)])
         pending_hc = pool.starmap_async(
             hc_overflow_part, [(d["lo_custkey"], d["lo_suppkey"],
-                                d["lo_revenue"]) for d in data])
+                                d["lo_revenue"]) for d in data
+                               if "highcard" in sel])
         # compress's own loop over each digest run's count, value by
-        # value: the schedules the card's clusters are held to
-        runs = sk_runs(data)
+        # value: the schedules the card's clusters are held to (the
+        # sketch path's runs, the multistage path's joined rows)
+        runs = sk_runs(data) if "sketch" in sel else {}
+        ms_runs_ = ms_runs(data) if "multistage" in sel else []
         pairs = sorted({(n, SK_DIGESTS[q][0]) for q, ns in runs.items()
-                        for n in ns})
+                        for n in ns} | {(n, delta) for n in ms_runs_
+                                        for _p, delta in MS_PCT})
         pending_w = pool.starmap_async(compress_weights, pairs)
 
         dev = torch.device("cuda", 0)
@@ -6146,29 +6659,37 @@ def main(argv=None) -> int:
         # the oracle runs here, beside the writes
         t = time.perf_counter()
         want = oracle(data)
-        want.update(bs_oracle(bs_data, pad))
         want.update(st_oracle(data, want))
-        want.update(sel_oracle(data, bs_data))
-        want.update(sk_oracle(data))
-        want.update(mv_oracle(data, mv))
-        want.update(idx_oracle(ev))
-        want.update(val_oracle(data, v2, mv))
-        want.update(tail_oracle(trips, pad))
-        want.update(serve_oracle(data))
-        want.update(rt_oracle(data, rt, args.rt_rows))
-        want.update(up_oracle(up, False))
-        want.update(ms_oracle(data, dims, rt, args.rt_rows))
-        QUERY_LAUNCHES.update(ms_launches(want, PALLAS_MIN_ROWS))
+        for path, fn in (
+                ("blockskip", lambda: bs_oracle(bs_data, pad)),
+                ("selection", lambda: sel_oracle(data, bs_data)),
+                ("sketch", lambda: sk_oracle(data)),
+                ("mv", lambda: mv_oracle(data, mv)),
+                ("index", lambda: idx_oracle(ev)),
+                ("values", lambda: val_oracle(data, v2, mv)),
+                ("tail", lambda: tail_oracle(trips, pad)),
+                ("serving", lambda: serve_oracle(data)),
+                ("realtime", lambda: rt_oracle(data, rt, args.rt_rows)),
+                ("realtime", lambda: up_oracle(up, False)),
+                ("multistage", lambda: ms_oracle(data, dims, rt,
+                                                 args.rt_rows, mv))):
+            if path in sel:
+                want.update(fn())
+        if "serving" in sel and "blockskip" not in sel:
+            want.update(bs_oracle(bs_data, pad))
+        if "multistage" in sel:
+            QUERY_LAUNCHES.update(ms_launches(want, PALLAS_MIN_ROWS))
         oracle_s = time.perf_counter() - t
 
         dirs, cube_s = zip(*pending.get())
         bs_dirs = [d for d, _s in pending_bs.get()]
-        pair_dirs, pair_s = zip(*pending_pairs.get())
+        pairs_done = pending_pairs.get()
+        pair_dirs, pair_s = zip(*pairs_done) if pairs_done else ((), ())
         weights = dict(zip(pairs, pending_w.get()))
         hc_parts = pending_hc.get()
         mv_dirs = pending_mv.get()
         ev_dirs = pending_ev.get()
-        v2_dir = pending_v2.get()
+        v2_dir = pending_v2.get() if pending_v2 is not None else None
         trips_dirs = pending_trips.get()
         pending_up.get()
         dim_dirs = dict(zip(dims, pending_dims.get()))
@@ -6184,8 +6705,10 @@ def main(argv=None) -> int:
         pool.join()
 
     t = time.perf_counter()
-    want.update(hc_oracle(data, hc_parts))
-    idx_geo_stats(want, geo_candidate_counts(ev_dirs))
+    if "highcard" in sel:
+        want.update(hc_oracle(data, hc_parts))
+    if "index" in sel:
+        idx_geo_stats(want, geo_candidate_counts(ev_dirs))
     total = S * rows
     path_rows = {"mv": sum(len(d["d_year"]) for d in data[:MV_SEGMENTS]),
                  "index": EV_SEGMENTS * args.event_rows,
@@ -6214,43 +6737,48 @@ def main(argv=None) -> int:
         engine.add_segment(EV_TABLE, ImmutableSegment(d))
     # the lineorder segments a second time, as their own segment objects
     # behind the v2 schema, and s8
-    v2_segs = [ImmutableSegment(d) for d in list(dirs) + [v2_dir]]
+    v2_segs = [ImmutableSegment(d) for d in list(dirs) + [v2_dir]] \
+        if v2_dir is not None else []
     for seg in v2_segs:
         seg.table_schema = v2_schema()
         engine.add_segment(V2_TABLE, seg)
     for d in trips_dirs:
         engine.add_segment(TRIPS_TABLE, ImmutableSegment(d))
-    # lineorder_rt: lineorder's sealed segments (the same objects, so the
-    # same device batch) and the consuming segment the stream fills
-    for s in segs:
-        engine.add_segment(RT_TABLE, s)
-    rt_seg, rt_stream, rt_offset, rt_build_s, rt_index_s = rt_segment(
-        rt, args.rt_rows)
-    engine.add_segment(RT_TABLE, rt_seg)
-    ci = rt_seg.chunklet_index
-    rt_index = {"rows": rt_seg.n_docs, "seconds": rt_index_s,
-                "rows_per_s": rt_seg.n_docs / rt_index_s,
-                "records_s": rt_build_s, "chunklets": len(ci.chunklets),
-                "tail_rows": rt_seg.n_docs - ci.frozen_docs}
-    log(f"{RT_TABLE}: {rt_seg.n_docs} consuming rows indexed in "
-        f"{rt_index_s:.2f} s ({rt_index['rows_per_s']:.0f} rows/s: "
-        f"{RT_FETCH}-row fetches through consume_stream_batches, one "
-        f"index_batch and a promotion each; the records built in "
-        f"{rt_build_s:.2f} s before), {len(ci.chunklets)} chunklets of "
-        f"{RT_CHUNKLET} rows and a {rt_index['tail_rows']}-row tail")
+    rt_seg = None
+    if "rt" in need:
+        # lineorder_rt: lineorder's sealed segments (the same objects, so
+        # the same device batch) and the consuming segment the stream
+        # fills
+        for s in segs:
+            engine.add_segment(RT_TABLE, s)
+        rt_seg, rt_stream, rt_offset, rt_build_s, rt_index_s = rt_segment(
+            rt, args.rt_rows)
+        engine.add_segment(RT_TABLE, rt_seg)
+        ci = rt_seg.chunklet_index
+        rt_index = {"rows": rt_seg.n_docs, "seconds": rt_index_s,
+                    "rows_per_s": rt_seg.n_docs / rt_index_s,
+                    "records_s": rt_build_s, "chunklets": len(ci.chunklets),
+                    "tail_rows": rt_seg.n_docs - ci.frozen_docs}
+        log(f"{RT_TABLE}: {rt_seg.n_docs} consuming rows indexed in "
+            f"{rt_index_s:.2f} s ({rt_index['rows_per_s']:.0f} rows/s: "
+            f"{RT_FETCH}-row fetches through consume_stream_batches, one "
+            f"index_batch and a promotion each; the records built in "
+            f"{rt_build_s:.2f} s before), {len(ci.chunklets)} chunklets of "
+            f"{RT_CHUNKLET} rows and a {rt_index['tail_rows']}-row tail")
     # SSB's dimension tables, beside lineorder and lineorder_rt
     for name, d in dim_dirs.items():
         engine.add_segment(name, ImmutableSegment(d))
         engine.table(name).is_dim_table = True
-    up_mgr, up_topic, up_s = up_manager(engine, up, args.up_rows)
-    up_docs = sum(s.n_docs for s in table_segs(engine, UP_TABLE))
-    masked = sum(int((~s.valid_docs_mask).sum())
-                 for s in table_segs(engine, UP_TABLE)
-                 if getattr(s, "valid_docs_mask", None) is not None)
-    log(f"{UP_TABLE}: 2 committed segments replayed and {args.up_rows} rows "
-        f"consumed a row at a time in {up_s:.2f} s "
-        f"({args.up_rows / up_s:.0f} rows/s); {up_docs} docs, {masked} of "
-        f"the sealed ones masked")
+    if up is not None:
+        up_mgr, up_topic, up_s = up_manager(engine, up, args.up_rows)
+        up_docs = sum(s.n_docs for s in table_segs(engine, UP_TABLE))
+        masked = sum(int((~s.valid_docs_mask).sum())
+                     for s in table_segs(engine, UP_TABLE)
+                     if getattr(s, "valid_docs_mask", None) is not None)
+        log(f"{UP_TABLE}: 2 committed segments replayed and {args.up_rows} "
+            f"rows consumed a row at a time in {up_s:.2f} s "
+            f"({args.up_rows / up_s:.0f} rows/s); {up_docs} docs, {masked} "
+            f"of the sealed ones masked")
     t = time.perf_counter()
     ctx = engine.device.batch_for(segs)
     for c in ("d_year", "c_region", "s_nation", "lo_suppkey",
@@ -6259,107 +6787,151 @@ def main(argv=None) -> int:
     for c in ("lo_quantity", "lo_revenue"):
         ctx.decoded_column(c)
     ctx.prehashed_column("lo_custkey")
-    bs_ctx = engine.device.batch_for(bs_segs)
-    for c in ("lo_orderdate", "lo_discount", "lo_quantity"):
-        bs_ctx.column(c)
-    for c in ("lo_quantity", "lo_revenue"):
-        bs_ctx.decoded_column(c)
+    bs_bytes = 0
+    if bs_segs:
+        bs_ctx = engine.device.batch_for(bs_segs)
+        for c in ("lo_orderdate", "lo_discount", "lo_quantity"):
+            bs_ctx.column(c)
+        for c in ("lo_quantity", "lo_revenue"):
+            bs_ctx.decoded_column(c)
+        bs_bytes = bs_ctx.resident_bytes
     torch.cuda.synchronize()
     log(f"upload (global dictionaries, zone maps + {ctx.resident_bytes} "
-        f"+ {bs_ctx.resident_bytes} device bytes): "
-        f"{time.perf_counter() - t:.2f} s")
+        f"+ {bs_bytes} device bytes): {time.perf_counter() - t:.2f} s")
 
-    k4 = check_k4("the block-skip path's bs_month_fused",
-                  *capture_fused(engine, BS_QUERIES["bs_month_fused"]))
-    k4["sizes"] = [dict(k4), k4_bound]
-    check_path_group_ids(engine, k1, k2)
+    if "blockskip" in sel:
+        k4 = check_k4("the block-skip path's bs_month_fused",
+                      *capture_fused(engine, BS_QUERIES["bs_month_fused"]))
+        k4["sizes"] = [dict(k4), k4_bound]
+    else:
+        k4 = dict(k4_bound, sizes=[k4_bound])
+    if "selection" in sel:
+        check_path_group_ids(engine, k1, k2)
     torch.cuda.empty_cache()
-    digest_inputs = check_digest_schedules(engine, runs, weights)
     dadd = kernels.dadd_chain_ns(torch.device("cuda", 0))
     log(f"DADD latency: {dadd['ns']:.4f} ns, {dadd['cycles']:.2f} cycles an "
         f"addition (one thread, {dadd['adds']} dependent additions)")
-    k5_sizes = [check_k5(name, *digest_inputs[name], dadd["ns"])
-                for name in ("pct_scalar", "pct_raw_month",
-                             "pct_tdigest_supp")]
-    values, offsets = digest_inputs["pct_scalar"]
-    k5_sizes.append(check_k5("pct_scalar's values + 0.5 (the chain regime)",
-                             values + 0.5, offsets, dadd["ns"], exact=False))
-    k5 = dict(k5_sizes[0], sizes=k5_sizes, dadd=dadd,
-              adversarial=check_k5_adversarial(dadd["ns"])["cases"])
-    del digest_inputs, values, offsets
-    check_sketch_kernels(engine, k1, k3)
-    check_highcard_kernels(engine, k1)
+    k5_sizes = []
+    if "sketch" in sel:
+        digest_inputs = check_digest_schedules(engine, runs, weights)
+        k5_sizes += [check_k5(name, *digest_inputs[name], dadd["ns"])
+                     for name in ("pct_scalar", "pct_raw_month",
+                                  "pct_tdigest_supp")]
+        values, offsets = digest_inputs["pct_scalar"]
+        k5_sizes.append(check_k5("pct_scalar's values + 0.5 (the chain "
+                                 "regime)", values + 0.5, offsets,
+                                 dadd["ns"], exact=False))
+        del digest_inputs, values, offsets
+        check_sketch_kernels(engine, k1, k3)
+    if "highcard" in sel:
+        check_highcard_kernels(engine, k1)
     torch.cuda.empty_cache()
-    check_mv_kernels(engine, k1, k2, k3, k5_sizes, dadd["ns"])
-    torch.cuda.empty_cache()
-    check_values_kernels(engine, k1, k2)
-    torch.cuda.empty_cache()
-    sub_engine, sub_bytes, wide_bytes = subbyte_twins(
-        trips_dirs, want, path_rows["tail"], QueryEngine)
-    check_tail_kernels(engine, sub_engine, k1, k2, k3, k4)
-    del sub_engine
-    torch.cuda.empty_cache()
-    check_realtime_kernels(engine, k1, k2, k3, k4, args.up_rows)
-    torch.cuda.empty_cache()
-    check_multistage_kernels(engine, k1, k2)
-    torch.cuda.empty_cache()
+    if "mv" in sel:
+        check_mv_kernels(engine, k1, k2, k3, k5_sizes, dadd["ns"])
+        torch.cuda.empty_cache()
+    if "values" in sel:
+        check_values_kernels(engine, k1, k2)
+        torch.cuda.empty_cache()
+    sub_bytes = wide_bytes = None
+    if "tail" in sel:
+        sub_engine, sub_bytes, wide_bytes = subbyte_twins(
+            trips_dirs, want, path_rows["tail"], QueryEngine)
+        check_tail_kernels(engine, sub_engine, k1, k2, k3, k4)
+        del sub_engine
+        torch.cuda.empty_cache()
+    if "realtime" in sel:
+        check_realtime_kernels(engine, k1, k2, k3, k4, args.up_rows)
+        torch.cuda.empty_cache()
+    if "multistage" in sel:
+        check_multistage_kernels(engine, k1, k2, k3, k5_sizes, dadd["ns"],
+                                 ms_runs_, weights)
+        torch.cuda.empty_cache()
+    adversarial = check_k5_adversarial(dadd["ns"])["cases"]
+    if not k5_sizes:
+        # no path of this run captured a digest: the first adversarial
+        # input gives the kernel line's numbers
+        label, vals, off, _start, _expect = k5_adversarial()[0]
+        k5_sizes.append(check_k5(f"k5_adversarial's {label}",
+                                 torch.from_numpy(vals).cuda(),
+                                 torch.from_numpy(off).cuda(), dadd["ns"],
+                                 exact=False))
+    k5 = dict(k5_sizes[0], sizes=k5_sizes, dadd=dadd, adversarial=adversarial)
 
     count_sorted_builds()
     p50, launches = {}, {name: 0 for name in kernels.launches}
     for path in PATHS:
+        if path not in sel or path == "mesh":
+            continue
         path_p50, counts = run_path(engine, path, want,
                                     path_rows.get(path, total), args.runs,
                                     args.profile)
         p50.update(path_p50)
         for name, count in counts.items():
             launches[name] += count
-    # the values path's second load of lineorder's planes, beside the
-    # first: the bytes each batch holds on the card
-    v2_bytes = engine.device.batch_for(v2_segs).resident_bytes
-    log(f"{V2_TABLE} holds {v2_bytes} device bytes over {len(v2_segs)} "
-        f"segments ({path_rows['values']} rows), beside "
-        f"lineorder's {ctx.resident_bytes} over {S} (the same {total} rows "
-        f"loaded once more as {V2_TABLE}'s first {S} segments)")
-    # bench.py's exactness gate: the cube-routed q4 answers exactly like
-    # both forced-scan forms
-    cube_rows = engine.execute(ST_QUERIES["q4_highcard_hll"])
-    for name in ("q4_scan_hll", "q4_scan_hll_cold"):
-        if engine.execute(HLL_QUERIES[name])["resultTable"]["rows"] \
-                != cube_rows["resultTable"]["rows"]:
-            raise AssertionError(f"q4_highcard_hll differs from {name}")
-    # the f32 DOUBLE cube column against the exact integer sums
-    q5 = engine.execute(ST_QUERIES["q5_startree"])["resultTable"]["rows"]
-    f32_diff = max(abs(r[2] - e) for r, e in zip(q5, want["q5_exact"]))
-    log(f"q4_highcard_hll equals q4_scan_hll and q4_scan_hll_cold row for "
-        f"row; q5_startree's sums (float32 cube rows) differ from the exact "
-        f"integer sums by at most {f32_diff:.1f}")
-    reduce_bytes = check_device_reduce(engine, want)
-    # q6's MIN / MAX / MINMAXRANGE planes reach K2 as stored: no torch op
-    # (a widening, a FOR add) reads them
-    q6_planes = {"dv::" + c: ctx.decoded_column(c)
-                 for c in ("lo_revenue", "lo_quantity")}
-    readers = plane_readers(engine, QUERIES["q6_minmax"], q6_planes)
-    if any(readers.values()):
-        raise AssertionError(f"q6: torch ops read its stored min/max planes "
-                             f"before K2: {readers}")
-    log("q6: torch ops reading its stored min/max planes: none ("
-        + ", ".join(f"{k} {str(v.dtype).replace('torch.', '')}"
-                    for k, v in q6_planes.items()) + "); K2 reads them")
-    overflow = overflow_cost(engine, args.runs)
-    t = time.perf_counter()
-    multistage = run_multistage(engine, want, True)
-    log(f"multistage path extras: {time.perf_counter() - t:.2f} s")
-    t = time.perf_counter()
-    realtime = run_realtime(engine, rt_seg, rt_stream, rt_offset, rt, want,
-                            up_mgr, up_topic, up, args.runs, True)
-    up_mgr.stop(commit_remaining=False)
-    realtime["index"] = rt_index
-    realtime["upsert_rows_per_s"] = args.up_rows / up_s
-    log(f"realtime path extras: {time.perf_counter() - t:.2f} s")
-    t = time.perf_counter()
-    serving, member_records, member_launches = run_serving(
-        engine, want, {"lineorder": total, BS_TABLE: total}, card)
-    log(f"serving path: {time.perf_counter() - t:.2f} s")
+    if "values" in sel:
+        # the values path's second load of lineorder's planes, beside the
+        # first: the bytes each batch holds on the card
+        v2_bytes = engine.device.batch_for(v2_segs).resident_bytes
+        log(f"{V2_TABLE} holds {v2_bytes} device bytes over {len(v2_segs)} "
+            f"segments ({path_rows['values']} rows), beside "
+            f"lineorder's {ctx.resident_bytes} over {S} (the same {total} "
+            f"rows loaded once more as {V2_TABLE}'s first {S} segments)")
+    f32_diff = reduce_bytes = overflow = None
+    if "startree" in sel:
+        # bench.py's exactness gate: the cube-routed q4 answers exactly
+        # like both forced-scan forms
+        cube_rows = engine.execute(ST_QUERIES["q4_highcard_hll"])
+        for name in ("q4_scan_hll", "q4_scan_hll_cold"):
+            if engine.execute(HLL_QUERIES[name])["resultTable"]["rows"] \
+                    != cube_rows["resultTable"]["rows"]:
+                raise AssertionError(f"q4_highcard_hll differs from {name}")
+        # the f32 DOUBLE cube column against the exact integer sums
+        q5 = engine.execute(ST_QUERIES["q5_startree"])["resultTable"]["rows"]
+        f32_diff = max(abs(r[2] - e) for r, e in zip(q5, want["q5_exact"]))
+        log(f"q4_highcard_hll equals q4_scan_hll and q4_scan_hll_cold row "
+            f"for row; q5_startree's sums (float32 cube rows) differ from "
+            f"the exact integer sums by at most {f32_diff:.1f}")
+    if "ssb" in sel:
+        reduce_bytes = check_device_reduce(engine, want)
+        # q6's MIN / MAX / MINMAXRANGE planes reach K2 as stored: no torch
+        # op (a widening, a FOR add) reads them
+        q6_planes = {"dv::" + c: ctx.decoded_column(c)
+                     for c in ("lo_revenue", "lo_quantity")}
+        readers = plane_readers(engine, QUERIES["q6_minmax"], q6_planes)
+        if any(readers.values()):
+            raise AssertionError(f"q6: torch ops read its stored min/max "
+                                 f"planes before K2: {readers}")
+        log("q6: torch ops reading its stored min/max planes: none ("
+            + ", ".join(f"{k} {str(v.dtype).replace('torch.', '')}"
+                        for k, v in q6_planes.items()) + "); K2 reads them")
+        overflow = overflow_cost(engine, args.runs)
+    multistage = realtime = serving = mesh = None
+    member_records, member_launches = {}, {}
+    if "multistage" in sel:
+        t = time.perf_counter()
+        multistage = run_multistage(engine, want, True)
+        log(f"multistage path extras: {time.perf_counter() - t:.2f} s")
+    if "realtime" in sel:
+        t = time.perf_counter()
+        realtime = run_realtime(engine, rt_seg, rt_stream, rt_offset, rt,
+                                want, up_mgr, up_topic, up, args.runs, True)
+        up_mgr.stop(commit_remaining=False)
+        realtime["index"] = rt_index
+        realtime["upsert_rows_per_s"] = args.up_rows / up_s
+        log(f"realtime path extras: {time.perf_counter() - t:.2f} s")
+    elif up is not None:
+        up_mgr.stop(commit_remaining=False)
+    if "serving" in sel:
+        t = time.perf_counter()
+        serving, member_records, member_launches = run_serving(
+            engine, want, {"lineorder": total, BS_TABLE: total}, card)
+        log(f"serving path: {time.perf_counter() - t:.2f} s")
+    if "mesh" in sel:
+        t = time.perf_counter()
+        mesh, counts = run_mesh(engine, args.runs, args.profile)
+        for name, count in counts.items():
+            launches[name] += count
+        log(f"mesh path: {time.perf_counter() - t:.2f} s")
     hbm = engine.device.hbm_stats()
     log(f"batch LRU: {hbm['cached_batches']} batches, {hbm['resident_bytes']} "
         f"resident bytes of a {hbm['max_cached_bytes']}-byte budget; "
@@ -6383,8 +6955,13 @@ def main(argv=None) -> int:
         entry.update(res)
         if name == "cluster_sums":
             entry["path_regimes"] = dict(K5_PATH_REGIMES)
+        if mesh is not None and name in MESH_SHARD_KERNELS:
+            entry["mesh_shard_launches"] = [
+                shard[name] for shard in MESH_SHARD_LAUNCHES]
         entries.append(entry)
     for name, (solo, replaces) in SERVE_ENTRIES.items():
+        if "serving" not in sel:
+            break
         if name not in member_records:
             raise AssertionError(f"{name} was never held at a cohort's inputs")
         entry = {"name": name, "route": "cuda",
@@ -6393,9 +6970,11 @@ def main(argv=None) -> int:
         entry.update(member_records[name])
         entries.append(entry)
     log(json.dumps({"query_p50_ms": p50, "rows": total,
+                    "paths": sel,
                     "serving": serving,
                     "realtime": realtime,
                     "multistage": multistage,
+                    "mesh": mesh,
                     "trips_rows": path_rows["tail"],
                     "trips_resident_bytes": {"subbyte": sub_bytes,
                                              "wide": wide_bytes},

@@ -95,6 +95,17 @@ a directory builds a context that neither enters the batch LRU nor
 caches partials. Promotion, an upsert that dirties a chunklet and a
 seal drop the cached partials of the batches they retire
 (``invalidate_cached_partials``, reached from realtime/chunklet.py).
+
+With a ``mesh`` (parallel/mesh.py) the executor shards every batch's
+segment axis over the mesh's devices, as the reference's
+``shard_pipeline`` does: each shard's planes live on its device
+(``params.ShardContext``), each shard runs the solo pipeline, kernels
+included, with the template's finalize left out, and the accumulators
+combine on the mesh's first device (``mesh.combine_outs``) before the
+finalize and the trim; a cohort runs its member-axis launch per shard,
+then a combine per member. The host path's shapes run on the first
+device, as the reference answers them off its mesh, and a part launched
+alone on the device its directory hashes to.
 """
 
 from __future__ import annotations
@@ -118,6 +129,7 @@ from pinot_tpu_torch.engine.inflight import InflightLaunch, LaunchCoalescer
 from pinot_tpu_torch.engine.params import (
     BatchContext,
     DeviceUnsupported,
+    ShardContext,
     build_expr,
     build_filter,
     expr_bounds,
@@ -139,6 +151,7 @@ from pinot_tpu_torch.ops import masks as mask_ops
 from pinot_tpu_torch.ops import radix_groupby as radix_ops
 from pinot_tpu_torch.ops import selection as sel_ops
 from pinot_tpu_torch.ops.transform import get_function
+from pinot_tpu_torch.parallel import mesh as mesh_ops
 from pinot_tpu_torch.query.context import Expression, QueryContext
 from pinot_tpu_torch.storage.segment import Encoding, ImmutableSegment
 
@@ -1174,8 +1187,13 @@ class DeviceExecutor:
                                           6 << 30))
 
     def __init__(self, device=None, num_groups_limit: int = 100_000,
-                 min_rows: int = ps.PALLAS_MIN_ROWS):
-        self.device = resolve_device(device)
+                 min_rows: int = ps.PALLAS_MIN_ROWS, mesh=None):
+        # ``mesh`` (parallel/mesh.py): shard every batch's segment axis
+        # over its devices and combine the shards' accumulators on its
+        # first device, which is then this executor's device
+        self.mesh = mesh
+        self.device = resolve_device(
+            device if mesh is None else mesh.devices[0])
         self.num_groups_limit = max(1, num_groups_limit)
         self.min_rows = min_rows
         self._batches: dict = {}  # segment-dir tuple -> BatchContext (LRU)
@@ -1231,15 +1249,17 @@ class DeviceExecutor:
     def _batch_key(segments):
         return tuple(s.dir for s in segments)
 
-    def batch_for(self, segments, retain: bool = False) -> BatchContext:
+    def batch_for(self, segments, retain: bool = False,
+                  device=None) -> BatchContext:
         """The LRU-cached BatchContext of this segment set. ``retain``
         takes the in-flight pin with the cache insert, under one lock
-        hold."""
+        hold. ``device``: where a new context puts its planes (default
+        the executor's)."""
         key = self._batch_key(segments)
         with self._lock:
             ctx = self._batches.pop(key, None)
             if ctx is None:
-                ctx = BatchContext(segments, self.device)
+                ctx = BatchContext(segments, device or self.device)
                 self.batch_misses += 1
             else:
                 self.batch_hits += 1
@@ -1800,15 +1820,56 @@ class DeviceExecutor:
         or a tail through a ``SnapshotSegment`` of the docs it publishes
         now), outside the LRU."""
         if isinstance(part, ImmutableSegment):
-            return self.batch_for([part], retain=True), \
+            return self.batch_for([part], retain=True,
+                                  device=self._part_device(part.dir)), \
                 self._batch_key([part])
         view = SnapshotSegment(part) \
             if getattr(part, "is_mutable", False) else part
         key = ("host-part", view.dir)
-        ctx = BatchContext([view], self.device)
+        ctx = BatchContext([view], self._part_device(view.dir))
         ctx.lookup_resolver = self.lookup_resolver
         self._retain_launch(key)
         return ctx, key
+
+    def _part_device(self, name: str):
+        """The device a part launched alone runs on: on a mesh, the shard
+        device its directory hashes to, so the host parts spread over the
+        mesh with the sealed segments."""
+        if self.mesh is None:
+            return self.device
+        import zlib
+
+        return self.mesh.devices[zlib.crc32(str(name).encode())
+                                 % self.mesh.size]
+
+    def _shards(self, ctx) -> list:
+        """(shard index, ``ShardContext``) of each mesh shard holding
+        segments of the batch ``ctx``, made at first use and kept with
+        the batch (parallel/mesh.py ``shard_slices``)."""
+        with ctx._lock:
+            shards = getattr(ctx, "_mesh_shards", None)
+            if shards is None:
+                shards = [(d, ShardContext(ctx, lo, hi, dev))
+                          for d, ((lo, hi), dev) in enumerate(zip(
+                              mesh_ops.shard_slices(ctx.S, self.mesh.size),
+                              self.mesh.devices)) if hi > lo]
+                ctx._mesh_shards = shards
+        return shards
+
+    def _shard_inputs(self, ctx, needed, params, group_cols,
+                      group_cards) -> tuple:
+        """(width plan signatures, [(shard index, ShardContext, cols,
+        params)]): each shard's planes and params on its own device,
+        checked there (``mesh_ops.check_placement``)."""
+        widths, out = {}, []
+        for d, sh in self._shards(ctx):
+            p = mesh_ops.shard_params(params, sh.lo, sh.hi, sh.device)
+            widths, cols = self.gather_columns(sh, needed, p, group_cols,
+                                               group_cards)
+            mesh_ops.check_placement(d, sh.device,
+                                     {**cols, **p, "n_docs": sh.n_docs_dev})
+            out.append((d, sh, cols, p))
+        return widths, out
 
     @staticmethod
     def part_valid_plane(part, ctx):
@@ -1885,8 +1946,11 @@ class DeviceExecutor:
         for zc in zone_cols if use_bs else ():
             needed |= {bs_ops.ZLO + zc, bs_ops.ZHI + zc}
         for name, argt, extra in agg_tpls:
+            # the sorted HLL build's sums do not combine across shards:
+            # a mesh takes the registers (the reference's sorted_hll_ok)
             if (name == "distinctcounthll" and group_cols
                     and filter_tpl == ("true",) and sorted_proj_ok
+                    and self.mesh is None
                     and _hll_sort_eligible(final_tpl, num_groups, extra)):
                 needed.add(f"sk::{argt}::{extra}")
             else:
@@ -1900,7 +1964,8 @@ class DeviceExecutor:
 
         if not alive.any():
             # FULLY pruned: nothing runs on the card
-            widths, cols = self.gather_columns(ctx, needed, params,
+            src = ctx if self.mesh is None else self._shards(ctx)[0][1]
+            widths, cols = self.gather_columns(src, needed, params,
                                                group_cols, group_cards)
             outs = _neutral_outs(build_pipeline(template, widths,
                                                 self.min_rows),
@@ -1926,7 +1991,8 @@ class DeviceExecutor:
             h.update(b"ps_alive" + alive.tobytes())
             h.update(b"tr_k" + repr(tr_k).encode())
             cache_key = (template, batch_key, use_bs, trim, self.min_rows,
-                         h.digest())
+                         h.digest(),
+                         None if self.mesh is None else self.mesh.key)
             hit = self._partials_get(cache_key)
             if hit is not None:
                 flight = self._new_flight(self._pipeline_label(
@@ -1943,17 +2009,26 @@ class DeviceExecutor:
                 return handle
 
         with span("gather", tracer):
-            widths, cols = self.gather_columns(ctx, needed, params,
-                                               group_cols, group_cards)
+            if self.mesh is None:
+                widths, cols = self.gather_columns(ctx, needed, params,
+                                                   group_cols, group_cards)
+                planes, p0 = [cols], params
+            else:
+                # cols: each shard's (index, context, planes, params)
+                widths, cols = self._shard_inputs(ctx, needed, params,
+                                                  group_cols, group_cards)
+                planes, p0 = [c[2] for c in cols], cols[0][3]
         plan = plan_fused(template, widths, use_bs)
-        fused = plan is not None and ps.fused_params_ok(plan, params)
+        fused = plan is not None and ps.fused_params_ok(plan, p0)
         flight = self._new_flight(self._pipeline_label(
             template, use_bs, trim, self._uses_kernels(template, ctx),
             fused), fused=fused)
-        for ck, cv in cols.items():
-            nb = cv.numel() * cv.element_size()
-            flight["zone_bytes" if ck.startswith((bs_ops.ZLO, bs_ops.ZHI))
-                   else "data_bytes"] += nb
+        for cols_d in planes:
+            for ck, cv in cols_d.items():
+                nb = cv.numel() * cv.element_size()
+                flight["zone_bytes" if ck.startswith((bs_ops.ZLO,
+                                                      bs_ops.ZHI))
+                       else "data_bytes"] += nb
 
         with span("dispatch", tracer):
             co = self.coalescer
@@ -1987,18 +2062,61 @@ class DeviceExecutor:
         return one
 
     def _uses_kernels(self, template, ctx) -> bool:
-        """Whether the pipeline's batch is large enough for the kernels
-        (the ``min_rows`` gate; the label's ``+cuda``)."""
-        return ctx.S * ctx.pad_to >= self.min_rows
+        """Whether the pipeline's batch (on a mesh, its largest shard)
+        is large enough for the kernels (the ``min_rows`` gate; the
+        label's ``+cuda``)."""
+        S = ctx.S if self.mesh is None else max(
+            sh.S for _d, sh in self._shards(ctx))
+        return S * ctx.pad_to >= self.min_rows
 
     def _run_solo(self, template, widths, use_bs, trim, cols, ctx, params):
+        if self.mesh is not None:
+            return self._run_mesh(template, widths, use_bs, trim, cols,
+                                  [params])[0]
         outs = build_pipeline(template, widths, self.min_rows, use_bs)(
             cols, ctx.n_docs_dev, params)
+        return self._post_combine(template, trim, outs, params.get("tr_k"),
+                                  finalize=False)
+
+    @staticmethod
+    def _post_combine(template, trim, outs, tr_k, finalize=True) -> dict:
+        """After the combine: the terminal finalize (a mesh's shards
+        return registers and presence), then the device trim."""
+        if finalize and template[6]:
+            _finalize_sketch_outs(outs, template[4])
         if trim is not None:
-            outs = dr_ops.apply_trim(
-                outs, params["tr_k"].to(outs["gcount"].device), template,
-                trim)
+            outs = dr_ops.apply_trim(outs, tr_k.to(outs["gcount"].device),
+                                     template, trim)
         return outs
+
+    def _run_mesh(self, template, widths, use_bs, trim, shard_in,
+                  members) -> list:
+        """A launch on the mesh, one member or a cohort: per shard the
+        solo pipeline (or the cohort's member-axis launch) with the
+        template's finalize left out, then per member the combine on the
+        mesh's first device (parallel/mesh.py ``combine_outs``), the
+        finalize and the trim. Every shard runs on its device or the
+        launch raises."""
+        stpl = template[:6] + (False,)
+        per_shard = []
+        for d, sh, cols, p in shard_in:
+            fo = {k: v for k, v in p.items() if k.startswith("fo::")}
+            mem = [dict(mesh_ops.shard_params(m, sh.lo, sh.hi, sh.device),
+                        **fo) for m in members]
+            for m in mem:
+                mesh_ops.check_placement(d, sh.device, m)
+            if len(mem) == 1:
+                per_shard.append([build_pipeline(
+                    stpl, widths, self.min_rows, use_bs)(
+                        cols, sh.n_docs_dev, mem[0])])
+            else:
+                per_shard.append(cohort.run(stpl, widths, self.min_rows,
+                                            use_bs, cols, sh.n_docs_dev,
+                                            mem, None))
+        return [self._post_combine(
+            template, trim, mesh_ops.combine_outs(
+                [outs[j] for outs in per_shard], template[4], self.device),
+            members[j].get("tr_k")) for j in range(len(members))]
 
     def _join_cohort(self, template, batch_key, widths, use_bs, trim, cols,
                      ctx, params, tracer, flight):
@@ -2010,11 +2128,15 @@ class DeviceExecutor:
         sig = tuple(sorted((k, tuple(v.shape), str(v.dtype))
                            for k, v in params.items()))
         ckey = (template, batch_key, use_bs, trim, self.min_rows,
-                tuple(sorted(cols)), sig)
+                tuple(sorted(cols if self.mesh is None else cols[0][2])),
+                sig)
 
         def launch_fn(members):
             with _KernelClock(ctx.device) as clock:
-                if len(members) == 1:
+                if self.mesh is not None:
+                    outs_list = self._run_mesh(template, widths, use_bs,
+                                               trim, cols, members)
+                elif len(members) == 1:
                     outs_list = [self._run_solo(template, widths, use_bs,
                                                 trim, cols, ctx, members[0])]
                 else:

@@ -221,11 +221,15 @@ class QueryEngine:
     ``device``: None → the CUDA card (raises when there is none); pass
     ``"cpu"`` to run the kernels' plain versions (the tests).
     ``host_name``: the server instance name ``$hostName`` reads on the
-    segments added here (None: the machine's host name)."""
+    segments added here (None: the machine's host name).
+    ``device_executor``: an executor to run on instead, as the
+    reference's (e.g. ``DeviceExecutor(mesh=make_mesh(8))``, the segment
+    axis sharded over a mesh)."""
 
     def __init__(self, device=None, num_groups_limit: int = 100_000,
-                 host_name: str | None = None):
-        self.device = DeviceExecutor(device, num_groups_limit=num_groups_limit)
+                 host_name: str | None = None, device_executor=None):
+        self.device = device_executor if device_executor is not None \
+            else DeviceExecutor(device, num_groups_limit=num_groups_limit)
         self.pruner = SegmentPruner()
         self.tables: dict[str, TableDataManager] = {}
         self.host_name = host_name

@@ -19,8 +19,10 @@ state), as the reference's. A flight's label names the port's kernels
 ``explain_multistage`` renders a two-stage (join / window) plan as the
 reference's does: the stage boundary, each join's strategy with its build
 and probe sides, the window specs and each table's stage-1 scan with its
-pushed-down filter. The backend label names the card, and the boundary's
-exchange is ``[local]``: there is no mesh until the mesh slice.
+pushed-down filter. The backend label names the card; the boundary's
+exchange is ``[mesh-collective]`` on a mesh (parallel/mesh.py), else
+``[local]``, and DISTRIBUTED, which the reference labels
+``[server-fleet]``, runs its local mirror here: ``[local]``.
 """
 
 from __future__ import annotations
@@ -222,7 +224,8 @@ def annotate_analyze(plan: dict, resp: dict) -> dict:
 
 def explain_multistage(engine, plan) -> dict:
     """EXPLAIN of a two-stage (join / window) plan: the reference's lines,
-    the card as the backend and a local stage boundary."""
+    the card as the backend, the stage boundary's exchange local or on
+    the mesh."""
     from pinot_tpu_torch.query2.logical import to_sql
     from pinot_tpu_torch.sql.compiler import _to_filter
 
@@ -251,8 +254,12 @@ def explain_multistage(engine, plan) -> dict:
         lines.append(f"    WINDOW({w.describe()})")
     if plan.post_filter is not None:
         lines.append(f"    POST_JOIN_FILTER({to_sql(plan.post_filter)})")
+    mesh = getattr(getattr(engine, "device", None), "mesh", None)
+    exchange = "mesh-collective" if mesh is not None \
+        and plan.strategy != "DISTRIBUTED" else "local"
     if plan.joins:
-        lines.append(f"  STAGE_BOUNDARY(exchange:{plan.strategy} [local])")
+        lines.append(f"  STAGE_BOUNDARY(exchange:{plan.strategy} "
+                     f"[{exchange}])")
     else:
         lines.append("  STAGE_BOUNDARY(exchange:SORT [window])")
     probe_desc = f"{plan.probe.alias}={plan.probe.table}"

@@ -866,6 +866,62 @@ class BatchContext:
             return None
 
 
+class ShardContext(BatchContext):
+    """One mesh shard of a batch (parallel/mesh.py): the planes of the
+    batch's segments ``lo:hi``, built from those segments alone on the
+    shard's own device, at the batch's row length. Global dictionaries,
+    encodings, width plans and metadata bounds are the batch's
+    (``parent``'s), so ids, plane dtypes and frame-of-reference offsets
+    agree on every shard. Its uploads count in the parent's resident
+    bytes too, where the batch LRU reads them: each plane once."""
+
+    def __init__(self, parent: BatchContext, lo: int, hi: int, device):
+        super().__init__(parent.segments[lo:hi], device)
+        self.parent, self.lo, self.hi = parent, lo, hi
+        self.pad_to = parent.pad_to
+        self.lookup_resolver = getattr(parent, "lookup_resolver", None)
+
+    def encoding(self, name: str) -> str:
+        return self.parent.encoding(name)
+
+    def global_dict(self, name: str) -> Dictionary:
+        return self.parent.global_dict(name)
+
+    def cardinality(self, name: str) -> int:
+        return self.parent.cardinality(name)
+
+    def width_plan(self, key: str) -> ColPlan:
+        return self.parent.width_plan(key)
+
+    def exact_int_bounds(self, name: str):
+        return self.parent.exact_int_bounds(name)
+
+    def int_bounds(self, name: str):
+        return self.parent.int_bounds(name)
+
+    def raw_dtype(self, name: str) -> np.dtype:
+        return self.parent.raw_dtype(name)
+
+    def column_meta(self, name: str):
+        return self.parent.column_meta(name)
+
+    def bytes_width(self, name: str) -> int:
+        return self.parent.bytes_width(name)
+
+    @property
+    def resident_bytes(self) -> int:
+        return self._own_bytes
+
+    @resident_bytes.setter
+    def resident_bytes(self, value: int) -> None:
+        delta = value - getattr(self, "_own_bytes", 0)
+        self._own_bytes = value
+        parent = getattr(self, "parent", None)
+        if delta and parent is not None:
+            with parent._lock:
+                parent.resident_bytes += delta
+
+
 # ---------------------------------------------------------------------------
 # filter template + params
 # ---------------------------------------------------------------------------
@@ -996,7 +1052,10 @@ def build_predicate(p: Predicate, ctx: BatchContext, params: dict,
         # dict predicate evaluated per entry; mv_any reduces over K with
         # the -1 padding masked out (NOT_EQ's "not" stays per entry: ANY
         # entry differs from the value)
-        ctx.mv_column(lhs.name)  # refuses raw columns and K past the cap
+        if not ctx.mv_on_device(lhs.name):   # raw, or K past the cap
+            raise DeviceUnsupported(
+                f"MV column {lhs.name}: raw, or 0 or more than "
+                f"{ctx.MAX_MV_K} entries a doc")
         key = "mv::" + lhs.name
         return ("mv_any", key, _dict_predicate(p, ctx, params, counter, key))
     if lhs.is_identifier and ctx.encoding(lhs.name) == Encoding.DICT:

@@ -860,6 +860,32 @@ def _leaf_col(ev, v: Val):
     raise DeviceUnsupported(f"a {v.kind} column in a multi-stage leaf scan")
 
 
+def _leaf_mv(ev, name: str, rows: Rows):
+    """The matched rows of MV column ``name`` as a query2 ``MVCol``: their
+    entries gathered into one ``Col`` in row then entry order, each row's
+    (start, length) into it."""
+    from pinot_tpu_torch.query2.columns import MVCol
+
+    idx, dev = rows.idx, ev.device
+    v, _doc = ev.mv_values(name)
+    mp = ev.mv(name)
+    if mp is None:
+        lens = torch.zeros(idx.numel(), dtype=torch.int64, device=dev)
+        base = lens
+    else:
+        E = v.t.shape[1]
+        lens = mp.lens.reshape(-1)[idx].to(torch.int64)
+        base = (idx // rows.L) * E + mp.start.reshape(-1)[idx].to(torch.int64)
+    ends = torch.cumsum(lens, 0)
+    starts = ends - lens
+    row_of = torch.repeat_interleave(
+        torch.arange(idx.numel(), device=dev), lens)
+    pos = base[row_of] + torch.arange(row_of.numel(), device=dev) \
+        - starts[row_of]
+    vals = _leaf_col(ev, dataclasses.replace(v, t=v.t.reshape(-1)[pos]))
+    return MVCol(vals, starts, lens)
+
+
 def leaf_rows(ex, segments, filt, need: tuple, stats, max_rows: int,
               table: str) -> dict:
     """The matched rows of one table's ``segments`` → {column: query2
@@ -912,12 +938,13 @@ def leaf_rows(ex, segments, filt, need: tuple, stats, max_rows: int,
                         f"(PINOT_TPU_MAX_JOIN_ROWS overrides)")
             rows = Rows(ctx.S, ctx.pad_to, ctx.device, _matched_rows(scan))
             for c in need:
+                # a part of a mesh may run on another shard's device
                 if scan.ev.is_mv(c):
-                    raise DeviceUnsupported(
-                        f"the multi-value column {c!r} in a multi-stage "
-                        f"query")
+                    parts[c].append(_leaf_mv(scan.ev, c, rows).to(ex.device))
+                    continue
                 parts[c].append(_leaf_col(
-                    scan.ev, scan.ev.eval(Expression.identifier(c), rows)))
+                    scan.ev, scan.ev.eval(Expression.identifier(c),
+                                          rows)).to(ex.device))
         finally:
             ex._release_launch(key)
     return {c: concat(parts[c], ex.device) for c in need}

@@ -101,6 +101,17 @@ class Batch:
         self.mask, self.gid, self.G = mask.reshape(-1), gid, G
         self.dev = ev.device
 
+    @classmethod
+    def joined(cls, ev: ValueEvaluator, gid, G: int) -> "Batch":
+        """The multi-stage engine's joined rows laid out as a batch of one
+        segment (``ev`` over them: S = 1, L = the row count), every row
+        taken, ``gid`` their (n,) group ids (None: one group). Each
+        sketch's one segment partial is then the answer, as the
+        reference's stage 2 builds it from all joined rows at once."""
+        mask = torch.ones(ev.L, dtype=torch.bool, device=ev.device)
+        ids = None if gid is None else gid.reshape(-1).to(torch.int32)
+        return cls(ev, mask, ids, G)
+
     def flat(self, t: torch.Tensor) -> torch.Tensor:
         return torch.broadcast_to(t, (self.S, self.L)).reshape(-1)
 
@@ -168,10 +179,12 @@ def _segment_parts(rk: np.ndarray, G: int) -> list:
     return [slice(s, e) for s, e in zip(bounds, bounds[1:]) if e > s]
 
 
-def _fold(spec, G: int, present, parts) -> dict:
+def _fold(spec, G: int, present, parts, place: bool = False) -> dict:
     """The reference's merge of per-segment partials, in segment order:
     ``parts`` lists (groups, partial) of each segment that has runs;
-    ``present`` the group ids of the result's rows (None: one group)."""
+    ``present`` the group ids of the result's rows (None: one group).
+    ``place``: the one part is the answer (joined rows, ``Batch.joined``),
+    put at its groups' rows, no merge (a digest merge re-compresses)."""
     n = 1 if present is None else len(present)
     pos = np.full(max(G, 1), -1, dtype=np.int64)
     pos[np.asarray([0] if present is None else present, dtype=np.int64)] \
@@ -184,7 +197,13 @@ def _fold(spec, G: int, present, parts) -> dict:
                 f"{spec.name}: a run of group(s) "
                 f"{np.asarray(groups)[rows < 0][:5].tolist()} has no row "
                 "in the result")
-        spec.scatter_merge(acc, rows, part)
+        if place:
+            for key, vals in part.items():
+                if acc[key].dtype != np.asarray(vals).dtype:
+                    acc[key] = acc[key].astype(object)
+                acc[key][rows] = vals
+        else:
+            spec.scatter_merge(acc, rows, part)
     return acc
 
 
@@ -192,6 +211,10 @@ class _Sketch:
     def __init__(self, i: int, spec, ev: ValueEvaluator):
         self.i, self.spec, self.ev = i, spec, ev
         self.k = f"s{i}"
+
+    def _fold(self, present, parts) -> dict:
+        return _fold(self.spec, self.G, present, parts,
+                     getattr(self.ev, "joined", False))
 
     def launch(self, b: Batch) -> dict:
         raise NotImplementedError
@@ -243,7 +266,7 @@ class _Percentile(_Sketch):
                 w[j] = [float(s) for s in self.sizes[run]]
             parts.append((self.runs[sl] % self.G,
                           {"means": m, "weights": w}))
-        return _fold(self.spec, self.G, present, parts)
+        return self._fold(present, parts)
 
 
 # ---------------------------------------------------------------------------
@@ -308,7 +331,7 @@ class _Theta(_Sketch):
                     part[tk][row] = th
                     part[hk][row] = hl
             parts.append((np.asarray(groups, dtype=np.int64), part))
-        return _fold(self.spec, self.G, present, parts)
+        return self._fold(present, parts)
 
 
 # ---------------------------------------------------------------------------
@@ -680,7 +703,7 @@ class _TDigestMerge(_Sketch):
             groups, local = np.unique(rk[sl] % self.G, return_inverse=True)
             parts.append((groups, self.spec.host_groups(
                 [gvals[ids[sl]]], local, len(groups))))
-        return _fold(self.spec, self.G, present, parts)
+        return self._fold(present, parts)
 
 
 # ---------------------------------------------------------------------------
@@ -815,7 +838,7 @@ class _ValueSet(_Sketch):
             for j, st in enumerate(states):
                 part[key][j] = st
             parts.append((np.asarray(groups, dtype=np.int64), part))
-        return _fold(self.spec, self.G, present, parts)
+        return self._fold(present, parts)
 
     def _state(self, r, chunk, vals, counts, over, regs):
         """One (segment, group)'s partial state, as its host_groups

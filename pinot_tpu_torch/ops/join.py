@@ -21,8 +21,16 @@ code (``jnp``), not Pallas; here they are torch ops on the card:
 
 Keys are the dense non-negative codes query2/runner.py factorizes both
 sides into. ``BUILD_PAD`` sorts after every real key and ``PROBE_PAD``
-below every one, so padded slots never match (the mesh forms, which wait
-for the mesh slice, pad with them).
+below every one, so padded slots never match.
+
+The mesh forms (parallel/mesh.py), each shard on its own device, as the
+reference's ``shard_map``s lay them out: BROADCAST replicates the sorted
+build to every device and shards the probe (``mesh_probe_ranges``,
+``mesh_probe_unique``); SHUFFLE partitions both sides by key modulo the
+mesh size, one bucket a device (``partition_by_key``, the exchange's
+stand-in), each bucket sorted and probed on its device
+(``mesh_bucket_ranges``) and expanded per bucket
+(``expand_pairs_buckets``). Results gather to the mesh's first device.
 """
 
 from __future__ import annotations
@@ -94,3 +102,89 @@ def expand_pairs(lo: torch.Tensor, counts: torch.Tensor,
         build_pos = torch.cat([build_pos, pad])
         valid[total:] = False
     return row, build_pos, valid
+
+
+# ---------------------------------------------------------------------------
+# mesh forms: BROADCAST (replicated build, sharded probe), SHUFFLE (a key
+# bucket a device)
+# ---------------------------------------------------------------------------
+
+
+def mesh_probe_ranges(mesh, sorted_keys: torch.Tensor,
+                      probe: torch.Tensor) -> tuple:
+    """``probe`` (D * Lp,) cut into D runs, run d probed on device d
+    against its replica of the sorted build; (lo, counts) gathered back
+    in probe order."""
+    D = mesh.size
+    Lp = probe.shape[0] // D
+    dest = probe.device
+    los, counts = [], []
+    for d, dev in enumerate(mesh.devices):
+        lo, c = probe_ranges(sorted_keys.to(dev),
+                             probe[d * Lp:(d + 1) * Lp].to(dev))
+        los.append(lo.to(dest))
+        counts.append(c.to(dest))
+    return torch.cat(los), torch.cat(counts)
+
+
+def mesh_probe_unique(mesh, sorted_keys: torch.Tensor, perm: torch.Tensor,
+                      probe: torch.Tensor) -> tuple:
+    """The 1:1 probe, sharded: each device probes its run of ``probe``
+    against its replica of the unique-key build."""
+    D = mesh.size
+    Lp = probe.shape[0] // D
+    dest = probe.device
+    found, rows = [], []
+    for d, dev in enumerate(mesh.devices):
+        f, r = probe_unique(sorted_keys.to(dev), perm.to(dev),
+                            probe[d * Lp:(d + 1) * Lp].to(dev))
+        found.append(f.to(dest))
+        rows.append(r.to(dest))
+    return torch.cat(found), torch.cat(rows)
+
+
+def partition_by_key(keys: torch.Tensor, n_buckets: int,
+                     pad_value: int) -> tuple:
+    """Rows → ``n_buckets`` buckets by key modulo (codes are dense, so
+    modulo spreads them): ((D, L) keys padded with ``pad_value``, (D, L)
+    int64 row indexes, -1 on padding), each bucket's rows in row order."""
+    keys = keys.to(torch.int64)
+    dev = keys.device
+    bucket = keys % n_buckets
+    order = torch.sort(bucket, stable=True).indices
+    sb = bucket[order]
+    counts = torch.bincount(sb, minlength=n_buckets)
+    L = max(int(counts.max()) if keys.numel() else 0, 1)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(keys.numel(), device=dev) - starts[sb]
+    out_keys = torch.full((n_buckets, L), pad_value, dtype=torch.int64,
+                          device=dev)
+    out_rows = torch.full((n_buckets, L), -1, dtype=torch.int64, device=dev)
+    out_keys[sb, pos] = keys[order]
+    out_rows[sb, pos] = order
+    return out_keys, out_rows
+
+
+def mesh_bucket_ranges(mesh, build_buckets: torch.Tensor,
+                       probe_buckets: torch.Tensor) -> tuple:
+    """Bucket d's build sorted and its probe searched on device d: (lo
+    (D, Lp), counts (D, Lp), perm (D, Lb)), positions local to each
+    bucket."""
+    dest = build_buckets.device
+    los, counts, perms = [], [], []
+    for d, dev in enumerate(mesh.devices):
+        sk, perm = sort_build(build_buckets[d].to(dev))
+        lo, c = probe_ranges(sk, probe_buckets[d].to(dev))
+        los.append(lo.to(dest))
+        counts.append(c.to(dest))
+        perms.append(perm.to(dest))
+    return torch.stack(los), torch.stack(counts), torch.stack(perms)
+
+
+def expand_pairs_buckets(lo: torch.Tensor, counts: torch.Tensor,
+                         bound: int) -> tuple:
+    """``expand_pairs`` per bucket: (probe row, build position, valid),
+    each (D, bound), positions local to each bucket."""
+    outs = [expand_pairs(lo[d], counts[d], bound)
+            for d in range(lo.shape[0])]
+    return tuple(torch.stack([o[j] for o in outs]) for j in range(3))

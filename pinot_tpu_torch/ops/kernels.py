@@ -1290,23 +1290,27 @@ def cluster_regimes_plain(values, offsets):
 def cluster_sums_plain(values, offsets):
     """Plain version of K5, on the CPU whatever the inputs' device: per
     cluster, ``torch.cumsum`` over its values, which the CPU runs as one
-    sequential float64 loop from 0.0. 0.0 + v[s] is v[s] but for v[s] =
-    -0.0, and the difference lasts only while every value added is a
-    zero, so a cluster of -0.0 values alone sums to -0.0, as the
-    sequential sum from v[s] does. Returns (C,) float64 on the inputs'
-    device."""
+    sequential float64 loop from 0.0 (clusters of one length stacked as
+    the rows of a matrix, summed along each row, the same loop a row).
+    0.0 + v[s] is v[s] but for v[s] = -0.0, and the difference lasts only
+    while every value added is a zero, so a cluster of -0.0 values alone
+    sums to -0.0, as the sequential sum from v[s] does. Returns (C,)
+    float64 on the inputs' device."""
     v = values.reshape(-1).to("cpu", torch.float64)
-    off = offsets.reshape(-1).to("cpu").tolist()
-    out = torch.empty(max(len(off) - 1, 0), dtype=torch.float64)
-    for c in range(len(off) - 1):
-        run = v[off[c]:off[c + 1]]
-        if run.numel() == 0:
-            out[c] = 0.0
+    off = offsets.reshape(-1).to("cpu", torch.int64)
+    lens = off[1:] - off[:-1]
+    out = torch.zeros(lens.numel(), dtype=torch.float64)
+    neg_zero = torch.tensor(-0.0, dtype=torch.float64)
+    for L in torch.unique(lens).tolist():
+        if L == 0:
             continue
-        tot = torch.cumsum(run, 0)[-1]
-        if bool(((run == 0) & torch.signbit(run)).all()):
-            tot = torch.tensor(-0.0, dtype=torch.float64)
-        out[c] = tot
+        same = torch.nonzero(lens == L).reshape(-1)
+        step = max(1, (1 << 22) // L)   # rows a chunk: ~32 MB of values
+        for cs in same.split(step):
+            rows = v[off[cs, None] + torch.arange(L)]
+            tot = torch.cumsum(rows, 1)[:, -1]
+            negz = ((rows == 0) & torch.signbit(rows)).all(dim=1)
+            out[cs] = torch.where(negz, neg_zero, tot)
     return out.to(values.device)
 
 

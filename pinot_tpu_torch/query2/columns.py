@@ -53,6 +53,9 @@ class Col:
         values (floats: -0.0 equals 0.0, one NaN, last)."""
         return self.t.to(torch.int64) if self.is_str else order_key(self.t)
 
+    def to(self, device) -> "Col":
+        return Col(self.t.to(device), self.dtype, self.strings)
+
     def host(self) -> np.ndarray:
         """The values on the host, at their numpy dtype."""
         a = self.t.cpu().numpy()
@@ -64,6 +67,87 @@ class Col:
     @property
     def nbytes(self) -> int:
         return self.t.numel() * self.t.element_size()
+
+
+_AMBIGUOUS = ("The truth value of an array with more than one element is "
+              "ambiguous. Use a.any() or a.all()")
+
+
+@dataclasses.dataclass
+class MVCol:
+    """A multi-value column's rows, ragged: row ``r`` holds the entries
+    ``vals[starts[r]: starts[r] + lens[r]]`` (``vals`` a ``Col`` of every
+    entry), ``lens`` -1 on a LEFT join's miss, which reads as "" as the
+    reference fills an object column. A take moves the offsets, never the
+    entries. Where the joined rows are read as values (a key, a
+    comparison, an operand), the column is its single entries when every
+    row has one, as numpy reads such an object array; otherwise the
+    reference's numpy fails, and so does this (ValueError)."""
+
+    vals: Col
+    starts: torch.Tensor
+    lens: torch.Tensor
+
+    @property
+    def dtype(self) -> np.dtype:
+        return self.vals.dtype
+
+    @property
+    def strings(self):
+        return self.vals.strings
+
+    @property
+    def is_str(self) -> bool:
+        return self.vals.is_str
+
+    def take(self, idx: torch.Tensor) -> "MVCol":
+        return MVCol(self.vals, self.starts[idx], self.lens[idx])
+
+    def rows(self, n: int) -> "MVCol":
+        return self
+
+    def to(self, device) -> "MVCol":
+        return MVCol(self.vals.to(device), self.starts.to(device),
+                     self.lens.to(device))
+
+    def single(self) -> Col:
+        """The rows' entries where every row holds one."""
+        if bool((self.lens != 1).any()):
+            raise ValueError(_AMBIGUOUS)
+        return self.vals.take(self.starts)
+
+    @property
+    def t(self) -> torch.Tensor:
+        return self.single().t
+
+    def key(self) -> torch.Tensor:
+        return self.single().key()
+
+    def host(self) -> np.ndarray:
+        """Each row's entries as a numpy array (the reference's object
+        array of per-doc arrays); "" on a LEFT join's miss."""
+        lens = self.lens.cpu().numpy().astype(np.int64)
+        starts = self.starts.cpu().numpy().astype(np.int64)
+        n = len(lens)
+        out = np.empty(n, dtype=object)
+        if not n:
+            return out
+        lo, hi = int(starts.min()), int((starts + np.maximum(lens, 0)).max())
+        flat = self.vals.take(torch.arange(
+            lo, max(hi, lo), device=self.vals.t.device)).host() \
+            if hi > lo else np.zeros(0, dtype=self.dtype)
+        for r in range(n):
+            if lens[r] < 0:
+                out[r] = ""
+                continue
+            s = starts[r] - lo
+            seg = flat[s: s + lens[r]]
+            out[r] = seg.copy()
+        return out
+
+    @property
+    def nbytes(self) -> int:
+        return self.vals.nbytes + 2 * self.lens.numel() * 8
 
 
 def literal(value, device) -> Col:
@@ -110,8 +194,10 @@ def unify(cols: list) -> list:
     return [Col(c.t.to(tdt), dt) for c in cols]
 
 
-def concat(cols: list, device) -> Col:
+def concat(cols: list, device):
     """The rows of ``cols`` one after another."""
+    if cols and any(isinstance(c, MVCol) for c in cols):
+        return concat_mv(cols, device)
     if not cols:
         return Col(torch.zeros(0, dtype=torch.float64, device=device),
                    np.dtype(np.float64))
@@ -120,9 +206,24 @@ def concat(cols: list, device) -> Col:
                cols[0].strings)
 
 
+def concat_mv(cols: list, device) -> MVCol:
+    """MV columns' rows one after another, their entries in one ``Col``."""
+    if not all(isinstance(c, MVCol) for c in cols):
+        raise ValueError(_AMBIGUOUS)
+    vals = concat([c.vals for c in cols], device)
+    starts, at = [], 0
+    for c in cols:
+        starts.append(c.starts + at)
+        at += c.vals.t.numel()
+    return MVCol(vals, torch.cat(starts), torch.cat([c.lens for c in cols]))
+
+
 def with_default(c: Col) -> tuple:
     """(``c`` over a dictionary holding "", the fill a LEFT join's misses
-    take): the column TYPE's default, "" or 0, as a 0-d tensor."""
+    take): the column TYPE's default, "" or 0, as a 0-d tensor; an MV
+    column's miss is the object column's "" (``MVCol`` lens -1)."""
+    if isinstance(c, MVCol):
+        return c, None
     if not c.is_str:
         return c, torch.zeros((), dtype=c.t.dtype, device=c.t.device)
     if c.strings.dtype.kind == "O":

@@ -12,17 +12,22 @@ Counterpart of pinot_tpu/query2/runner.py, in the same two stages:
   and the reference host evaluator's stats.
 - **Join**: both sides' keys factorized into one shared code space
   (``_factorize_codes``), then ops/join.py's sort / probe / expand as
-  torch ops, the reference's XLA code. BROADCAST and SHUFFLE both run
-  the solo form (there is no mesh until the mesh slice), DISTRIBUTED its
-  local SHUFFLE mirror, as the reference runs it without a broker.
+  torch ops, the reference's XLA code. Without a mesh BROADCAST and
+  SHUFFLE both run the solo form; on a mesh (``DeviceExecutor.mesh``)
+  BROADCAST replicates the sorted build and shards the probe, SHUFFLE
+  puts one key bucket on each device, as the reference's shard_maps do.
+  DISTRIBUTED runs its local SHUFFLE mirror, as the reference runs it
+  without a broker.
 - **Windows**: ops/window.py, one ordering per (PARTITION BY, ORDER BY).
 - **Stage 2**: the joined rows' group keys factorized on the card
   (ops/selection.py ``factorize``, lexicographic key order as the host's
   ``factorize_multi``), COUNT and integer SUM / AVG through K1
   (``group_scatter.plane_group_sums``) under the reference's gate, the
   other aggregations as torch scatters, a selection's ORDER BY and LIMIT
-  on the card; only answer-sized partials come to the host, into
-  engine/reduce.py's ``finalize``.
+  on the card, the digests and sketches through engine/sketches.py over
+  the joined rows laid out as a batch of one segment (``_JoinedValues``,
+  K5 / K1 / K3 as single-stage calls them); only answer-sized partials
+  come to the host, into engine/reduce.py's ``finalize``.
 
 Expressions over joined rows run as torch ops where they are arithmetic,
 comparisons or boolean logic over numbers (numpy's result dtype, found by
@@ -49,6 +54,8 @@ from pinot_tpu_torch.engine.params import DeviceUnsupported, to_device
 from pinot_tpu_torch.engine.reduce import finalize
 from pinot_tpu_torch.engine.result import ExecutionStats, IntermediateResult
 from pinot_tpu_torch.engine.values import (
+    Val,
+    ValueEvaluator,
     _ARITH,
     _COMPARE,
     _UNARY,
@@ -77,6 +84,8 @@ from pinot_tpu_torch.query.context import (
 from pinot_tpu_torch.query.optimizer import optimize_filter
 from pinot_tpu_torch.query2.columns import (
     Col,
+    MVCol,
+    concat,
     literal,
     of_strings,
     unify,
@@ -176,6 +185,28 @@ def _numeric(e: Expression, fn, args: list) -> Col:
     return Col(numeric_op(e, [a.t for a in args], out_dt, cmp_dt), out_dt)
 
 
+def _mv_operands(e: Expression, fn, args: list) -> Col:
+    """A function over an MV column's rows: its numpy form over the
+    reference's object arrays of per-doc arrays, on the host."""
+    n = next(a.lens.numel() for a in args if isinstance(a, MVCol))
+    dev = next(a.lens.device for a in args if isinstance(a, MVCol))
+    ops = [a.host() if isinstance(a, MVCol) else
+           _probe(a) if a.t.dim() == 0 else a.host() for a in args]
+    with np.errstate(all="ignore"):
+        out = fn.np_fn(ops[0], e.args[1].value) if e.name == "cast" \
+            else fn.np_fn(*ops)
+    out = np.asarray(out)
+    if out.ndim == 0:
+        out = np.broadcast_to(out, (n,)).copy()
+    if out.dtype.kind in "biuf":
+        return Col(to_device(out, dev), out.dtype)
+    if out.dtype.kind in "USO" and all(isinstance(x, str)
+                                       for x in out.tolist()):
+        return of_strings(torch.arange(n, device=dev), out.astype(str))
+    raise ValueError(f"{e.name} over a multi-value column gives "
+                     f"{out.dtype} values on joined rows")
+
+
 _TORCH_FORMS = set(_ARITH) | set(_UNARY) | set(_COMPARE) \
     | {"divide", "mod", "and", "or", "not"}
 
@@ -188,7 +219,7 @@ def _eval(cols: dict, expr: Expression, env: Optional[dict],
         return env[expr]
     if expr.is_literal:
         if device is None:
-            device = next(iter(cols.values())).t.device if cols else "cpu"
+            device = _device(cols) if cols else "cpu"
         return literal(expr.value, device)
     if expr.is_identifier:
         if expr.name not in cols:
@@ -200,6 +231,8 @@ def _eval(cols: dict, expr: Expression, env: Optional[dict],
     fn = get_function(expr.name)
     operands = expr.args[:1] if expr.name == "cast" else expr.args
     args = [_eval(cols, a, env, device) for a in operands]
+    if any(isinstance(a, MVCol) for a in args):
+        return _mv_operands(expr, fn, args)
     numeric = args and not any(a.is_str for a in args)
     if numeric and (expr.name in _TORCH_FORMS or (
             expr.name == "cast"
@@ -218,8 +251,9 @@ def _eval_rows(cols: dict, expr: Expression, env: Optional[dict],
 def _compare(t: torch.Tensor, dtype: np.dtype, value, op) -> torch.Tensor:
     """``t op value`` as numpy compares an array of ``dtype`` with a
     Python number: an integer array with a float in float64, with an
-    integer exactly; a float array in its own dtype."""
-    if isinstance(value, (str, bytes)) or value is None:
+    integer exactly; a float array in its own dtype (a string literal
+    takes ``_predicate_mask``'s LUT)."""
+    if value is None:
         raise SqlAnalysisError(f"cannot compare {dtype} values with "
                                f"{value!r} on joined rows")
     if dtype.kind == "f":
@@ -236,8 +270,11 @@ def _predicate_mask(c: Col, p) -> torch.Tensor:
                  PredicateType.LIKE, PredicateType.REGEXP_LIKE):
         raise SqlAnalysisError(f"predicate {t.value} is not supported on "
                                f"joined rows")
-    if c.is_str or t in (PredicateType.LIKE, PredicateType.REGEXP_LIKE):
-        # a LUT over the distinct values, gathered by code
+    if c.is_str or t in (PredicateType.LIKE, PredicateType.REGEXP_LIKE) \
+            or ValueEvaluator._string_literal(p):
+        # a LUT over the distinct values, gathered by code: the host
+        # path's numpy predicate once per value (numbers against a string
+        # literal compare as numpy compares them, single-stage's rule)
         if c.is_str:
             codes, values = c.t.to(torch.int64), c.strings
         else:
@@ -251,9 +288,6 @@ def _predicate_mask(c: Col, p) -> torch.Tensor:
             else torch.zeros_like(codes, dtype=torch.bool)
     if t in (PredicateType.IN, PredicateType.NOT_IN):
         vals = np.asarray(list(p.values))
-        if vals.dtype.kind not in "biuf":
-            raise SqlAnalysisError(f"cannot compare {c.dtype} values with "
-                                   f"{list(p.values)!r} on joined rows")
         dt = np.result_type(c.dtype, vals.dtype)
         hit = torch.isin(c.t.to(_torch_dtype(dt)),
                          to_device(vals.astype(dt), c.t.device))
@@ -274,7 +308,7 @@ def _predicate_mask(c: Col, p) -> torch.Tensor:
 
 def _filter_mask(cols: dict, f: FilterNode, env, n: int) -> torch.Tensor:
     t = f.type
-    dev = next(iter(cols.values())).t.device
+    dev = _device(cols)
     if t is FilterNodeType.CONSTANT_TRUE:
         return torch.ones(n, dtype=torch.bool, device=dev)
     if t is FilterNodeType.CONSTANT_FALSE:
@@ -304,7 +338,15 @@ def _take(cols: dict, idx: torch.Tensor) -> dict:
 
 
 def _n_rows(cols: dict) -> int:
-    return next(iter(cols.values())).t.numel() if cols else 0
+    if not cols:
+        return 0
+    c = next(iter(cols.values()))
+    return c.lens.numel() if isinstance(c, MVCol) else c.t.numel()
+
+
+def _device(cols: dict):
+    c = next(iter(cols.values()))
+    return c.lens.device if isinstance(c, MVCol) else c.t.device
 
 
 # ---------------------------------------------------------------------------
@@ -413,26 +455,66 @@ def _factorize_codes(left_vals: list, right_vals: list, n_l: int, n_r: int,
     return codes_l, codes_r, False
 
 
-def _match_pairs(probe: torch.Tensor, build: torch.Tensor) -> tuple:
-    """ops/join.py's pipeline: (probe rows, build rows) of every match,
-    probe-major, each probe row's matches in build-row order."""
-    sk, perm = join_ops.sort_build(build)
-    if bool((sk[1:] != sk[:-1]).all()):
-        # dim-table pk probe (the LOOKUP shape): 1:1, no pair expansion
-        found, build_row = join_ops.probe_unique(sk, perm, probe)
-        probe_idx = torch.nonzero(found).reshape(-1)
-        return probe_idx, build_row[probe_idx]
-    lo, counts = join_ops.probe_ranges(sk, probe)
-    total = int(counts.sum())
+def _check_pairs(total: int) -> None:
     if total > MAX_JOIN_PAIRS:
         raise SqlAnalysisError(
             f"join produces more than {MAX_JOIN_PAIRS} matched pairs")
+
+
+def _match_pairs(probe: torch.Tensor, build: torch.Tensor, mesh=None,
+                 strategy: str = "BROADCAST") -> tuple:
+    """ops/join.py's pipeline: (probe rows, build rows) of every match,
+    probe-major, each probe row's matches in build-row order; on a mesh,
+    BROADCAST's probe sharded against a replicated build (the same
+    order), SHUFFLE bucket by bucket (``_match_pairs_mesh_shuffle``)."""
+    if mesh is not None and strategy == "SHUFFLE":
+        return _match_pairs_mesh_shuffle(probe, build, mesh)
+    sk, perm = join_ops.sort_build(build)
+    probe_p, n = probe, probe.numel()
+    if mesh is not None:
+        pad = (-n) % mesh.size
+        probe_p = torch.cat([probe, torch.full(
+            (pad,), join_ops.PROBE_PAD, dtype=probe.dtype,
+            device=probe.device)])
+    if bool((sk[1:] != sk[:-1]).all()):
+        # dim-table pk probe (the LOOKUP shape): 1:1, no pair expansion
+        found, build_row = join_ops.probe_unique(sk, perm, probe) \
+            if mesh is None else join_ops.mesh_probe_unique(
+                mesh, sk, perm, probe_p)
+        probe_idx = torch.nonzero(found[:n]).reshape(-1)
+        return probe_idx, build_row[probe_idx]
+    lo, counts = join_ops.probe_ranges(sk, probe) if mesh is None \
+        else join_ops.mesh_probe_ranges(mesh, sk, probe_p)
+    lo, counts = lo[:n], counts[:n]
+    _check_pairs(int(counts.sum()))
     pr, bp, _valid = join_ops.expand_pairs(lo, counts)
     return pr, perm[bp]
 
 
+def _match_pairs_mesh_shuffle(probe: torch.Tensor, build: torch.Tensor,
+                              mesh) -> tuple:
+    """SHUFFLE on the mesh: both sides partitioned by key, one bucket a
+    device, each bucket sorted, probed and expanded on its own; the
+    pairs bucket by bucket, as the reference's mesh orders them."""
+    D = mesh.size
+    bkeys, brows = join_ops.partition_by_key(build, D, join_ops.BUILD_PAD)
+    pkeys, prows = join_ops.partition_by_key(probe, D, join_ops.PROBE_PAD)
+    lo, counts, perm = join_ops.mesh_bucket_ranges(mesh, bkeys, pkeys)
+    per_bucket = counts.sum(dim=1).cpu()
+    _check_pairs(int(per_bucket.sum()))
+    pr, bp, valid = join_ops.expand_pairs_buckets(
+        lo, counts, join_ops.next_pow2(int(per_bucket.max())))
+    out_p, out_b = [], []
+    for d in range(D):
+        v = valid[d]
+        out_p.append(prows[d][pr[d][v]])
+        out_b.append(brows[d][perm[d][bp[d][v]]])
+    return torch.cat(out_p), torch.cat(out_b)
+
+
 def execute_join_step(left_cols: dict, n_left: int, step, build_cols: dict,
-                      device) -> tuple:
+                      device, mesh=None,
+                      strategy: str = "BROADCAST") -> tuple:
     """One join: match, expand, gather, residual-filter, LEFT-append.
     Returns (joined cols dict, new row count)."""
     lkeys = [_eval_rows(left_cols, k, None, n_left) for k in step.left_keys]
@@ -445,7 +527,7 @@ def execute_join_step(left_cols: dict, n_left: int, step, build_cols: dict,
         probe_idx = torch.zeros(0, dtype=torch.int64, device=device)
         build_idx = torch.zeros(0, dtype=torch.int64, device=device)
     else:
-        probe_idx, build_idx = _match_pairs(pc, bc)
+        probe_idx, build_idx = _match_pairs(pc, bc, mesh, strategy)
 
     joined = _take(left_cols, probe_idx)
     joined.update(_take(build_cols, build_idx))
@@ -464,10 +546,16 @@ def execute_join_step(left_cols: dict, n_left: int, step, build_cols: dict,
         k = miss.numel()
         if k:
             for name, c in left_cols.items():
-                joined[name] = Col(torch.cat([joined[name].t, c.t[miss]]),
-                                   c.dtype, c.strings)
+                joined[name] = concat([joined[name], c.take(miss)], device)
             for name in build_cols:
                 c, fill = with_default(joined[name])
+                if isinstance(c, MVCol):
+                    joined[name] = MVCol(
+                        c.vals, torch.cat([c.starts, torch.zeros(
+                            k, dtype=c.starts.dtype, device=device)]),
+                        torch.cat([c.lens, torch.full(
+                            (k,), -1, dtype=c.lens.dtype, device=device)]))
+                    continue
                 joined[name] = Col(torch.cat([c.t, fill.expand(k)]),
                                    c.dtype, c.strings)
             n += k
@@ -641,8 +729,12 @@ def _torch_partial(spec, a, cols, env, gid, G: int, n: int) -> dict:
     if spec.mv:
         raise SqlAnalysisError(f"multi-value aggregation {a.name}() is not "
                                f"supported over joined rows")
+    if name in ("firstwithtime", "lastwithtime"):
+        return _with_time_partial(spec, cols, env, gid, G, n)
     arg = _eval_rows(cols, spec.args[0], env, n)
-    if name == "distinctcount":   # and its aliases' spec
+    if name == "hllmerge":
+        return _hllmerge_partial(spec, arg, gid, G)
+    if name in ("distinctcount", "stunion"):   # and their aliases' specs
         # Python sets tell values apart: -0.0 equals 0.0, every NaN is
         # its own value
         key = arg.key()
@@ -692,10 +784,141 @@ def _torch_partial(spec, a, cols, env, gid, G: int, n: int) -> dict:
     if name == "minmaxrange":
         return {"min": _extreme(v, gid, G, "min"),
                 "max": _extreme(v, gid, G, "max")}
-    raise DeviceUnsupported(
-        f"{name.upper()} over joined rows: the port runs COUNT, SUM, AVG, "
-        f"MIN, MAX, MINMAXRANGE, DISTINCTCOUNT and DISTINCTCOUNTHLL there "
-        f"(ROADMAP queue 3, stage 2's aggregations)")
+    raise KeyError(f"unsupported aggregation function: {a.name}")
+
+
+def _with_time_partial(spec, cols, env, gid, G: int, n: int) -> dict:
+    """FIRSTWITHTIME / LASTWITHTIME over joined rows: engine/device.py's
+    scatter pair (ops/agg.py ``group_arg_time``). Strings ride as their
+    codes (code order is string order, ties to the largest value as the
+    host compares them) and integers exactly, as the host's object
+    array of Python values; times as the host reads them
+    (``np.asarray(..., dtype=np.int64)``), a string time parsed once per
+    distinct value."""
+    from pinot_tpu_torch.engine.device import with_time_partial
+    from pinot_tpu_torch.ops import agg as agg_ops
+
+    v = _eval_rows(cols, spec.args[0], env, n)
+    tc = _eval_rows(cols, spec.args[1], env, n)
+    if tc.is_str:
+        lut = np.asarray(tc.strings, dtype=np.int64) if len(tc.strings) \
+            else np.zeros(1, dtype=np.int64)
+        times = to_device(lut, gid.device)[tc.t]
+    else:
+        times = tc.t.to(torch.int64)
+    exact = v.is_str or v.dtype.kind in "biu"
+    vals = v.t.to(torch.int64) if exact else v.t
+    tb, vb = agg_ops.group_arg_time(gid, vals, times, G, spec.is_first,
+                                    exact)
+    part = with_time_partial(spec.name, {"w_t": tb.cpu().numpy(),
+                                         "w_v": vb.cpu().numpy()}, "w", None)
+    if v.is_str:
+        part["val"] = np.asarray(
+            [None if x is None else v.strings[x].item()
+             for x in part["val"].tolist()], dtype=object)
+    elif v.dtype.kind == "b":
+        part["val"] = np.asarray([None if x is None else bool(x)
+                                  for x in part["val"].tolist()],
+                                 dtype=object)
+    return part
+
+
+def _hllmerge_partial(spec, arg: Col, gid, G: int) -> dict:
+    """HLLMERGE over joined rows of register planes (a BYTES column):
+    each distinct plane decoded once (aggspec ``bytes_planes``), then a
+    scatter-max of the rows' planes into (G, m) on the card."""
+    if not arg.is_str:
+        raise ValueError(f"HLLMERGE reads a BYTES state column, got "
+                         f"{arg.dtype} values")
+    table = to_device(aggspec.bytes_planes(arg.strings, spec.m),
+                      gid.device)
+    planes = table[arg.t] if len(arg.strings) \
+        else torch.zeros((0, spec.m), dtype=torch.int32, device=gid.device)
+    regs = torch.zeros((G, spec.m), dtype=torch.int32, device=gid.device)
+    regs.scatter_reduce_(0, gid.reshape(-1, 1).expand(-1, spec.m), planes,
+                         "amax")
+    return {"regs": regs.cpu().numpy()}
+
+
+class _JoinedDicts:
+    """The dictionaries engine/sketches.py reads through ``ctx``: each
+    string column of the joined rows (keyed by its expression) with its
+    sorted distinct strings, and its values' hash plane."""
+
+    def __init__(self, ev):
+        self.ev = ev
+        self.cols: dict = {}
+
+    def global_dict(self, key):
+        from pinot_tpu_torch.storage.dictionary import Dictionary
+
+        return Dictionary(self.cols[key].strings)
+
+    def prehashed_column(self, name: str) -> torch.Tensor:
+        v = self.ev.eval(Expression.identifier(name))
+        return torch.broadcast_to(self.ev.hash32(v).to(torch.int32),
+                                  (1, self.ev.L))
+
+
+class _JoinedValues(ValueEvaluator):
+    """engine/values.py's evaluator over the joined rows laid out as one
+    segment (S = 1, L = the row count; ``sketches.Batch.joined``): what
+    the sketches read of a batch. A number column is a "num" value, a
+    string column a "dict" value over its sorted distinct strings."""
+
+    joined = True
+
+    def __init__(self, cols: dict, env: dict, n: int, device):
+        self.cols, self.env = cols, env
+        self.S, self.L, self.device = 1, n, device
+        self.ctx = _JoinedDicts(self)
+        self.seg_names = self.seg_sorted = self.host_names = \
+            np.asarray([""])
+        self._gvals, self._probes, self._luts, self._mvfuncs = {}, {}, {}, {}
+
+    def eval(self, e: Expression, rows=None) -> Val:
+        c = _eval(self.cols, e, self.env, self.device)
+        if isinstance(c, MVCol):
+            c = c.single()
+        if c.is_str:
+            key = e.name if e.is_identifier else str(e)
+            self.ctx.cols[key] = c
+            return Val(c.t, "dict", c.dtype, key)
+        return Val(c.t, "num", c.dtype)
+
+    operand = eval
+
+    def is_mv(self, name: str) -> bool:
+        return False
+
+    def column_dtype(self, name: str) -> np.dtype:
+        return self.eval(Expression.identifier(name)).dtype
+
+
+def _sketch_partials(idxs: list, aggs, cols, env, gid, G: int, n: int,
+                     device) -> dict:
+    """The digests and sketches (engine/sketches.py ``NAMES``) over the
+    joined rows, as single-stage runs them: each plan checked first, then
+    their device leaves (K5's ordered cluster sums, K1's byte planes, K3's
+    registers, the KMV and value runs), fetched answer-sized, each
+    finished into the reference's partial. ``gid`` None: one group."""
+    from pinot_tpu_torch.engine import sketches
+
+    if n == 0:
+        return {i: aggspec.make_spec(aggs[i]).empty(G) for i in idxs}
+    ev = _JoinedValues(cols, env, n, device)
+
+    def filters(f):
+        return _filter_mask(cols, optimize_filter(f), env, n).reshape(1, n)
+
+    plans = {i: sketches.plan(i, aggs[i], ev, filters) for i in idxs}
+    batch = sketches.Batch.joined(ev, gid, G)
+    outs: dict = {}
+    for sk in plans.values():
+        outs.update(sk.launch(batch))
+    host = {k: v.cpu().numpy() for k, v in outs.items()}
+    present = None if gid is None else np.arange(G)
+    return {i: sk.partial(host, present) for i, sk in plans.items()}
 
 
 def _hll_partial(spec, h: torch.Tensor, gid: torch.Tensor, G: int) -> dict:
@@ -706,8 +929,17 @@ def _hll_partial(spec, h: torch.Tensor, gid: torch.Tensor, G: int) -> dict:
     return {"regs": regs[: G * m].reshape(G, m).cpu().numpy()}
 
 
-def _partials(aggs, specs, cols, env, gid, G: int, n: int, fast) -> list:
-    return [fast[i] if i in fast
+def _partials(aggs, specs, cols, env, gid, G: int, n: int, fast,
+              grouped: bool = True) -> list:
+    from pinot_tpu_torch.engine.sketches import NAMES
+
+    done = dict(fast)
+    sk = [i for i, a in enumerate(aggs) if i not in done and a.name in NAMES]
+    if sk:
+        done.update(_sketch_partials(sk, aggs, cols, env,
+                                     gid if grouped else None, G, n,
+                                     gid.device))
+    return [done[i] if i in done
             else _torch_partial(spec, a, cols, env, gid, G, n)
             for i, (a, spec) in enumerate(zip(aggs, specs))]
 
@@ -763,10 +995,16 @@ def stage2_partial(plan: MultiStagePlan, cols: dict, n: int, env: dict,
 
     if aggs:
         specs = [aggspec.make_spec(a) for a in aggs]
+        for a, spec in zip(aggs, specs):
+            if spec.mv:
+                raise SqlAnalysisError(
+                    f"multi-value aggregation {a.name}() is not supported "
+                    f"over joined rows")
         zero = torch.zeros(n, dtype=torch.int64, device=dev)
         return IntermediateResult(
             "aggregation",
-            agg_partials=_partials(aggs, specs, cols, env, zero, 1, n, {}),
+            agg_partials=_partials(aggs, specs, cols, env, zero, 1, n, {},
+                                   grouped=False),
             stats=stats)
 
     # selection: the first limit + offset rows in ORDER BY order (stable,
@@ -806,6 +1044,7 @@ def run_plan(plan: MultiStagePlan, table_rows: dict, ex):
     """table_rows: alias → {bare column: Col}. Returns (ResultTable, meta
     dict with join / window execution facts)."""
     dev = ex.device
+    mesh = getattr(ex, "mesh", None)
     probe = plan.probe
     left_cols = {f"{probe.alias}.{c}": v
                  for c, v in table_rows[probe.alias].items()}
@@ -832,7 +1071,7 @@ def run_plan(plan: MultiStagePlan, table_rows: dict, ex):
         t_join = time.perf_counter()
         with span("join"):
             left_cols, n = execute_join_step(left_cols, n, step, build_cols,
-                                             dev)
+                                             dev, mesh, strat)
         join_ms = (time.perf_counter() - t_join) * 1e3
         strategies.append(strat)
         roofline_recs.append(_join_roofline_record(
@@ -858,7 +1097,13 @@ def run_plan(plan: MultiStagePlan, table_rows: dict, ex):
         "numStages": 2 if (plan.joins or plan.windows) else 1,
         "joinStrategy": effective,
         "numJoinedRows": n,
+        "mesh": mesh is not None,
         "roofline": roofline_recs,
+        # the executed join's partition fan-out: a bucket a mesh device
+        # under SHUFFLE, else 1 (0 without a join), as the reference's
+        "joinFanout": (mesh.size if (mesh is not None
+                                     and effective == "SHUFFLE")
+                       else 1) if strategies else 0,
     }
     return result, meta
 
@@ -907,11 +1152,9 @@ def run_local(engine, plan: MultiStagePlan):
     return result, stats, meta
 
 
-def execute_multistage(engine, stmt, t0: Optional[float] = None) -> dict:
-    """Parsed multi-stage statement → broker-style response dict (the
-    ``QueryEngine.execute`` integration point)."""
-    t0 = time.time() if t0 is None else t0
-
+def catalog_for(engine):
+    """The plan compiler's catalog over an engine's tables: table →
+    (columns, is a dimension table)."""
     def catalog(table: str):
         tdm = _tdm_for(engine, table)
         segs = tdm.acquire()
@@ -923,7 +1166,14 @@ def execute_multistage(engine, stmt, t0: Optional[float] = None) -> dict:
             tdm.release(segs)
         return cols, bool(getattr(tdm, "is_dim_table", False))
 
-    plan = compile_plan(stmt, catalog)
+    return catalog
+
+
+def execute_multistage(engine, stmt, t0: Optional[float] = None) -> dict:
+    """Parsed multi-stage statement → broker-style response dict (the
+    ``QueryEngine.execute`` integration point)."""
+    t0 = time.time() if t0 is None else t0
+    plan = compile_plan(stmt, catalog_for(engine))
     analyze = plan.explain and plan.analyze
     if plan.explain and not analyze:
         from pinot_tpu_torch.engine.explain import explain_multistage
