@@ -277,6 +277,34 @@ Phases, all on ``cuda:0``:
    each shard's K1-K4 launches are counted (``count_shards``) and every
    shard must launch each; per query the p50 on the mesh and on one
    device and the combine's ms.
+   The sixteenth path, ``advisor`` (before ``mesh``; every other path
+   runs with the plan advisor off, so its forms and launches are its
+   own), turns a fresh ``PlanAdvisor`` on over ``lineorder_by_date``
+   (8 x 3,052 zone blocks, the default candidate bound 1,526) with the
+   launch counts zeroed before and read after: ``ADV_QUERIES``, each
+   execution with new lo_orderdate literals so the template key holds,
+   a day's COUNT / SUM and three days' (K4; from the fourth execution
+   ``ADVISOR(candBound=1/64`` or ``1/32``, K4 launched at that bound),
+   an unselective group-by over most of the seven years (K1; from the
+   fourth execution ``ADVISOR(blockSkip=dense``: no zone verdict, no
+   compaction, one device read fewer at the dispatcher, and the 16th
+   decision a re-probe), and a server partial's top-K group-by
+   (``execute_segments``, not terminal) over ~850 present customers
+   (``ADVISOR(groupTrim=2048``: the fetch 4x smaller). Every execution
+   equals the numpy oracle (rows, numDocsScanned, totalDocs) and its
+   ``SET useAdvisor = false`` twin (rows and every stat); K4 is held
+   bit for bit at an advised execution's captured inputs; each
+   template's p50 advised and as its twin. Then the fault phase on its
+   own engine over the table's first 2 segments (injected only: a
+   ``device.launch`` failing once is retried and answers with K1 and K2
+   launched, failing twice is quarantined and refused in-band until
+   ``reset_quarantine()``, a ``device.fetch`` failure is refused in-band
+   with the batch evicted and the next query rebuilds it; 8 failed
+   ``chunklet.promote`` calls on ``lineorder_promo``, 1,000,000 rows of
+   its own through the memory stream's fetch, with answers equal to the
+   oracle throughout) and two tenants on threads through a
+   ``TokenBucketScheduler`` over the card's engine, every answer equal
+   to the oracle, each tenant's p50.
 4. A ``{"kernels": [...]}`` line (K1-K5 and the four member-axis
    entries; K5's with the clusters each regime summed over the paths,
    none chained on the sketch, mv and multistage paths' integer columns;
@@ -284,7 +312,8 @@ Phases, all on ``cuda:0``:
    ``{"ok": true, "device": {...}}``.
 
 ``--paths a,b`` runs those paths alone (``ALL_PATHS``; default every
-one), writing and loading only the tables they read (``PATH_TABLES``).
+one), writing and loading only the tables they read (``PATH_TABLES``:
+``--paths advisor`` writes lineorder_by_date alone).
 Exits non-zero, printing no result line, without a CUDA card, outside a
 checkout of the repository, or when any phase fails. Imports nothing of
 JAX or of the JAX package.
@@ -2469,8 +2498,10 @@ def subbyte_twins(dirs: list, want: dict, total: int, engine_cls) -> tuple:
     for flag in ("", "1"):
         eng = engine_cls(device="cuda")
         # check_tail_kernels captures the sub-byte engine's kernel inputs
-        # from queries run here: no repeat may be a partials-cache hit
+        # from queries run here: no repeat may be a partials-cache hit or
+        # take an advised form
         eng.device.partials_cache_enabled = False
+        eng.device.advisor = None
         segs = [ImmutableSegment(d) for d in dirs]
         for s in segs:
             eng.add_segment(TRIPS_TABLE, s)
@@ -5605,17 +5636,608 @@ MESH_SHARD_KERNELS = ("group_plane_sums", "group_minmax",
 # the launches of each shard (its place in the mesh) on the mesh path
 MESH_SHARD_LAUNCHES: list = []
 
+# ---------------------------------------------------------------------------
+# the advisor path: the plan advisor over lineorder_by_date, device-error
+# recovery and the quarantine breaker, a promotion fault, the scheduler
+# ---------------------------------------------------------------------------
+
+ADV_MIN_SAMPLES = 3      # PlanAdvisor's default: the 4th execution is advised
+ADV_RUNS = 6             # executions of each selective template
+ADV_DENSE_RUNS = 20      # the unselective one: its 16th decision re-probes
+ADV_TOP = " ORDER BY SUM(lo_revenue) DESC, lo_custkey LIMIT 10"
+# {lo} / {hi}: lo_orderdate literals, varied by run so the template key
+# holds; a day is ~10 of a live segment's ~3,052 zone blocks, three days
+# ~32: ratios under 1/160 and 1/80, which 1/64 and 1/32 take with the
+# advisor's 2.5x headroom (a month, ~9.5 % of its segment's blocks, takes
+# neither)
+ADV_QUERIES = {
+    "adv_day": ("SELECT COUNT(*), SUM(lo_quantity) FROM " + BS_TABLE
+                + " WHERE lo_orderdate BETWEEN {lo} AND {hi}"),
+    "adv_days3": ("SELECT COUNT(*), SUM(lo_quantity), MAX(lo_revenue) FROM "
+                  + BS_TABLE + " WHERE lo_orderdate BETWEEN {lo} AND {hi}"),
+    # most of the seven years: measured unselective, so the dense form
+    "adv_dense": ("SELECT lo_discount, COUNT(*), SUM(lo_quantity) FROM "
+                  + BS_TABLE + " WHERE lo_orderdate BETWEEN {lo} AND {hi} "
+                  "GROUP BY lo_discount ORDER BY lo_discount LIMIT 20"),
+    # a server's partial (execute_segments, not terminal): ~850 present
+    # customers of 100,000 under the default trim of 5,000
+    "adv_trim": ("SELECT lo_custkey, SUM(lo_revenue) FROM " + BS_TABLE
+                 + " WHERE lo_orderdate BETWEEN {lo} AND {hi} AND "
+                 "lo_quantity = 1 GROUP BY lo_custkey" + ADV_TOP),
+}
+ADV_STAMPS = {"adv_day": "ADVISOR(candBound=1/", "adv_days3":
+              "ADVISOR(candBound=1/", "adv_dense": "ADVISOR(blockSkip=dense",
+              "adv_trim": "ADVISOR(groupTrim="}
+ADV_STATS = ("numDocsScanned", "numEntriesScannedInFilter",
+             "numEntriesScannedPostFilter", "numSegmentsQueried",
+             "numSegmentsProcessed", "numSegmentsMatched",
+             "numSegmentsPrunedByServer", "numBlocksPruned", "totalDocs",
+             "numGroupsLimitReached")
+FAULT_SEGMENTS = 2       # the fault phase's batch: lineorder_by_date's first 2
+FAULT_Q6 = QUERIES["q6_minmax"].replace("FROM lineorder", f"FROM {BS_TABLE}")
+PROMO_TABLE = "lineorder_promo"
+PROMO_SEED = 79
+PROMO_ROWS = 1_000_000
+PROMO_FAILS = 8          # the first 8 promotions fail: one chunklet's rows
+PROMO_QUERIES = {
+    "promo_count_sum": f"SELECT COUNT(*), SUM(lo_revenue) FROM {PROMO_TABLE}",
+    "promo_year": (f"SELECT d_year, COUNT(*), MAX(lo_quantity) FROM "
+                   f"{PROMO_TABLE} GROUP BY d_year ORDER BY d_year"),
+}
+SCHED_TENANTS = {"dashboard": "adv_day", "adhoc": "adv_dense"}
+SCHED_THREADS = 2        # threads a tenant
+SCHED_QUERIES = 6        # queries a thread
+
+
+def adv_literals(name: str, i: int) -> tuple:
+    """The i-th execution's (lo, hi) lo_orderdate literals of ``name``."""
+    if name == "adv_dense":
+        return 19920101 + i, 19981228
+    lo = (1993 + i % 5) * 10000 + (1 + (3 * i) % 12) * 100 + 10 + i % 10
+    return lo, lo + (2 if name == "adv_days3" else 0)
+
+
+def adv_sql(name: str, i: int) -> str:
+    lo, hi = adv_literals(name, i)
+    return ADV_QUERIES[name].format(lo=lo, hi=hi)
+
+
+def adv_oracle(bs_data: list) -> dict:
+    """The advisor path's answers from the sorted table: per (query,
+    execution) the rows and numDocsScanned, each a row range of the
+    lo_orderdate order (searchsorted), and the fault phase's q6 over the
+    first FAULT_SEGMENTS segments."""
+    c = {k: np.concatenate([d[k] for d in bs_data])
+         for k in ("lo_orderdate", "lo_discount", "lo_quantity",
+                   "lo_revenue", "lo_custkey")}
+    od = c["lo_orderdate"]
+    qty = c["lo_quantity"].astype(np.int64)
+    rev = c["lo_revenue"].astype(np.int64)
+    want = {}
+    n_dense = max(ADV_DENSE_RUNS, SCHED_THREADS * SCHED_QUERIES)
+    n_sel = max(ADV_RUNS, SCHED_THREADS * SCHED_QUERIES)
+    # the unselective ranges share their end: one bincount over the
+    # widest range, less each run's short head
+    lo0, hi = adv_literals("adv_dense", 0)
+    a0, b = np.searchsorted(od, lo0, "left"), np.searchsorted(od, hi, "right")
+    disc, q_ = c["lo_discount"][a0:b], qty[a0:b]
+    cnt0 = np.bincount(disc, minlength=11)
+    sum0 = np.bincount(disc, weights=q_, minlength=11)
+    for i in range(n_dense):
+        a = np.searchsorted(od, adv_literals("adv_dense", i)[0], "left")
+        h = slice(0, a - a0)
+        cnt = cnt0 - np.bincount(disc[h], minlength=11)
+        sums = sum0 - np.bincount(disc[h], weights=q_[h], minlength=11)
+        want[("adv_dense", i)] = (
+            [[k, int(cnt[k]), float(sums[k])] for k in range(11) if cnt[k]],
+            int(cnt.sum()))
+    for name in ("adv_day", "adv_days3", "adv_trim"):
+        for i in range(n_sel if name != "adv_trim" else ADV_RUNS):
+            lo, hi = adv_literals(name, i)
+            s = slice(np.searchsorted(od, lo, "left"),
+                      np.searchsorted(od, hi, "right"))
+            n = s.stop - s.start
+            if name == "adv_day":
+                rows = [[n, float(qty[s].sum())]]
+            elif name == "adv_days3":
+                rows = [[n, float(qty[s].sum()), float(rev[s].max())]]
+            else:
+                m = qty[s] == 1
+                cust, r = c["lo_custkey"][s][m], rev[s][m]
+                sums = np.bincount(cust, weights=r.astype(np.float64),
+                                   minlength=100_000)
+                keys = np.flatnonzero(np.bincount(cust, minlength=100_000))
+                top = sorted(keys, key=lambda k: (-sums[k], k))[:10]
+                rows, n = [[int(k), float(sums[k])] for k in top], int(m.sum())
+            want[(name, i)] = (rows, n)
+    f = {k: np.concatenate([d[k] for d in bs_data[:FAULT_SEGMENTS]])
+         for k in ("d_year", "s_nation", "lo_revenue", "lo_quantity",
+                   "lo_discount")}
+    m = (f["lo_discount"] >= 1) & (f["lo_discount"] <= 3)
+    want["fault_q6"] = (_q6_rows(f, m), int(m.sum()))
+    return want
+
+
+def adv_check(label: str, got_rows, got_docs: int, want: tuple) -> None:
+    if not rows_equal(got_rows, want[0]) or got_docs != want[1]:
+        raise AssertionError(f"{label}: rows {got_rows[:3]} "
+                             f"numDocsScanned {got_docs}, want "
+                             f"{want[0][:3]} / {want[1]}")
+
+
+class count_syncs:
+    """Counts the torch ops of a block that read the device from the host
+    (a scalar read, or an op whose output shape depends on the data)
+    while it is entered, at the dispatcher."""
+
+    OPS = ("_local_scalar_dense", "nonzero", "masked_select", "_unique2")
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        outer = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if func.__name__.split(".")[0] in outer.OPS:
+                    outer.n += 1
+                return func(*args, **(kwargs or {}))
+
+        self.n = 0
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._mode.__exit__(*exc)
+
+
+def adv_partial(engine, sql: str) -> tuple:
+    """A server's partial of ``sql`` over lineorder_by_date
+    (``execute_segments``, not terminal): (rows after the server trim,
+    numDocsScanned, the stats, the advisor's stamps)."""
+    from pinot_tpu_torch.engine.reduce import finalize, trim_group_by
+
+    q = compile_query(engine, sql)
+    merged = engine.execute_segments(q, table_segs(engine, BS_TABLE),
+                                     terminal=False)
+    st = merged.stats
+    stats = {k: getattr(st, k) for k in (
+        "num_docs_scanned", "num_entries_scanned_in_filter",
+        "num_entries_scanned_post_filter", "num_segments_queried",
+        "num_segments_processed", "num_segments_matched",
+        "num_segments_pruned", "num_blocks_pruned", "total_docs")}
+    return (finalize(q, trim_group_by(q, merged)).rows,
+            st.num_docs_scanned, stats, list(st.advisor_decisions))
+
+
+def adv_drive(engine, want: dict, total: int, n_blocks: int) -> dict:
+    """The advised executions, each against the oracle and its ``SET
+    useAdvisor = false`` twin (rows and every stat): which execution
+    carried which stamp, K4's candidate bound per execution, the dense
+    form's verdict / compaction calls and device reads, the trim's
+    fetched bytes."""
+    from pinot_tpu_torch.ops import blockskip as bs
+    from pinot_tpu_torch.ops import group_scatter as ps
+
+    seen = {"k4_B": [], "verdict": 0, "compact": 0}
+    real = {"fused_filter_agg": ps.fused_filter_agg,
+            "zone_verdict": bs.zone_verdict,
+            "compact_candidates": bs.compact_candidates}
+
+    def spy_k4(cand, *a, **k):
+        seen["k4_B"].append(int(cand.shape[0]))
+        return real["fused_filter_agg"](cand, *a, **k)
+
+    def spy_verdict(*a, **k):
+        seen["verdict"] += 1
+        return real["zone_verdict"](*a, **k)
+
+    def spy_compact(*a, **k):
+        seen["compact"] += 1
+        return real["compact_candidates"](*a, **k)
+
+    ps.fused_filter_agg = spy_k4
+    bs.zone_verdict, bs.compact_candidates = spy_verdict, spy_compact
+    out = {}
+    try:
+        for name in ("adv_day", "adv_days3", "adv_dense", "adv_trim"):
+            runs = ADV_DENSE_RUNS if name == "adv_dense" else ADV_RUNS
+            notes, bounds, forms, syncs, fetched = [], [], [], [], []
+            for i in range(runs):
+                sql = adv_sql(name, i)
+                twin_sql = "SET useAdvisor = false; " + sql
+                mark = (len(seen["k4_B"]), seen["verdict"], seen["compact"])
+                b0 = engine.device.fetch_bytes_total
+
+                def advised_form():
+                    # K4's bounds, verdicts and compactions of the advised
+                    # execution alone
+                    k4_ = seen["k4_B"][mark[0]:]
+                    bounds.append(k4_[0] if len(k4_) == 1 else None)
+                    forms.append((seen["verdict"] - mark[1],
+                                  seen["compact"] - mark[2]))
+
+                if name == "adv_trim":
+                    rows, docs, stats, stamps = adv_partial(engine, sql)
+                    advised_form()
+                    b1 = engine.device.fetch_bytes_total
+                    t_rows, _d, t_stats, t_stamps = adv_partial(engine,
+                                                                twin_sql)
+                    fetched.append((b1 - b0,
+                                    engine.device.fetch_bytes_total - b1))
+                else:
+                    with count_syncs() as sy:
+                        resp = engine.execute(sql)
+                    advised_form()
+                    with count_syncs() as sy_twin:
+                        twin = engine.execute(twin_sql)
+                    syncs.append((sy.n, sy_twin.n))
+                    for r in (resp, twin):
+                        if r["exceptions"]:
+                            raise AssertionError(f"{name}[{i}]: "
+                                                 f"{r['exceptions']}")
+                    rows, docs = resp["resultTable"]["rows"], \
+                        resp["numDocsScanned"]
+                    stats = {k: resp[k] for k in ADV_STATS}
+                    t_rows, t_stats = twin["resultTable"]["rows"], \
+                        {k: twin[k] for k in ADV_STATS}
+                    stamps = resp.get("advisorDecisions") or []
+                    t_stamps = twin.get("advisorDecisions") or []
+                    if resp["totalDocs"] != total:
+                        raise AssertionError(f"{name}[{i}]: totalDocs "
+                                             f"{resp['totalDocs']}")
+                adv_check(f"{name}[{i}]", rows, docs, want[(name, i)])
+                if t_rows != rows or t_stats != stats or t_stamps:
+                    raise AssertionError(
+                        f"{name}[{i}]: its useAdvisor = false twin differs: "
+                        f"{t_rows[:3]} {t_stats} {t_stamps} vs {rows[:3]} "
+                        f"{stats}")
+                stamp = next((s for s in stamps if ADV_STAMPS[name] in s),
+                             None)
+                notes.append(stamp)
+            first = next((i for i, s in enumerate(notes) if s), None)
+            if first != ADV_MIN_SAMPLES:
+                raise AssertionError(f"{name}: first stamped at execution "
+                                     f"{first}, want {ADV_MIN_SAMPLES}: "
+                                     f"{notes}")
+            out[name] = {"stamps": notes, "k4_B": bounds, "syncs": syncs,
+                         "verdict_compact": forms, "fetched": fetched}
+            log(f"{name}: {runs} executions equal the oracle and their "
+                f"useAdvisor = false twins (rows and {len(ADV_STATS)} "
+                f"stats); stamps {[s for s in notes if s][:1]} from "
+                f"execution {first}")
+    finally:
+        ps.fused_filter_agg = real["fused_filter_agg"]
+        bs.zone_verdict = real["zone_verdict"]
+        bs.compact_candidates = real["compact_candidates"]
+    # K4 at the default bound before the advice, at the advised one after
+    default_B = -(-n_blocks // 16)
+    for name in ("adv_day", "adv_days3"):
+        r = out[name]
+        frac = int(re.search(r"candBound=1/(\d+)", r["stamps"][-1]).group(1))
+        want_B = [default_B] * ADV_MIN_SAMPLES + \
+            [min(n_blocks, -(-n_blocks // frac))] * (ADV_RUNS - ADV_MIN_SAMPLES)
+        if r["k4_B"] != want_B:
+            raise AssertionError(f"{name}: K4's candidate bounds "
+                                 f"{r['k4_B']}, want {want_B}")
+        r["fraction"] = frac
+        log(f"{name}: K4 launched at B = {r['k4_B']} (1/16, then the "
+            f"advised 1/{frac} of {n_blocks} blocks)")
+    # the dense form: no verdict, no compaction, one device read fewer
+    d = out["adv_dense"]
+    for i, s in enumerate(d["stamps"]):
+        adv_s, twin_s = d["syncs"][i]
+        if s and (d["verdict_compact"][i] != (0, 0) or adv_s >= twin_s):
+            raise AssertionError(f"adv_dense[{i}]: verdict / compaction "
+                                 f"calls {d['verdict_compact'][i]}, device "
+                                 f"reads {adv_s} advised vs {twin_s}")
+    probes = [i for i, s in enumerate(d["stamps"]) if i >= ADV_MIN_SAMPLES
+              and not s]
+    if probes != [ADV_MIN_SAMPLES + 15]:
+        raise AssertionError(f"adv_dense: re-probes at {probes}, want the "
+                             f"16th decision ({ADV_MIN_SAMPLES + 15})")
+    log(f"adv_dense: device reads per query, advised vs twin: "
+        f"{d['syncs'][ADV_MIN_SAMPLES]}; re-probe at execution {probes[0]}")
+    t = out["adv_trim"]
+    for i, s in enumerate(t["stamps"]):
+        if s and not t["fetched"][i][0] < t["fetched"][i][1]:
+            raise AssertionError(f"adv_trim[{i}]: fetched {t['fetched'][i]}")
+    log(f"adv_trim: fetched bytes advised vs twin "
+        f"{t['fetched'][ADV_MIN_SAMPLES]}")
+    return out
+
+
+def adv_p50(engine, runs: int) -> dict:
+    """Each template's p50 advised and as its useAdvisor = false twin, in
+    alternating order (the memos are converged)."""
+    out = {}
+    for name in ADV_QUERIES:
+        sql = adv_sql(name, ADV_RUNS - 1)
+        twin = "SET useAdvisor = false; " + sql
+        run = (lambda s: adv_partial(engine, s)) if name == "adv_trim" \
+            else engine.execute
+        times = {sql: [], twin: []}
+        for _ in range(runs):
+            for s in (sql, twin, twin, sql):
+                t = time.perf_counter()
+                run(s)
+                times[s].append((time.perf_counter() - t) * 1e3)
+        out[name] = {"advised_p50_ms": float(np.percentile(times[sql], 50)),
+                     "twin_p50_ms": float(np.percentile(times[twin], 50))}
+        log(f"{name}: p50 {out[name]['advised_p50_ms']:.3f} ms advised, "
+            f"{out[name]['twin_p50_ms']:.3f} ms its useAdvisor = false twin "
+            f"({2 * runs} runs each)")
+    return out
+
+
+def fault_phase(bs_segs: list, want: dict, device: str = "cuda") -> dict:
+    """Injected faults on q6's shape over lineorder_by_date's first
+    FAULT_SEGMENTS segments (their own engine, so a rebuilt batch is
+    small): a launch failing once is retried and answers (K1 and K2 run
+    again on the rebuilt batch), failing twice quarantines the pair and
+    is refused in-band until ``reset_quarantine()``, a fetch failure is
+    refused in-band with the batch evicted and the next query rebuilds
+    it. No real device error is provoked. (``device="cpu"`` rehearses it
+    on the host, where no launch is counted.)"""
+    from pinot_tpu_torch.common import faults
+    from pinot_tpu_torch.engine.engine import QueryEngine
+
+    eng = QueryEngine(device=device)
+    if device == "cpu":
+        eng.device.min_rows = 0
+    eng.device.partials_cache_enabled = False
+    eng.device.advisor = None
+    for s in bs_segs[:FAULT_SEGMENTS]:
+        eng.add_segment(BS_TABLE, s)
+    dev = eng.device
+    tables = launch_tables()
+    out = {}
+
+    def run():
+        before = dict(tables["kernels"])
+        resp = eng.execute(FAULT_Q6)
+        made = {k: tables["kernels"][k] - before[k]
+                for k in ("group_plane_sums", "group_minmax")}
+        return resp, made
+
+    def answers(label, resp, made):
+        if resp["exceptions"]:
+            raise AssertionError(f"{label}: {resp['exceptions']}")
+        adv_check(label, resp["resultTable"]["rows"], resp["numDocsScanned"],
+                  want["fault_q6"])
+        if device != "cpu" and min(made.values()) < 1:
+            raise AssertionError(f"{label}: launches {made}")
+
+    def refused(label, resp, word):
+        msg = " ".join(e["message"] for e in resp["exceptions"])
+        if word not in msg:
+            raise AssertionError(f"{label}: want an in-band refusal naming "
+                                 f"{word!r}, got {resp}")
+        return msg
+
+    answers("fault_q6 (warm)", *run())
+    faults.clear()
+    try:
+        # a launch failing once: evicted, rebuilt, retried on the card
+        ev, miss = dev.batch_evictions, dev.batch_misses
+        f = faults.install(faults.Fault(point="device.launch", times=1))
+        resp, made = run()
+        answers("fault_q6 (launch fails once)", resp, made)
+        if (f.fired, dev.launch_failures, dev.batch_evictions - ev,
+                dev.batch_misses - miss,
+                dev.hbm_stats()["quarantined_pipelines"]) != (1, 1, 1, 1, 0):
+            raise AssertionError(f"launch once: fired {f.fired}, failures "
+                                 f"{dev.launch_failures}, evictions "
+                                 f"{dev.batch_evictions - ev}, misses "
+                                 f"{dev.batch_misses - miss}")
+        out["launch_once"] = {"launch_failures": dev.launch_failures,
+                              "k1_k2": made}
+        # failing twice: quarantined, refused in-band, no further attempt
+        faults.clear()
+        f = faults.install(faults.Fault(point="device.launch", times=2))
+        msg = refused("launch twice", run()[0], "quarantined")
+        again = refused("quarantined", run()[0], "quarantined")
+        if f.fired != 2 or dev.hbm_stats()["quarantined_pipelines"] != 1:
+            raise AssertionError(f"launch twice: fired {f.fired}, "
+                                 f"{dev.hbm_stats()}")
+        dev.reset_quarantine()
+        answers("fault_q6 (after reset_quarantine)", *run())
+        out["launch_twice"] = {"launch_failures": dev.launch_failures,
+                               "refusal": msg, "while_quarantined": again}
+        # a fetch failure: refused in-band, the batch evicted, rebuilt
+        faults.clear()
+        ev, miss = dev.batch_evictions, dev.batch_misses
+        f = faults.install(faults.Fault(point="device.fetch", times=1))
+        msg = refused("fetch", run()[0], "device fetch failed")
+        if dev.batch_evictions - ev != 1 \
+                or dev.hbm_stats()["cached_batches"] != 0:
+            raise AssertionError(f"fetch: evictions {dev.batch_evictions - ev}"
+                                 f", {dev.hbm_stats()['cached_batches']} "
+                                 f"batches cached")
+        answers("fault_q6 (after the fetch failure)", *run())
+        if dev.batch_misses - miss != 1:
+            raise AssertionError("fetch: the next query did not rebuild")
+        out["fetch"] = {"launch_failures": dev.launch_failures,
+                        "refusal": msg}
+    finally:
+        faults.clear()
+    out["promotion"] = promotion_fault(eng)
+    log(f"fault phase: {json.dumps(out)}")
+    return out
+
+
+def promotion_fault(eng) -> dict:
+    """A consuming table of its own fed PROMO_ROWS rows from the memory
+    stream's fetch: the first PROMO_FAILS promotions fail, ingestion goes
+    on and every answer equals the oracle; the next promotion catches the
+    frozen prefix up."""
+    from pinot_tpu_torch.common import faults
+    from pinot_tpu_torch.common.table_config import (
+        ChunkletConfig,
+        StreamConfig,
+        TableConfig,
+        TableType,
+    )
+    from pinot_tpu_torch.realtime.manager import llc_segment_name
+    from pinot_tpu_torch.storage.mutable import MutableSegment
+    from pinot_tpu_torch.stream.spi import StreamPartitionMsgOffset
+
+    d = rt_generate(PROMO_ROWS, PROMO_SEED)
+    stream = RowStream(records(d, 0, PROMO_ROWS))
+    cfg = TableConfig(
+        table_name=PROMO_TABLE, table_type=TableType.REALTIME,
+        stream=StreamConfig(stream_type="memory", topic=PROMO_TABLE,
+                            segment_flush_threshold_rows=RT_ROWS),
+        chunklets=ChunkletConfig(enabled=True, rows_per_chunklet=RT_CHUNKLET,
+                                 device_min_rows=RT_DEVICE_MIN))
+    seg = MutableSegment(lo_schema(PROMO_TABLE),
+                         llc_segment_name(PROMO_TABLE, 0, 0, "0"), cfg)
+    eng.add_segment(PROMO_TABLE, seg)
+
+    def check(n):
+        rev, year = d["lo_revenue"][:n].astype(np.int64), d["d_year"][:n]
+        q = d["lo_quantity"][:n]
+        want = {"promo_count_sum": [[n, float(rev.sum())]],
+                "promo_year": [[int(y), int((year == y).sum()),
+                                float(q[year == y].max())]
+                               for y in np.unique(year)]}
+        for name, sql in PROMO_QUERIES.items():
+            resp = eng.execute(sql)
+            if resp["exceptions"] or not rows_equal(
+                    resp["resultTable"]["rows"], want[name]) \
+                    or resp["numDocsScanned"] != n:
+                raise AssertionError(f"{name} at {n} rows: {resp}")
+
+    f = faults.install(faults.Fault(point="chunklet.promote",
+                                    times=PROMO_FAILS))
+    try:
+        first = PROMO_FAILS * RT_FETCH
+        offset = rt_consume(seg, stream, StreamPartitionMsgOffset(0), first)
+        if f.fired != PROMO_FAILS or seg.chunklet_index.chunklets:
+            raise AssertionError(f"promotion: fired {f.fired}, "
+                                 f"{len(seg.chunklet_index.chunklets)} "
+                                 f"chunklets")
+        check(first)
+        rt_consume(seg, stream, offset, PROMO_ROWS)
+    finally:
+        faults.clear()
+    chunklets = len(seg.chunklet_index.chunklets)
+    if chunklets != PROMO_ROWS // RT_CHUNKLET:
+        raise AssertionError(f"promotion: {chunklets} chunklets after the "
+                             f"faults cleared")
+    check(PROMO_ROWS)
+    return {"failed_promotions": PROMO_FAILS, "rows": PROMO_ROWS,
+            "chunklets": chunklets}
+
+
+def scheduler_phase(engine, want: dict) -> dict:
+    """Two tenants on threads through a TokenBucketScheduler over the
+    card's engine: every answer equals the oracle; each tenant's p50."""
+    import threading
+
+    from pinot_tpu_torch.engine.scheduler import TokenBucketScheduler
+
+    sched = TokenBucketScheduler(max_concurrent=2, max_queued=64,
+                                 rate_ms_per_s=500.0, burst_ms=1000.0)
+    lat = {t: [] for t in SCHED_TENANTS}
+    errors = []
+    barrier = threading.Barrier(len(SCHED_TENANTS) * SCHED_THREADS)
+
+    def tenant(name, query, k):
+        try:
+            barrier.wait(60)
+            for j in range(SCHED_QUERIES):
+                i = k * SCHED_QUERIES + j
+                t = time.perf_counter()
+                resp = sched.run(lambda: engine.execute(adv_sql(query, i)),
+                                 group=name)
+                lat[name].append((time.perf_counter() - t) * 1e3)
+                if resp["exceptions"]:
+                    raise AssertionError(f"{query}[{i}]: "
+                                         f"{resp['exceptions']}")
+                adv_check(f"{name}: {query}[{i}]",
+                          resp["resultTable"]["rows"],
+                          resp["numDocsScanned"], want[(query, i)])
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=tenant, args=(name, q, k))
+               for name, q in SCHED_TENANTS.items()
+               for k in range(SCHED_THREADS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    if errors:
+        raise errors[0]
+    gs = sched.group_stats()
+    out = {name: {"p50_ms": float(np.percentile(lat[name], 50)),
+                  "executed": gs[name]["executed"]} for name in SCHED_TENANTS}
+    log(f"scheduler phase: {json.dumps(out)}")
+    return out
+
+
+def run_advisor(engine, bs_segs: list, want: dict, total: int,
+                runs: int) -> tuple:
+    """The advisor path: a fresh plan advisor on the engine, the advised
+    executions with the launch counts zeroed before and read after (K1
+    and K4 must launch), K4 held bit for bit at an advised execution's
+    captured inputs, the p50s, then the fault and scheduler phases; the
+    advisor is off again after. Returns (summary, launches, K4's check)."""
+    from pinot_tpu_torch.engine.advisor import PlanAdvisor
+
+    engine.device.advisor = PlanAdvisor()
+    try:
+        ctx = engine.device.batch_for(bs_segs)
+        n_blocks = ctx.S * (ctx.pad_to // 4096)
+        tables = launch_tables()
+        for table in tables.values():
+            for key in table:
+                table[key] = 0
+        drive = adv_drive(engine, want, total, n_blocks)
+        counts = {k: dict(v) for k, v in tables.items()}
+        log(f"advisor path launches: {json.dumps(counts)}")
+        for name in ("group_plane_sums", "fused_filter_agg"):
+            if counts["kernels"][name] <= 0:
+                raise AssertionError(f"kernel {name} never launched on the "
+                                     f"advisor path")
+        frac = drive["adv_day"]["fraction"]
+        args = capture_fused(engine, adv_sql("adv_day", ADV_RUNS))
+        if args[0].shape[0] != min(n_blocks, -(-n_blocks // frac)):
+            raise AssertionError(f"adv_day: K4 captured at B = "
+                                 f"{args[0].shape[0]}, not the advised 1/"
+                                 f"{frac} of {n_blocks} blocks")
+        k4 = check_k4(f"the advisor path's adv_day at the advised 1/{frac}",
+                      *args)
+        p50 = adv_p50(engine, runs)
+        scheduler = scheduler_phase(engine, want)
+        snapshot = engine.device.advisor.snapshot()
+    finally:
+        engine.device.advisor = None
+    fault = fault_phase(bs_segs, want)
+    summary = {"drive": {k: {kk: v[kk] for kk in ("stamps", "k4_B",
+                                                   "syncs", "fetched")}
+                         for k, v in drive.items()},
+               "p50": p50, "scheduler": scheduler, "faults": fault,
+               "advisor": {k: snapshot[k] for k in ("memos", "observations",
+                                                     "decisions",
+                                                     "overrides")}}
+    return summary, counts["kernels"], k4
+
+
 # every path, in the order a run takes them (``--paths`` selects some);
-# the serving path and the mesh path run after the others
-ALL_PATHS = [p for p in PATHS if p != "mesh"] + ["serving", "mesh"]
-# the tables each path reads beyond lineorder, which every run writes
+# the serving, advisor and mesh paths run after the others
+ALL_PATHS = [p for p in PATHS if p != "mesh"] + ["serving", "advisor", "mesh"]
+# the tables each path reads: lineorder ("lo") and the others
 PATH_TABLES = {
-    "ssb": set(), "hll": set(), "startree": set(), "sketch": set(),
-    "blockskip": {"bs"}, "selection": {"bs"}, "highcard": {"pairs"},
-    "mv": {"mv"}, "index": {"events"}, "values": {"v2", "mv"},
-    "tail": {"trips"}, "realtime": {"rt", "up"},
-    "multistage": {"rt", "dims", "mv"}, "serving": {"bs"},
-    "mesh": {"bs", "rt", "dims"},
+    "ssb": {"lo"}, "hll": {"lo"}, "startree": {"lo"}, "sketch": {"lo"},
+    "blockskip": {"lo", "bs"}, "selection": {"lo", "bs"},
+    "highcard": {"lo", "pairs"}, "mv": {"lo", "mv"},
+    "index": {"lo", "events"}, "values": {"lo", "v2", "mv"},
+    "tail": {"lo", "trips"}, "realtime": {"lo", "rt", "up"},
+    "multistage": {"lo", "rt", "dims", "mv"}, "serving": {"lo", "bs"},
+    "advisor": {"bs"}, "mesh": {"lo", "bs", "rt", "dims"},
 }
 
 
@@ -5713,7 +6335,9 @@ def mesh_engine_for(engine, mesh):
     from pinot_tpu_torch.engine.engine import QueryEngine
 
     eng = QueryEngine(device_executor=DeviceExecutor(mesh=mesh))
+    # as the single engine: every shard launches the forms it counts
     eng.device.partials_cache_enabled = False
+    eng.device.advisor = None
     for table in ("lineorder", BS_TABLE, RT_TABLE, "customer", "supplier",
                   "dates"):
         for seg in table_segs(engine, table):
@@ -6615,7 +7239,7 @@ def main(argv=None) -> int:
         pending_dims = pool.starmap_async(write_ms_dim, list(dims.items()))
         pending = pool.starmap_async(
             write_segment, [(i, seg, "lineorder", True) for i, seg in
-                            enumerate(data)])
+                            enumerate(data if "lo" in need else [])])
         t = time.perf_counter()
         bs_data = sort_by_date(data) if "bs" in need else []
         log(f"sort by lo_orderdate: {time.perf_counter() - t:.2f} s")
@@ -6658,8 +7282,10 @@ def main(argv=None) -> int:
 
         # the oracle runs here, beside the writes
         t = time.perf_counter()
-        want = oracle(data)
-        want.update(st_oracle(data, want))
+        want = {}
+        if "lo" in need:
+            want = oracle(data)
+            want.update(st_oracle(data, want))
         for path, fn in (
                 ("blockskip", lambda: bs_oracle(bs_data, pad)),
                 ("selection", lambda: sel_oracle(data, bs_data)),
@@ -6672,7 +7298,8 @@ def main(argv=None) -> int:
                 ("realtime", lambda: rt_oracle(data, rt, args.rt_rows)),
                 ("realtime", lambda: up_oracle(up, False)),
                 ("multistage", lambda: ms_oracle(data, dims, rt,
-                                                 args.rt_rows, mv))):
+                                                 args.rt_rows, mv)),
+                ("advisor", lambda: adv_oracle(bs_data))):
             if path in sel:
                 want.update(fn())
         if "serving" in sel and "blockskip" not in sel:
@@ -6681,7 +7308,8 @@ def main(argv=None) -> int:
             QUERY_LAUNCHES.update(ms_launches(want, PALLAS_MIN_ROWS))
         oracle_s = time.perf_counter() - t
 
-        dirs, cube_s = zip(*pending.get())
+        written = pending.get()
+        dirs, cube_s = zip(*written) if written else ((), ())
         bs_dirs = [d for d, _s in pending_bs.get()]
         pairs_done = pending_pairs.get()
         pair_dirs, pair_s = zip(*pairs_done) if pairs_done else ((), ())
@@ -6696,7 +7324,8 @@ def main(argv=None) -> int:
         log(f"write segments (port creator, {workers} processes, seven "
             f"tables): {time.perf_counter() - t_write:.2f} s, of which the "
             f"two star-tree cubes of lineorder took {sum(cube_s):.2f} s "
-            f"summed over its {S} segments (at most {max(cube_s):.2f} s "
+            f"summed over its {len(cube_s)} segments (at most "
+            f"{max(cube_s, default=0.0):.2f} s "
             f"for one), the digest, bitmap and decimal cube of "
             f"{PAIRS_TABLE} {sum(pair_s):.2f} s over its "
             f"{len(pair_s)} segments")
@@ -6723,8 +7352,11 @@ def main(argv=None) -> int:
     bs_segs = [ImmutableSegment(d) for d in bs_dirs]
     engine = QueryEngine(device="cuda")
     # the paths time repeated executions: the partials cache would serve
-    # them (the serving path turns it on for serve_partials)
+    # them (the serving path turns it on for serve_partials), and the plan
+    # advisor would change the forms whose launches they count (the
+    # advisor path turns it on)
     engine.device.partials_cache_enabled = False
+    engine.device.advisor = None
     for s in segs:
         engine.add_segment("lineorder", s)
     for s in bs_segs:
@@ -6780,13 +7412,16 @@ def main(argv=None) -> int:
             f"({args.up_rows / up_s:.0f} rows/s); {up_docs} docs, {masked} "
             f"of the sealed ones masked")
     t = time.perf_counter()
-    ctx = engine.device.batch_for(segs)
-    for c in ("d_year", "c_region", "s_nation", "lo_suppkey",
-              "lo_orderdate", "lo_discount", "lo_quantity"):
-        ctx.column(c)
-    for c in ("lo_quantity", "lo_revenue"):
-        ctx.decoded_column(c)
-    ctx.prehashed_column("lo_custkey")
+    ctx, lo_bytes = None, 0
+    if segs:
+        ctx = engine.device.batch_for(segs)
+        for c in ("d_year", "c_region", "s_nation", "lo_suppkey",
+                  "lo_orderdate", "lo_discount", "lo_quantity"):
+            ctx.column(c)
+        for c in ("lo_quantity", "lo_revenue"):
+            ctx.decoded_column(c)
+        ctx.prehashed_column("lo_custkey")
+        lo_bytes = ctx.resident_bytes
     bs_bytes = 0
     if bs_segs:
         bs_ctx = engine.device.batch_for(bs_segs)
@@ -6796,7 +7431,7 @@ def main(argv=None) -> int:
             bs_ctx.decoded_column(c)
         bs_bytes = bs_ctx.resident_bytes
     torch.cuda.synchronize()
-    log(f"upload (global dictionaries, zone maps + {ctx.resident_bytes} "
+    log(f"upload (global dictionaries, zone maps + {lo_bytes} "
         f"+ {bs_bytes} device bytes): {time.perf_counter() - t:.2f} s")
 
     if "blockskip" in sel:
@@ -6926,6 +7561,15 @@ def main(argv=None) -> int:
         serving, member_records, member_launches = run_serving(
             engine, want, {"lineorder": total, BS_TABLE: total}, card)
         log(f"serving path: {time.perf_counter() - t:.2f} s")
+    advisor = None
+    if "advisor" in sel:
+        t = time.perf_counter()
+        advisor, counts, adv_k4 = run_advisor(engine, bs_segs, want, total,
+                                              args.runs)
+        for name, count in counts.items():
+            launches[name] += count
+        k4["sizes"].append(adv_k4)
+        log(f"advisor path: {time.perf_counter() - t:.2f} s")
     if "mesh" in sel:
         t = time.perf_counter()
         mesh, counts = run_mesh(engine, args.runs, args.profile)
@@ -6974,6 +7618,7 @@ def main(argv=None) -> int:
                     "serving": serving,
                     "realtime": realtime,
                     "multistage": multistage,
+                    "advisor": advisor,
                     "mesh": mesh,
                     "trips_rows": path_rows["tail"],
                     "trips_resident_bytes": {"subbyte": sub_bytes,

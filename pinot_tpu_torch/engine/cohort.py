@@ -314,7 +314,7 @@ def run(template, widths, min_rows: int, blockskip: bool, cols, n_docs,
         verdict = verdict & (block_start[None, :] < nd64[:, None])[None] \
             & alive[:, :, None]
         flat = verdict.reshape(M, -1)
-        bound = bs_ops.cand_bound(S * NB)
+        bound = bs_ops.cand_bound(S * NB, blockskip)
         n_cand = flat.sum(dim=1, dtype=torch.int64)
         # the reference picks the form per member on the device; here the
         # members' candidate counts come to the host in one copy

@@ -38,6 +38,14 @@ reference branches on the device (``lax.cond``), the port reads the
 candidate count to the host, one scalar sync, and runs the dense form
 when it overflows the bound.
 
+The plan advisor (engine/advisor.py) keys each launch by its literal-free
+template (broker/querylog.py ``template_key``) unless ``SET
+useAdvisor = false``: a template measured unselective runs the dense form
+outright (no verdict, no compaction, no sync), one measured selective
+takes a tighter candidate bound (1/32 or 1/64 of the blocks), the trim
+shrinks toward the observed group count and the cohort window follows the
+observed cohort sizes. Every advised form answers exactly as the default.
+
 HLLMERGE re-merges a star-tree cube's register planes (a fixed-width
 BYTES dict column, uploaded as an (S, L, m) uint8 plane) by a
 scatter-max, as the reference leaves it to XLA. A launch that is the sole
@@ -68,8 +76,18 @@ the fetch does too, on a count the launch made: a sorted table holding
 more groups than K, or a trimmed table more present groups than
 numGroupsLimit keeps; the query then runs again in the host path's
 shape on the card, whose per-segment numGroupsLimit the reference's
-host applies. There is no fallback ladder: a device or kernel error
-propagates to the caller.
+host applies.
+
+Device-error recovery is the reference's ladder without its host steps: a
+launch that fails on a device runtime error (an out-of-memory, an
+injected ``device.launch`` fault) evicts its batch and retries once on
+the card; every failure counts a strike against (template, batch), and
+``QUARANTINE_AFTER`` strikes quarantine the pair for
+``QUARANTINE_TTL_S`` (then one half-open probe). A quarantined pair, a
+failed retry and a failed fetch are refused in-band
+(``DeviceUnsupported``): nothing falls back to a plain version or to the
+CPU. A sticky CUDA error (an illegal address) leaves the context
+unusable, so it counts its strike and is refused at once, unretried.
 
 ``launch`` returns an ``InflightLaunch`` (engine/inflight.py): the
 pipeline's ops and kernels and ONE copy of the packed leaves into pinned
@@ -111,6 +129,7 @@ alone on the device its directory hashes to.
 from __future__ import annotations
 
 import hashlib
+import logging
 import math
 import os
 import threading
@@ -121,10 +140,13 @@ import numpy as np
 import torch
 
 from pinot_tpu_torch import resolve_device
+from pinot_tpu_torch.broker.querylog import template_key
+from pinot_tpu_torch.common import faults
 from pinot_tpu_torch.common.metrics import get_metrics
 from pinot_tpu_torch.common.options import bool_option
 from pinot_tpu_torch.common.trace import span
 from pinot_tpu_torch.engine import aggspec, cohort, rows
+from pinot_tpu_torch.engine.advisor import PlanAdvisor, advisor_enabled
 from pinot_tpu_torch.engine.inflight import InflightLaunch, LaunchCoalescer
 from pinot_tpu_torch.engine.params import (
     BatchContext,
@@ -174,6 +196,25 @@ MAX_DENSE_GROUPS = 1 << 22        # ARRAY_BASED regime guard (~4M groups)
 # a table that overflows K answers in the host path's shape
 MAX_SORTED_GROUPS = 1 << 17
 MAX_PRESENCE_CELLS = 1 << 24      # per-group distinct/HLL state guard
+
+log = logging.getLogger("pinot_tpu_torch.engine.device")
+
+
+def _is_device_runtime_error(e) -> bool:
+    """Whether ``e`` is a failure of the device runtime (counted by the
+    recovery ladder) rather than a template or user error: the fault
+    harness's simulated error, a CUDA out-of-memory, or any other error
+    the CUDA runtime raised."""
+    return isinstance(e, (faults.InjectedDeviceError,
+                          torch.cuda.OutOfMemoryError, torch.AcceleratorError))
+
+
+def _is_retryable(e) -> bool:
+    """Whether a retry in this process can succeed: an out-of-memory or an
+    injected fault. Any other CUDA error is sticky (the context is
+    unusable until the process ends), so it is not retried."""
+    return isinstance(e, (faults.InjectedDeviceError,
+                          torch.cuda.OutOfMemoryError))
 
 
 def segment_device_eligible(seg) -> bool:
@@ -696,7 +737,7 @@ def plan_fused(template, widths, blockskip: bool):
 
 
 def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS,
-                   blockskip: bool = False):
+                   blockskip=False):
     """template → fn(cols, n_docs, params) → outputs dict of tensors.
 
     ``widths``: the batch's column width plan {cols key: ColPlan.sig()}.
@@ -705,7 +746,9 @@ def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS,
     tests pass 0 to reach the kernels' plain versions, as the reference's
     interpret mode ignores its gate). ``blockskip``: the filter's zone
     maps ride in ``cols`` (``zlo::`` / ``zhi::`` keys) and the pipeline
-    takes the block-skip forms while the candidates fit the bound.
+    takes the block-skip forms while the candidates fit the bound: True
+    for ``ceil(blocks / CAND_FRACTION)``, an int > 1 for the plan
+    advisor's tighter fraction (ops/blockskip.py ``cand_bound``).
 
     Every form emits the same stat leaves (``_stat_outs``) and agrees
     with the dense form exactly."""
@@ -776,7 +819,7 @@ def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS,
         verdict = verdict & (block_start[None, :] < nd64[:, None]) \
             & alive_b[:, None]
         flat = verdict.reshape(-1)
-        B = bs_ops.cand_bound(S * NB)
+        B = bs_ops.cand_bound(S * NB, blockskip)
         n_cand = flat.sum(dtype=torch.int64)
         # the reference picks the form on the device (lax.cond); eager
         # torch reads the candidate count to the host: one scalar sync
@@ -1243,6 +1286,19 @@ class DeviceExecutor:
         # LOOKUP's dimension tables: (table, value column, pk column) ->
         # (pk -> value map, miss default); the engine sets its own
         self.lookup_resolver = None
+        # device-error recovery: strikes per (template, batch), the pairs
+        # the breaker quarantined (-> when), batches a fetch failure
+        # poisoned while other launches still pinned them
+        self.launch_failures = 0
+        self._pipeline_failures: dict = {}
+        self._quarantined: dict = {}
+        self._poisoned_batches: set = set()
+        # feedback-driven plan advisor (engine/advisor.py): per-template
+        # memos of measured skip selectivity, group counts and cohort
+        # sizes feed the next launch's block-skip form, candidate bound,
+        # trim and cohort window. None disables it process-wide
+        # (pinot.advisor.enabled = false); SET useAdvisor = false per query
+        self.advisor = PlanAdvisor.from_config()
         _EXECUTORS.add(self)
 
     @staticmethod
@@ -1304,7 +1360,120 @@ class DeviceExecutor:
             else:
                 self._inflight_launches.pop(key, None)
             self.inflight -= 1
+            # a fetch failure poisoned this batch: evict it once its last
+            # pin drains, so the next query uploads fresh planes
+            if key in self._poisoned_batches \
+                    and key not in self._inflight_launches:
+                self._poisoned_batches.discard(key)
+                if self._batches.pop(key, None) is not None:
+                    self.batch_evictions += 1
+                self._drop_partials_for_batch(key)
             self._evict(keep=key)
+
+    # ---- device-error recovery (launch / fetch failures) -----------------
+    QUARANTINE_AFTER = 2       # failures of one (template, batch) → refuse
+    QUARANTINE_TTL_S = 300.0   # then probe the device again (half-open)
+    MAX_FAILURE_KEYS = 1024    # strike-map bound (diverse workloads)
+
+    def _record_device_failure(self, template, batch_key) -> bool:
+        """Count a device runtime failure against (template, batch) and
+        trip the breaker past QUARANTINE_AFTER. Returns True when the pair
+        is now quarantined."""
+        with self._lock:
+            self.launch_failures += 1
+            key = (template, batch_key)
+            if key not in self._pipeline_failures and \
+                    len(self._pipeline_failures) >= self.MAX_FAILURE_KEYS:
+                self._pipeline_failures.pop(
+                    next(iter(self._pipeline_failures)))
+            n = self._pipeline_failures.get(key, 0) + 1
+            self._pipeline_failures[key] = n
+            if n >= self.QUARANTINE_AFTER:
+                self._quarantined[key] = time.monotonic()
+            return key in self._quarantined
+
+    def _note_device_success(self, template, batch_key) -> None:
+        """A successful fetch clears the pair's strikes."""
+        with self._lock:
+            self._pipeline_failures.pop((template, batch_key), None)
+
+    def _is_quarantined(self, template, batch_key) -> bool:
+        with self._lock:
+            key = (template, batch_key)
+            ts = self._quarantined.get(key)
+            if ts is None:
+                return False
+            if time.monotonic() - ts >= self.QUARANTINE_TTL_S:
+                # half-open: the next launch probes the card with a fresh
+                # strike count; two more failures quarantine it again
+                self._quarantined.pop(key, None)
+                self._pipeline_failures.pop(key, None)
+                return False
+            return True
+
+    def reset_quarantine(self) -> None:
+        """Operational reset (tests / admin): forget the failure history."""
+        with self._lock:
+            self._pipeline_failures.clear()
+            self._quarantined.clear()
+
+    def _evict_batch(self, key) -> bool:
+        """Drop a batch after a device failure so a retry uploads fresh
+        planes, its cached partials with it. A batch another launch still
+        pins is evicted when its last pin drops (``_release_launch``)."""
+        with self._lock:
+            if key in self._inflight_launches:
+                self._poisoned_batches.add(key)
+                return False
+            dropped = self._batches.pop(key, None) is not None
+            if dropped:
+                self.batch_evictions += 1
+            self._drop_partials_for_batch(key)
+            return dropped
+
+    def on_fetch_device_error(self, e, template, batch_key) -> None:
+        """``InflightLaunch.fetch``'s error hook: a device runtime failure
+        on the wait counts a strike, evicts the batch and is refused
+        in-band (a dispatched launch cannot be launched again; the next
+        query rebuilds the batch). Other errors return, and the caller
+        raises them as they are."""
+        if not _is_device_runtime_error(e):
+            return
+        # a cohort raises ONE shared exception in every member: the
+        # failure counts once, or one transient fault on a cohort of two
+        # would trip the two-strike breaker at once
+        if not getattr(e, "_pinot_failure_counted", False):
+            try:
+                e._pinot_failure_counted = True
+            except Exception:  # noqa: BLE001 — slotted exceptions
+                pass
+            quarantined = False
+            if template is not None:
+                quarantined = self._record_device_failure(template,
+                                                          batch_key)
+            else:
+                with self._lock:
+                    self.launch_failures += 1
+            self._evict_batch(batch_key)
+            log.warning("device fetch failed (%s: %s); batch evicted%s",
+                        type(e).__name__, e,
+                        ", pipeline quarantined" if quarantined else "")
+        raise DeviceUnsupported(
+            f"device fetch failed ({type(e).__name__}: {e}); the batch was "
+            "evicted and the query refused") from e
+
+    @staticmethod
+    def _fault_target(q) -> str:
+        """The label a ``device.launch`` fault's target matches: table,
+        aggregations with their column and group keys (a chaos test
+        poisons one template while the others run)."""
+        bits = [q.table_name or ""]
+        for a in (q.aggregations() or ()):
+            arg = a.args[0].name if a.args and a.args[0].is_identifier \
+                else ""
+            bits.append(f"{a.name}({arg})")
+        bits.extend(g.name for g in (q.group_by or ()) if g.is_identifier)
+        return ":".join(bits)
 
     # ---- device partials cache -------------------------------------------
     def _partials_get(self, key):
@@ -1358,7 +1527,7 @@ class DeviceExecutor:
                 self._partials_drop_locked(k, invalidation=True)
 
     def hbm_stats(self) -> dict:
-        """Batch-LRU, partials-cache and roofline snapshot."""
+        """Batch-LRU, partials-cache, recovery and roofline snapshot."""
         with self._lock:
             snap = {
                 "batch_hits": self.batch_hits,
@@ -1372,6 +1541,10 @@ class DeviceExecutor:
                 "partials_cache_invalidations": self.partials_invalidations,
                 "device_reduce_queries": self.device_reduce_queries,
                 "inflight": self.inflight,
+                # device-error recovery: runtime failures at launch and
+                # fetch, and the (template, batch) pairs quarantined
+                "device_failures": self.launch_failures,
+                "quarantined_pipelines": len(self._quarantined),
             }
             batches = list(self._batches.values())
         snap["cached_batches"] = len(batches)
@@ -1387,10 +1560,13 @@ class DeviceExecutor:
         """The per-pipeline label the roofline aggregates key on: the
         template shape and the forms. ``+cuda`` marks a launch whose
         pipeline reaches the port's kernels, where the reference marks its
-        Pallas tier ``+pallas``."""
+        Pallas tier ``+pallas``; an advised candidate bound shows as
+        ``+bskip/<fraction>``."""
         label = template[0]
         if blockskip:
             label += "+bskip"
+            if blockskip is not True and int(blockskip) > 1:
+                label += f"/{int(blockskip)}"
         if fused:
             label += "+fused"
         if kernels_used:
@@ -1416,11 +1592,13 @@ class DeviceExecutor:
 
         cache_hit = bool(flight.get("cache_hit"))
         ratio = 1.0
+        skip_obs = None  # the measured selectivity (block-skip forms only)
         bt, bs = outs.get("blocks_total"), outs.get("blocks_scanned")
         if bt is not None and bs is not None:
             total_b = float(np.sum(np.asarray(bt)))
             if total_b > 0:
                 ratio = min(1.0, float(np.sum(np.asarray(bs))) / total_b)
+                skip_obs = ratio
         gather_bytes = 0
         if ratio < 1.0 and not flight.get("fused"):
             gather_bytes = int(2 * flight["data_bytes"] * ratio)
@@ -1457,6 +1635,12 @@ class DeviceExecutor:
                 agg["kernel_ms"] += kernel_ms
         if gbps is not None:
             self.metrics.observe("deviceKernelGbps", gbps)
+        # plan advisor: the measured skip ratio (an overflow ran the dense
+        # form with every block scanned: ratio 1.0) and the label's GB/s
+        adv_key = flight.get("adv_key")
+        if adv_key and self.advisor is not None and not cache_hit:
+            self.advisor.observe(adv_key, skip_ratio=skip_obs,
+                                 label=flight["label"], gbps=gbps)
 
     def roofline_stats(self) -> dict:
         """Per-label roofline snapshot against the probed peak (None until
@@ -1489,6 +1673,8 @@ class DeviceExecutor:
         member's leaves as views of the one host copy. Returns the list
         of member leaves (one entry for a solo launch)."""
         def resolve():
+            if faults.ACTIVE:
+                faults.inject("device.fetch")
             t0 = time.perf_counter()
             with span("kernel", tracer):
                 tr.wait_kernel()
@@ -1763,13 +1949,39 @@ class DeviceExecutor:
                 "a consuming or upsert-masked segment launches alone, in the "
                 "host path's shape (the engine splits it from the batch)")
         batch_key = self._batch_key(segments)
-        ctx = self.batch_for(segments, retain=True)
-        try:
-            handle = self._launch_pinned(q, ctx, batch_key, segments, final,
-                                         reduce_mode, alive, tracer, host)
-        except BaseException:
-            self._release_launch(batch_key)
-            raise
+        # the recovery ladder: a device runtime error evicts the batch and
+        # retries once on the card; the retry's failure, a quarantined
+        # pair and a sticky CUDA error are refused in-band
+        for attempt in range(2):
+            ctx = self.batch_for(segments, retain=True)
+            tpl_box: list = []
+            try:
+                handle = self._launch_pinned(q, ctx, batch_key, segments,
+                                             final, reduce_mode, alive,
+                                             tracer, host, tpl_box)
+                break
+            except BaseException as e:
+                self._release_launch(batch_key)
+                if not _is_device_runtime_error(e):
+                    raise
+                quarantined = False
+                if tpl_box:
+                    quarantined = self._record_device_failure(tpl_box[0],
+                                                              batch_key)
+                else:
+                    with self._lock:
+                        self.launch_failures += 1
+                self._evict_batch(batch_key)
+                if attempt == 0 and not quarantined and _is_retryable(e):
+                    log.warning("device launch failed (%s: %s); batch "
+                                "evicted, retrying once on the device",
+                                type(e).__name__, e)
+                    continue
+                raise DeviceUnsupported(
+                    f"device launch failed ({type(e).__name__}: {e})"
+                    + ("; pipeline quarantined" if quarantined else "")
+                    + ("" if _is_retryable(e) else
+                       "; a sticky CUDA error is not retried")) from e
         handle.tracer = tracer
         self.metrics.time_ms("deviceLaunchMs",
                              (time.perf_counter() - t_launch) * 1e3)
@@ -1884,7 +2096,11 @@ class DeviceExecutor:
         return to_device(plane, ctx.device)
 
     def _launch_pinned(self, q, ctx, batch_key, segments, final, reduce_mode,
-                       alive, tracer, host=False) -> InflightLaunch:
+                       alive, tracer, host=False,
+                       tpl_box=None) -> InflightLaunch:
+        """``launch``'s body under the batch pin. ``tpl_box`` receives the
+        template once it is built, so the recovery ladder counts a device
+        failure against (template, batch)."""
         alive = self.alive_mask(q, segments, alive)
         if host or self.host_shape(q, ctx):
             # the reference answers this shape on its host: the card runs
@@ -1903,6 +2119,23 @@ class DeviceExecutor:
         params: dict = {"__hostsig__": []} if cacheable else {}
         counter = [0]
         template = self._template(q, ctx, params, counter, final)
+        if tpl_box is not None:
+            tpl_box.append(template)
+        if self._is_quarantined(template, batch_key):
+            # the breaker: this (template, batch) failed on the device
+            # QUARANTINE_AFTER times; every other template keeps running
+            raise DeviceUnsupported(
+                "pipeline quarantined after repeated device failures: "
+                "this (template, batch) is refused for "
+                f"{self.QUARANTINE_TTL_S:g} s or until reset_quarantine()")
+        if faults.ACTIVE:
+            faults.inject("device.launch", target=self._fault_target(q))
+        # plan advisor: keyed by the literal-free template key; SET
+        # useAdvisor = false bypasses the reads and the writes, so such a
+        # query leaves no trace in the memos
+        adv_key, adv_notes = None, []
+        if self.advisor is not None and advisor_enabled(opts):
+            adv_key = template_key(q)
         host_sigs = params.pop("__hostsig__", None)
         shape, filter_tpl, group_cols, group_cards, agg_tpls, sorted_k, \
             final_tpl = template
@@ -1918,6 +2151,21 @@ class DeviceExecutor:
                 and ctx.pad_to % bs_ops.BLOCK_ROWS == 0:
             prunable, zone_cols = bs_ops.prunable_columns(filter_tpl)
             use_bs = prunable and bool(zone_cols)
+        # advisor: the template's measured selectivity picks the form. 0
+        # runs the dense form (no verdict, no compaction, no count read),
+        # 32 or 64 a tighter candidate bound (``use_bs`` carries the
+        # fraction; the cache key, the cohort key and the label tell the
+        # bounds apart). Both agree with the default form exactly, and an
+        # overflow of a tight bound still runs the dense form
+        if use_bs and adv_key is not None:
+            frac, note = self.advisor.advise_blockskip(
+                adv_key, bs_ops.CAND_FRACTION)
+            if frac == 0:
+                use_bs, zone_cols = False, set()
+            elif frac != bs_ops.CAND_FRACTION:
+                use_bs = frac
+            if note:
+                adv_notes.append(note)
         # Level 1: a per-query vector param, pruned segments stay in the
         # batch
         params["ps_alive"] = to_device(alive, ctx.device)
@@ -1925,17 +2173,28 @@ class DeviceExecutor:
         # on-device final reduce (ops/device_reduce.py): plan the ORDER BY
         # trim when this batch is the sole partial of its execution; the
         # exact keep count rides as the tr_k param
-        trim, tr_k = None, None
+        trim, tr_k, adv_trim_keep = None, None, None
         if reduce_mode is not None and group_cols:
+            # advisor: group_trim_size tightened toward the template's
+            # observed group count, with headroom (trim_keep_count still
+            # floors the keep at 5 x (offset + limit)); an observed count
+            # past the advised keep stands the advice down
+            gts = self.group_trim_size
+            if adv_key is not None:
+                gts2, note = self.advisor.advise_trim(adv_key, gts)
+                if note:
+                    gts = gts2
+                    adv_notes.append(note)
             trim = dr_ops.plan_trim(
                 q, q.group_by, aggs,
                 sorted_k if shape == "groupby_sorted" else num_groups,
-                reduce_mode, self.group_trim_size)
+                reduce_mode, gts)
             if trim is not None:
-                tr_k = dr_ops.trim_keep_count(q, reduce_mode,
-                                              self.group_trim_size)
+                tr_k = dr_ops.trim_keep_count(q, reduce_mode, gts)
                 params["tr_k"] = torch.tensor(tr_k, dtype=torch.int64,
                                               device=ctx.device)
+                if adv_key is not None:
+                    adv_trim_keep = int(tr_k)
 
         # SET useSortedProjection = false keeps the per-query sort (the
         # cold form); by default a filterless terminal HLL group-by reads
@@ -1958,9 +2217,20 @@ class DeviceExecutor:
         if not needed:  # COUNT(*) no filter: one column carries the shape
             needed.add(segments[0].column_names()[0])
 
+        # what the fetch feeds back to the advisor (a cache hit replays an
+        # earlier execution and observes no group count)
+        adv = {"key": adv_key, "trim_keep": adv_trim_keep, "hit": False}
+
         def finish(host):
             return self._finish(q, ctx, template, host, final, reduce_mode,
-                                alive)
+                                alive, adv)
+
+        def handle_for(resolve, flight=None):
+            h = InflightLaunch(self, batch_key, resolve, finish)
+            h.template = template
+            h.flight = flight
+            h.adv_key, h.advisor_notes = adv_key, adv_notes
+            return h
 
         if not alive.any():
             # FULLY pruned: nothing runs on the card
@@ -1974,9 +2244,13 @@ class DeviceExecutor:
                 outs = dr_ops.apply_trim(outs, params["tr_k"].cpu(),
                                          template, trim)
             tr = _Transfer([outs])
-            return InflightLaunch(self, batch_key,
-                                  self._first(self._make_resolve(tr)),
-                                  finish)
+            # as the reference's: nothing ran, so nothing is observed
+            adv["key"] = None
+            handle = InflightLaunch(self, batch_key,
+                                    self._first(self._make_resolve(tr)),
+                                    finish)
+            handle.template = template
+            return handle
 
         # the partials cache: the key digests the literals' host bytes,
         # taken before upload, and the ps_alive verdicts, so no launch
@@ -1999,13 +2273,13 @@ class DeviceExecutor:
                     template, use_bs, trim, self._uses_kernels(template,
                                                                ctx)))
                 flight["cache_hit"] = True
+                flight["adv_key"] = adv_key
+                adv["hit"] = True
                 tr = _Transfer(None, packed=hit)
-                handle = InflightLaunch(
-                    self, batch_key,
+                handle = handle_for(
                     self._first(self._make_resolve(tr, tracer, flight)),
-                    finish)
+                    flight)
                 handle.cache_hit = True
-                handle.flight = flight
                 return handle
 
         with span("gather", tracer):
@@ -2023,6 +2297,7 @@ class DeviceExecutor:
         flight = self._new_flight(self._pipeline_label(
             template, use_bs, trim, self._uses_kernels(template, ctx),
             fused), fused=fused)
+        flight["adv_key"] = adv_key
         for cols_d in planes:
             for ck, cv in cols_d.items():
                 nb = cv.numel() * cv.element_size()
@@ -2036,10 +2311,9 @@ class DeviceExecutor:
                     and co.should_window(self.inflight):
                 resolve = self._join_cohort(template, batch_key, widths,
                                             use_bs, trim, cols, ctx, params,
-                                            tracer, flight)
-                handle = InflightLaunch(self, batch_key, resolve, finish)
-                handle.flight = flight
-                return handle
+                                            tracer, flight, adv_key,
+                                            adv_notes)
+                return handle_for(resolve, flight)
             with _KernelClock(ctx.device) as clock:
                 outs = self._run_solo(template, widths, use_bs, trim, cols,
                                       ctx, params)
@@ -2047,11 +2321,8 @@ class DeviceExecutor:
         if cache_key is not None:
             # cohort members never insert: their buffer is the cohort's
             self._partials_put(cache_key, (tr.dev, tr.layouts))
-        handle = InflightLaunch(
-            self, batch_key,
-            self._first(self._make_resolve(tr, tracer, flight)), finish)
-        handle.flight = flight
-        return handle
+        return handle_for(self._first(self._make_resolve(tr, tracer, flight)),
+                          flight)
 
     @staticmethod
     def _first(resolve):
@@ -2119,19 +2390,32 @@ class DeviceExecutor:
             members[j].get("tr_k")) for j in range(len(members))]
 
     def _join_cohort(self, template, batch_key, widths, use_bs, trim, cols,
-                     ctx, params, tracer, flight):
+                     ctx, params, tracer, flight, adv_key=None,
+                     adv_notes=None):
         """Join (or lead) the cohort of this launch's key: the same
         template over the same batch in the same forms, the same columns
         and the same parameter shapes and dtypes. The leader runs ONE
         member-axis launch for all (engine/cohort.py); its kernel is
-        attributed to its own trace and flight, once."""
+        attributed to its own trace and flight, once. The plan advisor
+        sizes the window from the template's observed cohort sizes, and
+        each dispatched cohort's size feeds its memo."""
         sig = tuple(sorted((k, tuple(v.shape), str(v.dtype))
                            for k, v in params.items()))
         ckey = (template, batch_key, use_bs, trim, self.min_rows,
                 tuple(sorted(cols if self.mesh is None else cols[0][2])),
                 sig)
 
+        window_s = None
+        if adv_key is not None:
+            w, note = self.advisor.advise_cohort_window(
+                adv_key, self.coalescer.window_s)
+            if note:
+                window_s = w
+                adv_notes.append(note)
+
         def launch_fn(members):
+            if adv_key is not None and self.advisor is not None:
+                self.advisor.observe(adv_key, cohort=len(members))
             with _KernelClock(ctx.device) as clock:
                 if self.mesh is not None:
                     outs_list = self._run_mesh(template, widths, use_bs,
@@ -2146,7 +2430,8 @@ class DeviceExecutor:
             tr = _Transfer(outs_list, clock.events, clock.seconds)
             return self._make_resolve(tr, tracer, flight)
 
-        c, idx = self.coalescer.join(ckey, params, launch_fn)
+        c, idx = self.coalescer.join(ckey, params, launch_fn,
+                                     window_s=window_s)
 
         def resolve():
             return c.resolve_member(idx)
@@ -2154,17 +2439,39 @@ class DeviceExecutor:
         resolve.abandon = c.note_abandoned
         return resolve
 
-    def _finish(self, q, ctx, template, host, final, reduce_mode, alive):
+    def _finish(self, q, ctx, template, host, final, reduce_mode, alive,
+                adv=None):
         """Host leaves → IntermediateResult, or ``HostShapeRerun`` where
         the reference leaves its device at fetch time (a sorted table
-        past K, a trimmed table past numGroupsLimit)."""
+        past K, a trimmed table past numGroupsLimit). ``adv``: the
+        launch's advisor state; a group-by's observed group count feeds
+        the template's memo where the reference's does, between the two
+        checks."""
         shape, sorted_k = template[0], template[5]
-        if (shape == "groupby_sorted"
-                and int(host["n_groups_total"]) > sorted_k) \
-                or ("n_present_total" in host and int(
-                    host["n_present_total"]) > self.groups_limit(q)):
+
+        def rerun():
             raise HostShapeRerun(lambda: self._rerun(q, ctx, final,
                                                      reduce_mode, alive))
+
+        if shape == "groupby_sorted" \
+                and int(host["n_groups_total"]) > sorted_k:
+            rerun()
+        if adv is not None and adv["key"] is not None \
+                and self.advisor is not None and not adv["hit"] \
+                and shape != "agg":
+            # a trimmed table reports its real present count, so an
+            # advised keep that proved too tight shows as an overflow
+            if "n_present_total" in host:
+                groups = int(host["n_present_total"])
+            elif shape == "groupby_sorted":
+                groups = int(host["n_groups_total"])
+            else:
+                groups = int((np.asarray(host["gcount"]) > 0).sum())
+            self.advisor.observe(adv["key"], groups=groups,
+                                 trim_keep=adv["trim_keep"])
+        if "n_present_total" in host \
+                and int(host["n_present_total"]) > self.groups_limit(q):
+            rerun()
         if "trim_keys" in host:
             with self._lock:
                 self.device_reduce_queries += 1

@@ -294,6 +294,10 @@ class QueryEngine:
         })
         if getattr(merged, "roofline", None):
             resp["roofline"] = merged.roofline
+        if stats.advisor_decisions:
+            # the plan advisor's stamps: every measurement-driven
+            # override this execution ran with
+            resp["advisorDecisions"] = list(stats.advisor_decisions)
         return resp
 
     def execute_query(self, q: QueryContext, tracer=None):

@@ -13,7 +13,7 @@ in its host path's shape (engine/rows.py).
 ``annotate_analyze`` renders EXPLAIN ANALYZE: the plan annotated with the
 executed response's actuals, then the ANALYZE subtree (rows, segments,
 the phase waterfall, one KERNEL line per roofline flight, the cache
-state), as the reference's. A flight's label names the port's kernels
+state, the ADVISOR lines), as the reference's. A flight's label names the port's kernels
 ``+cuda`` where the reference names its Pallas tier ``+pallas``.
 
 ``explain_multistage`` renders a two-stage (join / window) plan as the
@@ -219,6 +219,11 @@ def annotate_analyze(plan: dict, resp: dict) -> dict:
     out.append(
         f"    CACHE(partialsCacheHit={bool(resp.get('partialsCacheHit'))}, "
         f"resultCacheHit={bool(resp.get('resultCacheHit'))})")
+    # the plan advisor: one line per measurement-driven override this
+    # execution ran with, formatted at the decision site as
+    # ADVISOR(<decision>: measured=X default=Y)
+    for line in resp.get("advisorDecisions") or ():
+        out.append(f"    {line}")
     return _rows_response(out)
 
 

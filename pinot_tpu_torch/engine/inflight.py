@@ -17,7 +17,12 @@ on a leading member axis and run as ONE launch per kernel
 window opens only under pressure (another query in flight on the
 executor) or when ``force`` is set: an idle executor dispatches at once.
 
-The synchronization is host code, the reference's as it is.
+The synchronization is host code, the reference's as it is. A fetch that
+fails on a device runtime error goes through the executor's recovery
+(``DeviceExecutor.on_fetch_device_error``: a strike against the launch's
+template and batch, the batch evicted, an in-band refusal); a successful
+one clears the strikes and carries the plan advisor's decision stamps
+into the result's stats.
 """
 
 from __future__ import annotations
@@ -56,6 +61,13 @@ class InflightLaunch:
         # roofline flight dict, filled by the resolve with its record;
         # cohort members other than the leader carry an unfilled one
         self.flight = None
+        # the launch's device template (None for the host path's shape):
+        # the quarantine breaker counts fetch failures against it
+        self.template = None
+        # plan advisor (engine/advisor.py): the launch's template key
+        # (None when bypassed) and the ADVISOR(...) stamps it ran with
+        self.adv_key = None
+        self.advisor_notes = ()
 
     def fetch(self):
         """Blocking phase → IntermediateResult. Raises QueryTimeout when
@@ -75,13 +87,30 @@ class InflightLaunch:
                     # leaves fetch_done unset for the next stream window
                     self._note_abandoned()
                     raise
-            if self.tracer is not None:
-                with span("device_fetch", self.tracer):
+            try:
+                if self.tracer is not None:
+                    with span("device_fetch", self.tracer):
+                        outs = self._resolve()
+                else:
                     outs = self._resolve()
-            else:
-                outs = self._resolve()
+            except Exception as e:  # noqa: BLE001 — may convert in-band
+                # a device runtime error (an out-of-memory, an injected
+                # fault) counts toward the quarantine breaker and comes
+                # back as an in-band refusal; anything else re-raises
+                self._executor.on_fetch_device_error(
+                    e, self.template, self._batch_key)
+                raise
+            # success clears the breaker's strike count: it trips on
+            # failures close together, not on two transient ones far apart
+            self._executor._note_device_success(self.template,
+                                                self._batch_key)
             result = self._finish(outs)
             result.stats.partials_cache_hit = self.cache_hit
+            if self.advisor_notes:
+                result.stats.advisor_decisions.extend(self.advisor_notes)
+            advisor = getattr(self._executor, "advisor", None)
+            if self.adv_key is not None and advisor is not None:
+                advisor.observe(self.adv_key, partials_hit=self.cache_hit)
             rec = None if self.flight is None else self.flight.get("record")
             if rec is not None:
                 result.roofline = [rec]
@@ -225,14 +254,15 @@ class LaunchCoalescer:
             return True
         return executor_inflight > 1
 
-    def join(self, key, params, launch_fn):
+    def join(self, key, params, launch_fn, window_s=None):
         """Join (or open) the cohort for ``key`` → (cohort, member index).
 
         The FIRST arrival leads: it holds the window open for
-        ``self.window_s``, then closes the cohort and runs one stacked launch
-        built by ``launch_fn(members)``. Later arrivals append their
-        params and return at once; they block only in ``resolve_member``
-        (their fetch)."""
+        ``window_s`` (None: ``self.window_s``; the plan advisor sizes it
+        from the template's observed cohort sizes), then closes the
+        cohort and runs one stacked launch built by ``launch_fn(members)``.
+        Later arrivals append their params and return at once; they block
+        only in ``resolve_member`` (their fetch)."""
         with self._lock:
             c = self._pending.get(key)
             if c is not None and c.open:
@@ -261,7 +291,7 @@ class LaunchCoalescer:
                     break
                 c.full.wait(min(0.002, left))
         else:
-            c.full.wait(self.window_s)
+            c.full.wait(self.window_s if window_s is None else window_s)
         with self._lock:
             c.open = False
             if self._pending.get(key) is c:

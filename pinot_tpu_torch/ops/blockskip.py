@@ -158,10 +158,15 @@ def zone_verdict(tpl, cols, params, shape, widths=None):
     return v
 
 
-def cand_bound(total_blocks: int) -> int:
-    """The static candidate bound B = ceil(total_blocks / CAND_FRACTION),
-    at least 1 and at most every block."""
-    return min(total_blocks, max(1, -(-total_blocks // CAND_FRACTION)))
+def cand_bound(total_blocks: int, blockskip=True) -> int:
+    """The static candidate bound B = ceil(total_blocks / fraction), at
+    least 1 and at most every block. ``blockskip`` is the executor's
+    block-skip setting: True (or 1) takes CAND_FRACTION, an int > 1 is
+    the plan advisor's tightened fraction (32 or 64), as the reference's
+    pipeline reads it."""
+    frac = CAND_FRACTION if blockskip is True or int(blockskip) <= 1 \
+        else int(blockskip)
+    return min(total_blocks, max(1, -(-total_blocks // frac)))
 
 
 def compact_candidates(flat_verdict, bound: int):

@@ -1040,9 +1040,16 @@ def run_stage2(plan: MultiStagePlan, cols: dict, n: int, env: dict, ex):
 # ---------------------------------------------------------------------------
 
 
-def run_plan(plan: MultiStagePlan, table_rows: dict, ex):
+def run_plan(plan: MultiStagePlan, table_rows: dict, ex, advisor=None,
+             advisor_key=None):
     """table_rows: alias → {bare column: Col}. Returns (ResultTable, meta
-    dict with join / window execution facts)."""
+    dict with join / window execution facts).
+
+    ``advisor`` / ``advisor_key``: the plan advisor's memo of this
+    template feeds the join-strategy pick (measured build-side rows of
+    earlier executions beat the catalog's dimension-table heuristic), and
+    every step's actual build rows and strategy are observed back.
+    Overrides land in meta["advisorDecisions"]."""
     dev = ex.device
     mesh = getattr(ex, "mesh", None)
     probe = plan.probe
@@ -1052,6 +1059,7 @@ def run_plan(plan: MultiStagePlan, table_rows: dict, ex):
 
     strategies = []
     roofline_recs = []
+    adv_notes = []
     for step in plan.joins:
         build_cols = {f"{step.build.alias}.{c}": v
                       for c, v in table_rows[step.build.alias].items()}
@@ -1061,6 +1069,16 @@ def run_plan(plan: MultiStagePlan, table_rows: dict, ex):
             # the wire exchange is the cluster tier's; run here, the local
             # form of a distributed join is the shuffle mirror
             strat = "SHUFFLE"
+        if advisor is not None and advisor_key \
+                and not plan.strategy_forced:
+            # both strategies compute the same joined rows: the pick is
+            # performance only
+            strat2, note = advisor.advise_join_strategy(
+                advisor_key, strat, step.build.alias,
+                BROADCAST_MAX_BUILD_ROWS)
+            if note:
+                strat = strat2
+                adv_notes.append(note)
         if strat == "BROADCAST" and not plan.strategy_forced \
                 and n_build > BROADCAST_MAX_BUILD_ROWS:
             # a heuristic BROADCAST must not replicate a huge build table;
@@ -1074,6 +1092,10 @@ def run_plan(plan: MultiStagePlan, table_rows: dict, ex):
                                              dev, mesh, strat)
         join_ms = (time.perf_counter() - t_join) * 1e3
         strategies.append(strat)
+        if advisor is not None and advisor_key:
+            advisor.observe(advisor_key,
+                            build_rows={step.build.alias: n_build},
+                            join_strategy=strat)
         roofline_recs.append(_join_roofline_record(
             step, strat, bytes_in, left_cols, join_ms, dev))
 
@@ -1105,6 +1127,8 @@ def run_plan(plan: MultiStagePlan, table_rows: dict, ex):
                                      and effective == "SHUFFLE")
                        else 1) if strategies else 0,
     }
+    if adv_notes:
+        meta["advisorDecisions"] = adv_notes
     return result, meta
 
 
@@ -1145,8 +1169,24 @@ def run_local(engine, plan: MultiStagePlan):
             table_rows[src.alias] = scan_local_rows(
                 engine, src.table, plan.pushdown.get(src.alias),
                 need[src.alias], stats)
+    # the executor's plan advisor memoizes multi-stage templates too (the
+    # join strategy from measured build rows); SET useAdvisor = false
+    # bypasses it
+    advisor = getattr(engine.device, "advisor", None)
+    adv_key = None
+    if advisor is not None:
+        from pinot_tpu_torch.broker.querylog import template_key
+        from pinot_tpu_torch.engine.advisor import advisor_enabled
+
+        try:
+            opts = plan.stage2.options_ci()
+        except Exception:  # noqa: BLE001 — advice is optional
+            opts = {}
+        if advisor_enabled(opts):
+            adv_key = template_key(plan)
     with span("stage2"):
-        result, meta = run_plan(plan, table_rows, engine.device)
+        result, meta = run_plan(plan, table_rows, engine.device,
+                                advisor=advisor, advisor_key=adv_key)
     meta["leafRows"] = {alias: _n_rows(cols)
                         for alias, cols in table_rows.items()}
     return result, stats, meta
@@ -1215,6 +1255,14 @@ def execute_multistage(engine, stmt, t0: Optional[float] = None) -> dict:
         resp["roofline"] = meta["roofline"]
     if meta["joinStrategy"]:
         resp["joinStrategy"] = meta["joinStrategy"]
+    # the plan advisor's stamps: stage 2's strategy overrides, then those
+    # the leaf scans' stats carried up
+    adv_lines = list(meta.get("advisorDecisions") or [])
+    for line in (stats.advisor_decisions or []):
+        if line not in adv_lines:
+            adv_lines.append(line)
+    if adv_lines:
+        resp["advisorDecisions"] = adv_lines
     if analyze:
         from pinot_tpu_torch.engine.explain import (
             annotate_analyze,

@@ -335,6 +335,11 @@ class ChunkletIndex:
         leaves the index consistent — the unfrozen rows simply stay on
         the host tail path and queries remain correct; consume loops
         treat the raise as non-fatal and retry on the next batch."""
+        from pinot_tpu_torch.common import faults
+
+        if faults.ACTIVE:
+            faults.inject("chunklet.promote",
+                          target=getattr(self.segment, "name", None))
         made = 0
         with self._promote_lock:
             while limit is None or made < limit:

@@ -1,7 +1,5 @@
 """Stream ingestion SPI: pluggable consumers, offsets, decoders (a copy
-of pinot_tpu/stream/spi.py for the port, with the JSON decoder and the
-in-memory stream; the binary decoders and the Kafka / Kinesis / Pulsar
-consumers raise ``StreamUnavailable`` until the cluster tier).
+of pinot_tpu/stream/spi.py for the port).
 
 Equivalent of pinot-spi/.../stream/: ``StreamConsumerFactory``,
 ``PartitionGroupConsumer``, ``MessageBatch``, ``StreamPartitionMsgOffset``
@@ -134,24 +132,56 @@ def csv_decoder_for(columns: Sequence[str], delimiter: str = ",") -> Callable:
 
 _DECODERS: dict[str, Callable] = {"json": json_decoder}
 
-# decoders and stream types that come with the port's cluster tier
-_LATER_DECODERS = ("avro", "thrift", "confluent-avro", "protobuf")
-_LATER_STREAMS = ("kafka", "kinesis", "pulsar")
-
-
-class StreamUnavailable(KeyError):
-    """A decoder or stream type that comes with a later slice of the port."""
-
 
 def get_decoder(name: str, stream_config: StreamConfig) -> Callable:
     if name == "csv":
         cols = stream_config.properties.get("csv.columns", "")
         return csv_decoder_for(cols.split(","),
                                stream_config.properties.get("csv.delimiter", ","))
-    if name in _LATER_DECODERS:
-        raise StreamUnavailable(
-            f"the {name!r} decoder comes with the cluster tier of the port "
-            "(ROADMAP queue 1, item m)")
+    if name == "avro":
+        # schemaful binary records (SimpleAvroMessageDecoder analog): the
+        # writer schema rides in stream properties, one binary record per
+        # message, no container framing
+        from pinot_tpu_torch.ingestion.avro_io import binary_decoder_for
+
+        schema_json = stream_config.properties.get("avro.schema", "")
+        if not schema_json:
+            raise KeyError(
+                "avro decoder needs the writer schema in stream "
+                "properties['avro.schema']")
+        return binary_decoder_for(schema_json)
+    if name == "thrift":
+        # TBinaryProtocol struct records (ThriftRecordReader role); the
+        # field-id → column map plays the generated class's part
+        from pinot_tpu_torch.ingestion.thrift_io import binary_decoder_for as thrift_for
+
+        fmap = stream_config.properties.get("thrift.field.map", "")
+        return thrift_for(fmap)
+    if name == "confluent-avro":
+        # magic byte + schema-registry id framing
+        # (KafkaConfluentSchemaRegistryAvroMessageDecoder role)
+        from pinot_tpu_torch.ingestion.confluent_avro import ConfluentAvroDecoder
+
+        inline = {
+            k[len("schema.registry.schemas."):]: v
+            for k, v in stream_config.properties.items()
+            if k.startswith("schema.registry.schemas.")
+        }
+        return ConfluentAvroDecoder(
+            registry_url=stream_config.properties.get(
+                "schema.registry.url", ""),
+            inline_schemas=inline or None)
+    if name == "protobuf":
+        # one serialized message per payload (ProtoBufMessageDecoder)
+        from pinot_tpu_torch.ingestion.protobuf_io import binary_decoder_for
+
+        desc = stream_config.properties.get("protobuf.descriptor_file", "")
+        msg = stream_config.properties.get("protobuf.message_name", "")
+        if not desc or not msg:
+            raise KeyError(
+                "protobuf decoder needs stream properties "
+                "'protobuf.descriptor_file' + 'protobuf.message_name'")
+        return binary_decoder_for(desc, msg)
     try:
         return _DECODERS[name]
     except KeyError:
@@ -174,14 +204,15 @@ def register_stream_type(name: str, factory_cls: type) -> None:
 
 
 def create_consumer_factory(config: StreamConfig) -> StreamConsumerFactory:
-    # the in-memory stream registers lazily, so importing the SPI stays
-    # dependency-free
+    # built-ins register lazily so importing the SPI stays dependency-free
     if config.stream_type == "memory" and "memory" not in _FACTORIES:
-        from pinot_tpu_torch.stream import memory_stream  # noqa: F401
-    if config.stream_type in _LATER_STREAMS:
-        raise StreamUnavailable(
-            f"the {config.stream_type!r} consumer comes with the cluster "
-            "tier of the port (ROADMAP queue 1, item m)")
+        from pinot_tpu_torch.stream import memory_stream  # noqa: F401  (registers)
+    if config.stream_type == "kafka" and "kafka" not in _FACTORIES:
+        from pinot_tpu_torch.stream import kafka_stream  # noqa: F401  (registers)
+    if config.stream_type == "kinesis" and "kinesis" not in _FACTORIES:
+        from pinot_tpu_torch.stream import kinesis_stream  # noqa: F401  (registers)
+    if config.stream_type == "pulsar" and "pulsar" not in _FACTORIES:
+        from pinot_tpu_torch.stream import pulsar_stream  # noqa: F401  (registers)
     try:
         cls = _FACTORIES[config.stream_type]
     except KeyError:

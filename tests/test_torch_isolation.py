@@ -27,6 +27,36 @@ def _forbidden(name: str) -> bool:
         ("jax.", "jaxlib.", "pinot_tpu."))
 
 
+# the cluster tier's modules that need no cluster, with the broker
+# package's query-log key
+CLUSTER_TIER_MODULES = [
+    "pinot_tpu_torch.broker.querylog",
+    "pinot_tpu_torch.common.auth",
+    "pinot_tpu_torch.common.config",
+    "pinot_tpu_torch.common.environment",
+    "pinot_tpu_torch.common.faults",
+    "pinot_tpu_torch.common.plugins",
+    "pinot_tpu_torch.common.tls",
+    "pinot_tpu_torch.engine.advisor",
+    "pinot_tpu_torch.engine.scheduler",
+    "pinot_tpu_torch.ingestion.avro_io",
+    "pinot_tpu_torch.ingestion.confluent_avro",
+    "pinot_tpu_torch.ingestion.protobuf_io",
+    "pinot_tpu_torch.ingestion.thrift_io",
+    "pinot_tpu_torch.storage.adlsfs",
+    "pinot_tpu_torch.storage.fs",
+    "pinot_tpu_torch.storage.gcsfs",
+    "pinot_tpu_torch.storage.hdfsfs",
+    "pinot_tpu_torch.storage.s3fs",
+    "pinot_tpu_torch.stream.kafka_stream",
+    "pinot_tpu_torch.stream.kinesis_stream",
+    "pinot_tpu_torch.stream.pulsar_stream",
+]
+# client libraries a deployment may lack (the card's machine has none)
+CLIENTS = ("grpc", "cryptography", "kafka", "boto3", "botocore", "pulsar",
+           "azure")
+
+
 def _port_modules() -> list:
     return sorted(m.name for m in pkgutil.walk_packages(
         [PKG], prefix="pinot_tpu_torch."))
@@ -49,6 +79,9 @@ def test_importing_every_port_module_loads_no_jax():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "pinot_tpu_torch.ops.kernels" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
+    # the third-party clients load inside the functions that need them
+    assert [m for m in loaded if m.split(".")[0] in CLIENTS
+            or m.startswith("google.protobuf")] == []
 
 
 @pytest.mark.parametrize("root", ["pinot_tpu_torch", "chip_smoke.py"])
@@ -95,3 +128,24 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
                              timeout=300)
         assert out.returncode != 0
         assert '"ok": true' not in out.stdout
+
+
+@pytest.mark.parametrize("module", CLUSTER_TIER_MODULES)
+def test_cluster_tier_module_is_ported_with_lazy_clients(module):
+    """Each module of the cluster tier that needs no cluster is the port's
+    own copy of the reference's, and its module-level imports name no
+    third-party client (those stay inside the functions that need them,
+    as the reference keeps them)."""
+    assert module in _port_modules()
+    rel = module.split(".", 1)[1].replace(".", os.sep) + ".py"
+    assert os.path.exists(os.path.join(ROOT, "pinot_tpu", rel))
+    with open(os.path.join(PKG, rel)) as fh:
+        tree = ast.parse(fh.read())
+    top = []
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            top += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            top.append(node.module or "")
+    assert [n for n in top if n.split(".")[0] in CLIENTS
+            or n.startswith("google.") or _forbidden(n)] == []

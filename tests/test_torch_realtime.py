@@ -34,7 +34,7 @@ from pinot_tpu_torch.engine.engine import QueryEngine
 from pinot_tpu_torch.realtime import manager as t_mgr
 from pinot_tpu_torch.realtime.merger import STRATEGIES, PartialUpsertMerger
 from pinot_tpu_torch.stream import memory_stream as t_ms
-from pinot_tpu_torch.stream.spi import StreamUnavailable, get_decoder
+from pinot_tpu_torch.stream.spi import get_decoder
 from test_torch_mutable import same
 
 SIDES = {"ref": (r_schema, r_dt, r_tc, r_mgr, r_ms),
@@ -479,12 +479,33 @@ def test_orphan_quarantined(tmp_path, seq_of_orphan):
 
 
 def test_later_decoders_and_streams_name_their_item():
-    cfg = t_tc.StreamConfig(stream_type="kafka", topic="x")
+    """The binary decoders and the Kafka / Kinesis consumers are served as
+    the reference serves them: a decoder without its stream properties and
+    a consumer without its client library raise the reference's error,
+    type and message alike."""
+    from pinot_tpu.stream.spi import get_decoder as r_get_decoder
+
+    def outcome(fn, *args):
+        try:
+            fn(*args)
+        except Exception as e:  # noqa: BLE001 — compared below
+            return type(e).__name__, str(e)
+        return None
+
     for name in ("avro", "thrift", "confluent-avro", "protobuf"):
-        with pytest.raises(StreamUnavailable, match="item m"):
-            get_decoder(name, cfg)
-    with pytest.raises(StreamUnavailable, match="item m"):
-        t_mgr.create_consumer_factory(cfg)
+        got = outcome(get_decoder, name,
+                      t_tc.StreamConfig(stream_type="kafka", topic="x"))
+        want = outcome(r_get_decoder, name,
+                       r_tc.StreamConfig(stream_type="kafka", topic="x"))
+        assert got is not None and got == want, (name, got, want)
+        assert "comes with" not in got[1]
+    for kind in ("kafka", "kinesis"):
+        got = outcome(t_mgr.create_consumer_factory,
+                      t_tc.StreamConfig(stream_type=kind, topic="x"))
+        want = outcome(r_mgr.create_consumer_factory,
+                       r_tc.StreamConfig(stream_type=kind, topic="x"))
+        assert got is not None and got == want, (kind, got, want)
+    cfg = t_tc.StreamConfig(stream_type="kafka", topic="x")
     assert get_decoder("json", cfg)(b'{"a": 1}') == {"a": 1}
     assert os.path.basename(t_ms.__file__) == "memory_stream.py"
 
