@@ -305,6 +305,31 @@ Phases, all on ``cuda:0``:
    oracle throughout) and two tenants on threads through a
    ``TokenBucketScheduler`` over the card's engine, every answer equal
    to the oracle, each tenant's p50.
+   The seventeenth path, ``cluster`` (last), is the cluster core: a
+   ``ClusterRegistry``, a ``Controller``, two ``ServerInstance``s on
+   cuda:0 (one card stands in for two servers) talking real gRPC on
+   localhost, each with a 24 GiB batch budget, and a ``Broker`` (stage 2
+   on cuda:0) behind ``BrokerHttpServer``. The tables the run wrote are
+   pushed where they lie: lineorder at replication 2, lineorder_by_date
+   at 1 (its segments split over the servers), customer and supplier on
+   every server. SSB q1-q6, a scalar and a grouped DISTINCTCOUNTHLL,
+   bs_month_fused and the same over a week (K4 under a server: the
+   broker sends only the week's segment), q1 over the sorted copy (two
+   servers' partials merged), PERCENTILE (K5) and ms_nation_region's
+   star join over a week (stage 2 at the broker) are posted as SQL to
+   ``/query/sql``, each equal to its oracle with the broker's stats,
+   then an EXPLAIN and a day's selection streamed from
+   ``/query/sql/stream``; each query's p50 through the front door and
+   the embedded engine's, the broker's reduce ms and the DataTable bytes
+   it decoded. ``lineorder_cl``, a REALTIME table of 1,000,000 rows
+   (lineorder's generator, seed 83) fed as JSON through the in-memory
+   stream at a 500,000-row flush threshold, commits twice through the
+   controller's completion FSM while the broker counts its rows; at
+   quiescence its answers equal the oracle. Kernel launches are counted
+   by role (each server, the broker) while the queries run, and K1-K5
+   are held against their plain versions at the cluster's captured
+   inputs. Then one server stops and q1 is answered whole from the
+   replica; the peak ``max_memory_allocated`` is printed.
 4. A ``{"kernels": [...]}`` line (K1-K5 and the four member-axis
    entries; K5's with the clusters each regime summed over the paths,
    none chained on the sketch, mv and multistage paths' integer columns;
@@ -313,7 +338,8 @@ Phases, all on ``cuda:0``:
 
 ``--paths a,b`` runs those paths alone (``ALL_PATHS``; default every
 one), writing and loading only the tables they read (``PATH_TABLES``:
-``--paths advisor`` writes lineorder_by_date alone).
+``--paths advisor`` writes lineorder_by_date alone; ``--paths cluster``
+lineorder, lineorder_by_date and the dimensions).
 Exits non-zero, printing no result line, without a CUDA card, outside a
 checkout of the repository, or when any phase fails. Imports nothing of
 JAX or of the JAX package.
@@ -332,6 +358,7 @@ import subprocess
 import sys
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -652,6 +679,19 @@ PATHS = {
                  ((3, "group_scatter", "plane_group_sums"),)),
 }
 
+# timed runs of the queries that take seconds each, in place of --runs
+# (0: no p50; the checked execution's time goes to FIRST_RUN_MS, and for
+# the star join it includes building the broker's stage-2 executor):
+# pct_tdigest_supp (~8.4-9.7 s a run on the host's digest fold) and the
+# cluster path's star join (stage 1 over the wire, ~7 s); the run's time
+# went to the cluster path
+TIMED_RUNS = {"pct_tdigest_supp": 0, "cl_star_week": 0}
+FIRST_RUN_MS = {}   # the untimed queries' checked executions, ms
+
+# threads the paths' numpy oracles share beside the segment writes (the
+# set-up's longest chain ran them one after another on the main thread)
+ORACLE_THREADS = 3
+
 # kernel launches that one execution of a query makes: q6's three min/max
 # aggregates share one K2 launch
 QUERY_LAUNCHES = {
@@ -748,7 +788,8 @@ SERVE_ENTRIES = {
 SERVE_REPEATS = 6      # serve_partials: one miss, then hits
 SERVE_RELEASES = 9     # serve_cohort: timed releases (and solo passes)
 SERVE_SWEEP_THREADS = (1, 2, 4, 8)
-SERVE_SWEEP_QUERIES = 320  # per thread count and coalescer setting
+SERVE_SWEEP_QUERIES = 80   # per thread count and coalescer setting (320
+                           # until the cluster path needed the run's time)
 PROBE_MAX_OF_PEAK = 1.05   # the probe against HBM_BYTES_PER_S
 
 
@@ -3224,39 +3265,52 @@ def k3_captured(engine, sql: str, label: str, mm) -> dict:
     plain version, bit for bit."""
     (args, kw), = capture_calls(engine, sql, mm, "hll_registers")
     h, gid, G, log2m = args
-    return k3_held(h, gid, G, log2m, kw.get("mask"), label, mm)
+    return k3_held(h, gid, G, log2m, kw.get("mask"), label,
+                   mm_registers(mm, h, gid, G, log2m, kw.get("mask")))
 
 
-def k3_held(h, gid, G: int, log2m: int, mask, label: str, mm) -> dict:
-    """K3 at one captured input of ``groupby_mm.hll_registers`` against
-    its plain version, bit for bit, with its times and bound."""
+def mm_registers(mm, h, gid, G: int, log2m: int, mask):
+    """``k3_held``'s launch through ``groupby_mm.hll_registers``."""
+    def launch():
+        return mm.hll_registers(h, gid, G, log2m, mask=mask)
+    launch.via = "groupby_mm.hll_registers"
+    return launch
+
+
+def k3_held(h, gid, G: int, log2m: int, mask, label: str, launch) -> dict:
+    """K3 at one captured input, launched by ``launch()`` (an entry's call
+    with its ``via`` name), against its plain version, bit for bit, with
+    its times, bound and one ``scatter_reduce_`` amax over the same
+    slots."""
     import torch
     from pinot_tpu_torch.ops import hll as hll_ops
     from pinot_tpu_torch.ops import kernels
 
-    got = mm.hll_registers(h, gid, G, log2m, mask=mask).reshape(-1)
+    got = launch().reshape(-1)
     want = kernels.hll_register_max_plain(h, log2m, G, gid, mask)
     torch.cuda.synchronize()
     err = float((got.to(torch.int32) - want).abs().max())
     if not torch.equal(got.to(torch.int32), want):
         raise AssertionError(f"K3 at {label} differs, max abs err {err}")
-    ms = cuda_ms(lambda: mm.hll_registers(h, gid, G, log2m, mask=mask), 10)
+    ms = cuda_ms(launch, 10)
     plain_ms = cuda_ms(lambda: kernels.hll_register_max_plain(
         h, log2m, G, gid, mask), 3)
     n, nslots = h.numel(), G << log2m
     slot, rho = hll_ops.hll_slots(h, log2m, G, gid, mask)
-    s64 = slot.long()
+    # a pipeline's (S, L) planes: one scatter over every row
+    s64, rho = slot.reshape(-1).long(), rho.reshape(-1)
     lib = torch.zeros(nslots + 1, dtype=torch.int32, device=h.device)
     lib_ms = cuda_ms(lambda: lib.scatter_reduce_(0, s64, rho, "amax"), 5)
     del slot, rho, s64, lib
-    b, by = bound_ms(8 * n + 4 * nslots, n)
+    # the hashes, the group ids and the mask where given, the registers
+    b, by = bound_ms(4 * n * (1 + (gid is not None)) + n * (mask is not None)
+                     + 4 * nslots, n)
     log(f"K3 at {label} ({nslots} slots): {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, scatter_reduce_ amax {lib_ms:.4f} ms, bound "
         f"{b:.4f} ms, bit-exact")
-    return dict(shape=f"n={n} slots={nslots} via groupby_mm.hll_registers "
-                      f"({label})", nslots=nslots, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                library_ms=lib_ms)
+    return dict(shape=f"n={n} slots={nslots} via {launch.via} ({label})",
+                nslots=nslots, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b, bound_by=by, library_ms=lib_ms)
 
 
 def check_highcard_kernels(engine, k1: dict) -> None:
@@ -4151,7 +4205,9 @@ def run_path(engine, path: str, want: dict, total: int, runs: int,
     for name, sql in queries.items():
         before = dict(tables["kernels"])
         routes = (SORTED_BUILDS[0], engine.device.host_shape_reruns)
+        t = time.perf_counter()
         resp = engine.execute(sql)
+        first_ms = (time.perf_counter() - t) * 1e3
         for kname, count in QUERY_LAUNCHES.get(name, {}).items():
             made = tables["kernels"][kname] - before[kname]
             if made != count:
@@ -4183,14 +4239,18 @@ def run_path(engine, path: str, want: dict, total: int, runs: int,
                 raise AssertionError(f"{name}: the useBlockSkip = false twin "
                                      f"answers {twin['resultTable']}")
         times = []
-        for _ in range(runs):
+        for _ in range(TIMED_RUNS.get(name, runs)):
             t = time.perf_counter()
             engine.execute(sql)
             times.append((time.perf_counter() - t) * 1e3)
-        p50[name] = float(np.percentile(times, 50))
+        if times:
+            p50[name] = float(np.percentile(times, 50))
+            timing = f"p50 {p50[name]:.3f} ms over {len(times)} run(s)"
+        else:
+            FIRST_RUN_MS[name] = first_ms
+            timing = f"no timed run, the checked one {first_ms:.3f} ms"
         log(f"{name}: matches the oracle ({len(got)} rows, "
-            f"numDocsScanned {scanned}); p50 {p50[name]:.3f} ms over "
-            f"{runs} runs")
+            f"numDocsScanned {scanned}); {timing}")
         if profile:
             profile_query(engine, name, sql)
     counts = {k: dict(v) for k, v in tables.items()}
@@ -4870,8 +4930,9 @@ def check_realtime_kernels(engine, k1: dict, k2: dict, k3: dict,
                     for s in srcs).replace("torch.", ""), gid, srcs, G))
     for (h, gid, G, log2m), kw in capture_calls(
             engine, RT_QUERIES["rt_q4_hll"], mm, "hll_registers"):
-        k3["sizes"].append(k3_held(h, gid, G, log2m, kw.get("mask"),
-                                   f"rt_q4_hll, n={h.numel()}", mm))
+        k3["sizes"].append(k3_held(
+            h, gid, G, log2m, kw.get("mask"), f"rt_q4_hll, n={h.numel()}",
+            mm_registers(mm, h, gid, G, log2m, kw.get("mask"))))
     for args, _kw in capture_calls(engine, RT_QUERIES["rt_month_fused"], ps,
                                    "fused_filter_agg"):
         k4["sizes"].append(check_k4(
@@ -5087,20 +5148,25 @@ def ms_dims(seed: int = MS_SEED) -> dict:
     return {"customer": customer, "supplier": supplier, "dates": dates}
 
 
-def write_ms_dim(name: str, cols: dict) -> str:
-    """A dimension table's one segment, written with the port's creator:
-    its first column the primary key, ``is_dim_table`` set."""
+def ms_dim_schema(name: str, cols: dict):
+    """A dimension table's schema: its first column the primary key."""
     from pinot_tpu_torch.common.datatypes import DataType
     from pinot_tpu_torch.common.schema import Schema
-    from pinot_tpu_torch.common.table_config import TableConfig
-    from pinot_tpu_torch.storage.creator import build_segment
 
     dims = [(k, DataType.INT if v.dtype.kind == "i" else DataType.STRING)
             for k, v in cols.items()]
-    schema = Schema.build(name=name, dimensions=dims,
-                          primary_key_columns=[dims[0][0]])
+    return Schema.build(name=name, dimensions=dims,
+                        primary_key_columns=[dims[0][0]])
+
+
+def write_ms_dim(name: str, cols: dict) -> str:
+    """A dimension table's one segment, written with the port's creator,
+    ``is_dim_table`` set."""
+    from pinot_tpu_torch.common.table_config import TableConfig
+    from pinot_tpu_torch.storage.creator import build_segment
+
     out = os.path.join(DATA_DIR, name, "d0")
-    build_segment(schema, cols, out,
+    build_segment(ms_dim_schema(name, cols), cols, out,
                   TableConfig(table_name=name, is_dim_table=True), f"{name}0")
     return out
 
@@ -5110,6 +5176,23 @@ def _ms_stats(leaves: dict, totals: dict, joined: int) -> dict:
     scanned, every leaf table's docs in totalDocs, the joined rows."""
     return {"totalDocs": sum(totals[a] for a in leaves),
             "numJoinedRows": int(joined), "leafRows": dict(leaves)}
+
+
+def _ms_nation_region(cn, sr, rev, qty, tot: dict) -> tuple:
+    """ms_nation_region's answer from a month's customer nations and
+    supplier regions by row (-1 where the key has no dimension row), its
+    revenue and quantity; ``tot`` the leaf tables' docs."""
+    keep = (cn >= 0) & (sr >= 0)
+    g = cn[keep] * 5 + sr[keep]
+    cnt = np.bincount(g, minlength=125)
+    rs = np.bincount(g, weights=rev[keep].astype(np.float64), minlength=125)
+    qs = np.bincount(g, weights=qty[keep].astype(np.float64), minlength=125)
+    ks = sorted((k for k in range(125) if cnt[k]),
+                key=lambda k: (-rs[k], NATIONS[k // 5], REGIONS[k % 5]))
+    leaves = {"lo": len(cn), "c": tot["c"], "s": tot["s"]}
+    return ([[str(NATIONS[k // 5]), str(REGIONS[k % 5]), int(cnt[k]),
+              float(rs[k]), float(qs[k]) / float(cnt[k])] for k in ks],
+            sum(leaves.values()), _ms_stats(leaves, tot, keep.sum()))
 
 
 def ms_oracle(data: list, dims: dict, rt: dict, rt_rows: int,
@@ -5151,22 +5234,8 @@ def ms_oracle(data: list, dims: dict, rt: dict, rt_rows: int,
            "d": sizes["dates"], "lineorder": n_lo}
     want = {}
 
-    # ms_nation_region
-    cn, sr = c_nat[cust[month]], s_reg[supp[month]]
-    keep = (cn >= 0) & (sr >= 0)
-    g = cn[keep] * 5 + sr[keep]
-    cnt = np.bincount(g, minlength=125)
-    rs = np.bincount(g, weights=rev[month][keep].astype(np.float64),
-                     minlength=125)
-    qs = np.bincount(g, weights=qty[month][keep].astype(np.float64),
-                     minlength=125)
-    ks = sorted((k for k in range(125) if cnt[k]),
-                key=lambda k: (-rs[k], NATIONS[k // 5], REGIONS[k % 5]))
-    leaves = {"lo": n_month, "c": tot["c"], "s": tot["s"]}
-    want["ms_nation_region"] = (
-        [[str(NATIONS[k // 5]), str(REGIONS[k % 5]), int(cnt[k]),
-          float(rs[k]), float(qs[k]) / float(cnt[k])] for k in ks],
-        sum(leaves.values()), _ms_stats(leaves, tot, keep.sum()))
+    want["ms_nation_region"] = _ms_nation_region(
+        c_nat[cust[month]], s_reg[supp[month]], rev[month], qty[month], tot)
 
     # ms_q31: ASIA customers and suppliers over the quarter
     asia = int(np.searchsorted(REGIONS, "ASIA"))
@@ -6228,7 +6297,8 @@ def run_advisor(engine, bs_segs: list, want: dict, total: int,
 
 # every path, in the order a run takes them (``--paths`` selects some);
 # the serving, advisor and mesh paths run after the others
-ALL_PATHS = [p for p in PATHS if p != "mesh"] + ["serving", "advisor", "mesh"]
+ALL_PATHS = [p for p in PATHS if p != "mesh"] + ["serving", "advisor", "mesh",
+                                                 "cluster"]
 # the tables each path reads: lineorder ("lo") and the others
 PATH_TABLES = {
     "ssb": {"lo"}, "hll": {"lo"}, "startree": {"lo"}, "sketch": {"lo"},
@@ -6238,6 +6308,7 @@ PATH_TABLES = {
     "tail": {"lo", "trips"}, "realtime": {"lo", "rt", "up"},
     "multistage": {"lo", "rt", "dims", "mv"}, "serving": {"lo", "bs"},
     "advisor": {"bs"}, "mesh": {"lo", "bs", "rt", "dims"},
+    "cluster": {"lo", "bs", "dims"},
 }
 
 
@@ -7106,6 +7177,615 @@ def run_serving(engine, want: dict, totals: dict, card: str) -> tuple:
     return summary, records, launches
 
 
+# ---------------------------------------------------------------------------
+# the cluster path: the registry, the controller, two servers and a broker
+# behind its HTTP front door, every server's kernels on the card
+# ---------------------------------------------------------------------------
+
+CLUSTER_SERVERS = 2               # both on cuda:0: one card stands in for two
+CLUSTER_BATCH_BYTES = 24 << 30    # each server's batch budget, 2 x 24 GiB
+CL_RT_TABLE = "lineorder_cl"
+CL_RT_ROWS = 1_000_000
+CL_RT_FLUSH = 500_000             # the flush threshold: two commits
+CL_RT_SEED = 83
+CL_DAY = 19930315
+# a week of the sorted copy: the broker sends its one segment, where the
+# week's blocks stay under block skip's bound (a month's pass it on one
+# segment of 3,052 blocks, and take the dense form): K4 under a server
+CL_WEEK = (19930301, 19930307)
+CL_QUERIES = {
+    **QUERIES,
+    "hll_scalar": HLL_QUERIES["hll_scalar"],
+    "hll_small_group": HLL_QUERIES["hll_small_group"],
+    "bs_month_fused": BS_QUERIES["bs_month_fused"],
+    "cl_week_fused": BS_QUERIES["bs_month_fused"].replace(
+        "19930301 AND 19930328", "%d AND %d" % CL_WEEK),
+    # q1 over the sorted copy: its segments sit one replica each, half on
+    # either server, so the broker merges two servers' partials
+    "cl_bs_q1": QUERIES["q1_scan_agg"].replace("FROM lineorder",
+                                               f"FROM {BS_TABLE}"),
+    "pct_scalar": SK_QUERIES["pct_scalar"],
+    # the multistage path's ms_nation_region over a week: stage 1 through
+    # the servers, stage 2 at the broker on the card. Each stage-1 row
+    # crosses the wire and the broker's selection reduce (~5 us a row on
+    # the CPU), so a month's 1.19M rows would take ~10 s a query
+    "cl_star_week": MS_QUERIES["ms_nation_region"].replace(
+        MS_MONTH, "lo.lo_orderdate BETWEEN %d AND %d" % CL_WEEK),
+}
+CL_EXPLAIN = "EXPLAIN PLAN FOR " + QUERIES["q6_minmax"]
+CL_STREAM = (f"SELECT lo_suppkey, lo_revenue FROM {BS_TABLE} "
+             f"WHERE lo_orderdate = {CL_DAY} LIMIT 1000000")
+CL_RT_QUERIES = {
+    "cl_rt_q1": _RT_Q1.format(t=CL_RT_TABLE),
+    "cl_rt_count": (f"SELECT COUNT(*), SUM(lo_revenue), MAX(lo_orderdate) "
+                    f"FROM {CL_RT_TABLE}"),
+}
+CL_KERNELS = ("group_plane_sums", "group_minmax", "hll_register_max",
+              "fused_filter_agg", "cluster_sums")
+# the stats every broker answer is held to beside rows, numDocsScanned and
+# totalDocs, where the oracle names them
+CL_STATS = ("numEntriesScannedInFilter", "numBlocksPruned",
+            "numJoinedRows", "leafRows")
+BATCH_STATS = ("numEntriesScannedInFilter", "numBlocksPruned")
+
+
+def cl_oracle(data: list, bs_data: list, dims: dict, pad: int,
+              want: dict) -> dict:
+    """The cluster path's answers: those no selected path's oracle gave
+    (bs_month_fused, pct_scalar when their paths do not run), q1's over
+    the sorted copy, the star join and the K4 form over a week, and the
+    day the stream selects."""
+    out = {}
+    if "bs_month_fused" not in want:
+        out["bs_month_fused"] = bs_oracle(bs_data, pad)["bs_month_fused"]
+    rev = np.concatenate([d["lo_revenue"] for d in data])
+    if "pct_scalar" not in want:
+        delta, p = SK_DIGESTS["pct_scalar"]
+        out["pct_scalar"] = (_rank_checker("pct_scalar", [(None, rev)],
+                                           p / 100, delta), len(rev))
+    cust = np.concatenate([d["lo_custkey"] for d in data])
+    supp = np.concatenate([d["lo_suppkey"] for d in data])
+    od = np.concatenate([d["lo_orderdate"] for d in data])
+    qty = np.concatenate([d["lo_quantity"] for d in data])
+    cu, su = dims["customer"], dims["supplier"]
+    c_nat = np.full(CUSTOMERS + 1, -1, dtype=np.int64)
+    c_nat[cu["c_custkey"]] = np.searchsorted(NATIONS, cu["c_nation"])
+    s_reg = np.full(SUPPLIERS + 1, -1, dtype=np.int64)
+    s_reg[su["s_suppkey"]] = np.searchsorted(REGIONS, su["s_region"])
+    week = (od >= CL_WEEK[0]) & (od <= CL_WEEK[1])
+    tot = {"lo": len(od), "c": len(cu["c_custkey"]),
+           "s": len(su["s_suppkey"])}
+    out["cl_star_week"] = _ms_nation_region(
+        c_nat[cust[week]], s_reg[supp[week]], rev[week].astype(np.int64),
+        qty[week], tot)
+    q1 = want.get("q1_scan_agg") or oracle(data)["q1_scan_agg"]
+    out["cl_bs_q1"] = q1
+    od = np.concatenate([d["lo_orderdate"] for d in bs_data])
+    m = od == CL_DAY
+    supp = np.concatenate([d["lo_suppkey"] for d in bs_data])[m]
+    r = np.concatenate([d["lo_revenue"] for d in bs_data])[m]
+    out["cl_stream"] = sorted(zip(supp.tolist(), r.tolist()))
+    m = (od >= CL_WEEK[0]) & (od <= CL_WEEK[1])
+    qty = np.concatenate([d["lo_quantity"] for d in bs_data])[m]
+    r = np.concatenate([d["lo_revenue"] for d in bs_data])[m]
+    out["cl_week_fused"] = ([[int(m.sum()), float(qty.sum()),
+                              float(r.min()), float(r.max())]], int(m.sum()))
+    return out
+
+
+def cl_rt_oracle(rt: dict) -> dict:
+    """The realtime table's answers over every row the stream produced."""
+    supp, rev = rt["lo_suppkey"], rt["lo_revenue"].astype(np.int64)
+    n = len(supp)
+    extra = {"totalDocs": n}
+    return {"cl_rt_q1": (_q1_rows(_supp_sums(supp, rev)), n, extra),
+            "cl_rt_count": ([[n, float(rev.sum()),
+                              float(rt["lo_orderdate"].max())]], n, extra)}
+
+
+class HttpFront:
+    """The broker's HTTP front door as a user posts to it: SQL to
+    ``/query/sql``, a selection streamed from ``/query/sql/stream``."""
+
+    def __init__(self, url: str):
+        self.url = url
+
+    def _post(self, path: str, sql: str):
+        import urllib.request
+
+        req = urllib.request.Request(
+            self.url + path, data=json.dumps({"sql": sql}).encode(),
+            headers={"Content-Type": "application/json"})
+        return urllib.request.urlopen(req, timeout=600)
+
+    def execute(self, sql: str) -> dict:
+        with self._post("/query/sql", sql) as r:
+            return json.loads(r.read())
+
+    def stream(self, sql: str) -> tuple:
+        """(rows, the final line) of a streamed selection."""
+        rows, final = [], None
+        with self._post("/query/sql/stream", sql) as r:
+            for line in r:
+                msg = json.loads(line)
+                if msg["type"] == "rows":
+                    rows.extend(msg["rows"])
+                elif msg["type"] == "final":
+                    final = msg
+        return rows, final
+
+
+class count_roles:
+    """While entered, attributes each kernel launch to the cluster role
+    on whose thread it runs: a server (its query's launch and fetch run
+    on its transport thread) or the broker (stage 2). ``kernels.launches``
+    is replaced by a dict that also adds to ``per[role]``."""
+
+    def __init__(self, servers):
+        self.servers = servers
+        self.per = {r: {k: 0 for k in CL_KERNELS}
+                    for r in [s.instance_id for s in servers] + ["broker"]}
+
+    def __enter__(self):
+        import threading
+
+        from pinot_tpu_torch.ops import kernels
+
+        local, per = threading.local(), self.per
+
+        class Counting(dict):
+            def __setitem__(self, key, value):
+                role = getattr(local, "role", None) or "broker"
+                if key in per[role] and value > self.get(key, 0):
+                    per[role][key] += value - self.get(key, 0)
+                super().__setitem__(key, value)
+
+        def tagged(role, fn):
+            def run(*a, **kw):
+                old, local.role = getattr(local, "role", None), role
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    local.role = old
+            return run
+
+        self.real = kernels.launches
+        kernels.launches = Counting(self.real)
+        self.saved = []
+        for s in self.servers:
+            eng = s.engine
+            real = eng.execute_segments_async
+
+            def launch(*a, _real=real, _role=s.instance_id, **kw):
+                return tagged(_role, tagged(_role, _real)(*a, **kw))
+
+            self.saved.append((eng, real))
+            eng.execute_segments_async = launch
+        return self
+
+    def __exit__(self, *exc):
+        from pinot_tpu_torch.ops import kernels
+
+        self.real.update(kernels.launches)
+        kernels.launches = self.real
+        for eng, _real in self.saved:
+            del eng.execute_segments_async
+        return False
+
+
+class spy_broker:
+    """While entered, the broker's reduce seconds (its merge and finalize)
+    and the DataTable bytes it decodes, summed since ``reset``."""
+
+    def __enter__(self):
+        from pinot_tpu_torch.broker import broker as broker_mod
+
+        self.mod, self.reduce_s, self.bytes = broker_mod, 0.0, 0
+        self.real = (broker_mod.decode, broker_mod.merge_intermediates,
+                     broker_mod.finalize)
+        real_decode, real_merge, real_finalize = self.real
+
+        def decode(data):
+            self.bytes += len(data)
+            return real_decode(data)
+
+        def timed(fn):
+            def run(*a, **kw):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    self.reduce_s += time.perf_counter() - t
+            return run
+
+        broker_mod.decode = decode
+        broker_mod.merge_intermediates = timed(real_merge)
+        broker_mod.finalize = timed(real_finalize)
+        return self
+
+    def reset(self) -> None:
+        self.reduce_s, self.bytes = 0.0, 0
+
+    def __exit__(self, *exc):
+        (self.mod.decode, self.mod.merge_intermediates,
+         self.mod.finalize) = self.real
+        return False
+
+
+def cl_check(name: str, resp: dict, want: dict, total: int,
+             whole: bool = True) -> None:
+    """A broker answer against the oracle: rows, numDocsScanned, totalDocs
+    and ``CL_STATS``; a segment the oracle has pruned by the server may be
+    pruned by the broker instead (its metadata), so those two add up, and
+    totalDocs then counts the segments the broker sent. ``whole``: every
+    server queried responded (a failover's retry answers for the one
+    that did not)."""
+    entry = want[name]
+    extra = dict(entry[2]) if len(entry) > 2 else {}
+    pruned = extra.pop("numSegmentsPrunedByServer", None)
+    kept = {k: v for k, v in extra.items()
+            if k in CL_STATS or k == "totalDocs"}
+    by_broker = resp.get("numSegmentsPrunedByBroker", 0)
+    if by_broker:
+        # the broker sent the pruned segments nowhere: totalDocs counts
+        # the others (the tables' segments hold the same rows each), and
+        # block skip's bound and so its stats follow the smaller batch
+        queried = resp["numSegmentsQueried"]
+        total = total * queried // (queried + by_broker)
+        for key in BATCH_STATS:
+            kept.pop(key, None)
+    check_answer(name, resp, {name: (entry[0], entry[1], kept)}, total)
+    if pruned is not None:
+        got = resp["numSegmentsPrunedByServer"] \
+            + resp.get("numSegmentsPrunedByBroker", 0)
+        if got != pruned:
+            raise AssertionError(f"{name}: {got} segments pruned, want "
+                                 f"{pruned}")
+    if resp.get("partialResult") or (whole and resp["numServersResponded"]
+                                     != resp["numServersQueried"]):
+        raise AssertionError(f"{name}: partial answer {resp}")
+
+
+def cl_tables(controller, dirs, bs_dirs, dim_dirs, dim_schemas) -> None:
+    """The offline tables, as written: lineorder at replication 2,
+    lineorder_by_date at 1, the dimensions replicated to every server;
+    each segment pushed where it lies (no deep-store copy)."""
+    from pinot_tpu_torch.common.table_config import (
+        IndexingConfig,
+        StarTreeIndexConfig,
+        TableConfig,
+    )
+
+    trees = [StarTreeIndexConfig(dimensions_split_order=d,
+                                 function_column_pairs=p)
+             for d, p in STAR_TREES]
+    for table, seg_dirs, repl, idx in (
+            ("lineorder", dirs, 2, IndexingConfig(star_tree_configs=trees)),
+            (BS_TABLE, bs_dirs, 1, IndexingConfig())):
+        if not seg_dirs:
+            continue
+        controller.add_table(TableConfig(table_name=table, replication=repl,
+                                         indexing=idx), lo_schema(table))
+        for d in seg_dirs:
+            controller.upload_segment(table, d, copy_to_deep_store=False)
+    for name, d in dim_dirs.items():
+        controller.add_table(TableConfig(table_name=name, is_dim_table=True),
+                             dim_schemas[name])
+        controller.upload_segment(name, d, copy_to_deep_store=False)
+
+
+def cl_wait(cond, what: str, timeout: float = 300.0) -> float:
+    t = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t > timeout:
+            raise AssertionError(f"cluster: {what} not reached in "
+                                 f"{timeout:.0f} s")
+        time.sleep(0.05)
+    return time.perf_counter() - t
+
+
+def cl_realtime(controller, registry, front, rt: dict) -> dict:
+    """A REALTIME table fed through the in-memory stream (JSON records,
+    one partition) at a 500,000-row flush threshold: its segments commit
+    through the controller's completion FSM while the broker queries it;
+    at quiescence its answers must equal the oracle over every row."""
+    from pinot_tpu_torch.common.table_config import (
+        StreamConfig,
+        TableConfig,
+        TableType,
+    )
+    from pinot_tpu_torch.stream.memory_stream import TopicRegistry
+
+    TopicRegistry.delete(CL_RT_TABLE)
+    topic = TopicRegistry.create(CL_RT_TABLE, 1)
+    cfg = TableConfig(
+        table_name=CL_RT_TABLE, table_type=TableType.REALTIME,
+        stream=StreamConfig(
+            stream_type="memory", topic=CL_RT_TABLE, decoder="json",
+            segment_flush_threshold_rows=CL_RT_FLUSH,
+            segment_flush_threshold_seconds=3600))
+    controller.add_table(cfg, lo_schema(CL_RT_TABLE))
+    t = time.perf_counter()
+    payloads = [json.dumps(r).encode() for r in
+                records(rt, 0, len(rt["lo_suppkey"]))]
+    encode_s = time.perf_counter() - t
+    t = time.perf_counter()
+    for p in payloads:
+        topic.publish(p)
+    sql = CL_RT_QUERIES["cl_rt_count"]
+    n, seen, answers = len(payloads), [], 0
+
+    def settled():
+        nonlocal answers
+        r = front.execute(sql)
+        if r.get("exceptions"):
+            return False
+        answers += 1
+        got = r["resultTable"]["rows"][0][0] if r["resultTable"]["rows"] \
+            else 0
+        if seen and got < seen[-1]:
+            raise AssertionError(f"{CL_RT_TABLE}: COUNT(*) went back from "
+                                 f"{seen[-1]} to {got}")
+        seen.append(got)
+        online = sum(rec.state == "ONLINE" for rec in registry.segments(
+            f"{CL_RT_TABLE}_REALTIME").values())
+        return got == n and online == n // CL_RT_FLUSH
+
+    cl_wait(settled, f"{CL_RT_TABLE}'s {n} rows and commits", 600.0)
+    ingest_s = time.perf_counter() - t
+    segs = registry.segments(f"{CL_RT_TABLE}_REALTIME")
+    log(f"cluster realtime: {n} rows published as JSON ({encode_s:.2f} s "
+        f"to encode), consumed and committed in {ingest_s:.2f} s while the "
+        f"broker answered {answers} COUNT(*) queries ({seen[0]} … "
+        f"{seen[-1]} rows); segments "
+        + ", ".join(f"{k} {v.state} {v.n_docs}" for k, v in
+                    sorted(segs.items())))
+    return {"rows": n, "ingest_s": ingest_s, "queries_while_ingesting":
+            answers, "segments": {k: [v.state, v.n_docs]
+                                  for k, v in segs.items()}}
+
+
+def cl_timing(rec: dict) -> str:
+    """A cluster query's time as the log gives it: the p50 of its timed
+    runs, or its checked (first) execution where it has none."""
+    if rec["timed_runs"]:
+        return f"p50 {rec['p50_ms']:.3f} ms over {rec['timed_runs']} run(s)"
+    return f"no timed run, the checked (first) one {rec['first_ms']:.3f} ms"
+
+
+def cl_kernels(front, k1: dict, k2: dict, k3: dict, k4: dict, k5: dict,
+               chain_ns: float) -> None:
+    """K1-K5 at the inputs the servers' engines (and the broker's stage
+    2) hand them for the cluster path's queries, captured at their entries
+    while the query goes through the front door, each held against its
+    plain version."""
+    from pinot_tpu_torch.ops import group_scatter as ps
+    from pinot_tpu_torch.ops import groupby_mm as mm
+    from pinot_tpu_torch.ops import kernels
+
+    for name in ("q1_scan_agg", "cl_star_week"):
+        for (gid, sources, G), kw in capture_calls(
+                front, CL_QUERIES[name], ps, "plane_group_sums"):
+            count = kw.get("count", True)
+            k1["shapes"].append(k1_shape(
+                f"cluster {name}: G={G}, {planes_label(sources, count)}",
+                ps.plane_group_sums, G, sources, count, gid))
+    for (gid, srcs, G), _kw in capture_calls(
+            front, CL_QUERIES["q6_minmax"], ps, "group_minmax_sources"):
+        k2["shapes"].append(k2_shape(
+            "cluster q6_minmax: " + ", ".join(
+                f"{s.values.dtype} {'+'.join(s.ops)}"
+                for s in srcs).replace("torch.", ""), gid, srcs, G))
+    k3["sizes"].append(k3_captured(front, CL_QUERIES["hll_small_group"],
+                                   "cluster hll_small_group", mm))
+    (args, kw), = capture_calls(front, CL_QUERIES["hll_scalar"], ps,
+                                "hll_register_max")
+
+    def scalar():
+        return ps.hll_register_max(*args, **kw)
+    scalar.via = "group_scatter.hll_register_max"
+    k3["sizes"].append(k3_held(args[0], kw.get("gid"),
+                               kw.get("num_groups", 1), args[1],
+                               kw.get("mask"), "cluster hll_scalar", scalar))
+    k4["sizes"].append(check_k4(
+        "the cluster's cl_week_fused",
+        *capture_fused(front, CL_QUERIES["cl_week_fused"])))
+    (args, _kw), = capture_calls(front, CL_QUERIES["pct_scalar"], kernels,
+                                 "cluster_sums")
+    k5["sizes"].append(check_k5("the cluster's pct_scalar", *args,
+                                chain_ns))
+
+
+def run_cluster(engine, dirs, bs_dirs, dim_dirs, dim_schemas: dict,
+                want: dict, total: int, runs: int, kernel_records,
+                chain_ns: float, device: str = "cuda") -> tuple:
+    """The cluster path: a ``ClusterRegistry``, a ``Controller``, two
+    ``ServerInstance``s on cuda:0 (real gRPC on localhost) and a ``Broker``
+    (stage 2 on cuda:0) behind ``BrokerHttpServer``. The tables the run
+    wrote are pushed where they lie; each query goes through the HTTP
+    front door and must equal its oracle with the broker's stats; a
+    selection streams; the realtime table commits; each kernel's launches
+    are counted per server over the path (zeroed before, read after), and
+    every kernel must launch; then each kernel is held at the cluster's
+    captured inputs, and the failover: one server stops and q1 is
+    answered whole from the replica. ``device="cpu"`` rehearses it
+    without a card: no launch counts, kernel checks or device memory.
+    Returns (summary, launches)."""
+    import torch
+    from pinot_tpu_torch.broker.broker import Broker
+    from pinot_tpu_torch.broker.http_api import BrokerHttpServer
+    from pinot_tpu_torch.cluster.registry import ClusterRegistry
+    from pinot_tpu_torch.controller.controller import Controller
+    from pinot_tpu_torch.server.server import ServerInstance
+
+    import grpc
+
+    t_path = time.perf_counter()
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    log(f"cluster path: the wire is gRPC {grpc.__version__} on localhost")
+    root = os.path.join(DATA_DIR, "cluster")
+    registry = ClusterRegistry()
+    controller = Controller(registry, os.path.join(root, "deepstore"))
+    servers = [ServerInstance(f"server_{i}", registry,
+                              os.path.join(root, f"server_{i}"), device=dev)
+               for i in range(CLUSTER_SERVERS)]
+    for s in servers:
+        s.engine.device.MAX_CACHED_BYTES = CLUSTER_BATCH_BYTES
+        # as the embedded engine's paths: no partials cache, no advisor
+        s.engine.device.partials_cache_enabled = False
+        s.engine.device.advisor = None
+        s.start()
+    broker = Broker(registry, timeout_s=600.0, device=dev)
+    http = BrokerHttpServer(broker)
+    http.start()
+    front = HttpFront(http.url)
+    summary, launches = {"servers": CLUSTER_SERVERS}, {}
+    try:
+        t = time.perf_counter()
+        cl_tables(controller, dirs, bs_dirs, dim_dirs, dim_schemas)
+        n_segs = len(dirs) + len(bs_dirs) + len(dim_dirs)
+
+        def loaded():
+            ev = [registry.external_view(t) for t in
+                  ("lineorder_OFFLINE", f"{BS_TABLE}_OFFLINE",
+                   *(f"{d}_OFFLINE" for d in dim_dirs))]
+            return sum(len(v) for v in ev) == n_segs and all(
+                len(insts) == 2 for insts in ev[0].values())
+        cl_wait(loaded, "every server's segments")
+        summary["load_s"] = time.perf_counter() - t
+        log(f"cluster: {len(dirs)} lineorder segments at replication 2, "
+            f"{len(bs_dirs)} {BS_TABLE} segments at 1, "
+            f"{len(dim_dirs)} dimension tables on every server, copied "
+            f"and loaded in {summary['load_s']:.2f} s")
+        tables = launch_tables()
+        for table in tables.values():
+            for key in table:
+                table[key] = 0
+        with count_roles(servers) as roles, spy_broker() as spy:
+            tables = launch_tables()
+            queries = {}
+            for name, sql in CL_QUERIES.items():
+                spy.reset()
+                t = time.perf_counter()
+                resp = front.execute(sql)
+                first_ms = (time.perf_counter() - t) * 1e3
+                cl_check(name, resp, want, total)
+                reduce_ms, dt_bytes = spy.reduce_s * 1e3, spy.bytes
+                times = []
+                for _ in range(TIMED_RUNS.get(name, runs)):
+                    t = time.perf_counter()
+                    front.execute(sql)
+                    times.append((time.perf_counter() - t) * 1e3)
+                queries[name] = {
+                    "p50_ms": float(np.percentile(times, 50)) if times
+                    else None, "timed_runs": len(times),
+                    "first_ms": first_ms, "reduce_ms": reduce_ms,
+                    "datatable_bytes": dt_bytes,
+                    "servers": resp["numServersResponded"]}
+                if not times:
+                    FIRST_RUN_MS[f"cluster {name}"] = first_ms
+                log(f"cluster {name}: matches the oracle through "
+                    f"/query/sql ({len(resp['resultTable']['rows'])} rows, "
+                    f"numDocsScanned {resp['numDocsScanned']}, "
+                    f"{resp['numServersResponded']} server(s)); "
+                    f"{cl_timing(queries[name])}"
+                    f"; broker reduce {reduce_ms:.3f} ms, {dt_bytes} "
+                    f"DataTable bytes")
+            summary["queries"] = queries
+            resp = front.execute(CL_EXPLAIN)
+            rows = (resp.get("resultTable") or {}).get("rows") or []
+            if resp.get("exceptions") or not rows \
+                    or not rows[0][0].startswith("BROKER_REDUCE"):
+                raise AssertionError(f"cluster EXPLAIN: {resp}")
+            log(f"cluster EXPLAIN: {len(rows)} plan rows, "
+                f"{rows[1][0].strip()}")
+            t = time.perf_counter()
+            rows, final = front.stream(CL_STREAM)
+            stream_ms = (time.perf_counter() - t) * 1e3
+            if final is None or final.get("exceptions") or sorted(
+                    map(tuple, rows)) != want["cl_stream"]:
+                raise AssertionError(f"cluster stream: {len(rows)} rows, "
+                                     f"final {final}")
+            log(f"cluster stream: {len(rows)} rows of {CL_DAY} through "
+                f"/query/sql/stream in {stream_ms:.3f} ms, the multiset "
+                f"the oracle holds")
+            summary["stream"] = {"rows": len(rows), "ms": stream_ms}
+            (rt,) = generate(1, CL_RT_ROWS, CL_RT_SEED)
+            want.update(cl_rt_oracle(rt))
+            summary["realtime"] = cl_realtime(controller, registry, front,
+                                              rt)
+            for name, sql in CL_RT_QUERIES.items():
+                resp = front.execute(sql)
+                cl_check(name, resp, want, CL_RT_ROWS)
+                log(f"cluster {name}: at quiescence equals the oracle over "
+                    f"the {CL_RT_ROWS} rows produced")
+            counts = {k: dict(v) for k, v in tables.items()}
+            per_role = {r: dict(c) for r, c in roles.per.items()}
+        log(f"cluster path launches: {json.dumps(counts)}; by role "
+            f"{json.dumps(per_role)}")
+        for name in CL_KERNELS if on_card else ():
+            if counts["kernels"][name] <= 0:
+                raise AssertionError(f"kernel {name} never launched on the "
+                                     f"cluster path")
+        for s in servers if on_card else ():
+            if sum(per_role[s.instance_id].values()) <= 0:
+                raise AssertionError(f"{s.instance_id} launched no kernel")
+        launches = counts["kernels"]
+        summary["launches_by_role"] = per_role
+        # the embedded engine over the same tables, outside the counts
+        for name, sql in CL_QUERIES.items():
+            local = []
+            for _ in range(max(1, TIMED_RUNS.get(name, runs))):
+                t = time.perf_counter()
+                engine.execute(sql)
+                local.append((time.perf_counter() - t) * 1e3)
+            rec = queries[name]
+            rec["embedded_p50_ms"] = float(np.percentile(local, 50))
+            rec["embedded_runs"] = len(local)
+            log(f"cluster {name}: through the broker {cl_timing(rec)}, "
+                f"embedded p50 {rec['embedded_p50_ms']:.3f} ms over "
+                f"{len(local)} warm run(s)")
+        if on_card:
+            cl_kernels(front, *kernel_records, chain_ns)
+        # a server dies: lineorder's replicas answer q1 whole
+        victim = servers[1]
+        victim.transport.stop(grace=0)
+        # the routing's round robin sends the next q1 to one of the two:
+        # of two asks, one reaches the victim and is retried on the
+        # replica, reported as the reference reports it (the victim
+        # queried, the replica alone responded)
+        summary["failover"] = []
+        for _ in range(2):
+            resp = front.execute(CL_QUERIES["q1_scan_agg"])
+            cl_check("q1_scan_agg", resp, want, total, whole=False)
+            summary["failover"].append({k: resp[k] for k in (
+                "numServersQueried", "numServersResponded", "numRetries")})
+        if {"numServersQueried": 2, "numServersResponded": 1,
+                "numRetries": 1} not in summary["failover"]:
+            raise AssertionError(f"cluster failover: no retry reached the "
+                                 f"replica: {summary['failover']}")
+        log(f"cluster failover: {victim.instance_id} stopped; q1 answered "
+            f"whole twice: {json.dumps(summary['failover'])}")
+        summary["peak_device_bytes"] = torch.cuda.max_memory_allocated() \
+            if on_card else None
+        summary["path_s"] = time.perf_counter() - t_path
+        log(f"cluster path: peak torch.cuda.max_memory_allocated "
+            f"{summary['peak_device_bytes']} bytes; "
+            f"{summary['path_s']:.2f} s")
+    finally:
+        http.stop()
+        broker.close()
+        for s in servers:
+            try:
+                s.stop(drain_timeout_s=0)
+            except Exception:  # noqa: BLE001 — the stopped victim's transport
+                pass
+    return summary, launches
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -7280,13 +7960,12 @@ def main(argv=None) -> int:
         k4_bound = check_k4_bound(n // ZONE_BLOCK_ROWS, dev)
         torch.cuda.empty_cache()
 
-        # the oracle runs here, beside the writes
+        # the oracle runs here, beside the writes: the paths' oracles on
+        # ORACLE_THREADS threads (numpy's loops release the GIL), the SSB
+        # and cube answers on this one; the answers merge in the order
+        # the paths are listed, the cluster's last (it reads the others)
         t = time.perf_counter()
-        want = {}
-        if "lo" in need:
-            want = oracle(data)
-            want.update(st_oracle(data, want))
-        for path, fn in (
+        jobs = [fn for path, fn in (
                 ("blockskip", lambda: bs_oracle(bs_data, pad)),
                 ("selection", lambda: sel_oracle(data, bs_data)),
                 ("sketch", lambda: sk_oracle(data)),
@@ -7299,11 +7978,19 @@ def main(argv=None) -> int:
                 ("realtime", lambda: up_oracle(up, False)),
                 ("multistage", lambda: ms_oracle(data, dims, rt,
                                                  args.rt_rows, mv)),
-                ("advisor", lambda: adv_oracle(bs_data))):
-            if path in sel:
-                want.update(fn())
+                ("advisor", lambda: adv_oracle(bs_data))) if path in sel]
         if "serving" in sel and "blockskip" not in sel:
-            want.update(bs_oracle(bs_data, pad))
+            jobs.append(lambda: bs_oracle(bs_data, pad))
+        with ThreadPoolExecutor(ORACLE_THREADS) as threads:
+            futures = [threads.submit(fn) for fn in jobs]
+            want = {}
+            if "lo" in need:
+                want = oracle(data)
+                want.update(st_oracle(data, want))
+            for future in futures:
+                want.update(future.result())
+        if "cluster" in sel:
+            want.update(cl_oracle(data, bs_data, dims, pad, want))
         if "multistage" in sel:
             QUERY_LAUNCHES.update(ms_launches(want, PALLAS_MIN_ROWS))
         oracle_s = time.perf_counter() - t
@@ -7344,6 +8031,7 @@ def main(argv=None) -> int:
                  "values": total + len(v2["d_year"]),
                  "tail": TRIPS_SEGMENTS * rows,
                  "realtime": total + args.rt_rows}
+    dim_schemas = {k: ms_dim_schema(k, v) for k, v in dims.items()}
     del data, bs_data, mv, ev, v2, trips, dims
     log(f"numpy oracle: {oracle_s:.2f} s beside the writes, "
         f"{time.perf_counter() - t:.2f} s after them")
@@ -7576,6 +8264,15 @@ def main(argv=None) -> int:
         for name, count in counts.items():
             launches[name] += count
         log(f"mesh path: {time.perf_counter() - t:.2f} s")
+    cluster = None
+    if "cluster" in sel:
+        t = time.perf_counter()
+        cluster, counts = run_cluster(
+            engine, dirs, bs_dirs, dim_dirs, dim_schemas, want, total,
+            args.runs, (k1, k2, k3, k4, k5), dadd["ns"])
+        for name, count in counts.items():
+            launches[name] += count
+        log(f"cluster path: {time.perf_counter() - t:.2f} s")
     hbm = engine.device.hbm_stats()
     log(f"batch LRU: {hbm['cached_batches']} batches, {hbm['resident_bytes']} "
         f"resident bytes of a {hbm['max_cached_bytes']}-byte budget; "
@@ -7614,12 +8311,14 @@ def main(argv=None) -> int:
         entry.update(member_records[name])
         entries.append(entry)
     log(json.dumps({"query_p50_ms": p50, "rows": total,
+                    "first_run_ms": FIRST_RUN_MS,
                     "paths": sel,
                     "serving": serving,
                     "realtime": realtime,
                     "multistage": multistage,
                     "advisor": advisor,
                     "mesh": mesh,
+                    "cluster": cluster,
                     "trips_rows": path_rows["tail"],
                     "trips_resident_bytes": {"subbyte": sub_bytes,
                                              "wide": wide_bytes},

@@ -1526,6 +1526,20 @@ class DeviceExecutor:
                       if any(match in d for d in k[1])]:
                 self._partials_drop_locked(k, invalidation=True)
 
+    def resident_bytes(self) -> int:
+        """Device bytes of the cached batches' planes (each batch's
+        counter read without its lock)."""
+        with self._lock:
+            batches = list(self._batches.values())
+        return sum(b.resident_bytes for b in batches)
+
+    def narrow_saved_bytes(self) -> int:
+        """Bytes the width plans of the cached batches saved against the
+        wide layout."""
+        with self._lock:
+            batches = list(self._batches.values())
+        return sum(b.narrow_saved_bytes for b in batches)
+
     def hbm_stats(self) -> dict:
         """Batch-LRU, partials-cache, recovery and roofline snapshot."""
         with self._lock:

@@ -257,7 +257,7 @@ class QueryEngine:
             if q.explain:
                 if q.analyze:
                     return self._explain_analyze(q, t0)
-                return explain_plan(self, q)
+                return self._explain(q)
             result, merged = self._execute_merged(q)
         except Exception as e:  # noqa: BLE001 — exceptions are reported in-band
             return {"exceptions": [{"errorCode": 200,
@@ -316,7 +316,7 @@ class QueryEngine:
         try:
             if not segments:
                 raise ValueError(f"table {q.table_name!r} has no segments")
-            q = expand_star(q, segments[0].column_names())
+            q = self._expand_star(q, segments[0])
             merged = self.execute_segments_async(q, segments, terminal=True,
                                                  tracer=tracer)()
             return finalize(q, merged), merged
@@ -418,7 +418,7 @@ class QueryEngine:
             # every segment pruned where it cannot stay in a batch: as the
             # reference, an empty partial of the whole first segment under
             # a FALSE filter
-            launch_q = dataclasses.replace(q, filter=FilterNode.FALSE)
+            launch_q = _impossible(q)
             executed = [segments[0]]
             plan = [("batch", [segments[0]], [True], False)
                     if segment_device_eligible(segments[0])
@@ -579,6 +579,14 @@ class QueryEngine:
         self._dim_cache[key] = (gen, mapping, default)
         return mapping, default
 
+    @staticmethod
+    def _expand_star(q: QueryContext, seg) -> QueryContext:
+        """``SELECT *`` expanded over a segment's columns."""
+        return expand_star(q, seg.column_names())
+
+    def _explain(self, q: QueryContext) -> dict:
+        return explain_plan(self, q)
+
     def _explain_analyze(self, q: QueryContext, t0: float) -> dict:
         """EXPLAIN ANALYZE: run the query for real, traced and with the
         partials cache bypassed (a hit would skip the kernel ANALYZE
@@ -594,3 +602,9 @@ class QueryEngine:
         out = annotate_analyze(explain_plan(self, q), resp)
         out["analyzedResponse"] = resp
         return out
+
+
+def _impossible(q: QueryContext) -> QueryContext:
+    """``q`` with a filter no row passes: the empty block a server answers
+    when every segment of a stream was skipped."""
+    return dataclasses.replace(q, filter=FilterNode.FALSE)

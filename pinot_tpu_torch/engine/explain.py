@@ -302,7 +302,9 @@ def explain_plan(engine, q: QueryContext) -> dict:
         shape = "AGGREGATE"
     else:
         shape = "SELECT_ORDERBY" if q.order_by else "SELECT"
-    device_shape = engine.device.supports(q)
+    # the broker renders without an executor (its servers pick the
+    # shape), as the reference's broker renders its host label
+    device_shape = engine.device is not None and engine.device.supports(q)
     backend = BACKEND_DEVICE if device_shape else BACKEND_HOST_SHAPE
     tdm = engine.tables.get(q.table_name)
     segs = list(tdm.segments.values()) if tdm is not None else []

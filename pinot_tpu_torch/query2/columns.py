@@ -158,6 +158,24 @@ def literal(value, device) -> Col:
                a.reshape(1))
 
 
+def host_col(a: np.ndarray, device):
+    """A stage-1 column the broker decoded from its leaf's rows, on
+    ``device``: numbers at their numpy dtype, strings coded into their
+    sorted distinct values, a column of per-row lists as an MV column."""
+    a = np.asarray(a)
+    if a.dtype.kind in "biuf":
+        return Col(to_device(a, device), a.dtype)
+    if a.dtype.kind == "O" and any(isinstance(v, (list, tuple, np.ndarray))
+                                   for v in a):
+        lens = np.fromiter((len(v) for v in a), dtype=np.int64, count=len(a))
+        flat = np.asarray([x for v in a for x in v]) if lens.sum() \
+            else np.zeros(0, dtype=np.float64)
+        starts = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+        return MVCol(host_col(flat, device), to_device(starts, device),
+                     to_device(lens, device))
+    return of_strings(torch.arange(len(a), device=device), a)
+
+
 def of_strings(codes: torch.Tensor, values: np.ndarray) -> Col:
     """A string column of ids ``codes`` into ``values`` (any order, with
     repeats): recoded into the sorted distinct values."""

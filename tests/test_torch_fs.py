@@ -34,13 +34,17 @@ PORTED = ("storage.fs", "storage.s3fs", "storage.gcsfs", "storage.adlsfs",
 def as_port(monkeypatch):
     """The JAX package's storage and plugin modules swapped for the
     port's, so a reference test body imports the port's classes: in
-    ``sys.modules`` and as attributes of their packages, which an earlier
-    import of the reference's module has already set."""
+    ``sys.modules`` and as attributes of their packages. Whether an
+    earlier import in this process set that attribute depends on which
+    files ran before, so it is set whether or not it exists
+    (``raising=False``): teardown then restores the earlier module or
+    removes the attribute the fixture added."""
     for rel in PORTED:
         mod = importlib.import_module(f"pinot_tpu_torch.{rel}")
         monkeypatch.setitem(sys.modules, f"pinot_tpu.{rel}", mod)
         parent, _, name = f"pinot_tpu.{rel}".rpartition(".")
-        monkeypatch.setattr(importlib.import_module(parent), name, mod)
+        monkeypatch.setattr(importlib.import_module(parent), name, mod,
+                            raising=False)
     from pinot_tpu.storage import fs as swapped
 
     assert swapped.__name__ == "pinot_tpu_torch.storage.fs"
