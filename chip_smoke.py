@@ -788,8 +788,9 @@ SERVE_ENTRIES = {
 SERVE_REPEATS = 6      # serve_partials: one miss, then hits
 SERVE_RELEASES = 9     # serve_cohort: timed releases (and solo passes)
 SERVE_SWEEP_THREADS = (1, 2, 4, 8)
-SERVE_SWEEP_QUERIES = 80   # per thread count and coalescer setting (320
-                           # until the cluster path needed the run's time)
+SERVE_SWEEP_QUERIES = 40   # per thread count and coalescer setting (320,
+                           # then 80, until the cluster path and the m3
+                           # phases needed the run's time)
 PROBE_MAX_OF_PEAK = 1.05   # the probe against HBM_BYTES_PER_S
 
 
@@ -4356,7 +4357,9 @@ RT_NULL_EVERY = 997     # every 997th consuming row arrives without lo_discount
 RT_WHILE_RUNS = 20
 UP_TABLE = "lineorder_up"
 UP_SEED = 73
-UP_ROWS = 1_000_000     # each of 2 sealed segments, and the consuming one
+UP_ROWS = 500_000       # each of 2 sealed segments, and the consuming one
+                        # (1,000,000 until the m3 phases needed the run's
+                        # time: the row-at-a-time upsert took 42 s)
 UP_KEYS = 1_000_000     # lo_orderkey drawn from these, with repeats
 UP_FLIP = 0.10          # the share of present keys a later wave updates
 UP_NEWER = 19990101     # the wave's lo_orderdate: past every drawn date
@@ -6298,7 +6301,8 @@ def run_advisor(engine, bs_segs: list, want: dict, total: int,
 # every path, in the order a run takes them (``--paths`` selects some);
 # the serving, advisor and mesh paths run after the others
 ALL_PATHS = [p for p in PATHS if p != "mesh"] + ["serving", "advisor", "mesh",
-                                                 "cluster"]
+                                                 "cluster", "exchange",
+                                                 "tier", "fleet", "minion"]
 # the tables each path reads: lineorder ("lo") and the others
 PATH_TABLES = {
     "ssb": {"lo"}, "hll": {"lo"}, "startree": {"lo"}, "sketch": {"lo"},
@@ -6309,6 +6313,9 @@ PATH_TABLES = {
     "multistage": {"lo", "rt", "dims", "mv"}, "serving": {"lo", "bs"},
     "advisor": {"bs"}, "mesh": {"lo", "bs", "rt", "dims"},
     "cluster": {"lo", "bs", "dims"},
+    # ROADMAP m3's phases run on the cluster path's registry and tables
+    "exchange": {"lo", "bs", "dims"}, "tier": {"lo", "bs", "dims"},
+    "fleet": {"lo", "bs", "dims"}, "minion": {"lo", "bs", "dims"},
 }
 
 
@@ -7361,6 +7368,9 @@ class count_roles:
 
             self.saved.append((eng, real))
             eng.execute_segments_async = launch
+            # a distributed stage-2 slice runs on the server's thread
+            s._execute_stage_inner = tagged(s.instance_id,
+                                            s._execute_stage_inner)
         return self
 
     def __exit__(self, *exc):
@@ -7370,6 +7380,8 @@ class count_roles:
         kernels.launches = self.real
         for eng, _real in self.saved:
             del eng.execute_segments_async
+        for s in self.servers:
+            del s._execute_stage_inner
         return False
 
 
@@ -7598,7 +7610,8 @@ def cl_kernels(front, k1: dict, k2: dict, k3: dict, k4: dict, k5: dict,
 
 def run_cluster(engine, dirs, bs_dirs, dim_dirs, dim_schemas: dict,
                 want: dict, total: int, runs: int, kernel_records,
-                chain_ns: float, device: str = "cuda") -> tuple:
+                chain_ns: float, device: str = "cuda",
+                phases=("cluster",)) -> tuple:
     """The cluster path: a ``ClusterRegistry``, a ``Controller``, two
     ``ServerInstance``s on cuda:0 (real gRPC on localhost) and a ``Broker``
     (stage 2 on cuda:0) behind ``BrokerHttpServer``. The tables the run
@@ -7610,7 +7623,12 @@ def run_cluster(engine, dirs, bs_dirs, dim_dirs, dim_schemas: dict,
     captured inputs, and the failover: one server stops and q1 is
     answered whole from the replica. ``device="cpu"`` rehearses it
     without a card: no launch counts, kernel checks or device memory.
-    Returns (summary, launches)."""
+
+    ``phases``: the cluster path's own queries ("cluster") and ROADMAP
+    item m3's phases on the same registry, servers, broker and tables
+    (``M3_PATHS``: the exchange, the tiered server, the fleet, the
+    minion), in that order, before the failover. Returns (summary,
+    launches), the phases' launches added up."""
     import torch
     from pinot_tpu_torch.broker.broker import Broker
     from pinot_tpu_torch.broker.http_api import BrokerHttpServer
@@ -7660,115 +7678,144 @@ def run_cluster(engine, dirs, bs_dirs, dim_dirs, dim_schemas: dict,
             f"{len(bs_dirs)} {BS_TABLE} segments at 1, "
             f"{len(dim_dirs)} dimension tables on every server, copied "
             f"and loaded in {summary['load_s']:.2f} s")
-        tables = launch_tables()
-        for table in tables.values():
-            for key in table:
-                table[key] = 0
-        with count_roles(servers) as roles, spy_broker() as spy:
-            tables = launch_tables()
-            queries = {}
-            for name, sql in CL_QUERIES.items():
-                spy.reset()
-                t = time.perf_counter()
-                resp = front.execute(sql)
-                first_ms = (time.perf_counter() - t) * 1e3
-                cl_check(name, resp, want, total)
-                reduce_ms, dt_bytes = spy.reduce_s * 1e3, spy.bytes
-                times = []
-                for _ in range(TIMED_RUNS.get(name, runs)):
+        launches, rt = {}, None
+        if "cluster" in phases:
+            _zeroed_launches()
+            with count_roles(servers) as roles, spy_broker() as spy:
+                tables = launch_tables()
+                queries = {}
+                for name, sql in CL_QUERIES.items():
+                    spy.reset()
                     t = time.perf_counter()
-                    front.execute(sql)
-                    times.append((time.perf_counter() - t) * 1e3)
-                queries[name] = {
-                    "p50_ms": float(np.percentile(times, 50)) if times
-                    else None, "timed_runs": len(times),
-                    "first_ms": first_ms, "reduce_ms": reduce_ms,
-                    "datatable_bytes": dt_bytes,
-                    "servers": resp["numServersResponded"]}
-                if not times:
-                    FIRST_RUN_MS[f"cluster {name}"] = first_ms
-                log(f"cluster {name}: matches the oracle through "
-                    f"/query/sql ({len(resp['resultTable']['rows'])} rows, "
-                    f"numDocsScanned {resp['numDocsScanned']}, "
-                    f"{resp['numServersResponded']} server(s)); "
-                    f"{cl_timing(queries[name])}"
-                    f"; broker reduce {reduce_ms:.3f} ms, {dt_bytes} "
-                    f"DataTable bytes")
-            summary["queries"] = queries
-            resp = front.execute(CL_EXPLAIN)
-            rows = (resp.get("resultTable") or {}).get("rows") or []
-            if resp.get("exceptions") or not rows \
-                    or not rows[0][0].startswith("BROKER_REDUCE"):
-                raise AssertionError(f"cluster EXPLAIN: {resp}")
-            log(f"cluster EXPLAIN: {len(rows)} plan rows, "
-                f"{rows[1][0].strip()}")
-            t = time.perf_counter()
-            rows, final = front.stream(CL_STREAM)
-            stream_ms = (time.perf_counter() - t) * 1e3
-            if final is None or final.get("exceptions") or sorted(
-                    map(tuple, rows)) != want["cl_stream"]:
-                raise AssertionError(f"cluster stream: {len(rows)} rows, "
-                                     f"final {final}")
-            log(f"cluster stream: {len(rows)} rows of {CL_DAY} through "
-                f"/query/sql/stream in {stream_ms:.3f} ms, the multiset "
-                f"the oracle holds")
-            summary["stream"] = {"rows": len(rows), "ms": stream_ms}
+                    resp = front.execute(sql)
+                    first_ms = (time.perf_counter() - t) * 1e3
+                    cl_check(name, resp, want, total)
+                    reduce_ms, dt_bytes = spy.reduce_s * 1e3, spy.bytes
+                    times = []
+                    for _ in range(TIMED_RUNS.get(name, runs)):
+                        t = time.perf_counter()
+                        front.execute(sql)
+                        times.append((time.perf_counter() - t) * 1e3)
+                    queries[name] = {
+                        "p50_ms": float(np.percentile(times, 50)) if times
+                        else None, "timed_runs": len(times),
+                        "first_ms": first_ms, "reduce_ms": reduce_ms,
+                        "datatable_bytes": dt_bytes,
+                        "servers": resp["numServersResponded"]}
+                    if not times:
+                        FIRST_RUN_MS[f"cluster {name}"] = first_ms
+                    log(f"cluster {name}: matches the oracle through "
+                        f"/query/sql ({len(resp['resultTable']['rows'])} rows, "
+                        f"numDocsScanned {resp['numDocsScanned']}, "
+                        f"{resp['numServersResponded']} server(s)); "
+                        f"{cl_timing(queries[name])}"
+                        f"; broker reduce {reduce_ms:.3f} ms, {dt_bytes} "
+                        f"DataTable bytes")
+                summary["queries"] = queries
+                resp = front.execute(CL_EXPLAIN)
+                rows = (resp.get("resultTable") or {}).get("rows") or []
+                if resp.get("exceptions") or not rows \
+                        or not rows[0][0].startswith("BROKER_REDUCE"):
+                    raise AssertionError(f"cluster EXPLAIN: {resp}")
+                log(f"cluster EXPLAIN: {len(rows)} plan rows, "
+                    f"{rows[1][0].strip()}")
+                t = time.perf_counter()
+                rows, final = front.stream(CL_STREAM)
+                stream_ms = (time.perf_counter() - t) * 1e3
+                if final is None or final.get("exceptions") or sorted(
+                        map(tuple, rows)) != want["cl_stream"]:
+                    raise AssertionError(f"cluster stream: {len(rows)} rows, "
+                                         f"final {final}")
+                log(f"cluster stream: {len(rows)} rows of {CL_DAY} through "
+                    f"/query/sql/stream in {stream_ms:.3f} ms, the multiset "
+                    f"the oracle holds")
+                summary["stream"] = {"rows": len(rows), "ms": stream_ms}
+                (rt,) = generate(1, CL_RT_ROWS, CL_RT_SEED)
+                want.update(cl_rt_oracle(rt))
+                summary["realtime"] = cl_realtime(controller, registry, front,
+                                                  rt)
+                for name, sql in CL_RT_QUERIES.items():
+                    resp = front.execute(sql)
+                    cl_check(name, resp, want, CL_RT_ROWS)
+                    log(f"cluster {name}: at quiescence equals the oracle over "
+                        f"the {CL_RT_ROWS} rows produced")
+                counts = {k: dict(v) for k, v in tables.items()}
+                per_role = {r: dict(c) for r, c in roles.per.items()}
+            log(f"cluster path launches: {json.dumps(counts)}; by role "
+                f"{json.dumps(per_role)}")
+            for name in CL_KERNELS if on_card else ():
+                if counts["kernels"][name] <= 0:
+                    raise AssertionError(f"kernel {name} never launched on the "
+                                         f"cluster path")
+            for s in servers if on_card else ():
+                if sum(per_role[s.instance_id].values()) <= 0:
+                    raise AssertionError(f"{s.instance_id} launched no kernel")
+            launches = counts["kernels"]
+            summary["launches_by_role"] = per_role
+            # the embedded engine over the same tables, outside the counts
+            for name, sql in CL_QUERIES.items():
+                local = []
+                for _ in range(max(1, TIMED_RUNS.get(name, runs))):
+                    t = time.perf_counter()
+                    engine.execute(sql)
+                    local.append((time.perf_counter() - t) * 1e3)
+                rec = queries[name]
+                rec["embedded_p50_ms"] = float(np.percentile(local, 50))
+                rec["embedded_runs"] = len(local)
+                log(f"cluster {name}: through the broker {cl_timing(rec)}, "
+                    f"embedded p50 {rec['embedded_p50_ms']:.3f} ms over "
+                    f"{len(local)} warm run(s)")
+            if on_card:
+                cl_kernels(front, *kernel_records, chain_ns)
+        if "minion" in phases and rt is None:
+            # the minion's realtime-to-offline reads lineorder_cl
             (rt,) = generate(1, CL_RT_ROWS, CL_RT_SEED)
-            want.update(cl_rt_oracle(rt))
             summary["realtime"] = cl_realtime(controller, registry, front,
                                               rt)
-            for name, sql in CL_RT_QUERIES.items():
-                resp = front.execute(sql)
-                cl_check(name, resp, want, CL_RT_ROWS)
-                log(f"cluster {name}: at quiescence equals the oracle over "
-                    f"the {CL_RT_ROWS} rows produced")
-            counts = {k: dict(v) for k, v in tables.items()}
-            per_role = {r: dict(c) for r, c in roles.per.items()}
-        log(f"cluster path launches: {json.dumps(counts)}; by role "
-            f"{json.dumps(per_role)}")
-        for name in CL_KERNELS if on_card else ():
-            if counts["kernels"][name] <= 0:
-                raise AssertionError(f"kernel {name} never launched on the "
-                                     f"cluster path")
-        for s in servers if on_card else ():
-            if sum(per_role[s.instance_id].values()) <= 0:
-                raise AssertionError(f"{s.instance_id} launched no kernel")
-        launches = counts["kernels"]
-        summary["launches_by_role"] = per_role
-        # the embedded engine over the same tables, outside the counts
-        for name, sql in CL_QUERIES.items():
-            local = []
-            for _ in range(max(1, TIMED_RUNS.get(name, runs))):
-                t = time.perf_counter()
-                engine.execute(sql)
-                local.append((time.perf_counter() - t) * 1e3)
-            rec = queries[name]
-            rec["embedded_p50_ms"] = float(np.percentile(local, 50))
-            rec["embedded_runs"] = len(local)
-            log(f"cluster {name}: through the broker {cl_timing(rec)}, "
-                f"embedded p50 {rec['embedded_p50_ms']:.3f} ms over "
-                f"{len(local)} warm run(s)")
-        if on_card:
-            cl_kernels(front, *kernel_records, chain_ns)
-        # a server dies: lineorder's replicas answer q1 whole
-        victim = servers[1]
-        victim.transport.stop(grace=0)
-        # the routing's round robin sends the next q1 to one of the two:
-        # of two asks, one reaches the victim and is retried on the
-        # replica, reported as the reference reports it (the victim
-        # queried, the replica alone responded)
-        summary["failover"] = []
-        for _ in range(2):
-            resp = front.execute(CL_QUERIES["q1_scan_agg"])
-            cl_check("q1_scan_agg", resp, want, total, whole=False)
-            summary["failover"].append({k: resp[k] for k in (
-                "numServersQueried", "numServersResponded", "numRetries")})
-        if {"numServersQueried": 2, "numServersResponded": 1,
-                "numRetries": 1} not in summary["failover"]:
-            raise AssertionError(f"cluster failover: no retry reached the "
-                                 f"replica: {summary['failover']}")
-        log(f"cluster failover: {victim.instance_id} stopped; q1 answered "
-            f"whole twice: {json.dumps(summary['failover'])}")
+        launches = dict(launches)
+        records = kernel_records or (None,) * 5
+
+        def add(counts):
+            for name, count in counts.items():
+                launches[name] = launches.get(name, 0) + count
+        if "exchange" in phases:
+            week = (summary.get("queries") or {}).get("cl_star_week") or {}
+            summary["exchange"], counts = m3_exchange(
+                front, broker, servers, want, runs,
+                tuple(records[i] for i in (0, 2, 4)), chain_ns,
+                week.get("first_ms"), on_card)
+            add(counts)
+        if "tier" in phases:
+            summary["tier"], counts = m3_tier(
+                bs_dirs, want, dev, runs, records[:4], on_card)
+            add(counts)
+        if "fleet" in phases:
+            summary["fleet"] = m3_fleet(registry, broker, http, bs_dirs, want,
+                                        on_card, dev)
+        if "minion" in phases:
+            summary["minion"], counts = m3_minion(registry, controller, rt,
+                                                  want, dev, on_card)
+            add(counts)
+        if "cluster" in phases:
+            # a server dies: lineorder's replicas answer q1 whole
+            victim = servers[1]
+            victim.transport.stop(grace=0)
+            # the routing's round robin sends the next q1 to one of the two:
+            # of two asks, one reaches the victim and is retried on the
+            # replica, reported as the reference reports it (the victim
+            # queried, the replica alone responded)
+            summary["failover"] = []
+            for _ in range(2):
+                resp = front.execute(CL_QUERIES["q1_scan_agg"])
+                cl_check("q1_scan_agg", resp, want, total, whole=False)
+                summary["failover"].append({k: resp[k] for k in (
+                    "numServersQueried", "numServersResponded", "numRetries")})
+            if {"numServersQueried": 2, "numServersResponded": 1,
+                    "numRetries": 1} not in summary["failover"]:
+                raise AssertionError(f"cluster failover: no retry reached the "
+                                     f"replica: {summary['failover']}")
+            log(f"cluster failover: {victim.instance_id} stopped; q1 answered "
+                f"whole twice: {json.dumps(summary['failover'])}")
         summary["peak_device_bytes"] = torch.cuda.max_memory_allocated() \
             if on_card else None
         summary["path_s"] = time.perf_counter() - t_path
@@ -7784,6 +7831,762 @@ def run_cluster(engine, dirs, bs_dirs, dim_dirs, dim_schemas: dict,
             except Exception:  # noqa: BLE001 — the stopped victim's transport
                 pass
     return summary, launches
+
+
+# ---------------------------------------------------------------------------
+# ROADMAP item m3's phases, on the cluster path's registry, tables and
+# oracle answers: the distributed stage-2 exchange, the tiers, the broker
+# fleet with an OS-process server, the minion
+# ---------------------------------------------------------------------------
+
+M3_PATHS = ("exchange", "tier", "fleet", "minion")
+_XC = "SET joinStrategy = 'distributed'; "
+# one join each (the exchange takes exactly one): a month of lineorder
+# (~1.19M joined rows) against customer or supplier
+XC_QUERIES = {
+    "xc_nation": (
+        f"{_XC}SELECT c.c_nation, COUNT(*), SUM(lo.lo_revenue), "
+        f"SUM(lo.lo_quantity) FROM {_MS_CM} GROUP BY c.c_nation "
+        f"ORDER BY c.c_nation LIMIT 30"),
+    "xc_pct_nation": (
+        f"{_XC}SELECT c.c_nation, PERCENTILETDIGEST(lo.lo_revenue, 50) "
+        f"FROM {_MS_CM} GROUP BY c.c_nation ORDER BY c.c_nation LIMIT 30"),
+    "xc_rawhll_region": (
+        f"{_XC}SELECT s.s_region, COUNT(*), "
+        f"DISTINCTCOUNTRAWHLL(lo.lo_custkey) FROM {_MS_SM} "
+        f"GROUP BY s.s_region ORDER BY s.s_region"),
+}
+# held to the broker-local form bit for bit (their integer measures and
+# the raw HLL's registers)
+XC_LOCAL = ("xc_nation", "xc_rawhll_region")
+XC_KERNELS = ("group_plane_sums", "hll_register_max", "cluster_sums")
+XC_RUNS = 3   # timed runs of each distributed query
+# the tiered server: lineorder_by_date's segments, sorted by date, are
+# hot (the first TIER_HOT), warm (the next TIER_WARM) and cold (the rest)
+TIER_HOT, TIER_WARM = 4, 2
+TIER_KERNELS = ("group_plane_sums", "group_minmax", "hll_register_max",
+                "fused_filter_agg")
+# the fleet's OS-process server: lineorder_by_date's first segments (cut
+# from 8, for the process's start and the copies it loads)
+FLEET_SEGMENTS = 2
+# the minion: the purged segment of lineorder_by_date and its filter, the
+# realtime-to-offline windows over lineorder_cl (two years, merge-rolled
+# up after)
+MN_PURGE_SEGMENT = 7
+MN_PURGE_FILTER = "lo_discount = 0"
+MN_WINDOWS = ((19930101, 19940101), (19940101, 19950101))
+MN_CHECK = ("SELECT lo_discount, COUNT(*), SUM(lo_revenue) FROM t "
+            "GROUP BY lo_discount ORDER BY lo_discount LIMIT 20")
+
+
+def _discount_rows(disc, rev) -> list:
+    """MN_CHECK's rows over the given rows."""
+    cnt = np.bincount(disc, minlength=11)
+    rs = np.bincount(disc, weights=rev.astype(np.float64), minlength=11)
+    return [[k, int(cnt[k]), float(rs[k])] for k in range(11) if cnt[k]]
+
+
+def m3_oracle(data: list, bs_data: list, dims: dict) -> dict:
+    """The m3 phases' answers from the generated columns: the exchange's
+    three joins over a month, the tiers' date bounds and their queries
+    over the sorted copy, the fleet's q1 over its segments, the purge's
+    check over the rows it keeps."""
+    c = {k: np.concatenate([d[k] for d in data])
+         for k in ("lo_custkey", "lo_suppkey", "lo_orderdate", "lo_revenue",
+                   "lo_quantity")}
+    od = c["lo_orderdate"]
+    month = (od >= 19930301) & (od <= 19930328)
+    cu, su = dims["customer"], dims["supplier"]
+    c_nat = np.full(CUSTOMERS + 1, -1, dtype=np.int64)
+    c_nat[cu["c_custkey"]] = np.searchsorted(NATIONS, cu["c_nation"])
+    s_reg = np.full(SUPPLIERS + 1, -1, dtype=np.int64)
+    s_reg[su["s_suppkey"]] = np.searchsorted(REGIONS, su["s_region"])
+    rev = c["lo_revenue"][month].astype(np.int64)
+    qty = c["lo_quantity"][month].astype(np.int64)
+    cn = c_nat[c["lo_custkey"][month]]
+    keep = cn >= 0
+    cnt = np.bincount(cn[keep], minlength=25)
+    rs = np.bincount(cn[keep], weights=rev[keep].astype(np.float64),
+                     minlength=25)
+    qs = np.bincount(cn[keep], weights=qty[keep].astype(np.float64),
+                     minlength=25)
+    out = {"xc_nation": [[str(NATIONS[k]), int(cnt[k]), float(rs[k]),
+                          float(qs[k])] for k in range(25) if cnt[k]],
+           "xc_nation_joined": int(keep.sum())}
+    out["xc_pct_nation"] = _rank_checker(
+        "xc_pct_nation", [(str(NATIONS[k]), rev[keep][cn[keep] == k])
+                          for k in range(25) if cnt[k]], 0.5, 100.0)
+    sr = s_reg[c["lo_suppkey"][month]]
+    cnt = np.bincount(sr[sr >= 0], minlength=5)
+    counts = [[str(REGIONS[k]), int(cnt[k])] for k in range(5) if cnt[k]]
+
+    def rawhll(got):
+        # the registers themselves are held to the broker-local form
+        if [r[:2] for r in got] != counts:
+            raise AssertionError(f"xc_rawhll_region: {[r[:2] for r in got]}"
+                                 f" want {counts}")
+    out["xc_rawhll_region"] = rawhll
+    out["xc_rawhll_region_joined"] = int((sr >= 0).sum())
+
+    # the tiers: segment i of the sorted copy holds a run of dates
+    lo_of = [int(d["lo_orderdate"].min()) for d in bs_data]
+    hi_of = [int(d["lo_orderdate"].max()) for d in bs_data]
+    hot_hi = lo_of[TIER_HOT]   # dates below it lie in the hot segments only
+    warm = (hi_of[TIER_HOT - 1], lo_of[TIER_HOT + TIER_WARM])  # exclusive
+    if not CL_WEEK[0] >= lo_of[0] or not CL_WEEK[1] < hot_hi:
+        raise AssertionError(f"the K4 week is not in the hot segments: "
+                             f"{lo_of}, {hi_of}")
+    b = {k: np.concatenate([d[k] for d in bs_data]) for k in bs_data[0]}
+    bod, bsupp = b["lo_orderdate"], b["lo_suppkey"]
+    brev = b["lo_revenue"].astype(np.int64)
+    disc = b["lo_discount"]
+    hot = bod < hot_hi
+    wm = (bod > warm[0]) & (bod < warm[1])
+    out["tier_bounds"] = {"hot_hi": hot_hi, "warm": warm, "lo": lo_of,
+                          "hi": hi_of}
+    out["tier_hot_q1"] = (_q1_rows(_supp_sums(bsupp[hot], brev[hot])),
+                          int(hot.sum()))
+    out["tier_hot_q6"] = (_q6_rows(b, hot & (disc >= 1) & (disc <= 3)),
+                          int((hot & (disc >= 1) & (disc <= 3)).sum()))
+    m = hot & (disc >= 1) & (disc <= 3)
+    idx, rho = hll_idx_rho(fmix32(b["lo_custkey"]), LOG2M)
+    est = hll_estimates(idx, rho, np.where(m, 0, -1), 1, LOG2M)
+    out["tier_hot_hll"] = ([[int(m.sum()), int(est[0])]], int(m.sum()))
+    m = (bod >= CL_WEEK[0]) & (bod <= CL_WEEK[1])
+    q, r = b["lo_quantity"][m], brev[m]
+    out["tier_hot_k4"] = ([[int(m.sum()), float(q.sum()), float(r.min()),
+                            float(r.max())]], int(m.sum()))
+    out["tier_warm_q1"] = (_q1_rows(_supp_sums(bsupp[wm], brev[wm])),
+                           int(wm.sum()))
+    out["tier_all_q1"] = (_q1_rows(_supp_sums(bsupp, brev)), len(bsupp))
+    n_fleet = sum(len(d["lo_orderdate"]) for d in bs_data[:FLEET_SEGMENTS])
+    out["fleet_q1"] = (_q1_rows(_supp_sums(bsupp[:n_fleet],
+                                           brev[:n_fleet])), n_fleet)
+    d = bs_data[MN_PURGE_SEGMENT]
+    kept = d["lo_discount"] != 0
+    out["mn_purge"] = _discount_rows(d["lo_discount"][kept],
+                                     d["lo_revenue"][kept])
+    return out
+
+
+def m3_tier_queries(bounds: dict) -> dict:
+    """The tiered server's queries: q1's and q6's shapes, a scalar HLL and
+    the K4 week over the hot segments (dates below the first warm
+    segment's), q1's shape over the warm segments' dates, and q1 over the
+    whole table, which touches the cold segments."""
+    hot = f"lo_orderdate < {bounds['hot_hi']}"
+    lo, hi = bounds["warm"]
+    t = BS_TABLE
+    return {
+        "tier_hot_q1": (f"SELECT lo_suppkey, SUM(lo_revenue) FROM {t} WHERE "
+                        f"{hot} GROUP BY lo_suppkey ORDER BY SUM(lo_revenue) "
+                        f"DESC LIMIT 10"),
+        "tier_hot_q6": QUERIES["q6_minmax"].replace(
+            "FROM lineorder", f"FROM {t}").replace(
+            "WHERE lo_discount", f"WHERE {hot} AND lo_discount"),
+        "tier_hot_hll": (f"SELECT COUNT(*), DISTINCTCOUNTHLL(lo_custkey) "
+                         f"FROM {t} WHERE {hot} AND lo_discount BETWEEN 1 "
+                         f"AND 3"),
+        # a week: on its one segment the blocks stay under block skip's
+        # bound (a month's pass it there, and take the dense form)
+        "tier_hot_k4": CL_QUERIES["cl_week_fused"],
+        "tier_warm_q1": (f"SELECT lo_suppkey, SUM(lo_revenue) FROM {t} WHERE "
+                         f"lo_orderdate > {lo} AND lo_orderdate < {hi} "
+                         f"GROUP BY lo_suppkey ORDER BY SUM(lo_revenue) DESC "
+                         f"LIMIT 10"),
+        "tier_all_q1": QUERIES["q1_scan_agg"].replace(
+            "FROM lineorder", f"FROM {t}"),
+    }
+
+
+def m3_check(name: str, resp: dict, rows_want, scanned=None) -> None:
+    """A broker answer of an m3 phase: no exception, not partial, the rows
+    (or their own check), numDocsScanned where given."""
+    if resp.get("exceptions"):
+        raise AssertionError(f"{name}: {resp['exceptions']}")
+    if resp.get("partialResult"):
+        raise AssertionError(f"{name}: partial answer {resp}")
+    got = resp["resultTable"]["rows"]
+    if callable(rows_want):
+        rows_want(got)
+    elif not rows_equal(got, rows_want):
+        raise AssertionError(f"{name}: rows {got[:5]} want {rows_want[:5]}")
+    if scanned is not None and resp["numDocsScanned"] != scanned:
+        raise AssertionError(f"{name}: numDocsScanned "
+                             f"{resp['numDocsScanned']}, want {scanned}")
+
+
+def _zeroed_launches() -> dict:
+    tables = launch_tables()
+    for table in tables.values():
+        for key in table:
+            table[key] = 0
+    return tables
+
+
+def _timed(fn, runs: int) -> list:
+    times = []
+    for _ in range(runs):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return times
+
+
+def m3_exchange(front, broker, servers, want: dict, runs: int, records,
+                chain_ns: float, local_week_ms, on_card: bool) -> tuple:
+    """The distributed stage-2 exchange on the cluster's two servers: the
+    month's star join, a PERCENTILETDIGEST and a raw HLL by group through
+    ``SET joinStrategy = 'distributed'``, held to the oracle (rows, joined
+    rows) and to the broker-local form bit for bit; the stage-1 bytes that
+    crossed server to server; K1 / K3 / K5 launches per server (each must
+    launch on both), then each held at its captured inputs; a transfer
+    fault on server_1 answered by one retry with the same rows. Returns
+    (summary, launches)."""
+    from pinot_tpu_torch.common import faults
+    from pinot_tpu_torch.ops import group_scatter as ps
+    from pinot_tpu_torch.ops import groupby_mm as mm
+    from pinot_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    k1, k3, k5 = records
+    _zeroed_launches()
+    summary = {}
+    with count_roles(servers) as roles:
+        tables = launch_tables()
+        for name, sql in XC_QUERIES.items():
+            t = time.perf_counter()
+            resp = front.execute(sql)
+            first_ms = (time.perf_counter() - t) * 1e3
+            m3_check(name, resp, want[name])
+            if resp.get("joinStrategy") != "DISTRIBUTED":
+                raise AssertionError(f"{name}: ran {resp.get('joinStrategy')}")
+            joined = want.get(f"{name}_joined", want["xc_nation_joined"])
+            if resp["numJoinedRows"] != joined:
+                raise AssertionError(f"{name}: {resp['numJoinedRows']} joined "
+                                     f"rows, want {joined}")
+            times = _timed(lambda: front.execute(sql), min(runs, XC_RUNS))
+            ex = resp["exchange"]
+            summary[name] = {
+                "first_ms": first_ms,
+                "p50_ms": float(np.percentile(times, 50)),
+                "timed_runs": len(times), "partitions": ex["partitions"],
+                "exchange_bytes": resp["exchangeBytes"],
+                "partitions_shipped": resp["numPartitionsShipped"],
+                "stage2_rows": {w: v["stage2Rows"]
+                                for w, v in ex["servers"].items()}}
+            n_rows = len(resp["resultTable"]["rows"])
+            log(f"exchange {name}: matches the oracle ({n_rows} "
+                f"rows, {resp['numJoinedRows']} joined rows over "
+                f"{ex['partitions']} partitions on {ex['numWorkers']} "
+                f"servers); {resp['exchangeBytes']} stage-1 bytes crossed "
+                f"server to server in {resp['numPartitionsShipped']} "
+                f"payloads; stage-2 rows by server "
+                f"{json.dumps(summary[name]['stage2_rows'])}; first "
+                f"{first_ms:.3f} ms, p50 {summary[name]['p50_ms']:.3f} ms "
+                f"over {len(times)} run(s)")
+        counts = {k: dict(v) for k, v in tables.items()}
+        per_role = {r: dict(c) for r, c in roles.per.items()}
+    log(f"exchange launches: {json.dumps(counts['kernels'])}; by server "
+        f"{json.dumps(per_role)}")
+    if on_card:
+        for s in servers:
+            for name in XC_KERNELS:
+                if per_role[s.instance_id][name] <= 0:
+                    raise AssertionError(f"exchange: {s.instance_id} never "
+                                         f"launched {name}")
+    summary["launches_by_server"] = per_role
+    for name in XC_LOCAL:
+        local_sql = XC_QUERIES[name].replace(_XC, "SET joinStrategy = "
+                                             "'shuffle'; ")
+        t = time.perf_counter()
+        local = front.execute(local_sql)
+        local_ms = (time.perf_counter() - t) * 1e3
+        dist = front.execute(XC_QUERIES[name])
+        if local.get("exceptions") or local["resultTable"]["rows"] != \
+                dist["resultTable"]["rows"]:
+            raise AssertionError(f"{name}: distributed {dist['resultTable']} "
+                                 f"!= broker-local {local.get('resultTable')}"
+                                 f" {local.get('exceptions')}")
+        summary[name]["local_ms"] = local_ms
+        log(f"exchange {name}: equals the broker-local form bit for bit "
+            f"(that form {local_ms:.3f} ms, its {local['numJoinedRows']} "
+            f"joined rows through the broker)")
+    log(f"exchange: the distributed star join's p50 "
+        f"{summary['xc_nation']['p50_ms']:.3f} ms over a month beside the "
+        f"cluster path's broker-local star join over a week "
+        + (f"{local_week_ms:.3f} ms (its checked run)"
+           if local_week_ms is not None else "(not run)"))
+    summary["local_week_ms"] = local_week_ms
+    if on_card:
+        for (gid, sources, G), kw in capture_calls(
+                front, XC_QUERIES["xc_nation"], ps, "plane_group_sums"):
+            count = kw.get("count", True)
+            k1["shapes"].append(k1_shape(
+                f"exchange xc_nation partition: G={G}, "
+                f"{planes_label(sources, count)}",
+                ps.plane_group_sums, G, sources, count, gid))
+        # the first owned partition's registers (each partition's join
+        # builds its own)
+        (h, gid, G, log2m), kw = capture_calls(
+            front, XC_QUERIES["xc_rawhll_region"], mm, "hll_registers")[0]
+        k3["sizes"].append(k3_held(
+            h, gid, G, log2m, kw.get("mask"), "exchange xc_rawhll_region",
+            mm_registers(mm, h, gid, G, log2m, kw.get("mask"))))
+        (args, _kw), *_rest = capture_calls(
+            front, XC_QUERIES["xc_pct_nation"], kernels, "cluster_sums")
+        k5["sizes"].append(check_k5("the exchange's xc_pct_nation", *args,
+                                    chain_ns))
+    # every transfer to server_1 fails: the broker retries without it
+    for inst in ("server_0", "server_1"):
+        for _ in range(4):
+            broker.failures.mark_success(inst)
+    faults.install(faults.Fault(point="exchange.transfer", target="server_1",
+                                mode="error"))
+    try:
+        resp = front.execute(XC_QUERIES["xc_nation"])
+    finally:
+        faults.clear()
+    for inst in ("server_0", "server_1"):
+        for _ in range(4):
+            broker.failures.mark_success(inst)
+    m3_check("xc_nation under a transfer fault", resp, want["xc_nation"])
+    if resp.get("numRetries") != 1:
+        raise AssertionError(f"exchange fault: numRetries "
+                             f"{resp.get('numRetries')}, want 1")
+    summary["fault"] = {k: resp.get(k) for k in (
+        "numRetries", "numServersQueried", "numServersResponded")}
+    log(f"exchange fault: exchange.transfer to server_1 failed; the "
+        f"broker retried without it: {json.dumps(summary['fault'])}, the "
+        f"same rows")
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(f"exchange phase: {summary['phase_s']:.2f} s")
+    return summary, counts["kernels"]
+
+
+def m3_tier(bs_dirs, want: dict, dev, runs: int, records,
+            on_card: bool) -> tuple:
+    """A tiered server (``pinot.server.tier.enabled``) of its own registry
+    over lineorder_by_date's segments, pushed through the controller's
+    deep store on local disk: a hot budget of
+    TIER_HOT segments by ``segment_plan_bytes``, TIER_WARM segments
+    demoted to warm and the rest to cold. The hot segments' q1, q6, HLL
+    and K4 week, a warm query (resident bytes unchanged by it), then q1
+    over every segment: partial with the cold ones counted while their
+    re-download runs, whole and equal to the oracle after it. Returns
+    (summary, launches)."""
+    from pinot_tpu_torch.broker.broker import Broker
+    from pinot_tpu_torch.cluster.registry import ClusterRegistry
+    from pinot_tpu_torch.common.table_config import TableConfig
+    from pinot_tpu_torch.controller.controller import Controller
+    from pinot_tpu_torch.ops import group_scatter as ps
+    from pinot_tpu_torch.server.server import ServerInstance
+    from pinot_tpu_torch.server.tiering import Tier, segment_plan_bytes
+
+    t_phase = time.perf_counter()
+    k1, k2, k3, k4 = records
+    root = os.path.join(DATA_DIR, "tier")
+    registry = ClusterRegistry()
+    controller = Controller(registry, os.path.join(root, "deepstore"))
+    server = ServerInstance(
+        "server_tier", registry, os.path.join(root, "server_tier"),
+        device=dev, tier_overrides={
+            "pinot.server.tier.enabled": True,
+            # the phase drives each transition itself
+            "pinot.server.tier.interval.ms": 3.6e9})
+    server.engine.device.MAX_CACHED_BYTES = CLUSTER_BATCH_BYTES
+    server.engine.device.partials_cache_enabled = False
+    server.engine.device.advisor = None
+    server.start()
+    broker = Broker(registry, timeout_s=600.0, device=dev)
+    queries = m3_tier_queries(want["tier_bounds"])
+    summary = {}
+    try:
+        controller.add_table(TableConfig(table_name=BS_TABLE),
+                             lo_schema(BS_TABLE))
+        t = time.perf_counter()
+        for d in bs_dirs:
+            # copied into the controller's deep store on local disk: the
+            # cold segments' only copy, the re-downloads' source
+            controller.upload_segment(BS_TABLE, d)
+        table = f"{BS_TABLE}_OFFLINE"
+        cl_wait(lambda: len(registry.external_view(table)) == len(bs_dirs),
+                "the tiered server's segments")
+        summary["load_s"] = time.perf_counter() - t
+        tdm = server.engine.tables[table]
+        by_date = sorted(tdm.segments.values(),
+                         key=lambda s: int(s.metadata.columns[
+                             "lo_orderdate"].min_value))
+        names = [s.name for s in by_date]
+        costs = [segment_plan_bytes(s) for s in by_date]
+        tiers = server.tiers
+        tiers.hot_budget_bytes = sum(costs[:TIER_HOT])
+        if sum(costs[:TIER_HOT + 1]) <= tiers.hot_budget_bytes:
+            raise AssertionError("the hot budget holds more than "
+                                 f"{TIER_HOT} segments")
+        # every segment hot first: one batch of the eight, and q1 whole
+        resp = broker.execute(queries["tier_all_q1"])
+        m3_check("tier_all_q1 (all hot)", resp, *want["tier_all_q1"])
+        evicted = []
+        real_evict = server.engine.device.evict_segment_dir
+
+        def evict(seg_dir, _real=real_evict):
+            n = _real(seg_dir)
+            evicted.append(n)
+            return n
+        server.engine.device.evict_segment_dir = evict
+        warm_names = names[TIER_HOT:TIER_HOT + TIER_WARM]
+        cold_names = names[TIER_HOT + TIER_WARM:]
+        for name in warm_names:
+            if not tiers.demote_to_warm(table, name):
+                raise AssertionError(f"tier: {name} did not demote to warm")
+        for name in cold_names:
+            if not tiers.demote_to_cold(table, name):
+                raise AssertionError(f"tier: {name} did not demote to cold")
+        del server.engine.device.evict_segment_dir
+        snap = tiers.snapshot()[table]
+        want_tiers = {**{n: Tier.HOT for n in names[:TIER_HOT]},
+                      **{n: Tier.WARM for n in warm_names},
+                      **{n: Tier.COLD for n in cold_names}}
+        if snap != want_tiers:
+            raise AssertionError(f"tier map {snap}, want {want_tiers}")
+        summary["plan_bytes"] = dict(zip(names, costs))
+        summary["hot_budget_bytes"] = tiers.hot_budget_bytes
+        summary["evicted_batches"] = sum(evicted)
+        log(f"tier: {len(names)} segments loaded in {summary['load_s']:.2f} "
+            f"s; hot budget {tiers.hot_budget_bytes} bytes = "
+            f"segment_plan_bytes of the first {TIER_HOT} ({costs}); "
+            f"{TIER_WARM} demoted to warm, {len(cold_names)} to cold (their "
+            f"planes deleted, the deep store's copies their only ones); "
+            f"evict_segment_dir dropped {sum(evicted)} batch(es) "
+            f"({evicted})")
+        tables = _zeroed_launches()
+        p50 = {}
+        for name in ("tier_hot_q1", "tier_hot_q6", "tier_hot_hll",
+                     "tier_hot_k4"):
+            resp = broker.execute(queries[name])
+            m3_check(name, resp, *want[name])
+            if resp.get("numSegmentsCold"):
+                raise AssertionError(f"{name} touched a cold segment")
+            p50[name] = float(np.percentile(_timed(
+                lambda: broker.execute(queries[name]), runs), 50))
+        counts = {k: dict(v) for k, v in tables.items()}["kernels"]
+        log(f"tier hot launches: {json.dumps(counts)}")
+        for name in TIER_KERNELS if on_card else ():
+            if counts[name] <= 0:
+                raise AssertionError(f"tier: {name} never launched over the "
+                                     f"hot segments")
+        before = server.engine.device.hbm_stats()
+        resp = broker.execute(queries["tier_warm_q1"])
+        m3_check("tier_warm_q1", resp, *want["tier_warm_q1"])
+        p50["tier_warm_q1"] = float(np.percentile(_timed(
+            lambda: broker.execute(queries["tier_warm_q1"]), runs), 50))
+        after = server.engine.device.hbm_stats()
+        if after["resident_bytes"] != before["resident_bytes"] or \
+                after["cached_batches"] != before["cached_batches"]:
+            raise AssertionError(f"tier: the warm query left planes on the "
+                                 f"card: {before['resident_bytes']} -> "
+                                 f"{after['resident_bytes']} bytes")
+        log(f"tier warm: tier_warm_q1 matches the oracle; resident bytes "
+            f"{before['resident_bytes']} before and after it, "
+            f"{after['cached_batches']} cached batch(es)")
+        t = time.perf_counter()
+        resp = broker.execute(queries["tier_all_q1"])
+        cold_ms = (time.perf_counter() - t) * 1e3
+        if not resp.get("partialResult") or \
+                resp.get("numSegmentsCold") != len(cold_names):
+            stats = {k: v for k, v in resp.items() if k != "resultTable"}
+            raise AssertionError(f"tier cold: want a partial answer with "
+                                 f"{len(cold_names)} cold segments: "
+                                 f"{stats}")
+        t = time.perf_counter()
+        for name in cold_names:
+            if not tiers.wait_hydrated(table, name, 300.0):
+                raise AssertionError(f"tier: {name} never re-downloaded")
+        hydrate_s = time.perf_counter() - t
+        resp = broker.execute(queries["tier_all_q1"])
+        m3_check("tier_all_q1 (after the re-download)", resp,
+                 *want["tier_all_q1"])
+        if resp.get("numSegmentsCold"):
+            raise AssertionError(f"tier: still cold after the re-download")
+        p50["tier_all_q1"] = float(np.percentile(_timed(
+            lambda: broker.execute(queries["tier_all_q1"]), runs), 50))
+        summary.update({"p50_ms": p50, "cold_partial_ms": cold_ms,
+                        "hydrate_s": hydrate_s,
+                        "hydrations": tiers.hydrations,
+                        "tiers_after": tiers.snapshot()[table]})
+        log(f"tier cold: q1 over every segment answered partial "
+            f"(numSegmentsCold {len(cold_names)}) in {cold_ms:.3f} ms; the "
+            f"re-downloads landed warm in {hydrate_s:.2f} s; then whole and "
+            f"equal to the oracle")
+        log(f"tier p50 ms: {json.dumps(p50)}")
+        if on_card:
+            for (gid, sources, G), kw in capture_calls(
+                    broker, queries["tier_hot_q1"], ps, "plane_group_sums"):
+                count = kw.get("count", True)
+                k1["shapes"].append(k1_shape(
+                    f"tier tier_hot_q1: G={G}, "
+                    f"{planes_label(sources, count)}",
+                    ps.plane_group_sums, G, sources, count, gid))
+            for (gid, srcs, G), _kw in capture_calls(
+                    broker, queries["tier_hot_q6"], ps,
+                    "group_minmax_sources"):
+                k2["shapes"].append(k2_shape(
+                    "tier tier_hot_q6: " + ", ".join(
+                        f"{s.values.dtype} {'+'.join(s.ops)}"
+                        for s in srcs).replace("torch.", ""), gid, srcs, G))
+            (args, kw), = capture_calls(broker, queries["tier_hot_hll"], ps,
+                                        "hll_register_max")
+
+            def scalar():
+                return ps.hll_register_max(*args, **kw)
+            scalar.via = "group_scatter.hll_register_max"
+            k3["sizes"].append(k3_held(args[0], kw.get("gid"),
+                                       kw.get("num_groups", 1), args[1],
+                                       kw.get("mask"), "tier tier_hot_hll",
+                                       scalar))
+            k4["sizes"].append(check_k4(
+                "the tiered server's tier_hot_k4",
+                *capture_fused(broker, queries["tier_hot_k4"])))
+        summary["phase_s"] = time.perf_counter() - t_phase
+        log(f"tier phase: {summary['phase_s']:.2f} s")
+        return summary, counts
+    finally:
+        broker.close()
+        server.stop(drain_timeout_s=0)
+
+
+def m3_fleet(registry, broker, http, bs_dirs, want: dict, on_card: bool,
+             dev) -> dict:
+    """Two brokers behind the cluster's registry (``BrokerFleetMember``):
+    ``client.connect(discover=True)`` alternates their ``brokerId`` and
+    ``cursor.execute_stream`` returns q1 whole; then a server started as
+    an OS process (``tools.admin start-server``, on the card) over a
+    FileRegistry of its own serves FLEET_SEGMENTS of lineorder_by_date and
+    answers q1's shape equal to the oracle."""
+    import subprocess
+
+    from pinot_tpu_torch import client
+    from pinot_tpu_torch.broker.broker import Broker
+    from pinot_tpu_torch.broker.fleet import (
+        BrokerFleetMember,
+        discover_broker_urls,
+    )
+    from pinot_tpu_torch.broker.http_api import BrokerHttpServer
+    from pinot_tpu_torch.cluster.registry import FileRegistry
+    from pinot_tpu_torch.common.table_config import TableConfig
+    from pinot_tpu_torch.controller.controller import Controller
+
+    t_phase = time.perf_counter()
+    summary = {}
+    broker2 = Broker(registry, broker_id="broker_1", timeout_s=600.0,
+                     device=dev)
+    http2 = BrokerHttpServer(broker2)
+    http2.start()
+    members = [BrokerFleetMember(registry, b, http_url=h.url, host=h.host,
+                                 port=h.port) for b, h in ((broker, http),
+                                                           (broker2, http2))]
+    for m in members:
+        m.start()
+    sql = CL_QUERIES["q1_scan_agg"]
+    try:
+        cl_wait(lambda: len(discover_broker_urls(registry)) == 2,
+                "two brokers in the registry")
+        conn = client.connect(registry=registry, discover=True)
+        ids = []
+        for _ in range(4):
+            cur = conn.cursor()
+            cur.execute(sql)
+            rows = [list(r) for r in cur.fetchall()]
+            if not rows_equal(rows, want["q1_scan_agg"][0]):
+                raise AssertionError(f"fleet: q1 rows {rows[:3]}")
+            ids.append(cur.stats["brokerId"])
+        if len(set(ids)) != 2 or any(a == b for a, b in zip(ids, ids[1:])):
+            raise AssertionError(f"fleet: brokerId did not alternate: {ids}")
+        cur = conn.cursor()
+        cur.execute_stream(sql)
+        rows = [list(r) for r in cur.fetchall()]
+        if not rows_equal(rows, want["q1_scan_agg"][0]):
+            raise AssertionError(f"fleet: streamed q1 rows {rows[:3]}")
+        conn.close()
+        summary["broker_ids"] = ids
+        log(f"fleet: two brokers behind the registry; client.connect("
+            f"discover=True) answered q1 through {ids}; execute_stream "
+            f"returned its {len(rows)} rows whole")
+    finally:
+        for m in members:
+            m.stop()
+        http2.stop()
+        broker2.close()
+
+    # the OS-process server over a FileRegistry of its own
+    root = os.path.join(DATA_DIR, "fleet")
+    os.makedirs(root, exist_ok=True)
+    reg_path = os.path.join(root, "cluster.json")
+    file_reg = FileRegistry(reg_path)
+    log_path = os.path.join(root, "server.log")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in [ROOT] + env.get("PYTHONPATH", "").split(os.pathsep) if p)
+    t = time.perf_counter()
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "pinot_tpu_torch.tools.admin",
+             "start-server", "--registry", reg_path, "--data-dir",
+             os.path.join(root, "proc_server"), "--id", "proc_server"]
+            + ([] if on_card else ["--device", "cpu"]),
+            stdout=out, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+    broker3 = None
+    try:
+        cl_wait(lambda: any(
+            i.instance_id == "proc_server"
+            for i in file_reg.instances(live_ttl_ms=6000))
+            or proc.poll() is not None,
+            "the OS-process server's registration", 300.0)
+        if proc.poll() is not None:
+            raise AssertionError(f"fleet: the server process exited "
+                                 f"{proc.returncode}: "
+                                 + open(log_path).read()[-2000:])
+        start_s = time.perf_counter() - t
+        controller = Controller(file_reg, os.path.join(root, "deepstore"))
+        controller.add_table(TableConfig(table_name=BS_TABLE),
+                             lo_schema(BS_TABLE))
+        for d in bs_dirs[:FLEET_SEGMENTS]:
+            controller.upload_segment(BS_TABLE, d, copy_to_deep_store=False)
+        broker3 = Broker(file_reg, timeout_s=600.0, device=dev)
+        q1 = QUERIES["q1_scan_agg"].replace("FROM lineorder",
+                                            f"FROM {BS_TABLE}")
+        resp = {}
+
+        def served():
+            nonlocal resp
+            if proc.poll() is not None:
+                raise AssertionError(f"fleet: the server process exited "
+                                     f"{proc.returncode}")
+            resp = broker3.execute("SET useResultCache = false; " + q1)
+            return not resp.get("exceptions") and \
+                resp.get("numSegmentsQueried") == FLEET_SEGMENTS
+        cl_wait(served, "the OS-process server's segments", 300.0)
+        ready_s = time.perf_counter() - t
+        m3_check("fleet_q1", resp, *want["fleet_q1"])
+        times = _timed(lambda: broker3.execute(q1), 3)
+        summary.update({"process_start_s": start_s, "process_ready_s":
+                        ready_s, "q1_p50_ms": float(np.percentile(times, 50))})
+        log(f"fleet: tools.admin start-server as an OS process registered in "
+            f"{start_s:.2f} s and answered q1 over its {FLEET_SEGMENTS} "
+            f"segments ({want['fleet_q1'][1]} rows) {ready_s:.2f} s after "
+            f"its start, equal to the oracle; p50 "
+            f"{summary['q1_p50_ms']:.3f} ms")
+    finally:
+        if broker3 is not None:
+            broker3.close()
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(f"fleet phase: {summary['phase_s']:.2f} s")
+    return summary
+
+
+def m3_minion(registry, controller, rt: dict, want: dict, dev,
+              on_card: bool) -> tuple:
+    """The minion worker on the card: purge one of lineorder_by_date's
+    segments (its mask through the filter lowering on the card), move two
+    years of lineorder_cl's committed rows to its OFFLINE table
+    (realtime-to-offline), merge-roll-up those two segments; each output
+    segment's COUNT / SUM by lo_discount (K1) held to numpy over the same
+    rows, each task's wall time printed. Returns (summary, launches)."""
+    from pinot_tpu_torch.common.table_config import TableConfig
+    from pinot_tpu_torch.engine.engine import QueryEngine
+    from pinot_tpu_torch.minion.worker import MinionWorker
+    from pinot_tpu_torch.storage.segment import ImmutableSegment
+
+    t_phase = time.perf_counter()
+    worker = MinionWorker(registry, controller,
+                          os.path.join(DATA_DIR, "minion"), device=dev)
+    summary = {}
+
+    def run(task_type, table, config) -> tuple:
+        tid = registry.submit_task(task_type, table, config)
+        t = time.perf_counter()
+        task = worker.run_one()
+        wall = time.perf_counter() - t
+        if task is None or task["id"] != tid or task["state"] != "DONE":
+            raise AssertionError(f"minion {task_type}: {task}")
+        return task, wall
+
+    def held(label, seg_dirs, want_rows) -> None:
+        eng = QueryEngine(device=dev)
+        eng.device.partials_cache_enabled = False
+        eng.device.advisor = None
+        for d in seg_dirs:
+            eng.add_segment("t", ImmutableSegment(d))
+        resp = eng.execute(MN_CHECK)
+        if resp["exceptions"] or not rows_equal(
+                resp["resultTable"]["rows"], want_rows):
+            raise AssertionError(f"minion {label}: {resp}")
+
+    tables = _zeroed_launches()
+    bs_table = f"{BS_TABLE}_OFFLINE"
+    recs = registry.segments(bs_table)
+    victim = sorted(recs.values(), key=lambda r: int(
+        ImmutableSegment(r.location).metadata.columns[
+            "lo_orderdate"].min_value))[MN_PURGE_SEGMENT].name
+    task, wall = run("PurgeTask", bs_table,
+                     {"filter": MN_PURGE_FILTER, "segments": [victim]})
+    out = [r.location for n, r in registry.segments(bs_table).items()
+           if n.startswith(f"{victim}_purged_")]
+    if len(out) != 1:
+        raise AssertionError(f"minion purge: outputs {out}")
+    held("purge", out, want["mn_purge"])
+    summary["purge"] = {"wall_s": wall, "output": task["output"]}
+    log(f"minion purge: {victim} ({MN_PURGE_FILTER} dropped) in "
+        f"{wall:.2f} s: {task['output']}; its COUNT / SUM by lo_discount "
+        f"equal numpy over the rows it keeps")
+
+    rt_table = f"{CL_RT_TABLE}_REALTIME"
+    controller.add_table(TableConfig(table_name=CL_RT_TABLE,
+                                     time_column="lo_orderdate"),
+                         lo_schema(CL_RT_TABLE))
+    cfg = registry.table_config(rt_table)
+    cfg.time_column = "lo_orderdate"
+    registry.set_table_config(rt_table, cfg)
+    od, disc, rev = rt["lo_orderdate"], rt["lo_discount"], rt["lo_revenue"]
+    off_table = f"{CL_RT_TABLE}_OFFLINE"
+    moved = []
+    for ws, we in MN_WINDOWS:
+        task, wall = run("RealtimeToOfflineSegmentsTask", rt_table,
+                         {"window_start_ms": ws, "window_end_ms": we})
+        name = f"{CL_RT_TABLE}_{ws}_{we}"
+        loc = registry.segments(off_table)[name].location
+        m = (od >= ws) & (od < we)
+        held(f"realtime-to-offline [{ws}, {we})", [loc],
+             _discount_rows(disc[m], rev[m]))
+        moved.append(name)
+        summary[f"rt2o_{ws}"] = {"wall_s": wall, "output": task["output"],
+                                 "rows": int(m.sum())}
+        log(f"minion realtime-to-offline [{ws}, {we}): {task['output']} in "
+            f"{wall:.2f} s; COUNT / SUM by lo_discount equal numpy over the "
+            f"{int(m.sum())} rows")
+    task, wall = run("MergeRollupTask", off_table,
+                     {"segments": moved, "mode": "rollup"})
+    merged = [r.location for n, r in registry.segments(off_table).items()
+              if n.startswith("merged_")]
+    m = (od >= MN_WINDOWS[0][0]) & (od < MN_WINDOWS[-1][1])
+    held("merge-rollup", merged, _discount_rows(disc[m], rev[m]))
+    summary["rollup"] = {"wall_s": wall, "output": task["output"]}
+    log(f"minion merge-rollup: {task['output']} in {wall:.2f} s; COUNT / "
+        f"SUM by lo_discount equal numpy over the {int(m.sum())} rows")
+    counts = {k: dict(v) for k, v in tables.items()}["kernels"]
+    log(f"minion launches: {json.dumps(counts)}")
+    if on_card and counts["group_plane_sums"] <= 0:
+        raise AssertionError("minion: K1 never launched on the outputs")
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(f"minion phase: {summary['phase_s']:.2f} s")
+    return summary, counts
 
 
 def card_line() -> str:
@@ -7991,6 +8794,8 @@ def main(argv=None) -> int:
                 want.update(future.result())
         if "cluster" in sel:
             want.update(cl_oracle(data, bs_data, dims, pad, want))
+        if set(M3_PATHS) & set(sel):
+            want.update(m3_oracle(data, bs_data, dims))
         if "multistage" in sel:
             QUERY_LAUNCHES.update(ms_launches(want, PALLAS_MIN_ROWS))
         oracle_s = time.perf_counter() - t
@@ -8265,11 +9070,12 @@ def main(argv=None) -> int:
             launches[name] += count
         log(f"mesh path: {time.perf_counter() - t:.2f} s")
     cluster = None
-    if "cluster" in sel:
+    cl_phases = [p for p in ("cluster",) + M3_PATHS if p in sel]
+    if cl_phases:
         t = time.perf_counter()
         cluster, counts = run_cluster(
             engine, dirs, bs_dirs, dim_dirs, dim_schemas, want, total,
-            args.runs, (k1, k2, k3, k4, k5), dadd["ns"])
+            args.runs, (k1, k2, k3, k4, k5), dadd["ns"], phases=cl_phases)
         for name, count in counts.items():
             launches[name] += count
         log(f"cluster path: {time.perf_counter() - t:.2f} s")

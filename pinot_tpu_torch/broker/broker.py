@@ -1722,16 +1722,24 @@ class Broker:
 
         # ---- distributed stage-2 demotion probe --------------
         # A fact-fact join whose build side is past the broadcast cap is
-        # the shape the reference demotes to its server-side mailbox
-        # exchange when the fleet can route it; SET
-        # joinStrategy='distributed' forces that path. The exchange is
-        # ROADMAP item m3: where the reference would take it (routable
-        # plans, EXPLAIN included), the port refuses in-band below. A
-        # plan the fleet cannot route (hybrid split, unknown table, no
-        # live replica) stays on the broker-local join, as there. The
+        # exactly the shape where the broker-local shuffle stops scaling:
+        # every build row funnels through this one process no matter how
+        # many servers host the table. Demote it to the server-side
+        # mailbox exchange (query2/exchange.py) when the fleet can route
+        # it. SET joinStrategy='distributed' forces the path; a forced-
+        # but-unroutable plan (hybrid split, unknown table, no live
+        # servers) falls through to the broker-local mirror and the
+        # response reports the EFFECTIVE strategy. The probe runs BEFORE
+        # the EXPLAIN early-return below, so the static plan text renders
+        # the EFFECTIVE (post-demotion) strategy in STAGE_BOUNDARY —
+        # previously only the response/querylog saw the demotion. The
         # advisor's MEASURED stage-1 build rows (post-pushdown) replace
-        # the registry's raw doc-count estimate once converged.
-        routable = False
+        # the registry's raw doc-count estimate once converged — a heavy
+        # pushdown filter no longer demotes a join whose build side
+        # actually arrives small. Quota/admission are not debited on the
+        # distributed path: it has no per-table leaf queries, and stage-1
+        # cost lands on the servers' own schedulers.
+        dist = None
         if len(plan.joins) == 1 and not plan.windows:
             want = plan.strategy == "DISTRIBUTED"
             if not want and plan.strategy == "SHUFFLE" \
@@ -1751,25 +1759,28 @@ class Broker:
                                 f"{'on' if measured > BROADCAST_MAX_BUILD_ROWS else 'off'}: "
                                 f"measured={measured} default={est})")
                 want = build_docs > BROADCAST_MAX_BUILD_ROWS
-            if want:
+            if want and not plan.explain:
                 try:
-                    routable = self._distributed_routable(plan,
-                                                          _table_keys)
+                    dist = self._distributed_spec(plan, _table_keys,
+                                                  _schema_for)
                 except Exception:  # noqa: BLE001 — probe must not fail
                     log.exception("distributed routability probe failed; "
                                   "falling back to broker-local join")
-        if routable:
-            # the server-side mailbox exchange is ROADMAP item m3: where
-            # the reference would run it, the port refuses in-band, and
-            # does not fall back to the broker-local join (which would
-            # report another strategy)
-            how = "forced" if plan.strategy == "DISTRIBUTED" else \
-                "demoted (build side past the broadcast cap)"
-            return self._log_query(sql, plan, {"exceptions": [{
-                "errorCode": 200,
-                "message": f"DeviceUnsupported: the distributed stage-2 "
-                           f"exchange ({how}) is ROADMAP item m3, not yet "
-                           f"in the port"}]}, t0)
+                    dist = None
+            elif want and plan.explain:
+                # EXPLAIN renders the routable outcome without paying
+                # the full spec build when the probe fails
+                try:
+                    dist = self._distributed_spec(plan, _table_keys,
+                                                  _schema_for)
+                except Exception:  # noqa: BLE001 — display only
+                    dist = None
+        if dist is not None and plan.strategy != "DISTRIBUTED":
+            # demotion mutates the plan so EXPLAIN's STAGE_BOUNDARY, the
+            # query log's template_key, and the strategy column all see
+            # what actually ran
+            plan.strategy = "DISTRIBUTED"
+            dist["demoted"] = True
 
         if plan.explain:
             from pinot_tpu_torch.engine.explain import explain_multistage
@@ -1828,6 +1839,19 @@ class Broker:
                 "errorCode": 250,
                 "message": f"query timeout: multi-stage budget "
                            f"({budget_ms:.0f} ms) exhausted"}]}, t0)
+
+        # ---- distributed stage-2 dispatch ----------
+        # the demotion probe ran above (before the EXPLAIN early-return);
+        # here the routable plan hands off to the mailbox exchange
+        if dist is not None:
+            if adv_key is not None and advisor is not None:
+                advisor.observe(adv_key, join_strategy="DISTRIBUTED",
+                                demoted=bool(dist.get("demoted")))
+                dist["adv_key"] = adv_key
+            if adv_notes:
+                dist["adv_notes"] = adv_notes
+            return self._execute_distributed(plan, sql, t0, budget_ms,
+                                             dist)
 
         counters = {"numDocsScanned": 0, "numSegmentsQueried": 0,
                     "numServersQueried": 0, "numServersResponded": 0,
@@ -1940,7 +1964,7 @@ class Broker:
         self.metrics.time_ms("query", resp["timeUsedMs"])
         return self._log_query(sql, plan, resp, t0)
 
-    # ---- the distributed stage-2 exchange's probe (the exchange is m3) --
+    # ---- the distributed stage-2 exchange ---------------------------------
     def _estimated_docs(self, raw: str, table_keys) -> int:
         """Registry-metadata doc count for the demotion heuristic: the
         sum of SegmentRecord.n_docs over the table's physical keys (same
@@ -1955,29 +1979,346 @@ class Broker:
                 total += int(getattr(rec, "n_docs", 0) or 0)
         return total
 
-    def _distributed_routable(self, plan, table_keys) -> bool:
-        """Routability probe for the distributed exchange: every source
-        is one physical table with a routing map and a live replica for
-        each segment. False where the plan cannot run fleet-side —
-        hybrid time-boundary split, unknown table, a segment with no
-        live replica — and the caller keeps the broker-local join."""
+    def _distributed_spec(self, plan, table_keys, schema_for):
+        """Routability probe for the distributed exchange. Returns the
+        per-alias replica maps + wire dtypes, or None when the plan
+        cannot run fleet-side — hybrid time-boundary split, unknown
+        table, or a segment with no live replica — and the caller falls
+        back to the broker-local join."""
+        import numpy as np
+
+        from pinot_tpu_torch.query2.runner import needed_columns
+
         names = set(self.registry.tables())
+        need = needed_columns(plan)
         insts = self._server_instances()
+        routing: dict = {}
         for src in plan.sources:
             matches = [k for k in dict.fromkeys(table_keys(src.table))
                        if k in names]
             if len(matches) != 1:
-                # hybrid tables need the broker's time-boundary split
-                return False
+                # hybrid tables need the broker's time-boundary split;
+                # their joins stay on the broker-local path
+                return None
+            physical = matches[0]
             rmap, replicas, _ = \
-                self.routing.routing_with_replicas(matches[0])
+                self.routing.routing_with_replicas(physical)
             if rmap is None:
-                return False
+                return None
             # only servers with a live endpoint can host a mailbox
-            if any(not any(i in insts for i in ins)
-                   for ins in replicas.values()):
-                return False
-        return True
+            replicas = {seg: [i for i in ins if i in insts]
+                        for seg, ins in replicas.items()}
+            if any(not ins for ins in replicas.values()):
+                return None
+            schema = schema_for(src.table)
+            fields = getattr(schema, "fields", {}) if schema else {}
+            dtypes = {}
+            for c in need[src.alias]:
+                spec = fields.get(c)
+                dt = spec.data_type.np_dtype if spec is not None \
+                    else np.dtype(np.float64)
+                # np dtype wire names ('<i8', '|O', ...): the worker
+                # casts zero-row scans so even an empty payload ships
+                # correctly typed (the empty-leaf dtype guard)
+                dtypes[c] = np.dtype(dt).str
+            routing[src.alias] = {"table": physical,
+                                  "replicas": replicas,
+                                  "dtypes": dtypes}
+        return {"routing": routing}
+
+    def _distributed_assign(self, dist: dict, excluded: set):
+        """One attempt's worker assignment: per alias, each segment goes
+        to one live, non-excluded replica (healthy instances first); the
+        partition space is 2x the worker count, owners round-robin. None
+        when some segment has no usable replica left — coverage is
+        impossible and the query must settle as a typed partial."""
+        import zlib
+
+        insts = self._server_instances()
+        # the stage-2 fleet: EVERY live, non-excluded instance holding a
+        # replica of any involved table — partition ownership must span
+        # the fleet even when the segment scans land on fewer servers
+        # (the whole point of the exchange is that join+agg scale with
+        # the server count, not with where stage 1 happened to read)
+        fleet: set = set()
+        for route in dist["routing"].values():
+            for replicas in route["replicas"].values():
+                fleet.update(i for i in replicas
+                             if i not in excluded and i in insts)
+        if not fleet:
+            return None
+        # healthy-first at the fleet level too: a struck-but-live
+        # instance drops out of partition ownership until it recovers
+        # (the detector's adaptive routing), unless nothing healthy
+        # remains
+        healthy_fleet = {i for i in fleet
+                         if self.failures.is_healthy(i)} or fleet
+        load = {w: 0 for w in fleet}
+        used: set = set()
+        segments: dict = {}
+        for alias, route in dist["routing"].items():
+            per: dict = {}
+            for seg, replicas in sorted(route["replicas"].items()):
+                pool = [i for i in replicas
+                        if i not in excluded and i in insts]
+                if not pool:
+                    return None
+                healthy = [i for i in pool
+                           if self.failures.is_healthy(i)]
+                cands = healthy or pool
+                # least-loaded deterministic spread, crc32 tie-break
+                # (not hash(): stable across processes) — independent
+                # per-segment picks can all collapse onto one replica,
+                # serializing stage 1 behind a single server
+                pick = min(cands, key=lambda i: (
+                    load[i], zlib.crc32(f"{seg}|{i}".encode())))
+                load[pick] += 1
+                used.add(pick)
+                per.setdefault(pick, []).append(seg)
+            segments[alias] = per
+        # every scan host must run the stage; union covers the segment
+        # whose only surviving replica is an unhealthy instance
+        worker_list = sorted(healthy_fleet | used)
+        n_parts = max(1, 2 * len(worker_list))
+        owners = {str(p): worker_list[p % len(worker_list)]
+                  for p in range(n_parts)}
+        endpoints = {w: insts[w].endpoint for w in worker_list}
+        return {"workers": worker_list, "partitions": n_parts,
+                "owners": owners, "segments": segments,
+                "endpoints": endpoints}
+
+    def _execute_distributed(self, plan, sql: str, t0: float,
+                             budget_ms, dist: dict) -> dict:
+        """Scatter one ExecuteStage request per worker: each scans its
+        routed stage-1 segments, hash-partitions by join key, ships the
+        partitions peer-to-peer (query2/exchange.py mailboxes), joins +
+        partially aggregates its owned partitions, and answers ONE
+        mergeable DataTable — the broker only merges and finalizes, the
+        same division of labor stage 1 always had.
+
+        Failure handling mirrors the scatter-gather's replica retry: a
+        typed EXCHANGE_TRANSFER_FAILED names the implicated PEER (the
+        answering worker is healthy), the broker excludes that instance,
+        re-picks the assignment from the replica maps, and re-runs the
+        whole exchange ONCE under a fresh exchange id (partial mailboxes
+        are not resumable). No coverage or a second failure settles as a
+        typed partialResult — never a hang past the deadline."""
+        import json as _json
+        import re
+
+        from pinot_tpu_torch.engine.datatable import (
+            ServerQueryError,
+            ServerShuttingDown,
+            decode,
+        )
+        from pinot_tpu_torch.engine.reduce import finalize, merge_intermediates
+
+        total_ms = budget_ms if budget_ms is not None \
+            else self.timeout_s * 1000.0
+        trace_on = any(str(k).lower() == "trace" and bool(v)
+                       for k, v in plan.stage2.options)
+        request_id = f"{self.broker_id}_{next(self._request_id)}"
+        max_attempts = 2 if self.retry_enabled else 1
+        excluded: set = set()
+        retries = 0
+        last_err = "no routable workers"
+        for attempt in range(1, max_attempts + 1):
+            remaining = total_ms - (time.time() - t0) * 1000.0
+            if remaining <= 0:
+                self.metrics.count("queryTimeouts")
+                return self._log_query(sql, plan, {
+                    "exceptions": [{
+                        "errorCode": 250,
+                        "message": f"query timeout: distributed stage-2 "
+                                   f"budget ({total_ms:.0f} ms) "
+                                   f"exhausted"}],
+                    "partialResult": True,
+                    "joinStrategy": "DISTRIBUTED",
+                    "numRetries": retries}, t0)
+            assign = self._distributed_assign(dist, excluded)
+            if assign is None:
+                last_err = (f"segment coverage impossible with "
+                            f"{sorted(excluded)} excluded ({last_err})")
+                break
+            workers = assign["workers"]
+            # keep retry headroom on the first attempt (when one is still
+            # possible): the stage deadline is what bounds a blackholed
+            # transfer, so the retry must have budget left after it fires
+            can_retry = self.retry_enabled and attempt < max_attempts
+            stage_ms = max(remaining / 2.0, remaining - 2000.0) \
+                if can_retry else remaining
+            exchange_id = f"ex_{request_id}_{attempt}"
+            reqs = {}
+            for w in workers:
+                reqs[w] = _json.dumps({
+                    "exchangeId": exchange_id,
+                    "sql": sql,
+                    "requestId": request_id,
+                    "brokerId": self.broker_id,
+                    "timeoutMs": stage_ms,
+                    "traceEnabled": trace_on,
+                    "traceId": f"{request_id}:{attempt}",
+                    "partitions": assign["partitions"],
+                    "partitionOwners": assign["owners"],
+                    "endpoints": assign["endpoints"],
+                    "senders": assign["workers"],
+                    "routing": {
+                        alias: {
+                            "table": route["table"],
+                            "segments":
+                                assign["segments"][alias].get(w, []),
+                            "dtypes": route["dtypes"],
+                        } for alias, route in dist["routing"].items()},
+                }).encode("utf-8")
+
+            def _call(w, payload):
+                ch = self._channel(w)
+                if ch is None:
+                    raise RuntimeError(f"no endpoint for {w}")
+                # RPC timeout rides above the server-side stage deadline:
+                # the typed in-band answer must win over DEADLINE_EXCEEDED
+                return decode(ch.execute_stage(
+                    payload, timeout_s=stage_ms / 1e3 + 2.0))
+
+            futs = {w: self._pool.submit(_call, w, reqs[w])
+                    for w in workers}
+            parts, failures = {}, {}
+            for w, fut in futs.items():
+                try:
+                    parts[w] = fut.result()
+                except Exception as e:  # noqa: BLE001 — typed below
+                    failures[w] = e
+            if not failures:
+                return self._distributed_response(
+                    plan, sql, t0, dist, assign, parts, request_id,
+                    retries, merge_intermediates, finalize)
+            # attribution: a typed transfer failure names the PEER; the
+            # answering worker is healthy (same convention as harvest —
+            # ServerQueryError that isn't ShuttingDown marks success)
+            implicated = None
+            for w, e in failures.items():
+                m = re.search(r"EXCHANGE_TRANSFER_FAILED peer=(\S+?):",
+                              str(e))
+                if m:
+                    implicated = m.group(1)
+                    break
+            if implicated is None:
+                implicated = next(iter(failures))
+            for w, e in failures.items():
+                if w == implicated:
+                    continue
+                if isinstance(e, ServerQueryError) \
+                        and not isinstance(e, ServerShuttingDown):
+                    self.failures.mark_success(w)
+                else:
+                    self.failures.mark_failure(w)
+            self.failures.mark_failure(implicated)
+            for w in parts:
+                self.failures.mark_success(w)
+            excluded.add(implicated)
+            last_err = "; ".join(
+                f"{w}: {type(e).__name__}: {e}"
+                for w, e in list(failures.items())[:3])
+            if attempt < max_attempts:
+                retries += 1
+                self.metrics.count("exchangeRetries")
+                log.warning("distributed stage-2 attempt %d failed "
+                            "(implicated %s); retrying without it: %s",
+                            attempt, implicated, last_err)
+        self.metrics.count("queryErrors")
+        expired = (total_ms - (time.time() - t0) * 1000.0) <= 0
+        return self._log_query(sql, plan, {
+            "exceptions": [{
+                "errorCode": 250 if expired else 200,
+                "message": f"distributed stage-2 failed after "
+                           f"{retries + 1} attempt(s): {last_err}"}],
+            "partialResult": True,
+            "requestId": request_id,
+            "joinStrategy": "DISTRIBUTED",
+            "numRetries": retries,
+            "timeUsedMs": round((time.time() - t0) * 1000, 3)}, t0)
+
+    def _distributed_response(self, plan, sql, t0, dist, assign, parts,
+                              request_id, retries, merge_intermediates,
+                              finalize) -> dict:
+        """Merge worker partials, finalize stage 2 (HAVING/ORDER/LIMIT
+        run here, broker-side, exactly like the broker-local path), and
+        assemble the response with the exchange counters."""
+        workers = assign["workers"]
+        merged = merge_intermediates(
+            plan.stage2, [parts[w] for w in workers])
+        st = merged.stats
+        for w in parts:
+            self.failures.mark_success(w)
+        resp = finalize(plan.stage2, merged).to_json()
+        elapsed = round((time.time() - t0) * 1000, 3)
+        per_server = {w: {
+            "stage2Rows": int(parts[w].stats.stage2_rows),
+            "shippedPartitions":
+                int(parts[w].stats.exchange_partitions_shipped),
+            "shippedBytes": int(parts[w].stats.exchange_bytes_shipped),
+            "spills": int(parts[w].stats.exchange_spill_count),
+            "leafRows": {a: int(v) for a, v
+                         in (parts[w].stats.leaf_rows or {}).items()},
+        } for w in workers}
+        resp.update({
+            "exceptions": [],
+            "partialResult": st.num_segments_cold > 0,
+            "requestId": request_id,
+            "numStages": 2,
+            "numServersQueried": len(workers),
+            "numServersResponded": len(parts),
+            "numRetries": retries,
+            "numHedges": 0,
+            "numDocsScanned": int(st.num_docs_scanned),
+            "numSegmentsQueried": int(st.num_segments_queried),
+            "numSegmentsCold": int(st.num_segments_cold),
+            "totalDocs": int(st.total_docs),
+            "numJoinedRows": int(st.stage2_rows),
+            "leafRows": {a: int(v)
+                         for a, v in (st.leaf_rows or {}).items()},
+            "joinStrategy": "DISTRIBUTED",
+            "joinFanout": int(assign["partitions"]),
+            "numPartitionsShipped": int(st.exchange_partitions_shipped),
+            "exchangeBytes": int(st.exchange_bytes_shipped),
+            "exchangeSpillCount": int(st.exchange_spill_count),
+            "exchange": {
+                "partitions": int(assign["partitions"]),
+                "numWorkers": len(workers),
+                "servers": per_server,
+            },
+            "timeUsedMs": elapsed,
+        })
+        if dist.get("demoted"):
+            resp["joinStrategyDemoted"] = True
+        # plan-advisor: stamp probe overrides + any worker-side
+        # decisions, and feed the MEASURED per-alias leaf rows back so the
+        # next demotion probe decides from observation, not the registry
+        adv_lines = list(dist.get("adv_notes") or [])
+        for line in (st.advisor_decisions or []):
+            if line not in adv_lines:
+                adv_lines.append(line)
+        if adv_lines:
+            resp["advisorDecisions"] = adv_lines
+        adv_key = dist.get("adv_key")
+        if adv_key and self.advisor is not None and st.leaf_rows:
+            self.advisor.observe(
+                adv_key,
+                build_rows={a: int(v) for a, v in st.leaf_rows.items()})
+        trace_info = {f"stage2:{w}": parts[w].trace
+                      for w in workers if parts[w].trace}
+        if trace_info:
+            resp["traceInfo"] = trace_info
+        self.metrics.count("exchangeQueries")
+        self.metrics.count("exchangeBytes",
+                           int(st.exchange_bytes_shipped))
+        self.metrics.count("exchangePartitionsShipped",
+                           int(st.exchange_partitions_shipped))
+        if st.exchange_spill_count:
+            self.metrics.count("exchangeSpills",
+                               int(st.exchange_spill_count))
+        self.metrics.time_ms("query", elapsed)
+        return self._log_query(sql, plan, resp, t0)
 
     def _stage2(self):
         """The executor stage 2 runs on: the broker's device, built once."""

@@ -109,8 +109,8 @@ class InstanceInfo:
     # per-segment access-temperature snapshot (server/heat.py
     # SegmentHeatTracker.snapshot(): {table: {segment: {rate, bytesRate,
     # accesses, bytes, lastAccessTs}}}, hottest-N per table) — the controller
-    # aggregates it behind /tables/{t}/heat, the input a tier lifecycle's
-    # promotion/demotion would consume (ROADMAP m3)
+    # aggregates it behind /tables/{t}/heat, the input the tier
+    # lifecycle's promotion/demotion (server/tiering.py) consumes
     heat: dict = dataclasses.field(default_factory=dict)
     # per-segment tier map (server/tiering.py TierManager
     # .snapshot(): {table: {segment: "hot"|"warm"|"cold"}}) — the

@@ -1,6 +1,5 @@
 """Plugin registry: one discovery surface for every pluggable kind (a copy
-of pinot_tpu/common/plugins.py for the port; the record readers and the
-minion task executors register once their modules are ported).
+of pinot_tpu/common/plugins.py for the port).
 
 Equivalent of the reference's plugin framework
 (pinot-spi/.../plugin/PluginManager.java + the pinot-plugins/* tree):
@@ -79,6 +78,7 @@ class PluginRegistry:
         return loaded
 
     def _register_builtins(self) -> None:
+        from pinot_tpu_torch.ingestion import readers as _readers
         from pinot_tpu_torch.storage import fs as _fs
         from pinot_tpu_torch.stream import memory_stream  # noqa: F401 (registers)
         from pinot_tpu_torch.stream import spi as _stream
@@ -100,6 +100,12 @@ class PluginRegistry:
             self.register("stream", name, cls)
         for name, fn in _stream._DECODERS.items():
             self.register("decoder", name, fn)
+        for name, cls in _readers._READERS.items():
+            self.register("record_reader", name, cls)
+        from pinot_tpu_torch.minion import tasks as _tasks
+
+        for name, fn in _tasks.TASK_EXECUTORS.items():
+            self.register("minion_task", name, fn)
 
 
 plugin_registry = PluginRegistry()

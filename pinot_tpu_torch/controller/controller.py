@@ -32,30 +32,6 @@ from pinot_tpu_torch.storage.segment import ImmutableSegment
 
 log = logging.getLogger("pinot_tpu_torch.controller")
 
-# minion task states that hold their segments (pinot_tpu/minion/generator.py)
-_ACTIVE_TASK_STATES = ("PENDING", "RUNNING")
-
-
-def _m3(what: str) -> str:
-    return f"{what} is ROADMAP item m3, not yet in the port"
-
-
-def _busy_segments(registry, table: str) -> set:
-    """Segments referenced by queued / running minion tasks or by active
-    lineage, which retention must not delete (a copy of the minion
-    generator's function: it reads the registry alone)."""
-    busy: set = set()
-    for t in registry.tasks(table=table):
-        if t["state"] in _ACTIVE_TASK_STATES:
-            busy.update(t["config"].get("segments", ()))
-    for entry in registry.lineage(table).values():
-        # mid-swap both sides are locked; once COMPLETED the to-set is live
-        busy.update(entry["from"])
-        if entry["state"] != "COMPLETED":
-            busy.update(entry["to"])
-    return busy
-
-
 def aggregate_heat(registry: ClusterRegistry, table: str) -> dict:
     """Cluster-wide segment-temperature view for one table:
     merges every server heartbeat's piggybacked heat snapshot
@@ -63,7 +39,7 @@ def aggregate_heat(registry: ClusterRegistry, table: str) -> dict:
     — decayed rates sum (a 2-replica hot segment is twice as hot to the
     cluster), lifetime counters sum, last access takes the max.  The
     payload behind ``GET /tables/{t}/heat``; the ranking a tier
-    lifecycle's promotion/demotion policy would consume (ROADMAP m3)."""
+    lifecycle's promotion/demotion policy (server/tiering.py) consumes."""
     candidates = {table, f"{table}_OFFLINE", f"{table}_REALTIME"}
     segs: dict = {}
     reporting = 0
@@ -471,7 +447,11 @@ class Controller:
         gracefully drains one (ServerInstance.stop's drain contract).
         Watermarks/sustain knobs ride ``kwargs`` — see
         controller/autoscaler.py. Returns the attached instance."""
-        raise NotImplementedError(_m3("the controller's autoscaler"))
+        from pinot_tpu_torch.controller.autoscaler import ControllerAutoscaler
+
+        self.autoscaler = ControllerAutoscaler(
+            self, spawn_fn, drain_fn, **kwargs)
+        return self.autoscaler
 
     def run_autoscale(self):
         """One autoscaler tick (periodic-loop step, global-lead only —
@@ -861,7 +841,9 @@ class Controller:
     # ---- minion task generation (PinotTaskManager analog) ----------------
     def run_task_generation(self, now_ms: Optional[int] = None) -> list:
         """Scan table task_configs and enqueue due minion tasks."""
-        raise NotImplementedError(_m3("minion task generation"))
+        from pinot_tpu_torch.minion.generator import generate_tasks
+
+        return generate_tasks(self.registry, now_ms)
 
     def run_task_repair(self, stale_ms: int = 600_000) -> dict:
         """Repair after a minion death (TaskMetricsEmitter/stale-task sweep
@@ -966,13 +948,24 @@ class Controller:
                          qps: float = 100.0) -> dict:
         """Workload-driven config advisor (recommender/RecommenderDriver
         role) — advisory, nothing is applied."""
-        raise NotImplementedError(_m3("the controller's config advisor"))
+        from pinot_tpu_torch.controller.advisor import recommend_config
+
+        return recommend_config(schema, sample_queries, qps)
 
     def tune_table(self, table: str) -> dict:
         """Observed-metadata config tuner (tuner/TableConfigTuner role):
         grows the registered table's IndexingConfig from hosted segment
         stats and persists the update."""
-        raise NotImplementedError(_m3("the controller's table tuner"))
+        from pinot_tpu_torch.controller.advisor import tune_table
+        from pinot_tpu_torch.storage.segment import ImmutableSegment
+
+        table = self.resolve(table)
+        segs = []
+        for name, rec in self.registry.segments(table).items():
+            if rec.location and os.path.isdir(rec.location):
+                segs.append(ImmutableSegment(rec.location))
+                break  # stats from one representative segment suffice
+        return tune_table(self.registry, table, segs)
 
     def start_periodic_tasks(self, interval_s: float = 60.0) -> None:
         """ControllerPeriodicTaskScheduler analog: retention, realtime
@@ -994,9 +987,8 @@ class Controller:
                          self.run_segment_relocation,
                          self.run_tier_rebalance]
                 if self._leads_global():
-                    # minion task generation is item m3; the stale-task
-                    # sweep reads the registry alone
-                    steps += [self.run_task_repair, self.run_autoscale]
+                    steps += [self.run_task_generation, self.run_task_repair,
+                              self.run_autoscale]
                 for step in steps:
                     try:
                         step()
@@ -1036,6 +1028,8 @@ class Controller:
     # ---- periodic maintenance (RetentionManager analog) ------------------
     def run_retention(self, now_ms: Optional[int] = None) -> list:
         """Drop segments whose time range fell out of the retention window."""
+        from pinot_tpu_torch.minion.generator import _busy_segments
+
         now_ms = now_ms or int(time.time() * 1000)
         dropped = []
         for table in self.registry.tables():

@@ -1417,6 +1417,16 @@ class DeviceExecutor:
             self._pipeline_failures.clear()
             self._quarantined.clear()
 
+    def evict_segment_dir(self, seg_dir: str) -> int:
+        """Evict every cached batch whose key holds ``seg_dir``: the tier
+        demotion hook (server/tiering.py), so a segment leaving the hot
+        tier frees its planes now, not at LRU depth. A batch a dispatched
+        launch still pins goes when its last pin drops, as after a device
+        failure. Returns the number of batches dropped now."""
+        with self._lock:
+            keys = [k for k in self._batches if seg_dir in k]
+        return sum(1 for k in keys if self._evict_batch(k))
+
     def _evict_batch(self, key) -> bool:
         """Drop a batch after a device failure so a retry uploads fresh
         planes, its cached partials with it. A batch another launch still
@@ -2041,11 +2051,15 @@ class DeviceExecutor:
 
     def part_context(self, part) -> tuple:
         """(BatchContext, pin key) of one part the reference reads on its
-        host, pinned until ``_release_launch(key)``: a sealed segment's
-        from the batch LRU, any other's of its own (a consuming segment
-        or a tail through a ``SnapshotSegment`` of the docs it publishes
-        now), outside the LRU."""
-        if isinstance(part, ImmutableSegment):
+        host, pinned until ``_release_launch(key)``: a sealed hot
+        segment's from the batch LRU, any other's of its own (a consuming
+        segment or a tail through a ``SnapshotSegment`` of the docs it
+        publishes now), outside the LRU. A warm segment
+        (server/tiering.py ``LazySegmentView``) never occupies the card
+        between queries: its planes live for this launch only, and its
+        key is not a batch key, so no partial is cached under it."""
+        if isinstance(part, ImmutableSegment) \
+                and (getattr(part, "tier", None) or "hot") == "hot":
             return self.batch_for([part], retain=True,
                                   device=self._part_device(part.dir)), \
                 self._batch_key([part])

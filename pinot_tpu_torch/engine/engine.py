@@ -60,7 +60,6 @@ from pinot_tpu_torch.engine.device import (
     segment_device_eligible,
 )
 from pinot_tpu_torch.engine.explain import annotate_analyze, explain_plan
-from pinot_tpu_torch.engine.params import DeviceUnsupported
 from pinot_tpu_torch.engine.reduce import finalize, merge_intermediates
 from pinot_tpu_torch.engine.result import IntermediateResult
 from pinot_tpu_torch.engine.startree_exec import (
@@ -369,12 +368,24 @@ class QueryEngine:
         on this query's trace. ``fallback_gate`` (callable(fn) → fn()):
         wraps a fetch-time run in the host path's shape (a sorted table
         past its cap, numGroupsLimit under a trim), so a server can put it
-        back under its admission control. A cold-tier placeholder
-        (``is_cold``) is refused: the tiers come with the cluster tier."""
-        if any(getattr(s, "is_cold", False) for s in segments):
-            raise DeviceUnsupported(
-                "cold-tier segments come with a later slice of the port "
-                "(ROADMAP queue 1, item m)")
+        back under its admission control.
+
+        A cold-tier placeholder (server/tiering.py ``ColdSegmentRef``)
+        answers nothing, as in the reference: its ``touch()`` schedules
+        the re-download (never blocking this query), the partial counts
+        it in ``numSegmentsCold`` and its docs in totalDocs. Where every
+        segment is cold, an empty partial is shaped by the first one's
+        metadata (``empty_view``)."""
+        all_segments = segments
+        cold_refs = [s for s in segments if getattr(s, "is_cold", False)]
+        if cold_refs:
+            segments = [s for s in segments
+                        if not getattr(s, "is_cold", False)]
+            for s in cold_refs:
+                touch = getattr(s, "touch", None)
+                if touch is not None:
+                    touch()
+        q = self._expand_star(q, (segments or cold_refs)[0])
         results, executed, scan = [], [], []
         scan_pruned: set = set()  # id(s) of batch segments the pruner excluded
         st_groups: dict = {}
@@ -414,7 +425,13 @@ class QueryEngine:
             pruned += len(dropped)
             executed = [s for s in executed if id(s) not in dropped]
         launch_q = q
-        if not plan and not results and not st_groups:
+        all_cold = not segments
+        if all_cold:
+            # every routed segment is cold: an empty partial over the
+            # first one's metadata, its stats zeroed below
+            launch_q = _impossible(q)
+            plan = [("part", cold_refs[0].empty_view())]
+        elif not plan and not results and not st_groups:
             # every segment pruned where it cannot stay in a batch: as the
             # reference, an empty partial of the whole first segment under
             # a FALSE filter
@@ -482,12 +499,18 @@ class QueryEngine:
                      for rec in r.roofline]
             if roofs:
                 merged.roofline = roofs
+            if all_cold:
+                merged.stats.num_segments_processed = 0
             merged.stats.num_segments_pruned += pruned
-            merged.stats.num_segments_queried = len(segments)
+            merged.stats.num_segments_queried = len(all_segments)
+            # cold segments answered nothing this execution: the partial
+            # says so (numSegmentsCold), and their docs count toward
+            # totalDocs below like any other unexecuted segment
+            merged.stats.num_segments_cold += len(cold_refs)
             # pruned segments still count toward totalDocs (reference
             # semantics)
             ran = {id(s) for s in executed}
-            merged.stats.total_docs += sum(s.n_docs for s in segments
+            merged.stats.total_docs += sum(s.n_docs for s in all_segments
                                            if id(s) not in ran)
             return merged
 

@@ -20,9 +20,9 @@ state, the ADVISOR lines), as the reference's. A flight's label names the port's
 reference's does: the stage boundary, each join's strategy with its build
 and probe sides, the window specs and each table's stage-1 scan with its
 pushed-down filter. The backend label names the card; the boundary's
-exchange is ``[mesh-collective]`` on a mesh (parallel/mesh.py), else
-``[local]``, and DISTRIBUTED, which the reference labels
-``[server-fleet]``, runs its local mirror here: ``[local]``.
+exchange is ``[server-fleet]`` for DISTRIBUTED (stage 2 runs on the
+servers, over query2/exchange.py), else ``[mesh-collective]`` on a mesh
+(parallel/mesh.py), else ``[local]``, as the reference's.
 """
 
 from __future__ import annotations
@@ -121,33 +121,23 @@ def _trim_line(engine, q: QueryContext, segs) -> str | None:
     return f"    DEVICE_REDUCE(trim={trim_keep_count(q, 'terminal')})"
 
 
-# the waterfall's phase buckets, by a span name's last dotted segment
-# (pinot_tpu/tools/querylog.py's, for the spans this engine records)
-_PHASE_LAST_SEGMENTS = {"gather": "gather", "kernel": "kernel",
-                        "link": "link", "host_scan": "host_scan",
-                        "merge": "reduce"}
-_PHASE_FULL_NAMES = {"stage2": "stage2"}   # the multi-stage engine's
-
-
-def phase_breakdown(trace_info: dict) -> dict:
-    """Per-phase ms of a response's traceInfo, summed across its spans."""
-    out: dict = {}
-    for spans in (trace_info or {}).values():
-        for s in spans or ():
-            name = s["phase"]
-            bucket = _PHASE_FULL_NAMES.get(name) \
-                or _PHASE_LAST_SEGMENTS.get(name.rsplit(".", 1)[-1])
-            if bucket is not None:
-                out[bucket] = out.get(bucket, 0.0) + s["durationMs"]
-    return out
+def _fmt_ms(v) -> str:
+    try:
+        return f"{float(v):.2f}ms"
+    except (TypeError, ValueError):
+        return "?"
 
 
 def _kernel_line(rec: dict) -> str:
     """One roofline flight → its KERNEL line: achieved GB/s against the
-    probed peak, modeled bytes, kernel and link time."""
+    probed peak, modeled bytes, kernel and link time, and the instance
+    that ran it where a broker merged the flights of several."""
     label = rec.get("kernel", "kernel")
+    inst = rec.get("instance")
+    where = f"@{inst}" if inst else ""
     if rec.get("cacheHit"):
-        return f"    KERNEL({label}: CACHED_PARTIALS, linkMs={rec.get('linkMs')})"
+        return (f"    KERNEL({label}{where}: CACHED_PARTIALS, "
+                f"linkMs={rec.get('linkMs')})")
     gbps = rec.get("gbps")
     pct = rec.get("pctOfPeak")
     if gbps is None:
@@ -157,7 +147,8 @@ def _kernel_line(rec: dict) -> str:
                 f"GB/s)")
     else:
         perf = f"{gbps} GB/s"
-    return (f"    KERNEL({label}: {perf}, bytes={rec.get('bytesMoved')}, "
+    return (f"    KERNEL({label}{where}: {perf}, "
+            f"bytes={rec.get('bytesMoved')}, "
             f"kernelMs={rec.get('kernelMs')}, linkMs={rec.get('linkMs')})")
 
 
@@ -186,6 +177,23 @@ def annotate_analyze(plan: dict, resp: dict) -> dict:
                    f"out={nrows} rows)")
         elif s.startswith("COMBINE_"):
             ln += f" (actual: in={docs} rows, out={nrows} rows)"
+        elif s.startswith("STAGE_BOUNDARY(") and resp.get("exchange"):
+            # a distributed stage 2 ran (perhaps demoted at run time): the
+            # strategy that ran, the partition count, shipped bytes,
+            # spills and each server's stage-2 rows
+            import re as _re
+
+            ex = resp["exchange"]
+            if "exchange:DISTRIBUTED" not in ln:
+                ln = _re.sub(r"exchange:\w+ \[[^\]]*\]",
+                             "exchange:DISTRIBUTED [server-fleet]", ln)
+            per = ", ".join(
+                f"{w}={v.get('stage2Rows')}"
+                for w, v in sorted((ex.get("servers") or {}).items()))
+            ln += (f" (actual: partitions={ex.get('partitions')}, "
+                   f"shippedBytes={resp.get('exchangeBytes')}, "
+                   f"spills={resp.get('exchangeSpillCount')}, "
+                   f"stage2Rows[{per}])")
         elif s.startswith("JOIN_") and resp.get("numJoinedRows") is not None:
             ln += f" (actual: out={resp['numJoinedRows']} rows)"
         elif s.startswith("SCAN("):
@@ -210,10 +218,14 @@ def annotate_analyze(plan: dict, resp: dict) -> dict:
         f"prunedByServer={resp.get('numSegmentsPrunedByServer')}, "
         f"prunedByBroker={resp.get('numSegmentsPrunedByBroker', 0)}, "
         f"blocksPruned={resp.get('numBlocksPruned')})")
-    phases = phase_breakdown(resp.get("traceInfo") or {})
+    # the multi-stage traceInfo nests a dict of spans per leaf:
+    # tools/querylog.py's breakdown walks it
+    from pinot_tpu_torch.tools.querylog import phase_breakdown
+
+    phases = phase_breakdown({"traceInfo": resp.get("traceInfo") or {}})
     if phases:
         out.append("    PHASE(" + ", ".join(
-            f"{k}={v:.2f}ms" for k, v in sorted(phases.items())) + ")")
+            f"{k}={_fmt_ms(v)}" for k, v in sorted(phases.items())) + ")")
     for rec in resp.get("roofline") or ():
         out.append(_kernel_line(rec))
     out.append(
@@ -259,9 +271,13 @@ def explain_multistage(engine, plan) -> dict:
         lines.append(f"    WINDOW({w.describe()})")
     if plan.post_filter is not None:
         lines.append(f"    POST_JOIN_FILTER({to_sql(plan.post_filter)})")
+    # DISTRIBUTED runs stage 2 on the server fleet: the boundary is a
+    # wire exchange between servers, whatever mesh the renderer sees
     mesh = getattr(getattr(engine, "device", None), "mesh", None)
-    exchange = "mesh-collective" if mesh is not None \
-        and plan.strategy != "DISTRIBUTED" else "local"
+    if plan.strategy == "DISTRIBUTED" and plan.joins:
+        exchange = "server-fleet"
+    else:
+        exchange = "mesh-collective" if mesh is not None else "local"
     if plan.joins:
         lines.append(f"  STAGE_BOUNDARY(exchange:{plan.strategy} "
                      f"[{exchange}])")

@@ -177,6 +177,18 @@ def _scan_filter(filt, ctx, alive, valid_docs=None) -> _Scan:
     return _Scan(ev, mask, all_pruned, int(alive.sum()), entries, ran)
 
 
+def filter_mask(seg, filt, device) -> np.ndarray:
+    """One segment's (n_docs,) bool mask of the rows the filter tree
+    ``filt`` matches, on ``device`` in the host path's shape (the
+    reference's host ``SegmentEvaluator.filter_mask``). The segment's
+    planes live for this call only: no executor, no batch LRU."""
+    from pinot_tpu_torch.engine.params import BatchContext
+
+    ctx = BatchContext([seg], torch.device(device))
+    scan = _scan_filter(filt, ctx, np.ones(1, dtype=bool))
+    return scan.mask[0, :seg.n_docs].cpu().numpy()
+
+
 def launch(ex, q: QueryContext, ctx, final: bool, reduce_mode,
            alive, valid=None) -> RowsLaunch:
     """Dispatch ``q`` in its host-path shape over the batch ``ctx``;

@@ -188,3 +188,78 @@ def expand_pairs_buckets(lo: torch.Tensor, counts: torch.Tensor,
     outs = [expand_pairs(lo[d], counts[d], bound)
             for d in range(lo.shape[0])]
     return tuple(torch.stack([o[j] for o in outs]) for j in range(3))
+
+
+# ---------------------------------------------------------------------------
+# the distributed exchange's partitioning (query2/exchange.py routes the
+# partitions; the hash here is its ``stable_hash64`` on the card)
+# ---------------------------------------------------------------------------
+
+def _u64(c: int) -> int:
+    """A uint64 constant as the int64 with its bits."""
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+_FNV_PRIME = _u64(0x100000001B3)
+_FNV_OFFSET = _u64(0xCBF29CE484222325)
+_MIX1 = _u64(0xBF58476D1CE4E5B9)
+_MIX2 = _u64(0x94D049BB133111EB)
+
+
+def _shr(v: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 bits (torch's ``>>`` is arithmetic)."""
+    return (v >> s) & ((1 << (64 - s)) - 1)
+
+
+def _splitmix64(v: torch.Tensor) -> torch.Tensor:
+    """splitmix64's finalizer over int64 bits; products wrap mod 2^64 as
+    the reference's uint64 ones do."""
+    v = v ^ _shr(v, 30)
+    v = v * _MIX1
+    v = v ^ _shr(v, 27)
+    v = v * _MIX2
+    return v ^ _shr(v, 31)
+
+
+def stable_hash64(columns, n: int, device) -> torch.Tensor:
+    """query2/exchange.py ``stable_hash64`` on the card, bit for bit: each
+    key column is (values tensor, strings or None), a string column's
+    values being int64 codes into its ``strings``. Numbers hash their
+    float64 bits with -0.0 folded into +0.0; a string hashes the crc32 of
+    its UTF-8 bytes, computed on the host once per distinct value and
+    gathered by code. Returns (n,) non-negative int64."""
+    import zlib
+
+    import numpy as np
+
+    h = torch.full((max(n, 0),), _FNV_OFFSET, dtype=torch.int64,
+                   device=device)
+    for t, strings in columns:
+        if strings is not None:
+            crc = np.fromiter((zlib.crc32(str(v).encode("utf-8"))
+                               for v in strings), dtype=np.int64,
+                              count=len(strings))
+            vals = torch.as_tensor(crc, device=device)[t.to(torch.int64)] \
+                if n else torch.zeros(0, dtype=torch.int64, device=device)
+        else:
+            canon = t.to(torch.float64)
+            canon = torch.where(canon == 0.0, torch.zeros_like(canon), canon)
+            vals = canon.view(torch.int64)
+        h = h * _FNV_PRIME + _splitmix64(vals)
+    return _shr(_splitmix64(h), 1)
+
+
+def hash_partition_rows(part_ids: torch.Tensor, n_parts: int) -> tuple:
+    """The wire exchange's partitioning (the reference's ragged form):
+    each row's partition id → (the rows in partition order, stable
+    within a partition, as a tensor on the ids' device; the host list of
+    ``n_parts + 1`` offsets where each partition starts). The caller
+    copies each column to the host once in this order and cuts the
+    partitions there, so no partition costs a copy of its own."""
+    part_ids = part_ids.to(torch.int64)
+    order = torch.sort(part_ids, stable=True).indices
+    counts = torch.bincount(part_ids, minlength=n_parts).cpu().tolist()
+    bounds = [0]
+    for c in counts:
+        bounds.append(bounds[-1] + int(c))
+    return order, bounds

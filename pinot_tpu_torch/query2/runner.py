@@ -17,7 +17,8 @@ Counterpart of pinot_tpu/query2/runner.py, in the same two stages:
   BROADCAST replicates the sorted build and shards the probe, SHUFFLE
   puts one key bucket on each device, as the reference's shard_maps do.
   DISTRIBUTED runs its local SHUFFLE mirror, as the reference runs it
-  without a broker.
+  without a broker; behind a broker each server runs its slice
+  (``run_exchange_stage``) over query2/exchange.py's wire.
 - **Windows**: ops/window.py, one ordering per (PARTITION BY, ORDER BY).
 - **Stage 2**: the joined rows' group keys factorized on the card
   (ops/selection.py ``factorize``, lexicographic key order as the host's
@@ -363,22 +364,39 @@ def _tdm_for(engine, table: str):
 
 
 def scan_local_rows(engine, table: str, filter_expr: Optional[Expression],
-                    need_cols: tuple, stats: ExecutionStats) -> dict:
+                    need_cols: tuple, stats: ExecutionStats,
+                    segments: Optional[list] = None) -> dict:
     """Matched rows of one table over all locally hosted segments →
     {bare column: Col} (engine/rows.py ``leaf_rows``), with the reference
-    host evaluator's stats added to ``stats``."""
+    host evaluator's stats added to ``stats``. ``segments`` restricts the
+    scan to the named segments: the distributed exchange ships each
+    worker its routed slice, so two replicas of one segment never both
+    scan it. A cold-tier placeholder (server/tiering.py) answers nothing:
+    it counts as queried and cold, its docs in totalDocs, and its touch
+    schedules the re-download, as in the reference."""
+    seg_filter = None if segments is None else set(segments)
     tdm = _tdm_for(engine, table)
     hosted = tdm.acquire()
     try:
         if not hosted:
             raise ValueError(f"table {table!r} has no segments")
-        if any(getattr(s, "is_cold", False) for s in hosted):
-            raise DeviceUnsupported(
-                "cold-tier segments come with a later slice of the port "
-                "(ROADMAP queue 1, item m)")
+        scan = []
+        for seg in hosted:
+            if seg_filter is not None and \
+                    getattr(seg, "name", None) not in seg_filter:
+                continue
+            if getattr(seg, "is_cold", False):
+                stats.num_segments_queried += 1
+                stats.num_segments_cold += 1
+                stats.total_docs += seg.n_docs
+                touch = getattr(seg, "touch", None)
+                if touch is not None:
+                    touch()
+                continue
+            scan.append(seg)
         fnode = None if filter_expr is None \
             else optimize_filter(_to_filter(filter_expr))
-        return rows_mod.leaf_rows(engine.device, hosted, fnode, need_cols,
+        return rows_mod.leaf_rows(engine.device, scan, fnode, need_cols,
                                   stats, MAX_STAGE1_ROWS, table)
     finally:
         tdm.release(hosted)
@@ -1190,6 +1208,134 @@ def run_local(engine, plan: MultiStagePlan):
     meta["leafRows"] = {alias: _n_rows(cols)
                         for alias, cols in table_rows.items()}
     return result, stats, meta
+
+
+def run_exchange_stage(engine, plan: MultiStagePlan, spec: dict, mailbox,
+                       send, done, deadline, ex=None):
+    """One worker's slice of a DISTRIBUTED stage 2 (the reference's
+    ``run_exchange_stage``): scan the locally routed stage-1 segments on
+    the card, partition every row set by the join key's
+    ``stable_hash64`` (data-independent, so every worker routes a key to
+    the same owner), hand each partition to ``send`` (a self-offer or an
+    ExchangeTransfer to its owner), then join and partially aggregate
+    every OWNED partition on the card and merge those partials into the
+    one IntermediateResult the broker's final merge takes.
+
+    The hash, the partition ids and their stable order are computed on
+    the card (ops/join.py ``stable_hash64``, ``hash_partition_rows``);
+    each column then comes to the host once, in partition order, and is
+    cut there into the payloads. An owned partition's rows go back to
+    the card for ``execute_join_step`` and ``stage2_partial`` (K1 past
+    its gate, K5 for a digest, K3 for raw / smart HLL).
+
+    ``spec``: {"partitions": P, "partitionOwners": {str(p): instance},
+    "senders": [instances], "selfId": str, "routing": {alias: {"table",
+    "segments", optional "dtypes"}}}. The broker gates this path to
+    single-join, window-free plans."""
+    from pinot_tpu_torch.engine.reduce import merge_intermediates
+    from pinot_tpu_torch.query2.columns import host_col
+
+    ex = engine.device if ex is None else ex
+    dev = ex.device
+    if len(plan.joins) != 1 or plan.windows:
+        raise SqlAnalysisError(
+            "distributed exchange supports exactly one join and no "
+            "window functions")
+    step = plan.joins[0]
+    probe_alias = plan.probe.alias
+    build_alias = step.build.alias
+    P = int(spec["partitions"])
+    owners = {int(p): o for p, o in spec["partitionOwners"].items()}
+    self_id = spec["selfId"]
+    mesh = getattr(ex, "mesh", None)
+
+    stats = ExecutionStats()
+    need = needed_columns(plan)
+    key_exprs = {probe_alias: step.left_keys, build_alias: step.right_keys}
+
+    # ---- stage 1 + scatter: scan routed segments, partition, ship ----
+    for src in plan.sources:
+        route = spec["routing"].get(src.alias) or {}
+        segs = route.get("segments")
+        dtypes = route.get("dtypes") or {}
+        with span(f"exchange_scan:{src.alias}"):
+            cols = scan_local_rows(
+                engine, src.table, plan.pushdown.get(src.alias),
+                need[src.alias], stats, segments=segs) if segs else {}
+        n_rows = _n_rows(cols)
+        stats.leaf_rows[src.alias] = \
+            stats.leaf_rows.get(src.alias, 0) + n_rows
+        if n_rows:
+            if any(isinstance(v, MVCol) for v in cols.values()):
+                raise DeviceUnsupported(
+                    "a multi-value column through the distributed "
+                    "exchange (the reference's wire casts it to strings)")
+            prefixed = {f"{src.alias}.{c}": v for c, v in cols.items()}
+            keys = [_eval_rows(prefixed, k, None, n_rows).rows(n_rows)
+                    for k in key_exprs[src.alias]]
+            h = join_ops.stable_hash64([(k.t, k.strings) for k in keys],
+                                       n_rows, dev)
+            order, bounds = join_ops.hash_partition_rows(h % P, P)
+            # one device-to-host copy a column, in partition order
+            host = {c: v.take(order).host() for c, v in cols.items()}
+        else:
+            # an empty side still ships typed, at the broker's schema
+            # dtypes (the reference's empty-leaf guard)
+            host = {c: np.empty(0, dtype=np.dtype(dtypes[c]))
+                    if c in dtypes else np.empty(0)
+                    for c in need[src.alias]}
+            bounds = [0] * (P + 1)
+        deadline.check("exchange.partition")
+        with span(f"exchange_send:{src.alias}"):
+            for p in range(P):
+                # EVERY partition ships, empty included: the owner's
+                # gather then always sees typed arrays for both sides
+                lo, hi = bounds[p], bounds[p + 1]
+                send(owners[p], src.alias, p,
+                     {c: a[lo:hi] for c, a in host.items()}, hi - lo)
+    done()
+
+    # ---- barrier: all senders done, all announced payloads arrived ----
+    with span("exchange_barrier"):
+        mailbox.wait_ready(spec["senders"], deadline)
+
+    # ---- stage 2 per owned partition, on the card ----
+    def on_card(alias: str, p: int) -> tuple:
+        got, n = mailbox.gather(alias, p)
+        if not got:
+            got = {c: np.empty(0) for c in need[alias]}
+        return {f"{alias}.{c}": host_col(np.asarray(v), dev)
+                for c, v in got.items()}, n
+
+    owned = sorted(p for p, o in owners.items() if o == self_id)
+    partials = []
+    total_joined = 0
+    for p in owned:
+        deadline.check("exchange.stage2")
+        left, n_probe = on_card(probe_alias, p)
+        build, _ = on_card(build_alias, p)
+        with span(f"exchange_join:p{p}"):
+            joined, n_j = execute_join_step(
+                left, n_probe, step, build, dev, mesh, "SHUFFLE")
+        if plan.post_filter is not None and n_j:
+            keep = torch.nonzero(_expr_mask(joined, plan.post_filter, None,
+                                            n_j)).reshape(-1)
+            joined = _take(joined, keep)
+            n_j = keep.numel()
+        total_joined += n_j
+        with span(f"exchange_stage2:p{p}"):
+            partials.append(stage2_partial(plan, joined, n_j, {}, ex))
+    if partials:
+        merged = merge_intermediates(plan.stage2, partials)
+    else:
+        # a worker that owns no partition still returns a typed empty
+        # partial over the joined namespace
+        empty = {f"{a}.{c}": host_col(np.empty(0), dev)
+                 for a, cs in need.items() for c in cs}
+        merged = stage2_partial(plan, empty, 0, {}, ex)
+    stats.stage2_rows = total_joined
+    merged.stats = stats
+    return merged
 
 
 def catalog_for(engine):

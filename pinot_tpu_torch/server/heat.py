@@ -1,7 +1,7 @@
 """Per-segment access-temperature telemetry.
 
 A tiered lifecycle (object-store/cold → host-mmap/warm → device/hot;
-the port runs tier-less until ROADMAP item m3) needs a per-segment
+server/tiering.py) needs a per-segment
 temperature signal to drive promotion and demotion.  This module is the
 server-side half: exponentially-decayed per-segment access counters
 (accesses/s and approximate bytes-scanned/s at a configurable half

@@ -86,7 +86,8 @@ class ServerInstance:
                  max_concurrent_queries: int = 8, max_queued_queries: int = 32,
                  group_trim_size: int = 5000, scheduler_name: str = None,
                  tls="auto", tags=(), compile_concurrency: int = None,
-                 tier_overrides: dict = None):
+                 tier_overrides: dict = None,
+                 exchange_buffer_bytes: int = None):
         self.instance_id = instance_id
         self.registry = registry
         self.data_dir = data_dir
@@ -114,9 +115,24 @@ class ServerInstance:
             tls=tls,
         )
         self._tls = tls
-        # the distributed stage-2 exchange (its mailboxes and the
-        # server-to-server transfer) is ROADMAP item m3: the two handlers
-        # below refuse in-band, naming it
+        # distributed stage-2 mailboxes ( query2/exchange.py):
+        # per-exchange receive buffers with a byte ceiling past which
+        # payloads spill to mmap'd .npy files under the data dir (the
+        # warm-tier spill idea) — the test knob ``exchange_buffer_bytes``
+        # simulates a build side exceeding one process's RAM budget
+        from pinot_tpu_torch.query2.exchange import ExchangeRegistry
+
+        self.exchange_buffer_bytes = int(
+            exchange_buffer_bytes if exchange_buffer_bytes is not None
+            else os.environ.get("PINOT_TPU_EXCHANGE_BUFFER_BYTES",
+                                256 << 20))
+        self.exchanges = ExchangeRegistry(
+            os.path.join(data_dir, "exchange_spill"),
+            self.exchange_buffer_bytes)
+        # server→server transfer channels, one per peer endpoint (the
+        # broker's per-instance channel pool pattern); closed in stop()
+        self._peer_channels: dict = {}
+        self._peer_lock = threading.Lock()
         self.sync_interval_s = sync_interval_s
         from pinot_tpu_torch.common.config import Configuration
 
@@ -145,8 +161,8 @@ class ServerInstance:
         # per-segment access-temperature telemetry (server/heat.py): decayed
         # access/bytes counters updated on every query, piggybacked in the
         # heartbeat like scheduler pressure and aggregated at the controller
-        # (/tables/{t}/heat) — the input a tier lifecycle's promotion/demotion
-        # policy would consume (ROADMAP m3)
+        # (/tables/{t}/heat) — the input the tier lifecycle's
+        # promotion/demotion policy (server/tiering.py) consumes
         from pinot_tpu_torch.server.heat import SegmentHeatTracker
 
         self.heat = SegmentHeatTracker(
@@ -156,14 +172,15 @@ class ServerInstance:
                 "pinot.server.heat.max.segments", 8192)))
         self.heat_top_per_table = int(conf.get_float(
             "pinot.server.heat.heartbeat.top.segments", 32))
-        # the tiered segment lifecycle (server/tiering.py) is ROADMAP item
-        # m3: the port runs tier-less, the reference's default, and
-        # refuses a configuration that turns the tier on
-        if Configuration(overrides=tier_overrides).get_bool(
-                "pinot.server.tier.enabled", False):
-            raise ValueError(
-                "pinot.server.tier.enabled: the tiered segment lifecycle "
-                "is ROADMAP item m3, not yet in the port")
+        # tiered segment lifecycle ( server/tiering.py): the
+        # TierManager consumes the heat tracker's UNCAPPED iter_all plus
+        # the device batch hit/miss counters and drives hot/warm/cold
+        # transitions from the sync loop; opt-in
+        # (pinot.server.tier.enabled) so tier-less deployments keep the
+        # all-hot behavior byte-for-byte
+        from pinot_tpu_torch.server.tiering import TierManager
+
+        self.tiers = TierManager(self, overrides=tier_overrides)
         self._last_serving = None  # last published ExternalView payload
         self._shutting_down = False
         self._inflight_queries = 0
@@ -205,6 +222,21 @@ class ServerInstance:
         self._register_gauge("heatTrackedSegments",
                              lambda: self.heat.size())
         self._register_gauge("hbmPeakGbps", _hbm_peak_if_probed)
+        # HBM / batch-LRU accounting (DeviceExecutor.hbm_stats): resident
+        # bytes, cache traffic, and bytes the width planning saved — the
+        if self.tiers.enabled:
+            # tier lifecycle visibility (registered only on tiering
+            # servers — same no-churn rule as the result-cache gauges)
+            self._register_gauge(
+                "tierColdSegments",
+                (lambda _t=self.tiers: _t.stats()["cold_segments"]))
+            self._register_gauge(
+                "tierHydrations",
+                (lambda _t=self.tiers: _t.hydrations))
+            self._register_gauge(
+                "tierDemotions",
+                (lambda _t=self.tiers: _t.demotions_warm
+                 + _t.demotions_cold))
         # HBM / batch-LRU accounting (DeviceExecutor.hbm_stats): resident
         # bytes, cache traffic, and bytes the width planning saved — the
         # operational view of the width narrowing (a shrinking
@@ -307,9 +339,19 @@ class ServerInstance:
         self._registered_gauges = []
         if self._sync_thread is not None:
             self._sync_thread.join(5)
+        self.tiers.stop()
         for mgr in self._realtime_managers.values():
             mgr.stop(commit_remaining=False)
         self.transport.stop()
+        self.exchanges.close()
+        with self._peer_lock:
+            peers, self._peer_channels = \
+                list(self._peer_channels.values()), {}
+        for ch in peers:
+            try:
+                ch.close()
+            except Exception:  # noqa: BLE001 — teardown best-effort
+                pass
         self.registry.drop_instance(self.instance_id)
 
     # ---- query path ------------------------------------------------------
@@ -640,25 +682,231 @@ class ServerInstance:
 
         return finish
 
-    # ---- distributed stage-2 exchange: ROADMAP item m3 ------------------
-    _M3_EXCHANGE = ("the distributed stage-2 exchange is ROADMAP item m3, "
-                    "not yet in the port")
+    # ---- distributed stage-2 exchange ( mailbox leapfrog) -------
+    def _peer_channel(self, endpoint: str):
+        """One cached QueryRouterChannel per peer endpoint for
+        ExchangeTransfer sends (the broker's per-instance pool pattern,
+        server-side)."""
+        with self._peer_lock:
+            ch = self._peer_channels.get(endpoint)
+            if ch is None:
+                from pinot_tpu_torch.transport.grpc_transport import (
+                    QueryRouterChannel,
+                )
+
+                ch = QueryRouterChannel(endpoint, tls=self._tls)
+                self._peer_channels[endpoint] = ch
+            return ch
 
     def _handle_exchange_transfer(self, request: bytes) -> bytes:
-        """Refused in-band, in the reference's ack shape: the mailboxes
-        are item m3."""
+        """Receive one exchange payload (or a sender's done marker) into
+        the addressed mailbox. Errors answer in-band as {"ok": false} —
+        the SENDING server converts that into a typed
+        EXCHANGE_TRANSFER_FAILED with peer attribution, so the broker's
+        retry can exclude the right instance."""
         import json as _json
 
-        self.metrics.count("exchangeTransferErrors")
-        return _json.dumps({"ok": False, "error": self._M3_EXCHANGE}) \
-            .encode("utf-8")
+        from pinot_tpu_torch.query2 import exchange as ex
+
+        try:
+            msg = ex.decode_transfer(request)
+            buf = self.exchanges.get_or_create(msg["id"])
+            if msg["done"]:
+                buf.mark_done(msg["sender"], msg.get("expected") or {})
+                ack = {"ok": True, "spilled": False, "softLimit": False}
+            else:
+                ack = buf.offer(msg["sender"], msg["alias"],
+                                msg["partition"], msg["cols"], msg["n"])
+                self.metrics.count("exchangeTransfers")
+                if ack.get("spilled"):
+                    self.metrics.count("exchangeSpills")
+            return _json.dumps(ack).encode("utf-8")
+        except Exception as e:  # noqa: BLE001 — in-band, sender attributes
+            self.metrics.count("exchangeTransferErrors")
+            return _json.dumps(
+                {"ok": False,
+                 "error": f"{type(e).__name__}: {e}"}).encode("utf-8")
 
     def _handle_execute_stage(self, request: bytes) -> bytes:
-        """Refused in-band as a query error: running a slice of a
-        distributed stage 2 is item m3."""
-        self.metrics.count("queryErrors")
-        return encode_error("query_error",
-                            f"DeviceUnsupported: {self._M3_EXCHANGE}")
+        """Run this worker's slice of a DISTRIBUTED stage 2
+        (query2/runner.run_exchange_stage): scan routed segments, ship
+        hash partitions to their owners, join + partially aggregate the
+        owned partitions, answer ONE mergeable DataTable. Same
+        shutdown-drain/in-flight accounting and typed error ladder as
+        the unary submit; no scheduler slot is held — the exchange
+        barrier can wait on PEERS, and a fleet-wide stage parked on
+        every server's scheduler would deadlock regular traffic behind
+        a slow worker."""
+        import json as _json
+
+        from pinot_tpu_torch.query2.exchange import ExchangeTransferError
+
+        req = _json.loads(request.decode("utf-8"))
+        with self._inflight_cond:
+            if self._shutting_down:
+                self.metrics.count("queriesRejected")
+                return encode_error(
+                    "server_shutting_down",
+                    f"SERVER_SHUTTING_DOWN: {self.instance_id} is "
+                    f"draining for shutdown")
+            self._inflight_queries += 1
+        try:
+            self.metrics.count("exchangeStages")
+            return self._execute_stage_inner(req)
+        except faults.FaultInjected:
+            # injected crash mode: die at the transport level, like a
+            # process kill (matches the unary submit's contract)
+            raise
+        except QueryTimeout as e:
+            self.metrics.count("queryTimeouts")
+            return encode_error("query_timeout", str(e))
+        except ExchangeTransferError as e:
+            # typed with PEER attribution: the broker excludes the
+            # implicated instance (not this healthy worker) on retry
+            self.metrics.count("queryErrors")
+            return encode_error(
+                "query_error",
+                f"EXCHANGE_TRANSFER_FAILED peer={e.peer}: {e}")
+        except Exception as e:  # noqa: BLE001 — stage errors ship in-band
+            self.metrics.count("queryErrors")
+            return encode_error("query_error", f"{type(e).__name__}: {e}")
+        finally:
+            with self._inflight_cond:
+                self._inflight_queries -= 1
+                self._inflight_cond.notify_all()
+
+    def _execute_stage_inner(self, req: dict) -> bytes:
+        import json as _json
+
+        from pinot_tpu_torch.common import trace
+        from pinot_tpu_torch.query2 import exchange as ex
+        from pinot_tpu_torch.query2.logical import compile_plan
+        from pinot_tpu_torch.query2.runner import _tdm_for, run_exchange_stage
+        from pinot_tpu_torch.sql.parser import parse_sql
+
+        deadline = self._request_deadline(req) or Deadline(30.0)
+        tracer = trace.Tracer(req.get("traceId")) \
+            if req.get("traceEnabled") else None
+        exchange_id = req["exchangeId"]
+        endpoints = req["endpoints"]
+        owners = {int(p): o for p, o in req["partitionOwners"].items()}
+        mailbox = self.exchanges.get_or_create(exchange_id)
+        shipped = {"parts": 0, "bytes": 0}
+
+        def send(owner: str, alias: str, partition: int, cols: dict,
+                 n: int) -> None:
+            if faults.ACTIVE:
+                # exchange.transfer chaos seam: targets the RECEIVING
+                # instance, so blackholing one server starves every
+                # sender addressing it — including its own self-send —
+                # and the typed failure names it for the broker's retry
+                try:
+                    faults.inject("exchange.transfer", target=owner,
+                                  bound_ms=deadline.remaining_ms())
+                except faults.FaultInjected as e:
+                    raise ex.ExchangeTransferError(
+                        owner, f"injected transfer fault: {e}") from e
+            if owner == self.instance_id:
+                # self-offer straight into the local mailbox: no wire,
+                # not counted as shipped
+                mailbox.offer(self.instance_id, alias, partition, cols, n)
+                return
+            payload = ex.encode_transfer(
+                exchange_id, self.instance_id, alias, partition, cols, n)
+            try:
+                ch = self._peer_channel(endpoints[owner])
+                ack = _json.loads(ch.transfer(
+                    payload, timeout_s=max(0.1, deadline.remaining_s())))
+            except Exception as e:  # noqa: BLE001 — typed for the broker
+                raise ex.ExchangeTransferError(
+                    owner, f"transfer to {owner} failed: "
+                           f"{type(e).__name__}: {e}") from e
+            if not ack.get("ok"):
+                raise ex.ExchangeTransferError(
+                    owner, f"transfer to {owner} rejected: "
+                           f"{ack.get('error')}")
+            shipped["parts"] += 1
+            shipped["bytes"] += len(payload)
+            if ack.get("softLimit"):
+                # receiver mailbox running hot: pace the pipe (bounded
+                # backpressure, never past the budget)
+                time.sleep(min(0.005, max(0.0, deadline.remaining_s())))
+
+        def done() -> None:
+            # unary transfers from this thread are ordered, so done-last
+            # is a valid completeness marker; each sender ships exactly
+            # ONE payload per (alias, partition) — empty included — so
+            # the receiver's expected count per slot is always 1
+            aliases = list(req["routing"])
+            for receiver in sorted(set(owners.values())):
+                owned = [p for p, o in owners.items() if o == receiver]
+                expected = {a: {str(p): 1 for p in owned}
+                            for a in aliases}
+                if receiver == self.instance_id:
+                    mailbox.mark_done(self.instance_id, expected)
+                    continue
+                payload = ex.encode_transfer(
+                    exchange_id, self.instance_id, "", -1, {}, 0,
+                    done=True, expected=expected)
+                try:
+                    ch = self._peer_channel(endpoints[receiver])
+                    ack = _json.loads(ch.transfer(
+                        payload,
+                        timeout_s=max(0.1, deadline.remaining_s())))
+                except Exception as e:  # noqa: BLE001
+                    raise ex.ExchangeTransferError(
+                        receiver, f"done marker to {receiver} failed: "
+                                  f"{type(e).__name__}: {e}") from e
+                if not ack.get("ok"):
+                    raise ex.ExchangeTransferError(
+                        receiver, f"done marker to {receiver} rejected: "
+                                  f"{ack.get('error')}")
+
+        def catalog(table: str):
+            tdm = _tdm_for(self.engine, table)
+            segs = tdm.acquire()
+            try:
+                if not segs:
+                    raise ValueError(f"table {table!r} has no segments")
+                cols = tuple(segs[0].column_names())
+            finally:
+                tdm.release(segs)
+            return cols, bool(getattr(tdm, "is_dim_table", False))
+
+        spec = {
+            "partitions": int(req["partitions"]),
+            "partitionOwners": req["partitionOwners"],
+            "senders": list(req["senders"]),
+            "selfId": self.instance_id,
+            "routing": req["routing"],
+        }
+        timer = self.metrics.timed("exchangeStage")
+        timer.__enter__()
+        try:
+            with trace.span("server.compile", tracer):
+                plan = compile_plan(parse_sql(req["sql"]), catalog)
+            with trace.span("server.exchange", tracer):
+                merged = run_exchange_stage(
+                    self.engine, plan, spec, mailbox, send, done,
+                    deadline, ex=self.engine.device)
+            merged.stats.exchange_partitions_shipped = shipped["parts"]
+            merged.stats.exchange_bytes_shipped = shipped["bytes"]
+            merged.stats.exchange_spill_count = mailbox.spill_count
+            merged.stats.server_pressure = self.scheduler.pressure()
+            merged.stats.server_inflight = self._inflight_queries
+            self.metrics.count("exchangeBytesShipped", shipped["bytes"])
+            self.queries_served += 1
+            if tracer is not None:
+                tracer.add_ms("server.total", tracer.elapsed_ms())
+                merged.trace = tracer.to_json()
+            return encode(merged)
+        finally:
+            timer.__exit__()
+            # the barrier guarantees every peer payload addressed to
+            # this worker has arrived before the stage returns, so the
+            # mailbox (and its spill files) can be reclaimed here; a
+            # broker retry mints a fresh exchange id
+            self.exchanges.release(exchange_id)
 
     # ---- streaming query path (GrpcQueryServer streaming Submit) ---------
     def _handle_submit_streaming(self, request: bytes):
@@ -878,10 +1126,14 @@ class ServerInstance:
                         # bounded at million-segment scale
                         heat=self.heat.snapshot(
                             top_per_table=self.heat_top_per_table),
-                        # no per-segment tier map: the port runs
-                        # tier-less (item m3)
-                        tiers=None)
+                        # per-segment tier map: the controller's
+                        # tier-aware replica-group assignment reads it
+                        tiers=(self.tiers.snapshot()
+                               if self.tiers.enabled else None))
                     last_hb = now
+                # tier lifecycle pass (interval-gated internally): heat
+                # ranking, hot-budget admission, cold demotion
+                self.tiers.maybe_tick(now)
             except Exception:
                 log.exception("segment sync failed")
             self._stop.wait(self.sync_interval_s)

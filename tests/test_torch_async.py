@@ -351,22 +351,32 @@ def test_cohort_members_each_get_fetch_spans(dirs):
 
 
 def test_cold_tier_segment_is_refused_in_band(dirs):
-    """A cold-tier placeholder (``is_cold``: planes only in a deep
-    store) is refused, naming the cluster tier's item; nothing is
-    pinned."""
-    from pinot_tpu_torch.engine.params import DeviceUnsupported
-
+    """A cold-tier placeholder (``is_cold``: planes only in a deep store)
+    answers nothing, as in the reference: the launch drops it, the
+    partial counts it in numSegmentsCold and its docs in totalDocs (a
+    broker marks such a response partial), and nothing is pinned. (The tiers came with
+    ROADMAP item m3; before, the port refused the placeholder in-band.)"""
     eng = make_port(dirs)
     segs = table_segs(eng, "t")
     cold = ImmutableSegment(dirs["t"][0])
     cold.is_cold = True
     q = compile_q(eng, MIXED_QUERIES[1])
-    with pytest.raises(DeviceUnsupported, match="item m"):
-        eng.execute_segments_async(q, segs[1:] + [cold])
+    merged = eng.execute_segments_async(q, segs[1:] + [cold])()
+    assert merged.stats.num_segments_cold == 1
+    assert merged.stats.num_segments_queried == len(segs)
     assert eng.device.inflight == 0
     eng.tables["t"].remove_segment(segs[0].name)
     eng.tables["t"].add_segment(cold)  # the table: segs[1:] + [cold]
     r = eng.execute(MIXED_QUERIES[1])
-    (exc,) = r["exceptions"]
-    assert exc["message"].startswith("DeviceUnsupported") \
-        and "item m" in exc["message"]
+    ref_eng = RefEngine()
+    for d in dirs["t"][1:]:
+        ref_eng.add_segment("t", RefSegment(d))
+    ref_cold = RefSegment(dirs["t"][0])
+    ref_cold.is_cold = True
+    ref_eng.add_segment("t", ref_cold)
+    want = ref_eng.execute(MIXED_QUERIES[1])
+    _same_rows(r, want)
+    for key in ("numSegmentsCold", "numSegmentsQueried", "totalDocs",
+                "numSegmentsProcessed"):
+        assert r[key] == want[key], (key, r[key], want[key])
+    assert r["numSegmentsCold"] == 1

@@ -36,15 +36,25 @@ _REF_ROOT = pathlib.Path(importlib.util.find_spec("pinot_tpu").origin).parent
 _PORT_ROOT = _REF_ROOT.parent / "pinot_tpu_torch"
 
 
+# packages whose ``__init__`` is a module of its own (the DB-API client,
+# the connectors): swapped like any module
+_MODULE_PACKAGES = ("client", "connectors")
+
+
 def _port_pairs() -> dict:
     """{"pinot_tpu.<rel>": port module} for every module both packages
-    have (packages themselves stay the reference's)."""
+    have (packages themselves stay the reference's, but those in
+    ``_MODULE_PACKAGES``)."""
     pairs = {}
     for path in sorted(_PORT_ROOT.rglob("*.py")):
         rel = path.relative_to(_PORT_ROOT).with_suffix("")
-        if rel.name == "__init__" or "_build" in rel.parts:
+        if "_build" in rel.parts:
             continue
-        if not (_REF_ROOT / rel).with_suffix(".py").is_file():
+        if rel.name == "__init__":
+            if rel.parent.parts not in [(p,) for p in _MODULE_PACKAGES]:
+                continue
+            rel = rel.parent
+        elif not (_REF_ROOT / rel).with_suffix(".py").is_file():
             continue
         dotted = ".".join(rel.parts)
         pairs[f"pinot_tpu.{dotted}"] = importlib.import_module(
@@ -57,7 +67,8 @@ def _shims(pairs: dict) -> dict:
     reference builds its host-only engine with ``device_executor=None``
     and its device engine by default; the port has one engine, which the
     tests run on the CPU. Only these shims map the reference's arguments:
-    the port's own classes run on the card unless given "cpu"."""
+    the port's own classes (and the minion worker and the quickstart,
+    which take a ``device`` too) run on the card unless given "cpu"."""
     eng = pairs["pinot_tpu.engine.engine"]
     dev = pairs["pinot_tpu.engine.device"]
     srv = pairs["pinot_tpu.server.server"]
@@ -84,12 +95,27 @@ def _shims(pairs: dict) -> dict:
             kw.setdefault("device", "cpu")
             super().__init__(*args, **kw)
 
+    wrk = pairs["pinot_tpu.minion.worker"]
+    qs = pairs["pinot_tpu.tools.quickstart"]
+
+    class MinionWorker(wrk.MinionWorker):
+        def __init__(self, *args, **kw):
+            kw.setdefault("device", "cpu")
+            super().__init__(*args, **kw)
+
+    def run_quickstart(*args, device_executor="auto", **kw):
+        kw.setdefault("device", "cpu")
+        return qs.run_quickstart(*args, **kw)
+
     out = {}
     for name, mod, cls in (("engine.device", dev, DeviceExecutor),
                            ("engine.engine", eng, QueryEngine),
                            ("server.server", srv, ServerInstance),
-                           ("broker.broker", brk, Broker)):
-        cls.__name__ = cls.__qualname__ = cls.__mro__[1].__name__
+                           ("broker.broker", brk, Broker),
+                           ("minion.worker", wrk, MinionWorker),
+                           ("tools.quickstart", qs, run_quickstart)):
+        if isinstance(cls, type):
+            cls.__name__ = cls.__qualname__ = cls.__mro__[1].__name__
         cls.__module__ = mod.__name__
         shim = types.ModuleType(mod.__name__, mod.__doc__)
         shim.__dict__.update(mod.__dict__)

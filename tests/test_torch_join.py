@@ -575,13 +575,21 @@ class TestDiagnostics:
         assert _message(eng["gate"].execute(sql)) == want
 
     def test_cold_segment_refused(self, setup, monkeypatch):
+        """A cold segment in a leaf answers nothing, as in the reference:
+        it counts in numSegmentsCold, its docs in totalDocs, and the
+        response is partial. (The tiers came with ROADMAP item m3; before,
+        the port refused the leaf in-band.)"""
         eng, _ = setup
-        seg = next(iter(eng["gate"].table("parts").segments.values()))
-        monkeypatch.setattr(seg, "is_cold", True, raising=False)
-        msg = _message(eng["gate"].execute(
-            "SELECT COUNT(*) FROM orders o JOIN parts p "
-            "ON o.partkey = p.pkey"))
-        assert "item m" in msg
+        sql = ("SELECT COUNT(*) FROM orders o JOIN parts p "
+               "ON o.partkey = p.pkey")
+        for side in ("ref", "gate"):
+            seg = next(iter(eng[side].table("parts").segments.values()))
+            monkeypatch.setattr(seg, "is_cold", True, raising=False)
+        want = eng["ref"].execute(NO_ADVISOR + sql)
+        got = eng["gate"].execute(NO_ADVISOR + sql)
+        same(got, want)
+        assert got["numSegmentsCold"] == want["numSegmentsCold"] >= 1
+        assert got["partialResult"] is want["partialResult"] is True
 
 
 class TestExplainJoin:

@@ -135,9 +135,29 @@ class Twin:
             return True
         return all(done(self.mgrs[s], self.topics[s]) for s in SIDES)
 
+    def quiescent(self):
+        """Consumed, and no commit in flight or due on either side: a
+        partition manager advances its offset before it commits, so
+        ``consumed()`` alone holds while a commit is still under way."""
+        if not self.consumed():
+            return False
+        return not any(
+            pm.state == pm.COMMITTING
+            or pm.segment.n_docs >= pm.rows_threshold
+            for s in SIDES
+            for pm in self.mgrs[s].partition_managers.values())
+
     def wait(self, cond=None, timeout=60.0):
-        assert wait_until(lambda: self.consumed()
-                          and (cond is None or cond()), timeout)
+        """Poll, without asserting, until both sides are quiescent and
+        ``cond()`` holds; ``check`` then compares them."""
+        assert wait_until(lambda: self.quiescent()
+                          and (cond is None or cond())
+                          and self.quiescent(), timeout)
+
+    def counts(self, sql="SELECT COUNT(*) FROM events"):
+        """Each side's first value, for a wait's condition (no assert)."""
+        return [self.engines[s].execute(sql)["resultTable"]["rows"][0][0]
+                for s in SIDES]
 
     def layout(self, side):
         tdm = self.engines[side].tables["events"]
@@ -199,16 +219,18 @@ def test_restart_resumes_from_checkpoint(tmp_path):
     tw.publish([{"user": "u1", "action": "a", "amount": 1, "ts": i}
                 for i in range(250)])
     tw.start()
-    tw.wait(lambda: _count(tw) == 250)
+    tw.wait(lambda: tw.counts() == [250, 250])
+    assert _count(tw) == 250
     tw.stop(commit_remaining=True)
     tw.restart()
     tw.start()
     try:
+        tw.wait()
         reconciled = _count(tw)
         assert 0 < reconciled <= 250
         tw.publish([{"user": "u2", "action": "b", "amount": 1,
                      "ts": 250 + i} for i in range(50)])
-        tw.wait(lambda: _count(tw) == reconciled + 50)
+        tw.wait(lambda: tw.counts() == [reconciled + 50] * 2)
         assert tw.check("SELECT COUNT(*) FROM events WHERE user = 'u2'") \
             == [[50]]
         for sql in CHECKS:
@@ -467,6 +489,7 @@ def test_orphan_quarantined(tmp_path, seq_of_orphan):
     tw.restart()
     tw.start()
     try:
+        tw.wait()
         n = _count(tw)
         assert 0 < n <= 180
         for side, orphan in orphans.items():
