@@ -125,7 +125,18 @@ Phases, all on ``cuda:0``:
    filter (K4); ``trips`` loaded twice more, wide and under
    ``PINOT_TPU_SUBBYTE=1``, where ``SUBBYTE_TWINS`` answer the same and
    the sub-byte load holds fewer bytes; K1, K2, K3 and K4 held at its
-   captured inputs, ``check_tail_kernels``). Every answer is
+   captured inputs, ``check_tail_kernels``), and the repairs path
+   (``REP_QUERIES``, after the tail path: the host path's shape over
+   ``trips``' first 10M rows a segment, ``$docId < 10000000``: MIN / MAX
+   / MINMAXRANGE / SUM / AVG of the whole-cent tips and the distances by
+   payment type and by day, where DOUBLE operands read float64 and reach
+   neither K1 nor K2; SUM and AVG of the epoch-millis pickup times, about
+   3.2e19, and their SUM(pickup_ts + 0) by payment type over K1's byte
+   planes recombined in float64; a star join of ``f5_fact``, 300,000
+   LONG values in [2^60, 2^61) from seed 101, with the 25-row ``f5_dim``,
+   stage 2's sums on K1; each answer a Python float, MIN and MAX bit for
+   bit and the sums within 1e-9 of ``math.fsum``; K1 held at its captured
+   inputs, ``check_repairs_kernels``). Every answer is
    checked against a numpy oracle over the generated columns (HLL
    estimates from registers the oracle builds itself; for the block-skip
    path also the pruned segments, pruned blocks and entries scanned,
@@ -2612,6 +2623,199 @@ QUERY_LAUNCHES.update({
            "hll_register_max": int(name == "tail_hll_minutes"),
            "fused_filter_agg": int(name == "tail_day_fused")}
     for name in TAIL_QUERIES})
+
+
+# ---------------------------------------------------------------------------
+# the repairs path: where the reference answers on its host, DOUBLE
+# operands read float64 and integer sums that could pass 2^63 sum in
+# float64 (ROADMAP queue 3, F4 and F5), over ``trips`` and a stage-2 fact
+# ---------------------------------------------------------------------------
+
+REP_DOCS = 10_000_000          # $docId < REP_DOCS: the host path's shape
+REP_WHERE = f"WHERE $docId < {REP_DOCS}"
+REP_DAY = "DATETRUNC('DAY', pickup_ts)"
+# tips are whole cents, which float32 cannot hold (fares, in 50-cent
+# steps, would hide the fault)
+REP_F4 = ("MIN(tip_amount), MAX(tip_amount), MINMAXRANGE(trip_distance), "
+          "SUM(tip_amount), AVG(trip_distance)")
+REP_FACT, REP_DIM = "f5_fact", "f5_dim"
+REP_FACT_ROWS, REP_KEYS, REP_SEED = 300_000, 25, 101
+REP_QUERIES = {
+    "rep_f4_pay": (f"SELECT payment_type, {REP_F4} FROM {TRIPS_TABLE} "
+                   f"{REP_WHERE} GROUP BY payment_type ORDER BY payment_type"),
+    "rep_f4_day": (f"SELECT {REP_DAY}, {REP_F4} FROM {TRIPS_TABLE} "
+                   f"{REP_WHERE} GROUP BY {REP_DAY} ORDER BY {REP_DAY} "
+                   f"LIMIT 100"),
+    # 2 x 10M epoch millis near 1.58e12: about 3.2e19, past 2^63
+    "rep_f5_scalar": (f"SELECT SUM(pickup_ts), AVG(pickup_ts) FROM "
+                      f"{TRIPS_TABLE} {REP_WHERE}"),
+    "rep_f5_pay": (f"SELECT payment_type, SUM(pickup_ts + 0) FROM "
+                   f"{TRIPS_TABLE} {REP_WHERE} GROUP BY payment_type "
+                   f"ORDER BY payment_type"),
+    # stage 2 past K1's gate: LONG values in [2^60, 2^61)
+    "rep_f5_join": (f"SET useAdvisor = false; SELECT dm.d_key, "
+                    f"SUM(fa.big), AVG(fa.big) FROM {REP_FACT} fa JOIN "
+                    f"{REP_DIM} dm ON fa.f_key = dm.d_key GROUP BY dm.d_key "
+                    f"ORDER BY dm.d_key LIMIT {REP_KEYS}"),
+}
+PATHS["repairs"] = (REP_QUERIES, ("group_plane_sums",),
+                    ((3, "group_scatter", "plane_group_sums"),))
+# a group-by's count takes one K1 launch, its DOUBLE operands none, nor
+# K2; the integer sums past 2^63 ride that launch as byte planes; the
+# scalar sums are torch reductions; stage 2's group sums one K1 launch
+QUERY_LAUNCHES.update({
+    name: {"group_plane_sums": int(name != "rep_f5_scalar"),
+           "group_minmax": 0}
+    for name in REP_QUERIES})
+
+
+def rep_generate(seed: int = REP_SEED) -> dict:
+    """The stage-2 fact (``REP_FACT_ROWS`` LONG values in [2^60, 2^61)
+    on keys 0-24) and its 25-row dimension."""
+    rng = np.random.default_rng(seed)
+    return {"fact": {"f_key": rng.integers(0, REP_KEYS, REP_FACT_ROWS)
+                     .astype(np.int32),
+                     "big": rng.integers(2 ** 60, 2 ** 61, REP_FACT_ROWS)},
+            "dim": {"d_key": np.arange(REP_KEYS, dtype=np.int32),
+                    "d_name": np.array([f"key{k:02d}"
+                                        for k in range(REP_KEYS)])}}
+
+
+def write_rep_tables(rep: dict) -> tuple:
+    """The fact (``big`` raw) and the dimension table, written with the
+    port's creator (run in a worker process). Returns their directories."""
+    from pinot_tpu_torch.common.datatypes import DataType as D
+    from pinot_tpu_torch.common.schema import Schema
+    from pinot_tpu_torch.common.table_config import IndexingConfig, \
+        TableConfig
+    from pinot_tpu_torch.storage.creator import build_segment
+
+    fact = os.path.join(DATA_DIR, REP_FACT, "s0")
+    build_segment(
+        Schema.build(name=REP_FACT, dimensions=[("f_key", D.INT)],
+                     metrics=[("big", D.LONG)]),
+        rep["fact"], fact, TableConfig(
+            table_name=REP_FACT, indexing=IndexingConfig(
+                no_dictionary_columns=["big"])), f"{REP_FACT}0")
+    dim = os.path.join(DATA_DIR, REP_DIM, "d0")
+    build_segment(
+        Schema.build(name=REP_DIM, dimensions=[("d_key", D.INT),
+                                               ("d_name", D.STRING)],
+                     primary_key_columns=["d_key"]),
+        rep["dim"], dim, TableConfig(table_name=REP_DIM, is_dim_table=True),
+        f"{REP_DIM}0")
+    return fact, dim
+
+
+def _rep_checker(name: str, want: list, lead: int, exact: tuple):
+    """The repairs path's rows: the ``lead`` key columns equal; each
+    aggregation a Python float, bit for bit where ``exact`` says (MIN,
+    MAX and their range: values the column holds), else within 1e-9
+    relative of the oracle's ``math.fsum``."""
+    def check(got):
+        if len(got) != len(want) or any(len(a) != len(b)
+                                        for a, b in zip(got, want)):
+            raise AssertionError(f"{name}: rows {got[:3]} want {want[:3]}")
+        for a, b in zip(got, want):
+            if a[:lead] != b[:lead]:
+                raise AssertionError(f"{name}: row {a} want {b}")
+            for x, y, bit in zip(a[lead:], b[lead:], exact):
+                if type(x) is not float or (x != y if bit else abs(x - y)
+                                            > 1e-9 * abs(y)):
+                    raise AssertionError(f"{name}: row {a} want {b} (bit "
+                                         f"for bit: {exact})")
+    return check
+
+
+def _groups(inv: np.ndarray, n: int) -> tuple:
+    """(order, cuts): the rows of each of ``n`` groups ``inv`` (every one
+    present), ``order[cuts[g]:cuts[g + 1]]``, from one stable sort."""
+    order = np.argsort(inv, kind="stable")
+    return order, np.searchsorted(inv[order], np.arange(n + 1))
+
+
+def _grouped(values: np.ndarray, groups: tuple) -> tuple:
+    """(min, max, ``math.fsum``) of ``values`` as float64, the reference
+    host's values, in each of ``groups`` (``_groups``)."""
+    import math
+
+    order, cuts = groups
+    v = values[order].astype(np.float64)
+    return (np.minimum.reduceat(v, cuts[:-1]), np.maximum.reduceat(
+        v, cuts[:-1]), [math.fsum(v[a:b].tolist())
+                        for a, b in zip(cuts[:-1], cuts[1:])])
+
+
+def rep_oracle(trips: list, rep: dict) -> dict:
+    """The repairs path's answers: numpy float64 over the stored values
+    of the rows ``$docId < REP_DOCS`` keeps, MIN / MAX as the column holds
+    them, sums by ``math.fsum``."""
+    import math
+
+    c = {k: np.concatenate([d[k][:REP_DOCS] for d in trips])
+         for k in ("payment_type", "pickup_ts", "tip_amount",
+                   "trip_distance")}
+    n = len(c["pickup_ts"])
+    tip, dist, ts = c["tip_amount"], c["trip_distance"], c["pickup_ts"]
+    pay_keys, pay = np.unique(c["payment_type"], return_inverse=True)
+    day_keys, day = np.unique(ts // DAY_MS * DAY_MS, return_inverse=True)
+    pay_groups = _groups(pay, len(pay_keys))
+    want = {}
+    for name, keys, groups in (
+            ("rep_f4_pay", pay_keys, pay_groups),
+            ("rep_f4_day", day_keys, _groups(day, len(day_keys)))):
+        cnt = np.diff(groups[1])
+        t_min, t_max, t_sum = _grouped(tip, groups)
+        d_min, d_max, d_sum = _grouped(dist, groups)
+        rows = [[int(k), float(t_min[g]), float(t_max[g]),
+                 float(d_max[g] - d_min[g]), t_sum[g],
+                 d_sum[g] / int(cnt[g])] for g, k in enumerate(keys)]
+        want[name] = (_rep_checker(name, rows, 1,
+                                   (True, True, True, False, False)), n)
+    total = math.fsum(ts.astype(np.float64).tolist())
+    want["rep_f5_scalar"] = (_rep_checker(
+        "rep_f5_scalar", [[total, total / n]], 0, (False, False)), n)
+    sums = _grouped(ts, pay_groups)[2]
+    want["rep_f5_pay"] = (_rep_checker(
+        "rep_f5_pay", [[int(k), s] for k, s in zip(pay_keys, sums)], 1,
+        (False,)), n)
+    key, big = rep["fact"]["f_key"], rep["fact"]["big"]
+    groups = _groups(key, REP_KEYS)
+    sums = _grouped(big, groups)[2]
+    cnt = np.diff(groups[1])
+    leaves = {"fa": REP_FACT_ROWS, "dm": REP_KEYS}
+    want["rep_f5_join"] = (
+        _rep_checker("rep_f5_join", [[k, sums[k], sums[k] / int(cnt[k])]
+                                     for k in range(REP_KEYS)], 1,
+                     (False, False)),
+        sum(leaves.values()),
+        {"totalDocs": sum(leaves.values()), "numJoinedRows": REP_FACT_ROWS,
+         "leafRows": leaves})
+    return want
+
+
+def check_repairs_kernels(engine, k1: dict) -> None:
+    """K1 at the repairs path's own inputs, captured at its entry and held
+    against its plain version: the count alone under rep_f4_pay (its
+    DOUBLE operands reach no kernel), pickup_ts + 0's byte planes under
+    rep_f5_pay, and stage 2's group ids and LONG planes under
+    rep_f5_join."""
+    from pinot_tpu_torch.ops import group_scatter as ps
+
+    for name, what in (("rep_f4_pay", "count alone, DOUBLE operands off K1"),
+                       ("rep_f5_pay", "pickup_ts + 0 past 2^63"),
+                       ("rep_f5_join", "stage 2, LONG values in "
+                                       "[2^60, 2^61)")):
+        calls = capture_calls(engine, REP_QUERIES[name], ps,
+                              "plane_group_sums")
+        for (gid, sources, G), kw in calls:
+            count = kw.get("count", True)
+            if name == "rep_f4_pay" and sources:
+                raise AssertionError(f"rep_f4_pay: K1 took operands "
+                                     f"{planes_label(sources, count)}")
+            k1["shapes"].append(k1_shape(
+                f"{name}: {what}, G={G}, {planes_label(sources, count)}",
+                ps.plane_group_sums, G, sources, count, gid))
 
 
 def _rows_mask(tree, c) -> np.ndarray:
@@ -6309,7 +6513,8 @@ PATH_TABLES = {
     "blockskip": {"lo", "bs"}, "selection": {"lo", "bs"},
     "highcard": {"lo", "pairs"}, "mv": {"lo", "mv"},
     "index": {"lo", "events"}, "values": {"lo", "v2", "mv"},
-    "tail": {"lo", "trips"}, "realtime": {"lo", "rt", "up"},
+    "tail": {"lo", "trips"}, "repairs": {"trips", "rep"},
+    "realtime": {"lo", "rt", "up"},
     "multistage": {"lo", "rt", "dims", "mv"}, "serving": {"lo", "bs"},
     "advisor": {"bs"}, "mesh": {"lo", "bs", "rt", "dims"},
     "cluster": {"lo", "bs", "dims"},
@@ -8675,13 +8880,16 @@ def main(argv=None) -> int:
     rt = rt_generate(args.rt_rows + args.rt_more) if "rt" in need else None
     up = up_generate(args.up_rows) if "up" in need else None
     dims = ms_dims() if "dims" in need else {}
+    rep = rep_generate() if "rep" in need else None
     log(f"generate: {time.perf_counter() - t:.2f} s (with {MV_TABLE}'s MV "
         f"columns over {len(mv)} segments, {EV_TABLE}: {EV_SEGMENTS} x "
         f"{args.event_rows} rows, {V2_TABLE}'s new segment s{S}: "
         f"{rows} rows, seed {V2_SEED}, {TRIPS_TABLE}: {TRIPS_SEGMENTS} x "
         f"{rows} rows, seed {TRIPS_SEED}, {RT_TABLE}'s consuming rows: "
         f"{args.rt_rows} + {args.rt_more}, seed {RT_SEED}, {UP_TABLE}: "
-        f"3 x {args.up_rows} rows over {UP_KEYS} keys, seed {UP_SEED}, and "
+        f"3 x {args.up_rows} rows over {UP_KEYS} keys, seed {UP_SEED}, "
+        f"{REP_FACT}: {REP_FACT_ROWS if rep else 0} rows, seed {REP_SEED}, "
+        f"and "
         f"SSB's dimensions, seed {MS_SEED}: "
         + ", ".join(f"{k} {len(next(iter(v.values())))} rows"
                     for k, v in dims.items()) + ")")
@@ -8720,6 +8928,8 @@ def main(argv=None) -> int:
             write_up_segment, [(i, up, args.up_rows)
                                for i in range(2 if up is not None else 0)])
         pending_dims = pool.starmap_async(write_ms_dim, list(dims.items()))
+        pending_rep = pool.apply_async(write_rep_tables, (rep,)) \
+            if rep is not None else None
         pending = pool.starmap_async(
             write_segment, [(i, seg, "lineorder", True) for i, seg in
                             enumerate(data if "lo" in need else [])])
@@ -8776,6 +8986,7 @@ def main(argv=None) -> int:
                 ("index", lambda: idx_oracle(ev)),
                 ("values", lambda: val_oracle(data, v2, mv)),
                 ("tail", lambda: tail_oracle(trips, pad)),
+                ("repairs", lambda: rep_oracle(trips, rep)),
                 ("serving", lambda: serve_oracle(data)),
                 ("realtime", lambda: rt_oracle(data, rt, args.rt_rows)),
                 ("realtime", lambda: up_oracle(up, False)),
@@ -8813,6 +9024,7 @@ def main(argv=None) -> int:
         trips_dirs = pending_trips.get()
         pending_up.get()
         dim_dirs = dict(zip(dims, pending_dims.get()))
+        rep_dirs = pending_rep.get() if pending_rep is not None else ()
         log(f"write segments (port creator, {workers} processes, seven "
             f"tables): {time.perf_counter() - t_write:.2f} s, of which the "
             f"two star-tree cubes of lineorder took {sum(cube_s):.2f} s "
@@ -8835,9 +9047,10 @@ def main(argv=None) -> int:
                  "index": EV_SEGMENTS * args.event_rows,
                  "values": total + len(v2["d_year"]),
                  "tail": TRIPS_SEGMENTS * rows,
+                 "repairs": TRIPS_SEGMENTS * rows,
                  "realtime": total + args.rt_rows}
     dim_schemas = {k: ms_dim_schema(k, v) for k, v in dims.items()}
-    del data, bs_data, mv, ev, v2, trips, dims
+    del data, bs_data, mv, ev, v2, trips, dims, rep
     log(f"numpy oracle: {oracle_s:.2f} s beside the writes, "
         f"{time.perf_counter() - t:.2f} s after them")
 
@@ -8869,6 +9082,10 @@ def main(argv=None) -> int:
         engine.add_segment(V2_TABLE, seg)
     for d in trips_dirs:
         engine.add_segment(TRIPS_TABLE, ImmutableSegment(d))
+    for name, d in zip((REP_FACT, REP_DIM), rep_dirs):
+        engine.add_segment(name, ImmutableSegment(d))
+    if rep_dirs:
+        engine.table(REP_DIM).is_dim_table = True
     rt_seg = None
     if "rt" in need:
         # lineorder_rt: lineorder's sealed segments (the same objects, so
@@ -8966,6 +9183,9 @@ def main(argv=None) -> int:
             trips_dirs, want, path_rows["tail"], QueryEngine)
         check_tail_kernels(engine, sub_engine, k1, k2, k3, k4)
         del sub_engine
+        torch.cuda.empty_cache()
+    if "repairs" in sel:
+        check_repairs_kernels(engine, k1)
         torch.cuda.empty_cache()
     if "realtime" in sel:
         check_realtime_kernels(engine, k1, k2, k3, k4, args.up_rows)

@@ -158,6 +158,7 @@ from pinot_tpu_torch.engine.params import (
     expr_on_device,
     filter_on_device,
     stored_column,
+    sums_f64,
     to_device,
 )
 from pinot_tpu_torch.engine.result import ExecutionStats, IntermediateResult
@@ -415,6 +416,8 @@ def _try_mm_groupby(aggs, gid, cols, params, num_groups, outs, widths,
         v, plus = _sum_operand(argt, cols, params, widths)
         v = _kernel_operand(v, gid, members)
         if v.is_floating_point():
+            if sums_f64(extra):   # K1 would read it as float32
+                continue
             src = kernels.PlaneSource(v.to(torch.float32), "float")
         elif nplanes_int is None:  # unknown range → exact scatter instead
             continue
@@ -452,7 +455,9 @@ def _try_mm_groupby(aggs, gid, cols, params, num_groups, outs, widths,
         planes = [sums[..., j, :] for j in range(row, row + src.nplanes)]
         if src.kind == "int":
             off = params[f"off{i}"]
-            outs[f"a{i}_sum"] = mm.recombine_int(
+            recombine = mm.recombine_f64 if sums_f64(aggs[i][2]) \
+                else mm.recombine_int
+            outs[f"a{i}_sum"] = recombine(
                 planes, gcount, off[:, None] if members else off)
         else:
             outs[f"a{i}_sum"] = mm.recombine_float(planes)
@@ -979,8 +984,10 @@ def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS,
                         gid.reshape(-1), vk, num_groups)
                 continue
             if name in ("sum", "avg"):
+                v = _eval_expr(argt, cols, params, widths)
                 outs[f"{k}_sum"] = agg_ops.group_sum(
-                    gid, _eval_expr(argt, cols, params, widths), num_groups)
+                    gid, v.to(torch.float64) if sums_f64(extra) else v,
+                    num_groups)
         _group_extremes(aggs, gid, cols, params, num_groups, outs, widths,
                         min_rows)
 
@@ -1020,7 +1027,8 @@ def build_pipeline(template, widths=None, min_rows: int = ps.PALLAS_MIN_ROWS,
                 continue
             v = _eval_expr(argt, cols, params, widths)
             if name in ("sum", "avg"):
-                outs[f"{k}_sum"] = agg_ops.agg_sum(v, mask)
+                outs[f"{k}_sum"] = agg_ops.agg_sum(
+                    v.to(torch.float64) if sums_f64(extra) else v, mask)
             if name in ("min", "minmaxrange"):
                 outs[f"{k}_min"] = agg_ops.agg_min(v, mask)
             if name in ("max", "minmaxrange"):

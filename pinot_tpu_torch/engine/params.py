@@ -1195,6 +1195,18 @@ def build_expr(e: Expression, ctx: BatchContext, params: dict, counter: list):
                              for a in e.args)
 
 
+# the last entry of a SUM / AVG template's extra where the sum is taken
+# in float64, as the reference's host takes it (engine/rows.py, the host
+# path's shape): K1's byte planes recombine in float64, float operands
+# skip K1's float32 planes, and the torch scatters sum in float64
+SUM_F64 = "f64"
+
+
+def sums_f64(extra) -> bool:
+    """Whether a SUM / AVG template's extra says to sum in float64."""
+    return bool(extra) and extra[-1] == SUM_F64
+
+
 def expr_bounds(e: Expression, ctx: BatchContext):
     """Interval arithmetic over column metadata: the value range that
     sizes the integer byte planes. None = unknown."""

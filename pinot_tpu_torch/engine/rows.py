@@ -54,6 +54,7 @@ the group keys and accumulators, the per-segment counts.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -61,7 +62,9 @@ import torch
 from pinot_tpu_torch.engine import aggspec, sketches
 from pinot_tpu_torch.engine.params import (
     DeviceUnsupported,
+    SUM_F64,
     build_filter,
+    expr_bounds,
     expr_on_device,
     to_device,
 )
@@ -350,11 +353,12 @@ def _agg_plan(ex, q, ctx, ev, aggs, full, params, counter, cols, filters,
         i = len(tpls)
         dec = None
         if name in _PLAIN_AGGS:
-            if name == "count" or expr_on_device(a.args[0], ctx):
+            if _template_reads(a, ctx, ev):
                 tpl = ex._agg_template(i, a, ctx, params, counter)
             else:
-                # e.g. SUM($docId), or an MV column's entries: the value,
-                # computed on the card
+                # e.g. SUM($docId), an MV column's entries, a float64
+                # operand or an integer sum that could wrap: the host
+                # path's value, computed on the card
                 key = f"__x{i}"
                 v = ev.operand(a.args[0], full)
                 if v.kind != "num":
@@ -364,12 +368,7 @@ def _agg_plan(ex, q, ctx, ev, aggs, full, params, counter, cols, filters,
                 cols[key] = torch.broadcast_to(v.t, shape)
                 extra = None
                 if name in ("sum", "avg"):
-                    extra = _sum_extra(i, a.args[0], v, ev, params)
-                    if extra is None:
-                        # an int64 sum that could wrap: the reference's
-                        # host sums in float64
-                        cols[key] = cols[key].to(torch.float64)
-                        extra = (None, None)
+                    extra = _sum_extra(i, a.args[0], v, ev, params, mask)
                 tpl = (name, ("raw", key), extra)
         elif name in _DISTINCT_ALIASES or name == "stunion":
             v = ev.eval(a.args[0], full)
@@ -422,48 +421,93 @@ def _agg_plan(ex, q, ctx, ev, aggs, full, params, counter, cols, filters,
     return tuple(tpls), decodes, slots
 
 
-def _sum_extra(i: int, arg, v: Val, ev, params: dict) -> tuple:
-    """K1's (byte planes, rows per block) of an integer SUM / AVG over
-    an MV column's entries or a column some segment predates, from the
-    values' known range (the global dictionary's ends, or the column
-    metadata's bounds with the defaults), its low end the ``off{i}``
-    param; (None, None) where no range is known (the exact torch scatter
-    sums it); None where the range says an int64 sum over the batch
-    could wrap (Long.MIN defaults): the caller sums in float64."""
-    import math
+def _template_reads(a, ctx, ev) -> bool:
+    """Whether the device template reads a plain aggregation's operand
+    as the reference's host does. It does not for a float64 operand (a
+    DOUBLE column, bare or in an expression; a division), which it reads
+    from the float32 planes, nor for an integer SUM / AVG whose int64
+    sum over the batch could pass 2^63, which the host sums in float64."""
+    if a.name == "count":
+        return True
+    arg = a.args[0]
+    if not expr_on_device(arg, ctx):
+        return False
+    dt = ev.probe(arg).dtype
+    if dt == np.float64:
+        return False
+    return a.name not in ("sum", "avg") \
+        or not _could_wrap(expr_bounds(arg, ctx), dt, ev)
 
-    from pinot_tpu_torch.ops import agg as agg_ops
+
+def _could_wrap(bounds, dt: np.dtype, ev) -> bool:
+    """Whether an int64 sum over the batch's rows of values in
+    ``bounds`` (the dtype's own where unknown) could pass 2^63. Float
+    operands never wrap."""
     from pinot_tpu_torch.ops import groupby_mm as mm
 
-    if not arg.is_identifier or arg.name.startswith("$") \
-            or v.kind != "num" or v.dtype.kind not in "iub":
+    if dt.kind not in "iub":
+        return False
+    if bounds is None or not all(map(math.isfinite, bounds)):
+        info = np.iinfo(np.int64 if dt.kind == "b" else dt)
+        bounds = (info.min, info.max)
+    return mm.sum_could_wrap(bounds[0], bounds[1], ev.S * ev.L)
+
+
+def _sum_extra(i: int, arg, v: Val, ev, params: dict, mask) -> tuple:
+    """The template's extra of a SUM / AVG over the value plane ``v``:
+    K1's (byte planes, rows per block) of an integer operand from its
+    known range (the global dictionary's ends, or the column metadata's
+    bounds with the defaults), its low end the ``off{i}`` param; (None,
+    None) where no range is known (the exact torch scatter sums it). A
+    float64 operand, or an integer one whose int64 sum over the batch
+    could pass 2^63, adds ``SUM_F64``: the reference's host sums it in
+    float64, so the port does (K1's planes, over the values' exact
+    range under ``mask``, recombined in float64)."""
+    from pinot_tpu_torch.ops import groupby_mm as mm
+
+    if v.dtype == np.float64:
+        return (None, None, SUM_F64)
+    if v.dtype.kind not in "iub":
         return (None, None)
-    if not ev.is_mv(arg.name):
-        bounds = ev.ctx.exact_int_bounds(arg.name)
-        if bounds is None:
-            return (None, None)
-    else:
-        mp = ev.mv(arg.name)
-        if mp is None:
-            bounds = (0, 0)
-        elif mp.kind == "dict":
-            gv = np.asarray(ev.ctx.global_dict(arg.name).values)
-            bounds = (int(gv[0]), int(gv[-1])) if len(gv) else (0, 0)
-        else:
-            metas = [s.column_metadata(arg.name) for s in ev.ctx.segments
-                     if arg.name in s.metadata.columns]
-            if any(not isinstance(m.min_value, (int, np.integer))
-                   or not isinstance(m.max_value, (int, np.integer))
-                   for m in metas):
-                return (None, None)
-            bounds = (min(int(m.min_value) for m in metas),
-                      max(int(m.max_value) for m in metas))
-    if max(abs(bounds[0]), abs(bounds[1])) * ev.S * ev.L >= 1 << 63:
-        return None
+    bounds = None
+    if arg.is_identifier and not arg.name.startswith("$"):
+        bounds = _int_bounds(arg.name, ev)
+    f64 = _could_wrap(bounds, v.dtype, ev)
+    if f64 and bounds is None:
+        # the offset K1 subtracts must be at most every value it sums
+        t = torch.broadcast_to(v.t, mask.shape)[mask]
+        bounds = tuple(int(x) for x in torch.aminmax(t)) if t.numel() \
+            else (0, 0)
+        f64 = _could_wrap(bounds, v.dtype, ev)
+    if bounds is None:
+        return (None, None)
     params[f"off{i}"] = torch.tensor(math.floor(bounds[0]),
                                      dtype=torch.int64, device=ev.device)
     return (mm.int_planes_needed(bounds[0], bounds[1]),
-            agg_ops.rows_per_block_for(max(abs(bounds[0]), abs(bounds[1]))))
+            agg_ops.rows_per_block_for(max(abs(bounds[0]), abs(bounds[1])))
+            ) + ((SUM_F64,) if f64 else ())
+
+
+def _int_bounds(name: str, ev):
+    """(min, max) as Python ints of an integer column's values: the
+    column metadata's, with the defaults; an MV column's global
+    dictionary ends or its segments' bounds. None where unknown."""
+    if not ev.is_mv(name):
+        return ev.ctx.exact_int_bounds(name)
+    mp = ev.mv(name)
+    if mp is None:
+        return (0, 0)
+    if mp.kind == "dict":
+        gv = np.asarray(ev.ctx.global_dict(name).values)
+        return (int(gv[0]), int(gv[-1])) if len(gv) else (0, 0)
+    metas = [s.column_metadata(name) for s in ev.ctx.segments
+             if name in s.metadata.columns]
+    if any(not isinstance(m.min_value, (int, np.integer))
+           or not isinstance(m.max_value, (int, np.integer))
+           for m in metas):
+        return None
+    return (min(int(m.min_value) for m in metas),
+            max(int(m.max_value) for m in metas))
 
 
 def _partial(i, tpl, host, ctx, present, dec, ev):

@@ -160,6 +160,26 @@ def recombine_int(plane_sums, count, offset):
     return tot + count.to(torch.int64) * offset
 
 
+def sum_could_wrap(lo: int, hi: int, n: int) -> bool:
+    """Whether an int64 sum of ``n`` values in [lo, hi] could pass 2^63:
+    the reference's host sums in float64, so such a sum is taken in
+    float64 (``recombine_f64``)."""
+    return max(abs(lo), abs(hi)) * n >= 1 << 63
+
+
+def recombine_f64(plane_sums, count, offset):
+    """``recombine_int``'s sum in float64, where it could pass 2^63 (the
+    reference's host sums in float64): the int64 recombination is exact
+    modulo 2^64, and a float64 one lies far closer than 2^63 to the sum,
+    so together they give the sum's multiple of 2^64; the sum then
+    rounds at most twice."""
+    wrapped = recombine_int(plane_sums, count, offset).to(torch.float64)
+    near = count.to(torch.float64) * offset
+    for k, s in enumerate(plane_sums):
+        near = near + s.to(torch.float64) * float(1 << (8 * k))
+    return wrapped + torch.round((near - wrapped) / 2.0 ** 64) * 2.0 ** 64
+
+
 def recombine_float(plane_sums):
     tot = plane_sums[0]
     for s in plane_sums[1:]:

@@ -681,12 +681,14 @@ def _k1_partials(specs, cols, env, gid, n_groups: int, n: int,
     (``int_planes_needed`` over its range), at most ``MAX_CHANNELS`` + 1
     channels with the count, ``sums_supported``, and the kernel gate
     (``min_rows``, K1's 2^17 rows by default). The exact int64 sums come
-    back as the canonical float64 ``{"sum"}`` partial. Float sums keep the
+    back as the canonical float64 ``{"sum"}`` partial; where the values'
+    range times the rows could pass 2^63, the planes recombine in float64
+    (``sum_could_wrap``), as the reference's host sums. Float sums keep the
     torch scatter. Returns {spec index: partial}; {} out of regime."""
     if n == 0 or n_groups == 0:
         return {}
     count_idx = [i for i, s in enumerate(specs) if s.name == "count"]
-    plans = []   # (spec index, values, offset, nplanes)
+    plans = []   # (spec index, values, offset, nplanes, sum in float64)
     total_ch = 1  # the count channel
     for i, spec in enumerate(specs):
         if spec.name not in ("sum", "avg") or spec.mv or not spec.args:
@@ -699,7 +701,7 @@ def _k1_partials(specs, cols, env, gid, n_groups: int, n: int,
         nplanes = mm.int_planes_needed(lo, hi)
         if total_ch + nplanes > mm.MAX_CHANNELS + 1:
             continue
-        plans.append((i, t, lo, nplanes))
+        plans.append((i, t, lo, nplanes, mm.sum_could_wrap(lo, hi, n)))
         total_ch += nplanes
     if not plans and not count_idx:
         return {}
@@ -708,15 +710,16 @@ def _k1_partials(specs, cols, env, gid, n_groups: int, n: int,
     sources = [kernels.PlaneSource(
         t, "int", nplanes, minus=torch.tensor(lo, dtype=torch.int64,
                                               device=t.device))
-        for _i, t, lo, nplanes in plans]
+        for _i, t, lo, nplanes, _f64 in plans]
     sums = ps.plane_group_sums(gid.to(torch.int32), sources, n_groups,
                                count=True)
     gcount = torch.round(sums[0]).to(torch.int64)
     gcount_np = gcount.cpu().numpy()
     out, row = {}, 1
-    for i, _t, off, nplanes in plans:
-        s = mm.recombine_int([sums[j] for j in range(row, row + nplanes)],
-                             gcount, off).to(torch.float64).cpu().numpy()
+    for i, _t, off, nplanes, f64 in plans:
+        recombine = mm.recombine_f64 if f64 else mm.recombine_int
+        s = recombine([sums[j] for j in range(row, row + nplanes)],
+                      gcount, off).to(torch.float64).cpu().numpy()
         row += nplanes
         out[i] = ({"sum": s, "count": gcount_np.copy()}
                   if specs[i].name == "avg" else {"sum": s})
@@ -783,6 +786,9 @@ def _torch_partial(spec, a, cols, env, gid, G: int, n: int) -> dict:
         return _hll_partial(spec, hash32_values(arg.t, arg.dtype), gid, G)
     exact = arg.dtype.kind in "iub"
     if name in ("sum", "avg"):
+        if exact and arg.dtype.itemsize == 8 and n:
+            lo, hi = (int(x) for x in torch.aminmax(arg.t))
+            exact = not mm.sum_could_wrap(lo, hi, n)
         if exact:
             s = torch.zeros(G, dtype=torch.int64, device=dev).index_add_(
                 0, gid, arg.t.to(torch.int64)).to(torch.float64)
