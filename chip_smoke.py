@@ -134,7 +134,13 @@ Phases, all on ``cuda:0``:
    3.2e19, and their SUM(pickup_ts + 0) by payment type over K1's byte
    planes recombined in float64; a star join of ``f5_fact``, 300,000
    LONG values in [2^60, 2^61) from seed 101, with the 25-row ``f5_dim``,
-   stage 2's sums on K1; each answer a Python float, MIN and MAX bit for
+   stage 2's sums on K1; F6-F10: a pickup_ts filter against
+   2^63, SUM(ROUND(fare_amount, 1)) and MIN(CAST(tip_amount AS STRING))
+   by payment type, MAX(SQRT(pickup_ts)) in the device shape (float64)
+   and in the host path's (numpy's bits, on the card),
+   SUMPRECISION(POWER(tip_amount, 2)) (numpy's bits, the decimal route on
+   K1 and K2) and stage 2's SUM(CAST(fa.big AS STRING)); each answer of
+   the oracle's Python type, MIN, MAX, counts and SUMPRECISION bit for
    bit and the sums within 1e-9 of ``math.fsum``; K1 held at its captured
    inputs, ``check_repairs_kernels``). Every answer is
    checked against a numpy oracle over the generated columns (HLL
@@ -332,9 +338,9 @@ Phases, all on ``cuda:0``:
    then an EXPLAIN and a day's selection streamed from
    ``/query/sql/stream``; each query's p50 through the front door and
    the embedded engine's, the broker's reduce ms and the DataTable bytes
-   it decoded. ``lineorder_cl``, a REALTIME table of 1,000,000 rows
+   it decoded. ``lineorder_cl``, a REALTIME table of 500,000 rows
    (lineorder's generator, seed 83) fed as JSON through the in-memory
-   stream at a 500,000-row flush threshold, commits twice through the
+   stream at a 250,000-row flush threshold, commits twice through the
    controller's completion FSM while the broker counts its rows; at
    quiescence its answers equal the oracle. Kernel launches are counted
    by role (each server, the broker) while the queries run, and K1-K5
@@ -2640,6 +2646,7 @@ REP_F4 = ("MIN(tip_amount), MAX(tip_amount), MINMAXRANGE(trip_distance), "
           "SUM(tip_amount), AVG(trip_distance)")
 REP_FACT, REP_DIM = "f5_fact", "f5_dim"
 REP_FACT_ROWS, REP_KEYS, REP_SEED = 300_000, 25, 101
+REP_F6_LO = MONTH_MS + 15 * DAY_MS   # the second half of the month
 REP_QUERIES = {
     "rep_f4_pay": (f"SELECT payment_type, {REP_F4} FROM {TRIPS_TABLE} "
                    f"{REP_WHERE} GROUP BY payment_type ORDER BY payment_type"),
@@ -2657,15 +2664,47 @@ REP_QUERIES = {
                     f"SUM(fa.big), AVG(fa.big) FROM {REP_FACT} fa JOIN "
                     f"{REP_DIM} dm ON fa.f_key = dm.d_key GROUP BY dm.d_key "
                     f"ORDER BY dm.d_key LIMIT {REP_KEYS}"),
+    # F6: an integer literal past int64, which numpy compares exactly
+    "rep_f6_filter": (f"SELECT payment_type, COUNT(*) FROM {TRIPS_TABLE} "
+                      f"{REP_WHERE} AND pickup_ts BETWEEN {REP_F6_LO} AND "
+                      f"{2 ** 63} GROUP BY payment_type ORDER BY "
+                      f"payment_type"),
+    # F7: ROUND with a scale and numeric strings under aggregations
+    "rep_f7_pay": (f"SELECT payment_type, SUM(ROUND(fare_amount, 1)), "
+                   f"MIN(CAST(tip_amount AS STRING)) FROM {TRIPS_TABLE} "
+                   f"{REP_WHERE} GROUP BY payment_type ORDER BY "
+                   f"payment_type"),
+    # F9: the device shape's SQRT of int64 values is float64
+    "rep_f9_sqrt": (f"SELECT payment_type, MAX(SQRT(pickup_ts)) FROM "
+                    f"{TRIPS_TABLE} GROUP BY payment_type ORDER BY "
+                    f"payment_type"),
+    # F8 / F9: the host path's SQRT on the card, numpy's bits (IEEE's)
+    "rep_f9_sqrt_host": (f"SELECT payment_type, MAX(SQRT(pickup_ts)) FROM "
+                         f"{TRIPS_TABLE} {REP_WHERE} GROUP BY payment_type "
+                         f"ORDER BY payment_type"),
+    # F8: POWER's float64 values, numpy's to the last bit
+    "rep_f8_power": (f"SELECT payment_type, SUMPRECISION(POWER(tip_amount, "
+                     f"2)) FROM {TRIPS_TABLE} {REP_WHERE} GROUP BY "
+                     f"payment_type ORDER BY payment_type"),
+    # F7 in stage 2: the LONG values as strings, parsed into float64
+    "rep_f7_join": (f"SET useAdvisor = false; SELECT dm.d_key, "
+                    f"SUM(CAST(fa.big AS STRING)) FROM {REP_FACT} fa JOIN "
+                    f"{REP_DIM} dm ON fa.f_key = dm.d_key GROUP BY dm.d_key "
+                    f"ORDER BY dm.d_key LIMIT {REP_KEYS}"),
 }
 PATHS["repairs"] = (REP_QUERIES, ("group_plane_sums",),
                     ((3, "group_scatter", "plane_group_sums"),))
 # a group-by's count takes one K1 launch, its DOUBLE operands none, nor
 # K2; the integer sums past 2^63 ride that launch as byte planes; the
-# scalar sums are torch reductions; stage 2's group sums one K1 launch
+# scalar sums are torch reductions; stage 2's group sums one K1 launch,
+# its sum of strings none (K1 reads no float64 and no string);
+# SUMPRECISION's decimal route adds four (engine/sketches.py: the scaled
+# squares and their magnitudes in two 62-bit limbs each: 0.01 ** 2 reprs
+# to 20 places) and K2 over the exponents
 QUERY_LAUNCHES.update({
-    name: {"group_plane_sums": int(name != "rep_f5_scalar"),
-           "group_minmax": 0}
+    name: {"group_plane_sums": 0 if name in ("rep_f5_scalar", "rep_f7_join")
+           else 5 if name == "rep_f8_power" else 1,
+           "group_minmax": int(name == "rep_f8_power")}
     for name in REP_QUERIES})
 
 
@@ -2709,9 +2748,10 @@ def write_rep_tables(rep: dict) -> tuple:
 
 def _rep_checker(name: str, want: list, lead: int, exact: tuple):
     """The repairs path's rows: the ``lead`` key columns equal; each
-    aggregation a Python float, bit for bit where ``exact`` says (MIN,
-    MAX and their range: values the column holds), else within 1e-9
-    relative of the oracle's ``math.fsum``."""
+    aggregation of the oracle's Python type, bit for bit where ``exact``
+    says (MIN, MAX and their range: values the column holds; counts;
+    SUMPRECISION's decimal text), else within 1e-9 relative of the
+    oracle's ``math.fsum``."""
     def check(got):
         if len(got) != len(want) or any(len(a) != len(b)
                                         for a, b in zip(got, want)):
@@ -2720,8 +2760,8 @@ def _rep_checker(name: str, want: list, lead: int, exact: tuple):
             if a[:lead] != b[:lead]:
                 raise AssertionError(f"{name}: row {a} want {b}")
             for x, y, bit in zip(a[lead:], b[lead:], exact):
-                if type(x) is not float or (x != y if bit else abs(x - y)
-                                            > 1e-9 * abs(y)):
+                if type(x) is not type(y) or (x != y if bit else abs(x - y)
+                                              > 1e-9 * abs(y)):
                     raise AssertionError(f"{name}: row {a} want {b} (bit "
                                          f"for bit: {exact})")
     return check
@@ -2754,7 +2794,7 @@ def rep_oracle(trips: list, rep: dict) -> dict:
 
     c = {k: np.concatenate([d[k][:REP_DOCS] for d in trips])
          for k in ("payment_type", "pickup_ts", "tip_amount",
-                   "trip_distance")}
+                   "trip_distance", "fare_amount")}
     n = len(c["pickup_ts"])
     tip, dist, ts = c["tip_amount"], c["trip_distance"], c["pickup_ts"]
     pay_keys, pay = np.unique(c["payment_type"], return_inverse=True)
@@ -2784,13 +2824,80 @@ def rep_oracle(trips: list, rep: dict) -> dict:
     sums = _grouped(big, groups)[2]
     cnt = np.diff(groups[1])
     leaves = {"fa": REP_FACT_ROWS, "dm": REP_KEYS}
+    join_stats = {"totalDocs": sum(leaves.values()),
+                  "numJoinedRows": REP_FACT_ROWS, "leafRows": leaves}
     want["rep_f5_join"] = (
         _rep_checker("rep_f5_join", [[k, sums[k], sums[k] / int(cnt[k])]
                                      for k in range(REP_KEYS)], 1,
                      (False, False)),
-        sum(leaves.values()),
-        {"totalDocs": sum(leaves.values()), "numJoinedRows": REP_FACT_ROWS,
-         "leafRows": leaves})
+        sum(leaves.values()), join_stats)
+    want.update(rep_oracle_f6_f10(trips, c, pay_keys, pay_groups, groups,
+                                  big, join_stats))
+    return want
+
+
+def rep_oracle_f6_f10(trips: list, c: dict, pay_keys, pay_groups,
+                      join_groups, big, join_stats: dict) -> dict:
+    """The F6-F10 queries' answers (ROADMAP queue 3): numpy over the
+    stored values, the reference host's way: the literal 2^63 compared
+    exactly; ROUND(x, 1) as ``np.round``; strings as ``np.asarray(...,
+    dtype=np.float64)`` parses numpy's text of each value; POWER as
+    ``np.power``, its SUMPRECISION the exact decimal sum of each value's
+    ``Decimal(repr(v))`` (an integral value as an int); SQRT of int64 as
+    float64. Sums by ``math.fsum``."""
+    import decimal
+    import math
+
+    want = {}
+    order, cuts = pay_groups
+    ts = c["pickup_ts"]
+    hit = ts[order] >= REP_F6_LO
+    counts = [int(hit[a:b].sum()) for a, b in zip(cuts[:-1], cuts[1:])]
+    want["rep_f6_filter"] = (_rep_checker(
+        "rep_f6_filter", [[int(k), n] for k, n in zip(pay_keys, counts)], 1,
+        (True,)), int(sum(counts)))
+    rounded = _grouped(np.round(c["fare_amount"], 1), pay_groups)[2]
+    tip_u, tip_inv = np.unique(c["tip_amount"], return_inverse=True)
+    parsed = tip_u.astype(str).astype(np.float64)[tip_inv]
+    least = _grouped(parsed, pay_groups)[0]
+    want["rep_f7_pay"] = (_rep_checker(
+        "rep_f7_pay", [[int(k), rounded[g], float(least[g])]
+                       for g, k in enumerate(pay_keys)], 1, (False, True)),
+        len(ts))
+    pay_all = np.concatenate([d["payment_type"] for d in trips])
+    ts_all = np.concatenate([d["pickup_ts"] for d in trips])
+    keys_all, inv_all = np.unique(pay_all, return_inverse=True)
+    top = np.full(len(keys_all), np.iinfo(np.int64).min)
+    np.maximum.at(top, inv_all, ts_all)
+    want["rep_f9_sqrt"] = (_rep_checker(
+        "rep_f9_sqrt", [[int(k), float(np.sqrt(np.float64(t)))]
+                        for k, t in zip(keys_all, top)], 1, (True,)),
+        len(ts_all))
+    # SQRT is monotone: the root of each group's largest value
+    top_host = _grouped(ts, pay_groups)[1]
+    want["rep_f9_sqrt_host"] = (_rep_checker(
+        "rep_f9_sqrt_host", [[int(k), float(np.sqrt(top_host[g]))]
+                             for g, k in enumerate(pay_keys)], 1, (True,)),
+        len(ts))
+    sq = np.power(c["tip_amount"], 2)
+    ctx = decimal.Context(prec=60)
+    texts = []
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        vals, n = np.unique(sq[order[a:b]], return_counts=True)
+        tot = 0
+        for v, k in zip(vals.tolist(), n.tolist()):
+            term = int(v) if v.is_integer() else decimal.Decimal(repr(v))
+            tot = ctx.add(tot, ctx.multiply(term, k)) \
+                if isinstance(term, decimal.Decimal) or isinstance(
+                    tot, decimal.Decimal) else tot + term * k
+        texts.append(str(tot))
+    want["rep_f8_power"] = (_rep_checker(
+        "rep_f8_power", [[int(k), t] for k, t in zip(pay_keys, texts)], 1,
+        (True,)), len(ts))
+    sums = _grouped(big.astype(str).astype(np.float64), join_groups)[2]
+    want["rep_f7_join"] = (_rep_checker(
+        "rep_f7_join", [[k, sums[k]] for k in range(REP_KEYS)], 1,
+        (False,)), sum(join_stats["leafRows"].values()), dict(join_stats))
     return want
 
 
@@ -2798,14 +2905,18 @@ def check_repairs_kernels(engine, k1: dict) -> None:
     """K1 at the repairs path's own inputs, captured at its entry and held
     against its plain version: the count alone under rep_f4_pay (its
     DOUBLE operands reach no kernel), pickup_ts + 0's byte planes under
-    rep_f5_pay, and stage 2's group ids and LONG planes under
-    rep_f5_join."""
+    rep_f5_pay, stage 2's group ids and LONG planes under rep_f5_join,
+    the count under rep_f6_filter's literal past int64, and the decimal
+    route's limbs under rep_f8_power."""
     from pinot_tpu_torch.ops import group_scatter as ps
 
     for name, what in (("rep_f4_pay", "count alone, DOUBLE operands off K1"),
                        ("rep_f5_pay", "pickup_ts + 0 past 2^63"),
                        ("rep_f5_join", "stage 2, LONG values in "
-                                       "[2^60, 2^61)")):
+                                       "[2^60, 2^61)"),
+                       ("rep_f6_filter", "count under pickup_ts <= 2^63"),
+                       ("rep_f8_power", "SUMPRECISION(POWER(tip, 2))'s "
+                                        "limbs")):
         calls = capture_calls(engine, REP_QUERIES[name], ps,
                               "plane_group_sums")
         for (gid, sources, G), kw in calls:
@@ -7397,8 +7508,10 @@ def run_serving(engine, want: dict, totals: dict, card: str) -> tuple:
 CLUSTER_SERVERS = 2               # both on cuda:0: one card stands in for two
 CLUSTER_BATCH_BYTES = 24 << 30    # each server's batch budget, 2 x 24 GiB
 CL_RT_TABLE = "lineorder_cl"
-CL_RT_ROWS = 1_000_000
-CL_RT_FLUSH = 500_000             # the flush threshold: two commits
+CL_RT_ROWS = 500_000              # (1,000,000 until the repairs path
+CL_RT_FLUSH = 250_000             # needed the run's time; the minion's
+                                  # windows widened to two years with it)
+                                  # the flush threshold: two commits
 CL_RT_SEED = 83
 CL_DAY = 19930315
 # a week of the sorted copy: the broker sends its one segment, where the
@@ -8075,11 +8188,12 @@ TIER_KERNELS = ("group_plane_sums", "group_minmax", "hll_register_max",
 # from 8, for the process's start and the copies it loads)
 FLEET_SEGMENTS = 2
 # the minion: the purged segment of lineorder_by_date and its filter, the
-# realtime-to-offline windows over lineorder_cl (two years, merge-rolled
-# up after)
+# realtime-to-offline windows over lineorder_cl (two windows of two years,
+# merge-rolled up after): about 143,000 of its 500,000 rows each, so that
+# each output passes K1's gate (ops/group_scatter.py PALLAS_MIN_ROWS)
 MN_PURGE_SEGMENT = 7
 MN_PURGE_FILTER = "lo_discount = 0"
-MN_WINDOWS = ((19930101, 19940101), (19940101, 19950101))
+MN_WINDOWS = ((19930101, 19950101), (19950101, 19970101))
 MN_CHECK = ("SELECT lo_discount, COUNT(*), SUM(lo_revenue) FROM t "
             "GROUP BY lo_discount ORDER BY lo_discount LIMIT 20")
 
@@ -8700,7 +8814,7 @@ def m3_minion(registry, controller, rt: dict, want: dict, dev,
               on_card: bool) -> tuple:
     """The minion worker on the card: purge one of lineorder_by_date's
     segments (its mask through the filter lowering on the card), move two
-    years of lineorder_cl's committed rows to its OFFLINE table
+    windows of lineorder_cl's committed rows to its OFFLINE table
     (realtime-to-offline), merge-roll-up those two segments; each output
     segment's COUNT / SUM by lo_discount (K1) held to numpy over the same
     rows, each task's wall time printed. Returns (summary, launches)."""
@@ -8787,8 +8901,12 @@ def m3_minion(registry, controller, rt: dict, want: dict, dev,
         f"SUM by lo_discount equal numpy over the {int(m.sum())} rows")
     counts = {k: dict(v) for k, v in tables.items()}["kernels"]
     log(f"minion launches: {json.dumps(counts)}")
-    if on_card and counts["group_plane_sums"] <= 0:
-        raise AssertionError("minion: K1 never launched on the outputs")
+    if on_card and counts["group_plane_sums"] != 4:
+        # one a check of each output: the purged segment, the two windows
+        # and their roll-up, each past K1's gate
+        raise AssertionError(
+            f"minion: K1 launched {counts['group_plane_sums']} times on "
+            "the four outputs, not once each")
     summary["phase_s"] = time.perf_counter() - t_phase
     log(f"minion phase: {summary['phase_s']:.2f} s")
     return summary, counts

@@ -128,6 +128,7 @@ alone on the device its directory hashes to.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import logging
 import math
@@ -151,6 +152,7 @@ from pinot_tpu_torch.engine.inflight import InflightLaunch, LaunchCoalescer
 from pinot_tpu_torch.engine.params import (
     BatchContext,
     DeviceUnsupported,
+    SUM_F64,
     ShardContext,
     build_expr,
     build_filter,
@@ -291,7 +293,22 @@ def _eval_expr(tpl, cols, params, widths=None):
             _eval_expr(tpl[1], cols, params, widths), tpl[2])
     fn = get_function(kind)
     args = [_eval_expr(a, cols, params, widths) for a in tpl[1:]]
-    return fn.torch_fn(*args)
+    return fn.torch_fn(*_uint64_args(tpl[1:], args))
+
+
+def _uint64_args(tpls, args):
+    """A function's operands, each uint64 literal (ops/masks.py
+    ``UINT64_LITERAL``) in the dtype JAX promotes it to: the other
+    operands' where that is a float, else the float64 it came in."""
+    marked = [t[0] == "lit" and t[1].startswith(mask_ops.UINT64_LITERAL)
+              for t in tpls]
+    rest = [x.dtype for x, m in zip(args, marked) if not m]
+    if not any(marked) or not rest:
+        return args
+    dt = functools.reduce(torch.promote_types, rest)
+    if not dt.is_floating_point:
+        return args
+    return [x.to(dt) if m else x for x, m in zip(args, marked)]
 
 
 def eval_filter(tpl, cols, params, shape, device, widths=None):
@@ -325,17 +342,18 @@ def eval_filter(tpl, cols, params, shape, device, widths=None):
             _ids_col(cols, tpl[1]), params[tpl[2]], params[tpl[3]])
     if kind == "lut_dict":
         return mask_ops.lut_dict(_ids_col(cols, tpl[1]), params[tpl[2]])
-    if kind == "eq_raw":
-        return mask_ops.eq_raw(
-            _eval_expr(tpl[1], cols, params, widths), params[tpl[2]])
-    if kind == "in_raw":
-        return mask_ops.in_raw(
-            _eval_expr(tpl[1], cols, params, widths), params[tpl[2]])
+    if kind in ("eq_raw", "in_raw"):
+        v = _eval_expr(tpl[1], cols, params, widths)
+        lit = mask_ops.literal_beside(v, params[tpl[2]], tpl[2])
+        return (mask_ops.eq_raw if kind == "eq_raw" else mask_ops.in_raw)(
+            v, lit)
     if kind == "range_raw":
         _, expr_tpl, klo, khi, has_lo, has_hi, lo_inc, hi_inc = tpl
+        v = _eval_expr(expr_tpl, cols, params, widths)
         return mask_ops.range_raw(
-            _eval_expr(expr_tpl, cols, params, widths), params[klo],
-            params[khi], lo_inc, hi_inc, has_lo, has_hi,
+            v, mask_ops.literal_beside(v, params[klo], klo),
+            mask_ops.literal_beside(v, params[khi], khi), lo_inc, hi_inc,
+            has_lo, has_hi,
         )
     raise AssertionError(f"bad filter template node {kind}")
 
@@ -685,7 +703,9 @@ def _fused_params(plan, params, widths) -> dict:
     """K4's literals: id-space params as int32; raw-space params shifted
     into the plane's storage space (minus its "fo::" offset) and clipped
     to the storage dtype's range ±1, in int64 before the int32 cast —
-    storage values are a strict subset, so every comparison survives."""
+    storage values are a strict subset, so every comparison survives. A
+    shift that passes an end of int64 saturates there (``i <=
+    9223372036854775807`` over a plane offset by -1000)."""
     out = {}
     for key, (ck, kindp) in plan.pred_params.items():
         p = params[key].reshape(-1)
@@ -693,7 +713,11 @@ def _fused_params(plan, params, widths) -> dict:
             w = widths[ck]
             p64 = p.to(torch.int64)
             if w[2] and "fo::" + ck in params:
-                p64 = p64 - params["fo::" + ck].to(torch.int64)
+                fo = params["fo::" + ck].to(torch.int64)
+                d = p64 - fo
+                top = torch.iinfo(torch.int64)
+                d = torch.where((fo < 0) & (d < p64), top.max, d)
+                p64 = torch.where((fo > 0) & (d > p64), top.min, d)
             info = np.iinfo(np.dtype(w[0]))
             p = torch.clamp(p64, int(info.min) - 1, int(info.max) + 1)
         out[key] = p.to(torch.int32)
@@ -1774,6 +1798,12 @@ class DeviceExecutor:
         # bounds the fused plan's per-block int32 partials
         nplanes = rpb = None
         bounds = expr_bounds(a.args[0], ctx)
+        if bounds is not None and math.isfinite(bounds[0]) \
+                and not -2 ** 63 <= math.floor(bounds[0]) < 2 ** 63:
+            # a low end past int64 (``L + 9223372036854775807``) is no
+            # offset for the byte planes: the reference's total is then
+            # the exact sum of the int64 values, which float64 takes
+            return (name, argt, (None, None, SUM_F64))
         # a NaN in the column makes its metadata bounds NaN: no byte planes
         if bounds is not None and all(map(math.isfinite, bounds)):
             rpb = agg_ops.rows_per_block_for(max(abs(bounds[0]),

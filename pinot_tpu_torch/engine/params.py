@@ -948,14 +948,17 @@ def expr_on_device(e: Expression, ctx: BatchContext) -> bool:
     literals, stored columns (a dict column of numbers), and functions
     with a device form over them."""
     if e.is_literal:
-        return not (isinstance(e.value, str) or e.value is None)
+        # an integer past uint64 or below int64 is numpy's object: the
+        # JAX package's device has no form for it
+        return not (isinstance(e.value, str) or e.value is None) \
+            and np.asarray(e.value).dtype.kind in "biuf"
     if e.is_identifier:
         if not stored_column(e.name, ctx):
             return False
         enc = ctx.device_encoding(e.name)
         return enc == Encoding.RAW or enc == Encoding.DICT and np.asarray(
             ctx.global_dict(e.name).values).dtype.kind in _NUMERIC_KINDS
-    if not get_function(e.name).device_capable:
+    if not get_function(e.name).device_form(e.args):
         return False
     args = e.args[:1] if e.name == "cast" else e.args
     return all(expr_on_device(a, ctx) for a in args)
@@ -1004,14 +1007,36 @@ def build_filter(f: FilterNode, ctx: BatchContext, params: dict, counter: list,
     return build_predicate(f.predicate, ctx, params, counter, values)
 
 
+def literal_fits(arr, dtype) -> bool:
+    """Whether every value of the literal ``arr`` is one of ``dtype``'s
+    (an integer literal past its ends is not)."""
+    a = np.asarray(arr)
+    dt = np.dtype(dtype)
+    if a.dtype.kind not in "biuf":
+        return False
+    if dt.kind not in "iu" or a.size == 0:
+        return True
+    info = np.iinfo(dt)
+    return all(info.min <= x <= info.max for x in a.reshape(-1).tolist())
+
+
 def _slot(params: dict, counter: list, arr, device, dtype=None) -> str:
-    """A literal as a device tensor: in ``dtype``, or floats as f32, the
-    device columns' dtype."""
-    key = f"pr{counter[0]}"
-    counter[0] += 1
+    """A literal as a device tensor: in ``dtype``, which must hold it, or
+    as the JAX package uploads it: floats as f32, the device columns'
+    dtype, and an integer in [2^63, 2^64) (numpy's uint64) as f64 under
+    a key that marks it (ops/masks.py ``UINT64_LITERAL``), so that the
+    comparisons and arithmetic promote it as JAX promotes a uint64."""
+    if dtype is not None and not literal_fits(arr, dtype):
+        raise DeviceUnsupported(f"literal {arr!r} outside {np.dtype(dtype)}")
     a = np.asarray(arr, dtype=dtype)
+    prefix = "pr"
     if a.dtype == np.float64 and dtype is None:
         a = a.astype(np.float32)  # device columns are f32
+    elif a.dtype == np.uint64 and dtype is None:
+        a = a.astype(np.float64)
+        prefix = mask_ops.UINT64_LITERAL
+    key = f"{prefix}{counter[0]}"
+    counter[0] += 1
     if a.dtype.kind not in "biuf":
         raise DeviceUnsupported(f"{a.dtype} literal in a device predicate")
     sig = params.get("__hostsig__")
@@ -1185,9 +1210,9 @@ def build_expr(e: Expression, ctx: BatchContext, params: dict, counter: list):
             raise DeviceUnsupported(
                 f"non-numeric dict column {e.name} in expression")
         return ("dictval", e.name)
-    fn = get_function(e.name)
-    if not fn.device_capable:
-        raise DeviceUnsupported(f"function {e.name} has no device form")
+    if not get_function(e.name).device_form(e.args):
+        raise DeviceUnsupported(f"function {e.name} has no device form for "
+                                f"{e}")
     if e.name == "cast":
         arg = build_expr(e.args[0], ctx, params, counter)
         return ("cast", arg, str(e.args[1].value).upper())

@@ -360,11 +360,9 @@ def _agg_plan(ex, q, ctx, ev, aggs, full, params, counter, cols, filters,
                 # operand or an integer sum that could wrap: the host
                 # path's value, computed on the card
                 key = f"__x{i}"
-                v = ev.operand(a.args[0], full)
-                if v.kind != "num":
-                    # the host path's numeric reduction of strings fails
-                    raise ValueError(f"{name.upper()} requires a numeric "
-                                     f"argument, got {a.args[0]}")
+                # strings as the host's float64 reduction parses them
+                v = ev.numeric(ev.operand(a.args[0], full),
+                               f"{name.upper()}({a.args[0]})", mask)
                 cols[key] = torch.broadcast_to(v.t, shape)
                 extra = None
                 if name in ("sum", "avg"):
@@ -372,6 +370,10 @@ def _agg_plan(ex, q, ctx, ev, aggs, full, params, counter, cols, filters,
                 tpl = (name, ("raw", key), extra)
         elif name in _DISTINCT_ALIASES or name == "stunion":
             v = ev.eval(a.args[0], full)
+            if v.kind == "list":
+                # the host's Python sets take no list
+                raise host_fails(f"{name.upper()} over {a.args[0]}",
+                                 TypeError("unhashable type: 'list'"))
             key = f"__k{i}"
             cols[key] = ev.set_key(v, shape)
             # STUNION's answer is the set of its values' texts
@@ -543,6 +545,10 @@ def _partial(i, tpl, host, ctx, present, dec, ev):
         hit = ~np.isnan(keys)
         text = ev.decode_key(dec, keys[hit].astype(np.int64))
         out = np.empty(len(keys), dtype=object)
+        if dec.kind == "list":
+            # VALUEIN's lists reach the reference's merge, which takes a
+            # list's first value (an empty one: no value)
+            text = [x[0] if x else None for x in text]
         out[hit] = [x.item() if isinstance(x, np.generic) else x
                     for x in text]
         part["val"] = out
@@ -711,6 +717,10 @@ def _run_aggs(ex, q, ctx, space: _Space, pairs_in, gid, G: int, final,
     tpls, decodes, slots = _agg_plan(ex, q, ev.ctx, ev, aggs,
                                      Rows(S, Ls, dev), params, counter, cols,
                                      filters, space.mask)
+    for j, (tpl, dec) in enumerate(zip(tpls, decodes)):
+        if tpl[0] in ("firstwithtime", "lastwithtime") and dec is not None \
+                and dec.kind == "list":
+            _list_time_ties(tpl[0], dec, cols, j, gid, space.mask)
     final = final and any(t[0] in STATE_AGGS for t in tpls)
     widths, base = ex.gather_columns(
         ctx, set().union(*(agg_columns(t) for t in tpls)), params)
@@ -735,6 +745,53 @@ def _run_aggs(ex, q, ctx, space: _Space, pairs_in, gid, G: int, final,
                                                  1 if gid is None else G)))
     outs["hx_rows"] = space.mask.sum(dtype=torch.int64)
     return outs, (pairs_in, tpls, decodes, slots, ev, template)
+
+
+def _list_time_ties(name: str, dec, cols: dict, i: int, gid,
+                    mask) -> None:
+    """Refuse FIRST/LASTWITHTIME over VALUEIN's lists where the reference's
+    host fails on them: its per-segment scan (engine/aggspec.py there)
+    compares two rows' values when their times tie at the group's
+    running extreme, and ``np.isnan`` of a list of two or more values has
+    no truth value. So: among the rows, in each segment's order, whose
+    time equals the running extreme of their (segment, group), two or
+    more at one time with a list of two or more values among them."""
+    S, L = mask.shape
+    idx = torch.nonzero(mask.reshape(-1)).reshape(-1)
+    if idx.numel() < 2:
+        return
+    codes = torch.broadcast_to(cols[f"__v{i}"], mask.shape).reshape(-1)[idx]
+    uniq, inv = torch.unique(codes, return_inverse=True)
+    long = to_device(np.asarray([len(x) >= 2 for x in dec.meta.decode(
+        uniq.cpu().numpy())]), idx.device)[inv]
+    if not bool(long.any()):
+        return
+    g = torch.zeros_like(idx) if gid is None \
+        else gid.reshape(-1)[idx].to(torch.int64)
+    key = torch.unique(torch.stack([idx // L, g], 1), dim=0,
+                       return_inverse=True)[1]
+    t = torch.broadcast_to(cols[f"__t{i}"], mask.shape).reshape(-1)[idx]
+    rank = torch.unique(t, return_inverse=True)[1]
+    U = int(rank.max()) + 1
+    if name == "lastwithtime":
+        rank = U - 1 - rank       # the running max as a running min
+    order = torch.argsort(key, stable=True)
+    key, rank, long = key[order], rank[order], long[order]
+    # one cummin over segments of keys: each key's ranks lifted above
+    # every later key's, so a key's running min never sees an earlier one
+    lift = (int(key.max()) - key) * U
+    run = torch.cummin(rank + lift, 0).values - lift
+    at = rank == run
+    pair = key[at] * U + rank[at]
+    _u, pinv, counts = torch.unique(pair, return_inverse=True,
+                                    return_counts=True)
+    has_long = torch.zeros_like(counts).index_add_(
+        0, pinv, long[at].to(counts.dtype))
+    if bool(((counts >= 2) & (has_long > 0)).any()):
+        raise host_fails(
+            f"{name.upper()} over VALUEIN's lists, two rows at one time",
+            ValueError("The truth value of an array with more than one "
+                       "element is ambiguous. Use a.any() or a.all()"))
 
 
 def _space_partials(state, host, present) -> list:

@@ -154,11 +154,10 @@ def plan(i: int, a, ev: ValueEvaluator, filter_plane):
 
 
 def _numeric(spec, ev: ValueEvaluator, what: str):
-    v = ev.eval(spec.args[0], Rows(ev.S, ev.L, ev.device))
-    if v.kind != "num" or v.dtype.kind not in "biuf":
-        raise ValueError(f"{what} requires a numeric argument, got "
-                         f"{spec.args[0]}")
-    return v
+    """The operand's values as the host's float64 read takes them
+    (numeric strings parsed, engine/values.py ``numeric``)."""
+    return ev.numeric(ev.eval(spec.args[0], Rows(ev.S, ev.L, ev.device)),
+                      f"{what}({spec.args[0]})")
 
 
 def _registers(h, gid, mask, G: int, log2m: int) -> torch.Tensor:

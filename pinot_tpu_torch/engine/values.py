@@ -85,7 +85,7 @@ from pinot_tpu_torch.ops import selection as sel_ops
 from pinot_tpu_torch.ops import sketch_build as sb
 from pinot_tpu_torch.ops import transform as tf
 from pinot_tpu_torch.ops.device_reduce import order_key
-from pinot_tpu_torch.ops.transform import _CAST_NP, get_function
+from pinot_tpu_torch.ops.transform import _CAST_NP, _ieee_sqrt, get_function
 from pinot_tpu_torch.query.context import (
     Expression,
     FilterNodeType,
@@ -271,22 +271,33 @@ def _torch_dtype(dt: np.dtype) -> torch.dtype:
 
 
 def _probe_literal(v):
-    return np.asarray(v)   # NULL: the host's 0-d object array
+    """The host's 0-d array of a literal (NULL: an object one). An
+    integer past uint64 or below int64, which numpy holds as a Python
+    int, reaches the host's reductions as its float64 value."""
+    a = np.asarray(v)
+    if a.dtype == object and isinstance(v, int) and not isinstance(v, bool):
+        return np.asarray(float(v))
+    return a
+
+
+def _wide_int(x) -> bool:
+    """An integer literal outside int64."""
+    return isinstance(x, int) and not isinstance(x, bool) \
+        and not -(1 << 63) <= x < (1 << 63)
 
 
 # numpy ufunc-style functions computed in their result dtype, after every
-# operand is cast to it
+# operand is cast to it. POWER, EXP, the logarithms and the trigonometric
+# functions have none: a libm or vectorized pow, exp, log or sine is a
+# last bit off numpy's, so they run numpy's form per distinct tuple
+# (``_per_tuple``). SQRT is correctly rounded everywhere
+# (``_ieee_sqrt``)
 _ARITH = {
     "plus": torch.add, "minus": torch.sub, "times": torch.mul,
     "least": torch.minimum, "greatest": torch.maximum,
-    "power": torch.pow, "pow": torch.pow,
 }
 _UNARY = {
-    "abs": torch.abs, "sign": torch.sign, "exp": torch.exp, "ln": torch.log,
-    "log2": torch.log2, "log10": torch.log10, "sqrt": torch.sqrt,
-    "sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
-    "asin": torch.asin, "acos": torch.acos, "atan": torch.atan,
-    "sinh": torch.sinh, "cosh": torch.cosh, "tanh": torch.tanh,
+    "abs": torch.abs, "sign": torch.sign, "sqrt": _ieee_sqrt,
     "degrees": torch.rad2deg, "radians": torch.deg2rad,
 }
 # rounding: the identity on an integer result dtype
@@ -493,17 +504,20 @@ class ValueEvaluator:
             ent = lut[torch.clamp(mp.vals.to(torch.int64), 0,
                                   max(lut.shape[0] - 1, 0))]
         elif p.type in (PredicateType.LIKE, PredicateType.REGEXP_LIKE) \
-                or self._string_literal(p):
-            # numbers by their text: each distinct entry matched once
+                or self._string_literal(p) or self._wide_literal(p):
+            # numbers by their text, or against an integer past int64:
+            # each distinct entry matched once, as numpy matches it
             ev = Val(mp.vals, "num", mp.dtype)
             ent = self.distinct_lut(
                 ev, Rows(*mp.vals.shape, self.device),
                 lambda x: predicate_over_values(p, x), mp.doc >= 0)
         else:
             params, counter = {}, [0]
+            dt = self._literal_dtype(p, mp.dtype)
             tpl = raw_predicate(
-                p, plane_slot(params, counter, mp.vals), params, counter,
-                self.device, self._literal_dtype(p, mp.dtype))
+                p, plane_slot(params, counter,
+                              mp.vals.to(_torch_dtype(dt))),
+                params, counter, self.device, dt)
             ent = eval_filter(tpl, {}, params, mp.vals.shape, self.device)
         ent = ent & (mp.doc >= 0)
         pos = torch.nonzero(ent)
@@ -636,6 +650,10 @@ class ValueEvaluator:
                 return Val(torch.zeros((), dtype=torch.int64,
                                        device=self.device), "case", a.dtype,
                            a.reshape(1))
+            if a.dtype == np.uint64:
+                # [2^63, 2^64): numpy promotes it to float64 beside any
+                # signed operand; the card holds no uint64
+                a = a.astype(np.float64)
             return Val(torch.tensor(a, device=self.device), "num", a.dtype)
         if e.is_identifier:
             name = e.name
@@ -1372,6 +1390,18 @@ class ValueEvaluator:
         if v.kind == "num":
             return sb.hash32_values(v.t, v.dtype)
         v = self.materialize(v)
+        if v.kind == "list":
+            # VALUEIN's lists: the host hashes each as the bytes of its
+            # values (``bytes(list)``), once per distinct list
+            uniq, inv = torch.unique(v.t.to(torch.int64), return_inverse=True)
+            lists = np.empty(uniq.shape[0], dtype=object)
+            for j, x in enumerate(v.meta.decode(uniq.cpu().numpy())):
+                lists[j] = x
+            try:
+                h = hll_ops.hash32_np(lists).astype(np.int64)
+            except (TypeError, ValueError) as err:
+                raise host_fails("a hash of VALUEIN's lists", err) from err
+            return to_device(h, self.device)[inv]
         if v.kind == "dict":
             values = np.asarray(self.ctx.global_dict(v.meta).values)
         elif v.kind == "case":
@@ -1571,9 +1601,10 @@ class ValueEvaluator:
             return ("mask", plane_slot(params, counter, mask)[1])
         if v.kind != "num" or p.type in (
                 PredicateType.LIKE, PredicateType.REGEXP_LIKE) \
-                or self._string_literal(p):
+                or self._string_literal(p) or self._wide_literal(p):
             # numpy's predicate over each distinct value (numbers by their
-            # text for LIKE; a string literal never equals a number)
+            # text for LIKE; a string literal never equals a number; an
+            # integer literal past int64 compares exactly)
             mask = torch.broadcast_to(self.distinct_lut(
                 v, full, lambda x: predicate_over_values(p, x)),
                 full.seg().shape)
@@ -1608,6 +1639,14 @@ class ValueEvaluator:
             else [x for x in (p.lower, p.upper) if x is not None]
         return any(isinstance(x, str) for x in lits)
 
+    @staticmethod
+    def _wide_literal(p: Predicate) -> bool:
+        """Whether an integer literal of ``p`` lies outside int64."""
+        lits = list(p.values) if p.type in (
+            PredicateType.IN, PredicateType.NOT_IN) \
+            else [p.value, p.lower, p.upper]
+        return any(_wide_int(x) for x in lits)
+
     def distinct(self, vals: list, rows: Rows, valid=None) -> tuple:
         """(id of each row's tuple of values, shaped as the rows; per
         ``Val`` its values at each id on the host): the tuples of
@@ -1633,6 +1672,40 @@ class ValueEvaluator:
                                             for j in range(w)]))
             col += w
         return inv.reshape(shape), out
+
+    def numeric(self, v: Val, what: str, mask=None) -> Val:
+        """``v`` as the host's numeric reductions read it
+        (``np.asarray(values, dtype=np.float64)``): numbers as they are,
+        strings (numeric ones, say) each distinct string parsed once into
+        float64 and gathered by id. A string that does not parse, among
+        the rows ``mask`` takes (default: all), fails the host too, as do
+        VALUEIN's lists: refused, quoting the error."""
+        if v.kind == "num":
+            return v
+        v = self.materialize(v)
+        if v.kind == "list":
+            raise host_fails(what, ValueError(
+                "setting an array element with a sequence."))
+        table = np.asarray(self.ctx.global_dict(v.meta).values) \
+            if v.kind == "dict" else self.seg_names if v.kind == "seg" \
+            else self.host_names if v.kind == "host" else np.asarray(v.meta)
+        out = np.zeros(max(len(table), 1), dtype=np.float64)
+        errs = {}
+        for j, x in enumerate(table.tolist()):
+            try:
+                out[j] = np.asarray([x], dtype=np.float64)[0]
+            except (TypeError, ValueError) as err:
+                errs[j] = err
+        ids = torch.clamp(v.t.to(torch.int64), 0, out.shape[0] - 1)
+        if errs:
+            bad = torch.isin(ids, to_device(np.asarray(list(errs)),
+                                            self.device))
+            if mask is not None:
+                bad = bad & mask
+            if bool(bad.any()):
+                raise host_fails(what, errs[int(ids[bad].reshape(-1)[0])])
+        return Val(to_device(out, self.device)[ids], "num",
+                   np.dtype(np.float64))
 
     def distinct_lut(self, v: Val, rows: Rows, fn,
                      valid=None) -> torch.Tensor:

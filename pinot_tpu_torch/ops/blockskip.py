@@ -31,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pinot_tpu_torch.ops.masks import literal_beside
 from pinot_tpu_torch.storage.segment import ZONE_BLOCK_ROWS as BLOCK_ROWS
 
 # static candidate bound: B = ceil(total_blocks / CAND_FRACTION); past it
@@ -139,10 +140,12 @@ def zone_verdict(tpl, cols, params, shape, widths=None):
     if lo is None:
         return ones
     if kind in ("eq_dict", "eq_raw"):
-        t = params[tpl[2]]  # eq_dict: -2 when absent, below every zone
+        # eq_dict: -2 when absent, below every zone
+        t = literal_beside(lo, params[tpl[2]], tpl[2])
         return (t >= lo) & (t <= hi)
     if kind in ("in_dict", "in_raw"):
-        lits = params[tpl[2]].reshape(-1)  # in_dict pads with -2
+        # in_dict pads with -2
+        lits = literal_beside(lo, params[tpl[2]], tpl[2]).reshape(-1)
         return ((lits >= lo[..., None]) & (lits <= hi[..., None])).any(-1)
     if kind == "range_dict":
         rlo, rhi = params[tpl[2]], params[tpl[3]]  # id interval [rlo, rhi)
@@ -150,10 +153,10 @@ def zone_verdict(tpl, cols, params, shape, widths=None):
     _, _expr, klo, khi, has_lo, has_hi, lo_inc, hi_inc = tpl
     v = ones
     if has_lo:
-        b = params[klo]
+        b = literal_beside(lo, params[klo], klo)
         v = v & ((hi >= b) if lo_inc else (hi > b))
     if has_hi:
-        b = params[khi]
+        b = literal_beside(lo, params[khi], khi)
         v = v & ((lo <= b) if hi_inc else (lo < b))
     return v
 

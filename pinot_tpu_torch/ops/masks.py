@@ -17,6 +17,22 @@ from __future__ import annotations
 import torch
 
 
+# the params key prefix of an integer literal in [2^63, 2^64), which
+# engine/params.py ``_slot`` uploads as float64 for want of a uint64 on
+# the card. The JAX package's is a uint64, which JAX promotes with a
+# float operand to that operand's dtype and with an integer to float64
+UINT64_LITERAL = "pu"
+
+
+def literal_beside(values, lit, key: str):
+    """The literal under the params key ``key`` as it meets ``values``:
+    a uint64 one (``UINT64_LITERAL``) in a float operand's dtype, any
+    other as it is (``_same`` then promotes both)."""
+    if key.startswith(UINT64_LITERAL) and values.is_floating_point():
+        return lit.to(values.dtype)
+    return lit
+
+
 def _same(a, b):
     dt = torch.promote_types(a.dtype, b.dtype)
     return a.to(dt), b.to(dt)

@@ -26,24 +26,32 @@ import torch
 
 class FunctionDef:
     def __init__(self, name, np_fn, torch_fn=None, min_args=1, max_args=None,
-                 returns_bool=False):
+                 returns_bool=False, device_args=None):
         self.name = name
         self.np_fn = np_fn
         self.torch_fn = torch_fn  # None → host-only
         self.min_args = min_args
         self.max_args = max_args if max_args is not None else min_args
         self.returns_bool = returns_bool
+        # the calls the torch form computes, by their argument
+        # expressions (None: every call)
+        self.device_args = device_args
 
-    @property
-    def device_capable(self) -> bool:
-        return self.torch_fn is not None
+    def device_form(self, args) -> bool:
+        """Whether the torch form computes a call over the argument
+        expressions ``args`` (ROUND with a scale and CAST to STRING are
+        host-only)."""
+        return self.torch_fn is not None and (
+            self.device_args is None or self.device_args(args))
 
 
 REGISTRY: dict[str, FunctionDef] = {}
 
 
-def _reg(name, np_fn, torch_fn=None, min_args=1, max_args=None, returns_bool=False):
-    REGISTRY[name] = FunctionDef(name, np_fn, torch_fn, min_args, max_args, returns_bool)
+def _reg(name, np_fn, torch_fn=None, min_args=1, max_args=None,
+         returns_bool=False, device_args=None):
+    REGISTRY[name] = FunctionDef(name, np_fn, torch_fn, min_args, max_args,
+                                 returns_bool, device_args)
 
 
 def get_function(name: str) -> FunctionDef:
@@ -66,13 +74,36 @@ def _bin(fn):
 
 
 def _as_float(a):
-    return a if a.is_floating_point() else a.to(torch.float32)
+    if a.is_floating_point():
+        return a
+    wide = a.dtype in (torch.int64, torch.uint64)
+    return a.to(torch.float64 if wide else torch.float32)
 
 
 def _float(fn):
-    """torch unary float op: integer inputs go through float32, the
-    device value space of the JAX package."""
+    """torch unary float op over JAX's inexact promotion: int64 inputs
+    go through float64, narrower integers and booleans through float32
+    (the DOUBLE planes are float32 already)."""
     return lambda a: fn(_as_float(a))
+
+
+def _ieee_sqrt(a):
+    """The correctly rounded square root, as CUDA's ``sqrt`` and XLA's
+    give it; torch's vectorized CPU kernel is a last bit off for some
+    values, so a CPU tensor takes numpy's (but for a cohort's batched
+    one, engine/cohort.py, which has no numpy view)."""
+    if a.device.type == "cpu":
+        try:
+            with np.errstate(invalid="ignore"):
+                return torch.from_numpy(np.asarray(np.sqrt(a.numpy())))
+        except RuntimeError:
+            pass
+    return torch.sqrt(a)
+
+
+def _integral(fn):
+    """CEIL / FLOOR: the identity on integers, as ``jnp.ceil`` is."""
+    return lambda a: fn(a) if a.is_floating_point() else a
 
 
 # ---- arithmetic -----------------------------------------------------------
@@ -98,19 +129,22 @@ _reg("times", lambda a, b: np.multiply(a, b), _bin(lambda a, b: torch.mul(a, b))
 _reg("divide", _np_div, _torch_div, 2)
 _reg("mod", lambda a, b: np.mod(a, b), _bin(lambda a, b: torch.remainder(a, b)), 2)
 _reg("abs", np.abs, (lambda a: torch.abs(a)), 1)
-_reg("ceil", np.ceil, _float(torch.ceil), 1)
-_reg("floor", np.floor, _float(torch.floor), 1)
+_reg("ceil", np.ceil, _integral(torch.ceil), 1)
+_reg("floor", np.floor, _integral(torch.floor), 1)
 _reg("exp", np.exp, _float(torch.exp), 1)
 _reg("ln", np.log, _float(torch.log), 1)
-_reg("log2", np.log2, _float(torch.log2), 1)
-_reg("log10", np.log10, _float(torch.log10), 1)
-_reg("sqrt", np.sqrt, _float(torch.sqrt), 1)
+# LOG2 / LOG10 as XLA lowers them: the natural log times 1/ln 2, 1/ln 10
+_reg("log2", np.log2, _float(lambda a: torch.log(a) * 1.4426950408889634), 1)
+_reg("log10", np.log10, _float(lambda a: torch.log(a) * 0.4342944819032518),
+     1)
+_reg("sqrt", np.sqrt, _float(_ieee_sqrt), 1)
 _reg("power", np.power, _bin(lambda a, b: torch.pow(a, b)), 2)
 _reg("pow", np.power, _bin(lambda a, b: torch.pow(a, b)), 2)
 _reg("least", np.minimum, _bin(lambda a, b: torch.minimum(a, b)), 2)
 _reg("greatest", np.maximum, _bin(lambda a, b: torch.maximum(a, b)), 2)
 _reg("sign", np.sign, (lambda a: torch.sign(a)), 1)
-_reg("round", np.round, _torch_round, 1, 2)
+_reg("round", np.round, _torch_round, 1, 2,
+     device_args=lambda args: len(args) == 1)
 
 # trigonometric (scalar/Trigonometric*.java)
 for _n, _np, _t in [
@@ -193,7 +227,8 @@ def _torch_cast(a, type_name):
     return a.to(getattr(torch, t))
 
 
-_reg("cast", _np_cast, _torch_cast, 2)
+_reg("cast", _np_cast, _torch_cast, 2,
+     device_args=lambda args: str(args[1].value).upper() in _CAST_TORCH)
 
 
 # ---- string functions (host-only; device work stays in dict-id space) -----

@@ -63,6 +63,7 @@ from pinot_tpu_torch.engine.values import (
     _factorize_tuples,
     _torch_dtype,
     from_order_key,
+    host_fails,
     numeric_op,
     predicate_over_values,
 )
@@ -739,6 +740,18 @@ def _extreme(v: torch.Tensor, gid: torch.Tensor, G: int, how: str):
     return torch.where(nan > 0, torch.nan, out).cpu().numpy()
 
 
+def _parsed(arg: Col, what: str) -> Col:
+    """A string column's values as ``np.asarray(..., dtype=np.float64)``
+    parses them (each distinct string once); one that does not parse
+    fails the reference's host too."""
+    try:
+        vals = np.asarray(arg.strings, dtype=np.float64)
+    except (TypeError, ValueError) as err:
+        raise host_fails(what, err) from err
+    lut = to_device(vals if len(vals) else np.zeros(1), arg.t.device)
+    return Col(lut[arg.t.to(torch.int64)], np.dtype(np.float64))
+
+
 def _torch_partial(spec, a, cols, env, gid, G: int, n: int) -> dict:
     """One aggregation's partial over the joined rows as torch scatters,
     the canonical form engine/aggspec.py's ``host_groups`` gives."""
@@ -780,8 +793,8 @@ def _torch_partial(spec, a, cols, env, gid, G: int, n: int) -> dict:
                           if len(arg.strings) else np.zeros(1, np.int64),
                           dev)[arg.t]
             return _hll_partial(spec, h, gid, G)
-        raise ValueError(f"could not convert string to float in "
-                         f"{name.upper()}({spec.args[0]})")
+        # parsed as the host's float64 read parses them
+        arg = _parsed(arg, f"{name.upper()}({spec.args[0]})")
     if name == "distinctcounthll":
         return _hll_partial(spec, hash32_values(arg.t, arg.dtype), gid, G)
     exact = arg.dtype.kind in "iub"
