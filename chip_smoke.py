@@ -139,10 +139,18 @@ Phases, all on ``cuda:0``:
    by payment type, MAX(SQRT(pickup_ts)) in the device shape (float64)
    and in the host path's (numpy's bits, on the card),
    SUMPRECISION(POWER(tip_amount, 2)) (numpy's bits, the decimal route on
-   K1 and K2) and stage 2's SUM(CAST(fa.big AS STRING)); each answer of
-   the oracle's Python type, MIN, MAX, counts and SUMPRECISION bit for
-   bit and the sums within 1e-9 of ``math.fsum``; K1 held at its captured
-   inputs, ``check_repairs_kernels``). Every answer is
+   K1 and K2) and stage 2's SUM(CAST(fa.big AS STRING)); F11: MIN / MAX
+   of SQRT(tip_amount - 1), SQRT(tip_amount) and tip_amount / 0, whose
+   NaN the card makes, by payment type in the device shape (K2) and the
+   host path's, and as a scalar, and over ``f11_sorted`` (2 x 1,000,000
+   rows from seed 113, a FLOAT and a DOUBLE column holding NaN of both
+   signs and +-inf) a month's range each on K4 and a group-by on K2;
+   each answer of the oracle's Python type, MIN, MAX, counts and
+   SUMPRECISION bit for bit (a NaN as a NaN) and the sums within 1e-9 of
+   ``math.fsum``; K1 held at its captured inputs,
+   ``check_repairs_kernels``, and K2 and K4 at F11's with and without
+   every backend's NaN patterns written in, ``check_f11_kernels``).
+   Every answer is
    checked against a numpy oracle over the generated columns (HLL
    estimates from registers the oracle builds itself; for the block-skip
    path also the pruned segments, pruned blocks and entries scanned,
@@ -2692,8 +2700,11 @@ REP_QUERIES = {
                     f"{REP_DIM} dm ON fa.f_key = dm.d_key GROUP BY dm.d_key "
                     f"ORDER BY dm.d_key LIMIT {REP_KEYS}"),
 }
-PATHS["repairs"] = (REP_QUERIES, ("group_plane_sums",),
-                    ((3, "group_scatter", "plane_group_sums"),))
+PATHS["repairs"] = (REP_QUERIES, ("group_plane_sums", "group_minmax",
+                                  "fused_filter_agg"),
+                    ((3, "group_scatter", "plane_group_sums"),
+                     (4, "group_scatter", "group_minmax"),
+                     (6, "group_scatter", "fused_filter_agg")))
 # a group-by's count takes one K1 launch, its DOUBLE operands none, nor
 # K2; the integer sums past 2^63 ride that launch as byte planes; the
 # scalar sums are torch reductions; stage 2's group sums one K1 launch,
@@ -2706,6 +2717,55 @@ QUERY_LAUNCHES.update({
            else 5 if name == "rep_f8_power" else 1,
            "group_minmax": int(name == "rep_f8_power")}
     for name in REP_QUERIES})
+
+# F11 (ROADMAP queue 3): a NaN under MIN / MAX answers NaN, whatever its
+# sign bit. ``trips`` makes its NaN on the card (CUDA's sqrtf and 0 / 0
+# give 0x7fffffff, the NaN that a MIN on the old order keys dropped);
+# ``f11_sorted`` stores NaN of both signs and +-inf in a FLOAT and a
+# DOUBLE column of a day-sorted table: a month's range over it runs K4,
+# its group-by K2
+F11_TABLE = "f11_sorted"
+F11_SEGMENTS, F11_ROWS, F11_SEED = 2, 1_000_000, 113
+F11_DAYS = 731                      # 2019-01-01 .. 2020-12-31
+F11_GROUPS = 8                      # grp 0-1: x's NaN +, 2-3: -, 4-7: none
+F11_NAN_RATE = 1e-3
+# y's NaN: + in 2019's first half, - in its second, none in 2020
+F11_MONTHS = {"pos": (20190201, 20190228), "neg": (20190801, 20190831),
+              "none": (20200201, 20200229)}
+# NaN bits of each sign: CUDA's canonical one and x86's, their negations
+NAN32_POS = (0x7FFFFFFF, 0x7FC00000)
+NAN32_NEG = (0xFFC00000, 0xFFFFFFFF)
+F11_AGGS = ("MIN(SQRT(tip_amount - 1)), MAX(SQRT(tip_amount - 1)), "
+            "MAX(SQRT(tip_amount)), MIN(tip_amount / 0)")
+F11_XY = "MIN(x), MAX(x), MIN(y), MAX(y)"
+REP_QUERIES.update({
+    # the device shape: float32 SQRT / division of tip_amount's plane on
+    # the card, into K2
+    "rep_f11_dev": (f"SELECT payment_type, {F11_AGGS} FROM {TRIPS_TABLE} "
+                    f"GROUP BY payment_type ORDER BY payment_type"),
+    # the host path's shape: float64, the torch scatters on the card
+    "rep_f11_host": (f"SELECT payment_type, {F11_AGGS} FROM {TRIPS_TABLE} "
+                     f"{REP_WHERE} GROUP BY payment_type ORDER BY "
+                     f"payment_type"),
+    "rep_f11_scalar": (f"SELECT MAX(tip_amount / 0), MIN(SQRT(tip_amount - "
+                       f"1)), MAX(SQRT(tip_amount)) FROM {TRIPS_TABLE}"),
+    **{f"rep_f11_month_{k}": (f"SELECT COUNT(*), {F11_XY} FROM {F11_TABLE} "
+                              f"WHERE day BETWEEN {lo} AND {hi}")
+       for k, (lo, hi) in F11_MONTHS.items()},
+    "rep_f11_groups": (f"SELECT grp, {F11_XY} FROM {F11_TABLE} GROUP BY grp "
+                       f"ORDER BY grp"),
+})
+# a group-by's count one K1 launch; the device shape's float32 operands
+# one K2 launch (the host path's float64 ones the torch scatters); a
+# month of the sorted table one K4 launch
+QUERY_LAUNCHES.update({
+    "rep_f11_dev": {"group_plane_sums": 1, "group_minmax": 1},
+    "rep_f11_host": {"group_plane_sums": 1, "group_minmax": 0},
+    "rep_f11_scalar": {"group_plane_sums": 0, "group_minmax": 0},
+    **{f"rep_f11_month_{k}": {"group_plane_sums": 0, "group_minmax": 0,
+                              "fused_filter_agg": 1} for k in F11_MONTHS},
+    "rep_f11_groups": {"group_plane_sums": 1, "group_minmax": 1},
+})
 
 
 def rep_generate(seed: int = REP_SEED) -> dict:
@@ -2751,7 +2811,7 @@ def _rep_checker(name: str, want: list, lead: int, exact: tuple):
     aggregation of the oracle's Python type, bit for bit where ``exact``
     says (MIN, MAX and their range: values the column holds; counts;
     SUMPRECISION's decimal text), else within 1e-9 relative of the
-    oracle's ``math.fsum``."""
+    oracle's ``math.fsum``; a NaN as a NaN."""
     def check(got):
         if len(got) != len(want) or any(len(a) != len(b)
                                         for a, b in zip(got, want)):
@@ -2760,8 +2820,12 @@ def _rep_checker(name: str, want: list, lead: int, exact: tuple):
             if a[:lead] != b[:lead]:
                 raise AssertionError(f"{name}: row {a} want {b}")
             for x, y, bit in zip(a[lead:], b[lead:], exact):
-                if type(x) is not type(y) or (x != y if bit else abs(x - y)
-                                              > 1e-9 * abs(y)):
+                if type(x) is not type(y):
+                    raise AssertionError(f"{name}: row {a} want {b}")
+                if isinstance(y, float) and y != y:   # NaN as NaN
+                    if x == x:
+                        raise AssertionError(f"{name}: row {a} want {b}")
+                elif x != y if bit else abs(x - y) > 1e-9 * abs(y):
                     raise AssertionError(f"{name}: row {a} want {b} (bit "
                                          f"for bit: {exact})")
     return check
@@ -2786,10 +2850,10 @@ def _grouped(values: np.ndarray, groups: tuple) -> tuple:
                         for a, b in zip(cuts[:-1], cuts[1:])])
 
 
-def rep_oracle(trips: list, rep: dict) -> dict:
+def rep_oracle(trips: list, rep: dict, f11: list) -> dict:
     """The repairs path's answers: numpy float64 over the stored values
     of the rows ``$docId < REP_DOCS`` keeps, MIN / MAX as the column holds
-    them, sums by ``math.fsum``."""
+    them, sums by ``math.fsum``; F11's (``rep_oracle_f11``)."""
     import math
 
     c = {k: np.concatenate([d[k][:REP_DOCS] for d in trips])
@@ -2833,6 +2897,7 @@ def rep_oracle(trips: list, rep: dict) -> dict:
         sum(leaves.values()), join_stats)
     want.update(rep_oracle_f6_f10(trips, c, pay_keys, pay_groups, groups,
                                   big, join_stats))
+    want.update(rep_oracle_f11(trips, c, pay_groups, f11))
     return want
 
 
@@ -2899,6 +2964,186 @@ def rep_oracle_f6_f10(trips: list, c: dict, pay_keys, pay_groups,
         "rep_f7_join", [[k, sums[k]] for k in range(REP_KEYS)], 1,
         (False,)), sum(join_stats["leafRows"].values()), dict(join_stats))
     return want
+
+
+def f11_generate(seed: int = F11_SEED) -> list:
+    """``F11_TABLE``'s segments: ``day`` (yyyymmdd over ``F11_DAYS``
+    days, ascending across the segments), ``grp`` in [0, F11_GROUPS), a
+    FLOAT ``x`` in [-1, 1) whose NaN are + in grp 0-1 and - in grp 2-3
+    (``NAN32_POS`` / ``NAN32_NEG``, one of each pattern at random), a
+    DOUBLE ``y`` in [-100, 100) whose NaN are + in 2019's first half and
+    - in its second, and +-inf in both."""
+    rng = np.random.default_rng(seed)
+    n = F11_SEGMENTS * F11_ROWS
+    days = np.datetime64("2019-01-01") + np.sort(
+        rng.integers(0, F11_DAYS, n)).astype("timedelta64[D]")
+    months = days.astype("datetime64[M]")
+    year = months.astype("datetime64[Y]").astype(np.int64) + 1970
+    month = months.astype(np.int64) % 12 + 1
+    day = (year * 10000 + month * 100
+           + (days - months).astype(np.int64) + 1).astype(np.int32)
+    grp = rng.integers(0, F11_GROUPS, n).astype(np.int32)
+    x = rng.uniform(-1, 1, n).astype(np.float32)
+    xb = x.view(np.uint32)
+    pick = rng.integers(0, 2, n)
+    hit = rng.random(n) < F11_NAN_RATE
+    pos, neg = hit & (grp < 2), hit & (grp >= 2) & (grp < 4)
+    xb[pos] = np.array(NAN32_POS, np.uint32)[pick[pos]]
+    xb[neg] = np.array(NAN32_NEG, np.uint32)[pick[neg]]
+    y = rng.uniform(-100, 100, n)
+    hit = rng.random(n) < F11_NAN_RATE
+    y[hit & (year == 2019) & (month <= 6)] = np.float64("nan")
+    y[hit & (year == 2019) & (month > 6)] = -np.float64("nan")
+    for v in (x, y):
+        inf = rng.random(n) < F11_NAN_RATE / 4
+        v[inf] = np.where(rng.random(n) < 0.5, np.inf, -np.inf)[inf]
+    return [{"day": day[sl], "grp": grp[sl], "x": x[sl], "y": y[sl]}
+            for sl in (slice(i * F11_ROWS, (i + 1) * F11_ROWS)
+                       for i in range(F11_SEGMENTS))]
+
+
+def write_f11_segment(i: int, seg: dict) -> str:
+    """Segment ``s<i>`` of ``F11_TABLE`` (x and y raw) through the port's
+    creator (run in a worker process)."""
+    from pinot_tpu_torch.common.datatypes import DataType as D
+    from pinot_tpu_torch.common.schema import Schema
+    from pinot_tpu_torch.common.table_config import IndexingConfig, \
+        TableConfig
+    from pinot_tpu_torch.storage.creator import build_segment
+
+    out = os.path.join(DATA_DIR, F11_TABLE, f"s{i}")
+    build_segment(
+        Schema.build(name=F11_TABLE, dimensions=[("day", D.INT),
+                                                 ("grp", D.INT)],
+                     metrics=[("x", D.FLOAT), ("y", D.DOUBLE)]),
+        seg, out, TableConfig(table_name=F11_TABLE, indexing=IndexingConfig(
+            no_dictionary_columns=["x", "y"])), f"{F11_TABLE}{i}")
+    return out
+
+
+def _nan_reduce(v: np.ndarray, groups: tuple, op) -> np.ndarray:
+    """``op`` (np.minimum / np.maximum) of ``v`` in each of ``groups``
+    (``_groups``): numpy's ufuncs, which propagate a NaN of either
+    sign."""
+    order, cuts = groups
+    with np.errstate(invalid="ignore"):
+        return op.reduceat(v[order], cuts[:-1])
+
+
+def _nan_float(v, grouped: bool):
+    """A MIN / MAX as the broker renders it: a float, a NaN as ``nan`` in
+    a group-by row and as None in a scalar one."""
+    v = float(v)
+    return v if v == v or grouped else None
+
+
+def rep_oracle_f11(trips: list, c: dict, pay_groups, f11: list) -> dict:
+    """The F11 queries' answers, numpy's (whose MIN / MAX propagate a
+    NaN, as the reference's do): the device shape over tip_amount's
+    float32 plane in float32, the host path's shape over the stored
+    float64 values, ``F11_TABLE``'s DOUBLE column over its float32
+    plane."""
+    want = {}
+    pay_all = np.concatenate([d["payment_type"] for d in trips])
+    keys_all, inv_all = np.unique(pay_all, return_inverse=True)
+    tip32 = np.concatenate([d["tip_amount"] for d in trips]) \
+        .astype(np.float32)
+    pay_keys = np.unique(c["payment_type"])
+    with np.errstate(invalid="ignore", divide="ignore"):
+        for name, tip, keys, groups in (
+                ("rep_f11_dev", tip32, keys_all,
+                 _groups(inv_all, len(keys_all))),
+                ("rep_f11_host", c["tip_amount"], pay_keys, pay_groups)):
+            one = tip.dtype.type(1)
+            cols = (_nan_reduce(np.sqrt(tip - one), groups, np.minimum),
+                    _nan_reduce(np.sqrt(tip - one), groups, np.maximum),
+                    _nan_reduce(np.sqrt(tip), groups, np.maximum),
+                    _nan_reduce(tip / tip.dtype.type(0), groups,
+                                np.minimum))
+            rows = [[int(k)] + [_nan_float(col[g], True) for col in cols]
+                    for g, k in enumerate(keys)]
+            want[name] = (_rep_checker(name, rows, 1, (True,) * 4),
+                          len(tip))
+        row = [_nan_float(np.max(tip32 / np.float32(0)), False),
+               _nan_float(np.min(np.sqrt(tip32 - np.float32(1))), False),
+               _nan_float(np.max(np.sqrt(tip32)), False)]
+    want["rep_f11_scalar"] = (_rep_checker("rep_f11_scalar", [row], 0,
+                                           (True,) * 3), len(tip32))
+    day = np.concatenate([d["day"] for d in f11])
+    x = np.concatenate([d["x"] for d in f11])
+    y32 = np.concatenate([d["y"] for d in f11]).astype(np.float32)
+    for key, (lo, hi) in F11_MONTHS.items():
+        m = (day >= lo) & (day <= hi)
+        xs, ys = x[m], y32[m]
+        row = [int(m.sum())] + [_nan_float(f(v), False) for v in (xs, ys)
+                                for f in (np.min, np.max)]
+        name = f"rep_f11_month_{key}"
+        want[name] = (_rep_checker(name, [row], 0, (True,) * 5),
+                      int(m.sum()), {"totalDocs": len(day)})
+    grp = np.concatenate([d["grp"] for d in f11])
+    groups = _groups(grp, F11_GROUPS)
+    cols = [_nan_reduce(v, groups, op) for v in (x, y32)
+            for op in (np.minimum, np.maximum)]
+    rows = [[g] + [_nan_float(col[g], True) for col in cols]
+            for g in range(F11_GROUPS)]
+    want["rep_f11_groups"] = (_rep_checker("rep_f11_groups", rows, 1,
+                                           (True,) * 4), len(grp),
+                              {"totalDocs": len(grp)})
+    return want
+
+
+def _nan_bits_written(t, rows=None):
+    """A copy of float32 ``t`` with the NaN patterns CUDA, numpy and
+    torch's CPU make (0x7fffffff, 0xffc00000, 0x7fc00000) written every
+    997th / 1009th / 1013th element (of ``rows``' rows only, where
+    given); other dtypes as they are."""
+    import torch
+
+    if t.dtype != torch.float32:
+        return t
+    out = t.clone()
+    bits = out.view(torch.int32)
+    view = bits[rows] if rows is not None else bits.reshape(1, -1)
+    for start, step, pattern in ((0, 997, 0x7FFFFFFF), (1, 1009, 0xFFC00000),
+                                 (2, 1013, 0x7FC00000)):
+        view[:, start::step] = int(np.array(pattern, np.uint32)
+                                   .view(np.int32))
+    if rows is not None:
+        bits[rows] = view
+    return out
+
+
+def check_f11_kernels(engine, k2: dict, k4: dict) -> None:
+    """K2 and K4 at F11's inputs, each against its plain version bit for
+    bit: K2's float32 SQRT and division values under rep_f11_dev (NaN
+    made by CUDA) and the stored x / y planes under rep_f11_groups, K4's
+    candidates of each month; then each of them again with the NaN
+    patterns of every backend written in (``_nan_bits_written``)."""
+    import dataclasses
+
+    from pinot_tpu_torch.ops import group_scatter as ps
+
+    for name in ("rep_f11_dev", "rep_f11_groups"):
+        for (gid, srcs, G), _kw in capture_calls(
+                engine, REP_QUERIES[name], ps, "group_minmax_sources"):
+            label = ", ".join(f"{s.values.dtype} {'+'.join(s.ops)}"
+                              for s in srcs).replace("torch.", "")
+            k2["shapes"].append(k2_shape(f"{name}: {label}", gid, srcs, G))
+            nan_srcs = [dataclasses.replace(
+                s, values=_nan_bits_written(s.values)) for s in srcs]
+            k2["shapes"].append(k2_shape(
+                f"{name} with 0x7fffffff, 0xffc00000 and 0x7fc00000 "
+                f"written in: {label}", gid, nan_srcs, G))
+    for key in F11_MONTHS:
+        name = f"rep_f11_month_{key}"
+        cand, rows_in, cols, params, plan = capture_fused(
+            engine, REP_QUERIES[name])
+        k4["sizes"].append(check_k4(name, cand, rows_in, cols, params, plan))
+        rows = cand.long()
+        k4["sizes"].append(check_k4(
+            f"{name} with 0x7fffffff, 0xffc00000 and 0x7fc00000 written "
+            f"in", cand, rows_in, {k: _nan_bits_written(v, rows)
+                                   for k, v in cols.items()}, params, plan))
 
 
 def check_repairs_kernels(engine, k1: dict) -> None:
@@ -4055,6 +4300,26 @@ def q6_minmax_sources(n: int, dev, seed: int = 13) -> tuple:
         MinMaxSource(qty, ("min", "max"), (imax, imin), fo, torch.int32)]
 
 
+def _bits(t):
+    """A float tensor's bits (a NaN equals itself), others as they are."""
+    import torch
+
+    it = {torch.float32: torch.int32, torch.float64: torch.int64}.get(
+        t.dtype)
+    return t if it is None else t.view(it)
+
+
+def max_abs_err(a, b) -> float:
+    """max |a - b| where the bits differ: 0.0 where every element agrees
+    bit for bit (NaN included), inf where a NaN meets a number."""
+    import torch
+
+    if not a.numel():
+        return 0.0
+    d = (a.double() - b.double()).abs().nan_to_num(nan=float("inf"))
+    return float(torch.where(_bits(a) == _bits(b), 0.0, d).max())
+
+
 def k2_shape(label: str, gid, srcs, G: int) -> dict:
     """K2 at one shape, in one launch, against its plain version,
     bit-exact. Times: the kernel, the widening and FOR add it absorbed
@@ -4075,8 +4340,9 @@ def k2_shape(label: str, gid, srcs, G: int) -> dict:
     want = kernels.group_minmax_plain(gid, srcs, G)
     torch.cuda.synchronize()
     pairs = [(a, b) for gs, ws in zip(got, want) for a, b in zip(gs, ws)]
-    err = max(float((a.double() - b.double()).abs().max()) for a, b in pairs)
-    if not all(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs):
+    err = max(max_abs_err(a, b) for a, b in pairs)
+    if not all(a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+               for a, b in pairs):
         raise AssertionError(f"K2 at {label} differs, max abs err {err}")
     del got, want, pairs
     ms = cuda_ms(lambda: ps.group_minmax_sources(gid, srcs, G), 10)
@@ -4262,10 +4528,10 @@ def check_k4(label: str, cand, rows_in, col_arrays, par_arrays, plan) -> dict:
     got_i, got_f = kernels.fused_filter_agg(cand, rows_in, *args)
     want_i, want_f = kernels.fused_filter_agg_plain(cand, rows_in, *args)
     torch.cuda.synchronize()
-    err = float((got_i.long() - want_i.long()).abs().max())
+    err = max_abs_err(got_i, want_i)
     same = torch.equal(got_i, want_i)
     if want_f is not None:
-        err = max(err, float((got_f - want_f).abs().max()))
+        err = max(err, max_abs_err(got_f, want_f))
         same = same and torch.equal(got_f.view(torch.int32),
                                     want_f.view(torch.int32))
     if not same:
@@ -8999,6 +9265,7 @@ def main(argv=None) -> int:
     up = up_generate(args.up_rows) if "up" in need else None
     dims = ms_dims() if "dims" in need else {}
     rep = rep_generate() if "rep" in need else None
+    f11 = f11_generate() if "rep" in need else []
     log(f"generate: {time.perf_counter() - t:.2f} s (with {MV_TABLE}'s MV "
         f"columns over {len(mv)} segments, {EV_TABLE}: {EV_SEGMENTS} x "
         f"{args.event_rows} rows, {V2_TABLE}'s new segment s{S}: "
@@ -9007,6 +9274,7 @@ def main(argv=None) -> int:
         f"{args.rt_rows} + {args.rt_more}, seed {RT_SEED}, {UP_TABLE}: "
         f"3 x {args.up_rows} rows over {UP_KEYS} keys, seed {UP_SEED}, "
         f"{REP_FACT}: {REP_FACT_ROWS if rep else 0} rows, seed {REP_SEED}, "
+        f"{F11_TABLE}: {len(f11)} x {F11_ROWS} rows, seed {F11_SEED}, "
         f"and "
         f"SSB's dimensions, seed {MS_SEED}: "
         + ", ".join(f"{k} {len(next(iter(v.values())))} rows"
@@ -9048,6 +9316,8 @@ def main(argv=None) -> int:
         pending_dims = pool.starmap_async(write_ms_dim, list(dims.items()))
         pending_rep = pool.apply_async(write_rep_tables, (rep,)) \
             if rep is not None else None
+        pending_f11 = pool.starmap_async(write_f11_segment,
+                                         list(enumerate(f11)))
         pending = pool.starmap_async(
             write_segment, [(i, seg, "lineorder", True) for i, seg in
                             enumerate(data if "lo" in need else [])])
@@ -9104,7 +9374,7 @@ def main(argv=None) -> int:
                 ("index", lambda: idx_oracle(ev)),
                 ("values", lambda: val_oracle(data, v2, mv)),
                 ("tail", lambda: tail_oracle(trips, pad)),
-                ("repairs", lambda: rep_oracle(trips, rep)),
+                ("repairs", lambda: rep_oracle(trips, rep, f11)),
                 ("serving", lambda: serve_oracle(data)),
                 ("realtime", lambda: rt_oracle(data, rt, args.rt_rows)),
                 ("realtime", lambda: up_oracle(up, False)),
@@ -9143,6 +9413,7 @@ def main(argv=None) -> int:
         pending_up.get()
         dim_dirs = dict(zip(dims, pending_dims.get()))
         rep_dirs = pending_rep.get() if pending_rep is not None else ()
+        f11_dirs = pending_f11.get()
         log(f"write segments (port creator, {workers} processes, seven "
             f"tables): {time.perf_counter() - t_write:.2f} s, of which the "
             f"two star-tree cubes of lineorder took {sum(cube_s):.2f} s "
@@ -9168,7 +9439,7 @@ def main(argv=None) -> int:
                  "repairs": TRIPS_SEGMENTS * rows,
                  "realtime": total + args.rt_rows}
     dim_schemas = {k: ms_dim_schema(k, v) for k, v in dims.items()}
-    del data, bs_data, mv, ev, v2, trips, dims, rep
+    del data, bs_data, mv, ev, v2, trips, dims, rep, f11
     log(f"numpy oracle: {oracle_s:.2f} s beside the writes, "
         f"{time.perf_counter() - t:.2f} s after them")
 
@@ -9204,6 +9475,8 @@ def main(argv=None) -> int:
         engine.add_segment(name, ImmutableSegment(d))
     if rep_dirs:
         engine.table(REP_DIM).is_dim_table = True
+    for d in f11_dirs:
+        engine.add_segment(F11_TABLE, ImmutableSegment(d))
     rt_seg = None
     if "rt" in need:
         # lineorder_rt: lineorder's sealed segments (the same objects, so
@@ -9304,6 +9577,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if "repairs" in sel:
         check_repairs_kernels(engine, k1)
+        check_f11_kernels(engine, k2, k4)
         torch.cuda.empty_cache()
     if "realtime" in sel:
         check_realtime_kernels(engine, k1, k2, k3, k4, args.up_rows)

@@ -7,13 +7,13 @@ of two trees on one card.
 
 K1 (group plane sums) at q1, q5, q4_no_hll, the wide float shape and the
 sorted HLL build; K3 (HLL register max) at 1024, 35,840 and 2^20 slots;
-K2 (group min/max) at q6's shape; K4 (fused filter + aggregate) at
-bs_month_fused's candidates and at the full candidate bound; K5 (ordered
-cluster sums) at the digest queries' run shapes over integer values and
-over the same values plus 0.5, with a checksum of its output bits so two
-trees' sums can be compared, the clusters each of its regimes summed and
-the one-thread DADD latency that bounds its chain regime
-(``--k5-only``: K5 alone).
+K2 (group min/max) at q6's shape and over two float32 planes; K4
+(fused filter + aggregate) at bs_month_fused's candidates and at the full
+candidate bound; K5 (ordered cluster sums) at the digest queries' run
+shapes over integer values and over the same values plus 0.5, with a
+checksum of its output bits so two trees' sums can be compared, the
+clusters each of its regimes summed and the one-thread DADD latency that
+bounds its chain regime (``--k5-only``: K5 alone).
 
 K1, K2 and K3 changed their inputs over time: K1 read an (A, n) bf16
 channel tensor that torch ops built from the stored planes, K3 int32
@@ -89,6 +89,29 @@ def k2_q6(ps, kernels, n: int, dev) -> None:
            "absorbed_ms": cuda_ms(build, 5) if build else 0.0}
     res["total_ms"] = res["kernel_ms"] + res["absorbed_ms"]
     print(json.dumps(res), flush=True)
+
+
+def k2_f32(ps, kernels, n: int, dev) -> None:
+    """K2 over float32 sources at q6's group ids: one plane with MIN and
+    MAX, one with MAX alone (the float order keys, where a tree that
+    makes a NaN win its op adds a compare and a select per row and
+    cell)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    G = 175
+    gid = torch.randint(0, G + 1, (n,), generator=gen, dtype=torch.int32,
+                        device=dev)
+    fv = torch.randn((n,), generator=gen, device=dev)
+    fw = torch.randn((n,), generator=gen, device=dev)
+    srcs = [kernels.MinMaxSource(fv, ("min", "max"),
+                                 (float("inf"), float("-inf"))),
+            kernels.MinMaxSource(fw, ("max",), (float("-inf"),))]
+
+    def call():
+        return ps.group_minmax_sources(gid, srcs, G)
+    print(json.dumps({"kernel": "K2", "shape": "f32_min_max",
+                      "kernel_ms": cuda_ms(call, 20)}), flush=True)
 
 
 def k4_shapes(ps, kernels, n: int, dev) -> None:
@@ -405,6 +428,8 @@ def main(argv=None) -> int:
     del gids, h, mask, hll_ch, fv, iv
     torch.cuda.empty_cache()
     k2_q6(ps, kernels, n, dev)
+    if hasattr(ps, "group_minmax_sources"):
+        k2_f32(ps, kernels, n, dev)
     k4_shapes(ps, kernels, n, dev)
     if hasattr(kernels, "cluster_sums"):
         k5_shapes(kernels, dev)

@@ -49,8 +49,11 @@
 // any order (the plan keeps every 4096-row partial inside int32, and an
 // int32 atomicAdd wraps as the sum does); MIN/MAX merge on K2's int32
 // order keys (floats by compare-and-swap on the keys of their bits), so
-// the result is bit-identical to the plain version (-0.0 < +0.0; a
-// positive NaN wins MAX and loses MIN).
+// the result is bit-identical to the plain version (-0.0 < +0.0). A NaN
+// of either sign takes the key that wins its aggregate's op (INT32_MIN
+// for MIN, INT32_MAX for MAX, the NaNs 0xffffffff and 0x7fffffff), so it
+// propagates as the TPU kernel's vm.min() / vm.max() do, whatever bits it
+// was made with (ops/agg.py float_keys is the same rule).
 //
 // The member-axis entry (`fused_filter_agg_members`) runs M queries of one
 // template at once, the cohort of coalesced launches: grid y is the
@@ -102,6 +105,13 @@ __host__ __device__ __forceinline__ int elem_size(int dtype) {
 
 __device__ __forceinline__ int32_t order_key(int32_t b) {
   return b ^ ((b >> 31) & 0x7fffffff);
+}
+
+// a float's key for a MIN / MAX aggregate: a NaN the extreme that wins it
+__device__ __forceinline__ int32_t float_key(int32_t b, int op) {
+  if ((b & 0x7fffffff) > 0x7f800000) return op == AGG_MIN ? INT32_MIN
+                                                          : INT32_MAX;
+  return order_key(b);
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -186,7 +196,7 @@ __device__ __forceinline__ void float_extreme(float* out, int op,
   int* p = reinterpret_cast<int*>(out);
   int old = *reinterpret_cast<volatile int*>(p);
   while (true) {
-    const int32_t cur = order_key(old);
+    const int32_t cur = float_key(old, op);
     if (op == AGG_MIN ? key >= cur : key <= cur) return;
     const int prev = atomicCAS(p, old, order_key(key));
     if (prev == old) return;
@@ -356,12 +366,14 @@ fused_kernel(const int32_t* __restrict__ cand,
 #pragma unroll
         for (int k = 0; k < 32; ++k)
           x = combine(AGG_SUM, x, ((mask >> k) & 1u) ? v[k] : 0);
+      } else if (ag.is_float) {
+#pragma unroll
+        for (int k = 0; k < 32; ++k)
+          if ((mask >> k) & 1u) x = combine(ag.op, x, float_key(v[k], ag.op));
       } else {
 #pragma unroll
-        for (int k = 0; k < 32; ++k) {
-          const int32_t key = ag.is_float ? order_key(v[k]) : v[k];
-          if ((mask >> k) & 1u) x = combine(ag.op, x, key);
-        }
+        for (int k = 0; k < 32; ++k)
+          if ((mask >> k) & 1u) x = combine(ag.op, x, v[k]);
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)

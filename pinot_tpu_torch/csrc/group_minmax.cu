@@ -32,9 +32,14 @@
 // kernel launched first writes the fills into the outputs.
 //
 // Floats compare as int32 keys under the order-preserving map
-// k = b ^ ((b >> 31) & 0x7fffffff) of their bits: -NaN < -inf < ... < -0.0
-// < +0.0 < ... < +inf < +NaN. Min and max are exact and order-free, so the
-// result is bit-identical to the plain version, which uses the same keys.
+// k = b ^ ((b >> 31) & 0x7fffffff) of their bits: -inf < ... < -0.0 < +0.0
+// < ... < +inf. A NaN of either sign takes the key that wins its cell's op
+// (INT32_MIN in a MIN cell, INT32_MAX in a MAX cell, which decode to the
+// NaNs 0xffffffff and 0x7fffffff), so a NaN propagates as in the TPU
+// kernel's jnp.minimum / jnp.maximum whatever bits it was made with; the
+// fills are never NaN. A float row's key is formed once per cell. Min and
+// max are exact and order-free, so the result is bit-identical to the
+// plain version, which uses the same keys (ops/agg.py float_keys).
 //
 // The member-axis entry (`group_minmax_members`) runs M queries of one
 // template at once, the cohort of coalesced launches: grid z is the
@@ -84,6 +89,21 @@ struct MinMaxDesc {
 
 __device__ __forceinline__ int32_t order_key(int32_t b) {
   return b ^ ((b >> 31) & 0x7fffffff);
+}
+
+// a float's key in a cell of op `op`: a NaN the extreme that wins it
+__device__ __forceinline__ int32_t float_key(int32_t b, int op) {
+  if ((b & 0x7fffffff) > 0x7f800000) return op == OP_MIN ? INT32_MIN
+                                                         : INT32_MAX;
+  return order_key(b);
+}
+
+// one row's keys into its group's cells (null: the op is not asked),
+// each written only where it improves the cell
+__device__ __forceinline__ void improve(int32_t* amin, int32_t* amax,
+                                        int g, int32_t kmin, int32_t kmax) {
+  if (amin != nullptr && kmin < amin[g]) atomicMin(&amin[g], kmin);
+  if (amax != nullptr && kmax > amax[g]) atomicMax(&amax[g], kmax);
 }
 
 __device__ __forceinline__ int dtype_bytes(int dtype) {
@@ -268,18 +288,22 @@ minmax_kernel(const int32_t* __restrict__ gid, MinMaxDesc d, int64_t n,
       const Source& s = s_src[si];
       int32_t v[kRows];
       load16(s.values, s.dtype, r, cnt, v);
-      const bool is_float = s.dtype == F32;
       const int32_t plus = s_plus[si];
       int32_t* amin = s.cell[OP_MIN] >= 0 ? my + s.cell[OP_MIN] * width
                                           : nullptr;
       int32_t* amax = s.cell[OP_MAX] >= 0 ? my + s.cell[OP_MAX] * width
                                           : nullptr;
+      if (s.dtype == F32) {
 #pragma unroll
-      for (int j = 0; j < kRows; ++j) {
-        if (rel[j] < 0) continue;
-        const int32_t k = is_float ? order_key(v[j]) : v[j] + plus;
-        if (amin != nullptr && k < amin[rel[j]]) atomicMin(&amin[rel[j]], k);
-        if (amax != nullptr && k > amax[rel[j]]) atomicMax(&amax[rel[j]], k);
+        for (int j = 0; j < kRows; ++j)
+          if (rel[j] >= 0)
+            improve(amin, amax, rel[j], float_key(v[j], OP_MIN),
+                    float_key(v[j], OP_MAX));
+      } else {
+#pragma unroll
+        for (int j = 0; j < kRows; ++j)
+          if (rel[j] >= 0) improve(amin, amax, rel[j], v[j] + plus,
+                                   v[j] + plus);
       }
     }
   }

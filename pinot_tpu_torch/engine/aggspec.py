@@ -125,14 +125,16 @@ class MinSpec(AggSpec):
     def host_groups(self, arg_values, group_idx, n):
         v = np.asarray(arg_values[0], dtype=np.float64)
         m = np.full(n, np.inf)
-        np.minimum.at(m, group_idx, v)
+        with np.errstate(invalid="ignore"):   # a NaN propagates, unwarned
+            np.minimum.at(m, group_idx, v)
         return {"min": m}
 
     def empty(self, n):
         return {"min": np.full(n, np.inf)}
 
     def scatter_merge(self, acc, idx, part):
-        np.minimum.at(acc["min"], idx, part["min"])
+        with np.errstate(invalid="ignore"):
+            np.minimum.at(acc["min"], idx, part["min"])
 
     def finalize(self, part):
         return part["min"]
@@ -144,14 +146,16 @@ class MaxSpec(AggSpec):
     def host_groups(self, arg_values, group_idx, n):
         v = np.asarray(arg_values[0], dtype=np.float64)
         m = np.full(n, -np.inf)
-        np.maximum.at(m, group_idx, v)
+        with np.errstate(invalid="ignore"):
+            np.maximum.at(m, group_idx, v)
         return {"max": m}
 
     def empty(self, n):
         return {"max": np.full(n, -np.inf)}
 
     def scatter_merge(self, acc, idx, part):
-        np.maximum.at(acc["max"], idx, part["max"])
+        with np.errstate(invalid="ignore"):
+            np.maximum.at(acc["max"], idx, part["max"])
 
     def finalize(self, part):
         return part["max"]
@@ -187,19 +191,22 @@ class MinMaxRangeSpec(AggSpec):
         v = np.asarray(arg_values[0], dtype=np.float64)
         mn = np.full(n, np.inf)
         mx = np.full(n, -np.inf)
-        np.minimum.at(mn, group_idx, v)
-        np.maximum.at(mx, group_idx, v)
+        with np.errstate(invalid="ignore"):
+            np.minimum.at(mn, group_idx, v)
+            np.maximum.at(mx, group_idx, v)
         return {"min": mn, "max": mx}
 
     def empty(self, n):
         return {"min": np.full(n, np.inf), "max": np.full(n, -np.inf)}
 
     def scatter_merge(self, acc, idx, part):
-        np.minimum.at(acc["min"], idx, part["min"])
-        np.maximum.at(acc["max"], idx, part["max"])
+        with np.errstate(invalid="ignore"):
+            np.minimum.at(acc["min"], idx, part["min"])
+            np.maximum.at(acc["max"], idx, part["max"])
 
     def finalize(self, part):
-        return part["max"] - part["min"]
+        with np.errstate(invalid="ignore"):   # inf - inf
+            return part["max"] - part["min"]
 
 
 class DistinctCountSpec(AggSpec):

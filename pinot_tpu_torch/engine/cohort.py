@@ -105,7 +105,7 @@ def _member(pstack: dict, shared: dict, j: int) -> dict:
 def masked_extreme(values, mask, how: str):
     """Per member, the MIN or MAX of ``values`` where ``mask`` holds: the
     solo launch's ``agg_ops.agg_min`` / ``agg_max`` over each member's
-    rows, floats on the same order keys (so -0.0 < +0.0)."""
+    rows, floats on the same order keys (so -0.0 < +0.0, a NaN wins)."""
     M = mask.shape[0]
     fill = agg_ops._extremes(values.dtype)[0 if how == "min" else 1]
     v = torch.where(mask, values, torch.full((), fill, dtype=values.dtype,
@@ -113,9 +113,9 @@ def masked_extreme(values, mask, how: str):
     v = v.reshape(M, -1)
     if values.dtype not in agg_ops._KEY_INTS:
         return v.amin(dim=1) if how == "min" else v.amax(dim=1)
-    k = agg_ops._float_keys(v)
-    return agg_ops._from_float_keys(k.amin(dim=1) if how == "min"
-                                    else k.amax(dim=1), values.dtype)
+    k = agg_ops.float_keys(v, how)
+    return agg_ops.from_float_keys(k.amin(dim=1) if how == "min"
+                                   else k.amax(dim=1), values.dtype)
 
 
 # ---------------------------------------------------------------------------

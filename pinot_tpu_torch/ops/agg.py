@@ -49,19 +49,33 @@ def _extremes(dtype):
 
 # float MIN / MAX reduce signed-integer order keys of the float bits
 # (-0.0 < +0.0), as K2 and K4 do, so a group or a mask holding both zeros
-# gives the same sign on every route and in any row order
+# gives the same sign on every route and in any row order. A NaN of
+# either sign takes the key that wins the op, as the reference's
+# jnp.minimum / np.minimum.at propagate it: which NaN a backend makes
+# (CUDA's 0x7fffffff, numpy's 0xffc00000) does not move the answer.
+# This is the port's one float order-key rule: the kernels' plain
+# versions (ops/kernels.py), the sorted regime (ops/radix_groupby.py) and
+# the cohorts use it, and csrc/group_minmax.cu / fused_filter_agg.cu
+# compute the same keys.
 _KEY_INTS = {torch.float32: (torch.int32, 31), torch.float64: (torch.int64, 63)}
 
 
-def _float_keys(v):
+def float_keys(v, how: str | None = None):
     """Keys whose signed order is the float order of ``v``'s bits; the
-    map is its own inverse (``_from_float_keys``)."""
+    map is its own inverse (``from_float_keys``). ``how`` ("min" /
+    "amin" or "max" / "amax"): a NaN becomes the least or the greatest
+    key of the dtype, which decodes to a NaN, so it wins that op."""
     it, sh = _KEY_INTS[v.dtype]
     b = v.view(it)
-    return b ^ ((b >> sh) & ((1 << sh) - 1))
+    k = b ^ ((b >> sh) & ((1 << sh) - 1))
+    if how is None:
+        return k
+    info = torch.iinfo(it)
+    return torch.where(torch.isnan(v),
+                       info.min if how.endswith("min") else info.max, k)
 
 
-def _from_float_keys(k, dtype):
+def from_float_keys(k, dtype):
     _it, sh = _KEY_INTS[dtype]
     return (k ^ ((k >> sh) & ((1 << sh) - 1))).view(dtype)
 
@@ -72,9 +86,9 @@ def _masked_extreme(values, mask, how: str):
                                             device=values.device))
     if values.dtype not in _KEY_INTS:
         return v.min() if how == "min" else v.max()
-    k = _float_keys(v)
-    return _from_float_keys(k.min() if how == "min" else k.max(),
-                            values.dtype)
+    k = float_keys(v, how)
+    return from_float_keys(k.min() if how == "min" else k.max(),
+                           values.dtype)
 
 
 # ---- scalar (non-group-by) aggregations over a mask -----------------------
@@ -115,10 +129,10 @@ def _group_reduce(gids, values, num_groups: int, how: str, init):
     v = values.reshape(-1)
     out = torch.full((num_groups + 1,), init, dtype=v.dtype, device=v.device)
     if v.dtype in _KEY_INTS:
-        keys = _float_keys(out)
-        keys.scatter_reduce_(0, flat, _float_keys(v), reduce=how,
+        keys = float_keys(out)
+        keys.scatter_reduce_(0, flat, float_keys(v, how), reduce=how,
                              include_self=True)
-        return _from_float_keys(keys, v.dtype)[:num_groups]
+        return from_float_keys(keys, v.dtype)[:num_groups]
     out.scatter_reduce_(0, flat, v, reduce=how, include_self=True)
     return out[:num_groups]
 

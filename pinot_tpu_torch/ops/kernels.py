@@ -40,6 +40,7 @@ import time
 import numpy as np
 import torch
 
+from pinot_tpu_torch.ops import agg as agg_ops
 from pinot_tpu_torch.ops.blockskip import gather_blocks
 from pinot_tpu_torch.ops.hll import hll_slots
 
@@ -487,26 +488,26 @@ class MinMaxSource:
                                _default_fills(self.ops, self.dtype))
 
 
-def _order_keys(v):
+def _order_keys(v, how: str | None = None):
     """int32 keys whose signed order is the float order of ``v``'s bits
-    (-NaN < -inf < ... < -0.0 < +0.0 < ... < +inf < +NaN); the map is its
-    own inverse. Integer values are their own keys."""
+    (-inf < ... < -0.0 < +0.0 < ... < +inf), a NaN of either sign the key
+    that wins ``how`` ("min" / "max"): ``ops/agg.py float_keys``, the rule
+    K2 and K4 compute in registers. Without ``how``, the bare map (its own
+    inverse). Integer values are their own keys."""
     if not v.is_floating_point():
         return v
-    b = v.view(torch.int32)
-    return b ^ ((b >> 31) & 0x7FFFFFFF)
+    return agg_ops.float_keys(v, how)
 
 
 def _from_keys(k, dtype):
     if not dtype.is_floating_point:
         return k
-    return (k ^ ((k >> 31) & 0x7FFFFFFF)).view(torch.float32)
+    return agg_ops.from_float_keys(k, torch.float32)
 
 
 def _fill_key(fill, dtype) -> int:
     if dtype.is_floating_point:
-        b = int(np.array(fill, dtype=np.float32).view(np.int32))
-        return b ^ ((b >> 31) & 0x7FFFFFFF)
+        return int(agg_ops.float_keys(torch.tensor(fill, dtype=torch.float32)))
     return int(fill)
 
 
@@ -537,13 +538,12 @@ def group_minmax_plain(gid, sources, num_groups: int):
     res = []
     for s in sources:
         v = minmax_decode(s)
-        keys = _order_keys(v).to(torch.int32)
         outs = []
         for op, fill in zip(s.ops, s.fills):
             out = torch.full((num_groups + 1,), _fill_key(fill, s.dtype),
                              dtype=torch.int32, device=v.device)
-            out.scatter_reduce_(0, g, keys, reduce="a" + op,
-                                include_self=True)
+            out.scatter_reduce_(0, g, _order_keys(v, op).to(torch.int32),
+                                reduce="a" + op, include_self=True)
             outs.append(_from_keys(out[:num_groups], s.dtype).to(s.dtype))
         res.append(tuple(outs))
     return tuple(res)
@@ -835,8 +835,9 @@ def fused_filter_agg_plain(cand, rows_in, cols, lits, prog, aggs,
                                                         dtype=torch.int32)
             continue
         dt = torch.float32 if is_float else torch.int32
-        keys = torch.where(mask, _order_keys(v), _fill_key(fill, dt))
-        red = keys.amin(dim=1) if op == AGG_OPS["min"] else keys.amax(dim=1)
+        how = "min" if op == AGG_OPS["min"] else "max"
+        keys = torch.where(mask, _order_keys(v, how), _fill_key(fill, dt))
+        red = keys.amin(dim=1) if how == "min" else keys.amax(dim=1)
         if is_float:
             flts[:, slot] = _from_keys(red, dt)
         else:

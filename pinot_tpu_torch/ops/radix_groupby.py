@@ -43,6 +43,8 @@ from __future__ import annotations
 
 import torch
 
+from pinot_tpu_torch.ops import agg as agg_ops
+
 INT32_SENTINEL = (1 << 31) - 1   # masked/padded rows: sorts after real keys
 INT64_SENTINEL = (1 << 63) - 1   # the same for the int64 basis, and empties
 MAX_KEYSPACE_32 = (1 << 31) - 1  # int32 keys stay strictly below the sentinel
@@ -55,9 +57,6 @@ MIN_COMPACT_RATIO = 4         # chunking pays only when E <= L / this
 HLL_COMPACT_RATIO = 2         # the HLL dedup keeps one entry per slot per
                               # chunk and iterates, so even a 2x shrink per
                               # pass converges in O(log) passes
-
-_I64 = torch.iinfo(torch.int64)
-_LOW63 = (1 << 63) - 1
 
 
 def _sentinel_for(dtype) -> int:
@@ -118,25 +117,17 @@ def _boundaries(sk):
     return is_start, is_end
 
 
-def _float_keys(v):
-    """int64 keys whose signed order is the order of float64 ``v``'s bits
-    (-0.0 below +0.0); the map is its own inverse."""
-    b = v.view(torch.int64)
-    return b ^ ((b >> 63) & _LOW63)
-
-
 def _from_float_keys(k):
-    return (k ^ ((k >> 63) & _LOW63)).view(torch.float64)
+    return agg_ops.from_float_keys(k, torch.float64)
 
 
 def _extreme_keys(v, how: str):
     """The int64 operand MIN / MAX scans reduce: integers widened, floats
-    their order keys with a NaN the extreme that wins ``how``."""
+    their float64 order keys with a NaN the extreme that wins ``how``
+    (``ops/agg.py float_keys``)."""
     if not v.is_floating_point():
         return v.to(torch.int64)
-    k = _float_keys(v.to(torch.float64))
-    win = _I64.min if how == "min" else _I64.max
-    return torch.where(torch.isnan(v), torch.full_like(k, win), k)
+    return agg_ops.float_keys(v.to(torch.float64), how)
 
 
 def _scan(values, is_start, op):

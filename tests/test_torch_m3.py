@@ -334,6 +334,13 @@ def _rt2o_table(mod, controller):
         topic.publish_json({"kind": f"k{ts % 3}", "v": 1, "ts": ts})
 
 
+def _committed_rows(mod, registry, table: str) -> int:
+    """Rows of ``table``'s committed segments: ONLINE, with their
+    deep-store copy."""
+    return sum(r.n_docs for r in registry.segments(table).values()
+               if r.state == mod.SegmentState.ONLINE and r.location)
+
+
 def _run_task(side: str, tmp, task: str) -> list:
     """One minion task through ``side``'s cluster (test_minion.py's
     fixture and tables; the port's on the CPU) → the output segments'
@@ -346,9 +353,12 @@ def _run_task(side: str, tmp, task: str) -> list:
             if task == "rt2o":
                 _rt2o_table(mod, controller)
                 table = "events_OFFLINE"
-                assert mod.wait_until(lambda: any(
-                    r.state == mod.SegmentState.ONLINE for r in
-                    registry.segments("events_REALTIME").values()), 20)
+                # the task reads committed segments only: wait until all
+                # 250 rows are committed (in as many segments as the
+                # consumer's batches made), not for rows that a consuming
+                # segment answers
+                assert mod.wait_until(lambda: _committed_rows(
+                    mod, registry, "events_REALTIME") == 250, 20)
                 assert mod.wait_until(lambda: mod._rows(
                     broker, "SELECT COUNT(*) FROM events") == [[250]], 20)
                 now_ms = 10_000

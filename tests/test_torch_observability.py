@@ -4,6 +4,8 @@ tests/test_observability.py replayed through the harness of
 test_torch_cluster.py.
 """
 
+import sys
+
 import pytest
 
 from test_torch_cluster import (  # noqa: F401
@@ -12,6 +14,15 @@ from test_torch_cluster import (  # noqa: F401
     port_swap,
     replay,
 )
+
+
+@pytest.fixture(autouse=True)
+def _fresh_plugin_module(monkeypatch):
+    """TestPluginRegistry's case writes and imports a plugin module named
+    ``my_plugin``; one that tests/test_observability.py imported earlier
+    in this process is cached against the reference's registry, so each
+    case imports its own."""
+    monkeypatch.delitem(sys.modules, "my_plugin", raising=False)
 
 
 @pytest.fixture(scope="module", autouse=True)
