@@ -219,13 +219,17 @@ Phases, all on ``cuda:0``:
    CAS. K1-K4 are held against their plain versions at the path's
    captured inputs (``check_realtime_kernels``: the sealed batch, the
    chunklet batch and the masked segments in the host path's shape).
-   The path's queries (q1, q2, a month in K4's fused form, q4's HLL forms,
-   q6, COUNT(*), IS NULL, a selection ORDER BY; q1's and q6's shapes and
-   COUNT(*) on lineorder_up) must equal a numpy oracle over all the rows
-   (latest-wins for the upsert table), stats included. Then each query's
-   launches by part (sealed batch, chunklet batch, tail, masked sealed,
-   dirty chunklet, a consuming segment run whole) with a traced run's
-   device time and busy share; the tail alone in the host path's shape;
+   The path's queries (q1, q2, a month in K4's fused form, the same month
+   as F12's shape: a scalar SUM / MIN / MAX over d_year and lo_orderdate,
+   stored with frame-of-reference offsets, K4's partial over the
+   chunklets merged with the sealed batch's and the tail's; q4's HLL
+   forms, q6, COUNT(*), IS NULL, a selection ORDER BY; q1's and q6's
+   shapes and COUNT(*) on lineorder_up) must equal a numpy oracle over all
+   the rows (latest-wins for the upsert table), stats included. Then each
+   query's launches by part (sealed batch, chunklet batch, tail, masked
+   sealed, dirty chunklet, a consuming segment run whole) with a traced
+   run's device time and busy share; the tail alone in the host path's
+   shape;
    ``--rt-more`` (500,000) more rows indexed by a writer thread while q1
    and COUNT(*) / SUM run 20 times each, every answer equal to the
    oracle at one published count between the counts read before and
@@ -340,8 +344,12 @@ Phases, all on ``cuda:0``:
    every server. SSB q1-q6, a scalar and a grouped DISTINCTCOUNTHLL,
    bs_month_fused and the same over a week (K4 under a server: the
    broker sends only the week's segment), q1 over the sorted copy (two
-   servers' partials merged), PERCENTILE (K5) and ms_nation_region's
-   star join over a week (stage 2 at the broker) are posted as SQL to
+   servers' partials merged), F12's shape over the week around the first
+   date of lineorder_by_date's second segment (its first two segments sit
+   on the two servers: K4 once under each, both matching rows, the
+   broker merging the two partials), PERCENTILE (K5) and
+   ms_nation_region's star join over a week (stage 2 at the broker) are
+   posted as SQL to
    ``/query/sql``, each equal to its oracle with the broker's stats,
    then an EXPLAIN and a day's selection streamed from
    ``/query/sql/stream``; each query's p50 through the front door and
@@ -740,6 +748,13 @@ QUERY_LAUNCHES = {
     # the host path's shape over the kept groups: COUNT and SUM in one K1
     "hc_overflow": {"group_plane_sums": 1},
     "st_sumprec_region": {"group_plane_sums": 1},
+    # K4 on the chunklet batch; the unsorted sealed batch takes the dense
+    # form and the tail the host path's shape, neither with a kernel
+    "rt_f12_month": {"fused_filter_agg": 1, "group_plane_sums": 0,
+                     "group_minmax": 0, "hll_register_max": 0},
+    # K4 under each server, nothing at the broker
+    "cl_f12_week": {"fused_filter_agg": 2, "group_plane_sums": 0,
+                    "group_minmax": 0, "hll_register_max": 0},
 }
 
 
@@ -4947,6 +4962,13 @@ UP_NEWER = 19990101     # the wave's lo_orderdate: past every drawn date
 LO_COLS = ("d_year", "c_region", "s_nation", "lo_suppkey", "lo_custkey",
            "lo_orderdate", "lo_discount", "lo_quantity", "lo_revenue")
 
+# F12's shape: a scalar SUM / MIN / MAX over INT columns stored with a
+# frame-of-reference offset. K4 declines SUM(lo_orderdate), whose
+# per-block int32 partial could overflow (19,981,231 x 4,096 > 2^31), so
+# the SUM reads d_year, which K4 takes
+F12_SQL = ("SELECT COUNT(*), SUM(d_year), MIN(lo_orderdate), "
+           "MAX(lo_orderdate) FROM {t} WHERE lo_orderdate BETWEEN {lo} "
+           "AND {hi}")
 _RT_Q1 = ("SET useStarTree = false; "
           "SELECT lo_suppkey, SUM(lo_revenue) FROM {t} "
           "GROUP BY lo_suppkey ORDER BY SUM(lo_revenue) DESC, lo_suppkey "
@@ -4963,6 +4985,10 @@ RT_QUERIES = {
     "rt_q2": QUERIES["q2_range_sum"].replace("lineorder", RT_TABLE),
     "rt_month_fused": BS_QUERIES["bs_month_fused"].replace(BS_TABLE,
                                                            RT_TABLE),
+    # F12: K4's scalar leaves over frame-of-reference planes (d_year: u8
+    # plus 1992, lo_orderdate: u16 plus its first date) on the chunklets,
+    # merged with the sealed batch's and the tail's partials
+    "rt_f12_month": F12_SQL.format(t=RT_TABLE, lo=19930301, hi=19930328),
     "rt_q4_hll": "SET useStarTree = false; " + Q4_HLL.replace(
         "lineorder", RT_TABLE),
     "rt_hll_scalar": HLL_QUERIES["hll_scalar"].replace("lineorder",
@@ -5114,6 +5140,12 @@ def _q6_rows(c: dict, m) -> list:
             for k in range(175) if cnt[k]]
 
 
+def f12_rows(year, od, m) -> list:
+    """F12_SQL's row over the rows ``m`` selects."""
+    return [[int(m.sum()), float(year[m].astype(np.int64).sum()),
+             float(od[m].min()), float(od[m].max())]]
+
+
 def rt_oracle(data: list, rt: dict, n: int) -> dict:
     """lineorder_rt's answers over lineorder's rows and the first ``n``
     consuming rows, each (rows, numDocsScanned, {"totalDocs": ...}), and
@@ -5133,6 +5165,8 @@ def rt_oracle(data: list, rt: dict, n: int) -> dict:
     want["rt_month_fused"] = ([[int(m.sum()), float(qty[m].sum()),
                                 float(rev[m].min()), float(rev[m].max())]],
                               int(m.sum()), extra)
+    want["rt_f12_month"] = (f12_rows(c["d_year"], od, m), int(m.sum()),
+                            extra)
     cnt = np.bincount(supp, minlength=2000)
     qs = np.bincount(supp, weights=qty.astype(np.int64), minlength=2000)
     idx, rho = hll_idx_rho(fmix32(c["lo_custkey"]), LOG2M)
@@ -5490,9 +5524,10 @@ def check_realtime_kernels(engine, k1: dict, k2: dict, k3: dict,
     their entries and held against their plain versions: rt_q1's and
     up_q1's group sums (the sealed batch, the chunklet batch, the masked
     sealed segments in the host path's shape), rt_q6's and up_q6's
-    min/max sources, rt_q4_hll's registers and rt_month_fused's
-    candidates over the chunklets. lineorder_up's segments reach the
-    kernels only at ``up_rows`` past K1's gate (a rehearsal's do not)."""
+    min/max sources, rt_q4_hll's registers and rt_month_fused's and
+    rt_f12_month's candidates over the chunklets. lineorder_up's segments
+    reach the kernels only at ``up_rows`` past K1's gate (a rehearsal's do
+    not)."""
     from pinot_tpu_torch.ops import group_scatter as ps
     from pinot_tpu_torch.ops import groupby_mm as mm
 
@@ -5517,11 +5552,12 @@ def check_realtime_kernels(engine, k1: dict, k2: dict, k3: dict,
         k3["sizes"].append(k3_held(
             h, gid, G, log2m, kw.get("mask"), f"rt_q4_hll, n={h.numel()}",
             mm_registers(mm, h, gid, G, log2m, kw.get("mask"))))
-    for args, _kw in capture_calls(engine, RT_QUERIES["rt_month_fused"], ps,
-                                   "fused_filter_agg"):
-        k4["sizes"].append(check_k4(
-            f"the realtime path's rt_month_fused, {args[0].numel()} "
-            "candidates", *args))
+    for name in ("rt_month_fused", "rt_f12_month"):
+        for args, _kw in capture_calls(engine, RT_QUERIES[name], ps,
+                                       "fused_filter_agg"):
+            k4["sizes"].append(check_k4(
+                f"the realtime path's {name}, {args[0].numel()} "
+                "candidates", *args))
 
 
 def run_realtime(engine, seg, stream, offset, more: dict, want: dict,
@@ -7804,6 +7840,7 @@ CL_QUERIES = {
         MS_MONTH, "lo.lo_orderdate BETWEEN %d AND %d" % CL_WEEK),
 }
 CL_EXPLAIN = "EXPLAIN PLAN FOR " + QUERIES["q6_minmax"]
+
 CL_STREAM = (f"SELECT lo_suppkey, lo_revenue FROM {BS_TABLE} "
              f"WHERE lo_orderdate = {CL_DAY} LIMIT 1000000")
 CL_RT_QUERIES = {
@@ -7818,6 +7855,17 @@ CL_KERNELS = ("group_plane_sums", "group_minmax", "hll_register_max",
 CL_STATS = ("numEntriesScannedInFilter", "numBlocksPruned",
             "numJoinedRows", "leafRows")
 BATCH_STATS = ("numEntriesScannedInFilter", "numBlocksPruned")
+
+
+def cl_f12_week(first: int) -> tuple:
+    """cl_f12_week's range: the week around ``first`` (yyyymmdd), the
+    first date of lineorder_by_date's second segment. Its first two
+    segments sit on the two servers (replication 1, least loaded first),
+    so each server answers the week with a K4 partial of its own and the
+    broker merges them (CL_WEEK lies inside one segment)."""
+    day = np.datetime64(f"{first // 10000:04d}-{first // 100 % 100:02d}-"
+                        f"{first % 100:02d}")
+    return tuple(int(str(d).replace("-", "")) for d in (day - 3, day + 3))
 
 
 def cl_oracle(data: list, bs_data: list, dims: dict, pad: int,
@@ -7861,6 +7909,11 @@ def cl_oracle(data: list, bs_data: list, dims: dict, pad: int,
     r = np.concatenate([d["lo_revenue"] for d in bs_data])[m]
     out["cl_week_fused"] = ([[int(m.sum()), float(qty.sum()),
                               float(r.min()), float(r.max())]], int(m.sum()))
+    if len(bs_data) > 1:
+        lo, hi = cl_f12_week(int(bs_data[1]["lo_orderdate"].min()))
+        m = (od >= lo) & (od <= hi)
+        year = np.concatenate([d["d_year"] for d in bs_data])
+        out["cl_f12_week"] = (f12_rows(year, od, m), int(m.sum()))
     return out
 
 
@@ -8149,6 +8202,48 @@ def cl_timing(rec: dict) -> str:
     return f"no timed run, the checked (first) one {rec['first_ms']:.3f} ms"
 
 
+def cl_f12_sql(registry, bs_dirs) -> str:
+    """cl_f12_week's SQL over the week ``cl_f12_week`` names, once
+    lineorder_by_date's first two segments are seen on two servers."""
+    from pinot_tpu_torch.storage.segment import ImmutableSegment
+
+    first, second = (ImmutableSegment(d) for d in bs_dirs[:2])
+    where = registry.assignment(f"{BS_TABLE}_OFFLINE")
+    if where[first.name] == where[second.name]:
+        raise AssertionError(f"cluster: {BS_TABLE}'s {first.name} and "
+                             f"{second.name} both on {where[first.name]}")
+    lo, hi = cl_f12_week(int(
+        second.column_metadata("lo_orderdate").min_value))
+    return F12_SQL.format(t=BS_TABLE, lo=lo, hi=hi)
+
+
+def cl_launches(name: str, resp: dict, tables: dict, per_role: dict,
+                before: tuple) -> None:
+    """A cluster query's launches in its checked execution against
+    QUERY_LAUNCHES; for cl_f12_week, K4 once under each server, whose
+    segments both matched rows."""
+    if name not in QUERY_LAUNCHES:
+        return
+    kernels0, roles0 = before
+    for kname, count in QUERY_LAUNCHES[name].items():
+        made = tables["kernels"][kname] - kernels0[kname]
+        if made != count:
+            raise AssertionError(f"cluster {name}: {made} launches of "
+                                 f"{kname} in one execution, want {count}")
+    if name == "cl_f12_week":
+        k4 = {r: c["fused_filter_agg"] - roles0[r]["fused_filter_agg"]
+              for r, c in per_role.items()}
+        if k4.pop("broker") or sorted(k4.values()) != [1] * len(k4) \
+                or resp["numSegmentsMatched"] != len(k4) \
+                or resp["numServersResponded"] != len(k4):
+            raise AssertionError(f"cluster {name}: K4 launches by role "
+                                 f"{k4}, {resp['numSegmentsMatched']} "
+                                 f"segments matched, "
+                                 f"{resp['numServersResponded']} servers")
+        log(f"cluster {name}: K4 once under each server {json.dumps(k4)}, "
+            f"{resp['numSegmentsMatched']} segments matched rows")
+
+
 def cl_kernels(front, k1: dict, k2: dict, k3: dict, k4: dict, k5: dict,
                chain_ns: float) -> None:
     """K1-K5 at the inputs the servers' engines (and the broker's stage
@@ -8186,6 +8281,11 @@ def cl_kernels(front, k1: dict, k2: dict, k3: dict, k4: dict, k5: dict,
     k4["sizes"].append(check_k4(
         "the cluster's cl_week_fused",
         *capture_fused(front, CL_QUERIES["cl_week_fused"])))
+    if "cl_f12_week" in CL_QUERIES:
+        for j, (args, _kw) in enumerate(capture_calls(
+                front, CL_QUERIES["cl_f12_week"], ps, "fused_filter_agg")):
+            k4["sizes"].append(check_k4(
+                f"the cluster's cl_f12_week, server call {j}", *args))
     (args, _kw), = capture_calls(front, CL_QUERIES["pct_scalar"], kernels,
                                  "cluster_sums")
     k5["sizes"].append(check_k5("the cluster's pct_scalar", *args,
@@ -8268,12 +8368,18 @@ def run_cluster(engine, dirs, bs_dirs, dim_dirs, dim_schemas: dict,
             with count_roles(servers) as roles, spy_broker() as spy:
                 tables = launch_tables()
                 queries = {}
+                if "cl_f12_week" in want:
+                    CL_QUERIES["cl_f12_week"] = cl_f12_sql(registry, bs_dirs)
                 for name, sql in CL_QUERIES.items():
                     spy.reset()
+                    before = (dict(tables["kernels"]),
+                              {r: dict(c) for r, c in roles.per.items()})
                     t = time.perf_counter()
                     resp = front.execute(sql)
                     first_ms = (time.perf_counter() - t) * 1e3
                     cl_check(name, resp, want, total)
+                    if on_card:
+                        cl_launches(name, resp, tables, roles.per, before)
                     reduce_ms, dt_bytes = spy.reduce_s * 1e3, spy.bytes
                     times = []
                     for _ in range(TIMED_RUNS.get(name, runs)):

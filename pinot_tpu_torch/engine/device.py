@@ -728,8 +728,9 @@ def _fused_outs(plan, ints, flts, params, widths, outs) -> None:
     """K4's per-candidate partials → the dense form's leaves, in place.
     K4 aggregates STORAGE values; decode applies at answer scale —
     Σ(v + fo) = Σv + fo·n and min(v + fo) = min(v) + fo are exact — and
-    an empty int extreme takes the wide dtype's fill, so dtypes and
-    values equal the dense form's."""
+    an empty int extreme takes the wide dtype's fill, so shapes, dtypes
+    and values equal the dense form's: every leaf is 0-d, as the
+    ``fo::`` offset and the count are."""
     dc = outs["doc_count"]
     for (i, op, ck, buf, slot, _fill) in plan.aggs:
         key = f"a{i}_{op}"

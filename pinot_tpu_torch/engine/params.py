@@ -170,7 +170,11 @@ def _pack_subbyte_np(blocks: np.ndarray, bits: int) -> np.ndarray:
 
 
 def to_device(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    """``a`` on ``device`` in its own shape, 0-d included, as the
+    reference's ``jnp.asarray`` keeps it: a 0-d frame-of-reference offset
+    must stay 0-d, or K4's scalar leaves gain an axis and their partials
+    no longer merge with another's."""
+    return torch.from_numpy(np.asarray(a, order="C")).to(device)
 
 
 def _locked(build):
