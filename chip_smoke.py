@@ -145,6 +145,9 @@ Phases, all on ``cuda:0``:
    host path's, and as a scalar, and over ``f11_sorted`` (2 x 1,000,000
    rows from seed 113, a FLOAT and a DOUBLE column holding NaN of both
    signs and +-inf) a month's range each on K4 and a group-by on K2;
+   F13: ``store_and_fwd_flag`` (N / Y on a u8 plane padded with the id
+   2) compared with a literal in a CASE under SUM and COUNT by payment
+   type, as a group key and in a WHERE over a CASE, all rows;
    each answer of the oracle's Python type, MIN, MAX, counts and
    SUMPRECISION bit for bit (a NaN as a NaN) and the sums within 1e-9 of
    ``math.fsum``; K1 held at its captured inputs,
@@ -347,7 +350,9 @@ Phases, all on ``cuda:0``:
    servers' partials merged), F12's shape over the week around the first
    date of lineorder_by_date's second segment (its first two segments sit
    on the two servers: K4 once under each, both matching rows, the
-   broker merging the two partials), PERCENTILE (K5) and
+   broker merging the two partials), F13's ``SUM(CASE WHEN c_region =
+   'MIDEAST' ...)`` by d_year (K1 once under each server answering),
+   PERCENTILE (K5) and
    ms_nation_region's star join over a week (stage 2 at the broker) are
    posted as SQL to
    ``/query/sql``, each equal to its oracle with the broker's stats,
@@ -755,6 +760,11 @@ QUERY_LAUNCHES = {
     # K4 under each server, nothing at the broker
     "cl_f12_week": {"fused_filter_agg": 2, "group_plane_sums": 0,
                     "group_minmax": 0, "hll_register_max": 0},
+    # the host path's shape: its group count and the integer sum in one K1
+    # launch under each server that answers (``cl_launches``), none at the
+    # broker
+    "cl_f13_case": {"group_minmax": 0, "fused_filter_agg": 0,
+                    "hll_register_max": 0},
 }
 
 
@@ -2782,6 +2792,32 @@ QUERY_LAUNCHES.update({
     "rep_f11_groups": {"group_plane_sums": 1, "group_minmax": 1},
 })
 
+# F13 (ROADMAP queue 3): a dictionary STRING column compared with a string
+# literal outside a filter. ``store_and_fwd_flag`` holds N and Y, so C = 2
+# on a u8 plane, and each segment pads to a multiple of 4,096 rows with
+# the id 2, where the comparison's lookup table was gathered. COUNT of an
+# expression counts every row, as the reference's
+REP_QUERIES.update({
+    "rep_f13_case": (f"SELECT payment_type, SUM(CASE WHEN store_and_fwd_flag "
+                     f"= 'Y' THEN fare_amount ELSE 0 END), COUNT(CASE WHEN "
+                     f"store_and_fwd_flag = 'N' THEN 1 END) FROM "
+                     f"{TRIPS_TABLE} GROUP BY payment_type ORDER BY "
+                     f"payment_type"),
+    "rep_f13_key": (f"SELECT store_and_fwd_flag < 'Y', COUNT(*) FROM "
+                    f"{TRIPS_TABLE} GROUP BY store_and_fwd_flag < 'Y' "
+                    f"ORDER BY 1"),
+    "rep_f13_where": (f"SELECT COUNT(*) FROM {TRIPS_TABLE} WHERE CASE WHEN "
+                      f"store_and_fwd_flag = 'Y' THEN passenger_count ELSE 0 "
+                      f"END > 2"),
+})
+# the host path's shape: a group-by's count one K1 launch (the DOUBLE
+# fare's sum none), the scalar count a torch reduction
+QUERY_LAUNCHES.update({
+    "rep_f13_case": {"group_plane_sums": 1, "group_minmax": 0},
+    "rep_f13_key": {"group_plane_sums": 1, "group_minmax": 0},
+    "rep_f13_where": {"group_plane_sums": 0, "group_minmax": 0},
+})
+
 
 def rep_generate(seed: int = REP_SEED) -> dict:
     """The stage-2 fact (``REP_FACT_ROWS`` LONG values in [2^60, 2^61)
@@ -2913,7 +2949,37 @@ def rep_oracle(trips: list, rep: dict, f11: list) -> dict:
     want.update(rep_oracle_f6_f10(trips, c, pay_keys, pay_groups, groups,
                                   big, join_stats))
     want.update(rep_oracle_f11(trips, c, pay_groups, f11))
+    want.update(rep_oracle_f13(trips))
     return want
+
+
+def rep_oracle_f13(trips: list) -> dict:
+    """The F13 queries' answers over every row of ``trips``: the fares of
+    the Y rows summed by ``math.fsum``, counts exact."""
+    import math
+
+    pay = np.concatenate([d["payment_type"] for d in trips])
+    flag = np.concatenate([d["store_and_fwd_flag"] for d in trips]) == 1
+    fare = np.concatenate([d["fare_amount"] for d in trips])
+    pc = np.concatenate([d["passenger_count"] for d in trips])
+    n = len(pay)
+    keys, inv = np.unique(pay, return_inverse=True)
+    order, cuts = _groups(inv, len(keys))
+    rows = []
+    for g, k in enumerate(keys):
+        rg = order[cuts[g]:cuts[g + 1]]
+        rows.append([int(k), math.fsum(fare[rg][flag[rg]].tolist()),
+                     len(rg)])
+    n_y = int(flag.sum())
+    hit = int((flag & (pc > 2)).sum())
+    return {
+        "rep_f13_case": (_rep_checker("rep_f13_case", rows, 1,
+                                      (False, True)), n),
+        "rep_f13_key": (_rep_checker("rep_f13_key", [[False, n_y],
+                                                     [True, n - n_y]], 1,
+                                     (True,)), n),
+        "rep_f13_where": (_rep_checker("rep_f13_where", [[hit]], 0,
+                                       (True,)), hit)}
 
 
 def rep_oracle_f6_f10(trips: list, c: dict, pay_keys, pay_groups,
@@ -3948,6 +4014,31 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cold_event_ms(fn, reps: int, flush_bytes: int = 512 << 20) -> float:
+    """Mean time of one ``fn`` call from CUDA events recorded around it
+    alone, behind a write of ``flush_bytes`` that evicts the 50 MB L2
+    cache: each call reads its inputs from device memory, and the host
+    enqueues it while the write runs, so the events time the device's
+    work, not the wrapper's host time (which CUDA events around
+    back-to-back calls of a microsecond kernel measure)."""
+    import torch
+
+    flush = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
 def bound_ms(nbytes: float, ops: float) -> tuple:
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
@@ -4531,8 +4622,10 @@ def gather_branch(cand, rows_in, col_arrays, par_arrays, plan):
 
 def check_k4(label: str, cand, rows_in, col_arrays, par_arrays, plan) -> dict:
     """K4 against its plain version on one set of candidates, bit-exact;
-    kernel device time (profiler), the plain version's and the generic
-    gathered form's (CUDA events), and the bytes bound: each candidate
+    kernel device time (profiler; a warm L2 after the first of its
+    back-to-back calls), the kernel's from a cold L2 (``cold_event_ms``),
+    the plain version's and the generic gathered form's (CUDA events),
+    and the bytes bound: each candidate
     row that holds data read once per plane, candidate ids and row counts
     read, the per-candidate partials written."""
     import torch
@@ -4562,6 +4655,7 @@ def check_k4(label: str, cand, rows_in, col_arrays, par_arrays, plan) -> dict:
 
     event_ms = cuda_ms(call, 20)
     dev_ms = kernel_device_ms(call, 20, "fused_kernel")
+    cold_ms = cold_event_ms(call, 20)
     plain_ms = cuda_ms(lambda: kernels.fused_filter_agg_plain(
         cand, rows_in, *args), 3)
     lib_ms = cuda_ms(lambda: gather_branch(cand, rows_in, col_arrays,
@@ -4578,12 +4672,14 @@ def check_k4(label: str, cand, rows_in, col_arrays, par_arrays, plan) -> dict:
                      f"({', '.join(str(c.dtype).replace('torch.', '') for c in cols)}), "
                      f"{len(prog)} instructions, {len(aggs)} aggregates",
                max_abs_err=err, ms=dev_ms if dev_ms is not None else event_ms,
-               call_ms=event_ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+               call_ms=event_ms, cold_ms=cold_ms, plain_ms=plain_ms,
+               bound_ms=b, bound_by=by,
                library_ms=lib_ms,
                library_is="the port's generic gathered form (no single "
                           "PyTorch call computes K4's function)")
     log(f"K4 {res['shape']}: kernel {res['ms']:.4f} ms (device, profiler), "
-        f"call {event_ms:.4f} ms (CUDA events), plain {plain_ms:.4f} ms, "
+        f"call {event_ms:.4f} ms (CUDA events), {cold_ms:.4f} ms from a "
+        f"cold L2 (CUDA events), plain {plain_ms:.4f} ms, "
         f"gathered form {lib_ms:.4f} ms, bound {b:.4f} ms, bit-exact")
     return res
 
@@ -7838,6 +7934,11 @@ CL_QUERIES = {
     # the CPU), so a month's 1.19M rows would take ~10 s a query
     "cl_star_week": MS_QUERIES["ms_nation_region"].replace(
         MS_MONTH, "lo.lo_orderdate BETWEEN %d AND %d" % CL_WEEK),
+    # F13 under each server: c_region's five values on a u8 plane, where
+    # 'MIDEAST', the last, is the value a clamped pad row reads
+    "cl_f13_case": ("SELECT d_year, SUM(CASE WHEN c_region = 'MIDEAST' THEN "
+                    "lo_revenue ELSE 0 END) FROM lineorder GROUP BY d_year "
+                    "ORDER BY d_year"),
 }
 CL_EXPLAIN = "EXPLAIN PLAN FOR " + QUERIES["q6_minmax"]
 
@@ -7899,6 +8000,15 @@ def cl_oracle(data: list, bs_data: list, dims: dict, pad: int,
         qty[week], tot)
     q1 = want.get("q1_scan_agg") or oracle(data)["q1_scan_agg"]
     out["cl_bs_q1"] = q1
+    year = np.concatenate([d["d_year"] for d in data])
+    mideast = np.concatenate([d["c_region"] for d in data]) \
+        == int(np.searchsorted(REGIONS, "MIDEAST"))
+    years, inv = np.unique(year, return_inverse=True)
+    # integer partial sums below 2^53: float64 adds them exactly
+    sums = np.bincount(inv[mideast], weights=rev[mideast].astype(np.float64),
+                       minlength=len(years))
+    out["cl_f13_case"] = ([[int(y), float(v)] for y, v in zip(years, sums)],
+                          len(year))
     od = np.concatenate([d["lo_orderdate"] for d in bs_data])
     m = od == CL_DAY
     supp = np.concatenate([d["lo_suppkey"] for d in bs_data])[m]
@@ -8221,7 +8331,8 @@ def cl_launches(name: str, resp: dict, tables: dict, per_role: dict,
                 before: tuple) -> None:
     """A cluster query's launches in its checked execution against
     QUERY_LAUNCHES; for cl_f12_week, K4 once under each server, whose
-    segments both matched rows."""
+    segments both matched rows; for cl_f13_case, K1 once under each server
+    that answered."""
     if name not in QUERY_LAUNCHES:
         return
     kernels0, roles0 = before
@@ -8242,6 +8353,15 @@ def cl_launches(name: str, resp: dict, tables: dict, per_role: dict,
                                  f"{resp['numServersResponded']} servers")
         log(f"cluster {name}: K4 once under each server {json.dumps(k4)}, "
             f"{resp['numSegmentsMatched']} segments matched rows")
+    if name == "cl_f13_case":
+        k1 = {r: c["group_plane_sums"] - roles0[r]["group_plane_sums"]
+              for r, c in per_role.items()}
+        if k1.pop("broker") or sorted(set(k1.values()) | {0}) != [0, 1] \
+                or sum(k1.values()) != resp["numServersResponded"]:
+            raise AssertionError(f"cluster {name}: K1 launches by role {k1}, "
+                                 f"{resp['numServersResponded']} servers")
+        log(f"cluster {name}: K1 once under each server that answered "
+            f"{json.dumps(k1)}")
 
 
 def cl_kernels(front, k1: dict, k2: dict, k3: dict, k4: dict, k5: dict,

@@ -112,6 +112,20 @@ def host_fails(what: str, err: Exception | None = None):
         f"port refuses it (ROADMAP queue 3)")
 
 
+def take_ids(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` along its first axis, with the ids clamped into
+    ``[0, len(table) - 1]``: the one gather of a lookup table by ids in
+    this module. A dictionary plane pads each segment with the id C (one
+    past the global dictionary) on unsigned storage and with -1 on int32
+    storage (engine/params.py); a pad row reads an end of the table and
+    is masked later by the valid docs. An empty table gives its dtype's
+    zero (``False``) without indexing."""
+    if table.shape[0] == 0:
+        return torch.zeros(tuple(ids.shape) + tuple(table.shape[1:]),
+                           dtype=table.dtype, device=ids.device)
+    return table[torch.clamp(ids.to(torch.int64), 0, table.shape[0] - 1)]
+
+
 @dataclasses.dataclass(frozen=True)
 class Mixed:
     """The dtype of a value whose host path dtype differs per segment (the
@@ -464,8 +478,7 @@ class ValueEvaluator:
             if mp.dtype.kind in "USO":
                 return Val(mp.vals, "dict", mp.dtype, name), mp.doc
             gv = self._dict_values(name)
-            ids = torch.clamp(mp.vals.to(torch.int64), 0, gv.shape[0] - 1)
-            return Val(gv[ids], "num", mp.dtype), mp.doc
+            return Val(take_ids(gv, mp.vals), "num", mp.dtype), mp.doc
         return Val(mp.vals, "num", mp.dtype), mp.doc
 
     def mv_hashes(self, name: str) -> torch.Tensor:
@@ -481,8 +494,7 @@ class ValueEvaluator:
             h = hll_ops.hash32_np(np.asarray(
                 self.ctx.global_dict(name).values)).view(np.int32)
             hd = to_device(h, self.device)
-            return hd[torch.clamp(mp.vals.to(torch.int64), 0,
-                                  max(hd.shape[0] - 1, 0))]
+            return take_ids(hd, mp.vals)
         return sb.hash32_values(mp.vals, mp.dtype).to(torch.int32)
 
     def mv_match(self, p: Predicate) -> torch.Tensor:
@@ -501,8 +513,7 @@ class ValueEvaluator:
             lut = to_device(predicate_over_values(
                 p, np.asarray(self.ctx.global_dict(name).values)),
                 self.device)
-            ent = lut[torch.clamp(mp.vals.to(torch.int64), 0,
-                                  max(lut.shape[0] - 1, 0))]
+            ent = take_ids(lut, mp.vals)
         elif p.type in (PredicateType.LIKE, PredicateType.REGEXP_LIKE) \
                 or self._string_literal(p) or self._wide_literal(p):
             # numbers by their text, or against an integer past int64:
@@ -549,8 +560,7 @@ class ValueEvaluator:
             if dt.kind in ("U", "S", "O"):
                 return Val(ids.to(torch.int32), "dict", dt, name)
             gv = self._dict_values(name)
-            return Val(gv[torch.clamp(ids.to(torch.int64), 0,
-                                      gv.shape[0] - 1)], "num", dt)
+            return Val(take_ids(gv, ids), "num", dt)
         if dt.kind not in "iuf":
             # raw strings or bytes: ids into their distinct values,
             # factorized on the host once a batch
@@ -683,11 +693,13 @@ class ValueEvaluator:
         col = self._lut_column(e)
         if col is not None:
             lut = self._lut(e)
-            ids = torch.clamp(rows.take(self.ctx.column(col)).to(torch.int64),
-                              0, max(len(lut) - 1, 0))
+            ids = rows.take(self.ctx.column(col))
             if lut.dtype.kind in "biuf":
-                return Val(to_device(lut, self.device)[ids], "num", lut.dtype)
-            return Val(ids, "case", lut.dtype, lut)
+                return Val(take_ids(to_device(lut, self.device), ids), "num",
+                           lut.dtype)
+            # the ids as the gather reads them: a pad row names a value
+            return Val(take_ids(torch.arange(len(lut), device=self.device),
+                                ids), "case", lut.dtype, lut)
         if e.name in _TIME_FUNCS:
             return self._time_function(e, rows)
         if e.name in _TAIL_FUNCS:
@@ -1039,8 +1051,8 @@ class ValueEvaluator:
             else fn(lit.value, values)
         lut = to_device(np.asarray(lut, dtype=bool), self.device)
         idx = torch.zeros_like(v.t, dtype=torch.int64) if v.kind == "host" \
-            else v.t.to(torch.int64)
-        return Val(lut[idx], "num", np.dtype(bool))
+            else v.t
+        return Val(take_ids(lut, idx), "num", np.dtype(bool))
 
     def _case(self, e: Expression, rows: Rows) -> Val:
         conds = list(e.args[:-1:2])
@@ -1253,8 +1265,7 @@ class ValueEvaluator:
             for w in order:   # the column's own values, as the rows hold
                 hit = [x for x in gv.tolist() if x == w]
                 values.append(hit[0] if hit else w)
-            widx = to_device(lut, dev)[torch.clamp(v.t.to(torch.int64), 0,
-                                                   max(len(lut) - 1, 0))] \
+            widx = take_ids(to_device(lut, dev), v.t) \
                 if len(lut) else torch.full_like(v.t, -1, dtype=torch.int64)
         elif v.kind == "num":
             widx = torch.full(v.t.shape, -1, dtype=torch.int64, device=dev)
@@ -1330,9 +1341,7 @@ class ValueEvaluator:
             gv = np.asarray(self.ctx.global_dict(kcol).values)
             lut = to_device(np.asarray([x == key for x in gv.tolist()],
                                        dtype=bool), dev)
-            hit = lut[torch.clamp(kv.t.to(torch.int64), 0,
-                                  max(len(gv) - 1, 0))] if len(gv) \
-                else torch.zeros_like(kv.t, dtype=torch.bool)
+            hit = take_ids(lut, kv.t)
         elif isinstance(key, (int, float, bool)):
             hit = kv.t == key
         else:   # numpy: numbers never equal a string
@@ -1415,8 +1424,8 @@ class ValueEvaluator:
                       if len(values) else np.zeros(1, dtype=np.int64),
                       self.device)
         idx = torch.zeros_like(v.t, dtype=torch.int64) if v.kind == "host" \
-            else torch.clamp(v.t.to(torch.int64), 0, h.shape[0] - 1)
-        return h[idx]
+            else v.t
+        return take_ids(h, idx)
 
     # ---- keys: equality and order ----------------------------------------
     def key(self, v: Val, shape=None) -> torch.Tensor:
@@ -1586,7 +1595,8 @@ class ValueEvaluator:
             names = self.seg_names if lhs.name == "$segmentName" \
                 else self.host_names
             lut = to_device(predicate_over_values(p, names), self.device)
-            return ("mask", plane_slot(params, counter, lut[full.seg()])[1])
+            return ("mask", plane_slot(params, counter,
+                                       take_ids(lut, full.seg()))[1])
         if lhs.is_identifier and not lhs.name.startswith("$"):
             self._check_column(lhs.name)
             if self.ctx.encoding(lhs.name) == Encoding.DICT:
@@ -1597,7 +1607,7 @@ class ValueEvaluator:
             # distinct string, gathered by id
             lut = to_device(predicate_over_values(p, np.asarray(v.meta)),
                             self.device)
-            mask = torch.broadcast_to(lut[v.t], full.seg().shape)
+            mask = torch.broadcast_to(take_ids(lut, v.t), full.seg().shape)
             return ("mask", plane_slot(params, counter, mask)[1])
         if v.kind != "num" or p.type in (
                 PredicateType.LIKE, PredicateType.REGEXP_LIKE) \
@@ -1696,7 +1706,8 @@ class ValueEvaluator:
                 out[j] = np.asarray([x], dtype=np.float64)[0]
             except (TypeError, ValueError) as err:
                 errs[j] = err
-        ids = torch.clamp(v.t.to(torch.int64), 0, out.shape[0] - 1)
+        # the ids as the gather reads them: a pad row names a value
+        ids = take_ids(torch.arange(out.shape[0], device=self.device), v.t)
         if errs:
             bad = torch.isin(ids, to_device(np.asarray(list(errs)),
                                             self.device))
@@ -1704,7 +1715,7 @@ class ValueEvaluator:
                 bad = bad & mask
             if bool(bad.any()):
                 raise host_fails(what, errs[int(ids[bad].reshape(-1)[0])])
-        return Val(to_device(out, self.device)[ids], "num",
+        return Val(take_ids(to_device(out, self.device), ids), "num",
                    np.dtype(np.float64))
 
     def distinct_lut(self, v: Val, rows: Rows, fn,
@@ -1807,11 +1818,8 @@ class ValueEvaluator:
             gv = np.asarray(self.ctx.global_dict(col).values)
             lut = to_device(np.asarray(match_values(gv), dtype=bool),
                             self.device)
-            if lut.numel():
-                ids = torch.clamp(self.ctx.column(col).to(torch.int64), 0,
-                                  lut.shape[0] - 1)
-                mask = mask | (lut[ids]
-                               & to_device(scan, self.device)[:, None])
+            mask = mask | (take_ids(lut, self.ctx.column(col))
+                           & to_device(scan, self.device)[:, None])
         return mask
 
     def _geo_mask(self, p: Predicate):
@@ -1836,7 +1844,8 @@ class ValueEvaluator:
             pos = to_device(flat, self.device)
             ids = Rows(S, L, self.device, pos).take(
                 self.ctx.column(col)).to(torch.int64)
-            d = geo_ops.haversine_torch(lon[ids], lat[ids], qlon, qlat)
+            d = geo_ops.haversine_torch(take_ids(lon, ids), take_ids(lat, ids),
+                                        qlon, qlat)
             radius = float(p.upper)
             ok = (d <= radius) if p.upper_inclusive else (d < radius)
             if p.lower is not None:

@@ -84,7 +84,8 @@ def test_importing_every_port_module_loads_no_jax():
             or m.startswith("google.protobuf")] == []
 
 
-@pytest.mark.parametrize("root", ["pinot_tpu_torch", "chip_smoke.py"])
+@pytest.mark.parametrize("root", ["pinot_tpu_torch", "chip_smoke.py",
+                                  "f13_card.py"])
 def test_no_source_imports_jax_or_the_jax_package(root):
     path = os.path.join(ROOT, root)
     files = [path] if path.endswith(".py") else [
