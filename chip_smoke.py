@@ -147,12 +147,21 @@ Phases, all on ``cuda:0``:
    signs and +-inf) a month's range each on K4 and a group-by on K2;
    F13: ``store_and_fwd_flag`` (N / Y on a u8 plane padded with the id
    2) compared with a literal in a CASE under SUM and COUNT by payment
-   type, as a group key and in a WHERE over a CASE, all rows;
+   type, as a group key and in a WHERE over a CASE, all rows; F14-F17:
+   MIN / MAX / SUM of MOD(passenger_count, vendor_id * vendor_id -
+   vendor_id), a zero divisor for half the rows, by payment type in the
+   device shape and the host path's (K1, K2), MIN / MAX of CAST(tip_amount
+   * 1e10 AS INT) and CAST(SQRT(tip_amount - 1) AS INT) (past int32 and
+   NaN, saturated and NaN as 0) and of SIGN(SQRT(tip_amount - 1)) (NaN)
+   by payment type (K2), that SIGN as a group key, and MAX / SUM of
+   CAST(x * 1e9 AS INT / LONG) by grp over ``f11_sorted`` in the host
+   path's shape (x's float64 product, numpy's cast);
    each answer of the oracle's Python type, MIN, MAX, counts and
    SUMPRECISION bit for bit (a NaN as a NaN) and the sums within 1e-9 of
    ``math.fsum``; K1 held at its captured inputs,
-   ``check_repairs_kernels``, and K2 and K4 at F11's with and without
-   every backend's NaN patterns written in, ``check_f11_kernels``).
+   ``check_repairs_kernels``, K2 and K4 at F11's with and without
+   every backend's NaN patterns written in, ``check_f11_kernels``, and
+   K2 at F14's, F15's and F17's, ``check_f14_f17_kernels``).
    Every answer is
    checked against a numpy oracle over the generated columns (HLL
    estimates from registers the oracle builds itself; for the block-skip
@@ -2819,6 +2828,52 @@ QUERY_LAUNCHES.update({
 })
 
 
+# F14-F17 (ROADMAP queue 3): the arithmetic functions at their edge
+# values. ``vendor_id`` is 1 or 2, so ``vendor_id * vendor_id -
+# vendor_id`` is 0 or 2, an int32 divisor (a literal would make it int64,
+# which K2 does not take) that is zero for half the rows: MOD gives 0
+# there, as jnp.mod and np.mod do;
+# ``tip_amount * 1e10`` passes int32 and SQRT(tip_amount - 1) is NaN for
+# the tips under a dollar, which CAST to INT saturates and maps to 0 in
+# the device shape (XLA's convert); SIGN keeps their NaN; F17's CAST to an
+# integer of a FLOAT column times a float literal takes the host's
+# float64 product in the host path's shape (f11_sorted's x, holding NaN
+# and +-inf, which numpy's cast maps to the type's minimum)
+F14_MOD = "MOD(passenger_count, vendor_id * vendor_id - vendor_id)"
+F14_AGGS = f"MIN({F14_MOD}), MAX({F14_MOD}), SUM({F14_MOD})"
+F15_CASTS = ("CAST(tip_amount * 1e10 AS INT)",
+             "CAST(SQRT(tip_amount - 1) AS INT)")
+F16_SIGN = "SIGN(SQRT(tip_amount - 1))"
+F17_CASTS = ("MAX(CAST(x * 1e9 AS INT)), MAX(CAST(x * 1e9 AS LONG)), "
+             "SUM(CAST(x * 1e9 AS LONG))")
+REP_QUERIES.update({
+    "rep_f14_mod": (f"SELECT payment_type, {F14_AGGS} FROM {TRIPS_TABLE} "
+                    f"GROUP BY payment_type ORDER BY payment_type"),
+    "rep_f14_mod_host": (f"SELECT payment_type, {F14_AGGS} FROM "
+                         f"{TRIPS_TABLE} {REP_WHERE} GROUP BY payment_type "
+                         f"ORDER BY payment_type"),
+    "rep_f15_cast": ("SELECT payment_type, " + ", ".join(
+        f"MIN({c}), MAX({c})" for c in F15_CASTS) + f" FROM {TRIPS_TABLE} "
+        f"GROUP BY payment_type ORDER BY payment_type"),
+    "rep_f16_sign": (f"SELECT payment_type, MIN({F16_SIGN}), MAX({F16_SIGN}) "
+                     f"FROM {TRIPS_TABLE} GROUP BY payment_type ORDER BY "
+                     f"payment_type"),
+    "rep_f16_key": (f"SELECT {F16_SIGN}, COUNT(*) FROM {TRIPS_TABLE} GROUP "
+                    f"BY {F16_SIGN} ORDER BY {F16_SIGN}"),
+    "rep_f17_cast_host": (f"SELECT grp, {F17_CASTS} FROM {F11_TABLE} "
+                          f"{REP_WHERE} GROUP BY grp ORDER BY grp"),
+})
+# a group-by's count one K1 launch and its int32 / float32 MIN / MAX one
+# K2 launch, in both shapes (F17's int32 MAX a value plane of the host's;
+# its int64 ones, the SUMs and an expression key's groups the torch
+# scatters)
+QUERY_LAUNCHES.update({
+    name: {"group_plane_sums": 1,
+           "group_minmax": int(name != "rep_f16_key")}
+    for name in ("rep_f14_mod", "rep_f14_mod_host", "rep_f15_cast",
+                 "rep_f16_sign", "rep_f16_key", "rep_f17_cast_host")})
+
+
 def rep_generate(seed: int = REP_SEED) -> dict:
     """The stage-2 fact (``REP_FACT_ROWS`` LONG values in [2^60, 2^61)
     on keys 0-24) and its 25-row dimension."""
@@ -2950,6 +3005,7 @@ def rep_oracle(trips: list, rep: dict, f11: list) -> dict:
                                   big, join_stats))
     want.update(rep_oracle_f11(trips, c, pay_groups, f11))
     want.update(rep_oracle_f13(trips))
+    want.update(rep_oracle_f14_f17(trips, f11))
     return want
 
 
@@ -2980,6 +3036,103 @@ def rep_oracle_f13(trips: list) -> dict:
                                      (True,)), n),
         "rep_f13_where": (_rep_checker("rep_f13_where", [[hit]], 0,
                                        (True,)), hit)}
+
+
+def _xla_int32(v: np.ndarray) -> np.ndarray:
+    """CAST(v AS INT) in the device shape: truncated, saturated into
+    int32, NaN as 0 (XLA's convert), as float64."""
+    t = np.trunc(v.astype(np.float64))
+    t = np.where(np.isnan(t), 0.0, t)
+    return np.clip(t, -2.0 ** 31, 2.0 ** 31 - 1)
+
+
+def _numpy_int(v: np.ndarray, bits: int) -> np.ndarray:
+    """CAST(v AS INT / LONG) in the host path's shape: numpy's cast of the
+    float64 values on x86, where NaN and values past the range give the
+    type's minimum; as Python ints (object), exactly."""
+    t = np.trunc(v.astype(np.float64))
+    bad = np.isnan(t) | (t >= 2.0 ** (bits - 1)) | (t < -2.0 ** (bits - 1))
+    out = np.where(bad, 0.0, t).astype(np.int64).astype(object)
+    out[bad] = -(1 << (bits - 1))
+    return out
+
+
+def _signed_key_checker(name: str, want: list):
+    """rep_f16_key's rows: each key (NaN as NaN) and its exact count."""
+    def check(got):
+        same = len(got) == len(want) and all(
+            (a[0] == b[0] or (a[0] != a[0] and b[0] != b[0]))
+            and type(a[0]) is type(b[0]) and a[1] == b[1]
+            for a, b in zip(got, want))
+        if not same:
+            raise AssertionError(f"{name}: rows {got} want {want}")
+    return check
+
+
+def rep_oracle_f14_f17(trips: list, f11: list) -> dict:
+    """The F14-F17 queries' answers (ROADMAP queue 3): MOD by a zero
+    divisor 0; the device shape's CAST over tip_amount's float32 plane as
+    XLA's convert gives it, its SIGN of NaN NaN; the host path's SIGN over
+    the float64 tips as a key, and F17's CAST of x's float64 product as
+    numpy's cast gives it; MIN / MAX as floats, sums by ``math.fsum``."""
+    import math
+
+    want = {}
+    for name, docs in (("rep_f14_mod", None), ("rep_f14_mod_host", REP_DOCS)):
+        c = {k: np.concatenate([d[k][:docs] for d in trips])
+             for k in ("payment_type", "passenger_count", "vendor_id")}
+        keys, inv = np.unique(c["payment_type"], return_inverse=True)
+        vd = c["vendor_id"]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            mod = np.mod(c["passenger_count"], vd * vd - vd)
+        mn, mx, sm = _grouped(mod, _groups(inv, len(keys)))
+        rows = [[int(k), float(mn[g]), float(mx[g]), sm[g]]
+                for g, k in enumerate(keys)]
+        want[name] = (_rep_checker(name, rows, 1, (True, True, False)),
+                      len(vd))
+    pay = np.concatenate([d["payment_type"] for d in trips])
+    keys, inv = np.unique(pay, return_inverse=True)
+    groups = _groups(inv, len(keys))
+    n = len(pay)
+    tip = np.concatenate([d["tip_amount"] for d in trips])
+    tip32 = tip.astype(np.float32)
+    with np.errstate(invalid="ignore"):
+        sq32 = np.sqrt(tip32 - np.float32(1))
+        cols = [_xla_int32(tip32 * np.float32(1e10)), _xla_int32(sq32)]
+        rows = [[int(k)] for k in keys]
+        for v in cols:
+            lo, hi = _grouped(v, groups)[:2]
+            for g in range(len(keys)):
+                rows[g] += [float(lo[g]), float(hi[g])]
+        want["rep_f15_cast"] = (_rep_checker("rep_f15_cast", rows, 1,
+                                             (True,) * 4), n)
+        sign32 = np.sign(sq32)
+        rows = [[int(k)] + [_nan_float(op.reduce(
+            sign32[groups[0][groups[1][g]:groups[1][g + 1]]]), True)
+            for op in (np.minimum, np.maximum)]
+            for g, k in enumerate(keys)]
+        want["rep_f16_sign"] = (_rep_checker("rep_f16_sign", rows, 1,
+                                             (True, True)), n)
+        sign64 = np.sign(np.sqrt(tip - 1.0))
+    nan = np.isnan(sign64)
+    vals, counts = np.unique(sign64[~nan], return_counts=True)
+    rows = [[float(v), int(c)] for v, c in zip(vals, counts)]
+    if nan.any():
+        rows.append([float("nan"), int(nan.sum())])
+    want["rep_f16_key"] = (_signed_key_checker("rep_f16_key", rows), n)
+    grp = np.concatenate([d["grp"] for d in f11])
+    x = np.concatenate([d["x"] for d in f11]).astype(np.float64) * 1e9
+    as_int, as_long = _numpy_int(x, 32), _numpy_int(x, 64)
+    rows = []
+    for g in range(F11_GROUPS):
+        m = grp == g
+        longs = as_long[m].tolist()
+        rows.append([g, float(max(as_int[m].tolist())), float(max(longs)),
+                     math.fsum(float(v) for v in longs)])
+    want["rep_f17_cast_host"] = (
+        _rep_checker("rep_f17_cast_host", rows, 1, (True, True, False)),
+        len(grp), {"totalDocs": len(grp)})
+    return want
 
 
 def rep_oracle_f6_f10(trips: list, c: dict, pay_keys, pay_groups,
@@ -3192,6 +3345,22 @@ def _nan_bits_written(t, rows=None):
     if rows is not None:
         bits[rows] = view
     return out
+
+
+def check_f14_f17_kernels(engine, k2: dict) -> None:
+    """K2 at F14's, F15's and F17's inputs, captured at its entry and held
+    against its plain version bit for bit: the int32 remainders by a zero
+    divisor in both shapes, the saturated and NaN-mapped int32 casts, and
+    F17's int32 host values."""
+    from pinot_tpu_torch.ops import group_scatter as ps
+
+    for name in ("rep_f14_mod", "rep_f14_mod_host", "rep_f15_cast",
+                 "rep_f17_cast_host"):
+        for (gid, srcs, G), _kw in capture_calls(
+                engine, REP_QUERIES[name], ps, "group_minmax_sources"):
+            label = ", ".join(f"{s.values.dtype} {'+'.join(s.ops)}"
+                              for s in srcs).replace("torch.", "")
+            k2["shapes"].append(k2_shape(f"{name}: {label}", gid, srcs, G))
 
 
 def check_f11_kernels(engine, k2: dict, k4: dict) -> None:
@@ -9804,6 +9973,7 @@ def main(argv=None) -> int:
     if "repairs" in sel:
         check_repairs_kernels(engine, k1)
         check_f11_kernels(engine, k2, k4)
+        check_f14_f17_kernels(engine, k2)
         torch.cuda.empty_cache()
     if "realtime" in sel:
         check_realtime_kernels(engine, k1, k2, k3, k4, args.up_rows)

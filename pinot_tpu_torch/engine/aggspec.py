@@ -106,14 +106,16 @@ class SumSpec(AggSpec):
     def host_groups(self, arg_values, group_idx, n):
         v = np.asarray(arg_values[0], dtype=np.float64)
         s = np.zeros(n, dtype=np.float64)
-        np.add.at(s, group_idx, v)
+        with np.errstate(invalid="ignore"):   # inf + -inf, unwarned
+            np.add.at(s, group_idx, v)
         return {"sum": s}
 
     def empty(self, n):
         return {"sum": np.zeros(n, dtype=np.float64)}
 
     def scatter_merge(self, acc, idx, part):
-        np.add.at(acc["sum"], idx, part["sum"])
+        with np.errstate(invalid="ignore"):
+            np.add.at(acc["sum"], idx, part["sum"])
 
     def finalize(self, part):
         return part["sum"]
@@ -168,7 +170,8 @@ class AvgSpec(AggSpec):
         v = np.asarray(arg_values[0], dtype=np.float64)
         s = np.zeros(n, dtype=np.float64)
         c = np.zeros(n, dtype=np.int64)
-        np.add.at(s, group_idx, v)
+        with np.errstate(invalid="ignore"):
+            np.add.at(s, group_idx, v)
         np.add.at(c, group_idx, 1)
         return {"sum": s, "count": c}
 
@@ -176,7 +179,8 @@ class AvgSpec(AggSpec):
         return {"sum": np.zeros(n, dtype=np.float64), "count": np.zeros(n, dtype=np.int64)}
 
     def scatter_merge(self, acc, idx, part):
-        np.add.at(acc["sum"], idx, part["sum"])
+        with np.errstate(invalid="ignore"):
+            np.add.at(acc["sum"], idx, part["sum"])
         np.add.at(acc["count"], idx, part["count"])
 
     def finalize(self, part):

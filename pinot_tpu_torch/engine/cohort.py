@@ -68,6 +68,11 @@ def cohort_supported(template) -> bool:
     shape, filter_tpl, _cols, group_cards, aggs, _k, final = template
     if shape not in ("agg", "groupby") or _reads(filter_tpl, ("mask",)):
         return False
+    # POWER: over integers it reads an exponent column's sign back for
+    # its refusal (ops/transform.py ``_torch_power``), which no vmap takes
+    if any(_reads(t, ("power", "pow"))
+           for t in (filter_tpl,) + tuple(argt for _n, argt, _e in aggs)):
+        return False
     num_groups = math.prod(group_cards)
     for name, argt, extra in aggs:
         if name not in COHORT_AGGS:

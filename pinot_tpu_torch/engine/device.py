@@ -152,7 +152,6 @@ from pinot_tpu_torch.engine.inflight import InflightLaunch, LaunchCoalescer
 from pinot_tpu_torch.engine.params import (
     BatchContext,
     DeviceUnsupported,
-    SUM_F64,
     ShardContext,
     build_expr,
     build_filter,
@@ -165,6 +164,7 @@ from pinot_tpu_torch.engine.params import (
 )
 from pinot_tpu_torch.engine.result import ExecutionStats, IntermediateResult
 from pinot_tpu_torch.engine.snapshot import SnapshotSegment
+from pinot_tpu_torch.engine.values import host_fails
 from pinot_tpu_torch.ops import agg as agg_ops
 from pinot_tpu_torch.ops import blockskip as bs_ops
 from pinot_tpu_torch.ops import device_reduce as dr_ops
@@ -291,6 +291,16 @@ def _eval_expr(tpl, cols, params, widths=None):
     if kind == "cast":
         return get_function("cast").torch_fn(
             _eval_expr(tpl[1], cols, params, widths), tpl[2])
+    if kind in ("power", "pow"):
+        # (kind, base, exponent[, a literal exponent's sign])
+        args = [_eval_expr(a, cols, params, widths) for a in tpl[1:3]]
+        try:
+            return get_function(kind).torch_fn(
+                *_uint64_args(tpl[1:3], args),
+                negative=tpl[3] if len(tpl) > 3 else None)
+        except ValueError as err:
+            raise host_fails("POWER of integers with a negative exponent",
+                             err) from err
     fn = get_function(kind)
     args = [_eval_expr(a, cols, params, widths) for a in tpl[1:]]
     return fn.torch_fn(*_uint64_args(tpl[1:], args))
@@ -1799,13 +1809,8 @@ class DeviceExecutor:
         # bounds the fused plan's per-block int32 partials
         nplanes = rpb = None
         bounds = expr_bounds(a.args[0], ctx)
-        if bounds is not None and math.isfinite(bounds[0]) \
-                and not -2 ** 63 <= math.floor(bounds[0]) < 2 ** 63:
-            # a low end past int64 (``L + 9223372036854775807``) is no
-            # offset for the byte planes: the reference's total is then
-            # the exact sum of the int64 values, which float64 takes
-            return (name, argt, (None, None, SUM_F64))
         # a NaN in the column makes its metadata bounds NaN: no byte planes
+        # (a low end past int64 is the host path's shape, ``_agg_on_device``)
         if bounds is not None and all(map(math.isfinite, bounds)):
             rpb = agg_ops.rows_per_block_for(max(abs(bounds[0]),
                                                  abs(bounds[1])))
@@ -1871,6 +1876,14 @@ class DeviceExecutor:
                 and ctx.device_encoding(arg.name) == Encoding.DICT
         if name in WITH_TIME_AGGS:
             return expr_on_device(arg, ctx) and expr_on_device(a.args[1], ctx)
+        if name in ("sum", "avg") and expr_on_device(arg, ctx):
+            # the reference's device takes the low end of the operand's
+            # bounds as the byte planes' int64 offset, and fails on one
+            # past int64 or infinite (``L + 9223372036854775807``,
+            # ``CAST(fl * 1e30 AS LONG)``): its host answers
+            lo = (expr_bounds(arg, ctx) or (0.0,))[0]
+            return math.isnan(lo) or (
+                math.isfinite(lo) and -2 ** 63 <= math.floor(lo) < 2 ** 63)
         return expr_on_device(arg, ctx)
 
     @staticmethod

@@ -1220,8 +1220,14 @@ def build_expr(e: Expression, ctx: BatchContext, params: dict, counter: list):
     if e.name == "cast":
         arg = build_expr(e.args[0], ctx, params, counter)
         return ("cast", arg, str(e.args[1].value).upper())
-    return (e.name,) + tuple(build_expr(a, ctx, params, counter)
-                             for a in e.args)
+    out = (e.name,) + tuple(build_expr(a, ctx, params, counter)
+                            for a in e.args)
+    if e.name in ("power", "pow") and e.args[1].is_literal:
+        # whether the literal exponent is negative, for the integer
+        # power's refusal (ops/transform.py ``_torch_power``), read here
+        # and not from the device
+        out += (bool(np.asarray(e.args[1].value) < 0),)
+    return out
 
 
 # the last entry of a SUM / AVG template's extra where the sum is taken

@@ -425,20 +425,30 @@ def _agg_plan(ex, q, ctx, ev, aggs, full, params, counter, cols, filters,
 
 def _template_reads(a, ctx, ev) -> bool:
     """Whether the device template reads a plain aggregation's operand
-    as the reference's host does. It does not for a float64 operand (a
-    DOUBLE column, bare or in an expression; a division), which it reads
-    from the float32 planes, nor for an integer SUM / AVG whose int64
-    sum over the batch could pass 2^63, which the host sums in float64."""
+    as the reference's host does. It does not where the operand or any
+    expression under it is float64 on the host (a DOUBLE column, a float
+    literal, a division), which the template computes in float32, also
+    under a node whose value is narrower, such as a CAST to an integer
+    (ROADMAP queue 3, F17); nor for an integer SUM / AVG whose int64 sum
+    over the batch could pass 2^63, which the host sums in float64."""
     if a.name == "count":
         return True
     arg = a.args[0]
-    if not expr_on_device(arg, ctx):
+    if not expr_on_device(arg, ctx) or _float64_inside(arg, ev):
         return False
     dt = ev.probe(arg).dtype
-    if dt == np.float64:
-        return False
     return a.name not in ("sum", "avg") \
         or not _could_wrap(expr_bounds(arg, ctx), dt, ev)
+
+
+def _float64_inside(e, ev) -> bool:
+    """Whether the host computes ``e`` or an expression under it in
+    float64 (a CAST's type name aside)."""
+    if ev.probe(e).dtype == np.float64:
+        return True
+    args = e.args[:1] if e.is_function and e.name == "cast" \
+        else e.args if e.is_function else ()
+    return any(_float64_inside(x, ev) for x in args)
 
 
 def _could_wrap(bounds, dt: np.dtype, ev) -> bool:

@@ -300,18 +300,52 @@ def _wide_int(x) -> bool:
         and not -(1 << 63) <= x < (1 << 63)
 
 
+def _np_sign(a: torch.Tensor) -> torch.Tensor:
+    """``np.sign``: NaN stays NaN and -0.0 gives 0.0 (torch.sign gives 0
+    for NaN and keeps -0.0)."""
+    if not a.is_floating_point():
+        return torch.sign(a)
+    return torch.where(torch.isnan(a), a, torch.sign(a) + 0.0)
+
+
+def _np_extreme(less: bool):
+    """``np.minimum`` / ``np.maximum``: a NaN in either operand wins, and
+    of two equal operands (two zeros of either sign) the second (torch's
+    pick depends on its kernel's vector width)."""
+    def fn(a, b):
+        if not a.is_floating_point():
+            return torch.minimum(a, b) if less else torch.maximum(a, b)
+        first = torch.isnan(a) | ((a < b) if less else (a > b))
+        return torch.where(first, a, b)
+    return fn
+
+
+def _np_int_cast(x: torch.Tensor, tdt: torch.dtype) -> torch.Tensor:
+    """numpy's ``np.trunc(float64(x)).astype(int type)`` on x86, on every
+    backend: NaN and values past the type's range give its minimum (the
+    conversion's "integer indefinite"; CUDA's saturates instead)."""
+    x = torch.trunc(x.to(torch.float64))
+    end = 2.0 ** (torch.iinfo(tdt).bits - 1)
+    bad = torch.isnan(x) | (x >= end) | (x < -end)
+    inside = torch.where(bad, torch.zeros_like(x), x).to(tdt)
+    return torch.where(bad, torch.iinfo(tdt).min, inside)
+
+
 # numpy ufunc-style functions computed in their result dtype, after every
-# operand is cast to it. POWER, EXP, the logarithms and the trigonometric
-# functions have none: a libm or vectorized pow, exp, log or sine is a
-# last bit off numpy's, so they run numpy's form per distinct tuple
-# (``_per_tuple``). SQRT is correctly rounded everywhere
-# (``_ieee_sqrt``)
+# operand is cast to it. These follow numpy, the reference host's form,
+# where ops/transform.py's torch forms follow ``jnp`` (its note there
+# names where the two part: MOD, CAST, SIGN, POWER); a function added
+# here is checked against numpy (tests/test_torch_edge_values.py).
+# POWER, EXP, the logarithms and the trigonometric functions have none: a
+# libm or vectorized pow, exp, log or sine is a last bit off numpy's, so
+# they run numpy's form per distinct tuple (``_per_tuple``). SQRT is
+# correctly rounded everywhere (``_ieee_sqrt``)
 _ARITH = {
     "plus": torch.add, "minus": torch.sub, "times": torch.mul,
-    "least": torch.minimum, "greatest": torch.maximum,
+    "least": _np_extreme(True), "greatest": _np_extreme(False),
 }
 _UNARY = {
-    "abs": torch.abs, "sign": torch.sign, "sqrt": _ieee_sqrt,
+    "abs": torch.abs, "sign": _np_sign, "sqrt": _ieee_sqrt,
     "degrees": torch.rad2deg, "radians": torch.deg2rad,
 }
 # rounding: the identity on an integer result dtype
@@ -354,13 +388,14 @@ def numeric_op(e: Expression, t: list, out_dt: np.dtype,
     if name == "mod":
         a, b = (x.to(tdt) for x in t)
         if out_dt.kind == "f":
-            # numpy: fmod, then moved to the divisor's sign
+            # numpy: fmod, then moved to the divisor's sign; a zero
+            # takes the divisor's sign
             r = torch.fmod(a, b)
             fix = (r != 0) & ((r < 0) != (b < 0))
-            return torch.where(fix, r + b, r)
-        zero = b == 0
-        r = torch.remainder(a, torch.where(zero, torch.ones_like(b), b))
-        return torch.where(zero, torch.zeros_like(r), r)
+            return torch.where(r == 0, torch.copysign(torch.zeros_like(r), b),
+                               torch.where(fix, r + b, r))
+        # numpy's integer rule is jnp's: 0 where the divisor is 0
+        return tf._torch_mod(a, b)
     if name in _UNARY:
         return _UNARY[name](t[0].to(tdt))
     if name in _COMPARE:
@@ -378,7 +413,7 @@ def numeric_op(e: Expression, t: list, out_dt: np.dtype,
     x = t[0]
     if np.dtype(_CAST_NP[str(e.args[1].value).upper()]).kind in "iu" \
             and x.is_floating_point():
-        x = torch.trunc(x.to(torch.float64))
+        return _np_int_cast(x, tdt)
     return x.to(tdt)
 
 
@@ -1025,7 +1060,11 @@ class ValueEvaluator:
         if e not in self._luts:
             col = self._lut_column(e)
             gv = np.asarray(self.ctx.global_dict(col).values)
-            out = np.asarray(np_eval(e, {col: gv}))
+            try:
+                out = np.asarray(np_eval(e, {col: gv}))
+            except (TypeError, ValueError) as err:
+                # e.g. POWER of integers with a negative exponent
+                raise host_fails(str(e), err) from err
             if out.ndim == 0:
                 out = np.broadcast_to(out, gv.shape).copy()
             self._luts[e] = out

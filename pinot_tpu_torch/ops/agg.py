@@ -43,6 +43,8 @@ def _wide(values):
 def _extremes(dtype):
     if dtype.is_floating_point:
         return POS_INF, NEG_INF
+    if dtype == torch.bool:   # CAST(x AS BOOLEAN), as jnp.iinfo(bool)
+        return True, False
     info = torch.iinfo(dtype)
     return info.max, info.min
 

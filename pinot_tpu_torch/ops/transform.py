@@ -107,6 +107,73 @@ def _integral(fn):
 
 
 # ---- arithmetic -----------------------------------------------------------
+#
+# The torch forms are the device template's (engine/device.py
+# ``_eval_expr``) and follow the reference's ``jnp`` forms, dtypes and
+# edge values; the host path's shape computes in numpy's dtypes and by
+# numpy's rules instead (engine/values.py ``numeric_op``). The two oracles
+# part at MOD (an integer zero divisor gives 0 in both, the dtypes apart),
+# CAST of a float to an integer (XLA saturates and maps NaN to 0; numpy on
+# x86 gives the type's minimum), SIGN (``jnp.sign`` keeps the sign of
+# zero, ``np.sign(-0.0)`` is 0.0; both keep NaN) and POWER (integer
+# operands with a negative exponent: refused, as numpy refuses them). A
+# function added here is checked against ``jnp``; one added to
+# values.py's tables against numpy (tests/test_torch_edge_values.py).
+
+# "the reference's host path fails on it too": numpy's message
+NEGATIVE_POWER = "Integers to negative integer powers are not allowed."
+
+
+def _torch_mod(a, b):
+    """``jnp.mod``: a float remainder takes the divisor's sign; an integer
+    one is 0 where the divisor is 0 (torch raises there on the CPU, and
+    CUDA's remainder gives no defined value) and where it is -1 (so
+    INT_MIN % -1 cannot overflow)."""
+    a, b = _promoted(a, b)
+    if a.is_floating_point():
+        return torch.remainder(a, b)
+    zero = (b == 0) | (b == -1)
+    r = torch.remainder(a, torch.where(zero, torch.ones_like(b), b))
+    return torch.where(zero, torch.zeros_like(r), r)
+
+
+def _torch_sign(a):
+    """``jnp.sign``: NaN stays NaN and a zero keeps its sign (torch.sign
+    gives 0 for NaN)."""
+    if not a.is_floating_point():
+        return torch.sign(a)
+    return torch.where(torch.isnan(a) | (a == 0), a, torch.sign(a))
+
+
+def _signed_zero_extreme(op, least: bool):
+    """``jnp.minimum`` / ``jnp.maximum``: NaN wins, and of two zeros
+    LEAST gives -0.0 and GREATEST +0.0 whatever their order (torch's
+    result for equal operands depends on its kernel's vector width)."""
+    def fn(a, b):
+        r = op(a, b)
+        if not r.is_floating_point():
+            return r
+        neg = torch.signbit(a)
+        pick = torch.where(neg, a, b) if least else torch.where(neg, b, a)
+        return torch.where((a == 0) & (b == 0), pick, r)
+    return fn
+
+
+def _torch_power(a, b, negative=None):
+    """``jnp.power`` over operands promoted as JAX arrays are. Integer
+    operands with a negative exponent are refused, as the reference's
+    host refuses them (``NEGATIVE_POWER``; its device's integer power
+    gives no power there): ``negative`` says whether a literal exponent
+    is negative (known on the host, no device work); None checks the
+    exponent's values, one reduction read back."""
+    a, b = _promoted(a, b)
+    if not a.is_floating_point() and a.dtype != torch.bool:
+        if negative is None:
+            negative = bool((b < 0).any())
+        if negative:
+            raise ValueError(NEGATIVE_POWER)
+    return torch.pow(a, b)
+
 
 def _np_div(a, b):
     with np.errstate(divide="ignore", invalid="ignore"):
@@ -127,7 +194,7 @@ _reg("plus", lambda a, b: np.add(a, b), _bin(lambda a, b: torch.add(a, b)), 2)
 _reg("minus", lambda a, b: np.subtract(a, b), _bin(lambda a, b: torch.sub(a, b)), 2)
 _reg("times", lambda a, b: np.multiply(a, b), _bin(lambda a, b: torch.mul(a, b)), 2)
 _reg("divide", _np_div, _torch_div, 2)
-_reg("mod", lambda a, b: np.mod(a, b), _bin(lambda a, b: torch.remainder(a, b)), 2)
+_reg("mod", lambda a, b: np.mod(a, b), _torch_mod, 2)
 _reg("abs", np.abs, (lambda a: torch.abs(a)), 1)
 _reg("ceil", np.ceil, _integral(torch.ceil), 1)
 _reg("floor", np.floor, _integral(torch.floor), 1)
@@ -138,11 +205,13 @@ _reg("log2", np.log2, _float(lambda a: torch.log(a) * 1.4426950408889634), 1)
 _reg("log10", np.log10, _float(lambda a: torch.log(a) * 0.4342944819032518),
      1)
 _reg("sqrt", np.sqrt, _float(_ieee_sqrt), 1)
-_reg("power", np.power, _bin(lambda a, b: torch.pow(a, b)), 2)
-_reg("pow", np.power, _bin(lambda a, b: torch.pow(a, b)), 2)
-_reg("least", np.minimum, _bin(lambda a, b: torch.minimum(a, b)), 2)
-_reg("greatest", np.maximum, _bin(lambda a, b: torch.maximum(a, b)), 2)
-_reg("sign", np.sign, (lambda a: torch.sign(a)), 1)
+_reg("power", np.power, _torch_power, 2)
+_reg("pow", np.power, _torch_power, 2)
+_reg("least", np.minimum, _bin(_signed_zero_extreme(torch.minimum, True)),
+     2)
+_reg("greatest", np.maximum,
+     _bin(_signed_zero_extreme(torch.maximum, False)), 2)
+_reg("sign", np.sign, _torch_sign, 1)
 _reg("round", np.round, _torch_round, 1, 2,
      device_args=lambda args: len(args) == 1)
 
@@ -218,13 +287,30 @@ def _np_cast(a, type_name):
     return np.asarray(a).astype(t)
 
 
+# 2^31 and 2^63: the first float past each integer type's range
+_INT_END = {torch.int32: 2.0 ** 31, torch.int64: 2.0 ** 63}
+
+
 def _torch_cast(a, type_name):
+    """``_jnp_cast``: a float to an integer truncates, then saturates into
+    the type's range with NaN as 0 (XLA's convert; torch's CPU cast gives
+    the type's minimum). The ends compare as floats: INT_MAX and LONG_MAX
+    are no float32's (nor LONG_MAX a float64's), so a clamp in the
+    operand's type would round past the range."""
     t = _CAST_TORCH.get(str(type_name).upper())
     if t is None:
         raise KeyError(f"CAST to {type_name} is host-only")
+    dt = getattr(torch, t)
     if t.startswith("int") and a.is_floating_point():
         a = torch.trunc(a)
-    return a.to(getattr(torch, t))
+        end = _INT_END[dt]
+        high, low = a >= end, a < -end
+        inside = torch.where(high | low | torch.isnan(a),
+                             torch.zeros_like(a), a).to(dt)
+        info = torch.iinfo(dt)
+        return torch.where(high, info.max, torch.where(low, info.min,
+                                                       inside))
+    return a.to(dt)
 
 
 _reg("cast", _np_cast, _torch_cast, 2,

@@ -170,8 +170,10 @@ class QueryServerTransport:
                  exchange_transfer_fn: Optional[Callable] = None):
         import grpc
 
+        # gRPC does not own the pool it is given: ``stop`` shuts it down
+        self._pool = futures.ThreadPoolExecutor(max_workers=max_workers)
         self._server = grpc.server(
-            futures.ThreadPoolExecutor(max_workers=max_workers),
+            self._pool,
             handlers=(_bytes_handler(grpc, submit_fn, submit_streaming_fn,
                                      fetch_segment_fn, execute_stage_fn,
                                      exchange_transfer_fn),),
@@ -191,7 +193,10 @@ class QueryServerTransport:
         self._server.start()
 
     def stop(self, grace: float = 1.0) -> None:
-        self._server.stop(grace)
+        # the pool's workers exit once the RPCs in flight are done or
+        # ``grace`` has passed
+        self._server.stop(grace).wait(grace)
+        self._pool.shutdown(wait=False)
 
     @property
     def endpoint(self) -> str:
